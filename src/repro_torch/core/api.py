@@ -1,0 +1,820 @@
+"""Plan-based public API of the port, slice 1: the dense-output ``ring_c``.
+
+Port of the main path of ``repro/core/api.py``:
+
+* :class:`DistBSR` / :class:`DistDense` — distributed-matrix handles
+  wrapping a :class:`~repro_torch.core.bsr.TiledBSR` / a grid-padded dense
+  tensor, with a cache of placements (the paper's ``k_offset`` skew is
+  materialised at most once per operand and placement).
+* :func:`plan_matmul` -> :class:`MatmulPlan` — geometry, placement needs
+  and the schedule body, cached in an LRU plan cache.
+* :func:`matmul` — sparse x dense (SpMM), sparse x sparse with a dense
+  output (SpGEMM, B densified once per multiply) and dense x dense, all
+  through the stationary-C ring ``ring_c`` (paper Alg. 2).
+
+Where the JAX package runs the body under ``shard_map`` on a device mesh,
+the port runs it on a :class:`~repro_torch.core.executor.StackedExecutor`:
+the g x g tiles live stacked on one card, ring shifts are rolls of the
+stack, and each step's local multiply is one batched kernel launch.
+
+Not in this slice (each raises a ``ValueError`` saying so): the other
+schedules and ``algorithm="auto"``, sparse outputs and the packed wire.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import ops as kops
+from ..runtime.device import as_tensor, resolve_device, strict_fp32
+from . import schedule as _schedule
+from .bsr import TiledBSR
+from .dist import (place_b_for_stationary_a, skew_bsr, skew_dense, tileize,
+                   unskew_c_rows, untileize)
+from .executor import StackedExecutor
+from .grid import ProcessGrid, pad_to_multiple
+
+__all__ = [
+    "NATURAL", "SKEW_ROWS", "SKEW_COLS", "STATIONARY_A", "PLACEMENTS",
+    "DistMatrix", "DistBSR", "DistDense", "Algorithm", "algorithms",
+    "MatmulPlan", "plan_matmul", "matmul",
+    "clear_plan_cache", "plan_cache_size", "cache_stats",
+]
+
+# Placement states a DistMatrix can hold (the paper's directory remaps).
+NATURAL = "natural"            # tile (i, j) at grid position (i, j)
+SKEW_ROWS = "skew_rows"        # position (i, j) holds tile (i, (i+j)%g)
+SKEW_COLS = "skew_cols"        # position (i, j) holds tile ((i+j)%g, j)
+STATIONARY_A = "stationary_a"  # position (i, j) holds tile (j, (i+j)%g)
+PLACEMENTS = (NATURAL, SKEW_ROWS, SKEW_COLS, STATIONARY_A)
+
+# Schedules of the JAX package that later slices of the port bring over.
+_NOT_PORTED = ("summa_bcast", "summa_ag", "ring_a", "ring_c_bidir",
+               "steal3d")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Geom:
+    """Static geometry of a plan, threaded to the schedule body."""
+    g: int
+    tm: int           # local C tile rows
+    tn: int           # local C tile cols
+    a_nbr: int        # block-rows per A tile (0 => dense A)
+    b_nbr: int        # block-rows per B tile (0 => dense B)
+    b_nbc: int        # block-cols per B tile (0 => dense B)
+    impl: Optional[str]
+    out_dtype: torch.dtype
+    overlap: bool = False
+    # split-step body (plan_matmul(overlap="on")): step t+2's ring shift is
+    # issued before step t's accumulate
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+# ---------------------------------------------------------------------------
+# Local tile math on the stacked grid (operand trees hold only tensors)
+# ---------------------------------------------------------------------------
+def _densify_b(b: Dict, geom: _Geom, ex: StackedExecutor) -> Dict:
+    """Densify a sparse B tile grid once, before the ring steps."""
+    if "dense" in b:
+        return b
+    d = kops.densify(ex.batch(b["blocks"]), ex.batch(b["rows"]),
+                     ex.batch(b["cols"]), n_block_rows=geom.b_nbr,
+                     n_block_cols=geom.b_nbc)
+    return {"dense": ex.unbatch(d)}
+
+
+def _local_mm(a: Dict, b: Dict, geom: _Geom,
+              ex: StackedExecutor) -> torch.Tensor:
+    """Every tile's local product of one ring step, in one batched call."""
+    b_dense = ex.batch(b["dense"])    # the body pre-densifies sparse B
+    if "dense" in a:
+        # summed in float32, as the JAX package's preferred_element_type
+        out = torch.matmul(ex.batch(a["dense"]).float(), b_dense.float())
+    else:
+        # TiledBSR tiles are stored coverage-augmented and row-sorted
+        out = kops.bsr_spmm_raw(ex.batch(a["blocks"]), ex.batch(a["rows"]),
+                                ex.batch(a["cols"]), b_dense,
+                                n_block_rows=geom.a_nbr, impl=geom.impl,
+                                augment=False)
+    return ex.unbatch(out.to(geom.out_dtype))
+
+
+def _body_ring_c(a: Dict, b: Dict, geom: _Geom,
+                 ex: StackedExecutor) -> torch.Tensor:
+    """Paper Alg 2 (stationary-C): skewed placement + neighbour ring shifts.
+
+    A rides the ``col`` ring and B the ``row`` ring; C accumulates in place
+    (the JAX body's ``c + ...`` in the same dtype, without a new buffer per
+    step).
+
+    The bulk body issues step t+1's shift before step t's multiply (paper
+    SS3.3 prefetch); the split-step body (``geom.overlap``) keeps one more
+    step in flight, issuing step t+2's shift before step t's multiply.  On
+    one stream that only reorders the launches and keeps one more copy of
+    each operand alive, and at g = 2 the two bodies issue the same launches.
+    The JAX bodies also shift after the last step, whose tiles nothing
+    consumes; here that shift would copy the whole operand on the card, so
+    the port makes g - 1 shifts per operand.
+    """
+    b = _densify_b(b, geom, ex)
+    c = torch.zeros((geom.g, geom.g, geom.tm, geom.tn), dtype=geom.out_dtype,
+                    device=ex.device)
+    ahead = 2 if geom.overlap else 1
+    queue = [(a, b)]            # the tiles of steps t, t+1, ... in order
+    for t in range(geom.g):
+        while len(queue) <= ahead and t + len(queue) < geom.g:
+            a_q, b_q = queue[-1]
+            queue.append((ex.shift(a_q, "col"), ex.shift(b_q, "row")))
+        c += _local_mm(*queue.pop(0), geom, ex)
+    return c
+
+
+@dataclasses.dataclass(frozen=True)
+class Algorithm:
+    """A schedule: body + the placement each operand must be in."""
+    name: str
+    body: Callable
+    a_placement: str = NATURAL
+    b_placement: str = NATURAL
+    unskew_out: Optional[str] = None        # None | "rows"
+
+
+_ALGORITHMS: Dict[str, Algorithm] = {
+    "ring_c": Algorithm("ring_c", _body_ring_c, a_placement=SKEW_ROWS,
+                        b_placement=SKEW_COLS),
+}
+
+
+def algorithms() -> Tuple[str, ...]:
+    """Names of the schedules the port has."""
+    return tuple(_ALGORITHMS)
+
+
+# ---------------------------------------------------------------------------
+# Plan cache
+# ---------------------------------------------------------------------------
+class _LRUCache:
+    """Small bounded cache: access-ordered, with hit/miss/eviction counters.
+
+    Every entry is rebuilt on demand from its operands, so eviction only
+    costs a rebuild on re-miss.  ``clear()`` drops entries, keeps counters.
+    """
+
+    def __init__(self, maxsize: int):
+        self.maxsize = int(maxsize)
+        self.evictions = 0
+        self.hits = 0
+        self.misses = 0
+        self._d: "collections.OrderedDict" = collections.OrderedDict()
+
+    def get(self, key, default=None):
+        try:
+            value = self._d[key]
+        except KeyError:
+            self.misses += 1
+            return default
+        self.hits += 1
+        self._d.move_to_end(key)
+        return value
+
+    def __setitem__(self, key, value) -> None:
+        if key in self._d:
+            self._d.move_to_end(key)
+        self._d[key] = value
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
+            self.evictions += 1
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def clear(self) -> None:
+        self._d.clear()
+
+    def reset_counters(self) -> None:
+        self.evictions = 0
+        self.hits = 0
+        self.misses = 0
+
+
+PLAN_CACHE_MAX = 128
+_PLAN_CACHE = _LRUCache(PLAN_CACHE_MAX)
+
+
+def clear_plan_cache() -> None:
+    _PLAN_CACHE.clear()
+
+
+def plan_cache_size() -> int:
+    return len(_PLAN_CACHE)
+
+
+def cache_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
+    """Size, cap, hit/miss and eviction counts of the plan cache.
+
+    ``reset=True`` zeroes the counters after reading them; the returned
+    dict holds the values from before the reset.
+    """
+    c = _PLAN_CACHE
+    out = {"plans": {"size": len(c), "maxsize": c.maxsize,
+                     "evictions": c.evictions, "hits": c.hits,
+                     "misses": c.misses}}
+    if reset:
+        c.reset_counters()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Distributed-matrix handles
+# ---------------------------------------------------------------------------
+def _place_bsr(t: TiledBSR, placement: str) -> TiledBSR:
+    if placement == NATURAL:
+        return t
+    if placement in (SKEW_ROWS, SKEW_COLS):
+        return skew_bsr(t, placement[len("skew_"):])
+    if placement == STATIONARY_A:
+        g = t.grid_shape[0]
+        i = torch.arange(g, device=t.device)[:, None]
+        j = torch.arange(g, device=t.device)[None, :]
+        si, sj = j + 0 * i, (i + j) % g   # position (i,j) <- tile (j,(i+j)%g)
+        return dataclasses.replace(
+            t, blocks=t.blocks[si, sj], rows=t.rows[si, sj],
+            cols=t.cols[si, sj], counts=t.counts[si, sj])
+    raise ValueError(f"unknown placement {placement!r}; one of {PLACEMENTS}")
+
+
+def _place_dense(x: torch.Tensor, g: int, placement: str) -> torch.Tensor:
+    if placement == NATURAL:
+        return x
+    if placement == SKEW_ROWS:
+        return skew_dense(x, g, "rows")
+    if placement == SKEW_COLS:
+        return skew_dense(x, g, "cols")
+    if placement == STATIONARY_A:
+        return place_b_for_stationary_a(x, g)
+    raise ValueError(f"unknown placement {placement!r}; one of {PLACEMENTS}")
+
+
+class DistMatrix:
+    """A matrix distributed over a square ``g x g`` process grid.
+
+    ``placed(p)`` materialises the operand tree for placement ``p`` at most
+    once per handle, as stacked ``[g, g, ...]`` tile tensors.
+    """
+
+    kind = "abstract"
+
+    @property
+    def g(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def shape(self) -> Tuple[int, int]:      # padded global shape
+        raise NotImplementedError
+
+    @property
+    def logical_shape(self) -> Tuple[int, int]:
+        raise NotImplementedError
+
+    @property
+    def device(self) -> torch.device:
+        raise NotImplementedError
+
+    @property
+    def tile_shape(self) -> Tuple[int, int]:
+        s = self.shape
+        return s[0] // self.g, s[1] // self.g
+
+    def placed(self, placement: str) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def abstract_key(self) -> tuple:
+        """Hashable signature (shapes, dtype, device; no data) for caching."""
+        raise NotImplementedError
+
+    def placements(self) -> Tuple[str, ...]:
+        """Placement states materialised so far."""
+        return tuple(self._placed)
+
+
+class DistBSR(DistMatrix):
+    """Handle for a block-sparse distributed matrix (wraps TiledBSR)."""
+
+    kind = "bsr"
+
+    def __init__(self, tiled: TiledBSR):
+        if tiled.grid_shape[0] != tiled.grid_shape[1]:
+            raise ValueError("square process grid required, got "
+                             f"{tiled.grid_shape}")
+        self.tiled = tiled
+        self._placed: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    @classmethod
+    def from_tiled(cls, tiled: TiledBSR, *, balance: str = "none",
+                   capacity="keep") -> "DistBSR":
+        """Wrap a TiledBSR; ``balance != "none"`` re-tiles with balancing.
+
+        Re-balancing goes through a dense round trip; a value that already
+        carries a balance permutation is kept as it is.  ``capacity``:
+        ``"keep"`` (default) keeps the value's capacity, ``None`` re-derives
+        the minimum, ``"bucket"`` its 1.25x bucket, an int pins it.  A
+        capacity other than ``"keep"`` on a call that does not re-tile
+        raises.
+        """
+        if balance not in ("none", "rows", "cols", "auto"):
+            raise ValueError(f"unknown balance {balance!r}; one of "
+                             "('none', 'rows', 'cols', 'auto')")
+        rebuilds = balance != "none" and tiled.row_block_perm is None \
+            and tiled.col_block_perm is None
+        if capacity != "keep" and not rebuilds:
+            raise ValueError(
+                "capacity can only be changed when from_tiled re-tiles "
+                "(balance= on an unbalanced value); otherwise rebuild "
+                "with TiledBSR.from_dense(capacity=...)")
+        if rebuilds:
+            m, n = tiled.logical_shape or tiled.shape
+            cap = tiled.capacity if capacity == "keep" else capacity
+            tiled = TiledBSR.from_dense(
+                tiled.to_dense()[:m, :n], ProcessGrid(*tiled.grid_shape),
+                tiled.block_size, capacity=cap, dtype=tiled.dtype,
+                balance=balance, device=tiled.device)
+        return cls(tiled)
+
+    @classmethod
+    def from_dense(cls, dense, *, g: int, block_size: int,
+                   capacity="bucket", dtype: Optional[torch.dtype] = None,
+                   balance: str = "none", device=None) -> "DistBSR":
+        """Tile + wrap a dense array on ``device`` (the card by default).
+
+        The default capacity is ``"bucket"``, so handles for near-identical
+        sparsity patterns share abstract shapes and therefore plans.
+        """
+        return cls(TiledBSR.from_dense(dense, ProcessGrid(g, g), block_size,
+                                       capacity=capacity, dtype=dtype,
+                                       balance=balance, device=device))
+
+    @property
+    def g(self) -> int:
+        return self.tiled.grid_shape[0]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.tiled.shape
+
+    @property
+    def logical_shape(self) -> Tuple[int, int]:
+        return self.tiled.logical_shape or self.tiled.shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.tiled.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.tiled.dtype
+
+    @property
+    def block_size(self) -> int:
+        return self.tiled.block_size
+
+    @property
+    def capacity(self) -> int:
+        return self.tiled.capacity
+
+    @property
+    def counts(self) -> torch.Tensor:
+        return self.tiled.counts
+
+    @property
+    def row_block_perm(self) -> Optional[Tuple[int, ...]]:
+        """Row-block balance permutation (None unless ``balance="rows"``)."""
+        return self.tiled.row_block_perm
+
+    @property
+    def col_block_perm(self) -> Optional[Tuple[int, ...]]:
+        """Column-block balance permutation (``balance="cols"``)."""
+        return self.tiled.col_block_perm
+
+    def _inv_perm(self, which: str) -> Optional[torch.Tensor]:
+        perm = getattr(self.tiled, f"{which}_block_perm")
+        if perm is None:
+            return None
+        attr = f"_inv_{which}_perm"
+        inv = getattr(self, attr, None)
+        if inv is None:
+            inv = torch.as_tensor(_schedule.invert_perm(perm),
+                                  device=self.device)
+            setattr(self, attr, inv)
+        return inv
+
+    def inv_row_perm(self) -> Optional[torch.Tensor]:
+        """Inverse of ``row_block_perm`` on the device, cached."""
+        return self._inv_perm("row")
+
+    def inv_col_perm(self) -> Optional[torch.Tensor]:
+        """Inverse of ``col_block_perm`` on the device, cached."""
+        return self._inv_perm("col")
+
+    def densify(self) -> torch.Tensor:
+        """Dense logical-shape value (inverts balance perms, crops padding)."""
+        d = self.tiled.to_dense()
+        bs = self.block_size
+        if self.tiled.row_block_perm is not None:
+            d = d.reshape(-1, bs, d.shape[1])[self.inv_row_perm()].reshape(
+                d.shape)
+        if self.tiled.col_block_perm is not None:
+            d = d.reshape(d.shape[0], -1, bs)[:, self.inv_col_perm()].reshape(
+                d.shape)
+        m, n = self.logical_shape
+        return d[:m, :n]
+
+    def placed(self, placement: str) -> Dict[str, torch.Tensor]:
+        tree = self._placed.get(placement)
+        if tree is None:
+            t = _place_bsr(self.tiled, placement)
+            tree = {"blocks": t.blocks, "rows": t.rows, "cols": t.cols}
+            self._placed[placement] = tree
+        return tree
+
+    def abstract_key(self) -> tuple:
+        t = self.tiled
+        return ("bsr", t.shape, t.grid_shape, t.block_size, t.capacity,
+                _dtype_name(t.dtype), str(t.device))
+
+
+class DistDense(DistMatrix):
+    """Handle for a dense distributed matrix (grid-padded global tensor)."""
+
+    kind = "dense"
+
+    def __init__(self, data: torch.Tensor, g: int,
+                 logical_shape: Optional[Tuple[int, int]] = None):
+        if not isinstance(data, torch.Tensor):
+            raise TypeError("DistDense wraps a tensor; use "
+                            "DistDense.from_global for arrays")
+        if data.dim() != 2:
+            raise ValueError(f"expected a 2-D array, got shape "
+                             f"{tuple(data.shape)}")
+        if data.shape[0] % g or data.shape[1] % g:
+            raise ValueError(
+                f"padded shape {tuple(data.shape)} not divisible by grid "
+                f"size {g}; use DistDense.from_global to pad")
+        self.data = data
+        self._g = g
+        self._logical = tuple(logical_shape or data.shape)
+        self._placed: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    @classmethod
+    def from_global(cls, x, g: int, *, rows_pad: Optional[int] = None,
+                    cols_pad: Optional[int] = None,
+                    device=None) -> "DistDense":
+        """Wrap a global array on ``device`` (the card by default),
+        zero-padding each dim to a multiple of g."""
+        x = as_tensor(x, resolve_device(device))
+        m, n = x.shape
+        rp = pad_to_multiple(m, g) if rows_pad is None else rows_pad
+        cp = pad_to_multiple(n, g) if cols_pad is None else cols_pad
+        if rp < m or cp < n or rp % g or cp % g:
+            raise ValueError(f"bad padded shape ({rp}, {cp}) for array "
+                             f"{tuple(x.shape)} on a {g}x{g} grid")
+        if (rp, cp) != (m, n):
+            padded = x.new_zeros((rp, cp))
+            padded[:m, :n] = x
+            x = padded
+        return cls(x, g, logical_shape=(m, n))
+
+    @classmethod
+    def for_rhs(cls, x, a: DistMatrix, *, allow_pad: bool = False,
+                device=None) -> "DistDense":
+        """Wrap the right operand of ``a @ x``, matching a's padded K dim,
+        on a's device unless ``device`` says otherwise.
+
+        The inner dimension must equal a's logical or padded column count;
+        anything smaller is only zero-padded with ``allow_pad=True``.
+        """
+        k = x.shape[0]
+        k_pad, k_log = a.shape[1], a.logical_shape[1]
+        if k > k_pad:
+            raise ValueError(
+                f"inner dimensions disagree: right operand has {k} rows, "
+                f"left operand has only {k_pad} (padded) columns")
+        if k not in (k_pad, k_log) and not allow_pad:
+            raise ValueError(
+                f"inner dimension mismatch: right operand has {k} rows but "
+                f"the left operand has {k_log} logical / {k_pad} padded "
+                "columns; pass allow_pad=True to zero-pad explicitly")
+        return cls.from_global(x, a.g, rows_pad=k_pad,
+                               device=a.device if device is None else device)
+
+    @property
+    def g(self) -> int:
+        return self._g
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self.data.shape)
+
+    @property
+    def logical_shape(self) -> Tuple[int, int]:
+        return self._logical
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    def placed(self, placement: str) -> Dict[str, torch.Tensor]:
+        tree = self._placed.get(placement)
+        if tree is None:
+            tree = {"dense": tileize(
+                _place_dense(self.data, self._g, placement), self._g)}
+            self._placed[placement] = tree
+        return tree
+
+    def abstract_key(self) -> tuple:
+        return ("dense", self.shape, self._g, _dtype_name(self.data.dtype),
+                str(self.data.device))
+
+
+# ---------------------------------------------------------------------------
+# Operand coercion + plans + public entry points
+# ---------------------------------------------------------------------------
+def _compensate_rhs(b_h: DistMatrix, perm: Tuple[int, ...],
+                    block_size: int) -> DistMatrix:
+    """Undo a cols-balanced left operand on the right operand's row blocks.
+
+    A ``balance="cols"`` left operand stores ``A' = A P``; multiplying by
+    ``B' = P^T B`` (row blocks gathered by the same permutation) gives
+    ``A' B' = A B``.  The compensated handle is cached on the right
+    operand, keyed by the permutation.
+    """
+    cache = getattr(b_h, "_col_compensated", None)
+    if cache is None:
+        cache = b_h._col_compensated = {}
+    if getattr(b_h, "_compensated_for", None) == perm:
+        return b_h                       # already the compensated handle
+    got = cache.get(perm)
+    if got is not None:
+        return got
+    if isinstance(b_h, DistDense):
+        data = b_h.data
+        nbr = data.shape[0] // block_size
+        idx = torch.as_tensor(np.asarray(perm), device=data.device)
+        data = data.reshape(nbr, block_size, -1)[idx]
+        new = DistDense(data.reshape(b_h.shape), b_h.g,
+                        logical_shape=b_h.logical_shape)
+    else:
+        # sparse right operand: dense round trip at construction time,
+        # keeping any column permutation of B itself (the epilogue inverts
+        # it on C)
+        t = b_h.tiled
+        d = t.to_dense()
+        nbr = d.shape[0] // block_size
+        idx = torch.as_tensor(np.asarray(perm), device=d.device)
+        d = d.reshape(nbr, block_size, -1)[idx].reshape(d.shape)
+        newt = TiledBSR.from_dense(d, ProcessGrid(*t.grid_shape),
+                                   t.block_size, capacity="bucket",
+                                   dtype=t.dtype, device=t.device)
+        newt = dataclasses.replace(newt, logical_shape=t.logical_shape
+                                   or t.shape,
+                                   col_block_perm=t.col_block_perm)
+        new = DistBSR(newt)
+    new._compensated_for = perm          # idempotence marker (re-coercion)
+    cache[perm] = new
+    return new
+
+
+def _coerce_pair(a, b, *, g: Optional[int] = None, allow_pad: bool = False,
+                 device=None) -> Tuple[DistMatrix, DistMatrix]:
+    if isinstance(a, DistMatrix):
+        a_h = a
+    elif isinstance(a, TiledBSR):
+        a_h = DistBSR.from_tiled(a)
+    else:
+        if g is None:
+            raise ValueError(
+                "a dense left operand needs g=<grid size> or a DistDense "
+                "handle (DistDense.from_global)")
+        a_h = DistDense.from_global(a, g, device=device)
+    if g is not None and a_h.g != g:
+        raise ValueError(f"left operand lives on a {a_h.g}x{a_h.g} grid, "
+                         f"but g={g} was requested")
+
+    if isinstance(b, DistMatrix):
+        b_h = b
+    elif isinstance(b, TiledBSR):
+        b_h = DistBSR.from_tiled(b)
+    else:
+        b_h = DistDense.for_rhs(b, a_h, allow_pad=allow_pad, device=device)
+
+    if getattr(b_h, "row_block_perm", None):
+        raise ValueError(
+            "the right operand carries a balance='rows' row-block "
+            "permutation, which would permute the contraction dimension; "
+            "balanced matrices may only be the left operand (the epilogue "
+            "inverts the permutation on output rows)")
+    if isinstance(a_h, DistDense) and isinstance(b_h, DistBSR):
+        raise NotImplementedError(
+            "dense x sparse is not supported; compute the transposed "
+            "product sparse x dense instead (B^T A^T = (AB)^T)")
+    if a_h.g != b_h.g:
+        raise ValueError(f"operands on different process grids: "
+                         f"{a_h.g}x{a_h.g} vs {b_h.g}x{b_h.g}")
+    if a_h.device != b_h.device:
+        raise ValueError(f"operands on different devices: {a_h.device} vs "
+                         f"{b_h.device}")
+    if a_h.shape[1] != b_h.shape[0]:
+        raise ValueError(
+            f"inner (padded) dimensions disagree: A is {a_h.shape}, B is "
+            f"{b_h.shape}; build the right operand with "
+            "DistDense.for_rhs(b, a) to match A's padding")
+    cperm = getattr(a_h, "col_block_perm", None)
+    if cperm:
+        # cols-balanced left operand: permute B's row blocks to compensate
+        b_h = _compensate_rhs(b_h, cperm, a_h.block_size)
+    return a_h, b_h
+
+
+def _geometry(a_h: DistMatrix, b_h: DistMatrix, *, impl: Optional[str],
+              overlap: bool = False) -> _Geom:
+    a_bsr = isinstance(a_h, DistBSR)
+    b_bsr = isinstance(b_h, DistBSR)
+    return _Geom(
+        g=a_h.g, tm=a_h.tile_shape[0], tn=b_h.tile_shape[1],
+        a_nbr=(a_h.tile_shape[0] // a_h.block_size) if a_bsr else 0,
+        b_nbr=(b_h.tile_shape[0] // b_h.block_size) if b_bsr else 0,
+        b_nbc=(b_h.tile_shape[1] // b_h.block_size) if b_bsr else 0,
+        impl=impl, out_dtype=torch.promote_types(a_h.dtype, b_h.dtype),
+        overlap=overlap)
+
+
+def _check_request(algorithm: str, output: str, wire: str,
+                   overlap: str, impl: Optional[str]) -> None:
+    """Refuse, before any work, what this slice of the port lacks."""
+    if algorithm == "auto":
+        raise ValueError(
+            "algorithm='auto' is not in the port yet: it scores schedules "
+            "with the cost model, which a later slice ports; pass "
+            "algorithm='ring_c'")
+    if algorithm not in _ALGORITHMS:
+        if algorithm in _NOT_PORTED:
+            raise ValueError(f"the port does not have algorithm "
+                             f"{algorithm!r} yet; it has {algorithms()}")
+        raise ValueError(f"unknown algorithm {algorithm!r}; one of "
+                         f"{algorithms()}")
+    if output not in ("dense", "sparse", "auto"):
+        raise ValueError(f"unknown output {output!r}; one of "
+                         "('dense', 'sparse', 'auto')")
+    if output != "dense":
+        raise ValueError(f"the port does not have output={output!r} yet "
+                         "(sparse-output SpGEMM is the next slice); use "
+                         "output='dense'")
+    if wire not in ("auto", "padded", "packed"):
+        raise ValueError(f"unknown wire {wire!r}; one of "
+                         "('auto', 'padded', 'packed')")
+    if wire == "packed":
+        raise ValueError("the port does not have wire='packed' yet; use "
+                         "wire='padded' or 'auto'")
+    if overlap not in ("auto", "on", "off"):
+        raise ValueError(f"unknown overlap {overlap!r}; one of "
+                         "('auto', 'on', 'off')")
+    if impl not in (None, *kops.IMPLS):
+        raise ValueError(f"unknown impl {impl!r}; one of {kops.IMPLS}")
+
+
+class MatmulPlan:
+    """A reusable distributed multiply: placements, geometry and the
+    schedule body, run on a stacked-grid executor.  Build with
+    :func:`plan_matmul`; execute with ``plan(a, b)``."""
+
+    wire = "padded"
+    output = "dense"
+
+    def __init__(self, algorithm: Algorithm, geom: _Geom,
+                 executor: StackedExecutor, a_key: tuple, b_key: tuple,
+                 allow_pad: bool = False, overlap: str = "auto"):
+        self.algorithm = algorithm
+        self.geom = geom
+        self.executor = executor
+        # the overlap request ("auto"|"on"|"off"); geom.overlap holds the
+        # body structure it resolved to
+        self.overlap = overlap
+        self._a_key = a_key
+        self._b_key = b_key
+        self._allow_pad = allow_pad
+
+    @property
+    def kind(self) -> str:
+        """"spmm" | "spgemm" | "dense" — what this plan dispatches to."""
+        if self._a_key[0] == "bsr":
+            return "spgemm" if self._b_key[0] == "bsr" else "spmm"
+        return "dense"
+
+    def __call__(self, a, b) -> torch.Tensor:
+        a_h, b_h = _coerce_pair(a, b, g=self.geom.g,
+                                allow_pad=self._allow_pad,
+                                device=self.executor.device)
+        if (a_h.abstract_key(), b_h.abstract_key()) != (self._a_key,
+                                                        self._b_key):
+            raise ValueError(
+                "operands do not match this plan's abstract shapes "
+                f"(plan: {self._a_key} @ {self._b_key}, got "
+                f"{a_h.abstract_key()} @ {b_h.abstract_key()}); build a new "
+                "plan with plan_matmul")
+        alg = self.algorithm
+        c = alg.body(a_h.placed(alg.a_placement), b_h.placed(alg.b_placement),
+                     self.geom, self.executor)
+        return self._epilogue(untileize(c), a_h, b_h)
+
+    def _epilogue(self, c: torch.Tensor, a_h: DistMatrix,
+                  b_h: DistMatrix) -> torch.Tensor:
+        """Shared output fix-up: unskew, un-balance, crop padding.
+
+        A rows-balanced left operand permuted its global row blocks before
+        tiling and C inherits that order, so it is inverted here (after
+        the unskew, before the crop); a cols-balanced right operand
+        permuted C's column blocks likewise.
+        """
+        if self.algorithm.unskew_out == "rows":
+            c = unskew_c_rows(c, self.geom.g)
+        elif self.algorithm.unskew_out is not None:
+            raise ValueError(
+                f"unknown unskew_out {self.algorithm.unskew_out!r}")
+        perm = getattr(a_h, "row_block_perm", None)
+        if perm:
+            bs = a_h.block_size
+            c = c.reshape(len(perm), bs, -1)[a_h.inv_row_perm()].reshape(
+                c.shape)
+        cperm = getattr(b_h, "col_block_perm", None)
+        if cperm:
+            bs = b_h.block_size
+            c = c.reshape(c.shape[0], len(cperm), bs)[:, b_h.inv_col_perm()]
+            c = c.reshape(c.shape[0], -1)
+        return c[:a_h.logical_shape[0], :b_h.logical_shape[1]]
+
+
+def plan_matmul(a, b, *, algorithm: str = "ring_c",
+                impl: Optional[str] = None, g: Optional[int] = None,
+                allow_pad: bool = False, cache: bool = True,
+                output: str = "dense", wire: str = "auto",
+                overlap: str = "auto", device=None) -> MatmulPlan:
+    """Build (or fetch from the shared cache) a plan for ``a @ b``.
+
+    ``a`` / ``b`` may be :class:`DistMatrix` handles (preferred: placement
+    caches live on the handle), :class:`TiledBSR` values, or dense arrays
+    (``g`` required when ``a`` is dense); arrays go to ``device``, the card
+    by default.  ``impl`` picks the local multiply (``None``/``"auto"``:
+    the CUDA kernel on the card, the plain version on the CPU).
+    ``overlap="on"`` builds the split-step body, ``"off"`` the bulk one,
+    and ``"auto"`` resolves to the bulk one: on the single-stream executor
+    the split-step body hides no copy and holds one more copy of each
+    operand (``"on"`` stays for parity with the JAX package until the shift
+    runs on a side stream).  The mode joins the cache key.  ``output`` must
+    be ``"dense"`` and ``wire`` ``"padded"``/``"auto"`` in this slice.
+    """
+    _check_request(algorithm, output, wire, overlap, impl)
+    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
+    if a_h.device.type == "cuda":
+        strict_fp32()
+    alg = _ALGORITHMS[algorithm]
+    key = (alg.name, impl or "auto", allow_pad, overlap, a_h.abstract_key(),
+           b_h.abstract_key())
+    if cache:
+        plan = _PLAN_CACHE.get(key)
+        if plan is not None:
+            return plan
+    geom = _geometry(a_h, b_h, impl=impl, overlap=overlap == "on")
+    plan = MatmulPlan(alg, geom, StackedExecutor(a_h.g, a_h.device),
+                      a_h.abstract_key(), b_h.abstract_key(),
+                      allow_pad=allow_pad, overlap=overlap)
+    if cache:
+        _PLAN_CACHE[key] = plan
+    return plan
+
+
+def matmul(a, b, *, algorithm: str = "ring_c", impl: Optional[str] = None,
+           g: Optional[int] = None, allow_pad: bool = False,
+           output: str = "dense", wire: str = "auto", overlap: str = "auto",
+           device=None) -> torch.Tensor:
+    """Distributed ``a @ b`` through the shared plan cache.
+
+    Dispatches sparse x dense -> SpMM, sparse x sparse -> SpGEMM with a
+    dense output and dense x dense -> the dense engine (see
+    :func:`plan_matmul` for the arguments).
+    """
+    _check_request(algorithm, output, wire, overlap, impl)
+    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
+    plan = plan_matmul(a_h, b_h, algorithm=algorithm, impl=impl,
+                       allow_pad=allow_pad, output=output, wire=wire,
+                       overlap=overlap)
+    return plan(a_h, b_h)

@@ -1,0 +1,71 @@
+"""Device selection, float32 precision and timing for the port.
+
+Counterpart of ``repro/runtime/platform.py``: where the JAX package plants
+XLA flags before the backend starts, the port picks a ``torch.device``,
+keeps float32 products in full float32 (no TF32) so results match the
+reference, and times work with a synchronise before the clock is read.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+__all__ = ["resolve_device", "strict_fp32", "sync_elapsed", "as_tensor"]
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller says so.
+
+    ``None`` means the card.  A machine without one raises instead of
+    running quietly on the CPU; tests and CPU users pass ``device="cpu"``.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available: the port runs on the card by "
+                "default; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           "available on this machine")
+    return dev
+
+
+def strict_fp32() -> None:
+    """Keep float32 products in IEEE float32 (TF32 off), as the reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def sync_elapsed(t0: float) -> float:
+    """Seconds since ``t0`` (a ``time.perf_counter()`` reading), after the
+    card has finished the work queued so far."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def as_tensor(x, device: torch.device,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A tensor on ``device`` from a tensor or a numpy array.
+
+    numpy has no native bfloat16; arrays of the ``bfloat16`` extension
+    dtype (what ``np.asarray`` gives for a JAX bf16 array) are
+    reinterpreted bit for bit.  A read-only array (such as a view of a JAX
+    buffer) is copied, so the tensor never aliases memory it may not write.
+    """
+    if not isinstance(x, torch.Tensor):
+        arr = np.ascontiguousarray(x)
+        if not arr.flags.writeable:
+            arr = arr.copy()
+        if arr.dtype.name == "bfloat16":
+            x = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            x = torch.from_numpy(arr)
+    return x.to(device=device, dtype=dtype)
