@@ -7,24 +7,35 @@ non-zero and prints no result line):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc/Triton
    versions;
-2. build: every CUDA kernel of the path, compiled from ``src/`` with nvcc;
-3. kernel: each kernel against its plain PyTorch version on the card, at
-   the main path's per-step shapes and at small block sizes with a ragged
-   width;
-4. end to end: ``repro_torch.core.api.matmul`` — ``ring_c`` SpMM on R-MAT
-   scale 15 (bs 128, B 512 wide) at g 2 in float32 and bf16 (overlap
+2. build: every CUDA kernel of the port (``bsr_spmm`` B1, ``bsr_pair`` B2
+   and B3), compiled from ``src/`` with nvcc, one process per source;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   small block sizes with ragged shapes (f32 and bf16, padding segments
+   several chunks long) and at the shapes its path gives it;
+4. dense-output path: ``repro_torch.core.api.matmul`` — ``ring_c`` SpMM on
+   R-MAT scale 15 (bs 128, B 512 wide) at g 2 in float32 and bf16 (overlap
    ``auto``, which resolves to the bulk body of ``off``: checked on the
-   plans) and at g 3 in float32 with overlap ``on`` and ``off``, where the
-   two bodies issue their launches in another order, and dense-output
-   SpGEMM ``A @ A`` on R-MAT scale 14 (bs 64), each against a dense
-   ``torch.matmul`` oracle in float32 (TF32 off), with the kernels' launch
-   counts read around that run; then the time of one ring shift, and a
-   ``torch.profiler`` breakdown of one float32 multiply of each kind
-   (device time by kernel, idle share);
-5. yardstick: one PyTorch call computing the kernel's function
-   (``torch.sparse_bsr_tensor(...) @ dense``, cuSPARSE), timed only.
+   plans), with the packed wire, and at g 3 in float32 with overlap ``on``
+   and ``off``, and dense-output SpGEMM ``A @ A`` on R-MAT scale 14 (bs
+   64), each against a dense ``torch.matmul`` oracle in float32 (TF32
+   off); then the time of one ring shift, a ``torch.profiler`` breakdown
+   of one float32 multiply of each kind (device time by kernel, idle
+   share), and B1's yardstick (``torch.sparse_bsr_tensor(...) @ dense``);
+5. sparse-output path: ``matmul(A, A, output="auto")`` on R-MAT scale 16,
+   edge factor 1 (bs 32, g 2), which resolves to a sparse output over the
+   packed wire: its cold plan (symbolic phase), B2 at its step-0 shapes
+   against the plain version and cuSPARSE ``CSR @ CSR``, the multiply's
+   time and breakdown, and C against scipy's ``A @ A`` for equality (R-MAT
+   values are 1.0, so C holds exact path counts);
+6. the chained cube on ``benchmarks/spgemm_bench.py``'s configuration
+   (R-MAT scale 13, edge factor 1, bs 8, g 2): ``(A @ A) @ A`` with sparse
+   outputs over the padded and the packed wire, exactly against scipy;
+7. the dense-tile SpGEMM entry point ``ops.bsr_pair_matmul`` (B3) on one
+   tile, R-MAT scale 13 (bs 64) through ``ops.build_pair_lists``, against
+   the plain version and cuSPARSE ``CSR @ CSR``.
 
-The last two lines are the ``{"kernels": [...]}`` record and
+Each path runs with every launch count set to 0 just before it and read
+just after.  The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -75,6 +86,15 @@ PROFILED = [torch.profiler.ProfilerActivity.CPU,
 SPMM = dict(scale=15, seed=1, block_size=128, g=2, width=512)
 SPMM_G3 = 3          # the overlap bodies differ from g = 3 on
 SPGEMM = dict(scale=14, seed=2, block_size=64, g=2)
+# sparse-output SpGEMM A @ A: predicted C block density 0.236, under
+# output="auto"'s 0.25, so it resolves to a sparse output
+SPARSE = dict(scale=16, edgefactor=1, seed=2, block_size=32, g=2)
+# benchmarks/spgemm_bench.py's graph-squaring configuration
+CUBE = dict(scale=13, edgefactor=1, seed=0, block_size=8, g=2)
+# the dense-tile SpGEMM of ops.bsr_pair_matmul on one tile
+PAIR_TILE = dict(scale=13, edgefactor=8, seed=3, block_size=64)
+# block sizes of the pair kernels' small cases
+PAIR_SMALL_BS = (4, 8, 16, 32, 64)
 
 
 def log(*parts) -> None:
@@ -300,27 +320,28 @@ def main_path_kernel_cases(a32, a16, b32, b16) -> dict:
     return res
 
 
-def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3) -> float:
+def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
+             wire="auto") -> float:
     """Time ``matmul`` (median after one warm-up) and hold its result
     against the oracle within ``tol * scale`` elementwise."""
     from repro_torch.core.api import matmul
     from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
     from repro_torch.runtime.device import sync_elapsed
     before = bsr_spmm_cuda.launches
-    out = matmul(a_h, b_h, overlap=overlap)             # warm-up
+    out = matmul(a_h, b_h, overlap=overlap, wire=wire)   # warm-up
     per_multiply = bsr_spmm_cuda.launches - before
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = matmul(a_h, b_h, overlap=overlap)
+        out = matmul(a_h, b_h, overlap=overlap, wire=wire)
         times.append(sync_elapsed(t0) * 1e3)
     check(tuple(out.shape) == tuple(oracle.shape),
           f"{label}: shape {tuple(out.shape)} vs {tuple(oracle.shape)}")
     check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
     err, share, ok = compare(out, oracle, scale, tol)
     med = statistics.median(times)
-    log(f"  e2e {label} overlap={overlap}: median {med:.2f} ms of "
+    log(f"  e2e {label} overlap={overlap} wire={wire}: median {med:.2f} ms of "
         f"{[round(x, 2) for x in times]}, {per_multiply} bsr_spmm launches "
         f"a multiply, max_abs_err {err:.3e}, {share:.3g} of its allowance "
         f"(tol {tol:g} x |A||B|) {'ok' if ok else 'MISMATCH'}")
@@ -351,20 +372,23 @@ def ring_shift_ms(a_h, b_h) -> dict:
     return res
 
 
-def device_breakdown(a_h, b_h, label: str) -> dict:
+def device_breakdown(a_h, b_h, label: str, **kw) -> dict:
     """Device time by kernel over one multiply (``torch.profiler``), beside
     the multiply's wall time: where the time goes, and the share of the
-    wall time in which no kernel or copy ran on the card."""
+    wall time in which no kernel or copy ran on the card.  ``kw`` goes to
+    ``matmul``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     from repro_torch.core.api import matmul
     from repro_torch.runtime.device import sync_elapsed
-    matmul(a_h, b_h)
+    out = matmul(a_h, b_h, **kw)
+    del out
     torch.cuda.synchronize()
     with profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
-        matmul(a_h, b_h)
+        out = matmul(a_h, b_h, **kw)
         wall_ms = sync_elapsed(t0) * 1e3
+    del out
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -431,6 +455,495 @@ def library_yardstick(blocks, rows, cols, dense, nbr, tol: float) -> float:
     return ms
 
 
+# ---------------------------------------------------------------------------
+# launch counts, memory, exact checks
+# ---------------------------------------------------------------------------
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by the kernel's name."""
+    from repro_torch.kernels.bsr_pair import (bsr_pair_accumulate_cuda,
+                                              bsr_pair_matmul_cuda)
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
+    return {"bsr_spmm": bsr_spmm_cuda,
+            "bsr_pair_accumulate": bsr_pair_accumulate_cuda,
+            "bsr_pair_matmul": bsr_pair_matmul_cuda}
+
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def phase_peak(label: str) -> float:
+    """Print the peak device memory since the last call, and reset it."""
+    torch.cuda.synchronize()
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  peak device memory, {label}: {gb:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    return gb
+
+
+def free() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def compare_tiles(got, want, scale, tol: float, step: float = 0.0):
+    """:func:`compare` one tile at a time along dim 0, which bounds the
+    temporaries at the sparse path's 1.9 GB tiles."""
+    err = share = 0.0
+    ok = True
+    for i in range(got.shape[0]):
+        e, sh, o = compare(got[i], want[i], scale[i], tol, step)
+        err, share, ok = max(err, e), max(share, sh), ok and o
+    return err, share, ok
+
+
+def rmat_csr(cfg: dict):
+    """scipy CSR of ``rmat_matrix(cfg)`` (1.0 on each distinct edge), from
+    the edge list, as float64."""
+    import scipy.sparse as sp
+    from repro_torch.core.bsr import rmat_edges
+    n = 1 << cfg["scale"]
+    e = np.unique(rmat_edges(cfg["scale"], cfg["edgefactor"],
+                             seed=cfg["seed"]), axis=0)
+    return sp.csr_matrix((np.ones(len(e)), (e[:, 0], e[:, 1])), shape=(n, n))
+
+
+def check_sparse_exact(c_h, sym, oracle, label: str) -> None:
+    """C (a DistBSR from the plan of ``sym``) against a scipy product with
+    nonnegative integer values, for equality: every nonzero of the oracle
+    lies in a real (predicted) block of C with the same value, and C has
+    no other nonzero element."""
+    t = c_h.tiled
+    dev, g, bs = t.device, c_h.g, c_h.block_size
+    nbr, nbc = sym.tile_nbr, sym.tile_nbc
+    lookup = torch.full((g, g, nbr * nbc), -1, dtype=torch.int64, device=dev)
+    gi, gj, slot = (torch.as_tensor(x, device=dev)
+                    for x in np.nonzero(sym.c_real))
+    pos = (t.rows[gi, gj, slot].long() * nbc + t.cols[gi, gj, slot].long())
+    lookup[gi, gj, pos] = slot
+    coo = oracle.tocoo()
+    r = torch.as_tensor(coo.row, device=dev).long()
+    c = torch.as_tensor(coo.col, device=dev).long()
+    v = torch.as_tensor(coo.data, device=dev)
+    br, bc = r // bs, c // bs
+    ti, tj = br // nbr, bc // nbc
+    s_of = lookup[ti, tj, (br % nbr) * nbc + bc % nbc]
+    check(bool((s_of >= 0).all()), f"{label}: an oracle nonzero lies "
+          "outside C's predicted blocks")
+    got = t.blocks[ti, tj, s_of, r % bs, c % bs].double()
+    err = (got - v).abs().max().item() if v.numel() else 0.0
+    nnz = int(torch.count_nonzero(t.blocks).item())
+    ok = err == 0 and nnz == coo.nnz
+    log(f"  {label}: {coo.nnz} oracle nonzeros, C holds {nnz} nonzero "
+        f"elements in {int(sym.c_counts.sum())} real blocks, max |C - "
+        f"oracle| {err:g} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{label} differs from scipy's product")
+
+
+# ---------------------------------------------------------------------------
+# the pair kernels: B2 (bsr_pair_accumulate) and B3 (bsr_pair_matmul)
+# ---------------------------------------------------------------------------
+def ring_step_pairs(t_a, t_b, step: int = 0):
+    """A @ B's sparse-output ring step on the stacked grid (padded wire):
+    the stacked stored tiles ``[g*g, S, bs, bs]`` that position (i, j)
+    holds, A[i, k] and B[k, j] with k = (i + j + step) % g, and the step's
+    ``[g*g, P]`` pair lists, as plan_matmul schedules them."""
+    from repro_torch.core.symbolic import symbolic_spgemm
+    g, bs = t_a.grid_shape[0], t_a.block_size
+    sym = symbolic_spgemm(t_a, t_b)
+    sched = sym.scheduled_pairs(lambda i, j, t, g: (i + j + t) % g)
+    ii = torch.arange(g, device=t_a.device)[:, None]
+    jj = torch.arange(g, device=t_a.device)[None, :]
+    k = (ii + jj + step) % g
+    a = t_a.blocks[ii, k].reshape(g * g, -1, bs, bs).contiguous()
+    b = t_b.blocks[k, jj].reshape(g * g, -1, bs, bs).contiguous()
+    lists = [torch.from_numpy(np.ascontiguousarray(
+        sched[x][:, :, step].reshape(g * g, -1))).to(t_a.device)
+        for x in ("pa", "pb", "ps")]
+    return a, b, lists, sym.store_capacity
+
+
+def pair_bound(a, b, pa, pb, index_bytes: int, out_bytes: int) -> dict:
+    """Least time for one pair-kernel call: each input read once, the
+    output written once, and the flops of the pairs whose two blocks both
+    hold data."""
+    t, bs = a.shape[0], a.shape[-1]
+    tile = torch.arange(t, device=a.device)[:, None]
+    a_nz = (a != 0).flatten(2).any(dim=2)
+    b_nz = (b != 0).flatten(2).any(dim=2)
+    real = int((a_nz[tile, pa.long()] & b_nz[tile, pb.long()]).sum().item())
+    inputs = [a] if b.data_ptr() == a.data_ptr() else [a, b]
+    nbytes = sum(x.numel() * x.element_size() for x in inputs) \
+        + index_bytes + out_bytes
+    flops = 2 * real * bs ** 3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_OPS[a.dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "real_pairs": real, "pairs": pa.numel(),
+            "real_flops": flops, "pair_flops": 2 * pa.numel() * bs ** 3}
+
+
+def pair_acc_case(a, b, pa, pb, ps, n_slots: int, label: str, table=None,
+                  reps: int = 0, tol: float = TOL_F32_SMALL) -> dict:
+    """B2 against its plain version on the same inputs (float32 output, so
+    ``tol`` alone); timed when ``reps``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bsr_pair import (bsr_pair_accumulate_cuda,
+                                              pair_table)
+    table = table or pair_table(ps, n_slots, device=a.device)
+    got = bsr_pair_accumulate_cuda(a, b, pa, pb, table)
+    want = ref.bsr_pair_accumulate_raw_ref(a, b, pa, pb, ps, n_slots)
+    scale = ref.bsr_pair_accumulate_raw_ref(a.abs(), b.abs(), pa, pb, ps,
+                                            n_slots)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"B2 {label}: non-finite output")
+    err, share, ok = compare_tiles(got, want, scale, tol)
+    del want, scale
+    seg = np.diff(np.flatnonzero(np.r_[True, np.diff(
+        ps.cpu().numpy(), axis=1).ravel() != 0, True]))
+    log(f"  B2 {label}: T={a.shape[0]} P={pa.shape[1]} slots={n_slots}, "
+        f"longest segment {seg.max()} pairs, {table.chunks.shape[1]} chunks, "
+        f"workspace {table.workspace_bytes(a.shape[-1]) / 1e6:.2f} MB: "
+        f"max_abs_err {err:.3e}, {share:.3g} of its allowance "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"B2 {label} disagrees with its plain version")
+    res = {"max_abs_err": err, "share_of_tolerance": share,
+           "longest_segment": int(seg.max()),
+           "workspace_bytes": table.workspace_bytes(a.shape[-1])}
+    if reps:
+        res["ms"] = time_ms(lambda: bsr_pair_accumulate_cuda(
+            a, b, pa, pb, table), reps)
+        res["plain_ms"] = time_ms(lambda: ref.bsr_pair_accumulate_raw_ref(
+            a, b, pa, pb, ps, n_slots), max(1, reps // 4))
+        res.update(pair_bound(a, b, pa, pb, 3 * pa.numel() * 4,
+                              got.numel() * 4))
+        log(f"  B2 {label}: {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} "
+            f"ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}); "
+            f"{res['real_pairs']} of {res['pairs']} pairs real")
+    return res
+
+
+def pair_mm_case(blocks, lists, nbr: int, label: str, table=None,
+                 reps: int = 0, tol: float = TOL_F32_SMALL) -> dict:
+    """B3 (one tile, A @ A through build_pair_lists' lists) against its
+    plain version; timed when ``reps``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bsr_pair import bsr_pair_matmul_cuda, pair_table
+    bs = blocks.shape[-1]
+    ext = torch.cat([blocks, blocks.new_zeros((1, bs, bs))])[None]
+    pa, pb, pr, pc = (x[None] for x in lists)
+    table = table or pair_table(pr.long() * nbr + pc.long(), nbr * nbr,
+                                device=blocks.device)
+    got = bsr_pair_matmul_cuda(ext, ext, pa, pb, table, n_block_rows=nbr,
+                               n_block_cols=nbr).to(blocks.dtype)
+    want = ref.bsr_pair_matmul_raw_ref(ext, ext, pa, pb, pr, pc, nbr, nbr)
+    scale = ref.bsr_pair_matmul_raw_ref(ext.abs(), ext.abs(), pa, pb, pr,
+                                        pc, nbr, nbr,
+                                        out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"B3 {label}: non-finite output")
+    step = BF16_STEP if blocks.dtype == torch.bfloat16 else 0.0
+    err, share, ok = compare(got, want, scale, tol, step)
+    del want, scale
+    log(f"  B3 {label}: P={pa.shape[1]}, {table.chunks.shape[1]} chunks: "
+        f"max_abs_err {err:.3e}, {share:.3g} of its allowance "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"B3 {label} disagrees with its plain version")
+    res = {"max_abs_err": err, "share_of_tolerance": share}
+    if reps:
+        res["ms"] = time_ms(lambda: bsr_pair_matmul_cuda(
+            ext, ext, pa, pb, table, n_block_rows=nbr, n_block_cols=nbr),
+            reps)
+        res["plain_ms"] = time_ms(lambda: ref.bsr_pair_matmul_raw_ref(
+            ext, ext, pa, pb, pr, pc, nbr, nbr), max(1, reps // 4))
+        res.update(pair_bound(ext, ext, pa, pb, 4 * pa.numel() * 4,
+                              got.numel() * 4))
+        log(f"  B3 {label}: {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} "
+            f"ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}); "
+            f"{res['real_pairs']} of {res['pairs']} pairs real")
+    return res
+
+
+def pair_small_cases(device) -> None:
+    """B2 and B3 at small block sizes in float32 and bf16, with ragged pair
+    counts: a hub block-row and block-column make one tile's lists long
+    and leave the others a padding segment several chunks long."""
+    from repro_torch.core.bsr import BSR, TiledBSR, random_sparse
+    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bsr_pair import CHUNK
+    for bs in PAIR_SMALL_BS:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = random_sparse(28 * bs, 28 * bs, 0.02, seed=bs)
+            a[:bs] += random_sparse(bs, 28 * bs, 0.9, seed=bs + 1)
+            a[:, :bs] += random_sparse(28 * bs, bs, 0.9, seed=bs + 2)
+            t = TiledBSR.from_dense(a, ProcessGrid(2, 2), bs, dtype=dtype,
+                                    device=device)
+            blocks_a, blocks_b, lists, n_slots = ring_step_pairs(t, t)
+            res = pair_acc_case(blocks_a, blocks_b, *lists, n_slots,
+                                f"bs={bs} {str(dtype)[6:]}")
+            check(res["longest_segment"] > 3 * CHUNK,
+                  f"B2 bs={bs}: no segment several chunks long")
+            flat = BSR.from_dense(a, bs, dtype=dtype, device=device)
+            nbr = flat.n_block_rows
+            pl = [torch.from_numpy(x).to(device)
+                  for x in ops.build_pair_lists(
+                      flat.rows, flat.cols, flat.nnzb, flat.rows, flat.cols,
+                      flat.nnzb, nbr, nbr)[:4]]
+            pair_mm_case(flat.blocks, pl, nbr, f"bs={bs} {str(dtype)[6:]}")
+
+
+def blockdiag_csr(t, tiles):
+    """Block-diagonal element CSR of the listed tiles of a TiledBSR."""
+    bs = t.block_size
+    tm, tn = t.tile_shape
+    idx, vals = [], []
+    for n, (i, j) in enumerate(tiles):
+        s_, r_, c_ = t.blocks[i, j].nonzero().unbind(1)
+        idx.append(torch.stack([n * tm + t.rows[i, j][s_].long() * bs + r_,
+                                n * tn + t.cols[i, j][s_].long() * bs + c_]))
+        vals.append(t.blocks[i, j][s_, r_, c_])
+    coo = torch.sparse_coo_tensor(torch.cat(idx, 1), torch.cat(vals),
+                                  size=(len(tiles) * tm, len(tiles) * tn))
+    return coo.coalesce().to_sparse_csr()
+
+
+def csr_yardstick(a_csr, b_csr, want_sum: float, label: str):
+    """Time cuSPARSE ``CSR @ CSR`` (timed only; the port never calls it),
+    after checking that it sums to the kernel's total.  None, with the
+    reason printed, where PyTorch has no such call for these operands."""
+    try:
+        c = a_csr @ b_csr
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        log(f"  yardstick {label}: no library call ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:160]})")
+        return None
+    total = c.values().double().sum().item()
+    # a bf16 product rounds each output element to 8 bits
+    rel = 1e-6 if c.dtype == torch.float32 else 2.0 ** -7
+    check(abs(total - want_sum) <= rel * max(1.0, abs(want_sum)),
+          f"yardstick {label} computes another function ({total} vs "
+          f"{want_sum})")
+    del c
+    ms = time_ms(lambda: a_csr @ b_csr, 5)
+    log(f"  yardstick {label}: torch CSR @ CSR (cuSPARSE) {ms:.3f} ms, "
+        f"{a_csr._nnz()} x {b_csr._nnz()} nonzeros")
+    return ms
+
+
+def sparse_path(device) -> dict:
+    """The sparse-output path at full width: R-MAT scale 16 A @ A with
+    output="auto" (a sparse C over the packed wire), B2 at its step-0
+    shapes, the multiply's time and breakdown, and C against scipy."""
+    from repro_torch.core import api
+    from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR, matmul,
+                                      plan_matmul)
+    from repro_torch.core.bsr import rmat_matrix
+    from repro_torch.runtime.device import sync_elapsed
+    cfg = SPARSE
+    t0 = time.perf_counter()
+    a_np = rmat_matrix(cfg["scale"], cfg["edgefactor"], seed=cfg["seed"])
+    a_h = DistBSR.from_dense(a_np, g=cfg["g"], block_size=cfg["block_size"],
+                             device=device)
+    del a_np
+    a_csr = rmat_csr(cfg)
+    oracle = a_csr @ a_csr
+    torch.cuda.synchronize()
+    log(f"sparse-output operand: R-MAT scale {cfg['scale']}, edge factor "
+        f"{cfg['edgefactor']}, bs {cfg['block_size']}, g {cfg['g']}: "
+        f"{a_csr.nnz} nonzeros, real blocks per tile "
+        f"{a_h.counts.cpu().numpy().ravel().tolist()}, store capacity "
+        f"{a_h.tiled.store_capacity}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the cold plan: structure read, symbolic phase, pair tables
+    t0 = time.perf_counter()
+    sym = api._symbolic_for(a_h, a_h)
+    sym_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = plan_matmul(a_h, a_h, output="auto")
+    rest_s = time.perf_counter() - t0
+    check(plan.output == "sparse" and plan.wire == "packed",
+          f"output='auto' resolved to output={plan.output!r}, "
+          f"wire={plan.wire!r}")
+    c_bytes = sym.store_capacity * sym.block_size ** 2 * 4 * sym.g ** 2
+    log(f"  plan: symbolic phase {sym_s:.2f} s (cold), the rest of the plan "
+        f"{rest_s:.2f} s; predicted density {sym.density():.4f}, C real "
+        f"blocks per tile {sym.c_counts.ravel().tolist()}, store capacity "
+        f"{sym.store_capacity}, C store {c_bytes / 1e9:.2f} GB float32, "
+        f"pair capacity {sym.pair_capacity}, real pairs "
+        f"{sym.total_real_pairs()}, {sym.flops() / 1e9:.1f} GFLOP; kernel "
+        f"workspace {plan.workspace_bytes() / 1e6:.2f} MB a step")
+    # B2 at the step-0 shapes of this path
+    g, bs = a_h.g, a_h.block_size
+    a0 = a_h.packed_wire(SKEW_ROWS)["blocks"].reshape(g * g, -1, bs, bs)
+    b0 = a_h.packed_wire(SKEW_COLS)["blocks"].reshape(g * g, -1, bs, bs)
+    st = plan._pairs[0]
+    kres = {torch.float32: pair_acc_case(
+        a0, b0, st["pa"], st["pb"], st["ps"], sym.store_capacity,
+        "main-path step 0 float32", table=st["table"], reps=5)}
+    a16, b16 = a0.bfloat16(), b0.bfloat16()        # R-MAT 1.0 is exact
+    kres[torch.bfloat16] = pair_acc_case(
+        a16, b16, st["pa"], st["pb"], st["ps"], sym.store_capacity,
+        "main-path step 0 bf16", table=st["table"], reps=5)
+    del a16, b16
+    ii = np.arange(g)[:, None]
+    jj = np.arange(g)[None, :]
+    k = (ii + jj) % g
+    tiles_a = list(zip(ii.repeat(g, 1).ravel(), k.ravel()))
+    tiles_b = list(zip(k.ravel(), jj.repeat(g, 0).ravel()))
+    csr_a = blockdiag_csr(a_h.tiled, tiles_a)
+    csr_b = blockdiag_csr(a_h.tiled, tiles_b)
+    want_sum = ops_sum(a0, b0, st)
+    for dtype in (torch.float32, torch.bfloat16):
+        kres[dtype]["library_ms"] = csr_yardstick(
+            csr_a.to(dtype), csr_b.to(dtype), want_sum,
+            f"B2 step 0 {str(dtype)[6:]}")
+    del a0, b0, csr_a, csr_b
+    free()
+    phase_peak("sparse-output kernel cases")
+
+    # the path: counts from 0, a warm-up and three timed multiplies
+    reset_counts()
+    out = matmul(a_h, a_h, output="auto")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        del out
+        t0 = time.perf_counter()
+        out = matmul(a_h, a_h, output="auto")
+        times.append(sync_elapsed(t0) * 1e3)
+    counts = read_counts()
+    check(counts["bsr_pair_accumulate"] > 0,
+          "the sparse-output path never launched bsr_pair_accumulate")
+    med = statistics.median(times)
+    log(f"  e2e sparse-output A @ A float32: median {med:.2f} ms of "
+        f"{[round(x, 2) for x in times]}; launches {counts}")
+    check(isinstance(out, DistBSR), "output='auto' did not give a DistBSR")
+    check_sparse_exact(out, sym, oracle, "sparse-output A @ A vs scipy")
+    del out
+    free()
+    breakdown = device_breakdown(a_h, a_h, "sparse-output A @ A float32",
+                                 output="auto")
+    peak = phase_peak("sparse-output path")
+    return {"kernel": kres, "launches": counts["bsr_pair_accumulate"],
+            "e2e_ms": med, "symbolic_s": sym_s, "plan_rest_s": rest_s,
+            "c_store_bytes": c_bytes,
+            "workspace_bytes": plan.workspace_bytes(),
+            "breakdown": breakdown, "peak_gb": peak}
+
+
+def ops_sum(a, b, step) -> float:
+    """Sum of a B2 step's products (the plain version's, float64)."""
+    from repro_torch.kernels import ref
+    return ref.bsr_pair_accumulate_raw_ref(
+        a, b, step["pa"], step["pb"], step["ps"],
+        step["table"].n_slots).double().sum().item()
+
+
+def chained_cube(device) -> dict:
+    """``(A @ A) @ A`` with sparse outputs over the padded and the packed
+    wire, on spgemm_bench's configuration, exactly against scipy."""
+    from repro_torch.core.api import DistBSR, matmul, plan_matmul
+    from repro_torch.core.bsr import rmat_matrix
+    cfg = CUBE
+    a_h = DistBSR.from_dense(
+        rmat_matrix(cfg["scale"], cfg["edgefactor"], seed=cfg["seed"]),
+        g=cfg["g"], block_size=cfg["block_size"], device=device)
+    a_csr = rmat_csr(cfg)
+    sq = a_csr @ a_csr
+    cube = sq @ a_csr
+    reset_counts()
+    for wire in ("padded", "packed"):
+        c2 = matmul(a_h, a_h, output="sparse", wire=wire)
+        c3 = matmul(c2, a_h, output="sparse", wire=wire)
+        check_sparse_exact(c2, plan_matmul(a_h, a_h, output="sparse",
+                                           wire=wire).symbolic, sq,
+                           f"cube {wire}: A @ A")
+        check_sparse_exact(c3, plan_matmul(c2, a_h, output="sparse",
+                                           wire=wire).symbolic, cube,
+                           f"cube {wire}: (A @ A) @ A")
+    counts = read_counts()
+    log(f"  chained cube launches: {counts}")
+    check(counts["bsr_pair_accumulate"] > 0,
+          "the chained cube never launched bsr_pair_accumulate")
+    return counts
+
+
+def pair_tile_path(device) -> dict:
+    """The dense-tile SpGEMM entry point ``ops.bsr_pair_matmul`` on one
+    R-MAT tile (A @ A through ``ops.build_pair_lists``), against a dense
+    ``torch.matmul``; then B3 against its plain version, timed."""
+    from repro_torch.core.bsr import BSR, rmat_matrix
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bsr_pair import pair_table
+    cfg = PAIR_TILE
+    bs = cfg["block_size"]
+    a_np = rmat_matrix(cfg["scale"], cfg["edgefactor"], seed=cfg["seed"])
+    a = BSR.from_dense(a_np, bs, device=device)
+    nbr = a.n_block_rows
+    t0 = time.perf_counter()
+    pa, pb, pr, pc, n_real = ops.build_pair_lists(
+        a.rows, a.cols, a.nnzb, a.rows, a.cols, a.nnzb, nbr, nbr)
+    lists = [torch.from_numpy(x).to(device) for x in (pa, pb, pr, pc)]
+    real = int(((pa < a.nnzb) & (pb < a.nnzb)).sum())
+    log(f"B3 tile: R-MAT scale {cfg['scale']}, edge factor "
+        f"{cfg['edgefactor']}, bs {bs}: {a.nnzb} blocks, {real} real pairs "
+        f"of {len(pa)} ({2 * real * bs ** 3 / 1e9:.0f} GFLOP), pair lists in "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_counts()
+    got = ops.bsr_pair_matmul(a.blocks, a.blocks, *lists, n_block_rows=nbr,
+                              n_block_cols=nbr)
+    counts = read_counts()
+    dense = torch.from_numpy(a_np).to(device)
+    want = dense @ dense
+    check(bool(torch.equal(got, want)),
+          "ops.bsr_pair_matmul differs from the dense A @ A")
+    log(f"  ops.bsr_pair_matmul equals the dense A @ A ({tuple(got.shape)}); "
+        f"launches {counts}")
+    check(counts["bsr_pair_matmul"] > 0,
+          "ops.bsr_pair_matmul never launched bsr_pair_matmul")
+    del got, want
+    table = pair_table((lists[2].long() * nbr + lists[3].long())[None],
+                       nbr * nbr, device=device)
+    kres = {torch.float32: pair_mm_case(a.blocks, lists, nbr,
+                                        "tile float32", table=table, reps=5)}
+    kres[torch.bfloat16] = pair_mm_case(a.blocks.bfloat16(), lists, nbr,
+                                        "tile bf16", table=table, reps=5)
+    csr = dense.to_sparse_csr()
+    del dense
+    want_sum = float(a_np.astype(np.float64).sum(0) @ a_np.sum(1))
+    for dtype in (torch.float32, torch.bfloat16):
+        kres[dtype]["library_ms"] = csr_yardstick(
+            csr.to(dtype), csr.to(dtype), want_sum,
+            f"B3 tile {str(dtype)[6:]}")
+    peak = phase_peak("dense-tile SpGEMM")
+    return {"kernel": kres, "launches": counts["bsr_pair_matmul"],
+            "peak_gb": peak}
+
+
+def record(name: str, source: str, replaces: str, launches: int,
+           kres: dict, extra: dict) -> dict:
+    """One entry of the ``{"kernels": [...]}`` line: float32 numbers at the
+    top, bf16 ones under ``bf16``."""
+    f32, b16 = kres[torch.float32], kres[torch.bfloat16]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "dtype": "float32"}
+    rec.update({k: f32.get(k) for k in keys})
+    rec.update(extra)
+    rec["bf16"] = {k: b16.get(k) for k in keys + ("bytes",)}
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available",
@@ -439,7 +952,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.api import DistBSR, DistDense, plan_matmul
     from repro_torch.core.bsr import rmat_matrix
-    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
     from repro_torch.runtime.device import strict_fp32
 
     strict_fp32()
@@ -450,12 +962,14 @@ def main() -> int:
     log("== build")
     build_s = build_kernels()
 
-    log("== kernel vs plain version")
+    log("== kernels vs plain versions, small cases")
     small_kernel_cases(device)
+    pair_small_cases(device)
+    phase_peak("small kernel cases")
+
+    log("== dense-output path (ring_c SpMM and SpGEMM, B1)")
     a_np, a32, a16, b_np, b32, b16 = main_path_operands(device)
     kres = main_path_kernel_cases(a32, a16, b32, b16)
-
-    log("== end to end (repro_torch.core.api.matmul, ring_c)")
     a3 = DistBSR.from_dense(a_np, g=SPMM_G3, block_size=SPMM["block_size"],
                             device=device)
     b3 = DistDense.for_rhs(b_np, a3)
@@ -469,7 +983,7 @@ def main() -> int:
     b_t16 = b_t.bfloat16().float()
     oracle32, scale32 = a_dense @ b_t, a_abs @ b_t.abs()
     oracle16, scale16 = a_dense @ b_t16, a_abs @ b_t16.abs()
-    del a_dense, a_abs
+    del a_dense, a_abs, b_t, b_t16
     a14_np = rmat_matrix(SPGEMM["scale"], 8, seed=SPGEMM["seed"])
     a14 = DistBSR.from_dense(a14_np, g=SPGEMM["g"],
                              block_size=SPGEMM["block_size"], device=device)
@@ -486,64 +1000,91 @@ def main() -> int:
     check(plan_matmul(a32, b32, overlap="auto").geom
           == plan_matmul(a32, b32, overlap="off").geom,
           "overlap='auto' does not resolve to the bulk body")
+    check(plan_matmul(a32, b32, wire="packed").wire == "packed",
+          "wire='packed' did not pack the SpMM operand")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
 
-    bsr_spmm_cuda.launches = 0          # counts of the main path's run only
+    reset_counts()                  # counts of this path's run only
     e2e = {}
-    for label, a_h, b_h, oracle, scale, tol, overlap in (
+    for label, a_h, b_h, oracle, scale, tol, overlap, wire in (
             ("SpMM float32 g=2", a32, b32, oracle32, scale32, TOL_F32_DEEP,
-             "auto"),
+             "auto", "auto"),
             ("SpMM bfloat16 g=2", a16, b16, oracle16, scale16,
-             TOL_F32_DEEP + a16.g * BF16_ROUND, "auto"),
+             TOL_F32_DEEP + a16.g * BF16_ROUND, "auto", "auto"),
+            ("SpMM float32 g=2", a32, b32, oracle32, scale32, TOL_F32_DEEP,
+             "auto", "packed"),
             (f"SpMM float32 g={SPMM_G3}", a3, b3, oracle32, scale32,
-             TOL_F32_DEEP, "on"),
+             TOL_F32_DEEP, "on", "auto"),
             (f"SpMM float32 g={SPMM_G3}", a3, b3, oracle32, scale32,
-             TOL_F32_DEEP, "off"),
+             TOL_F32_DEEP, "off", "auto"),
             ("SpGEMM float32 g=2", a14, a14, oracle_gemm, scale_gemm,
-             TOL_F32_SMALL, "auto")):
-        e2e[f"{label} overlap={overlap}"] = e2e_case(
-            label, a_h, b_h, oracle, scale, tol, overlap)
-    launches = bsr_spmm_cuda.launches
-    log(f"  bsr_spmm launches on the main path: {launches}; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; kernel "
-        f"workspace a launch: SpMM {workspace_gb(a32, b32.tile_shape[1]):.2f} GB, SpGEMM "
+             TOL_F32_SMALL, "auto", "auto")):
+        e2e[f"{label} overlap={overlap} wire={wire}"] = e2e_case(
+            label, a_h, b_h, oracle, scale, tol, overlap, wire=wire)
+    dense_counts = read_counts()
+    log(f"  launches on the dense-output path: {dense_counts}; kernel "
+        f"workspace a launch: SpMM "
+        f"{workspace_gb(a32, b32.tile_shape[1]):.2f} GB, SpGEMM "
         f"{workspace_gb(a14, a14.tile_shape[1]):.2f} GB")
-    check(launches > 0, "the main path never launched bsr_spmm")
+    check(dense_counts["bsr_spmm"] > 0,
+          "the dense-output path never launched bsr_spmm")
     shift_ms = ring_shift_ms(a32, b32)
     breakdown = {"SpMM float32": device_breakdown(a32, b32, "SpMM float32"),
                  "SpGEMM float32": device_breakdown(a14, a14,
                                                     "SpGEMM float32")}
-
-    log("== yardstick")
+    log("== B1 yardstick")
     for dtype in (torch.float32, torch.bfloat16):
         kres[dtype]["library_ms"] = library_yardstick(*kres[dtype]["inputs"],
                                                       TOL_F32_DEEP)
+    blocks, _, _, dense, _ = kres[torch.float32]["inputs"]
+    b1 = record("bsr_spmm", "src/repro_torch/kernels/csrc/bsr_spmm.cu",
+                "src/repro/kernels/bsr_spmm.py:55", dense_counts["bsr_spmm"],
+                kres, {
+                    "shape": dict(zip(("T", "S", "bs", "n"),
+                                      (*blocks.shape[:3], dense.shape[-1]))),
+                    **{k: kres[torch.float32][k] for k in (
+                        "real_flops", "stored_flops", "bytes")}})
+    del blocks, dense, kres, a32, a16, b32, b16, a3, b3, a14, a_h, b_h
+    del oracle, scale
+    del oracle32, scale32, oracle16, scale16, oracle_gemm, scale_gemm
+    free()
+    dense_peak = phase_peak("dense-output path")
 
-    f32, b16 = kres[torch.float32], kres[torch.bfloat16]
-    blocks, _, _, dense, _ = f32["inputs"]
-    record = {
-        "name": "bsr_spmm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bsr_spmm.cu",
-        "replaces": "src/repro/kernels/bsr_spmm.py:55",
-        "launches": launches, "dtype": "float32",
-        "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-        "max_err": f32["max_abs_err"], "kernel_ms": f32["ms"],
-        "shape": dict(zip(("T", "S", "bs", "n"), (*blocks.shape[:3],
-                                                   dense.shape[-1]))),
-        "real_flops": f32["real_flops"], "stored_flops": f32["stored_flops"],
-        "bytes": f32["bytes"],
-        "bf16": {k: b16[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "bytes",
-                                     "library_ms")},
-    }
+    log("== sparse-output path (ring_c, output='auto', B2)")
+    sparse = sparse_path(device)
+    free()
+    log("== chained cube (spgemm_bench configuration)")
+    cube_counts = chained_cube(device)
+    phase_peak("chained cube")
+    free()
+    log("== dense-tile SpGEMM entry point (ops.bsr_pair_matmul, B3)")
+    tile = pair_tile_path(device)
+
+    b2 = record("bsr_pair_accumulate",
+                "src/repro_torch/kernels/csrc/bsr_pair.cu",
+                "src/repro/kernels/bsr_spmm.py:165", sparse["launches"],
+                sparse["kernel"], {k: sparse["kernel"][torch.float32][k] for k
+                                   in ("real_flops", "pair_flops", "bytes",
+                                       "real_pairs", "pairs",
+                                       "workspace_bytes")})
+    b3 = record("bsr_pair_matmul", "src/repro_torch/kernels/csrc/bsr_pair.cu",
+                "src/repro/kernels/bsr_spmm.py:115", tile["launches"],
+                tile["kernel"], {k: tile["kernel"][torch.float32][k] for k
+                                 in ("real_flops", "pair_flops", "bytes",
+                                     "real_pairs", "pairs")})
     log(json.dumps({"build_s": build_s, "e2e_median_ms": e2e,
                     "ring_shift_ms": shift_ms, "breakdown": breakdown,
+                    "sparse_output": {k: sparse[k] for k in (
+                        "e2e_ms", "symbolic_s", "plan_rest_s",
+                        "c_store_bytes", "workspace_bytes", "breakdown",
+                        "peak_gb")},
+                    "cube_launches": cube_counts,
+                    "peak_gb": {"dense_output": dense_peak,
+                                "sparse_output": sparse["peak_gb"],
+                                "dense_tile": tile["peak_gb"]},
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [record]}))
+    log(json.dumps({"kernels": [b1, b2, b3]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

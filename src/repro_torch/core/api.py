@@ -1,24 +1,31 @@
-"""Plan-based public API of the port, slice 1: the dense-output ``ring_c``.
+"""Plan-based public API of the port: the ``ring_c`` schedule.
 
 Port of the main path of ``repro/core/api.py``:
 
 * :class:`DistBSR` / :class:`DistDense` — distributed-matrix handles
   wrapping a :class:`~repro_torch.core.bsr.TiledBSR` / a grid-padded dense
   tensor, with a cache of placements (the paper's ``k_offset`` skew is
-  materialised at most once per operand and placement).
-* :func:`plan_matmul` -> :class:`MatmulPlan` — geometry, placement needs
-  and the schedule body, cached in an LRU plan cache.
-* :func:`matmul` — sparse x dense (SpMM), sparse x sparse with a dense
-  output (SpGEMM, B densified once per multiply) and dense x dense, all
-  through the stationary-C ring ``ring_c`` (paper Alg. 2).
+  materialised at most once per operand and placement), and for sparse
+  handles their structure, fingerprint and packed wire layout.
+* :func:`plan_matmul` -> :class:`MatmulPlan` — geometry, placement needs,
+  the schedule body and its plan-time constants (pair lists, consume
+  maps), cached in an LRU plan cache.
+* :func:`matmul` — sparse x dense (SpMM), sparse x sparse (SpGEMM) and
+  dense x dense, all through the stationary-C ring ``ring_c`` (paper
+  Alg. 2).  SpGEMM gives a dense output (B densified once per multiply) or,
+  with ``output="sparse"`` / ``"auto"``, a :class:`DistBSR`: a host-side
+  symbolic phase (:func:`symbolic_spgemm`) predicts C's block structure and
+  the numeric phase accumulates block products straight into its packed
+  slots, so chained multiplies never densify.  ``wire="packed"`` moves only
+  each tile's real blocks around the ring (``core/wire.py``).
 
 Where the JAX package runs the body under ``shard_map`` on a device mesh,
 the port runs it on a :class:`~repro_torch.core.executor.StackedExecutor`:
 the g x g tiles live stacked on one card, ring shifts are rolls of the
 stack, and each step's local multiply is one batched kernel launch.
 
-Not in this slice (each raises a ``ValueError`` saying so): the other
-schedules and ``algorithm="auto"``, sparse outputs and the packed wire.
+Not in the port yet (each raises a ``ValueError`` saying so): the other
+schedules and ``algorithm="auto"``.
 """
 from __future__ import annotations
 
@@ -30,19 +37,27 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..kernels.bsr_pair import pair_table
 from ..runtime.device import as_tensor, resolve_device, strict_fp32
 from . import schedule as _schedule
+from . import symbolic as _symbolic
+from . import wire as _wire
 from .bsr import TiledBSR
 from .dist import (place_b_for_stationary_a, skew_bsr, skew_dense, tileize,
                    unskew_c_rows, untileize)
 from .executor import StackedExecutor
 from .grid import ProcessGrid, pad_to_multiple
+from .symbolic import (SymbolicProduct, predicted_density,  # re-export
+                       symbolic_spgemm)
+from .wire import PackedOperand, wire_capacity              # re-export
 
 __all__ = [
     "NATURAL", "SKEW_ROWS", "SKEW_COLS", "STATIONARY_A", "PLACEMENTS",
     "DistMatrix", "DistBSR", "DistDense", "Algorithm", "algorithms",
-    "MatmulPlan", "plan_matmul", "matmul",
+    "sparse_algorithms", "MatmulPlan", "plan_matmul", "matmul",
     "clear_plan_cache", "plan_cache_size", "cache_stats",
+    "SymbolicProduct", "symbolic_spgemm", "predicted_density",
+    "PackedOperand", "wire_capacity", "SPARSE_OUTPUT_DENSITY_THRESHOLD",
 ]
 
 # Placement states a DistMatrix can hold (the paper's directory remaps).
@@ -71,6 +86,7 @@ class _Geom:
     overlap: bool = False
     # split-step body (plan_matmul(overlap="on")): step t+2's ring shift is
     # issued before step t's accumulate
+    c_store: int = 0  # packed C slots per tile (sparse-output plans only)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -106,55 +122,183 @@ def _local_mm(a: Dict, b: Dict, geom: _Geom,
     return ex.unbatch(out.to(geom.out_dtype))
 
 
-def _body_ring_c(a: Dict, b: Dict, geom: _Geom,
-                 ex: StackedExecutor) -> torch.Tensor:
-    """Paper Alg 2 (stationary-C): skewed placement + neighbour ring shifts.
+def _ring_steps(a: Dict, b: Dict, geom: _Geom, ex: StackedExecutor):
+    """The (A, B) tile grids of each ``ring_c`` step, in order.
 
-    A rides the ``col`` ring and B the ``row`` ring; C accumulates in place
-    (the JAX body's ``c + ...`` in the same dtype, without a new buffer per
-    step).
-
-    The bulk body issues step t+1's shift before step t's multiply (paper
-    SS3.3 prefetch); the split-step body (``geom.overlap``) keeps one more
-    step in flight, issuing step t+2's shift before step t's multiply.  On
-    one stream that only reorders the launches and keeps one more copy of
-    each operand alive, and at g = 2 the two bodies issue the same launches.
-    The JAX bodies also shift after the last step, whose tiles nothing
-    consumes; here that shift would copy the whole operand on the card, so
-    the port makes g - 1 shifts per operand.
+    A rides the ``col`` ring and B the ``row`` ring.  The bulk body issues
+    step t+1's shift before step t's multiply (paper SS3.3 prefetch); the
+    split-step body (``geom.overlap``) keeps one more step in flight,
+    issuing step t+2's shift before step t's multiply.  On one stream that
+    only reorders the launches and keeps one more copy of each operand
+    alive, and at g = 2 the two bodies issue the same launches.  The JAX
+    bodies also shift after the last step, whose tiles nothing consumes;
+    here that shift would copy the whole operand on the card, so the port
+    makes g - 1 shifts per operand.
     """
-    b = _densify_b(b, geom, ex)
-    c = torch.zeros((geom.g, geom.g, geom.tm, geom.tn), dtype=geom.out_dtype,
-                    device=ex.device)
     ahead = 2 if geom.overlap else 1
     queue = [(a, b)]            # the tiles of steps t, t+1, ... in order
     for t in range(geom.g):
         while len(queue) <= ahead and t + len(queue) < geom.g:
             a_q, b_q = queue[-1]
             queue.append((ex.shift(a_q, "col"), ex.shift(b_q, "row")))
-        c += _local_mm(*queue.pop(0), geom, ex)
+        yield queue.pop(0)
+
+
+def _body_ring_c(a: Dict, b: Dict, geom: _Geom,
+                 ex: StackedExecutor) -> torch.Tensor:
+    """Paper Alg 2 (stationary-C): skewed placement + neighbour ring shifts.
+
+    C accumulates in place (the JAX body's ``c + ...`` in the same dtype,
+    without a new buffer per step).
+    """
+    b = _densify_b(b, geom, ex)
+    c = torch.zeros((geom.g, geom.g, geom.tm, geom.tn), dtype=geom.out_dtype,
+                    device=ex.device)
+    for a_t, b_t in _ring_steps(a, b, geom, ex):
+        c += _local_mm(a_t, b_t, geom, ex)
     return c
+
+
+# ---------------------------------------------------------------------------
+# Sparse-output body (plan_matmul(output="sparse"))
+# ---------------------------------------------------------------------------
+# The numeric phase of symbolic/numeric SpGEMM: both operands stay in their
+# stored (or packed) block form, only ``blocks`` rides the ring (the pair
+# lists encode all structure), and each step accumulates matched block
+# products into the packed output slots the symbolic phase allocated.  No
+# dense C tile and no densified B ever exist.
+def _sparse_step(a_t: Dict, b_t: Dict, pairs: Dict, c: torch.Tensor,
+                 geom: _Geom, ex: StackedExecutor) -> None:
+    """Every tile's pair products of one step, in one batched launch, added
+    into the float32 carry ``c`` ([g*g, c_store, bs, bs]) each slot once:
+    the JAX bodies' ``c + step`` without a step buffer."""
+    kops.bsr_pair_accumulate(
+        ex.batch(a_t["blocks"]), ex.batch(b_t["blocks"]), pairs["pa"],
+        pairs["pb"], pairs["ps"], n_slots=geom.c_store, impl=geom.impl,
+        table=pairs.get("table"), acc=c)
+
+
+def _sparse_body_ring_c(a: Dict, b: Dict, pairs, geom: _Geom,
+                        ex: StackedExecutor) -> torch.Tensor:
+    """Stationary-C ring with packed sparse output.
+
+    Same placement and shifts as ``ring_c``; B rides the ring in block form
+    (its densified tile never exists).  ``pairs[t]`` holds step t's
+    ``[g*g, P]`` pair lists: on grid position (i, j) they index the tiles
+    that position holds after t shifts, A[i, k] and B[k, j] with
+    ``k = (i + j + t) % g``.  The carry is float32, cast to the output
+    dtype once at the end.
+    """
+    bs = a["blocks"].shape[-1]
+    c = torch.zeros((geom.g * geom.g, geom.c_store, bs, bs),
+                    dtype=torch.float32, device=ex.device)
+    for t, (a_t, b_t) in enumerate(_ring_steps(a, b, geom, ex)):
+        _sparse_step(a_t, b_t, pairs[t], c, geom, ex)
+    return ex.unbatch(c.to(geom.out_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Packed-wire dense-output body (plan_matmul(wire="packed"))
+# ---------------------------------------------------------------------------
+# A sparse A tile rides as a packed [wire_capacity, bs, bs] buffer (real
+# blocks only, no rows/cols) and a sparse B tile likewise, densified per
+# step by a gather; all structure lives in plan-time consume maps
+# (core/wire.py), step t's maps in ``aux[t]`` as [g*g, ...] tensors.
+def _packed_a_mm(a_blocks: torch.Tensor, aux_t: Dict, b_dense: torch.Tensor,
+                 geom: _Geom, ex: StackedExecutor) -> torch.Tensor:
+    """One packed local SpMM step: gather each tile's coverage-augmented
+    block list out of its packed buffer, then the augment-free kernel."""
+    blocks = ex.batch(a_blocks)
+    tile = torch.arange(blocks.shape[0], device=blocks.device)[:, None]
+    out = kops.bsr_spmm_raw(blocks[tile, aux_t["a_gidx"]], aux_t["a_rows"],
+                            aux_t["a_cols"], b_dense,
+                            n_block_rows=geom.a_nbr, impl=geom.impl,
+                            augment=False)
+    return ex.unbatch(out.to(geom.out_dtype))
+
+
+def _packed_b_dense(b_buf: torch.Tensor, dmap: torch.Tensor, geom: _Geom,
+                    ex: StackedExecutor) -> torch.Tensor:
+    return kops.densify_packed(ex.batch(b_buf), dmap,
+                               n_block_rows=geom.b_nbr,
+                               n_block_cols=geom.b_nbc)
+
+
+def _packed_body_ring_c(a: Dict, b: Dict, aux, geom: _Geom,
+                        ex: StackedExecutor) -> torch.Tensor:
+    """Stationary-C ring over packed wire buffers (paper Alg 2)."""
+    b_packed = "b_dmap" in aux[0]
+    b0 = b if b_packed else _densify_b(b, geom, ex)
+    c = torch.zeros((geom.g, geom.g, geom.tm, geom.tn), dtype=geom.out_dtype,
+                    device=ex.device)
+    for t, (a_t, b_t) in enumerate(_ring_steps(a, b0, geom, ex)):
+        b_dense = _packed_b_dense(b_t["blocks"], aux[t]["b_dmap"], geom, ex) \
+            if b_packed else ex.batch(b_t["dense"])
+        c += _packed_a_mm(a_t["blocks"], aux[t], b_dense, geom, ex)
+    return c
+
+
+def _wire_consume(aux: Dict, prefix: str, po: "_wire.PackedOperand",
+                  tiles: np.ndarray) -> None:
+    cons = _wire.schedule_consume(po, tiles)
+    aux[f"{prefix}_gidx"] = cons["gidx"]
+    aux[f"{prefix}_rows"] = cons["rows"]
+    aux[f"{prefix}_cols"] = cons["cols"]
+
+
+def _wire_planner_ring_c(a_po, b_po, geom: _Geom) -> Dict[str, np.ndarray]:
+    """Consume maps of the packed ``ring_c`` body, ``[g, g, t, ...]``."""
+    aux: Dict[str, np.ndarray] = {}
+    if a_po is not None:
+        _wire_consume(aux, "a", a_po, _wire.tiles_ring_c(geom.g))
+    if b_po is not None:
+        aux["b_dmap"] = _wire.schedule_dense_map(
+            b_po, _wire.tiles_ring_c_b(geom.g))
+    return aux
 
 
 @dataclasses.dataclass(frozen=True)
 class Algorithm:
-    """A schedule: body + the placement each operand must be in."""
+    """A schedule: its bodies + the placement each operand must be in.
+
+    ``sparse_body`` is the packed-output SpGEMM body and ``k_order(i, j,
+    t, g)`` the inner index k of step t on grid position (i, j), which
+    schedules the symbolic phase's pair lists; ``packed_body`` is the
+    packed-wire dense-output body, fed the ``wire_planner``'s consume maps
+    for the operands named in ``packable``.
+    """
     name: str
     body: Callable
     a_placement: str = NATURAL
     b_placement: str = NATURAL
     unskew_out: Optional[str] = None        # None | "rows"
+    sparse_body: Optional[Callable] = None
+    k_order: Optional[Callable] = None
+    packed_body: Optional[Callable] = None
+    packable: Tuple[str, ...] = ()
+    wire_planner: Optional[Callable] = None
 
 
 _ALGORITHMS: Dict[str, Algorithm] = {
     "ring_c": Algorithm("ring_c", _body_ring_c, a_placement=SKEW_ROWS,
-                        b_placement=SKEW_COLS),
+                        b_placement=SKEW_COLS,
+                        sparse_body=_sparse_body_ring_c,
+                        k_order=lambda i, j, t, g: (i + j + t) % g,
+                        packed_body=_packed_body_ring_c,
+                        packable=("a", "b"),
+                        wire_planner=_wire_planner_ring_c),
 }
 
 
 def algorithms() -> Tuple[str, ...]:
     """Names of the schedules the port has."""
     return tuple(_ALGORITHMS)
+
+
+def sparse_algorithms() -> Tuple[str, ...]:
+    """Names of the schedules with a sparse-output (packed SpGEMM) body."""
+    return tuple(a.name for a in _ALGORITHMS.values()
+                 if a.sparse_body is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +349,22 @@ class _LRUCache:
 
 
 PLAN_CACHE_MAX = 128
+SYMBOLIC_CACHE_MAX = 32
+DENSITY_CACHE_MAX = 256
 _PLAN_CACHE = _LRUCache(PLAN_CACHE_MAX)
+# Symbolic-phase results keyed on the operands' structure fingerprints:
+# repeated sparse-output plans for the same structures skip the host-side
+# pair-list construction.  Density-only results (the cheap prefix that
+# output="auto" consults) cache separately, so an auto decision that
+# resolves to dense never builds pair lists.
+_SYMBOLIC_CACHE = _LRUCache(SYMBOLIC_CACHE_MAX)
+_DENSITY_CACHE = _LRUCache(DENSITY_CACHE_MAX)
 
 
 def clear_plan_cache() -> None:
     _PLAN_CACHE.clear()
+    _SYMBOLIC_CACHE.clear()
+    _DENSITY_CACHE.clear()
 
 
 def plan_cache_size() -> int:
@@ -217,17 +372,20 @@ def plan_cache_size() -> int:
 
 
 def cache_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
-    """Size, cap, hit/miss and eviction counts of the plan cache.
+    """Size, cap, hit/miss and eviction counts of the plan, symbolic-phase
+    and density caches.
 
     ``reset=True`` zeroes the counters after reading them; the returned
     dict holds the values from before the reset.
     """
-    c = _PLAN_CACHE
-    out = {"plans": {"size": len(c), "maxsize": c.maxsize,
-                     "evictions": c.evictions, "hits": c.hits,
-                     "misses": c.misses}}
+    caches = {"plans": _PLAN_CACHE, "symbolic": _SYMBOLIC_CACHE,
+              "density": _DENSITY_CACHE}
+    out = {name: {"size": len(c), "maxsize": c.maxsize,
+                  "evictions": c.evictions, "hits": c.hits,
+                  "misses": c.misses} for name, c in caches.items()}
     if reset:
-        c.reset_counters()
+        for c in caches.values():
+            c.reset_counters()
     return out
 
 
@@ -434,6 +592,58 @@ class DistBSR(DistMatrix):
                 d.shape)
         m, n = self.logical_shape
         return d[:m, :n]
+
+    def grid_structure(self) -> "_symbolic.GridStructure":
+        """Host-side structural view of the stored slots (cached): one read
+        of the block mask per handle, shared by the fingerprint, the
+        symbolic phase and the packed wire layout."""
+        s = getattr(self, "_grid_structure", None)
+        if s is None:
+            s = self._grid_structure = _symbolic.extract_structure(self.tiled)
+        return s
+
+    def structure_key(self) -> str:
+        """Fingerprint of the block structure (which slots hold data).
+
+        Sparse-output and packed-wire plans are specialized to the
+        operands' structures (pair lists and consume maps are plan
+        constants), so it joins their plan-cache keys.  Cached.
+        """
+        return self.grid_structure().fingerprint
+
+    def packed_operand(self) -> "_wire.PackedOperand":
+        """Packed wire layout of this handle's structure (cached)."""
+        po = getattr(self, "_packed_operand", None)
+        if po is None:
+            po = self._packed_operand = _wire.pack_operand(
+                self.grid_structure())
+        return po
+
+    def packed_wire(self, placement: str) -> Dict[str, torch.Tensor]:
+        """Packed blocks for a placement: ``{"blocks": [g, g, wc, bs,
+        bs]}``, each tile's real blocks gathered into the packed prefix and
+        the trailing slots guaranteed zero.  Cached per placement, like
+        :meth:`placed`."""
+        cache = getattr(self, "_packed_placed", None)
+        if cache is None:
+            cache = self._packed_placed = {}
+        tree = cache.get(placement)
+        if tree is None:
+            po = self.packed_operand()
+            placed = self.placed(placement)["blocks"]
+            tiles = _wire.placement_tiles(placement, self.g)
+            pidx = torch.as_tensor(po.pack_idx[tiles[..., 0], tiles[..., 1]],
+                                   device=self.device).long()
+            ii = torch.arange(self.g, device=self.device)[:, None, None]
+            jj = torch.arange(self.g, device=self.device)[None, :, None]
+            tree = cache[placement] = {"blocks": placed[ii, jj, pidx]}
+        return tree
+
+    def footprint_bytes(self) -> int:
+        """Bytes of the stored representation (blocks + structure arrays)."""
+        t = self.tiled
+        return sum(x.numel() * x.element_size()
+                   for x in (t.blocks, t.rows, t.cols, t.counts))
 
     def placed(self, placement: str) -> Dict[str, torch.Tensor]:
         tree = self._placed.get(placement)
@@ -646,7 +856,7 @@ def _coerce_pair(a, b, *, g: Optional[int] = None, allow_pad: bool = False,
 
 
 def _geometry(a_h: DistMatrix, b_h: DistMatrix, *, impl: Optional[str],
-              overlap: bool = False) -> _Geom:
+              overlap: bool = False, c_store: int = 0) -> _Geom:
     a_bsr = isinstance(a_h, DistBSR)
     b_bsr = isinstance(b_h, DistBSR)
     return _Geom(
@@ -655,12 +865,86 @@ def _geometry(a_h: DistMatrix, b_h: DistMatrix, *, impl: Optional[str],
         b_nbr=(b_h.tile_shape[0] // b_h.block_size) if b_bsr else 0,
         b_nbc=(b_h.tile_shape[1] // b_h.block_size) if b_bsr else 0,
         impl=impl, out_dtype=torch.promote_types(a_h.dtype, b_h.dtype),
-        overlap=overlap)
+        overlap=overlap, c_store=c_store)
+
+
+def _symbolic_for(a_h: DistBSR, b_h: DistBSR) -> SymbolicProduct:
+    """Memoised symbolic phase, keyed on the operands' structures."""
+    key = (a_h.structure_key(), b_h.structure_key())
+    sym = _SYMBOLIC_CACHE.get(key)
+    if sym is None:
+        sym = _SYMBOLIC_CACHE[key] = symbolic_spgemm(a_h.tiled, b_h.tiled)
+    return sym
+
+
+def _predicted_density_for(a_h: DistBSR, b_h: DistBSR) -> float:
+    """Memoised structure-only density (the output="auto" decision input)."""
+    key = (a_h.structure_key(), b_h.structure_key())
+    sym = _SYMBOLIC_CACHE.get(key)
+    if sym is not None:
+        return sym.density()
+    d = _DENSITY_CACHE.get(key)
+    if d is None:
+        d = _DENSITY_CACHE[key] = predicted_density(a_h.tiled, b_h.tiled)
+    return d
+
+
+def _sparse_output_eligible(a_h: DistMatrix,
+                            b_h: DistMatrix) -> Optional[str]:
+    """None when output="sparse" can serve these operands, else the reason."""
+    if not (isinstance(a_h, DistBSR) and isinstance(b_h, DistBSR)):
+        return "sparse output needs two block-sparse (DistBSR) operands"
+    if a_h.block_size != b_h.block_size:
+        return (f"sparse output needs equal block sizes, got "
+                f"{a_h.block_size} and {b_h.block_size}")
+    for h, who in ((a_h, "left"), (b_h, "right")):
+        if getattr(h, "row_block_perm", None) or \
+                getattr(h, "col_block_perm", None):
+            return (
+                f"sparse output does not support balanced operands: the "
+                f"{who} operand carries a balance permutation, which the "
+                "symbolic phase cannot compose into its pair lists yet; "
+                'either keep a dense output for this multiply '
+                '(output="dense") or rebuild the operand without balancing '
+                '(balance="none")')
+    return None
+
+
+# output="auto" emits a sparse DistBSR when the symbolic phase predicts C's
+# block density at or below this threshold; above it the packed form loses
+# its footprint advantage.
+SPARSE_OUTPUT_DENSITY_THRESHOLD = 0.25
+
+
+def _resolve_wire(wire: str, output: str) -> str:
+    """``wire="auto"`` is packed for sparse outputs (their plans are
+    specialized to the structure anyway) and padded for dense ones, so
+    structurally different operands of equal shapes share a dense plan."""
+    if wire == "auto":
+        return "packed" if output == "sparse" else "padded"
+    return wire
+
+
+def _b_pack_wins(b_h: DistMatrix) -> bool:
+    """Whether packing B beats the densified tile on a dense-output path.
+
+    A dense-output body consumes B as a dense tile either way, so shipping
+    B packed only pays when its real blocks cover less than the tile;
+    decided on the stored ``counts`` (an upper bound on real blocks).
+    """
+    if not isinstance(b_h, DistBSR):
+        return False
+    counts = b_h.counts.cpu().numpy()
+    wc = wire_capacity(int(counts.max()) if counts.size else 0,
+                       b_h.tiled.store_capacity)
+    bs = b_h.block_size
+    tm, tn = b_h.tile_shape
+    return wc * bs * bs < tm * tn
 
 
 def _check_request(algorithm: str, output: str, wire: str,
                    overlap: str, impl: Optional[str]) -> None:
-    """Refuse, before any work, what this slice of the port lacks."""
+    """Refuse, before any work, an unknown option or what the port lacks."""
     if algorithm == "auto":
         raise ValueError(
             "algorithm='auto' is not in the port yet: it scores schedules "
@@ -675,16 +959,9 @@ def _check_request(algorithm: str, output: str, wire: str,
     if output not in ("dense", "sparse", "auto"):
         raise ValueError(f"unknown output {output!r}; one of "
                          "('dense', 'sparse', 'auto')")
-    if output != "dense":
-        raise ValueError(f"the port does not have output={output!r} yet "
-                         "(sparse-output SpGEMM is the next slice); use "
-                         "output='dense'")
     if wire not in ("auto", "padded", "packed"):
         raise ValueError(f"unknown wire {wire!r}; one of "
                          "('auto', 'padded', 'packed')")
-    if wire == "packed":
-        raise ValueError("the port does not have wire='packed' yet; use "
-                         "wire='padded' or 'auto'")
     if overlap not in ("auto", "on", "off"):
         raise ValueError(f"unknown overlap {overlap!r}; one of "
                          "('auto', 'on', 'off')")
@@ -692,17 +969,50 @@ def _check_request(algorithm: str, output: str, wire: str,
         raise ValueError(f"unknown impl {impl!r}; one of {kops.IMPLS}")
 
 
-class MatmulPlan:
-    """A reusable distributed multiply: placements, geometry and the
-    schedule body, run on a stacked-grid executor.  Build with
-    :func:`plan_matmul`; execute with ``plan(a, b)``."""
+def _steps_on_device(arrays: Dict[str, np.ndarray], g: int,
+                     device: torch.device) -> list:
+    """``[g, g, t, ...]`` plan arrays -> per step t a dict of ``[g*g, ...]``
+    tensors on ``device`` (gather maps as int64, lists as int32)."""
+    steps = []
+    for t in range(g):
+        step = {}
+        for k, v in arrays.items():
+            v = np.ascontiguousarray(v[:, :, t].reshape(g * g, -1))
+            dtype = torch.int64 if k.endswith(("gidx", "dmap")) \
+                else torch.int32
+            step[k] = torch.from_numpy(v).to(device=device, dtype=dtype)
+        steps.append(step)
+    return steps
 
-    wire = "padded"
-    output = "dense"
+
+def _runs_kernel(impl: Optional[str], device: torch.device) -> bool:
+    """Whether ``impl`` on ``device`` launches the CUDA kernels."""
+    impl = impl or "auto"
+    if impl == "auto":
+        impl = kops.default_impl(torch.empty(0, device=device))
+    return impl == "cuda"
+
+
+class MatmulPlan:
+    """A reusable distributed multiply: placements, geometry, the schedule
+    body and its plan-time constants, run on a stacked-grid executor.
+    Build with :func:`plan_matmul`; execute with ``plan(a, b)``.
+
+    Sparse-output plans (``symbolic`` set) hold each step's ``[g*g, P]``
+    pair lists, scheduled by the algorithm's ``k_order`` (and remapped to
+    the packed layout under ``wire="packed"``), plus, where the kernel runs,
+    each step's :class:`~repro_torch.kernels.bsr_pair.PairTable`: the
+    lists are plan constants, so their work split is built once, here.
+    Packed-wire dense-output plans hold each step's consume maps.
+    """
 
     def __init__(self, algorithm: Algorithm, geom: _Geom,
                  executor: StackedExecutor, a_key: tuple, b_key: tuple,
-                 allow_pad: bool = False, overlap: str = "auto"):
+                 allow_pad: bool = False, overlap: str = "auto",
+                 symbolic: Optional[SymbolicProduct] = None,
+                 wire: str = "padded", packs: Tuple[str, ...] = (),
+                 wire_aux: Optional[Dict[str, np.ndarray]] = None,
+                 wire_fps: Optional[Dict[str, str]] = None):
         self.algorithm = algorithm
         self.geom = geom
         self.executor = executor
@@ -712,6 +1022,29 @@ class MatmulPlan:
         self._a_key = a_key
         self._b_key = b_key
         self._allow_pad = allow_pad
+        self.symbolic = symbolic
+        # which operands ship packed ("a"/"b") and the structure
+        # fingerprints their consume maps were built for (the call guard)
+        self.wire = wire
+        self._packs = packs
+        self._wire_fps = wire_fps or {}
+        dev = executor.device
+        if symbolic is not None:
+            sched = symbolic.scheduled_pairs(
+                algorithm.k_order,
+                pair_a=None if wire_aux is None else wire_aux.get("pa"),
+                pair_b=None if wire_aux is None else wire_aux.get("pb"))
+            self._pairs = _steps_on_device(sched, geom.g, dev)
+            if _runs_kernel(geom.impl, dev):
+                for t, step in enumerate(self._pairs):
+                    step["table"] = pair_table(
+                        sched["ps"][:, :, t].reshape(geom.g ** 2, -1),
+                        geom.c_store, device=dev)
+            self._c_rows = torch.as_tensor(symbolic.c_rows, device=dev)
+            self._c_cols = torch.as_tensor(symbolic.c_cols, device=dev)
+            self._c_counts = torch.as_tensor(symbolic.c_counts, device=dev)
+        elif wire == "packed":
+            self._aux = _steps_on_device(wire_aux, geom.g, dev)
 
     @property
     def kind(self) -> str:
@@ -720,7 +1053,21 @@ class MatmulPlan:
             return "spgemm" if self._b_key[0] == "bsr" else "spmm"
         return "dense"
 
-    def __call__(self, a, b) -> torch.Tensor:
+    @property
+    def output(self) -> str:
+        """"sparse" (returns a DistBSR) or "dense" (returns a tensor)."""
+        return "dense" if self.symbolic is None else "sparse"
+
+    def workspace_bytes(self) -> int:
+        """Bytes of the pair kernel's float32 partial workspace over a
+        sparse-output multiply's steps (the largest step's; 0 otherwise)."""
+        if self.symbolic is None:
+            return 0
+        bs = self.symbolic.block_size
+        return max((s["table"].workspace_bytes(bs) for s in self._pairs
+                    if "table" in s), default=0)
+
+    def __call__(self, a, b):
         a_h, b_h = _coerce_pair(a, b, g=self.geom.g,
                                 allow_pad=self._allow_pad,
                                 device=self.executor.device)
@@ -731,10 +1078,65 @@ class MatmulPlan:
                 f"(plan: {self._a_key} @ {self._b_key}, got "
                 f"{a_h.abstract_key()} @ {b_h.abstract_key()}); build a new "
                 "plan with plan_matmul")
-        alg = self.algorithm
-        c = alg.body(a_h.placed(alg.a_placement), b_h.placed(alg.b_placement),
-                     self.geom, self.executor)
+        body, operands = self._operands(a_h, b_h)
+        c = body(*operands, self.geom, self.executor)
+        if self.symbolic is not None:
+            return self._epilogue_sparse(c, a_h, b_h)
         return self._epilogue(untileize(c), a_h, b_h)
+
+    def _operands(self, a_h: DistMatrix, b_h: DistMatrix):
+        """The body to run and its operand trees (plus plan constants),
+        after the structure guards of structure-specialized plans."""
+        alg = self.algorithm
+        pl_a, pl_b = alg.a_placement, alg.b_placement
+        packed = self.wire == "packed"
+        if self.symbolic is not None:
+            sym = self.symbolic
+            if (a_h.structure_key(), b_h.structure_key()) != \
+                    (sym.a_fingerprint, sym.b_fingerprint):
+                raise ValueError(
+                    "operands' sparsity structure does not match this "
+                    "sparse-output plan (pair lists are specialized to the "
+                    "structure); build a new plan with plan_matmul")
+            a_tree = a_h.packed_wire(pl_a) if packed \
+                else {"blocks": a_h.placed(pl_a)["blocks"]}
+            b_tree = b_h.packed_wire(pl_b) if packed \
+                else {"blocks": b_h.placed(pl_b)["blocks"]}
+            return alg.sparse_body, (a_tree, b_tree, self._pairs)
+        if packed:
+            for who, h in (("a", a_h), ("b", b_h)):
+                if who in self._packs \
+                        and h.structure_key() != self._wire_fps.get(who):
+                    raise ValueError(
+                        f"{'left' if who == 'a' else 'right'} operand's "
+                        "sparsity structure does not match this packed-wire "
+                        "plan (the consume maps are specialized to the "
+                        "structure); build a new plan with plan_matmul")
+            a_tree = a_h.packed_wire(pl_a) if "a" in self._packs \
+                else a_h.placed(pl_a)
+            b_tree = b_h.packed_wire(pl_b) if "b" in self._packs \
+                else b_h.placed(pl_b)
+            return alg.packed_body, (a_tree, b_tree, self._aux)
+        return alg.body, (a_h.placed(pl_a), b_h.placed(pl_b))
+
+    def _epilogue_sparse(self, c_blocks: torch.Tensor, a_h: DistBSR,
+                         b_h: DistBSR) -> DistBSR:
+        """Wrap the packed numeric result into a DistBSR handle.
+
+        The symbolic layout already satisfies the TiledBSR storage contract
+        (row-sorted, coverage-augmented, uniformly padded), so the handle
+        is an operand of further multiplies as it is.  Its ``rows``,
+        ``cols`` and ``counts`` are the plan's tensors, shared by every
+        result of the plan.
+        """
+        sym = self.symbolic
+        tiled = TiledBSR(
+            blocks=c_blocks, rows=self._c_rows, cols=self._c_cols,
+            counts=self._c_counts, shape=sym.shape,
+            block_size=sym.block_size, grid_shape=(sym.g, sym.g),
+            capacity=sym.capacity,
+            logical_shape=(a_h.logical_shape[0], b_h.logical_shape[1]))
+        return DistBSR(tiled)
 
     def _epilogue(self, c: torch.Tensor, a_h: DistMatrix,
                   b_h: DistMatrix) -> torch.Tensor:
@@ -766,8 +1168,10 @@ class MatmulPlan:
 def plan_matmul(a, b, *, algorithm: str = "ring_c",
                 impl: Optional[str] = None, g: Optional[int] = None,
                 allow_pad: bool = False, cache: bool = True,
-                output: str = "dense", wire: str = "auto",
-                overlap: str = "auto", device=None) -> MatmulPlan:
+                output: str = "dense",
+                sparse_threshold: Optional[float] = None,
+                wire: str = "auto", overlap: str = "auto",
+                device=None) -> MatmulPlan:
     """Build (or fetch from the shared cache) a plan for ``a @ b``.
 
     ``a`` / ``b`` may be :class:`DistMatrix` handles (preferred: placement
@@ -775,28 +1179,103 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
     (``g`` required when ``a`` is dense); arrays go to ``device``, the card
     by default.  ``impl`` picks the local multiply (``None``/``"auto"``:
     the CUDA kernel on the card, the plain version on the CPU).
+
+    ``output``: ``"dense"`` returns a cropped dense tensor; ``"sparse"``
+    (two DistBSR operands of one block size, unbalanced) returns a
+    :class:`DistBSR` from the symbolic phase's layout; ``"auto"`` is sparse
+    when the predicted block density of C is at most ``sparse_threshold``
+    (default :data:`SPARSE_OUTPUT_DENSITY_THRESHOLD`).  Sparse-output plans
+    are specialized to the operands' structure, which joins the cache key.
+
+    ``wire``: ``"padded"`` moves sparse tiles at their stored stride,
+    ``"packed"`` only their real blocks (consume maps stay in the plan),
+    ``"auto"`` packs sparse-output plans and keeps dense-output plans
+    padded.  Packed plans join the cache keyed on the packed operands'
+    structures; a plan with nothing to pack stays padded.
+
     ``overlap="on"`` builds the split-step body, ``"off"`` the bulk one,
     and ``"auto"`` resolves to the bulk one: on the single-stream executor
     the split-step body hides no copy and holds one more copy of each
     operand (``"on"`` stays for parity with the JAX package until the shift
-    runs on a side stream).  The mode joins the cache key.  ``output`` must
-    be ``"dense"`` and ``wire`` ``"padded"``/``"auto"`` in this slice.
+    runs on a side stream).  The mode joins the cache key.
     """
     _check_request(algorithm, output, wire, overlap, impl)
     a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
     if a_h.device.type == "cuda":
         strict_fp32()
     alg = _ALGORITHMS[algorithm]
+    if output == "sparse":
+        reason = _sparse_output_eligible(a_h, b_h)
+        if reason:
+            raise ValueError(reason)
+    elif output == "auto":
+        if sparse_threshold is None:
+            sparse_threshold = SPARSE_OUTPUT_DENSITY_THRESHOLD
+        if alg.sparse_body is not None \
+                and _sparse_output_eligible(a_h, b_h) is None \
+                and _predicted_density_for(a_h, b_h) <= sparse_threshold:
+            output = "sparse"
+        else:
+            output = "dense"
+    wire = _resolve_wire(wire, output)
+    if wire == "packed" and not (isinstance(a_h, DistBSR)
+                                 or isinstance(b_h, DistBSR)):
+        raise ValueError(
+            "wire='packed' needs at least one block-sparse (DistBSR) "
+            "operand — dense operands have no packable structure; use "
+            "wire='padded'")
+    sym = _symbolic_for(a_h, b_h) if output == "sparse" else None
+    if sym is not None and alg.sparse_body is None:
+        raise ValueError(
+            f"algorithm {algorithm!r} has no sparse-output body; one of "
+            f"{sparse_algorithms()} (or use output='dense')")
+    # which operands ship packed (a plan with none stays padded)
+    packs: Tuple[str, ...] = ()
+    if wire == "packed":
+        if sym is not None:
+            packs = ("a", "b")
+        elif alg.packed_body is not None:
+            packs = tuple(t for t in alg.packable
+                          if isinstance(a_h if t == "a" else b_h, DistBSR))
+            if "b" in packs and not _b_pack_wins(b_h):
+                # a near-block-dense B is cheaper densified than packed
+                packs = tuple(t for t in packs if t != "b")
+        if not packs:
+            wire = "padded"
     key = (alg.name, impl or "auto", allow_pad, overlap, a_h.abstract_key(),
            b_h.abstract_key())
+    if sym is not None:
+        # pair lists are plan constants, so the structure is part of the
+        # plan's identity, not just its abstract shapes
+        key += ("sparse", a_h.structure_key(), b_h.structure_key())
+    if wire == "packed":
+        key += ("wire-packed",) + tuple(
+            (a_h if t == "a" else b_h).structure_key() for t in packs)
     if cache:
         plan = _PLAN_CACHE.get(key)
         if plan is not None:
             return plan
-    geom = _geometry(a_h, b_h, impl=impl, overlap=overlap == "on")
+    geom = _geometry(a_h, b_h, impl=impl, overlap=overlap == "on",
+                     c_store=sym.store_capacity if sym else 0)
+    wire_aux = wire_fps = None
+    if wire == "packed":
+        a_po = a_h.packed_operand() if "a" in packs else None
+        b_po = b_h.packed_operand() if "b" in packs else None
+        wire_fps = {t: po.fingerprint for t, po in
+                    (("a", a_po), ("b", b_po)) if po is not None}
+        if sym is not None:
+            # compose the stored->packed slot maps into the pair lists
+            wire_aux = {
+                "pa": _wire.remap_pairs_packed(sym.pair_a, a_po, "a"),
+                "pb": _wire.remap_pairs_packed(sym.pair_b, b_po, "b"),
+            }
+        else:
+            wire_aux = alg.wire_planner(a_po, b_po, geom)
     plan = MatmulPlan(alg, geom, StackedExecutor(a_h.g, a_h.device),
                       a_h.abstract_key(), b_h.abstract_key(),
-                      allow_pad=allow_pad, overlap=overlap)
+                      allow_pad=allow_pad, overlap=overlap, symbolic=sym,
+                      wire=wire, packs=packs, wire_aux=wire_aux,
+                      wire_fps=wire_fps)
     if cache:
         _PLAN_CACHE[key] = plan
     return plan
@@ -804,17 +1283,19 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
 
 def matmul(a, b, *, algorithm: str = "ring_c", impl: Optional[str] = None,
            g: Optional[int] = None, allow_pad: bool = False,
-           output: str = "dense", wire: str = "auto", overlap: str = "auto",
-           device=None) -> torch.Tensor:
+           output: str = "dense", sparse_threshold: Optional[float] = None,
+           wire: str = "auto", overlap: str = "auto", device=None):
     """Distributed ``a @ b`` through the shared plan cache.
 
-    Dispatches sparse x dense -> SpMM, sparse x sparse -> SpGEMM with a
-    dense output and dense x dense -> the dense engine (see
-    :func:`plan_matmul` for the arguments).
+    Dispatches sparse x dense -> SpMM, sparse x sparse -> SpGEMM (a dense
+    tensor, or with ``output="sparse"|"auto"`` a :class:`DistBSR` that
+    chains into further multiplies) and dense x dense -> the dense engine
+    (see :func:`plan_matmul` for the arguments).
     """
     _check_request(algorithm, output, wire, overlap, impl)
     a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
     plan = plan_matmul(a_h, b_h, algorithm=algorithm, impl=impl,
-                       allow_pad=allow_pad, output=output, wire=wire,
+                       allow_pad=allow_pad, output=output,
+                       sparse_threshold=sparse_threshold, wire=wire,
                        overlap=overlap)
     return plan(a_h, b_h)

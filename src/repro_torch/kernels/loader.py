@@ -24,13 +24,19 @@ BUILD_DIR = Path(__file__).with_name("build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of each source: name -> (argtypes, restype)
 _SIGNATURES = {
     "bsr_spmm": {
         # blocks, cols, row_ptr, chunk_ptr, dense, partial, out,
         # T, S, bs, nbr, K, n, max_chunks, chunk, dtype, stream
         "bsr_spmm_launch": ([_P] * 7 + [_I] * 9 + [_P], _I),
+    },
+    "bsr_pair": {
+        # a, b, pa, pb, chunks, n_chunks, reduce, n_reduce, partial, out,
+        # T, Sa, Sb, P, bs, n_slots, nbc, accumulate, dtype, stream
+        "bsr_pair_launch": ([_P] * 5 + [_L, _P, _L, _P, _P] + [_I] * 9
+                            + [_P], _I),
     },
 }
 

@@ -9,18 +9,25 @@
 
 Every op takes one tile or a batch of tiles with a leading tile dimension;
 the stacked-grid executor passes all g² tiles of a ring step in one call.
+The pair-list builders (``match_block_pairs``, ``build_pair_lists``) are
+host numpy, bit-identical to the JAX package's.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import ref as _ref
+from .bsr_pair import (PairTable, bsr_pair_accumulate_cuda,
+                       bsr_pair_matmul_cuda, pair_table)
 from .bsr_spmm import bsr_spmm_cuda
 
 __all__ = ["IMPLS", "default_impl", "bsr_spmm", "bsr_spmm_raw",
-           "augment_coverage", "densify"]
+           "augment_coverage", "match_block_pairs", "build_pair_lists",
+           "bsr_pair_matmul", "bsr_pair_accumulate", "densify",
+           "densify_packed"]
 
 IMPLS = ("auto", "ref", "cuda")
 
@@ -102,6 +109,193 @@ def bsr_spmm(a_bsr, dense, *, impl: Optional[str] = None) -> torch.Tensor:
                         n_block_rows=a_bsr.n_block_rows, impl=impl)
 
 
+# ---------------------------------------------------------------------------
+# SpGEMM with host-known structure: pair lists (host numpy) and the kernels
+# ---------------------------------------------------------------------------
+def match_block_pairs(a_cols, b_rows):
+    """Vectorized sort-merge join on ``a_cols[i] == b_rows[j]`` (host numpy).
+
+    Every (A block, B block) pair whose product contributes to C, as
+    ``(ai, bj)`` index arrays into the given lists; within one A block the
+    matched B blocks keep their order (stable argsort).  Shared by
+    :func:`build_pair_lists` and ``repro_torch.core.symbolic``.
+    """
+    a_cols = np.asarray(a_cols, dtype=np.int64)
+    b_rows = np.asarray(b_rows, dtype=np.int64)
+    b_order = np.argsort(b_rows, kind="stable")
+    b_rows_sorted = b_rows[b_order]
+    starts = np.searchsorted(b_rows_sorted, a_cols, side="left")
+    ends = np.searchsorted(b_rows_sorted, a_cols, side="right")
+    deg = ends - starts
+    ai = np.repeat(np.arange(len(a_cols), dtype=np.int64), deg)
+    offs = np.arange(deg.sum(), dtype=np.int64) - np.repeat(
+        np.cumsum(deg) - deg, deg)
+    bj = b_order[np.repeat(starts, deg) + offs]
+    return ai, bj
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def build_pair_lists(a_rows, a_cols, a_nnzb: int, b_rows, b_cols, b_nnzb: int,
+                     n_block_rows: int, n_block_cols: int,
+                     capacity: Optional[int] = None
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray, int]:
+    """Host-side symbolic phase of a one-tile block SpGEMM.
+
+    Matches stored blocks of A and B (``a_cols[i] == b_rows[j]``) and emits
+    flat pair lists sorted by output block (row, col).  Every output block
+    is covered at least once (uncovered blocks get a dummy pair on the zero
+    slot that :func:`bsr_pair_matmul` appends).  Returns ``(pair_a,
+    pair_b, pair_rows, pair_cols, n_real_pairs)``; index ``a_nnzb`` /
+    ``b_nnzb`` is the appended zero slot.
+    """
+    a_rows = _host(a_rows)[:a_nnzb].astype(np.int64)
+    a_cols = _host(a_cols)[:a_nnzb].astype(np.int64)
+    b_rows = _host(b_rows)[:b_nnzb].astype(np.int64)
+    b_cols = _host(b_cols)[:b_nnzb].astype(np.int64)
+    ai, bj = match_block_pairs(a_cols, b_rows)
+    rows = a_rows[ai]
+    cols = b_cols[bj]
+    # coverage: dummy pairs for the output blocks no real product touches
+    zslot_a, zslot_b = a_nnzb, b_nnzb
+    covered = np.zeros((n_block_rows, n_block_cols), dtype=bool)
+    covered[rows, cols] = True
+    ur, uc = np.nonzero(~covered)
+    pair_rows = np.concatenate([rows, ur])
+    pair_cols = np.concatenate([cols, uc])
+    pair_a = np.concatenate([ai, np.full(len(ur), zslot_a, np.int64)])
+    pair_b = np.concatenate([bj, np.full(len(ur), zslot_b, np.int64)])
+    # stable sort by output block (row, col), ties in construction order
+    order = np.lexsort((np.arange(len(pair_rows)), pair_cols, pair_rows))
+    pair_a, pair_b = pair_a[order], pair_b[order]
+    pair_rows, pair_cols = pair_rows[order], pair_cols[order]
+    n_real = len(pair_rows)
+    cap = capacity if capacity is not None else n_real
+    if n_real > cap:
+        raise ValueError(f"pair capacity {cap} < required {n_real}")
+    pad = cap - n_real
+    pair_rows = np.concatenate([pair_rows, np.full(pad, pair_rows[-1])])
+    pair_cols = np.concatenate([pair_cols, np.full(pad, pair_cols[-1])])
+    pair_a = np.concatenate([pair_a, np.full(pad, zslot_a, np.int64)])
+    pair_b = np.concatenate([pair_b, np.full(pad, zslot_b, np.int64)])
+    return (pair_a.astype(np.int32), pair_b.astype(np.int32),
+            pair_rows.astype(np.int32), pair_cols.astype(np.int32), n_real)
+
+
+def _pairs(x, like: torch.Tensor) -> torch.Tensor:
+    """A pair list as an int32 tensor on the blocks' device."""
+    return torch.as_tensor(x, device=like.device).to(torch.int32)
+
+
+def bsr_pair_matmul(a_blocks, b_blocks, pair_a, pair_b, pair_rows, pair_cols,
+                    *, n_block_rows: int, n_block_cols: int,
+                    impl: Optional[str] = None,
+                    table: Optional[PairTable] = None) -> torch.Tensor:
+    """Dense C tile(s) from matched block pairs (see :func:`build_pair_lists`).
+
+    One tile (``a_blocks [Sa, bs, bs]``, pair lists ``[P]``) or a batch
+    (``[T, Sa, bs, bs]``, ``[T, P]``).  A zero slot is appended to each
+    tile's A and B blocks, as the JAX wrapper does.  Returns ``promote(a,
+    b)``.  ``table`` (kernel only) is the :func:`pair_table` of the slots
+    ``pair_rows * n_block_cols + pair_cols``, built here when not given.
+    """
+    impl = _resolve(impl, a_blocks)
+    single = a_blocks.dim() == 3
+    lists = [_pairs(x, a_blocks) for x in (pair_a, pair_b, pair_rows,
+                                           pair_cols)]
+    if single:
+        a_blocks, b_blocks = a_blocks[None], b_blocks[None]
+        lists = [x[None] for x in lists]
+    out_dtype = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
+    a_ext, b_ext = (torch.cat([x, x.new_zeros((x.shape[0], 1,
+                                               *x.shape[2:]))], dim=1)
+                    for x in (a_blocks, b_blocks))
+    if impl == "ref":
+        out = _ref.bsr_pair_matmul_raw_ref(a_ext, b_ext, *lists,
+                                           n_block_rows, n_block_cols)
+    else:
+        pa, pb, pr, pc = lists
+        if table is None:
+            table = pair_table(pr.long() * n_block_cols + pc.long(),
+                               n_block_rows * n_block_cols,
+                               device=a_blocks.device)
+        out = bsr_pair_matmul_cuda(
+            a_ext.contiguous(), b_ext.contiguous(), pa.contiguous(),
+            pb.contiguous(), table, n_block_rows=n_block_rows,
+            n_block_cols=n_block_cols).to(out_dtype)
+    return out[0] if single else out
+
+
+def bsr_pair_accumulate(a_blocks, b_blocks, pair_a, pair_b, pair_slot, *,
+                        n_slots: int, out_dtype: Optional[torch.dtype] = None,
+                        impl: Optional[str] = None,
+                        table: Optional[PairTable] = None,
+                        acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Packed C blocks from matched pairs: the sparse-output SpGEMM inner.
+
+    Products accumulate into a flat ``[n_slots, bs, bs]`` slot array per
+    tile (the symbolic phase's output layout).  Contract (established by
+    ``repro_torch.core.symbolic``): ``pair_slot`` is nondecreasing, every
+    slot is visited (coverage pairs), and dummy pairs reference zero
+    blocks.  ``pair_a``/``pair_b`` may index the stored or the packed wire
+    layout.  One tile or a ``[T, ...]`` batch.
+
+    ``acc`` (float32, the output's shape) is a carry: the step's sums are
+    added into it, each slot's sum once, as the JAX bodies' ``c + step``,
+    and ``acc`` is returned (``out_dtype`` does not apply).  ``table``
+    (kernel only) is the :func:`pair_table` of ``pair_slot``; plans pass
+    the one they built at plan time, else it is built here.
+    """
+    impl = _resolve(impl, a_blocks)
+    pair_a, pair_b, pair_slot = (_pairs(x, a_blocks)
+                                 for x in (pair_a, pair_b, pair_slot))
+    if impl == "ref":
+        out = _ref.bsr_pair_accumulate_raw_ref(a_blocks, b_blocks, pair_a,
+                                               pair_b, pair_slot, n_slots)
+        if acc is not None:
+            return acc.add_(out)
+        return out.to(out_dtype or torch.promote_types(a_blocks.dtype,
+                                                       b_blocks.dtype))
+    single = a_blocks.dim() == 3
+    if single:
+        a_blocks, b_blocks, pair_a, pair_b, pair_slot = (
+            x[None] for x in (a_blocks, b_blocks, pair_a, pair_b, pair_slot))
+        acc = None if acc is None else acc[None]
+    if table is None:
+        table = pair_table(pair_slot, n_slots, device=a_blocks.device)
+    out = bsr_pair_accumulate_cuda(
+        a_blocks.contiguous(), b_blocks.contiguous(), pair_a.contiguous(),
+        pair_b.contiguous(), table, out=acc)
+    if acc is None:
+        out = out.to(out_dtype or torch.promote_types(a_blocks.dtype,
+                                                      b_blocks.dtype))
+    return out[0] if single else out
+
+
 def densify(blocks, rows, cols, *, n_block_rows: int,
             n_block_cols: int) -> torch.Tensor:
     return _ref.densify_raw(blocks, rows, cols, n_block_rows, n_block_cols)
+
+
+def densify_packed(blocks, dmap, *, n_block_rows: int,
+                   n_block_cols: int) -> torch.Tensor:
+    """Dense tile(s) from packed wire blocks by a gather.
+
+    ``dmap`` maps every dense block position, row-major, to the packed slot
+    holding its data or to a guaranteed-zero slot (``core/wire.py``), so
+    the scatter of :func:`densify` becomes a gather and a transpose.  One
+    tile (``blocks [wc, bs, bs]``, ``dmap [nbr*nbc]``) or a batch.
+    """
+    single = blocks.dim() == 3
+    if single:
+        blocks, dmap = blocks[None], dmap[None]
+    t, _, bs, _ = blocks.shape
+    tile = torch.arange(t, device=blocks.device)[:, None]
+    d = blocks[tile, dmap.long()].reshape(t, n_block_rows, n_block_cols, bs,
+                                          bs)
+    d = d.permute(0, 1, 3, 2, 4).reshape(t, n_block_rows * bs,
+                                         n_block_cols * bs)
+    return d[0] if single else d

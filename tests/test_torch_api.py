@@ -1,16 +1,22 @@
 """The port's plan API (``repro_torch.core.api``) against the JAX package's.
 
 Parity: ``matmul(algorithm="ring_c")`` on SpMM, dense-output SpGEMM and
-dense x dense, with overlap on and off and with balanced left operands,
-against ``repro.core.api.matmul(algorithm="ring_c", impl="ref")`` on the
-same numpy inputs.  g = 1 runs in this process; g = 2 and 3 need one JAX
-device per tile, so their JAX results come from one child process
+dense x dense, with overlap on and off and with balanced left operands;
+sparse-output SpGEMM (wire padded and packed, overlap on and off,
+``output="auto"`` on both sides of its threshold, the chained cube) and the
+packed-wire dense-output body; all against
+``repro.core.api.matmul(algorithm="ring_c", impl="ref")`` on the same numpy
+inputs.  g = 1 runs in this process; g = 2 and 3 need one JAX device per
+tile, so their JAX results come from one child process
 (``torch_jax_child.py``) started with 9 host devices.  Float32 sums of a
-few dozen products taken in other orders: tolerance 1e-5.
+few dozen products taken in other orders: tolerance 1e-5.  A sparse
+result's structure (``rows``, ``cols``, ``counts``, capacities) must be
+bit-identical.
 
 Besides: plan-cache and placement reuse, the operand validation of
-``_coerce_pair`` (same messages as the JAX package), the refusals of what
-this slice does not have, and the default device.
+``_coerce_pair`` and the sparse-output and structure guards (same messages
+as the JAX package), the refusals of what the port does not have, and the
+default device.
 """
 import os
 import pathlib
@@ -39,6 +45,7 @@ TOL = 1e-5
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CASES = {name: (kind, balance, overlap)
          for name, kind, balance, overlap in child.CASES}
+SPARSE_CASES = {name: (kind, kw) for name, kind, kw in child.SPARSE_CASES}
 
 
 def port_result(kind: str, balance: str, overlap: str, g: int,
@@ -54,6 +61,34 @@ def port_result(kind: str, balance: str, overlap: str, g: int,
         b_h = DistBSR.from_dense(ops["s"], g=g, block_size=child.BLOCK,
                                  device=CPU)
     return matmul(a_h, b_h, **kw).numpy()
+
+
+def port_sparse_result(kind: str, kw: dict, g: int, ops: dict) -> dict:
+    return child.result_fields(child.run_sparse_case(
+        tapi, kind, kw,
+        lambda name: DistBSR.from_dense(ops[name], g=g,
+                                        block_size=child.BLOCK, device=CPU),
+        lambda name, a_h: DistDense.for_rhs(ops[name], a_h)))
+
+
+def assert_same_result(got: dict, want: dict, oracle: np.ndarray) -> None:
+    """Dense results within TOL; sparse ones with bit-identical structure,
+    blocks within TOL, and their value against the float64 oracle."""
+    assert set(got) == set(want)
+    if "dense" in want:
+        value = got["dense"]
+        np.testing.assert_allclose(value, want["dense"], rtol=TOL, atol=TOL)
+    else:
+        for field in ("rows", "cols", "counts", "meta"):
+            assert got[field].dtype == want[field].dtype, field
+            np.testing.assert_array_equal(got[field], want[field],
+                                          err_msg=field)
+        assert got["blocks"].shape == want["blocks"].shape
+        np.testing.assert_allclose(got["blocks"], want["blocks"], rtol=TOL,
+                                   atol=TOL)
+        value = got["dense_value"]
+    assert value.shape == oracle.shape
+    np.testing.assert_allclose(value, oracle, rtol=10 * TOL, atol=10 * TOL)
 
 
 @pytest.fixture(scope="module")
@@ -101,6 +136,157 @@ def test_ring_c_parity_multi_tile(case, g, ops, jax_multi):
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(got, child.oracle(kind, ops), rtol=TOL,
                                atol=TOL)
+
+
+@pytest.mark.parametrize("case", list(SPARSE_CASES))
+def test_sparse_and_packed_parity_g1_in_process(case, ops):
+    kind, kw = SPARSE_CASES[case]
+    got = port_sparse_result(kind, kw, 1, ops)
+    want = child.jax_sparse_result(kind, kw, 1, ops)
+    assert_same_result(got, want, child.sparse_oracle(kind, ops))
+
+
+@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("case", list(SPARSE_CASES))
+def test_sparse_and_packed_parity_multi_tile(case, g, ops, jax_multi):
+    kind, kw = SPARSE_CASES[case]
+    got = port_sparse_result(kind, kw, g, ops)
+    prefix = f"{case}/g{g}/"
+    want = {k[len(prefix):]: v for k, v in jax_multi.items()
+            if k.startswith(prefix)}
+    assert_same_result(got, want, child.sparse_oracle(kind, ops))
+
+
+@pytest.mark.parametrize("case", [c for c, (kind, _) in SPARSE_CASES.items()
+                                  if kind != "chain"])
+def test_sparse_and_packed_plans_resolve_as_jax(case, ops):
+    """output, wire and the packed operands resolve as the JAX package's
+    plans do (g = 1: the JAX plan needs one device per tile; the chain's
+    plans are those of the sparse cases)."""
+    kind, kw = SPARSE_CASES[case]
+    kw = dict(kw, algorithm="ring_c")
+    output = {"sparse": "sparse", "auto": "auto"}.get(kind, "dense")
+    rhs = "b" if kind == "packed-spmm" else "s"
+    a_t = DistBSR.from_dense(ops["a"], g=1, block_size=4, device=CPU)
+    a_j = japi.DistBSR.from_dense(ops["a"], g=1, block_size=4)
+    if rhs == "b":
+        b_t, b_j = DistDense.for_rhs(ops["b"], a_t), \
+            japi.DistDense.for_rhs(jnp.asarray(ops["b"]), a_j)
+    else:
+        b_t = DistBSR.from_dense(ops["s"], g=1, block_size=4, device=CPU)
+        b_j = japi.DistBSR.from_dense(ops["s"], g=1, block_size=4)
+    p_t = plan_matmul(a_t, b_t, output=output, **kw)
+    p_j = japi.plan_matmul(a_j, b_j, output=output, impl="ref", **kw)
+    assert (p_t.output, p_t.wire, p_t._packs) == (p_j.output, p_j.wire,
+                                                  p_j._packs)
+    assert p_t.geom.c_store == p_j.geom.c_store
+
+
+def test_sparse_plans_cache_by_structure(ops):
+    tapi.clear_plan_cache()
+    tapi.cache_stats(reset=True)
+    a_h = DistBSR.from_dense(ops["a"], g=2, block_size=4, device=CPU)
+    s_h = DistBSR.from_dense(ops["s"], g=2, block_size=4, device=CPU)
+    p1 = plan_matmul(a_h, s_h, output="sparse")
+    assert p1.output == "sparse" and p1.wire == "packed"
+    assert plan_matmul(a_h, s_h, output="sparse") is p1
+    assert plan_matmul(a_h, s_h, output="sparse", wire="padded") is not p1
+    stats = tapi.cache_stats()
+    assert stats["symbolic"]["size"] == 1 and stats["symbolic"]["hits"] >= 1
+    # the same abstract shapes with another structure is another plan
+    a2 = ops["a"].copy()
+    a2[20:, 20:] = 0
+    a2_h = DistBSR.from_dense(a2, g=2, block_size=4, capacity=a_h.capacity,
+                              device=CPU)
+    assert a2_h.abstract_key() == a_h.abstract_key()
+    assert a2_h.structure_key() != a_h.structure_key()
+    assert plan_matmul(a2_h, s_h, output="sparse") is not p1
+    # output="auto" consults the density cache, not the pair lists
+    tapi.clear_plan_cache()
+    plan_matmul(a_h, s_h, output="auto", sparse_threshold=0.0)
+    stats = tapi.cache_stats()
+    assert stats["density"]["size"] == 1 and stats["symbolic"]["size"] == 0
+    out = matmul(a_h, s_h, output="sparse")
+    assert isinstance(out, DistBSR)
+    assert torch.equal(out.tiled.rows, p1._c_rows)
+    np.testing.assert_allclose(out.densify().numpy(),
+                               ops["a"] @ ops["s"], rtol=TOL, atol=TOL)
+    assert tapi.symbolic_spgemm(a_h.tiled, s_h.tiled).density() == \
+        tapi.predicted_density(a_h.tiled, s_h.tiled)
+
+
+def test_sparse_steps_launch_one_pair_kernel_call_per_step(ops, monkeypatch):
+    """One batched call per ring step, over all g² tiles, with the
+    step's [g*g, P] pair lists (g = 3)."""
+    calls = []
+    acc = tapi.kops.bsr_pair_accumulate
+    monkeypatch.setattr(tapi.kops, "bsr_pair_accumulate",
+                        lambda *args, **kw: calls.append(args[2].shape)
+                        or acc(*args, **kw))
+    a_h = DistBSR.from_dense(ops["a"], g=3, block_size=4, device=CPU)
+    s_h = DistBSR.from_dense(ops["s"], g=3, block_size=4, device=CPU)
+    plan = plan_matmul(a_h, s_h, output="sparse")
+    plan(a_h, s_h)
+    p = plan.symbolic.pair_capacity
+    assert calls == [(9, p)] * 3
+    assert plan.workspace_bytes() == 0           # no kernel on the CPU
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_sparse_and_wire_guards_match_jax(g, ops):
+    """Eligibility and structure guards raise with the JAX messages.
+
+    The structure guards run on a built plan, which the JAX package builds
+    only with one device per tile (g = 1 here); the balance guard needs a
+    permutation, which only g > 1 keeps.
+    """
+    jt = lambda d, **kw: japi.DistBSR.from_dense(d, g=g, block_size=4, **kw)
+    tt = lambda d, **kw: DistBSR.from_dense(d, g=g, block_size=4,
+                                            device=CPU, **kw)
+    a, s = ops["a"], ops["s"]
+    a2 = a.copy()
+    a2[20:, 20:] = 0
+    cap = jt(a).capacity
+    eight = lambda mod, x: mod.DistBSR.from_dense(
+        x, g=g, block_size=8, **({} if mod is japi else {"device": CPU}))
+    cases = [
+        # dense right operand
+        (lambda: matmul(tt(a), DistDense.for_rhs(ops["b"], tt(a)),
+                        output="sparse"),
+         lambda: japi.matmul(jt(a), japi.DistDense.for_rhs(
+             jnp.asarray(ops["b"]), jt(a)), output="sparse", impl="ref")),
+        # block sizes differ
+        (lambda: matmul(tt(s), eight(tapi, s), output="sparse"),
+         lambda: japi.matmul(jt(s), eight(japi, s), output="sparse",
+                             impl="ref")),
+        # packed wire with two dense operands
+        (lambda: matmul(np.ones((8, 8), np.float32),
+                        np.ones((8, 8), np.float32), g=g, wire="packed",
+                        device=CPU),
+         lambda: japi.matmul(jnp.ones((8, 8)), jnp.ones((8, 8)), g=g,
+                             wire="packed", impl="ref")),
+    ]
+    structure = [
+        # the structure changed under a sparse-output plan
+        (lambda: plan_matmul(tt(a), tt(s), output="sparse")(
+            tt(a2, capacity=cap), tt(s)),
+         lambda: japi.plan_matmul(jt(a), jt(s), output="sparse",
+                                  impl="ref")(jt(a2, capacity=cap), jt(s))),
+        # ... and under a packed-wire dense-output plan
+        (lambda: plan_matmul(tt(a), tt(s), wire="packed")(
+            tt(a2, capacity=cap), tt(s)),
+         lambda: japi.plan_matmul(jt(a), jt(s), wire="packed", impl="ref")(
+             jt(a2, capacity=cap), jt(s))),
+    ]
+    if g == 1:
+        cases += structure
+    else:
+        cases.append((
+            lambda: matmul(tt(a, balance="rows"), tt(s), output="sparse"),
+            lambda: japi.matmul(jt(a, balance="rows"), jt(s),
+                                output="sparse", impl="ref")))
+    for fn_port, fn_jax in cases:
+        _both(fn_port, fn_jax)
 
 
 @pytest.mark.parametrize("g", [2, 3])
@@ -356,16 +542,23 @@ def test_coerce_pair_errors_match_jax():
     (dict(algorithm="summa_ag"), "does not have algorithm 'summa_ag' yet"),
     (dict(algorithm="steal3d"), "does not have algorithm 'steal3d' yet"),
     (dict(algorithm="bogus"), "unknown algorithm 'bogus'"),
-    (dict(output="sparse"), "does not have output='sparse' yet"),
-    (dict(output="auto"), "does not have output='auto' yet"),
+    (dict(output="sparse"), "sparse output needs two block-sparse"),
+    (dict(algorithm="ring_c_bidir"),
+     "does not have algorithm 'ring_c_bidir' yet"),
     (dict(output="csr"), "unknown output 'csr'"),
-    (dict(wire="packed"), "does not have wire='packed' yet"),
+    (dict(output="sparse", balanced=True),
+     "sparse output does not support balanced operands"),
     (dict(wire="wide"), "unknown wire 'wide'"),
     (dict(overlap="maybe"), "unknown overlap 'maybe'"),
     (dict(impl="pallas"), "unknown impl 'pallas'"),
 ])
 def test_refuses_what_the_slice_lacks(handles, kw, match):
     _, _, a_h, b_h = handles
+    if kw.pop("balanced", False):
+        skew = child.inputs()
+        a_h = DistBSR.from_dense(skew["a"], g=2, block_size=4,
+                                 balance="rows", device=CPU)
+        b_h = DistBSR.from_dense(skew["s"], g=2, block_size=4, device=CPU)
     for fn in (matmul, plan_matmul):
         with pytest.raises(ValueError, match=match):
             fn(a_h, b_h, **kw)

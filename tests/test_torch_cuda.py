@@ -1,11 +1,11 @@
-"""The port's CUDA kernel and its main path on the card.
+"""The port's CUDA kernels and their paths on the card.
 
 Every test here carries the ``cuda`` marker and skips where there is no
 card; none imports JAX, so the file runs on a machine with PyTorch alone::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the same inputs,
+Each kernel is held against its plain PyTorch version on the same inputs,
 element by element against the scale that bounds rounding, |A| @ |B|:
 ``|got - want| <= 1e-5 * (|A| @ |B|) + step * |want|``.  1e-5 is the
 reference's float32 tolerance for sums taken in another order; ``step`` is
@@ -16,10 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.api import DistBSR, DistDense, matmul
-from repro_torch.core.bsr import TiledBSR, random_sparse
+from repro_torch.core.api import DistBSR, DistDense, matmul, plan_matmul
+from repro_torch.core.bsr import BSR, TiledBSR, random_sparse
 from repro_torch.core.grid import ProcessGrid
+from repro_torch.core.symbolic import symbolic_spgemm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bsr_pair import (bsr_pair_accumulate_cuda,
+                                          bsr_pair_matmul_cuda)
 from repro_torch.kernels.bsr_spmm import CHUNK, bsr_spmm_cuda
 
 TOL = 1e-5
@@ -163,3 +166,150 @@ def test_bf16_main_path_on_the_card(card):
     b16 = torch.from_numpy(b).bfloat16().float().numpy()
     scale = torch.from_numpy(np.abs(a_d) @ np.abs(b16))
     assert_close(got, want, scale, tol=TOL + (2 * a_h.g - 1) * BF16_STEP)
+
+
+# ---------------------------------------------------------------------------
+# the pair kernels (bsr_pair_accumulate, bsr_pair_matmul) and sparse outputs
+# ---------------------------------------------------------------------------
+def _pair_case(bs: int, dtype, device, seed: int = 0):
+    """A @ A on a 2 x 2 grid: step 0's stacked tiles and [4, P] pair lists,
+    as the sparse-output ring feeds them (a hub row makes long segments;
+    the symbolic phase's inert padding a longer one)."""
+    a = random_sparse(12 * bs, 12 * bs, 0.04, seed=seed)
+    a[:bs] += random_sparse(bs, 12 * bs, 0.6, seed=seed + 1)
+    t = TiledBSR.from_dense(a, ProcessGrid(2, 2), bs, dtype=dtype,
+                            device=device)
+    sym = symbolic_spgemm(t, t)
+    sched = sym.scheduled_pairs(lambda i, j, s, g: (i + j + s) % g)
+    k = (np.arange(2)[:, None] + np.arange(2)[None, :]) % 2
+    ii, jj = np.arange(2)[:, None], np.arange(2)[None, :]
+    s = t.store_capacity
+    blocks_a = t.blocks[ii, k].reshape(4, s, bs, bs)
+    blocks_b = t.blocks[k, jj].reshape(4, s, bs, bs)
+    lists = [torch.from_numpy(np.ascontiguousarray(
+        sched[x][:, :, 0].reshape(4, -1))).to(device) for x in ("pa", "pb",
+                                                             "ps")]
+    return blocks_a, blocks_b, lists, sym.store_capacity
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,dtype", [
+    (4, torch.float32), (8, torch.float32), (16, torch.float32),
+    (32, torch.float32), (64, torch.float32), (96, torch.float32),
+    (8, torch.bfloat16), (32, torch.bfloat16), (64, torch.bfloat16)])
+def test_pair_accumulate_kernel_matches_plain_version(card, bs, dtype):
+    a, b, (pa, pb, ps), n_slots = _pair_case(bs, dtype, card)
+    before = bsr_pair_accumulate_cuda.launches
+    got = ops.bsr_pair_accumulate(a, b, pa, pb, ps, n_slots=n_slots,
+                                  out_dtype=torch.float32)
+    assert bsr_pair_accumulate_cuda.launches == before + 1
+    want = ref.bsr_pair_accumulate_raw_ref(a, b, pa, pb, ps, n_slots)
+    scale = ref.bsr_pair_accumulate_raw_ref(a.abs(), b.abs(), pa, pb, ps,
+                                            n_slots)
+    torch.cuda.synchronize()
+    assert_close(got, want, scale)
+    # into a carry: carry + the step's sums
+    carry = torch.randn_like(want)
+    expect = carry + want
+    ops.bsr_pair_accumulate(a, b, pa, pb, ps, n_slots=n_slots, acc=carry)
+    assert_close(carry, expect, scale + expect.abs())
+    # slots that only inert pairs visit come out exactly 0
+    real = ref.bsr_pair_accumulate_raw_ref(
+        (a != 0).float(), (b != 0).float(), pa, pb, ps, n_slots)
+    inert = real.flatten(2).amax(dim=2) == 0
+    assert bool(inert.any())
+    assert bool((got[inert] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,dtype", [
+    (4, torch.float32), (8, torch.float32), (16, torch.bfloat16),
+    (32, torch.float32), (64, torch.float32), (64, torch.bfloat16),
+    (128, torch.float32)])
+def test_pair_matmul_kernel_matches_plain_version(card, bs, dtype):
+    a_d = random_sparse(6 * bs, 6 * bs, 0.03, seed=bs)
+    a_d[:, :bs] += random_sparse(6 * bs, bs, 0.5, seed=bs + 1)
+    a = BSR.from_dense(a_d, bs, dtype=dtype, device=card)
+    lists = [torch.from_numpy(x).to(card) for x in ops.build_pair_lists(
+        a.rows, a.cols, a.nnzb, a.rows, a.cols, a.nnzb, 6, 6)[:4]]
+    before = bsr_pair_matmul_cuda.launches
+    got = ops.bsr_pair_matmul(a.blocks, a.blocks, *lists, n_block_rows=6,
+                              n_block_cols=6)
+    assert bsr_pair_matmul_cuda.launches == before + 1
+    assert got.dtype == dtype
+    ext = torch.cat([a.blocks, a.blocks.new_zeros((1, bs, bs))])
+    want = ref.bsr_pair_matmul_raw_ref(ext, ext, *lists, 6, 6)
+    scale = ref.bsr_pair_matmul_raw_ref(ext.abs(), ext.abs(), *lists, 6, 6,
+                                        out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert_close(got, want, scale,
+                 BF16_STEP if dtype == torch.bfloat16 else 0.0)
+
+
+@pytest.mark.cuda
+def test_pair_kernels_refuse_what_they_do_not_take(card):
+    a, b, (pa, pb, ps), n_slots = _pair_case(4, torch.float32, card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.bsr_pair_accumulate(a.half(), b.half(), pa, pb, ps,
+                                n_slots=n_slots)
+    with pytest.raises(ValueError, match="int32"):
+        bsr_pair_accumulate_cuda(a, b, pa.long(), pb,
+                                 ops.pair_table(ps, n_slots, device=card))
+    with pytest.raises(ValueError, match="do not match the pair table"):
+        bsr_pair_accumulate_cuda(a, b, pa[:, :-1].contiguous(),
+                                 pb[:, :-1].contiguous(),
+                                 ops.pair_table(ps, n_slots, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("wire,overlap", [("padded", "off"),
+                                          ("packed", "on"),
+                                          ("packed", "off")])
+def test_sparse_output_on_the_card_matches_the_cpu(card, g, wire, overlap):
+    a_d = random_sparse(50, 44, 0.06, seed=g)
+    s_d = random_sparse(44, 44, 0.06, seed=10 + g)
+    results = {}
+    for dev in (card, torch.device("cpu")):
+        a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=dev)
+        s_h = DistBSR.from_dense(s_d, g=g, block_size=4, device=dev)
+        before = bsr_pair_accumulate_cuda.launches
+        out = matmul(a_h, s_h, output="sparse", wire=wire, overlap=overlap)
+        launched = bsr_pair_accumulate_cuda.launches - before
+        assert launched == (g if dev.type == "cuda" else 0)   # one a step
+        results[dev.type] = out
+        # the chained cube runs on the result as it is
+        results[dev.type + "-chain"] = matmul(out, s_h, output="sparse",
+                                              wire=wire)
+    for key, scale in (("", np.abs(a_d) @ np.abs(s_d)),
+                       ("-chain", np.abs(a_d) @ np.abs(s_d) @ np.abs(s_d))):
+        got, want = results["cuda" + key], results["cpu" + key]
+        for f in ("rows", "cols", "counts"):
+            assert torch.equal(getattr(got.tiled, f).cpu(),
+                               getattr(want.tiled, f))
+        assert got.capacity == want.capacity
+        assert_close(got.densify().cpu(), want.densify(),
+                     torch.from_numpy(scale))
+    plan = plan_matmul(DistBSR.from_dense(a_d, g=g, block_size=4,
+                                          device=card),
+                       DistBSR.from_dense(s_d, g=g, block_size=4,
+                                          device=card), output="sparse",
+                       wire=wire, overlap=overlap)
+    assert all("table" in step for step in plan._pairs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 3])
+def test_packed_dense_body_on_the_card_matches_the_cpu(card, g):
+    a_d = random_sparse(50, 44, 0.2, seed=g)
+    s_d = random_sparse(44, 44, 0.05, seed=20 + g)
+    b = np.random.default_rng(g).standard_normal((44, 13)).astype(np.float32)
+    got, want = [], []
+    for dev, out in ((card, got), (torch.device("cpu"), want)):
+        a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=dev)
+        s_h = DistBSR.from_dense(s_d, g=g, block_size=4, device=dev)
+        out.append(matmul(a_h, b, wire="packed"))
+        out.append(matmul(a_h, s_h, wire="packed"))
+    for x, y, scale in zip(got, want, (np.abs(a_d) @ np.abs(b),
+                                       np.abs(a_d) @ np.abs(s_d))):
+        assert_close(x.cpu(), y, torch.from_numpy(scale))

@@ -1,11 +1,13 @@
 """The port's kernel ops against the JAX package's.
 
-On the CPU the port's ``ops`` run the plain PyTorch version
-(``kernels/ref.py``); it is held against the JAX package's Pallas kernel in
-interpret mode and against its jnp reference, on the grid of shapes of
-``tests/test_kernels.py``, at the reference's tolerances (float32 1e-5,
-bf16 2e-2).  The kernel itself runs only on a card: its tests are in
-``test_torch_cuda.py``, which imports no JAX.
+On the CPU the port's ``ops`` run the plain PyTorch versions
+(``kernels/ref.py``); they are held against the JAX package's Pallas
+kernels in interpret mode and against its jnp references, on the grid of
+shapes of ``tests/test_kernels.py``, at the reference's tolerances (float32
+1e-5, bf16 2e-2).  The kernels themselves run only on a card: their tests
+are in ``test_torch_cuda.py``, which imports no JAX.  Here the kernels'
+work splits (segment chunks, the pair table) are replayed step by step in
+plain PyTorch.
 """
 import bisect
 
@@ -16,12 +18,16 @@ import torch
 import jax.numpy as jnp
 
 from repro.core import bsr as jbsr
+from repro.core import symbolic as jsym  # analysis: allow(source.import.repro.core.symbolic)
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import bsr as tbsr
 from repro_torch.core.grid import ProcessGrid
+from repro_torch.kernels import bsr_pair
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.bsr_pair import (bsr_pair_accumulate_cuda,
+                                          bsr_pair_matmul_cuda, pair_table)
 from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, segment_bounds
 
 CPU = torch.device("cpu")
@@ -230,3 +236,240 @@ def test_impl_dispatch_refuses_the_kernel_on_cpu_tensors():
         bsr_spmm_cuda(a.blocks[None], a.rows[None], a.cols[None], b[None],
                       n_block_rows=2)
 
+
+
+# ---------------------------------------------------------------------------
+# pair kernels: bsr_pair_matmul (B3) and bsr_pair_accumulate (B2)
+# ---------------------------------------------------------------------------
+# the shape grid of tests/test_kernels.py::test_pair_matmul_spgemm_matches_dense
+PAIR_SHAPES = [(16, 8, 0.4, 0.4), (32, 8, 0.15, 0.3), (16, 16, 1.0, 1.0),
+               (24, 8, 0.05, 0.05)]
+
+
+@pytest.mark.parametrize("mk,bs,da,db", PAIR_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_matmul_matches_jax_interpret_and_ref(mk, bs, da, db, dtype):
+    a_d = tbsr.random_sparse(mk, mk, da, seed=4)
+    b_d = tbsr.random_sparse(mk, mk, db, seed=5)
+    a_t, b_t = (tbsr.BSR.from_dense(x, bs, dtype=getattr(torch, dtype),
+                                    device=CPU) for x in (a_d, b_d))
+    a_j, b_j = (jbsr.BSR.from_dense(x, bs, dtype=getattr(jnp, dtype))
+                for x in (a_d, b_d))
+    lists = tops.build_pair_lists(a_t.rows, a_t.cols, a_t.nnzb, b_t.rows,
+                                  b_t.cols, b_t.nnzb, a_t.n_block_rows,
+                                  b_t.n_block_cols)
+    nb = dict(n_block_rows=a_t.n_block_rows, n_block_cols=b_t.n_block_cols)
+    got = tops.bsr_pair_matmul(a_t.blocks, b_t.blocks,
+                               *(torch.from_numpy(x) for x in lists[:4]),
+                               **nb)
+    assert got.dtype == getattr(torch, dtype)
+    assert tuple(got.shape) == (mk, mk)
+    tol = TOL[dtype]
+    for impl in ("interpret", "ref"):
+        want = jops.bsr_pair_matmul(a_j.blocks, b_j.blocks,
+                                    *(jnp.asarray(x) for x in lists[:4]),
+                                    impl=impl, **nb)
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol,
+                                   err_msg=impl)
+    # and the dense product, for float32
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), a_d @ b_d, rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _symbolic_lists(g: int, bs: int, dtype: str, seed: int = 0):
+    """Stored blocks and the symbolic phase's (i, j, k) pair lists of A @ A
+    on a g x g grid, as the engine's sparse-output step feeds them."""
+    a_d = tbsr.random_sparse(12 * bs, 12 * bs, 0.04, seed=seed)
+    a_d[:bs, :] += tbsr.random_sparse(bs, 12 * bs, 0.5, seed=seed + 1)
+    t = tbsr.TiledBSR.from_dense(a_d, ProcessGrid(g, g), bs,
+                                 dtype=getattr(torch, dtype), device=CPU)
+    j = jbsr.TiledBSR.from_dense(a_d, jbsr.ProcessGrid(g, g), bs,
+                                 dtype=getattr(jnp, dtype))
+    return t, j, jsym.symbolic_spgemm(j, j)
+
+
+@pytest.mark.parametrize("bs", [4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_accumulate_matches_jax_interpret_and_ref(bs, dtype):
+    t, j, sym = _symbolic_lists(2, bs, dtype)
+    tol = TOL[dtype]
+    for (i, jj, k) in [(0, 0, 0), (0, 1, 1), (1, 1, 0)]:
+        lists = [sym.pair_a[i, jj, k], sym.pair_b[i, jj, k],
+                 sym.pair_slot[i, jj, k]]
+        got = tops.bsr_pair_accumulate(
+            t.blocks[i, k], t.blocks[k, jj],
+            *(torch.from_numpy(x) for x in lists),
+            n_slots=sym.store_capacity)
+        assert got.dtype == getattr(torch, dtype)
+        for impl in ("interpret", "ref"):
+            want = jops.bsr_pair_accumulate(
+                j.blocks[i, k], j.blocks[k, jj],
+                *(jnp.asarray(x) for x in lists),
+                n_slots=sym.store_capacity, impl=impl)
+            np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol,
+                                       atol=tol, err_msg=impl)
+        # float32 output and a carry: c + step, each slot's sum once
+        f32 = tops.bsr_pair_accumulate(
+            t.blocks[i, k], t.blocks[k, jj],
+            *(torch.from_numpy(x) for x in lists),
+            n_slots=sym.store_capacity, out_dtype=torch.float32)
+        carry = torch.ones_like(f32)
+        out = tops.bsr_pair_accumulate(
+            t.blocks[i, k], t.blocks[k, jj],
+            *(torch.from_numpy(x) for x in lists),
+            n_slots=sym.store_capacity, acc=carry)
+        assert out is carry
+        np.testing.assert_array_equal(out.numpy(), (1 + f32).numpy())
+
+
+def test_pair_accumulate_batched_equals_per_tile_and_chunking(monkeypatch):
+    t, j, sym = _symbolic_lists(2, 4, "float32", seed=3)
+    pairs = sym.scheduled_pairs(lambda i, jj, s, g: (i + jj + s) % g)
+    # step 0 on the stacked grid: position (i, j) holds A[i, k], A[k, j]
+    k = (np.arange(2)[:, None] + np.arange(2)[None, :]) % 2
+    ii, jj = np.arange(2)[:, None], np.arange(2)[None, :]
+    a = t.blocks[ii, k].reshape(4, -1, 4, 4)
+    b = t.blocks[k, jj].reshape(4, -1, 4, 4)
+    lists = [torch.from_numpy(pairs[x][:, :, 0].reshape(4, -1))
+             for x in ("pa", "pb", "ps")]
+    whole = tref.bsr_pair_accumulate_raw_ref(a, b, *lists,
+                                             sym.store_capacity)
+    for n in range(4):
+        np.testing.assert_array_equal(
+            tref.bsr_pair_accumulate_raw_ref(
+                a[n], b[n], *(x[n] for x in lists),
+                sym.store_capacity).numpy(), whole[n].numpy())
+    monkeypatch.setattr(tref, "_CHUNK_ELEMS", 1)    # one pair a chunk
+    np.testing.assert_allclose(
+        tref.bsr_pair_accumulate_raw_ref(a, b, *lists,
+                                         sym.store_capacity).numpy(),
+        whole.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _replay_pair_kernel(a, b, pa, pb, table, bs, nbc=0, acc=None):
+    """The CUDA pair kernel's work split, step by step in plain PyTorch:
+    each chunk sums its pairs in order; a segment's only chunk stores C
+    (carry + sum with ``acc``), longer segments store partials that the
+    reduce pass sums in chunk order."""
+    t, n_slots = a.shape[0], table.n_slots
+    out = torch.full((t, n_slots, bs, bs), float("nan")) if acc is None \
+        else acc.clone()
+    if acc is None and not table.covered:
+        out.zero_()
+    partial = torch.full((table.n_parts, bs, bs), float("nan"))
+    written = torch.zeros((t, n_slots), dtype=torch.int64)
+    visited = torch.zeros(pa.shape, dtype=torch.int64)
+    for tile, p0, p1, slot, part in table.chunks.T.tolist():
+        assert p0 < p1
+        s = torch.zeros((bs, bs))
+        for p in range(p0, p1):
+            s += a[tile, pa[tile, p]].float() @ b[tile, pb[tile, p]].float()
+            visited[tile, p] += 1
+        if part < 0:
+            out[tile, slot] = s if acc is None else out[tile, slot] + s
+            written[tile, slot] += 1
+        else:
+            partial[part] = s
+    for tile, slot, first, n in table.reduce.T.tolist():
+        s = torch.zeros((bs, bs))
+        for c in range(first, first + n):
+            s += partial[c]
+        out[tile, slot] = s if acc is None else out[tile, slot] + s
+        written[tile, slot] += 1
+    assert bool((visited == 1).all()), "a pair is not multiplied exactly once"
+    assert int(written.max()) <= 1, "an output block is written twice"
+    if table.covered:
+        assert bool((written == 1).all())
+    return out
+
+
+@pytest.mark.parametrize("chunk,max_parts", [(1, 2048), (2, 3), (32, 2048),
+                                             (3, 1)])
+def test_pair_table_work_split_covers_every_pair_once(chunk, max_parts):
+    t, j, sym = _symbolic_lists(2, 4, "float32", seed=5)
+    i, jj, k = 0, 0, 0
+    a = t.blocks[i, k][None].expand(3, -1, -1, -1)
+    b = t.blocks[k, jj][None].expand(3, -1, -1, -1)
+    lists = [torch.from_numpy(x[i, jj, k]).expand(3, -1).contiguous()
+             for x in (sym.pair_a, sym.pair_b, sym.pair_slot)]
+    n_slots = sym.store_capacity
+    # the padding segment (inert pairs on the last slot) is long
+    assert int((lists[2][0] == n_slots - 1).sum()) > 5
+    table = pair_table(lists[2], n_slots, chunk=chunk, max_parts=max_parts)
+    assert table.covered and table.tiles == 3
+    seg = np.diff(np.flatnonzero(np.r_[True, np.diff(
+        lists[2][0].numpy()) != 0, True]))
+    size = np.maximum(chunk, -(-seg // max_parts))
+    assert table.chunks.shape[1] == 3 * int((-(-seg // size)).sum())
+    want = tref.bsr_pair_accumulate_raw_ref(a, b, *lists, n_slots)
+    got = _replay_pair_kernel(a, b, lists[0], lists[1], table, 4)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    carry = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        want.shape).astype(np.float32))
+    got = _replay_pair_kernel(a, b, lists[0], lists[1], table, 4,
+                              acc=carry)
+    np.testing.assert_allclose(got.numpy(), (carry + want).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_pair_table_dense_tile_slots_and_inert_coverage():
+    """The pair-matmul table (slot = row * nbc + col): every block covered,
+    and a block visited only by the zero slot's dummy pair comes out 0."""
+    a_d = tbsr.random_sparse(48, 48, 0.004, seed=9)
+    a = tbsr.BSR.from_dense(a_d, 8, device=CPU)
+    nb = 6
+    pa, pb, pr, pc, _ = tops.build_pair_lists(a.rows, a.cols, a.nnzb, a.rows,
+                                              a.cols, a.nnzb, nb, nb)
+    slots = torch.from_numpy(pr.astype(np.int64) * nb + pc)[None]
+    table = pair_table(slots, nb * nb)
+    assert table.covered and table.n_slots == nb * nb
+    zero = torch.zeros((1, 8, 8))
+    a_ext = torch.cat([a.blocks, zero])[None]
+    got = _replay_pair_kernel(a_ext, a_ext, torch.from_numpy(pa)[None],
+                              torch.from_numpy(pb)[None], table, 8)
+    dense = got.reshape(nb, nb, 8, 8).permute(0, 2, 1, 3).reshape(48, 48)
+    np.testing.assert_allclose(dense.numpy(), a_d @ a_d, rtol=1e-5,
+                               atol=1e-5)
+    plain = tops.bsr_pair_matmul(
+        a.blocks, a.blocks, *(torch.from_numpy(x) for x in (pa, pb, pr, pc)),
+        n_block_rows=nb, n_block_cols=nb)
+    inert = [(r, c) for r in range(nb) for c in range(nb)
+             if ((pr == r) & (pc == c) & (pa < a.nnzb)).sum() == 0]
+    assert inert, "the case needs an output block with no real product"
+    for r, c in inert:
+        assert bool((got[0, r * nb + c] == 0).all())
+        assert bool((plain[r * 8:(r + 1) * 8, c * 8:(c + 1) * 8] == 0).all())
+
+
+def test_pair_table_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="nondecreasing"):
+        pair_table(np.array([[0, 2, 1]]), 3)
+    with pytest.raises(ValueError, match="outside"):
+        pair_table(np.array([[0, 3]]), 3)
+    with pytest.raises(ValueError, match=r"\[T, P\]"):
+        pair_table(np.array([0, 1]), 3)
+    uncovered = pair_table(np.array([[0, 0, 2], [1, 1, 1]]), 3)
+    assert not uncovered.covered and uncovered.n_parts == 0
+    assert uncovered.workspace_bytes(4) == 0
+    assert bsr_pair.CHUNK == 32
+
+
+def test_pair_ops_refuse_the_kernel_on_cpu_tensors():
+    blocks = torch.zeros((2, 4, 4))
+    idx = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):
+        tops.bsr_pair_accumulate(blocks, blocks, idx, idx, idx, n_slots=1,
+                                 impl="cuda")
+    with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):
+        tops.bsr_pair_matmul(blocks, blocks, idx, idx, idx, idx,
+                             n_block_rows=1, n_block_cols=1, impl="cuda")
+    table = pair_table(idx[None], 1)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        bsr_pair_accumulate_cuda(blocks[None], blocks[None], idx[None],
+                                 idx[None], table)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        bsr_pair_matmul_cuda(blocks[None], blocks[None], idx[None],
+                             idx[None], table, n_block_rows=1,
+                             n_block_cols=1)

@@ -6,11 +6,12 @@ child process whose XLA backend was started with 9 host devices::
     env = repro.runtime.platform.subprocess_env(9, overlap=False)
     python tests/torch_jax_child.py OUT.npz 2 3
 
-It writes, for each grid size and each case of :data:`CASES`, the JAX
-package's ``matmul(algorithm="ring_c", impl="ref")`` result, plus the
-fields of the JAX ``TiledBSR`` that the interop case hands to the port.
-The inputs are made here from seeded numpy and are imported by the test, so
-both packages see the same matrices.
+It writes, for each grid size and each case of :data:`CASES` and
+:data:`SPARSE_CASES`, the JAX package's ``matmul(algorithm="ring_c",
+impl="ref")`` result (a sparse result as its ``TiledBSR`` fields, see
+:func:`result_fields`), plus the fields of the JAX ``TiledBSR`` that the
+interop case hands to the port.  The inputs are made here from seeded numpy
+and are imported by the test, so both packages see the same matrices.
 """
 from __future__ import annotations
 
@@ -31,6 +32,29 @@ CASES = (
     ("spgemm-cols-off", "spgemm", "cols", "off"),
     ("dense-on", "dense", "none", "on"),
     ("dense-off", "dense", "none", "off"),
+)
+
+# Sparse outputs and the packed wire: (case name, kind, matmul keywords).
+# "sparse" is A @ S with output="sparse"; "auto" A @ S with output="auto"
+# (a threshold of 1.0 resolves to sparse, 0.0 to dense); "chain" the cube
+# (S @ S) @ S, both multiplies sparse; "packed-spmm" / "packed-spgemm" the
+# dense-output packed body on A @ B / A @ S.
+SPARSE_CASES = (
+    ("sparse-padded-on", "sparse", dict(wire="padded", overlap="on")),
+    ("sparse-padded-off", "sparse", dict(wire="padded", overlap="off")),
+    ("sparse-packed-on", "sparse", dict(wire="packed", overlap="on")),
+    ("sparse-packed-off", "sparse", dict(wire="packed", overlap="off")),
+    ("sparse-wire-auto", "sparse", dict()),
+    ("auto-default", "auto", dict()),
+    ("auto-below", "auto", dict(sparse_threshold=1.0)),
+    ("auto-above", "auto", dict(sparse_threshold=0.0)),
+    ("chain-padded", "chain", dict(wire="padded")),
+    ("chain-packed", "chain", dict(wire="packed", overlap="off")),
+    ("packed-spmm-on", "packed-spmm", dict(wire="packed", overlap="on")),
+    ("packed-spmm-off", "packed-spmm", dict(wire="packed", overlap="off")),
+    ("packed-spgemm-on", "packed-spgemm", dict(wire="packed", overlap="on")),
+    ("packed-spgemm-off", "packed-spgemm",
+     dict(wire="packed", overlap="off")),
 )
 
 
@@ -63,6 +87,65 @@ def oracle(kind: str, ops: dict) -> np.ndarray:
         return ops["x"].astype(np.float64) @ ops["y"]
     rhs = ops["b"] if kind == "spmm" else ops["s"]
     return ops["a"].astype(np.float64) @ rhs
+
+
+def sparse_oracle(kind: str, ops: dict) -> np.ndarray:
+    """The dense float64 product each sparse case computes."""
+    a, s = ops["a"].astype(np.float64), ops["s"].astype(np.float64)
+    if kind == "chain":
+        return s @ s @ s
+    if kind == "packed-spmm":
+        return a @ ops["b"]
+    return a @ s
+
+
+def run_sparse_case(api, kind: str, kw: dict, handle, dense_rhs):
+    """One sparse case through an API module (``repro.core.api`` or
+    ``repro_torch.core.api``); ``handle(x)`` wraps a numpy operand as a
+    DistBSR, ``dense_rhs(x, a_h)`` a dense right operand."""
+    kw = dict(kw, algorithm="ring_c")
+    if kind == "chain":
+        s_h = handle("s")
+        c2 = api.matmul(s_h, s_h, output="sparse", **kw)
+        return api.matmul(c2, s_h, output="sparse", **kw)
+    a_h = handle("a")
+    if kind == "packed-spmm":
+        return api.matmul(a_h, dense_rhs("b", a_h), **kw)
+    output = {"sparse": "sparse", "auto": "auto"}.get(kind, "dense")
+    return api.matmul(a_h, handle("s"), output=output, **kw)
+
+
+def result_fields(out) -> dict:
+    """A result as numpy arrays: ``dense`` for a tensor or array, else the
+    output handle's ``blocks``, ``rows``, ``cols``, ``counts`` and ``meta``
+    (capacity, store capacity, shape, logical shape)."""
+    tiled = getattr(out, "tiled", None)
+    if tiled is None:
+        return {"dense": _numpy(out)}
+    fields = {f: _numpy(getattr(tiled, f)) for f in ("blocks", "rows", "cols",
+                                                     "counts")}
+    fields["meta"] = np.asarray([tiled.capacity, tiled.store_capacity,
+                                 *tiled.shape, *out.logical_shape])
+    fields["dense_value"] = _numpy(out.densify())
+    return fields
+
+
+def _numpy(x) -> np.ndarray:
+    if hasattr(x, "detach"):                 # a torch tensor
+        return x.detach().cpu().float().numpy() if x.is_floating_point() \
+            else x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def jax_sparse_result(kind: str, kw: dict, g: int, ops: dict) -> dict:
+    import jax.numpy as jnp
+    from repro.core import api
+    return result_fields(run_sparse_case(
+        api, kind, dict(kw, impl="ref"),
+        lambda name: api.DistBSR.from_dense(ops[name], g=g,
+                                            block_size=BLOCK),
+        lambda name, a_h: api.DistDense.for_rhs(jnp.asarray(ops[name]),
+                                                a_h)))
 
 
 def jax_tiled(g: int, balance: str, ops: dict):
@@ -100,6 +183,9 @@ def main(argv) -> int:
     for g in grids:
         for name, kind, balance, overlap in CASES:
             res[f"{name}/g{g}"] = jax_result(kind, balance, overlap, g, ops)
+        for name, kind, kw in SPARSE_CASES:
+            for field, value in jax_sparse_result(kind, kw, g, ops).items():
+                res[f"{name}/g{g}/{field}"] = value
         t = jax_tiled(g, "none", ops).tiled
         for field in ("blocks", "rows", "cols", "counts"):
             res[f"tiled-{field}/g{g}"] = np.asarray(getattr(t, field))
