@@ -10,8 +10,9 @@ non-zero and prints no result line):
 2. build: every CUDA kernel of the port (``bsr_spmm`` B1, ``bsr_pair`` B2
    and B3), compiled from ``src/`` with nvcc, one process per source;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   small block sizes with ragged shapes (f32 and bf16, padding segments
-   several chunks long) and at the shapes its path gives it;
+   small block sizes with ragged shapes (f32 and bf16, segments several
+   chunks long; B2 and B3 multiply the real pairs alone, counted on the
+   card) and at the shapes its path gives it;
 4. dense-output path: ``repro_torch.core.api.matmul`` — ``ring_c`` SpMM on
    R-MAT scale 15 (bs 128, B 512 wide) at g 2 in float32 and bf16 (overlap
    ``auto``, which resolves to the bulk body of ``off``: checked on the
@@ -24,9 +25,11 @@ non-zero and prints no result line):
 5. sparse-output path: ``matmul(A, A, output="auto")`` on R-MAT scale 16,
    edge factor 1 (bs 32, g 2), which resolves to a sparse output over the
    packed wire: its cold plan (symbolic phase), B2 at its step-0 shapes
-   against the plain version and cuSPARSE ``CSR @ CSR``, the multiply's
-   time and breakdown, and C against scipy's ``A @ A`` for equality (R-MAT
-   values are 1.0, so C holds exact path counts);
+   (fresh output) and at step 1's (into the carry) against the plain
+   version and cuSPARSE ``CSR @ CSR``, the pairs B2 multiplied (counted on
+   the card) against the real ones, the multiply's time and breakdown, and
+   C against scipy's ``A @ A`` for equality (R-MAT values are 1.0, so C
+   holds exact path counts);
 6. the chained cube on ``benchmarks/spgemm_bench.py``'s configuration
    (R-MAT scale 13, edge factor 1, bs 8, g 2): ``(A @ A) @ A`` with sparse
    outputs over the padded and the packed wire, exactly against scipy;
@@ -94,7 +97,7 @@ CUBE = dict(scale=13, edgefactor=1, seed=0, block_size=8, g=2)
 # the dense-tile SpGEMM of ops.bsr_pair_matmul on one tile
 PAIR_TILE = dict(scale=13, edgefactor=8, seed=3, block_size=64)
 # block sizes of the pair kernels' small cases
-PAIR_SMALL_BS = (4, 8, 16, 32, 64)
+PAIR_SMALL_BS = (4, 8, 16, 24, 32, 64)
 
 
 def log(*parts) -> None:
@@ -552,8 +555,9 @@ def check_sparse_exact(c_h, sym, oracle, label: str) -> None:
 def ring_step_pairs(t_a, t_b, step: int = 0):
     """A @ B's sparse-output ring step on the stacked grid (padded wire):
     the stacked stored tiles ``[g*g, S, bs, bs]`` that position (i, j)
-    holds, A[i, k] and B[k, j] with k = (i + j + step) % g, and the step's
-    ``[g*g, P]`` pair lists, as plan_matmul schedules them."""
+    holds, A[i, k] and B[k, j] with k = (i + j + step) % g, the step's
+    ``[g*g, P]`` pair lists and their plan-time real mask, as plan_matmul
+    schedules them."""
     from repro_torch.core.symbolic import symbolic_spgemm
     g, bs = t_a.grid_shape[0], t_a.block_size
     sym = symbolic_spgemm(t_a, t_b)
@@ -566,7 +570,8 @@ def ring_step_pairs(t_a, t_b, step: int = 0):
     lists = [torch.from_numpy(np.ascontiguousarray(
         sched[x][:, :, step].reshape(g * g, -1))).to(t_a.device)
         for x in ("pa", "pb", "ps")]
-    return a, b, lists, sym.store_capacity
+    real = sched["real"][:, :, step].reshape(g * g, -1)
+    return a, b, lists, sym.store_capacity, real
 
 
 def pair_bound(a, b, pa, pb, index_bytes: int, out_bytes: int) -> dict:
@@ -590,15 +595,33 @@ def pair_bound(a, b, pa, pb, index_bytes: int, out_bytes: int) -> dict:
             "real_flops": flops, "pair_flops": 2 * pa.numel() * bs ** 3}
 
 
-def pair_acc_case(a, b, pa, pb, ps, n_slots: int, label: str, table=None,
-                  reps: int = 0, tol: float = TOL_F32_SMALL) -> dict:
-    """B2 against its plain version on the same inputs (float32 output, so
-    ``tol`` alone); timed when ``reps``."""
+def counted(fn, wrapper):
+    """``fn()`` with ``wrapper``'s pair counter on: (its result, the pairs
+    that the kernel's launches in it multiplied, counted on the card)."""
+    counter = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    wrapper.pair_counter = counter
+    try:
+        out = fn()
+    finally:
+        wrapper.pair_counter = None
+    torch.cuda.synchronize()
+    return out, int(counter.item())
+
+
+def pair_acc_case(a, b, pa, pb, ps, n_slots: int, label: str, real,
+                  table=None, reps: int = 0, tol: float = TOL_F32_SMALL,
+                  chunk=None) -> dict:
+    """B2 (fresh output) against its plain version on the same inputs
+    (float32 output, so ``tol`` alone), the pairs it multiplied against
+    the real ones; timed when ``reps``."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bsr_pair import (bsr_pair_accumulate_cuda,
-                                              pair_table)
-    table = table or pair_table(ps, n_slots, device=a.device)
-    got = bsr_pair_accumulate_cuda(a, b, pa, pb, table)
+    from repro_torch.kernels.bsr_pair import (CHUNK, bsr_pair_accumulate_cuda,
+                                              kernel_path, pair_table)
+    table = table or pair_table(ps, n_slots, real=real,
+                                chunk=chunk or CHUNK, device=a.device)
+    got, multiplied = counted(
+        lambda: bsr_pair_accumulate_cuda(a, b, pa, pb, table),
+        bsr_pair_accumulate_cuda)
     want = ref.bsr_pair_accumulate_raw_ref(a, b, pa, pb, ps, n_slots)
     scale = ref.bsr_pair_accumulate_raw_ref(a.abs(), b.abs(), pa, pb, ps,
                                             n_slots)
@@ -606,16 +629,19 @@ def pair_acc_case(a, b, pa, pb, ps, n_slots: int, label: str, table=None,
     check(bool(torch.isfinite(got).all()), f"B2 {label}: non-finite output")
     err, share, ok = compare_tiles(got, want, scale, tol)
     del want, scale
-    seg = np.diff(np.flatnonzero(np.r_[True, np.diff(
-        ps.cpu().numpy(), axis=1).ravel() != 0, True]))
-    log(f"  B2 {label}: T={a.shape[0]} P={pa.shape[1]} slots={n_slots}, "
-        f"longest segment {seg.max()} pairs, {table.chunks.shape[1]} chunks, "
-        f"workspace {table.workspace_bytes(a.shape[-1]) / 1e6:.2f} MB: "
-        f"max_abs_err {err:.3e}, {share:.3g} of its allowance "
-        f"{'ok' if ok else 'MISMATCH'}")
+    n_real = int(np.asarray(real).sum())
+    path = kernel_path(a.shape[-1], a.dtype)
+    log(f"  B2 {label} [{path}]: T={a.shape[0]} P={pa.shape[1]} "
+        f"slots={n_slots}, {table.chunks.shape[1]} chunks, "
+        f"{table.reduce.shape[1]} segments in partials, workspace "
+        f"{table.workspace_bytes(a.shape[-1]) / 1e6:.2f} MB; multiplied "
+        f"{multiplied} pairs, {n_real} real of {pa.numel()}: max_abs_err "
+        f"{err:.3e}, {share:.3g} of its allowance {'ok' if ok else 'MISMATCH'}")
     check(ok, f"B2 {label} disagrees with its plain version")
-    res = {"max_abs_err": err, "share_of_tolerance": share,
-           "longest_segment": int(seg.max()),
+    check(multiplied == n_real == table.real_pairs,
+          f"B2 {label} multiplied {multiplied} pairs, not the {n_real} real")
+    res = {"max_abs_err": err, "share_of_tolerance": share, "path": path,
+           "pairs_multiplied": multiplied, "n_parts": table.n_parts,
            "workspace_bytes": table.workspace_bytes(a.shape[-1])}
     if reps:
         res["ms"] = time_ms(lambda: bsr_pair_accumulate_cuda(
@@ -626,23 +652,80 @@ def pair_acc_case(a, b, pa, pb, ps, n_slots: int, label: str, table=None,
                               got.numel() * 4))
         log(f"  B2 {label}: {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} "
             f"ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}); "
-            f"{res['real_pairs']} of {res['pairs']} pairs real")
+            f"{res['real_pairs']} of {res['pairs']} pairs real, "
+            f"{multiplied} multiplied")
+    return res
+
+
+def pair_acc_carry_case(a, b, pa, pb, ps, n_slots: int, label: str, real,
+                        table, reps: int) -> dict:
+    """B2 accumulating into a float32 carry in place: carry + the step's
+    sums on the slots the real pairs visit, every other slot bit-identical;
+    timed (each timed launch adds into the same carry)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bsr_pair import bsr_pair_accumulate_cuda
+    t, bs = a.shape[0], a.shape[-1]
+    gen = torch.Generator(device=a.device).manual_seed(7)
+    carry = torch.randint(0, 4, (t, n_slots, bs, bs), generator=gen,
+                          device=a.device).float()
+    before = carry.clone()
+    _, multiplied = counted(
+        lambda: bsr_pair_accumulate_cuda(a, b, pa, pb, table, out=carry),
+        bsr_pair_accumulate_cuda)
+    want = ref.bsr_pair_accumulate_raw_ref(a, b, pa, pb, ps, n_slots)
+    scale = ref.bsr_pair_accumulate_raw_ref(a.abs(), b.abs(), pa, pb, ps,
+                                            n_slots)
+    visited = torch.zeros((t, n_slots), dtype=torch.bool, device=a.device)
+    tile = torch.arange(t, device=a.device)[:, None].expand_as(ps)
+    mask = torch.as_tensor(np.asarray(real), device=a.device)
+    visited[tile[mask], ps[mask].long()] = True
+    untouched = bool(torch.equal(carry[~visited], before[~visited]))
+    want += before
+    scale += before.abs()
+    err, share, ok = compare_tiles(carry, want, scale, TOL_F32_SMALL)
+    del want, scale, before
+    n_real = int(np.asarray(real).sum())
+    log(f"  B2 {label}: {int(visited.sum())} of {t * n_slots} slots visited; "
+        f"multiplied {multiplied} pairs, {n_real} real: max_abs_err "
+        f"{err:.3e}, {share:.3g} of its allowance, other slots "
+        f"{'untouched' if untouched else 'CHANGED'}")
+    check(ok and untouched, f"B2 {label} is not carry + the step's sums")
+    check(multiplied == n_real, f"B2 {label} multiplied {multiplied} pairs, "
+          f"not the {n_real} real")
+    n_visited = int(visited.sum())
+    del visited
+    res = {"max_abs_err": err, "pairs_multiplied": multiplied,
+           "visited_slots": n_visited}
+    res["ms"] = time_ms(lambda: bsr_pair_accumulate_cuda(
+        a, b, pa, pb, table, out=carry), reps)
+    # the carry's visited slots are read and written once
+    res.update(pair_bound(a, b, pa, pb, 3 * pa.numel() * 4,
+                          2 * n_visited * bs * bs * 4))
+    log(f"  B2 {label}: {res['ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        f"({res['bound_by']})")
+    del carry
     return res
 
 
 def pair_mm_case(blocks, lists, nbr: int, label: str, table=None,
                  reps: int = 0, tol: float = TOL_F32_SMALL) -> dict:
     """B3 (one tile, A @ A through build_pair_lists' lists) against its
-    plain version; timed when ``reps``."""
+    plain version, the pairs it multiplied against the real ones (not both
+    on the appended zero slot); timed when ``reps``."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bsr_pair import bsr_pair_matmul_cuda, pair_table
-    bs = blocks.shape[-1]
+    from repro_torch.kernels.bsr_pair import (bsr_pair_matmul_cuda,
+                                              kernel_path, pair_table)
+    bs, zero = blocks.shape[-1], blocks.shape[0]
     ext = torch.cat([blocks, blocks.new_zeros((1, bs, bs))])[None]
     pa, pb, pr, pc = (x[None] for x in lists)
+    real = ((pa != zero) | (pb != zero)).cpu().numpy()
     table = table or pair_table(pr.long() * nbr + pc.long(), nbr * nbr,
-                                device=blocks.device)
-    got = bsr_pair_matmul_cuda(ext, ext, pa, pb, table, n_block_rows=nbr,
-                               n_block_cols=nbr).to(blocks.dtype)
+                                real=real, device=blocks.device)
+    got, multiplied = counted(
+        lambda: bsr_pair_matmul_cuda(ext, ext, pa, pb, table,
+                                     n_block_rows=nbr, n_block_cols=nbr),
+        bsr_pair_matmul_cuda)
+    got = got.to(blocks.dtype)
     want = ref.bsr_pair_matmul_raw_ref(ext, ext, pa, pb, pr, pc, nbr, nbr)
     scale = ref.bsr_pair_matmul_raw_ref(ext.abs(), ext.abs(), pa, pb, pr,
                                         pc, nbr, nbr,
@@ -652,11 +735,16 @@ def pair_mm_case(blocks, lists, nbr: int, label: str, table=None,
     step = BF16_STEP if blocks.dtype == torch.bfloat16 else 0.0
     err, share, ok = compare(got, want, scale, tol, step)
     del want, scale
-    log(f"  B3 {label}: P={pa.shape[1]}, {table.chunks.shape[1]} chunks: "
+    path = kernel_path(bs, blocks.dtype)
+    log(f"  B3 {label} [{path}]: P={pa.shape[1]}, {table.chunks.shape[1]} "
+        f"chunks; multiplied {multiplied} pairs, {int(real.sum())} real: "
         f"max_abs_err {err:.3e}, {share:.3g} of its allowance "
         f"{'ok' if ok else 'MISMATCH'}")
     check(ok, f"B3 {label} disagrees with its plain version")
-    res = {"max_abs_err": err, "share_of_tolerance": share}
+    check(multiplied == int(real.sum()) == table.real_pairs,
+          f"B3 {label} multiplied {multiplied} pairs, not the real ones")
+    res = {"max_abs_err": err, "share_of_tolerance": share, "path": path,
+           "pairs_multiplied": multiplied}
     if reps:
         res["ms"] = time_ms(lambda: bsr_pair_matmul_cuda(
             ext, ext, pa, pb, table, n_block_rows=nbr, n_block_cols=nbr),
@@ -667,18 +755,19 @@ def pair_mm_case(blocks, lists, nbr: int, label: str, table=None,
                               got.numel() * 4))
         log(f"  B3 {label}: {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} "
             f"ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}); "
-            f"{res['real_pairs']} of {res['pairs']} pairs real")
+            f"{res['real_pairs']} of {res['pairs']} pairs real, "
+            f"{multiplied} multiplied")
     return res
 
 
 def pair_small_cases(device) -> None:
-    """B2 and B3 at small block sizes in float32 and bf16, with ragged pair
-    counts: a hub block-row and block-column make one tile's lists long
-    and leave the others a padding segment several chunks long."""
+    """B2 and B3 at small block sizes in float32 and bf16 (the SIMT variant
+    and, for bf16 at multiples of 16, the tensor cores; bs 24 ragged):
+    a hub block-row and block-column make one tile's lists long, cut into
+    chunks of 4 so that those segments store partials."""
     from repro_torch.core.bsr import BSR, TiledBSR, random_sparse
     from repro_torch.core.grid import ProcessGrid
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bsr_pair import CHUNK
     for bs in PAIR_SMALL_BS:
         for dtype in (torch.float32, torch.bfloat16):
             a = random_sparse(28 * bs, 28 * bs, 0.02, seed=bs)
@@ -686,10 +775,10 @@ def pair_small_cases(device) -> None:
             a[:, :bs] += random_sparse(28 * bs, bs, 0.9, seed=bs + 2)
             t = TiledBSR.from_dense(a, ProcessGrid(2, 2), bs, dtype=dtype,
                                     device=device)
-            blocks_a, blocks_b, lists, n_slots = ring_step_pairs(t, t)
+            blocks_a, blocks_b, lists, n_slots, real = ring_step_pairs(t, t)
             res = pair_acc_case(blocks_a, blocks_b, *lists, n_slots,
-                                f"bs={bs} {str(dtype)[6:]}")
-            check(res["longest_segment"] > 3 * CHUNK,
+                                f"bs={bs} {str(dtype)[6:]}", real, chunk=4)
+            check(res["n_parts"] > 0,
                   f"B2 bs={bs}: no segment several chunks long")
             flat = BSR.from_dense(a, bs, dtype=dtype, device=device)
             nbr = flat.n_block_rows
@@ -781,19 +870,37 @@ def sparse_path(device) -> dict:
         f"pair capacity {sym.pair_capacity}, real pairs "
         f"{sym.total_real_pairs()}, {sym.flops() / 1e9:.1f} GFLOP; kernel "
         f"workspace {plan.workspace_bytes() / 1e6:.2f} MB a step")
-    # B2 at the step-0 shapes of this path
+    # B2 at the step-0 shapes of this path (fresh output), and at step 1's
+    # (into the carry)
     g, bs = a_h.g, a_h.block_size
-    a0 = a_h.packed_wire(SKEW_ROWS)["blocks"].reshape(g * g, -1, bs, bs)
-    b0 = a_h.packed_wire(SKEW_COLS)["blocks"].reshape(g * g, -1, bs, bs)
+    real = sym.scheduled_pairs(plan.algorithm.k_order)["real"]
+    real = [real[:, :, t].reshape(g * g, -1) for t in range(g)]
+    wire_a = a_h.packed_wire(SKEW_ROWS)
+    wire_b = a_h.packed_wire(SKEW_COLS)
+    a0 = wire_a["blocks"].reshape(g * g, -1, bs, bs)
+    b0 = wire_b["blocks"].reshape(g * g, -1, bs, bs)
     st = plan._pairs[0]
     kres = {torch.float32: pair_acc_case(
         a0, b0, st["pa"], st["pb"], st["ps"], sym.store_capacity,
-        "main-path step 0 float32", table=st["table"], reps=5)}
+        "main-path step 0 float32", real[0], table=st["table"], reps=5)}
     a16, b16 = a0.bfloat16(), b0.bfloat16()        # R-MAT 1.0 is exact
     kres[torch.bfloat16] = pair_acc_case(
         a16, b16, st["pa"], st["pb"], st["ps"], sym.store_capacity,
-        "main-path step 0 bf16", table=st["table"], reps=5)
+        "main-path step 0 bf16", real[0], table=st["table"], reps=5)
     del a16, b16
+    free()
+    ex = plan.executor
+    a1 = ex.shift(wire_a, "col")["blocks"].reshape(g * g, -1, bs, bs)
+    b1 = ex.shift(wire_b, "row")["blocks"].reshape(g * g, -1, bs, bs)
+    st1 = plan._pairs[1]
+    carry_res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        carry_res[dtype] = pair_acc_carry_case(
+            a1.to(dtype), b1.to(dtype), st1["pa"], st1["pb"], st1["ps"],
+            sym.store_capacity, f"main-path step 1 into the carry "
+            f"{str(dtype)[6:]}", real[1], st1["table"], reps=5)
+        free()
+    del a1, b1
     ii = np.arange(g)[:, None]
     jj = np.arange(g)[None, :]
     k = (ii + jj) % g
@@ -810,34 +917,96 @@ def sparse_path(device) -> dict:
     free()
     phase_peak("sparse-output kernel cases")
 
-    # the path: counts from 0, a warm-up and three timed multiplies
+    # the path: counts from 0, a warm-up and three timed multiplies, with
+    # B2's pair counter on (one atomic add per warp; the timed runs carry
+    # it too)
+    from repro_torch.kernels.bsr_pair import bsr_pair_accumulate_cuda
     reset_counts()
-    out = matmul(a_h, a_h, output="auto")
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        del out
-        t0 = time.perf_counter()
+    counter = torch.zeros(1, dtype=torch.int64, device=device)
+    bsr_pair_accumulate_cuda.pair_counter = counter
+    try:
         out = matmul(a_h, a_h, output="auto")
-        times.append(sync_elapsed(t0) * 1e3)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            del out
+            t0 = time.perf_counter()
+            out = matmul(a_h, a_h, output="auto")
+            times.append(sync_elapsed(t0) * 1e3)
+    finally:
+        bsr_pair_accumulate_cuda.pair_counter = None
     counts = read_counts()
+    multiplied = int(counter.item())
     check(counts["bsr_pair_accumulate"] > 0,
           "the sparse-output path never launched bsr_pair_accumulate")
     med = statistics.median(times)
     log(f"  e2e sparse-output A @ A float32: median {med:.2f} ms of "
         f"{[round(x, 2) for x in times]}; launches {counts}")
+    want_pairs = 4 * sym.total_real_pairs()
+    log(f"  B2 on the path multiplied {multiplied} pairs in 4 multiplies "
+        f"({counts['bsr_pair_accumulate']} launches; steps' real pairs "
+        f"{[int(r.sum()) for r in real]}, "
+        f"{sum(int(st_['table'].real_pairs) for st_ in plan._pairs)} in the "
+        f"plan's tables); the real pairs of 4 multiplies: {want_pairs}, of "
+        f"{4 * sym.g * sym.g * sym.g * sym.pair_capacity} listed")
+    check(multiplied == want_pairs,
+          f"B2 multiplied {multiplied} pairs on the main path, not the "
+          f"{want_pairs} real ones (an inert pair was multiplied, or a "
+          "real one skipped)")
     check(isinstance(out, DistBSR), "output='auto' did not give a DistBSR")
     check_sparse_exact(out, sym, oracle, "sparse-output A @ A vs scipy")
     del out
     free()
     breakdown = device_breakdown(a_h, a_h, "sparse-output A @ A float32",
                                  output="auto")
+    breakdown["by_launch_ms"] = sparse_step_times(plan, a_h)
     peak = phase_peak("sparse-output path")
-    return {"kernel": kres, "launches": counts["bsr_pair_accumulate"],
-            "e2e_ms": med, "symbolic_s": sym_s, "plan_rest_s": rest_s,
+    return {"kernel": kres, "carry": carry_res,
+            "launches": counts["bsr_pair_accumulate"],
+            "pairs_multiplied": multiplied, "e2e_ms": med, "symbolic_s": sym_s, "plan_rest_s": rest_s,
             "c_store_bytes": c_bytes,
             "workspace_bytes": plan.workspace_bytes(),
             "breakdown": breakdown, "peak_gb": peak}
+
+
+def sparse_step_times(plan, a_h) -> dict:
+    """CUDA-event times of one sparse-output multiply run launch by launch
+    as ``_sparse_body_ring_c`` runs it: each step's ring shifts and its B2
+    launch, then the cast to the output dtype (the profiler's trace of
+    this path has missed launches)."""
+    from repro_torch.core import api
+    _, (a_tree, b_tree, pairs) = plan._operands(a_h, a_h)
+    geom, ex = plan.geom, plan.executor
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spans, c = [], None
+    steps = api._ring_steps(a_tree, b_tree, geom, ex)
+    for t in range(geom.g):
+        e0 = mark()
+        a_t, b_t = next(steps)
+        e1 = mark()
+        c = api._sparse_step(a_t, b_t, pairs[t], c, geom, ex)
+        e2 = mark()
+        spans += [(f"shifts launched at step {t}", e0, e1),
+                  (f"step {t} B2", e1, e2)]
+    e0 = mark()
+    out = c.to(geom.out_dtype)
+    spans.append(("cast to the output dtype", e0, mark()))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    res = {name: a.elapsed_time(b) for name, a, b in spans}
+    res["wall_ms"] = wall
+    log(f"  sparse-output A @ A launch by launch (CUDA events), wall "
+        f"{wall:.2f} ms: " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                       res.items() if k != "wall_ms"))
+    del out, c
+    return res
 
 
 def ops_sum(a, b, step) -> float:
@@ -911,8 +1080,9 @@ def pair_tile_path(device) -> dict:
     check(counts["bsr_pair_matmul"] > 0,
           "ops.bsr_pair_matmul never launched bsr_pair_matmul")
     del got, want
+    real = ((lists[0] != a.nnzb) | (lists[1] != a.nnzb)).cpu().numpy()
     table = pair_table((lists[2].long() * nbr + lists[3].long())[None],
-                       nbr * nbr, device=device)
+                       nbr * nbr, real=real[None], device=device)
     kres = {torch.float32: pair_mm_case(a.blocks, lists, nbr,
                                         "tile float32", table=table, reps=5)}
     kres[torch.bfloat16] = pair_mm_case(a.blocks.bfloat16(), lists, nbr,
@@ -940,7 +1110,8 @@ def record(name: str, source: str, replaces: str, launches: int,
            "replaces": replaces, "launches": launches, "dtype": "float32"}
     rec.update({k: f32.get(k) for k in keys})
     rec.update(extra)
-    rec["bf16"] = {k: b16.get(k) for k in keys + ("bytes",)}
+    rec["bf16"] = {k: b16.get(k) for k in keys + ("bytes", "path")
+                   if k in b16}
     return rec
 
 
@@ -1060,18 +1231,32 @@ def main() -> int:
     log("== dense-tile SpGEMM entry point (ops.bsr_pair_matmul, B3)")
     tile = pair_tile_path(device)
 
+    carry = sparse["carry"]
     b2 = record("bsr_pair_accumulate",
                 "src/repro_torch/kernels/csrc/bsr_pair.cu",
                 "src/repro/kernels/bsr_spmm.py:165", sparse["launches"],
-                sparse["kernel"], {k: sparse["kernel"][torch.float32][k] for k
-                                   in ("real_flops", "pair_flops", "bytes",
-                                       "real_pairs", "pairs",
-                                       "workspace_bytes")})
+                sparse["kernel"], {
+                    **{k: sparse["kernel"][torch.float32][k] for k in (
+                        "real_flops", "pair_flops", "bytes", "real_pairs",
+                        "pairs", "pairs_multiplied", "workspace_bytes",
+                        "path")},
+                    "main_path_pairs_multiplied": sparse["pairs_multiplied"],
+                    "accumulate_step1": {
+                        "ms": carry[torch.float32]["ms"],
+                        "bf16_ms": carry[torch.bfloat16]["ms"],
+                        "bound_ms": carry[torch.float32]["bound_ms"],
+                        "bf16_bound_ms": carry[torch.bfloat16]["bound_ms"],
+                        "real_pairs": carry[torch.float32]["real_pairs"],
+                        "pairs_multiplied":
+                            carry[torch.float32]["pairs_multiplied"],
+                        "visited_slots":
+                            carry[torch.float32]["visited_slots"]}})
     b3 = record("bsr_pair_matmul", "src/repro_torch/kernels/csrc/bsr_pair.cu",
                 "src/repro/kernels/bsr_spmm.py:115", tile["launches"],
                 tile["kernel"], {k: tile["kernel"][torch.float32][k] for k
                                  in ("real_flops", "pair_flops", "bytes",
-                                     "real_pairs", "pairs")})
+                                     "real_pairs", "pairs",
+                                     "pairs_multiplied", "path")})
     log(json.dumps({"build_s": build_s, "e2e_median_ms": e2e,
                     "ring_shift_ms": shift_ms, "breakdown": breakdown,
                     "sparse_output": {k: sparse[k] for k in (

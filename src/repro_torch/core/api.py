@@ -167,15 +167,18 @@ def _body_ring_c(a: Dict, b: Dict, geom: _Geom,
 # lists encode all structure), and each step accumulates matched block
 # products into the packed output slots the symbolic phase allocated.  No
 # dense C tile and no densified B ever exist.
-def _sparse_step(a_t: Dict, b_t: Dict, pairs: Dict, c: torch.Tensor,
-                 geom: _Geom, ex: StackedExecutor) -> None:
-    """Every tile's pair products of one step, in one batched launch, added
-    into the float32 carry ``c`` ([g*g, c_store, bs, bs]) each slot once:
-    the JAX bodies' ``c + step`` without a step buffer."""
-    kops.bsr_pair_accumulate(
+def _sparse_step(a_t: Dict, b_t: Dict, pairs: Dict,
+                 c: Optional[torch.Tensor], geom: _Geom,
+                 ex: StackedExecutor) -> torch.Tensor:
+    """Every tile's pair products of one step, in one batched launch: a
+    fresh float32 carry ([g*g, c_store, bs, bs]) when ``c`` is None, else
+    added into ``c`` in place, each slot once (the JAX bodies' ``c +
+    step`` without a step buffer).  Returns the carry."""
+    return kops.bsr_pair_accumulate(
         ex.batch(a_t["blocks"]), ex.batch(b_t["blocks"]), pairs["pa"],
-        pairs["pb"], pairs["ps"], n_slots=geom.c_store, impl=geom.impl,
-        table=pairs.get("table"), acc=c)
+        pairs["pb"], pairs["ps"], n_slots=geom.c_store,
+        out_dtype=torch.float32, impl=geom.impl, table=pairs.get("table"),
+        acc=c)
 
 
 def _sparse_body_ring_c(a: Dict, b: Dict, pairs, geom: _Geom,
@@ -186,14 +189,14 @@ def _sparse_body_ring_c(a: Dict, b: Dict, pairs, geom: _Geom,
     (its densified tile never exists).  ``pairs[t]`` holds step t's
     ``[g*g, P]`` pair lists: on grid position (i, j) they index the tiles
     that position holds after t shifts, A[i, k] and B[k, j] with
-    ``k = (i + j + t) % g``.  The carry is float32, cast to the output
-    dtype once at the end.
+    ``k = (i + j + t) % g``.  The carry is float32, written fresh by step 0
+    (every slot once: its real sums, zeros where no real pair lands, so no
+    zero fill of the whole store first), added into from step 1 on, and
+    cast to the output dtype once at the end.
     """
-    bs = a["blocks"].shape[-1]
-    c = torch.zeros((geom.g * geom.g, geom.c_store, bs, bs),
-                    dtype=torch.float32, device=ex.device)
+    c = None
     for t, (a_t, b_t) in enumerate(_ring_steps(a, b, geom, ex)):
-        _sparse_step(a_t, b_t, pairs[t], c, geom, ex)
+        c = _sparse_step(a_t, b_t, pairs[t], c, geom, ex)
     return ex.unbatch(c.to(geom.out_dtype))
 
 
@@ -1001,8 +1004,9 @@ class MatmulPlan:
     Sparse-output plans (``symbolic`` set) hold each step's ``[g*g, P]``
     pair lists, scheduled by the algorithm's ``k_order`` (and remapped to
     the packed layout under ``wire="packed"``), plus, where the kernel runs,
-    each step's :class:`~repro_torch.kernels.bsr_pair.PairTable`: the
-    lists are plan constants, so their work split is built once, here.
+    each step's :class:`~repro_torch.kernels.bsr_pair.PairTable` over the
+    symbolic phase's real pairs: the lists are plan constants, so their
+    work split is built once, here.
     Packed-wire dense-output plans hold each step's consume maps.
     """
 
@@ -1034,12 +1038,15 @@ class MatmulPlan:
                 algorithm.k_order,
                 pair_a=None if wire_aux is None else wire_aux.get("pa"),
                 pair_b=None if wire_aux is None else wire_aux.get("pb"))
+            real = sched.pop("real")
             self._pairs = _steps_on_device(sched, geom.g, dev)
             if _runs_kernel(geom.impl, dev):
                 for t, step in enumerate(self._pairs):
                     step["table"] = pair_table(
                         sched["ps"][:, :, t].reshape(geom.g ** 2, -1),
-                        geom.c_store, device=dev)
+                        geom.c_store,
+                        real=real[:, :, t].reshape(geom.g ** 2, -1),
+                        device=dev)
             self._c_rows = torch.as_tensor(symbolic.c_rows, device=dev)
             self._c_cols = torch.as_tensor(symbolic.c_cols, device=dev)
             self._c_counts = torch.as_tensor(symbolic.c_counts, device=dev)

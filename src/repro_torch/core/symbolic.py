@@ -136,6 +136,8 @@ class SymbolicProduct:
     n_real_pairs: np.ndarray      # i64[g, g, g]
     a_fingerprint: str
     b_fingerprint: str
+    a_zero_slot: np.ndarray       # i64[g, g] — A tile (i, k)'s zero slot
+    b_zero_slot: np.ndarray       # i64[g, g] — B tile (k, j)'s zero slot
 
     @property
     def store_capacity(self) -> int:
@@ -173,6 +175,18 @@ class SymbolicProduct:
                      j * nbc + self.c_cols[i, j][real]] = True
         return mask
 
+    def pair_real(self) -> np.ndarray:
+        """bool[g, g, g, P]: the pairs whose product can be nonzero.
+
+        A pair is inert exactly when it multiplies the two operands'
+        guaranteed-zero slots (A tile (i, k)'s and B tile (k, j)'s): the
+        coverage pairs and the padding.  Real pairs never reference a zero
+        slot, so this counts ``n_real_pairs`` per list.
+        """
+        za = self.a_zero_slot[:, None, :, None]          # [i, 1, k, 1]
+        zb = self.b_zero_slot.T[None, :, :, None]        # [1, j, k, 1]
+        return (self.pair_a != za) | (self.pair_b != zb)
+
     def scheduled_pairs(self, k_order: Callable,
                         pair_a: Optional[np.ndarray] = None,
                         pair_b: Optional[np.ndarray] = None
@@ -185,7 +199,9 @@ class SymbolicProduct:
         ``pair_a``/``pair_b`` override the stored-slot operand lists with
         remapped variants of the same ``[g, g, g, P]`` shape — how the
         packed wire format (``repro_torch.core.wire.remap_pairs_packed``)
-        composes its receiver-side slot mapping into the schedule.
+        composes its receiver-side slot mapping into the schedule.  ``real``
+        is :meth:`pair_real` scheduled the same way (from the stored-slot
+        lists; the remap keeps inert pairs on zero slots).
         """
         g = self.g
         i = np.arange(g)[:, None, None]
@@ -195,7 +211,8 @@ class SymbolicProduct:
         take = lambda arr: arr[i, j, k]
         return {"pa": take(self.pair_a if pair_a is None else pair_a),
                 "pb": take(self.pair_b if pair_b is None else pair_b),
-                "ps": take(self.pair_slot)}
+                "ps": take(self.pair_slot),
+                "real": take(self.pair_real())}
 
 
 def _validate_pair(a: TiledBSR, b: TiledBSR) -> None:
@@ -355,4 +372,6 @@ def symbolic_spgemm(a: TiledBSR, b: TiledBSR,
         c_counts=counts.astype(np.int32),
         pair_a=pair_a, pair_b=pair_b, pair_slot=pair_slot,
         n_real_pairs=n_real,
-        a_fingerprint=sa.fingerprint, b_fingerprint=sb.fingerprint)
+        a_fingerprint=sa.fingerprint, b_fingerprint=sb.fingerprint,
+        a_zero_slot=sa.zero_slot.astype(np.int64),
+        b_zero_slot=sb.zero_slot.astype(np.int64))

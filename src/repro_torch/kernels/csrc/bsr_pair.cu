@@ -1,44 +1,61 @@
 // Block-pair products reduced by output block, for Hopper (sm_90a),
 // batched over tiles.
 //
-//   C[t, slot(p)] (+)= sum over pairs p of tile t of  A[t, pa[t,p]] @ B[t, pb[t,p]]
+//   C[t, slot(p)] (+)= sum over the real pairs p of tile t of
+//                      A[t, pa[t,p]] @ B[t, pb[t,p]]
 //
 // One source serves two TPU kernels of src/repro/kernels/bsr_spmm.py:
 //
 // * bsr_pair_accumulate_pallas (body _pair_acc_kernel), the numeric phase
 //   of sparse-output SpGEMM: slot(p) = ps[p], output [T, n_slots, bs, bs]
-//   (packed C blocks), optionally added into a float32 carry;
+//   (packed C blocks), fresh or added in place into a float32 carry;
 // * bsr_pair_matmul_pallas (body _pair_kernel), the dense-tile SpGEMM:
 //   slot(p) = pr[p] * nbc + pc[p], output the dense [T, nbr*bs, nbc*bs]
 //   tile, block (r, c) at rows r*bs.., columns c*bs...
 //
-// The TPU kernels walk the pair list as a sequential grid axis and zero an
-// output block on its first visit.  Hopper blocks run in no order, so the
-// work is cut by output segment instead (a run of equal slots; the lists
-// are sorted by slot).  The wrapper builds the cut on the host, once per
-// pair list (kernels/bsr_pair.py::pair_table): each segment is cut into
-// chunks, and a chunk table row is (tile, first pair, end pair, slot,
-// part).  part = -1 marks a segment's only chunk, whose thread block
-// stores C itself; the chunks of a longer segment store float32 partials
-// into a workspace sized to those chunks alone, and a second pass sums
-// each such segment's partials in chunk order and stores C.  No atomics:
-// the result does not depend on the order in which blocks ran, and each
-// output element is written by one thread.  With `accumulate` the stored
-// value is carry + segment sum, the carry read once: the reference's
-// `c + step` in the same order, without a step buffer.
+// What bounds the work on an H100.  A real pair is 2*bs^3 flops on two
+// gathered bs x bs blocks: at bs 32 float32, 64 KFLOP on 8 KB, below the
+// card's ~20 flop/byte balance for the CUDA cores, so the gathers must come
+// from L2, not HBM; in bf16 on the tensor cores the flops are cheap and the
+// gathers and the output store bound it.  The output of sparse-output
+// SpGEMM is a packed store far larger than the real pairs' work (7.55 GB at
+// the main size), so writing it once is the floor.
 //
-// Why chunks: the symbolic phase pads every pair list with inert pairs that
-// all land on the last slot, so one segment of a light tile holds ~2 M
-// pairs at the main path's size.  One thread block per segment would leave
-// it running alone on one SM.
+// What the design does about that:
 //
-// What bounds it on an H100: each pair is 2*bs^3 flops on 2*bs^2 loaded
-// elements, so in float32 the CUDA cores' FMA rate bounds it (67 TFLOP/s;
-// IEEE float32 as the reference, no tensor cores); the f32 partials and C
-// store are bs^2 per segment.  The design stages both blocks of a pair in
-// shared memory (A transposed, k-major) and gives each thread a TM x TN
-// register tile.  Not done yet: skipping the inert pairs (82 % of the pairs
-// at the main size), tensor cores for bf16, TMA and a pipelined ring.
+// * Only real pairs are multiplied.  The wrapper's table (kernels/
+//   bsr_pair.py::pair_table, built on the host once per pair list, at plan
+//   time) lists the real pairs' positions (pidx) and cuts them into chunks
+//   of one output segment (a run of equal slot), each chunk a row (tile,
+//   first, end, slot, part) over pidx.  Inert pairs (both blocks the
+//   operands' guaranteed-zero slots) never reach the kernel.  A fresh
+//   output zero-fills the slots that no real pair visits (pair_fill_kernel,
+//   a list of slot runs); an accumulate touches only the visited slots and
+//   leaves the rest of the carry untouched.  So the store is written once.
+// * Short segments (about 2 real pairs at the main size): one warp per
+//   chunk (per 32x32 sub-tile of the output block for bs > 32), in a
+//   persistent grid of WARPS independent warps per block.  Each warp walks
+//   its chunks as a stream of units (a pair's k-slab) and copies unit n+1..
+//   into its own shared-memory ring with cp.async while unit n multiplies;
+//   no block-wide barrier.  A chunk's pair indices are loaded once, one per
+//   lane, and handed out by shuffles.
+// * L2 order: warp w of the grid takes chunks w, w + W, w + 2W, ... (W =
+//   warps in the grid), so the ~W chunks in flight are neighbouring slots
+//   of one tile: neighbouring output blocks of a few C block-rows, which
+//   share their A blocks and reuse B blocks while they stay in the 50 MB L2.
+// * bf16 with bs a multiple of 16 runs on the tensor cores: mma.sync
+//   m16n8k16 (bf16 in, float32 accumulate) fed by ldmatrix from the padded
+//   ring.  float32 stays IEEE on the CUDA cores (FMA): TF32 would break the
+//   reference's 1e-5.  Other block sizes (the tests' 4 and 8, ragged ones)
+//   run the SIMT variant, bf16 widened as it is read; a unit that the block
+//   does not fill is zero-padded in shared memory.
+// * Sums inside a segment stay in pair order, in float32.  A segment longer
+//   than one chunk stores ordered float32 partials (workspace sized to those
+//   chunks alone) that pair_reduce_kernel sums in chunk order: no atomics on
+//   the output, so the result does not depend on the order in which warps
+//   ran.  With `accumulate` a slot's stored value is carry + segment sum,
+//   the carry read once (the JAX bodies' c + step).  Every output and
+//   partial offset is 64-bit (the C store holds 1.89 G elements).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared, loaded with
 // ctypes (repro_torch/kernels/loader.py).  Plain C interface; returns the
@@ -48,20 +65,31 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
+#include <initializer_list>
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ float load_f32(const T* p);
-template <>
-__device__ __forceinline__ float load_f32<float>(const float* p) {
-  return *p;
-}
-template <>
-__device__ __forceinline__ float load_f32<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+constexpr int WARPS = 4;                 // independent warps per block
+constexpr unsigned FULL = 0xffffffffu;
+
+using bf16 = __nv_bfloat16;
+
+struct Params {
+  const void* a;
+  const void* b;
+  const int* pa;
+  const int* pb;
+  const int* pidx;
+  const int* chunks;
+  long long n_chunks;
+  float* out;
+  float* partial;
+  unsigned long long* count;
+  int Sa, Sb, P, bs, n_slots, nbc, accumulate;
+  int nsb;  // sub-tiles per side of an output block
+  int nk;   // k-slabs per pair
+};
 
 // Offset of element (i, j) of output block `slot` of tile t.  nbc == 0:
 // packed slots [T, n_slots, bs, bs]; nbc > 0: a dense [T, nbr*bs, nbc*bs]
@@ -77,117 +105,392 @@ __device__ __forceinline__ long long out_offset(int t, int slot, int i, int j,
          static_cast<long long>(c) * bs + j;
 }
 
-// One thread block per (chunk, output sub-tile): a BM x BN part of one
-// bs x bs output block, BK-deep slabs, TM x TN outputs per thread.
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    pair_chunk_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                      const int* __restrict__ pa, const int* __restrict__ pb,
-                      const int* __restrict__ chunks, long long n_chunks,
-                      float* __restrict__ out, float* __restrict__ partial,
-                      int Sa, int Sb, int P, int bs, int n_slots, int nbc,
-                      int col_parts, int accumulate) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  static_assert((BM * BK) % NT == 0 && (BK * BN) % NT == 0,
-                "every thread stages the same number of slab elements");
-  // +4 keeps rows 16-byte aligned and spreads the banks of the
-  // transposing store
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
+// ---------------------------------------------------------------------------
+// copies into the ring
+// ---------------------------------------------------------------------------
+template <int VEC>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  if constexpr (VEC >= 4) {
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(VEC)
+                 : "memory");
+  } else {  // 2-byte bf16 elements of an odd block size: a plain copy
+    *static_cast<unsigned short*>(dst) =
+        *static_cast<const unsigned short*>(src);
+  }
+}
 
-  const long long ch = blockIdx.x;
-  const int t = chunks[ch];
-  const int p0 = chunks[n_chunks + ch];
-  const int p1 = chunks[2 * n_chunks + ch];
-  const int slot = chunks[3 * n_chunks + ch];
-  const int part = chunks[4 * n_chunks + ch];
-  const int m0 = (blockIdx.y / col_parts) * BM;
-  const int j0 = (blockIdx.y % col_parts) * BN;
+template <int VEC>
+__device__ __forceinline__ void zero_vec(void* dst) {
+  if constexpr (VEC == 16)
+    *static_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  else if constexpr (VEC == 4)
+    *static_cast<unsigned*>(dst) = 0u;
+  else
+    *static_cast<unsigned short*>(dst) = 0;
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
-  const long long bsq = static_cast<long long>(bs) * bs;
-  const int* tpa = pa + static_cast<long long>(t) * P;
-  const int* tpb = pb + static_cast<long long>(t) * P;
-  const T* ta = a + static_cast<long long>(t) * Sa * bsq;
-  const T* tb = b + static_cast<long long>(t) * Sb * bsq;
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  float acc[TM][TN];
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy the TR x TC window at (r0, c0) of a row-major bs x bs block into a
+// shared tile with row stride LD, VEC bytes a copy, one warp; positions
+// outside the block are zero.  (bs * sizeof(T)) % VEC == 0 and c0 is a
+// multiple of TC, so a copy never straddles the block's edge.
+template <typename T, int TR, int TC, int LD, int VEC>
+__device__ __forceinline__ void stage(T* dst, const T* blk, int bs, int r0,
+                                      int c0, int lane) {
+  constexpr int E = VEC / static_cast<int>(sizeof(T));
+  constexpr int CPR = TC / E;
+  const int rows = min(TR, bs - r0), cols = min(TC, bs - c0);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  for (int i = lane; i < TR * CPR; i += 32) {
+    const int r = i / CPR, c = (i % CPR) * E;
+    T* d = dst + r * LD + c;
+    if (r < rows && c < cols)
+      copy_async<VEC>(d, blk + static_cast<long long>(r0 + r) * bs + c0 + c);
+    else
+      zero_vec<VEC>(d);
+  }
+}
 
-  for (int p = p0; p < p1; ++p) {
-    const T* ab = ta + static_cast<long long>(tpa[p]) * bsq;
-    const T* bb = tb + static_cast<long long>(tpb[p]) * bsq;
-    for (int k0 = 0; k0 < bs; k0 += BK) {
+// ---------------------------------------------------------------------------
+// shared-memory reads, widened to float32
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float bf_lo(unsigned x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float bf_hi(unsigned x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float* v) {
+  if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  } else {
 #pragma unroll
-      for (int it = 0; it < BM * BK / NT; ++it) {
-        const int e = tid + it * NT;
-        const int m = e / BK, k = e % BK;
-        const int gm = m0 + m, gk = k0 + k;
-        As[k][m] = (gm < bs && gk < bs) ? load_f32(ab + gm * bs + gk) : 0.f;
+    for (int i = 0; i < N; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i);
+      v[i] = x.x; v[i + 1] = x.y; v[i + 2] = x.z; v[i + 3] = x.w;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_n(const bf16* p, float* v) {
+  if constexpr (N == 2) {
+    const unsigned x = *reinterpret_cast<const unsigned*>(p);
+    v[0] = bf_lo(x); v[1] = bf_hi(x);
+  } else if constexpr (N == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    v[0] = bf_lo(x.x); v[1] = bf_hi(x.x); v[2] = bf_lo(x.y); v[3] = bf_hi(x.y);
+  } else {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    v[0] = bf_lo(x.x); v[1] = bf_hi(x.x); v[2] = bf_lo(x.y); v[3] = bf_hi(x.y);
+    v[4] = bf_lo(x.z); v[5] = bf_hi(x.z); v[6] = bf_lo(x.w); v[7] = bf_hi(x.w);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the two multiply variants: a C x C warp tile per unit
+// ---------------------------------------------------------------------------
+// SIMT (CUDA cores, float32 FMA): lane (ly, lx) = (lane / 4, lane % 4) owns
+// rows ly + 8 i (interleaved, so the A reads of one k hit 8 distinct bank
+// groups) and the RN adjacent columns lx * RN...
+template <typename T, int C>
+struct Simt {
+  using Elem = T;
+  static constexpr int TM = C, TN = C, BK = C;
+  static constexpr int LD = C + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr int A_ELEMS = TM * LD, B_ELEMS = BK * LD;
+  static constexpr int STAGES = (sizeof(T) == 4 && C == 32) ? 2 : 3;
+  static constexpr int RM = C / 8, RN = C / 4;
+  float acc[RM][RN];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+  }
+
+  __device__ __forceinline__ void mma(const T* As, const T* Bs, int lane) {
+    const int ly = lane >> 2, lx = lane & 3;
+#pragma unroll
+    for (int k = 0; k < BK; k += 4) {
+      float a[RM][4];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) load_n<4>(As + (ly + 8 * i) * LD + k, a[i]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[RN];
+        load_n<RN>(Bs + (k + kk) * LD + lx * RN, b);
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < RN; ++j)
+            acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
+    }
+  }
+
+  template <class F>
+  __device__ __forceinline__ void for_each_pair(int lane, F f) const {
+    const int ly = lane >> 2, lx = lane & 3;
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; j += 2)
+        f(ly + 8 * i, lx * RN + j, acc[i][j], acc[i][j + 1]);
+  }
+};
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Tensor cores (bf16 in, float32 accumulate): a TW x TW warp tile of
+// m16n8k16 products; A fragments by ldmatrix from the row-major A tile, B
+// fragments by ldmatrix.trans from the row-major (k-major) B tile.  Rows of
+// TW + 8 bf16 keep the eight row addresses of each 8x8 matrix on distinct
+// banks.
+template <int TW>
+struct Mma {
+  using Elem = bf16;
+  static constexpr int TM = TW, TN = TW, BK = TW, LD = TW + 8;
+  static constexpr int A_ELEMS = TM * LD, B_ELEMS = BK * LD;
+  static constexpr int STAGES = 3;
+  static constexpr int MT = TW / 16, NT = TW / 8;
+  float acc[MT][NT][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+
+  __device__ __forceinline__ void mma(const bf16* As, const bf16* Bs,
+                                      int lane) {
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      unsigned a[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+        ldsm_x4(a[mi], As + (mi * 16 + (lane & 15)) * LD + ks + (lane >> 4) * 8);
+      unsigned b[NT][2];
+#pragma unroll
+      for (int nj = 0; nj < NT; nj += 2) {
+        unsigned r[4];
+        ldsm_x4_trans(r, Bs + (ks + (lane & 15)) * LD + nj * 8 + (lane >> 4) * 8);
+        b[nj][0] = r[0]; b[nj][1] = r[1];
+        b[nj + 1][0] = r[2]; b[nj + 1][1] = r[3];
       }
 #pragma unroll
-      for (int it = 0; it < BK * BN / NT; ++it) {
-        const int e = tid + it * NT;
-        const int k = e / BN, j = e % BN;
-        const int gk = k0 + k, gj = j0 + j;
-        Bs[k][j] = (gk < bs && gj < bs) ? load_f32(bb + gk * bs + gj) : 0.f;
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+    }
+  }
+
+  template <class F>
+  __device__ __forceinline__ void for_each_pair(int lane, F f) const {
+    const int r = lane >> 2, c = (lane & 3) * 2;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        f(mi * 16 + r, ni * 8 + c, acc[mi][ni][0], acc[mi][ni][1]);
+        f(mi * 16 + r + 8, ni * 8 + c, acc[mi][ni][2], acc[mi][ni][3]);
       }
-      __syncthreads();
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the persistent pair kernel
+// ---------------------------------------------------------------------------
+struct Walk {           // where a warp is in its stream of units
+  long long task;       // chunk * nsub + sub; >= n_tasks when done
+  int q, q0, q1, ks;    // pair (index into pidx) and k-slab
+  int tile, sub;
+};
+
+struct Grid {
+  long long n_tasks, stride;
+  int nsub;
+};
+
+// Open task `task`: the chunk's tile and pair range, and (for the load
+// walk) the pair indices q0.. q0+31, one per lane.
+__device__ __forceinline__ void walk_open(Walk& w, const Params& p,
+                                          const Grid& g, long long task) {
+  w.task = task;
+  if (task >= g.n_tasks) return;
+  const long long ch = task / g.nsub;
+  w.sub = static_cast<int>(task - ch * g.nsub);
+  w.tile = p.chunks[ch];
+  w.q = w.q0 = p.chunks[p.n_chunks + ch];
+  w.q1 = p.chunks[2 * p.n_chunks + ch];
+  w.ks = 0;
+}
+
+__device__ __forceinline__ void fetch_pairs(const Params& p, int tile,
+                                            int base, int q1, int lane,
+                                            int& ia, int& ib) {
+  ia = ib = 0;
+  const int q = base + lane;
+  if (q < q1) {
+    const long long pair = static_cast<long long>(tile) * p.P + p.pidx[q];
+    ia = p.pa[pair];
+    ib = p.pb[pair];
+  }
+}
+
+template <class Op, int VEC>
+__global__ void __launch_bounds__(WARPS * 32)
+    pair_kernel(const Params p) {
+  using T = typename Op::Elem;
+  constexpr int STAGE = Op::A_ELEMS + Op::B_ELEMS;
+  constexpr int S = Op::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* ring = reinterpret_cast<T*>(smem_raw) + warp * S * STAGE;
+  const T* A = static_cast<const T*>(p.a);
+  const T* B = static_cast<const T*>(p.b);
+  const long long bsq = static_cast<long long>(p.bs) * p.bs;
+  Grid g;
+  g.nsub = p.nsb * p.nsb;
+  g.n_tasks = p.n_chunks * g.nsub;
+  g.stride = static_cast<long long>(gridDim.x) * WARPS;
+  const long long first = static_cast<long long>(blockIdx.x) * WARPS + warp;
+
+  Walk ld, cw;                 // the load walk runs S - 1 units ahead
+  walk_open(ld, p, g, first);
+  walk_open(cw, p, g, first);
+  int base = 0, ia_l = 0, ib_l = 0;
+  if (ld.task < g.n_tasks) {
+    base = ld.q0;
+    fetch_pairs(p, ld.tile, base, ld.q1, lane, ia_l, ib_l);
+  }
+
+  auto load_unit = [&](int s) {  // copy the load walk's unit into stage s
+    const int ia = __shfl_sync(FULL, ia_l, ld.q - base);
+    const int ib = __shfl_sync(FULL, ib_l, ld.q - base);
+    const T* ablk = A + (static_cast<long long>(ld.tile) * p.Sa + ia) * bsq;
+    const T* bblk = B + (static_cast<long long>(ld.tile) * p.Sb + ib) * bsq;
+    const int sm = ld.sub / p.nsb, sn = ld.sub % p.nsb;
+    const int k0 = ld.ks * Op::BK;
+    T* st = ring + s * STAGE;
+    stage<T, Op::TM, Op::BK, Op::LD, VEC>(st, ablk, p.bs, sm * Op::TM, k0,
+                                          lane);
+    stage<T, Op::BK, Op::TN, Op::LD, VEC>(st + Op::A_ELEMS, bblk, p.bs, k0,
+                                          sn * Op::TN, lane);
+    // advance the load walk by one unit
+    if (++ld.ks < p.nk) return;
+    ld.ks = 0;
+    if (++ld.q < ld.q1) {
+      if (ld.q - base == 32) {            // a chunk longer than 32 pairs
+        base = ld.q;
+        fetch_pairs(p, ld.tile, base, ld.q1, lane, ia_l, ib_l);
+      }
+      return;
+    }
+    walk_open(ld, p, g, ld.task + g.stride);
+    if (ld.task < g.n_tasks) {
+      base = ld.q0;
+      fetch_pairs(p, ld.tile, base, ld.q1, lane, ia_l, ib_l);
+    }
+  };
+
+  Op op;
+  op.zero();
 #pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        float af[TM], bf[TN];
-        if constexpr (TM % 4 == 0 && TN % 4 == 0) {
-#pragma unroll
-          for (int i = 0; i < TM; i += 4) {
-            const float4 v =
-                *reinterpret_cast<const float4*>(&As[k][ty * TM + i]);
-            af[i] = v.x; af[i + 1] = v.y; af[i + 2] = v.z; af[i + 3] = v.w;
-          }
-#pragma unroll
-          for (int j = 0; j < TN; j += 4) {
-            const float4 v =
-                *reinterpret_cast<const float4*>(&Bs[k][tx * TN + j]);
-            bf[j] = v.x; bf[j + 1] = v.y; bf[j + 2] = v.z; bf[j + 3] = v.w;
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < TM; ++i) af[i] = As[k][ty * TM + i];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) bf[j] = Bs[k][tx * TN + j];
+  for (int s = 0; s < S - 1; ++s) {
+    if (ld.task < g.n_tasks) load_unit(s);
+    cp_commit();
+  }
+  unsigned long long pairs = 0;
+  int cur = 0;
+  while (cw.task < g.n_tasks) {
+    if (ld.task < g.n_tasks) load_unit((cur + S - 1) % S);
+    cp_commit();
+    cp_wait<S - 1>();          // this lane's copies of unit `cur` landed
+    __syncwarp();              // ... and every lane's
+    op.mma(ring + cur * STAGE, ring + cur * STAGE + Op::A_ELEMS, lane);
+    __syncwarp();              // the stage may be refilled from here on
+    cur = (cur + 1) % S;
+    if (++cw.ks < p.nk) continue;
+    cw.ks = 0;
+    if (++cw.q < cw.q1) continue;
+    // the task's last unit: a segment's only chunk stores C (carry + sum
+    // with accumulate); the chunks of a longer segment store partials
+    const long long ch = cw.task / g.nsub;
+    const int slot = p.chunks[3 * p.n_chunks + ch];
+    const int part = p.chunks[4 * p.n_chunks + ch];
+    const int m0 = (cw.sub / p.nsb) * Op::TM, n0 = (cw.sub % p.nsb) * Op::TN;
+    if (cw.sub == 0) pairs += static_cast<unsigned long long>(cw.q1 - cw.q0);
+    const bool add = part < 0 && p.accumulate;
+    op.for_each_pair(lane, [&](int r, int c, float v0, float v1) {
+      const int gr = m0 + r, gc = n0 + c;
+      if (gr >= p.bs || gc >= p.bs) return;
+      const bool two = gc + 1 < p.bs;
+      float* o = part < 0
+                     ? p.out + out_offset(cw.tile, slot, gr, gc, p.bs,
+                                          p.n_slots, p.nbc)
+                     : p.partial + static_cast<long long>(part) * bsq +
+                           static_cast<long long>(gr) * p.bs + gc;
+      if (two && (reinterpret_cast<uintptr_t>(o) & 7) == 0) {
+        float2 x = make_float2(v0, v1);
+        if (add) {
+          const float2 y = *reinterpret_cast<const float2*>(o);
+          x.x = y.x + v0;
+          x.y = y.y + v1;
         }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(af[i], bf[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // a segment's only chunk stores C; the chunks of a longer segment store
-  // their partial, which the reduce pass sums
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= bs) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gj = j0 + tx * TN + j;
-      if (gj >= bs) continue;
-      if (part < 0) {
-        float* o = out + out_offset(t, slot, gm, gj, bs, n_slots, nbc);
-        *o = accumulate ? *o + acc[i][j] : acc[i][j];
+        *reinterpret_cast<float2*>(o) = x;
       } else {
-        partial[static_cast<long long>(part) * bsq + gm * bs + gj] =
-            acc[i][j];
+        o[0] = add ? o[0] + v0 : v0;
+        if (two) o[1] = add ? o[1] + v1 : v1;
       }
-    }
+    });
+    op.zero();
+    walk_open(cw, p, g, cw.task + g.stride);
   }
+  cp_wait<0>();
+  if (p.count != nullptr && lane == 0 && pairs > 0) atomicAdd(p.count, pairs);
 }
 
 // C[tile, slot] (+)= the segment's partials, summed in chunk order.  One
@@ -213,94 +516,170 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-cudaError_t launch(const void* a, const void* b, const void* pa,
-                   const void* pb, const void* chunks, long long n_chunks,
-                   const void* reduce, long long n_reduce, void* partial,
-                   void* out, int Sa, int Sb, int P, int bs, int n_slots,
-                   int nbc, int accumulate, cudaStream_t stream) {
-  const int row_parts = (bs + BM - 1) / BM;
-  const int col_parts = (bs + BN - 1) / BN;
-  if (n_chunks > INT_MAX || n_reduce > INT_MAX ||
-      row_parts * col_parts > 65535)
-    return cudaErrorInvalidConfiguration;
-  if (n_chunks > 0) {
-    pair_chunk_kernel<T, BM, BN, BK, TM, TN>
-        <<<dim3(static_cast<unsigned>(n_chunks), row_parts * col_parts),
-           (BM / TM) * (BN / TN), 0, stream>>>(
-            static_cast<const T*>(a), static_cast<const T*>(b),
-            static_cast<const int*>(pa), static_cast<const int*>(pb),
-            static_cast<const int*>(chunks), n_chunks,
-            static_cast<float*>(out), static_cast<float*>(partial), Sa, Sb,
-            P, bs, n_slots, nbc, col_parts, accumulate);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+// Zero the slots that no real pair visits (a fresh output only): one
+// thread block per fill row (tile, first slot, number of slots).
+__global__ void __launch_bounds__(256)
+    pair_fill_kernel(const int* __restrict__ fill, long long n_fill,
+                     float* __restrict__ out, int bs, int n_slots, int nbc) {
+  const long long r = blockIdx.x;
+  const int t = fill[r];
+  const int s0 = fill[n_fill + r];
+  const int n = fill[2 * n_fill + r];
+  const long long bsq = static_cast<long long>(bs) * bs;
+  const long long len = n * bsq;
+  if (nbc == 0) {              // the run's slots are one contiguous range
+    float* o = out + (static_cast<long long>(t) * n_slots + s0) * bsq;
+    if ((len & 3) == 0 && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+      float4* o4 = reinterpret_cast<float4*>(o);
+      for (long long e = threadIdx.x; e < len / 4; e += blockDim.x)
+        o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      for (long long e = threadIdx.x; e < len; e += blockDim.x) o[e] = 0.f;
+    }
+  } else {
+    for (long long e = threadIdx.x; e < len; e += blockDim.x) {
+      const int s = s0 + static_cast<int>(e / bsq);
+      const int w = static_cast<int>(e % bsq);
+      out[out_offset(t, s, w / bs, w % bs, bs, n_slots, nbc)] = 0.f;
+    }
   }
-  if (n_reduce > 0) {
-    pair_reduce_kernel<<<static_cast<unsigned>(n_reduce), 256, 0, stream>>>(
-        static_cast<const float*>(partial), static_cast<const int*>(reduce),
-        n_reduce, static_cast<float*>(out), bs, n_slots, nbc, accumulate);
-  }
+}
+
+template <class Op, int VEC>
+cudaError_t launch_pairs(const Params& p, cudaStream_t stream) {
+  auto kern = pair_kernel<Op, VEC>;
+  const int smem = WARPS * Op::STAGES * (Op::A_ELEMS + Op::B_ELEMS) *
+                   static_cast<int>(sizeof(typename Op::Elem));
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, WARPS * 32, smem)) != cudaSuccess)
+    return err;
+  const long long tasks = p.n_chunks * p.nsb * p.nsb;
+  long long blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const long long need = (tasks + WARPS - 1) / WARPS;
+  if (need < blocks) blocks = need;
+  kern<<<static_cast<unsigned>(blocks), WARPS * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <class Op>
+cudaError_t launch_vec(const Params& p, int vec, cudaStream_t stream) {
+  if (vec == 16) return launch_pairs<Op, 16>(p, stream);
+  if (vec == 4) return launch_pairs<Op, 4>(p, stream);
+  if constexpr (sizeof(typename Op::Elem) == 2) {
+    if (vec == 2) return launch_pairs<Op, 2>(p, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// 1: tensor cores (bf16, bs a multiple of 16); 0: the SIMT variant
+int path_of(int bs, int dtype) { return dtype == 1 && bs % 16 == 0 ? 1 : 0; }
+
+// The widest copy that the block rows and both operands' addresses allow.
+int vec_of(int bs, int elem, const void* a, const void* b) {
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+  const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
+  for (int v : {16, 4, 2})
+    if (v >= elem && (bs * elem) % v == 0 && pa % v == 0 && pb % v == 0)
+      return v;
+  return 0;
+}
+
 template <typename T>
-cudaError_t dispatch(const void* a, const void* b, const void* pa,
-                     const void* pb, const void* chunks, long long n_chunks,
-                     const void* reduce, long long n_reduce, void* partial,
-                     void* out, int Sa, int Sb, int P, int bs, int n_slots,
-                     int nbc, int accumulate, cudaStream_t stream) {
-  // one tile shape per range of bs; a larger bs takes several sub-tiles
-  if (bs <= 8)
-    return launch<T, 8, 8, 8, 1, 1>(a, b, pa, pb, chunks, n_chunks, reduce,
-                                    n_reduce, partial, out, Sa, Sb, P, bs,
-                                    n_slots, nbc, accumulate, stream);
-  if (bs <= 16)
-    return launch<T, 16, 16, 16, 2, 2>(a, b, pa, pb, chunks, n_chunks,
-                                       reduce, n_reduce, partial, out, Sa,
-                                       Sb, P, bs, n_slots, nbc, accumulate,
-                                       stream);
-  if (bs <= 32)
-    return launch<T, 32, 32, 32, 4, 4>(a, b, pa, pb, chunks, n_chunks,
-                                       reduce, n_reduce, partial, out, Sa,
-                                       Sb, P, bs, n_slots, nbc, accumulate,
-                                       stream);
-  return launch<T, 64, 64, 16, 4, 4>(a, b, pa, pb, chunks, n_chunks, reduce,
-                                     n_reduce, partial, out, Sa, Sb, P, bs,
-                                     n_slots, nbc, accumulate, stream);
+cudaError_t dispatch(Params& p, int dtype, cudaStream_t stream) {
+  const int vec = vec_of(p.bs, static_cast<int>(sizeof(T)), p.a, p.b);
+  if (vec == 0) return cudaErrorMisalignedAddress;
+  if constexpr (sizeof(T) == 2) {
+    if (path_of(p.bs, dtype) == 1) {
+      const int tw = p.bs == 16 ? 16 : 32;
+      p.nsb = p.nk = (p.bs + tw - 1) / tw;
+      return tw == 16 ? launch_vec<Mma<16>>(p, vec, stream)
+                      : launch_vec<Mma<32>>(p, vec, stream);
+    }
+  }
+  const int c = p.bs <= 8 ? 8 : p.bs <= 16 ? 16 : 32;
+  p.nsb = p.nk = (p.bs + c - 1) / c;
+  if (c == 8) return launch_vec<Simt<T, 8>>(p, vec, stream);
+  if (c == 16) return launch_vec<Simt<T, 16>>(p, vec, stream);
+  return launch_vec<Simt<T, 32>>(p, vec, stream);
 }
 
 }  // namespace
 
+// Which multiply a launch of this block size and type runs: 1 = tensor
+// cores (mma.sync m16n8k16), 0 = CUDA cores (SIMT float32 FMA).
+extern "C" int bsr_pair_path(int bs, int dtype) { return path_of(bs, dtype); }
+
 // dtype: 0 = float32, 1 = bfloat16 (a and b both of it; out and partial are
-// float32).  a [T, Sa, bs, bs], b [T, Sb, bs, bs], pa and pb int32 [T, P],
-// chunks int32 [5, n_chunks] (tile, first pair, end pair, slot, part),
-// reduce int32 [4, n_reduce] (tile, slot, first part, parts), partial
-// float32 [parts, bs, bs] (workspace), out float32 [T, n_slots, bs, bs]
-// (nbc == 0) or [T, nbr*bs, nbc*bs] with n_slots = nbr*nbc (nbc > 0); all
-// contiguous on one device.  accumulate != 0 adds into out.
+// float32).  a [T, Sa, bs, bs], b [T, Sb, bs, bs], pa and pb int32 [T, P];
+// pidx int32 [Q], the real pairs' positions in their tile's list; chunks
+// int32 [5, n_chunks] (tile, first, end into pidx, slot, part); reduce
+// int32 [4, n_reduce] (tile, slot, first part, parts); fill int32 [3,
+// n_fill] (tile, first slot, slots), zeroed unless accumulate; partial
+// float32 [parts, bs, bs] (workspace); out float32 [T, n_slots, bs, bs]
+// (nbc == 0) or [T, nbr*bs, nbc*bs] with n_slots = nbr*nbc (nbc > 0);
+// count uint64 [1] or null: the pairs multiplied are added to it.  All
+// contiguous on one device.  accumulate != 0 adds into out in place,
+// touching only the slots that the chunks name.
 extern "C" int bsr_pair_launch(const void* a, const void* b, const void* pa,
-                               const void* pb, const void* chunks,
-                               long long n_chunks, const void* reduce,
-                               long long n_reduce, void* partial, void* out,
-                               int T_, int Sa, int Sb, int P, int bs,
-                               int n_slots, int nbc, int accumulate,
-                               int dtype, void* stream) {
+                               const void* pb, const void* pidx,
+                               const void* chunks, long long n_chunks,
+                               const void* reduce, long long n_reduce,
+                               const void* fill, long long n_fill,
+                               void* partial, void* out, void* count, int T_,
+                               int Sa, int Sb, int P, int bs, int n_slots,
+                               int nbc, int accumulate, int dtype,
+                               void* stream) {
   if (T_ <= 0 || Sa <= 0 || Sb <= 0 || P < 0 || bs <= 0 || n_slots <= 0 ||
       nbc < 0 || (nbc > 0 && n_slots % nbc != 0) || n_chunks < 0 ||
-      n_reduce < 0)
+      n_reduce < 0 || n_fill < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n_chunks > INT_MAX || n_reduce > INT_MAX || n_fill > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(a, b, pa, pb, chunks, n_chunks, reduce, n_reduce,
-                          partial, out, Sa, Sb, P, bs, n_slots, nbc,
-                          accumulate, st);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(a, b, pa, pb, chunks, n_chunks, reduce,
-                                  n_reduce, partial, out, Sa, Sb, P, bs,
-                                  n_slots, nbc, accumulate, st);
-  else
-    err = cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (!accumulate && n_fill > 0) {
+    pair_fill_kernel<<<static_cast<unsigned>(n_fill), 256, 0, st>>>(
+        static_cast<const int*>(fill), n_fill, static_cast<float*>(out), bs,
+        n_slots, nbc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_chunks > 0) {
+    Params p;
+    p.a = a;
+    p.b = b;
+    p.pa = static_cast<const int*>(pa);
+    p.pb = static_cast<const int*>(pb);
+    p.pidx = static_cast<const int*>(pidx);
+    p.chunks = static_cast<const int*>(chunks);
+    p.n_chunks = n_chunks;
+    p.out = static_cast<float*>(out);
+    p.partial = static_cast<float*>(partial);
+    p.count = static_cast<unsigned long long*>(count);
+    p.Sa = Sa;
+    p.Sb = Sb;
+    p.P = P;
+    p.bs = bs;
+    p.n_slots = n_slots;
+    p.nbc = nbc;
+    p.accumulate = accumulate;
+    p.nsb = p.nk = 1;
+    err = dtype == 0 ? dispatch<float>(p, dtype, st)
+                     : dispatch<bf16>(p, dtype, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_reduce > 0) {
+    pair_reduce_kernel<<<static_cast<unsigned>(n_reduce), 256, 0, st>>>(
+        static_cast<const float*>(partial), static_cast<const int*>(reduce),
+        n_reduce, static_cast<float*>(out), bs, n_slots, nbc, accumulate);
+    err = cudaGetLastError();
+  }
   return static_cast<int>(err);
 }

@@ -33,10 +33,13 @@ _SIGNATURES = {
         "bsr_spmm_launch": ([_P] * 7 + [_I] * 9 + [_P], _I),
     },
     "bsr_pair": {
-        # a, b, pa, pb, chunks, n_chunks, reduce, n_reduce, partial, out,
-        # T, Sa, Sb, P, bs, n_slots, nbc, accumulate, dtype, stream
-        "bsr_pair_launch": ([_P] * 5 + [_L, _P, _L, _P, _P] + [_I] * 9
-                            + [_P], _I),
+        # a, b, pa, pb, pidx, chunks, n_chunks, reduce, n_reduce, fill,
+        # n_fill, partial, out, count, T, Sa, Sb, P, bs, n_slots, nbc,
+        # accumulate, dtype, stream
+        "bsr_pair_launch": ([_P] * 6 + [_L, _P, _L, _P, _L, _P, _P, _P]
+                            + [_I] * 9 + [_P], _I),
+        # bs, dtype -> 1 tensor cores, 0 SIMT
+        "bsr_pair_path": ([_I, _I], _I),
     },
 }
 

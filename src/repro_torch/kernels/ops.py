@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from . import ref as _ref
-from .bsr_pair import (PairTable, bsr_pair_accumulate_cuda,
+from .bsr_pair import (PairTable, _host, bsr_pair_accumulate_cuda,
                        bsr_pair_matmul_cuda, pair_table)
 from .bsr_spmm import bsr_spmm_cuda
 
@@ -134,10 +134,6 @@ def match_block_pairs(a_cols, b_rows):
     return ai, bj
 
 
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def build_pair_lists(a_rows, a_cols, a_nnzb: int, b_rows, b_cols, b_nnzb: int,
                      n_block_rows: int, n_block_cols: int,
                      capacity: Optional[int] = None
@@ -200,7 +196,8 @@ def bsr_pair_matmul(a_blocks, b_blocks, pair_a, pair_b, pair_rows, pair_cols,
     (``[T, Sa, bs, bs]``, ``[T, P]``).  A zero slot is appended to each
     tile's A and B blocks, as the JAX wrapper does.  Returns ``promote(a,
     b)``.  ``table`` (kernel only) is the :func:`pair_table` of the slots
-    ``pair_rows * n_block_cols + pair_cols``, built here when not given.
+    ``pair_rows * n_block_cols + pair_cols``, built here when not given,
+    with the pairs on the appended zero slots of both operands inert.
     """
     impl = _resolve(impl, a_blocks)
     single = a_blocks.dim() == 3
@@ -219,8 +216,12 @@ def bsr_pair_matmul(a_blocks, b_blocks, pair_a, pair_b, pair_rows, pair_cols,
     else:
         pa, pb, pr, pc = lists
         if table is None:
+            # the coverage dummies and padding pairs on the appended zero
+            # slots are inert
+            za, zb = a_blocks.shape[1], b_blocks.shape[1]
             table = pair_table(pr.long() * n_block_cols + pc.long(),
                                n_block_rows * n_block_cols,
+                               real=(pa != za) | (pb != zb),
                                device=a_blocks.device)
         out = bsr_pair_matmul_cuda(
             a_ext.contiguous(), b_ext.contiguous(), pa.contiguous(),
@@ -238,16 +239,19 @@ def bsr_pair_accumulate(a_blocks, b_blocks, pair_a, pair_b, pair_slot, *,
 
     Products accumulate into a flat ``[n_slots, bs, bs]`` slot array per
     tile (the symbolic phase's output layout).  Contract (established by
-    ``repro_torch.core.symbolic``): ``pair_slot`` is nondecreasing, every
-    slot is visited (coverage pairs), and dummy pairs reference zero
-    blocks.  ``pair_a``/``pair_b`` may index the stored or the packed wire
-    layout.  One tile or a ``[T, ...]`` batch.
+    ``repro_torch.core.symbolic``): ``pair_slot`` is nondecreasing and
+    dummy pairs reference zero blocks; a slot that no pair visits comes
+    out zero.  ``pair_a``/``pair_b`` may index the stored or the packed
+    wire layout.  One tile or a ``[T, ...]`` batch.
 
     ``acc`` (float32, the output's shape) is a carry: the step's sums are
-    added into it, each slot's sum once, as the JAX bodies' ``c + step``,
-    and ``acc`` is returned (``out_dtype`` does not apply).  ``table``
-    (kernel only) is the :func:`pair_table` of ``pair_slot``; plans pass
-    the one they built at plan time, else it is built here.
+    added into it in place, each slot's sum once, as the JAX bodies' ``c +
+    step``, and ``acc`` is returned (``out_dtype`` does not apply).
+    ``table`` (kernel only) is the :func:`pair_table` of ``pair_slot``;
+    plans pass the one they built at plan time from the symbolic phase's
+    real-pair mask (the kernel then skips the inert pairs, and an
+    accumulate leaves the slots no real pair visits untouched); built here
+    without a mask, every pair counts as real.
     """
     impl = _resolve(impl, a_blocks)
     pair_a, pair_b, pair_slot = (_pairs(x, a_blocks)

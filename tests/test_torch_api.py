@@ -232,6 +232,38 @@ def test_sparse_steps_launch_one_pair_kernel_call_per_step(ops, monkeypatch):
     assert plan.workspace_bytes() == 0           # no kernel on the CPU
 
 
+@pytest.mark.parametrize("case", ["sparse-padded-off", "sparse-packed-off"])
+@pytest.mark.parametrize("g", [1, 2, 3])
+def test_sparse_body_writes_step_0_fresh_then_adds_in_place(g, case, ops,
+                                                             jax_multi,
+                                                             monkeypatch):
+    """Step 0 writes a fresh float32 carry (the store is not zero-filled
+    first), each later step adds into that same tensor in place, and the
+    result is the JAX package's TiledBSR."""
+    calls = []
+    pair_acc = tapi.kops.bsr_pair_accumulate
+
+    def spy(*args, acc=None, **kw):
+        out = pair_acc(*args, acc=acc, **kw)
+        calls.append((acc, out))
+        return out
+
+    monkeypatch.setattr(tapi.kops, "bsr_pair_accumulate", spy)
+    kind, kw = SPARSE_CASES[case]
+    got = port_sparse_result(kind, kw, g, ops)
+    assert len(calls) == g
+    assert calls[0][0] is None and calls[0][1].dtype == torch.float32
+    for acc, out in calls[1:]:
+        assert acc is calls[0][1] and out is acc
+    if g == 1:
+        want = child.jax_sparse_result(kind, kw, 1, ops)
+    else:
+        prefix = f"{case}/g{g}/"
+        want = {k[len(prefix):]: v for k, v in jax_multi.items()
+                if k.startswith(prefix)}
+    assert_same_result(got, want, child.sparse_oracle(kind, ops))
+
+
 @pytest.mark.parametrize("g", [1, 2])
 def test_sparse_and_wire_guards_match_jax(g, ops):
     """Eligibility and structure guards raise with the JAX messages.

@@ -22,7 +22,8 @@ from repro_torch.core.grid import ProcessGrid
 from repro_torch.core.symbolic import symbolic_spgemm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsr_pair import (bsr_pair_accumulate_cuda,
-                                          bsr_pair_matmul_cuda)
+                                          bsr_pair_matmul_cuda, kernel_path,
+                                          pair_table)
 from repro_torch.kernels.bsr_spmm import CHUNK, bsr_spmm_cuda
 
 TOL = 1e-5
@@ -172,9 +173,10 @@ def test_bf16_main_path_on_the_card(card):
 # the pair kernels (bsr_pair_accumulate, bsr_pair_matmul) and sparse outputs
 # ---------------------------------------------------------------------------
 def _pair_case(bs: int, dtype, device, seed: int = 0):
-    """A @ A on a 2 x 2 grid: step 0's stacked tiles and [4, P] pair lists,
-    as the sparse-output ring feeds them (a hub row makes long segments;
-    the symbolic phase's inert padding a longer one)."""
+    """A @ A on a 2 x 2 grid: step 0's stacked tiles, [4, P] pair lists
+    and the plan-time real mask, as the sparse-output ring feeds them (a hub
+    row makes long segments; the symbolic phase's inert padding a longer
+    one)."""
     a = random_sparse(12 * bs, 12 * bs, 0.04, seed=seed)
     a[:bs] += random_sparse(bs, 12 * bs, 0.6, seed=seed + 1)
     t = TiledBSR.from_dense(a, ProcessGrid(2, 2), bs, dtype=dtype,
@@ -189,53 +191,83 @@ def _pair_case(bs: int, dtype, device, seed: int = 0):
     lists = [torch.from_numpy(np.ascontiguousarray(
         sched[x][:, :, 0].reshape(4, -1))).to(device) for x in ("pa", "pb",
                                                              "ps")]
-    return blocks_a, blocks_b, lists, sym.store_capacity
+    return (blocks_a, blocks_b, lists, sym.store_capacity,
+            sched["real"][:, :, 0].reshape(4, -1))
+
+
+def _expected_path(bs: int, dtype) -> str:
+    return "mma.sync bf16 tensor cores" \
+        if dtype == torch.bfloat16 and bs % 16 == 0 else "SIMT float32 FMA"
+
+
+PAIR_BS = [(bs, dtype) for bs in (4, 8, 16, 24, 32, 64)
+           for dtype in (torch.float32, torch.bfloat16)] + [(96, torch.float32)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bs,dtype", [
-    (4, torch.float32), (8, torch.float32), (16, torch.float32),
-    (32, torch.float32), (64, torch.float32), (96, torch.float32),
-    (8, torch.bfloat16), (32, torch.bfloat16), (64, torch.bfloat16)])
+@pytest.mark.parametrize("bs,dtype", PAIR_BS)
 def test_pair_accumulate_kernel_matches_plain_version(card, bs, dtype):
-    a, b, (pa, pb, ps), n_slots = _pair_case(bs, dtype, card)
-    before = bsr_pair_accumulate_cuda.launches
-    got = ops.bsr_pair_accumulate(a, b, pa, pb, ps, n_slots=n_slots,
-                                  out_dtype=torch.float32)
-    assert bsr_pair_accumulate_cuda.launches == before + 1
+    a, b, (pa, pb, ps), n_slots, real = _pair_case(bs, dtype, card)
+    assert kernel_path(bs, dtype) == _expected_path(bs, dtype)
     want = ref.bsr_pair_accumulate_raw_ref(a, b, pa, pb, ps, n_slots)
     scale = ref.bsr_pair_accumulate_raw_ref(a.abs(), b.abs(), pa, pb, ps,
                                             n_slots)
+    # the plan's table: real pairs only, short chunks so that the hub
+    # segments store partials
+    table = pair_table(ps, n_slots, real=real, chunk=2, device=card)
+    assert table.n_parts > 0
+    counter = torch.zeros(1, dtype=torch.int64, device=card)
+    bsr_pair_accumulate_cuda.pair_counter = counter
+    try:
+        got = bsr_pair_accumulate_cuda(a, b, pa, pb, table)
+    finally:
+        bsr_pair_accumulate_cuda.pair_counter = None
     torch.cuda.synchronize()
+    assert int(counter.item()) == int(real.sum()) == table.real_pairs
     assert_close(got, want, scale)
-    # into a carry: carry + the step's sums
-    carry = torch.randn_like(want)
-    expect = carry + want
-    ops.bsr_pair_accumulate(a, b, pa, pb, ps, n_slots=n_slots, acc=carry)
-    assert_close(carry, expect, scale + expect.abs())
     # slots that only inert pairs visit come out exactly 0
-    real = ref.bsr_pair_accumulate_raw_ref(
-        (a != 0).float(), (b != 0).float(), pa, pb, ps, n_slots)
-    inert = real.flatten(2).amax(dim=2) == 0
-    assert bool(inert.any())
-    assert bool((got[inert] == 0).all())
+    visited = torch.zeros((4, n_slots), dtype=torch.bool)
+    for n in range(4):
+        visited[n, ps[n].cpu()[torch.from_numpy(real[n])].long()] = True
+    assert bool((~visited).any())
+    assert bool((got.cpu()[~visited] == 0).all())
+    # into a carry: carry + the step's sums on the visited slots, every
+    # other slot bit-identical
+    carry = torch.randn_like(want)
+    before = carry.clone()
+    bsr_pair_accumulate_cuda(a, b, pa, pb, table, out=carry)
+    torch.cuda.synchronize()
+    assert torch.equal(carry.cpu()[~visited], before.cpu()[~visited])
+    expect = before + want
+    assert_close(carry, expect, scale + expect.abs())
+    # the bare op (no mask: every pair real) gives the same sums
+    launches = bsr_pair_accumulate_cuda.launches
+    bare = ops.bsr_pair_accumulate(a, b, pa, pb, ps, n_slots=n_slots,
+                                   out_dtype=torch.float32)
+    assert bsr_pair_accumulate_cuda.launches == launches + 1
+    assert_close(bare, want, scale)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bs,dtype", [
-    (4, torch.float32), (8, torch.float32), (16, torch.bfloat16),
-    (32, torch.float32), (64, torch.float32), (64, torch.bfloat16),
-    (128, torch.float32)])
+@pytest.mark.parametrize("bs,dtype", PAIR_BS[:-1] + [(128, torch.float32),
+                                                    (128, torch.bfloat16)])
 def test_pair_matmul_kernel_matches_plain_version(card, bs, dtype):
     a_d = random_sparse(6 * bs, 6 * bs, 0.03, seed=bs)
     a_d[:, :bs] += random_sparse(6 * bs, bs, 0.5, seed=bs + 1)
     a = BSR.from_dense(a_d, bs, dtype=dtype, device=card)
     lists = [torch.from_numpy(x).to(card) for x in ops.build_pair_lists(
         a.rows, a.cols, a.nnzb, a.rows, a.cols, a.nnzb, 6, 6)[:4]]
+    real = int(((lists[0] != a.nnzb) | (lists[1] != a.nnzb)).sum())
     before = bsr_pair_matmul_cuda.launches
-    got = ops.bsr_pair_matmul(a.blocks, a.blocks, *lists, n_block_rows=6,
-                              n_block_cols=6)
+    counter = torch.zeros(1, dtype=torch.int64, device=card)
+    bsr_pair_matmul_cuda.pair_counter = counter
+    try:
+        got = ops.bsr_pair_matmul(a.blocks, a.blocks, *lists,
+                                  n_block_rows=6, n_block_cols=6)
+    finally:
+        bsr_pair_matmul_cuda.pair_counter = None
     assert bsr_pair_matmul_cuda.launches == before + 1
+    assert int(counter.item()) == real
     assert got.dtype == dtype
     ext = torch.cat([a.blocks, a.blocks.new_zeros((1, bs, bs))])
     want = ref.bsr_pair_matmul_raw_ref(ext, ext, *lists, 6, 6)
@@ -244,21 +276,37 @@ def test_pair_matmul_kernel_matches_plain_version(card, bs, dtype):
     torch.cuda.synchronize()
     assert_close(got, want, scale,
                  BF16_STEP if dtype == torch.bfloat16 else 0.0)
+    # the blocks that only the coverage dummies visit are exactly 0
+    blocks = got.reshape(6, bs, 6, bs).permute(0, 2, 1, 3).cpu()
+    dummy = scale.reshape(6, bs, 6, bs).permute(0, 2, 1, 3).cpu() \
+        .flatten(2).amax(dim=2) == 0
+    assert bool((blocks[dummy] == 0).all())
 
 
 @pytest.mark.cuda
 def test_pair_kernels_refuse_what_they_do_not_take(card):
-    a, b, (pa, pb, ps), n_slots = _pair_case(4, torch.float32, card)
+    a, b, (pa, pb, ps), n_slots, real = _pair_case(4, torch.float32, card)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.bsr_pair_accumulate(a.half(), b.half(), pa, pb, ps,
                                 n_slots=n_slots)
+    table = ops.pair_table(ps, n_slots, real=real, device=card)
     with pytest.raises(ValueError, match="int32"):
-        bsr_pair_accumulate_cuda(a, b, pa.long(), pb,
-                                 ops.pair_table(ps, n_slots, device=card))
+        bsr_pair_accumulate_cuda(a, b, pa.long(), pb, table)
     with pytest.raises(ValueError, match="do not match the pair table"):
         bsr_pair_accumulate_cuda(a, b, pa[:, :-1].contiguous(),
-                                 pb[:, :-1].contiguous(),
-                                 ops.pair_table(ps, n_slots, device=card))
+                                 pb[:, :-1].contiguous(), table)
+    with pytest.raises(ValueError, match="real must be"):
+        ops.pair_table(ps, n_slots, real=real[:, :-1], device=card)
+    with pytest.raises(ValueError, match="writes float32"):
+        bsr_pair_accumulate_cuda(a, b, pa, pb, table,
+                                 out=torch.zeros(3, device=card))
+    bsr_pair_accumulate_cuda.pair_counter = torch.zeros(
+        1, dtype=torch.int32, device=card)
+    try:
+        with pytest.raises(ValueError, match="pair counter"):
+            bsr_pair_accumulate_cuda(a, b, pa, pb, table)
+    finally:
+        bsr_pair_accumulate_cuda.pair_counter = None
 
 
 @pytest.mark.cuda
@@ -296,6 +344,9 @@ def test_sparse_output_on_the_card_matches_the_cpu(card, g, wire, overlap):
                                           device=card), output="sparse",
                        wire=wire, overlap=overlap)
     assert all("table" in step for step in plan._pairs)
+    # the plan's tables hold the real pairs alone
+    assert sum(step["table"].real_pairs for step in plan._pairs) == \
+        plan.symbolic.total_real_pairs()
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ from repro.core import symbolic as jsym  # analysis: allow(source.import.repro.c
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import bsr as tbsr
+from repro_torch.core import symbolic as tsym
 from repro_torch.core.grid import ProcessGrid
 from repro_torch.kernels import bsr_pair
 from repro_torch.kernels import ops as tops
@@ -347,25 +348,32 @@ def test_pair_accumulate_batched_equals_per_tile_and_chunking(monkeypatch):
         whole.numpy(), rtol=1e-6, atol=1e-6)
 
 
-def _replay_pair_kernel(a, b, pa, pb, table, bs, nbc=0, acc=None):
-    """The CUDA pair kernel's work split, step by step in plain PyTorch:
-    each chunk sums its pairs in order; a segment's only chunk stores C
-    (carry + sum with ``acc``), longer segments store partials that the
-    reduce pass sums in chunk order."""
+def _replay_pair_kernel(a, b, pa, pb, table, bs, acc=None):
+    """The CUDA pair kernel's work, step by step in plain PyTorch: a fresh
+    output's fill runs zero the slots no real pair visits; each chunk sums
+    its real pairs (found through ``pidx``) in order; a segment's only
+    chunk stores C (carry + sum with ``acc``), longer segments store
+    partials that the reduce pass sums in chunk order.  Returns the output
+    and how many times each pair was multiplied ([T, P])."""
     t, n_slots = a.shape[0], table.n_slots
     out = torch.full((t, n_slots, bs, bs), float("nan")) if acc is None \
         else acc.clone()
-    if acc is None and not table.covered:
-        out.zero_()
-    partial = torch.full((table.n_parts, bs, bs), float("nan"))
     written = torch.zeros((t, n_slots), dtype=torch.int64)
-    visited = torch.zeros(pa.shape, dtype=torch.int64)
-    for tile, p0, p1, slot, part in table.chunks.T.tolist():
-        assert p0 < p1
+    if acc is None:
+        for tile, s0, n in table.fill.T.tolist():
+            assert 0 < n <= bsr_pair.FILL_RUN and s0 + n <= n_slots
+            out[tile, s0:s0 + n] = 0
+            written[tile, s0:s0 + n] += 1
+    partial = torch.full((table.n_parts, bs, bs), float("nan"))
+    multiplied = torch.zeros(pa.shape, dtype=torch.int64)
+    pidx = table.pidx.tolist()
+    for tile, q0, q1, slot, part in table.chunks.T.tolist():
+        assert q0 < q1
         s = torch.zeros((bs, bs))
-        for p in range(p0, p1):
+        for q in range(q0, q1):
+            p = pidx[q]
             s += a[tile, pa[tile, p]].float() @ b[tile, pb[tile, p]].float()
-            visited[tile, p] += 1
+            multiplied[tile, p] += 1
         if part < 0:
             out[tile, slot] = s if acc is None else out[tile, slot] + s
             written[tile, slot] += 1
@@ -377,16 +385,17 @@ def _replay_pair_kernel(a, b, pa, pb, table, bs, nbc=0, acc=None):
             s += partial[c]
         out[tile, slot] = s if acc is None else out[tile, slot] + s
         written[tile, slot] += 1
-    assert bool((visited == 1).all()), "a pair is not multiplied exactly once"
     assert int(written.max()) <= 1, "an output block is written twice"
-    if table.covered:
-        assert bool((written == 1).all())
-    return out
+    if acc is None:
+        assert bool((written == 1).all()), "a fresh slot is left unwritten"
+    return out, multiplied
 
 
 @pytest.mark.parametrize("chunk,max_parts", [(1, 2048), (2, 3), (32, 2048),
                                              (3, 1)])
 def test_pair_table_work_split_covers_every_pair_once(chunk, max_parts):
+    """Without a mask every pair is real: the table covers each pair once
+    and leaves no slot unwritten."""
     t, j, sym = _symbolic_lists(2, 4, "float32", seed=5)
     i, jj, k = 0, 0, 0
     a = t.blocks[i, k][None].expand(3, -1, -1, -1)
@@ -397,38 +406,143 @@ def test_pair_table_work_split_covers_every_pair_once(chunk, max_parts):
     # the padding segment (inert pairs on the last slot) is long
     assert int((lists[2][0] == n_slots - 1).sum()) > 5
     table = pair_table(lists[2], n_slots, chunk=chunk, max_parts=max_parts)
-    assert table.covered and table.tiles == 3
+    assert table.tiles == 3 and table.real_pairs == lists[0].numel()
+    assert table.fill.shape[1] == 0          # coverage pairs visit every slot
     seg = np.diff(np.flatnonzero(np.r_[True, np.diff(
         lists[2][0].numpy()) != 0, True]))
     size = np.maximum(chunk, -(-seg // max_parts))
     assert table.chunks.shape[1] == 3 * int((-(-seg // size)).sum())
     want = tref.bsr_pair_accumulate_raw_ref(a, b, *lists, n_slots)
-    got = _replay_pair_kernel(a, b, lists[0], lists[1], table, 4)
+    got, multiplied = _replay_pair_kernel(a, b, lists[0], lists[1], table, 4)
+    assert bool((multiplied == 1).all())
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5)
     carry = torch.from_numpy(np.random.default_rng(1).standard_normal(
         want.shape).astype(np.float32))
-    got = _replay_pair_kernel(a, b, lists[0], lists[1], table, 4,
-                              acc=carry)
+    got, _ = _replay_pair_kernel(a, b, lists[0], lists[1], table, 4,
+                                 acc=carry)
     np.testing.assert_allclose(got.numpy(), (carry + want).numpy(),
                                rtol=1e-5, atol=1e-5)
 
 
+def _ring_step(t, sched, g: int, step: int):
+    """Step ``step`` of the sparse-output ring on the stacked grid: the
+    [g*g, S, bs, bs] tiles position (i, j) holds, A[i, k] and B[k, j] with
+    k = (i + j + step) % g, and the step's [g*g, P] lists and real mask."""
+    bs = t.block_size
+    ii, jj = np.arange(g)[:, None], np.arange(g)[None, :]
+    k = (ii + jj + step) % g
+    a = t.blocks[ii, k].reshape(g * g, -1, bs, bs)
+    b = t.blocks[k, jj].reshape(g * g, -1, bs, bs)
+    lists = [torch.from_numpy(np.ascontiguousarray(
+        sched[x][:, :, step].reshape(g * g, -1))) for x in ("pa", "pb", "ps")]
+    return a, b, lists, sched["real"][:, :, step].reshape(g * g, -1)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("bs", [4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compacted_table_replays_the_ring_steps(g, bs, dtype):
+    """The ring's lists at plan-time real masks, replayed step by step as
+    the sparse body runs them (step 0 fresh, then into the carry): every
+    real pair multiplied once and no inert one, slots that only inert
+    pairs visit exactly 0 in a fresh output and bit-identical in a carry,
+    and the sums those of the plain version."""
+    t, _, _ = _symbolic_lists(g, bs, dtype, seed=g)
+    sym = tsym.symbolic_spgemm(t, t)
+    sched = sym.scheduled_pairs(lambda i, jj, s, g_: (i + jj + s) % g_)
+    n_slots = sym.store_capacity
+    carry = want_c = None
+    for step in range(g):
+        a, b, lists, real = _ring_step(t, sched, g, step)
+        assert (~real).any() and real.sum() == sum(
+            sym.n_real_pairs[i, jj, (i + jj + step) % g]
+            for i in range(g) for jj in range(g))
+        # short chunks, so that hub segments take the partial path
+        table = pair_table(lists[2], n_slots, real=real, chunk=2)
+        assert table.real_pairs == int(real.sum())
+        want = tref.bsr_pair_accumulate_raw_ref(a, b, *lists, n_slots)
+        fresh, multiplied = _replay_pair_kernel(a, b, lists[0], lists[1],
+                                                table, bs)
+        np.testing.assert_array_equal(multiplied.numpy(), real.astype(int))
+        np.testing.assert_allclose(fresh.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        visited = np.zeros((g * g, n_slots), dtype=bool)
+        for n in range(g * g):
+            visited[n, lists[2][n].numpy()[real[n]]] = True
+        assert (~visited).any(), "the case needs slots only inert pairs visit"
+        assert bool((fresh[torch.from_numpy(~visited)] == 0).all())
+        if carry is None:
+            carry, want_c = fresh, want
+            continue
+        got, _ = _replay_pair_kernel(a, b, lists[0], lists[1], table, bs,
+                                     acc=carry)
+        untouched = torch.from_numpy(~visited)
+        assert torch.equal(got[untouched], carry[untouched])
+        want_c = want_c + want
+        np.testing.assert_allclose(got.numpy(), want_c.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        carry = got
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("wire", ["padded", "packed"])
+def test_plan_real_mask_matches_the_data(g, wire):
+    """The plan-time mask (both blocks the operands' zero slots = inert)
+    equals the data: (a != 0).any & (b != 0).any at pa / pb of every
+    step's stacked operands, on the padded and on the packed wire."""
+    from repro_torch.core.api import DistBSR
+    from repro_torch.core.wire import remap_pairs_packed
+    a_d = tbsr.random_sparse(12 * 4, 12 * 4, 0.04, seed=g)
+    a_d[:4, :] += tbsr.random_sparse(4, 12 * 4, 0.5, seed=g + 1)
+    h = DistBSR.from_dense(a_d, g=g, block_size=4, device=CPU)
+    t = h.tiled
+    sym = tsym.symbolic_spgemm(t, t)
+    k_order = lambda i, jj, s, g_: (i + jj + s) % g_
+    blocks = t.blocks
+    if wire == "packed":
+        po = h.packed_operand()
+        sched = sym.scheduled_pairs(
+            k_order, pair_a=remap_pairs_packed(sym.pair_a, po, "a"),
+            pair_b=remap_pairs_packed(sym.pair_b, po, "b"))
+        ii = np.arange(g)[:, None, None]
+        jj = np.arange(g)[None, :, None]
+        blocks = t.blocks[ii, jj, torch.from_numpy(po.pack_idx).long()]
+    else:
+        sched = sym.scheduled_pairs(k_order)
+    nz = (blocks != 0).flatten(3).any(dim=3)            # [g, g, S]
+    for step in range(g):
+        ii, jj = np.arange(g)[:, None], np.arange(g)[None, :]
+        k = (ii + jj + step) % g
+        a_nz = nz[ii, k].reshape(g * g, -1)
+        b_nz = nz[k, jj].reshape(g * g, -1)
+        tile = torch.arange(g * g)[:, None]
+        pa = torch.from_numpy(sched["pa"][:, :, step].reshape(g * g, -1))
+        pb = torch.from_numpy(sched["pb"][:, :, step].reshape(g * g, -1))
+        data = (a_nz[tile, pa.long()] & b_nz[tile, pb.long()]).numpy()
+        np.testing.assert_array_equal(
+            sched["real"][:, :, step].reshape(g * g, -1), data)
+
+
 def test_pair_table_dense_tile_slots_and_inert_coverage():
-    """The pair-matmul table (slot = row * nbc + col): every block covered,
-    and a block visited only by the zero slot's dummy pair comes out 0."""
+    """The pair-matmul table (slot = row * nbc + col) over real pairs: the
+    coverage dummies on the appended zero slot are left out, and a block
+    no real product touches comes out 0 through the fill list."""
     a_d = tbsr.random_sparse(48, 48, 0.004, seed=9)
     a = tbsr.BSR.from_dense(a_d, 8, device=CPU)
     nb = 6
     pa, pb, pr, pc, _ = tops.build_pair_lists(a.rows, a.cols, a.nnzb, a.rows,
                                               a.cols, a.nnzb, nb, nb)
     slots = torch.from_numpy(pr.astype(np.int64) * nb + pc)[None]
-    table = pair_table(slots, nb * nb)
-    assert table.covered and table.n_slots == nb * nb
+    real = ((pa != a.nnzb) | (pb != a.nnzb))[None]
+    table = pair_table(slots, nb * nb, real=real)
+    assert table.n_slots == nb * nb and table.real_pairs == int(real.sum())
     zero = torch.zeros((1, 8, 8))
     a_ext = torch.cat([a.blocks, zero])[None]
-    got = _replay_pair_kernel(a_ext, a_ext, torch.from_numpy(pa)[None],
-                              torch.from_numpy(pb)[None], table, 8)
+    got, multiplied = _replay_pair_kernel(
+        a_ext, a_ext, torch.from_numpy(pa)[None], torch.from_numpy(pb)[None],
+        table, 8)
+    np.testing.assert_array_equal(multiplied.numpy(), real.astype(int))
     dense = got.reshape(nb, nb, 8, 8).permute(0, 2, 1, 3).reshape(48, 48)
     np.testing.assert_allclose(dense.numpy(), a_d @ a_d, rtol=1e-5,
                                atol=1e-5)
@@ -438,6 +552,9 @@ def test_pair_table_dense_tile_slots_and_inert_coverage():
     inert = [(r, c) for r in range(nb) for c in range(nb)
              if ((pr == r) & (pc == c) & (pa < a.nnzb)).sum() == 0]
     assert inert, "the case needs an output block with no real product"
+    filled = {(tile, s) for tile, s0, n in table.fill.T.tolist()
+              for s in range(s0, s0 + n)}
+    assert filled == {(0, r * nb + c) for r, c in inert}
     for r, c in inert:
         assert bool((got[0, r * nb + c] == 0).all())
         assert bool((plain[r * 8:(r + 1) * 8, c * 8:(c + 1) * 8] == 0).all())
@@ -450,9 +567,20 @@ def test_pair_table_refuses_what_the_kernel_does_not_take():
         pair_table(np.array([[0, 3]]), 3)
     with pytest.raises(ValueError, match=r"\[T, P\]"):
         pair_table(np.array([0, 1]), 3)
+    with pytest.raises(ValueError, match="real must be"):
+        pair_table(np.array([[0, 1]]), 3, real=np.ones((1, 3), bool))
     uncovered = pair_table(np.array([[0, 0, 2], [1, 1, 1]]), 3)
-    assert not uncovered.covered and uncovered.n_parts == 0
-    assert uncovered.workspace_bytes(4) == 0
+    assert uncovered.n_parts == 0 and uncovered.workspace_bytes(4) == 0
+    np.testing.assert_array_equal(uncovered.fill.numpy().T,
+                                  [[0, 1, 1], [1, 0, 1], [1, 2, 1]])
+    # runs are cut at tile ends and every FILL_RUN slots
+    assert bsr_pair.FILL_RUN == 64
+    none = pair_table(np.zeros((2, 3), np.int64), 150,
+                      real=np.zeros((2, 3), bool))
+    assert none.chunks.shape[1] == 0 and none.real_pairs == 0
+    np.testing.assert_array_equal(none.fill.numpy().T, [
+        [0, 0, 64], [0, 64, 64], [0, 128, 22],
+        [1, 0, 64], [1, 64, 64], [1, 128, 22]])
     assert bsr_pair.CHUNK == 32
 
 

@@ -145,6 +145,31 @@ def test_symbolic_spgemm_bit_identical(kind, g):
             _assert_same(s_got[k], s_want[k], k)
 
 
+@pytest.mark.parametrize("g", GRIDS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_pair_real_marks_the_pairs_of_nonzero_blocks(kind, g):
+    """The derived real-pair mask (both operands' zero slots = inert) marks
+    exactly the pairs of the JAX package's lists whose two blocks hold
+    data, counts ``n_real_pairs``, and is scheduled like the lists."""
+    (ta, tb), (ja, jb) = _pair(kind, g)
+    got, want = tsym.symbolic_spgemm(ta, tb), jsym.symbolic_spgemm(ja, jb)
+    real = got.pair_real()
+    assert real.dtype == bool and real.shape == want.pair_a.shape
+    np.testing.assert_array_equal(real.sum(axis=3), want.n_real_pairs)
+    nz = [np.abs(np.asarray(x.blocks, np.float32)).reshape(
+        g, g, x.blocks.shape[2], -1).sum(-1) != 0 for x in (ja, jb)]
+    for i in range(g):
+        for j in range(g):
+            for k in range(g):
+                data = nz[0][i, k][want.pair_a[i, j, k]] \
+                    & nz[1][k, j][want.pair_b[i, j, k]]
+                np.testing.assert_array_equal(real[i, j, k], data)
+    k_order = lambda i, j, t, g_: (i + j + t) % g_
+    sched = got.scheduled_pairs(k_order)
+    i, j, t = np.ogrid[:g, :g, :g]
+    np.testing.assert_array_equal(sched["real"], real[i, j, (i + j + t) % g])
+
+
 @pytest.mark.parametrize("g", [1, 2])
 def test_symbolic_spgemm_pinned_capacity(g):
     (ta, tb), (ja, jb) = _pair("random", g)
