@@ -11,17 +11,24 @@ non-zero and prints no result line):
    and B3), compiled from ``src/`` with nvcc, one process per source;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    small block sizes with ragged shapes (f32 and bf16, segments several
-   chunks long; B2 and B3 multiply the real pairs alone, counted on the
-   card) and at the shapes its path gives it;
-4. dense-output path: ``repro_torch.core.api.matmul`` — ``ring_c`` SpMM on
+   chunks long; B1 also through the storage layout's real mask; B1, B2 and
+   B3 count on the card the blocks or pairs they multiply, held against
+   their tables);
+4. dense-output path: B1 at both of its main-path shapes (SpMM and
+   SpGEMM, f32 and bf16, step 0 with the plan's own table of real blocks)
+   against its plain version, its bound and two library yardsticks
+   (``torch.sparse_bsr_tensor`` and ``torch.sparse_csr_tensor`` on the same
+   real blocks); then ``repro_torch.core.api.matmul`` — ``ring_c`` SpMM on
    R-MAT scale 15 (bs 128, B 512 wide) at g 2 in float32 and bf16 (overlap
    ``auto``, which resolves to the bulk body of ``off``: checked on the
    plans), with the packed wire, and at g 3 in float32 with overlap ``on``
    and ``off``, and dense-output SpGEMM ``A @ A`` on R-MAT scale 14 (bs
    64), each against a dense ``torch.matmul`` oracle in float32 (TF32
-   off); then the time of one ring shift, a ``torch.profiler`` breakdown
-   of one float32 multiply of each kind (device time by kernel, idle
-   share), and B1's yardstick (``torch.sparse_bsr_tensor(...) @ dense``);
+   off), with the blocks B1 multiplied counted on the card and held
+   against the real blocks of the plan's tables; then a ``torch.profiler``
+   breakdown of one float32 multiply of each kind (device time by kernel,
+   idle share), which must show no roll and no gather of the SpMM's
+   operands;
 5. sparse-output path: ``matmul(A, A, output="auto")`` on R-MAT scale 16,
    edge factor 1 (bs 32, g 2), which resolves to a sparse output over the
    packed wire: its cold plan (symbolic phase), B2 at its step-0 shapes
@@ -178,30 +185,61 @@ def build_kernels() -> float:
     return secs
 
 
-def bound_ms(blocks, dense, out) -> dict:
-    """Least time for one kernel call: each input read once, the output
-    written once, and the flops of the blocks that hold data."""
-    t, s, bs, _ = blocks.shape
+def b1_bound(table, bs: int, dense, out) -> dict:
+    """Least time for one B1 call: the real blocks and the B block-rows
+    they multiply read once, the output written once (and the table's
+    int32s read once), the real blocks' flops."""
+    elem = dense.element_size()
     n = dense.shape[-1]
-    nbytes = sum(x.numel() * x.element_size() for x in (blocks, dense, out)) \
-        + 2 * t * s * 4                              # rows + cols, int32
-    real = int((blocks.reshape(t * s, -1) != 0).any(dim=1).sum().item())
+    ch = table.chunks.long()
+    first, order = torch.sort(ch[1])
+    lengths = (ch[2] - ch[1])[order]
+    b_tile = torch.repeat_interleave(ch[5][order], lengths)
+    k_blocks = dense.shape[1] // bs
+    b_rows = torch.unique(b_tile * k_blocks + table.ent[1].long()).numel()
+    real = table.real_blocks
+    table_bytes = 4 * sum(x.numel() for x in (table.ent, table.chunks,
+                                              table.reduce, table.fill))
+    nbytes = real * bs * bs * elem + b_rows * bs * n * elem \
+        + out.numel() * out.element_size() + table_bytes
     flops = 2 * real * bs * bs * n
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_OPS[blocks.dtype] * 1e3
+    t_ops = flops / PEAK_OPS[dense.dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "real_blocks": real, "real_flops": flops,
-            "stored_flops": 2 * t * s * bs * bs * n}
+            "bytes": nbytes, "real_blocks": real, "real_flops": flops}
+
+
+def counted_blocks(fn):
+    """``fn()`` with B1's block counter on: (its result, the blocks that
+    the kernel's launches in it multiplied, counted on the card)."""
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
+    counter = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    bsr_spmm_cuda.block_counter = counter
+    try:
+        out = fn()
+    finally:
+        bsr_spmm_cuda.block_counter = None
+    torch.cuda.synchronize()
+    return out, int(counter.item())
 
 
 def kernel_case(blocks, rows, cols, dense, nbr: int, tol: float, label: str,
-                reps: int = 0) -> dict:
-    """Kernel vs its plain version on the same inputs (``tol`` for the
-    float32 sums, one bf16 step more for a bf16 output); timed when reps."""
+                table=None, reps: int = 0) -> dict:
+    """B1 against its plain version on the same inputs (``tol`` for the
+    float32 sums, one bf16 step more for a bf16 output), the blocks it
+    multiplied (counted on the card) against its table's; timed when
+    ``reps``.  Without ``table`` every listed block counts as real (a raw
+    call)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
-    got = bsr_spmm_cuda(blocks, rows, cols, dense, n_block_rows=nbr)
+    from repro_torch.kernels.bsr_spmm import (bsr_spmm_cuda, kernel_path,
+                                              spmm_table)
+    t, s, bs, _ = blocks.shape
+    if table is None:
+        slots = torch.arange(t)[:, None] * s + torch.arange(s)
+        table = spmm_table(slots, rows, cols, nbr, device=blocks.device)
+    got, multiplied = counted_blocks(
+        lambda: bsr_spmm_cuda(blocks, dense, table))
     want = ref.bsr_spmm_raw_ref(blocks, rows, cols, dense, nbr)
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
@@ -211,37 +249,58 @@ def kernel_case(blocks, rows, cols, dense, nbr: int, tol: float, label: str,
     step = BF16_STEP if got.dtype == torch.bfloat16 else 0.0
     err, share, ok = compare(got, want, abs_product(blocks, rows, cols, dense,
                                                     nbr), tol, step)
-    log(f"  kernel {label}: max_abs_err {err:.3e}, {share:.3g} of its "
-        f"allowance (tol {tol:g} x |A||B| + {step:g} x |want|) "
+    del want
+    path = kernel_path(bs, torch.promote_types(blocks.dtype, dense.dtype))
+    n = dense.shape[-1]
+    log(f"  B1 {label} [{path}]: {table.chunks.shape[1]} chunks, "
+        f"{table.reduce.shape[1]} segments in partials, workspace "
+        f"{table.workspace_bytes(bs, n) / 1e6:.2f} MB; multiplied "
+        f"{multiplied} blocks, {table.real_blocks} in the table, of {t * s} "
+        f"stored: max_abs_err {err:.3e}, {share:.3g} of its allowance "
+        f"(tol {tol:g} x |A||B| + {step:g} x |want|) "
         f"{'ok' if ok else 'MISMATCH'}")
-    check(ok, f"kernel {label} disagrees with its plain version")
-    res = {"max_abs_err": err, "share_of_tolerance": share}
+    check(ok, f"B1 {label} disagrees with its plain version")
+    check(multiplied == table.real_blocks,
+          f"B1 {label} multiplied {multiplied} blocks, not the table's "
+          f"{table.real_blocks}")
+    res = {"max_abs_err": err, "share_of_tolerance": share, "path": path,
+           "blocks_multiplied": multiplied, "stored_blocks": t * s,
+           "workspace_bytes": table.workspace_bytes(bs, n),
+           "stored_flops": 2 * t * s * bs * bs * n}
     if reps:
-        res["ms"] = time_ms(lambda: bsr_spmm_cuda(
-            blocks, rows, cols, dense, n_block_rows=nbr), reps)
+        res["ms"] = time_ms(lambda: bsr_spmm_cuda(blocks, dense, table),
+                            reps)
         res["plain_ms"] = time_ms(lambda: ref.bsr_spmm_raw_ref(
             blocks, rows, cols, dense, nbr), max(1, reps // 4))
-        res.update(bound_ms(blocks, dense, got))
-        log(f"  kernel {label}: {res['ms']:.3f} ms, plain "
-            f"{res['plain_ms']:.3f} ms, "
-            f"bound {res['bound_ms']:.3f} ms ({res['bound_by']})")
+        res.update(b1_bound(table, bs, dense, got))
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        log(f"  B1 {label}: {res['ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+            f"({res['bound_by']}), {100 * res['share_of_bound']:.1f} % of "
+            f"it; {res['real_flops'] / res['ms'] / 1e9:.1f} TFLOP/s on the "
+            f"real blocks")
     return res
 
 
 def small_kernel_cases(device) -> None:
     """Block sizes 4..192 (192 takes two row parts) with ragged widths, in
-    float32 and bf16 for each of the kernel's three tile shapes (bs <= 32,
-    <= 64, > 64), and capacity padding several chunks long in one
-    block-row."""
+    float32 and bf16 for each of the kernel's tile shapes (SIMT at every
+    bs, the tensor cores for bf16 at multiples of 16), listed as a raw call
+    lists them (every stored block real; capacity padding several chunks
+    long takes partials), and once through the storage layout's real mask
+    (the padding and coverage zeros skipped)."""
     from repro_torch.core.bsr import TiledBSR, random_sparse
     from repro_torch.core.grid import ProcessGrid
-    from repro_torch.kernels.bsr_spmm import CHUNK
+    from repro_torch.kernels.bsr_spmm import CHUNK, kernel_path, spmm_table
     rng = np.random.default_rng(0)
-    cases = [(4, 37, torch.float32, "bucket"), (8, 70, torch.float32, "bucket"),
+    cases = [(4, 37, torch.float32, "bucket"),
+             (8, 70, torch.float32, "bucket"),
              (16, 129, torch.float32, "bucket"),
+             (24, 45, torch.float32, "bucket"),
              (64, 37, torch.float32, "bucket"),
              (192, 70, torch.float32, "bucket"),
              (8, 37, torch.bfloat16, "bucket"),
+             (24, 45, torch.bfloat16, "bucket"),
              (64, 129, torch.bfloat16, "bucket"),
              (128, 45, torch.bfloat16, "bucket"),
              (192, 129, torch.bfloat16, "bucket"),
@@ -257,10 +316,23 @@ def small_kernel_cases(device) -> None:
         dense = torch.from_numpy(
             rng.standard_normal((3, k // 3, n)).astype(np.float32)).to(
             device, dtype)
-        kernel_case(t.blocks.reshape(3, s, bs, bs), t.rows.reshape(3, s),
-                    t.cols.reshape(3, s), dense, t.tile_shape[0] // bs,
-                    TOL_F32_SMALL,
-                    f"bs={bs} n={n} {str(dtype)[6:]} capacity {t.capacity}")
+        args = (t.blocks.reshape(3, s, bs, bs), t.rows.reshape(3, s),
+                t.cols.reshape(3, s), dense, t.tile_shape[0] // bs,
+                TOL_F32_SMALL)
+        label = f"bs={bs} n={n} {str(dtype)[6:]} capacity {t.capacity}"
+        res = kernel_case(*args, label)
+        if capacity != "bucket":
+            check(res["workspace_bytes"] > 0,
+                  f"B1 {label}: no segment several chunks long")
+        else:
+            real = spmm_table(torch.arange(3)[:, None] * s + torch.arange(s),
+                              args[1], args[2], args[4],
+                              real=t.real_slots().reshape(3, s),
+                              device=device)
+            kernel_case(*args, label + ", real blocks", table=real)
+    for bs in (64, 128):
+        check(kernel_path(bs, torch.bfloat16) == "mma.sync bf16 tensor cores",
+              f"B1 bf16 at bs {bs} is not on the tensor cores")
     # mixed types: the wrapper widens the bf16 operand
     blocks = torch.randn(2, 5, 16, 16, device=device).bfloat16()
     rows = torch.tensor([[0, 0, 1, 2, 3]] * 2, dtype=torch.int32,
@@ -297,89 +369,106 @@ def main_path_operands(device):
     return a_np, a32, a16, b_np, b32, b16
 
 
-def main_path_kernel_cases(a32, a16, b32, b16) -> dict:
-    """The kernel at the per-step shapes of the main path (step 0's tiles)."""
-    from repro_torch.core.api import SKEW_COLS, SKEW_ROWS
-    g, bs = a32.g, a32.block_size
-    nbr = a32.tile_shape[0] // bs
+def main_path_kernel_cases(cases) -> dict:
+    """B1 at the shapes of its main paths' first ring step, with the plan's
+    own table (the real blocks alone), each input read where the plan reads
+    it: the placed A stack and the placed (for SpGEMM densified) B stack.
+    Then its two library yardsticks on the same real blocks.  ``cases`` are
+    (shape name, dtype, A handle, B handle)."""
+    from repro_torch.core import api
     res = {}
-    for dtype, a_h, b_h in ((torch.float32, a32, b32),
-                            (torch.bfloat16, a16, b16)):
-        pa, pb = a_h.placed(SKEW_ROWS), b_h.placed(SKEW_COLS)
-        blocks = pa["blocks"].reshape(g * g, -1, bs, bs)
-        rows = pa["rows"].reshape(g * g, -1)
-        cols = pa["cols"].reshape(g * g, -1)
-        dense = pb["dense"].reshape(g * g, *pb["dense"].shape[2:])
-        seg = torch.stack([torch.bincount(r.long(), minlength=nbr)
-                           for r in rows])
-        log(f"  main-path step: T={g * g} tiles, S={blocks.shape[1]} stored "
-            f"blocks, bs={bs}, n={dense.shape[-1]}; blocks per block-row "
-            f"segment: mean {seg.float().mean().item():.1f}, max "
-            f"{seg.max().item()}")
-        res[dtype] = kernel_case(blocks, rows, cols, dense, nbr,
-                                 TOL_F32_DEEP, f"main-path {str(dtype)[6:]}",
-                                 reps=10)
-        res[dtype]["inputs"] = (blocks, rows, cols, dense, nbr)
+    for shape, dtype, a_h, b_h in cases:
+        plan = api.plan_matmul(a_h, b_h)
+        ex, g, bs = plan.executor, a_h.g, a_h.block_size
+        nbr = a_h.tile_shape[0] // bs
+        placed = a_h.placed(api.SKEW_ROWS)
+        blocks, rows, cols = (ex.batch(placed[k])
+                              for k in ("blocks", "rows", "cols"))
+        dense = ex.batch(api._densify_b(b_h.placed(api.SKEW_COLS),
+                                        plan.geom, ex)["dense"])
+        ident = ex.identity_map()
+        table = plan.spmm_table(a_h, ident, ident)
+        ch = table.chunks
+        seg = (ch[2] - ch[1]).float()
+        log(f"  main-path {shape} step: T={g * g} tiles, S={blocks.shape[1]} "
+            f"stored blocks, bs={bs}, n={dense.shape[-1]}; "
+            f"{table.real_blocks} real blocks in {ch.shape[1]} chunks (a "
+            f"block-row segment: mean {seg.mean().item():.1f}, max "
+            f"{int(seg.max().item())}), {table.fill.shape[1]} block-rows "
+            f"zero-filled, {table.n_parts} partials")
+        label = f"main-path {shape} {str(dtype)[6:]}"
+        r = kernel_case(blocks, rows, cols, dense, nbr, TOL_F32_DEEP, label,
+                        table=table, reps=10 if shape == "SpMM" else 4)
+        check(r["workspace_bytes"] == 0,
+              f"B1 {label} needs a partial workspace")
+        real = a_h.pool_lists(api.SKEW_ROWS, packed=False).real
+        r.update(b1_yardsticks(blocks, rows, cols, dense, nbr, real,
+                               TOL_F32_DEEP, label))
+        r["shape"] = {"T": g * g, "S": blocks.shape[1], "bs": bs,
+                      "n": dense.shape[-1]}
+        res[(shape, dtype)] = r
+        del blocks, rows, cols, dense, table
+        free()
     return res
 
 
 def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
-             wire="auto") -> float:
+             wire="auto") -> dict:
     """Time ``matmul`` (median after one warm-up) and hold its result
-    against the oracle within ``tol * scale`` elementwise."""
-    from repro_torch.core.api import matmul
+    against the oracle within ``tol * scale`` elementwise; the warm-up's
+    blocks multiplied by B1 (counted on the card) against the real blocks
+    of its plan's tables."""
+    from repro_torch.core import api
     from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
     from repro_torch.runtime.device import sync_elapsed
     before = bsr_spmm_cuda.launches
-    out = matmul(a_h, b_h, overlap=overlap, wire=wire)   # warm-up
+    out, multiplied = counted_blocks(
+        lambda: api.matmul(a_h, b_h, overlap=overlap, wire=wire))
     per_multiply = bsr_spmm_cuda.launches - before
-    torch.cuda.synchronize()
+    plan = api.plan_matmul(a_h, b_h, overlap=overlap, wire=wire)
+    real = sum(plan.spmm_table(a_h, a_map, b_map).real_blocks
+               for a_map, b_map in api._ring_maps(plan.geom, plan.executor))
+    log(f"  e2e {label} overlap={overlap} wire={plan.wire}: B1 multiplied "
+        f"{multiplied} blocks in {per_multiply} launches; the real blocks "
+        f"of the plan's {a_h.g} tables: {real} (g x {int(a_h.counts.sum())} "
+        f"real), of {a_h.g * a_h.g ** 2 * a_h.tiled.store_capacity} stored")
+    check(multiplied == real == a_h.g * int(a_h.counts.sum()),
+          f"{label}: B1 multiplied {multiplied} blocks on the main path, not "
+          f"the {real} real ones")
     times = []
     for _ in range(reps):
+        del out
         t0 = time.perf_counter()
-        out = matmul(a_h, b_h, overlap=overlap, wire=wire)
+        out = api.matmul(a_h, b_h, overlap=overlap, wire=wire)
         times.append(sync_elapsed(t0) * 1e3)
     check(tuple(out.shape) == tuple(oracle.shape),
           f"{label}: shape {tuple(out.shape)} vs {tuple(oracle.shape)}")
     check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
     err, share, ok = compare(out, oracle, scale, tol)
     med = statistics.median(times)
-    log(f"  e2e {label} overlap={overlap} wire={wire}: median {med:.2f} ms of "
-        f"{[round(x, 2) for x in times]}, {per_multiply} bsr_spmm launches "
-        f"a multiply, max_abs_err {err:.3e}, {share:.3g} of its allowance "
-        f"(tol {tol:g} x |A||B|) {'ok' if ok else 'MISMATCH'}")
+    log(f"  e2e {label} overlap={overlap} wire={plan.wire}: median "
+        f"{med:.2f} ms of {[round(x, 2) for x in times]}, max_abs_err "
+        f"{err:.3e}, {share:.3g} of its allowance (tol {tol:g} x |A||B|) "
+        f"{'ok' if ok else 'MISMATCH'}; workspace "
+        f"{plan.workspace_bytes()} bytes")
     check(ok, f"{label} overlap={overlap} disagrees with the dense oracle")
-    return med
+    check(plan.workspace_bytes() == 0, f"{label}: B1 needs a workspace")
+    return {"ms": med, "launches": per_multiply * (1 + reps),
+            "blocks_multiplied": multiplied, "real_blocks": real}
 
 
-def workspace_gb(a_h, n: int) -> float:
-    """GB of the kernel's float32 partial workspace for one ring step of
-    ``a_h`` times an ``n``-wide tile (sized from the shapes alone)."""
-    from repro_torch.kernels.bsr_spmm import CHUNK
-    nbr = a_h.tile_shape[0] // a_h.block_size
-    max_chunks = nbr + -(-a_h.tiled.store_capacity // CHUNK)
-    return a_h.g ** 2 * max_chunks * a_h.block_size * n * 4 / 1e9
+# CPU ops that copy or move an operand: none may take a main-path operand
+# of the dense-output SpMM (its placed or packed A, its placed B)
+COPY_OPS = ("aten::roll", "aten::index", "aten::index_select",
+            "aten::gather", "aten::take_along_dim")
 
 
-def ring_shift_ms(a_h, b_h) -> dict:
-    """One ring shift of each operand's placed tile grid (float32 SpMM):
-    the copies that a ring step makes besides its kernel launch."""
-    from repro_torch.core.api import SKEW_COLS, SKEW_ROWS
-    from repro_torch.core.executor import StackedExecutor
-    ex = StackedExecutor(a_h.g, a_h.device)
-    pa, pb = a_h.placed(SKEW_ROWS), b_h.placed(SKEW_COLS)
-    res = {"a": time_ms(lambda: ex.shift(pa, "col"), 5),
-           "b": time_ms(lambda: ex.shift(pb, "row"), 5)}
-    log(f"  ring shift of the placed tiles: A {res['a']:.3f} ms, B "
-        f"{res['b']:.3f} ms (float32 SpMM, one of each per ring step)")
-    return res
-
-
-def device_breakdown(a_h, b_h, label: str, **kw) -> dict:
+def device_breakdown(a_h, b_h, label: str, operands=(), **kw) -> dict:
     """Device time by kernel over one multiply (``torch.profiler``), beside
     the multiply's wall time: where the time goes, and the share of the
     wall time in which no kernel or copy ran on the card.  ``kw`` goes to
-    ``matmul``."""
+    ``matmul``; the ops of ``COPY_OPS`` that took a tensor of one of the
+    ``operands``' shapes are listed."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
     from repro_torch.core.api import matmul
@@ -387,14 +476,21 @@ def device_breakdown(a_h, b_h, label: str, **kw) -> dict:
     out = matmul(a_h, b_h, **kw)
     del out
     torch.cuda.synchronize()
-    with profile(activities=PROFILED) as prof:
+    with profile(activities=PROFILED, record_shapes=True) as prof:
         t0 = time.perf_counter()
         out = matmul(a_h, b_h, **kw)
         wall_ms = sync_elapsed(t0) * 1e3
     del out
-    spans, by_name = [], {}
+    # each operand as the placed [g, g, ...] stack and as its [g*g, ...]
+    # batch
+    shapes = {tuple(x) for x in operands}
+    shapes |= {(s[0] * s[1], *s[2:]) for s in shapes}
+    spans, by_name, copies = [], {}, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            if e.name in COPY_OPS and any(
+                    tuple(s) in shapes for s in e.input_shapes or ()):
+                copies.append(f"{e.name}{e.input_shapes}")
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -416,7 +512,8 @@ def device_breakdown(a_h, b_h, label: str, **kw) -> dict:
     res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms if spans else None,
            "by_kernel_ms": {k: round(v[0], 3) for k, v in top},
-           "launches_by_kernel": {k: v[1] for k, v in top}}
+           "launches_by_kernel": {k: v[1] for k, v in top},
+           "kernels": sorted(by_name), "operand_copies": copies}
     if spans:
         log(f"  {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
             f"(idle share {res['idle_share']:.3f})")
@@ -425,37 +522,69 @@ def device_breakdown(a_h, b_h, label: str, **kw) -> dict:
     else:
         log(f"  {label}: wall {wall_ms:.2f} ms; the profiler recorded no "
             "device time (idle share not measured)")
+    if operands:
+        log(f"  {label}: copies of its operands: {copies or 'none'}; kernels "
+            f"named *roll*: {[k for k in by_name if 'roll' in k] or 'none'}")
     return res
 
 
-def library_yardstick(blocks, rows, cols, dense, nbr, tol: float) -> float:
-    """cuSPARSE BSR @ dense on the same inputs, as one block-diagonal BSR
-    matrix over the T tiles (timed only; the port never calls it)."""
+def b1_yardsticks(blocks, rows, cols, dense, nbr: int, real, tol: float,
+                  label: str) -> dict:
+    """Two PyTorch calls computing B1's product of the same real blocks
+    (the ``real`` bool ``[T, S]``), as block-diagonal matrices over the T
+    tiles, timed only (the port never calls them): cuSPARSE BSR @ dense
+    (``torch.sparse_bsr_tensor``) and, as B2's yardstick works, CSR @
+    dense on the element nonzeros (``torch.sparse_csr_tensor``).  Each is
+    held against the plain version first; None, with the reason printed,
+    where PyTorch has no such call for these operands."""
     from repro_torch.kernels import ref
-    dtype = blocks.dtype
     t, s, bs, _ = blocks.shape
     k, n = dense.shape[1], dense.shape[2]
-    row_ptr = torch.searchsorted(
-        rows, torch.arange(nbr + 1, dtype=torch.int32, device=rows.device)
-        .expand(t, -1).contiguous(), out_int32=True)
-    offs = torch.arange(t, device=rows.device, dtype=torch.int32)[:, None]
-    crow = torch.cat([(row_ptr[:, :-1] + offs * s).reshape(-1),
-                      torch.tensor([t * s], dtype=torch.int32,
-                                   device=rows.device)])
-    col = (cols + offs * (k // bs)).reshape(-1)
-    a = torch.sparse_bsr_tensor(crow, col, blocks.reshape(t * s, bs, bs),
-                                size=(t * nbr * bs, t * k))
+    mask = torch.as_tensor(np.asarray(real), device=blocks.device)
+    tile = torch.arange(t, device=blocks.device)[:, None].expand(t, s)[mask]
+    r_real = rows[mask].long() + tile * nbr     # stored lists are row-sorted
+    c_real = cols[mask].long() + tile * (k // bs)
+    b_real = blocks[mask]
     d = dense.reshape(t * k, n)
-    got = (a @ d).reshape(t, nbr * bs, n)
-    err, _, ok = compare(
-        got, ref.bsr_spmm_raw_ref(blocks, rows, cols, dense, nbr),
-        abs_product(blocks, rows, cols, dense, nbr), tol,
-        BF16_STEP if dtype == torch.bfloat16 else 0.0)
-    check(ok, "the yardstick computes another function")
-    ms = time_ms(lambda: a @ d, 10)
-    log(f"  yardstick torch.sparse_bsr_tensor @ dense, {str(dtype)[6:]}: "
-        f"{ms:.3f} ms, max_abs_err {err:.3e} vs the plain version")
-    return ms
+    want = ref.bsr_spmm_raw_ref(blocks, rows, cols, dense, nbr)
+    scale = abs_product(blocks, rows, cols, dense, nbr)
+    step = BF16_STEP if blocks.dtype == torch.bfloat16 else 0.0
+    res = {}
+    crow = torch.searchsorted(r_real, torch.arange(
+        t * nbr + 1, device=blocks.device)).to(torch.int32)
+    bsr = torch.sparse_bsr_tensor(crow, c_real.to(torch.int32), b_real,
+                                  size=(t * nbr * bs, t * k))
+    sb, rr, cc = b_real.nonzero().unbind(1)
+    csr = torch.sparse_coo_tensor(
+        torch.stack([r_real[sb] * bs + rr, c_real[sb] * bs + cc]),
+        b_real[sb, rr, cc], size=(t * nbr * bs, t * k)).coalesce()
+    csr = csr.to_sparse_csr()
+    for name, a in (("library_bsr_ms", bsr), ("library_ms", csr)):
+        what = "torch.sparse_bsr_tensor" if name == "library_bsr_ms" \
+            else "torch.sparse_csr_tensor"
+        try:
+            got = (a @ d).reshape(t, nbr * bs, n)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            log(f"  yardstick {label}: {what} @ dense, no library call "
+                f"({type(e).__name__}: {str(e).splitlines()[0][:160]})")
+            res[name] = None
+            continue
+        # a library may sum bf16 products at bf16 precision: it is held
+        # to 2^-7 of |A| @ |B|, which still tells another function apart
+        err, share, ok = compare(got, want, scale,
+                                 max(tol, 2 * BF16_ROUND) if step else tol,
+                                 step)
+        del got
+        check(ok, f"the yardstick {what} @ dense computes another function "
+              f"(max_abs_err {err:.3e}, {share:.3g} of its allowance)")
+        res[name] = time_ms(lambda: a @ d, 5)
+        log(f"  yardstick {label}: {what} @ dense {res[name]:.3f} ms "
+            f"({a.values().shape[0]} "
+            f"{'blocks' if a.layout == torch.sparse_bsr else 'nonzeros'}), "
+            f"max_abs_err {err:.3e} vs the plain version, {share:.3g} of "
+            f"its allowance")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -986,7 +1115,7 @@ def sparse_step_times(plan, a_h) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     spans, c = [], None
-    steps = api._ring_steps(a_tree, b_tree, geom, ex)
+    steps = api._ring_steps(a_tree, b_tree, geom, ex.shift)
     for t in range(geom.g):
         e0 = mark()
         a_t, b_t = next(steps)
@@ -1110,8 +1239,8 @@ def record(name: str, source: str, replaces: str, launches: int,
            "replaces": replaces, "launches": launches, "dtype": "float32"}
     rec.update({k: f32.get(k) for k in keys})
     rec.update(extra)
-    rec["bf16"] = {k: b16.get(k) for k in keys + ("bytes", "path")
-                   if k in b16}
+    rec["bf16"] = {k: b16.get(k) for k in keys + (
+        "bytes", "path", "share_of_bound", "library_bsr_ms") if k in b16}
     return rec
 
 
@@ -1121,7 +1250,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.api import DistBSR, DistDense, plan_matmul
+    from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR,
+                                      DistDense, plan_matmul)
     from repro_torch.core.bsr import rmat_matrix
     from repro_torch.runtime.device import strict_fp32
 
@@ -1140,7 +1270,22 @@ def main() -> int:
 
     log("== dense-output path (ring_c SpMM and SpGEMM, B1)")
     a_np, a32, a16, b_np, b32, b16 = main_path_operands(device)
-    kres = main_path_kernel_cases(a32, a16, b32, b16)
+    a14_np = rmat_matrix(SPGEMM["scale"], 8, seed=SPGEMM["seed"])
+    a14 = DistBSR.from_dense(a14_np, g=SPGEMM["g"],
+                             block_size=SPGEMM["block_size"], device=device)
+    # R-MAT 1.0 is exact in bf16: the bf16 handle casts the blocks
+    a14_16 = DistBSR(dataclasses.replace(
+        a14.tiled, blocks=a14.tiled.blocks.to(torch.bfloat16)))
+    log(f"SpGEMM operand: R-MAT scale {SPGEMM['scale']}, bs "
+        f"{SPGEMM['block_size']}, g {SPGEMM['g']}: real blocks per tile "
+        f"{a14.counts.cpu().numpy().ravel().tolist()}, capacity "
+        f"{a14.capacity}, store capacity {a14.tiled.store_capacity}")
+    kres = main_path_kernel_cases([
+        ("SpMM", torch.float32, a32, b32), ("SpMM", torch.bfloat16, a16, b16),
+        ("SpGEMM", torch.float32, a14, a14),
+        ("SpGEMM", torch.bfloat16, a14_16, a14_16)])
+    del a14_16
+    phase_peak("B1 main-path kernel cases")
     a3 = DistBSR.from_dense(a_np, g=SPMM_G3, block_size=SPMM["block_size"],
                             device=device)
     b3 = DistDense.for_rhs(b_np, a3)
@@ -1155,18 +1300,11 @@ def main() -> int:
     oracle32, scale32 = a_dense @ b_t, a_abs @ b_t.abs()
     oracle16, scale16 = a_dense @ b_t16, a_abs @ b_t16.abs()
     del a_dense, a_abs, b_t, b_t16
-    a14_np = rmat_matrix(SPGEMM["scale"], 8, seed=SPGEMM["seed"])
-    a14 = DistBSR.from_dense(a14_np, g=SPGEMM["g"],
-                             block_size=SPGEMM["block_size"], device=device)
     a14_dense = torch.from_numpy(a14_np).to(device)
     del a14_np
     oracle_gemm = a14_dense @ a14_dense
     scale_gemm = a14_dense.abs() @ a14_dense.abs()
     del a14_dense
-    log(f"SpGEMM operand: R-MAT scale {SPGEMM['scale']}, bs "
-        f"{SPGEMM['block_size']}, g {SPGEMM['g']}: real blocks per tile "
-        f"{a14.counts.cpu().numpy().ravel().tolist()}, capacity "
-        f"{a14.capacity}, store capacity {a14.tiled.store_capacity}")
     # on the single-stream executor overlap="auto" is the bulk body of "off"
     check(plan_matmul(a32, b32, overlap="auto").geom
           == plan_matmul(a32, b32, overlap="off").geom,
@@ -1193,29 +1331,47 @@ def main() -> int:
         e2e[f"{label} overlap={overlap} wire={wire}"] = e2e_case(
             label, a_h, b_h, oracle, scale, tol, overlap, wire=wire)
     dense_counts = read_counts()
-    log(f"  launches on the dense-output path: {dense_counts}; kernel "
-        f"workspace a launch: SpMM "
-        f"{workspace_gb(a32, b32.tile_shape[1]):.2f} GB, SpGEMM "
-        f"{workspace_gb(a14, a14.tile_shape[1]):.2f} GB")
-    check(dense_counts["bsr_spmm"] > 0,
-          "the dense-output path never launched bsr_spmm")
-    shift_ms = ring_shift_ms(a32, b32)
-    breakdown = {"SpMM float32": device_breakdown(a32, b32, "SpMM float32"),
-                 "SpGEMM float32": device_breakdown(a14, a14,
-                                                    "SpGEMM float32")}
-    log("== B1 yardstick")
-    for dtype in (torch.float32, torch.bfloat16):
-        kres[dtype]["library_ms"] = library_yardstick(*kres[dtype]["inputs"],
-                                                      TOL_F32_DEEP)
-    blocks, _, _, dense, _ = kres[torch.float32]["inputs"]
-    b1 = record("bsr_spmm", "src/repro_torch/kernels/csrc/bsr_spmm.cu",
-                "src/repro/kernels/bsr_spmm.py:55", dense_counts["bsr_spmm"],
-                kres, {
-                    "shape": dict(zip(("T", "S", "bs", "n"),
-                                      (*blocks.shape[:3], dense.shape[-1]))),
-                    **{k: kres[torch.float32][k] for k in (
-                        "real_flops", "stored_flops", "bytes")}})
-    del blocks, dense, kres, a32, a16, b32, b16, a3, b3, a14, a_h, b_h
+    launches = {shape: sum(v["launches"] for k, v in e2e.items()
+                           if k.startswith(shape)) for shape in
+                ("SpMM", "SpGEMM")}
+    log(f"  launches on the dense-output path: {dense_counts} (B1: "
+        f"{launches['SpMM']} at the SpMM shapes, {launches['SpGEMM']} at "
+        f"SpGEMM's); B1 blocks multiplied "
+        f"{sum(v['blocks_multiplied'] for v in e2e.values())} in the "
+        f"counted multiplies, all real")
+    check(dense_counts["bsr_spmm"] == sum(launches.values())
+          and min(launches.values()) > 0,
+          "the dense-output path did not launch bsr_spmm at both shapes")
+    pool = lambda h, pl, key: tuple(h.placed(pl)[key].shape)
+    breakdown = {
+        "SpMM float32": device_breakdown(
+            a32, b32, "SpMM float32", operands=(
+                pool(a32, SKEW_ROWS, "blocks"),
+                pool(b32, SKEW_COLS, "dense"))),
+        "SpMM float32 packed": device_breakdown(
+            a32, b32, "SpMM float32 wire=packed", wire="packed", operands=(
+                tuple(a32.packed_wire(SKEW_ROWS)["blocks"].shape),
+                pool(b32, SKEW_COLS, "dense"))),
+        "SpGEMM float32": device_breakdown(a14, a14, "SpGEMM float32")}
+    for name in ("SpMM float32", "SpMM float32 packed"):
+        bd = breakdown[name]
+        check(not bd["operand_copies"]
+              and not any("roll" in k for k in bd["kernels"]),
+              f"{name}: the multiply rolls or gathers an operand "
+              f"({bd['operand_copies']})")
+    b1 = [record(f"bsr_spmm ({shape} shape)",
+                 "src/repro_torch/kernels/csrc/bsr_spmm.cu",
+                 "src/repro/kernels/bsr_spmm.py:55", launches[shape],
+                 {dt: kres[(shape, dt)] for dt in (torch.float32,
+                                                   torch.bfloat16)},
+                 {"shape": kres[(shape, torch.float32)]["shape"],
+                  **{k: kres[(shape, torch.float32)][k] for k in (
+                      "real_flops", "stored_flops", "bytes", "real_blocks",
+                      "stored_blocks", "blocks_multiplied",
+                      "workspace_bytes", "share_of_bound",
+                      "library_bsr_ms", "path")}})
+          for shape in ("SpMM", "SpGEMM")]
+    del kres, a32, a16, b32, b16, a3, b3, a14, a_h, b_h
     del oracle, scale
     del oracle32, scale32, oracle16, scale16, oracle_gemm, scale_gemm
     free()
@@ -1257,8 +1413,7 @@ def main() -> int:
                                  in ("real_flops", "pair_flops", "bytes",
                                      "real_pairs", "pairs",
                                      "pairs_multiplied", "path")})
-    log(json.dumps({"build_s": build_s, "e2e_median_ms": e2e,
-                    "ring_shift_ms": shift_ms, "breakdown": breakdown,
+    log(json.dumps({"build_s": build_s, "e2e": e2e, "breakdown": breakdown,
                     "sparse_output": {k: sparse[k] for k in (
                         "e2e_ms", "symbolic_s", "plan_rest_s",
                         "c_store_bytes", "workspace_bytes", "breakdown",
@@ -1269,7 +1424,7 @@ def main() -> int:
                                 "dense_tile": tile["peak_gb"]},
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [b1, b2, b3]}))
+    log(json.dumps({"kernels": [*b1, b2, b3]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -38,6 +39,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.bsr_pair import pair_table
+from ..kernels.bsr_spmm import PoolLists, SpmmTable
 from ..runtime.device import as_tensor, resolve_device, strict_fp32
 from . import schedule as _schedule
 from . import symbolic as _symbolic
@@ -106,24 +108,50 @@ def _densify_b(b: Dict, geom: _Geom, ex: StackedExecutor) -> Dict:
     return {"dense": ex.unbatch(d)}
 
 
-def _local_mm(a: Dict, b: Dict, geom: _Geom,
+@dataclasses.dataclass(frozen=True)
+class _Steps:
+    """What a dense-output body asks its plan for at a ring step: B1's work
+    table for a step's tile maps (None where the plain version runs) and a
+    host tile map as an index tensor on the executor's device (cached)."""
+    table: Optional[Callable[[np.ndarray, np.ndarray], SpmmTable]]
+    device_map: Callable[[np.ndarray], torch.Tensor]
+
+
+def _local_mm(a: Dict, b: Dict, a_map: np.ndarray, b_map: np.ndarray,
+              steps: _Steps, c: Optional[torch.Tensor], geom: _Geom,
               ex: StackedExecutor) -> torch.Tensor:
-    """Every tile's local product of one ring step, in one batched call."""
-    b_dense = ex.batch(b["dense"])    # the body pre-densifies sparse B
+    """Every tile's local product of one ring step, in one batched call.
+
+    Position p multiplies A tile ``a_map[p]`` by B tile ``b_map[p]`` of the
+    placed stacks, read where they lie.  Step 0 (``c`` None) returns a
+    fresh ``[g*g, tm, tn]`` C; later steps add into ``c`` in place, the
+    step's product rounded to C's type first (the JAX body's ``c + ...``).
+    """
+    b_pool = ex.batch(b["dense"])    # the body pre-densifies sparse B
     if "dense" in a:
-        # summed in float32, as the JAX package's preferred_element_type
-        out = torch.matmul(ex.batch(a["dense"]).float(), b_dense.float())
-    else:
-        # TiledBSR tiles are stored coverage-augmented and row-sorted
-        out = kops.bsr_spmm_raw(ex.batch(a["blocks"]), ex.batch(a["rows"]),
-                                ex.batch(a["cols"]), b_dense,
-                                n_block_rows=geom.a_nbr, impl=geom.impl,
-                                augment=False)
-    return ex.unbatch(out.to(geom.out_dtype))
+        a_pool = ex.batch(a["dense"])
+        out = c if c is not None else torch.empty(
+            (geom.g * geom.g, geom.tm, geom.tn), dtype=geom.out_dtype,
+            device=ex.device)
+        for p, (i, j) in enumerate(zip(a_map.tolist(), b_map.tolist())):
+            # summed in float32, as the JAX package's preferred_element_type
+            prod = torch.matmul(a_pool[i].float(), b_pool[j].float())
+            if c is None:
+                out[p] = prod
+            else:
+                out[p] += prod.to(geom.out_dtype)
+        return out
+    return kops.bsr_spmm_raw(
+        ex.batch(a["blocks"]), ex.batch(a["rows"]), ex.batch(a["cols"]),
+        b_pool, n_block_rows=geom.a_nbr, impl=geom.impl, a_map=a_map,
+        b_map=b_map, table=steps.table and steps.table(a_map, b_map), out=c)
 
 
-def _ring_steps(a: Dict, b: Dict, geom: _Geom, ex: StackedExecutor):
-    """The (A, B) tile grids of each ``ring_c`` step, in order.
+def _ring_steps(a, b, geom: _Geom, shift: Callable):
+    """The (A, B) of each ``ring_c`` step, in order: tile grids shifted by
+    ``shift = ex.shift`` (the sparse-output body), or tile maps composed by
+    ``shift = ex.shift_map`` (the dense-output bodies, whose kernel reads
+    the placed stacks in place).
 
     A rides the ``col`` ring and B the ``row`` ring.  The bulk body issues
     step t+1's shift before step t's multiply (paper SS3.3 prefetch); the
@@ -140,23 +168,31 @@ def _ring_steps(a: Dict, b: Dict, geom: _Geom, ex: StackedExecutor):
     for t in range(geom.g):
         while len(queue) <= ahead and t + len(queue) < geom.g:
             a_q, b_q = queue[-1]
-            queue.append((ex.shift(a_q, "col"), ex.shift(b_q, "row")))
+            queue.append((shift(a_q, "col"), shift(b_q, "row")))
         yield queue.pop(0)
 
 
-def _body_ring_c(a: Dict, b: Dict, geom: _Geom,
+def _ring_maps(geom: _Geom, ex: StackedExecutor):
+    """The (A, B) tile maps of each ``ring_c`` step: g - 1 compositions per
+    operand (:meth:`StackedExecutor.shift_map`), no tile moved."""
+    ident = ex.identity_map()
+    return _ring_steps(ident, ident, geom, ex.shift_map)
+
+
+def _body_ring_c(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
                  ex: StackedExecutor) -> torch.Tensor:
     """Paper Alg 2 (stationary-C): skewed placement + neighbour ring shifts.
 
-    C accumulates in place (the JAX body's ``c + ...`` in the same dtype,
-    without a new buffer per step).
+    The shifts are tile maps: each step's multiply reads the placed stacks
+    in place (no ``torch.roll``).  Step 0 writes C fresh and later steps
+    add into it in place (the JAX body's ``c + ...`` in the same dtype,
+    without a zero fill or a new buffer per step).
     """
     b = _densify_b(b, geom, ex)
-    c = torch.zeros((geom.g, geom.g, geom.tm, geom.tn), dtype=geom.out_dtype,
-                    device=ex.device)
-    for a_t, b_t in _ring_steps(a, b, geom, ex):
-        c += _local_mm(a_t, b_t, geom, ex)
-    return c
+    c = None
+    for a_map, b_map in _ring_maps(geom, ex):
+        c = _local_mm(a, b, a_map, b_map, steps, c, geom, ex)
+    return ex.unbatch(c)
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +231,7 @@ def _sparse_body_ring_c(a: Dict, b: Dict, pairs, geom: _Geom,
     cast to the output dtype once at the end.
     """
     c = None
-    for t, (a_t, b_t) in enumerate(_ring_steps(a, b, geom, ex)):
+    for t, (a_t, b_t) in enumerate(_ring_steps(a, b, geom, ex.shift)):
         c = _sparse_step(a_t, b_t, pairs[t], c, geom, ex)
     return ex.unbatch(c.to(geom.out_dtype))
 
@@ -206,39 +242,52 @@ def _sparse_body_ring_c(a: Dict, b: Dict, pairs, geom: _Geom,
 # A sparse A tile rides as a packed [wire_capacity, bs, bs] buffer (real
 # blocks only, no rows/cols) and a sparse B tile likewise, densified per
 # step by a gather; all structure lives in plan-time consume maps
-# (core/wire.py), step t's maps in ``aux[t]`` as [g*g, ...] tensors.
-def _packed_a_mm(a_blocks: torch.Tensor, aux_t: Dict, b_dense: torch.Tensor,
-                 geom: _Geom, ex: StackedExecutor) -> torch.Tensor:
-    """One packed local SpMM step: gather each tile's coverage-augmented
-    block list out of its packed buffer, then the augment-free kernel."""
-    blocks = ex.batch(a_blocks)
-    tile = torch.arange(blocks.shape[0], device=blocks.device)[:, None]
-    out = kops.bsr_spmm_raw(blocks[tile, aux_t["a_gidx"]], aux_t["a_rows"],
-                            aux_t["a_cols"], b_dense,
-                            n_block_rows=geom.a_nbr, impl=geom.impl,
-                            augment=False)
-    return ex.unbatch(out.to(geom.out_dtype))
+# (core/wire.py), step t's maps in ``aux[t]`` as [g*g, ...] tensors.  As
+# on the padded wire the ring's shifts are tile maps over the placed
+# packed stacks.
+def _packed_a_mm(a_blocks: torch.Tensor, aux_t: Dict, a_map: np.ndarray,
+                 b_map: np.ndarray, b_pool: torch.Tensor, steps: _Steps,
+                 c: Optional[torch.Tensor], geom: _Geom,
+                 ex: StackedExecutor) -> torch.Tensor:
+    """One packed local SpMM step: position p reads packed A tile
+    ``a_map[p]`` in place, through its consume lists (the kernel through
+    its table's pool slots, so no gather copy of A is made)."""
+    return kops.bsr_spmm_raw(
+        ex.batch(a_blocks), aux_t["a_rows"], aux_t["a_cols"], b_pool,
+        n_block_rows=geom.a_nbr, impl=geom.impl, a_map=a_map, b_map=b_map,
+        gidx=aux_t["a_gidx"], table=steps.table and steps.table(a_map,
+                                                                  b_map),
+        out=c)
 
 
-def _packed_b_dense(b_buf: torch.Tensor, dmap: torch.Tensor, geom: _Geom,
+def _packed_b_dense(b_buf: torch.Tensor, dmap: torch.Tensor,
+                    b_map: np.ndarray, steps: _Steps, geom: _Geom,
                     ex: StackedExecutor) -> torch.Tensor:
+    """Each position's dense B tile of one step, gathered from packed B
+    tile ``b_map[p]`` of the placed stack."""
     return kops.densify_packed(ex.batch(b_buf), dmap,
                                n_block_rows=geom.b_nbr,
-                               n_block_cols=geom.b_nbc)
+                               n_block_cols=geom.b_nbc,
+                               tile_map=steps.device_map(b_map))
 
 
-def _packed_body_ring_c(a: Dict, b: Dict, aux, geom: _Geom,
+def _packed_body_ring_c(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
                         ex: StackedExecutor) -> torch.Tensor:
     """Stationary-C ring over packed wire buffers (paper Alg 2)."""
     b_packed = "b_dmap" in aux[0]
     b0 = b if b_packed else _densify_b(b, geom, ex)
-    c = torch.zeros((geom.g, geom.g, geom.tm, geom.tn), dtype=geom.out_dtype,
-                    device=ex.device)
-    for t, (a_t, b_t) in enumerate(_ring_steps(a, b0, geom, ex)):
-        b_dense = _packed_b_dense(b_t["blocks"], aux[t]["b_dmap"], geom, ex) \
-            if b_packed else ex.batch(b_t["dense"])
-        c += _packed_a_mm(a_t["blocks"], aux[t], b_dense, geom, ex)
-    return c
+    ident = ex.identity_map()
+    c = None
+    for t, (a_map, b_map) in enumerate(_ring_maps(geom, ex)):
+        if b_packed:
+            b_pool = _packed_b_dense(b0["blocks"], aux[t]["b_dmap"], b_map,
+                                     steps, geom, ex)
+            b_map = ident                  # one dense tile per position
+        else:
+            b_pool = ex.batch(b0["dense"])
+        c = _packed_a_mm(a["blocks"], aux[t], a_map, b_map, b_pool, steps, c,
+                         geom, ex)
+    return ex.unbatch(c)
 
 
 def _wire_consume(aux: Dict, prefix: str, po: "_wire.PackedOperand",
@@ -342,6 +391,9 @@ class _LRUCache:
     def __len__(self) -> int:
         return len(self._d)
 
+    def values(self) -> list:
+        return list(self._d.values())
+
     def clear(self) -> None:
         self._d.clear()
 
@@ -354,6 +406,8 @@ class _LRUCache:
 PLAN_CACHE_MAX = 128
 SYMBOLIC_CACHE_MAX = 32
 DENSITY_CACHE_MAX = 256
+# B1 tables a dense-output plan keeps: one per ring step and A structure
+SPMM_TABLE_CACHE_MAX = 16
 _PLAN_CACHE = _LRUCache(PLAN_CACHE_MAX)
 # Symbolic-phase results keyed on the operands' structure fingerprints:
 # repeated sparse-output plans for the same structures skip the host-side
@@ -641,6 +695,58 @@ class DistBSR(DistMatrix):
             jj = torch.arange(self.g, device=self.device)[None, :, None]
             tree = cache[placement] = {"blocks": placed[ii, jj, pidx]}
         return tree
+
+    def _layout(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, str]:
+        """Host rows, cols, the layout's real mask
+        (:meth:`TiledBSR.real_slots`) and their fingerprint, read once per
+        handle: the padded wire's B1 tables come from them, not from the
+        block values."""
+        lay = getattr(self, "_layout_cache", None)
+        if lay is None:
+            t = self.tiled
+            rows, cols = t.rows.cpu().numpy(), t.cols.cpu().numpy()
+            real = t.real_slots()
+            h = hashlib.sha1()
+            for arr in (rows, cols, real):
+                h.update(np.ascontiguousarray(arr).tobytes())
+            lay = self._layout_cache = (rows, cols, real, h.hexdigest())
+        return lay
+
+    def pool_lists(self, placement: str, packed: bool) -> PoolLists:
+        """Each placed tile's block list and real mask (host numpy, cached
+        per placement and wire), from which plans cut B1's tables.
+
+        Padded wire: the stored slots, real by the storage layout (capacity
+        padding and coverage zeros left out).  Packed wire: the consume
+        lists of the packed buffers, real where they name a packed block
+        rather than the zero tail.  Pool tile ``q`` is grid position ``q``
+        of the placed stack.
+        """
+        cache = getattr(self, "_pool_lists", None)
+        if cache is None:
+            cache = self._pool_lists = {}
+        lists = cache.get((placement, packed))
+        if lists is None:
+            tiles = _wire.placement_tiles(placement, self.g).reshape(-1, 2)
+            ti, tj = tiles[:, 0], tiles[:, 1]
+            if packed:
+                po = self.packed_operand()
+                gidx = po.gidx[ti, tj].astype(np.int64)
+                lists = PoolLists(
+                    key=("packed", po.fingerprint, placement), slots=gidx,
+                    rows=po.rows[ti, tj], cols=po.cols[ti, tj],
+                    real=gidx != po.zero_slot,
+                    slots_per_tile=po.wire_capacity)
+            else:
+                rows, cols, real, fp = self._layout()
+                s = self.tiled.store_capacity
+                lists = PoolLists(
+                    key=("padded", fp, placement),
+                    slots=np.broadcast_to(np.arange(s), (len(ti), s)),
+                    rows=rows[ti, tj], cols=cols[ti, tj], real=real[ti, tj],
+                    slots_per_tile=s)
+            cache[(placement, packed)] = lists
+        return lists
 
     def footprint_bytes(self) -> int:
         """Bytes of the stored representation (blocks + structure arrays)."""
@@ -1008,6 +1114,9 @@ class MatmulPlan:
     symbolic phase's real pairs: the lists are plan constants, so their
     work split is built once, here.
     Packed-wire dense-output plans hold each step's consume maps.
+    Dense-output plans with a sparse A cache, where the kernel runs, B1's
+    work table of each ring step (:meth:`spmm_table`), keyed on A's
+    structure and the step's tile maps.
     """
 
     def __init__(self, algorithm: Algorithm, geom: _Geom,
@@ -1052,6 +1161,8 @@ class MatmulPlan:
             self._c_counts = torch.as_tensor(symbolic.c_counts, device=dev)
         elif wire == "packed":
             self._aux = _steps_on_device(wire_aux, geom.g, dev)
+        self._tables = _LRUCache(SPMM_TABLE_CACHE_MAX)
+        self._maps: Dict[bytes, torch.Tensor] = {}
 
     @property
     def kind(self) -> str:
@@ -1066,13 +1177,43 @@ class MatmulPlan:
         return "dense" if self.symbolic is None else "sparse"
 
     def workspace_bytes(self) -> int:
-        """Bytes of the pair kernel's float32 partial workspace over a
-        sparse-output multiply's steps (the largest step's; 0 otherwise)."""
+        """Bytes of the kernels' float32 partial workspace over a multiply's
+        steps (the largest step's): the pair kernel's of a sparse-output
+        plan, B1's of the tables a dense-output plan has built so far."""
         if self.symbolic is None:
-            return 0
+            bs = self._a_key[3] if self._a_key[0] == "bsr" else 0
+            return max((tab.workspace_bytes(bs, self.geom.tn)
+                        for tab in self._tables.values()), default=0)
         bs = self.symbolic.block_size
         return max((s["table"].workspace_bytes(bs) for s in self._pairs
                     if "table" in s), default=0)
+
+    def spmm_table(self, a_h: "DistBSR", a_map: np.ndarray,
+                   b_map: np.ndarray) -> SpmmTable:
+        """B1's work table of one dense-output ring step, in which grid
+        position p multiplies the real blocks of placed A tile ``a_map[p]``
+        by B tile ``b_map[p]`` (built on the host once, then cached with the
+        plan)."""
+        lists = a_h.pool_lists(self.algorithm.a_placement,
+                               packed="a" in self._packs)
+        key = (lists.key, np.asarray(a_map).tobytes(),
+               np.asarray(b_map).tobytes())
+        table = self._tables.get(key)
+        if table is None:
+            table = self._tables[key] = lists.table(
+                a_map, b_map, self.geom.a_nbr, device=self.executor.device)
+        return table
+
+    def _device_map(self, tile_map: np.ndarray) -> torch.Tensor:
+        """A host tile map as an int64 tensor on the executor's device,
+        copied once per plan (a copy per step would wait on the card)."""
+        key = np.asarray(tile_map).tobytes()
+        got = self._maps.get(key)
+        if got is None:
+            got = self._maps[key] = torch.as_tensor(
+                np.asarray(tile_map, dtype=np.int64),
+                device=self.executor.device)
+        return got
 
     def __call__(self, a, b):
         a_h, b_h = _coerce_pair(a, b, g=self.geom.g,
@@ -1123,8 +1264,17 @@ class MatmulPlan:
                 else a_h.placed(pl_a)
             b_tree = b_h.packed_wire(pl_b) if "b" in self._packs \
                 else b_h.placed(pl_b)
-            return alg.packed_body, (a_tree, b_tree, self._aux)
-        return alg.body, (a_h.placed(pl_a), b_h.placed(pl_b))
+            return alg.packed_body, (a_tree, b_tree, self._aux,
+                                     self._steps(a_h))
+        return alg.body, (a_h.placed(pl_a), b_h.placed(pl_b),
+                          self._steps(a_h))
+
+    def _steps(self, a_h: DistMatrix) -> _Steps:
+        kernel = isinstance(a_h, DistBSR) \
+            and _runs_kernel(self.geom.impl, self.executor.device)
+        table = (lambda a_map, b_map: self.spmm_table(a_h, a_map, b_map)) \
+            if kernel else None
+        return _Steps(table=table, device_map=self._device_map)
 
     def _epilogue_sparse(self, c_blocks: torch.Tensor, a_h: DistBSR,
                          b_h: DistBSR) -> DistBSR:

@@ -27,7 +27,8 @@ from ..runtime.device import as_tensor, resolve_device
 from .grid import ProcessGrid, bucket_capacity, ceil_div, pad_to_multiple
 from .schedule import balance_row_perm
 
-__all__ = ["BSR", "TiledBSR", "rmat_edges", "rmat_matrix", "random_sparse"]
+__all__ = ["BSR", "TiledBSR", "layout_real_slots", "rmat_edges",
+           "rmat_matrix", "random_sparse"]
 
 
 def _host_array(dense) -> np.ndarray:
@@ -287,6 +288,17 @@ class TiledBSR:
         return BSR(self.blocks[i, j], self.rows[i, j], self.cols[i, j],
                    self.tile_shape, self.block_size, int(self.counts[i, j]))
 
+    def real_slots(self) -> np.ndarray:
+        """bool ``[gr, gc, store_cap]``: the stored slots that hold real
+        blocks, read off the storage layout (host numpy; the blocks are not
+        read).  See :func:`layout_real_slots`."""
+        gr, gc = self.grid_shape
+        s = self.store_capacity
+        real = layout_real_slots(self.rows.cpu().numpy().reshape(-1, s),
+                                 self.counts.cpu().numpy().reshape(-1),
+                                 self.tile_shape[0] // self.block_size)
+        return real.reshape(gr, gc, s)
+
     def load_imbalance(self) -> float:
         """max/avg real-block count over tiles — the paper's Table 1 metric."""
         c = self.counts.double().cpu().numpy()
@@ -360,6 +372,43 @@ def _augmented_layout(rr: np.ndarray, cc: np.ndarray, cap: int, nbr: int):
     order = np.argsort(rows_aug, kind="stable")
     cols_aug = np.concatenate([cols, np.zeros(nbr, np.int32)])
     return order, rows_aug[order], cols_aug[order]
+
+
+def layout_real_slots(rows: np.ndarray, counts: np.ndarray,
+                      nbr: int) -> np.ndarray:
+    """The slots of row-sorted stored lists that hold real blocks.
+
+    rows : int ``[T, S]`` as :func:`_augmented_layout` lays them out (and
+    the symbolic phase's C layout), counts : int ``[T]`` real blocks per
+    list.  In such a list block-row r's segment is r's real blocks in
+    order, then, in the row of the last real block (row 0 without one),
+    the ``S - nbr - count`` padding blocks, then r's coverage zero.  So the
+    real blocks are the first ``k_r`` slots of each segment, ``k_r`` its
+    length less one and, in the padding's row, less the padding.  Returns
+    bool ``[T, S]``; raises where the lists do not have that layout.
+    """
+    rows = np.asarray(rows, dtype=np.int64)
+    counts = np.asarray(counts, dtype=np.int64)
+    t, s = rows.shape
+    pad = s - nbr - counts
+    if rows.size and (rows.min() < 0 or rows.max() >= nbr
+                      or (np.diff(rows, axis=1) < 0).any()):
+        raise ValueError("stored rows are not row-sorted block-rows of the "
+                         "tile")
+    seg = np.bincount((np.arange(t)[:, None] * nbr + rows).ravel(),
+                      minlength=t * nbr).reshape(t, nbr)
+    longer = seg > 1
+    pad_row = np.where(longer.any(axis=1),
+                       nbr - 1 - np.argmax(longer[:, ::-1], axis=1), 0)
+    k = seg - 1
+    k[np.arange(t), pad_row] -= pad
+    if (seg < 1).any() or (k < 0).any() or (pad < 0).any():
+        raise ValueError("stored lists do not follow the TiledBSR storage "
+                         "layout (real blocks, padding in the last real "
+                         "row, one coverage block per block-row)")
+    start = np.cumsum(seg, axis=1) - seg
+    pos = np.arange(s)[None, :] - np.take_along_axis(start, rows, axis=1)
+    return pos < np.take_along_axis(k, rows, axis=1)
 
 
 # --------------------------------------------------------------------------

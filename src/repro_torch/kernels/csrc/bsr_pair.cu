@@ -68,12 +68,12 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "mma_fragments.cuh"  // cp.async ring, bf16 reads, mma.sync fragments
+
 namespace {
 
 constexpr int WARPS = 4;                 // independent warps per block
 constexpr unsigned FULL = 0xffffffffu;
-
-using bf16 = __nv_bfloat16;
 
 struct Params {
   const void* a;
@@ -105,42 +105,6 @@ __device__ __forceinline__ long long out_offset(int t, int slot, int i, int j,
          static_cast<long long>(c) * bs + j;
 }
 
-// ---------------------------------------------------------------------------
-// copies into the ring
-// ---------------------------------------------------------------------------
-template <int VEC>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  if constexpr (VEC >= 4) {
-    const unsigned s =
-        static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-                 "l"(src), "n"(VEC)
-                 : "memory");
-  } else {  // 2-byte bf16 elements of an odd block size: a plain copy
-    *static_cast<unsigned short*>(dst) =
-        *static_cast<const unsigned short*>(src);
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void zero_vec(void* dst) {
-  if constexpr (VEC == 16)
-    *static_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-  else if constexpr (VEC == 4)
-    *static_cast<unsigned*>(dst) = 0u;
-  else
-    *static_cast<unsigned short*>(dst) = 0;
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Copy the TR x TC window at (r0, c0) of a row-major bs x bs block into a
 // shared tile with row stride LD, VEC bytes a copy, one warp; positions
 // outside the block are zero.  (bs * sizeof(T)) % VEC == 0 and c0 is a
@@ -159,45 +123,6 @@ __device__ __forceinline__ void stage(T* dst, const T* blk, int bs, int r0,
       copy_async<VEC>(d, blk + static_cast<long long>(r0 + r) * bs + c0 + c);
     else
       zero_vec<VEC>(d);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// shared-memory reads, widened to float32
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ float bf_lo(unsigned x) {
-  return __uint_as_float(x << 16);
-}
-__device__ __forceinline__ float bf_hi(unsigned x) {
-  return __uint_as_float(x & 0xffff0000u);
-}
-
-template <int N>
-__device__ __forceinline__ void load_n(const float* p, float* v) {
-  if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x; v[1] = x.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(p + i);
-      v[i] = x.x; v[i + 1] = x.y; v[i + 2] = x.z; v[i + 3] = x.w;
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_n(const bf16* p, float* v) {
-  if constexpr (N == 2) {
-    const unsigned x = *reinterpret_cast<const unsigned*>(p);
-    v[0] = bf_lo(x); v[1] = bf_hi(x);
-  } else if constexpr (N == 4) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    v[0] = bf_lo(x.x); v[1] = bf_hi(x.x); v[2] = bf_lo(x.y); v[3] = bf_hi(x.y);
-  } else {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    v[0] = bf_lo(x.x); v[1] = bf_hi(x.x); v[2] = bf_lo(x.y); v[3] = bf_hi(x.y);
-    v[4] = bf_lo(x.z); v[5] = bf_hi(x.z); v[6] = bf_lo(x.w); v[7] = bf_hi(x.w);
   }
 }
 
@@ -255,32 +180,6 @@ struct Simt {
   }
 };
 
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Tensor cores (bf16 in, float32 accumulate): a TW x TW warp tile of
 // m16n8k16 products; A fragments by ldmatrix from the row-major A tile, B
 // fragments by ldmatrix.trans from the row-major (k-major) B tile.  Rows of
@@ -307,36 +206,13 @@ struct Mma {
   __device__ __forceinline__ void mma(const bf16* As, const bf16* Bs,
                                       int lane) {
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      unsigned a[MT][4];
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-        ldsm_x4(a[mi], As + (mi * 16 + (lane & 15)) * LD + ks + (lane >> 4) * 8);
-      unsigned b[NT][2];
-#pragma unroll
-      for (int nj = 0; nj < NT; nj += 2) {
-        unsigned r[4];
-        ldsm_x4_trans(r, Bs + (ks + (lane & 15)) * LD + nj * 8 + (lane >> 4) * 8);
-        b[nj][0] = r[0]; b[nj][1] = r[1];
-        b[nj + 1][0] = r[2]; b[nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
+    for (int ks = 0; ks < BK; ks += 16)
+      mma_k16<MT, NT>(acc, As + ks, LD, Bs + ks * LD, LD, lane);
   }
 
   template <class F>
   __device__ __forceinline__ void for_each_pair(int lane, F f) const {
-    const int r = lane >> 2, c = (lane & 3) * 2;
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        f(mi * 16 + r, ni * 8 + c, acc[mi][ni][0], acc[mi][ni][1]);
-        f(mi * 16 + r + 8, ni * 8 + c, acc[mi][ni][2], acc[mi][ni][3]);
-      }
+    mma_for_each_pair<MT, NT>(acc, lane, f);
   }
 };
 

@@ -1,36 +1,74 @@
-// Block-sparse x dense multiply for Hopper (sm_90a), batched over tiles.
+// Block-sparse x dense multiply for Hopper (sm_90a), batched over tiles,
+// over the real blocks alone, reading its operands where they lie.
 //
-//   C[t, rows[t,s]*bs : +bs, :] += blocks[t,s] @ dense[t, cols[t,s]*bs : +bs, :]
+//   C[t, r*bs : +bs, :] (+)= sum over the real blocks e of block-row r of
+//                            output tile t of
+//                            A_pool[slot(e)] @ B_pool[btile(t), col(e)*bs : +bs, :]
 //
 // Replaces the TPU kernel bsr_spmm_pallas (src/repro/kernels/bsr_spmm.py,
 // body _spmm_kernel): the local multiply of every dense-output schedule.
-// The TPU kernel walks the stored-block list as a sequential grid axis and
-// zeroes an output block on its first visit.  Hopper blocks run in no
-// order, so here the work is cut by block-row segment instead: the wrapper
-// passes per-tile segment bounds row_ptr (a searchsorted of the sorted
-// rows) and chunk bounds chunk_ptr (each segment cut into chunks of at most
-// `chunk` stored blocks, an empty segment into one empty chunk).
+// The TPU kernel walks a tile's whole stored-block list as a sequential grid
+// axis, capacity padding and coverage zeros included, and zeroes an output
+// block on its first visit.  Hopper blocks run in no order, so the work is
+// cut by block-row segment, and the list of what to multiply is a plan-time
+// table (kernels/bsr_spmm.py::spmm_table, host numpy, built by the plan once
+// per ring step):
 //
-//   1. bsr_spmm_chunk_kernel: one thread block per (tile, chunk, row part,
-//      n-panel) loops over the chunk's stored blocks, stages A and B slabs
-//      in shared memory, accumulates in float32 registers with FMA, and
-//      stores its float32 partial once into a workspace.
-//   2. bsr_spmm_reduce_kernel: sums each segment's partials in chunk order
-//      and stores C once, cast to the output type.  No atomics: the result
-//      does not depend on the order in which blocks ran.
+// * Only real blocks are multiplied.  The table lists, per output tile, the
+//   stored slots that hold data, by block-row: a tile's capacity padding
+//   (its last (row, col) repeated as zero blocks, 1.72x the real flops at
+//   R-MAT scale 15) and its coverage zeros never reach the kernel.  A block-
+//   row that no real block visits is zero-filled in a fresh output
+//   (spmm_fill_kernel).  Skipping a zero block changes one result: where B
+//   holds an inf or a NaN, the reference's 0 * inf gives a NaN in that row
+//   of C, and the skip does not.
+// * Operands are read in place.  Each entry names an A block by its slot in
+//   a pool (the placed stack of A tiles on the padded wire, the packed
+//   buffers on the packed wire), each chunk the B tile of its output tile,
+//   both composed at plan time from the ring step's tile maps: a ring step
+//   on one card copies neither operand.
+// * One unit of work is a (chunk, row part, n-panel of BN columns): a chunk
+//   is a block-row segment of at most MAX_CHUNK real blocks, so on the main
+//   paths (segments of at most nbc = 128 real blocks) every segment is one
+//   chunk and writes C directly.  Longer segments (raw calls that list
+//   padding) store ordered float32 partials that spmm_reduce_kernel sums in
+//   chunk order: no atomics, the result does not depend on block order.
+// * A plain grid, not a persistent one: the main paths give 1,024 (SpMM)
+//   and 32,768 (SpGEMM) units of up to 128 blocks, at least two thread
+//   blocks are resident on an SM, so one unit's epilogue overlaps another's
+//   loads without a work queue.  The table sorts chunks by tile and then
+//   longest first, so long units start early and one tile's B is hot in L2;
+//   n-panels go in groups of PANEL_GROUP that every chunk visits before the
+//   next group, so a group's B panels (32 MB float32 at the SpGEMM shape,
+//   n 8,192) stay in the 50 MB L2 while the chunks stream past them.
+// * Slabs of A (BM x BK) and B (BK x BN) come in through a cp.async ring of
+//   STAGES stages; rows and columns past a ragged edge are zero in shared
+//   memory.
 //
-// Why chunks: a tile's capacity padding repeats its last (row, col), so all
-// of it lands in one block-row.  On the main path (R-MAT scale 15, bs 128,
-// g 2) that segment holds ~6,500 of the tile's 13,065 stored blocks, and
-// one thread block per segment left it running alone on a few SMs.
+// What bounds it on an H100: a real block is 2*bs^2*n flops on bs^2 + bs*n
+// elements read (bs 128, n 256 float32: 16.8 MFLOP on 192 KB, ~85 flop a
+// byte), so float32 is bound by the CUDA cores' FMA rate (67 TFLOP/s; IEEE
+// FMA, as the reference: TF32 would break its 1e-5), bf16 by the bytes.
 //
-// What bounds it on an H100: every stored block is reused for 2*bs*n flops
-// per n-panel, so in float32 it is bound by the CUDA cores' FMA rate
-// (67 TFLOP/s; no tensor cores, IEEE float32 as the reference), in bf16 by
-// the bytes of the stored blocks.  The design answers the first with an
-// 8x4 (or 4x4) register tile per thread and float4 shared-memory reads.
-// Not done yet: wgmma/tensor cores, TMA, a pipelined ring of slabs and a
-// persistent schedule.
+// * float32 (and bf16 at block sizes that are not a multiple of 16): SIMT
+//   FMA, a TM x TN = 8 x 8 register tile per thread on a BM x 128 unit tile
+//   (BM 128 at bs > 64, 64 at bs > 32; narrower for the tests' small
+//   blocks), 16-deep slabs.  A thread's rows are interleaved (ty + TY*i) and
+//   read 4 k at a time, its columns are two runs of 4 (tx*4, 64 + tx*4): 16
+//   FMA per LDS.128, against B2's 4 x 8 tile's ~10.7.  Registers are capped
+//   at 128 a thread (__launch_bounds__ with 512 threads an SM at the least):
+//   uncapped, the BM 64 tile took 255 and ran slower (PERF.md).
+// * bf16 with bs % 16 == 0: tensor cores, mma.sync m16n8k16 (bf16 in,
+//   float32 accumulate) fed by ldmatrix (.trans for B), warp tiles of
+//   64 x 32 (fragment code shared with bsr_pair.cu, mma_fragments.cuh),
+//   64-deep slabs and two thread blocks an SM (the BM 128 tile capped at
+//   128 registers), which beat 32-deep slabs at one block an SM (PERF.md).
+// * A fresh output is written once: the real sums, zeros on unvisited block-
+//   rows.  With `accumulate` each visited element becomes C + sum, read and
+//   written once (the ring's later steps add into C in place), the sum
+//   rounded to the output type first: float32 C + s; bf16 bf16(C + bf16(s)),
+//   the reference's two roundings (c + the step's product in C's type).
+// * An optional device counter adds the real blocks each launch multiplied.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared, loaded with
 // ctypes (repro_torch/kernels/loader.py).  Plain C interface; returns the
@@ -40,251 +78,507 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
+
+#include "mma_fragments.cuh"  // cp.async ring, bf16 reads, mma.sync fragments
 
 namespace {
 
+constexpr int BN = 128;          // output columns of a unit (one n-panel)
+constexpr int MAX_CHUNK = 128;   // real blocks of a chunk, at most
+constexpr int PANEL_GROUP = 8;   // n-panels every chunk visits in turn
+constexpr int STAGES = 3;        // slabs in flight in the cp.async ring
+
+struct Params {
+  const void* a;         // A pool: blocks of bs x bs
+  const void* b;         // B pool [*, K, n]
+  const int* ent;        // [2, n_ent]: A pool slot, block column
+  long long n_ent;
+  const int* chunks;     // [6, n_chunks]: tile, first, end, block-row,
+                         // part (-1: store C), B tile
+  long long n_chunks;
+  void* out;             // [T, nbr * bs, n] in the output type
+  float* partial;        // [parts, bs, n]
+  unsigned long long* count;
+  int bs, nbr, K, n, accumulate;
+  int row_parts, n_panels;
+  int vec_a, vec_b;      // 16-byte copies of A rows / B rows
+};
+
+// ---------------------------------------------------------------------------
+// element conversions and stores
+// ---------------------------------------------------------------------------
 template <typename T>
-__device__ __forceinline__ float load_f32(const T* p);
+__device__ __forceinline__ float to_f32(T x);
 template <>
-__device__ __forceinline__ float load_f32<float>(const float* p) {
-  return *p;
-}
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ float load_f32<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float to_f32<bf16>(bf16 x) {
+  return __bfloat162float(x);
 }
 
 template <typename T>
-__device__ __forceinline__ T store_cast(float x);
+__device__ __forceinline__ T from_f32(float x);
 template <>
-__device__ __forceinline__ float store_cast<float>(float x) {
-  return x;
-}
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 store_cast<__nv_bfloat16>(float x) {
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// BM x BN partial per thread block (BM rows of one bs-row block row, BN
-// columns of n), BK-deep slabs, TM x TN outputs per thread.
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    bsr_spmm_chunk_kernel(const T* __restrict__ blocks,
-                          const int* __restrict__ cols,
-                          const int* __restrict__ row_ptr,
-                          const int* __restrict__ chunk_ptr,
-                          const T* __restrict__ dense,
-                          float* __restrict__ partial, int S, int bs, int nbr,
-                          int K, int n, int row_parts, int n_panels,
-                          int max_chunks, int chunk) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 fragment reads");
-  static_assert((BM * BK) % NT == 0 && (BK * BN) % NT == 0,
-                "every thread stages the same number of slab elements");
-  // A slab stored transposed (k-major) so a thread's TM rows are one
-  // contiguous run; +4 keeps rows 16-byte aligned and spreads the banks of
-  // the transposing store.
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
+// The stored value: the sum rounded to T, added to C in T with `add`.
+template <typename T>
+__device__ __forceinline__ T combine(T old, float sum, bool add) {
+  const T s = from_f32<T>(sum);
+  return add ? from_f32<T>(to_f32(old) + to_f32(s)) : s;
+}
 
-  const int tid = threadIdx.x;
-  const int t = blockIdx.z;
-  // blockIdx.x = (chunk, row part, n-panel) with the panel fastest, so the
-  // panels of one chunk run side by side and share its A blocks in L2
-  const long long bx = blockIdx.x;
-  const int panel = static_cast<int>(bx % n_panels);
-  const long long rc = bx / n_panels;
-  const int part = static_cast<int>(rc % row_parts);
-  const int c = static_cast<int>(rc / row_parts);
+template <typename T, int W>
+struct alignas(sizeof(T) * W) Run {
+  T x[W];
+};
 
-  const int* cp = chunk_ptr + static_cast<long long>(t) * (nbr + 1);
-  if (c >= cp[nbr]) return;  // the grid is sized for the most chunks a tile
-                             // can have
-  // the segment r holding chunk c: the last r with cp[r] <= c (every
-  // segment has at least one chunk, so cp is strictly increasing)
-  int lo = 0, hi = nbr - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (cp[mid] <= c) lo = mid; else hi = mid - 1;
-  }
-  const int r = lo;
-  const int* seg = row_ptr + static_cast<long long>(t) * (nbr + 1) + r;
-  const int s0 = seg[0] + (c - cp[r]) * chunk;
-  const int s1 = min(seg[1], s0 + chunk);
-
-  const int m0 = part * BM;
-  const int j0 = panel * BN;
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
-  const long long bsq = static_cast<long long>(bs) * bs;
-  const T* tile_blocks = blocks + static_cast<long long>(t) * S * bsq;
-  const int* tile_cols = cols + static_cast<long long>(t) * S;
-  const T* tile_dense = dense + static_cast<long long>(t) * K * n;
-
-  float acc[TM][TN];
+// W consecutive results of row `row` of a unit, from column `col` on: into
+// C (part < 0) or the chunk's float32 partial.  Columns past n are dropped.
+template <typename T, int W>
+__device__ __forceinline__ void emit(const Params& p, int tile, int brow,
+                                     int part, int row, int col,
+                                     const float* v) {
+  if (row >= p.bs || col >= p.n) return;
+  const int cnt = min(W, p.n - col);
+  if (part >= 0) {
+    float* o = p.partial +
+               (static_cast<long long>(part) * p.bs + row) * p.n + col;
+    if (cnt == W && reinterpret_cast<uintptr_t>(o) % sizeof(Run<float, W>)
+                        == 0) {
+      Run<float, W> r;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int s = s0; s < s1; ++s) {
-    const T* a = tile_blocks + s * bsq;
-    const T* b = tile_dense + static_cast<long long>(tile_cols[s]) * bs * n;
-    for (int k0 = 0; k0 < bs; k0 += BK) {
-#pragma unroll
-      for (int it = 0; it < BM * BK / NT; ++it) {
-        const int e = tid + it * NT;
-        const int m = e / BK, k = e % BK;
-        const int gm = m0 + m, gk = k0 + k;
-        As[k][m] = (gm < bs && gk < bs)
-                       ? load_f32(a + static_cast<long long>(gm) * bs + gk)
-                       : 0.f;
-      }
-#pragma unroll
-      for (int it = 0; it < BK * BN / NT; ++it) {
-        const int e = tid + it * NT;
-        const int k = e / BN, j = e % BN;
-        const int gk = k0 + k, gj = j0 + j;
-        Bs[k][j] = (gk < bs && gj < n)
-                       ? load_f32(b + static_cast<long long>(gk) * n + gj)
-                       : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        float af[TM], bf[TN];
-#pragma unroll
-        for (int i = 0; i < TM; i += 4) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(&As[k][ty * TM + i]);
-          af[i] = v.x; af[i + 1] = v.y; af[i + 2] = v.z; af[i + 3] = v.w;
-        }
-#pragma unroll
-        for (int j = 0; j < TN; j += 4) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(&Bs[k][tx * TN + j]);
-          bf[j] = v.x; bf[j + 1] = v.y; bf[j + 2] = v.z; bf[j + 3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(af[i], bf[j], acc[i][j]);
-      }
-      __syncthreads();
+      for (int j = 0; j < W; ++j) r.x[j] = v[j];
+      *reinterpret_cast<Run<float, W>*>(o) = r;
+    } else {
+      for (int j = 0; j < cnt; ++j) o[j] = v[j];
     }
+    return;
   }
+  T* o = static_cast<T*>(p.out) +
+         ((static_cast<long long>(tile) * p.nbr + brow) * p.bs + row) * p.n +
+         col;
+  const bool add = p.accumulate != 0;
+  if (cnt == W && reinterpret_cast<uintptr_t>(o) % sizeof(Run<T, W>) == 0) {
+    Run<T, W> r;
+    if (add) r = *reinterpret_cast<const Run<T, W>*>(o);
+#pragma unroll
+    for (int j = 0; j < W; ++j) r.x[j] = combine<T>(r.x[j], v[j], add);
+    *reinterpret_cast<Run<T, W>*>(o) = r;
+  } else {
+    for (int j = 0; j < cnt; ++j) o[j] = combine<T>(o[j], v[j], add);
+  }
+}
 
-  // one store per partial element; an empty chunk stores zeros
-  float* p = partial +
-             (static_cast<long long>(t) * max_chunks + c) * bs * n;
+// ---------------------------------------------------------------------------
+// staging: an R x C window of a row-major source into shared memory
+// ---------------------------------------------------------------------------
+// Rows [0, rows) and columns [0, cols) of `src` (row stride ld) land at
+// dst[r * LDS + c]; the rest of the R x C window is zero.  With `vec` (row
+// bytes and base a multiple of 16) 16-byte cp.async copies, else one
+// element a copy (4-byte cp.async for float32, a plain copy for bf16).
+template <typename T, int R, int C, int LDS, int THREADS>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld,
+                                           int rows, int cols, bool vec,
+                                           int tid) {
+  if (vec) {
+    constexpr int E = 16 / static_cast<int>(sizeof(T));
+    constexpr int CPR = C / E;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= bs) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gj = j0 + tx * TN + j;
-      if (gj < n) p[static_cast<long long>(gm) * n + gj] = acc[i][j];
+    for (int i = tid; i < R * CPR; i += THREADS) {
+      const int r = i / CPR, c = (i % CPR) * E;
+      T* d = dst + r * LDS + c;
+      if (r < rows && c < cols)
+        copy_async<16>(d, src + r * ld + c);
+      else
+        zero_vec<16>(d);
+    }
+  } else {
+    constexpr int VE = static_cast<int>(sizeof(T));
+    for (int i = tid; i < R * C; i += THREADS) {
+      const int r = i / C, c = i % C;
+      T* d = dst + r * LDS + c;
+      if (r < rows && c < cols)
+        copy_async<VE>(d, src + r * ld + c);
+      else
+        zero_vec<VE>(d);
     }
   }
 }
 
-// out[t, r*bs:(r+1)*bs, :] = sum of segment r's chunk partials, in order
+// ---------------------------------------------------------------------------
+// the two multiply variants
+// ---------------------------------------------------------------------------
+// SIMT (CUDA cores, float32 FMA; bf16 widened as it is read): thread (ty,
+// tx) owns rows ty + TY*i (i < TM) and columns q*TX*4 + tx*4 + j (q < TN/4,
+// j < 4) of the BM x BN unit tile.
+template <typename T, int BM_, int TM, int TN>
+struct Simt {
+  using Elem = T;
+  static constexpr int BM = BM_, BK = 16;
+  static constexpr int PAD = 16 / static_cast<int>(sizeof(T));
+  static constexpr int LDA = BK + PAD, LDB = BN + PAD;
+  static constexpr int TY = BM / TM, TX = BN / TN, THREADS = TY * TX;
+  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;
+  static_assert(TN % 4 == 0 && BM % TM == 0 && BN % TN == 0, "tile shape");
+  // thread blocks resident on an SM at the least: 512 threads, so each
+  // thread keeps at most 128 registers (2 blocks of 256 threads, 4 of 128)
+  static constexpr int MINB = 512 / THREADS;
+  float acc[TM][TN];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+
+  __device__ __forceinline__ void mma(const T* As, const T* Bs, int tid) {
+    const int ty = tid / TX, tx = tid % TX;
+#pragma unroll
+    for (int k = 0; k < BK; k += 4) {
+      float a[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) load_n<4>(As + (ty + TY * i) * LDA + k, a[i]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[TN];
+#pragma unroll
+        for (int q = 0; q < TN / 4; ++q)
+          load_n<4>(Bs + (k + kk) * LDB + q * TX * 4 + tx * 4, b + 4 * q);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Params& p, int tile, int brow,
+                                        int part, int m0, int n0,
+                                        int tid) const {
+    const int ty = tid / TX, tx = tid % TX;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q)
+        emit<T, 4>(p, tile, brow, part, m0 + ty + TY * i,
+                   n0 + q * TX * 4 + tx * 4, &acc[i][4 * q]);
+  }
+};
+
+// Tensor cores (bf16 in, float32 accumulate): WARPS_M x 4 warps, each a WM
+// x 32 warp tile of m16n8k16 products over 64-deep slabs (32-deep below BM
+// 64, whose blocks are no deeper), two thread blocks an SM.
+template <int BM_>
+struct Mma {
+  using Elem = bf16;
+  static constexpr int BM = BM_, BK = BM_ >= 64 ? 64 : 32, MINB = 2;
+  static constexpr int WM = BM < 64 ? BM : 64, WN = 32;
+  static constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int LDA = BK + 8, LDB = BN + 8;
+  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;
+  float acc[MT][NT][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+
+  __device__ __forceinline__ void mma(const bf16* As, const bf16* Bs,
+                                      int tid) {
+    const int warp = tid >> 5, lane = tid & 31;
+    const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16)
+      mma_k16<MT, NT>(acc, As + wm * WM * LDA + ks, LDA,
+                      Bs + ks * LDB + wn * WN, LDB, lane);
+  }
+
+  __device__ __forceinline__ void store(const Params& p, int tile, int brow,
+                                        int part, int m0, int n0,
+                                        int tid) const {
+    const int warp = tid >> 5, lane = tid & 31;
+    const int r0 = m0 + (warp / WARPS_N) * WM, c0 = n0 + (warp % WARPS_N) * WN;
+    mma_for_each_pair<MT, NT>(acc, lane, [&](int r, int c, float v0,
+                                             float v1) {
+      const float v[2] = {v0, v1};
+      emit<bf16, 2>(p, tile, brow, part, r0 + r, c0 + c, v);
+    });
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the unit kernel
+// ---------------------------------------------------------------------------
+// Unit u -> (chunk, row part, n-panel): panel groups of PANEL_GROUP panels
+// in order; inside a group, (chunk, row part) in table order with the
+// group's panels of one chunk side by side (they share its A blocks).
+struct Unit {
+  int chunk, rp, panel;
+};
+
+__device__ __forceinline__ Unit unit_of(const Params& p, long long u) {
+  const long long rows = p.n_chunks * p.row_parts;
+  const long long per_group = rows * PANEL_GROUP;
+  const int group = static_cast<int>(u / per_group);
+  const int first = group * PANEL_GROUP;
+  const int w = min(PANEL_GROUP, p.n_panels - first);
+  const long long r = u - group * per_group;
+  const long long cr = r / w;
+  Unit x;
+  x.panel = first + static_cast<int>(r % w);
+  x.chunk = static_cast<int>(cr / p.row_parts);
+  x.rp = static_cast<int>(cr % p.row_parts);
+  return x;
+}
+
+template <class Op>
+__global__ void __launch_bounds__(Op::THREADS, Op::MINB)
+    spmm_kernel(const Params p) {
+  using T = typename Op::Elem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_slot[MAX_CHUNK];
+  __shared__ int s_col[MAX_CHUNK];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x;
+  const Unit u = unit_of(p, blockIdx.x);
+  const long long nc = p.n_chunks;
+  const int tile = p.chunks[u.chunk];
+  const int first = p.chunks[nc + u.chunk];
+  const int len = p.chunks[2 * nc + u.chunk] - first;
+  const int brow = p.chunks[3 * nc + u.chunk];
+  const int part = p.chunks[4 * nc + u.chunk];
+  const int btile = p.chunks[5 * nc + u.chunk];
+  for (int e = tid; e < len; e += Op::THREADS) {
+    s_slot[e] = p.ent[first + e];
+    s_col[e] = p.ent[p.n_ent + first + e];
+  }
+  __syncthreads();
+
+  const int m0 = u.rp * Op::BM, n0 = u.panel * BN;
+  const int nk = (p.bs + Op::BK - 1) / Op::BK;
+  const int total = len * nk;            // slabs of this unit
+  const long long bsq = static_cast<long long>(p.bs) * p.bs;
+  const T* A = static_cast<const T*>(p.a) + static_cast<long long>(m0) * p.bs;
+  const T* B = static_cast<const T*>(p.b) +
+               static_cast<long long>(btile) * p.K * p.n + n0;
+  const int a_rows = min(Op::BM, p.bs - m0);
+  const int b_cols = min(BN, p.n - n0);
+  const bool va = p.vec_a != 0, vb = p.vec_b != 0;
+
+  auto load = [&](int i, int s) {        // slab i into stage s
+    const int e = i / nk, k0 = (i % nk) * Op::BK;
+    const int kv = min(Op::BK, p.bs - k0);
+    T* st = ring + s * Op::STAGE;
+    stage_tile<T, Op::BM, Op::BK, Op::LDA, Op::THREADS>(
+        st, A + s_slot[e] * bsq + k0, p.bs, a_rows, kv, va, tid);
+    stage_tile<T, Op::BK, BN, Op::LDB, Op::THREADS>(
+        st + Op::A_ELEMS,
+        B + (static_cast<long long>(s_col[e]) * p.bs + k0) * p.n, p.n, kv,
+        b_cols, vb, tid);
+  };
+
+  Op op;
+  op.zero();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load(s, s);
+    cp_commit();
+  }
+  for (int i = 0; i < total; ++i) {
+    cp_wait<STAGES - 2>();   // this thread's copies of slab i landed
+    __syncthreads();         // ... and every thread's; stage (i-1) is free
+    const int next = i + STAGES - 1;
+    if (next < total) load(next, next % STAGES);
+    cp_commit();
+    const T* st = ring + (i % STAGES) * Op::STAGE;
+    op.mma(st, st + Op::A_ELEMS, tid);
+  }
+  cp_wait<0>();
+  if (p.count != nullptr && tid == 0 && u.rp == 0 && u.panel == 0)
+    atomicAdd(p.count, static_cast<unsigned long long>(len));
+  op.store(p, tile, brow, part, m0, n0, tid);
+}
+
+// C[tile, block-row] (+)= the segment's partials, summed in chunk order.
+// reduce rows are (tile, block-row, first part, parts); blockIdx.y walks
+// the rows, blockIdx.x the bs * n elements.
 template <typename T>
 __global__ void __launch_bounds__(256)
-    bsr_spmm_reduce_kernel(const float* __restrict__ partial,
-                           const int* __restrict__ chunk_ptr,
-                           T* __restrict__ out, int bs, int nbr, int n,
-                           int max_chunks) {
+    spmm_reduce_kernel(const float* __restrict__ partial,
+                       const int* __restrict__ reduce, long long n_reduce,
+                       T* __restrict__ out, int bs, int nbr, int n,
+                       int accumulate) {
   const long long elems = static_cast<long long>(bs) * n;
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (e >= elems) return;
-  const int r = blockIdx.y;
-  const int t = blockIdx.z;
-  const int* cp = chunk_ptr + static_cast<long long>(t) * (nbr + 1);
-  const float* p = partial + static_cast<long long>(t) * max_chunks * elems;
-  float sum = 0.f;
-  for (int c = cp[r]; c < cp[r + 1]; ++c) sum += p[c * elems + e];
-  out[(static_cast<long long>(t) * nbr + r) * elems + e] = store_cast<T>(sum);
+  for (long long r = blockIdx.y; r < n_reduce; r += gridDim.y) {
+    const int t = reduce[r];
+    const int brow = reduce[n_reduce + r];
+    const long long first = reduce[2 * n_reduce + r];
+    const int parts = reduce[3 * n_reduce + r];
+    const float* src = partial + first * elems + e;
+    float sum = 0.f;
+    for (int c = 0; c < parts; ++c) sum += src[c * elems];
+    T* o = out + (static_cast<long long>(t) * nbr + brow) * elems + e;
+    *o = combine<T>(*o, sum, accumulate != 0);
+  }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-cudaError_t launch(const void* blocks, const void* cols, const void* row_ptr,
-                   const void* chunk_ptr, const void* dense, void* partial,
-                   void* out, int T_, int S, int bs, int nbr, int K, int n,
-                   int max_chunks, int chunk, cudaStream_t stream) {
-  const int row_parts = (bs + BM - 1) / BM;
-  const int n_panels = (n + BN - 1) / BN;
-  const long long nx =
-      static_cast<long long>(max_chunks) * row_parts * n_panels;
+// Zero the block-rows that no real block visits (a fresh output only): one
+// thread block per fill row (tile, block-row).
+template <typename T>
+__global__ void __launch_bounds__(256)
+    spmm_fill_kernel(const int* __restrict__ fill, long long n_fill,
+                     T* __restrict__ out, int bs, int nbr, int n) {
+  const long long f = blockIdx.x;
+  const int t = fill[f];
+  const int brow = fill[n_fill + f];
   const long long elems = static_cast<long long>(bs) * n;
-  const long long rx = (elems + 255) / 256;
-  if (nx > INT_MAX || rx > INT_MAX || T_ > 65535 || nbr > 65535)
-    return cudaErrorInvalidConfiguration;
-  bsr_spmm_chunk_kernel<T, BM, BN, BK, TM, TN>
-      <<<dim3(static_cast<unsigned>(nx), 1, T_), (BM / TM) * (BN / TN), 0,
-         stream>>>(static_cast<const T*>(blocks),
-                   static_cast<const int*>(cols),
-                   static_cast<const int*>(row_ptr),
-                   static_cast<const int*>(chunk_ptr),
-                   static_cast<const T*>(dense),
-                   static_cast<float*>(partial), S, bs, nbr, K, n, row_parts,
-                   n_panels, max_chunks, chunk);
-  cudaError_t err = cudaGetLastError();
+  T* o = out + (static_cast<long long>(t) * nbr + brow) * elems;
+  const long long bytes = elems * static_cast<long long>(sizeof(T));
+  if (bytes % 16 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0) {
+    uint4* o4 = reinterpret_cast<uint4*>(o);
+    for (long long e = threadIdx.x; e < bytes / 16; e += blockDim.x)
+      o4[e] = make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    for (long long e = threadIdx.x; e < elems; e += blockDim.x)
+      o[e] = from_f32<T>(0.f);
+  }
+}
+
+template <class Op>
+cudaError_t launch_units(Params& p, cudaStream_t stream) {
+  p.row_parts = (p.bs + Op::BM - 1) / Op::BM;
+  const long long units = p.n_chunks * p.row_parts * p.n_panels;
+  if (units > INT_MAX) return cudaErrorInvalidConfiguration;
+  auto kern = spmm_kernel<Op>;
+  const int smem = STAGES * Op::STAGE *
+                   static_cast<int>(sizeof(typename Op::Elem));
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  bsr_spmm_reduce_kernel<T>
-      <<<dim3(static_cast<unsigned>(rx), nbr, T_), 256, 0, stream>>>(
-          static_cast<const float*>(partial),
-          static_cast<const int*>(chunk_ptr), static_cast<T*>(out), bs, nbr,
-          n, max_chunks);
+  kern<<<static_cast<unsigned>(units), Op::THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// 1: tensor cores (bf16, bs a multiple of 16); 0: the SIMT variant
+int path_of(int bs, int dtype) { return dtype == 1 && bs % 16 == 0 ? 1 : 0; }
+
 template <typename T>
-cudaError_t dispatch(const void* blocks, const void* cols, const void* row_ptr,
-                     const void* chunk_ptr, const void* dense, void* partial,
-                     void* out, int T_, int S, int bs, int nbr, int K, int n,
-                     int max_chunks, int chunk, cudaStream_t stream) {
-  if (bs > 64)
-    return launch<T, 128, 64, 16, 8, 4>(blocks, cols, row_ptr, chunk_ptr,
-                                        dense, partial, out, T_, S, bs, nbr,
-                                        K, n, max_chunks, chunk, stream);
-  if (bs > 32)
-    return launch<T, 64, 64, 16, 4, 4>(blocks, cols, row_ptr, chunk_ptr,
-                                       dense, partial, out, T_, S, bs, nbr, K,
-                                       n, max_chunks, chunk, stream);
-  return launch<T, 32, 64, 16, 4, 4>(blocks, cols, row_ptr, chunk_ptr, dense,
-                                     partial, out, T_, S, bs, nbr, K, n,
-                                     max_chunks, chunk, stream);
+cudaError_t dispatch(Params& p, int dtype, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    if (path_of(p.bs, dtype) == 1) {
+      if (p.bs >= 128) return launch_units<Mma<128>>(p, stream);
+      if (p.bs >= 64) return launch_units<Mma<64>>(p, stream);
+      if (p.bs >= 32) return launch_units<Mma<32>>(p, stream);
+      return launch_units<Mma<16>>(p, stream);
+    }
+  }
+  if (p.bs > 64) return launch_units<Simt<T, 128, 8, 8>>(p, stream);
+  if (p.bs > 32) return launch_units<Simt<T, 64, 8, 8>>(p, stream);
+  if (p.bs > 16) return launch_units<Simt<T, 32, 4, 8>>(p, stream);
+  if (p.bs > 8) return launch_units<Simt<T, 16, 2, 8>>(p, stream);
+  return launch_units<Simt<T, 8, 1, 8>>(p, stream);
+}
+
+template <typename T>
+cudaError_t run(Params& p, const int* reduce, long long n_reduce,
+                const int* fill, long long n_fill, int dtype,
+                cudaStream_t st) {
+  cudaError_t err = cudaSuccess;
+  T* out = static_cast<T*>(p.out);
+  if (!p.accumulate && n_fill > 0) {
+    spmm_fill_kernel<T><<<static_cast<unsigned>(n_fill), 256, 0, st>>>(
+        fill, n_fill, out, p.bs, p.nbr, p.n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (p.n_chunks > 0 && (err = dispatch<T>(p, dtype, st)) != cudaSuccess)
+    return err;
+  if (n_reduce > 0) {
+    const long long elems = static_cast<long long>(p.bs) * p.n;
+    const long long gx = (elems + 255) / 256;
+    if (gx > INT_MAX) return cudaErrorInvalidConfiguration;
+    const unsigned gy =
+        static_cast<unsigned>(n_reduce < 65535 ? n_reduce : 65535);
+    spmm_reduce_kernel<T><<<dim3(static_cast<unsigned>(gx), gy), 256, 0,
+                            st>>>(p.partial, reduce, n_reduce, out, p.bs,
+                                  p.nbr, p.n, p.accumulate);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (blocks, dense and out all of it).
-// blocks [T, S, bs, bs], cols int32 [T, S], row_ptr and chunk_ptr int32
-// [T, nbr + 1], dense [T, K, n], partial float32 [T, max_chunks, bs, n]
-// (workspace), out [T, nbr * bs, n]; all contiguous on one device.
-extern "C" int bsr_spmm_launch(const void* blocks, const void* cols,
-                               const void* row_ptr, const void* chunk_ptr,
-                               const void* dense, void* partial, void* out,
-                               int T_, int S, int bs, int nbr, int K, int n,
-                               int max_chunks, int chunk, int dtype,
-                               void* stream) {
-  if (T_ <= 0 || S < 0 || bs <= 0 || nbr <= 0 || K < 0 || n <= 0 ||
-      K % bs != 0 || chunk <= 0 || max_chunks < nbr)
+// Which multiply a launch of this block size and type runs: 1 = tensor
+// cores (mma.sync m16n8k16), 0 = CUDA cores (SIMT float32 FMA).
+extern "C" int bsr_spmm_path(int bs, int dtype) { return path_of(bs, dtype); }
+
+// dtype: 0 = float32, 1 = bfloat16 (a, b and out all of it; partial is
+// float32).  a: the A pool, bs x bs blocks; b: the B pool [*, K, n]; ent
+// int32 [2, n_ent] (A pool slot, block column of each real block, chunk by
+// chunk); chunks int32 [6, n_chunks] (tile, first, end into ent, block-row,
+// part or -1, B tile), each at most 128 blocks; reduce int32 [4, n_reduce]
+// (tile, block-row, first part, parts); fill int32 [2, n_fill] (tile,
+// block-row), zeroed unless accumulate; partial float32 [parts, bs, n]
+// (workspace); out [T, nbr * bs, n]; count uint64 [1] or null: the blocks
+// multiplied are added to it.  All contiguous on one device.  accumulate
+// != 0 adds into out in place, touching only the block-rows the chunks name.
+extern "C" int bsr_spmm_launch(const void* a, const void* b, const void* ent,
+                               long long n_ent, const void* chunks,
+                               long long n_chunks, const void* reduce,
+                               long long n_reduce, const void* fill,
+                               long long n_fill, void* partial, void* out,
+                               void* count, int bs, int nbr, int K, int n,
+                               int accumulate, int dtype, void* stream) {
+  if (bs <= 0 || nbr <= 0 || K <= 0 || n <= 0 || K % bs != 0 ||
+      n_ent < 0 || n_chunks < 0 || n_reduce < 0 || n_fill < 0 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n_ent > INT_MAX || n_chunks > INT_MAX || n_fill > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int elem = dtype == 0 ? 4 : 2;
+  Params p;
+  p.a = a;
+  p.b = b;
+  p.ent = static_cast<const int*>(ent);
+  p.n_ent = n_ent;
+  p.chunks = static_cast<const int*>(chunks);
+  p.n_chunks = n_chunks;
+  p.out = out;
+  p.partial = static_cast<float*>(partial);
+  p.count = static_cast<unsigned long long*>(count);
+  p.bs = bs;
+  p.nbr = nbr;
+  p.K = K;
+  p.n = n;
+  p.accumulate = accumulate;
+  p.row_parts = 1;
+  p.n_panels = (n + BN - 1) / BN;
+  p.vec_a = (bs * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  p.vec_b = (n * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(blocks, cols, row_ptr, chunk_ptr, dense, partial,
-                          out, T_, S, bs, nbr, K, n, max_chunks, chunk, st);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(blocks, cols, row_ptr, chunk_ptr, dense,
-                                  partial, out, T_, S, bs, nbr, K, n,
-                                  max_chunks, chunk, st);
-  else
-    err = cudaErrorInvalidValue;
+  const int* red = static_cast<const int*>(reduce);
+  const int* fil = static_cast<const int*>(fill);
+  const cudaError_t err =
+      dtype == 0 ? run<float>(p, red, n_reduce, fil, n_fill, dtype, st)
+                 : run<bf16>(p, red, n_reduce, fil, n_fill, dtype, st);
   return static_cast<int>(err);
 }

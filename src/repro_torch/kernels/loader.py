@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and bound with ``ctypes``.  The
-library goes into ``build/`` beside this file (listed in ``.gitignore``),
-named after a hash of its source and flags, at first use; nothing is built
+Each source under ``csrc/`` (with the shared ``csrc/*.cuh`` headers it
+includes) is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface and bound with ``ctypes``.  The library goes into
+``build/`` beside this file (listed in ``.gitignore``), named after a hash
+of its source, the headers and the flags, at first use; nothing is built
 at import time.
 """
 from __future__ import annotations
@@ -28,9 +29,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of each source: name -> (argtypes, restype)
 _SIGNATURES = {
     "bsr_spmm": {
-        # blocks, cols, row_ptr, chunk_ptr, dense, partial, out,
-        # T, S, bs, nbr, K, n, max_chunks, chunk, dtype, stream
-        "bsr_spmm_launch": ([_P] * 7 + [_I] * 9 + [_P], _I),
+        # a, b, ent, n_ent, chunks, n_chunks, reduce, n_reduce, fill,
+        # n_fill, partial, out, count, bs, nbr, K, n, accumulate, dtype,
+        # stream
+        "bsr_spmm_launch": ([_P, _P, _P, _L, _P, _L, _P, _L, _P, _L, _P, _P,
+                             _P] + [_I] * 6 + [_P], _I),
+        # bs, dtype -> 1 tensor cores, 0 SIMT
+        "bsr_spmm_path": ([_I, _I], _I),
     },
     "bsr_pair": {
         # a, b, pa, pb, pidx, chunks, n_chunks, reduce, n_reduce, fill,
@@ -60,10 +65,14 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Tuple[Path, Path]:
+    """The source and its library, named after a hash of the source, the
+    shared headers under ``csrc/`` and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

@@ -22,10 +22,10 @@ import torch
 from . import ref as _ref
 from .bsr_pair import (PairTable, _host, bsr_pair_accumulate_cuda,
                        bsr_pair_matmul_cuda, pair_table)
-from .bsr_spmm import bsr_spmm_cuda
+from .bsr_spmm import SpmmTable, bsr_spmm_cuda, spmm_table
 
 __all__ = ["IMPLS", "default_impl", "bsr_spmm", "bsr_spmm_raw",
-           "augment_coverage", "match_block_pairs", "build_pair_lists",
+           "match_block_pairs", "build_pair_lists",
            "bsr_pair_matmul", "bsr_pair_accumulate", "densify",
            "densify_packed"]
 
@@ -50,57 +50,84 @@ def _resolve(impl: Optional[str], x: torch.Tensor) -> str:
 
 
 def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
-                 impl: Optional[str] = None,
-                 augment: bool = True) -> torch.Tensor:
+                 impl: Optional[str] = None, augment: bool = True,
+                 a_map=None, b_map=None, gidx=None,
+                 table: Optional[SpmmTable] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C = BSR(blocks, rows, cols) @ dense, for one tile or a batch.
 
-    ``augment=False`` asserts that the arrays are already coverage-augmented
-    and row-sorted (the :class:`~repro_torch.core.bsr.TiledBSR` storage
-    contract), as the ring bodies pass them; ``augment=True`` merges one
-    zero block per block-row into each list with a stable sort by row,
-    which also sorts rows as the kernel requires.
+    Batched, ``blocks [P, S, bs, bs]`` and ``dense [TB, K, n]`` are pools
+    that output tile ``t`` reads in place through host tile maps: A tile
+    ``a_map[t]`` and B tile ``b_map[t]`` (both the identity by default).
+    Without ``gidx``, ``rows`` and ``cols`` are ``[P, S]``, each pool
+    tile's list; with ``gidx [T, L]`` (the packed wire's consume lists)
+    they are ``[T, L]`` too, and entry ``e`` of output tile ``t`` is block
+    ``gidx[t, e]`` of pool tile ``a_map[t]``.  Lists need not be sorted or
+    cover every block-row.  ``augment`` stays for the JAX package's
+    signature: neither path needs coverage blocks (the plain version sums
+    into zeros, the kernel zero-fills block-rows no block visits).
+
+    ``out`` (the result's shape and type) is a carry: the product is added
+    into it in place and ``out`` is returned (the JAX bodies' ``c + step``,
+    the step rounded to C's type first).  ``table`` (kernel only) is the
+    :func:`~repro_torch.kernels.bsr_spmm.spmm_table` of these lists at
+    these maps; plans pass theirs, over real blocks only.  Built here when
+    not given, every listed block counts as real.
     """
     impl = _resolve(impl, dense)
-    bs = blocks.shape[-1]
-    n = dense.shape[-1]
-    if n == 0:  # half-panel schedules can give empty panels at tiny widths
-        return dense.new_zeros(
-            (*dense.shape[:-2], n_block_rows * bs, 0),
-            dtype=torch.promote_types(blocks.dtype, dense.dtype))
-    if impl == "ref":
-        return _ref.bsr_spmm_raw_ref(blocks, rows, cols, dense, n_block_rows)
     single = blocks.dim() == 3
     if single:
         blocks, rows, cols, dense = (blocks[None], rows[None], cols[None],
                                      dense[None])
-    if augment:
-        blocks, rows, cols = augment_coverage(blocks, rows, cols,
-                                              n_block_rows)
-    out = bsr_spmm_cuda(blocks.contiguous(), rows.contiguous(),
-                        cols.contiguous(), dense.contiguous(),
-                        n_block_rows=n_block_rows)
-    return out[0] if single else out
+        gidx = None if gidx is None else gidx[None]
+        out = None if out is None else out[None]
+    n_out = len(a_map) if a_map is not None else \
+        gidx.shape[0] if gidx is not None else blocks.shape[0]
+    bs, n = blocks.shape[-1], dense.shape[-1]
+    if n == 0:  # half-panel schedules can give empty panels at tiny widths
+        res = dense.new_zeros(
+            (n_out, n_block_rows * bs, 0),
+            dtype=torch.promote_types(blocks.dtype, dense.dtype))
+    elif impl == "ref":
+        res = _spmm_ref(blocks, rows, cols, dense, n_block_rows, a_map,
+                        b_map, gidx, out)
+    else:
+        if table is None:
+            a_idx = np.arange(n_out) if a_map is None \
+                else _host(a_map).astype(np.int64)
+            s = blocks.shape[1]
+            if gidx is None:
+                slots = np.broadcast_to(np.arange(s), (n_out, s))
+                rows, cols = _host(rows)[a_idx], _host(cols)[a_idx]
+            else:
+                slots = _host(gidx)
+            table = spmm_table(a_idx[:, None] * s + slots, rows, cols,
+                               n_block_rows, b_map=b_map,
+                               device=blocks.device)
+        res = bsr_spmm_cuda(blocks.contiguous(), dense.contiguous(), table,
+                            out=out)
+    return res[0] if single else res
 
 
-def augment_coverage(blocks, rows, cols, n_block_rows: int):
-    """Merge one zero block per block-row into each tile's list.
-
-    Batched counterpart of the JAX package's ``_augment_tile``: a stable
-    sort by row keeps the real blocks in order and puts each coverage block
-    after the real blocks of its row.  Takes and returns ``[T, S, ...]``
-    arrays (``S`` grows by ``n_block_rows``); the result is row-sorted.
-    """
-    t, _, bs, _ = blocks.shape
-    cov = torch.arange(n_block_rows, dtype=rows.dtype,
-                       device=rows.device).expand(t, -1)
-    rows_aug = torch.cat([rows, cov], dim=1)
-    order = torch.argsort(rows_aug, dim=1, stable=True)
-    blocks = torch.cat(
-        [blocks, blocks.new_zeros((t, n_block_rows, bs, bs))], dim=1)
-    blocks = blocks[torch.arange(t, device=order.device)[:, None], order]
-    cols = torch.take_along_dim(
-        torch.cat([cols, torch.zeros_like(cov)], dim=1), order, dim=1)
-    return blocks, torch.take_along_dim(rows_aug, order, dim=1), cols
+def _spmm_ref(blocks, rows, cols, dense, n_block_rows: int, a_map, b_map,
+              gidx, out) -> torch.Tensor:
+    """The plain path: read the pools through the maps (``index_select``),
+    then the plain version, added into ``out`` when given."""
+    dev = blocks.device
+    if a_map is not None:
+        a_idx = torch.as_tensor(_host(a_map), device=dev).long()
+        blocks = blocks.index_select(0, a_idx)
+        if gidx is None:
+            rows, cols = rows.index_select(0, a_idx), cols.index_select(0,
+                                                                        a_idx)
+    if gidx is not None:
+        tile = torch.arange(blocks.shape[0], device=dev)[:, None]
+        blocks = blocks[tile, gidx.long()]
+    if b_map is not None:
+        dense = dense.index_select(
+            0, torch.as_tensor(_host(b_map), device=dev).long())
+    res = _ref.bsr_spmm_raw_ref(blocks, rows, cols, dense, n_block_rows)
+    return res if out is None else out.add_(res)
 
 
 def bsr_spmm(a_bsr, dense, *, impl: Optional[str] = None) -> torch.Tensor:
@@ -284,22 +311,27 @@ def densify(blocks, rows, cols, *, n_block_rows: int,
     return _ref.densify_raw(blocks, rows, cols, n_block_rows, n_block_cols)
 
 
-def densify_packed(blocks, dmap, *, n_block_rows: int,
-                   n_block_cols: int) -> torch.Tensor:
+def densify_packed(blocks, dmap, *, n_block_rows: int, n_block_cols: int,
+                   tile_map=None) -> torch.Tensor:
     """Dense tile(s) from packed wire blocks by a gather.
 
     ``dmap`` maps every dense block position, row-major, to the packed slot
     holding its data or to a guaranteed-zero slot (``core/wire.py``), so
     the scatter of :func:`densify` becomes a gather and a transpose.  One
-    tile (``blocks [wc, bs, bs]``, ``dmap [nbr*nbc]``) or a batch.
+    tile (``blocks [wc, bs, bs]``, ``dmap [nbr*nbc]``) or a batch
+    (``blocks [P, wc, bs, bs]``, ``dmap [T, nbr*nbc]``), where output tile
+    ``t`` reads packed tile ``tile_map[t]`` (an int tensor on the blocks'
+    device; tile ``t`` by default) in place.
     """
     single = blocks.dim() == 3
     if single:
         blocks, dmap = blocks[None], dmap[None]
-    t, _, bs, _ = blocks.shape
-    tile = torch.arange(t, device=blocks.device)[:, None]
-    d = blocks[tile, dmap.long()].reshape(t, n_block_rows, n_block_cols, bs,
-                                          bs)
+    t = dmap.shape[0]
+    bs = blocks.shape[-1]
+    tile = torch.arange(t, device=blocks.device) if tile_map is None \
+        else tile_map.to(blocks.device).long()
+    d = blocks[tile[:, None], dmap.long()].reshape(t, n_block_rows,
+                                                   n_block_cols, bs, bs)
     d = d.permute(0, 1, 3, 2, 4).reshape(t, n_block_rows * bs,
                                          n_block_cols * bs)
     return d[0] if single else d

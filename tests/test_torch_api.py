@@ -31,6 +31,7 @@ import jax.numpy as jnp
 
 from repro.core import api as japi
 from repro.core import dist as jdist
+from repro.kernels import ops as jops
 from repro.runtime.platform import subprocess_env
 from repro_torch.core import api as tapi
 from repro_torch.core.api import DistBSR, DistDense, matmul, plan_matmul
@@ -469,16 +470,34 @@ def test_placements_match_jax(placement, ops):
         a_t.placed("diagonal")
 
 
+def _count_shifts(monkeypatch):
+    """Record the executor's tile-map compositions, its tile rolls and
+    every ``torch.roll``, by axis."""
+    calls = {"maps": [], "shifts": [], "torch.roll": []}
+    shift_map = tapi.StackedExecutor.shift_map
+    monkeypatch.setattr(tapi.StackedExecutor, "shift_map",
+                        lambda self, m, axis, sign=1:
+                        calls["maps"].append(axis)
+                        or shift_map(self, m, axis, sign))
+    shift = tapi.StackedExecutor.shift
+    monkeypatch.setattr(tapi.StackedExecutor, "shift",
+                        lambda self, tree, axis, sign=1:
+                        calls["shifts"].append(axis)
+                        or shift(self, tree, axis, sign))
+    roll = torch.roll
+    monkeypatch.setattr(torch, "roll", lambda *args, **kw:
+                        calls["torch.roll"].append(1) or roll(*args, **kw))
+    return calls
+
+
 @pytest.mark.parametrize("g", [1, 2, 3])
 @pytest.mark.parametrize("overlap", ["on", "off"])
 def test_ring_shifts_each_operand_g_minus_1_times(g, overlap, monkeypatch):
     """No shift is made whose tiles no step consumes: g - 1 per operand and
-    one local multiply per step, in either body."""
-    calls = []
-    shift = tapi.StackedExecutor.shift
-    monkeypatch.setattr(tapi.StackedExecutor, "shift",
-                        lambda self, tree, axis, sign=1: calls.append(axis)
-                        or shift(self, tree, axis, sign))
+    one local multiply per step, in either body.  The dense-output body's
+    shifts are compositions of tile maps and roll nothing; the
+    sparse-output body's roll its tiles."""
+    calls = _count_shifts(monkeypatch)
     local_mm = tapi._local_mm
     steps = []
     monkeypatch.setattr(tapi, "_local_mm", lambda *args: steps.append(1)
@@ -487,9 +506,105 @@ def test_ring_shifts_each_operand_g_minus_1_times(g, overlap, monkeypatch):
     b = np.random.default_rng(g).standard_normal((24, 5)).astype(np.float32)
     a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=CPU)
     got = matmul(a_h, b, overlap=overlap).numpy()
-    assert sorted(calls) == ["col"] * (g - 1) + ["row"] * (g - 1)
+    once = ["col"] * (g - 1) + ["row"] * (g - 1)
+    assert sorted(calls["maps"]) == once
+    assert calls["shifts"] == [] and calls["torch.roll"] == []
     assert len(steps) == g
     np.testing.assert_allclose(got, a_d @ b, rtol=TOL, atol=TOL)
+    calls["maps"].clear()
+    c_h = matmul(a_h, a_h, output="sparse", overlap=overlap)
+    assert sorted(calls["shifts"]) == once and calls["maps"] == []
+    assert len(calls["torch.roll"]) == 2 * (g - 1)    # one "blocks" each
+    np.testing.assert_allclose(c_h.densify().numpy(), a_d @ a_d, rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("wire", ["padded", "packed"])
+def test_dense_bodies_read_the_placed_stacks_in_place(g, wire, monkeypatch):
+    """Every step of the dense-output SpMM hands the local multiply the
+    placed A stack (padded) or packed A buffers (packed) and the placed B
+    stack themselves, with that step's tile maps: no roll and no gather
+    copy of A or of B precede the multiply."""
+    calls = _count_shifts(monkeypatch)
+    seen = []
+    raw = tapi.kops.bsr_spmm_raw
+    monkeypatch.setattr(tapi.kops, "bsr_spmm_raw",
+                        lambda blocks, rows, cols, dense, **kw:
+                        seen.append((blocks, dense, kw)) or
+                        raw(blocks, rows, cols, dense, **kw))
+    a_d = random_sparse(24, 24, 0.3, seed=g)
+    a_d[:8] = 0
+    b = np.random.default_rng(g).standard_normal((24, 5)).astype(np.float32)
+    a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=CPU)
+    b_h = DistDense.for_rhs(b, a_h)
+    got = matmul(a_h, b_h, wire=wire).numpy()
+    np.testing.assert_allclose(got, a_d @ b, rtol=TOL, atol=TOL)
+    assert calls["torch.roll"] == [] and calls["shifts"] == []
+    a_pool = (a_h.packed_wire if wire == "packed" else a_h.placed)(
+        tapi.SKEW_ROWS)["blocks"]
+    b_pool = b_h.placed(tapi.SKEW_COLS)["dense"]
+    ex = tapi.StackedExecutor(g, CPU)
+    a_map = b_map = ex.identity_map()
+    assert len(seen) == g
+    for t, (blocks, dense, kw) in enumerate(seen):
+        if t:
+            a_map = ex.shift_map(a_map, "col")
+            b_map = ex.shift_map(b_map, "row")
+        assert blocks.data_ptr() == a_pool.data_ptr()
+        assert tuple(blocks.shape) == (g * g, *a_pool.shape[2:])
+        assert dense.data_ptr() == b_pool.data_ptr()
+        np.testing.assert_array_equal(kw["a_map"], a_map)
+        np.testing.assert_array_equal(kw["b_map"], b_map)
+        assert (kw["out"] is None) == (t == 0)
+        assert kw["out"] is None or kw["out"] is seen[1][2]["out"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wire", ["padded", "packed"])
+def test_step_0_fresh_then_in_place_equals_c_plus_local(dtype, wire):
+    """The dense-output ring on the port's ops (step 0 fresh, later steps
+    added into C in place) against the JAX package's ``c + local`` at g = 3:
+    float32 within 1e-5; bf16 within 2e-2, each step rounded to bf16 and
+    added in bf16 on both sides."""
+    g, bs = 3, 4
+    a_d = random_sparse(36, 36, 0.3, seed=4)
+    b = np.random.default_rng(4).standard_normal((36, 7)).astype(np.float32)
+    t_dtype, j_dtype = getattr(torch, dtype), getattr(jnp, dtype)
+    a_h = DistBSR.from_dense(a_d, g=g, block_size=bs, dtype=t_dtype,
+                             device=CPU)
+    b_h = DistDense.for_rhs(torch.from_numpy(b).to(t_dtype), a_h)
+    plan = plan_matmul(a_h, b_h, wire=wire)
+    assert plan.wire == wire
+    body, operands = plan._operands(a_h, b_h)
+    c = body(*operands, plan.geom, plan.executor)
+    assert c.dtype == t_dtype
+    # the reference, step by step on the natural tiles: A[i, k] @ B[k, j]
+    # with k = (i + j + step) % g, c + local in the output dtype
+    pa, pb = a_h.placed(tapi.NATURAL), b_h.placed(tapi.NATURAL)
+    ii, jj = np.arange(g)[:, None], np.arange(g)[None, :]
+    want = None
+    for step in range(g):
+        k = (ii + jj + step) % g
+        local = []
+        for i in range(g):
+            for j in range(g):
+                src = (pa["blocks"][i, k[i, j]], pa["rows"][i, k[i, j]],
+                       pa["cols"][i, k[i, j]])
+                src = [jnp.asarray(x.float().numpy()).astype(j_dtype)
+                       if x.is_floating_point() else jnp.asarray(x.numpy())
+                       for x in src]
+                dense = jnp.asarray(pb["dense"][k[i, j], j].float().numpy()
+                                    ).astype(j_dtype)
+                local.append(jops.bsr_spmm_raw(
+                    *src, dense, n_block_rows=a_h.tile_shape[0] // bs,
+                    impl="ref", augment=False))
+        local = jnp.stack(local).reshape(g, g, *local[0].shape)
+        want = local if want is None else want + local
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(c.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
 
 
 def test_plan_refuses_other_shapes(handles):

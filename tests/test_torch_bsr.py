@@ -175,6 +175,41 @@ def test_tiled_from_dense_bit_identical(kind, capacity, g):
     assert port.padded_flop_waste() == pytest.approx(ref.padded_flop_waste())
 
 
+@pytest.mark.parametrize("kind", ["random", "skewed", "empty", "dense"])
+@pytest.mark.parametrize("capacity", [None, "bucket", 40])
+def test_layout_real_slots_are_the_blocks_that_hold_data(kind, capacity):
+    """The real mask read off the storage layout (rows and counts, no block
+    values) is the JAX package's stored data mask, on 2 x 3 tiles of every
+    kind and capacity."""
+    a = _matrix(kind)
+    port = tbsr.TiledBSR.from_dense(a, tgrid.ProcessGrid(2, 3), 4,
+                                    capacity=capacity, device=CPU)
+    ref = jbsr.TiledBSR.from_dense(a, jgrid.ProcessGrid(2, 3), 4,
+                                   capacity=capacity)
+    data = np.abs(_np(ref.blocks)).sum(axis=(3, 4)) != 0
+    np.testing.assert_array_equal(port.real_slots(), data)
+    np.testing.assert_array_equal(port.real_slots().sum(axis=2),
+                                  _np(port.counts))
+
+
+def test_layout_real_slots_of_the_symbolic_layout_and_refusals():
+    """The symbolic phase lays C out the same way: the layout's mask is its
+    predicted real blocks.  A list not laid out so is refused."""
+    from repro_torch.core.symbolic import symbolic_spgemm
+    a = _matrix("skewed")[:40, :40]
+    t = tbsr.TiledBSR.from_dense(a, tgrid.ProcessGrid(2, 2), 4, device=CPU)
+    sym = symbolic_spgemm(t, t)
+    s = sym.store_capacity
+    real = tbsr.layout_real_slots(sym.c_rows.reshape(-1, s),
+                                  sym.c_counts.reshape(-1), sym.tile_nbr)
+    np.testing.assert_array_equal(real.reshape(sym.c_real.shape),
+                                  sym.c_real)
+    with pytest.raises(ValueError, match="row-sorted"):
+        tbsr.layout_real_slots(np.array([[1, 0, 1]]), np.array([1]), 2)
+    with pytest.raises(ValueError, match="storage layout"):
+        tbsr.layout_real_slots(np.array([[0, 0, 1]]), np.array([3]), 2)
+
+
 @pytest.mark.parametrize("balance", ["none", "rows", "cols", "auto"])
 @pytest.mark.parametrize("grid", [(2, 2), (3, 3), (2, 3)])
 def test_tiled_balance_bit_identical(balance, grid):

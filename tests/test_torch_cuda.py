@@ -24,7 +24,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsr_pair import (bsr_pair_accumulate_cuda,
                                           bsr_pair_matmul_cuda, kernel_path,
                                           pair_table)
-from repro_torch.kernels.bsr_spmm import CHUNK, bsr_spmm_cuda
+from repro_torch.kernels.bsr_spmm import CHUNK, bsr_spmm_cuda, spmm_table
+from repro_torch.kernels.bsr_spmm import kernel_path as kernel_path_b1
 
 TOL = 1e-5
 BF16_STEP = 2.0 ** -7
@@ -55,34 +56,113 @@ def abs_product(blocks, rows, cols, dense, nbr: int) -> torch.Tensor:
                                 out_dtype=torch.float32)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bs,n,dtype,capacity", [
-    (4, 37, torch.float32, "bucket"), (8, 70, torch.float32, "bucket"),
-    (16, 129, torch.float32, "bucket"), (64, 37, torch.float32, "bucket"),
-    (128, 64, torch.float32, "bucket"), (192, 70, torch.float32, "bucket"),
-    (8, 37, torch.bfloat16, "bucket"), (64, 129, torch.bfloat16, "bucket"),
-    (128, 256, torch.bfloat16, "bucket"),
-    # capacity padding several chunks long in one block-row
-    (8, 33, torch.float32, 5 * CHUNK), (16, 64, torch.bfloat16, 3 * CHUNK),
-])
-def test_kernel_matches_plain_version(card, bs, n, dtype, capacity):
+def _b1_case(bs: int, n: int, dtype, capacity, device):
+    """Three tiles (one empty) of a TiledBSR, stacked as B1's pool, their
+    stored lists and a B pool of ragged width."""
     m, k = 6 * bs + bs // 2, 3 * 4 * bs
     a = random_sparse(m, k, 0.3, seed=bs)
     a[:, k // 3:2 * k // 3] = 0                 # one empty tile
     t = TiledBSR.from_dense(a, ProcessGrid(1, 3), bs, capacity=capacity,
-                            dtype=dtype, device=card)
+                            dtype=dtype, device=device)
     s, nbr = t.store_capacity, t.tile_shape[0] // bs
     dense = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (3, k // 3, n)).astype(np.float32)).to(card, dtype)
-    args = (t.blocks.reshape(3, s, bs, bs), t.rows.reshape(3, s),
-            t.cols.reshape(3, s), dense)
+        (3, k // 3, n)).astype(np.float32)).to(device, dtype)
+    return (t, (t.blocks.reshape(3, s, bs, bs), t.rows.reshape(3, s),
+                t.cols.reshape(3, s), dense), nbr)
+
+
+def _counted(fn):
+    """``fn()`` with B1's block counter on: (its result, the blocks its
+    launches multiplied, counted on the card)."""
+    counter = torch.zeros(1, dtype=torch.int64, device="cuda")
+    bsr_spmm_cuda.block_counter = counter
+    try:
+        out = fn()
+    finally:
+        bsr_spmm_cuda.block_counter = None
+    torch.cuda.synchronize()
+    return out, int(counter.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n,dtype,capacity", [
+    (4, 37, torch.float32, "bucket"), (8, 70, torch.float32, "bucket"),
+    (16, 129, torch.float32, "bucket"), (24, 45, torch.float32, "bucket"),
+    (64, 37, torch.float32, "bucket"), (128, 64, torch.float32, "bucket"),
+    (192, 70, torch.float32, "bucket"),
+    (8, 37, torch.bfloat16, "bucket"), (16, 45, torch.bfloat16, "bucket"),
+    (24, 70, torch.bfloat16, "bucket"), (64, 129, torch.bfloat16, "bucket"),
+    (128, 256, torch.bfloat16, "bucket"), (192, 70, torch.bfloat16, "bucket"),
+    # capacity padding several chunks long in one block-row: listed as real
+    # (a raw call), that segment takes partials and the reduce pass
+    (8, 33, torch.float32, 5 * CHUNK), (16, 64, torch.bfloat16, 3 * CHUNK),
+])
+def test_kernel_matches_plain_version(card, bs, n, dtype, capacity):
+    t, args, nbr = _b1_case(bs, n, dtype, capacity, card)
     before = bsr_spmm_cuda.launches
-    got = ops.bsr_spmm_raw(*args, n_block_rows=nbr, augment=False)
+    got, multiplied = _counted(lambda: ops.bsr_spmm_raw(
+        *args, n_block_rows=nbr, augment=False))
     assert bsr_spmm_cuda.launches == before + 1
+    assert multiplied == args[0].shape[0] * args[0].shape[1]   # all listed
     want = ref.bsr_spmm_raw_ref(*args, nbr)
     torch.cuda.synchronize()
     assert_close(got, want, abs_product(*args, nbr),
                  BF16_STEP if dtype == torch.bfloat16 else 0.0)
+    assert kernel_path_b1(bs, dtype) == _expected_path(bs, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,dtype", [(8, torch.float32), (64, torch.float32),
+                                      (24, torch.bfloat16),
+                                      (64, torch.bfloat16),
+                                      (128, torch.bfloat16)])
+def test_kernel_multiplies_the_real_blocks_fresh_and_into_c(card, bs, dtype):
+    """With the storage layout's real mask the kernel multiplies the real
+    blocks alone (counted on the card), writes a fresh C equal to the plain
+    version, zero-fills the block-rows no real block visits, and adds a
+    second launch into C in place: C + the sum rounded to C's type first,
+    block-rows no real block visits bit-identical."""
+    t, (blocks, rows, cols, dense), nbr = _b1_case(bs, 45, dtype, "bucket",
+                                                   card)
+    s = blocks.shape[1]
+    real = t.real_slots().reshape(3, s)
+    table = spmm_table(torch.arange(3)[:, None] * s + torch.arange(s), rows,
+                       cols, nbr, real=real, device=card)
+    assert table.real_blocks == int(t.counts.sum()) and table.fill.shape[1]
+    got, multiplied = _counted(lambda: bsr_spmm_cuda(blocks, dense, table))
+    assert multiplied == table.real_blocks
+    want = ref.bsr_spmm_raw_ref(blocks, rows, cols, dense, nbr)
+    scale = abs_product(blocks, rows, cols, dense, nbr)
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    assert_close(got, want, scale, step)
+    for tile, row in table.fill.T.tolist():
+        assert not got[tile, row * bs:(row + 1) * bs].any()
+    carry = got.clone()
+    again = bsr_spmm_cuda(blocks, dense, table, out=got)
+    assert again is got
+    torch.cuda.synchronize()
+    want_c = (carry.float() + want.float()).to(dtype)
+    assert_close(got, want_c, 2 * scale, 2 * step)
+    for tile, row in table.fill.T.tolist():
+        assert torch.equal(got[tile, row * bs:(row + 1) * bs],
+                           carry[tile, row * bs:(row + 1) * bs])
+
+
+@pytest.mark.cuda
+def test_kernel_reads_pools_through_the_maps(card):
+    """Output tile t multiplies pool tile a_map[t] by B tile b_map[t], read
+    in place: a permuted ring step equals the plain version on gathered
+    copies."""
+    _, (blocks, rows, cols, dense), nbr = _b1_case(16, 40, torch.float32,
+                                                   "bucket", card)
+    a_map, b_map = np.array([2, 0, 1]), np.array([1, 2, 0])
+    got = ops.bsr_spmm_raw(blocks, rows, cols, dense, n_block_rows=nbr,
+                           a_map=a_map, b_map=b_map)
+    ai, bi = torch.as_tensor(a_map, device=card), torch.as_tensor(b_map,
+                                                                  device=card)
+    args = (blocks[ai], rows[ai], cols[ai], dense[bi])
+    assert_close(got, ref.bsr_spmm_raw_ref(*args, nbr),
+                 abs_product(*args, nbr))
 
 
 @pytest.mark.cuda
@@ -99,6 +179,7 @@ def test_kernel_augments_unsorted_lists_and_mixed_types(card):
     got = ops.bsr_spmm_raw(blocks, rows, cols, dense, n_block_rows=nbr,
                            impl="cuda")
     assert got.dtype == torch.float32
+    assert not got[3 * bs:4 * bs].any()
     assert_close(got, ref.bsr_spmm_raw_ref(blocks, rows, cols, dense, nbr),
                  abs_product(blocks, rows, cols, dense, nbr))
 
@@ -106,20 +187,33 @@ def test_kernel_augments_unsorted_lists_and_mixed_types(card):
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(card):
     blocks = torch.zeros((1, 2, 4, 4), device=card, dtype=torch.float16)
-    rows = torch.zeros((1, 2), dtype=torch.int32, device=card)
+    rows = torch.zeros((1, 2), dtype=torch.int32)
     dense = torch.zeros((1, 8, 3), device=card, dtype=torch.float16)
+    table = spmm_table(torch.arange(2)[None], rows, rows, 1, device=card)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        bsr_spmm_cuda(blocks, rows, rows, dense, n_block_rows=1)
-    with pytest.raises(ValueError, match="int32"):
-        bsr_spmm_cuda(blocks.float(), rows.long(), rows, dense.float(),
-                      n_block_rows=1)
+        bsr_spmm_cuda(blocks, dense, table)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        bsr_spmm_cuda(blocks.float(), dense.float(),
+                      spmm_table(torch.arange(2)[None], rows, rows, 1))
     with pytest.raises(ValueError, match="K a multiple"):
-        bsr_spmm_cuda(blocks.float(), rows, rows, dense[:, :6].float(),
-                      n_block_rows=1)
+        bsr_spmm_cuda(blocks.float(), dense[:, :6].float(), table)
     with pytest.raises(ValueError, match="contiguous"):
-        bsr_spmm_cuda(blocks.float(), rows, rows,
+        bsr_spmm_cuda(blocks.float(),
                       torch.zeros((1, 3, 8), device=card).transpose(1, 2),
-                      n_block_rows=1)
+                      table)
+    with pytest.raises(ValueError, match="reaches past"):
+        bsr_spmm_cuda(blocks[:, :1].float(), dense.float(), table)
+    with pytest.raises(ValueError, match="adds into"):
+        bsr_spmm_cuda(blocks.float(), dense.float(), table,
+                      out=torch.zeros((1, 4, 3), device=card,
+                                      dtype=torch.bfloat16))
+    bsr_spmm_cuda.block_counter = torch.zeros(1, dtype=torch.int32,
+                                              device=card)
+    try:
+        with pytest.raises(ValueError, match="block counter"):
+            bsr_spmm_cuda(blocks.float(), dense.float(), table)
+    finally:
+        bsr_spmm_cuda.block_counter = None
 
 
 @pytest.mark.cuda
@@ -138,8 +232,10 @@ def test_main_path_on_the_card_matches_the_cpu(card, g, overlap):
     before = bsr_spmm_cuda.launches
     a_h = DistBSR.from_dense(a_d, g=g, block_size=8)     # the card by default
     assert a_h.device.type == "cuda"
-    matmul(a_h, b, overlap=overlap)
+    _, multiplied = _counted(lambda: matmul(a_h, b, overlap=overlap))
     assert bsr_spmm_cuda.launches == before + g          # one per ring step
+    # each step multiplies every tile's real blocks, and nothing else
+    assert multiplied == g * int(a_h.counts.sum())
     scales = (torch.from_numpy(np.abs(a_d) @ np.abs(b)),
               torch.from_numpy(np.abs(a_d) @ np.abs(s_d)))
     for got, want, scale in zip(results["cuda"], results["cpu"], scales):

@@ -122,6 +122,28 @@ def test_ring_shift_is_the_ppermute_perm(g, axis, sign):
     assert torch.equal(back["dense"], tree["dense"])
 
 
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_map_driven_ring_steps_read_the_rolled_tiles(g, sign):
+    """A ring of tile-map compositions (the dense-output bodies') reads,
+    at every step, the tiles that the rolls of the stacked grid (the
+    sparse-output body's) hold there, along either axis and both ways."""
+    ex = StackedExecutor(g, CPU)
+    ids = (10 * torch.arange(g)[:, None] + torch.arange(g)[None, :])
+    stack = ids[:, :, None, None].expand(g, g, 2, 3).contiguous()
+    tree = {"dense": stack}
+    maps = {"row": ex.identity_map(), "col": ex.identity_map()}
+    rolled = {"row": tree, "col": tree}
+    for step in range(2 * g + 1):
+        for axis in ("row", "col"):
+            if step:
+                maps[axis] = ex.shift_map(maps[axis], axis, sign)
+                rolled[axis] = ex.shift(rolled[axis], axis, sign)
+            read = ex.batch(stack)[torch.from_numpy(maps[axis])]
+            assert torch.equal(ex.unbatch(read), rolled[axis]["dense"])
+    assert maps["row"].dtype.kind == "i" and maps["row"].shape == (g * g,)
+
+
 def test_executor_batches_the_grid():
     ex = StackedExecutor(3, CPU)
     x = torch.arange(3 * 3 * 2 * 5).reshape(3, 3, 2, 5)

@@ -6,11 +6,9 @@ kernels in interpret mode and against its jnp references, on the grid of
 shapes of ``tests/test_kernels.py``, at the reference's tolerances (float32
 1e-5, bf16 2e-2).  The kernels themselves run only on a card: their tests
 are in ``test_torch_cuda.py``, which imports no JAX.  Here the kernels'
-work splits (segment chunks, the pair table) are replayed step by step in
-plain PyTorch.
+work splits (B1's table of real blocks, the pair table) are replayed step
+by step in plain PyTorch.
 """
-import bisect
-
 import numpy as np
 import pytest
 import torch
@@ -29,7 +27,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.bsr_pair import (bsr_pair_accumulate_cuda,
                                           bsr_pair_matmul_cuda, pair_table)
-from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, segment_bounds
+from repro_torch.kernels.bsr_spmm import CHUNK, bsr_spmm_cuda, spmm_table
 
 CPU = torch.device("cpu")
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -103,25 +101,6 @@ def test_bsr_spmm_raw_augment_on_stored_tiles(augment):
     np.testing.assert_allclose(got.numpy(), a_d @ b, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
-def test_augment_coverage_matches_augment_tile(density):
-    a_d = tbsr.random_sparse(20, 12, density, seed=3)
-    flat = jbsr.BSR.from_dense(a_d, 4, capacity=16)
-    nbr = flat.n_block_rows
-    want = jbsr._augment_tile(np.asarray(flat.blocks), np.asarray(flat.rows),
-                              np.asarray(flat.cols), nbr)
-    blocks, rows, cols = (torch.from_numpy(np.array(x))[None] for x in
-                          (flat.blocks, flat.rows, flat.cols))
-    got = tops.augment_coverage(blocks, rows, cols, nbr)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g[0].numpy(), w)
-    # batched: each tile is augmented on its own
-    two = tops.augment_coverage(blocks.expand(2, -1, -1, -1),
-                                rows.expand(2, -1), cols.expand(2, -1), nbr)
-    for g, w in zip(two, want):
-        np.testing.assert_array_equal(g[1].numpy(), w)
-
-
 def test_n_zero_fast_path():
     a = tbsr.BSR.from_dense(tbsr.random_sparse(8, 8, 0.5, seed=1), 4,
                             dtype=torch.bfloat16, device=CPU)
@@ -172,37 +151,66 @@ def test_densify_matches(dtype):
         _f32(got), _f32(jref.densify_raw(jt.blocks, jt.rows, jt.cols, 3, 4)))
 
 
-def _two_pass(blocks, rows, cols, dense, nbr, chunk):
-    """The CUDA kernel's work split, step by step in plain PyTorch: chunk
-    partials found through ``chunk_ptr`` (the last r with cp[r] <= c), then
-    each segment's partials summed in chunk order."""
-    row_ptr, chunk_ptr, max_chunks = segment_bounds(rows, nbr, chunk)
-    t, s, bs, _ = blocks.shape
+def _replay_spmm_kernel(blocks, dense, table, out=None):
+    """B1's work split, step by step in plain PyTorch, as the kernel runs
+    it: each chunk sums its entries' products (A pool slot, block column,
+    the chunk's B tile) in float32 and stores C (fresh, or C + the sum
+    rounded to C's type) or its partial; a segment cut into several chunks
+    sums its partials in chunk order; a fresh output zero-fills the
+    block-rows no real block visits.  Returns (C, how often each pool block
+    was multiplied)."""
+    p, s, bs, _ = blocks.shape
+    pool = blocks.reshape(p * s, bs, bs)
     n = dense.shape[-1]
-    partial = torch.full((t, max_chunks, bs, n), float("nan"))
-    out = torch.zeros((t, nbr * bs, n))
-    for ti in range(t):
-        cp, rp = chunk_ptr[ti].tolist(), row_ptr[ti].tolist()
-        assert cp[0] == 0 and cp[-1] <= max_chunks
-        assert all(b > a for a, b in zip(cp, cp[1:]))
-        for c in range(cp[-1]):
-            r = bisect.bisect_right(cp, c) - 1
-            s0 = rp[r] + (c - cp[r]) * chunk
-            s1 = min(rp[r + 1], s0 + chunk)
-            assert s0 <= s1 and (s0 < s1 or rp[r] == rp[r + 1])
-            acc = torch.zeros((bs, n))
-            for si in range(s0, s1):
-                col = int(cols[ti, si])
-                acc += blocks[ti, si].float() @ \
-                    dense[ti, col * bs:(col + 1) * bs].float()
-            partial[ti, c] = acc
-        for r in range(nbr):
-            out[ti, r * bs:(r + 1) * bs] = partial[ti, cp[r]:cp[r + 1]].sum(0)
-    return out
+    t, nbr = table.tiles, table.n_block_rows
+    dtype = torch.promote_types(blocks.dtype, dense.dtype)
+    fresh = out is None
+    c = torch.full((t, nbr, bs, n), float("nan"), dtype=dtype) if fresh \
+        else out.clone().reshape(t, nbr, bs, n)
+    written = torch.zeros((t, nbr), dtype=torch.int64)
+    multiplied = torch.zeros(p * s, dtype=torch.int64)
+    partial = {}
+
+    def store(tile, row, acc):
+        c[tile, row] = acc.to(dtype) if fresh else \
+            (c[tile, row].float() + acc.to(dtype).float()).to(dtype)
+        written[tile, row] += 1
+
+    slots, cols = table.ent.long()
+    for tile, first, end, row, part, b_tile in table.chunks.T.tolist():
+        assert 0 < end - first <= CHUNK
+        acc = torch.zeros((bs, n))
+        for e in range(first, end):
+            col = int(cols[e])
+            acc += pool[slots[e]].float() @ \
+                dense[b_tile, col * bs:(col + 1) * bs].float()
+            multiplied[slots[e]] += 1
+        if part < 0:
+            store(tile, row, acc)
+        else:
+            partial[part] = acc
+    for tile, row, first, parts in table.reduce.T.tolist():
+        acc = torch.zeros((bs, n))
+        for part in range(first, first + parts):
+            acc += partial.pop(part)
+        store(tile, row, acc)
+    assert not partial, "a partial is never summed"
+    if fresh:
+        for tile, row in table.fill.T.tolist():
+            c[tile, row] = 0
+            written[tile, row] += 1
+        assert bool((written == 1).all()), "a block-row is left unwritten"
+    assert int(written.max()) <= 1, "a block-row is written twice"
+    return c.reshape(t, nbr * bs, n), multiplied
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 3, 32])
+@pytest.mark.parametrize("chunk", [1, 2, 3, CHUNK])
 def test_kernel_work_split_covers_every_block_once(chunk):
+    """B1's table replayed step by step, on lists with empty block-rows and
+    a long padding run: every listed block (all of them, without a mask)
+    multiplied once and each block-row written once, with the plain
+    version's sums; with the storage layout's real mask only the blocks
+    that hold data, with the same sums; and into a carry, C + the sums."""
     a_d = tbsr.random_sparse(36, 24, 0.35, seed=8)
     a_d[8:16] = 0                                   # empty block-rows
     t = tbsr.TiledBSR.from_dense(a_d, ProcessGrid(1, 2), 4, capacity=40,
@@ -210,18 +218,120 @@ def test_kernel_work_split_covers_every_block_once(chunk):
     s, nbr = t.store_capacity, t.tile_shape[0] // 4
     dense = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (2, 12, 5)).astype(np.float32))
-    args = (t.blocks.reshape(2, s, 4, 4), t.rows.reshape(2, s),
-            t.cols.reshape(2, s), dense)
-    got = _two_pass(*args, nbr, chunk)
-    want = tref.bsr_spmm_raw_ref(*args, nbr)
+    blocks, rows, cols = (t.blocks.reshape(2, s, 4, 4), t.rows.reshape(2, s),
+                          t.cols.reshape(2, s))
+    want = tref.bsr_spmm_raw_ref(blocks, rows, cols, dense, nbr)
+    slots = torch.arange(2)[:, None] * s + torch.arange(s)
+    table = spmm_table(slots, rows, cols, nbr, chunk=chunk)
+    assert table.real_blocks == 2 * s and table.fill.shape[1] == 0
+    seg = np.stack([np.bincount(r, minlength=nbr) for r in rows.numpy()])
+    assert seg.max() > 20                    # the padding run's segment
+    n_chunks = -(-seg // chunk)
+    assert table.chunks.shape[1] == int(n_chunks.sum())
+    assert table.n_parts == int(n_chunks[n_chunks > 1].sum())
+    assert table.reduce.shape[1] == int((n_chunks > 1).sum())
+    got, multiplied = _replay_spmm_kernel(blocks, dense, table)
+    assert bool((multiplied == 1).all())
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5)
-    row_ptr, chunk_ptr, max_chunks = segment_bounds(args[1], nbr, chunk)
-    seg = (row_ptr[:, 1:] - row_ptr[:, :-1]).numpy()
-    np.testing.assert_array_equal(
-        np.diff(chunk_ptr.numpy(), axis=1),
-        np.maximum(1, -(-seg // chunk)))
-    assert max_chunks == nbr + -(-s // chunk)
+    real = t.real_slots().reshape(2, s)
+    table = spmm_table(slots, rows, cols, nbr, real=real, chunk=chunk)
+    assert table.real_blocks == int(t.counts.sum())
+    got, multiplied = _replay_spmm_kernel(blocks, dense, table)
+    np.testing.assert_array_equal(multiplied.reshape(2, s).numpy(),
+                                  real.astype(int))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    empty = {(ti, r) for ti in range(2) for r in range(nbr)
+             if not real[ti][rows[ti].numpy() == r].any()}
+    assert {(0, 2), (0, 3), (1, 2), (1, 3)} <= empty
+    assert set(map(tuple, table.fill.T.tolist())) == empty
+    carry = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        want.shape).astype(np.float32))
+    got, _ = _replay_spmm_kernel(blocks, dense, table, out=carry)
+    np.testing.assert_allclose(got.numpy(), (carry + want).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("wire", ["padded", "packed"])
+def test_plan_spmm_tables_list_the_blocks_that_hold_data(g, wire):
+    """The table a dense-output plan cuts for each ring step lists exactly
+    the blocks that hold data of the pool tile each position reads (the
+    placed stack, or the packed buffers), zero-fills exactly the block-rows
+    none of them visits, is built once, and replays to the step's product
+    A[i, k] @ B[k, j], k = (i + j + step) % g."""
+    from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR,
+                                      DistDense, plan_matmul)
+    a_d = tbsr.random_sparse(12 * 4, 12 * 4, 0.04, seed=g)
+    a_d[:4] += tbsr.random_sparse(4, 12 * 4, 0.5, seed=g + 1)
+    a_d[20:28] = 0
+    b = np.random.default_rng(g).standard_normal((48, 6)).astype(np.float32)
+    a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=CPU)
+    b_h = DistDense.for_rhs(b, a_h)
+    plan = plan_matmul(a_h, b_h, wire=wire)
+    assert plan.wire == wire
+    ex = plan.executor
+    pool = ex.batch((a_h.packed_wire if wire == "packed" else a_h.placed)(
+        SKEW_ROWS)["blocks"])
+    b_pool = ex.batch(b_h.placed(SKEW_COLS)["dense"])
+    s = pool.shape[1]
+    nz = (pool != 0).flatten(2).any(dim=2).reshape(-1).numpy()
+    nat_a, nat_b = a_h.tiled.to_dense().numpy(), b_h.data.numpy()
+    tm, tn = a_h.tile_shape[0], b_h.tile_shape[1]
+    nbr = tm // 4
+    a_map = b_map = ex.identity_map()
+    for step in range(g):
+        if step:
+            a_map = ex.shift_map(a_map, "col")
+            b_map = ex.shift_map(b_map, "row")
+        table = plan.spmm_table(a_h, a_map, b_map)
+        assert plan.spmm_table(a_h, a_map, b_map) is table
+        want = [q * s + x for q in a_map for x in range(s) if nz[q * s + x]]
+        assert sorted(table.ent[0].tolist()) == sorted(want)
+        got, multiplied = _replay_spmm_kernel(pool, b_pool, table)
+        assert int(multiplied.max()) == 1
+        empty = set()
+        for p in range(g * g):
+            i, j = divmod(p, g)
+            k = (i + j + step) % g
+            a_tile = nat_a[i * tm:(i + 1) * tm, k * tm:(k + 1) * tm]
+            np.testing.assert_allclose(
+                got[p].numpy(), a_tile @ nat_b[k * tm:(k + 1) * tm,
+                                               j * tn:(j + 1) * tn],
+                rtol=1e-5, atol=1e-5)
+            empty |= {(p, r) for r in range(nbr)
+                      if not a_tile[r * 4:(r + 1) * 4].any()}
+        assert empty
+        assert set(map(tuple, table.fill.T.tolist())) == empty
+    assert plan.workspace_bytes() == 0
+
+
+def test_spmm_table_refuses_what_the_kernel_does_not_take():
+    one = np.zeros((1, 2), np.int64)
+    with pytest.raises(ValueError, match="chunk must be"):
+        spmm_table(one, one, one, 1, chunk=CHUNK + 1)
+    with pytest.raises(ValueError, match="chunk must be"):
+        spmm_table(one, one, one, 1, chunk=0)
+    with pytest.raises(ValueError, match=r"\[T, L\]"):
+        spmm_table(one, one[:, :1], one, 1)
+    with pytest.raises(ValueError, match="outside"):
+        spmm_table(one, one + 1, one, 1)
+    with pytest.raises(ValueError, match="real must be"):
+        spmm_table(one, one, one, 1, real=np.ones((1, 3), bool))
+    with pytest.raises(ValueError, match="b_map"):
+        spmm_table(one, one, one, 1, b_map=[0, 1])
+    with pytest.raises(ValueError, match="negative"):
+        spmm_table(one - 1, one, one, 1)
+    with pytest.raises(ValueError, match="n_block_rows"):
+        spmm_table(one, one, one, 0)
+    # an entry off the real mask may hold anything; no real entry: all fill
+    none = spmm_table(one - 5, one + 7, one, 3, real=np.zeros((1, 2), bool))
+    assert none.real_blocks == 0 and none.chunks.shape[1] == 0
+    np.testing.assert_array_equal(none.fill.numpy().T, [[0, 0], [0, 1],
+                                                        [0, 2]])
+    assert none.max_slot == none.max_col == -1 and none.max_b_tile == 0
+    assert CHUNK == 128
 
 
 def test_impl_dispatch_refuses_the_kernel_on_cpu_tensors():
@@ -233,9 +343,10 @@ def test_impl_dispatch_refuses_the_kernel_on_cpu_tensors():
         tops.bsr_spmm(a, b, impl="cuda")
     with pytest.raises(ValueError, match="unknown impl"):
         tops.bsr_spmm(a, b, impl="pallas")
+    table = spmm_table(a.rows[None].long() * 0 + torch.arange(
+        a.capacity), a.rows[None], a.cols[None], 2)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        bsr_spmm_cuda(a.blocks[None], a.rows[None], a.cols[None], b[None],
-                      n_block_rows=2)
+        bsr_spmm_cuda(a.blocks[None], b[None], table)
 
 
 
