@@ -29,18 +29,31 @@ non-zero and prints no result line):
    breakdown of one float32 multiply of each kind (device time by kernel,
    idle share), which must show no roll and no gather of the SpMM's
    operands;
-5. sparse-output path: ``matmul(A, A, output="auto")`` on R-MAT scale 16,
+5. other schedules: ``summa_bcast``, ``summa_ag``, ``ring_a`` and
+   ``ring_c_bidir`` through the same entry point at the SpMM cell's full
+   width (g 2; g 3 for ``ring_a`` and ``ring_c_bidir``, whose rides differ
+   from g 3 on; the packed wire where the schedule packs A) and in
+   dense-output SpGEMM on the scale-14 operand, each against the oracle
+   with B1's blocks counted against the real blocks of its plan's tables
+   (``plan.step_maps()``); ``algorithm="auto"``'s choice and scores on the
+   ``H100_SXM`` preset, planned and run, and each schedule's predicted
+   seconds beside its measured median (a record, not a check); a
+   ``torch.profiler`` breakdown of one SpMM per schedule, which must show
+   no roll and no gather of a placed operand (``ring_c_bidir``'s split of B
+   into contiguous halves is timed and printed);
+6. sparse-output path: ``matmul(A, A, output="auto")`` on R-MAT scale 16,
    edge factor 1 (bs 32, g 2), which resolves to a sparse output over the
    packed wire: its cold plan (symbolic phase), B2 at its step-0 shapes
    (fresh output) and at step 1's (into the carry) against the plain
    version and cuSPARSE ``CSR @ CSR``, the pairs B2 multiplied (counted on
    the card) against the real ones, the multiply's time and breakdown, and
    C against scipy's ``A @ A`` for equality (R-MAT values are 1.0, so C
-   holds exact path counts);
-6. the chained cube on ``benchmarks/spgemm_bench.py``'s configuration
+   holds exact path counts); then the same through ``summa_bcast`` and
+   ``summa_ag``, each equal to scipy's with B2's pairs counted;
+7. the chained cube on ``benchmarks/spgemm_bench.py``'s configuration
    (R-MAT scale 13, edge factor 1, bs 8, g 2): ``(A @ A) @ A`` with sparse
    outputs over the padded and the packed wire, exactly against scipy;
-7. the dense-tile SpGEMM entry point ``ops.bsr_pair_matmul`` (B3) on one
+8. the dense-tile SpGEMM entry point ``ops.bsr_pair_matmul`` (B3) on one
    tile, R-MAT scale 13 (bs 64) through ``ops.build_pair_lists``, against
    the plain version and cuSPARSE ``CSR @ CSR``.
 
@@ -64,10 +77,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 FMA on the
-# CUDA cores, bf16 on the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 # Tolerances.  Each output element is held against the scale that bounds
 # its rounding, |A| @ |B| (the sum of its terms' magnitudes, computed on
@@ -95,6 +104,10 @@ PROFILED = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
 SPMM = dict(scale=15, seed=1, block_size=128, g=2, width=512)
 SPMM_G3 = 3          # the overlap bodies differ from g = 3 on
+# the schedules besides ring_c, in the registry's order; ring_a's and
+# ring_c_bidir's rides differ from g = 3 on
+OTHER = ("summa_bcast", "summa_ag", "ring_a", "ring_c_bidir")
+OTHER_G3 = ("ring_a", "ring_c_bidir")
 SPGEMM = dict(scale=14, seed=2, block_size=64, g=2)
 # sparse-output SpGEMM A @ A: predicted C block density 0.236, under
 # output="auto"'s 0.25, so it resolves to a sparse output
@@ -185,6 +198,15 @@ def build_kernels() -> float:
     return secs
 
 
+def peaks():
+    """The H100 SXM's HBM bytes/s and its peak operations by operand type
+    (float32 FMA on the CUDA cores, bf16 on the tensor cores), from the
+    port's roofline presets (NVIDIA's data sheet, dense rates)."""
+    from repro_torch.core.roofline import H100_SXM, H100_SXM_PEAK_OPS
+    return H100_SXM.mem_bw, {getattr(torch, k): v
+                             for k, v in H100_SXM_PEAK_OPS.items()}
+
+
 def b1_bound(table, bs: int, dense, out) -> dict:
     """Least time for one B1 call: the real blocks and the B block-rows
     they multiply read once, the output written once (and the table's
@@ -203,8 +225,9 @@ def b1_bound(table, bs: int, dense, out) -> dict:
     nbytes = real * bs * bs * elem + b_rows * bs * n * elem \
         + out.numel() * out.element_size() + table_bytes
     flops = 2 * real * bs * bs * n
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_OPS[dense.dtype] * 1e3
+    peak_bytes, peak_ops = peaks()
+    t_bytes = nbytes / peak_bytes * 1e3
+    t_ops = flops / peak_ops[dense.dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "real_blocks": real, "real_flops": flops}
@@ -413,62 +436,99 @@ def main_path_kernel_cases(cases) -> dict:
 
 
 def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
-             wire="auto") -> dict:
+             wire="auto", algorithm="ring_c") -> dict:
     """Time ``matmul`` (median after one warm-up) and hold its result
     against the oracle within ``tol * scale`` elementwise; the warm-up's
     blocks multiplied by B1 (counted on the card) against the real blocks
-    of its plan's tables."""
+    of the tables of its plan's launches (``plan.step_maps()``): each
+    launch multiplies every tile's real blocks once."""
     from repro_torch.core import api
+    from repro_torch.core.roofline import H100_SXM
     from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
     from repro_torch.runtime.device import sync_elapsed
+    kw = dict(overlap=overlap, wire=wire, algorithm=algorithm)
     before = bsr_spmm_cuda.launches
-    out, multiplied = counted_blocks(
-        lambda: api.matmul(a_h, b_h, overlap=overlap, wire=wire))
+    out, multiplied = counted_blocks(lambda: api.matmul(a_h, b_h, **kw))
     per_multiply = bsr_spmm_cuda.launches - before
-    plan = api.plan_matmul(a_h, b_h, overlap=overlap, wire=wire)
+    plan = api.plan_matmul(a_h, b_h, **kw)
+    name = plan.algorithm.name
+    launches = [m for step in plan.step_maps() for m in step]
     real = sum(plan.spmm_table(a_h, a_map, b_map).real_blocks
-               for a_map, b_map in api._ring_maps(plan.geom, plan.executor))
-    log(f"  e2e {label} overlap={overlap} wire={plan.wire}: B1 multiplied "
-        f"{multiplied} blocks in {per_multiply} launches; the real blocks "
-        f"of the plan's {a_h.g} tables: {real} (g x {int(a_h.counts.sum())} "
-        f"real), of {a_h.g * a_h.g ** 2 * a_h.tiled.store_capacity} stored")
-    check(multiplied == real == a_h.g * int(a_h.counts.sum()),
-          f"{label}: B1 multiplied {multiplied} blocks on the main path, not "
-          f"the {real} real ones")
+               for a_map, b_map in launches)
+    want = len(launches) * int(a_h.counts.sum())
+    log(f"  e2e {label} {algorithm} overlap={overlap} wire={plan.wire}: B1 "
+        f"multiplied {multiplied} blocks in {per_multiply} launches; the "
+        f"real blocks of the plan's {len(launches)} launches' tables: {real} "
+        f"({len(launches)} x {int(a_h.counts.sum())} real), of "
+        f"{len(launches) * a_h.g ** 2 * a_h.tiled.store_capacity} stored")
+    check(multiplied == real == want and per_multiply == len(launches),
+          f"{label} {algorithm}: B1 multiplied {multiplied} blocks in "
+          f"{per_multiply} launches on the main path, not the {want} real "
+          f"ones in {len(launches)}")
     times = []
     for _ in range(reps):
         del out
         t0 = time.perf_counter()
-        out = api.matmul(a_h, b_h, overlap=overlap, wire=wire)
+        out = api.matmul(a_h, b_h, **kw)
         times.append(sync_elapsed(t0) * 1e3)
     check(tuple(out.shape) == tuple(oracle.shape),
           f"{label}: shape {tuple(out.shape)} vs {tuple(oracle.shape)}")
     check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
     err, share, ok = compare(out, oracle, scale, tol)
     med = statistics.median(times)
-    log(f"  e2e {label} overlap={overlap} wire={plan.wire}: median "
-        f"{med:.2f} ms of {[round(x, 2) for x in times]}, max_abs_err "
-        f"{err:.3e}, {share:.3g} of its allowance (tol {tol:g} x |A||B|) "
-        f"{'ok' if ok else 'MISMATCH'}; workspace "
+    predicted = plan.predicted_cost(H100_SXM) * 1e3
+    log(f"  e2e {label} {name} overlap={overlap} wire={plan.wire}: median "
+        f"{med:.2f} ms of {[round(x, 2) for x in times]} (the cost model "
+        f"predicts {predicted:.4f} ms for a grid of {a_h.g ** 2} H100s), "
+        f"max_abs_err {err:.3e}, {share:.3g} of its allowance (tol {tol:g} "
+        f"x |A||B|) {'ok' if ok else 'MISMATCH'}; workspace "
         f"{plan.workspace_bytes()} bytes")
-    check(ok, f"{label} overlap={overlap} disagrees with the dense oracle")
+    check(ok, f"{label} {name} overlap={overlap} disagrees with the dense "
+          "oracle")
     check(plan.workspace_bytes() == 0, f"{label}: B1 needs a workspace")
     return {"ms": med, "launches": per_multiply * (1 + reps),
-            "blocks_multiplied": multiplied, "real_blocks": real}
+            "blocks_multiplied": multiplied, "real_blocks": real,
+            "algorithm": name, "predicted_ms": predicted}
 
 
-# CPU ops that copy or move an operand: none may take a main-path operand
-# of the dense-output SpMM (its placed or packed A, its placed B)
-COPY_OPS = ("aten::roll", "aten::index", "aten::index_select",
-            "aten::gather", "aten::take_along_dim")
+# ops that copy or move a tensor: none may read a main-path operand of a
+# dense-output SpMM (its placed or packed A, its placed B)
+COPY_OPS = ("roll", "index", "index_select", "gather", "take_along_dim")
+
+
+def operand_copies(fn, operands) -> list:
+    """``fn()`` under a dispatch mode that lists each op of ``COPY_OPS``
+    that reads the storage of one of the ``operands`` (so a copy of a
+    reshaped view counts, and an op on another tensor of the same shape,
+    such as the output's unskew, does not)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    ptrs = {x.untyped_storage().data_ptr() for x in operands}
+    hits = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket.__name__
+            if name in COPY_OPS:
+                hits.extend(
+                    f"aten::{name}{list(x.shape)}"
+                    for x in tree_flatten((args, kwargs))[0]
+                    if isinstance(x, torch.Tensor)
+                    and x.untyped_storage().data_ptr() in ptrs)
+            return func(*args, **kwargs)
+
+    with Spy():
+        fn()
+    return hits
 
 
 def device_breakdown(a_h, b_h, label: str, operands=(), **kw) -> dict:
     """Device time by kernel over one multiply (``torch.profiler``), beside
     the multiply's wall time: where the time goes, and the share of the
     wall time in which no kernel or copy ran on the card.  ``kw`` goes to
-    ``matmul``; the ops of ``COPY_OPS`` that took a tensor of one of the
-    ``operands``' shapes are listed."""
+    ``matmul``; for the tensors in ``operands`` (the placed stacks), one
+    more multiply lists the ops of ``COPY_OPS`` that read them."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
     from repro_torch.core.api import matmul
@@ -476,21 +536,17 @@ def device_breakdown(a_h, b_h, label: str, operands=(), **kw) -> dict:
     out = matmul(a_h, b_h, **kw)
     del out
     torch.cuda.synchronize()
-    with profile(activities=PROFILED, record_shapes=True) as prof:
+    with profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
         out = matmul(a_h, b_h, **kw)
         wall_ms = sync_elapsed(t0) * 1e3
     del out
-    # each operand as the placed [g, g, ...] stack and as its [g*g, ...]
-    # batch
-    shapes = {tuple(x) for x in operands}
-    shapes |= {(s[0] * s[1], *s[2:]) for s in shapes}
-    spans, by_name, copies = [], {}, []
+    copies = operand_copies(lambda: matmul(a_h, b_h, **kw), operands) \
+        if operands else []
+    torch.cuda.synchronize()
+    spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
-            if e.name in COPY_OPS and any(
-                    tuple(s) in shapes for s in e.input_shapes or ()):
-                copies.append(f"{e.name}{e.input_shapes}")
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -716,8 +772,9 @@ def pair_bound(a, b, pa, pb, index_bytes: int, out_bytes: int) -> dict:
     nbytes = sum(x.numel() * x.element_size() for x in inputs) \
         + index_bytes + out_bytes
     flops = 2 * real * bs ** 3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_OPS[a.dtype] * 1e3
+    peak_bytes, peak_ops = peaks()
+    t_bytes = nbytes / peak_bytes * 1e3
+    t_ops = flops / peak_ops[a.dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "real_pairs": real, "pairs": pa.numel(),
@@ -1086,16 +1143,70 @@ def sparse_path(device) -> dict:
     check_sparse_exact(out, sym, oracle, "sparse-output A @ A vs scipy")
     del out
     free()
+    summa = {alg: sparse_schedule_case(a_h, sym, oracle, alg)
+             for alg in ("summa_bcast", "summa_ag")}
     breakdown = device_breakdown(a_h, a_h, "sparse-output A @ A float32",
                                  output="auto")
     breakdown["by_launch_ms"] = sparse_step_times(plan, a_h)
     peak = phase_peak("sparse-output path")
     return {"kernel": kres, "carry": carry_res,
-            "launches": counts["bsr_pair_accumulate"],
-            "pairs_multiplied": multiplied, "e2e_ms": med, "symbolic_s": sym_s, "plan_rest_s": rest_s,
+            "launches": counts["bsr_pair_accumulate"] + sum(
+                v["launches"] for v in summa.values()),
+            "pairs_multiplied": multiplied, "e2e_ms": med, "summa": summa,
+            "symbolic_s": sym_s, "plan_rest_s": rest_s,
             "c_store_bytes": c_bytes,
             "workspace_bytes": plan.workspace_bytes(),
             "breakdown": breakdown, "peak_gb": peak}
+
+
+def sparse_schedule_case(a_h, sym, oracle, algorithm: str) -> dict:
+    """The sparse-output A @ A through a SUMMA schedule (output="auto",
+    which resolves to a sparse C over the packed wire): counts from 0, a
+    warm-up and three timed multiplies with B2's pair counter on, the pairs
+    multiplied against the real ones, C against scipy for equality."""
+    from repro_torch.core.api import matmul, plan_matmul
+    from repro_torch.kernels.bsr_pair import bsr_pair_accumulate_cuda
+    from repro_torch.runtime.device import sync_elapsed
+    plan = plan_matmul(a_h, a_h, output="auto", algorithm=algorithm)
+    check(plan.output == "sparse" and plan.wire == "packed",
+          f"{algorithm}: output='auto' resolved to output={plan.output!r}, "
+          f"wire={plan.wire!r}")
+    reset_counts()
+    counter = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    bsr_pair_accumulate_cuda.pair_counter = counter
+    try:
+        out = matmul(a_h, a_h, output="auto", algorithm=algorithm)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            del out
+            t0 = time.perf_counter()
+            out = matmul(a_h, a_h, output="auto", algorithm=algorithm)
+            times.append(sync_elapsed(t0) * 1e3)
+    finally:
+        bsr_pair_accumulate_cuda.pair_counter = None
+    counts = read_counts()
+    multiplied = int(counter.item())
+    want = 4 * sym.total_real_pairs()
+    med = statistics.median(times)
+    log(f"  e2e sparse-output A @ A {algorithm} float32: median {med:.2f} ms "
+        f"of {[round(x, 2) for x in times]} (predicted "
+        f"{plan.predicted_cost() * 1e3:.4f} ms for a 2 x 2 grid of H100s); "
+        f"launches {counts}; B2 multiplied {multiplied} pairs in 4 "
+        f"multiplies, the real pairs: {want}")
+    check(counts["bsr_pair_accumulate"] == 4 * sym.g,
+          f"{algorithm}: B2 launched {counts['bsr_pair_accumulate']} times "
+          f"in 4 multiplies, not {4 * sym.g}")
+    check(multiplied == want, f"{algorithm}: B2 multiplied {multiplied} "
+          f"pairs on the main path, not the {want} real ones")
+    check(isinstance(out, type(a_h)), "output='auto' did not give a DistBSR")
+    check_sparse_exact(out, plan.symbolic, oracle,
+                       f"{algorithm} sparse-output A @ A vs scipy")
+    del out
+    free()
+    return {"ms": med, "launches": counts["bsr_pair_accumulate"],
+            "pairs_multiplied": multiplied,
+            "predicted_ms": plan.predicted_cost() * 1e3}
 
 
 def sparse_step_times(plan, a_h) -> dict:
@@ -1228,6 +1339,83 @@ def pair_tile_path(device) -> dict:
             "peak_gb": peak}
 
 
+def other_schedules(ops: dict) -> dict:
+    """The other four schedules at the SpMM cell's full width (g 2 float32,
+    g 3 for the rides that differ there, the packed wire where the schedule
+    packs A) and in dense-output SpGEMM, each against the oracle with B1's
+    blocks counted against its plan's tables; ``algorithm="auto"``'s choice
+    and scores on the H100 preset, planned and run; then a profile of one
+    SpMM per schedule, which must show no roll and no gather of a placed
+    operand (ring_c_bidir's split of B into two contiguous halves is the
+    one copy, timed and printed).  ``ops`` holds the operands and oracles
+    of the ring_c path."""
+    from repro_torch.core import api
+    from repro_torch.core.roofline import H100_SXM
+    a32, b32, a3, b3, a14 = (ops[k] for k in ("a32", "b32", "a3", "b3",
+                                              "a14"))
+    spmm = (ops["oracle32"], ops["scale32"], TOL_F32_DEEP)
+    gemm = (ops["oracle_gemm"], ops["scale_gemm"], TOL_F32_SMALL)
+    reset_counts()                  # counts of this path's run only
+    e2e = {}
+    for alg in OTHER:
+        cases = [("SpMM float32 g=2", a32, b32, spmm, "auto")]
+        if "a" in api.REGISTRY.get(alg).packable:
+            cases.append(("SpMM float32 g=2", a32, b32, spmm, "packed"))
+        if alg in OTHER_G3:
+            cases.append((f"SpMM float32 g={SPMM_G3}", a3, b3, spmm, "auto"))
+        cases.append(("SpGEMM float32 g=2", a14, a14, gemm, "auto"))
+        for label, a_h, b_h, (oracle, scale, tol), wire in cases:
+            e2e[f"{alg} {label} wire={wire}"] = e2e_case(
+                label, a_h, b_h, oracle, scale, tol, "auto", wire=wire,
+                algorithm=alg)
+    choice, scores = api.auto_select(a32, b32, machine=H100_SXM)
+    log(f"  algorithm='auto' on {H100_SXM.name} for the SpMM cell (a grid "
+        f"of {a32.g ** 2} cards, as the schedules are written): {choice}; "
+        "predicted ms " + ", ".join(f"{k} {v * 1e3:.4f}"
+                                    for k, v in scores.items()))
+    e2e["auto SpMM float32 g=2 wire=auto"] = auto = e2e_case(
+        "SpMM float32 g=2", a32, b32, *spmm, "auto", algorithm="auto")
+    check(auto["algorithm"] == choice,
+          f"algorithm='auto' ran {auto['algorithm']}, not {choice}")
+    counts = read_counts()
+    launches = {shape: sum(v["launches"] for k, v in e2e.items()
+                           if shape in k) for shape in ("SpMM", "SpGEMM")}
+    log(f"  launches on the other schedules' paths: {counts} (B1: "
+        f"{launches['SpMM']} at the SpMM shapes, {launches['SpGEMM']} at "
+        f"SpGEMM's)")
+    check(counts["bsr_spmm"] == sum(launches.values())
+          and min(launches.values()) > 0,
+          "the other schedules did not launch bsr_spmm at both shapes")
+    log("  SpMM float32 g=2, median ms measured on one card beside the "
+        "cost model's seconds for a 2 x 2 grid of H100s (a record, not a "
+        "check):")
+    for alg in ("ring_c",) + OTHER:
+        got = e2e.get(f"{alg} SpMM float32 g=2 wire=auto") or ops["ring_c"]
+        log(f"    {alg:13s} measured {got['ms']:8.3f} ms   predicted "
+            f"{scores[alg] * 1e3:.4f} ms")
+    breakdown = {}
+    for alg in OTHER:
+        spec = api.REGISTRY.get(alg)
+        bd = breakdown[alg] = device_breakdown(
+            a32, b32, f"{alg} SpMM float32", algorithm=alg, operands=(
+                a32.placed(spec.a_placement)["blocks"],
+                b32.placed(spec.b_placement)["dense"]))
+        check(not bd["operand_copies"]
+              and not any("roll" in k for k in bd["kernels"]),
+              f"{alg}: the multiply rolls or gathers an operand "
+              f"({bd['operand_copies']})")
+    b_pool = b32.placed(api.SKEW_COLS)["dense"].reshape(
+        a32.g ** 2, *b32.tile_shape)
+    split_ms = time_ms(lambda: api._split_cols(b_pool, b32.tile_shape[1]
+                                               // 2), 5)
+    log(f"  ring_c_bidir's split of B into two contiguous column halves: "
+        f"{split_ms:.3f} ms a multiply (CUDA events), "
+        f"{b_pool.numel() * b_pool.element_size() / 1e6:.1f} MB copied")
+    return {"e2e": e2e, "launches": launches, "auto": {
+        "choice": choice, "scores_s": scores}, "breakdown": breakdown,
+        "bidir_split_ms": split_ms}
+
+
 def record(name: str, source: str, replaces: str, launches: int,
            kres: dict, extra: dict) -> dict:
     """One entry of the ``{"kernels": [...]}`` line: float32 numbers at the
@@ -1342,16 +1530,15 @@ def main() -> int:
     check(dense_counts["bsr_spmm"] == sum(launches.values())
           and min(launches.values()) > 0,
           "the dense-output path did not launch bsr_spmm at both shapes")
-    pool = lambda h, pl, key: tuple(h.placed(pl)[key].shape)
     breakdown = {
         "SpMM float32": device_breakdown(
             a32, b32, "SpMM float32", operands=(
-                pool(a32, SKEW_ROWS, "blocks"),
-                pool(b32, SKEW_COLS, "dense"))),
+                a32.placed(SKEW_ROWS)["blocks"],
+                b32.placed(SKEW_COLS)["dense"])),
         "SpMM float32 packed": device_breakdown(
             a32, b32, "SpMM float32 wire=packed", wire="packed", operands=(
-                tuple(a32.packed_wire(SKEW_ROWS)["blocks"].shape),
-                pool(b32, SKEW_COLS, "dense"))),
+                a32.packed_wire(SKEW_ROWS)["blocks"],
+                b32.placed(SKEW_COLS)["dense"])),
         "SpGEMM float32": device_breakdown(a14, a14, "SpGEMM float32")}
     for name in ("SpMM float32", "SpMM float32 packed"):
         bd = breakdown[name]
@@ -1359,9 +1546,20 @@ def main() -> int:
               and not any("roll" in k for k in bd["kernels"]),
               f"{name}: the multiply rolls or gathers an operand "
               f"({bd['operand_copies']})")
+    dense_peak = phase_peak("dense-output path")
+
+    log("== other schedules (summa_bcast, summa_ag, ring_a, ring_c_bidir; "
+        "algorithm='auto')")
+    other = other_schedules({
+        "a32": a32, "b32": b32, "a3": a3, "b3": b3, "a14": a14,
+        "oracle32": oracle32, "scale32": scale32, "oracle_gemm": oracle_gemm,
+        "scale_gemm": scale_gemm,
+        "ring_c": e2e["SpMM float32 g=2 overlap=auto wire=auto"]})
+    other_peak = phase_peak("other schedules")
     b1 = [record(f"bsr_spmm ({shape} shape)",
                  "src/repro_torch/kernels/csrc/bsr_spmm.cu",
-                 "src/repro/kernels/bsr_spmm.py:55", launches[shape],
+                 "src/repro/kernels/bsr_spmm.py:55",
+                 launches[shape] + other["launches"][shape],
                  {dt: kres[(shape, dt)] for dt in (torch.float32,
                                                    torch.bfloat16)},
                  {"shape": kres[(shape, torch.float32)]["shape"],
@@ -1375,7 +1573,6 @@ def main() -> int:
     del oracle, scale
     del oracle32, scale32, oracle16, scale16, oracle_gemm, scale_gemm
     free()
-    dense_peak = phase_peak("dense-output path")
 
     log("== sparse-output path (ring_c, output='auto', B2)")
     sparse = sparse_path(device)
@@ -1419,7 +1616,12 @@ def main() -> int:
                         "c_store_bytes", "workspace_bytes", "breakdown",
                         "peak_gb")},
                     "cube_launches": cube_counts,
+                    "other_schedules": {k: other[k] for k in (
+                        "e2e", "launches", "auto", "bidir_split_ms")},
+                    "other_breakdown": other["breakdown"],
+                    "sparse_summa": sparse["summa"],
                     "peak_gb": {"dense_output": dense_peak,
+                                "other_schedules": other_peak,
                                 "sparse_output": sparse["peak_gb"],
                                 "dense_tile": tile["peak_gb"]},
                     "card": card,

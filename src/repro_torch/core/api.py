@@ -1,6 +1,6 @@
-"""Plan-based public API of the port: the ``ring_c`` schedule.
+"""Plan-based public API of the port: every schedule but ``steal3d``.
 
-Port of the main path of ``repro/core/api.py``:
+Port of ``repro/core/api.py``:
 
 * :class:`DistBSR` / :class:`DistDense` — distributed-matrix handles
   wrapping a :class:`~repro_torch.core.bsr.TiledBSR` / a grid-padded dense
@@ -9,23 +9,35 @@ Port of the main path of ``repro/core/api.py``:
   handles their structure, fingerprint and packed wire layout.
 * :func:`plan_matmul` -> :class:`MatmulPlan` — geometry, placement needs,
   the schedule body and its plan-time constants (pair lists, consume
-  maps), cached in an LRU plan cache.
+  maps), cached in an LRU plan cache.  ``plan.cost_model()`` gives the
+  per-step network volume and flops that feed ``core/roofline.py``.
 * :func:`matmul` — sparse x dense (SpMM), sparse x sparse (SpGEMM) and
-  dense x dense, all through the stationary-C ring ``ring_c`` (paper
-  Alg. 2).  SpGEMM gives a dense output (B densified once per multiply) or,
-  with ``output="sparse"`` / ``"auto"``, a :class:`DistBSR`: a host-side
+  dense x dense through :data:`REGISTRY` (an :class:`AlgorithmRegistry`).
+  SpGEMM gives a dense output (B densified once per multiply) or, with
+  ``output="sparse"`` / ``"auto"``, a :class:`DistBSR`: a host-side
   symbolic phase (:func:`symbolic_spgemm`) predicts C's block structure and
   the numeric phase accumulates block products straight into its packed
   slots, so chained multiplies never densify.  ``wire="packed"`` moves only
-  each tile's real blocks around the ring (``core/wire.py``).
+  each tile's real blocks (``core/wire.py``).
+
+The schedules (see the body docstrings): ``summa_bcast`` / ``summa_ag``,
+the bulk-synchronous baselines; ``ring_c`` / ``ring_a``, the paper's
+stationary-C and stationary-A rings with placement-time ``k_offset``
+skew; ``ring_c_bidir``, a stationary-C ring whose output column halves
+ride opposite directions.  ``algorithm="auto"`` scores every registered
+schedule with the alpha-beta-gamma cost model (:func:`auto_select`, on
+:data:`~repro_torch.core.roofline.H100_SXM` unless told otherwise) and
+builds the cheapest.  The scores describe the g x g grid of cards the
+schedules are written for, not the one-card stand-in below, which moves
+no tile.
 
 Where the JAX package runs the body under ``shard_map`` on a device mesh,
 the port runs it on a :class:`~repro_torch.core.executor.StackedExecutor`:
-the g x g tiles live stacked on one card, ring shifts are rolls of the
-stack, and each step's local multiply is one batched kernel launch.
+the g x g tiles live stacked on one card, and each step's local multiply
+is one batched kernel launch.  A ring shift, a broadcast or an all-gather
+becomes a tile map: the kernel reads each step's tiles where they lie.
 
-Not in the port yet (each raises a ``ValueError`` saying so): the other
-schedules and ``algorithm="auto"``.
+Not in the port yet: ``steal3d`` (``ValueError`` saying so).
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ from ..kernels import ops as kops
 from ..kernels.bsr_pair import pair_table
 from ..kernels.bsr_spmm import PoolLists, SpmmTable
 from ..runtime.device import as_tensor, resolve_device, strict_fp32
+from . import roofline as _roofline
 from . import schedule as _schedule
 from . import symbolic as _symbolic
 from . import wire as _wire
@@ -55,8 +68,10 @@ from .wire import PackedOperand, wire_capacity              # re-export
 
 __all__ = [
     "NATURAL", "SKEW_ROWS", "SKEW_COLS", "STATIONARY_A", "PLACEMENTS",
-    "DistMatrix", "DistBSR", "DistDense", "Algorithm", "algorithms",
-    "sparse_algorithms", "MatmulPlan", "plan_matmul", "matmul",
+    "DistMatrix", "DistBSR", "DistDense",
+    "Algorithm", "AlgorithmRegistry", "REGISTRY", "register_algorithm",
+    "algorithms", "sparse_algorithms", "auto_select", "recommended_balance",
+    "MatmulPlan", "plan_matmul", "matmul",
     "clear_plan_cache", "plan_cache_size", "cache_stats",
     "SymbolicProduct", "symbolic_spgemm", "predicted_density",
     "PackedOperand", "wire_capacity", "SPARSE_OUTPUT_DENSITY_THRESHOLD",
@@ -69,9 +84,8 @@ SKEW_COLS = "skew_cols"        # position (i, j) holds tile ((i+j)%g, j)
 STATIONARY_A = "stationary_a"  # position (i, j) holds tile (j, (i+j)%g)
 PLACEMENTS = (NATURAL, SKEW_ROWS, SKEW_COLS, STATIONARY_A)
 
-# Schedules of the JAX package that later slices of the port bring over.
-_NOT_PORTED = ("summa_bcast", "summa_ag", "ring_a", "ring_c_bidir",
-               "steal3d")
+# Schedules of the JAX package that a later slice of the port brings over.
+_NOT_PORTED = ("steal3d",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,10 +134,10 @@ class _Steps:
 def _local_mm(a: Dict, b: Dict, a_map: np.ndarray, b_map: np.ndarray,
               steps: _Steps, c: Optional[torch.Tensor], geom: _Geom,
               ex: StackedExecutor) -> torch.Tensor:
-    """Every tile's local product of one ring step, in one batched call.
+    """Every output tile's local product of one step, in one batched call.
 
-    Position p multiplies A tile ``a_map[p]`` by B tile ``b_map[p]`` of the
-    placed stacks, read where they lie.  Step 0 (``c`` None) returns a
+    Output tile p multiplies A tile ``a_map[p]`` by B tile ``b_map[p]`` of
+    the placed stacks, read where they lie.  Step 0 (``c`` None) returns a
     fresh ``[g*g, tm, tn]`` C; later steps add into ``c`` in place, the
     step's product rounded to C's type first (the JAX body's ``c + ...``).
     """
@@ -131,8 +145,8 @@ def _local_mm(a: Dict, b: Dict, a_map: np.ndarray, b_map: np.ndarray,
     if "dense" in a:
         a_pool = ex.batch(a["dense"])
         out = c if c is not None else torch.empty(
-            (geom.g * geom.g, geom.tm, geom.tn), dtype=geom.out_dtype,
-            device=ex.device)
+            (geom.g * geom.g, geom.tm, b_pool.shape[-1]),
+            dtype=geom.out_dtype, device=ex.device)
         for p, (i, j) in enumerate(zip(a_map.tolist(), b_map.tolist())):
             # summed in float32, as the JAX package's preferred_element_type
             prod = torch.matmul(a_pool[i].float(), b_pool[j].float())
@@ -147,14 +161,24 @@ def _local_mm(a: Dict, b: Dict, a_map: np.ndarray, b_map: np.ndarray,
         b_map=b_map, table=steps.table and steps.table(a_map, b_map), out=c)
 
 
-def _ring_steps(a, b, geom: _Geom, shift: Callable):
-    """The (A, B) of each ``ring_c`` step, in order: tile grids shifted by
-    ``shift = ex.shift`` (the sparse-output body), or tile maps composed by
-    ``shift = ex.shift_map`` (the dense-output bodies, whose kernel reads
-    the placed stacks in place).
+# ---------------------------------------------------------------------------
+# Step maps: which placed tiles each output tile reads at each step
+# ---------------------------------------------------------------------------
+# A schedule's steps, as the stacked executor runs them: per step, one
+# ``(a_map, b_map)`` pair per kernel launch (two for ring_c_bidir), where
+# output tile p reads A tile ``a_map[p]`` and B tile ``b_map[p]`` of the
+# placed stacks (host numpy, ``[g*g]``).  A ring ``ppermute`` composes a
+# map (:meth:`StackedExecutor.shift_map`), a SUMMA broadcast or all-gather
+# picks row k or column k: no tile moves.
+def _ring_steps(a, b, geom: _Geom, shift: Callable, sign: int = 1):
+    """The (A, B) of each stationary-C ring step, in order: tile grids
+    shifted by ``shift = ex.shift`` (the sparse-output body), or tile maps
+    composed by ``shift = ex.shift_map`` (the dense-output bodies, whose
+    kernel reads the placed stacks in place).
 
-    A rides the ``col`` ring and B the ``row`` ring.  The bulk body issues
-    step t+1's shift before step t's multiply (paper SS3.3 prefetch); the
+    A rides the ``col`` ring and B the ``row`` ring, each position
+    receiving from its ``+sign`` neighbour.  The bulk body issues step
+    t+1's shift before step t's multiply (paper SS3.3 prefetch); the
     split-step body (``geom.overlap``) keeps one more step in flight,
     issuing step t+2's shift before step t's multiply.  On one stream that
     only reorders the launches and keeps one more copy of each operand
@@ -168,41 +192,163 @@ def _ring_steps(a, b, geom: _Geom, shift: Callable):
     for t in range(geom.g):
         while len(queue) <= ahead and t + len(queue) < geom.g:
             a_q, b_q = queue[-1]
-            queue.append((shift(a_q, "col"), shift(b_q, "row")))
+            queue.append((shift(a_q, "col", sign), shift(b_q, "row", sign)))
         yield queue.pop(0)
 
 
-def _ring_maps(geom: _Geom, ex: StackedExecutor):
-    """The (A, B) tile maps of each ``ring_c`` step: g - 1 compositions per
-    operand (:meth:`StackedExecutor.shift_map`), no tile moved."""
+def _ring_maps(geom: _Geom, ex: StackedExecutor, sign: int = 1):
+    """The (A, B) tile maps of each stationary-C ring step: g - 1
+    compositions per operand (:meth:`StackedExecutor.shift_map`), no tile
+    moved."""
     ident = ex.identity_map()
-    return _ring_steps(ident, ident, geom, ex.shift_map)
+    return _ring_steps(ident, ident, geom, ex.shift_map, sign)
 
 
-def _body_ring_c(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
-                 ex: StackedExecutor) -> torch.Tensor:
-    """Paper Alg 2 (stationary-C): skewed placement + neighbour ring shifts.
+def _steps_ring_c(geom: _Geom, ex: StackedExecutor) -> list:
+    return [((a_map, b_map),) for a_map, b_map in _ring_maps(geom, ex)]
 
-    The shifts are tile maps: each step's multiply reads the placed stacks
-    in place (no ``torch.roll``).  Step 0 writes C fresh and later steps
-    add into it in place (the JAX body's ``c + ...`` in the same dtype,
-    without a zero fill or a new buffer per step).
+
+def _steps_ring_c_bidir(geom: _Geom, ex: StackedExecutor) -> list:
+    """Left half-panel on the +1 rings, right half-panel on the -1 rings."""
+    return list(zip(_ring_maps(geom, ex, +1), _ring_maps(geom, ex, -1)))
+
+
+def _steps_summa(geom: _Geom, ex: StackedExecutor) -> list:
+    """Inner step k: position (i, j) reads A tile (i, k) and B tile (k, j)
+    of the natural placements (the broadcast, or the all-gather's slot
+    k, of A[:, k] along rows and B[k, :] along columns)."""
+    g = geom.g
+    i, j = np.divmod(ex.identity_map(), g)
+    return [((i * g + k, k * g + j),) for k in range(g)]
+
+
+def _ring_a_walk(geom: _Geom, ex: StackedExecutor) -> list:
+    """``ring_a``'s steps with the accumulators kept in place, as
+    ``(at, b_pos)`` per step.
+
+    The JAX body's partial C tile rides one hop along the col ring after
+    every step.  Here accumulator q stays at index q: ``ride[p]`` is the
+    accumulator that grid position p holds, composed one ``shift_map``
+    per hop, and at step t accumulator q takes the product of position
+    ``at[q]`` (``at`` the inverse of ``ride``): its stationary A tile and
+    the B tile that position holds after t row-ring shifts (``b_pos``).
+    The JAX body's g-th hop brings every accumulator back to the position
+    it started from, so the reindexing it stands for is the identity.
     """
+    ident = ex.identity_map()
+    ride, b_pos, steps = ident, ident, []
+    for t in range(geom.g):
+        if t:
+            b_pos = ex.shift_map(b_pos, "row")
+            ride = ex.shift_map(ride, "col")      # the partial C's hop
+        steps.append((np.argsort(ride), b_pos))
+    return steps
+
+
+def _steps_ring_a(geom: _Geom, ex: StackedExecutor) -> list:
+    return [((at, b_pos[at]),) for at, b_pos in _ring_a_walk(geom, ex)]
+
+
+def _split_cols(b_pool: torch.Tensor, half: int) -> Tuple[torch.Tensor, ...]:
+    """B's column half-panels as two contiguous stacks (B1 reads a
+    contiguous B); ``half`` may be 0 (a zero-width left panel)."""
+    return (b_pool[..., :half].contiguous(), b_pool[..., half:].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Dense-output bodies
+# ---------------------------------------------------------------------------
+def _stationary_c(a: Dict, b: Dict, maps: list, steps: _Steps, geom: _Geom,
+                  ex: StackedExecutor) -> torch.Tensor:
+    """C stays put; step t's single launch reads the tiles ``maps[t]``
+    names.  Step 0 writes C fresh and later steps add into it in place (the
+    JAX body's ``c + ...`` in the same dtype and order, without a zero fill
+    or a new buffer per step)."""
     b = _densify_b(b, geom, ex)
     c = None
-    for a_map, b_map in _ring_maps(geom, ex):
+    for (a_map, b_map), in maps:
         c = _local_mm(a, b, a_map, b_map, steps, c, geom, ex)
     return ex.unbatch(c)
 
 
+def _body_summa_bcast(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
+                      ex: StackedExecutor) -> torch.Tensor:
+    """Bulk-synchronous SUMMA (paper SS2.2): a broadcast per inner step.
+
+    On the stacked executor the broadcast of A[:, k] along rows and B[k, :]
+    along columns is a tile map (:func:`_steps_summa`): no operand moves.
+    Every position sums k = 0 .. g-1 in order, as the JAX scan does.
+    """
+    return _stationary_c(a, b, _steps_summa(geom, ex), steps, geom, ex)
+
+
+def _body_summa_ag(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
+                   ex: StackedExecutor) -> torch.Tensor:
+    """All-gather SUMMA: one up-front collective, g x the tile footprint.
+
+    On one card the all-gather's slot k is the broadcast's step k, so this
+    is ``summa_bcast``'s body (the same tile maps and launches); the stack
+    is not copied to imitate the gather.  The two schedules differ in the
+    cost model (``wire_amortized``) and in the g x footprint of the real
+    collective on a grid of cards.
+    """
+    return _body_summa_bcast(a, b, steps, geom, ex)
+
+
+def _body_ring_c(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
+                 ex: StackedExecutor) -> torch.Tensor:
+    """Paper Alg 2 (stationary-C): skewed placement + neighbour ring shifts,
+    composed as tile maps (no ``torch.roll``)."""
+    return _stationary_c(a, b, _steps_ring_c(geom, ex), steps, geom, ex)
+
+
+def _body_ring_a(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
+                 ex: StackedExecutor) -> torch.Tensor:
+    """Paper Alg 1 (stationary-A): B rides the row ring, partial C rides
+    the col ring back to its owner.
+
+    Nothing moves on the card: A is read in place, B through its composed
+    maps, and each accumulator stays where it was made, taking at every
+    step the product of the position that holds it then
+    (:func:`_ring_a_walk`), in the JAX order.  After the last hop every
+    accumulator is home, and the epilogue unskews C's rows.
+    """
+    b = _densify_b(b, geom, ex)
+    c = None
+    for (a_map, b_map), in _steps_ring_a(geom, ex):
+        c = _local_mm(a, b, a_map, b_map, steps, c, geom, ex)
+    return ex.unbatch(c)
+
+
+def _body_ring_c_bidir(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
+                       ex: StackedExecutor) -> torch.Tensor:
+    """Bidirectional stationary-C ring: C split into column half-panels.
+
+    The left half-panel (width ``tn // 2``) takes the full A tile and the
+    left half of the dense B tile around the +1 rings (``k = i+j+t``), the
+    right half-panel theirs around the -1 rings (``k = i+j-t``), both from
+    ``ring_c``'s skewed placement: two launches a step.  B is split into
+    two contiguous half stacks once per multiply (the JAX body slices it
+    too) and C is concatenated once at the end.
+    """
+    b = _densify_b(b, geom, ex)
+    halves = _split_cols(ex.batch(b["dense"]), geom.tn // 2)
+    c = [None, None]
+    for launches in _steps_ring_c_bidir(geom, ex):
+        for h, (a_map, b_map) in enumerate(launches):
+            c[h] = _local_mm(a, {"dense": ex.unbatch(halves[h])}, a_map,
+                             b_map, steps, c[h], geom, ex)
+    return ex.unbatch(torch.cat(c, dim=2))
+
+
 # ---------------------------------------------------------------------------
-# Sparse-output body (plan_matmul(output="sparse"))
+# Sparse-output bodies (plan_matmul(output="sparse"))
 # ---------------------------------------------------------------------------
 # The numeric phase of symbolic/numeric SpGEMM: both operands stay in their
-# stored (or packed) block form, only ``blocks`` rides the ring (the pair
-# lists encode all structure), and each step accumulates matched block
-# products into the packed output slots the symbolic phase allocated.  No
-# dense C tile and no densified B ever exist.
+# stored (or packed) block form, only ``blocks`` moves (the pair lists
+# encode all structure), and each step accumulates matched block products
+# into the packed output slots the symbolic phase allocated.  No dense C
+# tile and no densified B ever exist.
 def _sparse_step(a_t: Dict, b_t: Dict, pairs: Dict,
                  c: Optional[torch.Tensor], geom: _Geom,
                  ex: StackedExecutor) -> torch.Tensor:
@@ -236,28 +382,50 @@ def _sparse_body_ring_c(a: Dict, b: Dict, pairs, geom: _Geom,
     return ex.unbatch(c.to(geom.out_dtype))
 
 
+def _sparse_body_summa(a: Dict, b: Dict, pairs, geom: _Geom,
+                       ex: StackedExecutor) -> torch.Tensor:
+    """SUMMA (broadcast or all-gather) with packed sparse output.
+
+    ``pairs[t]`` holds inner step t's ``[g*g, P]`` pair lists, which on
+    position (i, j) index A[i, t] and B[t, j]; B2 reads each output tile's
+    own A and B tile, so each step hands it those tile grids, gathered with
+    ``index_select`` from the natural stacks (as the ``ring_c`` body hands
+    it rolled grids).  The float32 carry is written fresh at step 0, added
+    into after that, and cast once.
+    """
+    a_pool, b_pool = ex.batch(a["blocks"]), ex.batch(b["blocks"])
+    take = lambda pool, tile_map: {"blocks": ex.unbatch(pool.index_select(
+        0, torch.as_tensor(tile_map, device=ex.device)))}
+    c = None
+    for t, ((a_map, b_map),) in enumerate(_steps_summa(geom, ex)):
+        c = _sparse_step(take(a_pool, a_map), take(b_pool, b_map), pairs[t],
+                         c, geom, ex)
+    return ex.unbatch(c.to(geom.out_dtype))
+
+
 # ---------------------------------------------------------------------------
-# Packed-wire dense-output body (plan_matmul(wire="packed"))
+# Packed-wire dense-output bodies (plan_matmul(wire="packed"))
 # ---------------------------------------------------------------------------
 # A sparse A tile rides as a packed [wire_capacity, bs, bs] buffer (real
 # blocks only, no rows/cols) and a sparse B tile likewise, densified per
 # step by a gather; all structure lives in plan-time consume maps
 # (core/wire.py), step t's maps in ``aux[t]`` as [g*g, ...] tensors.  As
-# on the padded wire the ring's shifts are tile maps over the placed
-# packed stacks.
+# on the padded wire each step's tiles are read through tile maps over the
+# placed packed stacks.
 def _packed_a_mm(a_blocks: torch.Tensor, aux_t: Dict, a_map: np.ndarray,
                  b_map: np.ndarray, b_pool: torch.Tensor, steps: _Steps,
-                 c: Optional[torch.Tensor], geom: _Geom,
-                 ex: StackedExecutor) -> torch.Tensor:
-    """One packed local SpMM step: position p reads packed A tile
-    ``a_map[p]`` in place, through its consume lists (the kernel through
-    its table's pool slots, so no gather copy of A is made)."""
+                 c: Optional[torch.Tensor], geom: _Geom, ex: StackedExecutor,
+                 stream: str = "") -> torch.Tensor:
+    """One packed local SpMM step: output tile p reads packed A tile
+    ``a_map[p]`` in place, through its consume lists (``stream`` names
+    ring_c_bidir's backward lists; the kernel reads through its table's
+    pool slots, so no gather copy of A is made)."""
     return kops.bsr_spmm_raw(
-        ex.batch(a_blocks), aux_t["a_rows"], aux_t["a_cols"], b_pool,
-        n_block_rows=geom.a_nbr, impl=geom.impl, a_map=a_map, b_map=b_map,
-        gidx=aux_t["a_gidx"], table=steps.table and steps.table(a_map,
-                                                                  b_map),
-        out=c)
+        ex.batch(a_blocks), aux_t["a_rows" + stream],
+        aux_t["a_cols" + stream], b_pool, n_block_rows=geom.a_nbr,
+        impl=geom.impl, a_map=a_map, b_map=b_map,
+        gidx=aux_t["a_gidx" + stream],
+        table=steps.table and steps.table(a_map, b_map), out=c)
 
 
 def _packed_b_dense(b_buf: torch.Tensor, dmap: torch.Tensor,
@@ -271,14 +439,15 @@ def _packed_b_dense(b_buf: torch.Tensor, dmap: torch.Tensor,
                                tile_map=steps.device_map(b_map))
 
 
-def _packed_body_ring_c(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
-                        ex: StackedExecutor) -> torch.Tensor:
-    """Stationary-C ring over packed wire buffers (paper Alg 2)."""
+def _packed_stationary_c(a: Dict, b: Dict, aux, maps: list, steps: _Steps,
+                         geom: _Geom, ex: StackedExecutor) -> torch.Tensor:
+    """:func:`_stationary_c` over packed wire buffers: A packed, B packed
+    (densified per step by a gather) or densified once."""
     b_packed = "b_dmap" in aux[0]
     b0 = b if b_packed else _densify_b(b, geom, ex)
     ident = ex.identity_map()
     c = None
-    for t, (a_map, b_map) in enumerate(_ring_maps(geom, ex)):
+    for t, ((a_map, b_map),) in enumerate(maps):
         if b_packed:
             b_pool = _packed_b_dense(b0["blocks"], aux[t]["b_dmap"], b_map,
                                      steps, geom, ex)
@@ -290,12 +459,59 @@ def _packed_body_ring_c(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
     return ex.unbatch(c)
 
 
+def _packed_body_summa(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
+                       ex: StackedExecutor) -> torch.Tensor:
+    """SUMMA (broadcast or all-gather) over packed wire buffers."""
+    return _packed_stationary_c(a, b, aux, _steps_summa(geom, ex), steps,
+                                geom, ex)
+
+
+def _packed_body_ring_c(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
+                        ex: StackedExecutor) -> torch.Tensor:
+    """Stationary-C ring over packed wire buffers (paper Alg 2)."""
+    return _packed_stationary_c(a, b, aux, _steps_ring_c(geom, ex), steps,
+                                geom, ex)
+
+
+def _packed_body_ring_a(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
+                        ex: StackedExecutor) -> torch.Tensor:
+    """Stationary-A ring with the sparse B packed: each step gathers every
+    position's dense B tile from the packed stack it holds then, and each
+    accumulator reads the one of its position (:func:`_body_ring_a`)."""
+    c = None
+    for t, (at, b_pos) in enumerate(_ring_a_walk(geom, ex)):
+        b_pool = _packed_b_dense(b["blocks"], aux[t]["b_dmap"], b_pos, steps,
+                                 geom, ex)
+        c = _local_mm(a, {"dense": ex.unbatch(b_pool)}, at, at, steps, c,
+                      geom, ex)
+    return ex.unbatch(c)
+
+
+def _packed_body_ring_c_bidir(a: Dict, b: Dict, aux, steps: _Steps,
+                              geom: _Geom,
+                              ex: StackedExecutor) -> torch.Tensor:
+    """Bidirectional stationary-C ring, A packed in both directions.
+
+    B's column half-panels need not be block-aligned, so B rides densified
+    as in the padded body; only the A streams pack.
+    """
+    b = _densify_b(b, geom, ex)
+    halves = _split_cols(ex.batch(b["dense"]), geom.tn // 2)
+    c = [None, None]
+    for t, launches in enumerate(_steps_ring_c_bidir(geom, ex)):
+        for h, (a_map, b_map) in enumerate(launches):
+            c[h] = _packed_a_mm(a["blocks"], aux[t], a_map, b_map, halves[h],
+                                steps, c[h], geom, ex,
+                                stream=("", "_bwd")[h])
+    return ex.unbatch(torch.cat(c, dim=2))
+
+
+# ---- per-schedule wire planners (consume-map construction) ----------------
 def _wire_consume(aux: Dict, prefix: str, po: "_wire.PackedOperand",
-                  tiles: np.ndarray) -> None:
+                  tiles: np.ndarray, suffix: str = "") -> None:
     cons = _wire.schedule_consume(po, tiles)
-    aux[f"{prefix}_gidx"] = cons["gidx"]
-    aux[f"{prefix}_rows"] = cons["rows"]
-    aux[f"{prefix}_cols"] = cons["cols"]
+    for k in ("gidx", "rows", "cols"):
+        aux[f"{prefix}_{k}{suffix}"] = cons[k]
 
 
 def _wire_planner_ring_c(a_po, b_po, geom: _Geom) -> Dict[str, np.ndarray]:
@@ -309,48 +525,223 @@ def _wire_planner_ring_c(a_po, b_po, geom: _Geom) -> Dict[str, np.ndarray]:
     return aux
 
 
+def _wire_planner_ring_c_bidir(a_po, b_po, geom: _Geom
+                               ) -> Dict[str, np.ndarray]:
+    aux: Dict[str, np.ndarray] = {}
+    _wire_consume(aux, "a", a_po, _wire.tiles_ring_c(geom.g))
+    _wire_consume(aux, "a", a_po, _wire.tiles_ring_c_bwd(geom.g), "_bwd")
+    return aux
+
+
+def _wire_planner_ring_a(a_po, b_po, geom: _Geom) -> Dict[str, np.ndarray]:
+    return {"b_dmap": _wire.schedule_dense_map(
+        b_po, _wire.tiles_ring_a_b(geom.g))}
+
+
+def _wire_planner_summa(a_po, b_po, geom: _Geom) -> Dict[str, np.ndarray]:
+    """Consume maps of both packed SUMMA bodies: A[i, k] and B[k, j] at
+    inner step k, read in place through the step's tile maps.  The JAX
+    package's ``summa_ag`` planner adds ``k * wire_capacity`` to index its
+    flat all-gathered pool (``_summa_bases``); the placed packed stack
+    needs no such offset, so ``summa_ag`` shares ``summa_bcast``'s maps."""
+    g = geom.g
+    aux: Dict[str, np.ndarray] = {}
+    if a_po is not None:
+        _wire_consume(aux, "a", a_po, _wire.tiles_summa_a(g))
+    if b_po is not None:
+        aux["b_dmap"] = _wire.schedule_dense_map(b_po, _wire.tiles_summa_b(g))
+    return aux
+
+
+# ---------------------------------------------------------------------------
+# Algorithm registry
+# ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Algorithm:
-    """A schedule: its bodies + the placement each operand must be in.
+    """A registered schedule: its bodies + declarative placement needs.
+
+    ``a_placement`` / ``b_placement`` name the :data:`PLACEMENTS` state each
+    operand must be in before the body runs (the handle caches the
+    transform); ``unskew_out`` names the inverse placement applied to the
+    output; ``wire`` lists which tiles ride the network each inner step
+    (repeats allowed — ``ring_c_bidir`` ships A in both directions; feeds
+    :meth:`MatmulPlan.cost_model`); ``wire_amortized`` marks schedules whose
+    communication happens once up front (all-gather) rather than per step;
+    ``duplex=2`` marks schedules that split traffic over both directions of
+    the full-duplex links, halving serialized wire time; ``msgs_per_step``
+    is the alpha-term count (``len(wire)`` when None).
 
     ``sparse_body`` is the packed-output SpGEMM body and ``k_order(i, j,
     t, g)`` the inner index k of step t on grid position (i, j), which
-    schedules the symbolic phase's pair lists; ``packed_body`` is the
-    packed-wire dense-output body, fed the ``wire_planner``'s consume maps
-    for the operands named in ``packable``.
+    schedules the symbolic phase's pair lists; ``balance_axis`` the operand
+    balance the schedule benefits from (:func:`recommended_balance`);
+    ``packed_body`` the packed-wire dense-output body, fed the
+    ``wire_planner``'s consume maps for the operands named in ``packable``.
+    ``static_planner`` and ``cost_fn`` stay None until the port has
+    ``steal3d``.  ``step_maps(geom, ex)`` (the port's own) lists each
+    step's ``(a_map, b_map)`` per kernel launch (:meth:`MatmulPlan.
+    step_maps`).
     """
     name: str
     body: Callable
     a_placement: str = NATURAL
     b_placement: str = NATURAL
     unskew_out: Optional[str] = None        # None | "rows"
+    wire: Tuple[str, ...] = ("a", "b")      # tile names from {"a", "b", "c"}
+    wire_amortized: bool = False
+    style: str = "rdma"                     # "rdma" | "bsp"
+    duplex: int = 1                         # link directions used per step
+    msgs_per_step: Optional[int] = None
     sparse_body: Optional[Callable] = None
     k_order: Optional[Callable] = None
+    balance_axis: str = "rows"
+    static_planner: Optional[Callable] = None
+    cost_fn: Optional[Callable] = None
     packed_body: Optional[Callable] = None
     packable: Tuple[str, ...] = ()
     wire_planner: Optional[Callable] = None
+    step_maps: Optional[Callable] = None
 
 
-_ALGORITHMS: Dict[str, Algorithm] = {
-    "ring_c": Algorithm("ring_c", _body_ring_c, a_placement=SKEW_ROWS,
-                        b_placement=SKEW_COLS,
-                        sparse_body=_sparse_body_ring_c,
-                        k_order=lambda i, j, t, g: (i + j + t) % g,
-                        packed_body=_packed_body_ring_c,
-                        packable=("a", "b"),
-                        wire_planner=_wire_planner_ring_c),
-}
+class AlgorithmRegistry:
+    """Name -> :class:`Algorithm` map driving :func:`matmul` dispatch."""
+
+    def __init__(self):
+        self._algorithms: Dict[str, Algorithm] = {}
+
+    def register(self, alg: Algorithm, *, overwrite: bool = False
+                 ) -> Algorithm:
+        for placement, who in ((alg.a_placement, "a"),
+                               (alg.b_placement, "b")):
+            if placement not in PLACEMENTS:
+                raise ValueError(
+                    f"algorithm {alg.name!r}: unknown {who}_placement "
+                    f"{placement!r}; one of {PLACEMENTS}")
+        if alg.name in self._algorithms:
+            if not overwrite:
+                raise ValueError(f"algorithm {alg.name!r} already registered")
+            _evict_plans_for_algorithm(alg.name)
+        self._algorithms[alg.name] = alg
+        return alg
+
+    def unregister(self, name: str) -> None:
+        if self._algorithms.pop(name, None) is not None:
+            _evict_plans_for_algorithm(name)
+
+    def get(self, name: str) -> Algorithm:
+        try:
+            return self._algorithms[name]
+        except KeyError:
+            raise ValueError(
+                f"unknown algorithm {name!r}; one of {self.names()}") from None
+
+    def names(self) -> Tuple[str, ...]:
+        return tuple(self._algorithms)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._algorithms
+
+    def __iter__(self):
+        return iter(self._algorithms.values())
+
+    def __len__(self) -> int:
+        return len(self._algorithms)
+
+
+REGISTRY = AlgorithmRegistry()
+
+
+def register_algorithm(name: str, *, a_placement: str = NATURAL,
+                       b_placement: str = NATURAL,
+                       unskew_out: Optional[str] = None,
+                       wire: Tuple[str, ...] = ("a", "b"),
+                       wire_amortized: bool = False, style: str = "rdma",
+                       duplex: int = 1, msgs_per_step: Optional[int] = None,
+                       sparse_body: Optional[Callable] = None,
+                       k_order: Optional[Callable] = None,
+                       balance_axis: str = "rows",
+                       static_planner: Optional[Callable] = None,
+                       cost_fn: Optional[Callable] = None,
+                       packed_body: Optional[Callable] = None,
+                       packable: Tuple[str, ...] = (),
+                       wire_planner: Optional[Callable] = None,
+                       step_maps: Optional[Callable] = None,
+                       registry: AlgorithmRegistry = REGISTRY):
+    """Decorator registering a stacked-grid body as a named algorithm."""
+    def deco(body):
+        registry.register(Algorithm(
+            name=name, body=body, a_placement=a_placement,
+            b_placement=b_placement, unskew_out=unskew_out, wire=wire,
+            wire_amortized=wire_amortized, style=style, duplex=duplex,
+            msgs_per_step=msgs_per_step, sparse_body=sparse_body,
+            k_order=k_order, balance_axis=balance_axis,
+            static_planner=static_planner, cost_fn=cost_fn,
+            packed_body=packed_body, packable=packable,
+            wire_planner=wire_planner, step_maps=step_maps))
+        return body
+    return deco
+
+
+def _evict_plans_for_algorithm(name: str) -> None:
+    """Drop the cached plans of a schedule that was re-registered or
+    unregistered (their bodies are stale)."""
+    for key in [k for k in _PLAN_CACHE if k[0] == name]:
+        del _PLAN_CACHE[key]
+
+
+# Registration order is the JAX package's (auto_select breaks ties by it).
+register_algorithm("summa_bcast", style="bsp",
+                   sparse_body=_sparse_body_summa,
+                   packed_body=_packed_body_summa, packable=("a", "b"),
+                   wire_planner=_wire_planner_summa,
+                   k_order=lambda i, j, t, g: t + 0 * (i + j),
+                   step_maps=_steps_summa)(_body_summa_bcast)
+register_algorithm("summa_ag", style="bsp", wire_amortized=True,
+                   sparse_body=_sparse_body_summa,
+                   packed_body=_packed_body_summa, packable=("a", "b"),
+                   wire_planner=_wire_planner_summa,
+                   k_order=lambda i, j, t, g: t + 0 * (i + j),
+                   step_maps=_steps_summa)(_body_summa_ag)
+register_algorithm("ring_c", a_placement=SKEW_ROWS, b_placement=SKEW_COLS,
+                   sparse_body=_sparse_body_ring_c,
+                   packed_body=_packed_body_ring_c, packable=("a", "b"),
+                   wire_planner=_wire_planner_ring_c,
+                   k_order=lambda i, j, t, g: (i + j + t) % g,
+                   step_maps=_steps_ring_c)(_body_ring_c)
+register_algorithm("ring_a", b_placement=STATIONARY_A, unskew_out="rows",
+                   wire=("b", "c"), balance_axis="cols",
+                   packed_body=_packed_body_ring_a, packable=("b",),
+                   wire_planner=_wire_planner_ring_a,
+                   step_maps=_steps_ring_a)(_body_ring_a)
+register_algorithm("ring_c_bidir", a_placement=SKEW_ROWS,
+                   b_placement=SKEW_COLS, wire=("a", "a", "b"), duplex=2,
+                   packed_body=_packed_body_ring_c_bidir, packable=("a",),
+                   wire_planner=_wire_planner_ring_c_bidir,
+                   msgs_per_step=4,     # a_fwd, a_bwd, b_left, b_right
+                   step_maps=_steps_ring_c_bidir)(_body_ring_c_bidir)
 
 
 def algorithms() -> Tuple[str, ...]:
-    """Names of the schedules the port has."""
-    return tuple(_ALGORITHMS)
+    """Names of all registered algorithms (registration order)."""
+    return REGISTRY.names()
 
 
 def sparse_algorithms() -> Tuple[str, ...]:
-    """Names of the schedules with a sparse-output (packed SpGEMM) body."""
-    return tuple(a.name for a in _ALGORITHMS.values()
-                 if a.sparse_body is not None)
+    """Names of algorithms with a sparse-output (packed SpGEMM) body."""
+    return tuple(a.name for a in REGISTRY if a.sparse_body is not None)
+
+
+def recommended_balance(algorithm: str) -> str:
+    """The operand balance axis the named schedule benefits from.
+
+    Stationary-C schedules are dominated by the A tiles streamed each step,
+    so spreading nonzero blocks over grid *rows* shrinks their capacity;
+    the stationary-A ring's cost is dominated by B/C traffic and its output
+    rides a reverse ring, so a *column* balance (compensated on the B side,
+    leaving C unpermuted) composes better.  Feed the result to
+    ``DistBSR.from_dense(balance=...)``.
+    """
+    return REGISTRY.get(algorithm).balance_axis
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +778,12 @@ class _LRUCache:
         while len(self._d) > self.maxsize:
             self._d.popitem(last=False)
             self.evictions += 1
+
+    def __delitem__(self, key) -> None:
+        del self._d[key]
+
+    def __iter__(self):
+        return iter(list(self._d))
 
     def __len__(self) -> int:
         return len(self._d)
@@ -1054,17 +1451,11 @@ def _b_pack_wins(b_h: DistMatrix) -> bool:
 def _check_request(algorithm: str, output: str, wire: str,
                    overlap: str, impl: Optional[str]) -> None:
     """Refuse, before any work, an unknown option or what the port lacks."""
-    if algorithm == "auto":
-        raise ValueError(
-            "algorithm='auto' is not in the port yet: it scores schedules "
-            "with the cost model, which a later slice ports; pass "
-            "algorithm='ring_c'")
-    if algorithm not in _ALGORITHMS:
+    if algorithm != "auto" and algorithm not in REGISTRY:
         if algorithm in _NOT_PORTED:
             raise ValueError(f"the port does not have algorithm "
                              f"{algorithm!r} yet; it has {algorithms()}")
-        raise ValueError(f"unknown algorithm {algorithm!r}; one of "
-                         f"{algorithms()}")
+        REGISTRY.get(algorithm)             # raises: unknown algorithm
     if output not in ("dense", "sparse", "auto"):
         raise ValueError(f"unknown output {output!r}; one of "
                          "('dense', 'sparse', 'auto')")
@@ -1078,6 +1469,238 @@ def _check_request(algorithm: str, output: str, wire: str,
         raise ValueError(f"unknown impl {impl!r}; one of {kops.IMPLS}")
 
 
+def _wire_caps_for(a_h: DistMatrix, b_h: DistMatrix,
+                   packable: Tuple[str, ...]) -> Dict[str, int]:
+    """Estimated packed wire capacities from the handles' stored counts (an
+    upper bound on real blocks), so scoring reads no block values."""
+    caps = {}
+    for who, h in (("a", a_h), ("b", b_h)):
+        if who in packable and isinstance(h, DistBSR):
+            counts = h.counts.cpu().numpy()
+            caps[who] = wire_capacity(
+                int(counts.max()) if counts.size else 0,
+                h.tiled.store_capacity)
+    return caps
+
+
+# ---------------------------------------------------------------------------
+# Cost model (alpha-beta-gamma) and algorithm="auto"
+# ---------------------------------------------------------------------------
+def _key_dtype(abstract_key: tuple) -> str:
+    """The dtype name of a handle's abstract key, read by its index (the
+    port's keys end with the device)."""
+    return abstract_key[5] if abstract_key[0] == "bsr" else abstract_key[3]
+
+
+def _itemsize(dtype) -> int:
+    """Bytes per element of a torch dtype or of its name."""
+    return (getattr(torch, dtype) if isinstance(dtype, str) else
+            dtype).itemsize
+
+
+def _cost_model(alg: Algorithm, geom: _Geom, a_key: tuple, b_key: tuple,
+                symbolic: Optional[SymbolicProduct] = None,
+                wire_caps: Optional[Dict[str, int]] = None
+                ) -> Dict[str, float]:
+    """Per-step wire volume / flops of one plan execution on a g x g grid
+    of devices, as the JAX package counts them.
+
+    The A tile rides in its stored pre-augmented BSR form (``capacity +
+    tile block-rows`` block products per step, padding included); the B
+    tile rides densified regardless of kind; ``wire`` may name a tile twice
+    (bidirectional schedules) and ``duplex`` credits full-duplex links in
+    :func:`_predicted_time`, not here.  With ``symbolic`` (a sparse-output
+    plan) B rides in stored block form, the step executes
+    ``pair_capacity`` block-pair products and C is the packed slot array.
+    With ``wire_caps`` a packed operand is charged blocks-only at its wire
+    capacity.  The counts are the stored slots: B1 multiplies the real
+    blocks alone, so these flops over-count the port's kernel work.
+    """
+    g = geom.g
+    wire_caps = wire_caps or {}
+    if symbolic is not None:
+        bs = symbolic.block_size
+        store_a = a_key[4] + geom.a_nbr
+        store_b = b_key[4] + geom.b_nbr
+        wa = _itemsize(_key_dtype(a_key))
+        wb = _itemsize(_key_dtype(b_key))
+        a_slots = wire_caps.get("a", store_a)
+        b_slots = wire_caps.get("b", store_b)
+        a_bytes = a_slots * bs * bs * wa
+        b_bytes = b_slots * bs * bs * wb
+        c_bytes = symbolic.store_capacity * bs * bs \
+            * _itemsize(geom.out_dtype)
+        flops_step = 2 * symbolic.pair_capacity * bs ** 3
+        tiles = {"a": a_bytes, "b": b_bytes, "c": c_bytes}
+        return _assemble_cost(alg, g, a_bytes, b_bytes, c_bytes, flops_step,
+                              tiles)
+    if a_key[0] == "bsr":
+        bs, cap = a_key[3], a_key[4]
+        wa = _itemsize(_key_dtype(a_key))
+        if "a" in wire_caps:
+            wc = wire_caps["a"]             # packed: blocks only
+            a_bytes = wc * bs * bs * wa
+            slots = min(wc + geom.a_nbr, cap + geom.a_nbr)
+            flops_step = 2 * slots * bs * bs * geom.tn
+        else:
+            store = cap + geom.a_nbr        # pre-augmented stored slots
+            a_bytes = store * bs * bs * wa \
+                + store * 2 * 4             # + rows/cols int32
+            flops_step = 2 * store * bs * bs * geom.tn
+    else:
+        tk = a_key[1][1] // g
+        a_bytes = geom.tm * tk * _itemsize(_key_dtype(a_key))
+        flops_step = 2 * geom.tm * tk * geom.tn
+    wb = _itemsize(_key_dtype(b_key))
+    if "b" in wire_caps and b_key[0] == "bsr":
+        b_bytes = wire_caps["b"] * b_key[3] * b_key[3] * wb
+    else:
+        tk_b = b_key[1][0] // g
+        b_bytes = tk_b * geom.tn * wb
+    c_bytes = geom.tm * geom.tn * _itemsize(geom.out_dtype)
+    tiles = {"a": a_bytes, "b": b_bytes, "c": c_bytes}
+    return _assemble_cost(alg, g, a_bytes, b_bytes, c_bytes, flops_step,
+                          tiles)
+
+
+def _assemble_cost(alg: Algorithm, g: int, a_bytes, b_bytes, c_bytes,
+                   flops_step, tiles) -> Dict[str, float]:
+    step_bytes = sum(tiles[t] for t in alg.wire)
+    if alg.wire_amortized:
+        step_bytes = step_bytes * (g - 1) / g
+    total_flops = float(flops_step * g)
+    total_bytes = float(step_bytes * g)
+    return {
+        "steps": float(g),
+        "flops_per_step": float(flops_step),
+        "net_bytes_per_step": float(step_bytes),
+        "total_flops": total_flops,
+        "total_net_bytes": total_bytes,
+        "ai_net": total_flops / total_bytes if total_bytes else float("inf"),
+        "ai_local": total_flops / (g * (a_bytes + b_bytes) + c_bytes),
+    }
+
+
+def _overlap_eff(alg: Algorithm, machine: "_roofline.Machine",
+                 overlap: str) -> float:
+    """The comm-hiding fraction the cost model credits this schedule.
+
+    ``"off"`` serializes everything; ``"on"`` credits the machine's
+    ``overlap_eff`` to every schedule but the wire-amortized ones (whose
+    single up-front gather gates all compute); ``"auto"`` (the scoring
+    default) credits it only to the RDMA-style prefetch schedules:
+    bulk-synchronous schedules pay ``comp + comm``, rings ``max(comp,
+    comm)`` at ``overlap_eff = 1.0`` (the paper's SS3.3 overlap claim).
+    """
+    if overlap == "off":
+        return 0.0
+    if overlap == "on":
+        return 0.0 if alg.wire_amortized else machine.overlap_eff
+    return machine.overlap_eff if alg.style != "bsp" else 0.0
+
+
+def _time_breakdown(cm: Dict[str, float], alg: Algorithm,
+                    machine: "_roofline.Machine",
+                    overlap: str = "auto") -> Dict[str, float]:
+    """Alpha-beta-gamma time decomposition for one execution.
+
+    Compute time is capped by the local roofline; wire time is serialized
+    bytes over the per-chip link share (credited for ``duplex``) plus a
+    per-message alpha term (``machine.hop_latency``); the exposed comm is
+    ``max(0, comm - eff * comp)`` and the predicted seconds ``comp +
+    exposed``.
+    """
+    t_comp = cm["total_flops"] / _roofline.local_peak(cm["ai_local"], machine)
+    if "n_msgs" in cm:
+        msgs = cm["n_msgs"]
+    else:
+        n_msgs = alg.msgs_per_step if alg.msgs_per_step is not None \
+            else len(alg.wire)
+        msgs = n_msgs * (1.0 if alg.wire_amortized else cm["steps"])
+    t_comm = cm["total_net_bytes"] / (machine.net_bw * alg.duplex) \
+        + msgs * machine.hop_latency
+    eff = _overlap_eff(alg, machine, overlap)
+    exposed = max(0.0, t_comm - eff * t_comp)
+    return {
+        "t_comp": t_comp,
+        "t_comm": t_comm,
+        "t_comm_exposed": exposed,
+        "msgs": float(msgs),
+        "duplex": float(alg.duplex),
+        "overlap_eff": eff,
+        "predicted_s": t_comp + exposed,
+    }
+
+
+def _predicted_time(cm: Dict[str, float], alg: Algorithm,
+                    machine: "_roofline.Machine",
+                    overlap: str = "auto") -> float:
+    """Predicted seconds for one execution — the auto-select score."""
+    return _time_breakdown(cm, alg, machine, overlap)["predicted_s"]
+
+
+def auto_select(a, b, *, machine: Optional["_roofline.Machine"] = None,
+                g: Optional[int] = None, allow_pad: bool = False,
+                registry: Optional[AlgorithmRegistry] = None,
+                output: str = "dense", wire: str = "auto",
+                overlap: str = "auto", device=None, _symbolic=None
+                ) -> Tuple[str, Dict[str, float]]:
+    """Score every registered schedule for ``a @ b``; pick the cheapest.
+
+    Returns ``(name, scores)``, ``scores`` mapping every candidate to its
+    predicted seconds (:func:`_predicted_time` on its cost model) on
+    ``machine`` (default :data:`~repro_torch.core.roofline.H100_SXM`).
+    Ties resolve to registration order.  The scores describe the g x g
+    grid of devices the schedules are written for, not the stacked
+    executor, which moves no tile.  ``output="sparse"`` scores only the
+    schedules with a sparse-output body against the symbolic-phase cost
+    model; ``wire="packed"`` scores each schedule's packable operands at
+    their wire capacities; ``overlap`` feeds the comm-hiding term
+    (:func:`_overlap_eff`).
+    """
+    _check_request("auto", output, wire, overlap, None)
+    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
+    machine = machine or _roofline.H100_SXM
+    registry = registry or REGISTRY
+    wire = _resolve_wire(wire, output)
+    if wire == "packed" and not (isinstance(a_h, DistBSR)
+                                 or isinstance(b_h, DistBSR)):
+        raise ValueError(
+            "wire='packed' needs at least one block-sparse (DistBSR) "
+            "operand — dense operands have no packable structure; use "
+            "wire='padded'")
+    sym = None
+    candidates = list(registry)
+    if output == "sparse":
+        reason = _sparse_output_eligible(a_h, b_h)
+        if reason:
+            raise ValueError(reason)
+        sym = _symbolic if _symbolic is not None else _symbolic_for(a_h, b_h)
+        candidates = [alg for alg in candidates
+                      if alg.sparse_body is not None]
+    geom = _geometry(a_h, b_h, impl=None, overlap=overlap == "on",
+                     c_store=sym.store_capacity if sym else 0)
+    a_key, b_key = a_h.abstract_key(), b_h.abstract_key()
+    scores = {}
+    for alg in candidates:
+        if alg.cost_fn is not None:       # structure-dependent (steal3d)
+            cm = alg.cost_fn(alg, geom, a_h, b_h, wire=wire)
+        else:
+            caps = None
+            if wire == "packed":
+                packable = ("a", "b") if sym is not None else alg.packable
+                caps = _wire_caps_for(a_h, b_h, packable)
+                if sym is None and "b" in caps and not _b_pack_wins(b_h):
+                    del caps["b"]
+            cm = _cost_model(alg, geom, a_key, b_key, symbolic=sym,
+                             wire_caps=caps)
+        scores[alg.name] = _predicted_time(cm, alg, machine, overlap)
+    if not scores:
+        raise ValueError("no algorithms registered" if output != "sparse"
+                         else "no sparse-output algorithms registered")
+    return min(scores, key=scores.get), scores
+
+
 def _steps_on_device(arrays: Dict[str, np.ndarray], g: int,
                      device: torch.device) -> list:
     """``[g, g, t, ...]`` plan arrays -> per step t a dict of ``[g*g, ...]``
@@ -1087,7 +1710,7 @@ def _steps_on_device(arrays: Dict[str, np.ndarray], g: int,
         step = {}
         for k, v in arrays.items():
             v = np.ascontiguousarray(v[:, :, t].reshape(g * g, -1))
-            dtype = torch.int64 if k.endswith(("gidx", "dmap")) \
+            dtype = torch.int64 if "gidx" in k or "dmap" in k \
                 else torch.int32
             step[k] = torch.from_numpy(v).to(device=device, dtype=dtype)
         steps.append(step)
@@ -1122,9 +1745,12 @@ class MatmulPlan:
     def __init__(self, algorithm: Algorithm, geom: _Geom,
                  executor: StackedExecutor, a_key: tuple, b_key: tuple,
                  allow_pad: bool = False, overlap: str = "auto",
+                 requested: Optional[str] = None,
+                 auto_scores: Optional[Dict[str, float]] = None,
                  symbolic: Optional[SymbolicProduct] = None,
                  wire: str = "padded", packs: Tuple[str, ...] = (),
                  wire_aux: Optional[Dict[str, np.ndarray]] = None,
+                 wire_caps: Optional[Dict[str, int]] = None,
                  wire_fps: Optional[Dict[str, str]] = None):
         self.algorithm = algorithm
         self.geom = geom
@@ -1135,11 +1761,17 @@ class MatmulPlan:
         self._a_key = a_key
         self._b_key = b_key
         self._allow_pad = allow_pad
+        # what the request that first built this plan asked for ("auto" or
+        # a name) and, if auto ever selected it, the candidates' scores
+        self.requested = requested or algorithm.name
+        self.auto_scores = auto_scores
         self.symbolic = symbolic
-        # which operands ship packed ("a"/"b") and the structure
-        # fingerprints their consume maps were built for (the call guard)
+        # which operands ship packed ("a"/"b"), their wire capacities (the
+        # cost model's byte terms) and the structure fingerprints their
+        # consume maps were built for (the call guard)
         self.wire = wire
         self._packs = packs
+        self._wire_caps = wire_caps
         self._wire_fps = wire_fps or {}
         dev = executor.device
         if symbolic is not None:
@@ -1187,6 +1819,59 @@ class MatmulPlan:
         bs = self.symbolic.block_size
         return max((s["table"].workspace_bytes(bs) for s in self._pairs
                     if "table" in s), default=0)
+
+    def step_maps(self) -> list:
+        """The schedule's steps as this plan's dense-output body runs them:
+        per step, one ``(a_map, b_map)`` per B1 launch (two for
+        ``ring_c_bidir``), output tile p reading A tile ``a_map[p]`` and B
+        tile ``b_map[p]`` of the placed stacks (a packed B is densified per
+        position first, and the launch then reads position p's)."""
+        if self.algorithm.step_maps is None:
+            raise ValueError(f"algorithm {self.algorithm.name!r} declares no "
+                             "step_maps")
+        return self.algorithm.step_maps(self.geom, self.executor)
+
+    def cost_model(self, a: Optional["DistBSR"] = None) -> Dict[str, float]:
+        """Per-step volume / flops of one plan execution (per device of the
+        g x g grid the schedule is written for), the JAX package's counts:
+        stored slots, padding and coverage included.  Pass the sparse
+        left-hand handle to also get the paper's Fig-1 per-stage vs
+        end-to-end imbalance from its tile counts."""
+        out = _cost_model(self.algorithm, self.geom, self._a_key,
+                          self._b_key, symbolic=self.symbolic,
+                          wire_caps=self._wire_caps)
+        if isinstance(a, DistBSR):
+            per_stage, end_to_end = _schedule.stage_imbalance(
+                a.counts.cpu().numpy().astype(np.float64))
+            out["per_stage_imbalance"] = per_stage
+            out["end_to_end_imbalance"] = end_to_end
+        out["duplex"] = float(self.algorithm.duplex)
+        out["overlap"] = self.overlap
+        return out
+
+    def predicted_cost(self, machine: Optional["_roofline.Machine"] = None
+                       ) -> float:
+        """Predicted seconds per execution (the ``algorithm="auto"`` score)
+        on ``machine`` (default :data:`~repro_torch.core.roofline.
+        H100_SXM`)."""
+        machine = machine or _roofline.H100_SXM
+        return _predicted_time(self.cost_model(), self.algorithm, machine,
+                               self.overlap)
+
+    def predicted_perf(self, machine: "_roofline.Machine"
+                       ) -> Dict[str, float]:
+        """Paper SS4 inter-node roofline prediction for this plan, with the
+        alpha-beta-gamma time breakdown under its overlap mode."""
+        cm = self.cost_model()
+        peak = _roofline.local_peak(cm["ai_local"], machine)
+        return {
+            "perf": _roofline.internode_roofline(cm["ai_net"],
+                                                 cm["ai_local"], machine),
+            "local_peak": peak,
+            "net_bound": cm["ai_net"] * machine.net_bw < peak,
+            **_time_breakdown(cm, self.algorithm, machine, self.overlap),
+            **cm,
+        }
 
     def spmm_table(self, a_h: "DistBSR", a_map: np.ndarray,
                    b_map: np.ndarray) -> SpmmTable:
@@ -1325,6 +2010,7 @@ class MatmulPlan:
 def plan_matmul(a, b, *, algorithm: str = "ring_c",
                 impl: Optional[str] = None, g: Optional[int] = None,
                 allow_pad: bool = False, cache: bool = True,
+                machine: Optional["_roofline.Machine"] = None,
                 output: str = "dense",
                 sparse_threshold: Optional[float] = None,
                 wire: str = "auto", overlap: str = "auto",
@@ -1336,6 +2022,12 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
     (``g`` required when ``a`` is dense); arrays go to ``device``, the card
     by default.  ``impl`` picks the local multiply (``None``/``"auto"``:
     the CUDA kernel on the card, the plain version on the CPU).
+
+    ``algorithm`` names a registered schedule (:func:`algorithms`), or
+    ``"auto"``: :func:`auto_select` scores every registered schedule
+    against ``machine`` (default :data:`~repro_torch.core.roofline.
+    H100_SXM`) and the cheapest is built; the choice and the scores are
+    recorded on the plan (``plan.requested``, ``plan.auto_scores``).
 
     ``output``: ``"dense"`` returns a cropped dense tensor; ``"sparse"``
     (two DistBSR operands of one block size, unbalanced) returns a
@@ -1354,13 +2046,13 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
     and ``"auto"`` resolves to the bulk one: on the single-stream executor
     the split-step body hides no copy and holds one more copy of each
     operand (``"on"`` stays for parity with the JAX package until the shift
-    runs on a side stream).  The mode joins the cache key.
+    runs on a side stream).  The mode joins the cache key and feeds the
+    cost model's comm-hiding credit.
     """
     _check_request(algorithm, output, wire, overlap, impl)
     a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
     if a_h.device.type == "cuda":
         strict_fp32()
-    alg = _ALGORITHMS[algorithm]
     if output == "sparse":
         reason = _sparse_output_eligible(a_h, b_h)
         if reason:
@@ -1368,12 +2060,14 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
     elif output == "auto":
         if sparse_threshold is None:
             sparse_threshold = SPARSE_OUTPUT_DENSITY_THRESHOLD
-        if alg.sparse_body is not None \
-                and _sparse_output_eligible(a_h, b_h) is None \
+        can_sparse = algorithm == "auto" \
+            or REGISTRY.get(algorithm).sparse_body is not None
+        if can_sparse and _sparse_output_eligible(a_h, b_h) is None \
                 and _predicted_density_for(a_h, b_h) <= sparse_threshold:
             output = "sparse"
         else:
             output = "dense"
+    requested, auto_scores = algorithm, None
     wire = _resolve_wire(wire, output)
     if wire == "packed" and not (isinstance(a_h, DistBSR)
                                  or isinstance(b_h, DistBSR)):
@@ -1382,10 +2076,18 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
             "operand — dense operands have no packable structure; use "
             "wire='padded'")
     sym = _symbolic_for(a_h, b_h) if output == "sparse" else None
+    if algorithm == "auto":
+        algorithm, auto_scores = auto_select(
+            a_h, b_h, machine=machine, allow_pad=allow_pad, output=output,
+            wire=wire, overlap=overlap, _symbolic=sym)
+    alg = REGISTRY.get(algorithm)
     if sym is not None and alg.sparse_body is None:
         raise ValueError(
             f"algorithm {algorithm!r} has no sparse-output body; one of "
             f"{sparse_algorithms()} (or use output='dense')")
+    if alg.static_planner is not None:
+        raise ValueError(f"algorithm {algorithm!r} needs a static planner, "
+                         "which the port does not have yet")
     # which operands ship packed (a plan with none stays padded)
     packs: Tuple[str, ...] = ()
     if wire == "packed":
@@ -1411,13 +2113,17 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
     if cache:
         plan = _PLAN_CACHE.get(key)
         if plan is not None:
+            if auto_scores is not None and plan.auto_scores is None:
+                plan.auto_scores = auto_scores   # record for introspection
             return plan
     geom = _geometry(a_h, b_h, impl=impl, overlap=overlap == "on",
                      c_store=sym.store_capacity if sym else 0)
-    wire_aux = wire_fps = None
+    wire_aux = wire_caps = wire_fps = None
     if wire == "packed":
         a_po = a_h.packed_operand() if "a" in packs else None
         b_po = b_h.packed_operand() if "b" in packs else None
+        wire_caps = {t: po.wire_capacity for t, po in
+                     (("a", a_po), ("b", b_po)) if po is not None}
         wire_fps = {t: po.fingerprint for t, po in
                     (("a", a_po), ("b", b_po)) if po is not None}
         if sym is not None:
@@ -1430,8 +2136,10 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
             wire_aux = alg.wire_planner(a_po, b_po, geom)
     plan = MatmulPlan(alg, geom, StackedExecutor(a_h.g, a_h.device),
                       a_h.abstract_key(), b_h.abstract_key(),
-                      allow_pad=allow_pad, overlap=overlap, symbolic=sym,
-                      wire=wire, packs=packs, wire_aux=wire_aux,
+                      allow_pad=allow_pad, overlap=overlap,
+                      requested=requested, auto_scores=auto_scores,
+                      symbolic=sym, wire=wire, packs=packs,
+                      wire_aux=wire_aux, wire_caps=wire_caps,
                       wire_fps=wire_fps)
     if cache:
         _PLAN_CACHE[key] = plan
@@ -1440,19 +2148,21 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
 
 def matmul(a, b, *, algorithm: str = "ring_c", impl: Optional[str] = None,
            g: Optional[int] = None, allow_pad: bool = False,
+           machine: Optional["_roofline.Machine"] = None,
            output: str = "dense", sparse_threshold: Optional[float] = None,
            wire: str = "auto", overlap: str = "auto", device=None):
     """Distributed ``a @ b`` through the shared plan cache.
 
     Dispatches sparse x dense -> SpMM, sparse x sparse -> SpGEMM (a dense
     tensor, or with ``output="sparse"|"auto"`` a :class:`DistBSR` that
-    chains into further multiplies) and dense x dense -> the dense engine
-    (see :func:`plan_matmul` for the arguments).
+    chains into further multiplies) and dense x dense -> the dense engine;
+    ``algorithm="auto"`` picks the schedule by the cost model (see
+    :func:`plan_matmul` for the arguments).
     """
     _check_request(algorithm, output, wire, overlap, impl)
     a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
     plan = plan_matmul(a_h, b_h, algorithm=algorithm, impl=impl,
-                       allow_pad=allow_pad, output=output,
+                       allow_pad=allow_pad, machine=machine, output=output,
                        sparse_threshold=sparse_threshold, wire=wire,
                        overlap=overlap)
     return plan(a_h, b_h)

@@ -1,22 +1,24 @@
 """The port's plan API (``repro_torch.core.api``) against the JAX package's.
 
-Parity: ``matmul(algorithm="ring_c")`` on SpMM, dense-output SpGEMM and
-dense x dense, with overlap on and off and with balanced left operands;
-sparse-output SpGEMM (wire padded and packed, overlap on and off,
-``output="auto"`` on both sides of its threshold, the chained cube) and the
-packed-wire dense-output body; all against
-``repro.core.api.matmul(algorithm="ring_c", impl="ref")`` on the same numpy
-inputs.  g = 1 runs in this process; g = 2 and 3 need one JAX device per
+Parity: ``matmul`` through every schedule the port has (``summa_bcast``,
+``summa_ag``, ``ring_c``, ``ring_a``, ``ring_c_bidir``) on SpMM,
+dense-output SpGEMM and dense x dense, with overlap on and off and with
+balanced left operands; the packed-wire dense-output bodies; sparse-output
+SpGEMM through ``ring_c`` (wire padded and packed, overlap on and off,
+``output="auto"`` on both sides of its threshold, the chained cube) and
+both SUMMAs; all against ``repro.core.api.matmul(algorithm=...,
+impl="ref")`` on the same numpy inputs.  The host metadata (the wire
+planners' consume maps and the scheduled pair lists) is bit-identical.  g = 1 runs in this process; g = 2 and 3 need one JAX device per
 tile, so their JAX results come from one child process
 (``torch_jax_child.py``) started with 9 host devices.  Float32 sums of a
 few dozen products taken in other orders: tolerance 1e-5.  A sparse
 result's structure (``rows``, ``cols``, ``counts``, capacities) must be
 bit-identical.
 
-Besides: plan-cache and placement reuse, the operand validation of
-``_coerce_pair`` and the sparse-output and structure guards (same messages
-as the JAX package), the refusals of what the port does not have, and the
-default device.
+Besides: the algorithm registry, plan-cache and placement reuse, the
+operand validation of ``_coerce_pair`` and the sparse-output and structure
+guards (same messages as the JAX package), the refusals of what the port
+does not have, and the default device.
 """
 import os
 import pathlib
@@ -31,6 +33,7 @@ import jax.numpy as jnp
 
 from repro.core import api as japi
 from repro.core import dist as jdist
+from repro.core import wire as jwire  # analysis: allow(source.import.repro.core.wire)
 from repro.kernels import ops as jops
 from repro.runtime.platform import subprocess_env
 from repro_torch.core import api as tapi
@@ -44,14 +47,19 @@ import torch_jax_child as child
 CPU = torch.device("cpu")
 TOL = 1e-5
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-CASES = {name: (kind, balance, overlap)
-         for name, kind, balance, overlap in child.CASES}
-SPARSE_CASES = {name: (kind, kw) for name, kind, kw in child.SPARSE_CASES}
+CASES = {name: (alg, kind, balance, overlap)
+         for name, alg, kind, balance, overlap in child.CASES}
+SPARSE_CASES = {name: (alg, kind, kw)
+                for name, alg, kind, kw in child.SPARSE_CASES}
+RING_C = [c for c, v in CASES.items() if v[0] == "ring_c"]
+OTHER = [c for c, v in CASES.items() if v[0] != "ring_c"]
+SPARSE_RING_C = [c for c, v in SPARSE_CASES.items() if v[0] == "ring_c"]
+SPARSE_OTHER = [c for c, v in SPARSE_CASES.items() if v[0] != "ring_c"]
 
 
-def port_result(kind: str, balance: str, overlap: str, g: int,
-                ops: dict) -> np.ndarray:
-    kw = dict(algorithm="ring_c", overlap=overlap)
+def port_result(algorithm: str, kind: str, balance: str, overlap: str,
+                g: int, ops: dict) -> np.ndarray:
+    kw = dict(algorithm=algorithm, overlap=overlap)
     if kind == "dense":
         return matmul(ops["x"], ops["y"], g=g, device=CPU, **kw).numpy()
     a_h = DistBSR.from_dense(ops["a"], g=g, block_size=child.BLOCK,
@@ -64,9 +72,10 @@ def port_result(kind: str, balance: str, overlap: str, g: int,
     return matmul(a_h, b_h, **kw).numpy()
 
 
-def port_sparse_result(kind: str, kw: dict, g: int, ops: dict) -> dict:
+def port_sparse_result(algorithm: str, kind: str, kw: dict, g: int,
+                       ops: dict) -> dict:
     return child.result_fields(child.run_sparse_case(
-        tapi, kind, kw,
+        tapi, algorithm, kind, kw,
         lambda name: DistBSR.from_dense(ops[name], g=g,
                                         block_size=child.BLOCK, device=CPU),
         lambda name, a_h: DistDense.for_rhs(ops[name], a_h)))
@@ -116,22 +125,19 @@ def ops():
 # ---------------------------------------------------------------------------
 # parity with the JAX package
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("case", list(CASES))
-def test_ring_c_parity_g1_in_process(case, ops):
-    kind, balance, overlap = CASES[case]
-    got = port_result(kind, balance, overlap, 1, ops)
-    want = child.jax_result(kind, balance, overlap, 1, ops)
+def _dense_parity_g1(case, ops):
+    alg, kind, balance, overlap = CASES[case]
+    got = port_result(alg, kind, balance, overlap, 1, ops)
+    want = child.jax_result(alg, kind, balance, overlap, 1, ops)
     assert got.shape == want.shape == child.oracle(kind, ops).shape
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(got, child.oracle(kind, ops), rtol=TOL,
                                atol=TOL)
 
 
-@pytest.mark.parametrize("g", [2, 3])
-@pytest.mark.parametrize("case", list(CASES))
-def test_ring_c_parity_multi_tile(case, g, ops, jax_multi):
-    kind, balance, overlap = CASES[case]
-    got = port_result(kind, balance, overlap, g, ops)
+def _dense_parity_multi(case, g, ops, jax_multi):
+    alg, kind, balance, overlap = CASES[case]
+    got = port_result(alg, kind, balance, overlap, g, ops)
     want = jax_multi[f"{case}/g{g}"]
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
@@ -139,33 +145,102 @@ def test_ring_c_parity_multi_tile(case, g, ops, jax_multi):
                                atol=TOL)
 
 
-@pytest.mark.parametrize("case", list(SPARSE_CASES))
-def test_sparse_and_packed_parity_g1_in_process(case, ops):
-    kind, kw = SPARSE_CASES[case]
-    got = port_sparse_result(kind, kw, 1, ops)
-    want = child.jax_sparse_result(kind, kw, 1, ops)
+def _sparse_parity_g1(case, ops):
+    alg, kind, kw = SPARSE_CASES[case]
+    got = port_sparse_result(alg, kind, kw, 1, ops)
+    want = child.jax_sparse_result(alg, kind, kw, 1, ops)
     assert_same_result(got, want, child.sparse_oracle(kind, ops))
+
+
+def _jax_multi_fields(jax_multi, case, g) -> dict:
+    prefix = f"{case}/g{g}/"
+    return {k[len(prefix):]: v for k, v in jax_multi.items()
+            if k.startswith(prefix)}
+
+
+def _sparse_parity_multi(case, g, ops, jax_multi):
+    alg, kind, kw = SPARSE_CASES[case]
+    got = port_sparse_result(alg, kind, kw, g, ops)
+    assert_same_result(got, _jax_multi_fields(jax_multi, case, g),
+                       child.sparse_oracle(kind, ops))
+
+
+@pytest.mark.parametrize("case", RING_C)
+def test_ring_c_parity_g1_in_process(case, ops):
+    _dense_parity_g1(case, ops)
 
 
 @pytest.mark.parametrize("g", [2, 3])
-@pytest.mark.parametrize("case", list(SPARSE_CASES))
+@pytest.mark.parametrize("case", RING_C)
+def test_ring_c_parity_multi_tile(case, g, ops, jax_multi):
+    _dense_parity_multi(case, g, ops, jax_multi)
+
+
+@pytest.mark.parametrize("case", SPARSE_RING_C)
+def test_sparse_and_packed_parity_g1_in_process(case, ops):
+    _sparse_parity_g1(case, ops)
+
+
+@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("case", SPARSE_RING_C)
 def test_sparse_and_packed_parity_multi_tile(case, g, ops, jax_multi):
-    kind, kw = SPARSE_CASES[case]
-    got = port_sparse_result(kind, kw, g, ops)
-    prefix = f"{case}/g{g}/"
-    want = {k[len(prefix):]: v for k, v in jax_multi.items()
-            if k.startswith(prefix)}
-    assert_same_result(got, want, child.sparse_oracle(kind, ops))
+    _sparse_parity_multi(case, g, ops, jax_multi)
 
 
-@pytest.mark.parametrize("case", [c for c, (kind, _) in SPARSE_CASES.items()
-                                  if kind != "chain"])
+@pytest.mark.parametrize("case", OTHER)
+def test_schedule_parity_g1_in_process(case, ops):
+    """summa_bcast, summa_ag, ring_a and ring_c_bidir: SpMM, dense-output
+    SpGEMM and dense x dense, overlap on and off, balanced rows and cols."""
+    _dense_parity_g1(case, ops)
+
+
+@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("case", OTHER)
+def test_schedule_parity_multi_tile(case, g, ops, jax_multi):
+    _dense_parity_multi(case, g, ops, jax_multi)
+
+
+@pytest.mark.parametrize("case", SPARSE_OTHER)
+def test_schedule_sparse_and_packed_parity_g1_in_process(case, ops):
+    """The other schedules' packed-wire bodies, and both SUMMAs' sparse
+    outputs (structure bit-identical)."""
+    _sparse_parity_g1(case, ops)
+
+
+@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("case", SPARSE_OTHER)
+def test_schedule_sparse_and_packed_parity_multi_tile(case, g, ops,
+                                                      jax_multi):
+    _sparse_parity_multi(case, g, ops, jax_multi)
+
+
+@pytest.mark.parametrize("algorithm", ["summa_bcast", "summa_ag", "ring_a",
+                                       "ring_c_bidir"])
+def test_bf16_schedule_parity_g1(algorithm, ops):
+    """bf16 SpMM through each other schedule against the JAX package's,
+    within the reference's bf16 tolerance."""
+    a_j = japi.DistBSR.from_dense(ops["a"], g=1, block_size=4,
+                                  dtype=jnp.bfloat16)
+    want = japi.matmul(a_j, jnp.asarray(ops["b"], jnp.bfloat16),
+                       algorithm=algorithm, impl="ref")
+    a_t = DistBSR.from_dense(ops["a"], g=1, block_size=4,
+                             dtype=torch.bfloat16, device=CPU)
+    got = matmul(a_t, torch.from_numpy(ops["b"]).bfloat16(),
+                 algorithm=algorithm)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", [c for c, (_, kind, _) in
+                                  SPARSE_CASES.items() if kind != "chain"])
 def test_sparse_and_packed_plans_resolve_as_jax(case, ops):
     """output, wire and the packed operands resolve as the JAX package's
     plans do (g = 1: the JAX plan needs one device per tile; the chain's
     plans are those of the sparse cases)."""
-    kind, kw = SPARSE_CASES[case]
-    kw = dict(kw, algorithm="ring_c")
+    alg, kind, kw = SPARSE_CASES[case]
+    kw = dict(kw, algorithm=alg)
     output = {"sparse": "sparse", "auto": "auto"}.get(kind, "dense")
     rhs = "b" if kind == "packed-spmm" else "s"
     a_t = DistBSR.from_dense(ops["a"], g=1, block_size=4, device=CPU)
@@ -233,7 +308,9 @@ def test_sparse_steps_launch_one_pair_kernel_call_per_step(ops, monkeypatch):
     assert plan.workspace_bytes() == 0           # no kernel on the CPU
 
 
-@pytest.mark.parametrize("case", ["sparse-padded-off", "sparse-packed-off"])
+@pytest.mark.parametrize("case", ["sparse-padded-off", "sparse-packed-off",
+                                  "summa_bcast:sparse-packed-off",
+                                  "summa_ag:sparse-padded-on"])
 @pytest.mark.parametrize("g", [1, 2, 3])
 def test_sparse_body_writes_step_0_fresh_then_adds_in_place(g, case, ops,
                                                              jax_multi,
@@ -250,18 +327,16 @@ def test_sparse_body_writes_step_0_fresh_then_adds_in_place(g, case, ops,
         return out
 
     monkeypatch.setattr(tapi.kops, "bsr_pair_accumulate", spy)
-    kind, kw = SPARSE_CASES[case]
-    got = port_sparse_result(kind, kw, g, ops)
+    alg, kind, kw = SPARSE_CASES[case]
+    got = port_sparse_result(alg, kind, kw, g, ops)
     assert len(calls) == g
     assert calls[0][0] is None and calls[0][1].dtype == torch.float32
     for acc, out in calls[1:]:
         assert acc is calls[0][1] and out is acc
     if g == 1:
-        want = child.jax_sparse_result(kind, kw, 1, ops)
+        want = child.jax_sparse_result(alg, kind, kw, 1, ops)
     else:
-        prefix = f"{case}/g{g}/"
-        want = {k[len(prefix):]: v for k, v in jax_multi.items()
-                if k.startswith(prefix)}
+        want = _jax_multi_fields(jax_multi, case, g)
     assert_same_result(got, want, child.sparse_oracle(kind, ops))
 
 
@@ -385,6 +460,204 @@ def test_densify_and_from_tiled_rebalance_match(ops):
         DistBSR.from_tiled(a_t.tiled, capacity=None)
     with pytest.raises(ValueError, match="unknown balance"):
         DistBSR.from_tiled(a_t.tiled, balance="diag")
+
+
+# ---------------------------------------------------------------------------
+# host metadata of the other schedules: bit-identical to the JAX package's
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("algorithm", ["summa_bcast", "summa_ag", "ring_c",
+                                       "ring_a", "ring_c_bidir"])
+def test_wire_planners_match_jax(algorithm, g, ops):
+    """Each schedule's consume maps for its packable operands equal the JAX
+    planner's; summa_ag's with JAX's all-gather bases (``k *
+    wire_capacity``) taken off, since the port reads the placed packed
+    stack through tile maps instead of a flat gathered pool."""
+    a_t = DistBSR.from_dense(ops["a"], g=g, block_size=4, device=CPU)
+    s_t = DistBSR.from_dense(ops["s"], g=g, block_size=4, device=CPU)
+    a_j = japi.DistBSR.from_dense(ops["a"], g=g, block_size=4)
+    s_j = japi.DistBSR.from_dense(ops["s"], g=g, block_size=4)
+    alg_t, alg_j = tapi.REGISTRY.get(algorithm), japi.REGISTRY.get(algorithm)
+    assert alg_t.packable == alg_j.packable
+    po = lambda h, who: h.packed_operand() if who in alg_t.packable \
+        else None
+    geom_t = tapi._geometry(a_t, s_t, impl=None)
+    geom_j = japi._geometry(a_j, s_j, impl=None, axis_row="row",
+                            axis_col="col")
+    got = alg_t.wire_planner(po(a_t, "a"), po(s_t, "b"), geom_t)
+    want = alg_j.wire_planner(po(a_j, "a"), po(s_j, "b"), geom_j)
+    assert set(got) == set(want) and got
+    for k, v in want.items():
+        if algorithm == "summa_ag" and k in ("a_gidx", "b_dmap"):
+            wc = (a_j if k == "a_gidx" else s_j).packed_operand() \
+                .wire_capacity
+            v = (v - japi._summa_bases(g, wc)[..., None]).astype(v.dtype)
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("wire", ["padded", "packed"])
+@pytest.mark.parametrize("algorithm", ["summa_bcast", "summa_ag", "ring_c"])
+def test_scheduled_pair_lists_match_jax(algorithm, wire, g, ops):
+    """A sparse-output plan's per-step pair lists are the JAX package's,
+    scheduled by the schedule's own k_order (and remapped to the packed
+    layout on the packed wire)."""
+    a_t = DistBSR.from_dense(ops["a"], g=g, block_size=4, device=CPU)
+    s_t = DistBSR.from_dense(ops["s"], g=g, block_size=4, device=CPU)
+    a_j = japi.DistBSR.from_dense(ops["a"], g=g, block_size=4)
+    s_j = japi.DistBSR.from_dense(ops["s"], g=g, block_size=4)
+    plan = plan_matmul(a_t, s_t, algorithm=algorithm, output="sparse",
+                       wire=wire)
+    sym = japi._symbolic_for(a_j, s_j)
+    kw = {}
+    if wire == "packed":
+        kw = dict(pair_a=jwire.remap_pairs_packed(
+            sym.pair_a, a_j.packed_operand(), "a"),
+            pair_b=jwire.remap_pairs_packed(
+                sym.pair_b, s_j.packed_operand(), "b"))
+    want = sym.scheduled_pairs(japi.REGISTRY.get(algorithm).k_order, **kw)
+    for t, step in enumerate(plan._pairs):
+        for k in ("pa", "pb", "ps"):
+            np.testing.assert_array_equal(
+                step[k].numpy(),
+                np.asarray(want[k])[:, :, t].reshape(g * g, -1), err_msg=k)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("wire", ["padded", "packed"])
+@pytest.mark.parametrize("algorithm", ["summa_bcast", "summa_ag", "ring_a",
+                                       "ring_c_bidir"])
+def test_other_schedules_read_the_placed_stacks_in_place(algorithm, wire, g,
+                                                         monkeypatch):
+    """Every launch of the dense-output SpMM hands B1 the placed A stack
+    (padded) or packed A buffers (packed) themselves, with the tile maps
+    that ``plan.step_maps()`` lists, in order, and B's placed stack (its
+    two contiguous column halves for ring_c_bidir): nothing rolls.  Each
+    accumulator is written fresh by its first launch and added into after
+    that."""
+    calls = _count_shifts(monkeypatch)
+    seen = []
+    raw = tapi.kops.bsr_spmm_raw
+
+    def spy(blocks, rows, cols, dense, **kw):
+        out = raw(blocks, rows, cols, dense, **kw)
+        seen.append((blocks, dense, kw, out))
+        return out
+
+    monkeypatch.setattr(tapi.kops, "bsr_spmm_raw", spy)
+    a_d = random_sparse(24, 24, 0.3, seed=g)
+    a_d[:8] = 0
+    b = np.random.default_rng(g).standard_normal((24, 5)).astype(np.float32)
+    a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=CPU)
+    b_h = DistDense.for_rhs(b, a_h)
+    plan = plan_matmul(a_h, b_h, algorithm=algorithm, wire=wire)
+    got = plan(a_h, b_h).numpy()
+    np.testing.assert_allclose(got, a_d @ b, rtol=TOL, atol=TOL)
+    assert calls["torch.roll"] == [] and calls["shifts"] == []
+    alg = plan.algorithm
+    packed = "a" in plan._packs
+    assert packed == (wire == "packed" and algorithm != "ring_a")
+    a_pool = (a_h.packed_wire if packed else a_h.placed)(
+        alg.a_placement)["blocks"]
+    b_pool = b_h.placed(alg.b_placement)["dense"]
+    per_step = 2 if algorithm == "ring_c_bidir" else 1
+    tn = plan.geom.tn
+    launches = [m for step in plan.step_maps() for m in step]
+    assert len(seen) == len(launches) == g * per_step
+    distinct = g if algorithm.startswith("summa") else g * g
+    for n, ((blocks, dense, kw, _), (a_map, b_map)) in enumerate(
+            zip(seen, launches)):
+        assert blocks.data_ptr() == a_pool.data_ptr()
+        np.testing.assert_array_equal(kw["a_map"], a_map)
+        np.testing.assert_array_equal(kw["b_map"], b_map)
+        assert len(set(np.asarray(a_map).tolist())) == distinct
+        if per_step == 2:
+            assert dense.is_contiguous()
+            assert dense.shape[-1] == (tn // 2, tn - tn // 2)[n % 2]
+        else:
+            assert dense.data_ptr() == b_pool.data_ptr()
+        # accumulator n % per_step: fresh at its first launch, then in place
+        if n < per_step:
+            assert kw["out"] is None
+        else:
+            assert kw["out"] is seen[n % per_step][3]
+
+
+@pytest.mark.parametrize("impl", ["ref", "auto"])
+def test_bidir_with_unit_width_tiles(impl):
+    """tn == 1 leaves ring_c_bidir's left half-panel zero wide: the body
+    and the wrapper go through with a zero-width C half."""
+    a_d = random_sparse(16, 16, 0.3, seed=0)
+    a_h = DistBSR.from_dense(a_d, g=1, block_size=4, device=CPU)
+    b_thin = np.random.default_rng(11).standard_normal(
+        (16, 1)).astype(np.float32)
+    got = matmul(a_h, b_thin, algorithm="ring_c_bidir", impl=impl).numpy()
+    np.testing.assert_allclose(got, a_d @ b_thin, rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# the algorithm registry
+# ---------------------------------------------------------------------------
+def test_registry_unknown_algorithm(handles):
+    _, _, a_h, b_h = handles
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        matmul(a_h, b_h, algorithm="cannon")
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        tapi.recommended_balance("cannon")
+    assert tapi.recommended_balance("ring_a") == "cols"
+    assert tapi.recommended_balance("ring_c") == "rows"
+    assert tapi.recommended_balance("summa_bcast") == "rows"
+
+
+def test_registry_rejects_duplicates():
+    alg = tapi.REGISTRY.get("ring_c")
+    with pytest.raises(ValueError, match="already registered"):
+        tapi.REGISTRY.register(tapi.Algorithm(name="ring_c", body=alg.body))
+    with pytest.raises(ValueError, match="unknown a_placement"):
+        tapi.REGISTRY.register(tapi.Algorithm(name="diag", body=alg.body,
+                                              a_placement="diagonal"))
+
+
+def test_registry_extension_dispatches(handles):
+    """A newly registered algorithm is reachable through matmul at once."""
+    a_d, b, a_h, b_h = handles
+    ring_c = tapi.REGISTRY.get("ring_c")
+    tapi.REGISTRY.register(tapi.Algorithm(
+        name="ring_c_clone", body=ring_c.body,
+        a_placement=ring_c.a_placement, b_placement=ring_c.b_placement,
+        unskew_out=ring_c.unskew_out, wire=ring_c.wire))
+    try:
+        got = matmul(a_h, b_h, algorithm="ring_c_clone").numpy()
+        np.testing.assert_allclose(got, a_d @ b, rtol=TOL, atol=TOL)
+        assert "ring_c_clone" in tapi.algorithms()
+    finally:
+        tapi.REGISTRY.unregister("ring_c_clone")
+    assert "ring_c_clone" not in tapi.REGISTRY
+
+
+def test_reregistering_algorithm_evicts_stale_plans(handles):
+    a_d, b, a_h, b_h = handles
+    ring_c = tapi.REGISTRY.get("ring_c")
+    bcast = tapi.REGISTRY.get("summa_bcast")
+    name = "evict_probe"
+    tapi.REGISTRY.register(tapi.Algorithm(
+        name=name, body=ring_c.body, a_placement=ring_c.a_placement,
+        b_placement=ring_c.b_placement, unskew_out=ring_c.unskew_out,
+        wire=ring_c.wire))
+    try:
+        p1 = plan_matmul(a_h, b_h, algorithm=name)
+        other = plan_matmul(a_h, b_h, algorithm="ring_c")
+        tapi.REGISTRY.register(tapi.Algorithm(name=name, body=bcast.body),
+                               overwrite=True)
+        p2 = plan_matmul(a_h, b_h, algorithm=name)
+        assert p2 is not p1                      # stale plan evicted
+        assert plan_matmul(a_h, b_h, algorithm="ring_c") is other
+        assert p2.algorithm.a_placement == "natural"
+        np.testing.assert_allclose(p2(a_h, b_h).numpy(), a_d @ b, rtol=TOL,
+                                   atol=TOL)
+    finally:
+        tapi.REGISTRY.unregister(name)
 
 
 # ---------------------------------------------------------------------------
@@ -685,34 +958,59 @@ def test_coerce_pair_errors_match_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(algorithm="auto"), "algorithm='auto' is not in the port yet"),
-    (dict(algorithm="summa_ag"), "does not have algorithm 'summa_ag' yet"),
+    (dict(algorithm="ring_a", output="sparse", operands="sparse"),
+     "algorithm 'ring_a' has no sparse-output body"),
+    (dict(algorithm="ring_c_bidir", output="sparse", operands="sparse"),
+     "algorithm 'ring_c_bidir' has no sparse-output body"),
     (dict(algorithm="steal3d"), "does not have algorithm 'steal3d' yet"),
     (dict(algorithm="bogus"), "unknown algorithm 'bogus'"),
     (dict(output="sparse"), "sparse output needs two block-sparse"),
-    (dict(algorithm="ring_c_bidir"),
-     "does not have algorithm 'ring_c_bidir' yet"),
+    (dict(algorithm="auto", wire="packed", operands="dense"),
+     "wire='packed' needs at least one block-sparse"),
     (dict(output="csr"), "unknown output 'csr'"),
-    (dict(output="sparse", balanced=True),
+    (dict(output="sparse", operands="balanced"),
      "sparse output does not support balanced operands"),
     (dict(wire="wide"), "unknown wire 'wide'"),
     (dict(overlap="maybe"), "unknown overlap 'maybe'"),
     (dict(impl="pallas"), "unknown impl 'pallas'"),
 ])
 def test_refuses_what_the_slice_lacks(handles, kw, match):
+    """What the port refuses, with the JAX package's refusals where it has
+    them (``_both`` holds the messages equal for the schedules' sparse
+    outputs and the packed wire's dense operands); ``steal3d`` is the one
+    schedule the port does not have yet."""
     _, _, a_h, b_h = handles
-    if kw.pop("balanced", False):
+    operands = kw.pop("operands", None)
+    if operands == "balanced":
         skew = child.inputs()
         a_h = DistBSR.from_dense(skew["a"], g=2, block_size=4,
                                  balance="rows", device=CPU)
         b_h = DistBSR.from_dense(skew["s"], g=2, block_size=4, device=CPU)
+    elif operands == "sparse":
+        b_h = a_h
+    elif operands == "dense":
+        a_h = DistDense.from_global(np.ones((8, 8), np.float32), 2,
+                                    device=CPU)
+        b_h = DistDense.for_rhs(np.ones((8, 4), np.float32), a_h)
     for fn in (matmul, plan_matmul):
         with pytest.raises(ValueError, match=match):
             fn(a_h, b_h, **kw)
+    if operands in ("sparse", "dense"):
+        to_jax = lambda h: japi.DistBSR.from_dense(
+            h.densify().numpy(), g=h.g, block_size=h.block_size) \
+            if isinstance(h, DistBSR) else japi.DistDense.from_global(
+                jnp.asarray(h.data.numpy()), h.g)
+        _both(lambda: matmul(a_h, b_h, **kw),
+              lambda: japi.matmul(to_jax(a_h), to_jax(b_h), impl="ref",
+                                  **kw))
 
 
 def test_padded_wire_and_algorithms():
-    assert tapi.algorithms() == ("ring_c",)
+    assert tapi.algorithms() == ("summa_bcast", "summa_ag", "ring_c",
+                                 "ring_a", "ring_c_bidir")
+    assert tapi.algorithms() == tuple(
+        name for name in japi.algorithms() if name != "steal3d")
+    assert tapi.sparse_algorithms() == ("summa_bcast", "summa_ag", "ring_c")
     a_d = random_sparse(16, 16, 0.3, seed=0)
     a_h = DistBSR.from_dense(a_d, g=1, block_size=4, device=CPU)
     b = np.ones((16, 2), np.float32)

@@ -460,3 +460,92 @@ def test_packed_dense_body_on_the_card_matches_the_cpu(card, g):
     for x, y, scale in zip(got, want, (np.abs(a_d) @ np.abs(b),
                                        np.abs(a_d) @ np.abs(s_d))):
         assert_close(x.cpu(), y, torch.from_numpy(scale))
+
+
+OTHER_SCHEDULES = ("summa_bcast", "summa_ag", "ring_a", "ring_c_bidir")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("algorithm", OTHER_SCHEDULES)
+def test_other_schedules_on_the_card_match_the_cpu(card, algorithm, g):
+    """SpMM and dense-output SpGEMM through each other schedule, padded and
+    packed wire, on the card against the CPU's plain path; B1 launches
+    once per step (twice for ring_c_bidir's half-panels) and multiplies
+    every tile's real blocks at each launch, nothing else."""
+    a_d = random_sparse(50, 44, 0.2, seed=g)
+    s_d = random_sparse(44, 44, 0.1, seed=10 + g)
+    b = np.random.default_rng(g).standard_normal((44, 13)).astype(np.float32)
+    results = {}
+    for dev in (card, torch.device("cpu")):
+        a_h = DistBSR.from_dense(a_d, g=g, block_size=8, device=dev)
+        s_h = DistBSR.from_dense(s_d, g=g, block_size=8, device=dev)
+        results[dev.type] = [matmul(a_h, rhs, algorithm=algorithm, wire=wire)
+                             for rhs in (b, s_h)
+                             for wire in ("padded", "packed")]
+    per_step = 2 if algorithm == "ring_c_bidir" else 1
+    a_h = DistBSR.from_dense(a_d, g=g, block_size=8, device=card)
+    before = bsr_spmm_cuda.launches
+    _, multiplied = _counted(lambda: matmul(a_h, b, algorithm=algorithm))
+    assert bsr_spmm_cuda.launches == before + per_step * g
+    assert multiplied == per_step * g * int(a_h.counts.sum())
+    scales = [np.abs(a_d) @ np.abs(b)] * 2 + [np.abs(a_d) @ np.abs(s_d)] * 2
+    for got, want, scale in zip(results["cuda"], results["cpu"], scales):
+        assert got.is_cuda
+        assert_close(got.cpu(), want, torch.from_numpy(scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", OTHER_SCHEDULES)
+def test_other_schedules_bf16_on_the_card(card, algorithm):
+    """bf16 SpMM on the tensor-core path (bs 16) against the CPU's plain
+    path: each of the g partials and g - 1 running sums rounds to bf16."""
+    a_d = random_sparse(64, 64, 0.2, seed=3)
+    b = np.random.default_rng(3).standard_normal((64, 32)).astype(np.float32)
+    got, want = (matmul(DistBSR.from_dense(a_d, g=2, block_size=16,
+                                           dtype=torch.bfloat16, device=dev),
+                        torch.from_numpy(b).bfloat16(), algorithm=algorithm)
+                 for dev in (card, torch.device("cpu")))
+    assert got.dtype == torch.bfloat16
+    # as in test_bf16_main_path_on_the_card: 2g - 1 roundings, each at most
+    # one bf16 step apart on the two sides
+    b16 = torch.from_numpy(b).bfloat16().float().numpy()
+    scale = torch.from_numpy(np.abs(a_d) @ np.abs(b16))
+    assert_close(got.cpu(), want, scale, tol=TOL + 3 * BF16_STEP)
+
+
+@pytest.mark.cuda
+def test_bidir_with_unit_width_tiles_on_the_card(card):
+    """tn == 1: ring_c_bidir's left half-panel is zero wide; only the right
+    half launches B1."""
+    a_d = random_sparse(16, 16, 0.3, seed=0)
+    b = np.random.default_rng(11).standard_normal((16, 1)).astype(np.float32)
+    a_h = DistBSR.from_dense(a_d, g=1, block_size=4, device=card)
+    before = bsr_spmm_cuda.launches
+    got = matmul(a_h, b, algorithm="ring_c_bidir")
+    assert bsr_spmm_cuda.launches == before + 1
+    assert_close(got.cpu(), torch.from_numpy(a_d @ b),
+                 torch.from_numpy(np.abs(a_d) @ np.abs(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("algorithm", ["summa_bcast", "summa_ag"])
+def test_summa_sparse_output_on_the_card_matches_the_cpu(card, algorithm, g):
+    a_d = random_sparse(50, 44, 0.06, seed=g)
+    s_d = random_sparse(44, 44, 0.06, seed=10 + g)
+    results = {}
+    for dev in (card, torch.device("cpu")):
+        a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=dev)
+        s_h = DistBSR.from_dense(s_d, g=g, block_size=4, device=dev)
+        before = bsr_pair_accumulate_cuda.launches
+        results[dev.type] = matmul(a_h, s_h, algorithm=algorithm,
+                                   output="sparse")
+        launched = bsr_pair_accumulate_cuda.launches - before
+        assert launched == (g if dev.type == "cuda" else 0)   # one a step
+    got, want = results["cuda"], results["cpu"]
+    for f in ("rows", "cols", "counts"):
+        assert torch.equal(getattr(got.tiled, f).cpu(),
+                           getattr(want.tiled, f))
+    assert_close(got.densify().cpu(), want.densify(),
+                 torch.from_numpy(np.abs(a_d) @ np.abs(s_d)))

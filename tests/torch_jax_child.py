@@ -7,10 +7,10 @@ child process whose XLA backend was started with 9 host devices::
     python tests/torch_jax_child.py OUT.npz 2 3
 
 It writes, for each grid size and each case of :data:`CASES` and
-:data:`SPARSE_CASES`, the JAX package's ``matmul(algorithm="ring_c",
-impl="ref")`` result (a sparse result as its ``TiledBSR`` fields, see
-:func:`result_fields`), plus the fields of the JAX ``TiledBSR`` that the
-interop case hands to the port.  The inputs are made here from seeded numpy
+:data:`SPARSE_CASES`, the JAX package's ``matmul(algorithm=...,
+impl="ref")`` result for the case's schedule (a sparse result as its
+``TiledBSR`` fields, see :func:`result_fields`), plus the fields of the
+JAX ``TiledBSR`` that the interop case hands to the port.  The inputs are made here from seeded numpy
 and are imported by the test, so both packages see the same matrices.
 """
 from __future__ import annotations
@@ -21,8 +21,12 @@ import numpy as np
 
 BLOCK = 4
 
-# (case name, operand kind, balance of the left operand, overlap)
-CASES = (
+# The schedules the port has besides ring_c, in the JAX package's
+# registration order.
+OTHER_ALGORITHMS = ("summa_bcast", "summa_ag", "ring_a", "ring_c_bidir")
+
+# (operand kind, balance of the left operand, overlap) by case name
+_DENSE = (
     ("spmm-none-on", "spmm", "none", "on"),
     ("spmm-none-off", "spmm", "none", "off"),
     ("spmm-rows-off", "spmm", "rows", "off"),
@@ -34,12 +38,19 @@ CASES = (
     ("dense-off", "dense", "none", "off"),
 )
 
-# Sparse outputs and the packed wire: (case name, kind, matmul keywords).
-# "sparse" is A @ S with output="sparse"; "auto" A @ S with output="auto"
-# (a threshold of 1.0 resolves to sparse, 0.0 to dense); "chain" the cube
-# (S @ S) @ S, both multiplies sparse; "packed-spmm" / "packed-spgemm" the
-# dense-output packed body on A @ B / A @ S.
-SPARSE_CASES = (
+# (case name, schedule, operand kind, balance of the left operand, overlap):
+# ring_c's cases keep their names, the other schedules' are
+# "<schedule>:<case>"
+CASES = tuple((name, "ring_c", *rest) for name, *rest in _DENSE) + tuple(
+    (f"{alg}:{name}", alg, *rest)
+    for alg in OTHER_ALGORITHMS for name, *rest in _DENSE)
+
+# Sparse outputs and the packed wire: (case name, schedule, kind, matmul
+# keywords).  "sparse" is A @ S with output="sparse"; "auto" A @ S with
+# output="auto" (a threshold of 1.0 resolves to sparse, 0.0 to dense);
+# "chain" the cube (S @ S) @ S, both multiplies sparse; "packed-spmm" /
+# "packed-spgemm" the dense-output packed body on A @ B / A @ S.
+_SPARSE = (
     ("sparse-padded-on", "sparse", dict(wire="padded", overlap="on")),
     ("sparse-padded-off", "sparse", dict(wire="padded", overlap="off")),
     ("sparse-packed-on", "sparse", dict(wire="packed", overlap="on")),
@@ -56,6 +67,14 @@ SPARSE_CASES = (
     ("packed-spgemm-off", "packed-spgemm",
      dict(wire="packed", overlap="off")),
 )
+# the other schedules' packed bodies, and the SUMMAs' sparse outputs
+_PACKED = ("packed-spmm-off", "packed-spgemm-on")
+_SUMMA_SPARSE = ("sparse-padded-on", "sparse-packed-off", "auto-below")
+SPARSE_CASES = tuple((name, "ring_c", *rest) for name, *rest in _SPARSE) \
+    + tuple((f"{alg}:{name}", alg, *rest)
+            for alg in OTHER_ALGORITHMS for name, *rest in _SPARSE
+            if name in _PACKED
+            or (name in _SUMMA_SPARSE and alg.startswith("summa")))
 
 
 def inputs() -> dict:
@@ -99,11 +118,12 @@ def sparse_oracle(kind: str, ops: dict) -> np.ndarray:
     return a @ s
 
 
-def run_sparse_case(api, kind: str, kw: dict, handle, dense_rhs):
+def run_sparse_case(api, algorithm: str, kind: str, kw: dict, handle,
+                    dense_rhs):
     """One sparse case through an API module (``repro.core.api`` or
     ``repro_torch.core.api``); ``handle(x)`` wraps a numpy operand as a
     DistBSR, ``dense_rhs(x, a_h)`` a dense right operand."""
-    kw = dict(kw, algorithm="ring_c")
+    kw = dict(kw, algorithm=algorithm)
     if kind == "chain":
         s_h = handle("s")
         c2 = api.matmul(s_h, s_h, output="sparse", **kw)
@@ -137,11 +157,12 @@ def _numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def jax_sparse_result(kind: str, kw: dict, g: int, ops: dict) -> dict:
+def jax_sparse_result(algorithm: str, kind: str, kw: dict, g: int,
+                      ops: dict) -> dict:
     import jax.numpy as jnp
     from repro.core import api
     return result_fields(run_sparse_case(
-        api, kind, dict(kw, impl="ref"),
+        api, algorithm, kind, dict(kw, impl="ref"),
         lambda name: api.DistBSR.from_dense(ops[name], g=g,
                                             block_size=BLOCK),
         lambda name, a_h: api.DistDense.for_rhs(jnp.asarray(ops[name]),
@@ -154,13 +175,13 @@ def jax_tiled(g: int, balance: str, ops: dict):
                               balance=balance)
 
 
-def jax_result(kind: str, balance: str, overlap: str, g: int,
+def jax_result(algorithm: str, kind: str, balance: str, overlap: str, g: int,
                ops: dict) -> np.ndarray:
-    """``repro.core.api.matmul`` with the ring_c schedule and the jnp
+    """``repro.core.api.matmul`` with the case's schedule and the jnp
     reference kernel."""
     import jax.numpy as jnp
     from repro.core.api import DistBSR, DistDense, matmul
-    kw = dict(algorithm="ring_c", impl="ref", overlap=overlap)
+    kw = dict(algorithm=algorithm, impl="ref", overlap=overlap)
     if kind == "dense":
         return np.asarray(matmul(jnp.asarray(ops["x"]), jnp.asarray(ops["y"]),
                                  g=g, **kw))
@@ -181,10 +202,12 @@ def main(argv) -> int:
     ops = inputs()
     res = {}
     for g in grids:
-        for name, kind, balance, overlap in CASES:
-            res[f"{name}/g{g}"] = jax_result(kind, balance, overlap, g, ops)
-        for name, kind, kw in SPARSE_CASES:
-            for field, value in jax_sparse_result(kind, kw, g, ops).items():
+        for name, alg, kind, balance, overlap in CASES:
+            res[f"{name}/g{g}"] = jax_result(alg, kind, balance, overlap, g,
+                                             ops)
+        for name, alg, kind, kw in SPARSE_CASES:
+            for field, value in jax_sparse_result(alg, kind, kw, g,
+                                                  ops).items():
                 res[f"{name}/g{g}/{field}"] = value
         t = jax_tiled(g, "none", ops).tiled
         for field in ("blocks", "rows", "cols", "counts"):
