@@ -18,7 +18,10 @@ non-zero and prints no result line):
    SpGEMM, f32 and bf16, step 0 with the plan's own table of real blocks)
    against its plain version, its bound and two library yardsticks
    (``torch.sparse_bsr_tensor`` and ``torch.sparse_csr_tensor`` on the same
-   real blocks); then ``repro_torch.core.api.matmul`` — ``ring_c`` SpMM on
+   real blocks), and on B with an inf, a NaN and a -inf planted: its NaN
+   mask equal to the plain version's (zero blocks included, ``0 * inf``),
+   and its NaN pass's time on finite B, under 1 % of each cell's multiply;
+   then ``repro_torch.core.api.matmul`` — ``ring_c`` SpMM on
    R-MAT scale 15 (bs 128, B 512 wide) at g 2 in float32 and bf16 (overlap
    ``auto``, which resolves to the bulk body of ``off``: checked on the
    plans), with the packed wire, and at g 3 in float32 with overlap ``on``
@@ -29,19 +32,31 @@ non-zero and prints no result line):
    breakdown of one float32 multiply of each kind (device time by kernel,
    idle share), which must show no roll and no gather of the SpMM's
    operands;
-5. other schedules: ``summa_bcast``, ``summa_ag``, ``ring_a`` and
+5. steal3d (the paper's SS3.4 work stealing): on the SpMM cell at g 2
+   (float32, bf16, the packed wire, overlap ``on``) and g 3 (where the
+   assignment moves items: padded, and packed with overlap ``on``), and on
+   the dense-output SpGEMM cell, each against the oracle, B1's launches a
+   multiply (1, 2 with overlap) and the blocks it multiplied (counted on
+   the card) against the plan's real pairs (g x A's real blocks); CUDA-event
+   times of the B1 launches and of the reduce rounds; profiles that must
+   show no roll and no copy of a placed operand;
+6. other schedules: ``summa_bcast``, ``summa_ag``, ``ring_a`` and
    ``ring_c_bidir`` through the same entry point at the SpMM cell's full
    width (g 2; g 3 for ``ring_a`` and ``ring_c_bidir``, whose rides differ
    from g 3 on; the packed wire where the schedule packs A) and in
    dense-output SpGEMM on the scale-14 operand, each against the oracle
    with B1's blocks counted against the real blocks of its plan's tables
    (``plan.step_maps()``); ``algorithm="auto"``'s choice and scores on the
-   ``H100_SXM`` preset, planned and run, and each schedule's predicted
+   ``H100_SXM`` preset over all six schedules, planned and run, and each
+   schedule's predicted
    seconds beside its measured median (a record, not a check); a
    ``torch.profiler`` breakdown of one SpMM per schedule, which must show
    no roll and no gather of a placed operand (``ring_c_bidir``'s split of B
    into contiguous halves is timed and printed);
-6. sparse-output path: ``matmul(A, A, output="auto")`` on R-MAT scale 16,
+7. obs: one traced multiply (``repro_torch.obs``), its span tree and its
+   drift record (predicted for g x g H100s, measured on this card); an
+   untraced call records nothing;
+8. sparse-output path: ``matmul(A, A, output="auto")`` on R-MAT scale 16,
    edge factor 1 (bs 32, g 2), which resolves to a sparse output over the
    packed wire: its cold plan (symbolic phase), B2 at its step-0 shapes
    (fresh output) and at step 1's (into the carry) against the plain
@@ -50,10 +65,10 @@ non-zero and prints no result line):
    C against scipy's ``A @ A`` for equality (R-MAT values are 1.0, so C
    holds exact path counts); then the same through ``summa_bcast`` and
    ``summa_ag``, each equal to scipy's with B2's pairs counted;
-7. the chained cube on ``benchmarks/spgemm_bench.py``'s configuration
+9. the chained cube on ``benchmarks/spgemm_bench.py``'s configuration
    (R-MAT scale 13, edge factor 1, bs 8, g 2): ``(A @ A) @ A`` with sparse
    outputs over the padded and the packed wire, exactly against scipy;
-8. the dense-tile SpGEMM entry point ``ops.bsr_pair_matmul`` (B3) on one
+10. the dense-tile SpGEMM entry point ``ops.bsr_pair_matmul`` (B3) on one
    tile, R-MAT scale 13 (bs 64) through ``ops.build_pair_lists``, against
    the plain version and cuSPARSE ``CSR @ CSR``.
 
@@ -136,6 +151,24 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn``, a short launch sequence whose
+    host side takes longer than its device side: a sleep kernel holds the
+    card while the host queues the ``reps`` calls, so the CUDA events time
+    the device's work back to back, not the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)         # ~25 ms at the H100's clock
     start.record()
     for _ in range(reps):
         fn()
@@ -424,6 +457,8 @@ def main_path_kernel_cases(cases) -> dict:
                         table=table, reps=10 if shape == "SpMM" else 4)
         check(r["workspace_bytes"] == 0,
               f"B1 {label} needs a partial workspace")
+        r["nonfinite"] = nonfinite_case(blocks, rows, cols, dense, nbr, table,
+                                        label, r["ms"])
         real = a_h.pool_lists(api.SKEW_ROWS, packed=False).real
         r.update(b1_yardsticks(blocks, rows, cols, dense, nbr, real,
                                TOL_F32_DEEP, label))
@@ -433,6 +468,52 @@ def main_path_kernel_cases(cases) -> dict:
         del blocks, rows, cols, dense, table
         free()
     return res
+
+
+def nonfinite_case(blocks, rows, cols, dense, nbr: int, table, label: str,
+                   launch_ms: float) -> dict:
+    """B1 on B with an inf, a NaN and a -inf planted (in the first B chunk,
+    which coverage blocks read, in a middle chunk, and in the last tile):
+    its NaN mask must equal the plain version's, which multiplies every
+    listed block, zero blocks included (``0 * inf``); its finite values
+    agree as on finite B.  Then the NaN pass's device time on finite B
+    (:func:`device_ms`), where it must write nothing."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, nan_pass
+    k, n = dense.shape[1], dense.shape[2]
+    bad = dense.clone()
+    bad[0, 1, 3 % n] = float("inf")
+    bad[0, k // 2 + 1, 7 % n] = float("nan")
+    bad[-1, k - 2, 11 % n] = float("-inf")
+    got = bsr_spmm_cuda(blocks, bad, table)
+    want = ref.bsr_spmm_raw_ref(blocks, rows, cols, bad, nbr)
+    nan = torch.isnan(want)
+    same = bool(torch.equal(torch.isnan(got), nan))
+    n_nan = int(nan.sum().item())
+    keep = torch.isfinite(want)
+    scale = abs_product(blocks, rows, cols, bad.nan_to_num(0.0, 0.0, 0.0),
+                        nbr)
+    step = BF16_STEP if got.dtype == torch.bfloat16 else 0.0
+    err, share, ok = compare(got[keep], want[keep], scale[keep],
+                             TOL_F32_DEEP, step)
+    del got, want, nan, keep, scale, bad
+    out = bsr_spmm_cuda(blocks, dense, table)
+    flag_ms = device_ms(lambda: nan_pass(dense, table, out), 20)
+    finite = bool(torch.isfinite(out).all())
+    del out
+    log(f"  B1 {label} on non-finite B: {n_nan} NaN elements, NaN mask "
+        f"{'equal to' if same else 'DIFFERENT FROM'} the plain version's "
+        f"({table.skip.shape[1]} skipped entries on "
+        f"{table.skip_chunks.shape[1]} B chunks); finite values max_abs_err "
+        f"{err:.3e}, {share:.3g} of their allowance; the NaN pass on finite "
+        f"B: {flag_ms * 1e3:.1f} us of device time a launch, "
+        f"{100 * flag_ms / launch_ms:.3f} % of the launch, writes "
+        f"{'nothing' if finite else 'NON-FINITE VALUES'}")
+    check(same and n_nan > 0 and ok and finite,
+          f"B1 {label}: non-finite B gives another NaN mask than the plain "
+          "version, or the NaN pass writes on finite B")
+    return {"nan_elements": n_nan, "skipped_entries": table.skip.shape[1],
+            "flag_ms": flag_ms}
 
 
 def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
@@ -445,22 +526,27 @@ def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
     from repro_torch.core import api
     from repro_torch.core.roofline import H100_SXM
     from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
-    from repro_torch.runtime.device import sync_elapsed
+    from repro_torch.obs import sync_elapsed
     kw = dict(overlap=overlap, wire=wire, algorithm=algorithm)
     before = bsr_spmm_cuda.launches
     out, multiplied = counted_blocks(lambda: api.matmul(a_h, b_h, **kw))
     per_multiply = bsr_spmm_cuda.launches - before
     plan = api.plan_matmul(a_h, b_h, **kw)
     name = plan.algorithm.name
-    launches = [m for step in plan.step_maps() for m in step]
-    real = sum(plan.spmm_table(a_h, a_map, b_map).real_blocks
-               for a_map, b_map in launches)
-    want = len(launches) * int(a_h.counts.sum())
+    if plan.steal is not None:          # algorithm="auto" may pick steal3d
+        launches = plan._steal.segments
+        real = plan._steal.real_pairs
+        want = a_h.g * int(a_h.counts.sum())
+    else:
+        launches = [m for step in plan.step_maps() for m in step]
+        real = sum(plan.spmm_table(a_h, a_map, b_map).real_blocks
+                   for a_map, b_map in launches)
+        want = len(launches) * int(a_h.counts.sum())
     log(f"  e2e {label} {algorithm} overlap={overlap} wire={plan.wire}: B1 "
         f"multiplied {multiplied} blocks in {per_multiply} launches; the "
         f"real blocks of the plan's {len(launches)} launches' tables: {real} "
-        f"({len(launches)} x {int(a_h.counts.sum())} real), of "
-        f"{len(launches) * a_h.g ** 2 * a_h.tiled.store_capacity} stored")
+        f"({want // max(1, int(a_h.counts.sum()))} x "
+        f"{int(a_h.counts.sum())} real)")
     check(multiplied == real == want and per_multiply == len(launches),
           f"{label} {algorithm}: B1 multiplied {multiplied} blocks in "
           f"{per_multiply} launches on the main path, not the {want} real "
@@ -470,7 +556,7 @@ def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
         del out
         t0 = time.perf_counter()
         out = api.matmul(a_h, b_h, **kw)
-        times.append(sync_elapsed(t0) * 1e3)
+        times.append(sync_elapsed(t0, out) * 1e3)
     check(tuple(out.shape) == tuple(oracle.shape),
           f"{label}: shape {tuple(out.shape)} vs {tuple(oracle.shape)}")
     check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
@@ -485,10 +571,41 @@ def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
         f"{plan.workspace_bytes()} bytes")
     check(ok, f"{label} {name} overlap={overlap} disagrees with the dense "
           "oracle")
-    check(plan.workspace_bytes() == 0, f"{label}: B1 needs a workspace")
+    check_workspace(plan, a_h.block_size, label)
     return {"ms": med, "launches": per_multiply * (1 + reps),
             "blocks_multiplied": multiplied, "real_blocks": real,
             "algorithm": name, "predicted_ms": predicted}
+
+
+def check_workspace(plan, bs: int, label: str) -> dict:
+    """B1's float32 partial workspace against what the plan's tables need.
+
+    A ring or SUMMA launch's block-row segment is one tile row, at most
+    nbc <= CHUNK real blocks: one chunk, no workspace.  A steal3d segment
+    gathers one output block-row of a device over every A tile it draws
+    on (up to g of them), so it may pass one chunk: its workspace must be
+    the largest launch's partials (one ``bs x tn`` float32 per chunk of a
+    segment cut into several, counted from the table's chunk list), and
+    no larger than that launch's output held in float32 (``g*g x n_slots``
+    block-rows of ``bs x tn``): the partials at most double the launch's
+    memory."""
+    ws = plan.workspace_bytes()
+    if plan.steal is None:
+        check(ws == 0, f"{label}: B1 needs a {ws}-byte workspace")
+        return {"workspace_bytes": ws}
+    st, geom = plan._steal, plan.geom
+    parts = [int((s["table"].chunks[4] >= 0).sum()) for s in st.segments
+             if "table" in s]
+    need = max(parts, default=0) * bs * geom.tn * 4
+    limit = geom.g * geom.g * st.n_slots * bs * geom.tn * 4
+    log(f"  {label}: B1 workspace {ws / 1e6:.2f} MB; the tables' partials "
+        f"{parts} x {bs} x {geom.tn} float32 = {need / 1e6:.2f} MB at the "
+        f"largest launch; limit {limit / 1e6:.2f} MB (the launch's output "
+        f"in float32), {100 * ws / limit:.1f} % of it")
+    check(ws == need and ws <= limit,
+          f"{label}: B1 workspace {ws} bytes, the tables need {need}, the "
+          f"limit is {limit}")
+    return {"workspace_bytes": ws, "workspace_limit_bytes": limit}
 
 
 # ops that copy or move a tensor: none may read a main-path operand of a
@@ -532,14 +649,14 @@ def device_breakdown(a_h, b_h, label: str, operands=(), **kw) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import profile
     from repro_torch.core.api import matmul
-    from repro_torch.runtime.device import sync_elapsed
+    from repro_torch.obs import sync_elapsed
     out = matmul(a_h, b_h, **kw)
     del out
     torch.cuda.synchronize()
     with profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
         out = matmul(a_h, b_h, **kw)
-        wall_ms = sync_elapsed(t0) * 1e3
+        wall_ms = sync_elapsed(t0, out) * 1e3
     del out
     copies = operand_copies(lambda: matmul(a_h, b_h, **kw), operands) \
         if operands else []
@@ -1022,7 +1139,7 @@ def sparse_path(device) -> dict:
     from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR, matmul,
                                       plan_matmul)
     from repro_torch.core.bsr import rmat_matrix
-    from repro_torch.runtime.device import sync_elapsed
+    from repro_torch.obs import sync_elapsed
     cfg = SPARSE
     t0 = time.perf_counter()
     a_np = rmat_matrix(cfg["scale"], cfg["edgefactor"], seed=cfg["seed"])
@@ -1118,7 +1235,7 @@ def sparse_path(device) -> dict:
             del out
             t0 = time.perf_counter()
             out = matmul(a_h, a_h, output="auto")
-            times.append(sync_elapsed(t0) * 1e3)
+            times.append(sync_elapsed(t0, out) * 1e3)
     finally:
         bsr_pair_accumulate_cuda.pair_counter = None
     counts = read_counts()
@@ -1166,7 +1283,7 @@ def sparse_schedule_case(a_h, sym, oracle, algorithm: str) -> dict:
     multiplied against the real ones, C against scipy for equality."""
     from repro_torch.core.api import matmul, plan_matmul
     from repro_torch.kernels.bsr_pair import bsr_pair_accumulate_cuda
-    from repro_torch.runtime.device import sync_elapsed
+    from repro_torch.obs import sync_elapsed
     plan = plan_matmul(a_h, a_h, output="auto", algorithm=algorithm)
     check(plan.output == "sparse" and plan.wire == "packed",
           f"{algorithm}: output='auto' resolved to output={plan.output!r}, "
@@ -1182,7 +1299,7 @@ def sparse_schedule_case(a_h, sym, oracle, algorithm: str) -> dict:
             del out
             t0 = time.perf_counter()
             out = matmul(a_h, a_h, output="auto", algorithm=algorithm)
-            times.append(sync_elapsed(t0) * 1e3)
+            times.append(sync_elapsed(t0, out) * 1e3)
     finally:
         bsr_pair_accumulate_cuda.pair_counter = None
     counts = read_counts()
@@ -1370,9 +1487,11 @@ def other_schedules(ops: dict) -> dict:
                 algorithm=alg)
     choice, scores = api.auto_select(a32, b32, machine=H100_SXM)
     log(f"  algorithm='auto' on {H100_SXM.name} for the SpMM cell (a grid "
-        f"of {a32.g ** 2} cards, as the schedules are written): {choice}; "
-        "predicted ms " + ", ".join(f"{k} {v * 1e3:.4f}"
-                                    for k, v in scores.items()))
+        f"of {a32.g ** 2} cards, as the schedules are written), over "
+        f"{len(scores)} schedules: {choice}; predicted ms "
+        + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in scores.items()))
+    check(tuple(scores) == api.algorithms() and len(scores) == 6,
+          f"auto scored {tuple(scores)}, not the six schedules")
     e2e["auto SpMM float32 g=2 wire=auto"] = auto = e2e_case(
         "SpMM float32 g=2", a32, b32, *spmm, "auto", algorithm="auto")
     check(auto["algorithm"] == choice,
@@ -1389,8 +1508,9 @@ def other_schedules(ops: dict) -> dict:
     log("  SpMM float32 g=2, median ms measured on one card beside the "
         "cost model's seconds for a 2 x 2 grid of H100s (a record, not a "
         "check):")
-    for alg in ("ring_c",) + OTHER:
-        got = e2e.get(f"{alg} SpMM float32 g=2 wire=auto") or ops["ring_c"]
+    for alg in ("ring_c",) + OTHER + ("steal3d",):
+        got = e2e.get(f"{alg} SpMM float32 g=2 wire=auto") or ops[
+            "steal3d" if alg == "steal3d" else "ring_c"]
         log(f"    {alg:13s} measured {got['ms']:8.3f} ms   predicted "
             f"{scores[alg] * 1e3:.4f} ms")
     breakdown = {}
@@ -1414,6 +1534,282 @@ def other_schedules(ops: dict) -> dict:
     return {"e2e": e2e, "launches": launches, "auto": {
         "choice": choice, "scores_s": scores}, "breakdown": breakdown,
         "bidir_split_ms": split_ms}
+
+
+def steal_case(label, a_h, b_h, oracle, scale, tol, overlap, wire,
+               reps=3) -> dict:
+    """steal3d through its plan: the plan (cold, timed), one counted
+    multiply (B1's launches, 1 or 2 with overlap, and the blocks it
+    multiplied against the plan's real pairs, g x A's real blocks), and the
+    median of ``reps`` timed multiplies against the oracle."""
+    from repro_torch.core import api
+    from repro_torch.core.roofline import H100_SXM
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
+    from repro_torch.obs import sync_elapsed
+    kw = dict(algorithm="steal3d", overlap=overlap, wire=wire)
+    t0 = time.perf_counter()
+    plan = api.plan_matmul(a_h, b_h, **kw)
+    plan_s = time.perf_counter() - t0
+    st, sp = plan._steal, plan.steal
+    before = bsr_spmm_cuda.launches
+    out, multiplied = counted_blocks(lambda: plan(a_h, b_h))
+    per_multiply = bsr_spmm_cuda.launches - before
+    want_real = a_h.g * int(a_h.counts.sum())
+    asg = sp.assignment
+    log(f"  steal3d {label} overlap={overlap} wire={plan.wire}: plan "
+        f"{plan_s:.2f} s cold; {asg.n_moved} items moved, LPT makespan "
+        f"{asg.makespan:.0f} against owner-computes {asg.owner_makespan:.0f} "
+        f"real blocks; n_out {sp.n_out}, {len(st.rounds)} reduce rounds; B1 "
+        f"multiplied {multiplied} blocks in {per_multiply} launches, the "
+        f"plan's real pairs {st.real_pairs} (g x {int(a_h.counts.sum())} "
+        f"real = {want_real}), of "
+        f"{sum(s['real'].size for s in st.segments)} listed")
+    check(multiplied == st.real_pairs == want_real
+          and per_multiply == len(st.segments)
+          == (2 if overlap == "on" else 1),
+          f"steal3d {label}: B1 multiplied {multiplied} blocks in "
+          f"{per_multiply} launches, not the {want_real} real pairs in "
+          f"{len(st.segments)}")
+    times = []
+    for _ in range(reps):
+        del out
+        t0 = time.perf_counter()
+        out = plan(a_h, b_h)
+        times.append(sync_elapsed(t0, out) * 1e3)
+    check(tuple(out.shape) == tuple(oracle.shape),
+          f"steal3d {label}: shape {tuple(out.shape)} vs "
+          f"{tuple(oracle.shape)}")
+    check(bool(torch.isfinite(out).all()), f"steal3d {label}: non-finite "
+          "output")
+    # bf16: each partial rounds once, the overlap's second launch and each
+    # reduce round once more, each by at most 2^-8 of |A| @ |B|
+    if out.dtype == torch.bfloat16:
+        tol += (1 + (overlap == "on") + len(st.rounds)) * BF16_ROUND
+    err, share, ok = compare(out, oracle, scale, tol)
+    del out
+    med = statistics.median(times)
+    predicted = plan.predicted_cost(H100_SXM) * 1e3
+    log(f"  steal3d {label} overlap={overlap} wire={plan.wire}: median "
+        f"{med:.2f} ms of {[round(x, 2) for x in times]} (the cost model "
+        f"predicts {predicted:.4f} ms for a grid of {a_h.g ** 2} H100s), "
+        f"max_abs_err {err:.3e}, {share:.3g} of its allowance (tol {tol:g} "
+        f"x |A||B|) {'ok' if ok else 'MISMATCH'}; workspace "
+        f"{plan.workspace_bytes() / 1e6:.2f} MB")
+    check(ok, f"steal3d {label} overlap={overlap} wire={wire} disagrees "
+          "with the dense oracle")
+    res = {"ms": med, "launches": per_multiply * (1 + reps),
+           "blocks_multiplied": multiplied, "real_pairs": st.real_pairs,
+           "plan_s": plan_s, "predicted_ms": predicted,
+           "n_moved": asg.n_moved, "n_out": sp.n_out,
+           "reduce_rounds": len(st.rounds)}
+    res.update(check_workspace(plan, a_h.block_size, f"steal3d {label}"))
+    return res
+
+
+def steal_pieces(label: str, a_h, b_h, **kw) -> dict:
+    """CUDA-event times of a steal3d multiply's pieces on its plan's
+    operands: the B1 launches (every device's partial tiles) and the
+    reduce rounds alone; then B1 at these shapes against its plain version
+    (:func:`steal_kernel_case`)."""
+    from repro_torch.core import api
+    plan = api.plan_matmul(a_h, b_h, algorithm="steal3d", **kw)
+    st, geom, ex = plan._steal, plan.geom, plan.executor
+    _, (a_tree, b_tree, _) = plan._operands(a_h, b_h)
+    b_pool = api._densify_b(b_tree, geom, ex)["dense"]
+    partials = lambda: api._steal3d_partials(a_tree, b_pool, st, geom, ex)
+    partials_ms = time_ms(partials, 3)
+    c = partials()
+    reduce_ms = time_ms(lambda: api._steal3d_reduce(c, st, geom), 5)
+    del c
+    log(f"  steal3d {label}: B1 launches {partials_ms:.3f} ms, reduce "
+        f"rounds ({len(st.rounds)}) {reduce_ms:.3f} ms (CUDA events)")
+    res = {"partials_ms": partials_ms, "reduce_ms": reduce_ms}
+    res.update(steal_kernel_case(label, plan, a_tree, b_pool))
+    return res
+
+
+def steal_kernel_case(label: str, plan, a_tree, b_pool) -> dict:
+    """B1 at the shapes steal3d gives it (T = g*g devices, ``n_slots``
+    output block-rows, B as one flat ``[g*g*tk, tn]`` tile, segments past
+    one chunk summed through float32 partials and the reduce pass): the
+    plan's launches (``api._steal3d_partials``, the second added into the
+    first) against the plain version on the same card tensors
+    (``ref.steal_pair_accumulate_raw_ref`` over every listed pair, dummy
+    and coverage pairs on the zero block included), within
+    ``TOL_F32_DEEP`` of |A| @ |B| (a bf16 output: one bf16 step more, and
+    2^-8 of |A| @ |B| for each launch added into another); then the same
+    with an inf, a NaN and a -inf planted in the placed B (in its first
+    chunk, which the coverage pairs read, a middle chunk and the last
+    tile): the NaN masks must be equal."""
+    from repro_torch.core import api
+    from repro_torch.kernels import ref
+    st, geom, ex = plan._steal, plan.geom, plan.executor
+    if not st.sparse_a:
+        return {}
+    blocks = a_tree["blocks"]
+    pool = blocks.reshape(-1, *blocks.shape[-2:])
+
+    def plain(b, a=pool, dtype=None):
+        want = None
+        for seg in st.segments:
+            part = ref.steal_pair_accumulate_raw_ref(
+                a, b.reshape(-1, geom.tn), seg["pa"], seg["pb"], seg["ps"],
+                st.n_slots, out_dtype=dtype)
+            want = part if want is None else want.add_(part)
+        return want
+
+    def against_plain(b):
+        got = api._steal3d_partials(a_tree, b, st, geom, ex)
+        want = plain(b)
+        torch.cuda.synchronize()
+        return got, want
+
+    bf16 = torch.promote_types(pool.dtype, b_pool.dtype) == torch.bfloat16
+    tol = TOL_F32_DEEP + (len(st.segments) - 1) * BF16_ROUND * bf16
+    step = BF16_STEP if bf16 else 0.0
+    got, want = against_plain(b_pool)
+    check(got.shape == want.shape and got.dtype == want.dtype
+          and bool(torch.isfinite(got).all()),
+          f"steal3d {label}: B1's partials {tuple(got.shape)} {got.dtype}, "
+          f"the plain version's {tuple(want.shape)} {want.dtype}")
+    scale = plain(b_pool.abs(), pool.abs(), torch.float32)
+    err, share, ok = compare(got, want, scale, tol, step)
+    del got, want, scale
+    k, n = b_pool.shape[-2:]
+    bad = b_pool.clone()
+    tiles = bad.view(-1, k, n)
+    tiles[0, 1, 3 % n] = float("inf")
+    tiles[0, k // 2 + 1, 7 % n] = float("nan")
+    tiles[-1, k - 2, 11 % n] = float("-inf")
+    got, want = against_plain(bad)
+    nan = torch.isnan(want)
+    same = bool(torch.equal(torch.isnan(got), nan))
+    n_nan = int(nan.sum().item())
+    keep = torch.isfinite(want)
+    scale = plain(bad.nan_to_num(0.0, 0.0, 0.0).abs(), pool.abs(),
+                  torch.float32)
+    err_bad, share_bad, ok_bad = compare(got[keep], want[keep], scale[keep],
+                                         tol, step)
+    del got, want, nan, keep, scale, bad
+    skipped = sum(s["table"].skip.shape[1] for s in st.segments
+                  if "table" in s)
+    log(f"  B1 at steal3d {label}'s shapes: T={geom.g ** 2}, n_slots "
+        f"{st.n_slots}, pool {tuple(pool.shape)}, B "
+        f"{(b_pool.numel() // geom.tn, geom.tn)} as one flat tile, {len(st.segments)} launches: max_abs_err "
+        f"{err:.3e}, {share:.3g} of its allowance (tol {tol:g} x |A||B| + "
+        f"{step:g} x |want|) {'ok' if ok else 'MISMATCH'}; on non-finite "
+        f"B: {n_nan} NaN elements, NaN mask "
+        f"{'equal to' if same else 'DIFFERENT FROM'} the plain version's "
+        f"({skipped} skipped entries), finite values max_abs_err "
+        f"{err_bad:.3e}, {share_bad:.3g} of their allowance")
+    check(ok, f"steal3d {label}: B1 disagrees with its plain version")
+    check(same and n_nan > 0 and ok_bad,
+          f"steal3d {label}: on non-finite B, B1 gives another NaN mask or "
+          "other finite values than its plain version")
+    return {"kernel_max_abs_err": err, "kernel_share_of_tolerance": share,
+            "nonfinite_nan_elements": n_nan, "nonfinite_skipped": skipped}
+
+
+def steal3d_phase(ops: dict) -> dict:
+    """steal3d on the SpMM cell (g 2: float32, bf16, the packed wire,
+    overlap on; g 3, where the assignment moves items: padded, and packed
+    with overlap on) and on the dense-output SpGEMM cell, each against the
+    oracle; then a profile of one SpMM, which must show no roll and no
+    copy of a placed operand."""
+    from repro_torch.core import api
+    spmm32 = (ops["oracle32"], ops["scale32"], TOL_F32_DEEP)
+    spmm16 = (ops["oracle16"], ops["scale16"], TOL_F32_DEEP)
+    gemm = (ops["oracle_gemm"], ops["scale_gemm"], TOL_F32_SMALL)
+    a32, b32, a16, b16, a3, b3, a14 = (ops[k] for k in (
+        "a32", "b32", "a16", "b16", "a3", "b3", "a14"))
+    cases = (("SpMM float32 g=2", a32, b32, spmm32, "off", "auto"),
+             ("SpMM bfloat16 g=2", a16, b16, spmm16, "off", "auto"),
+             ("SpMM float32 g=2", a32, b32, spmm32, "off", "packed"),
+             ("SpMM float32 g=2", a32, b32, spmm32, "on", "auto"),
+             (f"SpMM float32 g={SPMM_G3}", a3, b3, spmm32, "off", "auto"),
+             (f"SpMM float32 g={SPMM_G3}", a3, b3, spmm32, "on", "packed"),
+             ("SpGEMM float32 g=2", a14, a14, gemm, "off", "auto"))
+    reset_counts()                  # counts of this path's run only
+    res = {}
+    for label, a_h, b_h, ref_, overlap, wire in cases:
+        res[f"{label} overlap={overlap} wire={wire}"] = steal_case(
+            label, a_h, b_h, *ref_, overlap, wire)
+        free()
+    counts = read_counts()
+    launches = {shape: sum(v["launches"] for k, v in res.items()
+                           if k.startswith(shape)) for shape in ("SpMM",
+                                                                 "SpGEMM")}
+    log(f"  launches on the steal3d paths: {counts} (B1: {launches['SpMM']} "
+        f"at the SpMM cell, {launches['SpGEMM']} at SpGEMM's)")
+    check(counts["bsr_spmm"] == sum(launches.values())
+          and min(launches.values()) > 0,
+          "the steal3d paths did not launch bsr_spmm at both cells")
+    for label, a_h, b_h, _, overlap, wire in cases:
+        key = f"{label} overlap={overlap} wire={wire}"
+        res[key].update(steal_pieces(key, a_h, b_h, overlap=overlap,
+                                     wire=wire))
+        free()
+    breakdown = {}
+    for label, a_h, b_h, kw, operands in (
+            ("steal3d SpMM float32 g=2", a32, b32, {},
+             (a32.placed(api.NATURAL)["blocks"],
+              b32.placed(api.NATURAL)["dense"])),
+            (f"steal3d SpMM float32 g={SPMM_G3} packed overlap=on", a3, b3,
+             dict(wire="packed", overlap="on"),
+             (a3.packed_wire(api.NATURAL)["blocks"],
+              b3.placed(api.NATURAL)["dense"]))):
+        bd = breakdown[label] = device_breakdown(
+            a_h, b_h, label, algorithm="steal3d", operands=operands, **kw)
+        check(not bd["operand_copies"]
+              and not any("roll" in k for k in bd["kernels"]),
+              f"{label}: the multiply rolls or copies an operand "
+              f"({bd['operand_copies']})")
+    return {"e2e": res, "launches": launches, "breakdown": breakdown}
+
+
+def obs_phase(a_h, b_h) -> dict:
+    """Traced multiplies (``repro_torch.obs``): a fresh plan and two calls
+    with tracing on (the first builds B1's tables on the host).  Prints
+    the span tree and the drift records (the cost model's seconds for a
+    grid of g x g H100s beside the seconds measured on this one card); an
+    untraced call after them records nothing."""
+    from repro_torch import obs
+    from repro_torch.core import api
+    obs.enable(clear=True)
+    obs.reset_drift()
+    plan = api.plan_matmul(a_h, b_h, algorithm="ring_c", cache=False)
+    for _ in range(2):
+        out = plan(a_h, b_h)
+        del out
+    obs.disable()
+    evs = sorted(obs.events(), key=lambda e: e["ts"])
+    log(f"  span tree ({len(evs)} spans):")
+    for e in evs:
+        log(f"    {'  ' * e['args'].get('depth', 0)}{e['name']}: "
+            f"{e['dur'] / 1e3:.3f} ms")
+    recs = obs.drift_records()
+    for rec, when in zip(recs, ("cold", "warm")):
+        log(f"  drift record ({when}): {rec['algorithm']}/{rec['wire']}/"
+            f"{rec['overlap']} {rec['kind']}: predicted "
+            f"{rec['predicted_s'] * 1e3:.4f} ms for {a_h.g ** 2} cards "
+            f"({rec['machine']}), measured {rec['measured_s'] * 1e3:.3f} ms "
+            f"on one card, ratio {rec['measured_s'] / rec['predicted_s']:.3f}")
+    report = obs.drift_report()
+    log(f"  drift report: {report}")
+    names = [e["name"] for e in evs]
+    check({"plan_build", "plan_build.executable", "multiply.ring_c"}
+          <= set(names) and not obs.validate_trace(obs.export_trace()),
+          f"the traced multiply recorded {names}")
+    plan(a_h, b_h)
+    torch.cuda.synchronize()
+    check(len(recs) == 2 and len(obs.events()) == len(evs)
+          and len(obs.drift_records()) == 2,
+          "an untraced multiply recorded spans or drift")
+    obs.reset_all()
+    return {"spans": [(e["name"], e["dur"] / 1e3) for e in evs],
+            "predicted_ms": recs[-1]["predicted_s"] * 1e3,
+            "measured_ms": [r["measured_s"] * 1e3 for r in recs],
+            "report": report}
 
 
 def record(name: str, source: str, replaces: str, launches: int,
@@ -1546,20 +1942,41 @@ def main() -> int:
               and not any("roll" in k for k in bd["kernels"]),
               f"{name}: the multiply rolls or gathers an operand "
               f"({bd['operand_copies']})")
+    # B1's NaN pass on finite B, against the multiply of each main-path
+    # cell (g launches a multiply, each followed by its pass)
+    flag_share = {}
+    for shape, key in (("SpMM", "SpMM float32 g=2 overlap=auto wire=auto"),
+                       ("SpGEMM",
+                        "SpGEMM float32 g=2 overlap=auto wire=auto")):
+        flag_ms = kres[(shape, torch.float32)]["nonfinite"]["flag_ms"]
+        flag_share[shape] = SPMM["g"] * flag_ms / e2e[key]["ms"]
+        log(f"  B1's NaN pass on finite B at the {shape} cell: "
+            f"{SPMM['g']} x {flag_ms * 1e3:.1f} us a multiply of "
+            f"{e2e[key]['ms']:.2f} ms, {100 * flag_share[shape]:.3f} %")
+        check(flag_share[shape] < 0.01, f"B1's NaN pass takes "
+              f"{100 * flag_share[shape]:.2f} % of the {shape} multiply")
     dense_peak = phase_peak("dense-output path")
 
+    ops = {"a32": a32, "b32": b32, "a16": a16, "b16": b16, "a3": a3,
+           "b3": b3, "a14": a14, "oracle32": oracle32, "scale32": scale32,
+           "oracle16": oracle16, "scale16": scale16,
+           "oracle_gemm": oracle_gemm, "scale_gemm": scale_gemm,
+           "ring_c": e2e["SpMM float32 g=2 overlap=auto wire=auto"]}
+    log("== steal3d (the paper's SS3.4 work stealing, through B1)")
+    steal = steal3d_phase(ops)
+    ops["steal3d"] = steal["e2e"]["SpMM float32 g=2 overlap=off wire=auto"]
+    steal_peak = phase_peak("steal3d")
     log("== other schedules (summa_bcast, summa_ag, ring_a, ring_c_bidir; "
-        "algorithm='auto')")
-    other = other_schedules({
-        "a32": a32, "b32": b32, "a3": a3, "b3": b3, "a14": a14,
-        "oracle32": oracle32, "scale32": scale32, "oracle_gemm": oracle_gemm,
-        "scale_gemm": scale_gemm,
-        "ring_c": e2e["SpMM float32 g=2 overlap=auto wire=auto"]})
+        "algorithm='auto' over all six)")
+    other = other_schedules(ops)
     other_peak = phase_peak("other schedules")
+    log("== obs: one traced multiply")
+    traced = obs_phase(a32, b32)
     b1 = [record(f"bsr_spmm ({shape} shape)",
                  "src/repro_torch/kernels/csrc/bsr_spmm.cu",
                  "src/repro/kernels/bsr_spmm.py:55",
-                 launches[shape] + other["launches"][shape],
+                 launches[shape] + other["launches"][shape]
+                 + steal["launches"][shape],
                  {dt: kres[(shape, dt)] for dt in (torch.float32,
                                                    torch.bfloat16)},
                  {"shape": kres[(shape, torch.float32)]["shape"],
@@ -1567,9 +1984,11 @@ def main() -> int:
                       "real_flops", "stored_flops", "bytes", "real_blocks",
                       "stored_blocks", "blocks_multiplied",
                       "workspace_bytes", "share_of_bound",
-                      "library_bsr_ms", "path")}})
+                      "library_bsr_ms", "path")},
+                  "nonfinite": kres[(shape, torch.float32)]["nonfinite"],
+                  "nan_pass_share_of_multiply": flag_share[shape]})
           for shape in ("SpMM", "SpGEMM")]
-    del kres, a32, a16, b32, b16, a3, b3, a14, a_h, b_h
+    del kres, a32, a16, b32, b16, a3, b3, a14, a_h, b_h, ops
     del oracle, scale
     del oracle32, scale32, oracle16, scale16, oracle_gemm, scale_gemm
     free()
@@ -1619,8 +2038,12 @@ def main() -> int:
                     "other_schedules": {k: other[k] for k in (
                         "e2e", "launches", "auto", "bidir_split_ms")},
                     "other_breakdown": other["breakdown"],
+                    "steal3d": {k: steal[k] for k in ("e2e", "launches",
+                                                      "breakdown")},
+                    "obs": traced,
                     "sparse_summa": sparse["summa"],
                     "peak_gb": {"dense_output": dense_peak,
+                                "steal3d": steal_peak,
                                 "other_schedules": other_peak,
                                 "sparse_output": sparse["peak_gb"],
                                 "dense_tile": tile["peak_gb"]},

@@ -1,4 +1,4 @@
-"""Plan-based public API of the port: every schedule but ``steal3d``.
+"""Plan-based public API of the port.
 
 Port of ``repro/core/api.py``:
 
@@ -24,8 +24,12 @@ The schedules (see the body docstrings): ``summa_bcast`` / ``summa_ag``,
 the bulk-synchronous baselines; ``ring_c`` / ``ring_a``, the paper's
 stationary-C and stationary-A rings with placement-time ``k_offset``
 skew; ``ring_c_bidir``, a stationary-C ring whose output column halves
-ride opposite directions.  ``algorithm="auto"`` scores every registered
-schedule with the alpha-beta-gamma cost model (:func:`auto_select`, on
+ride opposite directions; ``steal3d``, the static realisation of the
+paper's SS3.4 locality-aware work stealing (a plan-time LPT assignment of
+the (i, k, j) work grid, ``core/steal3d.py``, run as per-device pair
+lists with moved-tile and owner-reduction rounds).  ``algorithm="auto"``
+scores every registered schedule with the alpha-beta-gamma cost model
+(:func:`auto_select`, on
 :data:`~repro_torch.core.roofline.H100_SXM` unless told otherwise) and
 builds the cheapest.  The scores describe the g x g grid of cards the
 schedules are written for, not the one-card stand-in below, which moves
@@ -37,31 +41,44 @@ the g x g tiles live stacked on one card, and each step's local multiply
 is one batched kernel launch.  A ring shift, a broadcast or an all-gather
 becomes a tile map: the kernel reads each step's tiles where they lie.
 
-Not in the port yet: ``steal3d`` (``ValueError`` saying so).
+Observability (``repro_torch.obs``): with tracing on, plan builds record
+``plan_build.*`` spans and each multiply a ``multiply.<algorithm>`` span
+and a drift record (measured seconds, synchronised, beside the cost
+model's prediction on :func:`set_drift_machine`'s machine); with tracing
+off a multiply reads no clock and waits for nothing.  The plan caches
+report through the metrics registry (``plan_caches``).
+
+Also here: :func:`invalidate_plans` (keyed cache eviction),
+:func:`reshard` (re-tiling a handle onto another grid) and
+:func:`validate_mesh` (the stacked executor's grid check).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import hashlib
-from typing import Callable, Dict, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..kernels import ops as kops
 from ..kernels.bsr_pair import pair_table
 from ..kernels.bsr_spmm import PoolLists, SpmmTable
+from ..kernels.bsr_spmm import spmm_table as _spmm_table
 from ..runtime.device import as_tensor, resolve_device, strict_fp32
 from . import roofline as _roofline
 from . import schedule as _schedule
+from . import steal3d as _steal3d
 from . import symbolic as _symbolic
 from . import wire as _wire
 from .bsr import TiledBSR
 from .dist import (place_b_for_stationary_a, skew_bsr, skew_dense, tileize,
                    unskew_c_rows, untileize)
 from .executor import StackedExecutor
-from .grid import ProcessGrid, pad_to_multiple
+from .grid import ProcessGrid, bucket_capacity, ceil_div, pad_to_multiple
 from .symbolic import (SymbolicProduct, predicted_density,  # re-export
                        symbolic_spgemm)
 from .wire import PackedOperand, wire_capacity              # re-export
@@ -72,9 +89,12 @@ __all__ = [
     "Algorithm", "AlgorithmRegistry", "REGISTRY", "register_algorithm",
     "algorithms", "sparse_algorithms", "auto_select", "recommended_balance",
     "MatmulPlan", "plan_matmul", "matmul",
-    "clear_plan_cache", "plan_cache_size", "cache_stats",
     "SymbolicProduct", "symbolic_spgemm", "predicted_density",
     "PackedOperand", "wire_capacity", "SPARSE_OUTPUT_DENSITY_THRESHOLD",
+    "add_trace_hook", "remove_trace_hook", "set_drift_machine",
+    "clear_plan_cache", "plan_cache_size", "cache_stats",
+    "invalidate_plans", "reshard",
+    "validate_mesh",
 ]
 
 # Placement states a DistMatrix can hold (the paper's directory remaps).
@@ -83,9 +103,6 @@ SKEW_ROWS = "skew_rows"        # position (i, j) holds tile (i, (i+j)%g)
 SKEW_COLS = "skew_cols"        # position (i, j) holds tile ((i+j)%g, j)
 STATIONARY_A = "stationary_a"  # position (i, j) holds tile (j, (i+j)%g)
 PLACEMENTS = (NATURAL, SKEW_ROWS, SKEW_COLS, STATIONARY_A)
-
-# Schedules of the JAX package that a later slice of the port brings over.
-_NOT_PORTED = ("steal3d",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -554,6 +571,272 @@ def _wire_planner_summa(a_po, b_po, geom: _Geom) -> Dict[str, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
+# steal3d: static 3D work-grid dispatch from the stealing equilibrium
+# ---------------------------------------------------------------------------
+def _steal_plan_for(a_h: "DistMatrix", b_h: "DistMatrix", geom: _Geom,
+                    wire: str = "padded",
+                    assignment=None) -> "_steal3d.StealPlan":
+    """Memoised steal3d planner (LPT assignment + pair lists + rounds).
+
+    ``auto_select`` scoring shares this cache with plan construction: the
+    one full build per operand structure (and wire mode) also serves the
+    cost entry, and is reused outright if steal3d wins.  An injected
+    ``assignment`` bypasses the memo both ways: the plan is built fresh
+    against it (``build_steal_plan`` runs its fail-fast checks) and never
+    enters the cache.
+    """
+    skey = a_h.structure_key() if isinstance(a_h, DistBSR) else None
+    if not (wire == "packed" and isinstance(a_h, DistBSR)):
+        wire = "padded"      # dense A has no packable steal3d traffic
+    if assignment is not None:
+        with _obs.span("plan_build.steal", wire=wire, injected=True):
+            return _steal3d.build_steal_plan(a_h, b_h, geom, wire=wire,
+                                             overlap=geom.overlap,
+                                             assignment=assignment)
+    key = (a_h.abstract_key(), b_h.abstract_key(), skey, wire, geom.overlap)
+    sp = _STEAL_CACHE.get(key)
+    if sp is None:
+        with _obs.span("plan_build.steal", wire=wire):
+            sp = _steal3d.build_steal_plan(a_h, b_h, geom, wire=wire,
+                                           overlap=geom.overlap)
+        _STEAL_CACHE[key] = sp
+    return sp
+
+
+def _steal3d_cost(alg: "Algorithm", geom: _Geom, a_h: "DistMatrix",
+                  b_h: "DistMatrix", wire: str = "padded"
+                  ) -> Dict[str, float]:
+    """``auto_select``'s cost entry: the simulated equilibrium as a score.
+
+    The flop term is the realized LPT makespan (the pair capacity: block
+    products on the most-loaded device, padding included), the byte term
+    the panel gathers, moved tiles and owner reductions, packed to real
+    blocks under ``wire="packed"``.
+    """
+    return dict(_steal_plan_for(a_h, b_h, geom, wire=wire).cost)
+
+
+@dataclasses.dataclass(frozen=True)
+class _StealDevice:
+    """A steal3d plan as the stacked executor runs it: index maps into the
+    placed stacks in place of the JAX body's collectives.
+
+    ``segments`` holds one entry per B1 launch (two with ``overlap``: the
+    own items, then the stolen ones): the ``[g*g, P]`` pair lists with the
+    A entry a slot of the placed A stack (or of the packed buffers), the
+    zero block a dummy slot, the B entry a bs-row chunk of the placed B
+    stack as one flat tile (B tile * tk/bs + chunk), and the output slot;
+    ``real`` (host numpy) leaves out the dummy and coverage pairs, and
+    ``table`` is B1's table of them where the kernel runs.  Dense A: the A
+    and B entries are placed tile indices.  ``rounds`` are the reduce
+    rounds in the JAX order (row deltas, then column deltas): per round
+    the flat accumulator each owner adds (padded), or the accumulator rows
+    each owner adds and the own rows they land on (packed).
+    """
+    sparse_a: bool
+    packed: bool
+    n_out: int
+    n_slots: int
+    segments: Tuple[Dict, ...]
+    rounds: Tuple[Tuple[torch.Tensor, ...], ...]
+
+    @property
+    def real_pairs(self) -> int:
+        """Pair products B1 multiplies in one multiply (sparse A)."""
+        return int(sum(int(s["real"].sum()) for s in self.segments))
+
+
+def _steal_pool_tiles(splan: "_steal3d.StealPlan", g: int):
+    """Per device (``[g*g, ...]``, device d = (r, c)), the placed tile of
+    every A and B pool tile of the JAX body: A's row panel A[r, k] and the
+    A tiles of each move round (what the source ``delta`` hops up the grid
+    column gathers with ``amk<delta>``), then B's column panel B[k, c] and
+    the B tiles of each move round (``bmk<delta>``)."""
+    r, c = np.divmod(np.arange(g * g), g)
+    aux = splan.aux
+    a_tiles = [r[:, None] * g + np.arange(g)]
+    for delta in splan.a_deltas:
+        src_r = (r - delta) % g
+        a_tiles.append(src_r[:, None] * g + aux[f"amk{delta}"][src_r, c])
+    b_tiles = [np.arange(g)[None, :] * g + c[:, None]]
+    for delta in splan.b_deltas:
+        src_c = (c - delta) % g
+        b_tiles.append(aux[f"bmk{delta}"][r, src_c] * g + src_c[:, None])
+    return (np.concatenate(a_tiles, axis=1).astype(np.int64),
+            np.concatenate(b_tiles, axis=1).astype(np.int64))
+
+
+def _steal_device(splan: "_steal3d.StealPlan", a_h: "DistMatrix",
+                  geom: _Geom, device: torch.device,
+                  kernel: bool) -> _StealDevice:
+    """Translate a StealPlan's pool-relative lists and rounds into index
+    maps over the placed stacks (host numpy, once per plan)."""
+    g, n_dev = geom.g, geom.g * geom.g
+    aux = splan.aux
+    sparse = splan.a_kind == "bsr"
+    packed = splan.wire == "packed"
+    a_tiles, b_tiles = _steal_pool_tiles(splan, g)
+    if not sparse:
+        a_flat, stride, zero = a_tiles, 1, 0
+    elif packed:
+        stride = splan.a_wire_capacity
+        parts, off = [a_tiles[:, :g, None] * stride + np.arange(stride)], g
+        for cap, rcap in zip(splan.a_move_cap, splan.a_round_cap):
+            parts.append(a_tiles[:, off:off + cap, None] * stride
+                         + np.arange(rcap))
+            off += cap
+        a_flat = np.concatenate([p.reshape(n_dev, -1) for p in parts], 1)
+        zero = stride - 1            # tile 0's guaranteed-zero packed slot
+    else:
+        stride = splan.store_a
+        a_flat = (a_tiles[:, :, None] * stride
+                  + np.arange(stride)).reshape(n_dev, -1)
+        zero = int(a_h.grid_structure().zero_slot[0, 0])
+    # (lists, the pool index of the segment's zero block)
+    names = (("pa0", "pb0", "ps0", g * stride),
+             ("pa1", "pb1", "ps1", a_flat.shape[1])) if splan.overlap \
+        else (("pa", "pb", "ps", a_flat.shape[1]),)
+    segments = []
+    for ka, kb, ks, z in names:
+        pa, pb, ps = (aux[k].reshape(n_dev, -1).astype(np.int64)
+                      for k in (ka, kb, ks))
+        real = pa != z
+        at = np.take_along_axis(a_flat, np.minimum(pa, a_flat.shape[1] - 1),
+                                axis=1)
+        pa_g = np.where(real, at, zero)
+        if sparse:
+            pos, chunk = np.divmod(pb, splan.b_chunks)
+            pb_g = np.take_along_axis(b_tiles, pos, axis=1) * splan.b_chunks \
+                + chunk
+        else:
+            pb_g = np.take_along_axis(b_tiles, pb, axis=1)
+        as_dev = lambda x: torch.from_numpy(np.ascontiguousarray(
+            x, dtype=np.int32)).to(device)
+        seg = {"pa": as_dev(pa_g), "pb": as_dev(pb_g), "ps": as_dev(ps),
+               "real": real}
+        if not sparse:
+            seg["real_t"] = torch.from_numpy(real).to(device)
+        elif kernel:
+            seg["table"] = _spmm_table(pa_g, ps, pb_g, splan.n_slots,
+                                       real=real,
+                                       b_map=np.zeros(n_dev, np.int64),
+                                       device=device)
+        segments.append(seg)
+    r, c = np.divmod(np.arange(n_dev), g)
+    rounds = []
+    for pre, deltas in (("r", splan.row_deltas), ("c", splan.col_deltas)):
+        for delta in deltas:
+            # the owner (r, c) receives from (r, c - delta) along its grid
+            # row (row deltas) or from (r - delta, c) along its column
+            src_r, src_c = (r, (c - delta) % g) if pre == "r" \
+                else ((r - delta) % g, c)
+            acc = (src_r * g + src_c) * splan.n_out \
+                + aux[f"{pre}send{delta}"][src_r, src_c]
+            if not packed:
+                rounds.append((torch.from_numpy(acc).to(device),))
+                continue
+            # packed: the sender's listed block-rows land on the owner's
+            # target rows; padding (target nbr, the JAX dummy row) dropped
+            nbr = geom.a_nbr
+            rows = acc[:, None] * nbr + aux[f"{pre}row{delta}"][src_r, src_c]
+            tgt = aux[f"{pre}tgt{delta}"][r, c]
+            keep = tgt != nbr
+            dev_idx = np.broadcast_to(np.arange(n_dev)[:, None], tgt.shape)
+            rounds.append(tuple(torch.from_numpy(np.ascontiguousarray(
+                x[keep], dtype=np.int64)).to(device)
+                for x in (rows, dev_idx, tgt)))
+    return _StealDevice(sparse_a=sparse, packed=packed, n_out=splan.n_out,
+                        n_slots=splan.n_slots, segments=tuple(segments),
+                        rounds=tuple(rounds))
+
+
+def _body_steal3d(a: Dict, b: Dict, st: _StealDevice, geom: _Geom,
+                  ex: StackedExecutor) -> torch.Tensor:
+    """Static realisation of the paper's SS3.4 locality-aware work stealing.
+
+    Runs the plan-time LPT assignment of (i, k, j) items.  On a grid of
+    devices each device gathers its A grid-row panel and B grid-column
+    panel, receives the moved tiles of its off-owner items, accumulates
+    its pair list and ships partial C tiles home.  On one card no tile
+    moves: the pools and the move rounds are index maps into the placed
+    stacks (:class:`_StealDevice`), so one B1 launch
+    (``ops.steal_pair_accumulate``, output tile = device) computes every
+    device's ``n_out`` partial tiles, reading A and B where they lie (two
+    launches with ``overlap``, own items then stolen ones, the second
+    added into the first).  The reduce rounds then add the partials into
+    the owners in the JAX order: own tile, row deltas, column deltas (on
+    the packed wire only the block-rows each sender's items can touch).
+    Dense A takes the JAX package's einsum path as a plain PyTorch
+    product.
+    """
+    c = _steal3d_partials(a, _densify_b(b, geom, ex)["dense"], st, geom,
+                          ex)
+    return ex.unbatch(_steal3d_reduce(c, st, geom).to(geom.out_dtype))
+
+
+def _steal3d_partials(a: Dict, b_pool: torch.Tensor, st: _StealDevice,
+                      geom: _Geom, ex: StackedExecutor) -> torch.Tensor:
+    """Every device's ``n_out`` partial C tiles (``[g*g, n_out * tm,
+    tn]``): B1 over the pair lists (sparse A), one launch a segment, the
+    second added into the first; dense A as the JAX einsum."""
+    if not st.sparse_a:
+        return _steal3d_dense_partials(a, b_pool, st, geom, ex)
+    blocks, c = a["blocks"], None
+    for seg in st.segments:
+        c = kops.steal_pair_accumulate(
+            blocks.reshape(-1, *blocks.shape[-2:]),
+            b_pool.reshape(-1, geom.tn), seg["pa"], seg["pb"], seg["ps"],
+            n_slots=st.n_slots, impl=geom.impl, table=seg.get("table"),
+            out=c)
+    return c
+
+
+def _steal3d_reduce(c: torch.Tensor, st: _StealDevice,
+                    geom: _Geom) -> torch.Tensor:
+    """The reduce rounds: each owner's own partial tile (``[g*g, tm, tn]``,
+    a view of ``c``) plus the partials the rounds bring it, in the JAX
+    order; on the packed wire only the listed block-rows."""
+    n_dev, tm, tn = geom.g * geom.g, geom.tm, geom.tn
+    c = c.view(n_dev, st.n_out, tm, tn)
+    own = c[:, 0]
+    if st.packed:
+        nbr = geom.a_nbr
+        rows = c.view(-1, tm // nbr, tn)
+        own_rows = own.view(n_dev, nbr, tm // nbr, tn)
+        for src, dev_idx, tgt in st.rounds:
+            own_rows.index_put_((dev_idx, tgt), own_rows[dev_idx, tgt]
+                                + rows.index_select(0, src))
+    else:
+        flat = c.view(-1, tm, tn)
+        for (src,) in st.rounds:
+            own.add_(flat.index_select(0, src))
+    return own
+
+
+def _steal3d_dense_partials(a: Dict, b_pool: torch.Tensor,
+                            st: _StealDevice, geom: _Geom,
+                            ex: StackedExecutor) -> torch.Tensor:
+    """Dense A: every device's partial tiles as the JAX einsum computes
+    them, float32 products of placed tiles summed by output slot (the
+    padding pairs on the zero tile included)."""
+    n_dev, tm, tn = geom.g * geom.g, geom.tm, geom.tn
+    a_t, b_t = ex.batch(a["dense"]), ex.batch(b_pool)
+    dev = torch.arange(n_dev, device=ex.device)[:, None]
+    c = torch.zeros((n_dev, st.n_out * tm, tn), dtype=torch.float32,
+                    device=ex.device)
+    for seg in st.segments:
+        a_sel = a_t[seg["pa"].long()]
+        a_sel = torch.where(seg["real_t"][..., None, None], a_sel,
+                            torch.zeros((), dtype=a_sel.dtype,
+                                        device=ex.device))
+        prods = torch.matmul(a_sel.float(), b_t[seg["pb"].long()].float())
+        c.view(-1, tm, tn).index_add_(
+            0, (dev * st.n_out + seg["ps"].long()).reshape(-1),
+            prods.reshape(-1, tm, tn))
+    return c
+
+
+# ---------------------------------------------------------------------------
 # Algorithm registry
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
@@ -577,10 +860,14 @@ class Algorithm:
     balance the schedule benefits from (:func:`recommended_balance`);
     ``packed_body`` the packed-wire dense-output body, fed the
     ``wire_planner``'s consume maps for the operands named in ``packable``.
-    ``static_planner`` and ``cost_fn`` stay None until the port has
-    ``steal3d``.  ``step_maps(geom, ex)`` (the port's own) lists each
-    step's ``(a_map, b_map)`` per kernel launch (:meth:`MatmulPlan.
-    step_maps`).
+    ``static_planner(a_h, b_h, geom, wire=, assignment=)`` builds a
+    schedule's structure-specialised plan (steal3d's
+    :class:`~repro_torch.core.steal3d.StealPlan`, which its body consumes
+    in place of per-step maps; it packs the A side alone) and ``cost_fn(alg,
+    geom, a_h, b_h, wire=)`` scores it for :func:`auto_select` from that
+    plan instead of the generic cost model.  ``step_maps(geom, ex)`` (the
+    port's own) lists each step's ``(a_map, b_map)`` per kernel launch
+    (:meth:`MatmulPlan.step_maps`).
     """
     name: str
     body: Callable
@@ -685,8 +972,7 @@ def register_algorithm(name: str, *, a_placement: str = NATURAL,
 def _evict_plans_for_algorithm(name: str) -> None:
     """Drop the cached plans of a schedule that was re-registered or
     unregistered (their bodies are stale)."""
-    for key in [k for k in _PLAN_CACHE if k[0] == name]:
-        del _PLAN_CACHE[key]
+    invalidate_plans(algorithm=name)
 
 
 # Registration order is the JAX package's (auto_select breaks ties by it).
@@ -719,6 +1005,9 @@ register_algorithm("ring_c_bidir", a_placement=SKEW_ROWS,
                    wire_planner=_wire_planner_ring_c_bidir,
                    msgs_per_step=4,     # a_fwd, a_bwd, b_left, b_right
                    step_maps=_steps_ring_c_bidir)(_body_ring_c_bidir)
+register_algorithm("steal3d", style="bsp", wire=("a", "b", "c"),
+                   static_planner=_steal_plan_for, cost_fn=_steal3d_cost,
+                   packable=("a",))(_body_steal3d)
 
 
 def algorithms() -> Tuple[str, ...]:
@@ -803,6 +1092,7 @@ class _LRUCache:
 PLAN_CACHE_MAX = 128
 SYMBOLIC_CACHE_MAX = 32
 DENSITY_CACHE_MAX = 256
+STEAL_CACHE_MAX = 32
 # B1 tables a dense-output plan keeps: one per ring step and A structure
 SPMM_TABLE_CACHE_MAX = 16
 _PLAN_CACHE = _LRUCache(PLAN_CACHE_MAX)
@@ -813,12 +1103,17 @@ _PLAN_CACHE = _LRUCache(PLAN_CACHE_MAX)
 # resolves to dense never builds pair lists.
 _SYMBOLIC_CACHE = _LRUCache(SYMBOLIC_CACHE_MAX)
 _DENSITY_CACHE = _LRUCache(DENSITY_CACHE_MAX)
+# steal3d assignments and pair lists, keyed on abstract shapes and (sparse
+# A) the structure fingerprint: repeated plans and auto_select scores for
+# the same operands skip the host-side LPT and list construction.
+_STEAL_CACHE = _LRUCache(STEAL_CACHE_MAX)
 
 
 def clear_plan_cache() -> None:
     _PLAN_CACHE.clear()
     _SYMBOLIC_CACHE.clear()
     _DENSITY_CACHE.clear()
+    _STEAL_CACHE.clear()
 
 
 def plan_cache_size() -> int:
@@ -826,14 +1121,14 @@ def plan_cache_size() -> int:
 
 
 def cache_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
-    """Size, cap, hit/miss and eviction counts of the plan, symbolic-phase
-    and density caches.
+    """Size, cap, hit/miss and eviction counts of the plan, symbolic-phase,
+    density and steal3d caches.
 
     ``reset=True`` zeroes the counters after reading them; the returned
     dict holds the values from before the reset.
     """
     caches = {"plans": _PLAN_CACHE, "symbolic": _SYMBOLIC_CACHE,
-              "density": _DENSITY_CACHE}
+              "density": _DENSITY_CACHE, "steal": _STEAL_CACHE}
     out = {name: {"size": len(c), "maxsize": c.maxsize,
                   "evictions": c.evictions, "hits": c.hits,
                   "misses": c.misses} for name, c in caches.items()}
@@ -841,6 +1136,86 @@ def cache_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
         for c in caches.values():
             c.reset_counters()
     return out
+
+
+# The plan caches surface in obs snapshots as a pull-time callback: the
+# registry reads cache_stats() lazily, with no per-hit instrument update.
+_obs.registry().register_callback("plan_caches", cache_stats)
+
+# Machine scoring the predicted side of obs drift records (the measured
+# side is the synchronised wall clock); None means H100_SXM.
+_DRIFT_MACHINE: Optional["_roofline.Machine"] = None
+
+
+def set_drift_machine(machine) -> None:
+    """Set the Machine used for the predicted side of obs drift records.
+
+    ``None`` restores the default, :data:`~repro_torch.core.roofline.
+    H100_SXM`: the predictions describe a g x g grid of H100s (the JAX
+    package's default is its TPU preset, which the port does not carry).
+    """
+    global _DRIFT_MACHINE
+    _DRIFT_MACHINE = machine
+
+
+def _key_g(abstract_key) -> Optional[int]:
+    """Grid size of a handle abstract key (None for unrecognised keys)."""
+    if not isinstance(abstract_key, tuple) or not abstract_key:
+        return None
+    if abstract_key[0] == "bsr":
+        return int(abstract_key[2][0])
+    if abstract_key[0] == "dense":
+        return int(abstract_key[2])
+    return None
+
+
+def invalidate_plans(*, algorithm: Optional[str] = None,
+                     structure: Optional[str] = None,
+                     g: Optional[int] = None) -> int:
+    """Keyed plan-cache invalidation: evict only the entries matching every
+    given filter (AND semantics; at least one filter is required).
+
+    * ``algorithm`` — a registry name: entries whose schedule it is.
+    * ``structure`` — a structure fingerprint (``DistBSR.structure_key()``):
+      entries planned against that sparsity structure, including the
+      symbolic/density/steal side caches keyed on fingerprints.
+    * ``g`` — a grid size: entries planned for a g x g grid.
+
+    Returns the number of entries evicted across all caches.
+    """
+    if algorithm is None and structure is None and g is None:
+        raise ValueError(
+            "invalidate_plans requires at least one of algorithm=, "
+            "structure=, g= (use clear_plan_cache() to drop everything)")
+
+    def plan_key_matches(k) -> bool:
+        # (name, impl, allow_pad, overlap, a_key, b_key, *structure tags)
+        if algorithm is not None and k[0] != algorithm:
+            return False
+        if g is not None and _key_g(k[4]) != g and _key_g(k[5]) != g:
+            return False
+        if structure is not None and structure not in k[6:]:
+            return False
+        return True
+
+    evicted = 0
+    for key in [k for k in _PLAN_CACHE if plan_key_matches(k)]:
+        del _PLAN_CACHE[key]
+        evicted += 1
+    # side caches are keyed on fingerprints and abstract shapes, not on
+    # the schedule: swept for structure and grid filters only
+    if structure is not None or g is not None:
+        for key in [k for k in _STEAL_CACHE
+                    if (structure is None or structure == k[2])
+                    and (g is None or _key_g(k[0]) == g)]:
+            del _STEAL_CACHE[key]
+            evicted += 1
+        if algorithm is None and structure is not None:
+            for cache in (_SYMBOLIC_CACHE, _DENSITY_CACHE):
+                for key in [k for k in cache if structure in k]:
+                    del cache[key]
+                    evicted += 1
+    return evicted
 
 
 # ---------------------------------------------------------------------------
@@ -1262,6 +1637,153 @@ class DistDense(DistMatrix):
                 str(self.data.device))
 
 
+def _reshard_bsr(h: DistBSR, g: int, capacity) -> DistBSR:
+    t = h.tiled
+    if t.row_block_perm is not None or t.col_block_perm is not None:
+        raise ValueError(
+            "reshard does not support balanced handles (the balance "
+            "permutation is tied to the old grid); rebuild with "
+            "DistBSR.from_dense(balance=...) on the new grid")
+    bs = t.block_size
+    g_old = h.g
+    s = h.grid_structure()          # host-side rows/cols/real (cached)
+    nbr_old, nbc_old = s.tile_nbr, s.tile_nbc
+    m, n = h.logical_shape
+    tm = pad_to_multiple(ceil_div(m, g), bs)
+    tn = pad_to_multiple(ceil_div(n, g), bs)
+    nbr, nbc = tm // bs, tn // bs
+    rows_h, cols_h, real_h = s.rows, s.cols, s.real
+    store_old = rows_h.shape[2]
+    # bucket every real stored block by its new tile, in (row, col) order:
+    # the order TiledBSR.from_dense's nonzero scan gives
+    per_tile: Dict[Tuple[int, int], List[Tuple[int, int, int]]] = {}
+    for i in range(g_old):
+        for j in range(g_old):
+            for slot in np.nonzero(real_h[i, j])[0]:
+                gbr = i * nbr_old + int(rows_h[i, j, slot])
+                gbc = j * nbc_old + int(cols_h[i, j, slot])
+                src = (i * g_old + j) * store_old + int(slot)
+                per_tile.setdefault((gbr // nbr, gbc // nbc), []).append(
+                    (gbr % nbr, gbc % nbc, src))
+    max_nnzb = max((len(v) for v in per_tile.values()), default=0)
+    if capacity == "bucket":
+        cap = bucket_capacity(max_nnzb)
+    elif capacity is None:
+        cap = max_nnzb
+    else:
+        cap = int(capacity)
+        if cap < max_nnzb:
+            raise ValueError(f"capacity {cap} < max tile nnzb {max_nnzb}")
+    store = cap + nbr
+    rows_new = np.zeros((g, g, store), dtype=np.int32)
+    cols_new = np.zeros((g, g, store), dtype=np.int32)
+    src_new = np.full((g, g, store), -1, dtype=np.int64)
+    counts_new = np.zeros((g, g), dtype=np.int32)
+    cov = np.arange(nbr, dtype=np.int32)
+    for i in range(g):
+        for j in range(g):
+            ent = sorted(per_tile.get((i, j), []))
+            counts_new[i, j] = len(ent)
+            r = np.array([e[0] for e in ent], dtype=np.int32)
+            c = np.array([e[1] for e in ent], dtype=np.int32)
+            src = np.array([e[2] for e in ent], dtype=np.int64)
+            # pad to the uniform capacity as BSR.with_capacity does (the
+            # last coordinate repeated, zero blocks), then merge the
+            # coverage blocks in sorted order
+            pad = cap - len(ent)
+            last_r = r[-1] if len(ent) else np.int32(0)
+            last_c = c[-1] if len(ent) else np.int32(0)
+            r = np.concatenate([r, np.full(pad, last_r, np.int32), cov])
+            c = np.concatenate([c, np.full(pad, last_c, np.int32),
+                                np.zeros(nbr, np.int32)])
+            src = np.concatenate([src, np.full(pad + nbr, -1, np.int64)])
+            order = np.argsort(r, kind="stable")
+            rows_new[i, j] = r[order]
+            cols_new[i, j] = c[order]
+            src_new[i, j] = src[order]
+    # one device gather moves every block value to its new slot: no host
+    # round trip of block data, no dense materialisation
+    old_flat = t.blocks.reshape(-1, bs, bs)
+    pool = torch.cat([old_flat, old_flat.new_zeros((1, bs, bs))])
+    idx = np.where(src_new < 0, old_flat.shape[0], src_new)
+    blocks_new = pool[torch.as_tensor(idx.reshape(-1), device=t.device)]
+    return DistBSR(TiledBSR(
+        blocks=blocks_new.reshape(g, g, store, bs, bs),
+        rows=torch.as_tensor(rows_new, device=t.device),
+        cols=torch.as_tensor(cols_new, device=t.device),
+        counts=torch.as_tensor(counts_new, device=t.device),
+        shape=(tm * g, tn * g), block_size=bs, grid_shape=(g, g),
+        capacity=cap, logical_shape=(m, n)))
+
+
+def reshard(h: DistMatrix, g: int, *, capacity="bucket") -> DistMatrix:
+    """Re-tile a handle onto a ``g x g`` grid on its device.
+
+    Dense handles re-pad the logical region.  BSR handles re-bucket their
+    stored blocks by new-tile coordinates on the host's cached structure
+    view (integer index arithmetic only) and move the block values with one
+    device gather: nothing is densified.  ``capacity`` is the rebuilt
+    uniform tile capacity (``"bucket"`` | ``None`` | int, as in
+    :meth:`DistBSR.from_dense`).  Balanced BSR handles are refused: their
+    permutation is tied to the old grid.  Returns ``h`` itself when ``g``
+    already matches.
+    """
+    if g < 1:
+        raise ValueError(f"grid size must be >= 1, got {g}")
+    if isinstance(h, DistBSR):
+        if g == h.g:
+            return h
+        return _reshard_bsr(h, g, capacity)
+    if isinstance(h, DistDense):
+        if g == h.g:
+            return h
+        m, n = h.logical_shape
+        return DistDense.from_global(h.data[:m, :n], g, device=h.device)
+    raise TypeError(f"cannot reshard {type(h).__name__}")
+
+
+def validate_mesh(executor: "StackedExecutor", g: int, *handles) -> None:
+    """Fail fast (and clearly) on a grid the stacked executor cannot run.
+
+    The port's counterpart of the JAX package's mesh check: where the JAX
+    package checks a device mesh's axes and shape, the stacked executor
+    has a grid size and a device, so this checks ``g >= 1``, that the
+    executor runs a ``g x g`` grid, and that every handle lives on that
+    grid and that device.
+    """
+    if g < 1:
+        raise ValueError(f"grid size must be >= 1, got {g}")
+    if executor.g != g:
+        raise ValueError(
+            f"executor grid {executor.g}x{executor.g} does not match the "
+            f"{g}x{g} process grid of the operands")
+    for h in handles:
+        if h.g != g:
+            raise ValueError(f"operand lives on a {h.g}x{h.g} grid, not the "
+                             f"{g}x{g} grid of the executor")
+        if h.device != executor.device:
+            raise ValueError(f"operand lives on {h.device}, the executor "
+                             f"runs on {executor.device}")
+
+
+# ---------------------------------------------------------------------------
+# Trace hooks
+# ---------------------------------------------------------------------------
+_TRACE_HOOKS: List[Callable] = []
+
+
+def add_trace_hook(hook: Callable) -> Callable:
+    """Register ``hook(plan)`` to fire once per plan build (the port's
+    counterpart of the JAX package's executable trace; ``plan.traces``
+    counts them)."""
+    _TRACE_HOOKS.append(hook)
+    return hook
+
+
+def remove_trace_hook(hook: Callable) -> None:
+    _TRACE_HOOKS.remove(hook)
+
+
 # ---------------------------------------------------------------------------
 # Operand coercion + plans + public entry points
 # ---------------------------------------------------------------------------
@@ -1379,7 +1901,9 @@ def _symbolic_for(a_h: DistBSR, b_h: DistBSR) -> SymbolicProduct:
     key = (a_h.structure_key(), b_h.structure_key())
     sym = _SYMBOLIC_CACHE.get(key)
     if sym is None:
-        sym = _SYMBOLIC_CACHE[key] = symbolic_spgemm(a_h.tiled, b_h.tiled)
+        with _obs.span("plan_build.symbolic"):
+            sym = symbolic_spgemm(a_h.tiled, b_h.tiled)
+        _SYMBOLIC_CACHE[key] = sym
     return sym
 
 
@@ -1451,10 +1975,7 @@ def _b_pack_wins(b_h: DistMatrix) -> bool:
 def _check_request(algorithm: str, output: str, wire: str,
                    overlap: str, impl: Optional[str]) -> None:
     """Refuse, before any work, an unknown option or what the port lacks."""
-    if algorithm != "auto" and algorithm not in REGISTRY:
-        if algorithm in _NOT_PORTED:
-            raise ValueError(f"the port does not have algorithm "
-                             f"{algorithm!r} yet; it has {algorithms()}")
+    if algorithm != "auto":
         REGISTRY.get(algorithm)             # raises: unknown algorithm
     if output not in ("dense", "sparse", "auto"):
         raise ValueError(f"unknown output {output!r}; one of "
@@ -1739,7 +2260,14 @@ class MatmulPlan:
     Packed-wire dense-output plans hold each step's consume maps.
     Dense-output plans with a sparse A cache, where the kernel runs, B1's
     work table of each ring step (:meth:`spmm_table`), keyed on A's
-    structure and the step's tile maps.
+    structure and the step's tile maps.  A steal3d plan (``steal`` set)
+    holds its :class:`~repro_torch.core.steal3d.StealPlan` and the index
+    maps and B1 tables that run it on the stacked executor.
+
+    ``plan.traces`` counts the plan's builds (1) and each build fires the
+    :func:`add_trace_hook` hooks, where the JAX package traces its
+    executable.  With tracing on (``repro_torch.obs.enable()``) a call
+    records a ``multiply.<algorithm>`` span and a drift record.
     """
 
     def __init__(self, algorithm: Algorithm, geom: _Geom,
@@ -1751,7 +2279,9 @@ class MatmulPlan:
                  wire: str = "padded", packs: Tuple[str, ...] = (),
                  wire_aux: Optional[Dict[str, np.ndarray]] = None,
                  wire_caps: Optional[Dict[str, int]] = None,
-                 wire_fps: Optional[Dict[str, str]] = None):
+                 wire_fps: Optional[Dict[str, str]] = None,
+                 steal: Optional["_steal3d.StealPlan"] = None,
+                 steal_dev: Optional[_StealDevice] = None):
         self.algorithm = algorithm
         self.geom = geom
         self.executor = executor
@@ -1766,6 +2296,8 @@ class MatmulPlan:
         self.requested = requested or algorithm.name
         self.auto_scores = auto_scores
         self.symbolic = symbolic
+        self.steal = steal
+        self._steal = steal_dev
         # which operands ship packed ("a"/"b"), their wire capacities (the
         # cost model's byte terms) and the structure fingerprints their
         # consume maps were built for (the call guard)
@@ -1791,10 +2323,13 @@ class MatmulPlan:
             self._c_rows = torch.as_tensor(symbolic.c_rows, device=dev)
             self._c_cols = torch.as_tensor(symbolic.c_cols, device=dev)
             self._c_counts = torch.as_tensor(symbolic.c_counts, device=dev)
-        elif wire == "packed":
+        elif wire == "packed" and steal is None:
             self._aux = _steps_on_device(wire_aux, geom.g, dev)
         self._tables = _LRUCache(SPMM_TABLE_CACHE_MAX)
         self._maps: Dict[bytes, torch.Tensor] = {}
+        self.traces = 1
+        for hook in list(_TRACE_HOOKS):
+            hook(self)
 
     @property
     def kind(self) -> str:
@@ -1814,8 +2349,10 @@ class MatmulPlan:
         plan, B1's of the tables a dense-output plan has built so far."""
         if self.symbolic is None:
             bs = self._a_key[3] if self._a_key[0] == "bsr" else 0
+            tables = self._tables.values() if self._steal is None else [
+                s["table"] for s in self._steal.segments if "table" in s]
             return max((tab.workspace_bytes(bs, self.geom.tn)
-                        for tab in self._tables.values()), default=0)
+                        for tab in tables), default=0)
         bs = self.symbolic.block_size
         return max((s["table"].workspace_bytes(bs) for s in self._pairs
                     if "table" in s), default=0)
@@ -1836,10 +2373,15 @@ class MatmulPlan:
         g x g grid the schedule is written for), the JAX package's counts:
         stored slots, padding and coverage included.  Pass the sparse
         left-hand handle to also get the paper's Fig-1 per-stage vs
-        end-to-end imbalance from its tile counts."""
-        out = _cost_model(self.algorithm, self.geom, self._a_key,
-                          self._b_key, symbolic=self.symbolic,
-                          wire_caps=self._wire_caps)
+        end-to-end imbalance from its tile counts.  A steal3d plan's is its
+        planner's: the LPT makespan's flops and the gather, moved-tile and
+        reduce traffic."""
+        if self.steal is not None:
+            out = dict(self.steal.cost)
+        else:
+            out = _cost_model(self.algorithm, self.geom, self._a_key,
+                              self._b_key, symbolic=self.symbolic,
+                              wire_caps=self._wire_caps)
         if isinstance(a, DistBSR):
             per_stage, end_to_end = _schedule.stage_imbalance(
                 a.counts.cpu().numpy().astype(np.float64))
@@ -1901,6 +2443,29 @@ class MatmulPlan:
         return got
 
     def __call__(self, a, b):
+        # tracing off (the default): straight to the body, no clock read
+        # and no synchronisation
+        if not _obs.enabled():
+            return self._execute(a, b)
+        t0 = time.perf_counter()
+        sp = _obs.span(f"multiply.{self.algorithm.name}", kind=self.kind,
+                       wire=self.wire, output=self.output,
+                       overlap=self.overlap)
+        with sp:
+            out = self._execute(a, b)
+            measured = _obs.sync_elapsed(t0, out)
+            sp.note(measured_s=measured)
+        machine = _DRIFT_MACHINE or _roofline.H100_SXM
+        cm = self.cost_model()
+        _obs.record_drift(
+            self.algorithm.name, self.wire, self.overlap,
+            predicted_s=_predicted_time(cm, self.algorithm, machine,
+                                        self.overlap),
+            measured_s=measured, cm=cm, kind=self.kind,
+            machine=machine.name)
+        return out
+
+    def _execute(self, a, b):
         a_h, b_h = _coerce_pair(a, b, g=self.geom.g,
                                 allow_pad=self._allow_pad,
                                 device=self.executor.device)
@@ -1923,6 +2488,19 @@ class MatmulPlan:
         alg = self.algorithm
         pl_a, pl_b = alg.a_placement, alg.b_placement
         packed = self.wire == "packed"
+        if self.steal is not None:
+            if isinstance(a_h, DistBSR):
+                if a_h.structure_key() != self.steal.a_fingerprint:
+                    raise ValueError(
+                        "left operand's sparsity structure does not match "
+                        "this steal3d plan (the LPT assignment and pair "
+                        "lists are specialized to the structure); build a "
+                        "new plan with plan_matmul")
+                a_tree = a_h.packed_wire(pl_a) if packed \
+                    else {"blocks": a_h.placed(pl_a)["blocks"]}
+            else:
+                a_tree = a_h.placed(pl_a)
+            return alg.body, (a_tree, b_h.placed(pl_b), self._steal)
         if self.symbolic is not None:
             sym = self.symbolic
             if (a_h.structure_key(), b_h.structure_key()) != \
@@ -2007,14 +2585,14 @@ class MatmulPlan:
         return c[:a_h.logical_shape[0], :b_h.logical_shape[1]]
 
 
-def plan_matmul(a, b, *, algorithm: str = "ring_c",
-                impl: Optional[str] = None, g: Optional[int] = None,
-                allow_pad: bool = False, cache: bool = True,
-                machine: Optional["_roofline.Machine"] = None,
-                output: str = "dense",
-                sparse_threshold: Optional[float] = None,
-                wire: str = "auto", overlap: str = "auto",
-                device=None) -> MatmulPlan:
+def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
+                      impl: Optional[str] = None, g: Optional[int] = None,
+                      allow_pad: bool = False, cache: bool = True,
+                      machine: Optional["_roofline.Machine"] = None,
+                      output: str = "dense",
+                      sparse_threshold: Optional[float] = None,
+                      wire: str = "auto", overlap: str = "auto",
+                      device=None, assignment=None) -> MatmulPlan:
     """Build (or fetch from the shared cache) a plan for ``a @ b``.
 
     ``a`` / ``b`` may be :class:`DistMatrix` handles (preferred: placement
@@ -2040,15 +2618,31 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
     ``"packed"`` only their real blocks (consume maps stay in the plan),
     ``"auto"`` packs sparse-output plans and keeps dense-output plans
     padded.  Packed plans join the cache keyed on the packed operands'
-    structures; a plan with nothing to pack stays padded.
+    structures; a plan with nothing to pack stays padded.  steal3d packs
+    its A side alone (panel gathers, moved tiles and the partial-C rounds).
 
-    ``overlap="on"`` builds the split-step body, ``"off"`` the bulk one,
-    and ``"auto"`` resolves to the bulk one: on the single-stream executor
-    the split-step body hides no copy and holds one more copy of each
-    operand (``"on"`` stays for parity with the JAX package until the shift
-    runs on a side stream).  The mode joins the cache key and feeds the
-    cost model's comm-hiding credit.
+    ``overlap="on"`` builds the split-step body (steal3d: its own and
+    stolen items as two launches), ``"off"`` the bulk one, and ``"auto"``
+    resolves to the bulk one: on the single-stream executor the split-step
+    body hides no copy and holds one more copy of each operand (``"on"``
+    stays for parity with the JAX package until the shift runs on a side
+    stream).  The mode joins the cache key and feeds the cost model's
+    comm-hiding credit.
+
+    ``assignment`` injects a prebuilt :class:`~repro_torch.core.schedule.
+    Assignment3D` into a static-planner schedule (steal3d) in place of the
+    plan-time LPT.  It needs an explicit ``algorithm`` with a static
+    planner, passes ``validate_assignment``'s checks inside
+    ``build_steal_plan``, and bypasses the plan cache both ways.
     """
+    if assignment is not None:
+        if algorithm == "auto" \
+                or REGISTRY.get(algorithm).static_planner is None:
+            raise ValueError(
+                "assignment= requires an explicit algorithm with a static "
+                "planner (steal3d); "
+                f"got algorithm={algorithm!r}")
+        cache = False
     _check_request(algorithm, output, wire, overlap, impl)
     a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
     if a_h.device.type == "cuda":
@@ -2077,22 +2671,24 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
             "wire='padded'")
     sym = _symbolic_for(a_h, b_h) if output == "sparse" else None
     if algorithm == "auto":
-        algorithm, auto_scores = auto_select(
-            a_h, b_h, machine=machine, allow_pad=allow_pad, output=output,
-            wire=wire, overlap=overlap, _symbolic=sym)
+        with _obs.span("plan_build.auto_select"):
+            algorithm, auto_scores = auto_select(
+                a_h, b_h, machine=machine, allow_pad=allow_pad,
+                output=output, wire=wire, overlap=overlap, _symbolic=sym)
     alg = REGISTRY.get(algorithm)
     if sym is not None and alg.sparse_body is None:
         raise ValueError(
             f"algorithm {algorithm!r} has no sparse-output body; one of "
             f"{sparse_algorithms()} (or use output='dense')")
-    if alg.static_planner is not None:
-        raise ValueError(f"algorithm {algorithm!r} needs a static planner, "
-                         "which the port does not have yet")
     # which operands ship packed (a plan with none stays padded)
     packs: Tuple[str, ...] = ()
     if wire == "packed":
         if sym is not None:
             packs = ("a", "b")
+        elif alg.static_planner is not None:
+            # static planners pack the A side only (declared via packable)
+            packs = ("a",) if "a" in alg.packable \
+                and isinstance(a_h, DistBSR) else ()
         elif alg.packed_body is not None:
             packs = tuple(t for t in alg.packable
                           if isinstance(a_h if t == "a" else b_h, DistBSR))
@@ -2107,6 +2703,11 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
         # pair lists are plan constants, so the structure is part of the
         # plan's identity, not just its abstract shapes
         key += ("sparse", a_h.structure_key(), b_h.structure_key())
+    if alg.static_planner is not None:
+        # the LPT assignment (and so the pair lists and rounds) is a
+        # function of A's sparsity structure
+        key += ("steal", a_h.structure_key()
+                if isinstance(a_h, DistBSR) else None)
     if wire == "packed":
         key += ("wire-packed",) + tuple(
             (a_h if t == "a" else b_h).structure_key() for t in packs)
@@ -2118,32 +2719,59 @@ def plan_matmul(a, b, *, algorithm: str = "ring_c",
             return plan
     geom = _geometry(a_h, b_h, impl=impl, overlap=overlap == "on",
                      c_store=sym.store_capacity if sym else 0)
+    steal = alg.static_planner(a_h, b_h, geom, wire=wire,
+                               assignment=assignment) \
+        if alg.static_planner is not None else None
     wire_aux = wire_caps = wire_fps = None
-    if wire == "packed":
-        a_po = a_h.packed_operand() if "a" in packs else None
-        b_po = b_h.packed_operand() if "b" in packs else None
-        wire_caps = {t: po.wire_capacity for t, po in
-                     (("a", a_po), ("b", b_po)) if po is not None}
-        wire_fps = {t: po.fingerprint for t, po in
-                    (("a", a_po), ("b", b_po)) if po is not None}
-        if sym is not None:
-            # compose the stored->packed slot maps into the pair lists
-            wire_aux = {
-                "pa": _wire.remap_pairs_packed(sym.pair_a, a_po, "a"),
-                "pb": _wire.remap_pairs_packed(sym.pair_b, b_po, "b"),
-            }
-        else:
-            wire_aux = alg.wire_planner(a_po, b_po, geom)
-    plan = MatmulPlan(alg, geom, StackedExecutor(a_h.g, a_h.device),
-                      a_h.abstract_key(), b_h.abstract_key(),
-                      allow_pad=allow_pad, overlap=overlap,
-                      requested=requested, auto_scores=auto_scores,
-                      symbolic=sym, wire=wire, packs=packs,
-                      wire_aux=wire_aux, wire_caps=wire_caps,
-                      wire_fps=wire_fps)
+    if wire == "packed" and steal is None:
+        with _obs.span("plan_build.wire", packs="".join(packs)):
+            a_po = a_h.packed_operand() if "a" in packs else None
+            b_po = b_h.packed_operand() if "b" in packs else None
+            wire_caps = {t: po.wire_capacity for t, po in
+                         (("a", a_po), ("b", b_po)) if po is not None}
+            wire_fps = {t: po.fingerprint for t, po in
+                        (("a", a_po), ("b", b_po)) if po is not None}
+            if sym is not None:
+                # compose the stored->packed slot maps into the pair lists
+                wire_aux = {
+                    "pa": _wire.remap_pairs_packed(sym.pair_a, a_po, "a"),
+                    "pb": _wire.remap_pairs_packed(sym.pair_b, b_po, "b"),
+                }
+            else:
+                wire_aux = alg.wire_planner(a_po, b_po, geom)
+    elif steal is not None and steal.wire == "packed":
+        wire_caps = {"a": steal.a_wire_capacity}
+    with _obs.span("plan_build.executable", algorithm=alg.name):
+        ex = StackedExecutor(a_h.g, a_h.device)
+        steal_dev = None if steal is None else _steal_device(
+            steal, a_h, geom, ex.device, _runs_kernel(impl, ex.device))
+        plan = MatmulPlan(alg, geom, ex, a_h.abstract_key(),
+                          b_h.abstract_key(), allow_pad=allow_pad,
+                          overlap=overlap, requested=requested,
+                          auto_scores=auto_scores, symbolic=sym, wire=wire,
+                          packs=packs, wire_aux=wire_aux,
+                          wire_caps=wire_caps, wire_fps=wire_fps,
+                          steal=steal, steal_dev=steal_dev)
     if cache:
         _PLAN_CACHE[key] = plan
     return plan
+
+
+def plan_matmul(a, b, **kw) -> MatmulPlan:
+    sp = _obs.span("plan_build",
+                   algorithm=str(kw.get("algorithm", "ring_c")),
+                   output=str(kw.get("output", "dense")),
+                   wire=str(kw.get("wire", "auto")),
+                   overlap=str(kw.get("overlap", "auto")))
+    hits0 = _PLAN_CACHE.hits
+    with sp:
+        plan = _plan_matmul_impl(a, b, **kw)
+        sp.note(algorithm=plan.algorithm.name, wire=plan.wire,
+                output=plan.output, cached=_PLAN_CACHE.hits > hits0)
+    return plan
+
+
+plan_matmul.__doc__ = _plan_matmul_impl.__doc__
 
 
 def matmul(a, b, *, algorithm: str = "ring_c", impl: Optional[str] = None,

@@ -97,6 +97,18 @@ class BSR:
     def device(self) -> torch.device:
         return self.blocks.device
 
+    def block_fill_ratio(self) -> float:
+        """Fraction of stored block entries that are nonzero (1.0 = perfect).
+
+        Computed over the blocks holding any nonzero (so it is also right
+        for the interleaved tiles of :meth:`TiledBSR.tile`); zero padding
+        and coverage blocks never count against the ratio.
+        """
+        b = self.blocks.detach().cpu()
+        nz_blocks = int((b.abs().sum(dim=(1, 2)) != 0).sum())
+        denom = max(nz_blocks, 1) * self.block_size**2
+        return float(torch.count_nonzero(b)) / float(denom)
+
     def flops(self, n_cols_dense: int) -> int:
         """Flops of BSR @ dense-with-n_cols (2*nnzb*bs^2*n)."""
         return 2 * self.nnzb * self.block_size**2 * n_cols_dense
@@ -132,6 +144,18 @@ class BSR:
                    rows=as_tensor(rows, device), cols=as_tensor(cols, device),
                    shape=(mp, np_), block_size=bs, nnzb=nnzb,
                    logical_shape=(m, n))
+
+    @classmethod
+    def from_scipy(cls, sp_mat, block_size: int,
+                   capacity: Optional[int] = None,
+                   dtype: Optional[torch.dtype] = None,
+                   device=None) -> "BSR":
+        """From a scipy sparse matrix (any format), through its dense
+        form, as the JAX package's ``BSR.from_scipy``."""
+        import scipy.sparse as sps
+
+        return cls.from_dense(sps.csr_matrix(sp_mat).toarray(), block_size,
+                              capacity, dtype, device)
 
     def to_dense(self) -> torch.Tensor:
         return densify_raw(self.blocks, self.rows, self.cols,

@@ -10,6 +10,13 @@ neither operand.  Plans build the tables once per ring step
 (``MatmulPlan.spmm_table``); a raw call builds one from its lists, every
 listed block counting as real.  The plain PyTorch version is
 :func:`repro_torch.kernels.ref.bsr_spmm_raw_ref`.
+
+The result is the plain version's on any B, finite or not: a listed block
+left out (a zero block: padding, coverage, a dummy pair) gives NaN in its
+block-row wherever its B chunk holds an inf or a NaN, as the reference's
+``0 * inf`` does.  The table keeps those entries (``skip``), and each
+launch ends with a pass that flags the non-finite columns of their chunks
+on the card and writes the NaNs (nothing but the flags on finite B).
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 from . import loader
 
 __all__ = ["SpmmTable", "PoolLists", "spmm_table", "bsr_spmm_cuda",
-           "kernel_path", "CHUNK"]
+           "nan_pass", "kernel_path", "CHUNK"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,15 +53,22 @@ class SpmmTable:
     is int32 ``[4, R]``: tile, block-row, first partial and number of
     partials of each segment cut into several chunks.  ``fill`` is int32
     ``[2, F]``: tile and block-row of each block-row that no real block
-    visits, which a fresh output zero-fills.  ``n_parts`` partials of
-    ``bs * n`` float32 make the kernel's workspace.  ``max_slot``,
-    ``max_col`` and ``max_b_tile`` (-1 when empty) let the wrapper check
-    the operands against the table without reading it back.
+    visits, which a fresh output zero-fills.  ``skip`` is int32 ``[3,
+    X]``: tile, block-row and B chunk index of the entries left out (one
+    per tile, block-row and B chunk), and ``skip_chunks`` int32 ``[2,
+    U]`` the B tile and block column of each such chunk: where a chunk's
+    B rows hold an inf or a NaN, the kernel's NaN pass writes NaN into the
+    block-rows that skip it.  ``n_parts`` partials of ``bs * n`` float32
+    make the kernel's workspace.  ``max_slot``, ``max_col`` and
+    ``max_b_tile`` (-1 when empty) let the wrapper check the operands
+    against the table without reading it back.
     """
     ent: torch.Tensor
     chunks: torch.Tensor
     reduce: torch.Tensor
     fill: torch.Tensor
+    skip: torch.Tensor
+    skip_chunks: torch.Tensor
     n_parts: int
     tiles: int
     n_block_rows: int
@@ -84,7 +98,8 @@ def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
     ``rows[t, e]`` with B's block-row ``cols[t, e]``.  The lists need not be
     sorted: a stable sort by row keeps each row's blocks in list order.
     real : bool ``[T, L]`` or None (every entry real): the others (capacity
-    padding, coverage zeros) are left out.  b_map : int ``[T]`` or None
+    padding, coverage zeros, dummy pairs: zero blocks) are left out of the
+    multiply and kept for the NaN pass.  b_map : int ``[T]`` or None
     (the identity): the B tile of each output tile.  A block-row segment of
     ``L`` real blocks becomes ``ceil(L / chunk)`` chunks; the block-rows no
     real block visits are listed for the zero fill.
@@ -150,16 +165,30 @@ def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
     free = np.flatnonzero(~visited)
     fill = np.stack([free // nbr, free % nbr])
     ent = np.stack([slots.reshape(-1)[q], cols.reshape(-1)[q]])
-    if max(int(x.max(initial=0)) for x in (ent, chunks, reduce, fill)) \
+    # the entries left out, one per (tile, block-row, B chunk); one that
+    # names no block-row of C (or no B chunk) can put a NaN nowhere
+    x = np.flatnonzero(~real.reshape(-1))
+    x_row, x_col = rows.reshape(-1)[x], cols.reshape(-1)[x]
+    keep = (x_row >= 0) & (x_row < nbr) & (x_col >= 0)
+    x, x_row, x_col = x[keep], x_row[keep], x_col[keep]
+    x_tile = x // max(length, 1)
+    skip_chunks, x_chunk = np.unique(np.stack([b_map[x_tile], x_col]),
+                                     axis=1, return_inverse=True)
+    skip = np.unique(np.stack([x_tile, x_row, x_chunk.reshape(-1)]), axis=1)
+    if max(int(x.max(initial=0)) for x in (ent, chunks, reduce, fill, skip,
+                                           skip_chunks)) \
             > np.iinfo(np.int32).max:
         raise ValueError("block lists too long for the kernel's int32 table")
     as_i32 = lambda x: torch.from_numpy(
         np.ascontiguousarray(x, dtype=np.int32)).to(device or "cpu")
     return SpmmTable(ent=as_i32(ent), chunks=as_i32(chunks),
                      reduce=as_i32(reduce), fill=as_i32(fill),
+                     skip=as_i32(skip.reshape(3, -1)),
+                     skip_chunks=as_i32(skip_chunks.reshape(2, -1)),
                      n_parts=int(multi.sum()), tiles=t, n_block_rows=nbr,
                      max_slot=int(ent[0].max(initial=-1)),
-                     max_col=int(ent[1].max(initial=-1)),
+                     max_col=max(int(ent[1].max(initial=-1)),
+                                 int(x_col.max(initial=-1))),
                      max_b_tile=int(b_map.max(initial=-1)))
 
 
@@ -217,15 +246,17 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
     real block lands).  With ``out`` (that shape and type) it adds into
     ``out`` in place and returns it: visited block-rows become ``out +
     sum`` with the sum rounded to the output type first, the others stay
-    bit-identical.  Raises on anything the kernel does not take.
+    bit-identical.  Then :func:`nan_pass` writes NaN where a skipped zero
+    block meets a non-finite B chunk (the plain version's ``0 * inf``).
+    Raises on anything the kernel does not take.
     ``.launches`` counts the calls that launched the kernel; while
     ``.block_counter`` is an int64 CUDA tensor of one element, each launch
     adds to it the blocks its kernel multiplied.
     """
     counter = bsr_spmm_cuda.block_counter
     tensors = (blocks, dense, table.ent, table.chunks, table.reduce,
-               table.fill) + tuple(x for x in (out, counter)
-                                   if x is not None)
+               table.fill, table.skip, table.skip_chunks) + tuple(
+                   x for x in (out, counter) if x is not None)
     if not all(x.is_cuda for x in tensors):
         raise ValueError("bsr_spmm_cuda needs CUDA tensors (the table too); "
                          "CPU tensors go through kernels.ref")
@@ -286,7 +317,38 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
         raise RuntimeError(f"bsr_spmm kernel launch failed with CUDA error "
                            f"{err} (T={t}, bs={bs}, nbr={nbr}, K={k}, n={n}, "
                            f"chunks={table.chunks.shape[1]})")
+    nan_pass(dense, table, out)
     bsr_spmm_cuda.launches += 1
+    return out
+
+
+def nan_pass(dense: torch.Tensor, table: SpmmTable,
+             out: torch.Tensor) -> torch.Tensor:
+    """B1's non-finite pass over ``out``, the result of a launch of
+    ``table`` on the B pool ``dense`` (what :func:`bsr_spmm_cuda` runs after
+    its multiply; callable alone to time it): flag the columns of the
+    skipped entries' B chunks that hold an inf or a NaN, then write NaN
+    into the block-rows that skip them.  Two small kernels, no host
+    synchronisation; nothing when the table skips no entry."""
+    n_skip, n_chunks = table.skip.shape[1], table.skip_chunks.shape[1]
+    if not (n_skip and n_chunks and out.numel()):
+        return out
+    bs = out.shape[1] // table.n_block_rows
+    k, n = dense.shape[1], dense.shape[2]
+    flags = torch.empty((n_chunks, n), dtype=torch.uint8, device=out.device)
+    anyf = torch.empty(1, dtype=torch.int32, device=out.device)
+    lib = loader.load("bsr_spmm")
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.bsr_spmm_nan_launch(
+            ptr(dense), ptr(table.skip_chunks), n_chunks, ptr(table.skip),
+            n_skip, ptr(flags), ptr(anyf), ptr(out), bs, table.n_block_rows,
+            k, n, _DTYPE_CODES[out.dtype], ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"bsr_spmm non-finite pass failed with CUDA error "
+                           f"{err} ({n_skip} skipped entries, {n_chunks} "
+                           "chunks)")
     return out
 
 

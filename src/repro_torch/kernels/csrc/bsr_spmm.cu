@@ -6,7 +6,9 @@
 //                            A_pool[slot(e)] @ B_pool[btile(t), col(e)*bs : +bs, :]
 //
 // Replaces the TPU kernel bsr_spmm_pallas (src/repro/kernels/bsr_spmm.py,
-// body _spmm_kernel): the local multiply of every dense-output schedule.
+// body _spmm_kernel): the local multiply of every dense-output schedule,
+// and steal3d's pair lists (ops.steal_pair_accumulate: one output tile a
+// device, B the placed stack as one flat tile).
 // The TPU kernel walks a tile's whole stored-block list as a sequential grid
 // axis, capacity padding and coverage zeros included, and zeroes an output
 // block on its first visit.  Hopper blocks run in no order, so the work is
@@ -19,20 +21,28 @@
 //   (its last (row, col) repeated as zero blocks, 1.72x the real flops at
 //   R-MAT scale 15) and its coverage zeros never reach the kernel.  A block-
 //   row that no real block visits is zero-filled in a fresh output
-//   (spmm_fill_kernel).  Skipping a zero block changes one result: where B
-//   holds an inf or a NaN, the reference's 0 * inf gives a NaN in that row
-//   of C, and the skip does not.
+//   (spmm_fill_kernel).
+// * The result on non-finite B is the reference's all the same.  There a
+//   stored zero block (padding, coverage, a steal3d dummy pair) at block-row
+//   r and B chunk c gives 0 * inf = NaN in every row of r at each column
+//   where B's chunk c holds an inf or a NaN.  The table keeps the skipped
+//   entries, one per (tile, block-row, B chunk), and after the multiply
+//   spmm_flag_kernel marks the columns of each skipped chunk that hold a
+//   non-finite value (reading only those chunks, and raising one device
+//   flag), and spmm_nan_kernel writes NaN there; it returns at once when the
+//   flag is clear, so finite B costs the flag pass alone, with no host sync.
 // * Operands are read in place.  Each entry names an A block by its slot in
 //   a pool (the placed stack of A tiles on the padded wire, the packed
 //   buffers on the packed wire), each chunk the B tile of its output tile,
 //   both composed at plan time from the ring step's tile maps: a ring step
 //   on one card copies neither operand.
 // * One unit of work is a (chunk, row part, n-panel of BN columns): a chunk
-//   is a block-row segment of at most MAX_CHUNK real blocks, so on the main
-//   paths (segments of at most nbc = 128 real blocks) every segment is one
+//   is a block-row segment of at most MAX_CHUNK real blocks, so on the
+//   rings' main paths (segments of at most nbc = 128 real blocks) each is one
 //   chunk and writes C directly.  Longer segments (raw calls that list
-//   padding) store ordered float32 partials that spmm_reduce_kernel sums in
-//   chunk order: no atomics, the result does not depend on block order.
+//   padding, steal3d's segments that span g A tiles) store ordered float32
+//   partials that spmm_reduce_kernel sums in chunk order: no atomics, the
+//   result does not depend on block order.
 // * A plain grid, not a persistent one: the main paths give 1,024 (SpMM)
 //   and 32,768 (SpGEMM) units of up to 128 blocks, at least two thread
 //   blocks are resident on an SM, so one unit's epilogue overlaps another's
@@ -441,6 +451,50 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// flags[u * n + col] = 1 where the bs rows of B chunk u (B tile, block
+// column: chunks [2, n_chunks]) hold an inf or a NaN in column col, else 0;
+// any = 1 if some flag is set (the caller zeroes it first).  blockIdx.x
+// walks the columns, blockIdx.y the chunks.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    spmm_flag_kernel(const T* __restrict__ b, const int* __restrict__ chunks,
+                     long long n_chunks, unsigned char* __restrict__ flags,
+                     int* __restrict__ any, int bs, int K, int n) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  for (long long u = blockIdx.y; u < n_chunks; u += gridDim.y) {
+    const long long bt = chunks[u], c = chunks[n_chunks + u];
+    const T* src = b + (bt * K + c * bs) * n + col;
+    bool bad = false;
+    for (int r = 0; r < bs; ++r)
+      bad |= !isfinite(to_f32(src[static_cast<long long>(r) * n]));
+    flags[u * n + col] = bad ? 1 : 0;
+    if (bad) *any = 1;
+  }
+}
+
+// NaN into every row of each skipped entry's block-row (skip [3, n_skip]:
+// tile, block-row, chunk) at the columns its chunk flags; nothing at all
+// unless the any flag is set.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    spmm_nan_kernel(const int* __restrict__ skip, long long n_skip,
+                    const unsigned char* __restrict__ flags,
+                    const int* __restrict__ any, T* __restrict__ out, int bs,
+                    int nbr, int n) {
+  if (*any == 0) return;
+  const long long elems = static_cast<long long>(bs) * n;
+  const T nan = from_f32<T>(__int_as_float(0x7fc00000));
+  for (long long x = blockIdx.x; x < n_skip; x += gridDim.x) {
+    const int t = skip[x], brow = skip[n_skip + x];
+    const unsigned char* f =
+        flags + static_cast<long long>(skip[2 * n_skip + x]) * n;
+    T* o = out + (static_cast<long long>(t) * nbr + brow) * elems;
+    for (long long e = threadIdx.x; e < elems; e += blockDim.x)
+      if (f[e % n]) o[e] = nan;
+  }
+}
+
 // Zero the block-rows that no real block visits (a fresh output only): one
 // thread block per fill row (tile, block-row).
 template <typename T>
@@ -525,6 +579,24 @@ cudaError_t run(Params& p, const int* reduce, long long n_reduce,
   return err;
 }
 
+template <typename T>
+cudaError_t nan_pass(const T* b, const int* chunks, long long n_chunks,
+                     const int* skip, long long n_skip, unsigned char* flags,
+                     int* any, T* out, int bs, int nbr, int K, int n,
+                     cudaStream_t st) {
+  cudaError_t err = cudaMemsetAsync(any, 0, sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  const unsigned gy =
+      static_cast<unsigned>(n_chunks < 65535 ? n_chunks : 65535);
+  spmm_flag_kernel<T><<<dim3((n + 255) / 256, gy), 256, 0, st>>>(
+      b, chunks, n_chunks, flags, any, bs, K, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const unsigned gx = static_cast<unsigned>(n_skip < 4096 ? n_skip : 4096);
+  spmm_nan_kernel<T><<<gx, 256, 0, st>>>(skip, n_skip, flags, any, out, bs,
+                                         nbr, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Which multiply a launch of this block size and type runs: 1 = tensor
@@ -580,5 +652,35 @@ extern "C" int bsr_spmm_launch(const void* a, const void* b, const void* ent,
   const cudaError_t err =
       dtype == 0 ? run<float>(p, red, n_reduce, fil, n_fill, dtype, st)
                  : run<bf16>(p, red, n_reduce, fil, n_fill, dtype, st);
+  return static_cast<int>(err);
+}
+
+// The non-finite pass of one launch, after bsr_spmm_launch on the same
+// stream: b the launch's B pool [*, K, n]; chunks int32 [2, n_chunks] (B
+// tile, block column of each B chunk that a skipped entry names); skip
+// int32 [3, n_skip] (tile, block-row, chunk index); flags uint8 [n_chunks,
+// n] and any int32 [1] (workspace); out the launch's [T, nbr * bs, n].
+extern "C" int bsr_spmm_nan_launch(const void* b, const void* chunks,
+                                   long long n_chunks, const void* skip,
+                                   long long n_skip, void* flags, void* any,
+                                   void* out, int bs, int nbr, int K, int n,
+                                   int dtype, void* stream) {
+  if (bs <= 0 || nbr <= 0 || K <= 0 || n <= 0 || K % bs != 0 ||
+      n_chunks < 0 || n_skip < 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_chunks == 0 || n_skip == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ch = static_cast<const int*>(chunks);
+  const int* sk = static_cast<const int*>(skip);
+  unsigned char* fl = static_cast<unsigned char*>(flags);
+  int* an = static_cast<int*>(any);
+  const cudaError_t err =
+      dtype == 0
+          ? nan_pass<float>(static_cast<const float*>(b), ch, n_chunks, sk,
+                            n_skip, fl, an, static_cast<float*>(out), bs, nbr,
+                            K, n, st)
+          : nan_pass<bf16>(static_cast<const bf16*>(b), ch, n_chunks, sk,
+                           n_skip, fl, an, static_cast<bf16*>(out), bs, nbr,
+                           K, n, st);
   return static_cast<int>(err);
 }

@@ -36,6 +36,10 @@ _SIGNATURES = {
                              _P] + [_I] * 6 + [_P], _I),
         # bs, dtype -> 1 tensor cores, 0 SIMT
         "bsr_spmm_path": ([_I, _I], _I),
+        # b, skip_chunks, n_chunks, skip, n_skip, flags, any, out, bs, nbr,
+        # K, n, dtype, stream
+        "bsr_spmm_nan_launch": ([_P, _P, _L, _P, _L, _P, _P, _P] + [_I] * 5
+                                + [_P], _I),
     },
     "bsr_pair": {
         # a, b, pa, pb, pidx, chunks, n_chunks, reduce, n_reduce, fill,

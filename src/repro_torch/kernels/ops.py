@@ -26,8 +26,8 @@ from .bsr_spmm import SpmmTable, bsr_spmm_cuda, spmm_table
 
 __all__ = ["IMPLS", "default_impl", "bsr_spmm", "bsr_spmm_raw",
            "match_block_pairs", "build_pair_lists",
-           "bsr_pair_matmul", "bsr_pair_accumulate", "densify",
-           "densify_packed"]
+           "bsr_pair_matmul", "bsr_pair_accumulate", "steal_pair_accumulate",
+           "densify", "densify_packed"]
 
 IMPLS = ("auto", "ref", "cuda")
 
@@ -73,6 +73,13 @@ def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
     :func:`~repro_torch.kernels.bsr_spmm.spmm_table` of these lists at
     these maps; plans pass theirs, over real blocks only.  Built here when
     not given, every listed block counts as real.
+
+    Non-finite B: both paths give the JAX package's result.  Every listed
+    block takes part, the zero ones (capacity padding, coverage) too, so
+    where B's chunk ``cols[e]`` holds an inf or a NaN in a column, block-row
+    ``rows[e]`` of C holds a NaN in that column (``0 * inf``).  The plain
+    version multiplies every listed block; the kernel multiplies the real
+    ones and writes those NaNs from the entries its table left out.
     """
     impl = _resolve(impl, dense)
     single = blocks.dim() == 3
@@ -304,6 +311,48 @@ def bsr_pair_accumulate(a_blocks, b_blocks, pair_a, pair_b, pair_slot, *,
         out = out.to(out_dtype or torch.promote_types(a_blocks.dtype,
                                                       b_blocks.dtype))
     return out[0] if single else out
+
+
+def steal_pair_accumulate(a_pool, b_rows, pair_a, pair_b, pair_slot, *,
+                          n_slots: int, impl: Optional[str] = None,
+                          table: Optional[SpmmTable] = None,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Partial C tiles of the steal3d dispatch, one per device, from
+    plan-built pair lists (``repro_torch.core.steal3d``).
+
+    ``a_pool`` ``[N, bs, bs]`` is the block pool every device's pairs
+    index (the placed A stack or the packed buffers, flattened), ``b_rows``
+    ``[K, n]`` the B pool flattened to bs-row chunks (the placed B stack as
+    one flat tile).  Pair ``p`` of device ``t`` multiplies ``a_pool[
+    pair_a[t, p]]`` by chunk ``pair_b[t, p]`` into block-row ``pair_slot[t,
+    p]`` of that device's ``[n_slots * bs, n]`` output: the JAX package's
+    ``bsr_spmm_raw`` contract with pair lists in place of a tile's stored
+    structure, so the kernel is B1 (output tile = device, one B tile).
+    Lists ``[P]`` (one device) or ``[T, P]``.  ``out`` is a carry, as in
+    :func:`bsr_spmm_raw`.  ``table`` (kernel only) is the plan's
+    :func:`~repro_torch.kernels.bsr_spmm.spmm_table` of these lists with
+    the dummy and coverage pairs left out (their non-finite rule is
+    :func:`bsr_spmm_raw`'s); built here without a mask, every pair counts
+    as real.
+    """
+    impl = _resolve(impl, b_rows)
+    single = pair_a.dim() == 1
+    if single:
+        pair_a, pair_b, pair_slot = pair_a[None], pair_b[None], pair_slot[None]
+        out = None if out is None else out[None]
+    if impl == "ref":
+        res = _ref.steal_pair_accumulate_raw_ref(a_pool, b_rows, pair_a,
+                                                 pair_b, pair_slot, n_slots)
+        res = res if out is None else out.add_(res)
+    else:
+        if table is None:
+            table = spmm_table(pair_a, pair_slot, pair_b, n_slots,
+                               b_map=np.zeros(pair_a.shape[0], np.int64),
+                               device=b_rows.device)
+        res = bsr_spmm_cuda(a_pool.reshape(1, *a_pool.shape).contiguous(),
+                            b_rows.reshape(1, *b_rows.shape).contiguous(),
+                            table, out=out)
+    return res[0] if single else res
 
 
 def densify(blocks, rows, cols, *, n_block_rows: int,

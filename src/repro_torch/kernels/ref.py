@@ -11,8 +11,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["bsr_spmm_raw_ref", "bsr_spmm_ref", "bsr_pair_accumulate_raw_ref",
-           "bsr_pair_matmul_raw_ref", "densify_raw"]
+__all__ = ["bsr_spmm_raw_ref", "bsr_spmm_ref", "steal_pair_accumulate_raw_ref",
+           "bsr_pair_accumulate_raw_ref", "bsr_pair_matmul_raw_ref",
+           "densify_raw"]
 
 # Elements of the [tiles, chunk, bs, n] (or [tiles, chunk, bs, bs])
 # partial-product buffer per chunk: bounds the reference's memory at the
@@ -51,6 +52,44 @@ def bsr_spmm_raw_ref(blocks, rows, cols, dense, n_block_rows: int,
         dst = (tile * n_block_rows + rows[:, sl].long()).reshape(-1)
         out.index_add_(0, dst, part.reshape(-1, bs, n))
     out = out.reshape(t, n_block_rows * bs, n).to(out_dtype)
+    return out[0] if single else out
+
+
+def steal_pair_accumulate_raw_ref(a_pool, b_rows, pair_a, pair_b, pair_slot,
+                                  n_slots: int,
+                                  out_dtype: Optional[torch.dtype] = None
+                                  ) -> torch.Tensor:
+    """Pair products of a shared block pool and a shared dense B, summed in
+    float32 into output block-rows: the JAX package's ``bsr_spmm_raw(
+    a_pool[pair_a], pair_slot, pair_b, b_rows)`` without the gather of
+    every pair's block up front.
+
+    a_pool : [N, bs, bs];  b_rows : [K, n] (bs-row chunks);
+    pair_a, pair_b, pair_slot : int[P] / int[T, P]
+    returns [n_slots*bs, n] / [T, n_slots*bs, n] in ``promote(a_pool,
+    b_rows)``: block-row ``s`` of tile ``t`` sums ``a_pool[pa] @ chunk pb``
+    over the pairs of tile ``t`` with ``pair_slot == s``.  Every listed
+    pair is multiplied, its zero blocks included (so ``0 * inf`` gives
+    NaN, as the reference).
+    """
+    single = pair_a.dim() == 1
+    if single:
+        pair_a, pair_b, pair_slot = pair_a[None], pair_b[None], pair_slot[None]
+    t, p = pair_a.shape
+    bs, n = a_pool.shape[-1], b_rows.shape[-1]
+    out_dtype = out_dtype or torch.promote_types(a_pool.dtype, b_rows.dtype)
+    chunks = b_rows.reshape(-1, bs, n)
+    tile = torch.arange(t, device=b_rows.device)[:, None]
+    out = torch.zeros((t * n_slots, bs, n), dtype=torch.float32,
+                      device=b_rows.device)
+    step = max(1, _CHUNK_ELEMS // max(1, t * bs * n))
+    for p0 in range(0, p, step):
+        sl = slice(p0, p0 + step)
+        part = torch.matmul(a_pool[pair_a[:, sl].long()].float(),
+                            chunks[pair_b[:, sl].long()].float())
+        dst = (tile * n_slots + pair_slot[:, sl].long()).reshape(-1)
+        out.index_add_(0, dst, part.reshape(-1, bs, n))
+    out = out.reshape(t, n_slots * bs, n).to(out_dtype)
     return out[0] if single else out
 
 

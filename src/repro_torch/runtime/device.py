@@ -1,19 +1,19 @@
-"""Device selection, float32 precision and timing for the port.
+"""Device selection and float32 precision for the port.
 
 Counterpart of ``repro/runtime/platform.py``: where the JAX package plants
-XLA flags before the backend starts, the port picks a ``torch.device``,
+XLA flags before the backend starts, the port picks a ``torch.device`` and
 keeps float32 products in full float32 (no TF32) so results match the
-reference, and times work with a synchronise before the clock is read.
+reference.  Timing lives in ``repro_torch.obs`` (``sync_elapsed``,
+``timed``).
 """
 from __future__ import annotations
 
-import time
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "strict_fp32", "sync_elapsed", "as_tensor"]
+__all__ = ["resolve_device", "strict_fp32", "as_tensor"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -41,14 +41,6 @@ def strict_fp32() -> None:
     """Keep float32 products in IEEE float32 (TF32 off), as the reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-def sync_elapsed(t0: float) -> float:
-    """Seconds since ``t0`` (a ``time.perf_counter()`` reading), after the
-    card has finished the work queued so far."""
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    return time.perf_counter() - t0
 
 
 def as_tensor(x, device: torch.device,

@@ -1,7 +1,7 @@
 """The port's plan API (``repro_torch.core.api``) against the JAX package's.
 
-Parity: ``matmul`` through every schedule the port has (``summa_bcast``,
-``summa_ag``, ``ring_c``, ``ring_a``, ``ring_c_bidir``) on SpMM,
+Parity: ``matmul`` through every schedule (``summa_bcast``, ``summa_ag``,
+``ring_c``, ``ring_a``, ``ring_c_bidir``, ``steal3d``) on SpMM,
 dense-output SpGEMM and dense x dense, with overlap on and off and with
 balanced left operands; the packed-wire dense-output bodies; sparse-output
 SpGEMM through ``ring_c`` (wire padded and packed, overlap on and off,
@@ -52,9 +52,12 @@ CASES = {name: (alg, kind, balance, overlap)
 SPARSE_CASES = {name: (alg, kind, kw)
                 for name, alg, kind, kw in child.SPARSE_CASES}
 RING_C = [c for c, v in CASES.items() if v[0] == "ring_c"]
-OTHER = [c for c, v in CASES.items() if v[0] != "ring_c"]
+OTHER = [c for c, v in CASES.items() if v[0] not in ("ring_c", "steal3d")]
+STEAL = [c for c, v in CASES.items() if v[0] == "steal3d"]
 SPARSE_RING_C = [c for c, v in SPARSE_CASES.items() if v[0] == "ring_c"]
-SPARSE_OTHER = [c for c, v in SPARSE_CASES.items() if v[0] != "ring_c"]
+SPARSE_OTHER = [c for c, v in SPARSE_CASES.items()
+                if v[0] not in ("ring_c", "steal3d")]
+SPARSE_STEAL = [c for c, v in SPARSE_CASES.items() if v[0] == "steal3d"]
 
 
 def port_result(algorithm: str, kind: str, balance: str, overlap: str,
@@ -212,6 +215,51 @@ def test_schedule_sparse_and_packed_parity_g1_in_process(case, ops):
 def test_schedule_sparse_and_packed_parity_multi_tile(case, g, ops,
                                                       jax_multi):
     _sparse_parity_multi(case, g, ops, jax_multi)
+
+
+@pytest.mark.parametrize("case", STEAL + SPARSE_STEAL)
+def test_steal3d_parity_g1_in_process(case, ops):
+    """steal3d: SpMM (overlap on and off, balanced rows), dense-output
+    SpGEMM, dense x dense, and the packed wire (A packed)."""
+    if case in CASES:
+        _dense_parity_g1(case, ops)
+    else:
+        _sparse_parity_g1(case, ops)
+
+
+@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("case", STEAL + SPARSE_STEAL)
+def test_steal3d_parity_multi_tile(case, g, ops, jax_multi):
+    if case in CASES:
+        _dense_parity_multi(case, g, ops, jax_multi)
+    else:
+        _sparse_parity_multi(case, g, ops, jax_multi)
+
+
+NONFINITE = {name: (alg, kw) for name, alg, kw in child.NONFINITE_CASES}
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("case", list(NONFINITE))
+def test_nonfinite_b_gives_the_jax_nan_mask_end_to_end(case, g, ops,
+                                                        jax_multi):
+    """SpMM on a B holding an inf, a NaN and a -inf through ring_c (padded
+    and packed wire) and summa_bcast: C's NaN mask (where a listed block,
+    padding and coverage zeros included, meets a non-finite B chunk) and
+    its infinities equal the JAX package's, its finite values within
+    TOL (g = 1 in process, g = 2 and 3 from the child)."""
+    alg, kw = NONFINITE[case]
+    a_h = DistBSR.from_dense(ops["a"], g=g, block_size=child.BLOCK,
+                             device=CPU)
+    b_h = DistDense.for_rhs(child.nonfinite_b(ops), a_h)
+    got = matmul(a_h, b_h, algorithm=alg, **kw).numpy()
+    want = child.jax_nonfinite_result(alg, kw, 1, ops) if g == 1 \
+        else jax_multi[f"{case}/g{g}"]
+    nan = np.isnan(want)
+    assert 0 < nan.sum() < nan.size
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("algorithm", ["summa_bcast", "summa_ag", "ring_a",
@@ -962,7 +1010,8 @@ def test_coerce_pair_errors_match_jax():
      "algorithm 'ring_a' has no sparse-output body"),
     (dict(algorithm="ring_c_bidir", output="sparse", operands="sparse"),
      "algorithm 'ring_c_bidir' has no sparse-output body"),
-    (dict(algorithm="steal3d"), "does not have algorithm 'steal3d' yet"),
+    (dict(algorithm="steal3d", output="sparse", operands="sparse"),
+     "algorithm 'steal3d' has no sparse-output body"),
     (dict(algorithm="bogus"), "unknown algorithm 'bogus'"),
     (dict(output="sparse"), "sparse output needs two block-sparse"),
     (dict(algorithm="auto", wire="packed", operands="dense"),
@@ -977,8 +1026,8 @@ def test_coerce_pair_errors_match_jax():
 def test_refuses_what_the_slice_lacks(handles, kw, match):
     """What the port refuses, with the JAX package's refusals where it has
     them (``_both`` holds the messages equal for the schedules' sparse
-    outputs and the packed wire's dense operands); ``steal3d`` is the one
-    schedule the port does not have yet."""
+    outputs, steal3d's among them, and the packed wire's dense
+    operands)."""
     _, _, a_h, b_h = handles
     operands = kw.pop("operands", None)
     if operands == "balanced":
@@ -1007,9 +1056,8 @@ def test_refuses_what_the_slice_lacks(handles, kw, match):
 
 def test_padded_wire_and_algorithms():
     assert tapi.algorithms() == ("summa_bcast", "summa_ag", "ring_c",
-                                 "ring_a", "ring_c_bidir")
-    assert tapi.algorithms() == tuple(
-        name for name in japi.algorithms() if name != "steal3d")
+                                 "ring_a", "ring_c_bidir", "steal3d")
+    assert tapi.algorithms() == japi.algorithms()
     assert tapi.sparse_algorithms() == ("summa_bcast", "summa_ag", "ring_c")
     a_d = random_sparse(16, 16, 0.3, seed=0)
     a_h = DistBSR.from_dense(a_d, g=1, block_size=4, device=CPU)

@@ -549,3 +549,86 @@ def test_summa_sparse_output_on_the_card_matches_the_cpu(card, algorithm, g):
                            getattr(want.tiled, f))
     assert_close(got.densify().cpu(), want.densify(),
                  torch.from_numpy(np.abs(a_d) @ np.abs(s_d)))
+
+
+# ---------------------------------------------------------------------------
+# B1 on non-finite B, and steal3d through B1
+# ---------------------------------------------------------------------------
+def _assert_same_nan_mask(got, want, scale, step=0.0):
+    nan = torch.isnan(want.float().cpu())
+    assert torch.equal(torch.isnan(got.float().cpu()), nan)
+    assert bool(nan.any())
+    keep = ~nan & torch.isfinite(want.float().cpu())
+    assert_close(got.float().cpu()[keep], want.float().cpu()[keep],
+                 scale.float().cpu()[keep], step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,dtype", [(8, torch.float32), (64, torch.float32),
+                                      (24, torch.bfloat16),
+                                      (64, torch.bfloat16)])
+def test_kernel_nan_mask_on_nonfinite_b(card, bs, dtype):
+    """With an inf, a NaN and a -inf planted in B, the kernel over the real
+    blocks alone gives the plain version's NaN mask (which multiplies every
+    listed block, 0 * inf included), fresh and into C; on finite B its NaN
+    pass writes nothing."""
+    t, (blocks, rows, cols, dense), nbr = _b1_case(bs, 45, dtype, "bucket",
+                                                   card)
+    s = blocks.shape[1]
+    table = spmm_table(torch.arange(3)[:, None] * s + torch.arange(s), rows,
+                       cols, nbr, real=t.real_slots().reshape(3, s),
+                       device=card)
+    assert table.skip.shape[1] > 0
+    bad = dense.clone()
+    bad[0, 1, 3] = float("inf")
+    bad[0, 2 * bs + 1, 0] = float("nan")
+    bad[2, bs + 3, 7] = float("-inf")
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    want = ref.bsr_spmm_raw_ref(blocks, rows, cols, bad, nbr)
+    scale = abs_product(blocks, rows, cols, bad.nan_to_num(0, 0, 0), nbr)
+    got = bsr_spmm_cuda(blocks, bad, table)
+    _assert_same_nan_mask(got, want, scale, step)
+    carry = torch.ones_like(got)
+    bsr_spmm_cuda(blocks, bad, table, out=carry)
+    _assert_same_nan_mask(carry, want.float() + 1,
+                          scale + 1, 2 * step)
+    fine = bsr_spmm_cuda(blocks, dense, table)
+    assert bool(torch.isfinite(fine).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("wire,overlap", [("padded", "off"),
+                                          ("packed", "on")])
+def test_steal3d_on_the_card_matches_the_cpu(card, g, wire, overlap):
+    """steal3d SpMM and dense-output SpGEMM on a skewed operand (items
+    move at g 2 and 3) on the card against the CPU's plain path: one B1
+    launch per multiply (two with overlap), multiplying the plan's real
+    pairs, g x A's real blocks; the NaN mask of B with an inf equals the
+    plain version's."""
+    a_d = random_sparse(96, 96, 0.004, seed=g)
+    a_d[:16, :16] += random_sparse(16, 16, 0.9, seed=g + 1)
+    s_d = random_sparse(96, 96, 0.05, seed=10 + g)
+    b = np.random.default_rng(g).standard_normal((96, 13)).astype(np.float32)
+    b_bad = b.copy()
+    b_bad[2, 5] = np.inf
+    results = {}
+    for dev in (card, torch.device("cpu")):
+        a_h = DistBSR.from_dense(a_d, g=g, block_size=8, device=dev)
+        s_h = DistBSR.from_dense(s_d, g=g, block_size=8, device=dev)
+        results[dev.type] = [matmul(a_h, rhs, algorithm="steal3d", wire=wire,
+                                    overlap=overlap)
+                             for rhs in (b, s_h, b_bad)]
+    a_h = DistBSR.from_dense(a_d, g=g, block_size=8, device=card)
+    plan = plan_matmul(a_h, b, algorithm="steal3d", wire=wire,
+                       overlap=overlap)
+    before = bsr_spmm_cuda.launches
+    _, multiplied = _counted(lambda: plan(a_h, b))
+    assert bsr_spmm_cuda.launches == before + (2 if overlap == "on" else 1)
+    assert multiplied == plan._steal.real_pairs == g * int(a_h.counts.sum())
+    scales = [np.abs(a_d) @ np.abs(b), np.abs(a_d) @ np.abs(s_d)]
+    for got, want, scale in zip(results["cuda"], results["cpu"], scales):
+        assert got.is_cuda
+        assert_close(got.cpu(), want, torch.from_numpy(scale))
+    _assert_same_nan_mask(results["cuda"][2], results["cpu"][2],
+                          torch.from_numpy(scales[0]))

@@ -157,8 +157,10 @@ def _replay_spmm_kernel(blocks, dense, table, out=None):
     the chunk's B tile) in float32 and stores C (fresh, or C + the sum
     rounded to C's type) or its partial; a segment cut into several chunks
     sums its partials in chunk order; a fresh output zero-fills the
-    block-rows no real block visits.  Returns (C, how often each pool block
-    was multiplied)."""
+    block-rows no real block visits; then the NaN pass writes NaN into
+    each left-out entry's block-row at the columns where its B chunk holds
+    an inf or a NaN.  Returns (C, how often each pool block was
+    multiplied)."""
     p, s, bs, _ = blocks.shape
     pool = blocks.reshape(p * s, bs, bs)
     n = dense.shape[-1]
@@ -201,6 +203,12 @@ def _replay_spmm_kernel(blocks, dense, table, out=None):
             written[tile, row] += 1
         assert bool((written == 1).all()), "a block-row is left unwritten"
     assert int(written.max()) <= 1, "a block-row is written twice"
+    flags = torch.stack([~torch.isfinite(
+        dense[b_tile, col * bs:(col + 1) * bs].float()).all(dim=0)
+        for b_tile, col in table.skip_chunks.T.tolist()]) \
+        if table.skip_chunks.shape[1] else None
+    for tile, row, u in table.skip.T.tolist():
+        c[tile, row][:, flags[u]] = float("nan")
     return c.reshape(t, nbr * bs, n), multiplied
 
 
@@ -305,6 +313,117 @@ def test_plan_spmm_tables_list_the_blocks_that_hold_data(g, wire):
         assert empty
         assert set(map(tuple, table.fill.T.tolist())) == empty
     assert plan.workspace_bytes() == 0
+
+
+def _nonfinite(dense: torch.Tensor) -> torch.Tensor:
+    """``dense`` ``[T, K, n]`` with an inf, a NaN and a -inf planted."""
+    dense = dense.clone()
+    dense[0, 1, 3] = float("inf")
+    dense[0, 6, 0] = float("nan")
+    dense[-1, 9, 2] = float("-inf")
+    return dense
+
+
+def _same_nan_mask(got: np.ndarray, want: np.ndarray, tol: float) -> None:
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    assert nan.any() and not nan.all()
+    np.testing.assert_allclose(got[~nan], want[~nan], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nonfinite_b_gives_the_jax_nan_mask(dtype):
+    """Where B holds an inf or a NaN, the plain B1 gives the JAX package's
+    ``bsr_spmm_raw``: NaN in every block-row whose listed blocks (real,
+    capacity padding or coverage zeros) meet a non-finite B chunk, at
+    those columns, and equal finite values elsewhere.  The kernel's work
+    split over the real blocks alone, replayed with its NaN pass from the
+    left-out entries, gives the same mask, fresh and into a carry."""
+    a_d = tbsr.random_sparse(36, 24, 0.35, seed=8)
+    a_d[8:16] = 0                                   # empty block-rows
+    t = tbsr.TiledBSR.from_dense(a_d, ProcessGrid(1, 2), 4, capacity=40,
+                                 dtype=getattr(torch, dtype), device=CPU)
+    s, nbr = t.store_capacity, t.tile_shape[0] // 4
+    dense = _nonfinite(torch.from_numpy(np.random.default_rng(9)
+                                        .standard_normal((2, 12, 5))
+                                        .astype(np.float32))).to(
+        getattr(torch, dtype))
+    blocks, rows, cols = (t.blocks.reshape(2, s, 4, 4), t.rows.reshape(2, s),
+                          t.cols.reshape(2, s))
+    got = _f32(tops.bsr_spmm_raw(blocks, rows, cols, dense,
+                                 n_block_rows=nbr))
+    want = np.stack([_f32(jops.bsr_spmm_raw(
+        jnp.asarray(_f32(blocks[i])).astype(getattr(jnp, dtype)),
+        jnp.asarray(rows[i].numpy()), jnp.asarray(cols[i].numpy()),
+        jnp.asarray(_f32(dense[i])).astype(getattr(jnp, dtype)),
+        n_block_rows=nbr, impl="ref", augment=False)) for i in range(2)])
+    _same_nan_mask(got, want, TOL[dtype])
+    real = t.real_slots().reshape(2, s)
+    assert not real.all()                   # padding and coverage skipped
+    slots = torch.arange(2)[:, None] * s + torch.arange(s)
+    table = spmm_table(slots, rows, cols, nbr, real=real)
+    assert table.skip.shape[1] > 0
+    replayed, _ = _replay_spmm_kernel(blocks, dense, table)
+    _same_nan_mask(_f32(replayed), want, TOL[dtype])
+    carry = torch.ones(got.shape, dtype=getattr(torch, dtype))
+    replayed, _ = _replay_spmm_kernel(blocks, dense, table, out=carry)
+    _same_nan_mask(_f32(replayed), want + 1, TOL[dtype])
+    # a raw table (every listed block real) skips nothing
+    assert spmm_table(slots, rows, cols, nbr).skip.shape[1] == 0
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("wire,overlap", [("padded", "off"),
+                                          ("packed", "on")])
+def test_steal3d_pair_lists_on_b1_and_nonfinite_b(g, wire, overlap):
+    """steal3d's pair lists as B1 runs them: each launch's table over the
+    real pairs (the dummy and coverage pairs on the zero block left out)
+    replays to the plain ``ops.steal_pair_accumulate`` of the same lists,
+    on finite B and on B with an inf and a NaN (the same NaN mask); the
+    real pairs are g x A's real blocks.  At g = 1 the whole multiply's NaN
+    mask is the JAX package's."""
+    from repro.core import api as japi
+    from repro_torch.core import api as tapi
+    a_d = tbsr.random_sparse(48, 48, 0.01, seed=g)
+    a_d[:8, :8] += tbsr.random_sparse(8, 8, 0.9, seed=g + 1)
+    b = np.random.default_rng(g).standard_normal((48, 5)).astype(np.float32)
+    a_h = tapi.DistBSR.from_dense(a_d, g=g, block_size=4, device=CPU)
+    for bad in (False, True):
+        b_t = torch.from_numpy(b)
+        if bad:
+            b_t = _nonfinite(b_t[None])[0]
+        b_h = tapi.DistDense.for_rhs(b_t, a_h)
+        plan = tapi.plan_matmul(a_h, b_h, algorithm="steal3d", wire=wire,
+                                overlap=overlap)
+        st = tapi._steal_device(plan.steal, a_h, plan.geom, CPU, True)
+        assert st.real_pairs == g * int(a_h.counts.sum())
+        pool = (a_h.packed_wire if wire == "packed" else a_h.placed)(
+            tapi.NATURAL)["blocks"]
+        blocks = pool.reshape(1, -1, 4, 4)
+        dense = b_h.placed(tapi.NATURAL)["dense"]
+        dense = dense.reshape(1, -1, dense.shape[-1])
+        got = want = None
+        for seg in st.segments:
+            assert seg["table"].real_blocks == int(seg["real"].sum())
+            got, _ = _replay_spmm_kernel(blocks, dense, seg["table"],
+                                         out=got)
+            want = tops.steal_pair_accumulate(
+                blocks[0], dense[0], seg["pa"], seg["pb"], seg["ps"],
+                n_slots=st.n_slots, out=want)
+        if bad:
+            _same_nan_mask(got.numpy(), want.numpy(), 1e-5)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+        if bad and g == 1:
+            a_j = japi.DistBSR.from_dense(a_d, g=1, block_size=4)
+            want = np.asarray(japi.matmul(
+                a_j, japi.DistDense.for_rhs(jnp.asarray(b_t.numpy()), a_j),
+                algorithm="steal3d", wire=wire, overlap=overlap,
+                impl="ref"))
+            _same_nan_mask(tapi.matmul(a_h, b_h, algorithm="steal3d",
+                                       wire=wire, overlap=overlap).numpy(),
+                           want, 1e-5)
 
 
 def test_spmm_table_refuses_what_the_kernel_does_not_take():

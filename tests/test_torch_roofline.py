@@ -6,9 +6,9 @@ plans' ``cost_model()`` / ``predicted_cost()`` / ``predicted_perf()`` and
 ``auto_select``.  Every formula, every cost dict and every auto score must
 equal the JAX package's on the same inputs (bit for bit: the same float
 arithmetic in the same order).  ``auto_select`` is pure planning, so it
-and ``_cost_model`` run in this process at any g; the JAX side scores
-with a registry holding only the five schedules the port has, and with a
-``Machine`` of the same fields.
+and ``_cost_model`` (steal3d: its planner's cost dict) run in this process
+at any g; both sides score all six schedules, on a ``Machine`` of the same
+fields.
 """
 import dataclasses
 
@@ -21,16 +21,18 @@ import jax.numpy as jnp
 from repro.core import api as japi
 from repro.core import roofline as jrl
 from repro.core import schedule as jschedule
+from repro.core import steal3d as jsteal  # analysis: allow(source.import.repro.core.steal3d)
 from repro_torch.core import api as tapi
 from repro_torch.core import roofline as trl
 from repro_torch.core import schedule as tschedule
 from repro_torch.core.api import DistBSR, DistDense, plan_matmul
-from repro_torch.core.bsr import random_sparse
+from repro_torch.core.bsr import random_sparse, rmat_matrix
 
 import torch_jax_child as child
 
 CPU = torch.device("cpu")
-PORTED = ("summa_bcast", "summa_ag", "ring_c", "ring_a", "ring_c_bidir")
+PORTED = ("summa_bcast", "summa_ag", "ring_c", "ring_a", "ring_c_bidir",
+          "steal3d")
 
 
 def jax_machine(m: trl.Machine) -> jrl.Machine:
@@ -38,11 +40,10 @@ def jax_machine(m: trl.Machine) -> jrl.Machine:
 
 
 def jax_registry() -> japi.AlgorithmRegistry:
-    """The JAX package's schedules that the port has, in its order."""
-    reg = japi.AlgorithmRegistry()
-    for name in PORTED:
-        reg.register(japi.REGISTRY.get(name))
-    return reg
+    """The JAX package's registry: the port has all six schedules, in the
+    same order."""
+    assert japi.algorithms() == PORTED
+    return japi.REGISTRY
 
 
 # ---------------------------------------------------------------------------
@@ -182,9 +183,13 @@ def test_cost_model_dicts_match_jax(algorithm, kind, output, wire, g, ops):
                               c_store=sym.store_capacity if sym else 0)
         caps = {t: (a_j if t == "a" else b_j).packed_operand().wire_capacity
                 for t in plan._packs} if plan.wire == "packed" else None
-        want = japi._cost_model(alg_j, geom, a_j.abstract_key(),
-                                b_j.abstract_key(), symbolic=sym,
-                                wire_caps=caps)
+        if algorithm == "steal3d":
+            want = dict(jsteal.build_steal_plan(a_j, b_j, geom,
+                                                wire=plan.wire).cost)
+        else:
+            want = japi._cost_model(alg_j, geom, a_j.abstract_key(),
+                                    b_j.abstract_key(), symbolic=sym,
+                                    wire_caps=caps)
         if kind != "dense":
             want["per_stage_imbalance"], want["end_to_end_imbalance"] = \
                 jschedule.stage_imbalance(np.asarray(a_j.counts, np.float64))
@@ -289,6 +294,40 @@ def test_auto_sparse_output_picks_a_sparse_schedule(ops):
         output="sparse")[0]
     np.testing.assert_allclose(plan(a_t, s_t).densify().numpy(),
                                ops["a"] @ ops["s"], rtol=1e-5, atol=1e-5)
+
+
+def _skewed(g):
+    """``test_steal3d.py``'s skewed operand: R-MAT scale 11 (seed 3) at bs
+    16, and a dense B 256 wide."""
+    a = rmat_matrix(scale=11, edgefactor=8, seed=3)
+    a_t = DistBSR.from_dense(a, g=g, block_size=16, device=CPU)
+    a_j = japi.DistBSR.from_dense(a, g=g, block_size=16)
+    b = np.ones((a.shape[1], 256), np.float32)
+    return (a_t, DistDense.for_rhs(b, a_t), a_j,
+            japi.DistDense.for_rhs(jnp.asarray(b), a_j))
+
+
+def test_auto_picks_steal3d_when_stealing_wins_on_skew():
+    """``test_steal3d.py::test_auto_picks_steal3d_when_stealing_wins_on_skew``
+    with six schedules on both sides: where the stealing simulation says
+    stealing wins and the machine is compute-bound (the JAX package's
+    host-CPU preset, given to both as a Machine of the same fields), both
+    packages score steal3d lowest; on the H100 preset the scores and the
+    choice are equal too."""
+    a_t, b_t, a_j, b_j = _skewed(4)
+    counts = a_t.counts.numpy().astype(np.float64)
+    assert tschedule.steal_simulation(counts, steal="locality") < \
+        tschedule.steal_simulation(counts, steal="none")
+    cpu = trl.Machine(**dataclasses.asdict(jrl.HOST_CPU))
+    for m in (cpu, trl.H100_SXM):
+        got = tapi.auto_select(a_t, b_t, machine=m)
+        assert got == japi.auto_select(a_j, b_j, machine=jax_machine(m))
+        assert set(got[1]) == set(PORTED)
+    choice, scores = tapi.auto_select(a_t, b_t, machine=cpu)
+    assert choice == "steal3d" and scores["steal3d"] == min(scores.values())
+    plan = plan_matmul(a_t, b_t, algorithm="auto", machine=cpu)
+    assert plan.algorithm.name == "steal3d"
+    assert plan.steal.assignment.n_moved > 0
 
 
 def test_auto_select_respects_registration(ops):

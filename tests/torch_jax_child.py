@@ -9,7 +9,8 @@ child process whose XLA backend was started with 9 host devices::
 It writes, for each grid size and each case of :data:`CASES` and
 :data:`SPARSE_CASES`, the JAX package's ``matmul(algorithm=...,
 impl="ref")`` result for the case's schedule (a sparse result as its
-``TiledBSR`` fields, see :func:`result_fields`), plus the fields of the
+``TiledBSR`` fields, see :func:`result_fields`), the results of
+:data:`NONFINITE_CASES`, plus the fields of the
 JAX ``TiledBSR`` that the interop case hands to the port.  The inputs are made here from seeded numpy
 and are imported by the test, so both packages see the same matrices.
 """
@@ -38,12 +39,20 @@ _DENSE = (
     ("dense-off", "dense", "none", "off"),
 )
 
+# steal3d's dense-output cases (its assignment, pair lists and rounds are
+# structure-specialised, so a few cases cover the body): SpMM with overlap
+# on and off and with balanced rows, dense-output SpGEMM, dense x dense
+_STEAL = ("spmm-none-on", "spmm-none-off", "spmm-rows-off", "spgemm-none-off",
+          "dense-on")
+
 # (case name, schedule, operand kind, balance of the left operand, overlap):
 # ring_c's cases keep their names, the other schedules' are
 # "<schedule>:<case>"
 CASES = tuple((name, "ring_c", *rest) for name, *rest in _DENSE) + tuple(
     (f"{alg}:{name}", alg, *rest)
-    for alg in OTHER_ALGORITHMS for name, *rest in _DENSE)
+    for alg in OTHER_ALGORITHMS for name, *rest in _DENSE) + tuple(
+    (f"steal3d:{name}", "steal3d", *rest)
+    for name, *rest in _DENSE if name in _STEAL)
 
 # Sparse outputs and the packed wire: (case name, schedule, kind, matmul
 # keywords).  "sparse" is A @ S with output="sparse"; "auto" A @ S with
@@ -72,9 +81,20 @@ _PACKED = ("packed-spmm-off", "packed-spgemm-on")
 _SUMMA_SPARSE = ("sparse-padded-on", "sparse-packed-off", "auto-below")
 SPARSE_CASES = tuple((name, "ring_c", *rest) for name, *rest in _SPARSE) \
     + tuple((f"{alg}:{name}", alg, *rest)
-            for alg in OTHER_ALGORITHMS for name, *rest in _SPARSE
+            for alg in OTHER_ALGORITHMS + ("steal3d",)
+            for name, *rest in _SPARSE
             if name in _PACKED
             or (name in _SUMMA_SPARSE and alg.startswith("summa")))
+
+# SpMM on a B with an inf, a NaN and a -inf planted (:func:`nonfinite_b`):
+# (case name, schedule, matmul keywords).  The NaN mask of C depends on
+# which blocks each schedule lists (padding, coverage, the packed wire's
+# consume lists), so it is held to the JAX package's exactly.
+NONFINITE_CASES = (
+    ("nonfinite:ring_c-padded", "ring_c", dict(wire="padded")),
+    ("nonfinite:ring_c-packed", "ring_c", dict(wire="packed")),
+    ("nonfinite:summa_bcast", "summa_bcast", dict(wire="padded")),
+)
 
 
 def inputs() -> dict:
@@ -98,6 +118,17 @@ def inputs() -> dict:
         "x": rng.standard_normal((10, 7)).astype(np.float32),
         "y": rng.standard_normal((7, 5)).astype(np.float32),
     }
+
+
+def nonfinite_b(ops: dict) -> np.ndarray:
+    """``ops["b"]`` with an inf in its first block-row (the B chunk that
+    capacity padding and coverage blocks name), a NaN in a middle one and
+    a -inf in its last."""
+    b = ops["b"].copy()
+    b[1, 3] = np.inf
+    b[22, 5] = np.nan
+    b[-2, 7] = -np.inf
+    return b
 
 
 def oracle(kind: str, ops: dict) -> np.ndarray:
@@ -193,6 +224,18 @@ def jax_result(algorithm: str, kind: str, balance: str, overlap: str, g: int,
     return np.asarray(matmul(a_h, b_h, **kw))
 
 
+def jax_nonfinite_result(algorithm: str, kw: dict, g: int,
+                         ops: dict) -> np.ndarray:
+    """``repro.core.api.matmul`` of A and :func:`nonfinite_b` with the
+    case's schedule and the jnp reference kernel."""
+    import jax.numpy as jnp
+    from repro.core.api import DistDense, matmul
+    a_h = jax_tiled(g, "none", ops)
+    b_h = DistDense.for_rhs(jnp.asarray(nonfinite_b(ops)), a_h)
+    return np.asarray(matmul(a_h, b_h, algorithm=algorithm, impl="ref",
+                             **kw))
+
+
 def main(argv) -> int:
     out, grids = argv[1], [int(x) for x in argv[2:]]
     import jax
@@ -209,6 +252,8 @@ def main(argv) -> int:
             for field, value in jax_sparse_result(alg, kind, kw, g,
                                                   ops).items():
                 res[f"{name}/g{g}/{field}"] = value
+        for name, alg, kw in NONFINITE_CASES:
+            res[f"{name}/g{g}"] = jax_nonfinite_result(alg, kw, g, ops)
         t = jax_tiled(g, "none", ops).tiled
         for field in ("blocks", "rows", "cols", "counts"):
             res[f"tiled-{field}/g{g}"] = np.asarray(getattr(t, field))
