@@ -70,7 +70,26 @@ non-zero and prints no result line):
    outputs over the padded and the packed wire, exactly against scipy;
 10. the dense-tile SpGEMM entry point ``ops.bsr_pair_matmul`` (B3) on one
    tile, R-MAT scale 13 (bs 64) through ``ops.build_pair_lists``, against
-   the plain version and cuSPARSE ``CSR @ CSR``.
+   the plain version and cuSPARSE ``CSR @ CSR``;
+11. serving: OLMoE-1B-7B at its published width and depth (16 layers,
+   d_model 2048, 64 experts top-8, random weights from a seeded
+   ``torch.Generator`` on the card) through ``ServeEngine(sparse=True)``,
+   four requests (prompts of 128, 100, 57 and 128 tokens, 8 new tokens
+   each, two decode slots).  Gate, in float32 with TF32 off: each
+   request's tokens equal the port's dense ``lm.greedy_decode``'s but at a
+   printed near-tie; B1 launched 48 times a prefill and 32 a decode step,
+   B2 16 a prefill; the blocks and pairs they multiplied (counted on the
+   card) equal their tables' real ones and the block-diagonal scores'
+   pairs; no plan-cache miss for a same-bucket request or a decode step
+   after the first.  Then in bfloat16: the first-token logits against the
+   dense path's within the bound below, ``summary()`` (TTFT, TPOT, decode
+   tok/s, plan lookups, drops), launches and host synchronisations of one
+   prefill and one decode step, a ``torch.profiler`` window of each
+   (device busy against wall, idle share, top device ops) and the host
+   time of operator construction, tiling, plan lookups and multiplies
+   (obs spans); then B1 at the MoE dispatch, MoE combine and P @ V shapes
+   and B2 at the scoring shape against their plain versions, bounds and
+   library yardsticks.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The last two lines are the ``{"kernels": [...]}`` record and
@@ -109,6 +128,13 @@ ROOT = Path(__file__).resolve().parent
 # * bf16 end to end against a float32 oracle: the ring rounds each of its
 #   g partials and g - 1 running sums to bf16, each by at most 2^-8 of a
 #   magnitude below |A| @ |B|, so tol gains g * 2^-8
+#
+# The serving phase's bf16 first-token logits (engine against the dense
+# path, both in bf16): each path computes the float32 function with bf16
+# roundings, so each lies within its rounding noise of the float32 dense
+# logits.  The dense bf16 path's largest distance from them over the
+# requests measures that noise; two paths within it differ by at most
+# twice it (triangle inequality), which is the bound held.
 TOL_F32_SMALL = 1e-5
 TOL_F32_DEEP = 1e-4
 BF16_STEP = 2.0 ** -7
@@ -133,6 +159,13 @@ CUBE = dict(scale=13, edgefactor=1, seed=0, block_size=8, g=2)
 PAIR_TILE = dict(scale=13, edgefactor=8, seed=3, block_size=64)
 # block sizes of the pair kernels' small cases
 PAIR_SMALL_BS = (4, 8, 16, 24, 32, 64)
+# the serving phase: OLMoE-1B-7B at its published width and depth, four
+# requests (buckets 128, 128, 64, 128) through two decode slots
+SERVE = dict(arch="olmoe-1b-7b", seed=0, prompt_lens=(128, 100, 57, 128),
+             new_tokens=8, max_batch=2, max_len=144, block_size=8)
+# a token may differ from the dense path's only where the dense path's
+# top-2 logit margin is under this share of its largest |logit|
+NEAR_TIE = 1e-4
 
 
 def log(*parts) -> None:
@@ -213,8 +246,11 @@ def environment() -> str:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"torch.version.cuda {torch.version.cuda}  "
         f"nvcc {nvcc.stdout.strip().splitlines()[-1]}  triton {triton}")
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
     log(f"device 0: {torch.cuda.get_device_name(0)}, "
-        f"{torch.cuda.device_count()} visible")
+        f"{torch.cuda.device_count()} visible, driver {driver}")
     return card
 
 
@@ -281,12 +317,13 @@ def counted_blocks(fn):
 
 
 def kernel_case(blocks, rows, cols, dense, nbr: int, tol: float, label: str,
-                table=None, reps: int = 0) -> dict:
+                table=None, reps: int = 0, timer=None) -> dict:
     """B1 against its plain version on the same inputs (``tol`` for the
     float32 sums, one bf16 step more for a bf16 output), the blocks it
     multiplied (counted on the card) against its table's; timed when
-    ``reps``.  Without ``table`` every listed block counts as real (a raw
-    call)."""
+    ``reps`` by ``timer`` (``time_ms``; ``device_ms`` where a launch is
+    shorter than the host's call).  Without ``table`` every listed block
+    counts as real (a raw call)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.bsr_spmm import (bsr_spmm_cuda, kernel_path,
                                               spmm_table)
@@ -324,9 +361,10 @@ def kernel_case(blocks, rows, cols, dense, nbr: int, tol: float, label: str,
            "workspace_bytes": table.workspace_bytes(bs, n),
            "stored_flops": 2 * t * s * bs * bs * n}
     if reps:
-        res["ms"] = time_ms(lambda: bsr_spmm_cuda(blocks, dense, table),
+        timer = timer or time_ms
+        res["ms"] = timer(lambda: bsr_spmm_cuda(blocks, dense, table),
                             reps)
-        res["plain_ms"] = time_ms(lambda: ref.bsr_spmm_raw_ref(
+        res["plain_ms"] = timer(lambda: ref.bsr_spmm_raw_ref(
             blocks, rows, cols, dense, nbr), max(1, reps // 4))
         res.update(b1_bound(table, bs, dense, got))
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
@@ -613,64 +651,155 @@ def check_workspace(plan, bs: int, label: str) -> dict:
 COPY_OPS = ("roll", "index", "index_select", "gather", "take_along_dim")
 
 
-def operand_copies(fn, operands) -> list:
+def copy_ops(fn, operands) -> tuple:
     """``fn()`` under a dispatch mode that lists each op of ``COPY_OPS``
     that reads the storage of one of the ``operands`` (so a copy of a
     reshaped view counts, and an op on another tensor of the same shape,
-    such as the output's unskew, does not)."""
+    such as the output's unskew, does not), and every ``roll`` on any
+    tensor: (operand copies, rolls)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
     ptrs = {x.untyped_storage().data_ptr() for x in operands}
-    hits = []
+    hits, rolls = [], []
 
     class Spy(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             name = func.overloadpacket.__name__
+            tensors = [x for x in tree_flatten((args, kwargs))[0]
+                       if isinstance(x, torch.Tensor)]
+            if name == "roll":
+                rolls.append(f"aten::roll{list(tensors[0].shape)}")
             if name in COPY_OPS:
-                hits.extend(
-                    f"aten::{name}{list(x.shape)}"
-                    for x in tree_flatten((args, kwargs))[0]
-                    if isinstance(x, torch.Tensor)
-                    and x.untyped_storage().data_ptr() in ptrs)
+                hits.extend(f"aten::{name}{list(x.shape)}" for x in tensors
+                            if x.untyped_storage().data_ptr() in ptrs)
             return func(*args, **kwargs)
 
     with Spy():
         fn()
-    return hits
+    return hits, rolls
+
+
+# B1's and B2's main kernels as the profiler names them, and the wrappers
+# whose launches each of them runs once (a launch with no chunk of work
+# runs none: no profiled window here has such a launch)
+TRACED_KERNELS = {"spmm_kernel": ("bsr_spmm",),
+                  "pair_kernel": ("bsr_pair_accumulate", "bsr_pair_matmul")}
+# host time between the profiler's start and the window's first launch
+PROFILE_PREROLL_S = 0.02
+
+
+def profiled(fn, label: str, attempts: int = 3):
+    """``fn()`` in a ``torch.profiler`` window, checked against the launch
+    counters: the trace must hold each kernel of ``TRACED_KERNELS`` as
+    many times as its wrappers launched it.  A trace that lost one is
+    printed (with what the profiler's raw results held, and its runtime
+    launch records against its kernel records) and taken again, at most
+    ``attempts`` times in all, each retry with the window held open
+    longer around ``fn``: ``PROFILE_PREROLL_S`` before it at first, then
+    also 0.2 s after it, then 0.2 s on both sides.  ``fn`` returns its
+    wall milliseconds (it synchronises).  Returns (device events, wall ms,
+    profiler, launches, lost: kernel -> (in the trace, launched), empty
+    when the last trace holds every launch); a window whose trace lost a
+    kernel has no device busy time or idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    rolls = [(PROFILE_PREROLL_S, 0.0), (PROFILE_PREROLL_S, 0.2), (0.2, 0.2)]
+    for attempt in range(1, attempts + 1):
+        pre, post = rolls[min(attempt, len(rolls)) - 1]
+        before = read_counts()
+        with profile(activities=PROFILED) as prof:
+            time.sleep(pre)
+            wall_ms = fn()
+            torch.cuda.synchronize()
+            time.sleep(post)
+        after = read_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        events = device_events(prof)
+        lost = {}
+        for kern, wrappers in TRACED_KERNELS.items():
+            want = sum(launched[w] for w in wrappers)
+            got = sum(1 for e in events if e[0] == kern)
+            if got != want:
+                lost[kern] = (got, want)
+        if not lost:
+            if attempt > 1:
+                log(f"  {label}: attempt {attempt} (window open {pre} s "
+                    f"before and {post} s after) holds every launch")
+            return events, wall_ms, prof, launched, {}
+        raw = {}
+        results = getattr(prof.profiler, "kineto_results", None)
+        if results is not None:
+            for e in results.events():
+                for kern in lost:
+                    if kern in e.name():
+                        raw[kern] = raw.get(kern, 0) + 1
+        runtime = sum(1 for e in prof.events() if e.device_type
+                      == DeviceType.CPU and "LaunchKernel" in e.name)
+        kernels = sum(1 for n, _, _ in events
+                      if not n.startswith(("Memcpy", "Memset")))
+        log(f"  {label}: the trace (attempt {attempt} of {attempts}, window "
+            f"open {pre} s before and {post} s after) holds "
+            f"{ {k: f'{g} of {w} launches' for k, (g, w) in lost.items()} }"
+            f"; the profiler's raw results {raw or 'none of them'}; "
+            f"{runtime} runtime launch records against {kernels} kernel "
+            f"records")
+    return events, wall_ms, prof, launched, lost
+
+
+def device_events(prof) -> list:
+    """(name, start us, end us) of each kernel and copy on the card in a
+    ``torch.profiler`` window."""
+    from torch.autograd import DeviceType
+    out = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        # "void at::native::(anonymous namespace)::roll_kernel<...>(...)"
+        # -> "at::native::roll_kernel"
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("<")[0].split("(")[0].strip()
+        out.append((name, e.time_range.start, e.time_range.end))
+    return out
 
 
 def device_breakdown(a_h, b_h, label: str, operands=(), **kw) -> dict:
     """Device time by kernel over one multiply (``torch.profiler``), beside
     the multiply's wall time: where the time goes, and the share of the
     wall time in which no kernel or copy ran on the card.  ``kw`` goes to
-    ``matmul``; for the tensors in ``operands`` (the placed stacks), one
-    more multiply lists the ops of ``COPY_OPS`` that read them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import profile
+    ``matmul``; one more multiply lists its rolls and, for the tensors in
+    ``operands`` (the placed stacks), the ops of ``COPY_OPS`` that read
+    them (:func:`copy_ops`)."""
     from repro_torch.core.api import matmul
     from repro_torch.obs import sync_elapsed
     out = matmul(a_h, b_h, **kw)
     del out
     torch.cuda.synchronize()
-    with profile(activities=PROFILED) as prof:
+
+    def once():
         t0 = time.perf_counter()
         out = matmul(a_h, b_h, **kw)
-        wall_ms = sync_elapsed(t0, out) * 1e3
-    del out
-    copies = operand_copies(lambda: matmul(a_h, b_h, **kw), operands) \
-        if operands else []
+        return sync_elapsed(t0, out) * 1e3
+    events, wall_ms, _, _, lost = profiled(once, label)
+    copies, rolls = copy_ops(lambda: matmul(a_h, b_h, **kw), operands)
     torch.cuda.synchronize()
+    res = device_summary(events, wall_ms, label, lost=lost)
+    res.update(operand_copies=copies, rolls=rolls)
+    if operands:
+        log(f"  {label}: copies of its operands: {copies or 'none'}; rolls "
+            f"(seen by the dispatcher): {rolls or 'none'}")
+    return res
+
+
+def device_summary(events, wall_ms: float, label: str, top_n: int = 8,
+                   lost=None) -> dict:
+    """Device time by kernel of ``device_events`` beside the window's wall
+    time: where the time goes, and the share of the wall time in which no
+    kernel or copy ran on the card; neither share nor busy time where the
+    trace ``lost`` a kernel (:func:`profiled`)."""
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
+    for name, start, end in events:
         spans.append((start, end))
-        # "void at::native::(anonymous namespace)::roll_kernel<...>(...)"
-        # -> "at::native::roll_kernel"
-        name = e.name.replace("(anonymous namespace)::", "")
-        name = name.removeprefix("void ").split("<")[0].split("(")[0].strip()
         ms, n = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (end - start) / 1e3, n + 1)
     busy_ms, last = 0.0, None
@@ -681,13 +810,21 @@ def device_breakdown(a_h, b_h, label: str, operands=(), **kw) -> dict:
         elif end > last:
             busy_ms += (end - last) / 1e3
             last = end
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "idle_share": 1.0 - busy_ms / wall_ms if spans else None,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    measured = bool(spans) and not lost
+    res = {"wall_ms": wall_ms,
+           "device_busy_ms": busy_ms if measured else None,
+           "idle_share": 1.0 - busy_ms / wall_ms if measured else None,
            "by_kernel_ms": {k: round(v[0], 3) for k, v in top},
            "launches_by_kernel": {k: v[1] for k, v in top},
-           "kernels": sorted(by_name), "operand_copies": copies}
-    if spans:
+           "kernels": sorted(by_name), "trace_lost": lost or {}}
+    if lost:
+        log(f"  {label}: wall {wall_ms:.2f} ms; the profiler's trace lost "
+            f"kernels in every try ({lost}: in the trace, launched), so "
+            f"device busy time and idle share are not measured; it holds:")
+        for k, (ms, n) in top:
+            log(f"    {ms:9.3f} ms  {n:4d}x  {k}")
+    elif spans:
         log(f"  {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
             f"(idle share {res['idle_share']:.3f})")
         for k, (ms, n) in top:
@@ -695,14 +832,11 @@ def device_breakdown(a_h, b_h, label: str, operands=(), **kw) -> dict:
     else:
         log(f"  {label}: wall {wall_ms:.2f} ms; the profiler recorded no "
             "device time (idle share not measured)")
-    if operands:
-        log(f"  {label}: copies of its operands: {copies or 'none'}; kernels "
-            f"named *roll*: {[k for k in by_name if 'roll' in k] or 'none'}")
     return res
 
 
 def b1_yardsticks(blocks, rows, cols, dense, nbr: int, real, tol: float,
-                  label: str) -> dict:
+                  label: str, timer=None) -> dict:
     """Two PyTorch calls computing B1's product of the same real blocks
     (the ``real`` bool ``[T, S]``), as block-diagonal matrices over the T
     tiles, timed only (the port never calls them): cuSPARSE BSR @ dense
@@ -751,7 +885,7 @@ def b1_yardsticks(blocks, rows, cols, dense, nbr: int, real, tol: float,
         del got
         check(ok, f"the yardstick {what} @ dense computes another function "
               f"(max_abs_err {err:.3e}, {share:.3g} of its allowance)")
-        res[name] = time_ms(lambda: a @ d, 5)
+        res[name] = (timer or time_ms)(lambda: a @ d, 5)
         log(f"  yardstick {label}: {what} @ dense {res[name]:.3f} ms "
             f"({a.values().shape[0]} "
             f"{'blocks' if a.layout == torch.sparse_bsr else 'nonzeros'}), "
@@ -913,7 +1047,7 @@ def counted(fn, wrapper):
 
 def pair_acc_case(a, b, pa, pb, ps, n_slots: int, label: str, real,
                   table=None, reps: int = 0, tol: float = TOL_F32_SMALL,
-                  chunk=None) -> dict:
+                  chunk=None, timer=None) -> dict:
     """B2 (fresh output) against its plain version on the same inputs
     (float32 output, so ``tol`` alone), the pairs it multiplied against
     the real ones; timed when ``reps``."""
@@ -947,9 +1081,10 @@ def pair_acc_case(a, b, pa, pb, ps, n_slots: int, label: str, real,
            "pairs_multiplied": multiplied, "n_parts": table.n_parts,
            "workspace_bytes": table.workspace_bytes(a.shape[-1])}
     if reps:
-        res["ms"] = time_ms(lambda: bsr_pair_accumulate_cuda(
+        timer = timer or time_ms
+        res["ms"] = timer(lambda: bsr_pair_accumulate_cuda(
             a, b, pa, pb, table), reps)
-        res["plain_ms"] = time_ms(lambda: ref.bsr_pair_accumulate_raw_ref(
+        res["plain_ms"] = timer(lambda: ref.bsr_pair_accumulate_raw_ref(
             a, b, pa, pb, ps, n_slots), max(1, reps // 4))
         res.update(pair_bound(a, b, pa, pb, 3 * pa.numel() * 4,
                               got.numel() * 4))
@@ -1521,7 +1656,7 @@ def other_schedules(ops: dict) -> dict:
                 a32.placed(spec.a_placement)["blocks"],
                 b32.placed(spec.b_placement)["dense"]))
         check(not bd["operand_copies"]
-              and not any("roll" in k for k in bd["kernels"]),
+              and not bd["rolls"],
               f"{alg}: the multiply rolls or gathers an operand "
               f"({bd['operand_copies']})")
     b_pool = b32.placed(api.SKEW_COLS)["dense"].reshape(
@@ -1761,7 +1896,7 @@ def steal3d_phase(ops: dict) -> dict:
         bd = breakdown[label] = device_breakdown(
             a_h, b_h, label, algorithm="steal3d", operands=operands, **kw)
         check(not bd["operand_copies"]
-              and not any("roll" in k for k in bd["kernels"]),
+              and not bd["rolls"],
               f"{label}: the multiply rolls or copies an operand "
               f"({bd['operand_copies']})")
     return {"e2e": res, "launches": launches, "breakdown": breakdown}
@@ -1812,6 +1947,574 @@ def obs_phase(a_h, b_h) -> dict:
             "report": report}
 
 
+# ---------------------------------------------------------------------------
+# the serving path: OLMoE-1B-7B through ServeEngine(sparse=True)
+# ---------------------------------------------------------------------------
+def serve_counters_on() -> tuple:
+    """B1's and B2's counters on, their table tallies at 0: (blocks, pairs)
+    int64 counters on the card."""
+    from repro_torch.kernels.bsr_pair import bsr_pair_accumulate_cuda as b2
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda as b1
+    blocks = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    pairs = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    b1.block_counter, b1.table_blocks = blocks, 0
+    b2.pair_counter, b2.table_pairs = pairs, 0
+    return blocks, pairs
+
+
+def serve_counters_off(blocks, pairs) -> dict:
+    """Counters off: what B1 and B2 multiplied, counted on the card, beside
+    the real blocks and pairs of the tables they launched."""
+    from repro_torch.kernels.bsr_pair import bsr_pair_accumulate_cuda as b2
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda as b1
+    b1.block_counter = b2.pair_counter = None
+    torch.cuda.synchronize()
+    return {"blocks_multiplied": int(blocks.item()),
+            "table_blocks": b1.table_blocks,
+            "pairs_multiplied": int(pairs.item()),
+            "table_pairs": b2.table_pairs}
+
+
+def serve_prompts(cfg) -> list:
+    rng = np.random.default_rng(SERVE["seed"])
+    return [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+            for n in SERVE["prompt_lens"]]
+
+
+def serve_engine(model, cfg, prompts, new_tokens=SERVE["new_tokens"], **kw):
+    """A sparse ServeEngine over ``model`` with the prompts queued."""
+    from repro_torch.serving import ServeEngine
+    eng = ServeEngine(cfg, params=model, max_batch=SERVE["max_batch"],
+                      max_len=SERVE["max_len"], sparse=True,
+                      block_size=SERVE["block_size"], device=DEVICE, **kw)
+    for toks in prompts:
+        eng.submit(toks, max_new_tokens=new_tokens)
+    return eng
+
+
+def padded_prefill(model, cfg, toks):
+    """``lm.prefill`` of one prompt right-padded to its bucket (the
+    engine's prefill shape): (last real token's logits [1, V], caches,
+    next position)."""
+    from repro_torch.models import lm
+    from repro_torch.serving.batcher import effective_bucket, pad_prompt
+    b = effective_bucket(cfg, len(toks), SERVE["max_len"])
+    padded = torch.as_tensor(pad_prompt(toks, b), device=DEVICE)[None]
+    lengths = torch.tensor([len(toks)], dtype=torch.int32, device=DEVICE)
+    return lm.prefill(model, {"tokens": padded}, cfg, SERVE["max_len"],
+                      torch.float32, lengths)
+
+
+def dense_decode(model, cfg, prompts) -> list:
+    """The port's dense path one request at a time, as ``lm.greedy_decode``
+    runs it but on the prompt right-padded to its bucket (the engine's
+    prefill shape, ``lm.prefill(lengths=...)``): per request its tokens
+    and each step's float32 logits.  The bucket matters for MoE: the
+    expert capacity is a function of the padded token count (20 at 128
+    tokens, 15 at 100), so at the published capacity factor an unpadded
+    prefill can drop tokens that the padded one keeps, and the two are
+    different functions."""
+    from repro_torch.models import lm
+    step = lm.make_decode_step(cfg)
+    out = []
+    for toks in prompts:
+        logits, caches, pos = padded_prefill(model, cfg, toks)
+        got, seen = [], []
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        for _ in range(SERVE["new_tokens"]):
+            got.append(int(tok[0, 0]))
+            seen.append(logits[0])
+            logits, caches = step(model, tok, caches, pos)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            pos = pos + 1
+        out.append((np.asarray(got, np.int32), seen))
+    return out
+
+
+def match_tokens(got: np.ndarray, want: np.ndarray, logits, rid: int) -> dict:
+    """The engine's tokens against the dense path's.  Where they first
+    differ the dense path's top-2 logit margin must be under NEAR_TIE of
+    its largest |logit| (a near-tie, printed, and the request is compared
+    no further); any other difference fails the run."""
+    for step in range(len(want)):
+        if int(got[step]) == int(want[step]):
+            continue
+        lg = logits[step].float()
+        top2 = lg.topk(2).values
+        margin = (top2[0] - top2[1]).item() / lg.abs().max().item()
+        log(f"  request {rid}: step {step} gives {int(got[step])}, the dense "
+            f"path {int(want[step])}: top-2 margin {margin:.3e} of the "
+            f"largest |logit| ({'near-tie, compared no further' if margin < NEAR_TIE else 'NOT a near-tie'})")
+        check(margin < NEAR_TIE, f"request {rid}: the sparse engine's token "
+              f"{step} differs from the dense path's away from a near-tie")
+        return {"equal_steps": step, "near_tie_step": step,
+                "near_tie_margin": margin}
+    return {"equal_steps": len(want), "near_tie_step": None}
+
+
+def span_totals(events, names) -> dict:
+    """Total milliseconds of the obs spans named each of ``names`` (a name
+    ending in "." takes every span it prefixes), and the plan-cache misses
+    (``plan_build`` spans not served from the cache)."""
+    tot = {n: 0.0 for n in names}
+    misses = 0
+    for e in events:
+        for n in names:
+            if e["name"] == n or (n.endswith(".")
+                                  and e["name"].startswith(n)):
+                tot[n] += e["dur"] / 1e3
+        if e["name"] == "plan_build" and not e["args"].get("cached", True):
+            misses += 1
+    tot["plan_misses"] = misses
+    return tot
+
+
+def misses_by_request(events) -> dict:
+    """Plan-cache misses inside each request's prefill span, by rid, and
+    inside the decode-step spans after the first."""
+    pre = [e for e in events if e["name"] == "serve.prefill"]
+    steps = sorted((e for e in events if e["name"] == "serve.decode_step"),
+                   key=lambda e: e["ts"])
+    builds = [e for e in events if e["name"] == "plan_build"
+              and not e["args"].get("cached", True)]
+
+    def inside(span):
+        return sum(1 for b in builds
+                   if span["ts"] <= b["ts"] <= span["ts"] + span["dur"])
+    out = {int(e["args"]["rid"]): inside(e) for e in pre}
+    out["decode_after_first"] = sum(inside(e) for e in steps[1:])
+    out["decode_first"] = inside(steps[0]) if steps else 0
+    return out
+
+
+def serve_gate(model, cfg32, prompts) -> dict:
+    """float32, TF32 off: the sparse engine's tokens against the dense
+    path's, B1 and B2 launched with every real block and pair (and no
+    other) multiplied, and no plan-cache miss for a same-bucket request."""
+    from repro_torch import obs
+    from repro_torch.core import api
+    from repro_torch.serving import effective_bucket
+    t0 = time.perf_counter()
+    dense = dense_decode(model, cfg32, prompts)
+    dense_s = time.perf_counter() - t0
+    api.clear_plan_cache()
+    eng = serve_engine(model, cfg32, prompts)
+    reset_counts()                  # counts of this path's run only
+    counters = serve_counters_on()
+    obs.reset_all()
+    obs.enable(clear=True)
+    try:
+        t0 = time.perf_counter()
+        results = eng.run()
+        run_s = time.perf_counter() - t0
+        events = obs.events()
+    finally:
+        obs.disable()
+        tallies = serve_counters_off(*counters)
+    counts = read_counts()
+    summary = eng.summary()
+    log(f"  dense path (greedy, bucket-padded prefill, float32): "
+        f"{dense_s:.1f} s for "
+        f"{len(prompts)} requests; sparse engine: {run_s:.1f} s "
+        f"(traced), {summary['decode_steps']} decode steps")
+    match = {rid: match_tokens(results[rid], dense[rid][0], dense[rid][1],
+                               rid) for rid in range(len(prompts))}
+    log(f"  tokens equal to the dense path's: "
+        f"{ {r: m['equal_steps'] for r, m in match.items()} } of "
+        f"{SERVE['new_tokens']} a request; near-ties: "
+        f"{ {r: m['near_tie_step'] for r, m in match.items() if m['near_tie_step'] is not None} or 'none'}")
+    n_pre, n_dec = len(prompts), summary["decode_steps"]
+    n_layers = cfg32.n_layers
+    want_b1 = 3 * n_layers * n_pre + 2 * n_layers * n_dec
+    want_b2 = n_layers * n_pre
+    log(f"  launches: {counts} (B1 {3 * n_layers} a prefill and "
+        f"{2 * n_layers} a decode step predicted: {want_b1}; B2 "
+        f"{n_layers} a prefill: {want_b2})")
+    check(counts["bsr_spmm"] == want_b1 and counts["bsr_pair_accumulate"]
+          == want_b2, "the serving path did not launch B1 and B2 once for "
+          "each of its products")
+    # the scores' real pairs: per layer and head, (t/8)^2 output blocks
+    # each summing hd/8 block pairs
+    hd, bs = cfg32.resolved_head_dim, SERVE["block_size"]
+    buckets = [effective_bucket(cfg32, len(p), SERVE["max_len"])
+               for p in prompts]
+    want_pairs = n_layers * cfg32.n_heads * sum(
+        (b // bs) ** 2 * (hd // bs) for b in buckets)
+    log(f"  B1 multiplied {tallies['blocks_multiplied']} blocks (counted on "
+        f"the card), its tables' real blocks {tallies['table_blocks']}; B2 "
+        f"{tallies['pairs_multiplied']} pairs, its tables' "
+        f"{tallies['table_pairs']}, the block-diagonal scores' "
+        f"{want_pairs}")
+    check(tallies["blocks_multiplied"] == tallies["table_blocks"] > 0,
+          "B1 multiplied other blocks than its tables' real ones")
+    check(tallies["pairs_multiplied"] == tallies["table_pairs"] == want_pairs,
+          "B2 multiplied other pairs than the real ones")
+    misses = misses_by_request(events)
+    first = {}
+    for rid, b in enumerate(buckets):
+        first.setdefault(b, rid)
+    repeat = [rid for rid, b in enumerate(buckets) if first[b] != rid]
+    log(f"  plan-cache misses by request (buckets {buckets}): "
+        f"{ {k: v for k, v in misses.items()} }")
+    check(all(misses[rid] == 0 for rid in repeat),
+          "a same-bucket request built a plan")
+    check(misses["decode_after_first"] == 0,
+          "a decode step after the first built a plan")
+    return {"dense_s": dense_s, "traced_run_s": run_s, "match": match,
+            "launches": counts, **tallies, "want_pairs": want_pairs,
+            "misses": misses, "buckets": buckets,
+            "dense_first_logits": [d[1][0] for d in dense],
+            "dropped_mean": summary["dropped_mean"],
+            "dropped_max": summary["dropped_max"]}
+
+
+def serve_windows(model, cfg, toks, label: str) -> dict:
+    """One request of two tokens (one prefill, one decode step) through
+    ``run()`` of a fresh engine on the warm plan cache, traced (obs spans;
+    a traced multiply synchronises) in one ``torch.profiler`` window
+    (:func:`profiled`), with the host's synchronisations reported
+    (``torch.cuda.set_sync_debug_mode``).  The engine's own
+    ``serve.prefill`` and ``serve.decode_step`` spans split the window;
+    for each: wall, device busy and idle share, top device ops, the B1 and
+    B2 kernels in the trace, host synchronisations by source line, and the
+    host time in operator construction, tiling, plan lookups and
+    multiplies (obs spans).  One marker, recorded both as an obs event
+    and a profiler range, puts the three clocks on one axis."""
+    import warnings
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+    from repro_torch import obs
+    from repro_torch.obs import sync_elapsed
+    syncs, anchor = [], {}
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            syncs.append((time.perf_counter(),
+                          f"{Path(filename).name}:{lineno}"))
+
+    def once():
+        syncs.clear()
+        eng = serve_engine(model, cfg, [toks], new_tokens=2)
+        obs.enable(clear=True)
+        try:
+            with record_function("smoke.anchor"):
+                anchor["perf"] = time.perf_counter()
+                obs.instant("smoke.anchor")
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = note
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    t0 = time.perf_counter()
+                    eng.run()
+                    wall = sync_elapsed(t0, eng.tokens) * 1e3
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        finally:
+            obs.disable()
+        return wall
+
+    events, wall, prof, launched, lost = profiled(once,
+                                                  f"{label} one request")
+    spans = obs.events()
+    o_anchor = next(e["ts"] for e in spans if e["name"] == "smoke.anchor")
+    k_anchor = next(e.time_range.start for e in prof.events()
+                    if e.name == "smoke.anchor"
+                    and e.device_type == DeviceType.CPU)
+    offset = k_anchor - o_anchor        # obs µs -> profiler µs
+    res = {"run_wall_ms": wall, "launched": launched}
+    seen = {k: 0 for k in TRACED_KERNELS}
+    for name, span_name in (("prefill", "serve.prefill"),
+                            ("decode_step", "serve.decode_step")):
+        sp, = (e for e in spans if e["name"] == span_name)
+        lo, hi = sp["ts"], sp["ts"] + sp["dur"]
+        inside = [(n, max(s0, lo + offset), min(s1, hi + offset))
+                  for n, s0, s1 in events
+                  if s0 < hi + offset and s1 > lo + offset]
+        r = res[name] = device_summary(inside, sp["dur"] / 1e3,
+                                       f"{label} {name}", top_n=10,
+                                       lost=lost)
+        kern = {k: sum(1 for n, s0, _ in events if n == k
+                       and lo + offset <= s0 <= hi + offset)
+                for k in TRACED_KERNELS}
+        for k in kern:
+            seen[k] += kern[k]
+        where = {}
+        for p, line in syncs:
+            if lo <= (p - anchor["perf"]) * 1e6 + o_anchor <= hi:
+                where[line] = where.get(line, 0) + 1
+        host = span_totals([e for e in spans
+                            if lo <= e["ts"] and e["ts"] + e["dur"] <= hi],
+                           ("serve.operator", "serve.tile", "plan_build",
+                            "multiply."))
+        r.update({"launches": {"bsr_spmm": kern["spmm_kernel"],
+                               "bsr_pair_accumulate": kern["pair_kernel"]},
+                  "host_syncs": sum(where.values()),
+                  "syncs_by_line": dict(sorted(
+                      where.items(), key=lambda kv: -kv[1])[:8]),
+                  "host_ms": {k: round(v, 3) for k, v in host.items()}})
+        log(f"  {label} {name}: B1 {kern['spmm_kernel']} and B2 "
+            f"{kern['pair_kernel']} kernels in the trace"
+            f"{' (which lost some)' if lost else ''}; "
+            f"{r['host_syncs']} host synchronisations, by source line: "
+            f"{r['syncs_by_line']}")
+        log(f"  {label} {name}, traced (each multiply synchronised): wall "
+            f"{r['wall_ms']:.1f} ms; operator construction "
+            f"{host['serve.operator']:.1f} ms, tiling {host['serve.tile']:.1f}"
+            f" ms, plan lookups {host['plan_build']:.1f} ms, multiplies "
+            f"{host['multiply.']:.1f} ms")
+    check(lost or all(seen[k] == sum(launched[w] for w in ws)
+                      for k, ws in TRACED_KERNELS.items()),
+          f"{label}: B1 or B2 launched outside the prefill and decode-step "
+          f"spans ({seen} in them, {launched} in the run)")
+    return res
+
+
+def serve_published(model, cfg16, cfg32, prompts, dense32_first) -> dict:
+    """bfloat16 (the published compute type): the same requests through the
+    same engine, the first-token logits against the dense path's in bf16,
+    the serving metrics, launches a prefill and a decode step, peak memory
+    and where a prefill's and a decode step's time goes."""
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
+    firsts = [padded_prefill(model, cfg16, toks)[0][0] for toks in prompts]
+    eng = serve_engine(model, cfg16, prompts, keep_first_logits=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bsr_spmm_cuda.by_shape = {}
+    try:
+        t0 = time.perf_counter()
+        results = eng.run()
+        run_s = time.perf_counter() - t0
+    finally:
+        b1_by_shape, bsr_spmm_cuda.by_shape = bsr_spmm_cuda.by_shape, None
+    counts = read_counts()
+    peak = phase_peak("serving, bf16 engine run")
+    s = eng.summary()
+    # the bound: both bf16 paths compute the float32 function with bf16
+    # roundings, so each lies within its rounding noise of the float32
+    # dense logits; the dense bf16 path's own distance from them, at its
+    # largest over the requests, is that noise, and two paths that each
+    # stay within it differ by at most twice it (triangle inequality)
+    noise = max((d16 - d32).abs().max().item()
+                for d16, d32 in zip(firsts, dense32_first))
+    errs = [(eng.first_logits[rid] - firsts[rid]).abs().max().item()
+            for rid in range(len(prompts))]
+    agree = [int(eng.first_logits[rid].argmax()) == int(firsts[rid].argmax())
+             for rid in range(len(prompts))]
+    log(f"  first-token logits, bf16 engine vs bf16 dense path: max |diff| "
+        f"{[f'{e:.4f}' for e in errs]}, bound 2 x {noise:.4f} (the dense "
+        f"bf16 path's distance from float32); top-1 agrees: {agree}")
+    check(max(errs) <= 2 * noise, "the bf16 engine's first-token logits "
+          "leave the bound")
+    n_layers = cfg16.n_layers
+    check(counts["bsr_spmm"] == 3 * n_layers * len(prompts)
+          + 2 * n_layers * s["decode_steps"]
+          and counts["bsr_pair_accumulate"] == n_layers * len(prompts),
+          "the bf16 serving run did not launch B1 and B2 once a product")
+    # smoke readings of this four-request window, not serving metrics: of
+    # four requests the 99th percentile is the largest, so the largest is
+    # printed under its own name
+    reqs = eng.metrics.requests.values()
+    keys = ("ttft_p50_s", "tpot_p50_s", "decode_tok_per_s", "prefill_s",
+            "decode_s", "decode_steps", "tokens", "elapsed_s",
+            "plan_lookups", "plan_cache_hit_rate", "dropped_mean",
+            "dropped_max")
+    metrics = {k: s[k] for k in keys}
+    metrics["ttft_max_s"] = max(r.ttft for r in reqs)
+    metrics["tpot_max_s"] = max(r.tpot for r in reqs if r.tpot is not None)
+    log(f"  smoke readings of this {len(prompts)}-request window "
+        f"(summary() and the largest per request): {json.dumps(metrics)}")
+    log(f"  generated (first request): {results[0].tolist()}")
+    by_product = b1_products(b1_by_shape, cfg16)
+    log(f"  B1 launches by product, counted where B1 launches: "
+        f"{by_product} (by (m, k, n): {b1_by_shape})")
+    check(sum(by_product.values()) == counts["bsr_spmm"],
+          "B1's launches by product do not add up to its launches")
+    check(by_product["dispatch"] == by_product["combine"]
+          == n_layers * (len(prompts) + s["decode_steps"])
+          and by_product["pv"] == n_layers * len(prompts),
+          "the bf16 serving run did not launch B1 once for each MoE "
+          "dispatch, MoE combine and P @ V product")
+    windows = serve_windows(model, cfg16, prompts[0], "bf16")
+    log(f"  the four-request run untraced, for comparison: a prefill "
+        f"{s['prefill_s'] / len(prompts) * 1e3:.1f} ms on average, a "
+        f"decode step of two slots "
+        f"{s['decode_s'] / s['decode_steps'] * 1e3:.1f} ms")
+    return {"metrics": metrics, "launches": counts, "run_s": run_s,
+            "b1_by_product": by_product, "peak_gb": peak,
+            "first_logit_err": errs, "bound": 2 * noise,
+            "top1_agrees": agree, "windows": windows}
+
+
+def b1_products(by_shape: dict, cfg) -> dict:
+    """B1's launches of a serving run, by product, from its tally by ``(m,
+    k, n)``: ``P_bd @ V`` is the one with n = head_dim; of those with n =
+    d_model, the MoE dispatch ``D @ X`` maps k tokens to m >= k expert
+    lines and the combine ``W @ Y`` m tokens from k >= m lines."""
+    out = {"dispatch": 0, "combine": 0, "pv": 0}
+    for (m, k, n), c in by_shape.items():
+        if n == cfg.resolved_head_dim:
+            out["pv"] += c
+        elif n == cfg.d_model and m != k:
+            out["dispatch" if m > k else "combine"] += c
+        else:
+            check(False, f"a B1 launch of the serving run at (m, k, n) = "
+                  f"{(m, k, n)} is none of its products")
+    return out
+
+
+def serve_b1_case(ops, label: str, a_dense, x, capacity="bucket") -> dict:
+    """B1 at one serving product's shape: the plan's own table over the
+    operator's real blocks, held against the plain version, with its bound
+    and library yardsticks, each timed on the card's clock behind a sleep
+    kernel (``device_ms``: a launch here is shorter than the host's
+    call)."""
+    from repro_torch.core import api
+    a_h = ops.tile(a_dense, capacity)
+    b_h = api.DistDense.for_rhs(x, a_h, allow_pad=True)
+    plan = api.plan_matmul(a_h, b_h, algorithm="ring_a")
+    ex, bs = plan.executor, a_h.block_size
+    pl_a, pl_b = plan.algorithm.a_placement, plan.algorithm.b_placement
+    blocks, rows, cols = (ex.batch(a_h.placed(pl_a)[k])
+                          for k in ("blocks", "rows", "cols"))
+    dense = ex.batch(b_h.placed(pl_b)["dense"])
+    (a_map, b_map), = plan.step_maps()[0]
+    table = plan.spmm_table(a_h, a_map, b_map)
+    nbr = a_h.tile_shape[0] // bs
+    log(f"  B1 {label}: A {tuple(a_h.logical_shape)} {str(a_h.dtype)[6:]}, "
+        f"{table.real_blocks} real blocks of {blocks.shape[1]} stored, B "
+        f"{tuple(dense.shape[1:])}")
+    r = kernel_case(blocks, rows, cols, dense, nbr, TOL_F32_SMALL, label,
+                    table=table, reps=20, timer=device_ms)
+    real = a_h.pool_lists(pl_a, packed=False).real
+    r.update(b1_yardsticks(blocks, rows, cols, dense, nbr, real,
+                           TOL_F32_SMALL, label, timer=device_ms))
+    r["shape"] = {"A": list(a_h.logical_shape), "B": list(dense.shape[1:]),
+                  "bs": bs, "dtype": str(a_h.dtype)[6:]}
+    return r
+
+
+def serve_b2_case(ops, q_bd, kt_bd) -> dict:
+    """B2 at the scoring product's shape (ring_c's only step at g 1),
+    against the plain version, with its bound and cuSPARSE ``CSR @ CSR`` on
+    the same operands as its yardstick (held against the plain product
+    first), each timed by ``device_ms``."""
+    a_h, b_h = ops.tile(q_bd), ops.tile(kt_bd)
+    a, b, (pa, pb, ps), n_slots, real = ring_step_pairs(a_h.tiled,
+                                                        b_h.tiled, 0)
+    label = "attention scores"
+    log(f"  B2 {label}: Q_bd {tuple(q_bd.shape)} x K_bd^T "
+        f"{tuple(kt_bd.shape)}, {int(np.asarray(real).sum())} real pairs "
+        f"of {pa.numel()}")
+    r = pair_acc_case(a, b, pa, pb, ps, n_slots, label, real, reps=20,
+                      timer=device_ms)
+    want = q_bd @ kt_bd
+    scale = q_bd.abs() @ kt_bd.abs()
+    a_csr, b_csr = q_bd.to_sparse_csr(), kt_bd.to_sparse_csr()
+    try:
+        got = (a_csr @ b_csr).to_dense()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        log(f"  yardstick {label}: no library call ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:160]})")
+        r["library_ms"] = None
+        return r
+    err, share, ok = compare(got, want, scale, TOL_F32_SMALL)
+    check(ok, f"the yardstick CSR @ CSR computes another function "
+          f"({err:.3e}, {share:.3g} of its allowance)")
+    del got
+    r["library_ms"] = device_ms(lambda: a_csr @ b_csr, 5)
+    log(f"  yardstick {label}: torch CSR @ CSR (cuSPARSE) "
+        f"{r['library_ms']:.3f} ms, {a_csr._nnz()} x {b_csr._nnz()} "
+        f"nonzeros, {share:.3g} of its allowance")
+    return r
+
+
+def serve_kernel_cases(model, cfg16, toks) -> dict:
+    """B1 at the MoE dispatch, MoE combine and P @ V shapes and B2 at the
+    scoring shape, on layer 0's operands for one bucket-128 prompt (bf16
+    activations, as the published run)."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.attention import _pair_mask
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serving import sparse as ss
+    blk = model.layers[0]
+    ops = ss.SparseOps(block_size=SERVE["block_size"], device=DEVICE)
+    m = cfg16.moe
+    with torch.no_grad():
+        t_in = torch.as_tensor(toks, device=DEVICE)
+        x = model.top.embed[t_in.long()].to(torch.bfloat16)[None]
+        h = rms_norm(x, blk.norms.ln1, cfg16.norm_eps)
+        pos = torch.arange(t_in.shape[0], dtype=torch.int32, device=DEVICE)
+        qh, kh_f, v_f, _, _ = ss._qkv_panels(blk.attn, h, pos, cfg16)
+        q_bd = torch.block_diag(*qh)
+        kt_bd = torch.block_diag(*kh_f.transpose(1, 2))
+        mask = _pair_mask(cfg16, "g", pos, pos)
+        pv = torch.block_diag(*ss._probs(
+            ops.spgemm_sparse(q_bd, kt_bd).densify(), mask, cfg16))
+        n, d = x.shape[1], x.shape[2]
+        xf = h.reshape(n, d)
+        r = tmoe.route_tokens(blk.moe.router, xf, cfg16)
+        disp, comb = ss.routing_operators(r, n, cfg16, torch.bfloat16)
+        cap, groups, _ = tmoe.route_meta(n, cfg16)
+        lines = groups * m.n_experts * cap
+        bound = ss.routing_capacity(n, lines, m.top_k, ops.g, ops.block_size)
+        xe = (disp.float() @ xf.float()).to(torch.bfloat16)
+        y = tmoe.expert_ffn(blk.moe, xe.reshape(groups, m.n_experts, cap, d),
+                            cfg16).reshape(lines, d)
+    res = {"dispatch": serve_b1_case(ops, "MoE dispatch D @ X", disp, xf,
+                                     bound),
+           "combine": serve_b1_case(ops, "MoE combine W @ Y", comb, y, bound),
+           "pv": serve_b1_case(ops, "attention P_bd @ V", pv, v_f),
+           "scores": serve_b2_case(ops, q_bd, kt_bd)}
+    res["dispatch"]["capacity_bound"] = bound
+    return res
+
+
+def serving_phase() -> dict:
+    """OLMoE-1B-7B at its published width and depth through
+    ``ServeEngine(sparse=True)``: the float32 gate, the bf16 run, the
+    kernels at the serving shapes."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    cfg16 = get_config(SERVE["arch"])
+    cfg32 = dc.replace(cfg16, compute_dtype="float32")
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg16, seed=SERVE["seed"], device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{cfg16.name}: {cfg16.n_layers} layers, d_model {cfg16.d_model}, "
+        f"{cfg16.n_heads} heads x {cfg16.resolved_head_dim}, "
+        f"{cfg16.moe.n_experts} experts top-{cfg16.moe.top_k} (d_ff "
+        f"{cfg16.moe.d_ff_expert}), vocab {cfg16.vocab_size}: {n_params} "
+        f"parameters ({n_params * 4 / 1e9:.2f} GB float32), initialised on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    # param_count() leaves out the norm scales (two a layer and the final
+    # norm's)
+    norms = (2 * cfg16.n_layers + 1) * cfg16.d_model
+    check(n_params == cfg16.param_count() + norms, "parameter count "
+          f"{n_params} differs from the config's {cfg16.param_count()} + "
+          f"{norms} norm scales")
+    prompts = serve_prompts(cfg16)
+    log(f"requests: prompt lengths {list(SERVE['prompt_lens'])}, "
+        f"{SERVE['new_tokens']} new tokens each, max_batch "
+        f"{SERVE['max_batch']}, max_len {SERVE['max_len']}")
+    log("-- gate run (float32, TF32 off)")
+    gate = serve_gate(model, cfg32, prompts)
+    phase_peak("serving, float32 gate")
+    free()
+    log("-- published run (bfloat16)")
+    pub = serve_published(model, cfg16, cfg32, prompts,
+                          gate.pop("dense_first_logits"))
+    free()
+    log("-- B1 and B2 at the serving shapes")
+    kern = serve_kernel_cases(model, cfg16, prompts[0])
+    del model
+    free()
+    return {"gate": gate, "published": pub, "kernels": kern}
+
+
 def record(name: str, source: str, replaces: str, launches: int,
            kres: dict, extra: dict) -> dict:
     """One entry of the ``{"kernels": [...]}`` line: float32 numbers at the
@@ -1826,6 +2529,40 @@ def record(name: str, source: str, replaces: str, launches: int,
     rec["bf16"] = {k: b16.get(k) for k in keys + (
         "bytes", "path", "share_of_bound", "library_bsr_ms") if k in b16}
     return rec
+
+
+def serve_records(serve: dict):
+    """The serving shapes' entries of the ``{"kernels": [...]}`` line, with
+    the launches of the bf16 serving run: B1's counted by product where it
+    launches (``bsr_spmm_cuda.by_shape``), B2's by its wrapper."""
+    pub, kern = serve["published"], serve["kernels"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def rec(name, kernel, source, replaces, launches, res):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "dtype": res["shape"]["dtype"] if "shape" in res
+                else "float32", **{k: res.get(k) for k in keys},
+                **{k: res[k] for k in ("real_blocks", "real_pairs",
+                                       "real_flops", "bytes", "path",
+                                       "library_bsr_ms", "shape")
+                   if k in res}, "kernel": kernel}
+
+    b1src = "src/repro_torch/kernels/csrc/bsr_spmm.cu"
+    b1 = [rec(f"bsr_spmm (serving {label} shape)", "bsr_spmm", b1src,
+              "src/repro/kernels/bsr_spmm.py:55",
+              pub["b1_by_product"][key], kern[key])
+          for key, label in (("dispatch", "MoE dispatch"),
+                             ("combine", "MoE combine"), ("pv", "P @ V"))]
+    b2 = rec("bsr_pair_accumulate (serving scores shape)",
+             "bsr_pair_accumulate",
+             "src/repro_torch/kernels/csrc/bsr_pair.cu",
+             "src/repro/kernels/bsr_spmm.py:165",
+             pub["launches"]["bsr_pair_accumulate"], kern["scores"])
+    check(sum(r["launches"] for r in b1) == pub["launches"]["bsr_spmm"],
+          "the serving shapes' B1 launches do not add up to the run's")
+    return b1, b2
 
 
 def main() -> int:
@@ -1939,7 +2676,7 @@ def main() -> int:
     for name in ("SpMM float32", "SpMM float32 packed"):
         bd = breakdown[name]
         check(not bd["operand_copies"]
-              and not any("roll" in k for k in bd["kernels"]),
+              and not bd["rolls"],
               f"{name}: the multiply rolls or gathers an operand "
               f"({bd['operand_copies']})")
     # B1's NaN pass on finite B, against the multiply of each main-path
@@ -2002,6 +2739,10 @@ def main() -> int:
     free()
     log("== dense-tile SpGEMM entry point (ops.bsr_pair_matmul, B3)")
     tile = pair_tile_path(device)
+    free()
+    log("== serving (OLMoE-1B-7B through ServeEngine(sparse=True), B1 and "
+        "B2)")
+    serve = serving_phase()
 
     carry = sparse["carry"]
     b2 = record("bsr_pair_accumulate",
@@ -2029,6 +2770,7 @@ def main() -> int:
                                  in ("real_flops", "pair_flops", "bytes",
                                      "real_pairs", "pairs",
                                      "pairs_multiplied", "path")})
+    b1_serve, b2_serve = serve_records(serve)
     log(json.dumps({"build_s": build_s, "e2e": e2e, "breakdown": breakdown,
                     "sparse_output": {k: sparse[k] for k in (
                         "e2e_ms", "symbolic_s", "plan_rest_s",
@@ -2047,9 +2789,11 @@ def main() -> int:
                                 "other_schedules": other_peak,
                                 "sparse_output": sparse["peak_gb"],
                                 "dense_tile": tile["peak_gb"]},
+                    "serving": {k: serve[k] for k in ("gate",
+                                                      "published")},
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [*b1, b2, b3]}))
+    log(json.dumps({"kernels": [*b1, b2, b3, *b1_serve, b2_serve]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

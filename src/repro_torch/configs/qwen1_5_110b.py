@@ -1,0 +1,9 @@
+"""qwen1.5-110b [dense]: GQA + QKV bias [hf:Qwen/Qwen1.5-0.5B; hf]."""
+from ..models.config import ModelConfig
+
+FULL = ModelConfig(
+    name="qwen1.5-110b", family="dense",
+    n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=49152, vocab_size=152064,
+    qkv_bias=True, rope_theta=1000000.0, mlp_kind="swiglu",
+)

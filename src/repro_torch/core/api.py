@@ -1476,7 +1476,8 @@ class DistBSR(DistMatrix):
         lay = getattr(self, "_layout_cache", None)
         if lay is None:
             t = self.tiled
-            rows, cols = t.rows.cpu().numpy(), t.cols.cpu().numpy()
+            host = t.host()
+            rows, cols = host["rows"], host["cols"]
             real = t.real_slots()
             h = hashlib.sha1()
             for arr in (rows, cols, real):
@@ -1964,7 +1965,7 @@ def _b_pack_wins(b_h: DistMatrix) -> bool:
     """
     if not isinstance(b_h, DistBSR):
         return False
-    counts = b_h.counts.cpu().numpy()
+    counts = b_h.tiled.host()["counts"]
     wc = wire_capacity(int(counts.max()) if counts.size else 0,
                        b_h.tiled.store_capacity)
     bs = b_h.block_size
@@ -1997,7 +1998,7 @@ def _wire_caps_for(a_h: DistMatrix, b_h: DistMatrix,
     caps = {}
     for who, h in (("a", a_h), ("b", b_h)):
         if who in packable and isinstance(h, DistBSR):
-            counts = h.counts.cpu().numpy()
+            counts = h.tiled.host()["counts"]
             caps[who] = wire_capacity(
                 int(counts.max()) if counts.size else 0,
                 h.tiled.store_capacity)

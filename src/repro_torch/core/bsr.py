@@ -243,26 +243,43 @@ class TiledBSR:
         row blocks (``"rows"``), column blocks (``"cols"``) or whichever
         shrinks the capacity more (``"auto"``); an axis is kept only when
         it strictly shrinks the capacity.
+
+        The blocks take ``dtype``, else the input's own type (a numpy
+        ``bfloat16`` array stays bfloat16).  The input is tiled on
+        ``device``: only its block mask goes to the host, where the layout
+        is built and kept with the mask (:meth:`host`).
         """
         if balance not in ("none", "rows", "cols", "auto"):
             raise ValueError(f"unknown balance {balance!r}; one of "
                              "('none', 'rows', 'cols', 'auto')")
         device = resolve_device(device)
-        dense = _host_array(dense)
+        dense = dense.detach().to(device) if isinstance(dense, torch.Tensor) \
+            else as_tensor(np.asarray(dense), device)
         bs = block_size
         m, n = dense.shape
         tm = pad_to_multiple(ceil_div(m, grid.rows), bs)
         tn = pad_to_multiple(ceil_div(n, grid.cols), bs)
         mp, np_ = tm * grid.rows, tn * grid.cols
-        padded = np.zeros((mp, np_), dtype=dense.dtype)
-        padded[:m, :n] = dense
+        padded = dense
+        if (mp, np_) != (m, n):
+            padded = dense.new_zeros((mp, np_))
+            padded[:m, :n] = dense
+        view = padded.reshape(mp // bs, bs, np_ // bs, bs).transpose(1, 2)
+        # a block holds data when any element is nonzero (NaN included)
+        mask = (view != 0).any(dim=3).any(dim=2).cpu().numpy()
+        src_row = np.arange(mp // bs)
+        src_col = np.arange(np_ // bs)
         perm = col_perm = None
         if balance != "none":
-            padded, perm, col_perm = _balance(padded, grid, bs, balance)
+            mask, perm, col_perm = _balance(mask, grid, balance)
+            if perm is not None:
+                src_row = np.asarray(perm)
+            if col_perm is not None:
+                src_col = np.asarray(col_perm)
         nbr, nbc = tm // bs, tn // bs
-        tiles = [[_nonzero_blocks(_block_view(
-            padded[i * tm:(i + 1) * tm, j * tn:(j + 1) * tn], bs))
-            for j in range(grid.cols)] for i in range(grid.rows)]
+        tiles = [[np.nonzero(mask[i * nbr:(i + 1) * nbr,
+                                  j * nbc:(j + 1) * nbc])
+                  for j in range(grid.cols)] for i in range(grid.rows)]
         max_nnzb = max(len(rr) for row in tiles for rr, _ in row)
         if capacity == "bucket":
             cap = bucket_capacity(max_nnzb)
@@ -272,10 +289,10 @@ class TiledBSR:
                     f"capacity {capacity} < max tile nnzb {max_nnzb}")
             cap = capacity if capacity is not None else max_nnzb
         store = cap + nbr
-        blocks = np.zeros((grid.rows, grid.cols, store, bs, bs), dense.dtype)
         rows = np.zeros((grid.rows, grid.cols, store), np.int32)
         cols = np.zeros((grid.rows, grid.cols, store), np.int32)
         counts = np.zeros((grid.rows, grid.cols), np.int32)
+        gather = []         # (tile i, tile j, slot, source block-row, -col)
         for i in range(grid.rows):
             for j in range(grid.cols):
                 rr, cc = tiles[i][j]
@@ -285,16 +302,30 @@ class TiledBSR:
                 # list position k; padding and coverage slots stay zero
                 dest = np.nonzero(order < len(rr))[0]
                 src = order[dest]
-                view = _block_view(
-                    padded[i * tm:(i + 1) * tm, j * tn:(j + 1) * tn], bs)
-                blocks[i, j, dest] = view[rr[src], cc[src]]
+                gather.append(np.stack([
+                    np.full(len(dest), i), np.full(len(dest), j), dest,
+                    src_row[rr[src] + i * nbr], src_col[cc[src] + j * nbc]]))
                 counts[i, j] = len(rr)
-        return cls(blocks=as_tensor(blocks, device, dtype),
-                   rows=as_tensor(rows, device), cols=as_tensor(cols, device),
-                   counts=as_tensor(counts, device), shape=(mp, np_),
-                   block_size=bs, grid_shape=(grid.rows, grid.cols),
-                   capacity=cap, logical_shape=(m, n), row_block_perm=perm,
-                   col_block_perm=col_perm)
+        gi, gj, slot, br, bc = np.concatenate(gather, axis=1)
+        idx = torch.as_tensor(np.stack([gi, gj, slot, br, bc]), device=device)
+        blocks = torch.zeros((grid.rows, grid.cols, store, bs, bs),
+                             dtype=dtype or view.dtype, device=device)
+        blocks[idx[0], idx[1], idx[2]] = view[idx[3], idx[4]].to(blocks.dtype)
+        if blocks.dtype == view.dtype:
+            real = np.zeros((grid.rows, grid.cols, store), bool)
+            real[gi, gj, slot] = True
+        else:
+            # a cast may round a block to zero: test the stored blocks
+            real = _real_mask(blocks)
+        out = cls(blocks=blocks, rows=as_tensor(rows, device),
+                  cols=as_tensor(cols, device),
+                  counts=as_tensor(counts, device), shape=(mp, np_),
+                  block_size=bs, grid_shape=(grid.rows, grid.cols),
+                  capacity=cap, logical_shape=(m, n), row_block_perm=perm,
+                  col_block_perm=col_perm)
+        out.host_layout = {"rows": rows, "cols": cols, "counts": counts,
+                           "real": real}
+        return out
 
     def to_dense(self) -> torch.Tensor:
         gr, gc = self.grid_shape
@@ -318,10 +349,25 @@ class TiledBSR:
         read).  See :func:`layout_real_slots`."""
         gr, gc = self.grid_shape
         s = self.store_capacity
-        real = layout_real_slots(self.rows.cpu().numpy().reshape(-1, s),
-                                 self.counts.cpu().numpy().reshape(-1),
+        host = self.host()
+        real = layout_real_slots(host["rows"].reshape(-1, s),
+                                 host["counts"].reshape(-1),
                                  self.tile_shape[0] // self.block_size)
         return real.reshape(gr, gc, s)
+
+    def host(self) -> dict:
+        """Host numpy ``rows``, ``cols``, ``counts`` and ``real`` (the
+        slots whose block holds data: any element nonzero, NaN included,
+        the JAX package's ``|block|.sum() != 0``), kept from
+        :meth:`from_dense`, else read from the device once."""
+        h = getattr(self, "host_layout", None)
+        if h is None:
+            h = self.host_layout = {
+                "rows": self.rows.cpu().numpy(),
+                "cols": self.cols.cpu().numpy(),
+                "counts": self.counts.cpu().numpy(),
+                "real": _real_mask(self.blocks)}
+        return h
 
     def load_imbalance(self) -> float:
         """max/avg real-block count over tiles — the paper's Table 1 metric."""
@@ -336,16 +382,20 @@ class TiledBSR:
         return float(1.0 - c.sum() / total) if total else 0.0
 
 
-def _balance(padded: np.ndarray, grid: ProcessGrid, bs: int, balance: str):
-    """Apply the capacity-shrinking block permutation of ``balance``.
+def _real_mask(blocks: torch.Tensor) -> np.ndarray:
+    """Host bool ``[..., store]`` mask of the stored blocks holding data."""
+    return torch.ne(blocks, 0).flatten(-2).any(dim=-1).cpu().numpy()
 
-    Returns ``(padded, row_perm, col_perm)`` with at most one permutation
-    set, as tuples of ints (the JAX package's meta fields).
+
+def _balance(mask: np.ndarray, grid: ProcessGrid, balance: str):
+    """The capacity-shrinking block permutation of ``balance``.
+
+    ``mask`` is the global block mask.  Returns ``(mask, row_perm,
+    col_perm)``: the mask permuted, and at most one permutation set, as
+    tuples of ints (the JAX package's meta fields; position ``t`` holds
+    original block ``perm[t]``).
     """
-    mp, np_ = padded.shape
-    nbr_global, nbc_global = mp // bs, np_ // bs
-    mask = np.abs(padded.reshape(nbr_global, bs, nbc_global, bs)).sum(
-        axis=(1, 3)) != 0
+    nbr_global, nbc_global = mask.shape
 
     def tile_cap(msk):
         per_tile = msk.reshape(grid.rows, nbr_global // grid.rows,
@@ -368,12 +418,11 @@ def _balance(padded: np.ndarray, grid: ProcessGrid, bs: int, balance: str):
         if c < best_cap:
             best_axis, best_cap, col_perm = "cols", c, p
     if best_axis == "rows":
-        padded = padded.reshape(nbr_global, bs, np_)[perm].reshape(mp, np_)
-        return padded, tuple(int(p) for p in perm), None
+        return mask[np.asarray(perm)], tuple(int(p) for p in perm), None
     if best_axis == "cols":
-        padded = padded.reshape(mp, nbc_global, bs)[:, col_perm]
-        return padded.reshape(mp, np_), None, tuple(int(p) for p in col_perm)
-    return padded, None, None
+        return (mask[:, np.asarray(col_perm)], None,
+                tuple(int(p) for p in col_perm))
+    return mask, None, None
 
 
 def _augmented_layout(rr: np.ndarray, cc: np.ndarray, cap: int, nbr: int):

@@ -32,7 +32,6 @@ import hashlib
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..kernels.ops import match_block_pairs
 from .bsr import TiledBSR
@@ -70,13 +69,11 @@ def extract_structure(t: TiledBSR) -> GridStructure:
     """Pull a TiledBSR's block structure to the host.
 
     A block is real when any of its elements is nonzero (the JAX
-    package's ``|block|.sum() != 0``, NaN included); the test runs on the
-    device and only the ``[g, g, store]`` bool mask, the rows and the cols
-    cross to the host.
+    package's ``|block|.sum() != 0``, NaN included): :meth:`TiledBSR.host`
+    holds that mask, the rows and the cols on the host.
     """
-    rows = t.rows.cpu().numpy()
-    cols = t.cols.cpu().numpy()
-    real = torch.ne(t.blocks, 0).flatten(3).any(dim=3).cpu().numpy()
+    host = t.host()
+    rows, cols, real = host["rows"], host["cols"], host["real"]
     if not (~real).any(axis=2).all():
         # cannot happen for TiledBSR-constructed values (coverage adds >= 1
         # zero block per tile); fail loudly rather than corrupt pair lists

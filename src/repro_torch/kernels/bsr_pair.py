@@ -269,7 +269,8 @@ def bsr_pair_accumulate_cuda(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     are read and written, every other slot stays bit-identical.  Raises on
     anything the kernel does not take.  ``.launches`` counts the calls that
     launched the kernel; while ``.pair_counter`` is an int64 CUDA tensor
-    of one element, each launch adds to it the pairs its kernel multiplied.
+    of one element, each launch adds to it the pairs its kernel multiplied,
+    and to the host int ``.table_pairs`` its table's real pairs.
     """
     a_blocks, b_blocks = _same_type(a_blocks, b_blocks)
     t, bs = a_blocks.shape[0], a_blocks.shape[-1]
@@ -281,6 +282,8 @@ def bsr_pair_accumulate_cuda(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
             accumulate=accumulate, who="bsr_pair_accumulate_cuda",
             counter=bsr_pair_accumulate_cuda.pair_counter)
     bsr_pair_accumulate_cuda.launches += 1
+    if bsr_pair_accumulate_cuda.pair_counter is not None:
+        bsr_pair_accumulate_cuda.table_pairs += table.real_pairs
     return out
 
 
@@ -292,7 +295,7 @@ def bsr_pair_matmul_cuda(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     sums A[t, pa] @ B[t, pb] over the real pairs with slot ``r *
     n_block_cols + c`` (the table's slots); blocks no real pair visits are
     zero.  Returns float32 [T, nbr*bs, nbc*bs]; the caller casts.
-    ``.launches`` and ``.pair_counter`` as for
+    ``.launches``, ``.pair_counter`` and ``.table_pairs`` as for
     :func:`bsr_pair_accumulate_cuda`.
     """
     a_blocks, b_blocks = _same_type(a_blocks, b_blocks)
@@ -306,6 +309,8 @@ def bsr_pair_matmul_cuda(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
             nbc=n_block_cols, accumulate=False, who="bsr_pair_matmul_cuda",
             counter=bsr_pair_matmul_cuda.pair_counter)
     bsr_pair_matmul_cuda.launches += 1
+    if bsr_pair_matmul_cuda.pair_counter is not None:
+        bsr_pair_matmul_cuda.table_pairs += table.real_pairs
     return out
 
 
@@ -313,3 +318,5 @@ bsr_pair_accumulate_cuda.launches = 0
 bsr_pair_matmul_cuda.launches = 0
 bsr_pair_accumulate_cuda.pair_counter = None
 bsr_pair_matmul_cuda.pair_counter = None
+bsr_pair_accumulate_cuda.table_pairs = 0
+bsr_pair_matmul_cuda.table_pairs = 0

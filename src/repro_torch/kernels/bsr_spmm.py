@@ -251,7 +251,10 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
     Raises on anything the kernel does not take.
     ``.launches`` counts the calls that launched the kernel; while
     ``.block_counter`` is an int64 CUDA tensor of one element, each launch
-    adds to it the blocks its kernel multiplied.
+    adds to it the blocks its kernel multiplied, and to the host int
+    ``.table_blocks`` its table's real blocks (what it should multiply).
+    While ``.by_shape`` is a dict, each launch adds one at the key ``(m,
+    k, n)`` of its product: an ``m x k`` A tile times a ``k x n`` B tile.
     """
     counter = bsr_spmm_cuda.block_counter
     tensors = (blocks, dense, table.ent, table.chunks, table.reduce,
@@ -319,6 +322,11 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
                            f"chunks={table.chunks.shape[1]})")
     nan_pass(dense, table, out)
     bsr_spmm_cuda.launches += 1
+    if counter is not None:
+        bsr_spmm_cuda.table_blocks += table.real_blocks
+    tally = bsr_spmm_cuda.by_shape
+    if tally is not None:
+        tally[nbr * bs, k, n] = tally.get((nbr * bs, k, n), 0) + 1
     return out
 
 
@@ -354,3 +362,5 @@ def nan_pass(dense: torch.Tensor, table: SpmmTable,
 
 bsr_spmm_cuda.launches = 0
 bsr_spmm_cuda.block_counter = None
+bsr_spmm_cuda.table_blocks = 0
+bsr_spmm_cuda.by_shape = None

@@ -1,0 +1,310 @@
+"""The layer stack: embed -> per-layer blocks -> norm -> logits.
+
+Port of ``repro/models/transformer.py`` for the attention families: layer
+kinds ``"g"`` (global attention) and ``"l"`` (local attention), each with a
+dense MLP or a token-choice MoE (plus arctic's dense residual).  The
+recurrent kinds (``"r"`` RG-LRU, ``"m"`` Mamba-2 SSD) and the modality
+frontends raise :class:`NotImplementedError` (``ROADMAP.md``, Queue A item
+6).
+
+The reference scans each layer group over stacked parameters; eager torch
+runs one Python loop over per-layer :class:`Block` modules, so
+:func:`forward` and :func:`forward_unscanned` (and the two decode steps)
+are the same loop, both names kept.  ``layer_plan`` still describes the
+reference's grouping: :func:`repro_torch.models.convert.params_from_jax`
+unstacks a JAX parameter tree by it.  Caches are a list with one dict per
+layer, in ``cfg.pattern`` order.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..runtime.device import resolve_device
+from . import attention as attn_mod
+from . import mlp as mlp_mod
+from . import moe as moe_mod
+from .common import Params, dense_init, dtype_of, rms_norm, softcap
+from .config import ModelConfig
+
+__all__ = ["Block", "Transformer", "layer_plan", "init_params", "init_cache",
+           "forward", "forward_unscanned", "decode_step",
+           "decode_step_unscanned", "check_supported"]
+
+_NOT_PORTED = {
+    "r": "the RG-LRU layer kind 'r' (models/rglru.py)",
+    "m": "the Mamba-2 SSD layer kind 'm' (models/ssm.py)",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for what the port does not run yet."""
+    for kind in sorted(set(cfg.pattern)):
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: {_NOT_PORTED[kind]} is not ported yet "
+                "(ROADMAP.md, Queue A item 6)")
+        if kind not in ("g", "l"):
+            raise ValueError(f"unknown layer kind {kind!r}")
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend!r} frontend (models/frontend.py) "
+            "is not ported yet (ROADMAP.md, Queue A item 6)")
+
+
+def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """[(unit_pattern, n_units), ...]; remainder layers become a 1-unit
+    group (the reference's scan grouping)."""
+    unit = cfg.layer_pattern
+    n_full = cfg.n_layers // len(unit)
+    rem = cfg.pattern[n_full * len(unit):]
+    plan = []
+    if n_full:
+        plan.append((unit, n_full))
+    if rem:
+        plan.append((rem, 1))
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+class Block(nn.Module):
+    """One ``"g"``/``"l"`` layer: pre-norm attention, then a pre-norm MLP or
+    MoE (optional gemma2 post-norms).  ``ln1``/``ln2``/``pn1``/``pn2`` are
+    the norms' scales; ``attn``, ``moe`` and ``mlp`` hold their weights."""
+
+    def __init__(self, ln1: torch.Tensor, attn: Params,
+                 ln2: Optional[torch.Tensor] = None,
+                 moe: Optional[Params] = None, mlp: Optional[Params] = None,
+                 pn1: Optional[torch.Tensor] = None,
+                 pn2: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.norms = Params(ln1=ln1, ln2=ln2, pn1=pn1, pn2=pn2)
+        self.attn = attn
+        if moe is not None:
+            self.moe = moe
+        if mlp is not None:
+            self.mlp = mlp
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._modules or name in self.norms
+
+
+class Transformer(nn.Module):
+    """Embedding, the per-layer blocks, the final norm and the LM head
+    (``lm_head`` absent with tied embeddings)."""
+
+    def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
+                 final_norm: torch.Tensor, layers: List[Block],
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        check_supported(cfg)
+        if len(layers) != cfg.n_layers:
+            raise ValueError(f"{cfg.name} has {cfg.n_layers} layers, got "
+                             f"{len(layers)} blocks")
+        self.cfg = cfg
+        self.top = Params(embed=embed, final_norm=final_norm,
+                          lm_head=lm_head)
+        self.layers = nn.ModuleList(layers)
+
+    @property
+    def device(self) -> torch.device:
+        return self.top.embed.device
+
+    def head(self) -> torch.Tensor:
+        """[d, V] output projection (the embedding's transpose if tied)."""
+        return self.top.embed.T if self.cfg.tie_embeddings \
+            else self.top.lm_head
+
+
+def _init_block(cfg: ModelConfig, gen: torch.Generator) -> Block:
+    d = cfg.d_model
+    dev = gen.device
+
+    def zeros():
+        return torch.zeros(d, device=dev)
+
+    attn = attn_mod.init_attn(cfg, gen)
+    moe = mlp = ln2 = pn1 = pn2 = None
+    if cfg.moe is not None:
+        ln2 = zeros()
+        moe = moe_mod.init_moe(cfg, gen)
+        if cfg.moe.dense_residual:
+            mlp = mlp_mod.init_mlp(cfg, gen)
+    elif cfg.mlp_kind != "none":
+        ln2 = zeros()
+        mlp = mlp_mod.init_mlp(cfg, gen)
+    if cfg.post_norms:
+        pn1, pn2 = zeros(), zeros()
+    return Block(zeros(), attn, ln2=ln2, moe=moe, mlp=mlp, pn1=pn1,
+                 pn2=pn2)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device=None) -> Transformer:
+    """Random float32 parameters on ``device`` (the card by default), from
+    a ``torch.Generator`` seeded with ``seed`` on that device.  The values
+    are the port's own draws, not the reference's: carry JAX parameters
+    across with :func:`repro_torch.models.convert.params_from_jax`."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        embed = dense_init(gen, (cfg.vocab_size, cfg.d_model), in_axis=1)
+        lm_head = None if cfg.tie_embeddings else \
+            dense_init(gen, (cfg.d_model, cfg.vocab_size))
+        layers = [_init_block(cfg, gen) for _ in cfg.pattern]
+        final_norm = torch.zeros(cfg.d_model, device=dev)
+    return Transformer(cfg, embed, final_norm, layers, lm_head=lm_head)
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device=None) -> List[Dict]:
+    """One attention cache per layer, in ``cfg.pattern`` order."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [attn_mod.init_attn_cache(cfg, kind, batch, max_len, dtype, dev)
+            for kind in cfg.pattern]
+
+
+# ---------------------------------------------------------------------------
+# One layer
+# ---------------------------------------------------------------------------
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {"aux": torch.zeros((), device=device),
+            "dropped": torch.zeros((), device=device)}
+
+
+def _apply_layer(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
+                 positions, cache: Optional[Dict], pos=None,
+                 decode: bool = False, moe_fn: Optional[Callable] = None,
+                 attn_fn: Optional[Callable] = None):
+    """Returns (x, new_cache, aux_scalar_dict).
+
+    ``moe_fn`` / ``attn_fn`` replace the MoE and (forward-path) attention
+    bodies: the hook the serving engine uses to route expert dispatch and
+    attention scoring through the plan API while every other piece of the
+    layer (norms, residuals, cache plumbing) stays as it is.  ``attn_fn``
+    takes ``attn_forward``'s arguments, ``moe_fn`` ``moe_forward``'s.
+    """
+    aux = _zero_aux(x.device)
+    nm = p.norms
+    h = rms_norm(x, nm.ln1, cfg.norm_eps)
+    if decode:
+        y, new_cache = attn_mod.attn_decode(p.attn, h, cache, pos, cfg, kind)
+    elif attn_fn is not None:
+        y, new_cache = attn_fn(p.attn, h, cfg, kind, positions, cache)
+    else:
+        y, new_cache = attn_mod.attn_forward(p.attn, h, cfg, kind,
+                                             positions, cache)
+    if cfg.post_norms:
+        y = rms_norm(y, nm.pn1, cfg.norm_eps)
+    x = x + y
+
+    if "mlp" in p or "moe" in p:
+        h2 = rms_norm(x, nm.ln2, cfg.norm_eps)
+        if "moe" in p:
+            y2, moe_aux = (moe_fn or moe_mod.moe_forward)(p.moe, h2, cfg)
+            aux["aux"] = aux["aux"] + moe_aux["moe_aux"] + moe_aux["moe_z"]
+            aux["dropped"] = aux["dropped"] + moe_aux["moe_dropped"]
+            if "mlp" in p:  # arctic's parallel dense residual branch
+                y2 = y2 + mlp_mod.mlp_forward(p.mlp, h2, cfg)
+        else:
+            y2 = mlp_mod.mlp_forward(p.mlp, h2, cfg)
+        if cfg.post_norms:
+            y2 = rms_norm(y2, nm.pn2, cfg.norm_eps)
+        x = x + y2
+    return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill) and decode
+# ---------------------------------------------------------------------------
+def _embed_tokens(params: Transformer, tokens: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    dtype = dtype_of(cfg.compute_dtype)
+    x = params.top.embed[tokens.long()].to(dtype)
+    if cfg.emb_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+    return x
+
+
+def _head_logits(params: Transformer, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Final norm, LM head (float32 logits, as the reference's
+    ``preferred_element_type``), softcap."""
+    x = rms_norm(x, params.top.final_norm, cfg.norm_eps)
+    head = params.head().to(x.dtype)
+    logits = (x.float() @ head.float()) if x.dtype != torch.float32 \
+        else x @ head
+    return softcap(logits, cfg.final_softcap)
+
+
+def forward_unscanned(params: Transformer, batch: Dict, cfg: ModelConfig,
+                      caches: Optional[List[Dict]] = None,
+                      positions: Optional[torch.Tensor] = None,
+                      moe_fn: Optional[Callable] = None,
+                      attn_fn: Optional[Callable] = None):
+    """Full-sequence forward, one layer at a time; ``moe_fn`` / ``attn_fn``
+    may do host-side work per layer (the serving engine builds its sparse
+    operators there).  ``batch["tokens"]``: int [B, T].  Returns (logits
+    [B, T, V] float32, new_caches, aux)."""
+    with torch.no_grad():
+        x = _embed_tokens(params, batch["tokens"], cfg)
+        t = x.shape[1]
+        if positions is None:
+            positions = torch.arange(t, dtype=torch.int32, device=x.device)
+        layers_c = caches if caches is not None else [None] * cfg.n_layers
+        aux_sum = _zero_aux(x.device)
+        new_caches = []
+        for blk, c_l, kind in zip(params.layers, layers_c, cfg.pattern):
+            x, nc, aux = _apply_layer(blk, x, kind, cfg, positions, c_l,
+                                      moe_fn=moe_fn, attn_fn=attn_fn)
+            new_caches.append(nc)
+            aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
+        return (_head_logits(params, x, cfg),
+                new_caches if caches is not None else None, aux_sum)
+
+
+def forward(params: Transformer, batch: Dict, cfg: ModelConfig,
+            caches: Optional[List[Dict]] = None,
+            positions: Optional[torch.Tensor] = None):
+    """Full-sequence forward.  Returns (logits, new_caches, aux)."""
+    return forward_unscanned(params, batch, cfg, caches, positions)
+
+
+def decode_step_unscanned(params: Transformer, token: torch.Tensor,
+                          caches: List[Dict], pos, cfg: ModelConfig,
+                          moe_fn: Optional[Callable] = None):
+    """One-token step.  token: int [B, 1]; pos: an int or an int [B] tensor
+    of per-request positions (continuous batching).  Returns (logits
+    [B, 1, V], new_caches, aux)."""
+    with torch.no_grad():
+        x = _embed_tokens(params, token, cfg)
+        aux_sum = _zero_aux(x.device)
+        new_caches = []
+        for blk, c_l, kind in zip(params.layers, caches, cfg.pattern):
+            x, nc, aux = _apply_layer(blk, x, kind, cfg, None, c_l, pos=pos,
+                                      decode=True, moe_fn=moe_fn)
+            new_caches.append(nc)
+            aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
+        return _head_logits(params, x, cfg), new_caches, aux_sum
+
+
+def decode_step(params: Transformer, token: torch.Tensor,
+                caches: List[Dict], pos, cfg: ModelConfig,
+                return_aux: bool = False):
+    """One-token step: (logits [B, 1, V], new_caches), plus the summed
+    per-layer aux dict when ``return_aux`` is set."""
+    logits, new_caches, aux = decode_step_unscanned(params, token, caches,
+                                                    pos, cfg)
+    if return_aux:
+        return logits, new_caches, aux
+    return logits, new_caches

@@ -222,6 +222,45 @@ def test_tiled_balance_bit_identical(balance, grid):
     assert_same_tiled(port, ref)
 
 
+@pytest.mark.parametrize("source", ["numpy", "tensor", "bf16-tensor",
+                                    "float64-to-float32"])
+@pytest.mark.parametrize("balance", ["none", "rows", "cols"])
+def test_from_dense_keeps_the_input_type_and_the_stored_real_mask(source,
+                                                                  balance):
+    """One tiling path for every input: a numpy array or a tensor gives
+    the JAX package's tiles (balanced too), the blocks take the input's
+    type unless ``dtype`` is given, and the kept real mask
+    (``TiledBSR.host()["real"]``) is the stored blocks' data mask, also
+    where the cast to ``dtype`` rounds a listed block to zero."""
+    a = _matrix("skewed")
+    dtype = jdtype = None
+    if source == "float64-to-float32":
+        a = a.astype(np.float64)
+        a[44:48, 36:40] = 1e-300        # a block float32 rounds to zero
+        dtype, jdtype = torch.float32, jnp.float32
+    x, ref_in = a, a
+    if source == "tensor":
+        x = torch.from_numpy(a)
+    elif source == "bf16-tensor":
+        x = torch.from_numpy(a).bfloat16()
+        ref_in = jnp.asarray(a, jnp.bfloat16)
+    grid = (2, 2)
+    port = tbsr.TiledBSR.from_dense(x, tgrid.ProcessGrid(*grid), 4,
+                                    capacity="bucket", balance=balance,
+                                    dtype=dtype, device=CPU)
+    ref = jbsr.TiledBSR.from_dense(ref_in, jgrid.ProcessGrid(*grid), 4,
+                                   capacity="bucket", balance=balance,
+                                   dtype=jdtype)
+    assert_same_tiled(port, ref)
+    assert port.dtype == {"bf16-tensor": torch.bfloat16,
+                          "float64-to-float32": torch.float32}.get(
+                              source, torch.float32)
+    data = np.abs(_np(ref.blocks)).sum(axis=(3, 4)) != 0
+    np.testing.assert_array_equal(port.host()["real"], data)
+    if source == "float64-to-float32":
+        assert (port.real_slots() & ~data).any()
+
+
 def test_balance_permutations_are_exercised():
     """The skewed matrix does make each axis shrink the capacity, so the
     bit-identity above covers set permutations, not only None."""

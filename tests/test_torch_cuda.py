@@ -632,3 +632,122 @@ def test_steal3d_on_the_card_matches_the_cpu(card, g, wire, overlap):
         assert_close(got.cpu(), want, torch.from_numpy(scale))
     _assert_same_nan_mask(results["cuda"][2], results["cpu"][2],
                           torch.from_numpy(scales[0]))
+
+
+# ---------------------------------------------------------------------------
+# the serving path: B1 and B2 at block size 8 on the serving operators
+# ---------------------------------------------------------------------------
+def _serving_operands(seed: int = 0):
+    """Scaled-down serving operands on the CPU: an olmoe MoE layer's
+    dispatch and combine operators (64 experts, top 8, 32 tokens, d 256)
+    with their bf16 activations, and the attention panels of 4 heads x
+    32 positions x head_dim 16 (Q_bd, K_bd^T, a block-causal P_bd, V)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+    from repro_torch.serving import sparse as ss
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), d_model=256)
+    gen = torch.Generator().manual_seed(seed)
+    n, d = 32, cfg.d_model
+    x = torch.randn((n, d), generator=gen)
+    router = torch.randn((d, cfg.moe.n_experts), generator=gen) * d ** -0.5
+    r = tmoe.route_tokens(router, x, cfg)
+    disp, comb = ss.routing_operators(r, n, cfg, torch.bfloat16)
+    ye = torch.randn((disp.shape[0], d), generator=gen).bfloat16()
+    bh, t, hd = 4, 32, 16
+    q = torch.randn((bh, t, hd), generator=gen)
+    k = torch.randn((bh, t, hd), generator=gen)
+    causal = torch.tril(torch.ones(t, t, dtype=torch.bool))
+    p = torch.softmax(torch.randn((bh, t, t), generator=gen).masked_fill(
+        ~causal, float("-inf")), dim=-1)
+    v = torch.randn((bh * t, hd), generator=gen)
+    return {"moe": (disp, x.bfloat16(), comb, ye, n, disp.shape[0], cfg),
+            "attn": (torch.block_diag(*q), torch.block_diag(
+                *k.transpose(1, 2)), torch.block_diag(*p), v)}
+
+
+@pytest.mark.cuda
+def test_serving_operators_on_the_card_match_the_cpu(card):
+    """D @ X and W @ Y (bf16, B1's SIMT path at bs 8), Q_bd @ K_bd^T with a
+    sparse output (float32, B2) and P_bd @ V (float32, B1) through the
+    engine's SparseOps on the card, against the same through the plain
+    versions on the CPU; B1 and B2 multiply their tables' real blocks and
+    pairs, counted on the card."""
+    from repro_torch.serving import sparse as ss
+    ops = _serving_operands()
+    disp, x, comb, ye, n, lines, cfg = ops["moe"]
+    q_bd, kt_bd, p_bd, v = ops["attn"]
+    cap = ss.routing_capacity(n, lines, cfg.moe.top_k, 1, 8)
+    got, want = {}, {}
+    for dev, out in ((card, got), (torch.device("cpu"), want)):
+        so = ss.SparseOps(device=dev)
+        out["d"] = so.spmm(disp.to(dev), x.to(dev), capacity=cap)
+        out["w"] = so.spmm(comb.to(dev), ye.to(dev), capacity=cap)
+        out["s"] = so.spgemm_sparse(q_bd.to(dev), kt_bd.to(dev)).densify()
+        out["o"] = so.spmm(p_bd.to(dev), v.to(dev))
+    assert ss.SparseOps(device=card).tile(disp.to(card)).dtype \
+        == torch.bfloat16
+    assert kernel_path_b1(8, torch.bfloat16) == "SIMT float32 FMA"
+    scales = {"d": disp.float().abs() @ x.float().abs(),
+              "w": comb.float().abs() @ ye.float().abs(),
+              "s": q_bd.abs() @ kt_bd.abs(), "o": p_bd.abs() @ v.abs()}
+    for key in "dwso":
+        assert got[key].is_cuda and got[key].dtype == want[key].dtype
+        step = BF16_STEP if want[key].dtype == torch.bfloat16 else 0.0
+        assert_close(got[key].cpu(), want[key], scales[key], step=step)
+    # launches and the blocks / pairs each multiplied, against the tables
+    so = ss.SparseOps(device=card)
+    b1, b2 = bsr_spmm_cuda.launches, bsr_pair_accumulate_cuda.launches
+    counter = torch.zeros(1, dtype=torch.int64, device=card)
+    pairs = torch.zeros(1, dtype=torch.int64, device=card)
+    bsr_spmm_cuda.block_counter, bsr_spmm_cuda.table_blocks = counter, 0
+    bsr_pair_accumulate_cuda.pair_counter = pairs
+    bsr_pair_accumulate_cuda.table_pairs = 0
+    bsr_spmm_cuda.by_shape = {}
+    try:
+        so.spmm(disp.to(card), x.to(card), capacity=cap)
+        so.spgemm_sparse(q_bd.to(card), kt_bd.to(card))
+        so.spmm(p_bd.to(card), v.to(card))
+        by_shape = bsr_spmm_cuda.by_shape
+    finally:
+        bsr_spmm_cuda.block_counter = None
+        bsr_pair_accumulate_cuda.pair_counter = None
+        bsr_spmm_cuda.by_shape = None
+    assert bsr_spmm_cuda.launches == b1 + 2
+    # one launch a product, tallied by (m, k, n): D @ X, then P_bd @ V
+    assert by_shape == {(lines, n, x.shape[1]): 1,
+                        (p_bd.shape[0], v.shape[0], v.shape[1]): 1}
+    assert bsr_pair_accumulate_cuda.launches == b2 + 1
+    assert int(counter.item()) == bsr_spmm_cuda.table_blocks > 0
+    # the scores' real pairs: 4 heads x 4 x 4 output blocks x 2 inner blocks
+    assert int(pairs.item()) == bsr_pair_accumulate_cuda.table_pairs \
+        == 4 * 4 * 4 * 2
+
+
+@pytest.mark.cuda
+def test_sparse_engine_on_the_card_gives_the_cpu_tokens(card):
+    """The smoke olmoe sparse engine (MoE dispatch and combine, prefill
+    attention through B1 and B2) on the card decodes the CPU port's
+    tokens, with slots recycled mid-run."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    model = tf.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (m,)) for m in (12, 9, 16)]
+    results = {}
+    b1, b2 = bsr_spmm_cuda.launches, bsr_pair_accumulate_cuda.launches
+    for dev in (card, torch.device("cpu")):
+        eng = ServeEngine(cfg, params=copy.deepcopy(model).to(dev),
+                          max_batch=2, max_len=32, sparse=True, device=dev)
+        for toks in prompts:
+            eng.submit(toks, max_new_tokens=4)
+        results[dev.type] = eng.run()
+        assert eng.summary()["dropped_max"] == 0.0
+    for rid in range(len(prompts)):
+        np.testing.assert_array_equal(results["cuda"][rid],
+                                      results["cpu"][rid])
+    assert bsr_spmm_cuda.launches > b1
+    assert bsr_pair_accumulate_cuda.launches == b2 + 3 * cfg.n_layers
