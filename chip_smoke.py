@@ -89,7 +89,24 @@ non-zero and prints no result line):
    time of operator construction, tiling, plan lookups and multiplies
    (obs spans); then B1 at the MoE dispatch, MoE combine and P @ V shapes
    and B2 at the scoring shape against their plain versions, bounds and
-   library yardsticks.
+   library yardsticks;
+12. training (``repro_torch.launch.train.train``): a gate at smoke size,
+   float32 with TF32 off: ``qwen2.5-3b`` and ``olmoe-1b-7b`` (at the
+   published capacity factor 1.25, so tokens drop) train 10 steps on the
+   card and on the CPU from the same parameters, their losses, aux losses,
+   dropped shares and gradient norms held at every step and their final
+   parameters within the bounds below; resume on the card (20 steps
+   straight against 10, a stop, and a relaunch that resumes to 20, with
+   deterministic algorithms); then Qwen2.5-3B at its published width and
+   depth (36 layers, d_model 2048, 3,085,697,024 parameters, bf16
+   compute over float32 parameters and AdamW state, remat on) for 8 steps
+   of 4 x 512 tokens: finite losses and gradient norms, the mean of the
+   last 3 losses under the first 3's, each step's wall time, tokens/s,
+   the model-flops share, peak memory, a ``torch.profiler`` step (busy
+   against wall, top device ops), one step split by synchronisations
+   into forward, backward and optimizer device time, and the host
+   synchronisations of a step.  B1, B2 and B3 launch no time in training
+   (the JAX training path runs no Pallas kernel).
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The last two lines are the ``{"kernels": [...]}`` record and
@@ -99,6 +116,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -135,8 +153,29 @@ ROOT = Path(__file__).resolve().parent
 # logits.  The dense bf16 path's largest distance from them over the
 # requests measures that noise; two paths within it differ by at most
 # twice it (triangle inequality), which is the bound held.
+#
+# The training gate (the card's train() against the CPU's, float32, TF32
+# off, 10 steps from the same parameters and batches):
+#
+# * losses, aux losses and gradient norms: 1e-4 relative at every step.
+#   One float32 step differs by the order of its sums, ~1e-6 relative at
+#   smoke widths (tests/test_torch_train.py holds the CPU at 1e-5 of
+#   JAX); the parameters' drift below lies in elements whose gradient is
+#   within rounding of zero, which move the loss to second order only;
+# * dropped shares: equal (the same routing on both sides);
+# * parameters: 1e-5 (1 + |p|) plus Adam's amplification of rounding: a
+#   step moves an element by lr_t * r_t, |r_t| <= R
+#   (AdamW.ratio_bound, 1.011 within 10 steps), and where a gradient lies
+#   within rounding of zero the two runs may step opposite ways, so two
+#   runs part by at most 2 R sum_t lr_t (AdamW.rounding_allowance's cap:
+#   its first-order part needs each step's moments, which train() keeps
+#   to itself).  How many elements go past 1e-5 (1 + |p|) is printed;
+# * resume on the card, deterministic algorithms on: the JAX test's rtol
+#   1e-5, atol 1e-6 (tests/test_train_loop.py); the largest difference
+#   is printed (0 expected: the same kernels in the same order).
 TOL_F32_SMALL = 1e-5
 TOL_F32_DEEP = 1e-4
+TOL_TRAIN_GATE = 1e-4
 BF16_STEP = 2.0 ** -7
 BF16_ROUND = 2.0 ** -8
 
@@ -166,6 +205,13 @@ SERVE = dict(arch="olmoe-1b-7b", seed=0, prompt_lens=(128, 100, 57, 128),
 # a token may differ from the dense path's only where the dense path's
 # top-2 logit margin is under this share of its largest |logit|
 NEAR_TIE = 1e-4
+# the training phase: the smoke-size gate (card against CPU), resume on
+# the card, and Qwen2.5-3B at its published width and depth
+TRAIN_GATE = dict(archs=("qwen2.5-3b", "olmoe-1b-7b"), steps=10, batch=4,
+                  seq=32, lr=3e-3, seed=0, capacity_factor=1.25)
+TRAIN_RESUME = dict(arch="qwen2.5-3b", steps=20, stop_after=10, batch=2,
+                    seq=16, seed=7)
+TRAIN = dict(arch="qwen2.5-3b", steps=8, batch=4, seq=512, lr=3e-4, seed=0)
 
 
 def log(*parts) -> None:
@@ -2515,6 +2561,358 @@ def serving_phase() -> dict:
     return {"gate": gate, "published": pub, "kernels": kern}
 
 
+def train_schedule_sum(cfg_steps: int, lr: float) -> float:
+    """The sum of the learning rates ``train()`` applies over ``cfg_steps``
+    steps (its schedule: cosine, warmup ``max(steps // 20, 1)``)."""
+    from repro_torch.optim import cosine_schedule
+    sched = cosine_schedule(lr, max(cfg_steps // 20, 1), cfg_steps)
+    return sum(float(sched(t)) for t in range(1, cfg_steps + 1))
+
+
+def train_gate(arch: str) -> dict:
+    """``train()`` at smoke size on the card and on the CPU from the same
+    parameters (drawn on the CPU), float32 with TF32 off: every step's
+    loss, aux loss and gradient norm within ``TOL_TRAIN_GATE``, the dropped
+    shares equal, the final parameters within 1e-5 (1 + |p|) plus Adam's
+    cap (the tolerance comment); B1-B3 launched no time."""
+    import copy
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamW
+    g = TRAIN_GATE
+    cfg = get_config(arch, smoke=True)
+    if cfg.moe is not None:
+        cfg = dc.replace(cfg, moe=dc.replace(
+            cfg.moe, capacity_factor=g["capacity_factor"]))
+    check(cfg.compute_dtype == "float32", f"{cfg.name} is not float32")
+    kw = dict(steps=g["steps"], batch=g["batch"], seq=g["seq"], lr=g["lr"],
+              seed=g["seed"], log_every=0)
+    cpu_model = tf.init_params(cfg, seed=g["seed"], device="cpu")
+    reset_counts()
+    t0 = time.perf_counter()
+    card = train(cfg, device=DEVICE, params=copy.deepcopy(cpu_model).to(
+        DEVICE), **kw)
+    card_s = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    cpu = train(cfg, device="cpu", params=cpu_model, **kw)
+    cpu_s = time.perf_counter() - t0
+    check(not any(counts.values()),
+          f"{cfg.name} training launched a sparse kernel: {counts}")
+    worst = {}
+    for key in ("losses", "aux", "grad_norms"):
+        got, want = np.asarray(card[key]), np.asarray(cpu[key])
+        share = np.abs(got - want) / (TOL_TRAIN_GATE * np.maximum(
+            np.abs(want), np.finfo(np.float32).tiny))
+        share[(got == want)] = 0.0
+        worst[key] = float(share.max())
+        check(len(got) == g["steps"] and np.isfinite(got).all()
+              and worst[key] <= 1.0,
+              f"{cfg.name} gate: {key} on the card {got.tolist()} against "
+              f"the CPU's {want.tolist()}")
+    check(card["dropped"] == cpu["dropped"],
+          f"{cfg.name} gate: dropped shares {card['dropped']} on the card, "
+          f"{cpu['dropped']} on the CPU")
+    cap = 2 * AdamW().ratio_bound(g["steps"]) \
+        * train_schedule_sum(g["steps"], g["lr"])
+    err_max, past_base, n_el = 0.0, 0, 0
+    cpu_params = dict(cpu["params"].named_parameters())
+    for name, p in card["params"].named_parameters():
+        want = cpu_params[name].detach()
+        err = (p.detach().cpu() - want).abs()
+        base = TOL_F32_SMALL * (1 + want.abs())
+        check(bool((err <= base + cap).all()),
+              f"{cfg.name} gate: {name} differs by {err.max().item():.3e} "
+              f"(allowed 1e-5 (1 + |p|) + {cap:.3e})")
+        err_max = max(err_max, err.max().item())
+        past_base += int((err > base).sum())
+        n_el += err.numel()
+    log(f"  {cfg.name}: {g['steps']} steps of {g['batch']} x {g['seq']} "
+        f"on the card ({card_s:.1f} s) and the CPU ({cpu_s:.1f} s); losses "
+        f"{card['losses'][0]:.5f} -> {card['losses'][-1]:.5f}; worst share "
+        f"of the {TOL_TRAIN_GATE} allowance: loss {worst['losses']:.3f}, "
+        f"aux {worst['aux']:.3f}, gradient norm {worst['grad_norms']:.3f}; "
+        f"dropped {card['dropped'][0]:.4f} .. {card['dropped'][-1]:.4f} "
+        f"(equal); parameters: max |card - CPU| {err_max:.3e}, "
+        f"{past_base} of {n_el} elements past 1e-5 (1 + |p|), Adam's cap "
+        f"{cap:.3e}; launches {counts}")
+    return {"steps": g["steps"], "losses_card": card["losses"],
+            "losses_cpu": cpu["losses"], "dropped": card["dropped"],
+            "worst_share": worst, "param_max_abs_err": err_max,
+            "param_past_base": past_base, "param_elements": n_el,
+            "adam_cap": cap, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def train_resume() -> dict:
+    """On the card, with deterministic algorithms: ``train()`` of 20 steps
+    straight against 10 steps, a stop, and a relaunch from the checkpoint
+    that resumes to 20 (the JAX test's 1e-5 / 1e-6 on every parameter and
+    loss; the largest difference printed)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    r = TRAIN_RESUME
+    cfg = get_config(r["arch"], smoke=True)
+    kw = dict(steps=r["steps"], batch=r["batch"], seq=r["seq"],
+              ckpt_every=100, log_every=0, seed=r["seed"], device=DEVICE)
+    torch.use_deterministic_algorithms(True)
+    with tempfile.TemporaryDirectory() as d:
+        full = train(cfg, ckpt_dir=f"{d}/straight", **kw)
+        first = train(cfg, ckpt_dir=f"{d}/resumed",
+                      stop_after=r["stop_after"], **kw)
+        second = train(cfg, ckpt_dir=f"{d}/resumed", **kw)
+    torch.use_deterministic_algorithms(False)
+    check(len(first["losses"]) == r["stop_after"]
+          and len(second["losses"]) == r["steps"] - r["stop_after"]
+          and int(second["opt"]["step"]) == r["steps"],
+          "resume: the relaunch did not take the remaining steps")
+    loss_err = float(np.abs(np.asarray(second["losses"]) - np.asarray(
+        full["losses"][r["stop_after"]:])).max())
+    check(np.allclose(second["losses"], full["losses"][r["stop_after"]:],
+                      rtol=1e-5, atol=1e-6), "resume: losses differ")
+    err_max = 0.0
+    want = dict(full["params"].named_parameters())
+    for name, p in second["params"].named_parameters():
+        a, b = p.detach(), want[name].detach()
+        err_max = max(err_max, (a - b).abs().max().item())
+        check(bool(torch.isclose(a, b, rtol=1e-5, atol=1e-6).all()),
+              f"resume: {name} differs from the straight run's")
+    log(f"  resume ({cfg.name}, {r['steps']} steps, stopped at "
+        f"{r['stop_after']}, deterministic algorithms): max |resumed - "
+        f"straight| {err_max:.3e} on the parameters, {loss_err:.3e} on the "
+        "losses")
+    return {"param_max_abs_err": err_max, "loss_max_abs_err": loss_err}
+
+
+def count_syncs(fn):
+    """``fn()`` with the card's synchronising calls counted
+    (``torch.cuda.set_sync_debug_mode``): (result, count, count by source
+    line)."""
+    import warnings
+    where = {}
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            key = f"{Path(filename).name}:{lineno}"
+            where[key] = where.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(where.values()), dict(sorted(
+        where.items(), key=lambda kv: -kv[1])[:8])
+
+
+MATMUL_KERNELS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+
+
+def kernel_kinds(by_kernel_ms: dict) -> dict:
+    """Device ms by kind of kernel: matmuls, reductions and the rest
+    (elementwise: casts, AdamW's chains, activations; copies)."""
+    kinds = {"matmul": 0.0, "reduce": 0.0, "elementwise": 0.0, "copy": 0.0}
+    for name, ms in by_kernel_ms.items():
+        low = name.lower()
+        kind = ("matmul" if any(k in low for k in MATMUL_KERNELS) else
+                "copy" if low.startswith(("memcpy", "memset")) else
+                "reduce" if "reduce" in low or "softmax" in low else
+                "elementwise")
+        kinds[kind] += ms
+    return {k: round(v, 3) for k, v in kinds.items()}
+
+
+def train_profile(model, opt_state, cfg) -> dict:
+    """Three more steps of the published run, each on the batch after the
+    run's: one with its host synchronisations counted, one in a
+    ``torch.profiler`` window (busy against wall, idle share, top device
+    ops, device time by kind), and one split by synchronisations into
+    forward, backward and optimizer (what ``lm.make_train_step`` does, in
+    three ``record_function`` ranges), each range's device time summed
+    from the kernels inside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, record_function
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW, cosine_schedule
+    t = TRAIN
+    opt = AdamW(lr=cosine_schedule(t["lr"], max(t["steps"] // 20, 1),
+                                   t["steps"]))
+    step_fn = lm.make_train_step(cfg, opt)
+    source = SyntheticLM(cfg, t["batch"], t["seq"], seed=t["seed"])
+    state = {"opt": opt_state}
+
+    def one_step(step):
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in source(step).items()}
+        t0 = time.perf_counter()
+        _, state["opt"], m = step_fn(model, state["opt"], batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, loss, gnorm
+
+    (sync_ms, _, _), n_syncs, sync_lines = count_syncs(
+        lambda: one_step(t["steps"]))
+    log(f"  host synchronisations in one step (the batch's copy, the "
+        f"step, reading its loss and gradient norm): {n_syncs}, by source "
+        f"line: {sync_lines}")
+    events, wall_ms, _, _, lost = profiled(
+        lambda: one_step(t["steps"] + 1)[0], "published training step")
+    summary = device_summary(events, wall_ms, "published training step",
+                             top_n=12, lost=lost)
+    kinds = kernel_kinds(_by_name_ms(events))
+    log(f"  device ms by kind: {kinds}")
+
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in source(t["steps"] + 2).items()}
+    named = dict(model.named_parameters())
+    phases = ("forward", "backward", "optimizer")
+    with profile(activities=PROFILED) as prof:
+        time.sleep(PROFILE_PREROLL_S)
+        t0 = time.perf_counter()
+        with record_function("smoke.train.forward"):
+            total, _ = lm.loss_fn(model, batch, cfg)
+            torch.cuda.synchronize()
+        with record_function("smoke.train.backward"):
+            total.backward()
+            torch.cuda.synchronize()
+        grads = {n: p.grad for n, p in named.items()}
+        for p in named.values():
+            p.grad = None
+        with record_function("smoke.train.optimizer"):
+            state["opt"] = opt.apply(named, grads, state["opt"])
+            torch.cuda.synchronize()
+        split_wall = (time.perf_counter() - t0) * 1e3
+    del grads, total
+    # the ranges' own device-side annotations are not kernels
+    split_events = [e for e in device_events(prof)
+                    if not e[0].startswith("smoke.")]
+    ranges = {e.name.removeprefix("smoke.train."): e.time_range
+              for e in prof.events() if e.device_type == DeviceType.CPU
+              and e.name.startswith("smoke.train.")}
+    check(sorted(ranges) == sorted(phases), f"the split step's ranges: "
+          f"{sorted(ranges)}")
+    by_phase = {}
+    for ph in phases:
+        lo, hi = ranges[ph].start, ranges[ph].end
+        inside = [(n, s0, s1) for n, s0, s1 in split_events
+                  if lo <= s0 and s1 <= hi]
+        busy = sum(s1 - s0 for _, s0, s1 in inside) / 1e3
+        by_phase[ph] = {"host_ms": (hi - lo) / 1e3, "device_ms": busy,
+                        "kernels": len(inside),
+                        "by_kind_ms": kernel_kinds(_by_name_ms(inside))}
+    outside = len(split_events) - sum(v["kernels"] for v in
+                                      by_phase.values())
+    log(f"  one step split by synchronisations (wall {split_wall:.1f} ms): "
+        + "; ".join(f"{ph} device {v['device_ms']:.1f} ms in "
+                    f"{v['kernels']} kernels (host range "
+                    f"{v['host_ms']:.1f} ms), {v['by_kind_ms']}"
+                    for ph, v in by_phase.items())
+        + f"; {outside} kernels outside the three ranges")
+    summary.update(by_kind_ms=kinds, host_syncs=n_syncs,
+                   syncs_by_line=sync_lines, split_wall_ms=split_wall,
+                   by_phase=by_phase, kernels_outside_phases=outside)
+    return summary
+
+
+def _by_name_ms(events) -> dict:
+    out = {}
+    for name, s0, s1 in events:
+        out[name] = out.get(name, 0.0) + (s1 - s0) / 1e3
+    return out
+
+
+def train_published() -> dict:
+    """Qwen2.5-3B at its published width and depth through ``train()``:
+    8 steps of 4 x 512 tokens of ``SyntheticLM(seed=0)``, bf16 compute over
+    float32 parameters and AdamW state, remat on; no checkpoint (49 GB to
+    disk)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    t = TRAIN
+    cfg = get_config(t["arch"])
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.qkv_bias,
+           cfg.tie_embeddings, cfg.compute_dtype, cfg.remat)
+          == (36, 2048, 16, 2, 128, 11008, 151936, True, True, "bfloat16",
+              True), f"{cfg.name} is not the published configuration")
+    n_model = cfg.param_count()
+    tokens = t["batch"] * t["seq"]
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train(cfg, steps=t["steps"], batch=t["batch"], seq=t["seq"],
+                  lr=t["lr"], seed=t["seed"], ckpt_dir=None, device=DEVICE,
+                  log_every=1)
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model, opt_state = state["params"], state["opt"]
+    n_params = sum(p.numel() for p in model.parameters())
+    # param_count() leaves out the norm scales (two a layer and the
+    # final norm's) and the QKV biases
+    extra = (2 * cfg.n_layers + 1) * cfg.d_model + cfg.n_layers * (
+        (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim)
+    check(n_params == n_model + extra, f"parameter count {n_params} "
+          f"differs from the config's {n_model} + {extra}")
+    check(not any(counts.values()),
+          f"training launched a sparse kernel: {counts}")
+    losses, gnorms = np.asarray(state["losses"]), np.asarray(
+        state["grad_norms"])
+    check(len(losses) == t["steps"] and np.isfinite(losses).all()
+          and np.isfinite(gnorms).all(),
+          f"non-finite loss or gradient norm: {losses}, {gnorms}")
+    first3, last3 = losses[:3].mean(), losses[-3:].mean()
+    check(last3 < first3, f"the loss did not decrease: {losses}")
+    step_ms = [1e3 * s for s in state["step_s"]]
+    warm_ms = statistics.median(step_ms[1:])
+    flops = 6 * n_model * tokens
+    _, peak_ops = peaks()
+    share = flops / (warm_ms / 1e3) / peak_ops[torch.bfloat16]
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters ({n_model} by param_count); "
+        f"{t['steps']} steps of {t['batch']} x {t['seq']} tokens in "
+        f"{run_s:.1f} s (initialisation included)")
+    log(f"  losses {[round(float(x), 4) for x in losses]} (first "
+        f"{losses[0]:.4f} "
+        f"against ~12.4 predicted: ln {cfg.vocab_size} = "
+        f"{np.log(cfg.vocab_size):.2f} plus ~0.5); mean of the first 3 "
+        f"{first3:.4f} -> last 3 {last3:.4f}")
+    log(f"  gradient norms {[round(float(x), 4) for x in gnorms]}")
+    log(f"  step wall ms (synchronised): {[round(x, 1) for x in step_ms]}; "
+        f"median after the first {warm_ms:.1f} ms: "
+        f"{tokens / (warm_ms / 1e3):.0f} tokens/s, model flops 6 x "
+        f"{n_model} x {tokens} = {flops / 1e12:.1f} TFLOP a step, "
+        f"{100 * share:.1f} % of 989 TFLOP/s bf16")
+    log(f"  peak device memory {peak_gb:.2f} GB; launches {counts}")
+    prof = train_profile(model, opt_state, cfg)
+    del model, opt_state, state
+    free()
+    return {"losses": losses.tolist(), "grad_norms": gnorms.tolist(),
+            "step_ms": step_ms, "median_step_ms": warm_ms,
+            "tokens_per_s": tokens / (warm_ms / 1e3),
+            "model_flops_share": share, "peak_gb": peak_gb,
+            "n_params": n_params, "run_s": run_s, "profile": prof}
+
+
+def training_phase() -> dict:
+    """The gate at smoke size (card against CPU), resume on the card, and
+    the published run, with every launch count read around each."""
+    log("-- gate: train() on the card against the CPU (float32, TF32 off)")
+    gate = {arch: train_gate(arch) for arch in TRAIN_GATE["archs"]}
+    log("-- resume on the card")
+    resume = train_resume()
+    log("-- published run (Qwen2.5-3B, bf16 compute, remat)")
+    pub = train_published()
+    return {"gate": gate, "resume": resume, "published": pub}
+
+
 def record(name: str, source: str, replaces: str, launches: int,
            kres: dict, extra: dict) -> dict:
     """One entry of the ``{"kernels": [...]}`` line: float32 numbers at the
@@ -2570,6 +2968,10 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA card; none is available",
               file=sys.stderr)
         return 1
+    # a fixed cuBLAS workspace, which the training phase's resume check
+    # needs under deterministic algorithms (PyTorch's default size on
+    # Hopper), set before the first product creates the handle's
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR,
                                       DistDense, plan_matmul)
@@ -2743,6 +3145,9 @@ def main() -> int:
     log("== serving (OLMoE-1B-7B through ServeEngine(sparse=True), B1 and "
         "B2)")
     serve = serving_phase()
+    log("== training (train(): the smoke gate against the CPU, resume, "
+        "Qwen2.5-3B at its published size)")
+    training = training_phase()
 
     carry = sparse["carry"]
     b2 = record("bsr_pair_accumulate",
@@ -2791,6 +3196,7 @@ def main() -> int:
                                 "dense_tile": tile["peak_gb"]},
                     "serving": {k: serve[k] for k in ("gate",
                                                       "published")},
+                    "training": training,
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b1, b2, b3, *b1_serve, b2_serve]}))

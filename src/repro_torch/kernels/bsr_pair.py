@@ -272,6 +272,8 @@ def bsr_pair_accumulate_cuda(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     of one element, each launch adds to it the pairs its kernel multiplied,
     and to the host int ``.table_pairs`` its table's real pairs.
     """
+    loader.refuse_autograd("bsr_pair_accumulate_cuda", a_blocks, b_blocks,
+                           out)
     a_blocks, b_blocks = _same_type(a_blocks, b_blocks)
     t, bs = a_blocks.shape[0], a_blocks.shape[-1]
     accumulate = out is not None
@@ -298,6 +300,7 @@ def bsr_pair_matmul_cuda(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     ``.launches``, ``.pair_counter`` and ``.table_pairs`` as for
     :func:`bsr_pair_accumulate_cuda`.
     """
+    loader.refuse_autograd("bsr_pair_matmul_cuda", a_blocks, b_blocks)
     a_blocks, b_blocks = _same_type(a_blocks, b_blocks)
     t, bs = a_blocks.shape[0], a_blocks.shape[-1]
     if table.n_slots != n_block_rows * n_block_cols:

@@ -256,6 +256,7 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
     While ``.by_shape`` is a dict, each launch adds one at the key ``(m,
     k, n)`` of its product: an ``m x k`` A tile times a ``k x n`` B tile.
     """
+    loader.refuse_autograd("bsr_spmm_cuda", blocks, dense, out)
     counter = bsr_spmm_cuda.block_counter
     tensors = (blocks, dense, table.ent, table.chunks, table.reduce,
                table.fill, table.skip, table.skip_chunks) + tuple(

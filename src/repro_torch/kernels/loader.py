@@ -18,7 +18,9 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
-__all__ = ["build", "load", "nvcc_path", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["build", "load", "nvcc_path", "refuse_autograd", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
@@ -54,6 +56,19 @@ _SIGNATURES = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+def refuse_autograd(who: str, *tensors) -> None:
+    """Raise where a kernel's result would need a gradient.  The kernels
+    have no backward (nor do the reference's), and a launch on
+    ``data_ptr()`` cuts its output off from autograd, so while grad mode is
+    on no input (``None`` entries skipped) may require grad.  The wrappers
+    call this on the card and on the CPU path alike."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{who} has no backward: call it under torch.no_grad() or on "
+            "tensors that do not require grad")
 
 
 def nvcc_path() -> str:

@@ -23,6 +23,7 @@ from . import ref as _ref
 from .bsr_pair import (PairTable, _host, bsr_pair_accumulate_cuda,
                        bsr_pair_matmul_cuda, pair_table)
 from .bsr_spmm import SpmmTable, bsr_spmm_cuda, spmm_table
+from .loader import refuse_autograd
 
 __all__ = ["IMPLS", "default_impl", "bsr_spmm", "bsr_spmm_raw",
            "match_block_pairs", "build_pair_lists",
@@ -81,6 +82,7 @@ def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
     version multiplies every listed block; the kernel multiplies the real
     ones and writes those NaNs from the entries its table left out.
     """
+    refuse_autograd("bsr_spmm", blocks, dense, out)
     impl = _resolve(impl, dense)
     single = blocks.dim() == 3
     if single:
@@ -233,6 +235,7 @@ def bsr_pair_matmul(a_blocks, b_blocks, pair_a, pair_b, pair_rows, pair_cols,
     ``pair_rows * n_block_cols + pair_cols``, built here when not given,
     with the pairs on the appended zero slots of both operands inert.
     """
+    refuse_autograd("bsr_pair_matmul", a_blocks, b_blocks)
     impl = _resolve(impl, a_blocks)
     single = a_blocks.dim() == 3
     lists = [_pairs(x, a_blocks) for x in (pair_a, pair_b, pair_rows,
@@ -287,6 +290,7 @@ def bsr_pair_accumulate(a_blocks, b_blocks, pair_a, pair_b, pair_slot, *,
     accumulate leaves the slots no real pair visits untouched); built here
     without a mask, every pair counts as real.
     """
+    refuse_autograd("bsr_pair_accumulate", a_blocks, b_blocks, acc)
     impl = _resolve(impl, a_blocks)
     pair_a, pair_b, pair_slot = (_pairs(x, a_blocks)
                                  for x in (pair_a, pair_b, pair_slot))
@@ -335,6 +339,7 @@ def steal_pair_accumulate(a_pool, b_rows, pair_a, pair_b, pair_slot, *,
     :func:`bsr_spmm_raw`'s); built here without a mask, every pair counts
     as real.
     """
+    refuse_autograd("bsr_spmm (steal3d pair lists)", a_pool, b_rows, out)
     impl = _resolve(impl, b_rows)
     single = pair_a.dim() == 1
     if single:

@@ -16,10 +16,12 @@ __all__ = ["Params", "dense_init", "rms_norm", "layer_norm", "rope",
 
 
 class Params(nn.Module):
-    """A module holding named tensors as frozen parameters (no gradients:
-    the port serves, it does not train yet).  ``name in p`` tells whether
-    a parameter or child module of that name is present, as ``"bq" in p``
-    does on the reference's parameter dicts."""
+    """A module holding named tensors as parameters, frozen when built
+    (``requires_grad=False``), so serving and inference build no autograd
+    graph; the train step (``repro_torch.models.lm.make_train_step``) makes
+    them trainable with ``requires_grad_(True)``.  ``name in p`` tells
+    whether a parameter or child module of that name is present, as
+    ``"bq" in p`` does on the reference's parameter dicts."""
 
     def __init__(self, **tensors: Optional[torch.Tensor]):
         super().__init__()

@@ -8,21 +8,24 @@ values.  The reference stacks each layer group's units along a leading
 ``[n_units, ...]`` axis (``params["groups"]``, grouped by
 :func:`~repro_torch.models.transformer.layer_plan`); here they are
 unstacked into one :class:`~repro_torch.models.transformer.Block` per
-layer, in ``cfg.pattern`` order.  Nothing of JAX is imported: the tree is
-plain dicts, lists and arrays.
+layer, in ``cfg.pattern`` order.  ``opt_state_from_jax`` carries the
+reference's AdamW state across the same way, into the port's state keyed
+by parameter name.  Nothing of JAX is imported: the tree is plain dicts,
+lists and arrays.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Mapping
 
 import numpy as np
+import torch
 
 from ..runtime.device import as_tensor, resolve_device
 from .common import Params
 from .config import ModelConfig
 from .transformer import Block, Transformer, check_supported, layer_plan
 
-__all__ = ["params_from_jax", "unstack_layers"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "unstack_layers"]
 
 
 def unstack_layers(cfg: ModelConfig, groups: List) -> List[Dict]:
@@ -67,3 +70,25 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
     return Transformer(cfg, as_tensor(np.asarray(tree["embed"]), dev),
                        as_tensor(np.asarray(tree["final_norm"]), dev),
                        layers, lm_head=lm_head)
+
+
+def _by_name(tree: Mapping, cfg: ModelConfig, device) -> Dict:
+    """A parameter-shaped JAX tree as tensors keyed by the port's parameter
+    names (``named_parameters()``), dtypes kept."""
+    return {n: p.detach() for n, p in
+            params_from_jax(tree, cfg, device).named_parameters()}
+
+
+def opt_state_from_jax(state: Mapping, cfg: ModelConfig,
+                       device=None) -> Dict:
+    """The reference's AdamW state ``{"step", "mu", "nu", "gnorm"}`` (numpy
+    leaves) as the port's (``repro_torch.optim.AdamW``) on ``device`` (the
+    card by default): ``mu`` and ``nu`` unstacked and keyed by parameter
+    name, ``nu`` in its own dtype."""
+    dev = resolve_device(device)
+    return {"step": as_tensor(np.asarray(state["step"]), dev,
+                              dtype=torch.int32),
+            "mu": _by_name(state["mu"], cfg, dev),
+            "nu": _by_name(state["nu"], cfg, dev),
+            "gnorm": as_tensor(np.asarray(state["gnorm"]), dev,
+                               dtype=torch.float32)}

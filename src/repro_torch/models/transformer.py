@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..runtime.device import resolve_device
 from . import attention as attn_mod
@@ -255,22 +256,36 @@ def forward_unscanned(params: Transformer, batch: Dict, cfg: ModelConfig,
     """Full-sequence forward, one layer at a time; ``moe_fn`` / ``attn_fn``
     may do host-side work per layer (the serving engine builds its sparse
     operators there).  ``batch["tokens"]``: int [B, T].  Returns (logits
-    [B, T, V] float32, new_caches, aux)."""
-    with torch.no_grad():
-        x = _embed_tokens(params, batch["tokens"], cfg)
-        t = x.shape[1]
-        if positions is None:
-            positions = torch.arange(t, dtype=torch.int32, device=x.device)
-        layers_c = caches if caches is not None else [None] * cfg.n_layers
-        aux_sum = _zero_aux(x.device)
-        new_caches = []
-        for blk, c_l, kind in zip(params.layers, layers_c, cfg.pattern):
+    [B, T, V] float32, new_caches, aux).
+
+    Follows the caller's grad mode.  With gradients on and ``cfg.remat``,
+    each layer without a cache is recomputed in the backward pass instead
+    of keeping its activations (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint(..., nothing_saveable)`` around each
+    layer unit): the recomputation's outputs are dropped, so ``dropped``
+    and the aux losses count once, and a layer with a cache is never
+    recomputed (its cache write happens once)."""
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    t = x.shape[1]
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int32, device=x.device)
+    layers_c = caches if caches is not None else [None] * cfg.n_layers
+    aux_sum = _zero_aux(x.device)
+    new_caches = []
+    remat = cfg.remat and torch.is_grad_enabled()
+    for blk, c_l, kind in zip(params.layers, layers_c, cfg.pattern):
+        if remat and c_l is None:
+            x, nc, aux = checkpoint(
+                _apply_layer, blk, x, kind, cfg, positions, c_l,
+                moe_fn=moe_fn, attn_fn=attn_fn, use_reentrant=False,
+                preserve_rng_state=False)      # the layers draw nothing
+        else:
             x, nc, aux = _apply_layer(blk, x, kind, cfg, positions, c_l,
                                       moe_fn=moe_fn, attn_fn=attn_fn)
-            new_caches.append(nc)
-            aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
-        return (_head_logits(params, x, cfg),
-                new_caches if caches is not None else None, aux_sum)
+        new_caches.append(nc)
+        aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
+    return (_head_logits(params, x, cfg),
+            new_caches if caches is not None else None, aux_sum)
 
 
 def forward(params: Transformer, batch: Dict, cfg: ModelConfig,
@@ -283,9 +298,9 @@ def forward(params: Transformer, batch: Dict, cfg: ModelConfig,
 def decode_step_unscanned(params: Transformer, token: torch.Tensor,
                           caches: List[Dict], pos, cfg: ModelConfig,
                           moe_fn: Optional[Callable] = None):
-    """One-token step.  token: int [B, 1]; pos: an int or an int [B] tensor
-    of per-request positions (continuous batching).  Returns (logits
-    [B, 1, V], new_caches, aux)."""
+    """One-token step, without gradients.  token: int [B, 1]; pos: an int
+    or an int [B] tensor of per-request positions (continuous batching).
+    Returns (logits [B, 1, V], new_caches, aux)."""
     with torch.no_grad():
         x = _embed_tokens(params, token, cfg)
         aux_sum = _zero_aux(x.device)

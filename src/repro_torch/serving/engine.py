@@ -21,6 +21,8 @@ counters that show plans reused across tenants.
 
 Parameters are float32 (``init_params``) and cast per use to the config's
 ``compute_dtype``; the cache is float32 by default, as in the reference.
+Prefill and decode run without gradients, whatever the parameters'
+``requires_grad``.
 Import :class:`ServeEngine` from ``repro_torch.serving``.
 """
 from __future__ import annotations
@@ -128,6 +130,7 @@ class ServeEngine:
             for key, val in r.items():
                 c[key][slot] = val[0].to(c[key].dtype)
 
+    @torch.no_grad()
     def _prefill(self, toks: torch.Tensor, lengths: torch.Tensor):
         cfg = self.cfg
         if not self.sparse:
@@ -183,6 +186,7 @@ class ServeEngine:
             del self.active[slot]
 
     # ---------------------------------------------------------------- decode
+    @torch.no_grad()
     def _decode_step(self) -> None:
         with _obs.span("serve.decode_step", batch=len(self.active)) as sp:
             self._decode_step_inner(sp)

@@ -751,3 +751,110 @@ def test_sparse_engine_on_the_card_gives_the_cpu_tokens(card):
                                       results["cpu"][rid])
     assert bsr_spmm_cuda.launches > b1
     assert bsr_pair_accumulate_cuda.launches == b2 + 3 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the training path: no kernel of its own, and none of B1-B3
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmoe-1b-7b"])
+def test_train_steps_on_the_card_match_the_cpu(card, arch):
+    """Three ``make_train_step`` steps on the card from the CPU's model and
+    state, float32 with TF32 off (olmoe at the published capacity factor,
+    so tokens drop): losses, gradient norms and dropped shares within
+    1e-5, the moments within 1e-5, the parameters within 1e-5 plus what
+    Adam may make of the two runs' gradient differences
+    (``AdamW.rounding_allowance``); no kernel of B1-B3 launches."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm, transformer as tf
+    from repro_torch.optim import AdamW, cosine_schedule
+    cfg = get_config(arch, smoke=True)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=1.25))
+    opt = AdamW(lr=cosine_schedule(3e-3, 1, 3))
+    cpu_model = tf.init_params(cfg, seed=0, device="cpu")
+    runs = {}
+    launches = (bsr_spmm_cuda.launches, bsr_pair_accumulate_cuda.launches,
+                bsr_pair_matmul_cuda.launches)
+    for dev in (card, torch.device("cpu")):
+        model = copy.deepcopy(cpu_model).to(dev)
+        state = opt.init(model)
+        step = lm.make_train_step(cfg, opt)
+        metrics, mus, nus = [], [], []
+        for t in range(3):
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                     SyntheticLM(cfg, 2, 16, seed=3)(t).items()}
+            model, state, m = step(model, state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            mus.append({n: v.cpu().numpy().copy()
+                        for n, v in state["mu"].items()})
+            nus.append({n: v.cpu().numpy().copy()
+                        for n, v in state["nu"].items()})
+        runs[dev.type] = (model, state, metrics, mus, nus)
+    assert (bsr_spmm_cuda.launches, bsr_pair_accumulate_cuda.launches,
+            bsr_pair_matmul_cuda.launches) == launches
+    (gm, gs, gmet, gmus, _), (wm, ws, wmet, wmus, wnus) = runs["cuda"], \
+        runs["cpu"]
+    for got, want in zip(gmet, wmet):
+        for k in ("loss", "grad_norm", "dropped", "aux"):
+            np.testing.assert_allclose(got[k], want[k], rtol=TOL, atol=TOL,
+                                       err_msg=k)
+    if cfg.moe is not None:
+        assert max(m["dropped"] for m in wmet) > 0
+    for name, p in wm.named_parameters():
+        for key in ("mu", "nu"):
+            np.testing.assert_allclose(gs[key][name].cpu().numpy(),
+                                       ws[key][name].numpy(), rtol=TOL,
+                                       atol=TOL, err_msg=f"{key}/{name}")
+        want = p.detach().numpy()
+        err = np.abs(dict(gm.named_parameters())[name].detach().cpu()
+                     .numpy() - want)
+        allowed = TOL + TOL * np.abs(want) + opt.rounding_allowance(
+            [x[name] for x in wnus], [x[name] for x in gmus],
+            [x[name] for x in wmus], TOL)
+        assert (err <= allowed).all(), (name, err.max())
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(card):
+    """B1-B3 have no backward: on the card too, a wrapper given an input
+    that requires grad raises while grad mode is on, before it launches;
+    under ``no_grad`` it launches."""
+    _, (blocks, rows, cols, dense), nbr = _b1_case(8, 24, torch.float32,
+                                                   "bucket", card)
+    n_tiles, s = blocks.shape[:2]
+    b1_table = spmm_table(
+        np.arange(n_tiles)[:, None] * s + np.arange(s), rows.cpu().numpy(),
+        cols.cpu().numpy(), nbr, device=card)
+    a, b, (pa, pb, ps), n_slots, real = _pair_case(8, torch.float32, card)
+    table = pair_table(ps, n_slots, real=real, device=card)
+    before = (bsr_spmm_cuda.launches, bsr_pair_accumulate_cuda.launches,
+              bsr_pair_matmul_cuda.launches)
+    blocks_g = blocks.detach().clone().requires_grad_(True)
+    a_g = a.detach().clone().requires_grad_(True)
+    calls = [
+        lambda x: bsr_spmm_cuda(x, dense, b1_table),
+        lambda x: ops.bsr_spmm_raw(x, rows, cols, dense, n_block_rows=nbr),
+        lambda x: bsr_pair_accumulate_cuda(a_g if x is None else x, b, pa,
+                                           pb, table),
+        lambda x: ops.bsr_pair_accumulate(a_g if x is None else x, b, pa, pb,
+                                          ps, n_slots=n_slots),
+    ]
+    for i, call in enumerate(calls):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(blocks_g if i < 2 else None)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bsr_pair_matmul_cuda(a_g, b, pa, pb, table, n_block_rows=1,
+                             n_block_cols=n_slots)
+    assert (bsr_spmm_cuda.launches, bsr_pair_accumulate_cuda.launches,
+            bsr_pair_matmul_cuda.launches) == before
+    with torch.no_grad():
+        got = bsr_spmm_cuda(blocks_g, dense, b1_table)
+        acc = bsr_pair_accumulate_cuda(a_g, b, pa, pb, table)
+    assert bsr_spmm_cuda.launches == before[0] + 1
+    assert bsr_pair_accumulate_cuda.launches == before[1] + 1
+    assert not got.requires_grad and not acc.requires_grad
