@@ -106,7 +106,26 @@ non-zero and prints no result line):
    against wall, top device ops), one step split by synchronisations
    into forward, backward and optimizer device time, and the host
    synchronisations of a step.  B1, B2 and B3 launch no time in training
-   (the JAX training path runs no Pallas kernel).
+   (the JAX training path runs no Pallas kernel);
+13. elastic replanning and the static verifier (``repro_torch.analysis``,
+   ``repro_torch.runtime.replan``) at the SpMM cell's full width:
+   ``validate="fast"`` on a fresh plan of each of the six schedules (g 2),
+   of steal3d at g 3 and of the scale-16 sparse-output A @ A, and
+   ``validate="full"`` (one multiply under the op-trace lint, B1 and B2
+   launched) on the six and the sparse one, each clean, with its host
+   time from its span; ``auto`` at g 2 on the H100 preset with a 100x
+   network, a traced multiply against the oracle, 8x straggler drift on
+   two series, ``should_replan()`` tripping and ``replan()`` evicting and
+   re-selecting (the choice before and after printed), the replanned
+   multiply against the oracle; steal3d at g 3, the seeded loss of 5 of 9
+   devices and ``recover_from_loss`` onto g 2 with no floating-point data
+   copied to the host, the recovered multiply against the oracle with
+   B1's blocks counted against the plan's real pairs, the recovery's
+   host time by span and the multiply's device time; the serving gate's
+   requests again through ``ServeEngine(sparse=True,
+   replanner=ElasticReplanner())`` with drift injected after the first
+   prefill: one drain-and-refit, the gate's tokens; and ``python -m
+   repro_torch.launch.selftest --check all --g 3`` as a subprocess.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The last two lines are the ``{"kernels": [...]}`` record and
@@ -212,6 +231,14 @@ TRAIN_GATE = dict(archs=("qwen2.5-3b", "olmoe-1b-7b"), steps=10, batch=4,
 TRAIN_RESUME = dict(arch="qwen2.5-3b", steps=20, stop_after=10, batch=2,
                     seq=16, seed=7)
 TRAIN = dict(arch="qwen2.5-3b", steps=8, batch=4, seq=512, lr=3e-4, seed=0)
+# elastic replanning and the static verifier at the SpMM cell: steal3d at
+# g 3 loses 5 of its 9 devices (seeded) and recovers onto g 2; straggler
+# drift of 8x on 4 records a series
+ELASTIC = dict(steal_g=3, devices=9, lost=5, seed=0, factor=8.0, records=4)
+# the schedules whose straggler drift the replan fits, beside the auto
+# plan's own: a bulk-synchronous and a ring series, whose (bytes, messages)
+# rows are not proportional
+FIT_SERIES = ("summa_bcast", "ring_a")
 
 
 def log(*parts) -> None:
@@ -692,40 +719,6 @@ def check_workspace(plan, bs: int, label: str) -> dict:
     return {"workspace_bytes": ws, "workspace_limit_bytes": limit}
 
 
-# ops that copy or move a tensor: none may read a main-path operand of a
-# dense-output SpMM (its placed or packed A, its placed B)
-COPY_OPS = ("roll", "index", "index_select", "gather", "take_along_dim")
-
-
-def copy_ops(fn, operands) -> tuple:
-    """``fn()`` under a dispatch mode that lists each op of ``COPY_OPS``
-    that reads the storage of one of the ``operands`` (so a copy of a
-    reshaped view counts, and an op on another tensor of the same shape,
-    such as the output's unskew, does not), and every ``roll`` on any
-    tensor: (operand copies, rolls)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_flatten
-    ptrs = {x.untyped_storage().data_ptr() for x in operands}
-    hits, rolls = [], []
-
-    class Spy(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            kwargs = kwargs or {}
-            name = func.overloadpacket.__name__
-            tensors = [x for x in tree_flatten((args, kwargs))[0]
-                       if isinstance(x, torch.Tensor)]
-            if name == "roll":
-                rolls.append(f"aten::roll{list(tensors[0].shape)}")
-            if name in COPY_OPS:
-                hits.extend(f"aten::{name}{list(x.shape)}" for x in tensors
-                            if x.untyped_storage().data_ptr() in ptrs)
-            return func(*args, **kwargs)
-
-    with Spy():
-        fn()
-    return hits, rolls
-
-
 # B1's and B2's main kernels as the profiler names them, and the wrappers
 # whose launches each of them runs once (a launch with no chunk of work
 # runs none: no profiled window here has such a launch)
@@ -814,8 +807,9 @@ def device_breakdown(a_h, b_h, label: str, operands=(), **kw) -> dict:
     the multiply's wall time: where the time goes, and the share of the
     wall time in which no kernel or copy ran on the card.  ``kw`` goes to
     ``matmul``; one more multiply lists its rolls and, for the tensors in
-    ``operands`` (the placed stacks), the ops of ``COPY_OPS`` that read
-    them (:func:`copy_ops`)."""
+    ``operands`` (the placed stacks), the copy ops that read them
+    (``repro_torch.analysis.op_lint.copy_ops``)."""
+    from repro_torch.analysis.op_lint import copy_ops
     from repro_torch.core.api import matmul
     from repro_torch.obs import sync_elapsed
     out = matmul(a_h, b_h, **kw)
@@ -1447,7 +1441,7 @@ def sparse_path(device) -> dict:
                                  output="auto")
     breakdown["by_launch_ms"] = sparse_step_times(plan, a_h)
     peak = phase_peak("sparse-output path")
-    return {"kernel": kres, "carry": carry_res,
+    return {"kernel": kres, "carry": carry_res, "a_h": a_h,
             "launches": counts["bsr_pair_accumulate"] + sum(
                 v["launches"] for v in summa.values()),
             "pairs_multiplied": multiplied, "e2e_ms": med, "summa": summa,
@@ -2207,6 +2201,7 @@ def serve_gate(model, cfg32, prompts) -> dict:
     check(misses["decode_after_first"] == 0,
           "a decode step after the first built a plan")
     return {"dense_s": dense_s, "traced_run_s": run_s, "match": match,
+            "tokens": {rid: results[rid].tolist() for rid in results},
             "launches": counts, **tallies, "want_pairs": want_pairs,
             "misses": misses, "buckets": buckets,
             "dense_first_logits": [d[1][0] for d in dense],
@@ -2913,6 +2908,348 @@ def training_phase() -> dict:
     return {"gate": gate, "resume": resume, "published": pub}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: elastic replanning and the static verifier
+# ---------------------------------------------------------------------------
+def us(scores: dict) -> dict:
+    """Seconds by schedule as microseconds, 4 significant digits."""
+    return {k: float(f"{v * 1e6:.4g}") for k, v in scores.items()}
+
+
+def span_ms(events, name: str) -> list:
+    """Host milliseconds of each span ``name``, in the order they ran."""
+    return [e["dur"] / 1e3 for e in sorted(events, key=lambda e: e["ts"])
+            if e["name"] == name]
+
+
+def elastic_validation(el: dict) -> dict:
+    """``validate="fast"`` on a fresh plan of each schedule at the SpMM cell
+    (g 2), of steal3d at g 3 and of the scale-16 sparse-output A @ A;
+    ``validate="full"`` (one multiply under the op-trace lint, kernels
+    launched) on the six schedules' plans and the sparse one.  Every plan
+    proves clean (a finding raises); each validation's host time comes
+    from its ``plan_build.validate`` span."""
+    from repro_torch import obs
+    from repro_torch.core import api
+    cases = [(alg, el["a32"], el["b32"], dict(algorithm=alg))
+             for alg in api.algorithms()]
+    cases += [(f"steal3d g={ELASTIC['steal_g']}", el["a3"], el["b3"],
+               dict(algorithm="steal3d")),
+              ("sparse A @ A", el["sparse"], el["sparse"],
+               dict(output="auto"))]
+    obs.enable(clear=True)
+    try:
+        plans = {label: api.plan_matmul(a, b, cache=False, validate="fast",
+                                        **kw)
+                 for label, a, b, kw in cases}
+        fast = span_ms(obs.events(), "plan_build.validate")
+        obs.clear_trace()
+        full_cases = [c for c in cases if not c[0].startswith("steal3d g")]
+        for label, a, b, _ in full_cases:
+            plans[label].validate("full", a, b)
+            torch.cuda.synchronize()
+        full = span_ms(obs.events(), "plan_build.validate")
+    finally:
+        obs.disable()
+    check(plans["sparse A @ A"].output == "sparse",
+          "the scale-16 A @ A did not resolve to a sparse output")
+    check(len(fast) == len(cases) and len(full) == len(full_cases)
+          and all({"fast", "full"} <= plans[c[0]]._validated
+                  for c in full_cases),
+          "a validation did not run or did not pass")
+    res = {"fast_ms": dict(zip([c[0] for c in cases], fast)),
+           "full_ms": dict(zip([c[0] for c in full_cases], full))}
+    for label, ms in res["fast_ms"].items():
+        full_ms = res["full_ms"].get(label)
+        log(f"  validate fast {label} ({plans[label].algorithm.name}, wire "
+            f"{plans[label].wire}): clean in {ms:.1f} ms of host time"
+            + ("" if full_ms is None else f"; full: {full_ms:.1f} ms (one "
+               "multiply under the op-trace lint)"))
+    return res
+
+
+def elastic_replan(el: dict) -> dict:
+    """The elastic selftest's drift check at the SpMM cell: ``auto`` at g 2
+    on the fast-net H100 machine, one traced multiply against the oracle,
+    8x straggler drift injected on the auto plan's series and on
+    ``FIT_SERIES``, ``should_replan()`` trips, ``replan()`` refits and
+    evicts, and the replanned multiply meets the oracle.  The fit reads
+    the injected records only (the traced multiply's own record, one
+    card's seconds against g x g modelled H100s, is printed and dropped
+    first), and its rows must have rank 2, so that both unknowns are
+    determined (steal3d's records carry a structure-dependent cost and are
+    not fitted; summa_ag's row is half of summa_bcast's, so the two alone
+    give rank 1).  Its ``net_bw`` and ``hop_latency`` describe those
+    records, not the H100."""
+    from repro_torch import obs
+    from repro_torch.core import api
+    from repro_torch.core.roofline import H100_SXM
+    from repro_torch.launch.selftest import fast_net_machine
+    from repro_torch.runtime.faultinject import record_straggler_drift
+    from repro_torch.runtime.replan import ElasticReplanner, ReplanConfig
+    a32, b32 = el["a32"], el["b32"]
+    base = fast_net_machine()
+    preset = dataclasses.astuple(H100_SXM)
+    obs.reset_all()
+    obs.enable(clear=True)
+    api.set_drift_machine(base)
+    try:
+        p0 = api.plan_matmul(a32, b32, algorithm="auto", machine=base)
+        # a cached plan keeps the scores of the auto_select that first
+        # built it; the scores printed here are this machine's
+        choice0, scores0 = api.auto_select(a32, b32, machine=base)
+        check(choice0 == p0.algorithm.name,
+              f"auto planned {p0.algorithm.name}, auto_select says {choice0}")
+        out = p0(a32, b32)
+        err, share, ok = compare(out, el["oracle"], el["scale"], TOL_F32_DEEP)
+        del out
+        (real,) = obs.drift_records()
+        log(f"  auto on {base.name}: {p0.algorithm.name} (scores in us "
+            f"{us(scores0)}); traced multiply max_abs_err {err:.3e}, {share:.3g} of its "
+            f"allowance; its drift record: predicted "
+            f"{real['predicted_s'] * 1e3:.4f} ms for {a32.g ** 2} modelled "
+            f"cards, measured {real['measured_s'] * 1e3:.3f} ms on this one")
+        check(ok, f"the auto plan ({p0.algorithm.name}) disagrees with the "
+              "oracle")
+        obs.reset_drift()
+        plans = [p0] + [api.plan_matmul(a32, b32, algorithm=alg)
+                        for alg in FIT_SERIES if alg != p0.algorithm.name]
+        for plan in plans:
+            record_straggler_drift(plan, factor=ELASTIC["factor"],
+                                   n=ELASTIC["records"], machine=base)
+        rp = ElasticReplanner(machine=base,
+                              config=ReplanConfig(drift_ratio=2.0))
+        trips = rp.should_replan()
+        log(f"  trips: {trips}")
+        check(bool(trips), "8x straggler drift did not trip the replanner")
+        t0 = time.perf_counter()
+        res = rp.replan(a32, b32, trips=trips)
+        replan_s = time.perf_counter() - t0
+        choice1, scores1 = api.auto_select(a32, b32, machine=res.machine)
+        check(choice1 == res.algorithm == res.plan.algorithm.name,
+              f"the replan chose {res.algorithm} and built "
+              f"{res.plan.algorithm.name}; auto_select says {choice1}")
+        out = res.plan(a32, b32)
+        err2, share2, ok2 = compare(out, el["oracle"], el["scale"],
+                                    TOL_F32_DEEP)
+        del out
+        events = obs.events()
+    finally:
+        api.set_drift_machine(None)
+        obs.disable()
+    m = res.machine
+    log(f"  replan: {p0.algorithm.name} -> {res.algorithm} (scores in us "
+        f"{us(scores1)}), evicted {res.evicted} plans, {replan_s * 1e3:.1f} ms of host "
+        f"time (refit {span_ms(events, 'replan.refit')[0]:.1f} ms); the fit "
+        f"of the injected records (a model of the stacked executor's "
+        f"straggler, not of the H100): net_bw {m.net_bw:.4e} B/s, "
+        f"hop_latency {m.hop_latency:.4e} s over {res.fit_diag['n_used']} "
+        f"of {res.fit_diag['n_records']} records (series "
+        f"{[p.algorithm.name for p in plans]}, rank "
+        f"{res.fit_diag['rank']}); replanned multiply max_abs_err "
+        f"{err2:.3e}, {share2:.3g} of its allowance")
+    check(res.fit_diag["rank"] == 2,
+          f"the fit's rows have rank {res.fit_diag['rank']}: the injected "
+          "series do not determine net_bw and hop_latency")
+    check(res.evicted > 0, "the replan evicted no plan")
+    check(ok2, f"the replanned plan ({res.algorithm}) disagrees with the "
+          "oracle")
+    check(dataclasses.astuple(H100_SXM) == preset,
+          "the fit was written into the H100 preset")
+    return {"before": p0.algorithm.name, "after": res.algorithm,
+            "scores_before_ms": {k: v * 1e3 for k, v in scores0.items()},
+            "scores_after_ms": {k: v * 1e3 for k, v in scores1.items()},
+            "evicted": res.evicted, "replan_host_ms": replan_s * 1e3,
+            "fit": res.fit_diag, "max_abs_err": err2}
+
+
+def elastic_recovery(el: dict) -> dict:
+    """steal3d at g 3 (``validate="fast"``), against the oracle; the seeded
+    loss of 5 of its 9 devices; ``recover_from_loss`` onto g 2, with no
+    floating-point data copied to the host; the recovered multiply against
+    the oracle, B1's launches and the blocks it multiplied (counted on the
+    card) against the recovered plan's real pairs; the recovery's host
+    time by span and the recovered multiply's device time."""
+    from repro_torch import obs
+    from repro_torch.analysis.op_lint import host_transfers
+    from repro_torch.core import api
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
+    from repro_torch.runtime.faultinject import DeviceLoss
+    from repro_torch.runtime.replan import ElasticReplanner
+    a3, b3 = el["a3"], el["b3"]
+    p3 = api.plan_matmul(a3, b3, algorithm="steal3d", validate="fast")
+    out = p3(a3, b3)
+    err, share, ok = compare(out, el["oracle"], el["scale"], TOL_F32_DEEP)
+    del out
+    check(ok, "steal3d at g 3 disagrees with the oracle")
+    loss = DeviceLoss(ELASTIC["devices"], ELASTIC["lost"],
+                      seed=ELASTIC["seed"])
+    obs.reset_all()
+    obs.enable(clear=True)
+    try:
+        rec, to_host = host_transfers(lambda: ElasticReplanner()
+                                      .recover_from_loss(a3, b3,
+                                                         loss.survivors()))
+        torch.cuda.synchronize()
+        events = obs.events()
+    finally:
+        obs.disable()
+    spans = {name: sum(span_ms(events, name)) for name in (
+        "replan.recover", "replan.evict", "replan.reshard", "replan.lpt",
+        "replan.coverage", "plan_build", "plan_build.validate")}
+    log(f"  loss of {loss.lost()}: survivors {loss.survivors()} -> g "
+        f"{rec.g}, evicted {rec.evicted}; moved items "
+        f"{rec.assignment.n_moved}; host ms by span "
+        f"{ {k: round(v, 1) for k, v in spans.items()} }; floating-point "
+        f"copies to the host: {to_host or 'none'}")
+    check(rec.g == 2 and rec.evicted > 0, "recovery did not shrink to g 2")
+    check(not to_host, f"recovery copied data to the host: {to_host}")
+    before = bsr_spmm_cuda.launches
+    out, multiplied = counted_blocks(lambda: rec.plan(rec.a, rec.b))
+    launches = bsr_spmm_cuda.launches - before
+    err2, share2, ok2 = compare(out, el["oracle"], el["scale"], TOL_F32_DEEP)
+    del out
+    real = rec.plan._steal.real_pairs
+    want = rec.g * int(rec.a.counts.sum())
+    log(f"  recovered multiply: B1 {launches} launch(es), {multiplied} "
+        f"blocks multiplied (counted on the card), the plan's real pairs "
+        f"{real} (g x A's real blocks {want}); max_abs_err {err2:.3e}, "
+        f"{share2:.3g} of its allowance")
+    check(launches == len(rec.plan._steal.segments) and multiplied == real
+          == want, "the recovered multiply's B1 blocks differ from the "
+          "plan's real pairs")
+    check(ok2, "the recovered multiply disagrees with the oracle")
+    ms = time_ms(lambda: rec.plan(rec.a, rec.b), reps=3)
+    log(f"  recovered multiply: {ms:.2f} ms on the card (CUDA events, mean "
+        f"of 3)")
+    return {"survivors": loss.survivors(), "g": rec.g,
+            "evicted": rec.evicted, "host_ms": spans,
+            "recovered_ms": ms, "blocks_multiplied": multiplied,
+            "real_pairs": real, "max_abs_err": err2,
+            "preloss_max_abs_err": err}
+
+
+def elastic_serving(gate_tokens: dict) -> dict:
+    """A second float32 run of the serving gate's four OLMoE-1B-7B
+    requests through ``ServeEngine(sparse=True, replanner=
+    ElasticReplanner())``: 8x straggler drift on the engine's cached
+    plans after the first prefill; the engine drains and refits once, and
+    its tokens equal the gate's."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.faultinject import record_straggler_drift
+    from repro_torch.runtime.replan import ElasticReplanner
+    cfg16 = get_config(SERVE["arch"])
+    cfg32 = dataclasses.replace(cfg16, compute_dtype="float32")
+    model = tf.init_params(cfg16, seed=SERVE["seed"], device=DEVICE)
+    prompts = serve_prompts(cfg16)
+    api.clear_plan_cache()
+    obs.reset_all()
+    rp = ElasticReplanner()
+    eng = serve_engine(model, cfg32, prompts, replanner=rp)
+    admit, injected = eng._admit, []
+
+    def admit_then_drift(req):
+        admit(req)
+        if not injected:
+            plans = {p.algorithm.name: p for p in api._PLAN_CACHE.values()}
+            for plan in plans.values():
+                record_straggler_drift(plan, factor=ELASTIC["factor"],
+                                       n=ELASTIC["records"])
+            injected.extend(sorted(plans))
+
+    eng._admit = admit_then_drift
+    try:
+        t0 = time.perf_counter()
+        results = eng.run()
+        run_s = time.perf_counter() - t0
+    finally:
+        api.set_drift_machine(None)
+    snap = obs.registry().snapshot()
+    equal = {rid: results[rid].tolist() == gate_tokens[rid]
+             for rid in gate_tokens}
+    log(f"  drift injected on {injected} after the first prefill; replans "
+        f"{eng.replans} (serve.replan_s "
+        f"{snap.get('serve.replan_s', {}).get('mean', float('nan')):.3f} s), "
+        f"plans evicted {snap.get('replan.plans_evicted', 0)}; run "
+        f"{run_s:.1f} s; tokens equal to the gate's: {equal}")
+    check(eng.replans == 1 and snap.get("serve.replans") == 1
+          and snap.get("replan.refits") == 1,
+          f"the engine replanned {eng.replans} times")
+    check(all(equal.values()), "the replanned run's tokens differ from the "
+          "gate's")
+    del model, eng
+    free()
+    return {"replans": 1, "injected": injected, "run_s": run_s,
+            "evicted": snap.get("replan.plans_evicted", 0)}
+
+
+def selftest_subprocess() -> dict:
+    """``python -m repro_torch.launch.selftest --check all --g 3`` on the
+    card, as a subprocess whose exit code is checked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.selftest", "--check",
+         "all", "--g", "3"], env=env, cwd=str(ROOT), capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    n_ok = sum(1 for ln in lines if "[ok]" in ln)
+    failed = [ln for ln in lines if "[FAIL]" in ln]
+    log(f"  selftest --check all --g 3: exit {proc.returncode} in "
+        f"{secs:.1f} s, {n_ok} checks ok, failed {failed or 'none'}; last "
+        f"line: {lines[-1] if lines else proc.stderr[-2000:]}")
+    check(proc.returncode == 0 and lines and lines[-1] == "SELFTEST PASSED",
+          f"the selftest failed: {proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    return {"exit": proc.returncode, "checks_ok": n_ok, "s": secs}
+
+
+def elastic_phase(sparse_h, gate_tokens: dict) -> dict:
+    """Phase 13 at the SpMM cell's full width, with every launch count
+    set to 0 before each part and read after it."""
+    from repro_torch.core.api import DistBSR, DistDense
+    a_np, a32, a16, b_np, b32, b16 = main_path_operands(DEVICE)
+    del a16, b16
+    a3 = DistBSR.from_dense(a_np, g=ELASTIC["steal_g"],
+                            block_size=SPMM["block_size"], device=DEVICE)
+    b3 = DistDense.for_rhs(b_np, a3)
+    a_dense = torch.from_numpy(a_np).to(DEVICE)
+    del a_np
+    b_t = torch.from_numpy(b_np).to(DEVICE)
+    el = {"a32": a32, "b32": b32, "a3": a3, "b3": b3, "sparse": sparse_h,
+          "oracle": a_dense @ b_t, "scale": a_dense.abs() @ b_t.abs()}
+    del a_dense, b_t
+    res, launches = {}, {}
+    for part, fn in (("validation", elastic_validation),
+                     ("replan", elastic_replan),
+                     ("recovery", elastic_recovery)):
+        log(f"-- {part}")
+        reset_counts()
+        res[part] = fn(el)
+        launches[part] = read_counts()
+        log(f"  launches: {launches[part]}")
+    del el
+    free()
+    log("-- serving with the real replanner (float32, OLMoE-1B-7B)")
+    reset_counts()
+    res["serving"] = elastic_serving(gate_tokens)
+    launches["serving"] = read_counts()
+    log(f"  launches: {launches['serving']}")
+    for part in ("validation", "replan", "recovery", "serving"):
+        check(launches[part]["bsr_spmm"] > 0,
+              f"phase 13's {part} launched no B1")
+    check(launches["validation"]["bsr_pair_accumulate"] > 0
+          and launches["serving"]["bsr_pair_accumulate"] > 0,
+          "phase 13 launched no B2")
+    log("-- the selftest entry point")
+    res["selftest"] = selftest_subprocess()
+    res["launches"] = launches
+    return res
+
+
 def record(name: str, source: str, replaces: str, launches: int,
            kres: dict, extra: dict) -> dict:
     """One entry of the ``{"kernels": [...]}`` line: float32 numbers at the
@@ -3148,12 +3485,27 @@ def main() -> int:
     log("== training (train(): the smoke gate against the CPU, resume, "
         "Qwen2.5-3B at its published size)")
     training = training_phase()
+    log("== elastic replanning and the static verifier (SpMM cell, "
+        "OLMoE-1B-7B serving, the selftest)")
+    t13 = time.perf_counter()
+    elastic = elastic_phase(sparse.pop("a_h"), serve["gate"]["tokens"])
+    elastic["s"] = time.perf_counter() - t13
+    elastic_peak = phase_peak("elastic replanning")
 
+    # phase 13's launches outside serving run at the SpMM cell's and the
+    # sparse path's shapes
+    el13 = {k: sum(elastic["launches"][p][k] for p in (
+        "validation", "replan", "recovery")) for k in ("bsr_spmm",
+                                                       "bsr_pair_accumulate")}
+    b1[0]["launches"] += el13["bsr_spmm"]
+    b1[0]["elastic_launches"] = el13["bsr_spmm"]
     carry = sparse["carry"]
     b2 = record("bsr_pair_accumulate",
                 "src/repro_torch/kernels/csrc/bsr_pair.cu",
-                "src/repro/kernels/bsr_spmm.py:165", sparse["launches"],
+                "src/repro/kernels/bsr_spmm.py:165",
+                sparse["launches"] + el13["bsr_pair_accumulate"],
                 sparse["kernel"], {
+                    "elastic_launches": el13["bsr_pair_accumulate"],
                     **{k: sparse["kernel"][torch.float32][k] for k in (
                         "real_flops", "pair_flops", "bytes", "real_pairs",
                         "pairs", "pairs_multiplied", "workspace_bytes",
@@ -3193,10 +3545,12 @@ def main() -> int:
                                 "steal3d": steal_peak,
                                 "other_schedules": other_peak,
                                 "sparse_output": sparse["peak_gb"],
+                                "elastic": elastic_peak,
                                 "dense_tile": tile["peak_gb"]},
                     "serving": {k: serve[k] for k in ("gate",
                                                       "published")},
                     "training": training,
+                    "elastic": elastic,
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b1, b2, b3, *b1_serve, b2_serve]}))

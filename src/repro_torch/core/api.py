@@ -48,6 +48,10 @@ model's prediction on :func:`set_drift_machine`'s machine); with tracing
 off a multiply reads no clock and waits for nothing.  The plan caches
 report through the metrics registry (``plan_caches``).
 
+Static verification (``repro_torch.analysis``): ``plan_matmul(validate=
+"fast"|"full")`` and :meth:`MatmulPlan.validate` prove a plan's metadata
+(and, with ``"full"``, the ops of one multiply) before it is handed back.
+
 Also here: :func:`invalidate_plans` (keyed cache eviction),
 :func:`reshard` (re-tiling a handle onto another grid) and
 :func:`validate_mesh` (the stacked executor's grid check).
@@ -2313,6 +2317,9 @@ class MatmulPlan:
                 pair_a=None if wire_aux is None else wire_aux.get("pa"),
                 pair_b=None if wire_aux is None else wire_aux.get("pb"))
             real = sched.pop("real")
+            # host copy of the mask B2's tables are cut from (the verifier
+            # holds it to the device lists)
+            self._pair_real = real
             self._pairs = _steps_on_device(sched, geom.g, dev)
             if _runs_kernel(geom.impl, dev):
                 for t, step in enumerate(self._pairs):
@@ -2328,6 +2335,7 @@ class MatmulPlan:
             self._aux = _steps_on_device(wire_aux, geom.g, dev)
         self._tables = _LRUCache(SPMM_TABLE_CACHE_MAX)
         self._maps: Dict[bytes, torch.Tensor] = {}
+        self._validated: set = set()     # static-verifier modes passed
         self.traces = 1
         for hook in list(_TRACE_HOOKS):
             hook(self)
@@ -2368,6 +2376,44 @@ class MatmulPlan:
             raise ValueError(f"algorithm {self.algorithm.name!r} declares no "
                              "step_maps")
         return self.algorithm.step_maps(self.geom, self.executor)
+
+    def validate(self, mode: str = "fast", a=None, b=None) -> None:
+        """Statically verify this plan (``repro_torch.analysis``).
+
+        ``mode="fast"`` runs the host-side schedule checker over the
+        plan's metadata (ring permutations and the tile maps composed from
+        them, steal3d exactly-once + conservation, packed-wire consume-map
+        contracts, sparse pair lists, balance perms).  ``mode="full"``
+        additionally runs one multiply of ``a @ b`` under the op-trace lint
+        (no sort or scatter between the kernel launches of a kernel plan,
+        no copy of a placed operand, the executor's shifts equal to the
+        cost model's messages, the overlap body's shift order).  Raises
+        :class:`repro_torch.analysis.PlanValidationError` on any finding.
+
+        Results are memoized per plan and mode ("full" subsumes "fast"),
+        so validating a cached plan is a set lookup.
+        """
+        if mode == "off":
+            return
+        if mode not in ("fast", "full"):
+            raise ValueError(
+                f"unknown validate mode {mode!r} "
+                "(expected 'off', 'fast' or 'full')")
+        if mode in self._validated:
+            return
+        from .. import analysis as _analysis
+        with _obs.span("plan_build.validate", mode=mode,
+                       algorithm=self.algorithm.name):
+            # a plan proven "fast" is not checked again on the way to "full"
+            findings = [] if "fast" in self._validated \
+                else _analysis.check_plan(self, a, b)
+            if mode == "full" and not findings:
+                findings = _analysis.lint_plan(self, a, b)
+            if findings:
+                raise _analysis.PlanValidationError(findings)
+        self._validated.add(mode)
+        if mode == "full":
+            self._validated.add("fast")   # full subsumes fast
 
     def cost_model(self, a: Optional["DistBSR"] = None) -> Dict[str, float]:
         """Per-step volume / flops of one plan execution (per device of the
@@ -2593,7 +2639,8 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
                       output: str = "dense",
                       sparse_threshold: Optional[float] = None,
                       wire: str = "auto", overlap: str = "auto",
-                      device=None, assignment=None) -> MatmulPlan:
+                      device=None, validate: str = "off",
+                      assignment=None) -> MatmulPlan:
     """Build (or fetch from the shared cache) a plan for ``a @ b``.
 
     ``a`` / ``b`` may be :class:`DistMatrix` handles (preferred: placement
@@ -2630,12 +2677,24 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
     stream).  The mode joins the cache key and feeds the cost model's
     comm-hiding credit.
 
+    ``validate`` statically verifies the plan before handing it back
+    (:meth:`MatmulPlan.validate`): ``"off"`` (default) skips, ``"fast"``
+    runs the host-side schedule checker, ``"full"`` also runs one multiply
+    under the op-trace lint.  Verification is memoized per plan, so a cache
+    hit revalidates for free; any finding raises
+    :class:`repro_torch.analysis.PlanValidationError` with named rule ids,
+    and a plan that fails never enters the cache.
+
     ``assignment`` injects a prebuilt :class:`~repro_torch.core.schedule.
     Assignment3D` into a static-planner schedule (steal3d) in place of the
     plan-time LPT.  It needs an explicit ``algorithm`` with a static
     planner, passes ``validate_assignment``'s checks inside
-    ``build_steal_plan``, and bypasses the plan cache both ways.
+    ``build_steal_plan``, and bypasses the plan cache both ways (the
+    elastic-recovery path, ``repro_torch.runtime.replan``).
     """
+    if validate not in ("off", "fast", "full"):
+        raise ValueError(f"unknown validate {validate!r}; one of "
+                         "('off', 'fast', 'full')")
     if assignment is not None:
         if algorithm == "auto" \
                 or REGISTRY.get(algorithm).static_planner is None:
@@ -2717,6 +2776,7 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
         if plan is not None:
             if auto_scores is not None and plan.auto_scores is None:
                 plan.auto_scores = auto_scores   # record for introspection
+            plan.validate(validate, a_h, b_h)
             return plan
     geom = _geometry(a_h, b_h, impl=impl, overlap=overlap == "on",
                      c_store=sym.store_capacity if sym else 0)
@@ -2753,6 +2813,7 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
                           packs=packs, wire_aux=wire_aux,
                           wire_caps=wire_caps, wire_fps=wire_fps,
                           steal=steal, steal_dev=steal_dev)
+    plan.validate(validate, a_h, b_h)
     if cache:
         _PLAN_CACHE[key] = plan
     return plan

@@ -14,7 +14,8 @@ host numpy, bit-identical to the JAX package's.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,9 +29,47 @@ from .loader import refuse_autograd
 __all__ = ["IMPLS", "default_impl", "bsr_spmm", "bsr_spmm_raw",
            "match_block_pairs", "build_pair_lists",
            "bsr_pair_matmul", "bsr_pair_accumulate", "steal_pair_accumulate",
-           "densify", "densify_packed"]
+           "densify", "densify_packed", "add_call_hook", "remove_call_hook"]
 
 IMPLS = ("auto", "ref", "cuda")
+
+# Listeners of the calls below (the op-trace lint,
+# ``repro_torch.analysis.op_lint``, places the kernel launches among the
+# aten ops it records: a CUDA kernel runs behind ctypes, where a dispatch
+# mode cannot see it).  Each is called ``hook(name, "begin")`` before and
+# ``hook(name, "end")`` after every call; with none installed a call
+# costs one list test.
+_CALL_HOOKS: list = []
+
+
+def add_call_hook(hook: Callable[[str, str], None]) -> Callable:
+    _CALL_HOOKS.append(hook)
+    return hook
+
+
+def remove_call_hook(hook: Callable[[str, str], None]) -> None:
+    if hook in _CALL_HOOKS:
+        _CALL_HOOKS.remove(hook)
+
+
+def _announced(name: str):
+    """Tell the :data:`_CALL_HOOKS` where each call of the wrapped op
+    begins and ends."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _CALL_HOOKS:
+                return fn(*args, **kwargs)
+            hooks = list(_CALL_HOOKS)
+            for hook in hooks:
+                hook(name, "begin")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for hook in hooks:
+                    hook(name, "end")
+        return call
+    return deco
 
 
 def default_impl(x: torch.Tensor) -> str:
@@ -50,6 +89,7 @@ def _resolve(impl: Optional[str], x: torch.Tensor) -> str:
     return impl
 
 
+@_announced("bsr_spmm")
 def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
                  impl: Optional[str] = None, augment: bool = True,
                  a_map=None, b_map=None, gidx=None,
@@ -222,6 +262,7 @@ def _pairs(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, device=like.device).to(torch.int32)
 
 
+@_announced("bsr_pair_matmul")
 def bsr_pair_matmul(a_blocks, b_blocks, pair_a, pair_b, pair_rows, pair_cols,
                     *, n_block_rows: int, n_block_cols: int,
                     impl: Optional[str] = None,
@@ -267,6 +308,7 @@ def bsr_pair_matmul(a_blocks, b_blocks, pair_a, pair_b, pair_rows, pair_cols,
     return out[0] if single else out
 
 
+@_announced("bsr_pair_accumulate")
 def bsr_pair_accumulate(a_blocks, b_blocks, pair_a, pair_b, pair_slot, *,
                         n_slots: int, out_dtype: Optional[torch.dtype] = None,
                         impl: Optional[str] = None,
@@ -317,6 +359,7 @@ def bsr_pair_accumulate(a_blocks, b_blocks, pair_a, pair_b, pair_slot, *,
     return out[0] if single else out
 
 
+@_announced("bsr_spmm")
 def steal_pair_accumulate(a_pool, b_rows, pair_a, pair_b, pair_slot, *,
                           n_slots: int, impl: Optional[str] = None,
                           table: Optional[SpmmTable] = None,
@@ -360,11 +403,13 @@ def steal_pair_accumulate(a_pool, b_rows, pair_a, pair_b, pair_slot, *,
     return res[0] if single else res
 
 
+@_announced("densify")
 def densify(blocks, rows, cols, *, n_block_rows: int,
             n_block_cols: int) -> torch.Tensor:
     return _ref.densify_raw(blocks, rows, cols, n_block_rows, n_block_cols)
 
 
+@_announced("densify_packed")
 def densify_packed(blocks, dmap, *, n_block_rows: int, n_block_cols: int,
                    tile_map=None) -> torch.Tensor:
     """Dense tile(s) from packed wire blocks by a gather.

@@ -858,3 +858,72 @@ def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(card):
     assert bsr_spmm_cuda.launches == before[0] + 1
     assert bsr_pair_accumulate_cuda.launches == before[1] + 1
     assert not got.requires_grad and not acc.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# the static verifier and the elastic runtime on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [2, 3])
+def test_validate_full_on_the_card(card, g):
+    """Every schedule (and a sparse output) proves clean on the card with
+    the kernels launched: the op-trace lint's hot-loop rule binds there."""
+    from repro_torch import analysis
+    from repro_torch.analysis import op_lint
+    from repro_torch.core import api
+    from repro_torch.core.bsr import rmat_matrix
+    a_d = rmat_matrix(7, 8, seed=0)
+    b = np.random.default_rng(0).standard_normal((128, 16)).astype(
+        np.float32)
+    a_h = DistBSR.from_dense(a_d, g=g, block_size=8, device=card)
+    b_h = DistDense.for_rhs(b, a_h)
+    for alg in api.algorithms():
+        for wire in ("padded", "packed"):
+            plan = plan_matmul(a_h, b_h, algorithm=alg, wire=wire,
+                               cache=False, validate="full")
+            assert {"fast", "full"} <= plan._validated
+            rec = op_lint.record_multiply(plan, a_h, b_h)
+            assert op_lint.check_hot_loop(rec, plan=plan) == []
+            assert any(e.kind == "call" for e in rec.events)
+    s_h = DistBSR.from_dense(random_sparse(128, 128, 0.05, seed=1), g=g,
+                             block_size=8, device=card)
+    before = bsr_pair_accumulate_cuda.launches
+    plan = plan_matmul(a_h, s_h, output="sparse", cache=False,
+                       validate="full")
+    assert bsr_pair_accumulate_cuda.launches - before == g
+    assert not analysis.check_plan(plan, a_h, s_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["padded", "packed"])
+def test_recovery_on_the_card_matches_the_cpu(card, wire):
+    """recover_from_loss from g 3 to g 2: the card's assignment equals the
+    CPU's, its multiply matches the CPU's, B1 multiplies the recovered
+    plan's real pairs, and no floating-point data goes to the host."""
+    from repro_torch.analysis.op_lint import host_transfers
+    from repro_torch.core.bsr import rmat_matrix
+    from repro_torch.runtime.faultinject import DeviceLoss
+    from repro_torch.runtime.replan import ElasticReplanner
+    a_d = rmat_matrix(7, 8, seed=0)
+    b = np.random.default_rng(2).standard_normal((128, 40)).astype(
+        np.float32)
+    survivors = DeviceLoss(9, 5, seed=0).survivors()
+    recs = {}
+    for dev in ("cpu", card):
+        a3 = DistBSR.from_dense(a_d, g=3, block_size=8, device=dev)
+        b3 = DistDense.for_rhs(b, a3)
+        plan_matmul(a3, b3, algorithm="steal3d", validate="fast")
+        recs[str(dev)], moved = host_transfers(
+            lambda: ElasticReplanner().recover_from_loss(a3, b3, survivors,
+                                                         wire=wire))
+        if dev != "cpu":
+            assert moved == []
+    cpu, gpu = recs["cpu"], recs[str(card)]
+    assert cpu.g == gpu.g == 2
+    np.testing.assert_array_equal(cpu.assignment.dev, gpu.assignment.dev)
+    want = cpu.plan(cpu.a, cpu.b)
+    got, multiplied = _counted(lambda: gpu.plan(gpu.a, gpu.b))
+    assert multiplied == gpu.plan._steal.real_pairs \
+        == 2 * int(gpu.a.counts.sum())
+    scale = torch.from_numpy(np.abs(a_d) @ np.abs(b))
+    assert_close(got, want, scale)
