@@ -91,8 +91,9 @@ non-zero and prints no result line):
    and B2 at the scoring shape against their plain versions, bounds and
    library yardsticks;
 12. training (``repro_torch.launch.train.train``): a gate at smoke size,
-   float32 with TF32 off: ``qwen2.5-3b`` and ``olmoe-1b-7b`` (at the
-   published capacity factor 1.25, so tokens drop) train 10 steps on the
+   float32 with TF32 off: ``qwen2.5-3b``, ``olmoe-1b-7b`` (at the
+   published capacity factor 1.25, so tokens drop), ``mamba2-130m``,
+   ``recurrentgemma-2b`` and ``hubert-xlarge`` train 10 steps on the
    card and on the CPU from the same parameters, their losses, aux losses,
    dropped shares and gradient norms held at every step and their final
    parameters within the bounds below; resume on the card (20 steps
@@ -125,7 +126,34 @@ non-zero and prints no result line):
    requests again through ``ServeEngine(sparse=True,
    replanner=ElasticReplanner())`` with drift injected after the first
    prefill: one drain-and-refit, the gate's tokens; and ``python -m
-   repro_torch.launch.selftest --check all --g 3`` as a subprocess.
+   repro_torch.launch.selftest --check all --g 3`` as a subprocess;
+14. the recurrent, SSM and frontend families: RecurrentGemma-2B at its
+   published width and depth (26 layers ``rrl``, d_model 2560, 10 query
+   heads and 1 KV head of 256, GeGLU d_ff 7680, vocab 256,000; random
+   weights from a seeded ``torch.Generator`` on the card) through
+   ``ServeEngine(sparse=True)`` with phase 11's requests, prefilled at
+   their exact lengths (the recurrent state sees every token, so nothing
+   is padded).  Gate, in float32 with TF32 off: the tokens equal the
+   port's dense ``lm.greedy_decode``'s but at a printed near-tie; B2
+   (scores) and B1 (P @ V) launched 8 times a prefill (its 8 local
+   attention layers) and never in a decode step; the blocks and pairs
+   they multiplied (counted on the card) equal their tables' real ones
+   and the scores' real pairs; no plan-cache miss for the second
+   128-token request.  Then in bfloat16 as phase 11: first-token logits,
+   ``summary()``, a profiled prefill and decode step, and B1 and B2 at
+   these shapes against their plain versions, bounds and library
+   yardsticks.  The published window (2048) is above ``max_len``, so it
+   prunes no block here.  Then Mamba2-130m at its published width and
+   depth trains 8 steps of 4 x 2048 tokens (bf16 over float32 state):
+   finite losses and gradient norms, the last 3 losses' mean under the
+   first 3's, tokens/s, peak memory, the largest ``A dt (chunk - 1)`` and
+   intra-chunk exponent seen (whether the reference's unmasked decay would
+   overflow), and a float32 prefill and 4 decode steps against the full
+   forward (2e-3); hubert-xlarge at its published width trains 4 steps of
+   4 x 512 frames (finite losses and gradient norms, time a step); and
+   llava-next-mistral-7b at its published width, weights in bf16, decodes
+   8 tokens greedily after 1,152 patches and 64 text tokens (finite
+   logits, the prefill's wall time, peak memory).
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The last two lines are the ``{"kernels": [...]}`` record and
@@ -226,7 +254,9 @@ SERVE = dict(arch="olmoe-1b-7b", seed=0, prompt_lens=(128, 100, 57, 128),
 NEAR_TIE = 1e-4
 # the training phase: the smoke-size gate (card against CPU), resume on
 # the card, and Qwen2.5-3B at its published width and depth
-TRAIN_GATE = dict(archs=("qwen2.5-3b", "olmoe-1b-7b"), steps=10, batch=4,
+TRAIN_GATE = dict(archs=("qwen2.5-3b", "olmoe-1b-7b", "mamba2-130m",
+                         "recurrentgemma-2b", "hubert-xlarge"), steps=10,
+                  batch=4,
                   seq=32, lr=3e-3, seed=0, capacity_factor=1.25)
 TRAIN_RESUME = dict(arch="qwen2.5-3b", steps=20, stop_after=10, batch=2,
                     seq=16, seed=7)
@@ -239,6 +269,18 @@ ELASTIC = dict(steal_g=3, devices=9, lost=5, seed=0, factor=8.0, records=4)
 # plan's own: a bulk-synchronous and a ring series, whose (bytes, messages)
 # rows are not proportional
 FIT_SERIES = ("summa_bcast", "ring_a")
+# phase 14: RecurrentGemma-2B served as phase 11 serves OLMoE (SERVE's
+# requests, slots and block size); Mamba2-130m and hubert-xlarge trained and
+# llava-next-mistral-7b decoded at their published widths and depths
+RECURRENT_SERVE = "recurrentgemma-2b"
+MAMBA_TRAIN = dict(arch="mamba2-130m", steps=8, batch=4, seq=2048, lr=1e-3,
+                   seed=0, prefill=260, decode=4)
+HUBERT_TRAIN = dict(arch="hubert-xlarge", steps=4, batch=4, seq=512, lr=3e-4,
+                    seed=0)
+LLAVA_DECODE = dict(arch="llava-next-mistral-7b", text=64, new_tokens=8,
+                    seed=0)
+# decode steps against the full forward: tests/test_models_smoke.py's 2e-3
+DECODE_TOL = 2e-3
 
 
 def log(*parts) -> None:
@@ -2127,6 +2169,32 @@ def misses_by_request(events) -> dict:
     return out
 
 
+def serve_layers(cfg) -> tuple:
+    """(attention layers, MoE layers) of a model: each attention layer's
+    prefill runs B2 (scores) and B1 (P @ V) once, each MoE layer B1 twice
+    (dispatch, combine) in a prefill and in a decode step."""
+    n_attn = sum(1 for k in cfg.pattern if k in ("g", "l"))
+    return n_attn, (n_attn if cfg.moe is not None else 0)
+
+
+def score_pairs(t: int, heads: int, hd: int, bs: int) -> int:
+    """Real block pairs of the scoring product ``Q_bd @ K_bd^T`` of one
+    attention layer at prompt length ``t``: ``heads`` panels of ``t x hd``
+    stacked block-diagonally, tiled in ``bs`` blocks.  Where ``bs`` divides
+    ``t`` each head gives (t/bs)^2 output blocks of hd/bs pairs; otherwise
+    a block-row or column straddles two panels and meets both."""
+    def mask(rows_per, cols_per):
+        # each row's and column's panel; the padding's never match
+        r = np.arange(heads * rows_per) // rows_per
+        c = np.arange(heads * cols_per) // cols_per
+        r = np.pad(r, (0, -len(r) % bs), constant_values=-1)
+        c = np.pad(c, (0, -len(c) % bs), constant_values=-2)
+        hit = r[:, None] == c[None]
+        return hit.reshape(len(r) // bs, bs, len(c) // bs, bs).any((1, 3))
+    q, k = mask(t, hd).astype(np.int64), mask(hd, t).astype(np.int64)
+    return int((q @ k).sum())
+
+
 def serve_gate(model, cfg32, prompts) -> dict:
     """float32, TF32 off: the sparse engine's tokens against the dense
     path's, B1 and B2 launched with every real block and pair (and no
@@ -2153,7 +2221,7 @@ def serve_gate(model, cfg32, prompts) -> dict:
         tallies = serve_counters_off(*counters)
     counts = read_counts()
     summary = eng.summary()
-    log(f"  dense path (greedy, bucket-padded prefill, float32): "
+    log(f"  dense path (greedy, prefill at the engine's shape, float32): "
         f"{dense_s:.1f} s for "
         f"{len(prompts)} requests; sparse engine: {run_s:.1f} s "
         f"(traced), {summary['decode_steps']} decode steps")
@@ -2164,22 +2232,20 @@ def serve_gate(model, cfg32, prompts) -> dict:
         f"{SERVE['new_tokens']} a request; near-ties: "
         f"{ {r: m['near_tie_step'] for r, m in match.items() if m['near_tie_step'] is not None} or 'none'}")
     n_pre, n_dec = len(prompts), summary["decode_steps"]
-    n_layers = cfg32.n_layers
-    want_b1 = 3 * n_layers * n_pre + 2 * n_layers * n_dec
-    want_b2 = n_layers * n_pre
-    log(f"  launches: {counts} (B1 {3 * n_layers} a prefill and "
-        f"{2 * n_layers} a decode step predicted: {want_b1}; B2 "
-        f"{n_layers} a prefill: {want_b2})")
+    n_attn, n_moe = serve_layers(cfg32)
+    want_b1 = (n_attn + 2 * n_moe) * n_pre + 2 * n_moe * n_dec
+    want_b2 = n_attn * n_pre
+    log(f"  launches: {counts} (B1 {n_attn + 2 * n_moe} a prefill and "
+        f"{2 * n_moe} a decode step predicted: {want_b1}; B2 "
+        f"{n_attn} a prefill and none a decode step: {want_b2})")
     check(counts["bsr_spmm"] == want_b1 and counts["bsr_pair_accumulate"]
           == want_b2, "the serving path did not launch B1 and B2 once for "
           "each of its products")
-    # the scores' real pairs: per layer and head, (t/8)^2 output blocks
-    # each summing hd/8 block pairs
     hd, bs = cfg32.resolved_head_dim, SERVE["block_size"]
     buckets = [effective_bucket(cfg32, len(p), SERVE["max_len"])
                for p in prompts]
-    want_pairs = n_layers * cfg32.n_heads * sum(
-        (b // bs) ** 2 * (hd // bs) for b in buckets)
+    want_pairs = n_attn * sum(score_pairs(b, cfg32.n_heads, hd, bs)
+                              for b in buckets)
     log(f"  B1 multiplied {tallies['blocks_multiplied']} blocks (counted on "
         f"the card), its tables' real blocks {tallies['table_blocks']}; B2 "
         f"{tallies['pairs_multiplied']} pairs, its tables' "
@@ -2347,10 +2413,10 @@ def serve_published(model, cfg16, cfg32, prompts, dense32_first) -> dict:
         f"bf16 path's distance from float32); top-1 agrees: {agree}")
     check(max(errs) <= 2 * noise, "the bf16 engine's first-token logits "
           "leave the bound")
-    n_layers = cfg16.n_layers
-    check(counts["bsr_spmm"] == 3 * n_layers * len(prompts)
-          + 2 * n_layers * s["decode_steps"]
-          and counts["bsr_pair_accumulate"] == n_layers * len(prompts),
+    n_attn, n_moe = serve_layers(cfg16)
+    check(counts["bsr_spmm"] == (n_attn + 2 * n_moe) * len(prompts)
+          + 2 * n_moe * s["decode_steps"]
+          and counts["bsr_pair_accumulate"] == n_attn * len(prompts),
           "the bf16 serving run did not launch B1 and B2 once a product")
     # smoke readings of this four-request window, not serving metrics: of
     # four requests the 99th percentile is the largest, so the largest is
@@ -2372,8 +2438,8 @@ def serve_published(model, cfg16, cfg32, prompts, dense32_first) -> dict:
     check(sum(by_product.values()) == counts["bsr_spmm"],
           "B1's launches by product do not add up to its launches")
     check(by_product["dispatch"] == by_product["combine"]
-          == n_layers * (len(prompts) + s["decode_steps"])
-          and by_product["pv"] == n_layers * len(prompts),
+          == n_moe * (len(prompts) + s["decode_steps"])
+          and by_product["pv"] == n_attn * len(prompts),
           "the bf16 serving run did not launch B1 once for each MoE "
           "dispatch, MoE combine and P @ V product")
     windows = serve_windows(model, cfg16, prompts[0], "bf16")
@@ -2472,27 +2538,35 @@ def serve_b2_case(ops, q_bd, kt_bd) -> dict:
 
 
 def serve_kernel_cases(model, cfg16, toks) -> dict:
-    """B1 at the MoE dispatch, MoE combine and P @ V shapes and B2 at the
-    scoring shape, on layer 0's operands for one bucket-128 prompt (bf16
-    activations, as the published run)."""
+    """B2 at the scoring shape and B1 at the P @ V shape (and, in an MoE
+    model, at the MoE dispatch and combine shapes), on the first attention
+    layer's weights applied to one prompt's embedding (bf16 activations,
+    as the published run), with that layer's mask."""
     from repro_torch.models import moe as tmoe
     from repro_torch.models.attention import _pair_mask
     from repro_torch.models.common import rms_norm
     from repro_torch.serving import sparse as ss
-    blk = model.layers[0]
+    li = next(i for i, k in enumerate(cfg16.pattern) if k in ("g", "l"))
+    blk, kind = model.layers[li], cfg16.pattern[li]
     ops = ss.SparseOps(block_size=SERVE["block_size"], device=DEVICE)
     m = cfg16.moe
     with torch.no_grad():
         t_in = torch.as_tensor(toks, device=DEVICE)
         x = model.top.embed[t_in.long()].to(torch.bfloat16)[None]
+        if cfg16.emb_scale:
+            x = x * torch.tensor(cfg16.d_model ** 0.5, dtype=x.dtype)
         h = rms_norm(x, blk.norms.ln1, cfg16.norm_eps)
         pos = torch.arange(t_in.shape[0], dtype=torch.int32, device=DEVICE)
         qh, kh_f, v_f, _, _ = ss._qkv_panels(blk.attn, h, pos, cfg16)
         q_bd = torch.block_diag(*qh)
         kt_bd = torch.block_diag(*kh_f.transpose(1, 2))
-        mask = _pair_mask(cfg16, "g", pos, pos)
+        mask = _pair_mask(cfg16, kind, pos, pos)
         pv = torch.block_diag(*ss._probs(
             ops.spgemm_sparse(q_bd, kt_bd).densify(), mask, cfg16))
+        res = {"pv": serve_b1_case(ops, "attention P_bd @ V", pv, v_f),
+               "scores": serve_b2_case(ops, q_bd, kt_bd)}
+        if m is None:
+            return res
         n, d = x.shape[1], x.shape[2]
         xf = h.reshape(n, d)
         r = tmoe.route_tokens(blk.moe.router, xf, cfg16)
@@ -2503,40 +2577,94 @@ def serve_kernel_cases(model, cfg16, toks) -> dict:
         xe = (disp.float() @ xf.float()).to(torch.bfloat16)
         y = tmoe.expert_ffn(blk.moe, xe.reshape(groups, m.n_experts, cap, d),
                             cfg16).reshape(lines, d)
-    res = {"dispatch": serve_b1_case(ops, "MoE dispatch D @ X", disp, xf,
-                                     bound),
-           "combine": serve_b1_case(ops, "MoE combine W @ Y", comb, y, bound),
-           "pv": serve_b1_case(ops, "attention P_bd @ V", pv, v_f),
-           "scores": serve_b2_case(ops, q_bd, kt_bd)}
+    res.update(dispatch=serve_b1_case(ops, "MoE dispatch D @ X", disp, xf,
+                                      bound),
+               combine=serve_b1_case(ops, "MoE combine W @ Y", comb, y,
+                                     bound))
     res["dispatch"]["capacity_bound"] = bound
     return res
 
 
-def serving_phase() -> dict:
-    """OLMoE-1B-7B at its published width and depth through
+def exact_params(cfg) -> int:
+    """The model's parameter count: ``param_count()`` plus what it leaves
+    out, the norm scales (``ln1`` a layer, ``ln2`` where a layer has an MLP
+    or MoE, gemma2's post-norms, the final norm), QKV biases, the RG-LRU's
+    conv and gate biases and ``lam`` (4 w a layer), Mamba's conv bias and
+    ``dt_bias``, the audio frontend's layer norm and the vlm projector's
+    second matrix.  It restates every module's parameter set, so a module
+    that gains or loses a parameter must change it too:
+    ``tests/test_torch_models.py::test_exact_params`` holds it against
+    the JAX package's parameter tree for every configuration."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    norms, extra = 1, 0
+    for kind in cfg.pattern:
+        norms += 1
+        if kind in ("g", "l"):
+            norms += (cfg.moe is not None or cfg.mlp_kind != "none") \
+                + 2 * cfg.post_norms
+            extra += cfg.qkv_bias * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+        elif kind == "r":
+            norms += cfg.mlp_kind != "none"
+            extra += 4 * (cfg.lru_width or d)
+        else:
+            di = cfg.ssm.expand * d
+            extra += di + 2 * cfg.ssm.d_state + di // cfg.ssm.head_dim
+    extra += {"audio": 2 * d, "vlm": d * d}.get(cfg.frontend, 0)
+    return cfg.param_count() + norms * d + extra
+
+
+def describe(cfg) -> str:
+    """A configuration's published shape, for the log."""
+    parts = [f"{cfg.n_layers} layers {cfg.pattern[:6]}"
+             f"{'...' if cfg.n_layers > 6 else ''}", f"d_model {cfg.d_model}"]
+    if any(k in "gl" for k in cfg.pattern):
+        parts.append(f"{cfg.n_heads} query heads and {cfg.n_kv_heads} KV "
+                     f"heads of {cfg.resolved_head_dim}")
+    if cfg.moe is not None:
+        parts.append(f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+                     f"(d_ff {cfg.moe.d_ff_expert})")
+    elif cfg.mlp_kind != "none":
+        parts.append(f"{cfg.mlp_kind} d_ff {cfg.d_ff}")
+    if "r" in cfg.pattern:
+        parts.append(f"lru_width {cfg.lru_width}, local window "
+                     f"{cfg.local_window}")
+    if "m" in cfg.pattern:
+        parts.append(f"d_state {cfg.ssm.d_state}, head_dim "
+                     f"{cfg.ssm.head_dim}, chunk {cfg.ssm.chunk}")
+    if cfg.frontend:
+        parts.append(f"{cfg.frontend} frontend of {cfg.frontend_dim}")
+    parts.append(f"vocab {cfg.vocab_size}")
+    return f"{cfg.name}: " + ", ".join(parts)
+
+
+def init_model(cfg, seed: int, dtype=torch.float32):
+    """``init_params`` on the card (float32; cast to ``dtype`` after),
+    its parameters counted against :func:`exact_params`."""
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=seed, device=DEVICE)
+    if dtype != torch.float32:
+        model = model.to(dtype)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{describe(cfg)}: {n_params} parameters ({cfg.param_count()} by "
+        f"param_count(); {n_params * model.top.embed.element_size() / 1e9:.2f}"
+        f" GB in {str(dtype)[6:]}), initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(n_params == exact_params(cfg), f"parameter count {n_params} "
+          f"differs from the config's {exact_params(cfg)}")
+    return model
+
+
+def serving_phase(arch: str = SERVE["arch"]) -> dict:
+    """``arch`` at its published width and depth through
     ``ServeEngine(sparse=True)``: the float32 gate, the bf16 run, the
     kernels at the serving shapes."""
     import dataclasses as dc
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer as tf
-    cfg16 = get_config(SERVE["arch"])
+    cfg16 = get_config(arch)
     cfg32 = dc.replace(cfg16, compute_dtype="float32")
-    t0 = time.perf_counter()
-    model = tf.init_params(cfg16, seed=SERVE["seed"], device=DEVICE)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"{cfg16.name}: {cfg16.n_layers} layers, d_model {cfg16.d_model}, "
-        f"{cfg16.n_heads} heads x {cfg16.resolved_head_dim}, "
-        f"{cfg16.moe.n_experts} experts top-{cfg16.moe.top_k} (d_ff "
-        f"{cfg16.moe.d_ff_expert}), vocab {cfg16.vocab_size}: {n_params} "
-        f"parameters ({n_params * 4 / 1e9:.2f} GB float32), initialised on "
-        f"the card in {time.perf_counter() - t0:.1f} s")
-    # param_count() leaves out the norm scales (two a layer and the final
-    # norm's)
-    norms = (2 * cfg16.n_layers + 1) * cfg16.d_model
-    check(n_params == cfg16.param_count() + norms, "parameter count "
-          f"{n_params} differs from the config's {cfg16.param_count()} + "
-          f"{norms} norm scales")
+    model = init_model(cfg16, SERVE["seed"])
     prompts = serve_prompts(cfg16)
     log(f"requests: prompt lengths {list(SERVE['prompt_lens'])}, "
         f"{SERVE['new_tokens']} new tokens each, max_batch "
@@ -2722,8 +2850,9 @@ def kernel_kinds(by_kernel_ms: dict) -> dict:
     return {k: round(v, 3) for k, v in kinds.items()}
 
 
-def train_profile(model, opt_state, cfg) -> dict:
-    """Three more steps of the published run, each on the batch after the
+def train_profile(model, opt_state, cfg, spec: dict = TRAIN) -> dict:
+    """Three more steps of a published run (``spec``: ``TRAIN``,
+    ``MAMBA_TRAIN``, ``HUBERT_TRAIN``), each on the batch after the
     run's: one with its host synchronisations counted, one in a
     ``torch.profiler`` window (busy against wall, idle share, top device
     ops, device time by kind), and one split by synchronisations into
@@ -2735,7 +2864,7 @@ def train_profile(model, opt_state, cfg) -> dict:
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import lm
     from repro_torch.optim import AdamW, cosine_schedule
-    t = TRAIN
+    t = spec
     opt = AdamW(lr=cosine_schedule(t["lr"], max(t["steps"] // 20, 1),
                                    t["steps"]))
     step_fn = lm.make_train_step(cfg, opt)
@@ -2756,10 +2885,10 @@ def train_profile(model, opt_state, cfg) -> dict:
     log(f"  host synchronisations in one step (the batch's copy, the "
         f"step, reading its loss and gradient norm): {n_syncs}, by source "
         f"line: {sync_lines}")
+    label = f"{cfg.name} training step"
     events, wall_ms, _, _, lost = profiled(
-        lambda: one_step(t["steps"] + 1)[0], "published training step")
-    summary = device_summary(events, wall_ms, "published training step",
-                             top_n=12, lost=lost)
+        lambda: one_step(t["steps"] + 1)[0], label)
+    summary = device_summary(events, wall_ms, label, top_n=12, lost=lost)
     kinds = kernel_kinds(_by_name_ms(events))
     log(f"  device ms by kind: {kinds}")
 
@@ -2776,7 +2905,10 @@ def train_profile(model, opt_state, cfg) -> dict:
         with record_function("smoke.train.backward"):
             total.backward()
             torch.cuda.synchronize()
-        grads = {n: p.grad for n, p in named.items()}
+        # a parameter the loss does not read (an audio encoder's token
+        # embedding) has no gradient: a zero one, as make_train_step gives
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in named.items()}
         for p in named.values():
             p.grad = None
         with record_function("smoke.train.optimizer"):
@@ -3250,6 +3382,257 @@ def elastic_phase(sparse_h, gate_tokens: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recurrent, SSM and frontend families
+# ---------------------------------------------------------------------------
+def ssd_exponents(cfg, model, step: int) -> list:
+    """One untimed forward of ``model`` (no gradients) on the training
+    batch of ``step``, with ``ssm._ssd_chunked`` wrapped so that each call
+    records, on the card, the largest ``A dt (chunk - 1)`` it is given and
+    the largest exponent the reference's unmasked decay ``exp(cs_i - cs_j)``
+    would take above the diagonal (the most ``A dt`` summed over a chunk
+    after its first step).  The wrap is undone before this returns, so no
+    timed or profiled step runs it.  Returns the two maxima."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import ssm, transformer as tf
+    m = MAMBA_TRAIN
+    orig = ssm._ssd_chunked
+    seen = torch.zeros(2, device=DEVICE)
+
+    def observed(xh, bmat, cmat, dt, a_log, chunk):
+        adt = torch.exp(a_log.float()) * dt.float()             # [B,T,H]
+        t = adt.shape[1]
+        L = min(chunk, t)
+        pad = (-t) % L
+        per = torch.nn.functional.pad(adt, (0, 0, 0, pad)).reshape(
+            adt.shape[0], -1, L, adt.shape[2])
+        seen.copy_(torch.maximum(seen, torch.stack([
+            adt.amax() * (L - 1), per[:, :, 1:].sum(2).amax()])))
+        return orig(xh, bmat, cmat, dt, a_log, chunk)
+
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in SyntheticLM(
+        cfg, m["batch"], m["seq"], seed=m["seed"])(step).items()}
+    ssm._ssd_chunked = observed
+    try:
+        with torch.no_grad():
+            tf.forward(model, batch, cfg)
+    finally:
+        ssm._ssd_chunked = orig
+    return seen.tolist()
+
+
+def train_published_family(spec: dict, extra_checks=None,
+                           before=None) -> dict:
+    """``spec["arch"]`` at its published width and depth through
+    ``train()``: bf16 compute over float32 parameters and AdamW state,
+    remat on, no checkpoint.  Finite losses and gradient norms, each step's
+    wall time, tokens (or frames) a second, peak memory; B1-B3 launch no
+    time.  ``before(cfg, model)``, if given, reads the freshly initialised
+    model (``train()``'s own ``init_params``) before the first step, out of
+    the timed run; ``extra_checks(cfg, state, pre)`` reads the trained one
+    after the profiled steps, ``pre`` what ``before`` returned."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as tf
+    cfg = get_config(spec["arch"])
+    check(cfg.compute_dtype == "bfloat16" and cfg.remat,
+          f"{cfg.name} is not the published configuration")
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    log(describe(cfg) + f": {exact_params(cfg)} parameters "
+        f"({cfg.param_count()} by param_count())")
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=spec["seed"], device=DEVICE)
+    init_s = time.perf_counter() - t0
+    pre = {} if before is None else before(cfg, model)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train(cfg, steps=spec["steps"], batch=spec["batch"],
+                  seq=spec["seq"], lr=spec["lr"], seed=spec["seed"],
+                  ckpt_dir=None, device=DEVICE, log_every=1, params=model)
+    run_s = init_s + time.perf_counter() - t0
+    del model
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    check(n_params == exact_params(cfg), f"parameter count {n_params} "
+          f"differs from {exact_params(cfg)}")
+    check(not any(counts.values()), f"training launched a sparse kernel: "
+          f"{counts}")
+    losses, gnorms = np.asarray(state["losses"]), np.asarray(
+        state["grad_norms"])
+    check(len(losses) == spec["steps"] and np.isfinite(losses).all()
+          and np.isfinite(gnorms).all(),
+          f"{cfg.name}: non-finite loss or gradient norm: {losses}, {gnorms}")
+    step_ms = [1e3 * x for x in state["step_s"]]
+    warm_ms = statistics.median(step_ms[1:])
+    tokens = spec["batch"] * spec["seq"]
+    log(f"  {spec['steps']} steps of {spec['batch']} x {spec['seq']} in "
+        f"{run_s:.1f} s (initialisation included); losses "
+        f"{[round(float(x), 4) for x in losses]}; gradient norms "
+        f"{[round(float(x), 4) for x in gnorms]}")
+    log(f"  step wall ms (synchronised): {[round(x, 1) for x in step_ms]}; "
+        f"median after the first {warm_ms:.1f} ms, "
+        f"{tokens / (warm_ms / 1e3):.0f} tokens/s; peak device memory "
+        f"{peak_gb:.2f} GB; launches {counts}")
+    out = {"losses": losses.tolist(), "grad_norms": gnorms.tolist(),
+           "step_ms": step_ms, "median_step_ms": warm_ms,
+           "tokens_per_s": tokens / (warm_ms / 1e3), "peak_gb": peak_gb,
+           "n_params": n_params, "run_s": run_s,
+           "profile": train_profile(state["params"], state["opt"], cfg,
+                                    spec)}
+    if extra_checks is not None:
+        out.update(extra_checks(cfg, state, pre))
+    del state
+    free()
+    return out
+
+
+def mamba_decode_check(cfg, state) -> dict:
+    """The trained Mamba2-130m in float32 (TF32 off): a prefill of
+    ``MAMBA_TRAIN["prefill"]`` tokens (a chunk and a padded part) and
+    ``MAMBA_TRAIN["decode"]`` decode steps, whose logits equal the full
+    forward's within ``DECODE_TOL`` (``tests/test_models_smoke.py``)."""
+    import dataclasses as dc
+    from repro_torch.models import lm, transformer as tf
+    m = MAMBA_TRAIN
+    cfg32 = dc.replace(cfg, compute_dtype="float32")
+    model = state["params"]
+    n = m["prefill"] + m["decode"]
+    toks = torch.as_tensor(np.random.default_rng(m["seed"]).integers(
+        0, cfg.vocab_size, (2, n)).astype(np.int32), device=DEVICE)
+    with torch.no_grad():
+        full, _, _ = tf.forward(model, {"tokens": toks}, cfg32)
+    last, caches, pos = lm.prefill(model, {"tokens": toks[:, :m["prefill"]]},
+                                   cfg32, n, torch.float32)
+    step = lm.make_decode_step(cfg32)
+    got, want = [last], [full[:, m["prefill"] - 1]]
+    for t in range(m["prefill"], n):
+        logits, caches = step(model, toks[:, t:t + 1], caches, pos)
+        got.append(logits)
+        want.append(full[:, t])
+        pos = pos + 1
+    got, want = torch.stack(got), torch.stack(want)
+    err = (got - want).abs()
+    share = (err / (DECODE_TOL * (1 + want.abs()))).max().item()
+    log(f"  prefill {m['prefill']} + {m['decode']} decode steps against the "
+        f"full forward (float32): max |diff| {err.max().item():.3e}, "
+        f"{share:.3g} of the {DECODE_TOL} allowance")
+    check(share <= 1.0, "Mamba decode steps leave the full forward's logits")
+    return {"decode_max_abs_err": err.max().item(), "decode_share": share}
+
+
+def mamba_published() -> dict:
+    """Mamba2-130m trained at its published width and depth, the SSD's
+    exponents read in an untimed forward before the first step and after
+    the last; then its decode against its forward."""
+    last = MAMBA_TRAIN["steps"] - 1
+    res = train_published_family(
+        MAMBA_TRAIN,
+        before=lambda c, model: ssd_exponents(c, model, 0),
+        extra_checks=lambda c, s, pre: {
+            "ssd": ssd_report(c, pre, ssd_exponents(c, s["params"], last)),
+            **mamba_decode_check(c, s)})
+    first3, last3 = np.mean(res["losses"][:3]), np.mean(res["losses"][-3:])
+    log(f"  mean of the first 3 losses {first3:.4f} -> last 3 {last3:.4f}")
+    check(last3 < first3, f"Mamba2-130m's loss did not decrease: "
+          f"{res['losses']}")
+    return res
+
+
+def ssd_report(cfg, first, after) -> dict:
+    """The SSD's exponents read by :func:`ssd_exponents`: ``first`` with
+    the initial model on step 0's batch, ``after`` with the trained one on
+    the last step's batch."""
+    adt, expo = max(first[0], after[0]), max(first[1], after[1])
+    for label, (a, e) in (("initial model, step 0's batch", first),
+                          ("trained model, the last step's batch", after)):
+        log(f"  SSD (chunk {cfg.ssm.chunk}), {label}: largest A dt "
+            f"(chunk - 1) {a:.2f}; largest exponent the reference's "
+            f"unmasked decay would take {e:.2f}")
+    log(f"  against float32's limit 88.72 the reference's gradient would "
+        f"{'turn non-finite' if expo > 88.72 else 'stay finite'}")
+    return {"max_adt_chunk": adt, "max_decay_exponent": expo,
+            "first": first, "after": after,
+            "reference_would_overflow": expo > 88.72}
+
+
+def llava_decode() -> dict:
+    """llava-next-mistral-7b at its published width and depth, weights in
+    bf16: a timed
+    ``lm.prefill`` of the patches and the text (finite logits), then one
+    ``lm.greedy_decode`` of the new tokens, whose first token is the
+    prefill's argmax."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.obs import sync_elapsed
+    spec = LLAVA_DECODE
+    cfg = get_config(spec["arch"])
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, spec["seed"], dtype=torch.bfloat16)
+    init_peak = phase_peak("llava initialisation (float32, then bf16)")
+    rng = np.random.default_rng(spec["seed"])
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, spec["text"])).astype(np.int32),
+        device=DEVICE),
+        "patches": torch.as_tensor(rng.standard_normal(
+            (1, cfg.num_patches, cfg.frontend_dim)).astype(np.float32),
+            device=DEVICE)}
+    t_in = cfg.num_patches + spec["text"]
+    max_len = t_in + spec["new_tokens"]
+    lm.prefill(model, batch, cfg, max_len, torch.float32)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, _, pos = lm.prefill(model, batch, cfg, max_len, torch.float32)
+    prefill_s = sync_elapsed(t0, logits)
+    check(tuple(logits.shape) == (1, cfg.vocab_size) and pos == t_in
+          and bool(torch.isfinite(logits).all()),
+          "llava's prefill logits are not finite logits of one position")
+    t0 = time.perf_counter()
+    toks = lm.greedy_decode(model, batch, cfg, spec["new_tokens"], max_len)
+    decode_s = sync_elapsed(t0, toks)
+    peak = phase_peak("llava prefill and greedy decode")
+    check(tuple(toks.shape) == (1, spec["new_tokens"])
+          and int(toks[0, 0]) == int(logits.argmax()),
+          "llava's greedy decode does not start from the prefill's argmax")
+    log(f"  prefill of {cfg.num_patches} patches + {spec['text']} tokens: "
+        f"{prefill_s * 1e3:.1f} ms wall (warm); greedy_decode of "
+        f"{spec['new_tokens']} tokens (prefill included) {decode_s:.2f} s; "
+        f"tokens {toks[0].tolist()}; peak device memory {peak:.2f} GB "
+        f"(initialisation {init_peak:.2f} GB)")
+    del model
+    free()
+    return {"prefill_ms": prefill_s * 1e3, "greedy_s": decode_s,
+            "tokens": toks[0].tolist(), "peak_gb": peak,
+            "init_peak_gb": init_peak}
+
+
+def recurrent_phase() -> dict:
+    """Phase 14: RecurrentGemma-2B served at its published width and depth
+    (the float32 gate, the bf16 run, B1 and B2 at its shapes), Mamba2-130m
+    and hubert-xlarge trained, llava-next-mistral-7b decoded."""
+    from repro_torch.core import api
+    api.clear_plan_cache()
+    free()
+    log(f"  device memory allocated at the start (what earlier phases "
+        f"hold): {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    out = {}
+    log("-- RecurrentGemma-2B through ServeEngine(sparse=True): B2 and B1 "
+        "in its 8 local-attention layers (window 2048, above max_len "
+        f"{SERVE['max_len']}: the window prunes no block here)")
+    out["serve"] = serving_phase(RECURRENT_SERVE)
+    log("-- Mamba2-130m trained (published size)")
+    out["mamba"] = mamba_published()
+    log("-- hubert-xlarge trained (published width)")
+    out["hubert"] = train_published_family(HUBERT_TRAIN)
+    log("-- llava-next-mistral-7b: greedy decode after its patches")
+    out["llava"] = llava_decode()
+    return out
+
+
 def record(name: str, source: str, replaces: str, launches: int,
            kres: dict, extra: dict) -> dict:
     """One entry of the ``{"kernels": [...]}`` line: float32 numbers at the
@@ -3266,10 +3649,11 @@ def record(name: str, source: str, replaces: str, launches: int,
     return rec
 
 
-def serve_records(serve: dict):
+def serve_records(serve: dict, model: str = "serving"):
     """The serving shapes' entries of the ``{"kernels": [...]}`` line, with
     the launches of the bf16 serving run: B1's counted by product where it
-    launches (``bsr_spmm_cuda.by_shape``), B2's by its wrapper."""
+    launches (``bsr_spmm_cuda.by_shape``), B2's by its wrapper.  ``model``
+    names the run in the entries (phase 11's OLMoE: "serving")."""
     pub, kern = serve["published"], serve["kernels"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3285,12 +3669,13 @@ def serve_records(serve: dict):
                    if k in res}, "kernel": kernel}
 
     b1src = "src/repro_torch/kernels/csrc/bsr_spmm.cu"
-    b1 = [rec(f"bsr_spmm (serving {label} shape)", "bsr_spmm", b1src,
+    b1 = [rec(f"bsr_spmm ({model} {label} shape)", "bsr_spmm", b1src,
               "src/repro/kernels/bsr_spmm.py:55",
               pub["b1_by_product"][key], kern[key])
           for key, label in (("dispatch", "MoE dispatch"),
-                             ("combine", "MoE combine"), ("pv", "P @ V"))]
-    b2 = rec("bsr_pair_accumulate (serving scores shape)",
+                             ("combine", "MoE combine"), ("pv", "P @ V"))
+          if key in kern]
+    b2 = rec(f"bsr_pair_accumulate ({model} scores shape)",
              "bsr_pair_accumulate",
              "src/repro_torch/kernels/csrc/bsr_pair.cu",
              "src/repro/kernels/bsr_spmm.py:165",
@@ -3491,6 +3876,12 @@ def main() -> int:
     elastic = elastic_phase(sparse.pop("a_h"), serve["gate"]["tokens"])
     elastic["s"] = time.perf_counter() - t13
     elastic_peak = phase_peak("elastic replanning")
+    log("== recurrent, SSM and frontend families (RecurrentGemma-2B served, "
+        "Mamba2-130m and hubert-xlarge trained, llava-next-mistral-7b "
+        "decoded)")
+    t14 = time.perf_counter()
+    recurrent = recurrent_phase()
+    recurrent["s"] = time.perf_counter() - t14
 
     # phase 13's launches outside serving run at the SpMM cell's and the
     # sparse path's shapes
@@ -3528,6 +3919,7 @@ def main() -> int:
                                      "real_pairs", "pairs",
                                      "pairs_multiplied", "path")})
     b1_serve, b2_serve = serve_records(serve)
+    b1_rg, b2_rg = serve_records(recurrent["serve"], "recurrentgemma")
     log(json.dumps({"build_s": build_s, "e2e": e2e, "breakdown": breakdown,
                     "sparse_output": {k: sparse[k] for k in (
                         "e2e_ms", "symbolic_s", "plan_rest_s",
@@ -3551,9 +3943,14 @@ def main() -> int:
                                                       "published")},
                     "training": training,
                     "elastic": elastic,
+                    "recurrent": {"serving": {k: recurrent["serve"][k] for k
+                                              in ("gate", "published")},
+                                  **{k: recurrent[k] for k in (
+                                      "mamba", "hubert", "llava", "s")}},
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [*b1, b2, b3, *b1_serve, b2_serve]}))
+    log(json.dumps({"kernels": [*b1, b2, b3, *b1_serve, b2_serve, *b1_rg,
+                                b2_rg]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

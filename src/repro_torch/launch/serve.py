@@ -71,6 +71,9 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.is_encoder:
         raise SystemExit(f"{args.arch} is encoder-only; no serve path")
+    if cfg.frontend:
+        raise SystemExit(f"{args.arch} takes {cfg.frontend} inputs beside "
+                         "its tokens; the engine serves token prompts")
     if args.trace:
         obs.enable(clear=True)
     out = serve(cfg, requests=args.requests, prompt_len=args.prompt_len,

@@ -10,7 +10,8 @@ values.  The reference stacks each layer group's units along a leading
 unstacked into one :class:`~repro_torch.models.transformer.Block` per
 layer, in ``cfg.pattern`` order.  ``opt_state_from_jax`` carries the
 reference's AdamW state across the same way, into the port's state keyed
-by parameter name.  Nothing of JAX is imported: the tree is plain dicts,
+by parameter name, and ``caches_from_jax`` a decode cache into the port's
+per-layer caches.  Nothing of JAX is imported: the tree is plain dicts,
 lists and arrays.
 """
 from __future__ import annotations
@@ -23,9 +24,10 @@ import torch
 from ..runtime.device import as_tensor, resolve_device
 from .common import Params
 from .config import ModelConfig
-from .transformer import Block, Transformer, check_supported, layer_plan
+from .transformer import Block, Transformer, layer_plan
 
-__all__ = ["params_from_jax", "opt_state_from_jax", "unstack_layers"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "caches_from_jax",
+           "unstack_layers"]
 
 
 def unstack_layers(cfg: ModelConfig, groups: List) -> List[Dict]:
@@ -54,22 +56,32 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
                     device=None) -> Transformer:
     """The port's model holding the JAX parameter tree's values on
     ``device`` (the card by default)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     layers = []
     for lp in unstack_layers(cfg, tree["groups"]):
         vec = {k: as_tensor(lp[k], dev) for k in ("ln1", "ln2", "pn1", "pn2")
                if k in lp}
-        layers.append(Block(
-            vec["ln1"], _params(lp["attn"], dev), ln2=vec.get("ln2"),
-            moe=_params(lp["moe"], dev) if "moe" in lp else None,
-            mlp=_params(lp["mlp"], dev) if "mlp" in lp else None,
-            pn1=vec.get("pn1"), pn2=vec.get("pn2")))
+        mods = {k: _params(lp[k], dev) for k in ("attn", "rec", "mamba",
+                                                 "moe", "mlp") if k in lp}
+        layers.append(Block(vec["ln1"], ln2=vec.get("ln2"),
+                            pn1=vec.get("pn1"), pn2=vec.get("pn2"), **mods))
     lm_head = as_tensor(np.asarray(tree["lm_head"]), dev) \
         if "lm_head" in tree else None
+    frontend = _params(tree["frontend"], dev) if "frontend" in tree else None
     return Transformer(cfg, as_tensor(np.asarray(tree["embed"]), dev),
                        as_tensor(np.asarray(tree["final_norm"]), dev),
-                       layers, lm_head=lm_head)
+                       layers, lm_head=lm_head, frontend=frontend)
+
+
+def caches_from_jax(groups: List, cfg: ModelConfig,
+                    device=None) -> List[Dict]:
+    """The reference's decode cache (``init_cache``/``prefill``'s grouped
+    tree, numpy leaves) as the port's: one dict of tensors per layer, in
+    ``cfg.pattern`` order, dtypes kept, on ``device`` (the card by
+    default)."""
+    dev = resolve_device(device)
+    return [{k: as_tensor(np.asarray(v), dev) for k, v in layer.items()}
+            for layer in unstack_layers(cfg, groups)]
 
 
 def _by_name(tree: Mapping, cfg: ModelConfig, device) -> Dict:

@@ -1,5 +1,4 @@
-"""Losses and step functions (train, prefill, decode) of the attention
-families.
+"""Losses and step functions (train, prefill, decode) for all families.
 
 Port of ``repro/models/lm.py``.  ``make_train_step`` differentiates
 ``loss_fn`` with autograd where the reference calls ``jax.value_and_grad``,
@@ -33,12 +32,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def _shift_batch(batch: Dict, cfg: ModelConfig
                  ) -> Tuple[Dict, torch.Tensor]:
-    """(model inputs, labels) from a raw batch: next-token prediction."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend (models/frontend.py) "
-            "and its batches are not ported yet (ROADMAP.md, Queue A item 6)")
+    """(model inputs, labels) from a raw batch: next-token prediction; an
+    audio encoder predicts each frame's unit (no shift), and a vlm's patch
+    positions are labelled -1 (ignored)."""
+    if cfg.frontend == "audio":
+        return {"frames": batch["frames"]}, batch["labels"]
     toks = batch["tokens"]
+    if cfg.frontend == "vlm":
+        inputs = {"tokens": toks[:, :-1], "patches": batch["patches"]}
+        ignore = toks.new_full((toks.shape[0], batch["patches"].shape[1]),
+                               -1)
+        return inputs, torch.cat([ignore, toks[:, 1:]], dim=1)
     return {"tokens": toks[:, :-1]}, toks[:, 1:]
 
 
@@ -87,14 +91,17 @@ def _mask_pad_slots(caches: List[Dict], lengths: torch.Tensor
                     ) -> List[Dict]:
     """Invalidate KV-cache slots written by right-padding tokens.
 
-    Each layer's cache carries per-request slot positions (``pos: [B,
-    s]``); slots at or beyond a request's real length are marked -1 so
+    An attention layer's cache carries per-request slot positions (``pos:
+    [B, s]``); slots at or beyond a request's real length are marked -1 so
     decode masks them out.  Requires no ring wrap over the padded span
     (``padded len <= cache_len``), which the batcher guarantees.
+    Recurrent-state caches (no ``pos`` key) pass through untouched.
     """
     ln = lengths[:, None].to(torch.int32)
     for c in caches:
-        c["pos"] = torch.where(c["pos"] < ln, c["pos"], -1).to(torch.int32)
+        if "pos" in c:
+            c["pos"] = torch.where(c["pos"] < ln, c["pos"], -1).to(
+                torch.int32)
     return caches
 
 
@@ -113,8 +120,8 @@ def prefill(params: tf.Transformer, batch: Dict, cfg: ModelConfig,
     """
     if cfg.is_encoder:
         raise ValueError("encoder models have no decode path")
-    toks = batch["tokens"]
-    caches = tf.init_cache(cfg, toks.shape[0], max_len, cache_dtype,
+    bsz = (batch["tokens"] if "tokens" in batch else batch["frames"]).shape[0]
+    caches = tf.init_cache(cfg, bsz, max_len, cache_dtype,
                            device=params.device)
     logits, caches, _ = tf.forward(params, batch, cfg, caches=caches)
     t = logits.shape[1]

@@ -1,11 +1,12 @@
 """The layer stack: embed -> per-layer blocks -> norm -> logits.
 
-Port of ``repro/models/transformer.py`` for the attention families: layer
-kinds ``"g"`` (global attention) and ``"l"`` (local attention), each with a
-dense MLP or a token-choice MoE (plus arctic's dense residual).  The
-recurrent kinds (``"r"`` RG-LRU, ``"m"`` Mamba-2 SSD) and the modality
-frontends raise :class:`NotImplementedError` (``ROADMAP.md``, Queue A item
-6).
+Port of ``repro/models/transformer.py``.  Layer kinds (``"g"`` global
+attention, ``"l"`` local attention, ``"r"`` RG-LRU, ``"m"`` Mamba-2 SSD)
+come from ``cfg.layer_pattern``; an attention layer carries a dense MLP or
+a token-choice MoE (plus arctic's dense residual), an RG-LRU layer a dense
+MLP, a Mamba layer nothing else.  A model with a modality frontend
+(``cfg.frontend``: ``"audio"`` frames or ``"vlm"`` patches) embeds its
+batch through ``models/frontend.py``.
 
 The reference scans each layer group over stacked parameters; eager torch
 runs one Python loop over per-layer :class:`Block` modules, so
@@ -13,7 +14,9 @@ runs one Python loop over per-layer :class:`Block` modules, so
 are the same loop, both names kept.  ``layer_plan`` still describes the
 reference's grouping: :func:`repro_torch.models.convert.params_from_jax`
 unstacks a JAX parameter tree by it.  Caches are a list with one dict per
-layer, in ``cfg.pattern`` order.
+layer, in ``cfg.pattern`` order: an attention layer's ``{"k", "v",
+"pos"}``, an RG-LRU layer's ``{"h", "conv"}``, a Mamba layer's ``{"ssm",
+"conv"}``.
 """
 from __future__ import annotations
 
@@ -25,34 +28,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ..runtime.device import resolve_device
 from . import attention as attn_mod
+from . import frontend as front_mod
 from . import mlp as mlp_mod
 from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .common import Params, dense_init, dtype_of, rms_norm, softcap
 from .config import ModelConfig
 
 __all__ = ["Block", "Transformer", "layer_plan", "init_params", "init_cache",
            "forward", "forward_unscanned", "decode_step",
-           "decode_step_unscanned", "check_supported"]
-
-_NOT_PORTED = {
-    "r": "the RG-LRU layer kind 'r' (models/rglru.py)",
-    "m": "the Mamba-2 SSD layer kind 'm' (models/ssm.py)",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    for kind in sorted(set(cfg.pattern)):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: {_NOT_PORTED[kind]} is not ported yet "
-                "(ROADMAP.md, Queue A item 6)")
-        if kind not in ("g", "l"):
-            raise ValueError(f"unknown layer kind {kind!r}")
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend (models/frontend.py) "
-            "is not ported yet (ROADMAP.md, Queue A item 6)")
+           "decode_step_unscanned"]
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -73,42 +59,51 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
 # Modules
 # ---------------------------------------------------------------------------
 class Block(nn.Module):
-    """One ``"g"``/``"l"`` layer: pre-norm attention, then a pre-norm MLP or
-    MoE (optional gemma2 post-norms).  ``ln1``/``ln2``/``pn1``/``pn2`` are
-    the norms' scales; ``attn``, ``moe`` and ``mlp`` hold their weights."""
+    """One layer: a pre-norm mixer (``attn`` for ``"g"``/``"l"``, ``rec``
+    for ``"r"``, ``mamba`` for ``"m"``), then a pre-norm MLP or MoE where
+    the kind has one (optional gemma2 post-norms).  ``ln1``/``ln2``/``pn1``/
+    ``pn2`` are the norms' scales; ``attn``, ``rec``, ``mamba``, ``moe``
+    and ``mlp`` hold their weights."""
 
-    def __init__(self, ln1: torch.Tensor, attn: Params,
+    def __init__(self, ln1: torch.Tensor, attn: Optional[Params] = None,
                  ln2: Optional[torch.Tensor] = None,
                  moe: Optional[Params] = None, mlp: Optional[Params] = None,
                  pn1: Optional[torch.Tensor] = None,
-                 pn2: Optional[torch.Tensor] = None):
+                 pn2: Optional[torch.Tensor] = None,
+                 rec: Optional[Params] = None,
+                 mamba: Optional[Params] = None):
         super().__init__()
         self.norms = Params(ln1=ln1, ln2=ln2, pn1=pn1, pn2=pn2)
-        self.attn = attn
-        if moe is not None:
-            self.moe = moe
-        if mlp is not None:
-            self.mlp = mlp
+        for name, mod in (("attn", attn), ("rec", rec), ("mamba", mamba),
+                          ("moe", moe), ("mlp", mlp)):
+            if mod is not None:
+                self.add_module(name, mod)
 
     def __contains__(self, name: str) -> bool:
         return name in self._modules or name in self.norms
 
 
 class Transformer(nn.Module):
-    """Embedding, the per-layer blocks, the final norm and the LM head
-    (``lm_head`` absent with tied embeddings)."""
+    """Embedding, the frontend (where the model has one), the per-layer
+    blocks, the final norm and the LM head (``lm_head`` absent with tied
+    embeddings)."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  final_norm: torch.Tensor, layers: List[Block],
-                 lm_head: Optional[torch.Tensor] = None):
+                 lm_head: Optional[torch.Tensor] = None,
+                 frontend: Optional[Params] = None):
         super().__init__()
-        check_supported(cfg)
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{cfg.name} has {cfg.n_layers} layers, got "
                              f"{len(layers)} blocks")
+        if (frontend is None) != (not cfg.frontend):
+            raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} needs "
+                             "its weights, and only it has them")
         self.cfg = cfg
         self.top = Params(embed=embed, final_norm=final_norm,
                           lm_head=lm_head)
+        if frontend is not None:
+            self.frontend = frontend
         self.layers = nn.ModuleList(layers)
 
     @property
@@ -121,13 +116,24 @@ class Transformer(nn.Module):
             else self.top.lm_head
 
 
-def _init_block(cfg: ModelConfig, gen: torch.Generator) -> Block:
+def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator) -> Block:
+    """One layer of ``kind``, the reference's ``_init_layer``."""
     d = cfg.d_model
     dev = gen.device
 
     def zeros():
         return torch.zeros(d, device=dev)
 
+    if kind == "m":
+        return Block(zeros(), mamba=ssm_mod.init_mamba(cfg, gen))
+    if kind == "r":
+        rec = rglru_mod.init_rglru(cfg, gen)
+        if cfg.mlp_kind == "none":
+            return Block(zeros(), rec=rec)
+        return Block(zeros(), rec=rec, ln2=zeros(),
+                     mlp=mlp_mod.init_mlp(cfg, gen))
+    if kind not in ("g", "l"):
+        raise ValueError(f"unknown layer kind {kind!r}")
     attn = attn_mod.init_attn(cfg, gen)
     moe = mlp = ln2 = pn1 = pn2 = None
     if cfg.moe is not None:
@@ -150,16 +156,17 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     a ``torch.Generator`` seeded with ``seed`` on that device.  The values
     are the port's own draws, not the reference's: carry JAX parameters
     across with :func:`repro_torch.models.convert.params_from_jax`."""
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         embed = dense_init(gen, (cfg.vocab_size, cfg.d_model), in_axis=1)
         lm_head = None if cfg.tie_embeddings else \
             dense_init(gen, (cfg.d_model, cfg.vocab_size))
-        layers = [_init_block(cfg, gen) for _ in cfg.pattern]
+        frontend = front_mod.init_frontend(cfg, gen)
+        layers = [_init_block(cfg, kind, gen) for kind in cfg.pattern]
         final_norm = torch.zeros(cfg.d_model, device=dev)
-    return Transformer(cfg, embed, final_norm, layers, lm_head=lm_head)
+    return Transformer(cfg, embed, final_norm, layers, lm_head=lm_head,
+                       frontend=frontend)
 
 
 # ---------------------------------------------------------------------------
@@ -168,11 +175,24 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device=None) -> List[Dict]:
-    """One attention cache per layer, in ``cfg.pattern`` order."""
-    check_supported(cfg)
+    """One cache per layer, in ``cfg.pattern`` order: attention layers'
+    in ``dtype``, the recurrent states in float32 whatever ``dtype`` (the
+    reference's ``_init_layer_cache``)."""
     dev = resolve_device(device)
-    return [attn_mod.init_attn_cache(cfg, kind, batch, max_len, dtype, dev)
+    return [_init_layer_cache(cfg, kind, batch, max_len, dtype, dev)
             for kind in cfg.pattern]
+
+
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                      dtype: torch.dtype, device) -> Dict:
+    if kind in ("g", "l"):
+        return attn_mod.init_attn_cache(cfg, kind, batch, max_len, dtype,
+                                        device)
+    if kind == "r":
+        return rglru_mod.init_rglru_cache(cfg, batch, device=device)
+    if kind == "m":
+        return ssm_mod.init_mamba_cache(cfg, batch, device=device)
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +218,17 @@ def _apply_layer(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
     aux = _zero_aux(x.device)
     nm = p.norms
     h = rms_norm(x, nm.ln1, cfg.norm_eps)
-    if decode:
+    if kind == "r":
+        if decode:
+            y, new_cache = rglru_mod.rglru_decode(p.rec, h, cache, cfg)
+        else:
+            y, new_cache = rglru_mod.rglru_forward(p.rec, h, cfg, cache)
+    elif kind == "m":
+        if decode:
+            y, new_cache = ssm_mod.mamba_decode(p.mamba, h, cache, cfg)
+        else:
+            y, new_cache = ssm_mod.mamba_forward(p.mamba, h, cfg, cache)
+    elif decode:
         y, new_cache = attn_mod.attn_decode(p.attn, h, cache, pos, cfg, kind)
     elif attn_fn is not None:
         y, new_cache = attn_fn(p.attn, h, cfg, kind, positions, cache)
@@ -228,10 +258,26 @@ def _apply_layer(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # Forward (prefill) and decode
 # ---------------------------------------------------------------------------
-def _embed_tokens(params: Transformer, tokens: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def _embed_inputs(params: Transformer, batch: Dict, cfg: ModelConfig,
+                  decode: bool = False) -> torch.Tensor:
+    """x [B, T, d] in the compute type: a frontend model's frames
+    (``"frames"``, audio) or patches prepended to its tokens
+    (``"patches"``, vlm), else the tokens' embeddings; gemma's
+    ``emb_scale`` applies to each.  A decode step (``decode``) embeds its
+    one token the tokens' way, frontend or not (the reference's
+    ``decode_step``)."""
     dtype = dtype_of(cfg.compute_dtype)
-    x = params.top.embed[tokens.long()].to(dtype)
+    front = None if decode else cfg.frontend
+    if front == "audio":
+        x = front_mod.audio_embed(params.frontend,
+                                  batch["frames"].to(dtype), cfg)
+    elif front == "vlm":
+        tok = params.top.embed[batch["tokens"].long()].to(dtype)
+        patches = front_mod.vlm_embed(params.frontend,
+                                      batch["patches"].to(dtype), cfg)
+        x = torch.cat([patches.to(dtype), tok], dim=1)
+    else:
+        x = params.top.embed[batch["tokens"].long()].to(dtype)
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     return x
@@ -255,8 +301,10 @@ def forward_unscanned(params: Transformer, batch: Dict, cfg: ModelConfig,
                       attn_fn: Optional[Callable] = None):
     """Full-sequence forward, one layer at a time; ``moe_fn`` / ``attn_fn``
     may do host-side work per layer (the serving engine builds its sparse
-    operators there).  ``batch["tokens"]``: int [B, T].  Returns (logits
-    [B, T, V] float32, new_caches, aux).
+    operators there).  ``batch`` holds ``"tokens"`` (int [B, T]), and a
+    frontend model's ``"frames"`` or ``"patches"`` (float, see
+    :func:`_embed_inputs`).  Returns (logits [B, T, V] float32,
+    new_caches, aux).
 
     Follows the caller's grad mode.  With gradients on and ``cfg.remat``,
     each layer without a cache is recomputed in the backward pass instead
@@ -265,7 +313,7 @@ def forward_unscanned(params: Transformer, batch: Dict, cfg: ModelConfig,
     layer unit): the recomputation's outputs are dropped, so ``dropped``
     and the aux losses count once, and a layer with a cache is never
     recomputed (its cache write happens once)."""
-    x = _embed_tokens(params, batch["tokens"], cfg)
+    x = _embed_inputs(params, batch, cfg)
     t = x.shape[1]
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
@@ -302,7 +350,7 @@ def decode_step_unscanned(params: Transformer, token: torch.Tensor,
     or an int [B] tensor of per-request positions (continuous batching).
     Returns (logits [B, 1, V], new_caches, aux)."""
     with torch.no_grad():
-        x = _embed_tokens(params, token, cfg)
+        x = _embed_inputs(params, {"tokens": token}, cfg, decode=True)
         aux_sum = _zero_aux(x.device)
         new_caches = []
         for blk, c_l, kind in zip(params.layers, caches, cfg.pattern):

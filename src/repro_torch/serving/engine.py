@@ -3,8 +3,10 @@
 Port of ``repro/serving/engine.py``.  Admission -> prefill -> decode with
 **continuous batching**: the engine owns a fixed pool of ``max_batch``
 decode slots; new requests prefill at a bucketed shape (one plan set per
-bucket, shared by every tenant in it), their KV rows are spliced into the
-batch cache at a free slot, and they join the very next decode step.
+bucket, shared by every tenant in it; a recurrent model's prompts at their
+exact length, ``effective_bucket``), their cache rows (KV or recurrent
+state) are spliced into the batch cache at a free slot, and they join the
+very next decode step.  A model with a frontend or an encoder is refused.
 Finished requests retire at step boundaries and their slots are reusable
 at once.
 
@@ -64,6 +66,11 @@ class ServeEngine:
                  keep_first_logits: bool = False):
         if cfg.is_encoder:
             raise ValueError("encoder models have no decode path")
+        if cfg.frontend:
+            raise ValueError(f"{cfg.name}: the engine serves token prompts; "
+                             f"a {cfg.frontend!r} model's prompts carry "
+                             "its frontend's inputs (lm.greedy_decode "
+                             "takes them)")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             strict_fp32()
@@ -125,7 +132,8 @@ class ServeEngine:
     def _insert_row(caches: List[Dict], row: List[Dict], slot: int) -> None:
         """Splice a batch-1 prefilled cache into the decode cache at
         ``slot`` (in place; the batch dim is axis 0 of every layer's
-        tensors)."""
+        tensors: an attention layer's ``k``/``v``/``pos``, an RG-LRU
+        layer's ``h``/``conv``, a Mamba layer's ``ssm``/``conv``)."""
         for c, r in zip(caches, row):
             for key, val in r.items():
                 c[key][slot] = val[0].to(c[key].dtype)

@@ -134,3 +134,26 @@ def test_partial_write_is_invisible(tmp_path):
     assert mgr.latest_step() == 1
     with pytest.raises(FileNotFoundError):
         CheckpointManager(str(tmp_path / "empty")).restore(None, _tree())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b",
+                                  "hubert-xlarge", "llava-next-mistral-7b"])
+def test_roundtrip_of_the_recurrent_and_frontend_families(tmp_path, arch):
+    """The RG-LRU (``rec``), Mamba (``mamba``) and frontend parameters and
+    their moments save under their names and restore in place."""
+    cfg = tconfigs.get_config(arch, smoke=True)
+    models = [ttf.init_params(cfg, seed=s, device="cpu") for s in (0, 1)]
+    states = [AdamW().init(m) for m in models]
+    for v in states[0]["mu"].values():
+        v.fill_(0.25)
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save(2, models[0], states[0])
+    step, (model, opt), _ = mgr.restore(None, (models[1], states[1]))
+    assert step == 2 and model is models[1]
+    _assert_equal((models[0], states[0]), (model, opt))
+    with open(tmp_path / "step_2" / "manifest.json") as f:
+        keys = json.load(f)["keys"]
+    part = {"mamba2-130m": "mamba.a_log", "recurrentgemma-2b": "rec.lam",
+            "hubert-xlarge": "frontend.ln_scale",
+            "llava-next-mistral-7b": "frontend.proj2"}[arch]
+    assert any(k.endswith(part) for k in keys), part

@@ -757,7 +757,70 @@ def test_sparse_engine_on_the_card_gives_the_cpu_tokens(card):
 # the training path: no kernel of its own, and none of B1-B3
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmoe-1b-7b"])
+def test_recurrent_engine_on_the_card_gives_the_cpu_tokens(card):
+    """The smoke recurrentgemma-2b sparse engine (RG-LRU layers, the local
+    attention layer's scores and P @ V through B2 and B1) on the card
+    decodes the CPU port's tokens at exact prompt lengths past its window
+    of 16; B2 and B1 launch once a prefill each, none in a decode step."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    model = tf.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (m,)) for m in (27, 20, 27)]
+    results = {}
+    b1, b2 = bsr_spmm_cuda.launches, bsr_pair_accumulate_cuda.launches
+    for dev in (card, torch.device("cpu")):
+        eng = ServeEngine(cfg, params=copy.deepcopy(model).to(dev),
+                          max_batch=2, max_len=48, sparse=True, device=dev)
+        for toks in prompts:
+            eng.submit(toks, max_new_tokens=4)
+        results[dev.type] = eng.run()
+    for rid in range(len(prompts)):
+        np.testing.assert_array_equal(results["cuda"][rid],
+                                      results["cpu"][rid])
+    n_local = cfg.pattern.count("l")
+    assert bsr_spmm_cuda.launches == b1 + n_local * len(prompts)
+    assert bsr_pair_accumulate_cuda.launches == b2 + n_local * len(prompts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
+def test_recurrent_layers_on_the_card_match_the_cpu(card, arch):
+    """The full forward (the RG-LRU's log-depth scan, the SSD's chunked
+    form with a padded last chunk), prefill and decode steps on the card
+    against the CPU, float32 with TF32 off, on the same parameters."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, transformer as tf
+    cfg = get_config(arch, smoke=True)
+    model = tf.init_params(cfg, seed=1, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 37)).astype(np.int32))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev)
+        t = toks.to(dev)
+        full, _, _ = tf.forward(m, {"tokens": t}, cfg)
+        last, caches, pos = lm.prefill(m, {"tokens": t[:, :30]}, cfg, 48,
+                                       torch.float32)
+        step = lm.make_decode_step(cfg)
+        steps = [last]
+        for i in range(30, 37):
+            logits, caches = step(m, t[:, i:i + 1], caches, pos)
+            steps.append(logits)
+            pos = pos + 1
+        out[dev.type] = (full.cpu(), torch.stack(steps).cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmoe-1b-7b", "mamba2-130m",
+                                  "recurrentgemma-2b", "hubert-xlarge",
+                                  "llava-next-mistral-7b"])
 def test_train_steps_on_the_card_match_the_cpu(card, arch):
     """Three ``make_train_step`` steps on the card from the CPU's model and
     state, float32 with TF32 off (olmoe at the published capacity factor,

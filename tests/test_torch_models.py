@@ -8,10 +8,16 @@ token counts; ``route_tokens``' ``top_e``, ``slot`` and ``keep`` exactly,
 ties included), ``moe_forward``, ``attn_forward``, ``attn_decode`` with
 per-row positions and the whole ``forward`` run on the JAX package's
 parameters carried across by ``params_from_jax``, in float32 within 1e-5
-(``tests/test_kernels.py``'s tolerance; logits 1e-4).  ``greedy_decode``
-must give JAX's tokens.
+(``tests/test_kernels.py``'s tolerance; logits 1e-4), for the attention,
+recurrent (RG-LRU, Mamba-2) and frontend (audio, vlm) families alike.
+``greedy_decode`` must give JAX's tokens; the recurrent families' decode
+steps must give their full forward's logits (``test_models_smoke.py``'s
+2e-3), and an encoder has no decode path.  The layers themselves are held
+in ``test_torch_recurrent.py``.
 """
 import dataclasses
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -33,10 +39,14 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import params_from_jax, unstack_layers
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 TOL = 1e-5
 LOGIT_TOL = 1e-4
-ARCHS = ("llama3-8b", "gemma2-9b", "olmoe-1b-7b")
+ARCHS = ("llama3-8b", "gemma2-9b", "olmoe-1b-7b", "mamba2-130m",
+         "recurrentgemma-2b", "hubert-xlarge", "llava-next-mistral-7b")
+# the archs with a decode path (hubert-xlarge is an encoder)
+DECODE_ARCHS = tuple(a for a in ARCHS if a != "hubert-xlarge")
 
 
 def _np(x):
@@ -71,6 +81,29 @@ def models():
 def _tokens(cfg, shape, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _inputs(cfg, b, t, seed=0):
+    """A model's inputs of ``b`` rows and ``t`` tokens (or frames), numpy:
+    an audio model's frames, a vlm's tokens and its patches."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        return {"frames": rng.standard_normal(
+            (b, t, cfg.frontend_dim)).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(
+        np.int32)}
+    if cfg.frontend == "vlm":
+        out["patches"] = rng.standard_normal(
+            (b, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def _jax_in(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch_in(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -109,11 +142,10 @@ def test_olmoe_published_size():
     assert cfg.param_count() == 6_919_028_736
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b",
-                                  "hubert-xlarge", "llava-next-mistral-7b"])
-def test_unported_families_raise(arch):
-    cfg = tconfigs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_unknown_layer_kind_raises():
+    cfg = dataclasses.replace(tconfigs.get_config("llama3-8b", smoke=True),
+                              layer_pattern="gx")
+    with pytest.raises(ValueError, match="unknown layer kind"):
         ttf.init_params(cfg, device="cpu")
 
 
@@ -138,6 +170,21 @@ def test_init_params_matches_the_jax_tree(arch):
     again = ttf.init_params(cfg, seed=0, device="cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(model.parameters(), again.parameters()))
+
+
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_exact_params(arch):
+    """``chip_smoke.exact_params``, which holds each published model's
+    parameter count on the card, equals the size of the JAX package's
+    parameter tree."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shapes = jax.eval_shape(lambda: jtf.init_params(
+        jconfigs.get_config(arch, smoke=True), jax.random.PRNGKey(0)))
+    assert smoke.exact_params(tconfigs.get_config(arch, smoke=True)) == sum(
+        int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
 
 
 def test_entry_points_need_a_device_without_a_card():
@@ -353,34 +400,41 @@ def test_attn_decode_per_row_positions(models, arch, kind):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_and_aux(models, arch):
     jcfg, tcfg, jp, _, tp = models[arch]
-    toks = _tokens(jcfg, (2, 13), seed=7)
-    lj, _, aux_j = jtf.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg)
-    lt, _, aux_t = ttf.forward(tp, {"tokens": _t(toks)}, tcfg)
+    batch = _inputs(jcfg, 2, 13, seed=7)
+    lj, _, aux_j = jtf.forward(jp, _jax_in(batch), jcfg)
+    lt, _, aux_t = ttf.forward(tp, _torch_in(batch), tcfg)
     assert lt.dtype == torch.float32 and lt.shape == lj.shape
     _close(lt, lj, LOGIT_TOL)
     for key in aux_j:
         _close(aux_t[key], aux_j[key], LOGIT_TOL, what=key)
-    lu, _, _ = ttf.forward_unscanned(tp, {"tokens": _t(toks)}, tcfg)
+    lu, _, _ = ttf.forward_unscanned(tp, _torch_in(batch), tcfg)
     assert torch.equal(lu, lt)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_prefill_and_decode_steps(models, arch):
-    """Padded prefill (per-row lengths) fills the cache JAX's way; the
-    decode steps at per-row positions give JAX's logits."""
+    """Padded prefill (per-row lengths) fills the cache JAX's way (the
+    attention layers' slots masked, the recurrent states as the reference
+    leaves them); the decode steps at per-row positions give JAX's
+    logits."""
     jcfg, tcfg, jp, _, tp = models[arch]
-    toks = _tokens(jcfg, (2, 16), seed=8)
-    lengths = np.array([16, 11], np.int32)
-    lj, cj, pj = jlm.prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg, 32,
+    batch = _inputs(jcfg, 2, 16, seed=8)
+    total = 16 + jcfg.num_patches
+    lengths = np.array([total, total - 5], np.int32)
+    lj, cj, pj = jlm.prefill(jp, _jax_in(batch), jcfg, 32,
                              jnp.float32, jnp.asarray(lengths))
-    lt, ct, pt = tlm.prefill(tp, {"tokens": _t(toks)}, tcfg, 32,
+    lt, ct, pt = tlm.prefill(tp, _torch_in(batch), tcfg, 32,
                              torch.float32, _t(lengths))
     _close(lt, lj, LOGIT_TOL)
     np.testing.assert_array_equal(pt.numpy(), _np(pj))
     for layer_j, layer_t in zip(unstack_layers(jcfg, cj), ct):
-        np.testing.assert_array_equal(layer_t["pos"].numpy(),
-                                      layer_j["pos"])
-        _close(layer_t["k"], layer_j["k"])
+        assert set(layer_t) == set(layer_j)
+        for key in layer_j:
+            if key == "pos":
+                np.testing.assert_array_equal(layer_t["pos"].numpy(),
+                                              layer_j["pos"])
+            else:
+                _close(layer_t[key], layer_j[key], what=key)
     jstep = jlm.make_decode_step(jcfg, with_aux=True)
     tstep = tlm.make_decode_step(tcfg, with_aux=True)
     tok = np.argmax(_np(lj), -1)[:, None].astype(np.int32)
@@ -393,19 +447,68 @@ def test_prefill_and_decode_steps(models, arch):
         pj, pt = pj + 1, pt + 1
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_greedy_decode_tokens_equal_jax(models, arch):
     jcfg, tcfg, jp, _, tp = models[arch]
-    toks = _tokens(jcfg, (2, 10), seed=9)
-    want = jlm.greedy_decode(jp, {"tokens": jnp.asarray(toks)}, jcfg,
-                             steps=5, max_len=24)
-    got = tlm.greedy_decode(tp, {"tokens": _t(toks)}, tcfg, steps=5,
+    batch = _inputs(jcfg, 2, 10, seed=9)
+    want = jlm.greedy_decode(jp, _jax_in(batch), jcfg, steps=5, max_len=24)
+    got = tlm.greedy_decode(tp, _torch_in(batch), tcfg, steps=5,
                             max_len=24)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), _np(want))
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
+def test_decode_matches_forward(models, arch):
+    """Prefill on 8 tokens, then decode tokens 8..11: the logits equal the
+    full forward's (``test_models_smoke.py``'s counterpart, its 2e-3)."""
+    _, tcfg, _, _, tp = models[arch]
+    toks = _t(_tokens(tcfg, (2, 12), seed=1))
+    full, _, _ = ttf.forward(tp, {"tokens": toks}, tcfg)
+    last, caches, pos = tlm.prefill(tp, {"tokens": toks[:, :8]}, tcfg,
+                                    max_len=32, cache_dtype=torch.float32)
+    np.testing.assert_allclose(last.numpy(), full[:, 7].numpy(), rtol=2e-3,
+                               atol=2e-3)
+    step = tlm.make_decode_step(tcfg)
+    for t in range(8, 12):
+        logits, caches = step(tp, toks[:, t:t + 1], caches, pos)
+        np.testing.assert_allclose(
+            logits.numpy(), full[:, t].numpy(), rtol=2e-3, atol=2e-3,
+            err_msg=f"{arch}: decode diverges at position {t}")
+        pos = pos + 1
+
+
+def test_encoder_has_no_decode(models):
+    _, tcfg, _, _, tp = models["hubert-xlarge"]
+    with pytest.raises(ValueError, match="encoder"):
+        tlm.prefill(tp, {"frames": torch.zeros((1, 4, tcfg.frontend_dim))},
+                    tcfg, max_len=8)
+
+
+def test_caches_from_jax_carry_every_layer_kind(models):
+    """A JAX prefill's cache, carried across, decodes the port's step to
+    JAX's logits (RG-LRU, local attention and Mamba layers)."""
+    from repro_torch.models.convert import caches_from_jax
+    for arch in ("recurrentgemma-2b", "mamba2-130m"):
+        jcfg, tcfg, jp, _, tp = models[arch]
+        toks = _tokens(jcfg, (2, 20), seed=11)
+        _, cj, pj = jlm.prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg, 32,
+                                jnp.float32)
+        ct = caches_from_jax(jax.tree.map(np.asarray, cj), tcfg,
+                             device="cpu")
+        assert [set(c) for c in ct] == [
+            {"g": {"k", "v", "pos"}, "l": {"k", "v", "pos"},
+             "r": {"h", "conv"}, "m": {"ssm", "conv"}}[k]
+            for k in tcfg.pattern]
+        tok = toks[:, -1:]
+        lj, _ = jlm.make_decode_step(jcfg)(jp, jnp.asarray(tok), cj, pj)
+        lt, _ = tlm.make_decode_step(tcfg)(tp, _t(tok), ct, int(pj))
+        _close(lt, lj, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-9b", "mamba2-130m",
+                                  "recurrentgemma-2b", "hubert-xlarge",
+                                  "llava-next-mistral-7b"])
 def test_bf16_compute_matches_jax_within_bf16(models, arch):
     """The published configs compute in bfloat16 on float32 parameters cast
     per use: the logits stay within a few bf16 steps of the JAX package's.
@@ -414,9 +517,9 @@ def test_bf16_compute_matches_jax_within_bf16(models, arch):
     jcfg, tcfg, jp, _, tp = models[arch]
     jcfg = dataclasses.replace(jcfg, compute_dtype="bfloat16")
     tcfg = dataclasses.replace(tcfg, compute_dtype="bfloat16")
-    toks = _tokens(jcfg, (1, 12), seed=10)
-    lj, _, _ = jtf.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg)
-    lt, _, _ = ttf.forward(tp, {"tokens": _t(toks)}, tcfg)
+    batch = _inputs(jcfg, 1, 12, seed=10)
+    lj, _, _ = jtf.forward(jp, _jax_in(batch), jcfg)
+    lt, _, _ = ttf.forward(tp, _torch_in(batch), tcfg)
     assert lt.dtype == torch.float32
     scale = float(np.abs(_np(lj)).max())
     assert float(np.abs(lt.numpy() - _np(lj)).max()) <= 0.05 * scale

@@ -166,6 +166,39 @@ def test_error_feedback_preserves_sum():
     assert drift <= float(np.abs(true).max()) / 127.0 + 1e-5
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b",
+                                  "hubert-xlarge", "llava-next-mistral-7b"])
+def test_adamw_decays_every_leaf(arch):
+    """With zero gradients a step is the decay alone, on every parameter
+    (the reference decays every leaf: the SSD's ``a_log`` and ``dt_bias``,
+    the RG-LRU's ``lam``, norms and frontends too), JAX's update on the
+    same tree."""
+    from repro.models import transformer as jtf
+    from repro_torch.models.convert import params_from_jax
+    jcfg = jconfigs.get_config(arch, smoke=True)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    jp = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    jopt = JAdamW(lr=0.1)
+    jupd, _ = jopt.update(jax.tree.map(jnp.zeros_like, jp), jopt.init(jp), jp)
+    want = {n: p.detach().numpy() for n, p in params_from_jax(
+        jax.tree.map(np.asarray, jupd), tcfg, device="cpu")
+        .named_parameters()}
+    model = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    opt = AdamW(lr=0.1)
+    named = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in named.items()}
+    opt.apply(named, {n: torch.zeros_like(p) for n, p in named.items()},
+              opt.init(model))
+    assert set(want) == set(named)
+    for n, p in named.items():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   before[n].numpy() + want[n], rtol=1e-6,
+                                   atol=1e-7, err_msg=n)
+        nonzero = before[n] != 0
+        assert bool((p.detach()[nonzero].abs()
+                     < before[n][nonzero].abs()).all()), n
+
+
 # ---------------------------------------------------------------------------
 # data
 # ---------------------------------------------------------------------------

@@ -12,7 +12,14 @@ package's ``repro.serving``: the counterparts of ``tests/test_serving.py``.
 * plans are shared across tenants of a bucket (no new plan and no miss
   for the second tenant, ``add_trace_hook`` sees nothing), also across
   routings of the MoE operators; eviction churn at ``maxsize=1`` rebuilds
-  and never corrupts; a replanner that trips drains without corrupting.
+  and never corrupts; a replanner that trips drains without corrupting;
+* a recurrent model (recurrentgemma-2b smoke: RG-LRU layers and a local
+  attention layer of window 16) serves at exact prompt lengths, dense and
+  sparse, with JAX's tokens: the sparse engine runs B1 and B2 (their plain
+  versions here) in the local-attention layer only, once a prefill each,
+  and a second request of the same length builds no plan; a padded
+  prefill leaves the recurrent states as the reference does and masks
+  the attention slots.
 
 The JAX references are computed once per module (``jax_refs``).
 """
@@ -47,6 +54,8 @@ DENSE_LENS = (12, 9, 8)          # 12 and 9 pad to bucket 16, 8 is exact
 SPARSE_LENS = (12, 9)
 TENANT_LENS = (12, 9)            # both pad to 16
 CHURN_LENS = (6, 20, 7)          # buckets 8, 32, 8
+RECURRENT_LENS = (11, 7)         # exact lengths: recurrent state sees pads
+LOCAL_LENS = (27, 20, 27)        # past the smoke local window of 16
 
 
 def _prompts(cfg, lens, seed=0):
@@ -86,7 +95,13 @@ def jax_refs():
     jcfg, _, jp, _ = olmoe
     refs["sparse"] = [_greedy(jp, jcfg, t, 3)
                       for t in _prompts(jcfg, SPARSE_LENS)]
-    return {"llama": llama, "olmoe": olmoe, **refs}
+    rgemma = _model("recurrentgemma-2b")
+    jcfg, _, jp, _ = rgemma
+    refs["recurrent"] = [_greedy(jp, jcfg, t, 3)
+                         for t in _prompts(jcfg, RECURRENT_LENS)]
+    refs["local"] = [_greedy(jp, jcfg, t, 3)
+                     for t in _prompts(jcfg, LOCAL_LENS, seed=1)]
+    return {"llama": llama, "olmoe": olmoe, "rgemma": rgemma, **refs}
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +271,120 @@ def test_sparse_engine_matches_jax_and_drops_nothing(jax_refs):
     assert s["decode_steps"] > 0
     assert s["dropped_mean"] == 0.0 and s["dropped_max"] == 0.0
     assert s["plan_lookups"] > 0
+
+
+# ---------------------------------------------------------------------------
+# a recurrent model: exact-length prefill, the sparse local attention
+# ---------------------------------------------------------------------------
+def test_dense_engine_no_padding_family(jax_refs):
+    """Recurrent models serve at exact lengths (padding unsound) and still
+    give JAX's tokens (``test_serving.py``'s counterpart)."""
+    jcfg, tcfg, _, tp = jax_refs["rgemma"]
+    prompts = _prompts(tcfg, RECURRENT_LENS)
+    for toks in prompts:
+        assert effective_bucket(tcfg, len(toks), MAX_LEN) == len(toks)
+    eng = ServeEngine(tcfg, params=tp, max_batch=2, max_len=MAX_LEN,
+                      device="cpu")
+    for toks in prompts:
+        eng.submit(toks, max_new_tokens=3)
+    results = eng.run()
+    for rid, want in enumerate(jax_refs["recurrent"]):
+        np.testing.assert_array_equal(results[rid], want,
+                                      err_msg=f"request {rid}")
+
+
+def _plain_calls():
+    """A call hook counting the kernels' wrapper calls by name (here on the
+    CPU each runs the kernel's plain version)."""
+    from repro_torch.kernels import ops
+    calls = {"bsr_spmm": 0, "bsr_pair_accumulate": 0}
+
+    def hook(name, when):
+        if when == "begin" and name in calls:
+            calls[name] += 1
+    return calls, ops.add_call_hook(hook)
+
+
+def test_sparse_engine_on_a_recurrent_model_matches_jax(jax_refs):
+    """recurrentgemma-2b smoke through ``ServeEngine(sparse=True)`` with
+    prompts past its local window of 16 (so the window's mask prunes
+    blocks of P): JAX's tokens; B2 (the scores) and B1 (P @ V) once a
+    prefill in its one local-attention layer and never in a decode step
+    or an RG-LRU layer; the third request, of the first's length, builds
+    no plan."""
+    from repro_torch.kernels import ops
+    jcfg, tcfg, _, tp = jax_refs["rgemma"]
+    n_local = tcfg.pattern.count("l")
+    assert n_local == 1 and tcfg.local_window == 16
+    prompts = _prompts(tcfg, LOCAL_LENS, seed=1)
+    api.clear_plan_cache()
+    eng = ServeEngine(tcfg, params=tp, max_batch=2, max_len=MAX_LEN,
+                      sparse=True, device="cpu")
+    for toks in prompts:
+        eng.submit(toks, max_new_tokens=3)
+    calls, hook = _plain_calls()
+    built = []
+    trace = api.add_trace_hook(lambda plan: built.append(plan))
+    admitted = []
+    orig = eng._admit
+
+    def admit(req):
+        admitted.append((req.rid, len(built)))
+        orig(req)
+    eng._admit = admit
+    try:
+        results = eng.run()
+    finally:
+        ops.remove_call_hook(hook)
+        api.remove_trace_hook(trace)
+    for rid, want in enumerate(jax_refs["local"]):
+        np.testing.assert_array_equal(results[rid], want,
+                                      err_msg=f"request {rid}")
+    assert calls == {"bsr_spmm": n_local * len(prompts),
+                     "bsr_pair_accumulate": n_local * len(prompts)}
+    # the third request (rid 2) repeats rid 0's exact length: no new plan
+    # between its admission and the end of the run
+    start = dict(admitted)[2]
+    assert len(built) == start > 0
+
+
+def test_mask_pad_slots_on_a_mixed_recurrent_cache(jax_refs):
+    """A padded prefill (per-row lengths) of the ``"rrlr"`` model: the
+    RG-LRU states pass through untouched (no ``pos``), the local layer's
+    slots at or past each row's length read -1; every cache equals JAX's
+    ``prefill(lengths=...)``."""
+    from repro.models import lm as jlm_
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.convert import unstack_layers
+    jcfg, tcfg, jp, tp = jax_refs["rgemma"]
+    toks = np.stack(_prompts(tcfg, (20, 20), seed=3))
+    lengths = np.array([20, 13], np.int32)
+    _, cj, _ = jlm_.prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg, MAX_LEN,
+                            jnp.float32, jnp.asarray(lengths))
+    _, ct, pt = tlm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcfg,
+                            MAX_LEN, torch.float32, torch.from_numpy(lengths))
+    np.testing.assert_array_equal(pt.numpy(), lengths)
+    kinds = []
+    for kind, layer_j, layer_t in zip(tcfg.pattern,
+                                      unstack_layers(jcfg, cj), ct):
+        kinds.append(kind)
+        assert set(layer_t) == set(layer_j)
+        if kind == "l":
+            pos = layer_t["pos"].numpy()
+            np.testing.assert_array_equal(pos, layer_j["pos"])
+            assert (pos[1] < 13).all() and (pos[1] == -1).any()
+        for key in layer_j:
+            if key != "pos":
+                np.testing.assert_allclose(layer_t[key].numpy(),
+                                           layer_j[key], rtol=TOL, atol=TOL,
+                                           err_msg=f"{kind}/{key}")
+    assert kinds == list("rrlr")
+    # the repair itself, on its own: a state cache passes through as is
+    h = {"h": torch.ones(2, 3), "conv": torch.zeros(2, 3, 3)}
+    attn = {"pos": torch.tensor([[0, 1, 2], [0, 1, 2]], dtype=torch.int32)}
+    out = tlm._mask_pad_slots([h, attn], torch.tensor([3, 2]))
+    assert out[0] is h and set(h) == {"h", "conv"}
+    assert out[1]["pos"].tolist() == [[0, 1, 2], [0, 1, -1]]
 
 
 # ---------------------------------------------------------------------------
@@ -464,3 +593,20 @@ def test_serve_cli_on_the_cpu(capsys):
     with pytest.raises(SystemExit, match="encoder-only"):
         tserve.main(["--arch", "hubert-xlarge", "--smoke", "--device",
                      "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
+def test_serve_cli_runs_the_recurrent_families(capsys, arch):
+    assert tserve.main(["--arch", arch, "--smoke", "--sparse", "--device",
+                        "cpu", "--requests", "2", "--prompt-len", "20",
+                        "--gen-len", "3"]) == 0
+    assert "[serve] prefill" in capsys.readouterr().out
+
+
+def test_engine_refuses_a_frontend_model():
+    cfg = tconfigs.get_config("llava-next-mistral-7b", smoke=True)
+    with pytest.raises(ValueError, match="token prompts"):
+        ServeEngine(cfg, device="cpu")
+    with pytest.raises(SystemExit, match="vlm inputs"):
+        tserve.main(["--arch", "llava-next-mistral-7b", "--smoke",
+                     "--device", "cpu"])

@@ -10,8 +10,11 @@ float32 tolerance); one and three train steps' parameters, moments and
 gradient norms likewise, the parameters within 1e-5 plus what Adam may
 make of the two runs' gradient differences (``AdamW.rounding_allowance``).
 Recomputing layers (``cfg.remat``) must not change a gradient or a
-metric.  ``train()`` must lower the loss and resume a stopped job to the
-straight run's parameters (the JAX test's 1e-5 / 1e-6).  Serving a model
+metric.  The cases cover every family: attention (dense and MoE), the
+recurrent ones (Mamba-2, RG-LRU with local attention) and the frontends
+(an audio encoder's frames, a vlm's patches).  ``train()`` must lower the
+loss and resume a stopped job to the straight run's parameters (the JAX
+test's 1e-5 / 1e-6, on its config, mamba2-130m).  Serving a model
 that was trained builds no autograd graph, and
 the sparse kernels' wrappers refuse inputs that need a gradient.
 JAX references are computed once per module.
@@ -42,9 +45,12 @@ TOL = 1e-5
 # arch -> config changes on both sides; "olmoe-1b-7b/cap1" routes at the
 # published capacity factor, so the smoke batch drops tokens
 CASES = {"qwen2.5-3b": {}, "llama3-8b": {}, "gemma2-9b": {},
-         "olmoe-1b-7b": {}, "olmoe-1b-7b/cap1": {"capacity_factor": 1.25}}
+         "olmoe-1b-7b": {}, "olmoe-1b-7b/cap1": {"capacity_factor": 1.25},
+         "mamba2-130m": {}, "recurrentgemma-2b": {}, "hubert-xlarge": {},
+         "llava-next-mistral-7b": {}}
 BATCH, SEQ = 2, 16
-STEP_CASES = ("qwen2.5-3b", "olmoe-1b-7b/cap1")
+STEP_CASES = ("qwen2.5-3b", "olmoe-1b-7b/cap1", "mamba2-130m",
+              "recurrentgemma-2b", "hubert-xlarge", "llava-next-mistral-7b")
 STEPS, LR = 3, 3e-3
 
 
@@ -176,7 +182,10 @@ def test_loss_and_gradients_match_jax(grads_ref, case):
     named = dict(model.named_parameters())
     assert set(named) == set(grads)
     for n, p in named.items():
-        _close(p.grad, grads[n], what=n)
+        # a parameter the loss does not read (an audio encoder's token
+        # embedding) has no gradient here and a zero one in JAX
+        _close(p.grad if p.grad is not None else torch.zeros_like(p),
+               grads[n], what=n)
     if tcfg.moe is not None:
         assert any(n.endswith("moe.router") and grads[n].any()
                    for n in grads)
@@ -213,12 +222,25 @@ def test_remat_gives_the_same_gradients_and_metrics(grads_ref, case):
         _close(g1[n], jg[n], what=n)
 
 
-def test_frontend_batches_are_not_ported():
-    for arch in ("hubert-xlarge", "llava-next-mistral-7b"):
-        cfg = tconfigs.get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tlm._shift_batch(
-                {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, cfg)
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "hubert-xlarge",
+                                  "llava-next-mistral-7b"])
+def test_shift_batch_equals_jax(arch):
+    """Inputs and labels of a raw batch: next-token prediction, an audio
+    encoder's frame units unshifted, a vlm's patch positions labelled
+    -1."""
+    jcfg = jconfigs.get_config(arch, smoke=True)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    batch = SyntheticLM(tcfg, BATCH, SEQ, seed=2)(0)
+    ji, jl = jlm._shift_batch({k: jnp.asarray(v) for k, v in batch.items()},
+                              jcfg)
+    ti, tl = tlm._shift_batch({k: torch.from_numpy(v)
+                               for k, v in batch.items()}, tcfg)
+    assert set(ti) == set(ji)
+    for k in ji:
+        np.testing.assert_array_equal(ti[k].numpy(), _np(ji[k]), err_msg=k)
+    np.testing.assert_array_equal(tl.numpy(), _np(jl))
+    if tcfg.frontend == "vlm":
+        assert (tl[:, :tcfg.num_patches] == -1).all()
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +340,19 @@ def test_train_needs_a_card_unless_told_the_cpu():
         launch_train.main(["--arch", "qwen2.5-3b", "--smoke", "--steps", "1"])
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b",
+                                  "hubert-xlarge", "llava-next-mistral-7b"])
+def test_train_cli_runs_every_family(capsys, arch):
+    """The CLI trains the recurrent and frontend families on their own
+    batches (tokens, frames, patches and tokens)."""
+    from repro_torch.launch import train as launch_train
+    assert launch_train.main(["--arch", arch, "--smoke", "--steps", "3",
+                              "--batch", "2", "--seq", "16",
+                              "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "mean loss" in out and "nan" not in out
+
+
 def test_loss_decreases_tiny_lm():
     """The port's counterpart of ``test_train_loop.py``'s first test."""
     cfg = tconfigs.get_config("qwen2.5-3b", smoke=True)
@@ -340,9 +375,9 @@ def _params_close(a, b):
 
 def test_checkpoint_resume_equals_the_straight_run(tmp_path):
     """train 20 straight == train 10, 'crash', resume to 20 (the port's
-    counterpart of ``test_train_loop.py``'s resume test, on qwen2.5-3b
-    smoke: mamba2-130m is not ported)."""
-    cfg = tconfigs.get_config("qwen2.5-3b", smoke=True)
+    counterpart of ``test_train_loop.py``'s resume test, on its config,
+    mamba2-130m smoke)."""
+    cfg = tconfigs.get_config("mamba2-130m", smoke=True)
     kw = dict(steps=20, batch=2, seq=16, ckpt_every=100, log_every=0,
               seed=7, device="cpu")
     full = train(cfg, ckpt_dir=str(tmp_path / "straight"), **kw)
