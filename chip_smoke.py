@@ -153,7 +153,30 @@ non-zero and prints no result line):
    4 x 512 frames (finite losses and gradient norms, time a step); and
    llava-next-mistral-7b at its published width, weights in bf16, decodes
    8 tokens greedily after 1,152 patches and 64 text tokens (finite
-   logits, the prefill's wall time, peak memory).
+   logits, the prefill's wall time, peak memory);
+15. the schedules on a process grid (``launch/grid.py``): 4 ranks
+   (g = 2) spawned on this one card, joined over the ``gloo`` transport,
+   each staging its tiles through pinned host memory (NCCL refuses two
+   ranks on one card: ``make_grid_mesh(2, backend="nccl")`` must refuse
+   at once).  The stacked executor's results come first, on the same
+   inputs; the parent then frees its card memory and spawns the ranks,
+   which load their own tiles only.  On the SpMM cell (R-MAT scale 15,
+   bs 128, B 512 wide): ``ring_c`` in float32 and bf16, padded and packed
+   wire, overlap on and off, then ``summa_bcast``, ``summa_ag``,
+   ``ring_a``, ``ring_c_bidir`` and ``steal3d`` in float32; on the sparse
+   cell (scale 16, edge factor 1, bs 32, packed): sparse outputs through
+   ``ring_c``, ``summa_ag`` and ``summa_bcast``.  Every rank's C tile
+   against the stacked executor's (dense: within the dense tolerance,
+   bit-equality printed; sparse: the structure fingerprint and exact
+   sums equal), the blocks and pairs each rank's B1 and B2 launches
+   multiplied (counted on the card) equal to its tables' real ones and,
+   summed over the ranks, to the stacked plan's, each rank's body bytes
+   equal to the cost model's relation; the slowest rank's wall per
+   multiply, each rank's host staging and transport time, B1's and B2's
+   busy time by rank (profiled), peak memory by rank, and B1 and B2 at a
+   rank's one-tile shapes against their plain versions, bounds and
+   library yardsticks.  These times are of 4 ranks sharing one card over
+   host memory, not of NVLink.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The last two lines are the ``{"kernels": [...]}`` record and
@@ -3633,6 +3656,441 @@ def recurrent_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the schedules on a process grid, 4 ranks on the card
+# ---------------------------------------------------------------------------
+# (label, dtype, algorithm, wire, overlap) of the SpMM cell's multiplies on
+# the ranks: ring_c at both types, wires and overlaps, then the other five
+GRID_DENSE = tuple(
+    (f"ring_c {str(dt)[6:]} {wire} overlap={ov}", dt, "ring_c", wire, ov)
+    for dt in (torch.float32, torch.bfloat16) for wire in ("padded", "packed")
+    for ov in ("on", "off")) + tuple(
+    (f"{alg} float32", torch.float32, alg, "auto", "auto")
+    for alg in ("summa_bcast", "summa_ag", "ring_a", "ring_c_bidir",
+                "steal3d"))
+GRID_SPARSE = ("ring_c", "summa_ag", "summa_bcast")
+GRID = dict(g=2, backend="gloo", timeout_s=420, reps=2)
+
+
+def grid_body_bytes(alg: str, plan, g: int) -> float:
+    """What a rank sends in one multiply's body, from the plan's cost dict
+    (tests/test_torch_grid.py holds the same relation on the CPU): the
+    rings and ``summa_bcast`` (g - 1) x ``net_bytes_per_step`` (g - 1
+    shifts, or a root's tile to g - 1 peers), ``summa_ag`` g x it,
+    ``ring_a`` (g - 1) x it + one C tile (C's last hop home), steal3d the
+    dict's one dispatch."""
+    net = plan.cost_model()["net_bytes_per_step"]
+    if alg in ("ring_c", "ring_c_bidir", "summa_bcast"):
+        return (g - 1) * net
+    if alg == "summa_ag":
+        return g * net
+    if alg == "ring_a":
+        geom = plan.geom
+        return (g - 1) * net + geom.tm * geom.tn * geom.out_dtype.itemsize
+    return net
+
+
+def tile_sums(blocks: torch.Tensor, chunk: int = 1 << 24) -> tuple:
+    """An exact fingerprint of a tile of integer-valued blocks: its nonzero
+    count, sum and position-weighted sum, in float64 (exact below 2^53),
+    taken ``chunk`` elements at a time (a sparse C tile is 1.9 GB)."""
+    x = blocks.reshape(-1)
+    nz, total, weighted = 0, 0.0, 0.0
+    for lo in range(0, x.numel(), chunk):
+        part = x[lo:lo + chunk].double()
+        w = (torch.arange(lo, lo + part.numel(), device=x.device) % 997
+             + 1).double()
+        nz += int(torch.count_nonzero(part).item())
+        total += float(part.sum().item())
+        weighted += float((part * w).sum().item())
+    return nz, total, weighted
+
+
+def host_tiled(t):
+    """A TiledBSR's copy in host memory, its host layout kept."""
+    h = dataclasses.replace(t, blocks=t.blocks.cpu(), rows=t.rows.cpu(),
+                            cols=t.cols.cpu(), counts=t.counts.cpu())
+    h.host_layout = t.host()
+    return h
+
+
+def grid_expected(tmp: Path, device) -> dict:
+    """The stacked executor's results for phase 15's multiplies, written
+    for the ranks: the operands in host memory (one file, which each rank
+    maps) and, per rank, its C tiles with their |A| @ |B| scales (dense
+    outputs) and its C tile's structure fingerprint and sums (sparse)."""
+    from repro_torch.core import api
+    from repro_torch.core.api import DistBSR
+    from repro_torch.core.bsr import rmat_matrix
+    g = GRID["g"]
+    a_np, a32, a16, b_np, b32, b16 = main_path_operands(device)
+    a_dense = torch.from_numpy(a_np).to(device)
+    del a_np
+    b_t = torch.from_numpy(b_np).to(device)
+    scales = {torch.float32: a_dense.abs() @ b_t.abs(),
+              torch.bfloat16: a_dense.abs() @ b_t.bfloat16().float().abs()}
+    del a_dense, b_t
+    handles = {torch.float32: (a32, b32), torch.bfloat16: (a16, b16)}
+    tm, tn = a32.tile_shape[0], b32.tile_shape[1]
+    per_rank = [{"dense": {}, "sparse": {}} for _ in range(g * g)]
+    stacked = {}
+    for label, dtype, alg, wire, overlap in GRID_DENSE:
+        a_h, b_h = handles[dtype]
+        kw = dict(algorithm=alg, wire=wire)
+        out, blocks = counted_blocks(lambda: api.matmul(a_h, b_h, **kw))
+        stacked[label] = {"blocks_multiplied": blocks}
+        for r in range(g * g):
+            i, j = divmod(r, g)
+            sl = (slice(i * tm, (i + 1) * tm), slice(j * tn, (j + 1) * tn))
+            per_rank[r]["dense"][label] = {
+                "tile": out[sl].cpu(), "scale": scales[dtype][sl].cpu()}
+        del out
+    ops = {"a": host_tiled(a32.tiled), "b": b_np}
+    del a32, a16, b32, b16, handles, scales
+    free()
+    cfg = SPARSE
+    t0 = time.perf_counter()
+    s_np = rmat_matrix(cfg["scale"], cfg["edgefactor"], seed=cfg["seed"])
+    s_h = DistBSR.from_dense(s_np, g=g, block_size=cfg["block_size"],
+                             device=device)
+    del s_np
+    ops["s"] = host_tiled(s_h.tiled)
+    for alg in GRID_SPARSE:
+        c, pairs = counted(lambda: api.matmul(s_h, s_h, algorithm=alg,
+                                              output="sparse"),
+                           kernel_wrappers()["bsr_pair_accumulate"])
+        stacked[f"{alg} sparse"] = {"pairs_multiplied": pairs}
+        fp = c.grid_structure().fingerprint
+        for r in range(g * g):
+            i, j = divmod(r, g)
+            per_rank[r]["sparse"][alg] = {
+                "fingerprint": fp, "sums": tile_sums(c.tiled.blocks[i, j])}
+        del c
+    del s_h
+    free()
+    paths = {"ops": str(tmp / "ops.pt"),
+             "expected": [str(tmp / f"expected{r}.pt")
+                          for r in range(g * g)]}
+    torch.save(ops, paths["ops"])
+    for r in range(g * g):
+        torch.save(per_rank[r], paths["expected"][r])
+    log(f"  the stacked executor's results and the operands written for the "
+        f"ranks in {time.perf_counter() - t0:.1f} s (sparse cell and files)")
+    return {"paths": paths, "stacked": stacked}
+
+
+def grid_busy_ms(ex, plan, a_h, b_h, kernel: str):
+    """This rank's device time in ``kernel`` over one multiply of ``plan``
+    (``torch.profiler``), or None where the trace holds fewer of its
+    launches than the wrappers counted."""
+    from repro_torch.core import api
+    from repro_torch.obs import sync_elapsed
+    before = read_counts()
+    ex.barrier()
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        t0 = time.perf_counter()
+        sync_elapsed(t0, api._result_tensor(plan(a_h, b_h)))
+    launched = sum(v - before[k] for k, v in read_counts().items())
+    events = [e for e in device_events(prof) if e[0] == kernel]
+    return sum(e[2] - e[1] for e in events) / 1e3 \
+        if len(events) == launched else None
+
+
+def grid_rank_b1(ex, plan32, a32, b32) -> dict:
+    """B1 at a rank's one-tile SpMM shape (its first ring step) against
+    its plain version, bound and library yardsticks, while the other
+    ranks wait."""
+    from repro_torch.core import api
+    g = ex.g
+    placed = api._rank_tree(a32, api.SKEW_ROWS, False, ex)
+    blocks, rows, cols = (placed[k][None] for k in ("blocks", "rows",
+                                                    "cols"))
+    dense = api._densify_b(api._rank_tree(b32, api.SKEW_COLS, False, ex),
+                           plan32.geom, ex)["dense"][None]
+    held = int(plan32.step_maps()[0][0][0][ex.position])
+    table = plan32._rank_table(a32, (held,), 0)
+    nbr = plan32.geom.a_nbr
+    label = f"one-tile SpMM (a rank of the {g}x{g} grid) float32"
+    b1 = kernel_case(blocks, rows, cols, dense, nbr, TOL_F32_DEEP, label,
+                     table=table, reps=10)
+    real = a32.pool_lists(api.SKEW_ROWS, packed=False).take([held]).real
+    b1.update(b1_yardsticks(blocks, rows, cols, dense, nbr, real,
+                            TOL_F32_DEEP, label))
+    b1["shape"] = {"T": 1, "S": blocks.shape[1], "bs": blocks.shape[-1],
+                   "n": dense.shape[-1]}
+    return b1
+
+
+def grid_rank_b2(ex, plan_s, s_h) -> dict:
+    """B2 at a rank's one-tile sparse-output shape (its first ring step)
+    against its plain version, bound and cuSPARSE ``CSR @ CSR``."""
+    from repro_torch.core import api
+    g = ex.g
+    a0 = api._rank_tree(s_h, api.SKEW_ROWS, True, ex, True)["blocks"][None]
+    b0 = api._rank_tree(s_h, api.SKEW_COLS, True, ex, True)["blocks"][None]
+    st = plan_s._pairs[0]
+    real_p = plan_s._pair_real[:, :, 0].reshape(g * g, -1)[
+        ex.position:ex.position + 1]
+    b2 = pair_acc_case(a0, b0, st["pa"], st["pb"], st["ps"],
+                       plan_s.geom.c_store, "one-tile sparse output (a rank "
+                       f"of the {g}x{g} grid) float32", real_p,
+                       table=st["table"], reps=5)
+    tiles = [tuple(int(x) for x in api._wire.placement_tiles(pl, g)[
+        ex.i, ex.j]) for pl in (api.SKEW_ROWS, api.SKEW_COLS)]
+    csr_a = blockdiag_csr(s_h.tiled, tiles[:1]).to(a0.device)
+    csr_b = blockdiag_csr(s_h.tiled, tiles[1:]).to(a0.device)
+    b2["library_ms"] = csr_yardstick(csr_a, csr_b, ops_sum(a0, b0, st),
+                                     "B2 one-tile step 0 float32")
+    b2["shape"] = {"T": 1, "P": int(st["pa"].shape[1]),
+                   "bs": a0.shape[-1], "slots": plan_s.geom.c_store}
+    return b2
+
+
+def grid_rank(ex, spec: dict) -> dict:
+    """Phase 15 on one rank: the SpMM cell's multiplies and the sparse
+    cell's sparse outputs through ``mesh=``, each rank's C tile held
+    against the stacked executor's, the blocks and pairs its launches
+    multiplied against its tables', its bytes against the cost model; the
+    slowest rank's wall per multiply, the rank's host staging and
+    transport time.  Returns the rank's figures (checks raise)."""
+    from repro_torch.core import api
+    from repro_torch.core.api import DistBSR, DistDense
+    from repro_torch.obs import sync_elapsed
+    t_start = time.perf_counter()
+    g, dev = ex.g, ex.device
+    ops = torch.load(spec["ops"], mmap=True, weights_only=False)
+    want = torch.load(spec["expected"][ex.rank], weights_only=False)
+    t16 = dataclasses.replace(ops["a"], blocks=ops["a"].blocks.to(
+        torch.bfloat16))
+    t16.host_layout = ops["a"].host_layout
+    a32, a16 = DistBSR(ops["a"]), DistBSR(t16)
+    b32 = DistDense.for_rhs(ops["b"], a32, device="cpu")
+    b16 = DistDense.for_rhs(torch.from_numpy(ops["b"]).bfloat16(), a16,
+                            device="cpu")
+    s_h = DistBSR(ops["s"])
+    handles = {torch.float32: (a32, b32), torch.bfloat16: (a16, b16)}
+    wrappers = kernel_wrappers()
+    b1w, b2w = wrappers["bsr_spmm"], wrappers["bsr_pair_accumulate"]
+    out = {"rank": ex.rank, "transport": ex.transport, "dense": {},
+           "sparse": {}, "setup_s": time.perf_counter() - t_start}
+    reset_counts()
+
+    def timed(plan, a_h, b_h):
+        """The slowest rank's wall of one multiply (started together),
+        with this rank's staging and transport host time."""
+        ex.barrier()
+        t0 = time.perf_counter()
+        res = plan(a_h, b_h)
+        local = sync_elapsed(t0, api._result_tensor(res))
+        return (ex.max_over_ranks(local) * 1e3, ex.stage_s * 1e3,
+                ex.wait_s * 1e3)
+
+    for label, dtype, alg, wire, overlap in GRID_DENSE:
+        a_h, b_h = handles[dtype]
+        plan = api.plan_matmul(a_h, b_h, algorithm=alg, wire=wire,
+                               overlap=overlap, mesh=ex)
+        b1w.table_blocks = 0
+        res, blocks = counted_blocks(lambda: plan(a_h, b_h))
+        table_blocks = b1w.table_blocks
+        body, place = ex.bytes_sent("body"), ex.bytes_sent("place")
+        exp = want["dense"][label]
+        tile = exp["tile"].to(dev)
+        step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+        err, share, ok = compare(res.tile, tile, exp["scale"].to(dev),
+                                 TOL_F32_DEEP, step)
+        equal = bool(torch.equal(res.tile, tile))
+        del res, tile
+        check(ok, f"rank {ex.rank}, {label}: its C tile disagrees with the "
+              f"stacked executor's (max_abs_err {err:.3e})")
+        check(blocks == table_blocks, f"rank {ex.rank}, {label}: B1 "
+              f"multiplied {blocks} blocks, its tables' real ones are "
+              f"{table_blocks}")
+        expect = grid_body_bytes(alg, plan, g)
+        check(abs(body - expect) <= 1e-9 * expect, f"rank {ex.rank}, "
+              f"{label}: sent {body} bytes in the body, the cost model's "
+              f"relation gives {expect}")
+        times = [timed(plan, a_h, b_h) for _ in range(GRID["reps"])]
+        out["dense"][label] = {
+            "max_abs_err": err, "share_of_tolerance": share,
+            "equal_to_stacked": equal, "blocks_multiplied": blocks,
+            "body_bytes": body, "place_bytes": place,
+            "overlap_body": plan.geom.overlap, "wire": plan.wire,
+            "wall_ms": [t[0] for t in times],
+            "stage_ms": [t[1] for t in times],
+            "wait_ms": [t[2] for t in times]}
+    out["dense_s"] = time.perf_counter() - t_start
+    plan32 = api.plan_matmul(a32, b32, algorithm="ring_c", wire="padded",
+                             overlap="off", mesh=ex)
+    out["B1 busy_ms"] = grid_busy_ms(ex, plan32, a32, b32, "spmm_kernel")
+    # the main path's launches, before the kernel checks launch more
+    launches = read_counts()
+    ex.barrier()
+    if ex.rank == 0:
+        out["kernels"] = {"bsr_spmm": grid_rank_b1(ex, plan32, a32, b32)}
+    ex.barrier()
+    # the dense cells' placed tiles, plans and tables leave the card
+    del plan32, plan, a_h, b_h, a32, a16, b32, b16, handles, t16
+    api.clear_plan_cache()
+    free()
+    out["dense_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for alg in GRID_SPARSE:
+        plan = api.plan_matmul(s_h, s_h, algorithm=alg, output="sparse",
+                               mesh=ex)
+        b2w.table_pairs = 0
+        res, pairs = counted(lambda: plan(s_h, s_h), b2w)
+        table_pairs = b2w.table_pairs
+        exp = want["sparse"][alg]
+        fp = res.grid_structure().fingerprint
+        sums = tile_sums(res._local["blocks"])
+        del res
+        check(fp == exp["fingerprint"] and sums == tuple(exp["sums"]),
+              f"rank {ex.rank}, sparse {alg}: its C tile is not the "
+              f"stacked executor's (structure {fp == exp['fingerprint']}, "
+              f"sums {sums} vs {exp['sums']})")
+        check(pairs == table_pairs, f"rank {ex.rank}, sparse {alg}: B2 "
+              f"multiplied {pairs} pairs, its tables' real ones are "
+              f"{table_pairs}")
+        body = ex.bytes_sent("body")
+        expect = grid_body_bytes(alg, plan, g)
+        check(abs(body - expect) <= 1e-9 * expect, f"rank {ex.rank}, "
+              f"sparse {alg}: sent {body} bytes in the body, the cost "
+              f"model's relation gives {expect}")
+        times = [timed(plan, s_h, s_h) for _ in range(GRID["reps"])]
+        out["sparse"][alg] = {
+            "pairs_multiplied": pairs, "body_bytes": body,
+            "wall_ms": [t[0] for t in times],
+            "stage_ms": [t[1] for t in times],
+            "wait_ms": [t[2] for t in times]}
+        del plan
+        free()
+    plan_s = api.plan_matmul(s_h, s_h, algorithm="ring_c", output="sparse",
+                             mesh=ex)
+    out["B2 busy_ms"] = grid_busy_ms(ex, plan_s, s_h, s_h, "pair_kernel")
+    out["launches"] = {k: v + launches[k] for k, v in read_counts().items()}
+    ex.barrier()
+    if ex.rank == 0:
+        out["kernels"]["bsr_pair_accumulate"] = grid_rank_b2(ex, plan_s,
+                                                             s_h)
+    ex.barrier()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["rank_s"] = time.perf_counter() - t_start
+    return out
+
+
+def grid_phase(card: str) -> dict:
+    """Phase 15: the schedules on a 2x2 process grid of ranks sharing the
+    one card, through launch/grid.py with the gloo transport (each rank
+    stages its tiles through pinned host memory).  The stacked executor's
+    results come first; the parent then frees its card memory and spawns
+    the ranks, which run :func:`grid_rank`."""
+    import tempfile
+
+    import chip_smoke     # the ranks import the rank function by this name
+    from repro_torch.core import api
+    from repro_torch.core.dist import make_grid_mesh
+    from repro_torch.launch.grid import run_grid
+    api.clear_plan_cache()
+    free()
+    t0 = time.perf_counter()
+    g = GRID["g"]
+    try:
+        make_grid_mesh(g, backend="nccl", device_type="cuda")
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "Duplicate GPU detected" in refused,
+          f"make_grid_mesh({g}, backend='nccl') on {torch.cuda.device_count()}"
+          " card(s) did not refuse")
+    log(f"  make_grid_mesh({g}, backend='nccl') refused at once: {refused}")
+    with tempfile.TemporaryDirectory() as tmp:
+        expected = grid_expected(Path(tmp), torch.device(DEVICE))
+        free()
+        torch.cuda.synchronize()
+        log(f"  parent: device memory allocated "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB before the ranks "
+            f"start; stacked results in {time.perf_counter() - t0:.1f} s")
+        t_ranks = time.perf_counter()
+        ranks = run_grid(g, chip_smoke.grid_rank, expected["paths"],
+                         backend=GRID["backend"], device=DEVICE,
+                         timeout_s=GRID["timeout_s"])
+        ranks_s = time.perf_counter() - t_ranks
+    stacked = expected["stacked"]
+    log(f"  {len(ranks)} ranks on {torch.cuda.device_count()} card(s), "
+        f"transport {ranks[0]['transport']}, {ranks_s:.1f} s of ranks "
+        f"(setup {max(r['setup_s'] for r in ranks):.1f} s); {card}")
+    res = {"transport": ranks[0]["transport"], "ranks_s": ranks_s,
+           "nccl_refusal": refused, "dense": {}, "sparse": {},
+           "peak_gb": [r["peak_gb"] for r in ranks]}
+    for label, *_ in GRID_DENSE:
+        rs = [r["dense"][label] for r in ranks]
+        blocks = sum(r["blocks_multiplied"] for r in rs)
+        want = stacked[label]["blocks_multiplied"]
+        check(blocks == want, f"{label}: the ranks' B1 launches multiplied "
+              f"{blocks} blocks, the stacked plan's {want}")
+        wall = [statistics.median(x) for x in zip(*(r["wall_ms"]
+                                                      for r in rs))]
+        res["dense"][label] = {
+            "wall_ms": statistics.median(rs[0]["wall_ms"]),
+            "blocks_multiplied": blocks,
+            "equal_to_stacked": [r["equal_to_stacked"] for r in rs],
+            "max_share_of_tolerance": max(r["share_of_tolerance"]
+                                          for r in rs),
+            "body_bytes": [r["body_bytes"] for r in rs],
+            "stage_ms": [statistics.median(r["stage_ms"]) for r in rs],
+            "wait_ms": [statistics.median(r["wait_ms"]) for r in rs],
+            "overlap_body": rs[0]["overlap_body"], "wire": rs[0]["wire"]}
+        d = res["dense"][label]
+        log(f"  {label} [{d['wire']}, split step {d['overlap_body']}]: "
+            f"wall {d['wall_ms']:.1f} ms (slowest rank, runs {wall}); "
+            f"body bytes per rank {d['body_bytes']}; host staging "
+            f"{[round(x, 1) for x in d['stage_ms']]} ms and transport wait "
+            f"{[round(x, 1) for x in d['wait_ms']]} ms by rank; B1 blocks "
+            f"{blocks} (= stacked); C tiles equal to stacked "
+            f"{d['equal_to_stacked']}, worst {d['max_share_of_tolerance']:.3g}"
+            " of the allowance")
+    for alg in GRID_SPARSE:
+        rs = [r["sparse"][alg] for r in ranks]
+        pairs = sum(r["pairs_multiplied"] for r in rs)
+        want = stacked[f"{alg} sparse"]["pairs_multiplied"]
+        check(pairs == want, f"sparse {alg}: the ranks' B2 launches "
+              f"multiplied {pairs} pairs, the stacked plan's {want}")
+        res["sparse"][alg] = {
+            "wall_ms": statistics.median(rs[0]["wall_ms"]),
+            "pairs_multiplied": pairs,
+            "body_bytes": [r["body_bytes"] for r in rs],
+            "stage_ms": [statistics.median(r["stage_ms"]) for r in rs],
+            "wait_ms": [statistics.median(r["wait_ms"]) for r in rs]}
+        d = res["sparse"][alg]
+        log(f"  sparse-output {alg} (R-MAT scale {SPARSE['scale']}, packed): "
+            f"wall "
+            f"{d['wall_ms']:.1f} ms (slowest rank); B2 pairs {pairs} (= "
+            f"stacked); C tiles equal to stacked; body bytes per rank "
+            f"{d['body_bytes']}; staging {[round(x, 1) for x in d['stage_ms']]}"
+            f" ms, transport wait {[round(x, 1) for x in d['wait_ms']]} ms")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    check(launches["bsr_spmm"] > 0 and launches["bsr_pair_accumulate"] > 0,
+          f"the ranks did not launch B1 and B2: {launches}")
+    res["launches"] = launches
+    res["busy_ms"] = {k: [r[k] for r in ranks] for k in (
+        "B1 busy_ms", "B2 busy_ms")}
+    res["dense_peak_gb"] = [r["dense_peak_gb"] for r in ranks]
+    res["kernels"] = ranks[0]["kernels"]
+    res["s"] = time.perf_counter() - t0
+    log(f"  launches on the ranks (all of them): {launches}; busy time by "
+        f"rank in one multiply (B1: ring_c float32 padded, B2: ring_c "
+        f"sparse): {res['busy_ms']} ms; peak device memory by rank, dense "
+        f"cells {[round(x, 2) for x in res['dense_peak_gb']]} GB, sparse "
+        f"cell {[round(x, 2) for x in res['peak_gb']]} GB; ranks' time "
+        f"{[round(r['rank_s'], 1) for r in ranks]} s (dense cells "
+        f"{[round(r['dense_s'], 1) for r in ranks]} s); phase 15 wall "
+        f"{res['s']:.1f} s; {card}.  One card shared by 4 ranks over gloo: "
+        "no NVLink time")
+    return res
+
+
 def record(name: str, source: str, replaces: str, launches: int,
            kres: dict, extra: dict) -> dict:
     """One entry of the ``{"kernels": [...]}`` line: float32 numbers at the
@@ -3683,6 +4141,30 @@ def serve_records(serve: dict, model: str = "serving"):
     check(sum(r["launches"] for r in b1) == pub["launches"]["bsr_spmm"],
           "the serving shapes' B1 launches do not add up to the run's")
     return b1, b2
+
+
+def grid_records(grid: dict) -> list:
+    """Phase 15's entries of the ``{"kernels": [...]}`` line: B1 and B2 at
+    a rank's one-tile shapes, with the launches of every rank's run."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    out = []
+    for kernel, name, source, replaces in (
+            ("bsr_spmm", "bsr_spmm (rank one-tile SpMM shape)",
+             "src/repro_torch/kernels/csrc/bsr_spmm.cu",
+             "src/repro/kernels/bsr_spmm.py:55"),
+            ("bsr_pair_accumulate",
+             "bsr_pair_accumulate (rank one-tile sparse-output shape)",
+             "src/repro_torch/kernels/csrc/bsr_pair.cu",
+             "src/repro/kernels/bsr_spmm.py:165")):
+        res = grid["kernels"][kernel]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces,
+                    "launches": grid["launches"][kernel],
+                    "dtype": "float32", **{k: res.get(k) for k in keys},
+                    "shape": res["shape"], "kernel": kernel,
+                    "transport": grid["transport"]})
+    return out
 
 
 def main() -> int:
@@ -3882,6 +4364,9 @@ def main() -> int:
     t14 = time.perf_counter()
     recurrent = recurrent_phase()
     recurrent["s"] = time.perf_counter() - t14
+    log("== process grid: the schedules on 4 ranks sharing the card (gloo, "
+        "host-staged), B1 and B2 on every rank")
+    grid = grid_phase(card)
 
     # phase 13's launches outside serving run at the SpMM cell's and the
     # sparse path's shapes
@@ -3947,10 +4432,12 @@ def main() -> int:
                                               in ("gate", "published")},
                                   **{k: recurrent[k] for k in (
                                       "mamba", "hubert", "llava", "s")}},
+                    "grid": {k: v for k, v in grid.items()
+                             if k != "kernels"},
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b1, b2, b3, *b1_serve, b2_serve, *b1_rg,
-                                b2_rg]}))
+                                b2_rg, *grid_records(grid)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -40,6 +40,10 @@ the port runs it on a :class:`~repro_torch.core.executor.StackedExecutor`:
 the g x g tiles live stacked on one card, and each step's local multiply
 is one batched kernel launch.  A ring shift, a broadcast or an all-gather
 becomes a tile map: the kernel reads each step's tiles where they lie.
+With ``mesh=`` the same schedules run on a process grid, one tile per
+rank (:class:`~repro_torch.core.executor.GroupExecutor`): the JAX bodies
+step by step, their exchanges point-to-point and collective calls of
+``torch.distributed`` (see "Bodies on a process grid" below).
 
 Observability (``repro_torch.obs``): with tracing on, plan builds record
 ``plan_build.*`` spans and each multiply a ``multiply.<algorithm>`` span
@@ -54,7 +58,7 @@ Static verification (``repro_torch.analysis``): ``plan_matmul(validate=
 
 Also here: :func:`invalidate_plans` (keyed cache eviction),
 :func:`reshard` (re-tiling a handle onto another grid) and
-:func:`validate_mesh` (the stacked executor's grid check).
+:func:`validate_mesh` (the executors' grid check).
 """
 from __future__ import annotations
 
@@ -81,7 +85,7 @@ from . import wire as _wire
 from .bsr import TiledBSR
 from .dist import (place_b_for_stationary_a, skew_bsr, skew_dense, tileize,
                    unskew_c_rows, untileize)
-from .executor import StackedExecutor
+from .executor import GroupExecutor, StackedExecutor, _Ready
 from .grid import ProcessGrid, bucket_capacity, ceil_div, pad_to_multiple
 from .symbolic import (SymbolicProduct, predicted_density,  # re-export
                        symbolic_spgemm)
@@ -559,18 +563,42 @@ def _wire_planner_ring_a(a_po, b_po, geom: _Geom) -> Dict[str, np.ndarray]:
         b_po, _wire.tiles_ring_a_b(geom.g))}
 
 
-def _wire_planner_summa(a_po, b_po, geom: _Geom) -> Dict[str, np.ndarray]:
-    """Consume maps of both packed SUMMA bodies: A[i, k] and B[k, j] at
-    inner step k, read in place through the step's tile maps.  The JAX
-    package's ``summa_ag`` planner adds ``k * wire_capacity`` to index its
-    flat all-gathered pool (``_summa_bases``); the placed packed stack
-    needs no such offset, so ``summa_ag`` shares ``summa_bcast``'s maps."""
+def _summa_bases(g: int, wc: int) -> np.ndarray:
+    """Flat base offset of inner step k's tile in an all-gathered pool."""
+    return np.broadcast_to(np.arange(g, dtype=np.int64) * wc, (g, g, g))
+
+
+def _wire_planner_summa_bcast(a_po, b_po, geom: _Geom
+                              ) -> Dict[str, np.ndarray]:
+    """Consume maps of the packed SUMMA bodies: A[i, k] and B[k, j] at
+    inner step k, each read where it lies (the broadcast tile on a rank;
+    the placed packed stack through the step's tile maps on the stacked
+    executor, which serves ``summa_ag`` too)."""
     g = geom.g
     aux: Dict[str, np.ndarray] = {}
     if a_po is not None:
         _wire_consume(aux, "a", a_po, _wire.tiles_summa_a(g))
     if b_po is not None:
         aux["b_dmap"] = _wire.schedule_dense_map(b_po, _wire.tiles_summa_b(g))
+    return aux
+
+
+def _wire_planner_summa_ag(a_po, b_po, geom: _Geom) -> Dict[str, np.ndarray]:
+    """Consume maps of the packed all-gather SUMMA on a process grid: the
+    broadcast planner's plus ``k * wire_capacity`` (:func:`_summa_bases`),
+    so inner step k's lists index the rank's gathered pool as one flat
+    buffer (the JAX package's planner)."""
+    g = geom.g
+    aux: Dict[str, np.ndarray] = {}
+    if a_po is not None:
+        cons = _wire.schedule_consume(a_po, _wire.tiles_summa_a(g),
+                                      _summa_bases(g, a_po.wire_capacity))
+        for k in ("gidx", "rows", "cols"):
+            aux[f"a_{k}"] = cons[k]
+    if b_po is not None:
+        aux["b_dmap"] = _wire.schedule_dense_map(
+            b_po, _wire.tiles_summa_b(g),
+            _summa_bases(g, b_po.wire_capacity))
     return aux
 
 
@@ -841,6 +869,475 @@ def _steal3d_dense_partials(a: Dict, b_pool: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Bodies on a process grid: one tile per rank (GroupExecutor)
+# ---------------------------------------------------------------------------
+# The JAX bodies as written, step by step, on the rank's own tiles: a ring
+# shift is a point-to-point exchange, a SUMMA broadcast a broadcast and an
+# all-gather an all-gather (``GroupExecutor``).  Each local multiply is one
+# launch over the rank's pool (its one tile, or the g tiles a summa_ag rank
+# gathers); which placed tile the rank holds at each step comes from the
+# stacked executor's host maps (``Algorithm.step_maps``), from which the plan
+# cuts B1's table.
+def _tree_ppermute(ex: GroupExecutor, tree: Dict, axis: str, sign: int = 1,
+                   wait: bool = True):
+    """The JAX bodies' ``_tree_ppermute``: position d receives the tree of
+    position ``(d + sign) % g`` along ``axis``."""
+    return ex.shift(tree, axis, sign, wait=wait)
+
+
+def _tree_bcast(ex: GroupExecutor, tree: Dict, axis: str, root: int,
+                wait: bool = True):
+    """The JAX bodies' ``_tree_bcast``: position ``root``'s tree to every
+    position along ``axis``."""
+    return ex.bcast(tree, axis, root, wait=wait)
+
+
+def _local_view(tree: Dict) -> Dict:
+    """The rank's tile tree as a one-tile pool (``[1, ...]`` leaves): the
+    counterpart of the JAX package's view of a shard inside
+    ``shard_map``."""
+    return {k: v[None] for k, v in tree.items()}
+
+
+def _ring_stream(ex: GroupExecutor, tree: Dict, axis: str, geom: _Geom,
+                 sign: int = 1):
+    """The tree a rank holds at each of a ring's g steps: g - 1 shifts (the
+    port's count, see :func:`_ring_steps`), each issued before the local
+    multiply of the step before its use (the bulk body, paper SS3.3
+    prefetch), or two steps before it (``geom.overlap``, the split-step
+    body), and waited for only where it is used."""
+    ahead = 2 if geom.overlap else 1
+    queue = [_Ready(tree)]
+    for t in range(geom.g):
+        while len(queue) <= ahead and t + len(queue) < geom.g:
+            queue.append(_tree_ppermute(ex, queue[-1].result(), axis, sign,
+                                        wait=False))
+        yield queue.pop(0).result()
+
+
+def _bcast_stream(ex: GroupExecutor, tree: Dict, axis: str, geom: _Geom):
+    """Inner step k's tree: position k's along ``axis``; the split-step
+    body (``geom.overlap``) issues step k + 1's broadcast before step k's
+    multiply."""
+    ahead = 1 if geom.overlap else 0
+    pending = []
+    for k in range(geom.g):
+        while len(pending) <= ahead and k + len(pending) < geom.g:
+            pending.append(_tree_bcast(ex, tree, axis, k + len(pending),
+                                       wait=False))
+        yield pending.pop(0).result()
+
+
+@dataclasses.dataclass(frozen=True)
+class _RankSteps:
+    """What a dense-output rank body asks its plan for: the schedule's step
+    maps (which placed tile each grid position holds at each step) and
+    B1's table of a launch over a local pool of placed tiles ``held``
+    reading pool tile ``k`` (None where the plain version runs)."""
+    maps: list
+    table: Optional[Callable[[Tuple[int, ...], int], SpmmTable]]
+
+
+def _rank_mm(pool: Dict, b_dense: torch.Tensor, held: Tuple[int, ...],
+             k: int, steps: _RankSteps, c: Optional[torch.Tensor],
+             geom: _Geom) -> torch.Tensor:
+    """``c`` (+)= pool tile ``k`` of A (``[n, ...]`` leaves: the placed
+    tiles ``held``) @ ``b_dense`` ``[K, n]``, as :func:`_local_mm` computes
+    one position's product; ``c`` is ``[1, tm, n]``, fresh when None."""
+    if "dense" in pool:
+        prod = torch.matmul(pool["dense"][k].float(),
+                            b_dense.float()).to(geom.out_dtype)[None]
+        return prod if c is None else c.add_(prod)
+    return kops.bsr_spmm_raw(
+        pool["blocks"], pool["rows"], pool["cols"], b_dense[None],
+        n_block_rows=geom.a_nbr, impl=geom.impl, a_map=[k], b_map=[0],
+        table=steps.table and steps.table(held, k), out=c)
+
+
+def _rank_packed_mm(a_pool: torch.Tensor, aux_t: Dict, held: Tuple[int, ...],
+                    k: int, b_dense: torch.Tensor, steps: _RankSteps,
+                    c: Optional[torch.Tensor], geom: _Geom,
+                    stream: str = "") -> torch.Tensor:
+    """One packed local SpMM: the consume lists of ``aux_t`` (the rank's
+    row) read the packed pool ``[n, wc, bs, bs]`` as one flat buffer (the
+    summa_ag planner's lists carry its ``k * wc`` bases)."""
+    blocks = a_pool.reshape(1, -1, *a_pool.shape[-2:])
+    return kops.bsr_spmm_raw(
+        blocks, aux_t["a_rows" + stream], aux_t["a_cols" + stream],
+        b_dense[None], n_block_rows=geom.a_nbr, impl=geom.impl, a_map=[0],
+        b_map=[0], gidx=aux_t["a_gidx" + stream],
+        table=steps.table and steps.table(held, k), out=c)
+
+
+def _rank_packed_b(b_pool: torch.Tensor, dmap: torch.Tensor,
+                   geom: _Geom) -> torch.Tensor:
+    """The dense B tile a rank gathers from its packed pool (one flat
+    buffer; ``dmap`` is its row of the plan's maps)."""
+    return kops.densify_packed(b_pool.reshape(1, -1, *b_pool.shape[-2:]),
+                               dmap, n_block_rows=geom.b_nbr,
+                               n_block_cols=geom.b_nbc)[0]
+
+
+def _held(maps: list, p: int, launch: int = 0) -> list:
+    """The placed A tile position ``p`` reads at each step."""
+    return [int(step[launch][0][p]) for step in maps]
+
+
+def _rank_body_ring_c(a: Dict, b: Dict, steps: _RankSteps, geom: _Geom,
+                      ex: GroupExecutor) -> torch.Tensor:
+    """Paper Alg 2 (stationary-C) on a rank: A rides the col ring and B the
+    row ring from the skewed placement; C stays."""
+    b = _densify_b(b, geom, ex)
+    c = None
+    for held, a_t, b_t in zip(_held(steps.maps, ex.position),
+                              _ring_stream(ex, a, "col", geom),
+                              _ring_stream(ex, b, "row", geom)):
+        c = _rank_mm(_local_view(a_t), b_t["dense"], (held,), 0, steps, c,
+                     geom)
+    return ex.unbatch(c)
+
+
+def _rank_body_ring_c_bidir(a: Dict, b: Dict, steps: _RankSteps,
+                            geom: _Geom, ex: GroupExecutor) -> torch.Tensor:
+    """Bidirectional stationary-C ring on a rank: the left half-panel's A
+    and B ride the +1 rings, the right one's the -1 rings (four streams;
+    at g = 2 both directions meet the same neighbour, their messages
+    told apart by tag and order)."""
+    b = _densify_b(b, geom, ex)["dense"]
+    half = geom.tn // 2
+    halves = ({"dense": b[:, :half].contiguous()},
+              {"dense": b[:, half:].contiguous()})
+    c = [None, None]
+    p = ex.position
+    for t, (a_f, a_b, b_f, b_b) in enumerate(zip(
+            _ring_stream(ex, a, "col", geom, +1),
+            _ring_stream(ex, a, "col", geom, -1),
+            _ring_stream(ex, halves[0], "row", geom, +1),
+            _ring_stream(ex, halves[1], "row", geom, -1))):
+        for h, (a_t, b_t) in enumerate(((a_f, b_f), (a_b, b_b))):
+            held = int(steps.maps[t][h][0][p])
+            c[h] = _rank_mm(_local_view(a_t), b_t["dense"], (held,), 0,
+                            steps, c[h], geom)
+    return ex.unbatch(torch.cat(c, dim=2))
+
+
+def _rank_body_ring_a(a: Dict, b: Dict, steps: _RankSteps, geom: _Geom,
+                      ex: GroupExecutor) -> torch.Tensor:
+    """Paper Alg 1 (stationary-A) on a rank: B rides the row ring (split
+    step with ``geom.overlap``), the partial C hops one place along the col
+    ring after every step, g hops in all, the last one home."""
+    b = _densify_b(b, geom, ex)
+    a_pool, p = _local_view(a), ex.position
+    acc = None
+    for b_t in _ring_stream(ex, b, "row", geom):
+        acc = _rank_mm(a_pool, b_t["dense"], (p,), 0, steps, acc, geom)
+        acc = _tree_ppermute(ex, {"c": acc}, "col")["c"]
+    return ex.unbatch(acc)
+
+
+def _rank_body_summa_bcast(a: Dict, b: Dict, steps: _RankSteps,
+                           geom: _Geom, ex: GroupExecutor) -> torch.Tensor:
+    """Bulk-synchronous SUMMA on a rank: inner step k broadcasts A[i, k]
+    along the grid row and B[k, j] along the grid column; one tile of
+    each is held at a time."""
+    b = _densify_b(b, geom, ex)
+    c = None
+    for k, (a_k, b_k) in enumerate(zip(_bcast_stream(ex, a, "col", geom),
+                                       _bcast_stream(ex, b, "row", geom))):
+        c = _rank_mm(_local_view(a_k), b_k["dense"], (ex.i * geom.g + k,),
+                     0, steps, c, geom)
+    return ex.unbatch(c)
+
+
+def _rank_body_summa_ag(a: Dict, b: Dict, steps: _RankSteps, geom: _Geom,
+                        ex: GroupExecutor) -> torch.Tensor:
+    """All-gather SUMMA on a rank: one all-gather of the A row panel and
+    the B column panel up front; the rank then holds the g-tile pools
+    and inner step k's launch reads pool tile k in place."""
+    b = _densify_b(b, geom, ex)
+    a_g = ex.all_gather(a, "col")
+    b_g = ex.all_gather(b, "row")["dense"]
+    held = tuple(ex.i * geom.g + k for k in range(geom.g))
+    c = None
+    for k in range(geom.g):
+        c = _rank_mm(a_g, b_g[k], held, k, steps, c, geom)
+    return ex.unbatch(c)
+
+
+def _rank_sparse_ring_c(a: Dict, b: Dict, pairs, geom: _Geom,
+                        ex: GroupExecutor) -> torch.Tensor:
+    """Stationary-C ring with packed sparse output on a rank: A and B ride
+    their rings in block form, B2 adds each step into the rank's packed C
+    slots (float32 carry, cast once)."""
+    c = None
+    for t, (a_t, b_t) in enumerate(zip(_ring_stream(ex, a, "col", geom),
+                                       _ring_stream(ex, b, "row", geom))):
+        c = _sparse_step(a_t, b_t, pairs[t], c, geom, ex)
+    return ex.unbatch(c.to(geom.out_dtype))
+
+
+def _rank_sparse_summa_bcast(a: Dict, b: Dict, pairs, geom: _Geom,
+                             ex: GroupExecutor) -> torch.Tensor:
+    """Bulk-synchronous SUMMA with packed sparse output on a rank."""
+    c = None
+    for t, (a_k, b_k) in enumerate(zip(_bcast_stream(ex, a, "col", geom),
+                                       _bcast_stream(ex, b, "row", geom))):
+        c = _sparse_step(a_k, b_k, pairs[t], c, geom, ex)
+    return ex.unbatch(c.to(geom.out_dtype))
+
+
+def _rank_sparse_summa_ag(a: Dict, b: Dict, pairs, geom: _Geom,
+                          ex: GroupExecutor) -> torch.Tensor:
+    """All-gather SUMMA with packed sparse output on a rank: the gathered
+    pools' slot k feeds inner step k."""
+    a_g = ex.all_gather(a, "col")["blocks"]
+    b_g = ex.all_gather(b, "row")["blocks"]
+    c = None
+    for t in range(geom.g):
+        c = _sparse_step({"blocks": a_g[t]}, {"blocks": b_g[t]}, pairs[t], c,
+                         geom, ex)
+    return ex.unbatch(c.to(geom.out_dtype))
+
+
+def _rank_packed_ring_c(a: Dict, b: Dict, aux, steps: _RankSteps,
+                        geom: _Geom, ex: GroupExecutor) -> torch.Tensor:
+    """Stationary-C ring over packed buffers on a rank: only real blocks
+    ride; a packed B is densified per step by its gather map."""
+    b_packed = "b_dmap" in aux[0]
+    b0 = b if b_packed else _densify_b(b, geom, ex)
+    c = None
+    for t, (held, a_t, b_t) in enumerate(zip(
+            _held(steps.maps, ex.position), _ring_stream(ex, a, "col", geom),
+            _ring_stream(ex, b0, "row", geom))):
+        bd = _rank_packed_b(b_t["blocks"], aux[t]["b_dmap"], geom) \
+            if b_packed else b_t["dense"]
+        c = _rank_packed_mm(a_t["blocks"][None], aux[t], (held,), 0, bd,
+                            steps, c, geom)
+    return ex.unbatch(c)
+
+
+def _rank_packed_ring_c_bidir(a: Dict, b: Dict, aux, steps: _RankSteps,
+                              geom: _Geom, ex: GroupExecutor
+                              ) -> torch.Tensor:
+    """Bidirectional ring on a rank, A packed in both directions and B's
+    half-panels dense (they need not be block-aligned)."""
+    b = _densify_b(b, geom, ex)["dense"]
+    half = geom.tn // 2
+    halves = ({"dense": b[:, :half].contiguous()},
+              {"dense": b[:, half:].contiguous()})
+    c = [None, None]
+    p = ex.position
+    for t, (a_f, a_b, b_f, b_b) in enumerate(zip(
+            _ring_stream(ex, a, "col", geom, +1),
+            _ring_stream(ex, a, "col", geom, -1),
+            _ring_stream(ex, halves[0], "row", geom, +1),
+            _ring_stream(ex, halves[1], "row", geom, -1))):
+        for h, (a_t, b_t) in enumerate(((a_f, b_f), (a_b, b_b))):
+            held = int(steps.maps[t][h][0][p])
+            c[h] = _rank_packed_mm(a_t["blocks"][None], aux[t], (held,), 0,
+                                   b_t["dense"], steps, c[h], geom,
+                                   stream=("", "_bwd")[h])
+    return ex.unbatch(torch.cat(c, dim=2))
+
+
+def _rank_packed_ring_a(a: Dict, b: Dict, aux, steps: _RankSteps,
+                        geom: _Geom, ex: GroupExecutor) -> torch.Tensor:
+    """Stationary-A ring on a rank with B packed: B's real blocks ride the
+    row ring, densified per step; the partial C rides back dense."""
+    a_pool, p = _local_view(a), ex.position
+    acc = None
+    for t, b_t in enumerate(_ring_stream(ex, b, "row", geom)):
+        bd = _rank_packed_b(b_t["blocks"], aux[t]["b_dmap"], geom)
+        acc = _rank_mm(a_pool, bd, (p,), 0, steps, acc, geom)
+        acc = _tree_ppermute(ex, {"c": acc}, "col")["c"]
+    return ex.unbatch(acc)
+
+
+def _rank_packed_summa_bcast(a: Dict, b: Dict, aux, steps: _RankSteps,
+                             geom: _Geom, ex: GroupExecutor) -> torch.Tensor:
+    """SUMMA broadcasting packed buffers per inner step on a rank."""
+    b_packed = "b_dmap" in aux[0]
+    b0 = b if b_packed else _densify_b(b, geom, ex)
+    c = None
+    for k, (a_k, b_k) in enumerate(zip(_bcast_stream(ex, a, "col", geom),
+                                       _bcast_stream(ex, b0, "row", geom))):
+        bd = _rank_packed_b(b_k["blocks"], aux[k]["b_dmap"], geom) \
+            if b_packed else b_k["dense"]
+        c = _rank_packed_mm(a_k["blocks"][None], aux[k],
+                            (ex.i * geom.g + k,), 0, bd, steps, c, geom)
+    return ex.unbatch(c)
+
+
+def _rank_packed_summa_ag(a: Dict, b: Dict, aux, steps: _RankSteps,
+                          geom: _Geom, ex: GroupExecutor) -> torch.Tensor:
+    """All-gather SUMMA over packed panels on a rank: the gathered packed
+    pools are read as flat buffers through the all-gather planner's
+    based lists (``_summa_bases``)."""
+    b_packed = "b_dmap" in aux[0]
+    a_g = ex.all_gather(a, "col")["blocks"]
+    b_g = ex.all_gather(b if b_packed else _densify_b(b, geom, ex), "row")
+    held = tuple(ex.i * geom.g + k for k in range(geom.g))
+    c = None
+    for k in range(geom.g):
+        bd = _rank_packed_b(b_g["blocks"], aux[k]["b_dmap"], geom) \
+            if b_packed else b_g["dense"][k]
+        c = _rank_packed_mm(a_g, aux[k], held, k, bd, steps, c, geom)
+    return ex.unbatch(c)
+
+
+@dataclasses.dataclass(frozen=True)
+class _StealRank:
+    """A steal3d plan as one rank runs it: its own rows of the plan's pair
+    lists (pool-relative, as the JAX body reads them) per B1 launch, with
+    B1's table of the real pairs where the kernel runs."""
+    splan: "_steal3d.StealPlan"
+    segments: Tuple[Dict, ...]
+
+    @property
+    def real_pairs(self) -> int:
+        """Pair products this rank's B1 launches multiply (sparse A)."""
+        return int(sum(int(s["real"].sum()) for s in self.segments))
+
+
+def _steal_rank(splan: "_steal3d.StealPlan", geom: _Geom, ex: GroupExecutor,
+                kernel: bool) -> _StealRank:
+    """This rank's slice of a StealPlan (host numpy, once per plan)."""
+    g, aux = geom.g, splan.aux
+    r, c = ex.i, ex.j
+    if splan.a_kind != "bsr":
+        stride = 1
+    else:
+        stride = splan.a_wire_capacity if splan.wire == "packed" \
+            else splan.store_a
+    if splan.wire == "packed":
+        moved = sum(cap * rcap for cap, rcap in zip(splan.a_move_cap,
+                                                    splan.a_round_cap))
+    else:
+        moved = sum(splan.a_move_cap) * stride
+    # (lists, the pool index of the segment's zero block)
+    names = (("pa0", "pb0", "ps0", g * stride),
+             ("pa1", "pb1", "ps1", g * stride + moved)) if splan.overlap \
+        else (("pa", "pb", "ps", g * stride + moved),)
+    segments = []
+    for ka, kb, ks, zero in names:
+        pa, pb, ps = (np.asarray(aux[k][r, c]).reshape(1, -1)
+                      for k in (ka, kb, ks))
+        seg = {k: torch.from_numpy(np.ascontiguousarray(
+            x, dtype=np.int32)).to(ex.device)
+            for k, x in (("pa", pa), ("pb", pb), ("ps", ps))}
+        seg["real"] = pa != zero
+        if kernel and splan.a_kind == "bsr":
+            seg["table"] = _spmm_table(pa, ps, pb, splan.n_slots,
+                                       real=seg["real"],
+                                       b_map=np.zeros(1, np.int64),
+                                       device=ex.device)
+        segments.append(seg)
+    return _StealRank(splan=splan, segments=tuple(segments))
+
+
+def _rank_body_steal3d(a: Dict, b: Dict, st: _StealRank, geom: _Geom,
+                       ex: GroupExecutor) -> torch.Tensor:
+    """The paper's SS3.4 work stealing on a rank, as the JAX body runs it.
+
+    The rank all-gathers its A grid-row panel and (densified) B grid-column
+    panel, sends and receives the moved tiles of the off-owner items in
+    one round per hop distance (``_steal3d_perm``: position d sends to
+    ``d + delta``), runs one B1 flat dispatch over its pair list (two with
+    ``overlap``: its own items while the moved tiles are in flight, then
+    the stolen ones), and ships partial C tiles home in the reduce rounds
+    (on the packed wire only the block-rows each sender's items touch).
+    Dense A takes the JAX einsum as a plain PyTorch product.
+    """
+    splan, aux = st.splan, st.splan.aux
+    r, c_ = ex.i, ex.j
+    sparse = splan.a_kind == "bsr"
+    packed = splan.wire == "packed"
+    a_tiles = ex.all_gather(a, "col")["blocks" if sparse else "dense"]
+    b_tiles = ex.all_gather(_densify_b(b, geom, ex), "row")["dense"]
+    moved_a = []
+    for n, delta in enumerate(splan.a_deltas):
+        part = a_tiles[torch.as_tensor(aux[f"amk{delta}"][r, c_],
+                                       device=ex.device).long()]
+        if packed:
+            part = part[:, :splan.a_round_cap[n]]
+        moved_a.append(_tree_ppermute(ex, {"x": part}, "row", -delta,
+                                      wait=False))
+    moved_b = [_tree_ppermute(ex, {"x": b_tiles[torch.as_tensor(
+        aux[f"bmk{delta}"][r, c_], device=ex.device).long()]}, "col", -delta,
+        wait=False) for delta in splan.b_deltas]
+    if sparse:
+        panel_a = a_tiles.reshape(-1, *a_tiles.shape[-2:])
+        zero_a = panel_a.new_zeros((1,) + panel_a.shape[1:])
+    else:
+        panel_a = a_tiles
+        zero_a = a_tiles.new_zeros((1,) + a_tiles.shape[1:])
+
+    def pools():
+        moved = [m.result()["x"] for m in moved_a]
+        if sparse:
+            moved = [m.reshape(-1, *m.shape[-2:]) for m in moved]
+        return (torch.cat([panel_a] + moved + [zero_a]),
+                torch.cat([b_tiles] + [m.result()["x"] for m in moved_b]))
+
+    def accum(a_p, b_p, seg, out):
+        if sparse:
+            return kops.steal_pair_accumulate(
+                a_p, b_p.reshape(-1, geom.tn), seg["pa"], seg["pb"],
+                seg["ps"], n_slots=splan.n_slots, impl=geom.impl,
+                table=seg.get("table"), out=out)
+        prods = torch.matmul(a_p[seg["pa"][0].long()].float(),
+                             b_p[seg["pb"][0].long()].float())
+        cc = torch.zeros((splan.n_out, geom.tm, geom.tn),
+                         dtype=torch.float32, device=ex.device) \
+            if out is None else out.view(splan.n_out, geom.tm, geom.tn)
+        cc.index_add_(0, seg["ps"][0].long(), prods)
+        return cc.view(1, splan.n_out * geom.tm, geom.tn)
+
+    if splan.overlap:
+        c = accum(torch.cat([panel_a, zero_a]), b_tiles, st.segments[0],
+                  None)
+        c = accum(*pools(), st.segments[1], c)
+    else:
+        c = accum(*pools(), st.segments[0], None)
+    c = c.view(splan.n_out, geom.tm, geom.tn)
+    if packed:
+        nbr = geom.a_nbr
+        rows = c.view(splan.n_out, nbr, geom.tm // nbr, geom.tn)
+        own = torch.cat([rows[0], rows.new_zeros((1,) + rows.shape[2:])])
+        for axis, pre, deltas in (("col", "r", splan.row_deltas),
+                                  ("row", "c", splan.col_deltas)):
+            for delta in deltas:
+                part = rows[int(aux[f"{pre}send{delta}"][r, c_]),
+                            torch.as_tensor(aux[f"{pre}row{delta}"][r, c_],
+                                            device=ex.device).long()]
+                part = _tree_ppermute(ex, {"x": part}, axis, -delta)["x"]
+                own.index_add_(0, torch.as_tensor(
+                    aux[f"{pre}tgt{delta}"][r, c_], device=ex.device).long(),
+                    part)
+        own = own[:nbr].reshape(geom.tm, geom.tn)
+    else:
+        own = c[0]
+        for axis, pre, deltas in (("col", "r", splan.row_deltas),
+                                  ("row", "c", splan.col_deltas)):
+            for delta in deltas:
+                part = c[int(aux[f"{pre}send{delta}"][r, c_])]
+                own = own + _tree_ppermute(ex, {"x": part}, axis,
+                                           -delta)["x"]
+    return own.to(geom.out_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class _RankBodies:
+    """A schedule's bodies on a process grid (``Algorithm.on_ranks``):
+    dense output, the packed wire, sparse output, and the packed wire's
+    planner where it differs from the stacked one (summa_ag's flat pool)."""
+    body: Callable
+    packed_body: Optional[Callable] = None
+    sparse_body: Optional[Callable] = None
+    wire_planner: Optional[Callable] = None
+
+
+# ---------------------------------------------------------------------------
 # Algorithm registry
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
@@ -871,7 +1368,9 @@ class Algorithm:
     geom, a_h, b_h, wire=)`` scores it for :func:`auto_select` from that
     plan instead of the generic cost model.  ``step_maps(geom, ex)`` (the
     port's own) lists each step's ``(a_map, b_map)`` per kernel launch
-    (:meth:`MatmulPlan.step_maps`).
+    (:meth:`MatmulPlan.step_maps`).  ``on_ranks`` holds the bodies that
+    run the schedule on a process grid (``plan_matmul(mesh=...)``), one
+    tile per rank; a schedule without them runs stacked only.
     """
     name: str
     body: Callable
@@ -892,6 +1391,7 @@ class Algorithm:
     packable: Tuple[str, ...] = ()
     wire_planner: Optional[Callable] = None
     step_maps: Optional[Callable] = None
+    on_ranks: Optional[_RankBodies] = None
 
 
 class AlgorithmRegistry:
@@ -957,6 +1457,7 @@ def register_algorithm(name: str, *, a_placement: str = NATURAL,
                        packable: Tuple[str, ...] = (),
                        wire_planner: Optional[Callable] = None,
                        step_maps: Optional[Callable] = None,
+                       on_ranks: Optional[_RankBodies] = None,
                        registry: AlgorithmRegistry = REGISTRY):
     """Decorator registering a stacked-grid body as a named algorithm."""
     def deco(body):
@@ -968,7 +1469,8 @@ def register_algorithm(name: str, *, a_placement: str = NATURAL,
             k_order=k_order, balance_axis=balance_axis,
             static_planner=static_planner, cost_fn=cost_fn,
             packed_body=packed_body, packable=packable,
-            wire_planner=wire_planner, step_maps=step_maps))
+            wire_planner=wire_planner, step_maps=step_maps,
+            on_ranks=on_ranks))
         return body
     return deco
 
@@ -983,35 +1485,51 @@ def _evict_plans_for_algorithm(name: str) -> None:
 register_algorithm("summa_bcast", style="bsp",
                    sparse_body=_sparse_body_summa,
                    packed_body=_packed_body_summa, packable=("a", "b"),
-                   wire_planner=_wire_planner_summa,
+                   wire_planner=_wire_planner_summa_bcast,
                    k_order=lambda i, j, t, g: t + 0 * (i + j),
-                   step_maps=_steps_summa)(_body_summa_bcast)
+                   step_maps=_steps_summa,
+                   on_ranks=_RankBodies(
+                       _rank_body_summa_bcast, _rank_packed_summa_bcast,
+                       _rank_sparse_summa_bcast))(_body_summa_bcast)
 register_algorithm("summa_ag", style="bsp", wire_amortized=True,
                    sparse_body=_sparse_body_summa,
                    packed_body=_packed_body_summa, packable=("a", "b"),
-                   wire_planner=_wire_planner_summa,
+                   wire_planner=_wire_planner_summa_bcast,
                    k_order=lambda i, j, t, g: t + 0 * (i + j),
-                   step_maps=_steps_summa)(_body_summa_ag)
+                   step_maps=_steps_summa,
+                   on_ranks=_RankBodies(
+                       _rank_body_summa_ag, _rank_packed_summa_ag,
+                       _rank_sparse_summa_ag,
+                       wire_planner=_wire_planner_summa_ag))(_body_summa_ag)
 register_algorithm("ring_c", a_placement=SKEW_ROWS, b_placement=SKEW_COLS,
                    sparse_body=_sparse_body_ring_c,
                    packed_body=_packed_body_ring_c, packable=("a", "b"),
                    wire_planner=_wire_planner_ring_c,
                    k_order=lambda i, j, t, g: (i + j + t) % g,
-                   step_maps=_steps_ring_c)(_body_ring_c)
+                   step_maps=_steps_ring_c,
+                   on_ranks=_RankBodies(
+                       _rank_body_ring_c, _rank_packed_ring_c,
+                       _rank_sparse_ring_c))(_body_ring_c)
 register_algorithm("ring_a", b_placement=STATIONARY_A, unskew_out="rows",
                    wire=("b", "c"), balance_axis="cols",
                    packed_body=_packed_body_ring_a, packable=("b",),
                    wire_planner=_wire_planner_ring_a,
-                   step_maps=_steps_ring_a)(_body_ring_a)
+                   step_maps=_steps_ring_a,
+                   on_ranks=_RankBodies(
+                       _rank_body_ring_a, _rank_packed_ring_a))(_body_ring_a)
 register_algorithm("ring_c_bidir", a_placement=SKEW_ROWS,
                    b_placement=SKEW_COLS, wire=("a", "a", "b"), duplex=2,
                    packed_body=_packed_body_ring_c_bidir, packable=("a",),
                    wire_planner=_wire_planner_ring_c_bidir,
                    msgs_per_step=4,     # a_fwd, a_bwd, b_left, b_right
-                   step_maps=_steps_ring_c_bidir)(_body_ring_c_bidir)
+                   step_maps=_steps_ring_c_bidir,
+                   on_ranks=_RankBodies(
+                       _rank_body_ring_c_bidir,
+                       _rank_packed_ring_c_bidir))(_body_ring_c_bidir)
 register_algorithm("steal3d", style="bsp", wire=("a", "b", "c"),
                    static_planner=_steal_plan_for, cost_fn=_steal3d_cost,
-                   packable=("a",))(_body_steal3d)
+                   packable=("a",),
+                   on_ranks=_RankBodies(_rank_body_steal3d))(_body_steal3d)
 
 
 def algorithms() -> Tuple[str, ...]:
@@ -1306,6 +1824,41 @@ class DistBSR(DistMatrix):
                              f"{tiled.grid_shape}")
         self.tiled = tiled
         self._placed: Dict[str, Dict[str, torch.Tensor]] = {}
+        # on a process grid: the executor and the rank's own (natural)
+        # tile, for a product made there (None for a global handle)
+        self._ex: Optional[GroupExecutor] = None
+        self._local: Optional[Dict[str, torch.Tensor]] = None
+
+    @classmethod
+    def _on_grid(cls, tiled: TiledBSR, ex: GroupExecutor,
+                 local: Dict[str, torch.Tensor]) -> "DistBSR":
+        """A handle distributed over a process grid: ``tiled`` carries the
+        structure of every tile on the host (its ``blocks`` a shape on the
+        meta device) and ``local`` this rank's tile ``{"blocks": [store,
+        bs, bs]}`` on the executor's device."""
+        h = cls(tiled)
+        h._ex, h._local = ex, local
+        return h
+
+    @property
+    def on_grid(self) -> bool:
+        """Whether each rank of a process grid holds one tile (a product
+        made on a grid) rather than the whole matrix."""
+        return self._ex is not None
+
+    def to_global(self) -> "DistBSR":
+        """The whole matrix on every rank (collective on a grid: every rank
+        calls it), as a global handle on the executor's device; a global
+        handle returns itself."""
+        if self._ex is None:
+            return self
+        ex, t = self._ex, self.tiled
+        blocks = ex.gather_grid(self._local)["blocks"]
+        tiled = dataclasses.replace(
+            t, blocks=blocks, rows=t.rows.to(ex.device),
+            cols=t.cols.to(ex.device), counts=t.counts.to(ex.device))
+        tiled.host_layout = t.host_layout
+        return DistBSR(tiled)
 
     @classmethod
     def from_tiled(cls, tiled: TiledBSR, *, balance: str = "none",
@@ -1365,7 +1918,7 @@ class DistBSR(DistMatrix):
 
     @property
     def device(self) -> torch.device:
-        return self.tiled.device
+        return self._ex.device if self._ex is not None else self.tiled.device
 
     @property
     def dtype(self) -> torch.dtype:
@@ -1414,7 +1967,10 @@ class DistBSR(DistMatrix):
         return self._inv_perm("col")
 
     def densify(self) -> torch.Tensor:
-        """Dense logical-shape value (inverts balance perms, crops padding)."""
+        """Dense logical-shape value (inverts balance perms, crops padding);
+        on a process grid, of :meth:`to_global` (collective)."""
+        if self._ex is not None:
+            return self.to_global().densify()
         d = self.tiled.to_dense()
         bs = self.block_size
         if self.tiled.row_block_perm is not None:
@@ -1532,6 +2088,10 @@ class DistBSR(DistMatrix):
                    for x in (t.blocks, t.rows, t.cols, t.counts))
 
     def placed(self, placement: str) -> Dict[str, torch.Tensor]:
+        if self._ex is not None:
+            raise ValueError(
+                "a DistBSR on a process grid holds one tile per rank; plans "
+                "on the grid place it (or call to_global() first)")
         tree = self._placed.get(placement)
         if tree is None:
             t = _place_bsr(self.tiled, placement)
@@ -1542,7 +2102,7 @@ class DistBSR(DistMatrix):
     def abstract_key(self) -> tuple:
         t = self.tiled
         return ("bsr", t.shape, t.grid_shape, t.block_size, t.capacity,
-                _dtype_name(t.dtype), str(t.device))
+                _dtype_name(t.dtype), str(self.device))
 
 
 class DistDense(DistMatrix):
@@ -1640,6 +2200,102 @@ class DistDense(DistMatrix):
     def abstract_key(self) -> tuple:
         return ("dense", self.shape, self._g, _dtype_name(self.data.dtype),
                 str(self.data.device))
+
+
+# ---------------------------------------------------------------------------
+# Operands and results on a process grid
+# ---------------------------------------------------------------------------
+def _rank_tree(h: DistMatrix, placement: str, packed: bool,
+               ex: GroupExecutor, blocks_only: bool = False
+               ) -> Dict[str, torch.Tensor]:
+    """The tile of ``h`` that ``placement`` puts at this rank's grid
+    position, on the rank's device (cached on the handle per placement,
+    wire and executor).
+
+    A global handle loads that tile: only its blocks (or its dense tile)
+    go to the device.  A handle on the grid (a product made there) holds
+    its natural tile, and one exchange round of the placement's tile
+    permutation brings each rank the tile it needs (phase ``"place"``).
+    Structure (rows, cols) comes from the host, where every rank keeps
+    every tile's; ``packed`` takes the tile's real blocks
+    (``DistBSR.packed_wire``), ``blocks_only`` drops rows and cols.
+    """
+    cache = h.__dict__.setdefault("_rank_trees", {})
+    key = (placement, packed, blocks_only, id(ex))
+    tree = cache.get(key)
+    if tree is not None:
+        return tree
+    ti, tj = (int(x) for x in _wire.placement_tiles(placement, ex.g)[ex.i,
+                                                                      ex.j])
+    if isinstance(h, DistDense):
+        tm, tn = h.tile_shape
+        tree = {"dense": h.data[ti * tm:(ti + 1) * tm,
+                                tj * tn:(tj + 1) * tn].contiguous().to(
+                                    ex.device)}
+    else:
+        t = h.tiled
+        if h.on_grid:
+            raw = (placement, "blocks", id(ex))
+            if raw not in cache:
+                # who needs this rank's natural tile under the placement
+                need = _wire.placement_tiles(placement, ex.g).reshape(-1, 2)
+                dst = int(np.nonzero((need[:, 0] == ex.i)
+                                     & (need[:, 1] == ex.j))[0][0])
+                phase, ex.phase = ex.phase, "place"
+                try:
+                    cache[raw] = ex.permute(h._local, ti * ex.g + tj,
+                                            dst)["blocks"]
+                finally:
+                    ex.phase = phase
+            blocks = cache[raw]
+        else:
+            blocks = t.blocks[ti, tj]
+        if packed:
+            pidx = torch.as_tensor(h.packed_operand().pack_idx[ti, tj],
+                                   device=blocks.device).long()
+            tree = {"blocks": blocks.index_select(0, pidx).to(ex.device)}
+        else:
+            tree = {"blocks": blocks.to(ex.device)}
+            if not blocks_only:
+                tree["rows"] = t.rows[ti, tj].to(ex.device)
+                tree["cols"] = t.cols[ti, tj].to(ex.device)
+    cache[key] = tree
+    return tree
+
+
+class RankTile:
+    """A dense product on a process grid: this rank's C tile.
+
+    ``tile`` is the rank's ``[tm, tn]`` tile of the padded C, unskewed
+    (after a balanced left operand, in its permuted row order).
+    :meth:`to_global` all-gathers every rank's tile (collective: every rank
+    calls it) and applies the plan's epilogue: the balance permutations
+    are inverted and the padding cropped.
+    """
+
+    def __init__(self, tile: torch.Tensor, ex: GroupExecutor,
+                 finish: Callable[[torch.Tensor], torch.Tensor]):
+        self.tile = tile
+        self._ex = ex
+        self._finish = finish
+
+    @property
+    def device(self) -> torch.device:
+        return self.tile.device
+
+    def to_global(self) -> torch.Tensor:
+        tiles = self._ex.gather_grid({"c": self.tile})["c"]
+        return self._finish(untileize(tiles))
+
+
+def _result_tensor(out):
+    """What a multiply's result holds on this process's device (the tensor
+    its timing waits for)."""
+    if isinstance(out, RankTile):
+        return out.tile
+    if isinstance(out, DistBSR) and out.on_grid:
+        return out._local["blocks"]
+    return out
 
 
 def _reshard_bsr(h: DistBSR, g: int, capacity) -> DistBSR:
@@ -1747,14 +2403,15 @@ def reshard(h: DistMatrix, g: int, *, capacity="bucket") -> DistMatrix:
     raise TypeError(f"cannot reshard {type(h).__name__}")
 
 
-def validate_mesh(executor: "StackedExecutor", g: int, *handles) -> None:
-    """Fail fast (and clearly) on a grid the stacked executor cannot run.
+def validate_mesh(executor, g: int, *handles) -> None:
+    """Fail fast (and clearly) on a grid the executor cannot run.
 
-    The port's counterpart of the JAX package's mesh check: where the JAX
-    package checks a device mesh's axes and shape, the stacked executor
-    has a grid size and a device, so this checks ``g >= 1``, that the
-    executor runs a ``g x g`` grid, and that every handle lives on that
-    grid and that device.
+    The port's counterpart of the JAX package's mesh check.  A
+    :class:`~repro_torch.core.executor.GroupExecutor` (a plan on a process
+    grid) must run a ``g x g`` mesh, and a handle made on a grid must
+    belong to it; the stacked executor has a grid size and a device, so
+    there this checks ``g >= 1``, that it runs a ``g x g`` grid, and that
+    every handle lives on that grid and that device.
     """
     if g < 1:
         raise ValueError(f"grid size must be >= 1, got {g}")
@@ -1762,13 +2419,64 @@ def validate_mesh(executor: "StackedExecutor", g: int, *handles) -> None:
         raise ValueError(
             f"executor grid {executor.g}x{executor.g} does not match the "
             f"{g}x{g} process grid of the operands")
+    on_ranks = isinstance(executor, GroupExecutor)
     for h in handles:
         if h.g != g:
             raise ValueError(f"operand lives on a {h.g}x{h.g} grid, not the "
                              f"{g}x{g} grid of the executor")
-        if h.device != executor.device:
+        if on_ranks:
+            if getattr(h, "on_grid", False) and h._ex is not executor:
+                raise ValueError("operand was made on another process grid")
+        elif h.device != executor.device:
             raise ValueError(f"operand lives on {h.device}, the executor "
                              f"runs on {executor.device}")
+
+
+_EXECUTORS: Dict[tuple, GroupExecutor] = {}
+
+
+def _prep_mesh(mesh, g: int, device=None) -> Optional[GroupExecutor]:
+    """The executor of a ``plan_matmul(mesh=...)`` request: None (the
+    stacked executor), a :class:`GroupExecutor` as given, or one made once
+    per (``DeviceMesh``, device) for a mesh from
+    :func:`~repro_torch.core.dist.make_grid_mesh` (on ``device``, the card
+    set for the rank by default)."""
+    if mesh is None or isinstance(mesh, GroupExecutor):
+        return mesh
+    if tuple(mesh.shape) != (g, g) or mesh.ndim != 2:
+        raise ValueError(f"mesh shape {tuple(mesh.shape)} does not match "
+                         f"the {g}x{g} process grid of the operands; build "
+                         f"one with make_grid_mesh({g}, ...)")
+    dev = resolve_device(device)
+    key = (_mesh_key(mesh), str(dev))
+    ex = _EXECUTORS.get(key)
+    if ex is None:
+        ex = _EXECUTORS[key] = GroupExecutor(mesh, dev,
+                                             *mesh.mesh_dim_names)
+    return ex
+
+
+def _mesh_key(mesh) -> tuple:
+    """The plan cache's name for an executor: a plan on one process grid
+    is never reused on another, nor a stacked plan on a grid."""
+    return ("stacked",) if mesh is None else ("mesh", id(mesh))
+
+
+def _resolve_overlap(alg: "Algorithm", overlap: str, on_ranks: bool) -> bool:
+    """The body an ``overlap`` request builds (``geom.overlap``).
+
+    On a process grid, as the JAX package: the scanned schedules take the
+    split-step body on ``"auto"`` and ``"on"``, steal3d only on ``"on"``
+    (its second launch pays only where the moved tiles travel while the
+    first runs).  On the stacked executor ``"auto"`` is the bulk body: a
+    ride is a tile map there, so the split step hides nothing.
+    """
+    if overlap not in ("auto", "on", "off"):
+        raise ValueError(f"unknown overlap {overlap!r}; one of "
+                         "('auto', 'on', 'off')")
+    if on_ranks and alg.static_planner is None:
+        return overlap != "off"
+    return overlap == "on"
 
 
 # ---------------------------------------------------------------------------
@@ -1838,7 +2546,11 @@ def _compensate_rhs(b_h: DistMatrix, perm: Tuple[int, ...],
 
 
 def _coerce_pair(a, b, *, g: Optional[int] = None, allow_pad: bool = False,
-                 device=None) -> Tuple[DistMatrix, DistMatrix]:
+                 device=None, on_ranks: bool = False
+                 ) -> Tuple[DistMatrix, DistMatrix]:
+    """Handles for ``a @ b``, validated.  ``on_ranks`` (a plan on a process
+    grid) lets the two live on different devices: each rank moves the
+    tiles it needs to its own."""
     if isinstance(a, DistMatrix):
         a_h = a
     elif isinstance(a, TiledBSR):
@@ -1873,7 +2585,7 @@ def _coerce_pair(a, b, *, g: Optional[int] = None, allow_pad: bool = False,
     if a_h.g != b_h.g:
         raise ValueError(f"operands on different process grids: "
                          f"{a_h.g}x{a_h.g} vs {b_h.g}x{b_h.g}")
-    if a_h.device != b_h.device:
+    if a_h.device != b_h.device and not on_ranks:
         raise ValueError(f"operands on different devices: {a_h.device} vs "
                          f"{b_h.device}")
     if a_h.shape[1] != b_h.shape[0]:
@@ -2169,7 +2881,8 @@ def auto_select(a, b, *, machine: Optional["_roofline.Machine"] = None,
                 g: Optional[int] = None, allow_pad: bool = False,
                 registry: Optional[AlgorithmRegistry] = None,
                 output: str = "dense", wire: str = "auto",
-                overlap: str = "auto", device=None, _symbolic=None
+                overlap: str = "auto", device=None, _symbolic=None,
+                _on_ranks: bool = False
                 ) -> Tuple[str, Dict[str, float]]:
     """Score every registered schedule for ``a @ b``; pick the cheapest.
 
@@ -2185,7 +2898,8 @@ def auto_select(a, b, *, machine: Optional["_roofline.Machine"] = None,
     (:func:`_overlap_eff`).
     """
     _check_request("auto", output, wire, overlap, None)
-    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
+    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device,
+                            on_ranks=_on_ranks)
     machine = machine or _roofline.H100_SXM
     registry = registry or REGISTRY
     wire = _resolve_wire(wire, output)
@@ -2228,14 +2942,16 @@ def auto_select(a, b, *, machine: Optional["_roofline.Machine"] = None,
 
 
 def _steps_on_device(arrays: Dict[str, np.ndarray], g: int,
-                     device: torch.device) -> list:
+                     device: torch.device, rows: slice = slice(None)
+                     ) -> list:
     """``[g, g, t, ...]`` plan arrays -> per step t a dict of ``[g*g, ...]``
-    tensors on ``device`` (gather maps as int64, lists as int32)."""
+    tensors on ``device`` (gather maps as int64, lists as int32); ``rows``
+    keeps some grid positions only (a rank's own, ``[1, ...]``)."""
     steps = []
     for t in range(g):
         step = {}
         for k, v in arrays.items():
-            v = np.ascontiguousarray(v[:, :, t].reshape(g * g, -1))
+            v = np.ascontiguousarray(v[:, :, t].reshape(g * g, -1)[rows])
             dtype = torch.int64 if "gidx" in k or "dmap" in k \
                 else torch.int32
             step[k] = torch.from_numpy(v).to(device=device, dtype=dtype)
@@ -2286,7 +3002,7 @@ class MatmulPlan:
                  wire_caps: Optional[Dict[str, int]] = None,
                  wire_fps: Optional[Dict[str, str]] = None,
                  steal: Optional["_steal3d.StealPlan"] = None,
-                 steal_dev: Optional[_StealDevice] = None):
+                 steal_dev=None):
         self.algorithm = algorithm
         self.geom = geom
         self.executor = executor
@@ -2311,6 +3027,10 @@ class MatmulPlan:
         self._wire_caps = wire_caps
         self._wire_fps = wire_fps or {}
         dev = executor.device
+        # on a process grid the plan keeps this rank's rows of its lists
+        self.on_ranks = isinstance(executor, GroupExecutor)
+        mine = slice(executor.position, executor.position + 1) \
+            if self.on_ranks else slice(None)
         if symbolic is not None:
             sched = symbolic.scheduled_pairs(
                 algorithm.k_order,
@@ -2320,19 +3040,19 @@ class MatmulPlan:
             # host copy of the mask B2's tables are cut from (the verifier
             # holds it to the device lists)
             self._pair_real = real
-            self._pairs = _steps_on_device(sched, geom.g, dev)
+            self._pairs = _steps_on_device(sched, geom.g, dev, mine)
             if _runs_kernel(geom.impl, dev):
                 for t, step in enumerate(self._pairs):
                     step["table"] = pair_table(
-                        sched["ps"][:, :, t].reshape(geom.g ** 2, -1),
+                        sched["ps"][:, :, t].reshape(geom.g ** 2, -1)[mine],
                         geom.c_store,
-                        real=real[:, :, t].reshape(geom.g ** 2, -1),
+                        real=real[:, :, t].reshape(geom.g ** 2, -1)[mine],
                         device=dev)
             self._c_rows = torch.as_tensor(symbolic.c_rows, device=dev)
             self._c_cols = torch.as_tensor(symbolic.c_cols, device=dev)
             self._c_counts = torch.as_tensor(symbolic.c_counts, device=dev)
         elif wire == "packed" and steal is None:
-            self._aux = _steps_on_device(wire_aux, geom.g, dev)
+            self._aux = _steps_on_device(wire_aux, geom.g, dev, mine)
         self._tables = _LRUCache(SPMM_TABLE_CACHE_MAX)
         self._maps: Dict[bytes, torch.Tensor] = {}
         self._validated: set = set()     # static-verifier modes passed
@@ -2401,6 +3121,10 @@ class MatmulPlan:
                 "(expected 'off', 'fast' or 'full')")
         if mode in self._validated:
             return
+        if self.on_ranks:
+            raise ValueError(
+                "the static verifier reads the stacked executor's plans; "
+                "validate a plan of the same operands built with mesh=None")
         from .. import analysis as _analysis
         with _obs.span("plan_build.validate", mode=mode,
                        algorithm=self.algorithm.name):
@@ -2494,14 +3218,23 @@ class MatmulPlan:
         # and no synchronisation
         if not _obs.enabled():
             return self._execute(a, b)
+        ex = self.executor
+        attrs = dict(kind=self.kind, wire=self.wire, output=self.output,
+                     overlap=self.overlap)
+        if self.on_ranks:
+            attrs["rank"] = ex.rank
+            ex.barrier()                 # every rank starts the clock here
         t0 = time.perf_counter()
-        sp = _obs.span(f"multiply.{self.algorithm.name}", kind=self.kind,
-                       wire=self.wire, output=self.output,
-                       overlap=self.overlap)
+        sp = _obs.span(f"multiply.{self.algorithm.name}", **attrs)
         with sp:
             out = self._execute(a, b)
-            measured = _obs.sync_elapsed(t0, out)
+            measured = _obs.sync_elapsed(t0, _result_tensor(out))
+            if self.on_ranks:            # the slowest rank's time
+                sp.note(rank_s=measured)
+                measured = ex.max_over_ranks(measured)
             sp.note(measured_s=measured)
+        if self.on_ranks and ex.rank != 0:
+            return out                   # rank 0 records the drift
         machine = _DRIFT_MACHINE or _roofline.H100_SXM
         cm = self.cost_model()
         _obs.record_drift(
@@ -2515,7 +3248,8 @@ class MatmulPlan:
     def _execute(self, a, b):
         a_h, b_h = _coerce_pair(a, b, g=self.geom.g,
                                 allow_pad=self._allow_pad,
-                                device=self.executor.device)
+                                device=self._operand_device(),
+                                on_ranks=self.on_ranks)
         if (a_h.abstract_key(), b_h.abstract_key()) != (self._a_key,
                                                         self._b_key):
             raise ValueError(
@@ -2523,18 +3257,66 @@ class MatmulPlan:
                 f"(plan: {self._a_key} @ {self._b_key}, got "
                 f"{a_h.abstract_key()} @ {b_h.abstract_key()}); build a new "
                 "plan with plan_matmul")
+        if self.on_ranks:
+            return self._execute_on_ranks(a_h, b_h)
         body, operands = self._operands(a_h, b_h)
         c = body(*operands, self.geom, self.executor)
         if self.symbolic is not None:
             return self._epilogue_sparse(c, a_h, b_h)
         return self._epilogue(untileize(c), a_h, b_h)
 
+    def _operand_device(self):
+        """Where array operands are wrapped: the stacked executor's device,
+        or the host on a process grid (each rank loads its tiles)."""
+        return torch.device("cpu") if self.on_ranks \
+            else self.executor.device
+
+    def _execute_on_ranks(self, a_h: DistMatrix, b_h: DistMatrix):
+        """The rank's body on its tiles, then its part of the epilogue: the
+        packed C handle on the grid, or the unskewed C tile."""
+        ex = self.executor
+        ex.reset_counters()
+        ex.phase = "body"
+        try:
+            body, operands = self._operands(a_h, b_h)
+            c = body(*operands, self.geom, ex)
+            if self.symbolic is not None:
+                ex.phase = "structure"
+                return self._epilogue_sparse_ranks(c, a_h, b_h)
+            if self.algorithm.unskew_out == "rows":
+                # tile (i, j) came to rest at (i, (j + i) % g): one
+                # exchange within each grid row brings it home
+                ex.phase = "epilogue"
+                c = _tree_ppermute(ex, {"c": c}, "col", -ex.i)["c"]
+            elif self.algorithm.unskew_out is not None:
+                raise ValueError(
+                    f"unknown unskew_out {self.algorithm.unskew_out!r}")
+            return RankTile(c, ex, lambda full: self._epilogue(
+                full, a_h, b_h, unskew=False))
+        finally:
+            ex.phase = "body"
+
     def _operands(self, a_h: DistMatrix, b_h: DistMatrix):
         """The body to run and its operand trees (plus plan constants),
-        after the structure guards of structure-specialized plans."""
+        after the structure guards of structure-specialized plans; on a
+        process grid the rank's bodies and tiles (:func:`_rank_tree`)."""
         alg = self.algorithm
         pl_a, pl_b = alg.a_placement, alg.b_placement
         packed = self.wire == "packed"
+        if self.on_ranks:
+            bodies = alg.on_ranks
+            ex = self.executor
+
+            def tree(h, pl, pk, blocks_only=False):
+                return _rank_tree(h, pl, pk, ex, blocks_only)
+        else:
+            bodies = alg
+
+            def tree(h, pl, pk, blocks_only=False):
+                if pk:
+                    return h.packed_wire(pl)
+                t = h.placed(pl)
+                return {"blocks": t["blocks"]} if blocks_only else t
         if self.steal is not None:
             if isinstance(a_h, DistBSR):
                 if a_h.structure_key() != self.steal.a_fingerprint:
@@ -2543,11 +3325,10 @@ class MatmulPlan:
                         "this steal3d plan (the LPT assignment and pair "
                         "lists are specialized to the structure); build a "
                         "new plan with plan_matmul")
-                a_tree = a_h.packed_wire(pl_a) if packed \
-                    else {"blocks": a_h.placed(pl_a)["blocks"]}
+                a_tree = tree(a_h, pl_a, packed, blocks_only=True)
             else:
-                a_tree = a_h.placed(pl_a)
-            return alg.body, (a_tree, b_h.placed(pl_b), self._steal)
+                a_tree = tree(a_h, pl_a, False)
+            return bodies.body, (a_tree, tree(b_h, pl_b, False), self._steal)
         if self.symbolic is not None:
             sym = self.symbolic
             if (a_h.structure_key(), b_h.structure_key()) != \
@@ -2556,11 +3337,9 @@ class MatmulPlan:
                     "operands' sparsity structure does not match this "
                     "sparse-output plan (pair lists are specialized to the "
                     "structure); build a new plan with plan_matmul")
-            a_tree = a_h.packed_wire(pl_a) if packed \
-                else {"blocks": a_h.placed(pl_a)["blocks"]}
-            b_tree = b_h.packed_wire(pl_b) if packed \
-                else {"blocks": b_h.placed(pl_b)["blocks"]}
-            return alg.sparse_body, (a_tree, b_tree, self._pairs)
+            return bodies.sparse_body, (
+                tree(a_h, pl_a, packed, blocks_only=True),
+                tree(b_h, pl_b, packed, blocks_only=True), self._pairs)
         if packed:
             for who, h in (("a", a_h), ("b", b_h)):
                 if who in self._packs \
@@ -2570,21 +3349,36 @@ class MatmulPlan:
                         "sparsity structure does not match this packed-wire "
                         "plan (the consume maps are specialized to the "
                         "structure); build a new plan with plan_matmul")
-            a_tree = a_h.packed_wire(pl_a) if "a" in self._packs \
-                else a_h.placed(pl_a)
-            b_tree = b_h.packed_wire(pl_b) if "b" in self._packs \
-                else b_h.placed(pl_b)
-            return alg.packed_body, (a_tree, b_tree, self._aux,
-                                     self._steps(a_h))
-        return alg.body, (a_h.placed(pl_a), b_h.placed(pl_b),
-                          self._steps(a_h))
+            return bodies.packed_body, (
+                tree(a_h, pl_a, "a" in self._packs),
+                tree(b_h, pl_b, "b" in self._packs), self._aux,
+                self._steps(a_h))
+        return bodies.body, (tree(a_h, pl_a, False), tree(b_h, pl_b, False),
+                             self._steps(a_h))
 
-    def _steps(self, a_h: DistMatrix) -> _Steps:
+    def _steps(self, a_h: DistMatrix):
         kernel = isinstance(a_h, DistBSR) \
             and _runs_kernel(self.geom.impl, self.executor.device)
+        if self.on_ranks:
+            table = (lambda held, k: self._rank_table(a_h, held, k)) \
+                if kernel else None
+            return _RankSteps(maps=self.step_maps(), table=table)
         table = (lambda a_map, b_map: self.spmm_table(a_h, a_map, b_map)) \
             if kernel else None
         return _Steps(table=table, device_map=self._device_map)
+
+    def _rank_table(self, a_h: "DistBSR", held: Tuple[int, ...],
+                    k: int) -> SpmmTable:
+        """B1's table of a rank's launch over its local pool of the placed
+        A tiles ``held``, reading pool tile ``k`` (cached with the plan)."""
+        lists = a_h.pool_lists(self.algorithm.a_placement,
+                               packed="a" in self._packs)
+        key = (lists.key, tuple(held), k)
+        table = self._tables.get(key)
+        if table is None:
+            table = self._tables[key] = lists.take(held).table(
+                [k], [0], self.geom.a_nbr, device=self.executor.device)
+        return table
 
     def _epilogue_sparse(self, c_blocks: torch.Tensor, a_h: DistBSR,
                          b_h: DistBSR) -> DistBSR:
@@ -2605,8 +3399,35 @@ class MatmulPlan:
             logical_shape=(a_h.logical_shape[0], b_h.logical_shape[1]))
         return DistBSR(tiled)
 
+    def _epilogue_sparse_ranks(self, c_blocks: torch.Tensor, a_h: DistBSR,
+                               b_h: DistBSR) -> DistBSR:
+        """The rank's packed C tile as a :class:`DistBSR` on the grid.
+
+        Every rank keeps every tile's structure on the host: the symbolic
+        layout, and which of its slots hold data, from one all-gather of
+        the ranks' block masks (``|block| != 0``, as a stacked result's
+        :meth:`TiledBSR.host` reads it), so a chained multiply plans from
+        the same structure on every rank."""
+        sym, ex = self.symbolic, self.executor
+        mask = torch.ne(c_blocks, 0).flatten(-2).any(dim=-1)
+        real = ex.gather_grid({"real": mask})["real"].cpu().numpy()
+        g, bs = sym.g, sym.block_size
+        tiled = TiledBSR(
+            blocks=torch.empty((g, g, sym.store_capacity, bs, bs),
+                               dtype=c_blocks.dtype, device="meta"),
+            rows=torch.as_tensor(sym.c_rows), cols=torch.as_tensor(
+                sym.c_cols), counts=torch.as_tensor(sym.c_counts),
+            shape=sym.shape, block_size=bs, grid_shape=(g, g),
+            capacity=sym.capacity,
+            logical_shape=(a_h.logical_shape[0], b_h.logical_shape[1]))
+        tiled.host_layout = {"rows": np.asarray(sym.c_rows),
+                             "cols": np.asarray(sym.c_cols),
+                             "counts": np.asarray(sym.c_counts),
+                             "real": real}
+        return DistBSR._on_grid(tiled, ex, {"blocks": c_blocks})
+
     def _epilogue(self, c: torch.Tensor, a_h: DistMatrix,
-                  b_h: DistMatrix) -> torch.Tensor:
+                  b_h: DistMatrix, unskew: bool = True) -> torch.Tensor:
         """Shared output fix-up: unskew, un-balance, crop padding.
 
         A rows-balanced left operand permuted its global row blocks before
@@ -2614,7 +3435,9 @@ class MatmulPlan:
         the unskew, before the crop); a cols-balanced right operand
         permuted C's column blocks likewise.
         """
-        if self.algorithm.unskew_out == "rows":
+        if not unskew:
+            pass                     # the ranks unskewed their tiles
+        elif self.algorithm.unskew_out == "rows":
             c = unskew_c_rows(c, self.geom.g)
         elif self.algorithm.unskew_out is not None:
             raise ValueError(
@@ -2622,17 +3445,18 @@ class MatmulPlan:
         perm = getattr(a_h, "row_block_perm", None)
         if perm:
             bs = a_h.block_size
-            c = c.reshape(len(perm), bs, -1)[a_h.inv_row_perm()].reshape(
-                c.shape)
+            c = c.reshape(len(perm), bs, -1)[a_h.inv_row_perm().to(
+                c.device)].reshape(c.shape)
         cperm = getattr(b_h, "col_block_perm", None)
         if cperm:
             bs = b_h.block_size
-            c = c.reshape(c.shape[0], len(cperm), bs)[:, b_h.inv_col_perm()]
+            c = c.reshape(c.shape[0], len(cperm), bs)[
+                :, b_h.inv_col_perm().to(c.device)]
             c = c.reshape(c.shape[0], -1)
         return c[:a_h.logical_shape[0], :b_h.logical_shape[1]]
 
 
-def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
+def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c", mesh=None,
                       impl: Optional[str] = None, g: Optional[int] = None,
                       allow_pad: bool = False, cache: bool = True,
                       machine: Optional["_roofline.Machine"] = None,
@@ -2648,6 +3472,17 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
     (``g`` required when ``a`` is dense); arrays go to ``device``, the card
     by default.  ``impl`` picks the local multiply (``None``/``"auto"``:
     the CUDA kernel on the card, the plain version on the CPU).
+
+    ``mesh`` runs the plan on a process grid, one tile per rank: a
+    ``DeviceMesh`` from :func:`~repro_torch.core.dist.make_grid_mesh`
+    (every rank builds the same plan; ``device`` is then the rank's compute
+    device, the card set for it by default) or a
+    :class:`~repro_torch.core.executor.GroupExecutor`.  Each rank loads
+    (or, for a product made on the grid, exchanges into place) only its
+    own tiles; the host planners run on every rank alike.  A dense result
+    is the rank's :class:`RankTile`, a sparse one a :class:`DistBSR` on
+    the grid; ``to_global()`` gathers either.  ``None`` (the default) runs
+    every tile stacked on one device.
 
     ``algorithm`` names a registered schedule (:func:`algorithms`), or
     ``"auto"``: :func:`auto_select` scores every registered schedule
@@ -2671,11 +3506,11 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
 
     ``overlap="on"`` builds the split-step body (steal3d: its own and
     stolen items as two launches), ``"off"`` the bulk one, and ``"auto"``
-    resolves to the bulk one: on the single-stream executor the split-step
-    body hides no copy and holds one more copy of each operand (``"on"``
-    stays for parity with the JAX package until the shift runs on a side
-    stream).  The mode joins the cache key and feeds the cost model's
-    comm-hiding credit.
+    resolves as :func:`_resolve_overlap` says: on a process grid to the
+    split step but for steal3d, as the JAX package; stacked to the bulk
+    body (there a ride is a tile map, so the split step hides nothing and
+    holds one more copy of each operand).  The mode joins the cache key
+    and feeds the cost model's comm-hiding credit.
 
     ``validate`` statically verifies the plan before handing it back
     (:meth:`MatmulPlan.validate`): ``"off"`` (default) skips, ``"fast"``
@@ -2704,8 +3539,14 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
                 f"got algorithm={algorithm!r}")
         cache = False
     _check_request(algorithm, output, wire, overlap, impl)
-    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
-    if a_h.device.type == "cuda":
+    on_ranks = mesh is not None
+    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad,
+                            device=torch.device("cpu") if on_ranks
+                            else device, on_ranks=on_ranks)
+    ex = _prep_mesh(mesh, a_h.g, device)
+    if ex is not None:
+        validate_mesh(ex, a_h.g, a_h, b_h)
+    if (ex.device if on_ranks else a_h.device).type == "cuda":
         strict_fp32()
     if output == "sparse":
         reason = _sparse_output_eligible(a_h, b_h)
@@ -2734,8 +3575,12 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
         with _obs.span("plan_build.auto_select"):
             algorithm, auto_scores = auto_select(
                 a_h, b_h, machine=machine, allow_pad=allow_pad,
-                output=output, wire=wire, overlap=overlap, _symbolic=sym)
+                output=output, wire=wire, overlap=overlap, _symbolic=sym,
+                _on_ranks=on_ranks)
     alg = REGISTRY.get(algorithm)
+    if on_ranks and alg.on_ranks is None:
+        raise ValueError(f"algorithm {algorithm!r} has no bodies for a "
+                         "process grid (Algorithm.on_ranks)")
     if sym is not None and alg.sparse_body is None:
         raise ValueError(
             f"algorithm {algorithm!r} has no sparse-output body; one of "
@@ -2771,6 +3616,7 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
     if wire == "packed":
         key += ("wire-packed",) + tuple(
             (a_h if t == "a" else b_h).structure_key() for t in packs)
+    key += (_mesh_key(ex),)
     if cache:
         plan = _PLAN_CACHE.get(key)
         if plan is not None:
@@ -2778,7 +3624,8 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
                 plan.auto_scores = auto_scores   # record for introspection
             plan.validate(validate, a_h, b_h)
             return plan
-    geom = _geometry(a_h, b_h, impl=impl, overlap=overlap == "on",
+    geom = _geometry(a_h, b_h, impl=impl,
+                     overlap=_resolve_overlap(alg, overlap, on_ranks),
                      c_store=sym.store_capacity if sym else 0)
     steal = alg.static_planner(a_h, b_h, geom, wire=wire,
                                assignment=assignment) \
@@ -2799,13 +3646,21 @@ def _plan_matmul_impl(a, b, *, algorithm: str = "ring_c",
                     "pb": _wire.remap_pairs_packed(sym.pair_b, b_po, "b"),
                 }
             else:
-                wire_aux = alg.wire_planner(a_po, b_po, geom)
+                planner = alg.wire_planner
+                if on_ranks and alg.on_ranks.wire_planner is not None:
+                    planner = alg.on_ranks.wire_planner
+                wire_aux = planner(a_po, b_po, geom)
     elif steal is not None and steal.wire == "packed":
         wire_caps = {"a": steal.a_wire_capacity}
     with _obs.span("plan_build.executable", algorithm=alg.name):
-        ex = StackedExecutor(a_h.g, a_h.device)
-        steal_dev = None if steal is None else _steal_device(
-            steal, a_h, geom, ex.device, _runs_kernel(impl, ex.device))
+        kernel = _runs_kernel(impl, (ex or a_h).device)
+        if ex is None:
+            ex = StackedExecutor(a_h.g, a_h.device)
+            steal_dev = None if steal is None else _steal_device(
+                steal, a_h, geom, ex.device, kernel)
+        else:
+            steal_dev = None if steal is None else _steal_rank(
+                steal, geom, ex, kernel)
         plan = MatmulPlan(alg, geom, ex, a_h.abstract_key(),
                           b_h.abstract_key(), allow_pad=allow_pad,
                           overlap=overlap, requested=requested,
@@ -2836,7 +3691,8 @@ def plan_matmul(a, b, **kw) -> MatmulPlan:
 plan_matmul.__doc__ = _plan_matmul_impl.__doc__
 
 
-def matmul(a, b, *, algorithm: str = "ring_c", impl: Optional[str] = None,
+def matmul(a, b, *, algorithm: str = "ring_c", mesh=None,
+           impl: Optional[str] = None,
            g: Optional[int] = None, allow_pad: bool = False,
            machine: Optional["_roofline.Machine"] = None,
            output: str = "dense", sparse_threshold: Optional[float] = None,
@@ -2846,13 +3702,17 @@ def matmul(a, b, *, algorithm: str = "ring_c", impl: Optional[str] = None,
     Dispatches sparse x dense -> SpMM, sparse x sparse -> SpGEMM (a dense
     tensor, or with ``output="sparse"|"auto"`` a :class:`DistBSR` that
     chains into further multiplies) and dense x dense -> the dense engine;
-    ``algorithm="auto"`` picks the schedule by the cost model (see
-    :func:`plan_matmul` for the arguments).
+    ``algorithm="auto"`` picks the schedule by the cost model; ``mesh``
+    runs it on a process grid (see :func:`plan_matmul` for the
+    arguments).
     """
     _check_request(algorithm, output, wire, overlap, impl)
-    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad, device=device)
-    plan = plan_matmul(a_h, b_h, algorithm=algorithm, impl=impl,
+    on_ranks = mesh is not None
+    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad,
+                            device=torch.device("cpu") if on_ranks
+                            else device, on_ranks=on_ranks)
+    plan = plan_matmul(a_h, b_h, algorithm=algorithm, mesh=mesh, impl=impl,
                        allow_pad=allow_pad, machine=machine, output=output,
                        sparse_threshold=sparse_threshold, wire=wire,
-                       overlap=overlap)
+                       overlap=overlap, device=device if on_ranks else None)
     return plan(a_h, b_h)

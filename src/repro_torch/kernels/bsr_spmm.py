@@ -209,6 +209,16 @@ class PoolLists:
     real: np.ndarray
     slots_per_tile: int
 
+    def take(self, tiles) -> "PoolLists":
+        """The lists of a pool made of the pool tiles ``tiles``, in order
+        (a rank's local pool: the one tile it holds, or the row panel a
+        ``summa_ag`` rank gathers)."""
+        tiles = np.asarray(tiles, dtype=np.int64)
+        return PoolLists(key=self.key + (tuple(tiles.tolist()),),
+                         slots=self.slots[tiles], rows=self.rows[tiles],
+                         cols=self.cols[tiles], real=self.real[tiles],
+                         slots_per_tile=self.slots_per_tile)
+
     def table(self, a_map, b_map, n_block_rows: int, *,
               device=None) -> SpmmTable:
         """The table of one launch in which output tile ``t`` multiplies

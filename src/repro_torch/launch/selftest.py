@@ -1,13 +1,20 @@
-"""Correctness self-test of the distributed engine on the stacked executor.
+"""Correctness self-test of the distributed engine.
 
     PYTHONPATH=src python -m repro_torch.launch.selftest --check all --g 3
     PYTHONPATH=src python -m repro_torch.launch.selftest --check spmm \
         --g 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.selftest --mesh --g 2 \
+        --device cpu
 
 Port of ``repro/launch/selftest.py``.  Where the JAX package plants fake
 host devices and builds a ``g x g`` mesh, the port runs every schedule on
 a :class:`~repro_torch.core.executor.StackedExecutor`, all g² tiles on
-one device: the card unless ``--device cpu``.  Each check holds the
+one device: the card unless ``--device cpu``.  With ``--mesh`` the grid
+checks run on a process grid instead, one rank per tile
+(``launch/grid.py``, the ``gloo`` transport; on the card, ranks share the
+cards and stage their tiles through the host): each rank builds the
+operands, every multiply runs with ``mesh=``, and results are gathered
+with ``to_global()``.  Each check holds the
 distributed results against dense products at the JAX selftest's sizes
 and tolerance (1e-4); on the card every sparse multiply runs the CUDA
 kernels (B1, and B2 for sparse outputs), and the ``[ref]`` cases run the
@@ -25,9 +32,11 @@ drift trips a refit and a re-selection; a 3x3 grid loses 5 of its 9
 devices and recovers onto 2x2 through ``recover_from_loss``).  The
 ``elastic`` check builds its own grids (3 and 2) whatever ``--g`` is.
 
-The JAX selftest's ``moe`` and ``train_parallel`` checks need a
-multi-card executor (ROADMAP Queue A item 11) and are not among the
-choices.
+The JAX selftest's ``moe`` and ``train_parallel`` checks need the LM
+stack sharded over a process grid (ROADMAP Queue A item 2) and are not
+among the choices; ``--mesh`` runs the grid checks (:data:`MESH_CHECKS`),
+not ``analysis`` (the verifier reads stacked plans) or ``elastic``
+(recovery on ranks is still to port).
 
 Every failed check prints ``[FAIL]``; the run ends with ``SELFTEST
 PASSED`` (exit 0) or ``SELFTEST FAILED: [...]`` (exit 1).  Nothing is
@@ -45,6 +54,11 @@ import numpy as np
 
 CHECKS = ("dense", "spmm", "spgemm", "spgemm_sparse", "api", "balance",
           "steal3d", "wire", "obs", "analysis", "elastic")
+# the checks that run on a process grid (--mesh), and the seconds after
+# which a grid that has not finished them is killed (they take ~10)
+MESH_CHECKS = ("dense", "spmm", "spgemm", "spgemm_sparse", "api", "balance",
+               "steal3d", "wire", "obs")
+MESH_TIMEOUT_S = 600.0
 
 
 def _parse(argv):
@@ -55,6 +69,9 @@ def _parse(argv):
     p.add_argument("--device", default=None,
                    help="torch device (default: the card)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh", action="store_true",
+                   help="run the grid checks on a process grid of g x g "
+                        "ranks (gloo)")
     return p.parse_args(argv)
 
 
@@ -65,8 +82,7 @@ class _Checks:
         self.failures: List[str] = []
 
     def close(self, name: str, got, want, tol: float = 1e-4) -> None:
-        got = got.detach().float().cpu().numpy() if hasattr(got, "detach") \
-            else np.asarray(got)
+        got = _value(got)
         err = float(np.max(np.abs(got - np.asarray(want)), initial=0.0))
         ok = err <= tol and got.shape == np.asarray(want).shape
         print(f"  [{'ok' if ok else 'FAIL'}] {name:34s} max|err|={err:.3e}",
@@ -80,19 +96,43 @@ class _Checks:
             self.failures.append(name)
 
 
-def check_dense(ck, g, dev, rng, seed):
+def _value(x) -> np.ndarray:
+    """A result as a host array: a rank's tile gathered first (collective
+    on a process grid)."""
+    if hasattr(x, "to_global"):
+        x = x.to_global()
+    if hasattr(x, "densify"):
+        x = x.densify()
+    return x.detach().float().cpu().numpy() if hasattr(x, "detach") \
+        else np.asarray(x)
+
+
+def _entry_points(mesh):
+    """``matmul`` and ``plan_matmul``, on ``mesh``'s ranks when given."""
+    import functools
+
     from repro_torch.core import api
+    if mesh is None:
+        return api.matmul, api.plan_matmul
+    return (functools.partial(api.matmul, mesh=mesh),
+            functools.partial(api.plan_matmul, mesh=mesh))
+
+
+def check_dense(ck, g, dev, rng, seed, mesh=None):
+    from repro_torch.core import api
+    mm, _ = _entry_points(mesh)
     print(f"== dense matmul on a {g}x{g} grid ==")
     # odd shapes exercise the shared pad/crop epilogue on the dense path
     a = rng.standard_normal((23, 19)).astype(np.float32)
     b = rng.standard_normal((19, 11)).astype(np.float32)
     for alg in api.algorithms():
         ck.close(f"dense/{alg}",
-                 api.matmul(a, b, g=g, algorithm=alg, device=dev), a @ b)
+                 mm(a, b, g=g, algorithm=alg, device=dev), a @ b)
 
 
-def check_spmm(ck, g, dev, rng, seed):
+def check_spmm(ck, g, dev, rng, seed, mesh=None):
     from repro_torch.core import api
+    mm, pm = _entry_points(mesh)
     from repro_torch.core.api import DistBSR, DistDense
     from repro_torch.core.bsr import random_sparse
     print(f"== spmm on a {g}x{g} grid ==")
@@ -101,14 +141,15 @@ def check_spmm(ck, g, dev, rng, seed):
     a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=dev)
     b_h = DistDense.for_rhs(b, a_h)
     for alg in api.algorithms():
-        ck.close(f"spmm/{alg}", api.matmul(a_h, b_h, algorithm=alg),
+        ck.close(f"spmm/{alg}", mm(a_h, b_h, algorithm=alg),
                  a_d @ b)
     ck.close("spmm/ring_c[ref]",
-             api.matmul(a_h, b_h, algorithm="ring_c", impl="ref"), a_d @ b)
+             mm(a_h, b_h, algorithm="ring_c", impl="ref"), a_d @ b)
 
 
-def check_spgemm(ck, g, dev, rng, seed):
+def check_spgemm(ck, g, dev, rng, seed, mesh=None):
     from repro_torch.core import api
+    mm, pm = _entry_points(mesh)
     from repro_torch.core.api import DistBSR
     from repro_torch.core.bsr import random_sparse
     print(f"== spgemm on a {g}x{g} grid ==")
@@ -117,12 +158,13 @@ def check_spgemm(ck, g, dev, rng, seed):
     a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=dev)
     b_h = DistBSR.from_dense(b_d, g=g, block_size=4, device=dev)
     for alg in api.algorithms():
-        ck.close(f"spgemm/{alg}", api.matmul(a_h, b_h, algorithm=alg),
+        ck.close(f"spgemm/{alg}", mm(a_h, b_h, algorithm=alg),
                  a_d @ b_d)
 
 
-def check_spgemm_sparse(ck, g, dev, rng, seed):
+def check_spgemm_sparse(ck, g, dev, rng, seed, mesh=None):
     from repro_torch.core import api
+    mm, pm = _entry_points(mesh)
     from repro_torch.core.api import DistBSR
     from repro_torch.core.bsr import random_sparse
     print(f"== sparse-output spgemm on a {g}x{g} grid ==")
@@ -132,23 +174,24 @@ def check_spgemm_sparse(ck, g, dev, rng, seed):
     b_h = DistBSR.from_dense(b_d, g=g, block_size=4, device=dev)
     want = a_d @ b_d
     for alg in api.sparse_algorithms():
-        c = api.matmul(a_h, b_h, algorithm=alg, output="sparse")
+        c = mm(a_h, b_h, algorithm=alg, output="sparse")
         ck.close(f"spgemm_sparse/{alg}", c.densify(), want)
     ck.flag("spgemm_sparse/returns_handle",
-            isinstance(api.matmul(a_h, b_h, algorithm="ring_c",
+            isinstance(mm(a_h, b_h, algorithm="ring_c",
                                   output="sparse"), DistBSR))
     # the chained cube stays packed: the product handle is the operand
-    c2 = api.matmul(a_h, a_h, algorithm="ring_c", output="sparse")
-    c3 = api.matmul(c2, a_h, algorithm="ring_c", output="sparse")
+    c2 = mm(a_h, a_h, algorithm="ring_c", output="sparse")
+    c3 = mm(c2, a_h, algorithm="ring_c", output="sparse")
     ck.close("spgemm_sparse/chain_cube", c3.densify(), a_d @ a_d @ a_d,
              tol=1e-3)
     ck.close("spgemm_sparse/ring_c[ref]",
-             api.matmul(a_h, b_h, algorithm="ring_c", impl="ref",
+             mm(a_h, b_h, algorithm="ring_c", impl="ref",
                         output="sparse").densify(), want)
 
 
-def check_balance(ck, g, dev, rng, seed):
+def check_balance(ck, g, dev, rng, seed, mesh=None):
     from repro_torch.core import api
+    mm, pm = _entry_points(mesh)
     from repro_torch.core.api import DistBSR, DistDense
     from repro_torch.core.bsr import rmat_matrix
     print(f"== balanced tiling + auto-scheduling on a {g}x{g} grid ==")
@@ -162,9 +205,9 @@ def check_balance(ck, g, dev, rng, seed):
     want = a_d @ b
     b_h = DistDense.for_rhs(b, h_rows)
     for alg in api.algorithms():
-        ck.close(f"balance/{alg}", api.matmul(h_rows, b_h, algorithm=alg),
+        ck.close(f"balance/{alg}", mm(h_rows, b_h, algorithm=alg),
                  want)
-    plan = api.plan_matmul(h_rows, b_h, algorithm="auto")
+    plan = pm(h_rows, b_h, algorithm="auto")
     ck.close(f"balance/auto[{plan.algorithm.name}]", plan(h_rows, b_h),
              want)
     ck.flag("balance/auto_scores_recorded",
@@ -172,8 +215,9 @@ def check_balance(ck, g, dev, rng, seed):
             == min(plan.auto_scores, key=plan.auto_scores.get))
 
 
-def check_steal3d(ck, g, dev, rng, seed):
+def check_steal3d(ck, g, dev, rng, seed, mesh=None):
     from repro_torch.core import api
+    mm, pm = _entry_points(mesh)
     from repro_torch.core.api import DistBSR, DistDense
     from repro_torch.core.bsr import random_sparse, rmat_matrix
     print(f"== steal3d static work-grid dispatch on a {g}x{g} grid ==")
@@ -183,35 +227,36 @@ def check_steal3d(ck, g, dev, rng, seed):
     a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=dev)
     b_h = DistDense.for_rhs(b, a_h)
     b_sph = DistBSR.from_dense(b_sp, g=g, block_size=4, device=dev)
-    plan = api.plan_matmul(a_h, b_h, algorithm="steal3d")
+    plan = pm(a_h, b_h, algorithm="steal3d")
     asg = plan.steal.assignment
     ck.flag(f"steal3d/makespan<=owner ({asg.makespan:.0f} <= "
             f"{asg.owner_makespan:.0f}, moved={asg.n_moved})",
             asg.makespan <= asg.owner_makespan)
     ck.close("steal3d/spmm", plan(a_h, b_h), a_d @ b)
     ck.close("steal3d/spmm_vs_ring_c", plan(a_h, b_h),
-             api.matmul(a_h, b_h, algorithm="ring_c").float().cpu().numpy())
+             _value(mm(a_h, b_h, algorithm="ring_c")))
     ck.close("steal3d/spgemm",
-             api.matmul(a_h, b_sph, algorithm="steal3d"), a_d @ b_sp)
+             mm(a_h, b_sph, algorithm="steal3d"), a_d @ b_sp)
     da = rng.standard_normal((23, 19)).astype(np.float32)
     db = rng.standard_normal((19, 11)).astype(np.float32)
     ck.close("steal3d/dense",
-             api.matmul(da, db, g=g, algorithm="steal3d", device=dev),
+             mm(da, db, g=g, algorithm="steal3d", device=dev),
              da @ db)
     ck.close("steal3d/spmm[ref]",
-             api.matmul(a_h, b_h, algorithm="steal3d", impl="ref"), a_d @ b)
+             mm(a_h, b_h, algorithm="steal3d", impl="ref"), a_d @ b)
     # empty operand (capacity 0) end to end
     e_h = DistBSR.from_dense(np.zeros((64, 64), np.float32), g=g,
                              block_size=4, device=dev)
     ck.flag(f"steal3d/empty_capacity_0 (cap={e_h.capacity})",
             e_h.capacity == 0)
     ck.close("steal3d/empty_operand",
-             api.matmul(e_h, b_h, algorithm="steal3d"),
+             mm(e_h, b_h, algorithm="steal3d"),
              np.zeros((64, 8), np.float32))
 
 
-def check_wire(ck, g, dev, rng, seed):
+def check_wire(ck, g, dev, rng, seed, mesh=None):
     from repro_torch.core import api
+    mm, pm = _entry_points(mesh)
     from repro_torch.core.api import DistBSR, DistDense
     from repro_torch.core.bsr import random_sparse, rmat_matrix
     print(f"== packed wire format on a {g}x{g} grid ==")
@@ -222,31 +267,32 @@ def check_wire(ck, g, dev, rng, seed):
     b_h = DistDense.for_rhs(b, a_h)
     b_sph = DistBSR.from_dense(b_sp, g=g, block_size=4, device=dev)
     for alg in api.algorithms():
-        plan = api.plan_matmul(a_h, b_h, algorithm=alg, wire="packed")
+        plan = pm(a_h, b_h, algorithm=alg, wire="packed")
         ck.close(f"wire/spmm/{alg}[{plan.wire}]", plan(a_h, b_h), a_d @ b)
-        plan_sp = api.plan_matmul(a_h, b_sph, algorithm=alg, wire="packed")
+        plan_sp = pm(a_h, b_sph, algorithm=alg, wire="packed")
         ck.close(f"wire/spgemm/{alg}[{plan_sp.wire}]", plan_sp(a_h, b_sph),
                  a_d @ b_sp)
         if plan.wire == "packed":
-            pad = api.plan_matmul(a_h, b_h, algorithm=alg, wire="padded")
+            pad = pm(a_h, b_h, algorithm=alg, wire="padded")
             bp = plan.cost_model()["total_net_bytes"]
             bd = pad.cost_model()["total_net_bytes"]
             ck.flag(f"wire/bytes/{alg} ({bp:.0f} <= {bd:.0f})", bp <= bd)
     for alg in api.sparse_algorithms():
-        plan = api.plan_matmul(a_h, b_sph, algorithm=alg, output="sparse")
+        plan = pm(a_h, b_sph, algorithm=alg, output="sparse")
         ck.flag(f"wire/sparse_output/{alg}_auto_packs",
                 plan.wire == "packed")
         ck.close(f"wire/sparse_output/{alg}", plan(a_h, b_sph).densify(),
                  a_d @ b_sp)
     ck.close("wire/spmm/ring_c[ref]",
-             api.matmul(a_h, b_h, algorithm="ring_c", impl="ref",
+             mm(a_h, b_h, algorithm="ring_c", impl="ref",
                         wire="packed"), a_d @ b)
 
 
-def check_api(ck, g, dev, rng, seed):
+def check_api(ck, g, dev, rng, seed, mesh=None):
     import warnings
 
     from repro_torch.core import api
+    mm, pm = _entry_points(mesh)
     from repro_torch.core import spmm as legacy
     from repro_torch.core.api import DistBSR, DistDense
     from repro_torch.core.bsr import random_sparse
@@ -256,20 +302,29 @@ def check_api(ck, g, dev, rng, seed):
     a_h = DistBSR.from_dense(a_d, g=g, block_size=4, device=dev)
     b_h = DistDense.for_rhs(b, a_h)
     api.clear_plan_cache()
-    plan = api.plan_matmul(a_h, b_h, algorithm="ring_c")
+    plan = pm(a_h, b_h, algorithm="ring_c")
     outs = [plan(a_h, b_h) for _ in range(5)]
     ck.close("api/plan_result", outs[-1], a_d @ b)
     ck.flag(f"api/plan_builds_once (traces={plan.traces})",
             plan.traces == 1)
-    ck.flag("api/placement_cached",
-            a_h.placed("skew_rows") is a_h.placed("skew_rows"))
-    got_new = api.matmul(a_h, b_h, algorithm="ring_c")
+    got_new = _value(mm(a_h, b_h, algorithm="ring_c"))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        got_old = legacy.spmm(a_h.tiled, b_h, algorithm="ring_c")
-    ck.flag("api/shim_bit_identical", bool((got_new == got_old).all()))
+        got_old = _value(legacy.spmm(a_h.tiled, b_h, algorithm="ring_c"))
+    if mesh is None:
+        ck.flag("api/placement_cached",
+                a_h.placed("skew_rows") is a_h.placed("skew_rows"))
+        ck.flag("api/shim_bit_identical", bool((got_new == got_old).all()))
+    else:
+        # the rank loaded one tile of each operand, once; the shim runs
+        # stacked, where the same kernel sums each tile in the same order
+        ck.flag("api/rank_tiles_loaded_once",
+                len(a_h._rank_trees) == len(b_h._rank_trees) == 1)
+        ck.flag("api/grid_equals_stacked_shim",
+                bool((got_new == got_old).all()))
+    # the shim's stacked plan is a second entry on a grid
     ck.flag(f"api/shared_plan_cache (size={api.plan_cache_size()})",
-            api.plan_cache_size() == 1)
+            api.plan_cache_size() == (1 if mesh is None else 2))
 
 
 def check_analysis(ck, g, dev, rng, seed):
@@ -345,24 +400,27 @@ def check_analysis(ck, g, dev, rng, seed):
             or g < 2)
 
 
-def check_obs(ck, g, dev, rng, seed):
+def check_obs(ck, g, dev, rng, seed, mesh=None):
     import json
     import os
     import tempfile
 
     from repro_torch import obs
     from repro_torch.core import api
+    mm, pm = _entry_points(mesh)
     from repro_torch.core.api import DistBSR, DistDense
     from repro_torch.core.bsr import random_sparse
     print("== execution tracing + drift tracking ==")
     a_d = random_sparse(32, 32, 0.2, seed=seed + 6)
     b = rng.standard_normal((32, 8)).astype(np.float32)
-    a_h = DistBSR.from_dense(a_d, g=1, block_size=4, device=dev)
+    # one tile (g = 1) stacked; the grid's own g on ranks
+    a_h = DistBSR.from_dense(a_d, g=1 if mesh is None else g, block_size=4,
+                             device=dev)
     b_h = DistDense.for_rhs(b, a_h)
     obs.enable(clear=True)
     obs.reset_drift()
     try:
-        plan = api.plan_matmul(a_h, b_h, algorithm="ring_c", cache=False)
+        plan = pm(a_h, b_h, algorithm="ring_c", cache=False)
         for _ in range(3):
             out = plan(a_h, b_h)
     finally:
@@ -371,6 +429,10 @@ def check_obs(ck, g, dev, rng, seed):
     names = {e["name"] for e in obs.events()}
     ck.flag("obs/plan_build_span", "plan_build" in names)
     ck.flag("obs/multiply_span", "multiply.ring_c" in names)
+    if mesh is not None:
+        spans = [e for e in obs.events() if e["name"] == "multiply.ring_c"]
+        ck.flag("obs/spans_carry_the_rank",
+                all(e["args"].get("rank") == mesh.rank for e in spans))
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -381,8 +443,11 @@ def check_obs(ck, g, dev, rng, seed):
         os.unlink(path)
     ck.flag("obs/trace_schema_valid", not obs.validate_trace(trace))
     drift = obs.drift_report()
-    ck.flag(f"obs/drift_recorded ({len(drift)} keys)",
-            any(d["n"] >= 3 for d in drift.values()))
+    if mesh is None or mesh.rank == 0:
+        ck.flag(f"obs/drift_recorded ({len(drift)} keys)",
+                any(d["n"] >= 3 for d in drift.values()))
+    else:                          # rank 0 records the grid's drift
+        ck.flag("obs/drift_on_rank_0_only", not drift)
     ck.flag("obs/disabled_is_noop", obs.span("x") is obs.span("y"))
 
 
@@ -467,8 +532,49 @@ _RUN = {"dense": check_dense, "spmm": check_spmm, "spgemm": check_spgemm,
         "elastic": check_elastic}
 
 
+def mesh_checks(ex, names: List[str], seed: int) -> List[str]:
+    """The grid checks ``names`` on this rank of a process grid (the rank
+    function of ``--mesh``): operands on the host, every multiply on the
+    grid.  Rank 0 prints; every rank returns its failures."""
+    import contextlib
+    import io
+
+    import torch
+    rng = np.random.default_rng(seed)
+    ck = _Checks()
+    quiet = contextlib.redirect_stdout(io.StringIO()) if ex.rank \
+        else contextlib.nullcontext()
+    with quiet:
+        for name in names:
+            _RUN[name](ck, ex.g, torch.device("cpu"), rng, seed, mesh=ex)
+    return [f"rank {ex.rank}: {f}" for f in ck.failures]
+
+
+def _main_mesh(args) -> int:
+    from repro_torch.launch.grid import run_grid
+    names = [n for n in MESH_CHECKS if args.check in ("all", n)]
+    if not names:
+        raise SystemExit(f"--mesh runs the checks {MESH_CHECKS}, not "
+                         f"{args.check!r}")
+    print(f"== {args.g}x{args.g} process grid: {args.g ** 2} gloo ranks on "
+          f"{args.device or 'the card'} ==", flush=True)
+    # the ranks import this module by name (never as __main__)
+    from repro_torch.launch import selftest
+    per_rank = run_grid(args.g, selftest.mesh_checks, names, args.seed,
+                        backend="gloo", device=args.device,
+                        timeout_s=MESH_TIMEOUT_S)
+    failures = [f for fails in per_rank for f in fails]
+    if failures:
+        print(f"SELFTEST FAILED: {failures}")
+        return 1
+    print("SELFTEST PASSED")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parse(sys.argv[1:] if argv is None else argv)
+    if args.mesh:
+        return _main_mesh(args)
     from repro_torch.runtime.device import resolve_device, strict_fp32
     dev = resolve_device(args.device)
     if dev.type == "cuda":

@@ -7,8 +7,8 @@ Port of ``repro/launch/train.py`` on one device (the card unless
 ``--device cpu``): config registry, the synthetic data pipeline with
 prefetch, AdamW with a cosine schedule, checkpoint/restart, straggler
 detection and preemption handling.  The reference's mesh (``build_mesh``,
-GSPMD shardings) and ``selftest_parallel_equivalence`` wait for a
-multi-card executor (``ROADMAP.md``, Queue A item 11).
+GSPMD shardings) and ``selftest_parallel_equivalence`` wait for the LM
+stack's sharding over a process group (``ROADMAP.md``, Queue A item 2).
 
 A checkpoint is labelled with the number of steps it holds, and a resumed
 job starts at that step.  The reference labels its periodic and

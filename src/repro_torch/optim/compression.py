@@ -5,7 +5,8 @@ symmetric quantization ``q = round(g / s)`` with ``s = max|g| / 127``, and
 the residual ``g - dequant(q)`` carried to the next step (error feedback),
 which keeps SGD/Adam convergence unbiased in practice.  The reference's
 ``compressed_psum`` (the int8 all-reduce over a slow data-parallel axis)
-needs a process group and waits for one (``ROADMAP.md``, Queue A item 11).
+waits for the sharding of the LM stack over a process group
+(``ROADMAP.md``, Queue A item 2).
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "strict_fp32", "as_tensor"]
+__all__ = ["resolve_device", "rank_device", "strict_fp32", "as_tensor"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -35,6 +35,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            "available on this machine")
     return dev
+
+
+def rank_device(local_rank: int, device: DeviceLike = None) -> torch.device:
+    """The device of the rank ``local_rank`` of a process grid on this host.
+
+    ``None`` (or ``"cuda"``) gives ``cuda:(local_rank % device_count)``, so
+    ranks share the cards round-robin; it raises where there is no card.
+    ``"cpu"`` gives the CPU, for ranks that run on the host.
+    """
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if device is not None and torch.device(device).type != "cuda":
+        raise ValueError(f"a rank runs on the card or the CPU, not {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: ranks run on the card by "
+            "default; pass device='cpu' to run them on the CPU")
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
 
 
 def strict_fp32() -> None:

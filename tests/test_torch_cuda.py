@@ -990,3 +990,21 @@ def test_recovery_on_the_card_matches_the_cpu(card, wire):
         == 2 * int(gpu.a.counts.sum())
     scale = torch.from_numpy(np.abs(a_d) @ np.abs(b))
     assert_close(got, want, scale)
+
+
+@pytest.mark.cuda
+def test_ranks_on_the_card_match_the_stacked_executor(card):
+    """4 ranks (g = 2) share the card over gloo, each staging its tiles
+    through pinned host memory: every schedule's SpMM (padded and packed
+    wire) and every sparse output on the grid equal the stacked
+    executor's on the card within 1e-5 (the kernels and tables are the
+    same)."""
+    import torch_grid_ranks
+    from repro_torch.launch.grid import run_grid
+    for rank in run_grid(2, torch_grid_ranks.card_cases, backend="gloo",
+                         timeout_s=300):
+        assert rank["transport"] == "gloo (host-staged)"
+        assert rank["device"].startswith("cuda")
+        assert rank["staged_bytes"] > 0
+        for case, err in rank["err"].items():
+            assert err <= TOL, (case, err)
