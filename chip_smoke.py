@@ -176,7 +176,35 @@ non-zero and prints no result line):
    busy time by rank (profiled), peak memory by rank, and B1 and B2 at a
    rank's one-tile shapes against their plain versions, bounds and
    library yardsticks.  These times are of 4 ranks sharing one card over
-   host memory, not of NVLink.
+   host memory, not of NVLink;
+16. the LM stack sharded over ranks that share the card over ``gloo``,
+   host-staged as in phase 15 (NCCL refuses two ranks on one card).  The
+   single process's results come first.  (a) OLMoE-1B-7B at its published
+   width and depth in bf16 with ``moe_impl="ring"`` on a (data 1, model 4)
+   mesh of 4 ranks, each building the model layer by layer from the
+   seeded init and keeping its 16 experts a layer (the rest whole): one
+   forward of 2 x 512 tokens, the logits within twice the single process's
+   dense bf16 distance from its float32 logits (phase 11's bound), at the
+   capacity factor (printed) doubled from the published one until the
+   dense path drops no token; the ring's hops, R = 4 per MoE layer on
+   every rank; each rank's parameter bytes, peak memory and the wall.
+   (b) Qwen2.5-3B at its published width with its depth cut to 4 of 36
+   layers (full depth is ~49 GB of float32 parameters, gradients and
+   moments summed over the ranks, before activations and 4 CUDA
+   contexts): ``train(mesh=)`` on a (2, 2) mesh for 3 float32 steps of
+   4 x 512 tokens, the losses and gradient norms within 1e-4 (relative)
+   of the single process's and each parameter shard within 1e-4 of its
+   norm; each rank's parameter and moment bytes equal to its sanitized
+   shards'; ``compressed_psum`` over the data axis on one step's
+   gradients within one int8 step of the float32 all-reduce, its residual
+   exactly ``g - deq``.  (c) steal3d at the SpMM cell on a 3x3 grid of 9
+   ranks: the seeded loss of 5 and ``recover_from_loss`` on the ranks
+   (blocks re-placed by exchange, a new 2x2 grid over the survivors), every
+   survivor's C tile bit-equal to the stacked recovery's, B1 launched on
+   every survivor over exactly its plan's real pairs (counted on the
+   card), the verifier's findings on the rank plans equal to the stacked
+   plan's, the recovery's host ms by ``replan.*`` span, and B1 at a
+   survivor's shape against its plain version and bound.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The last two lines are the ``{"kernels": [...]}`` record and
@@ -4091,6 +4119,580 @@ def grid_phase(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the LM stack sharded over ranks sharing the card
+# ---------------------------------------------------------------------------
+# (a) OLMoE-1B-7B at its published width and depth, bf16, the expert ring
+# on a (data 1, model 4) mesh: one batch of 2 x 512 tokens; the capacity
+# factor doubles from the published 1.25 until the dense path drops none
+LM_RING = dict(arch="olmoe-1b-7b", mesh=(1, 4), batch=2, seq=512, seed=0)
+# (b) Qwen2.5-3B at its published width, its depth cut to 4 of 36 layers
+# (full depth is ~49 GB of float32 parameters, gradients and moments summed
+# over the ranks, before activations and 4 CUDA contexts), 3 float32 steps
+# on a (2, 2) mesh
+LM_TRAIN = dict(arch="qwen2.5-3b", layers=4, mesh=(2, 2), steps=3, batch=4,
+                seq=512, lr=3e-4, seed=0)
+# (c) steal3d at the SpMM cell on a 3x3 grid of 9 ranks, the seeded loss of
+# 5 and recovery onto the survivors' 2x2 (phase 13's loss)
+LM_RECOVERY = dict(g=3, devices=9, lost=5, seed=0)
+LM_TIMEOUT_S = 420
+# the sharded step's parameters against one process: the norm of the
+# difference over a rank's shards within this share of their norm.  A
+# zero-initialised norm scale, whose few elements move by lr a step, may
+# part further where a gradient lies within rounding of zero and Adam steps
+# it the other way (see the training gate above), so the worst tensor is
+# printed, not held
+TOL_SHARDED_PARAMS = 1e-4
+
+
+def lm_ring_cfg(capacity_factor: float, dtype: str, impl: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_RING["arch"])
+    return dataclasses.replace(
+        cfg, compute_dtype=dtype, moe_impl=impl,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
+
+
+def lm_ring_expected(tmp: Path) -> dict:
+    """The single process's OLMoE-1B-7B on phase 16a's batch: the capacity
+    factor at which the dense path drops no token (doubled from the
+    published one), the float32 and bf16 dense logits, and the bf16 path's
+    distance from the float32 one (written for the ranks)."""
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    cf = get_config(LM_RING["arch"]).moe.capacity_factor   # the published
+    cfg = lm_ring_cfg(cf, "float32", "dense_onehot")
+    toks = torch.from_numpy(np.random.default_rng(LM_RING["seed"]).integers(
+        0, cfg.vocab_size, (LM_RING["batch"], LM_RING["seq"]),
+        dtype=np.int64)).to(DEVICE)
+    model = tf.init_params(cfg, seed=LM_RING["seed"], device=DEVICE)
+    with torch.no_grad():
+        while True:
+            cfg32 = lm_ring_cfg(cf, "float32", "dense_onehot")
+            logits32, _, aux = tf.forward(model, {"tokens": toks}, cfg32)
+            dropped = float(aux["dropped"])
+            log(f"  16a: capacity factor {cf}: the float32 dense path "
+                f"drops {dropped:.4g} of its token-expert assignments "
+                "(summed over the layers)")
+            if dropped == 0.0:
+                break
+            cf *= 2
+        model = model.to(torch.bfloat16)
+        logits16, _, aux16 = tf.forward(
+            model, {"tokens": toks}, lm_ring_cfg(cf, "bfloat16",
+                                                 "dense_onehot"))
+    del model
+    free()
+    noise = float((logits16.float() - logits32).abs().max())
+    path = tmp / "lm_ring.pt"
+    torch.save({"tokens": toks.cpu(), "logits16": logits16.float().cpu(),
+                "logits32": logits32.cpu(), "noise": noise, "cf": cf}, path)
+    del logits16, logits32
+    log(f"  16a: single process, dense path: bf16 logits within {noise:.4g} "
+        f"of float32 (bf16 drops {float(aux16['dropped']):.4g}); capacity "
+        f"factor {cf}; {time.perf_counter() - t0:.1f} s")
+    return {"path": str(path), "cf": cf, "noise": noise}
+
+
+def lm_train_cfg():
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_TRAIN["arch"])
+    return dataclasses.replace(cfg, n_layers=LM_TRAIN["layers"],
+                               compute_dtype="float32")
+
+
+def lm_train_expected(tmp: Path) -> dict:
+    """One process's 3 float32 steps of the cut Qwen2.5-3B (written for
+    the ranks: losses, gradient norms, the final parameters)."""
+    from repro_torch.launch.train import train
+    t0 = time.perf_counter()
+    cfg = lm_train_cfg()
+    st = train(cfg, steps=LM_TRAIN["steps"], batch=LM_TRAIN["batch"],
+               seq=LM_TRAIN["seq"], lr=LM_TRAIN["lr"], seed=LM_TRAIN["seed"],
+               device=DEVICE, log_every=0)
+    path = tmp / "lm_train.pt"
+    torch.save({"losses": st["losses"], "grad_norms": st["grad_norms"],
+                "params": {n: p.detach().cpu() for n, p in
+                           st["params"].named_parameters()}}, path)
+    n = sum(p.numel() for p in st["params"].parameters())
+    log(f"  16b: single process: {describe(cfg)}, {n} parameters, losses "
+        f"{[round(x, 5) for x in st['losses']]}, step walls "
+        f"{[round(x, 3) for x in st['step_s']]} s; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del st
+    free()
+    return {"path": str(path), "n_params": n}
+
+
+def lm_recovery_expected(tmp: Path) -> dict:
+    """The stacked recovery of phase 13 at the SpMM cell (g 3 -> 2): each
+    survivor's padded C tile, the plan's findings under ``validate="fast"``
+    and its real pairs; the operands in host memory for the ranks."""
+    from repro_torch import analysis
+    from repro_torch.core.api import DistBSR, DistDense
+    from repro_torch.core.bsr import rmat_matrix
+    from repro_torch.runtime.faultinject import DeviceLoss
+    from repro_torch.runtime.replan import ElasticReplanner
+    t0 = time.perf_counter()
+    a_np = rmat_matrix(SPMM["scale"], 8, seed=SPMM["seed"])
+    b_np = np.random.default_rng(SPMM["seed"]).standard_normal(
+        (a_np.shape[1], SPMM["width"])).astype(np.float32)
+    a3 = DistBSR.from_dense(a_np, g=LM_RECOVERY["g"],
+                            block_size=SPMM["block_size"], device=DEVICE)
+    del a_np
+    b3 = DistDense.for_rhs(b_np, a3)
+    loss = DeviceLoss(LM_RECOVERY["devices"], LM_RECOVERY["lost"],
+                      seed=LM_RECOVERY["seed"])
+    rec = ElasticReplanner().recover_from_loss(a3, b3, loss.survivors())
+    c = rec.plan(rec.a, rec.b)
+    findings = [str(f) for f in analysis.check_plan(rec.plan, rec.a, rec.b)]
+    g, (tm, tn) = rec.g, (rec.a.tile_shape[0], rec.b.tile_shape[1])
+    padded = c.new_zeros((tm * g, tn * g))
+    padded[:c.shape[0], :c.shape[1]] = c
+    tiles = {p: padded[(p // g) * tm:(p // g + 1) * tm,
+                       (p % g) * tn:(p % g + 1) * tn].cpu()
+             for p in range(g * g)}
+    path = tmp / "lm_recovery.pt"
+    torch.save({"a": host_tiled(a3.tiled), "b": b_np, "tiles": tiles,
+                "findings": findings, "survivors": loss.survivors(),
+                "real_pairs": rec.plan._steal.real_pairs,
+                "oracle_max": float(c.abs().max())}, path)
+    log(f"  16c: stacked recovery of the loss of {loss.lost()}: survivors "
+        f"{loss.survivors()} -> g {g}, real pairs "
+        f"{rec.plan._steal.real_pairs}, findings {findings or 'none'}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del a3, b3, rec, c, padded
+    free()
+    return {"path": str(path)}
+
+
+def lm_ring_rank(dev, spec: dict) -> dict:
+    """Phase 16a on one rank of the (1, 4) mesh: OLMoE-1B-7B built layer by
+    layer, this rank's 16 experts a layer and the rest whole, in bf16; one
+    forward with the expert ring against the single process's dense bf16
+    logits; the ring's hops."""
+    from repro_torch.launch.mesh import make_mesh, mesh_comm, set_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import MODEL_AXIS, P
+    from repro_torch.models.sharded import ShardedModel
+    mesh = make_mesh(LM_RING["mesh"], ("data", MODEL_AXIS), device_type="cuda")
+    ref = torch.load(spec["ring"]["path"], weights_only=False)
+    cfg = lm_ring_cfg(ref["cf"], "bfloat16", "ring")
+    # the experts over the model axis, everything else whole
+    specs = {n: P(MODEL_AXIS, None, None) if ".moe.w_" in n else P()
+             for n in tf.param_specs(cfg)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ShardedModel.init(cfg, mesh, seed=LM_RING["seed"], device=dev,
+                              specs=specs, dtype=torch.bfloat16).local
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    local_experts = model.layers[0].moe.w_gate.shape[0]
+    comm = mesh_comm(mesh, dev)
+    comm.reset_counters()
+    moe.reset_ring_stats()
+    toks = ref["tokens"].to(dev)
+    comm.all_reduce(torch.zeros(1, device=dev), ("data", MODEL_AXIS))
+    t0 = time.perf_counter()
+    with torch.no_grad(), set_mesh(mesh):
+        logits, _, aux = tf.forward(model, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hops = dict(moe.ring_stats)
+    err16 = float((logits - ref["logits16"].to(dev)).abs().max())
+    err32 = float((logits - ref["logits32"].to(dev)).abs().max())
+    finite = bool(torch.isfinite(logits).all())
+    del model, logits
+    free()
+    return {"param_bytes": nbytes, "local_experts": local_experts,
+            "init_s": init_s, "wall_s": wall, "hops": hops,
+            "max_abs_err_vs_dense_bf16": err16,
+            "max_abs_err_vs_dense_f32": err32, "finite": finite,
+            "noise": ref["noise"], "dropped": float(aux["dropped"]),
+            "stage_s": comm.stage_s, "wait_s": comm.wait_s,
+            "sent_bytes": comm.sent,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def lm_train_rank(dev, spec: dict) -> dict:
+    """Phase 16b on one rank of the (2, 2) mesh: ``train(mesh=)`` for 3
+    float32 steps from the single process's init cut to this rank's
+    shards; losses, gradient norms and shards against the single
+    process's; the rank's parameter and moment bytes against its sanitized
+    shards'; ``compressed_psum`` over the data axis on one step's
+    gradients."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (local_chunk, make_mesh, set_mesh,
+                                         shard_bytes)
+    from repro_torch.launch.train import train
+    from repro_torch.models import sharded
+    from repro_torch.optim import ErrorFeedbackState, compressed_psum
+    from repro_torch.optim.compression import compress_int8, decompress_int8
+    mesh = make_mesh(LM_TRAIN["mesh"], ("data", "model"), device_type="cuda")
+    ref = torch.load(spec["train"]["path"], mmap=True, weights_only=False)
+    cfg = lm_train_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    st = train(cfg, steps=LM_TRAIN["steps"], batch=LM_TRAIN["batch"],
+               seq=LM_TRAIN["seq"], lr=LM_TRAIN["lr"], seed=LM_TRAIN["seed"],
+               device=dev, log_every=0, mesh=mesh)
+    sm = st["params"]
+    d2 = w2 = 0.0
+    worst = (0.0, "")
+    for n, p in sm.local_named().items():
+        want = local_chunk(ref["params"][n], sm.placements[n], mesh).to(dev)
+        diff = (p.detach() - want).float()
+        d2 += float(diff.square().sum())
+        w2 += float(want.float().square().sum())
+        rel = float(diff.norm() / want.float().norm().clamp_min(1e-30))
+        worst = max(worst, (rel, n))
+    want_bytes = sum(shard_bytes(sm.shapes[n], p.dtype, sm.placements[n],
+                                 mesh) for n, p in sm.local_named().items())
+    moments = sum(t.numel() * t.element_size() for k in ("mu", "nu")
+                  for t in st["opt"][k].values())
+    whole = sum(int(np.prod(s)) * 4 for s in sm.shapes.values())
+    # compressed_psum on one step's gradients (this rank's shard of the
+    # batch and its model slice, before the data-axis sum)
+    from repro_torch.data.pipeline import SyntheticLM
+    raw = SyntheticLM(cfg, LM_TRAIN["batch"], LM_TRAIN["seq"],
+                      seed=LM_TRAIN["seed"])(0)
+    batch = sharded.place_batch({k: torch.as_tensor(v, device=dev)
+                                 for k, v in raw.items()}, mesh)
+    with sm.gathered(requires_grad=True) as full:
+        total, _ = sharded._local_loss(sm.local, batch, cfg, sm.comm,
+                                       ["data"])
+        total.backward()
+        # what the step sums over the data axis: the rank's model slice
+        grads = {n: sharded.model_slice(p.grad, sm.placements[n], mesh,
+                                        ["data"])
+                 for n, p in full.items() if p.grad is not None}
+    del full, total
+    t0 = time.perf_counter()
+    with set_mesh(mesh):
+        summed, ef = compressed_psum(grads, "data",
+                                     ErrorFeedbackState.init(grads))
+    psum_s = time.perf_counter() - t0
+    worst_share, resid_ok = 0.0, True
+    for n, g in grads.items():
+        exact = sm.comm.all_reduce(g.float(), ["data"])
+        q, s = compress_int8(g.float())
+        step = sm.comm.all_reduce(s.reshape(1), ["data"])   # sum of scales
+        err = float((summed[n] - exact).abs().max())
+        worst_share = max(worst_share, err / float(step))
+        resid_ok &= bool(torch.equal(ef.residual[n],
+                                     g.float() - decompress_int8(q, s)))
+    dist.barrier()
+    return {"losses": st["losses"], "grad_norms": st["grad_norms"],
+            "ref_losses": ref["losses"], "ref_grad_norms": ref["grad_norms"],
+            "step_s": st["step_s"], "param_bytes": sm.local_bytes(),
+            "want_bytes": want_bytes, "moment_bytes": moments,
+            "whole_bytes": whole, "param_rel": (d2 / w2) ** 0.5,
+            "worst_tensor_rel": worst[0], "worst_tensor": worst[1],
+            "psum_int8_step_share": worst_share, "psum_resid_ok": resid_ok,
+            "psum_s": psum_s, "stage_s": sm.comm.stage_s,
+            "wait_s": sm.comm.wait_s, "sent_bytes": sm.comm.sent,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def lm_rank(dev, spec: dict) -> dict:
+    """Phases 16a and 16b on one of the 4 ranks (one world, two meshes)."""
+    t0 = time.perf_counter()
+    ring = lm_ring_rank(dev, spec)
+    ring["rank_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    train = lm_train_rank(dev, spec)
+    train["rank_s"] = time.perf_counter() - t1
+    return {"ring": ring, "train": train}
+
+
+def survivor_b1_case(plan, captured) -> dict:
+    """B1 at a survivor rank's shapes (its recovered steal3d segment: the
+    pools its body gathered, the rank's pair lists, B as one flat tile)
+    against its plain version: CUDA-event times of both, the error within
+    ``TOL_F32_DEEP`` of |A| @ |B|, the bound from the real blocks."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    args, kw = captured
+    a_p, b_p, pa, pb, ps = args
+    n_slots, table = kw["n_slots"], kw["table"]
+
+    def kernel():
+        return kops.steal_pair_accumulate(a_p, b_p, pa, pb, ps,
+                                          n_slots=n_slots, impl="cuda",
+                                          table=table)
+
+    def plain(a=a_p, b=b_p):
+        return ref.steal_pair_accumulate_raw_ref(a, b, pa, pb, ps, n_slots)
+
+    got, want = kernel(), plain()
+    scale = plain(a_p.abs(), b_p.abs())
+    err, share, ok = compare(got, want, scale, TOL_F32_DEEP)
+    check(ok, f"B1 at the survivor's steal3d shape disagrees with its "
+          f"plain version (max_abs_err {err:.3e})")
+    ms = time_ms(kernel, reps=5)
+    plain_ms = time_ms(plain, reps=2)
+    bs, n = a_p.shape[-1], b_p.shape[-1]
+    real = table.real_blocks
+    b_rows = int(torch.unique(pb[torch.as_tensor(
+        np.asarray(plan._steal.segments[0]["real"]), device=pb.device)]
+    ).numel())
+    nbytes = real * bs * bs * a_p.element_size() \
+        + b_rows * bs * n * b_p.element_size() \
+        + got.numel() * got.element_size()
+    flops = 2 * real * bs * bs * n
+    peak_bytes, peak_ops = peaks()
+    t_bytes, t_ops = nbytes / peak_bytes * 1e3, flops / peak_ops[
+        b_p.dtype] * 1e3
+    return {"max_abs_err": err, "share_of_tolerance": share, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "real_blocks": real, "bytes": nbytes,
+            "real_flops": flops,
+            "shape": {"pairs": int(pa.shape[1]), "pool": list(a_p.shape),
+                      "b": list(b_p.shape), "slots": n_slots}}
+
+
+def lm_recovery_rank(ex, spec: dict) -> dict:
+    """Phase 16c on one rank of the 3x3 grid: ``recover_from_loss`` on the
+    ranks (the old owners send their blocks; a new 2x2 grid over the
+    survivors; steal3d rebuilt under ``validate="fast"``), then on each
+    survivor the recovered multiply: its C tile against the stacked
+    recovery's (bit for bit), B1's launches and the blocks it multiplied
+    (counted on the card) against the plan's real pairs, the verifier's
+    findings on the rank plan against the stacked plan's; the recovery's
+    host ms by span."""
+    from repro_torch import analysis, obs
+    from repro_torch.core.api import DistBSR, DistDense
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.replan import ElasticReplanner
+    ops = torch.load(spec["recovery"]["path"], mmap=True, weights_only=False)
+    a3 = DistBSR(ops["a"])
+    b3 = DistDense.for_rhs(ops["b"], a3, device="cpu")
+    ex.reset_counters()
+    obs.reset_all()
+    obs.enable(clear=True)
+    ex.barrier()
+    t0 = time.perf_counter()
+    try:
+        rec = ElasticReplanner().recover_from_loss(a3, b3, ops["survivors"],
+                                                   mesh=ex)
+        events = obs.events()
+    finally:
+        obs.disable()
+    recover_s = time.perf_counter() - t0
+    spans = {name: sum(span_ms(events, name)) for name in (
+        "replan.recover", "replan.evict", "replan.mesh", "replan.reshard",
+        "replan.lpt", "replan.coverage", "plan_build",
+        "plan_build.validate")}
+    out = {"rank": ex.rank, "g": rec.g, "host_ms": spans,
+           "recover_s": recover_s, "reshard_bytes": ex.bytes_sent("place"),
+           "survivor": rec.plan is not None, "launches": 0}
+    if rec.plan is None:
+        return out
+    plan = rec.plan
+    reset_counts()
+    res, blocks = counted_blocks(lambda: plan(rec.a, rec.b))
+    launches = read_counts()["bsr_spmm"]
+    want = ops["tiles"][plan.executor.position].to(res.tile.device)
+    equal = bool(torch.equal(res.tile, want))
+    err = float((res.tile - want).abs().max())
+    real = plan._steal.real_pairs
+    findings = [str(f) for f in analysis.check_rank_plan(plan, rec.a,
+                                                         rec.b)]
+    check(equal, f"rank {ex.rank}: its recovered C tile is not the stacked "
+          f"recovery's (max_abs_err {err:.3e})")
+    check(launches == len(plan._steal.segments) and blocks == real,
+          f"rank {ex.rank}: B1 launched {launches} time(s) and multiplied "
+          f"{blocks} blocks, the plan's real pairs are {real}")
+    check(findings == ops["findings"], f"rank {ex.rank}: the verifier's "
+          f"findings {findings} differ from the stacked plan's "
+          f"{ops['findings']}")
+    new = plan.executor          # the survivors' grid; the rest have left
+    new.barrier()
+    t0 = time.perf_counter()
+    plan(rec.a, rec.b)
+    torch.cuda.synchronize()
+    local = time.perf_counter() - t0
+    out.update(position=new.position, launches=launches,
+               blocks_multiplied=blocks, real_pairs=real, equal=equal,
+               findings=findings, wall_ms=new.max_over_ranks(local) * 1e3)
+    # the B1 call of one more multiply (a collective: every survivor runs
+    # it), kept for position 0's kernel case while the others wait
+    captured = []
+    orig = kops.steal_pair_accumulate
+
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        return orig(*args, **kw)
+
+    kops.steal_pair_accumulate = capture
+    try:
+        plan(rec.a, rec.b)
+    finally:
+        kops.steal_pair_accumulate = orig
+    if new.position == 0:
+        out["kernel"] = survivor_b1_case(plan, captured[0])
+    del captured
+    new.barrier()
+    return out
+
+
+def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
+    """Phase 16a's and 16b's checks and readings over the 4 ranks'
+    results (into ``res``)."""
+    # (a) the expert ring
+    ring = [r["ring"] for r in lm]
+    noise, cf = spec["ring"]["noise"], spec["ring"]["cf"]
+    hops_want = 4 * sum(1 for k in lm_ring_cfg(cf, "bfloat16", "ring")
+                        .pattern)
+    for r, x in enumerate(ring):
+        check(x["finite"], f"16a rank {r}: non-finite logits")
+        check(x["hops"]["hops"] == hops_want, f"16a rank {r}: the ring made "
+              f"{x['hops']['hops']} hops, R x MoE layers is {hops_want}")
+        check(x["max_abs_err_vs_dense_bf16"] <= 2 * noise, f"16a rank {r}: "
+              f"logits {x['max_abs_err_vs_dense_bf16']:.4g} from the dense "
+              f"bf16 path's, over twice its noise {noise:.4g}")
+        check(x["local_experts"] == 16, f"16a rank {r}: "
+              f"{x['local_experts']} experts a layer")
+    res["ring"] = {"capacity_factor": cf, "noise": noise, "ranks": ring,
+                   "hops_per_rank": hops_want}
+    log(f"  16a OLMoE-1B-7B bf16, expert ring on (data 1, model 4): capacity "
+        f"factor {cf}; each rank {ring[0]['local_experts']} experts a layer, "
+        f"parameter bytes {[x['param_bytes'] for x in ring]}; hops per rank "
+        f"{[x['hops']['hops'] for x in ring]} (= 4 x 16 MoE layers); logits "
+        f"vs the dense bf16 path "
+        f"{[round(x['max_abs_err_vs_dense_bf16'], 4) for x in ring]}"
+        f" (bound 2 x {noise:.4g}), vs float32 "
+        f"{[round(x['max_abs_err_vs_dense_f32'], 4) for x in ring]}; forward "
+        f"wall {[round(x['wall_s'], 2) for x in ring]} s, staging "
+        f"{[round(x['stage_s'], 2) for x in ring]} s, transfer waits "
+        f"{[round(x['wait_s'], 2) for x in ring]} s, bytes sent "
+        f"{[x['sent_bytes'] for x in ring]}; init "
+        f"{[round(x['init_s'], 1) for x in ring]} s; peak memory "
+        f"{[round(x['peak_gb'], 2) for x in ring]} GB; {card}")
+    # (b) the sharded train step
+    tr = [r["train"] for r in lm]
+    for r, x in enumerate(tr):
+        for got, want, what in ((x["losses"], x["ref_losses"], "loss"),
+                                (x["grad_norms"], x["ref_grad_norms"],
+                                 "gradient norm")):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            check(len(got) == LM_TRAIN["steps"] and rel <= TOL_TRAIN_GATE,
+                  f"16b rank {r}: {what}es {got} against one process's "
+                  f"{want}")
+        check(x["param_rel"] <= TOL_SHARDED_PARAMS, f"16b rank {r}: its "
+              f"parameter shards are {x['param_rel']:.3g} (norm) from one "
+              "process's")
+        check(x["param_bytes"] == x["want_bytes"] < x["whole_bytes"]
+              and x["moment_bytes"] == 2 * x["param_bytes"],
+              f"16b rank {r}: {x['param_bytes']} parameter and "
+              f"{x['moment_bytes']} moment bytes, its sanitized shards "
+              f"{x['want_bytes']}")
+        check(x["psum_int8_step_share"] <= 1.0 and x["psum_resid_ok"],
+              f"16b rank {r}: compressed_psum {x['psum_int8_step_share']:.3g}"
+              f" int8 steps from the float32 sum (residual exact "
+              f"{x['psum_resid_ok']})")
+    res["train"] = {"ranks": tr, "cut": f"{LM_TRAIN['layers']} of 36 layers"}
+    log(f"  16b Qwen2.5-3B at full width, depth cut to {LM_TRAIN['layers']} of"
+        f" 36 layers, float32 on (2, 2): losses {tr[0]['losses']} (one "
+        f"process {tr[0]['ref_losses']}); parameter shards within "
+        f"{max(x['param_rel'] for x in tr):.3g} of one process's (norm over "
+        f"the rank's shards; worst tensor "
+        f"{max((x['worst_tensor_rel'], x['worst_tensor']) for x in tr)}); "
+        f"bytes "
+        f"per rank: parameters {[x['param_bytes'] for x in tr]} of "
+        f"{tr[0]['whole_bytes']}, moments {[x['moment_bytes'] for x in tr]};"
+        f" step walls {[[round(s, 2) for s in x['step_s']] for x in tr]} s; "
+        f"staging {[round(x['stage_s'], 1) for x in tr]} s, waits "
+        f"{[round(x['wait_s'], 1) for x in tr]} s, bytes sent "
+        f"{[x['sent_bytes'] for x in tr]}; compressed_psum within "
+        f"{max(x['psum_int8_step_share'] for x in tr):.3g} of one int8 step "
+        f"in {[round(x['psum_s'], 2) for x in tr]} s; peak "
+        f"{[round(x['peak_gb'], 2) for x in tr]} GB; {card}")
+
+
+def lm_phase(card: str) -> dict:
+    """Phase 16: the LM stack on ranks sharing the one card over gloo
+    (host-staged): (a) OLMoE-1B-7B with the expert ring on a (1, 4) mesh,
+    (b) Qwen2.5-3B's sharded train step on a (2, 2) mesh, both in one world
+    of 4 ranks, and (c) recovery from 9 ranks onto their survivors' 2x2.
+    The single process's results come first (written for the ranks)."""
+    import tempfile
+
+    import chip_smoke     # the ranks import the rank functions by this name
+    from repro_torch.core import api
+    from repro_torch.launch.grid import run_grid, run_ranks
+    api.clear_plan_cache()
+    free()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spec = {"ring": lm_ring_expected(tmp),
+                "train": lm_train_expected(tmp),
+                "recovery": lm_recovery_expected(tmp)}
+        free()
+        ref_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        lm = run_ranks(4, chip_smoke.lm_rank, spec, device=DEVICE,
+                       timeout_s=LM_TIMEOUT_S)
+        lm_s = time.perf_counter() - t1
+        res = {"single_process_s": ref_s, "lm_ranks_s": lm_s}
+        lm_checks(lm, spec, res, card)
+        t2 = time.perf_counter()
+        rec = run_grid(LM_RECOVERY["g"], chip_smoke.lm_recovery_rank, spec,
+                       backend="gloo", device=DEVICE,
+                       timeout_s=LM_TIMEOUT_S)
+        rec_s = time.perf_counter() - t2
+    res["recovery_ranks_s"] = rec_s
+    # (c) recovery
+    surv = [r for r in rec if r["survivor"]]
+    check(len(surv) == 4 and all(r["g"] == 2 for r in rec),
+          f"16c: {len(surv)} survivor ranks on the new grid")
+    launches = sum(r["launches"] for r in rec)
+    check(launches > 0 and all(r["launches"] > 0 for r in surv),
+          f"16c: B1 did not launch on every survivor: "
+          f"{[r['launches'] for r in surv]}")
+    kern = next(r["kernel"] for r in surv if "kernel" in r)
+    spans = rec[0]["host_ms"]
+    res["recovery"] = {"ranks": rec, "launches": launches, "kernel": kern}
+    log(f"  16c steal3d at the SpMM cell, 9 ranks -> the survivors' 2x2: "
+        f"survivor ranks {[r['rank'] for r in surv]}; C tiles bit-equal to "
+        f"the stacked recovery's {[r['equal'] for r in surv]}; B1 launches "
+        f"{[r['launches'] for r in surv]}, blocks multiplied "
+        f"{[r['blocks_multiplied'] for r in surv]} (= real pairs "
+        f"{[r['real_pairs'] for r in surv]}); findings "
+        f"{[r['findings'] for r in surv]}; reshard bytes sent by rank "
+        f"{[r['reshard_bytes'] for r in rec]}; recovery host ms by span "
+        f"(slowest rank) "
+        f"{ {k: round(max(r['host_ms'][k] for r in rec), 1) for k in spans} };"
+        f" recovered multiply wall {surv[0]['wall_ms']:.1f} ms; B1 at a "
+        f"survivor's shape {kern['ms']:.3f} ms (plain {kern['plain_ms']:.3f},"
+        f" bound {kern['bound_ms']:.3f} by {kern['bound_by']}); {card}")
+    res["s"] = time.perf_counter() - t0
+    log(f"  phase 16 wall {res['s']:.1f} s (single process {ref_s:.1f} s, "
+        f"4 ranks {lm_s:.1f} s, 9 ranks {rec_s:.1f} s)")
+    return res
+
+
+def lm_record(lm: dict) -> dict:
+    """Phase 16c's entry of the ``{"kernels": [...]}`` line: B1 at a
+    survivor rank's recovered steal3d shape, with the launches of every
+    rank's recovered multiply."""
+    k = lm["recovery"]["kernel"]
+    return {"name": "bsr_spmm (recovered steal3d, a survivor rank)",
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/"
+            "bsr_spmm.cu", "replaces": "src/repro/kernels/bsr_spmm.py:55",
+            "launches": lm["recovery"]["launches"], "dtype": "float32",
+            **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+            "shape": k["shape"], "kernel": "bsr_spmm", "transport":
+            "gloo (host-staged)"}
+
+
 def record(name: str, source: str, replaces: str, launches: int,
            kres: dict, extra: dict) -> dict:
     """One entry of the ``{"kernels": [...]}`` line: float32 numbers at the
@@ -4367,6 +4969,10 @@ def main() -> int:
     log("== process grid: the schedules on 4 ranks sharing the card (gloo, "
         "host-staged), B1 and B2 on every rank")
     grid = grid_phase(card)
+    log("== the LM stack on ranks sharing the card (gloo, host-staged): "
+        "OLMoE-1B-7B's expert ring, Qwen2.5-3B's sharded train step, "
+        "recovery from 9 ranks with B1 on every survivor")
+    lm = lm_phase(card)
 
     # phase 13's launches outside serving run at the SpMM cell's and the
     # sparse path's shapes
@@ -4434,10 +5040,12 @@ def main() -> int:
                                       "mamba", "hubert", "llava", "s")}},
                     "grid": {k: v for k, v in grid.items()
                              if k != "kernels"},
+                    "lm": lm,
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b1, b2, b3, *b1_serve, b2_serve, *b1_rg,
-                                b2_rg, *grid_records(grid)]}))
+                                b2_rg, *grid_records(grid),
+                                lm_record(lm)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,8 +19,9 @@ them at plan-build time and raises :class:`PlanValidationError` on any
 finding.
 """
 from .findings import Finding, PlanValidationError
-from .op_lint import copy_ops, lint_plan, record_multiply
-from .schedule_check import check_plan, check_survivor_coverage
+from .op_lint import copy_ops, lint_plan, lint_rank_plan, record_multiply
+from .schedule_check import (check_plan, check_rank_plan,
+                             check_survivor_coverage)
 
 from . import op_lint, schedule_check
 
@@ -37,12 +38,14 @@ def __getattr__(name):
 def all_rules():
     """(rule id, description) for every registered rule, all passes."""
     from . import source_rules
-    return (tuple(schedule_check.RULES) + tuple(op_lint.RULES)
+    return (tuple(schedule_check.RULES) + tuple(schedule_check.RANK_RULES)
+            + tuple(op_lint.RULES)
             + tuple((r.id, r.description) for r in source_rules.RULES))
 
 
 __all__ = [
-    "Finding", "PlanValidationError", "check_plan",
+    "Finding", "PlanValidationError", "check_plan", "check_rank_plan",
+    "lint_rank_plan",
     "check_survivor_coverage", "lint_plan", "record_multiply", "copy_ops",
     "all_rules", "op_lint", "schedule_check", "source_rules",
 ]

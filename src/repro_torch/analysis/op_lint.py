@@ -431,3 +431,40 @@ def lint_plan(plan, a=None, b=None, *,
             + check_operand_copies(plan, record)
             + check_shift_count(plan, record)
             + check_overlap_carry(plan, record))
+
+
+def lint_rank_plan(plan, a=None, b=None) -> List[Finding]:
+    """The op-trace rules for a plan on a process grid: one multiply of its
+    stacked twin (``MatmulPlan.stacked_twin``, the schedule every rank
+    plans alike) on the host, on host copies of the whole operands
+    (gathered first where a rank holds one tile of them: collective).
+    The rank's own multiply moves its tiles over the transport, which the
+    stacked executor's rules do not describe."""
+    from repro_torch.core import api as _api
+    if a is None or b is None:
+        raise ValueError("lint_rank_plan needs the plan's operands")
+    a_h, b_h = (_host_copy(h) for h in _api._coerce_pair(
+        a, b, g=plan.geom.g, allow_pad=plan._allow_pad,
+        device=plan.executor.device, on_ranks=True))
+    return lint_plan(plan.stacked_twin(a_h, b_h), a_h, b_h)
+
+
+def _host_copy(h):
+    """A whole-matrix handle with its values in host memory."""
+    import dataclasses
+
+    from repro_torch.core import api as _api
+    if getattr(h, "on_grid", False):
+        h = h.to_global()
+    if h.device.type == "cpu":
+        return h
+    if isinstance(h, _api.DistDense):
+        m, n = h.logical_shape
+        return _api.DistDense.from_global(h.data[:m, :n].cpu(), h.g,
+                                          rows_pad=h.shape[0],
+                                          device="cpu")
+    t = h.tiled
+    host = dataclasses.replace(t, blocks=t.blocks.cpu(), rows=t.rows.cpu(),
+                               cols=t.cols.cpu(), counts=t.counts.cpu())
+    host.host_layout = t.host()
+    return _api.DistBSR(host)

@@ -49,6 +49,17 @@ Rules (stable ids, the JAX package's):
   compose to identity through the epilogue's inverse.
 * ``schedule.survivor-coverage`` — a rebuilt steal3d assignment covers
   exactly the surviving grid's work (the elastic-recovery gate).
+* ``schedule.rank-slice`` — a plan on a process grid (one tile per rank)
+  holds its position's slice of the lists every rank plans alike: its
+  pair lists, consume maps and steal3d segments are those rows of the
+  host plan, and its kernel tables multiply exactly their real entries.
+
+A plan on a process grid is verified through its stacked twin
+(:meth:`~repro_torch.core.api.MatmulPlan.stacked_twin`): the same
+schedule built on the host from the metadata every rank plans
+identically, checked by every rule above, so its findings are the
+stacked plan's finding for finding (:func:`check_rank_plan`); then the
+rank's own lists are held to that plan's slice for its position.
 
 A decode failure on corrupted metadata is itself a detection: each rule
 converts unexpected decode errors into a finding rather than raising.
@@ -164,9 +175,10 @@ def _steal_round_sources(sp, g: int, steal_perm) -> list:
     return out
 
 
-def check_perms(plan) -> List[Finding]:
+def check_perms(plan, twin=None) -> List[Finding]:
     """schedule.ppermute-bijection over every permutation the plan's body
-    composes, the ring schedules' tile maps, and steal3d's reduce rounds."""
+    composes, the ring schedules' tile maps, and steal3d's reduce rounds
+    (a rank plan's, from its stacked ``twin``'s index maps)."""
     rule = "schedule.ppermute-bijection"
     name = plan.algorithm.name
     g = plan.geom.g
@@ -190,8 +202,11 @@ def check_perms(plan) -> List[Finding]:
                 subject=name))
     if name in _RING_SIGNS and plan.algorithm.step_maps is not None:
         findings += _check_step_maps(plan, _ring_perm)
-    if plan.steal is not None and plan._steal is not None:
-        findings += _check_steal_rounds(plan, _steal3d_perm)
+    rounds = plan if twin is None else twin
+    # a rank plan's segments have no index maps: its rounds are read off
+    # its twin, which needs the operands
+    if plan.steal is not None and hasattr(rounds._steal, "rounds"):
+        findings += _check_steal_rounds(rounds, _steal3d_perm)
     return findings
 
 
@@ -1221,6 +1236,14 @@ RULES = (
      "referenced, grid fits the survivor count"),
 )
 
+# the port's own rule (the JAX package plans no grid rank by rank)
+RANK_RULES = (
+    ("schedule.rank-slice",
+     "a rank's pair lists, consume maps and steal3d segments are its "
+     "position's slice of the plan every rank builds alike, and its "
+     "kernel tables multiply exactly their real entries"),
+)
+
 
 def _guard(rule: str, fn, *args) -> List[Finding]:
     try:
@@ -1235,7 +1258,8 @@ def _guard(rule: str, fn, *args) -> List[Finding]:
         )]
 
 
-def check_plan(plan, a=None, b=None) -> List[Finding]:
+def check_plan(plan, a=None, b=None, *, _on_ranks: bool = False
+               ) -> List[Finding]:
     """Run every schedule rule that applies to ``plan``.
 
     ``a`` / ``b`` are the plan's operands (handles preferred); structure-
@@ -1247,7 +1271,14 @@ def check_plan(plan, a=None, b=None) -> List[Finding]:
         return findings
     a_h, b_h = _api._coerce_pair(a, b, g=plan.geom.g,
                                  allow_pad=plan._allow_pad,
-                                 device=plan.executor.device)
+                                 device=plan.executor.device,
+                                 on_ranks=_on_ranks)
+    return findings + _operand_rules(plan, a_h, b_h)
+
+
+def _operand_rules(plan, a_h, b_h) -> List[Finding]:
+    """The rules that read the operands' structure."""
+    findings = []
     findings += _guard("schedule.balance-identity", check_balance,
                        plan, a_h, b_h)
     if plan.steal is not None:
@@ -1258,3 +1289,105 @@ def check_plan(plan, a=None, b=None) -> List[Finding]:
                            check_sparse_pairs, plan, a_h, b_h)
     findings += _guard("schedule.wire-contract", check_wire, plan, a_h, b_h)
     return findings
+
+
+# ---------------------------------------------------------------------------
+# plans on a process grid
+# ---------------------------------------------------------------------------
+def _rank_handles(plan, a, b):
+    from repro_torch.core import api as _api
+    return _api._coerce_pair(a, b, g=plan.geom.g, allow_pad=plan._allow_pad,
+                             device=plan.executor.device, on_ranks=True)
+
+
+def check_rank_plan(plan, a=None, b=None) -> List[Finding]:
+    """Every schedule rule over a plan on a process grid: the rules of
+    :func:`check_plan` on its stacked twin, then ``schedule.rank-slice``
+    on the rank's own lists.  ``a`` / ``b`` as :func:`check_plan`'s (a
+    steal3d or packed plan's twin needs their structure)."""
+    if a is None or b is None:
+        return _guard("schedule.ppermute-bijection", check_perms, plan)
+    a_h, b_h = _rank_handles(plan, a, b)
+    twin = plan.stacked_twin(a_h, b_h)
+    # the permutations and tile maps the rank itself composes, the
+    # operand rules on the plan every rank builds alike
+    findings = _guard("schedule.ppermute-bijection", check_perms, plan, twin)
+    findings += _operand_rules(twin, a_h, b_h)
+    return findings + _guard("schedule.rank-slice", check_rank_slice, plan,
+                             twin)
+
+
+def _mismatch(rule, what, got, want, subject) -> List[Finding]:
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape == want.shape and np.array_equal(got, want):
+        return []
+    return [Finding(rule, f"{what} is not the plan's slice for this rank "
+                    f"(shape {got.shape} against {want.shape}) — the rank "
+                    "would run another position's work", subject=subject)]
+
+
+def check_rank_slice(plan, twin) -> List[Finding]:
+    """schedule.rank-slice: the rank's device lists against its position's
+    rows of the host plan (``twin``), its kernel tables against their real
+    entries."""
+    rule = "schedule.rank-slice"
+    name = plan.algorithm.name
+    g = plan.geom.g
+    pos = plan.executor.position
+    i, j = divmod(pos, g)
+    findings: List[Finding] = []
+    if plan.symbolic is not None:
+        real = np.asarray(plan._pair_real)
+        for t, (mine, full) in enumerate(zip(plan._pairs, twin._pairs)):
+            for k in ("pa", "pb", "ps"):
+                findings += _mismatch(rule, f"step {t} list {k!r}",
+                                      mine[k].cpu().numpy(),
+                                      full[k].numpy()[pos:pos + 1],
+                                      f"{name}/step {t}")
+            table = mine.get("table")
+            n_real = int(real[i, j, t].sum())
+            if table is not None and table.real_pairs != n_real:
+                findings.append(Finding(
+                    rule, f"step {t}: B2's table multiplies "
+                    f"{table.real_pairs} pairs, the rank's list has "
+                    f"{n_real} real ones", subject=f"{name}/step {t}"))
+    elif plan.steal is None and plan._host_aux is not None:
+        host = plan._host_aux
+        for t, step in enumerate(plan._aux):
+            for k, v in step.items():
+                findings += _mismatch(rule, f"step {t} consume map {k!r}",
+                                      v.cpu().numpy().reshape(-1),
+                                      np.asarray(host[k][i, j, t]).reshape(
+                                          -1), f"{name}/step {t}")
+        if plan.algorithm.on_ranks.wire_planner is not None:
+            # the rank planner's flat pool: the stacked maps plus the base
+            # of each inner step's tile in the gathered pool
+            from repro_torch.core.api import _summa_bases
+            stacked = _host_steps(twin._aux, list(host), g)
+            for k, arr in host.items():
+                if "gidx" not in k and "dmap" not in k:
+                    continue
+                cap = twin._wire_caps[k[0]]
+                want = stacked[k] + _summa_bases(g, cap)[..., None]
+                findings += _mismatch(
+                    rule, f"consume map {k!r} of the flat pool",
+                    np.asarray(arr).reshape(want.shape), want, name)
+    if plan.steal is not None:
+        aux = plan.steal.aux
+        names = (("pa0", "pb0", "ps0"), ("pa1", "pb1", "ps1")) \
+            if plan.steal.overlap else (("pa", "pb", "ps"),)
+        for s_i, (seg, keys) in enumerate(zip(plan._steal.segments, names)):
+            for k, key in zip(("pa", "pb", "ps"), keys):
+                findings += _mismatch(rule, f"segment {s_i} list {k!r}",
+                                      seg[k].cpu().numpy().reshape(-1),
+                                      np.asarray(aux[key][i, j]).reshape(-1),
+                                      "steal3d")
+            table = seg.get("table")
+            if table is not None and table.real_blocks != int(
+                    seg["real"].sum()):
+                findings.append(Finding(
+                    rule, f"segment {s_i}: B1's table multiplies "
+                    f"{table.real_blocks} blocks, the rank's list has "
+                    f"{int(seg['real'].sum())} real pairs",
+                    subject="steal3d"))
+    return findings[:_MAX_PER_RULE]

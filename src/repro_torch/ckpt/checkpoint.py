@@ -15,8 +15,15 @@ bfloat16, so bfloat16 tensors are stored as their int16 bits and the
 manifest records every key's dtype.  :meth:`CheckpointManager.restore`
 copies the values into the tensors of ``like`` in place, on their devices;
 a manifest whose keys or shapes differ from ``like``'s raises
-``ValueError``.  The reference's elastic re-sharding (``shardings``) has
-no counterpart on one card.
+``ValueError``.
+
+A state placed on a mesh (DTensors: ``repro_torch.models.sharded``) is
+saved whole: every rank gathers each tensor from its shards when
+:meth:`CheckpointManager.save` is called (a collective, so every rank
+calls it) and rank 0 alone writes.  A restore copies each rank's shard of
+the saved values into its DTensors, so a checkpoint restores onto any
+mesh whose placements divide the shapes, as the reference's
+``shardings`` argument re-shards it.
 """
 from __future__ import annotations
 
@@ -29,16 +36,18 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 __all__ = ["CheckpointManager"]
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Tensors by key: a module by parameter name, a dict's entries under
-    ``<key>/``; a tuple or list's items share the prefix (so the pair
-    ``(model, opt_state)`` gives parameter names beside ``mu/...``)."""
-    if isinstance(tree, nn.Module):
+    """Tensors by key: a module (or a model placed on a mesh) by parameter
+    name, a dict's entries under ``<key>/``; a tuple or list's items share
+    the prefix (so the pair ``(model, opt_state)`` gives parameter names
+    beside ``mu/...``)."""
+    if isinstance(tree, nn.Module) or hasattr(tree, "named_parameters"):
         return {prefix + n: p for n, p in tree.named_parameters()}
     if isinstance(tree, dict):
         flat = {}
@@ -61,9 +70,20 @@ def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
                     f"{prefix!r}")
 
 
+def _placed(t: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """A copy on the host (never a view of the tensor: the next step
-    updates it in place); bfloat16 as its int16 bits."""
+    updates it in place); bfloat16 as its int16 bits.  A DTensor is
+    gathered whole first (collective)."""
+    if _placed(t):
+        from ..launch.mesh import mesh_comm
+        local = t.to_local()
+        t = mesh_comm(t.device_mesh, local.device).gather_full(
+            local, t.placements)
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
@@ -93,6 +113,9 @@ class CheckpointManager:
         extra = dict(extra or {})
         if self._thread is not None:
             self._thread.join()          # one outstanding save at a time
+        if any(_placed(v) for v in flat.values()) and dist.is_initialized() \
+                and dist.get_rank() != 0:
+            return                       # rank 0 writes the gathered state
 
         def write():
             stage = os.path.join(self.dir, f".tmp_step_{step}")
@@ -171,5 +194,11 @@ class CheckpointManager:
         with np.load(os.path.join(path, "shard_0.npz")) as z, \
                 torch.no_grad():
             for k, t in flat_like.items():
-                t.copy_(_from_host(z[k], manifest["dtypes"][k]))
+                value = _from_host(z[k], manifest["dtypes"][k])
+                if _placed(t):
+                    from ..launch.mesh import local_chunk
+                    t.to_local().copy_(local_chunk(value, t.placements,
+                                                   t.device_mesh))
+                else:
+                    t.copy_(value)
         return step, like, manifest.get("extra", {})

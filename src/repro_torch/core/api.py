@@ -66,10 +66,11 @@ import collections
 import dataclasses
 import hashlib
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import obs as _obs
 from ..kernels import ops as kops
@@ -101,7 +102,7 @@ __all__ = [
     "PackedOperand", "wire_capacity", "SPARSE_OUTPUT_DENSITY_THRESHOLD",
     "add_trace_hook", "remove_trace_hook", "set_drift_machine",
     "clear_plan_cache", "plan_cache_size", "cache_stats",
-    "invalidate_plans", "reshard",
+    "invalidate_plans", "reshard", "reshard_on_grid",
     "validate_mesh",
 ]
 
@@ -2298,7 +2299,35 @@ def _result_tensor(out):
     return out
 
 
-def _reshard_bsr(h: DistBSR, g: int, capacity) -> DistBSR:
+@dataclasses.dataclass(frozen=True)
+class _ReshardLayout:
+    """Where every stored slot of a BSR handle re-tiled onto a ``g x g``
+    grid comes from (host numpy): the new tiles' rows, cols and counts, and
+    per new slot the flat index of its block among the old grid's stored
+    slots (old tile ``p`` owns ``[p * store_old, (p + 1) * store_old)``),
+    -1 for a zero block."""
+    g: int
+    rows: np.ndarray
+    cols: np.ndarray
+    counts: np.ndarray
+    src: np.ndarray
+    capacity: int
+    store_old: int
+    shape: Tuple[int, int]
+    logical_shape: Tuple[int, int]
+    block_size: int
+
+    def tiled(self, blocks: torch.Tensor, device) -> TiledBSR:
+        return TiledBSR(
+            blocks=blocks, rows=torch.as_tensor(self.rows, device=device),
+            cols=torch.as_tensor(self.cols, device=device),
+            counts=torch.as_tensor(self.counts, device=device),
+            shape=self.shape, block_size=self.block_size,
+            grid_shape=(self.g, self.g), capacity=self.capacity,
+            logical_shape=self.logical_shape)
+
+
+def _reshard_layout(h: DistBSR, g: int, capacity) -> _ReshardLayout:
     t = h.tiled
     if t.row_block_perm is not None or t.col_block_perm is not None:
         raise ValueError(
@@ -2362,19 +2391,97 @@ def _reshard_bsr(h: DistBSR, g: int, capacity) -> DistBSR:
             rows_new[i, j] = r[order]
             cols_new[i, j] = c[order]
             src_new[i, j] = src[order]
+    return _ReshardLayout(g=g, rows=rows_new, cols=cols_new,
+                          counts=counts_new, src=src_new, capacity=cap,
+                          store_old=store_old, shape=(tm * g, tn * g),
+                          logical_shape=(m, n), block_size=bs)
+
+
+def _reshard_bsr(h: DistBSR, g: int, capacity) -> DistBSR:
+    lay = _reshard_layout(h, g, capacity)
+    t, bs = h.tiled, lay.block_size
     # one device gather moves every block value to its new slot: no host
     # round trip of block data, no dense materialisation
     old_flat = t.blocks.reshape(-1, bs, bs)
     pool = torch.cat([old_flat, old_flat.new_zeros((1, bs, bs))])
-    idx = np.where(src_new < 0, old_flat.shape[0], src_new)
+    idx = np.where(lay.src < 0, old_flat.shape[0], lay.src)
     blocks_new = pool[torch.as_tensor(idx.reshape(-1), device=t.device)]
-    return DistBSR(TiledBSR(
-        blocks=blocks_new.reshape(g, g, store, bs, bs),
-        rows=torch.as_tensor(rows_new, device=t.device),
-        cols=torch.as_tensor(cols_new, device=t.device),
-        counts=torch.as_tensor(counts_new, device=t.device),
-        shape=(tm * g, tn * g), block_size=bs, grid_shape=(g, g),
-        capacity=cap, logical_shape=(m, n)))
+    return DistBSR(lay.tiled(blocks_new.reshape(g, g, -1, bs, bs),
+                             t.device))
+
+
+def reshard_on_grid(h: DistBSR, g: int, old: GroupExecutor,
+                    new: Optional[GroupExecutor], new_ranks: Sequence[int],
+                    *, capacity="bucket") -> Optional[DistBSR]:
+    """Re-tile a BSR handle held on the process grid of ``old`` (its
+    tiles on their ranks, or a global handle whose tiles each rank reads)
+    onto the ``g x g`` grid of ``new``, whose position q is the global rank
+    ``new_ranks[q]``, by exchange: every rank of the old grid sends each
+    new owner the blocks of its old tile that the new tile holds (one
+    message per pair, phase ``"place"``), and each new owner assembles
+    its tile.  Collective over the old grid: every rank calls it, ``new``
+    None on a rank outside the new grid (which then only sends).  The
+    layout is :func:`reshard`'s, planned on every rank from the host
+    structure; returns the new handle on the grid, or None outside it.
+
+    The JAX package's ``reshard`` reads the whole handle, the lost
+    devices' tiles included; here the old owners, lost or not, send
+    theirs: the same simulation of a loss, in which a lost rank's memory
+    can still be read."""
+    lay = _reshard_layout(h, g, capacity)
+    bs, store_old = lay.block_size, lay.store_old
+    mine = h._local["blocks"] if h.on_grid \
+        else h.tiled.blocks[old.i, old.j].to(old.device)
+    me, p_old = dist.get_rank(), old.position
+    src = lay.src.reshape(g * g, -1)
+    tag = old._next_tag(g * g)
+    phase, old.phase = old.phase, "place"
+    ops, keep, recv = [], [], []
+    try:
+        for q in range(g * g):
+            sel = np.nonzero((src[q] >= 0)
+                             & (src[q] // store_old == p_old))[0]
+            if not len(sel) or new_ranks[q] == me:
+                continue
+            part = mine[torch.as_tensor(src[q][sel] - p_old * store_old,
+                                        device=mine.device)]
+            out = old._to_wire(part)
+            keep.append(out)
+            ops.append(dist.P2POp(dist.isend, out, int(new_ranks[q]), None,
+                                  tag + q))
+            old._record("reshard", "grid", out.numel())
+        q_me = new.position if new is not None else None
+        if q_me is not None:
+            blocks = mine.new_zeros((src.shape[1], bs, bs))
+            for p in range(old.g * old.g):
+                sel = np.nonzero((src[q_me] >= 0)
+                                 & (src[q_me] // store_old == p))[0]
+                if not len(sel):
+                    continue
+                at = torch.as_tensor(sel, device=mine.device)
+                if p == p_old:
+                    blocks[at] = mine[torch.as_tensor(
+                        src[q_me][sel] - p * store_old, device=mine.device)]
+                    continue
+                like = mine.new_empty((len(sel), bs, bs))
+                buf = old._buffer(like)
+                ops.append(dist.P2POp(dist.irecv, buf, old._ranks[p], None,
+                                      tag + q_me))
+                recv.append((at, buf, like))
+        works = dist.batch_isend_irecv(ops) if ops else []
+        for w in works:
+            w.wait()
+    finally:
+        old.phase = phase
+    if q_me is None:
+        return None
+    for at, buf, like in recv:
+        blocks[at] = old._from_wire(buf, like)
+    meta = lay.tiled(torch.empty((g, g, src.shape[1], bs, bs),
+                                 dtype=mine.dtype, device="meta"), "cpu")
+    meta.host_layout = {"rows": lay.rows, "cols": lay.cols,
+                        "counts": lay.counts, "real": lay.src >= 0}
+    return DistBSR._on_grid(meta, new, {"blocks": blocks})
 
 
 def reshard(h: DistMatrix, g: int, *, capacity="bucket") -> DistMatrix:
@@ -3002,7 +3109,7 @@ class MatmulPlan:
                  wire_caps: Optional[Dict[str, int]] = None,
                  wire_fps: Optional[Dict[str, str]] = None,
                  steal: Optional["_steal3d.StealPlan"] = None,
-                 steal_dev=None):
+                 steal_dev=None, notify: bool = True):
         self.algorithm = algorithm
         self.geom = geom
         self.executor = executor
@@ -3031,6 +3138,10 @@ class MatmulPlan:
         self.on_ranks = isinstance(executor, GroupExecutor)
         mine = slice(executor.position, executor.position + 1) \
             if self.on_ranks else slice(None)
+        # a rank plan keeps the host arrays every rank plans alike (the
+        # verifier holds the rank's lists to their slice)
+        self._host_aux = wire_aux if self.on_ranks else None
+        self._host_pairs = None
         if symbolic is not None:
             sched = symbolic.scheduled_pairs(
                 algorithm.k_order,
@@ -3040,6 +3151,8 @@ class MatmulPlan:
             # host copy of the mask B2's tables are cut from (the verifier
             # holds it to the device lists)
             self._pair_real = real
+            if self.on_ranks:
+                self._host_pairs = sched
             self._pairs = _steps_on_device(sched, geom.g, dev, mine)
             if _runs_kernel(geom.impl, dev):
                 for t, step in enumerate(self._pairs):
@@ -3057,7 +3170,7 @@ class MatmulPlan:
         self._maps: Dict[bytes, torch.Tensor] = {}
         self._validated: set = set()     # static-verifier modes passed
         self.traces = 1
-        for hook in list(_TRACE_HOOKS):
+        for hook in list(_TRACE_HOOKS) if notify else ():
             hook(self)
 
     @property
@@ -3121,23 +3234,56 @@ class MatmulPlan:
                 "(expected 'off', 'fast' or 'full')")
         if mode in self._validated:
             return
-        if self.on_ranks:
-            raise ValueError(
-                "the static verifier reads the stacked executor's plans; "
-                "validate a plan of the same operands built with mesh=None")
         from .. import analysis as _analysis
+        check, lint = (_analysis.check_rank_plan, _analysis.lint_rank_plan) \
+            if self.on_ranks else (_analysis.check_plan, _analysis.lint_plan)
         with _obs.span("plan_build.validate", mode=mode,
                        algorithm=self.algorithm.name):
             # a plan proven "fast" is not checked again on the way to "full"
             findings = [] if "fast" in self._validated \
-                else _analysis.check_plan(self, a, b)
+                else check(self, a, b)
             if mode == "full" and not findings:
-                findings = _analysis.lint_plan(self, a, b)
+                findings = lint(self, a, b)
             if findings:
                 raise _analysis.PlanValidationError(findings)
         self._validated.add(mode)
         if mode == "full":
             self._validated.add("fast")   # full subsumes fast
+
+    def stacked_twin(self, a_h: Optional[DistMatrix] = None,
+                     b_h: Optional[DistMatrix] = None) -> "MatmulPlan":
+        """The stacked plan a rank plan is a slice of, on the host: the
+        same schedule, geometry, symbolic phase, steal3d plan and packed
+        wire, from the host metadata every rank of the grid plans alike
+        (the stacked executor's consume maps where the rank's planner
+        differs: ``summa_ag``'s flat pool).  ``a_h`` / ``b_h`` give the
+        operands' host structure (a steal3d or packed plan needs it).
+        A stacked plan returns itself."""
+        if not self.on_ranks:
+            return self
+        alg, geom = self.algorithm, self.geom
+        wire_aux = self._host_aux
+        if self.symbolic is None and self.wire == "packed" \
+                and self.steal is None \
+                and alg.on_ranks.wire_planner is not None:
+            wire_aux = alg.wire_planner(
+                a_h.packed_operand() if "a" in self._packs else None,
+                b_h.packed_operand() if "b" in self._packs else None, geom)
+        elif self.symbolic is not None and self.wire == "packed":
+            wire_aux = {"pa": _wire.remap_pairs_packed(
+                self.symbolic.pair_a, a_h.packed_operand(), "a"),
+                "pb": _wire.remap_pairs_packed(
+                    self.symbolic.pair_b, b_h.packed_operand(), "b")}
+        ex = StackedExecutor(geom.g, torch.device("cpu"))
+        steal_dev = None if self.steal is None else _steal_device(
+            self.steal, a_h, geom, ex.device, False)
+        return MatmulPlan(alg, geom, ex, self._a_key, self._b_key,
+                          allow_pad=self._allow_pad, overlap=self.overlap,
+                          requested=self.requested, symbolic=self.symbolic,
+                          wire=self.wire, packs=self._packs,
+                          wire_aux=wire_aux, wire_caps=self._wire_caps,
+                          wire_fps=self._wire_fps, steal=self.steal,
+                          steal_dev=steal_dev, notify=False)
 
     def cost_model(self, a: Optional["DistBSR"] = None) -> Dict[str, float]:
         """Per-step volume / flops of one plan execution (per device of the
@@ -3233,8 +3379,8 @@ class MatmulPlan:
                 sp.note(rank_s=measured)
                 measured = ex.max_over_ranks(measured)
             sp.note(measured_s=measured)
-        if self.on_ranks and ex.rank != 0:
-            return out                   # rank 0 records the drift
+        if self.on_ranks and ex.position != 0:
+            return out                   # position 0 records the drift
         machine = _DRIFT_MACHINE or _roofline.H100_SXM
         cm = self.cost_model()
         _obs.record_drift(

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["StackedExecutor", "GroupExecutor", "AXES"]
+__all__ = ["StackedExecutor", "GroupExecutor", "AXES", "sub_grid"]
 
 # mesh axis name -> grid dimension of the stacked tensors
 AXES = {"row": 0, "col": 1}
@@ -127,9 +127,12 @@ class GroupExecutor(_TileMaps):
     """Runs schedule bodies on one rank of a ``g x g`` process grid.
 
     ``mesh`` is :func:`~repro_torch.core.dist.make_grid_mesh`'s
-    ``DeviceMesh`` (rank ``i * g + j`` at grid position (i, j)) and
-    ``device`` the rank's compute device.  The rank holds its own tile of
-    every operand; :meth:`batch` / :meth:`unbatch` see a one-tile grid,
+    ``DeviceMesh`` (rank ``i * g + j`` at grid position (i, j)), or a
+    square ``DeviceMesh`` over part of the world (the survivors of an
+    elastic recovery, ``runtime/replan.py``) with ``group`` the process
+    group of its ranks; ``device`` is the rank's compute device.  The
+    rank holds its own tile of every operand; :meth:`batch` /
+    :meth:`unbatch` see a one-tile grid,
     and the host tile maps (:meth:`identity_map`, :meth:`shift_map`) are the
     stacked executor's, so a plan knows which placed tile a rank holds at
     every step.  Exchanges take a tile tree (a dict of tensors, the same
@@ -148,14 +151,28 @@ class GroupExecutor(_TileMaps):
     """
 
     def __init__(self, mesh, device, axis_row: str = "row",
-                 axis_col: str = "col"):
+                 axis_col: str = "col", group=None):
         self.mesh = mesh
         self.g = int(mesh.size(0))
         if tuple(mesh.shape) != (self.g, self.g):
             raise ValueError(f"expected a square grid mesh, got shape "
                              f"{tuple(mesh.shape)}")
+        # the global rank at each grid position, increasing row-major (the
+        # subgroups' ranks are sorted, so group order is position order)
+        self._ranks = [int(r) for r in mesh.mesh.reshape(-1).tolist()]
+        if any(b <= a for a, b in zip(self._ranks, self._ranks[1:])):
+            raise ValueError(f"the grid's ranks {self._ranks} must increase "
+                             "row-major")
+        if group is None and len(self._ranks) != dist.get_world_size():
+            raise ValueError("a grid over part of the world needs the group "
+                             "of its ranks (dist.new_group)")
+        self._group = group       # all the grid's ranks (None: the world)
         self.rank = dist.get_rank()
-        self.i, self.j = divmod(self.rank, self.g)
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError(f"rank {self.rank} is not on the grid "
+                             f"{self._ranks}")
+        self.i, self.j = (int(c) for c in coord)
         self.device = torch.device(device)
         self.backend = dist.get_backend()
         if self.backend == "nccl" and self.device.type != "cuda":
@@ -188,14 +205,15 @@ class GroupExecutor(_TileMaps):
     @property
     def position(self) -> int:
         """This rank's grid position ``i * g + j``."""
-        return self.rank
+        return self.i * self.g + self.j
 
     def _pos(self, axis: str) -> int:
         return self.i if axis == "row" else self.j
 
     def _peer(self, axis: str, d: int) -> int:
         """The global rank at position ``d`` along ``axis`` from here."""
-        return d * self.g + self.j if axis == "row" else self.i * self.g + d
+        return self._ranks[d * self.g + self.j if axis == "row"
+                           else self.i * self.g + d]
 
     def batch(self, x: torch.Tensor) -> torch.Tensor:
         """The rank's tile as a one-tile grid: ``[*rest] -> [1, *rest]``."""
@@ -359,14 +377,16 @@ class GroupExecutor(_TileMaps):
 
     def permute(self, tree: Dict[str, torch.Tensor], recv_from: int,
                 send_to: int) -> Dict[str, torch.Tensor]:
-        """One round of a tile permutation over all ranks: receive the tile
-        of rank ``recv_from``, send this rank's to ``send_to``."""
+        """One round of a tile permutation over the grid: receive the tile
+        of position ``recv_from``, send this rank's to position
+        ``send_to``."""
         tag = self._next_tag(len(tree))
-        if recv_from == self.rank and send_to == self.rank:
+        if recv_from == self.position and send_to == self.position:
             self._record("permute", "grid", 0)
             return tree
         self._record("permute", "grid", _nbytes(tree))
-        return self._p2p(tree, send_to, recv_from, None, True, tag)
+        return self._p2p(tree, self._ranks[send_to], self._ranks[recv_from],
+                         self._group, True, tag)
 
     def gather_grid(self, tree: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
@@ -375,7 +395,7 @@ class GroupExecutor(_TileMaps):
         out = {}
         for k, v in tree.items():
             bufs = [self._buffer(v) for _ in range(self.g * self.g)]
-            dist.all_gather(bufs, self._to_wire(v))
+            dist.all_gather(bufs, self._to_wire(v), group=self._group)
             out[k] = torch.stack([self._from_wire(b, v) for b in bufs]
                                  ).reshape(self.g, self.g, *v.shape)
         return out
@@ -384,8 +404,26 @@ class GroupExecutor(_TileMaps):
         """The largest ``value`` over all ranks (an all-reduce)."""
         t = torch.tensor([float(value)], dtype=torch.float64,
                          device=self._wire_device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
         return float(t.item())
 
     def barrier(self) -> None:
-        dist.barrier()
+        dist.barrier(group=self._group)
+
+
+def sub_grid(ex: GroupExecutor, positions) -> Optional[GroupExecutor]:
+    """A square grid over ``positions`` of ``ex``'s grid (row-major, the
+    first ``g * g`` of them for the largest ``g`` they fill): its
+    executor on the ranks there, None elsewhere.  Collective over the
+    world: every rank calls it (``dist.new_group`` and the ``DeviceMesh``
+    subgroups are made by all)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    positions = sorted(positions)
+    g = int(np.sqrt(len(positions)))
+    ranks = [ex._ranks[p] for p in positions[:g * g]]
+    group = dist.new_group(ranks)
+    mesh = DeviceMesh(ex.mesh.device_type, torch.tensor(ranks).reshape(g, g),
+                      mesh_dim_names=ex.mesh.mesh_dim_names)
+    if dist.get_rank() not in ranks:
+        return None
+    return GroupExecutor(mesh, ex.device, *mesh.mesh_dim_names, group=group)

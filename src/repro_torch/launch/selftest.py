@@ -4,7 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.selftest --check spmm \
         --g 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.selftest --mesh --g 2 \
-        --device cpu
+        --devices 4 --device cpu
 
 Port of ``repro/launch/selftest.py``.  Where the JAX package plants fake
 host devices and builds a ``g x g`` mesh, the port runs every schedule on
@@ -27,16 +27,21 @@ plan path), ``balance`` (``balance="rows"`` capacity, the epilogue's
 inversion, ``algorithm="auto"``), ``steal3d``, ``wire`` (the packed wire),
 ``obs`` (spans, trace export, drift records), ``analysis`` (the static
 verifier over the dispatch matrix, ``validate="full"``, a miscounted
-schedule and a corrupt ring permutation caught) and ``elastic`` (straggler
+schedule and a corrupt ring permutation caught), ``elastic`` (straggler
 drift trips a refit and a re-selection; a 3x3 grid loses 5 of its 9
-devices and recovers onto 2x2 through ``recover_from_loss``).  The
-``elastic`` check builds its own grids (3 and 2) whatever ``--g`` is.
+devices and recovers onto 2x2 through ``recover_from_loss``), ``moe``
+(expert-parallel and ring dispatch on ``--devices`` ranks against the
+single-process layer) and ``train_parallel`` (the loss of the model
+sharded over a ``(data, model)`` mesh of ``--devices`` ranks against the
+single-process loss).  The ``elastic`` check builds its own grids (3 and
+2) whatever ``--g`` is; ``moe`` and ``train_parallel`` always run on
+ranks (``launch/grid.py``'s ``run_ranks``), ``--devices`` of them, the
+rank count of the JAX selftest's ``--devices``.
 
-The JAX selftest's ``moe`` and ``train_parallel`` checks need the LM
-stack sharded over a process grid (ROADMAP Queue A item 2) and are not
-among the choices; ``--mesh`` runs the grid checks (:data:`MESH_CHECKS`),
-not ``analysis`` (the verifier reads stacked plans) or ``elastic``
-(recovery on ranks is still to port).
+``--mesh`` runs :data:`MESH_CHECKS` on ranks: the grid checks and
+``analysis`` on a ``g x g`` grid (the verifier on the ranks' plans),
+``elastic`` on a 3x3 grid that recovers onto its survivors' 2x2, and
+``moe`` and ``train_parallel`` on ``--devices`` ranks.
 
 Every failed check prints ``[FAIL]``; the run ends with ``SELFTEST
 PASSED`` (exit 0) or ``SELFTEST FAILED: [...]`` (exit 1).  Nothing is
@@ -53,11 +58,15 @@ from typing import List, Optional
 import numpy as np
 
 CHECKS = ("dense", "spmm", "spgemm", "spgemm_sparse", "api", "balance",
-          "steal3d", "wire", "obs", "analysis", "elastic")
-# the checks that run on a process grid (--mesh), and the seconds after
-# which a grid that has not finished them is killed (they take ~10)
+          "steal3d", "wire", "moe", "train_parallel", "obs", "analysis",
+          "elastic")
+# the checks that run on ranks (--mesh), and the seconds after which a
+# grid that has not finished them is killed (they take ~10)
 MESH_CHECKS = ("dense", "spmm", "spgemm", "spgemm_sparse", "api", "balance",
-               "steal3d", "wire", "obs")
+               "steal3d", "wire", "moe", "train_parallel", "obs",
+               "analysis", "elastic")
+# the checks that spawn their own ranks, and the grid checks' own grids
+RANK_CHECKS = ("moe", "train_parallel")
 MESH_TIMEOUT_S = 600.0
 
 
@@ -70,8 +79,10 @@ def _parse(argv):
                    help="torch device (default: the card)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh", action="store_true",
-                   help="run the grid checks on a process grid of g x g "
-                        "ranks (gloo)")
+                   help="run the checks on ranks: the grid checks on a "
+                        "process grid of g x g ranks (gloo)")
+    p.add_argument("--devices", type=int, default=4,
+                   help="ranks of the moe and train_parallel checks")
     return p.parse_args(argv)
 
 
@@ -327,13 +338,16 @@ def check_api(ck, g, dev, rng, seed, mesh=None):
             api.plan_cache_size() == (1 if mesh is None else 2))
 
 
-def check_analysis(ck, g, dev, rng, seed):
+def check_analysis(ck, g, dev, rng, seed, mesh=None):
     import dataclasses
 
     from repro_torch import analysis
     from repro_torch.core import api
     from repro_torch.core.api import DistBSR, DistDense
     from repro_torch.core.bsr import random_sparse, rmat_matrix
+    _, pm = _entry_points(mesh)
+    check, lint = (analysis.check_rank_plan, analysis.lint_rank_plan) \
+        if mesh is not None else (analysis.check_plan, analysis.lint_plan)
     print(f"== static plan verification on a {g}x{g} grid ==")
     a_d = rmat_matrix(scale=6, edgefactor=8, seed=seed)        # skewed
     b = rng.standard_normal((64, 8)).astype(np.float32)
@@ -353,16 +367,15 @@ def check_analysis(ck, g, dev, rng, seed):
         combos.append((alg, b_sph, "sparse", "packed", "off"))
     n_findings = 0
     for alg, rhs, out, wire, ov in combos:
-        plan = api.plan_matmul(a_h, rhs, algorithm=alg, output=out,
-                               wire=wire, overlap=ov)
-        fs = analysis.check_plan(plan, a_h, rhs) \
-            + analysis.lint_plan(plan, a_h, rhs)
+        plan = pm(a_h, rhs, algorithm=alg, output=out, wire=wire,
+                  overlap=ov)
+        fs = check(plan, a_h, rhs) + lint(plan, a_h, rhs)
         for f in fs:
             print(f"    finding [{alg}/{out}/{wire}/ov={ov}]: {f}")
         n_findings += len(fs)
     ck.flag(f"analysis/healthy_matrix_clean ({len(combos)} plans)",
             n_findings == 0)
-    plan = api.plan_matmul(a_h, b_h, algorithm="ring_c", validate="full")
+    plan = pm(a_h, b_h, algorithm="ring_c", validate="full")
     ck.flag("analysis/validate_full_passes",
             {"fast", "full"} <= plan._validated)
     # a schedule charging the wrong message count is caught by the
@@ -371,15 +384,15 @@ def check_analysis(ck, g, dev, rng, seed):
                               msgs_per_step=7)
     api.REGISTRY.register(bad)
     try:
-        plan = api.plan_matmul(a_h, b_h, algorithm="bad_msgs", cache=False)
-        fs = analysis.lint_plan(plan, a_h, b_h)
+        plan = pm(a_h, b_h, algorithm="bad_msgs", cache=False)
+        fs = lint(plan, a_h, b_h)
         drift_seen = any(f.rule == "optrace.shift-count" for f in fs)
         ck.flag("analysis/shift_count_drift_caught",
                 drift_seen or g < 2)
         raised = False
         try:
-            api.plan_matmul(a_h, b_h, algorithm="bad_msgs", cache=False,
-                            validate="full")
+            pm(a_h, b_h, algorithm="bad_msgs", cache=False,
+               validate="full")
         except analysis.PlanValidationError as e:
             raised = any(f.rule == "optrace.shift-count"
                          for f in e.findings)
@@ -388,11 +401,11 @@ def check_analysis(ck, g, dev, rng, seed):
         api.REGISTRY.unregister("bad_msgs")
     # a corrupted ring shift at the real grid size: every position reads
     # tile 0, so the step maps are no permutation
-    plan = api.plan_matmul(a_h, b_h, algorithm="ring_c", cache=False)
+    plan = pm(a_h, b_h, algorithm="ring_c", cache=False)
     plan.executor.shift_map = lambda m, axis, sign=1: np.zeros_like(
         np.asarray(m))
     try:
-        fs = analysis.check_plan(plan, a_h, b_h)
+        fs = check(plan, a_h, b_h)
     finally:
         del plan.executor.shift_map
     ck.flag("analysis/corrupt_perm_caught",
@@ -463,11 +476,15 @@ def fast_net_machine():
                                hop_latency=1e-9)
 
 
-def check_elastic(ck, g, dev, rng, seed):
+def check_elastic(ck, g, dev, rng, seed, mesh=None):
+    """Part 1 on a 2x2 grid (on ranks: the first four of ``mesh``'s 3x3),
+    part 2 on a 3x3 grid that loses 5 devices (on ranks: ``mesh``, which
+    recovers onto its survivors')."""
     from repro_torch import obs
     from repro_torch.core import api
     from repro_torch.core.api import DistBSR, DistDense
     from repro_torch.core.bsr import rmat_matrix
+    from repro_torch.core.executor import sub_grid
     from repro_torch.runtime.faultinject import (DeviceLoss,
                                                  record_straggler_drift)
     from repro_torch.runtime.replan import ElasticReplanner, ReplanConfig
@@ -477,47 +494,55 @@ def check_elastic(ck, g, dev, rng, seed):
     b_np = rng.standard_normal((64, 32)).astype(np.float32)
     a = DistDense.from_global(a_np, 2, device=dev)
     b = DistDense.from_global(b_np, 2, device=dev)
+    # on ranks every one makes the 2x2 grid; four of them run part 1
+    mesh2 = None if mesh is None else sub_grid(mesh, range(4))
+    _, pm = _entry_points(mesh2)
     base = fast_net_machine()
     obs.reset_all()
     obs.enable(clear=True)
     api.set_drift_machine(base)
+    rp = ElasticReplanner(machine=base, config=ReplanConfig(drift_ratio=2.0))
     try:
-        p0 = api.plan_matmul(a, b, algorithm="auto", machine=base)
-        ref = a_np @ b_np
-        ck.close("elastic/nominal_result", p0(a, b), ref)
-        # straggling network: measured steps 8x the prediction, on two
-        # algorithm series so the machine re-fit is well conditioned
-        p_alt = api.plan_matmul(a, b, algorithm="summa_bcast")
-        record_straggler_drift(p0, factor=8.0, n=4, machine=base)
-        record_straggler_drift(p_alt, factor=8.0, n=4, machine=base)
-        rp = ElasticReplanner(machine=base,
-                              config=ReplanConfig(drift_ratio=2.0))
-        trips = rp.should_replan()
-        ck.flag(f"elastic/drift_trips ({sorted(trips)})", bool(trips))
-        res = rp.replan(a, b)
-        ck.flag(f"elastic/reselect_flips ({p0.algorithm.name} -> "
-                f"{res.algorithm}, evicted={res.evicted})",
-                res.algorithm != p0.algorithm.name and res.evicted > 0)
-        ck.close("elastic/replanned_result", res.plan(a, b), ref)
+        if mesh is None or mesh2 is not None:
+            p0 = pm(a, b, algorithm="auto", machine=base)
+            ref = a_np @ b_np
+            ck.close("elastic/nominal_result", p0(a, b), ref)
+            # straggling network: measured steps 8x the prediction, on two
+            # algorithm series so the machine re-fit is well conditioned
+            p_alt = pm(a, b, algorithm="summa_bcast")
+            record_straggler_drift(p0, factor=8.0, n=4, machine=base)
+            record_straggler_drift(p_alt, factor=8.0, n=4, machine=base)
+            trips = rp.should_replan()
+            ck.flag(f"elastic/drift_trips ({sorted(trips)})", bool(trips))
+            res = rp.replan(a, b, **({} if mesh2 is None
+                                     else {"mesh": mesh2}))
+            ck.flag(f"elastic/reselect_flips ({p0.algorithm.name} -> "
+                    f"{res.algorithm}, evicted={res.evicted})",
+                    res.algorithm != p0.algorithm.name and res.evicted > 0)
+            ck.close("elastic/replanned_result", res.plan(a, b), ref)
 
         # -- part 2: device loss -> grid shrink -> rebuilt steal plan
+        _, pm = _entry_points(mesh)
         a_d = rmat_matrix(scale=6, edgefactor=8, seed=seed)
         bx = rng.standard_normal((64, 48)).astype(np.float32)
         a3 = DistBSR.from_dense(a_d, g=3, block_size=4, device=dev)
         b3 = DistDense.for_rhs(bx, a3)
-        p3 = api.plan_matmul(a3, b3, algorithm="steal3d", validate="fast")
+        p3 = pm(a3, b3, algorithm="steal3d", validate="fast")
         want = a_d @ bx
         ck.close("elastic/preloss_result", p3(a3, b3), want)
         loss = DeviceLoss(9, 5, seed=seed)
-        rec = rp.recover_from_loss(a3, b3, loss.survivors())
+        rec = rp.recover_from_loss(a3, b3, loss.survivors(), mesh=mesh)
         ck.flag(f"elastic/shrink_3x3_to_2x2 (survivors={loss.survivors()}, "
                 f"g={rec.g}, evicted={rec.evicted})",
                 rec.g == 2 and rec.evicted > 0)
-        ck.close("elastic/recovered_result", rec.plan(rec.a, rec.b), want)
+        if rec.plan is not None:        # a rank outside the new grid idles
+            ck.close("elastic/recovered_result", rec.plan(rec.a, rec.b),
+                     want)
         snap = obs.registry().snapshot()
-        missing = [k for k in ("replan.triggered", "replan.refits",
-                               "replan.plans_evicted", "replan.recoveries")
-                   if k not in snap]
+        wanted = ("replan.triggered", "replan.refits",
+                  "replan.plans_evicted", "replan.recoveries") \
+            if mesh is None or mesh2 is not None else ("replan.recoveries",)
+        missing = [k for k in wanted if k not in snap]
         ck.flag(f"elastic/metrics_recorded (missing={missing})",
                 not missing)
     finally:
@@ -533,7 +558,7 @@ _RUN = {"dense": check_dense, "spmm": check_spmm, "spgemm": check_spgemm,
 
 
 def mesh_checks(ex, names: List[str], seed: int) -> List[str]:
-    """The grid checks ``names`` on this rank of a process grid (the rank
+    """The checks ``names`` on this rank of a process grid (the rank
     function of ``--mesh``): operands on the host, every multiply on the
     grid.  Rank 0 prints; every rank returns its failures."""
     import contextlib
@@ -550,20 +575,56 @@ def mesh_checks(ex, names: List[str], seed: int) -> List[str]:
     return [f"rank {ex.rank}: {f}" for f in ck.failures]
 
 
+def check_moe(ck, devices: int, device) -> None:
+    from repro_torch.models import moe
+    print(f"== MoE dispatch/combine on {devices} ranks ==")
+    ck.flag("moe/expert_parallel",
+            moe.selftest_distributed(devices, device=device))
+    ck.flag("moe/ring_dispatch", moe.selftest_ring(devices, device=device))
+
+
+def check_train_parallel(ck, devices: int, device) -> None:
+    from repro_torch.launch.train import selftest_parallel_equivalence
+    print(f"== data/tensor-parallel loss equivalence on {devices} ranks ==")
+    ck.flag("train/dp_tp_equivalence",
+            selftest_parallel_equivalence(devices, device=device))
+
+
+def _rank_checks(ck, names, args) -> None:
+    if "moe" in names:
+        check_moe(ck, args.devices, args.device)
+    if "train_parallel" in names:
+        check_train_parallel(ck, args.devices, args.device)
+
+
 def _main_mesh(args) -> int:
     from repro_torch.launch.grid import run_grid
     names = [n for n in MESH_CHECKS if args.check in ("all", n)]
     if not names:
         raise SystemExit(f"--mesh runs the checks {MESH_CHECKS}, not "
                          f"{args.check!r}")
-    print(f"== {args.g}x{args.g} process grid: {args.g ** 2} gloo ranks on "
-          f"{args.device or 'the card'} ==", flush=True)
     # the ranks import this module by name (never as __main__)
     from repro_torch.launch import selftest
-    per_rank = run_grid(args.g, selftest.mesh_checks, names, args.seed,
-                        backend="gloo", device=args.device,
-                        timeout_s=MESH_TIMEOUT_S)
-    failures = [f for fails in per_rank for f in fails]
+    failures: List[str] = []
+    grid = [n for n in names if n not in RANK_CHECKS + ("elastic",)]
+    where = args.device or "the card"
+    if grid:
+        print(f"== {args.g}x{args.g} process grid: {args.g ** 2} gloo ranks "
+              f"on {where} ==", flush=True)
+        per_rank = run_grid(args.g, selftest.mesh_checks, grid, args.seed,
+                            backend="gloo", device=args.device,
+                            timeout_s=MESH_TIMEOUT_S)
+        failures += [f for fails in per_rank for f in fails]
+    if "elastic" in names:
+        print(f"== 3x3 process grid: 9 gloo ranks on {where} ==",
+              flush=True)
+        per_rank = run_grid(3, selftest.mesh_checks, ["elastic"], args.seed,
+                            backend="gloo", device=args.device,
+                            timeout_s=MESH_TIMEOUT_S)
+        failures += [f for fails in per_rank for f in fails]
+    ck = _Checks()
+    _rank_checks(ck, names, args)
+    failures += ck.failures
     if failures:
         print(f"SELFTEST FAILED: {failures}")
         return 1
@@ -582,7 +643,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     rng = np.random.default_rng(args.seed)
     ck = _Checks()
     for name in CHECKS:
-        if args.check in ("all", name):
+        if args.check not in ("all", name):
+            continue
+        if name in RANK_CHECKS:
+            _rank_checks(ck, [name], args)
+        else:
             _RUN[name](ck, args.g, dev, rng, args.seed)
     if ck.failures:
         print(f"SELFTEST FAILED: {ck.failures}")

@@ -14,11 +14,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .common import Params, apply_rope, dense_init, rope, softcap
+from .common import (BATCH_AXES, MODEL_AXIS, P, Params, apply_rope,
+                     dense_init, rope, softcap)
 from .config import ModelConfig
 
-__all__ = ["init_attn", "attn_forward", "attn_decode", "init_attn_cache",
-           "cache_len", "NEG_INF", "BLOCKED_ATTN_THRESHOLD", "KV_CHUNK"]
+__all__ = ["init_attn", "attn_specs", "attn_forward", "attn_decode",
+           "init_attn_cache", "attn_cache_specs", "cache_len", "NEG_INF",
+           "BLOCKED_ATTN_THRESHOLD", "KV_CHUNK"]
 
 NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
 INT32_MAX = 2 ** 31 - 1
@@ -35,6 +37,21 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator) -> Params:
                  bk=torch.zeros(k * hd, device=dev),
                  bv=torch.zeros(k * hd, device=dev))
     return Params(**p)
+
+
+def attn_specs(cfg: ModelConfig) -> Dict:
+    """FSDP (over 'data') x TP (over 'model') parameter shardings."""
+    p = {
+        "wq": P("data", MODEL_AXIS),
+        "wk": P("data", MODEL_AXIS),
+        "wv": P("data", MODEL_AXIS),
+        "wo": P(MODEL_AXIS, "data"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = P(MODEL_AXIS)
+        p["bk"] = P(MODEL_AXIS)
+        p["bv"] = P(MODEL_AXIS)
+    return p
 
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -180,6 +197,17 @@ def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         # written
         "pos": torch.full((batch, s), -1, dtype=torch.int32, device=device),
     }
+
+
+def attn_cache_specs(cfg: ModelConfig, kind: str) -> Dict:
+    """KV cache sharding: heads over the model axis where the kv-head count
+    covers the 16-way production axis, else the sequence (context
+    parallelism), as the reference."""
+    if cfg.n_kv_heads % 16 == 0:
+        kv_spec = P(BATCH_AXES, None, MODEL_AXIS, None)
+    else:
+        kv_spec = P(BATCH_AXES, MODEL_AXIS, None, None)
+    return {"k": kv_spec, "v": kv_spec, "pos": P(BATCH_AXES, None)}
 
 
 def _write_prefill(cache: Dict, k, v, positions, cfg: ModelConfig,

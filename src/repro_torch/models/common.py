@@ -1,8 +1,9 @@
-"""Shared model building blocks: init, norms, RoPE and softcap.
+"""Shared model building blocks: init, norms, RoPE, softcap, sharding.
 
-Port of ``repro/models/common.py``.  The sharding helpers there
-(``constrain`` and the mesh axis names) have no counterpart: the port's
-model runs on one card.
+Port of ``repro/models/common.py``.  The mesh axis conventions are the
+reference's (``launch/mesh.py``): batch-like dimensions shard over
+``BATCH_AXES`` = ``("pod", "data")``, hidden, head and expert dimensions
+over ``MODEL_AXIS`` = ``"model"``.
 """
 from __future__ import annotations
 
@@ -11,8 +12,14 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..launch.mesh import P, current_mesh, placements_of, sanitize_spec
+
 __all__ = ["Params", "dense_init", "rms_norm", "layer_norm", "rope",
-           "apply_rope", "softcap", "gelu_tanh", "dtype_of"]
+           "apply_rope", "softcap", "gelu_tanh", "dtype_of", "constrain",
+           "BATCH_AXES", "MODEL_AXIS", "P"]
+
+BATCH_AXES = ("pod", "data")
+MODEL_AXIS = "model"
 
 
 class Params(nn.Module):
@@ -114,3 +121,28 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """GELU with the tanh approximation (``jax.nn.gelu``'s default)."""
     return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
+    """Apply a sharding constraint under an ambient mesh
+    (``launch.mesh.set_mesh``); a no-op outside one, as the reference's.
+
+    Axes the mesh does not have, and axes whose size does not divide the
+    dimension (8 kv heads on a 16-way model axis), are dropped
+    (``sanitize_spec``).  On a DTensor the constraint is a
+    ``redistribute`` to the sanitized spec's placements; on a plain
+    tensor, which inside a mesh is the local shard of an explicit rank
+    body (the counterpart of a ``shard_map`` body), it is a no-op: the
+    body's collectives already placed it.
+    """
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    placements = placements_of(sanitize_spec(P(*spec), tuple(x.shape), mesh),
+                               mesh)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)

@@ -11,8 +11,13 @@ unstacked into one :class:`~repro_torch.models.transformer.Block` per
 layer, in ``cfg.pattern`` order.  ``opt_state_from_jax`` carries the
 reference's AdamW state across the same way, into the port's state keyed
 by parameter name, and ``caches_from_jax`` a decode cache into the port's
-per-layer caches.  Nothing of JAX is imported: the tree is plain dicts,
-lists and arrays.
+per-layer caches.  :func:`specs_from_jax` and :func:`cache_specs_from_jax`
+map the reference's sharding-spec trees (``param_specs``,
+``cache_specs``) onto the port's the same way: the scan's leading
+``None`` of each stacked spec is dropped and the specs are keyed by
+parameter name (a list of per-layer dicts for caches).  Nothing of JAX is
+imported: the tree is plain dicts, lists and arrays (a spec leaf is any
+sequence of its entries).
 """
 from __future__ import annotations
 
@@ -22,12 +27,12 @@ import numpy as np
 import torch
 
 from ..runtime.device import as_tensor, resolve_device
-from .common import Params
+from .common import P, Params
 from .config import ModelConfig
 from .transformer import Block, Transformer, layer_plan
 
 __all__ = ["params_from_jax", "opt_state_from_jax", "caches_from_jax",
-           "unstack_layers"]
+           "unstack_layers", "specs_from_jax", "cache_specs_from_jax"]
 
 
 def unstack_layers(cfg: ModelConfig, groups: List) -> List[Dict]:
@@ -104,3 +109,48 @@ def opt_state_from_jax(state: Mapping, cfg: ModelConfig,
             "nu": _by_name(state["nu"], cfg, dev),
             "gnorm": as_tensor(np.asarray(state["gnorm"]), dev,
                                dtype=torch.float32)}
+
+
+def _spec(leaf, drop_scan: bool = False) -> P:
+    entries = [tuple(e) if isinstance(e, (list, tuple)) else e
+               for e in leaf]
+    return P(*(entries[1:] if drop_scan else entries))
+
+
+def _layer_spec_trees(cfg: ModelConfig, groups: List) -> List[Dict]:
+    """The grouped ``[[unit specs]]`` as one spec dict per layer in
+    ``cfg.pattern`` order, the scan's leading entry dropped."""
+    layers = []
+    for gi, (unit, n_units) in enumerate(layer_plan(cfg)):
+        for _ in range(n_units):
+            for li in range(len(unit)):
+                layers.append(groups[gi][li])
+    def strip(node):
+        if isinstance(node, Mapping):
+            return {k: strip(v) for k, v in node.items()}
+        return _spec(node, drop_scan=True)
+    return [strip(t) for t in layers]
+
+
+def specs_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, P]:
+    """The reference's ``param_specs(cfg)`` tree keyed by the port's
+    parameter names (``transformer.param_specs``'s keys)."""
+    out = {"top.embed": _spec(tree["embed"]),
+           "top.final_norm": _spec(tree["final_norm"])}
+    if "lm_head" in tree:
+        out["top.lm_head"] = _spec(tree["lm_head"])
+    for k, v in tree.get("frontend", {}).items():
+        out[f"frontend.{k}"] = _spec(v)
+    for i, layer in enumerate(_layer_spec_trees(cfg, tree["groups"])):
+        for k, v in layer.items():
+            if isinstance(v, Mapping):
+                out.update({f"layers.{i}.{k}.{n}": s for n, s in v.items()})
+            else:
+                out[f"layers.{i}.norms.{k}"] = v
+    return out
+
+
+def cache_specs_from_jax(groups: List, cfg: ModelConfig) -> List[Dict]:
+    """The reference's ``cache_specs(cfg)`` as one dict of specs per layer
+    (``transformer.cache_specs``)."""
+    return _layer_spec_trees(cfg, groups)

@@ -13,14 +13,14 @@ vision tower are out of scope there too: the batches hold their outputs
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from .common import Params, dense_init, gelu_tanh, layer_norm
+from .common import MODEL_AXIS, P, Params, dense_init, gelu_tanh, layer_norm
 from .config import ModelConfig
 
-__all__ = ["init_frontend", "audio_embed", "vlm_embed"]
+__all__ = ["init_frontend", "frontend_specs", "audio_embed", "vlm_embed"]
 
 
 def init_frontend(cfg: ModelConfig, gen: torch.Generator
@@ -37,6 +37,15 @@ def init_frontend(cfg: ModelConfig, gen: torch.Generator
     if cfg.frontend:
         raise ValueError(f"unknown frontend {cfg.frontend!r}")
     return None
+
+
+def frontend_specs(cfg: ModelConfig) -> Dict:
+    if cfg.frontend == "audio":
+        return {"proj": P(None, MODEL_AXIS), "ln_scale": P(None),
+                "ln_bias": P(None)}
+    if cfg.frontend == "vlm":
+        return {"proj1": P(None, MODEL_AXIS), "proj2": P(MODEL_AXIS, None)}
+    return {}
 
 
 def audio_embed(p: Params, frames: torch.Tensor,

@@ -5,15 +5,15 @@ arctic's dense residual branch beside its experts.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from .common import Params, dense_init, gelu_tanh
+from .common import MODEL_AXIS, P, Params, dense_init, gelu_tanh
 from .config import ModelConfig
 
-__all__ = ["init_mlp", "mlp_forward"]
+__all__ = ["init_mlp", "mlp_specs", "mlp_forward"]
 
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator,
@@ -24,6 +24,13 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator,
     w_gate = dense_init(gen, (d, f)) if gated else None
     return Params(w_up=dense_init(gen, (d, f)),
                   w_down=dense_init(gen, (f, d)), w_gate=w_gate)
+
+
+def mlp_specs(cfg: ModelConfig) -> Dict:
+    p = {"w_up": P("data", MODEL_AXIS), "w_down": P(MODEL_AXIS, "data")}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        p["w_gate"] = P("data", MODEL_AXIS)
+    return p
 
 
 def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig

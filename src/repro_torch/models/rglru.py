@@ -20,10 +20,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import Params, dense_init, gelu_tanh
+from .common import BATCH_AXES, MODEL_AXIS, P, Params, dense_init, gelu_tanh
 from .config import ModelConfig
 
-__all__ = ["init_rglru", "rglru_forward", "rglru_decode", "init_rglru_cache"]
+__all__ = ["init_rglru", "rglru_specs", "rglru_forward", "rglru_decode",
+           "init_rglru_cache", "rglru_cache_specs"]
 
 _NBLOCKS = 8
 _CONV_W = 4
@@ -50,6 +51,21 @@ def init_rglru(cfg: ModelConfig, gen: torch.Generator) -> Params:
         # a = exp(-c * softplus(lam) * r); init so a^c ~ 0.9..0.999
         lam=torch.linspace(0.3, 1.5, w, device=dev),
         out=dense_init(gen, (w, d)))
+
+
+def rglru_specs(cfg: ModelConfig) -> Dict:
+    return {
+        "in_x": P("data", MODEL_AXIS),
+        "in_gate": P("data", MODEL_AXIS),
+        "conv_w": P(None, MODEL_AXIS),
+        "conv_b": P(MODEL_AXIS),
+        "gate_a": P(None, None, MODEL_AXIS),
+        "gate_x": P(None, None, MODEL_AXIS),
+        "gate_a_b": P(MODEL_AXIS),
+        "gate_x_b": P(MODEL_AXIS),
+        "lam": P(MODEL_AXIS),
+        "out": P(MODEL_AXIS, "data"),
+    }
 
 
 def _block_proj(x: torch.Tensor, wmat: torch.Tensor,
@@ -126,6 +142,11 @@ def init_rglru_cache(cfg: ModelConfig, batch: int,
     return {"h": torch.zeros((batch, w), dtype=dtype, device=device),
             "conv": torch.zeros((batch, _CONV_W - 1, w), dtype=dtype,
                                 device=device)}
+
+
+def rglru_cache_specs(cfg: ModelConfig) -> Dict:
+    return {"h": P(BATCH_AXES, MODEL_AXIS),
+            "conv": P(BATCH_AXES, None, MODEL_AXIS)}
 
 
 def rglru_decode(p: Params, x: torch.Tensor, cache: Dict, cfg: ModelConfig

@@ -25,10 +25,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import Params, dense_init, rms_norm
+from .common import BATCH_AXES, MODEL_AXIS, P, Params, dense_init, rms_norm
 from .config import ModelConfig, SSMConfig
 
-__all__ = ["init_mamba", "mamba_forward", "mamba_decode", "init_mamba_cache"]
+__all__ = ["init_mamba", "mamba_specs", "mamba_forward", "mamba_decode",
+           "init_mamba_cache", "mamba_cache_specs"]
 
 
 def _dims(cfg: ModelConfig):
@@ -63,6 +64,19 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator) -> Params:
                            device=dev),                     # softplus^-1
         norm=torch.zeros(di, device=dev),
         out_proj=dense_init(gen, (di, d)))
+
+
+def mamba_specs(cfg: ModelConfig) -> Dict:
+    return {
+        "in_proj": P("data", MODEL_AXIS),
+        "conv_w": P(None, MODEL_AXIS),
+        "conv_b": P(MODEL_AXIS),
+        "a_log": P(None),
+        "d_skip": P(None),
+        "dt_bias": P(None),
+        "norm": P(MODEL_AXIS),
+        "out_proj": P(MODEL_AXIS, "data"),
+    }
 
 
 def _split_proj(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -197,6 +211,11 @@ def init_mamba_cache(cfg: ModelConfig, batch: int,
         "conv": torch.zeros((batch, s.d_conv - 1, di + 2 * s.d_state),
                             dtype=dtype, device=device),
     }
+
+
+def mamba_cache_specs(cfg: ModelConfig) -> Dict:
+    return {"ssm": P(BATCH_AXES, MODEL_AXIS, None, None),
+            "conv": P(BATCH_AXES, None, MODEL_AXIS)}
 
 
 def mamba_decode(p: Params, x: torch.Tensor, cache: Dict, cfg: ModelConfig

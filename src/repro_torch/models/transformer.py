@@ -33,12 +33,13 @@ from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .common import Params, dense_init, dtype_of, rms_norm, softcap
+from .common import (MODEL_AXIS, P, Params, dense_init, dtype_of, rms_norm,
+                     softcap)
 from .config import ModelConfig
 
 __all__ = ["Block", "Transformer", "layer_plan", "init_params", "init_cache",
-           "forward", "forward_unscanned", "decode_step",
-           "decode_step_unscanned"]
+           "param_specs", "cache_specs", "forward", "forward_unscanned",
+           "decode_step", "decode_step_unscanned"]
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -150,23 +151,95 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator) -> Block:
                  pn2=pn2)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device=None) -> Transformer:
+def _keep_params(mod: nn.Module, prefix: str, keep: Callable) -> None:
+    """Replace each parameter of ``mod`` by ``keep(name, tensor)``."""
+    for name, p in list(mod.named_parameters()):
+        *path, leaf = name.split(".")
+        owner = mod
+        for part in path:
+            owner = getattr(owner, part)
+        owner.register_parameter(leaf, nn.Parameter(
+            keep(prefix + name, p.data), requires_grad=False))
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                keep: Optional[Callable] = None) -> Transformer:
     """Random float32 parameters on ``device`` (the card by default), from
     a ``torch.Generator`` seeded with ``seed`` on that device.  The values
     are the port's own draws, not the reference's: carry JAX parameters
-    across with :func:`repro_torch.models.convert.params_from_jax`."""
+    across with :func:`repro_torch.models.convert.params_from_jax`.
+
+    ``keep(name, tensor)`` (optional) is applied to every parameter as
+    soon as its layer is drawn, by its ``named_parameters()`` name: a rank
+    of a mesh keeps its shard (cast, if it likes) and the draws of the
+    whole model are never held at once.  The draws are the same either
+    way, so a kept shard is a slice of the full init."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    keep = keep or (lambda name, t: t)
     with torch.no_grad():
-        embed = dense_init(gen, (cfg.vocab_size, cfg.d_model), in_axis=1)
-        lm_head = None if cfg.tie_embeddings else \
-            dense_init(gen, (cfg.d_model, cfg.vocab_size))
+        embed = keep("top.embed", dense_init(
+            gen, (cfg.vocab_size, cfg.d_model), in_axis=1))
+        lm_head = None if cfg.tie_embeddings else keep(
+            "top.lm_head", dense_init(gen, (cfg.d_model, cfg.vocab_size)))
         frontend = front_mod.init_frontend(cfg, gen)
-        layers = [_init_block(cfg, kind, gen) for kind in cfg.pattern]
-        final_norm = torch.zeros(cfg.d_model, device=dev)
+        if frontend is not None:
+            _keep_params(frontend, "frontend.", keep)
+        layers = []
+        for i, kind in enumerate(cfg.pattern):
+            blk = _init_block(cfg, kind, gen)
+            _keep_params(blk, f"layers.{i}.", keep)
+            layers.append(blk)
+        final_norm = keep("top.final_norm",
+                          torch.zeros(cfg.d_model, device=dev))
     return Transformer(cfg, embed, final_norm, layers, lm_head=lm_head,
                        frontend=frontend)
+
+
+def _layer_specs(cfg: ModelConfig, kind: str) -> Dict:
+    """One layer's specs by its parameters' names within the block (the
+    reference's ``_layer_specs``, without the scan's leading axis)."""
+    p: Dict = {"norms.ln1": P(None)}
+    mods: Dict = {}
+    if kind in ("g", "l"):
+        mods["attn"] = attn_mod.attn_specs(cfg)
+        if cfg.moe is not None:
+            p["norms.ln2"] = P(None)
+            mods["moe"] = moe_mod.moe_specs(cfg)
+            if cfg.moe.dense_residual:
+                mods["mlp"] = mlp_mod.mlp_specs(cfg)
+        elif cfg.mlp_kind != "none":
+            p["norms.ln2"] = P(None)
+            mods["mlp"] = mlp_mod.mlp_specs(cfg)
+        if cfg.post_norms:
+            p["norms.pn1"] = P(None)
+            p["norms.pn2"] = P(None)
+    elif kind == "r":
+        mods["rec"] = rglru_mod.rglru_specs(cfg)
+        if cfg.mlp_kind != "none":
+            p["norms.ln2"] = P(None)
+            mods["mlp"] = mlp_mod.mlp_specs(cfg)
+    elif kind == "m":
+        mods["mamba"] = ssm_mod.mamba_specs(cfg)
+    for mod, specs in mods.items():
+        p.update({f"{mod}.{k}": s for k, s in specs.items()})
+    return p
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, P]:
+    """Every parameter's sharding spec, keyed by its ``named_parameters()``
+    name (the reference's ``param_specs``; one module per layer, so a
+    layer's specs have no leading scan axis)."""
+    specs: Dict[str, P] = {"top.embed": P("data", MODEL_AXIS),
+                           "top.final_norm": P(None)}
+    if not cfg.tie_embeddings:
+        specs["top.lm_head"] = P("data", MODEL_AXIS)
+    specs.update({f"frontend.{k}": s for k, s in
+                  front_mod.frontend_specs(cfg).items()})
+    for i, kind in enumerate(cfg.pattern):
+        specs.update({f"layers.{i}.{k}": s for k, s in
+                      _layer_specs(cfg, kind).items()})
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +254,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     return [_init_layer_cache(cfg, kind, batch, max_len, dtype, dev)
             for kind in cfg.pattern]
+
+
+def cache_specs(cfg: ModelConfig) -> List[Dict[str, P]]:
+    """The decode cache's specs, one dict per layer in ``cfg.pattern``
+    order (the reference's ``cache_specs``, unstacked)."""
+    out = []
+    for kind in cfg.pattern:
+        if kind in ("g", "l"):
+            out.append(attn_mod.attn_cache_specs(cfg, kind))
+        elif kind == "r":
+            out.append(rglru_mod.rglru_cache_specs(cfg))
+        elif kind == "m":
+            out.append(ssm_mod.mamba_cache_specs(cfg))
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
+    return out
 
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -242,7 +331,10 @@ def _apply_layer(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
     if "mlp" in p or "moe" in p:
         h2 = rms_norm(x, nm.ln2, cfg.norm_eps)
         if "moe" in p:
-            y2, moe_aux = (moe_fn or moe_mod.moe_forward)(p.moe, h2, cfg)
+            if moe_fn is None:
+                moe_fn = moe_mod.ring_moe_forward if cfg.moe_impl == "ring" \
+                    else moe_mod.moe_forward
+            y2, moe_aux = moe_fn(p.moe, h2, cfg)
             aux["aux"] = aux["aux"] + moe_aux["moe_aux"] + moe_aux["moe_z"]
             aux["dropped"] = aux["dropped"] + moe_aux["moe_dropped"]
             if "mlp" in p:  # arctic's parallel dense residual branch

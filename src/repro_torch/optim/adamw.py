@@ -14,13 +14,15 @@ The reference's train step donates its parameters and state.  Here the
 moments are updated in place, and :meth:`AdamW.apply` adds each tensor's
 update to its parameter as soon as it is computed, which holds one
 tensor's temporaries at a time instead of a whole tree of updates.
-``state_specs`` (sharding) has no counterpart on one card.
+:meth:`AdamW.state_specs` shards the moments like the parameters (ZeRO),
+and on a mesh the step runs on each rank's shards with the global
+gradient norm passed in (``gnorm=``, ``launch/train.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Mapping, Sequence, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -83,12 +85,15 @@ class AdamW:
             return self.lr(step)
         return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
 
-    def _scalars(self, grads: Mapping[str, torch.Tensor], state: Dict):
+    def _scalars(self, grads: Mapping[str, torch.Tensor], state: Dict,
+                 gnorm: Optional[torch.Tensor] = None):
         """The step's float32 scalars, on the state's device: (step, global
-        gradient norm, clip scale, lr, the two bias corrections)."""
+        gradient norm, clip scale, lr, the two bias corrections).
+        ``gnorm`` is the global norm where ``grads`` are shards of it."""
         step = state["step"] + 1
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in grads.values()))
+        if gnorm is None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in grads.values()))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         t = step.to(torch.float32)
@@ -126,13 +131,13 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, params, grads: Mapping[str, torch.Tensor],
-              state: Dict) -> Dict:
+              state: Dict, gnorm: Optional[torch.Tensor] = None) -> Dict:
         """:meth:`update` and ``p + u`` in one pass, tensor by tensor, in
         place: each parameter takes its update as soon as it is computed
         (``p.add_(u)``, the reference's ``(p + u).astype(p.dtype)`` for
         float32 parameters).  Returns the new state (moments in place)."""
         named = _named(params)
-        step, gnorm, scale, lr, bc1, bc2 = self._scalars(grads, state)
+        step, gnorm, scale, lr, bc1, bc2 = self._scalars(grads, state, gnorm)
         for n, g in grads.items():
             p = named[n]
             u = self._one(g, state["mu"][n], state["nu"][n], p, scale, lr,
@@ -144,6 +149,13 @@ class AdamW:
     @staticmethod
     def last_grad_norm(state) -> torch.Tensor:
         return state["gnorm"]
+
+    @staticmethod
+    def state_specs(param_specs) -> Dict:
+        """Optimizer state shards exactly like the parameters (ZeRO)."""
+        from ..launch.mesh import P
+        return {"step": P(), "mu": param_specs, "nu": param_specs,
+                "gnorm": P()}
 
     # ----------------------------------------------- rounding between runs
     def ratio_bound(self, steps: int) -> float:

@@ -31,8 +31,11 @@ job:
   (``analysis.check_survivor_coverage``) and injects it through
   ``plan_matmul(assignment=..., validate="fast")`` — recovery gates on the
   static verifier, not numerics.  The stacked executor keeps every tile
-  on one card, so the survivors decide only the grid size and the
-  coverage check, not which card runs the tiles.
+  on one card, so there the survivors decide only the grid size and the
+  coverage check.  On a process grid (``mesh=`` the old grid's
+  ``GroupExecutor``) they decide which ranks run the tiles: a new grid
+  over the first ``g * g`` survivors, the operands re-placed onto it by
+  exchange (``api.reshard_on_grid``), the plan built and verified there.
 
 Every action surfaces through ``repro_torch.obs`` as ``replan.*``
 counters and spans, with the JAX package's names.
@@ -235,7 +238,7 @@ class ElasticReplanner:
                             algorithm=algorithm, plan=plan, duration_s=dt)
 
     # ------------------------------------------------------------- recovery
-    def recover_from_loss(self, a, b, survivors, *,
+    def recover_from_loss(self, a, b, survivors, *, mesh=None,
                           algorithm: str = "steal3d", wire: str = "padded",
                           locality: str = "locality",
                           comm_penalty: float = 1.0,
@@ -253,7 +256,25 @@ class ElasticReplanner:
         ``plan_build``).  Raises ``PlanValidationError`` / ``ValueError``
         before anything runs if the rebuilt schedule is not provably
         correct.
+
+        ``mesh`` (a :class:`~repro_torch.core.executor.GroupExecutor` of
+        the old process grid) recovers on ranks; every rank of the old
+        grid calls it, the lost ones too.  The new ``g x g`` grid is the
+        first ``g * g`` survivors (``replan.mesh``: a ``DeviceMesh`` and a
+        process group over them, which every rank creates, as
+        ``dist.new_group`` requires); the operands are re-placed by
+        exchange (:func:`~repro_torch.core.api.reshard_on_grid`: the old
+        owners, lost or not, send their blocks, the simulation of a loss
+        in which the JAX package's ``reshard`` reads every tile); a dense
+        right operand, whole on every rank, is re-tiled in place.  The
+        plan is built on the new grid and returned on its ranks; a rank
+        outside it gets ``a``, ``b`` and ``plan`` None and idles.
         """
+        if mesh is not None:
+            return self._recover_on_ranks(
+                a, b, survivors, mesh, algorithm=algorithm, wire=wire,
+                locality=locality, comm_penalty=comm_penalty, max_g=max_g,
+                capacity=capacity, **plan_kw)
         from repro_torch import analysis, obs
         from repro_torch.core import api
         from repro_torch.core import schedule as _schedule
@@ -304,6 +325,77 @@ class ElasticReplanner:
             plan = api.plan_matmul(a2, b2, algorithm=algorithm, wire=wire,
                                    assignment=asg, validate=cfg.validate,
                                    **plan_kw)
+        dt = time.monotonic() - t0
+        self.recoveries += 1
+        reg = obs.registry()
+        reg.counter("replan.recoveries").inc()
+        reg.histogram("replan.recovery_s").observe(dt)
+        if dt > cfg.budget_s:
+            reg.counter("replan.budget_exceeded").inc()
+        return RecoveryResult(g=g, survivors=survivors, a=a2, b=b2,
+                              assignment=asg, plan=plan, evicted=evicted,
+                              duration_s=dt)
+
+
+    def _recover_on_ranks(self, a, b, survivors, old, *, algorithm, wire,
+                          locality, comm_penalty, max_g, capacity,
+                          **plan_kw) -> RecoveryResult:
+        """:meth:`recover_from_loss` on the ranks of ``old``'s grid."""
+        from repro_torch import analysis, obs
+        from repro_torch.core import api
+        from repro_torch.core import schedule as _schedule
+        from repro_torch.core.executor import sub_grid
+
+        from .elastic import choose_grid_shape
+
+        cfg = self.config
+        survivors = tuple(sorted(range(survivors) if isinstance(survivors,
+                                                               int)
+                                 else survivors))
+        t0 = time.monotonic()
+        g_old = old.g
+        g = choose_grid_shape(survivors, max_g=max_g)
+        new_ranks = [old._ranks[p] for p in survivors[:g * g]]
+        asg = plan = a2 = b2 = None
+        with obs.span("replan.recover", g_old=g_old, g_new=g,
+                      survivors=len(survivors)):
+            with obs.span("replan.evict"):
+                evicted = api.invalidate_plans(g=g_old) if g != g_old \
+                    else 0
+            with obs.span("replan.mesh"):
+                new = sub_grid(old, survivors[:g * g])  # every rank calls
+            with obs.span("replan.reshard"):
+                a2 = api.reshard_on_grid(a, g, old, new, new_ranks,
+                                         capacity=capacity)
+                if isinstance(b, api.DistDense):
+                    m, n = b.logical_shape
+                    b2 = None if new is None else api.DistDense.for_rhs(
+                        b.data[:m, :n], a2, allow_pad=True,
+                        device=b.device)
+                else:
+                    b2 = api.reshard_on_grid(b, g, old, new, new_ranks,
+                                             capacity=capacity)
+            if new is not None:
+                with obs.span("replan.lpt"):
+                    if isinstance(a2, api.DistBSR):
+                        cost_ik = np.asarray(
+                            a2.grid_structure().real.sum(axis=2),
+                            dtype=np.float64)
+                    else:
+                        cost_ik = np.ones((g, g), dtype=np.float64)
+                    asg = _schedule.assign_3d_lpt(
+                        np.broadcast_to(cost_ik[:, :, None],
+                                        (g, g, g)).copy(),
+                        g, locality=locality, comm_penalty=comm_penalty)
+                with obs.span("replan.coverage"):
+                    findings = analysis.check_survivor_coverage(
+                        asg, g, survivors)
+                if findings:
+                    raise analysis.PlanValidationError(findings)
+                plan = api.plan_matmul(a2, b2, algorithm=algorithm,
+                                       wire=wire, assignment=asg,
+                                       validate=cfg.validate, mesh=new,
+                                       **plan_kw)
         dt = time.monotonic() - t0
         self.recoveries += 1
         reg = obs.registry()
