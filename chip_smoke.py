@@ -205,6 +205,22 @@ non-zero and prints no result line):
    card), the verifier's findings on the rank plans equal to the stacked
    plan's, the recovery's host ms by ``replan.*`` span, and B1 at a
    survivor's shape against its plain version and bound.
+17. the dry run and the examples.  (a) Before the training phase's
+   published run: ``launch/dryrun.py``'s machinery on its cell
+   (Qwen2.5-3B, 4 x 512, bf16 over float32 state, remat) on a world of one
+   rank, under ``FakeTensorMode``: the prediction is printed, then the
+   same program (``dryrun.record_cell``) runs for real on the card under
+   the same recorder.  The predicted parameter and moment bytes must equal
+   the real ones exactly, the predicted product flops the real step's, and
+   the predicted peak (arguments + temporaries) be within 10 % of the
+   step's ``max_memory_allocated`` (less what was allocated before it).
+   (b) Three production cells on a fake world of 256 ranks (16 x 16):
+   ``qwen2.5-3b train_4k``, ``olmoe-1b-7b prefill_32k`` and ``mamba2-130m
+   long_500k``, each ``ok``, its roofline line printed.  (c) The five
+   examples (``examples/torch_*.py``) on the card, each in a child
+   (started while (b) runs), each exiting 0 with its own correctness line;
+   B1 and B2 counted on the card in each child, every launch over exactly
+   its table's real blocks or pairs.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The last two lines are the ``{"kernels": [...]}`` record and
@@ -3086,9 +3102,13 @@ def training_phase() -> dict:
     gate = {arch: train_gate(arch) for arch in TRAIN_GATE["archs"]}
     log("-- resume on the card")
     resume = train_resume()
+    log("-- phase 17a: the dry run of the published run's cell, then the "
+        "same program's step on the card")
+    dry = dryrun_gate()
     log("-- published run (Qwen2.5-3B, bf16 compute, remat)")
     pub = train_published()
-    return {"gate": gate, "resume": resume, "published": pub}
+    return {"gate": gate, "resume": resume, "dryrun": dry,
+            "published": pub}
 
 
 # ---------------------------------------------------------------------------
@@ -4135,6 +4155,18 @@ LM_TRAIN = dict(arch="qwen2.5-3b", layers=4, mesh=(2, 2), steps=3, batch=4,
 # (c) steal3d at the SpMM cell on a 3x3 grid of 9 ranks, the seeded loss of
 # 5 and recovery onto the survivors' 2x2 (phase 13's loss)
 LM_RECOVERY = dict(g=3, devices=9, lost=5, seed=0)
+# phase 17: the dry run's production cells (on a fake 16x16 world) and the
+# examples run on the card in children, with the kernels each must launch
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"),
+                ("mamba2-130m", "long_500k"))
+DRYRUN_PEAK_TOL = 0.10
+EXAMPLES = {"torch_quickstart": ([], ("bsr_spmm",)),
+            "torch_graph_square": ([], ("bsr_spmm", "bsr_pair_accumulate")),
+            "torch_spgemm_graph": ([], ("bsr_spmm",)),
+            "torch_serve_decode": (["--sparse"],
+                                   ("bsr_spmm", "bsr_pair_accumulate")),
+            "torch_train_lm": ([], ())}
+EXAMPLE_TIMEOUT_S = 300
 LM_TIMEOUT_S = 420
 # the sharded step's parameters against one process: the norm of the
 # difference over a rank's shards within this share of their norm.  A
@@ -4693,6 +4725,158 @@ def lm_record(lm: dict) -> dict:
             "gloo (host-staged)"}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run against one real step, production cells, examples
+# ---------------------------------------------------------------------------
+def dryrun_gate() -> dict:
+    """Phase 17a, before the published training run: the dry run of its
+    cell (``TRAIN``: Qwen2.5-3B, bf16 over float32 state, remat) on one
+    rank, printed; then the same program on the card, recorded the same
+    way.  Parameter and moment bytes must be equal, product flops equal,
+    and the predicted peak within ``DRYRUN_PEAK_TOL`` of the real step's
+    ``max_memory_allocated`` (less what was allocated before it: the
+    state is built inside the measured window)."""
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.launch import dryrun
+    t = TRAIN
+    cfg = get_config(t["arch"])
+    shape = Shape(f"train_{t['batch']}x{t['seq']}", "train", t["seq"],
+                  t["batch"])
+    t0 = time.perf_counter()
+    pred = dryrun.run_cell(t["arch"], shape.name, "single", cfg=cfg,
+                           shape=shape, mesh_shape=(1, 1))
+    pred_s = time.perf_counter() - t0
+    check(pred["status"] == "ok", f"the dry run of {t['arch']} "
+          f"{shape.name} failed: {pred.get('error')}\n"
+          f"{pred.get('traceback')}")
+    args, flops = pred["arguments"], pred["hlo_stats"]["dot_flops"]
+    log(f"  prediction (FakeTensorMode, one rank, {pred_s:.1f} s): "
+        f"parameters {args['params'] / 1e9:.3f} GB, moments "
+        f"{args['moments'] / 1e9:.3f} GB, batch {args['batch']} B; "
+        f"temporaries {pred['memory_analysis']['temp_size_in_bytes'] / 1e9:.3f}"
+        f" GB; peak {pred['peak_bytes'] / 1e9:.3f} GB; product flops "
+        f"{flops:.6e}")
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with dryrun.fake_world((1, 1)) as mesh:
+        real = dryrun.record_cell(cfg, shape, mesh, DEVICE, fake=False,
+                                  seed=t["seed"])
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    real_peak = torch.cuda.max_memory_allocated() - before
+    ra, real_flops = real["arguments"], real["stats"].dot_flops
+    state_pred, state_real = (args["params"] + args["moments"],
+                              ra["params"] + ra["moments"])
+    miss = (pred["peak_bytes"] - real_peak) / real_peak
+    log(f"  the same step on the card ({real_s:.1f} s, state built "
+        f"inside): parameters and moments {state_real / 1e9:.3f} GB "
+        f"(predicted {state_pred / 1e9:.3f}); product flops "
+        f"{real_flops:.6e}; max_memory_allocated {real_peak / 1e9:.3f} GB "
+        f"over {before / 1e9:.3f} GB allocated before, the recorder's own "
+        f"peak {(real['memory']['argument_size_in_bytes'] + real['memory']['temp_size_in_bytes']) / 1e9:.3f} GB; "
+        f"predicted peak {pred['peak_bytes'] / 1e9:.3f} GB, off by "
+        f"{100 * miss:+.2f} % (allowed {100 * DRYRUN_PEAK_TOL:.0f} %)")
+    check(state_pred == state_real, f"predicted parameter and moment bytes "
+          f"{state_pred} differ from the real {state_real}")
+    check(flops == real_flops, f"predicted product flops {flops} differ "
+          f"from the real step's {real_flops}")
+    check(abs(miss) <= DRYRUN_PEAK_TOL, f"the predicted peak misses the "
+          f"real one by {100 * miss:+.2f} %")
+    del real
+    free()
+    return {"prediction": {k: pred[k] for k in (
+        "arguments", "memory_analysis", "hlo_stats", "roofline",
+        "peak_bytes", "fits", "compile_seconds")},
+        "real": {"arguments": ra, "dot_flops": real_flops,
+                 "peak_bytes": real_peak, "allocated_before": before,
+                 "s": real_s},
+        "peak_miss": miss, "prediction_s": pred_s}
+
+
+def example_child(name: str) -> None:
+    """Run ``examples/<name>.py`` on the card in this (child) process with
+    B1's and B2's counters on; print its counts as one ``EXAMPLE_COUNTS``
+    JSON line and exit with the example's code."""
+    import runpy
+    sys.path.insert(0, str(ROOT / "src"))
+    extra, _ = EXAMPLES[name]
+    blocks, pairs = serve_counters_on()
+    reset_counts()
+    mod = runpy.run_path(str(ROOT / "examples" / f"{name}.py"),
+                         run_name="example")
+    rc = mod["main"](["--device", DEVICE, *extra])
+    counts = {"launches": read_counts(), **serve_counters_off(blocks, pairs)}
+    print("EXAMPLE_COUNTS " + json.dumps(counts), flush=True)
+    sys.exit(rc)
+
+
+def start_examples() -> dict:
+    """Start every example's child (phase 17c); they run while the dry
+    run's production cells are traced."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return {name: subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.example_child({name!r})"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name in EXAMPLES}
+
+
+def finish_examples(procs: dict) -> dict:
+    """Wait for every example's child: each must exit 0 with its own
+    correctness line, launch the kernels ``EXAMPLES`` names, and each
+    kernel multiply exactly its tables' real blocks or pairs."""
+    out = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            check(False, f"{name} ran past {EXAMPLE_TIMEOUT_S} s")
+        lines = stdout.strip().splitlines()
+        counts = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+                  if ln.startswith("EXAMPLE_COUNTS ")]
+        shown = [ln for ln in lines if not ln.startswith("EXAMPLE_COUNTS ")]
+        check(proc.returncode == 0 and len(counts) == 1,
+              f"{name} exited {proc.returncode}: {stdout[-3000:]}"
+              f"{stderr[-3000:]}")
+        c = counts[0]
+        log(f"  {name}: exit 0, \"{shown[-1]}\"; launches "
+            f"{c['launches']}; B1 blocks {c['blocks_multiplied']} of its "
+            f"tables' {c['table_blocks']} real, B2 pairs "
+            f"{c['pairs_multiplied']} of {c['table_pairs']}")
+        for kernel in EXAMPLES[name][1]:
+            check(c["launches"][kernel] > 0, f"{name} launched no {kernel}")
+        check(c["blocks_multiplied"] == c["table_blocks"]
+              and c["pairs_multiplied"] == c["table_pairs"],
+              f"{name}: a kernel multiplied other than its tables' real "
+              f"blocks or pairs: {c}")
+        out[name] = {"last_line": shown[-1], **c}
+    return out
+
+
+def dryrun_phase() -> dict:
+    """Phase 17b and 17c: the production cells on a fake 16 x 16 world,
+    each ``ok``, while the examples run on the card in children."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    procs = start_examples()
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, "single")
+        check(rec["status"] == "ok", f"dry run {arch} {shape}: "
+              f"{rec.get('error')}\n{rec.get('traceback')}")
+        cells[f"{arch} {shape}"] = {k: rec[k] for k in (
+            "n_chips", "compile_seconds", "arguments", "memory_analysis",
+            "hlo_stats", "roofline", "peak_bytes", "fits")}
+    examples = finish_examples(procs)
+    secs = time.perf_counter() - t0
+    log(f"  phase 17b/17c wall {secs:.1f} s")
+    return {"cells": cells, "examples": examples, "s": secs}
+
+
 def record(name: str, source: str, replaces: str, launches: int,
            kres: dict, extra: dict) -> dict:
     """One entry of the ``{"kernels": [...]}`` line: float32 numbers at the
@@ -4973,6 +5157,9 @@ def main() -> int:
         "OLMoE-1B-7B's expert ring, Qwen2.5-3B's sharded train step, "
         "recovery from 9 ranks with B1 on every survivor")
     lm = lm_phase(card)
+    log("== the dry run on a fake 16x16 world of H100 ranks (three "
+        "production cells) and the five examples on the card")
+    dry = dryrun_phase()
 
     # phase 13's launches outside serving run at the SpMM cell's and the
     # sparse path's shapes
@@ -5009,6 +5196,12 @@ def main() -> int:
                                  in ("real_flops", "pair_flops", "bytes",
                                      "real_pairs", "pairs",
                                      "pairs_multiplied", "path")})
+    ex_launches = {k: sum(e["launches"][k] for e in dry["examples"].values())
+                   for k in ("bsr_spmm", "bsr_pair_accumulate")}
+    b1[0]["launches"] += ex_launches["bsr_spmm"]
+    b1[0]["examples_launches"] = ex_launches["bsr_spmm"]
+    b2["launches"] += ex_launches["bsr_pair_accumulate"]
+    b2["examples_launches"] = ex_launches["bsr_pair_accumulate"]
     b1_serve, b2_serve = serve_records(serve)
     b1_rg, b2_rg = serve_records(recurrent["serve"], "recurrentgemma")
     log(json.dumps({"build_s": build_s, "e2e": e2e, "breakdown": breakdown,
@@ -5041,6 +5234,7 @@ def main() -> int:
                     "grid": {k: v for k, v in grid.items()
                              if k != "kernels"},
                     "lm": lm,
+                    "dryrun": dry,
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b1, b2, b3, *b1_serve, b2_serve, *b1_rg,

@@ -23,7 +23,8 @@ import math
 from typing import Dict
 
 __all__ = [
-    "Machine", "SUMMIT_V100", "DGX2_V100", "H100_SXM", "H100_SXM_PEAK_OPS",
+    "Machine", "SUMMIT_V100", "DGX2_V100", "HOST_CPU", "H100_SXM",
+    "H100_SXM_PEAK_OPS", "H100_SXM_HBM_BYTES",
     "save_machine", "load_machine",
     "spmm_local_ai", "spmm_internode_ai", "spgemm_local_ai",
     "spgemm_internode_ai", "local_peak", "internode_roofline",
@@ -57,6 +58,12 @@ class Machine:
 # /6 GPUs = 3.83 GB/s per GPU.  DGX-2: NVLink 3.0, 50 GB/s per GPU link.
 SUMMIT_V100 = Machine("summit-v100", 16e12, 900e9, 3.83e9, 4)
 DGX2_V100 = Machine("dgx2-v100", 16e12, 900e9, 50e9, 4)
+# The reference's CI harness: 16 fake CPU devices sharing one host process,
+# ~50 GFLOP/s of einsum throughput per fake device, the "network" a host
+# memcpy, the per-message alpha the dispatch floor.  A compute-bound
+# machine: the regime where a work-stealing schedule's flop saving decides.
+# The JAX package's values (repro/core/roofline.py), for the host tests.
+HOST_CPU = Machine("host-cpu", 5e10, 2e10, 2e10, 4, hop_latency=2e-5)
 # H100 80GB HBM3, 700 W (data sheet), SXM part, dense rates:
 # * arith_peak 67 TFLOP/s: float32 FMA on the CUDA cores (H100 80GB HBM3,
 #   700 W, data sheet)
@@ -70,6 +77,9 @@ H100_SXM = Machine("h100-sxm", 67e12, 3.35e12, 450e9, 4)
 # Peak operations by operand type (H100 80GB HBM3, 700 W, data sheet):
 # float32 on the CUDA cores, bf16 on the tensor cores (dense)
 H100_SXM_PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+# Device memory of one card: 80 GB of HBM3 (H100 80GB HBM3, 700 W, data
+# sheet)
+H100_SXM_HBM_BYTES = 80e9
 
 
 def save_machine(m: Machine, path: str) -> None:

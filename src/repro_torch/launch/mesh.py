@@ -40,7 +40,7 @@ import torch.distributed as dist
 __all__ = ["P", "make_production_mesh", "make_mesh", "mesh_sizes",
            "filter_spec", "sanitize_spec", "batch_partition_spec",
            "placements_of", "placements_for", "sanitized_placements",
-           "set_mesh", "current_mesh", "MeshComm", "mesh_comm",
+           "set_mesh", "current_mesh", "MeshComm", "mesh_comm", "use_comm",
            "local_chunk", "shard_bytes"]
 
 
@@ -299,6 +299,12 @@ class MeshComm:
     for the transfer and back after it (timed in ``stage_s``); ``sent``
     counts the bytes this rank put on the wire, ``wait_s`` the host's
     waits for transfers.
+
+    The transfers themselves go through three methods, :meth:`_send_recv`,
+    :meth:`_gather` and :meth:`_reduce`, each returning the works to wait
+    on: a subclass that overrides them sees every transfer this class
+    makes, with the shapes and byte counts its own code gave
+    (``launch/op_analysis.py``'s recording comm).
     """
 
     def __init__(self, mesh, device):
@@ -307,8 +313,8 @@ class MeshComm:
         self.sizes = mesh_sizes(mesh)
         self.names = tuple(self.sizes)
         self.coord = dict(zip(self.names, _coordinate(mesh)))
-        self._ranks = mesh.mesh
-        flat = [int(r) for r in self._ranks.reshape(-1).tolist()]
+        self._ranks = mesh.mesh.numpy()     # global ranks, host numbers
+        flat = [int(r) for r in self._ranks.reshape(-1)]
         if any(b <= a for a, b in zip(flat, flat[1:])):
             raise ValueError(f"the mesh's ranks {flat} must increase "
                              "row-major")
@@ -361,6 +367,21 @@ class MeshComm:
             w.wait()
         self.wait_s += time.perf_counter() - t0
 
+    # the transport: each starts its transfer and returns the works
+    def _send_recv(self, ops: List) -> List:
+        """Start the sends and receives of ``ops`` (``P2POp`` s)."""
+        return dist.batch_isend_irecv(ops)
+
+    def _gather(self, bufs: List[torch.Tensor], t: torch.Tensor,
+                group) -> List:
+        """Start gathering every member's ``t`` of ``group`` into
+        ``bufs``."""
+        return [dist.all_gather(bufs, t, group=group, async_op=True)]
+
+    def _reduce(self, t: torch.Tensor, group) -> List:
+        """Start summing ``t`` over ``group``, in place."""
+        return [dist.all_reduce(t, group=group, async_op=True)]
+
     def shift(self, tensors: Sequence[torch.Tensor], axis: str,
               sign: int = 1, *, wait: bool = True):
         """Ring shift of ``tensors`` along ``axis``: coordinate i receives
@@ -386,7 +407,7 @@ class MeshComm:
             self.sent += raw.numel()
             ops.append(dist.P2POp(dist.isend, raw, dst, group, tags + k))
             ops.append(dist.P2POp(dist.irecv, buf, src, group, tags + k))
-        works = dist.batch_isend_irecv(ops)
+        works = self._send_recv(ops)
 
         def result():
             self._wait(works)
@@ -406,8 +427,7 @@ class MeshComm:
         raw = _raw(h)
         bufs = [torch.empty_like(raw) for _ in range(n)]
         self.sent += raw.numel() * (n - 1)
-        self._wait([dist.all_gather(bufs, raw, group=self._groups[axis],
-                                    async_op=True)])
+        self._wait(self._gather(bufs, raw, self._groups[axis]))
         return self._back(torch.cat([_typed(b, h) for b in bufs], dim=dim))
 
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str],
@@ -422,8 +442,7 @@ class MeshComm:
         count = 1
         for a in axes:
             self.sent += h.numel() * h.element_size()
-            self._wait([dist.all_reduce(h, group=self._groups[a],
-                                        async_op=True)])
+            self._wait(self._reduce(h, self._groups[a]))
             count *= self.sizes[a]
         out = self._back(h)
         return out / count if op == "mean" else out
@@ -459,3 +478,20 @@ def mesh_comm(mesh, device) -> MeshComm:
     if comm is None or comm.mesh is not mesh:
         comm = _COMMS[key] = MeshComm(mesh, device)
     return comm
+
+
+@contextlib.contextmanager
+def use_comm(comm: MeshComm) -> Iterator[MeshComm]:
+    """Inside the block :func:`mesh_comm` gives ``comm`` for its mesh and
+    device (a subclass that records the transfers, say); the previous one
+    after it."""
+    key = (id(comm.mesh), str(comm.device))
+    saved = _COMMS.get(key)
+    _COMMS[key] = comm
+    try:
+        yield comm
+    finally:
+        if saved is None:
+            _COMMS.pop(key, None)
+        else:
+            _COMMS[key] = saved

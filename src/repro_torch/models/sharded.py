@@ -45,7 +45,8 @@ from .common import BATCH_AXES
 from .config import ModelConfig
 
 __all__ = ["ShardedModel", "place_batch", "sharded_loss",
-           "make_sharded_train_step", "model_slice"]
+           "make_sharded_train_step", "model_slice", "cache_shards",
+           "sharded_prefill", "make_sharded_decode_step"]
 
 
 def _dtensor(local: torch.Tensor, mesh, placements, shape):
@@ -79,11 +80,18 @@ class ShardedModel:
     @classmethod
     def init(cls, cfg: ModelConfig, mesh, *, seed: int = 0, device=None,
              specs: Optional[Dict] = None,
-             dtype: Optional[torch.dtype] = None) -> "ShardedModel":
+             dtype: Optional[torch.dtype] = None,
+             uninitialised: bool = False) -> "ShardedModel":
         """``tf.init_params(cfg, seed)``'s values, each parameter cut to
         this rank's shard (cast to ``dtype`` where given) as soon as its
         layer is drawn, placed by the sanitized ``specs`` (default
-        ``transformer.param_specs``)."""
+        ``transformer.param_specs``).
+
+        With ``uninitialised`` the draws are made on the CPU and each shard
+        is left uninitialised on ``device``: the shapes, types and
+        placements are the same.  That is for ``FakeTensorMode`` (the dry
+        run, ``launch/dryrun.py``), where nothing is drawn or allocated
+        and a fake tensor cannot move between devices."""
         specs = specs or tf.param_specs(cfg)
         placements, shapes = {}, {}
 
@@ -92,10 +100,14 @@ class ShardedModel:
             placements[name] = sanitized_placements(
                 {name: specs[name]}, {name: t}, mesh)[name]
             part = local_chunk(t, placements[name], mesh)
-            return part.to(dtype if dtype is not None else t.dtype,
-                           copy=True)
+            dt = dtype if dtype is not None else t.dtype
+            if uninitialised:
+                return part.new_empty(part.shape, dtype=dt, device=device)
+            return part.to(dt, copy=True)
 
-        local = tf.init_params(cfg, seed=seed, device=device, keep=keep)
+        local = tf.init_params(cfg, seed=seed,
+                               device="cpu" if uninitialised else device,
+                               keep=keep)
         return cls(local, mesh, placements, shapes)
 
     @classmethod
@@ -278,16 +290,18 @@ def sharded_loss(sm: ShardedModel, batch: Dict, cfg: ModelConfig
 
 
 def make_sharded_train_step(cfg: ModelConfig, optimizer) -> Callable:
-    """Returns ``train_step(sm, opt_state, batch) -> (sm, opt_state,
-    metrics)`` for a :class:`ShardedModel`: ``opt_state`` holds this
-    rank's shards of the moments (``optimizer.init(sm.local)``) and
-    ``batch`` the whole batch (every rank the same).  Updates the shards
-    in place; the metrics (``loss``, ``aux``, ``dropped``,
+    """Returns ``train_step(sm, opt_state, batch, placed=False) -> (sm,
+    opt_state, metrics)`` for a :class:`ShardedModel`: ``opt_state``
+    holds this rank's shards of the moments (``optimizer.init(sm.local)``)
+    and ``batch`` the whole batch (every rank the same), or with
+    ``placed`` this rank's shard of it (:func:`place_batch`'s).  Updates
+    the shards in place; the metrics (``loss``, ``aux``, ``dropped``,
     ``grad_norm``) are global."""
 
-    def train_step(sm: ShardedModel, opt_state: Dict, batch: Dict):
+    def train_step(sm: ShardedModel, opt_state: Dict, batch: Dict,
+                   placed: bool = False):
         axes = _batch_axes(sm.mesh)
-        local_batch = place_batch(batch, sm.mesh)
+        local_batch = batch if placed else place_batch(batch, sm.mesh)
         with sm.gathered(requires_grad=True) as full:
             total, metrics = _local_loss(sm.local, local_batch, cfg,
                                          sm.comm, axes)
@@ -310,3 +324,74 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer) -> Callable:
         return sm, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh: prefill and decode, ZeRO-3 as the train step
+# ---------------------------------------------------------------------------
+def cache_shards(cfg: ModelConfig, batch: int, max_len: int, mesh,
+                 dtype: torch.dtype = torch.bfloat16, device=None
+                 ) -> Tuple[list, list]:
+    """This rank's shard of ``transformer.init_cache(cfg, batch, max_len)``
+    placed by the sanitized ``transformer.cache_specs``: (the shards, their
+    placements), one dict each a layer."""
+    full = tf.init_cache(cfg, batch, max_len, dtype, device=device)
+    placements = sanitized_placements(tf.cache_specs(cfg), full, mesh)
+    shards = [{k: local_chunk(v, placements[i][k], mesh).clone()
+               for k, v in c.items()} for i, c in enumerate(full)]
+    return shards, placements
+
+
+def _cache_whole(comm, shards, placements, mesh, axes) -> list:
+    """The caches of this rank's batch shard, whole along the other axes."""
+    return [{k: comm.gather_full(v, _split(placements[i][k], mesh, axes)[0])
+             for k, v in c.items()} for i, c in enumerate(shards)]
+
+
+def _cache_cut(caches, placements, mesh, axes) -> list:
+    """This rank's shards (new storage) of caches whole along the axes
+    outside the batch axes."""
+    return [{k: local_chunk(v, _split(placements[i][k], mesh, axes)[0],
+                            mesh).clone()
+             for k, v in c.items()} for i, c in enumerate(caches)]
+
+
+def sharded_prefill(sm: ShardedModel, batch: Dict, cfg: ModelConfig,
+                    max_len: int, cache_placements=None):
+    """``lm.prefill`` of the placed model on ``batch``, this rank's shard
+    of the batch (:func:`place_batch`'s), every parameter gathered whole
+    as in the train step, without gradients.  Returns (last-token logits,
+    the rank's cache shards under ``cache_placements``
+    (:func:`cache_shards`'), the next position).  An encoder has no cache
+    (``cache_placements`` unused): its ``transformer.forward`` logits."""
+    with torch.no_grad(), sm.gathered():
+        if cfg.is_encoder:
+            return tf.forward(sm.local, batch, cfg)[0]
+        logits, caches, pos = lm.prefill(sm.local, batch, cfg,
+                                         max_len=max_len)
+    return logits, _cache_cut(caches, cache_placements, sm.mesh,
+                              _batch_axes(sm.mesh)), pos
+
+
+def make_sharded_decode_step(cfg: ModelConfig) -> Callable:
+    """Returns ``decode_step(sm, token, caches, cache_placements, pos) ->
+    (logits, caches)``: one token of this rank's batch shard (``token``
+    [b, 1], the rank's rows) with the rank's cache shards
+    (:func:`cache_shards`).  Every parameter is gathered whole and each
+    cache along the axes outside the batch axes, the step runs as
+    ``lm.make_decode_step``'s, and the rank keeps its shard of the new
+    caches (ZeRO-3: no rank holds a whole cache between steps)."""
+    step = lm.make_decode_step(cfg)
+
+    @torch.no_grad()
+    def decode_step(sm: ShardedModel, token: torch.Tensor, caches: list,
+                    cache_placements: list, pos):
+        axes = _batch_axes(sm.mesh)
+        whole = _cache_whole(sm.comm, caches, cache_placements, sm.mesh,
+                             axes)
+        with sm.gathered():
+            logits, new = step(sm.local, token, whole, pos)
+        del whole
+        return logits, _cache_cut(new, cache_placements, sm.mesh, axes)
+
+    return decode_step

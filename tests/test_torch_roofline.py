@@ -311,14 +311,15 @@ def test_auto_picks_steal3d_when_stealing_wins_on_skew():
     """``test_steal3d.py::test_auto_picks_steal3d_when_stealing_wins_on_skew``
     with six schedules on both sides: where the stealing simulation says
     stealing wins and the machine is compute-bound (the JAX package's
-    host-CPU preset, given to both as a Machine of the same fields), both
+    host-CPU preset, the port's equal to the JAX package's), both
     packages score steal3d lowest; on the H100 preset the scores and the
     choice are equal too."""
     a_t, b_t, a_j, b_j = _skewed(4)
     counts = a_t.counts.numpy().astype(np.float64)
     assert tschedule.steal_simulation(counts, steal="locality") < \
         tschedule.steal_simulation(counts, steal="none")
-    cpu = trl.Machine(**dataclasses.asdict(jrl.HOST_CPU))
+    cpu = trl.HOST_CPU
+    assert dataclasses.asdict(cpu) == dataclasses.asdict(jrl.HOST_CPU)
     for m in (cpu, trl.H100_SXM):
         got = tapi.auto_select(a_t, b_t, machine=m)
         assert got == japi.auto_select(a_j, b_j, machine=jax_machine(m))
