@@ -2,7 +2,7 @@
 steps.
 
 Run:  PYTHONPATH=src python examples/torch_train_lm.py [--device cpu]
-      [--arch mamba2-130m] [--steps 300] [--full]
+      [--arch mamba2-130m] [--steps 300] [--batch 8] [--seq 64] [--full]
 
 The port of ``examples/train_lm.py``.  Uses the port's training loop
 (``launch/train.py``: checkpoint/restart, straggler detection).  By
@@ -27,9 +27,9 @@ from repro_torch.launch.train import train  # noqa: E402
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="qwen2.5-3b")
-    p.add_argument("--steps", type=int, default=30)
-    p.add_argument("--batch", type=int, default=4)
-    p.add_argument("--seq", type=int, default=32)
+    p.add_argument("--steps", type=int, default=300)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=64)
     p.add_argument("--lr", type=float, default=3e-3,
                    help="peak LR (default tuned for the smoke-scale configs)")
     p.add_argument("--full", action="store_true",

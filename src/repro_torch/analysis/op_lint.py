@@ -2,7 +2,8 @@
 
 The port's counterpart of ``repro/analysis/jaxpr_lint.py``.  Eager
 PyTorch has no jaxpr to walk, so this pass runs one multiply of a plan's
-body under a ``TorchDispatchMode`` and records, in order:
+body under the dry run's ``TorchDispatchMode``
+(``launch/op_analysis.py``'s ``OpRecorder``) and records, in order:
 
 * every aten op (its name, and whether it reads the storage of a placed
   operand);
@@ -120,59 +121,38 @@ class OpRecord:
 
 
 class _Recorder:
-    """Collects :class:`OpEvent` s: a dispatch mode for the aten ops, a hook
-    for the ops calls, wrappers for an executor's shifts."""
+    """Collects :class:`OpEvent` s from one ``launch.op_analysis.OpRecorder``
+    stream: the aten ops it records (each annotated with whether it reads a
+    placed operand, its first operand's shape and whether it copies to the
+    host), and, marked in order, the ops calls (a hook) and an executor's
+    shifts (wrappers)."""
 
     def __init__(self, operands: Sequence = ()):
         import torch
-        self.events: List[OpEvent] = []
-        self.depth = 0
+
+        from repro_torch.launch.op_analysis import OpRecorder
         self.ptrs = {x.untyped_storage().data_ptr() for x in operands
                      if isinstance(x, torch.Tensor) and x.numel()}
+        self.ops = OpRecorder(annotate=self._annotate)
 
-    def on_op(self, name: str, tensors, out) -> None:
-        reads = any(x.untyped_storage().data_ptr() in self.ptrs
-                    for x in tensors if x.numel())
-        self.events.append(OpEvent(
-            "op", name, inside=self.depth > 0, reads_operand=reads,
-            shape=tuple(tensors[0].shape) if tensors else (),
-            to_host=_to_host(name, tensors, out)))
+    def _annotate(self, name: str, tensors, out) -> dict:
+        return {"reads": any(x.untyped_storage().data_ptr() in self.ptrs
+                             for x in tensors if x.numel()),
+                "shape": tuple(tensors[0].shape) if tensors else (),
+                "to_host": _to_host(name, tensors, out)}
 
     def on_call(self, name: str, phase: str) -> None:
-        # only a local multiply's ops are the kernel's own; the wire's
-        # densify is the body's data movement and stays in its record
-        nest = name in MULTIPLY_CALLS
-        if phase == "end" and nest:
-            self.depth -= 1
-        self.events.append(OpEvent("call", name, phase,
-                                   inside=self.depth > 0))
-        if phase == "begin" and nest:
-            self.depth += 1
+        self.ops.mark({"call": name, "phase": phase})
 
     def on_shift(self, name: str, axis: str) -> None:
-        self.events.append(OpEvent("shift", name, axis,
-                                   inside=self.depth > 0))
+        self.ops.mark({"shift": name, "axis": axis})
 
     @contextlib.contextmanager
     def watching(self, executor=None):
         """Record inside the block: aten ops, ops calls and (given an
         executor) its shifts."""
-        import torch
-        from torch.utils._python_dispatch import TorchDispatchMode
-        from torch.utils._pytree import tree_flatten
-
         from repro_torch.kernels import ops as kops
         rec = self
-
-        class Spy(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                kwargs = kwargs or {}
-                tensors = [x for x in tree_flatten((args, kwargs))[0]
-                           if isinstance(x, torch.Tensor)]
-                out = func(*args, **kwargs)
-                rec.on_op(func.overloadpacket.__name__, tensors, out)
-                return out
-
         kops.add_call_hook(self.on_call)
         if executor is not None:
             shift, shift_map = executor.shift, executor.shift_map
@@ -187,7 +167,7 @@ class _Recorder:
 
             executor.shift, executor.shift_map = shift_w, shift_map_w
         try:
-            with Spy():
+            with self.ops:
                 yield self
         finally:
             kops.remove_call_hook(self.on_call)
@@ -195,7 +175,28 @@ class _Recorder:
                 del executor.shift, executor.shift_map
 
     def record(self) -> OpRecord:
-        return OpRecord(list(self.events))
+        """The stream as :class:`OpEvent` s.  Only a local multiply's ops
+        are the kernel's own (``inside``); the wire's densify is the body's
+        data movement and stays in its record."""
+        events, depth = [], 0
+        for ev in self.ops.events:
+            if "op" in ev:
+                events.append(OpEvent(
+                    "op", ev["op"], inside=depth > 0,
+                    reads_operand=ev["reads"], shape=ev["shape"],
+                    to_host=ev["to_host"]))
+            elif "call" in ev:
+                nest = ev["call"] in MULTIPLY_CALLS
+                if ev["phase"] == "end" and nest:
+                    depth -= 1
+                events.append(OpEvent("call", ev["call"], ev["phase"],
+                                      inside=depth > 0))
+                if ev["phase"] == "begin" and nest:
+                    depth += 1
+            elif "shift" in ev:
+                events.append(OpEvent("shift", ev["shift"], ev["axis"],
+                                      inside=depth > 0))
+        return OpRecord(events)
 
 
 def _to_host(name: str, tensors, out) -> bool:

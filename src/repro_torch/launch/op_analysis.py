@@ -3,10 +3,9 @@
 The port's counterpart of ``repro/launch/hlo_analysis.py``.  The JAX module
 parses a compiled module's optimized HLO; eager PyTorch has no such module,
 so this one records the aten ops a function runs, in order, under a
-``TorchDispatchMode`` (:class:`OpRecorder`; ``analysis/op_lint.py``'s
-recorder does the same for the lint's questions: which ops read a placed
-operand, which run inside a kernel call), together with the transfers of
-the port's collective layer
+``TorchDispatchMode`` (:class:`OpRecorder`, which ``analysis/op_lint.py``
+runs too, adding its own fields and events), together with the transfers
+of the port's collective layer
 (``launch/mesh.py``'s :class:`~repro_torch.launch.mesh.MeshComm`, through
 :class:`RecordingComm`).  It works alike on real tensors and under
 ``FakeTensorMode``, where nothing is allocated (``launch/dryrun.py``).
@@ -125,7 +124,12 @@ class OpRecorder(TorchDispatchMode):
       with ``"dims"`` (output elements, contraction size) on a product;
     * ``{"coll", "id", "bytes", "sent", "out", "blocking", "scope"}`` where a
       transfer starts (its kind, operand bytes, bytes sent, bytes
-      received) and ``{"wait": id}`` where the host waits for it.
+      received) and ``{"wait": id}`` where the host waits for it;
+    * whatever a caller adds in order with :meth:`mark`.
+
+    ``annotate(name, operands, output)``, if given, returns fields added to
+    each aten op's event (the lint's: which operand storages it reads,
+    whether it copies to the host).
 
     It also follows the storages the recorded ops create: each output's
     untyped storage is held by a weak reference, so :attr:`live_bytes` is
@@ -133,8 +137,9 @@ class OpRecorder(TorchDispatchMode):
     (:meth:`hold`), and :attr:`peak_bytes` its largest value.  Under
     ``FakeTensorMode`` these are the bytes the run would allocate."""
 
-    def __init__(self):
+    def __init__(self, annotate: Optional[Callable] = None):
         super().__init__()
+        self.annotate = annotate
         self.events: List[Dict] = []
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -192,6 +197,8 @@ class OpRecorder(TorchDispatchMode):
               "scope": self._scope()}
         if name in PRODUCT_OPS:
             ev["dims"] = list(_product_dims(name, args, out))
+        if self.annotate is not None:
+            ev.update(self.annotate(name, ins, out))
         self.events.append(ev)
         for x in outs:
             self._track(x)
@@ -209,6 +216,11 @@ class OpRecorder(TorchDispatchMode):
 
     def waited(self, i: int) -> None:
         self.events.append({"wait": i})
+
+    def mark(self, event: Dict) -> None:
+        """Adds a caller's event in order (neither an op nor a transfer:
+        :func:`stats_of` skips it)."""
+        self.events.append(event)
 
     def stats(self) -> "OpStats":
         return stats_of(self.events)

@@ -357,7 +357,8 @@ def _cache_cut(caches, placements, mesh, axes) -> list:
 
 
 def sharded_prefill(sm: ShardedModel, batch: Dict, cfg: ModelConfig,
-                    max_len: int, cache_placements=None):
+                    max_len: int, cache_placements=None,
+                    cache_dtype: torch.dtype = torch.bfloat16):
     """``lm.prefill`` of the placed model on ``batch``, this rank's shard
     of the batch (:func:`place_batch`'s), every parameter gathered whole
     as in the train step, without gradients.  Returns (last-token logits,
@@ -368,7 +369,8 @@ def sharded_prefill(sm: ShardedModel, batch: Dict, cfg: ModelConfig,
         if cfg.is_encoder:
             return tf.forward(sm.local, batch, cfg)[0]
         logits, caches, pos = lm.prefill(sm.local, batch, cfg,
-                                         max_len=max_len)
+                                         max_len=max_len,
+                                         cache_dtype=cache_dtype)
     return logits, _cache_cut(caches, cache_placements, sm.mesh,
                               _batch_axes(sm.mesh)), pos
 

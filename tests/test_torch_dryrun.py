@@ -31,6 +31,7 @@ from repro_torch.configs import SHAPES, Shape, get_config, list_archs  # noqa: E
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import use_comm  # noqa: E402
 from repro_torch.launch.op_analysis import OpRecorder, RecordingComm  # noqa: E402
+from torch_dryrun_ranks import SERVE, SERVE_ARCHS  # noqa: E402
 
 ARCHS = list_archs()
 
@@ -106,16 +107,59 @@ def test_rank_param_and_moment_bytes_equal_jax(arch, mesh_kind):
 # ---------------------------------------------------------------------------
 # smoke cells on a 2x2 debug mesh against a real 4-rank gloo run
 # ---------------------------------------------------------------------------
+MESH_2x2 = (2, 2)
 CELLS = (("mamba2-130m", "train", 32, 8), ("qwen2.5-3b", "decode", 32, 4),
          ("olmoe-1b-7b", "prefill", 16, 4))
 
 
 @pytest.fixture(scope="module")
-def gloo():
+def serve_ref(tmp_path_factory):
+    """For each serving arch: the JAX package's smoke weights and tokens,
+    written for the ranks, and JAX's ``lm.prefill`` then
+    ``make_decode_step`` on them (float32 caches; each decode step fed the
+    next token of its row): the logits and the per-layer caches after the
+    prefill and after each step."""
+    import jax.numpy as jnp
+
+    from repro.models import lm as jlm
+    from repro_torch.models.convert import unstack_layers
+    tmp = tmp_path_factory.mktemp("dryrun_serve")
+    n, p, max_len = SERVE["prompt"], SERVE["steps"], SERVE["max_len"]
+    out = {}
+    for i, arch in enumerate(SERVE_ARCHS):
+        cfg = jget(arch, smoke=True)
+        params = jtf.init_params(cfg, jax.random.PRNGKey(i))
+        toks = np.random.default_rng(i).integers(
+            0, cfg.vocab_size, (SERVE["batch"], n + p)).astype(np.int32)
+        torch.save({"params": jax.tree.map(np.asarray, params),
+                    "tokens": toks}, tmp / f"{arch}.pt")
+        logits, caches, pos = jlm.prefill(
+            params, {"tokens": jnp.asarray(toks[:, :n])}, cfg, max_len,
+            jnp.float32)
+        seen = [(logits, caches)]
+        step = jlm.make_decode_step(cfg)
+        for t in range(n, n + p):
+            logits, caches = step(params, jnp.asarray(toks[:, t:t + 1]),
+                                  caches, pos)
+            pos = pos + 1
+            seen.append((logits, caches))
+        out[arch] = [(np.asarray(lg), unstack_layers(
+            get_config(arch, smoke=True), jax.tree.map(np.asarray, c)))
+            for lg, c in seen]
+    return str(tmp), out
+
+
+@pytest.fixture(scope="module")
+def four(serve_ref):
     from repro_torch.launch.grid import run_ranks
     import torch_dryrun_ranks
-    return run_ranks(4, torch_dryrun_ranks.cell_rank, CELLS, device="cpu",
-                     timeout_s=240)[0]
+    return run_ranks(4, torch_dryrun_ranks.ranks, CELLS, serve_ref[0],
+                     device="cpu", timeout_s=240)
+
+
+@pytest.fixture(scope="module")
+def gloo(four):
+    return four[0]["cells"]
 
 
 @pytest.mark.parametrize("cell", range(len(CELLS)))
@@ -179,3 +223,103 @@ def test_a_failing_cell_is_reported(monkeypatch):
     assert rec["status"] == "error"
     assert "forward values only" in rec["error"] and rec["traceback"]
     assert not torch.distributed.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# the sharded serving programs the prefill and decode cells describe
+# ---------------------------------------------------------------------------
+SERVE_TOL = 1e-5
+
+
+def _jax_layer_specs(arch, caches, dims, axes) -> list:
+    """JAX's ``cache_specs`` sanitized on a mesh of ``dims`` against the
+    grouped cache shapes, one dict a layer (the stacking dimension
+    dropped), in the order of ``convert.unstack_layers``."""
+    from repro.models.transformer import layer_plan
+    cfg = jget(arch, smoke=True)
+    mesh = AbstractMesh(dims, axes)
+    specs = jtf.cache_specs(cfg)
+    out = []
+    for gi, (unit, n_units) in enumerate(layer_plan(cfg)):
+        group = [{k: tuple(jsanitize(s, caches[gi][li][k].shape, mesh))[1:]
+                  for k, s in specs[gi][li].items()}
+                 for li in range(len(unit))]
+        out += [group[li] for _ in range(n_units) for li in range(len(unit))]
+    return out
+
+
+def _shard_of(x: np.ndarray, spec, coord: dict, sizes: dict) -> np.ndarray:
+    """The block of ``x`` a mesh position holds under a JAX spec: each
+    dimension cut into the product of its axes' sizes, the position's
+    index in them row-major."""
+    index = []
+    for d, entry in enumerate(spec):
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        pos, parts = 0, 1
+        for a in names:
+            pos, parts = pos * sizes[a] + coord[a], parts * sizes[a]
+        size = x.shape[d] // parts
+        index.append(slice(pos * size, (pos + 1) * size))
+    return x[tuple(index)]
+
+
+@pytest.fixture(scope="module")
+def grouped_caches(serve_ref):
+    """JAX's grouped cache tree of each arch (for the shapes its specs are
+    sanitized against)."""
+    import jax.numpy as jnp
+    return {arch: jax.eval_shape(lambda: jtf.init_cache(
+        jget(arch, smoke=True), SERVE["batch"], SERVE["max_len"],
+        jnp.float32)) for arch in SERVE_ARCHS}
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_prefill_and_decode_equal_jax(arch, four, serve_ref):
+    """The last-token logits of ``sharded_prefill`` and of each
+    ``make_sharded_decode_step``, gathered over the batch shards, are
+    JAX's ``lm.prefill`` and decode step's on the same weights and
+    tokens; each rank of a batch shard holds the same rows."""
+    want = serve_ref[1][arch]
+    sizes = dict(zip(("data", "model"), MESH_2x2))
+    for s, (logits, _) in enumerate(want):
+        rows = {}
+        for r in four:
+            d = r["serve"]["coord"][0]
+            got = r["serve"][arch]["logits"][s]
+            if d in rows:
+                np.testing.assert_array_equal(got, rows[d])
+            rows[d] = got
+        assert sorted(rows) == list(range(sizes["data"]))
+        np.testing.assert_allclose(
+            np.concatenate([rows[d] for d in sorted(rows)]), logits,
+            rtol=SERVE_TOL, atol=SERVE_TOL, err_msg=f"{arch} step {s}")
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_cache_shards_are_jax_caches_under_cache_specs(
+        arch, four, serve_ref, grouped_caches):
+    """Each rank's cache shards, after the prefill and after every decode
+    step, are its block of JAX's cache under JAX's ``cache_specs`` on the
+    same 2x2 mesh (the kv sequence, the Mamba heads and the RG-LRU width
+    cut over ``model``, the batch over ``data``)."""
+    axes = ("data", "model")
+    sizes = dict(zip(axes, MESH_2x2))
+    specs = _jax_layer_specs(arch, grouped_caches[arch], MESH_2x2, axes)
+    assert any(any(e is not None for e in sp[1:])
+               for layer in specs for sp in layer.values())
+    want = serve_ref[1][arch]
+    assert len(want) == 1 + SERVE["steps"]
+    for r in four:
+        coord = dict(zip(axes, r["serve"]["coord"]))
+        for s, (_, layers) in enumerate(want):
+            got = r["serve"][arch]["caches"][s]
+            assert len(got) == len(layers) == len(specs)
+            for i, (g, w, sp) in enumerate(zip(got, layers, specs)):
+                assert set(g) == set(w), (arch, i)
+                for k in w:
+                    block = _shard_of(np.asarray(w[k]), sp[k], coord, sizes)
+                    assert g[k].shape == block.shape, (arch, s, i, k)
+                    np.testing.assert_allclose(
+                        g[k], block, rtol=SERVE_TOL, atol=SERVE_TOL,
+                        err_msg=f"{arch} step {s} layer {i} {k} {coord}")
