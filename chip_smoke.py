@@ -191,13 +191,27 @@ non-zero and prints no result line):
    (b) Qwen2.5-3B at its published width with its depth cut to 4 of 36
    layers (full depth is ~49 GB of float32 parameters, gradients and
    moments summed over the ranks, before activations and 4 CUDA
-   contexts): ``train(mesh=)`` on a (2, 2) mesh for 3 float32 steps of
-   4 x 512 tokens, the losses and gradient norms within 1e-4 (relative)
-   of the single process's and each parameter shard within 1e-4 of its
-   norm; each rank's parameter and moment bytes equal to its sanitized
-   shards'; ``compressed_psum`` over the data axis on one step's
-   gradients within one int8 step of the float32 all-reduce, its residual
-   exactly ``g - deq``.  (c) steal3d at the SpMM cell on a 3x3 grid of 9
+   contexts), the FSDP x tensor-parallel program (``"fsdp_tp"``: each
+   rank computes its q heads, MLP units and vocabulary of every product):
+   ``train(mesh=)`` on a (2, 2) mesh for 3 float32 steps of 4 x 512
+   tokens, the losses and gradient norms within 1e-4 (relative) of the
+   single process's and each parameter shard within 1e-4 of its norm;
+   each rank's parameter and moment bytes equal to its sanitized shards';
+   each rank's product flops in one more step, recorded on the card by
+   ``OpRecorder`` (``dryrun.record_cell``), equal to the dry run's for the
+   same (2, 2) cell exactly; each rank's peak memory over the 3 steps;
+   ``compressed_psum`` over the data axis on one step's gradients within
+   one int8 step of the float32 all-reduce, its residual exactly ``g -
+   deq``.  Then the same model on a (1, 4) mesh: ``sharded_prefill`` of 2
+   x 512 tokens into a cache of 520 slots, split by sequence over the
+   4 ranks (2 kv heads do not cover the model axis), and 3 steps of
+   ``make_sharded_decode_step``, the logits of each within 1e-4 of the
+   single process's ``lm.prefill`` and decode steps.  And the ZeRO-3
+   program, which the MoE, recurrent and frontend families run:
+   Mamba2-130m at its published width and depth, ``train(mesh=)`` on the
+   (2, 2) mesh for 3 float32 steps of 4 x 512 tokens, held as Qwen's
+   (losses, gradient norms, shards, bytes, ``compressed_psum`` on the
+   rank's model slice).  (c) steal3d at the SpMM cell on a 3x3 grid of 9
    ranks: the seeded loss of 5 and ``recover_from_loss`` on the ranks
    (blocks re-placed by exchange, a new 2x2 grid over the survivors), every
    survivor's C tile bit-equal to the stacked recovery's, B1 launched on
@@ -4152,6 +4166,18 @@ LM_RING = dict(arch="olmoe-1b-7b", mesh=(1, 4), batch=2, seq=512, seed=0)
 # on a (2, 2) mesh
 LM_TRAIN = dict(arch="qwen2.5-3b", layers=4, mesh=(2, 2), steps=3, batch=4,
                 seq=512, lr=3e-4, seed=0)
+# ... and served on a (1, 4) mesh: a prefill of 2 x 512 tokens into a
+# cache of 520 slots (split by sequence: 4 divides it), then 3 decode steps
+LM_SERVE = dict(mesh=(1, 4), batch=2, prompt=512, steps=3, max_len=520,
+                seed=1)
+# each rank's peak over the same 3 steps when this cell ran the ZeRO-3
+# program (every parameter gathered whole), on an H100 80GB HBM3, 700 W
+LM_TRAIN_ZERO3_PEAK_GB = 9.43
+# ... and the ZeRO-3 program, which the MoE, recurrent and frontend families
+# run: Mamba2-130m at its published width and depth, 3 float32 steps on the
+# same (2, 2) mesh
+LM_ZERO3 = dict(arch="mamba2-130m", layers=None, mesh=(2, 2), steps=3,
+                batch=4, seq=512, lr=3e-4, seed=0)
 # (c) steal3d at the SpMM cell on a 3x3 grid of 9 ranks, the seeded loss of
 # 5 and recovery onto the survivors' 2x2 (phase 13's loss)
 LM_RECOVERY = dict(g=3, devices=9, lost=5, seed=0)
@@ -4227,34 +4253,94 @@ def lm_ring_expected(tmp: Path) -> dict:
     return {"path": str(path), "cf": cf, "noise": noise}
 
 
-def lm_train_cfg():
+def lm_train_cfg(cell: dict = LM_TRAIN):
     from repro_torch.configs import get_config
-    cfg = get_config(LM_TRAIN["arch"])
-    return dataclasses.replace(cfg, n_layers=LM_TRAIN["layers"],
+    cfg = get_config(cell["arch"])
+    return dataclasses.replace(cfg, n_layers=cell["layers"] or cfg.n_layers,
                                compute_dtype="float32")
 
 
-def lm_train_expected(tmp: Path) -> dict:
-    """One process's 3 float32 steps of the cut Qwen2.5-3B (written for
-    the ranks: losses, gradient norms, the final parameters)."""
+def lm_train_cell():
+    from repro_torch.configs import Shape
+    return Shape(f"train_{LM_TRAIN['batch']}x{LM_TRAIN['seq']}", "train",
+                 LM_TRAIN["seq"], LM_TRAIN["batch"])
+
+
+def lm_serve_tokens():
+    return torch.from_numpy(np.random.default_rng(LM_SERVE["seed"]).integers(
+        0, lm_train_cfg().vocab_size,
+        (LM_SERVE["batch"], LM_SERVE["prompt"] + LM_SERVE["steps"]),
+        dtype=np.int64))
+
+
+def lm_serve_expected(cfg) -> dict:
+    """One process's ``lm.prefill`` and decode steps of the cut Qwen2.5-3B
+    (float32 caches): the logits of each."""
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    toks = lm_serve_tokens().to(DEVICE)
+    n = LM_SERVE["prompt"]
+    model = tf.init_params(cfg, seed=LM_TRAIN["seed"], device=DEVICE)
+    logits, caches, pos = lm.prefill(model, {"tokens": toks[:, :n]}, cfg,
+                                     LM_SERVE["max_len"], torch.float32)
+    out = [logits.cpu()]
+    step = lm.make_decode_step(cfg)
+    for t in range(n, n + LM_SERVE["steps"]):
+        logits, caches = step(model, toks[:, t:t + 1], caches, pos)
+        pos = pos + 1
+        out.append(logits.cpu())
+    del model, caches
+    free()
+    return out
+
+
+def lm_one_process(cell: dict, path: Path, **extra) -> dict:
+    """One process's float32 steps of ``cell`` (losses, gradient norms, the
+    final parameters), saved with ``extra`` to ``path`` for the ranks."""
     from repro_torch.launch.train import train
-    t0 = time.perf_counter()
-    cfg = lm_train_cfg()
-    st = train(cfg, steps=LM_TRAIN["steps"], batch=LM_TRAIN["batch"],
-               seq=LM_TRAIN["seq"], lr=LM_TRAIN["lr"], seed=LM_TRAIN["seed"],
+    cfg = lm_train_cfg(cell)
+    st = train(cfg, steps=cell["steps"], batch=cell["batch"],
+               seq=cell["seq"], lr=cell["lr"], seed=cell["seed"],
                device=DEVICE, log_every=0)
-    path = tmp / "lm_train.pt"
     torch.save({"losses": st["losses"], "grad_norms": st["grad_norms"],
                 "params": {n: p.detach().cpu() for n, p in
-                           st["params"].named_parameters()}}, path)
+                           st["params"].named_parameters()}, **extra}, path)
     n = sum(p.numel() for p in st["params"].parameters())
-    log(f"  16b: single process: {describe(cfg)}, {n} parameters, losses "
-        f"{[round(x, 5) for x in st['losses']]}, step walls "
-        f"{[round(x, 3) for x in st['step_s']]} s; "
-        f"{time.perf_counter() - t0:.1f} s")
+    out = {"path": str(path), "n_params": n, "losses": st["losses"],
+           "step_s": st["step_s"]}
     del st
     free()
-    return {"path": str(path), "n_params": n}
+    return out
+
+
+def lm_train_expected(tmp: Path) -> dict:
+    """One process's 3 float32 steps of the cut Qwen2.5-3B and of
+    Mamba2-130m (the ZeRO-3 cell), Qwen's prefill and decode steps, and the
+    dry run of one rank's step of Qwen on the (2, 2) mesh (written for the
+    ranks)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    cfg = lm_train_cfg()
+    pred = dryrun.run_cell(LM_TRAIN["arch"], lm_train_cell().name, "single",
+                           verbose=False, cfg=cfg, shape=lm_train_cell(),
+                           mesh_shape=LM_TRAIN["mesh"])
+    check(pred["status"] == "ok" and pred["program"] == "fsdp_tp",
+          f"16b: the dry run of the (2, 2) cell: {pred.get('status')} "
+          f"{pred.get('program')} {pred.get('error')}")
+    one = lm_one_process(LM_TRAIN, tmp / "lm_train.pt",
+                         serve=lm_serve_expected(cfg))
+    zero3 = lm_one_process(LM_ZERO3, tmp / "lm_zero3.pt")
+    for c, x in ((cfg, one), (lm_train_cfg(LM_ZERO3), zero3)):
+        log(f"  16b: single process: {describe(c)}, {x['n_params']} "
+            f"parameters, losses {[round(v, 5) for v in x['losses']]}, step "
+            f"walls {[round(v, 3) for v in x['step_s']]} s")
+    log(f"  16b: the dry run of a rank's Qwen step on (2, 2): product flops "
+        f"{pred['hlo_stats']['dot_flops']:.6e}, peak "
+        f"{pred['peak_bytes'] / 1e9:.3f} GB; {time.perf_counter() - t0:.1f} s")
+    return {"path": one["path"], "n_params": one["n_params"],
+            "zero3_path": zero3["path"],
+            "dot_flops": pred["hlo_stats"]["dot_flops"],
+            "peak_bytes": pred["peak_bytes"]}
 
 
 def lm_recovery_expected(tmp: Path) -> dict:
@@ -4349,28 +4435,33 @@ def lm_ring_rank(dev, spec: dict) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def lm_train_rank(dev, spec: dict) -> dict:
+def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
+                  path_key: str = "path") -> dict:
     """Phase 16b on one rank of the (2, 2) mesh: ``train(mesh=)`` for 3
-    float32 steps from the single process's init cut to this rank's
-    shards; losses, gradient norms and shards against the single
-    process's; the rank's parameter and moment bytes against its sanitized
-    shards'; ``compressed_psum`` over the data axis on one step's
-    gradients."""
+    float32 steps of ``cell`` from the single process's init cut to this
+    rank's shards; losses, gradient norms and shards against the single
+    process's (``spec["train"][path_key]``); the rank's parameter and
+    moment bytes against its sanitized shards'; ``compressed_psum`` over
+    the data axis on one step's gradients.  For the tensor-parallel cell
+    (``LM_TRAIN``) one more step recorded on the card."""
     import torch.distributed as dist
 
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import (local_chunk, make_mesh, set_mesh,
                                          shard_bytes)
     from repro_torch.launch.train import train
     from repro_torch.models import sharded
     from repro_torch.optim import ErrorFeedbackState, compressed_psum
     from repro_torch.optim.compression import compress_int8, decompress_int8
-    mesh = make_mesh(LM_TRAIN["mesh"], ("data", "model"), device_type="cuda")
-    ref = torch.load(spec["train"]["path"], mmap=True, weights_only=False)
-    cfg = lm_train_cfg()
+    mesh = make_mesh(cell["mesh"], ("data", "model"), device_type="cuda")
+    ref = torch.load(spec["train"][path_key], mmap=True, weights_only=False)
+    cfg = lm_train_cfg(cell)
     torch.cuda.reset_peak_memory_stats()
-    st = train(cfg, steps=LM_TRAIN["steps"], batch=LM_TRAIN["batch"],
-               seq=LM_TRAIN["seq"], lr=LM_TRAIN["lr"], seed=LM_TRAIN["seed"],
+    st = train(cfg, steps=cell["steps"], batch=cell["batch"],
+               seq=cell["seq"], lr=cell["lr"], seed=cell["seed"],
                device=dev, log_every=0, mesh=mesh)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     sm = st["params"]
     d2 = w2 = 0.0
     worst = (0.0, "")
@@ -4389,8 +4480,7 @@ def lm_train_rank(dev, spec: dict) -> dict:
     # compressed_psum on one step's gradients (this rank's shard of the
     # batch and its model slice, before the data-axis sum)
     from repro_torch.data.pipeline import SyntheticLM
-    raw = SyntheticLM(cfg, LM_TRAIN["batch"], LM_TRAIN["seq"],
-                      seed=LM_TRAIN["seed"])(0)
+    raw = SyntheticLM(cfg, cell["batch"], cell["seq"], seed=cell["seed"])(0)
     batch = sharded.place_batch({k: torch.as_tensor(v, device=dev)
                                  for k, v in raw.items()}, mesh)
     with sm.gathered(requires_grad=True) as full:
@@ -4398,8 +4488,10 @@ def lm_train_rank(dev, spec: dict) -> dict:
                                        ["data"])
         total.backward()
         # what the step sums over the data axis: the rank's model slice
-        grads = {n: sharded.model_slice(p.grad, sm.placements[n], mesh,
-                                        ["data"])
+        # (the gradient itself under the tensor-parallel program)
+        grads = {n: p.grad if sm.program == "fsdp_tp"
+                 else sharded.model_slice(p.grad, sm.placements[n], mesh,
+                                          ["data"])
                  for n, p in full.items() if p.grad is not None}
     del full, total
     t0 = time.perf_counter()
@@ -4416,28 +4508,96 @@ def lm_train_rank(dev, spec: dict) -> dict:
         worst_share = max(worst_share, err / float(step))
         resid_ok &= bool(torch.equal(ef.residual[n],
                                      g.float() - decompress_int8(q, s)))
+    out = {"program": sm.program, "losses": st["losses"],
+           "grad_norms": st["grad_norms"], "ref_losses": ref["losses"],
+           "ref_grad_norms": ref["grad_norms"], "step_s": st["step_s"],
+           "param_bytes": sm.local_bytes(), "want_bytes": want_bytes,
+           "moment_bytes": moments, "whole_bytes": whole,
+           "param_rel": (d2 / w2) ** 0.5, "worst_tensor_rel": worst[0],
+           "worst_tensor": worst[1], "psum_int8_step_share": worst_share,
+           "psum_resid_ok": resid_ok, "psum_s": psum_s,
+           "stage_s": sm.comm.stage_s, "wait_s": sm.comm.wait_s,
+           "sent_bytes": sm.comm.sent, "peak_gb": peak_gb}
+    del st, sm, grads, summed, ef
+    free()
+    if cell is LM_TRAIN:
+        # one more step of the same cell, recorded on the card as the dry
+        # run records its fakes
+        rec = dryrun.record_cell(cfg, lm_train_cell(), mesh, dev, fake=False,
+                                 transport=True, seed=cell["seed"])
+        out["dot_flops"] = rec["stats"].dot_flops
+        del rec
+        free()
     dist.barrier()
-    return {"losses": st["losses"], "grad_norms": st["grad_norms"],
-            "ref_losses": ref["losses"], "ref_grad_norms": ref["grad_norms"],
-            "step_s": st["step_s"], "param_bytes": sm.local_bytes(),
-            "want_bytes": want_bytes, "moment_bytes": moments,
-            "whole_bytes": whole, "param_rel": (d2 / w2) ** 0.5,
-            "worst_tensor_rel": worst[0], "worst_tensor": worst[1],
-            "psum_int8_step_share": worst_share, "psum_resid_ok": resid_ok,
-            "psum_s": psum_s, "stage_s": sm.comm.stage_s,
-            "wait_s": sm.comm.wait_s, "sent_bytes": sm.comm.sent,
+    return out
+
+
+def lm_serve_rank(dev, spec: dict) -> dict:
+    """Phase 16b's serving on one rank of the (1, 4) mesh: the cut
+    Qwen2.5-3B from the seeded init, ``sharded_prefill`` of 2 x 512 tokens
+    into the rank's cache shards (split by sequence) and 3 decode steps;
+    the logits' largest distance from the single process's, relative to
+    1 + |theirs|."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharded
+    mesh = make_mesh(LM_SERVE["mesh"], ("data", "model"), device_type="cuda")
+    want = torch.load(spec["train"]["path"], mmap=True,
+                      weights_only=False)["serve"]
+    cfg = lm_train_cfg()
+    sm = sharded.ShardedModel.init(cfg, mesh, seed=LM_TRAIN["seed"],
+                                   device=dev)
+    caches, placements = sharded.cache_shards(
+        cfg, LM_SERVE["batch"], LM_SERVE["max_len"], mesh, torch.float32,
+        device=dev)
+    split = [tuple(pl["k"]) for pl in placements]
+    del caches
+    toks = sharded.place_batch({"tokens": lm_serve_tokens().to(dev)},
+                               mesh)["tokens"]
+    n = LM_SERVE["prompt"]
+    torch.cuda.reset_peak_memory_stats()
+    sm.comm.reset_counters()
+    t0 = time.perf_counter()
+    logits, caches, pos = sharded.sharded_prefill(
+        sm, {"tokens": toks[:, :n]}, cfg, LM_SERVE["max_len"], placements,
+        cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    got = [logits]
+    step = sharded.make_sharded_decode_step(cfg)
+    for t in range(n, n + LM_SERVE["steps"]):
+        t0 = time.perf_counter()
+        logits, caches = step(sm, toks[:, t:t + 1], caches, placements, pos)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        pos = pos + 1
+        got.append(logits)
+    errs = [float(((g - w.to(dev)).abs() / (1 + w.to(dev).abs())).max())
+            for g, w in zip(got, want)]
+    return {"program": sm.program, "errs": errs, "walls_s": walls,
+            "cache_shard": list(caches[0]["k"].shape),
+            "cache_placements": str(split[0]),
+            "finite": all(bool(torch.isfinite(g).all()) for g in got),
+            "sent_bytes": sm.comm.sent, "stage_s": sm.comm.stage_s,
+            "wait_s": sm.comm.wait_s,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def lm_rank(dev, spec: dict) -> dict:
-    """Phases 16a and 16b on one of the 4 ranks (one world, two meshes)."""
+    """Phases 16a and 16b on one of the 4 ranks (one world, four
+    meshes)."""
     t0 = time.perf_counter()
     ring = lm_ring_rank(dev, spec)
     ring["rank_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     train = lm_train_rank(dev, spec)
     train["rank_s"] = time.perf_counter() - t1
-    return {"ring": ring, "train": train}
+    t1 = time.perf_counter()
+    zero3 = lm_train_rank(dev, spec, LM_ZERO3, "zero3_path")
+    zero3["rank_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    serve = lm_serve_rank(dev, spec)
+    serve["rank_s"] = time.perf_counter() - t2
+    return {"ring": ring, "train": train, "zero3": zero3, "serve": serve}
 
 
 def survivor_b1_case(plan, captured) -> dict:
@@ -4605,29 +4765,52 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
         f"{[x['sent_bytes'] for x in ring]}; init "
         f"{[round(x['init_s'], 1) for x in ring]} s; peak memory "
         f"{[round(x['peak_gb'], 2) for x in ring]} GB; {card}")
-    # (b) the sharded train step
+    # (b) the sharded train steps: the tensor-parallel program (Qwen) and
+    # ZeRO-3 (Mamba2)
     tr = [r["train"] for r in lm]
+    z3 = [r["zero3"] for r in lm]
+    for cell, ranks, program in ((LM_TRAIN, tr, "fsdp_tp"),
+                                 (LM_ZERO3, z3, "zero3")):
+        for r, x in enumerate(ranks):
+            what_cell = f"16b {cell['arch']} rank {r}"
+            for got, want, what in ((x["losses"], x["ref_losses"], "loss"),
+                                    (x["grad_norms"], x["ref_grad_norms"],
+                                     "gradient norm")):
+                rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+                check(len(got) == cell["steps"] and rel <= TOL_TRAIN_GATE,
+                      f"{what_cell}: {what}es {got} against one process's "
+                      f"{want}")
+            check(x["param_rel"] <= TOL_SHARDED_PARAMS, f"{what_cell}: its "
+                  f"parameter shards are {x['param_rel']:.3g} (norm) from "
+                  "one process's")
+            check(x["param_bytes"] == x["want_bytes"] < x["whole_bytes"]
+                  and x["moment_bytes"] == 2 * x["param_bytes"],
+                  f"{what_cell}: {x['param_bytes']} parameter and "
+                  f"{x['moment_bytes']} moment bytes, its sanitized shards "
+                  f"{x['want_bytes']}")
+            check(x["psum_int8_step_share"] <= 1.0 and x["psum_resid_ok"],
+                  f"{what_cell}: compressed_psum "
+                  f"{x['psum_int8_step_share']:.3g} int8 steps from the "
+                  f"float32 sum (residual exact {x['psum_resid_ok']})")
+            check(x["program"] == program, f"{what_cell}: the step ran "
+                  f"{x['program']}, not {program}")
     for r, x in enumerate(tr):
-        for got, want, what in ((x["losses"], x["ref_losses"], "loss"),
-                                (x["grad_norms"], x["ref_grad_norms"],
-                                 "gradient norm")):
-            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-            check(len(got) == LM_TRAIN["steps"] and rel <= TOL_TRAIN_GATE,
-                  f"16b rank {r}: {what}es {got} against one process's "
-                  f"{want}")
-        check(x["param_rel"] <= TOL_SHARDED_PARAMS, f"16b rank {r}: its "
-              f"parameter shards are {x['param_rel']:.3g} (norm) from one "
-              "process's")
-        check(x["param_bytes"] == x["want_bytes"] < x["whole_bytes"]
-              and x["moment_bytes"] == 2 * x["param_bytes"],
-              f"16b rank {r}: {x['param_bytes']} parameter and "
-              f"{x['moment_bytes']} moment bytes, its sanitized shards "
-              f"{x['want_bytes']}")
-        check(x["psum_int8_step_share"] <= 1.0 and x["psum_resid_ok"],
-              f"16b rank {r}: compressed_psum {x['psum_int8_step_share']:.3g}"
-              f" int8 steps from the float32 sum (residual exact "
-              f"{x['psum_resid_ok']})")
-    res["train"] = {"ranks": tr, "cut": f"{LM_TRAIN['layers']} of 36 layers"}
+        check(x["dot_flops"] == spec["train"]["dot_flops"], f"16b rank {r}: "
+              f"{x['dot_flops']} product flops on the card, the dry run's "
+              f"(2, 2) cell {spec['train']['dot_flops']}")
+    sv = [r["serve"] for r in lm]
+    for r, x in enumerate(sv):
+        check(x["program"] == "fsdp_tp" and x["finite"]
+              and max(x["errs"]) <= TOL_TRAIN_GATE,
+              f"16b rank {r}: the (1, 4) prefill and decode logits "
+              f"{x['errs']} (relative to 1 + |one process's|) over "
+              f"{TOL_TRAIN_GATE}; program {x['program']}")
+    res["train"] = {"ranks": tr, "cut": f"{LM_TRAIN['layers']} of 36 layers",
+                    "dry_run_dot_flops": spec["train"]["dot_flops"],
+                    "dry_run_peak_bytes": spec["train"]["peak_bytes"],
+                    "zero3_peak_gb": LM_TRAIN_ZERO3_PEAK_GB}
+    res["serve"] = {"ranks": sv, **LM_SERVE}
+    res["zero3"] = {"ranks": z3, **LM_ZERO3}
     log(f"  16b Qwen2.5-3B at full width, depth cut to {LM_TRAIN['layers']} of"
         f" 36 layers, float32 on (2, 2): losses {tr[0]['losses']} (one "
         f"process {tr[0]['ref_losses']}); parameter shards within "
@@ -4642,14 +4825,41 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
         f"{[round(x['wait_s'], 1) for x in tr]} s, bytes sent "
         f"{[x['sent_bytes'] for x in tr]}; compressed_psum within "
         f"{max(x['psum_int8_step_share'] for x in tr):.3g} of one int8 step "
-        f"in {[round(x['psum_s'], 2) for x in tr]} s; peak "
-        f"{[round(x['peak_gb'], 2) for x in tr]} GB; {card}")
+        f"in {[round(x['psum_s'], 2) for x in tr]} s; peak over the 3 "
+        f"steps {[round(x['peak_gb'], 2) for x in tr]} GB a rank (the ZeRO-3"
+        f" step's {LM_TRAIN_ZERO3_PEAK_GB} GB; the dry run's "
+        f"{spec['train']['peak_bytes'] / 1e9:.2f}); product flops a rank "
+        f"{[x['dot_flops'] for x in tr]} (dry run "
+        f"{spec['train']['dot_flops']:.6e}); {card}")
+    log(f"  16b {LM_ZERO3['arch']} at its published width and depth, float32 "
+        f"on (2, 2), the ZeRO-3 program (every parameter gathered whole): "
+        f"losses {z3[0]['losses']} (one process {z3[0]['ref_losses']}), "
+        f"gradient norms {z3[0]['grad_norms']} (one process "
+        f"{z3[0]['ref_grad_norms']}); parameter shards within "
+        f"{max(x['param_rel'] for x in z3):.3g} of one process's (worst "
+        f"tensor {max((x['worst_tensor_rel'], x['worst_tensor']) for x in z3)}"
+        f"); bytes per rank: parameters {[x['param_bytes'] for x in z3]} of "
+        f"{z3[0]['whole_bytes']}; compressed_psum within "
+        f"{max(x['psum_int8_step_share'] for x in z3):.3g} of one int8 step; "
+        f"step walls {[[round(s, 2) for s in x['step_s']] for x in z3]} s; "
+        f"bytes sent {[x['sent_bytes'] for x in z3]}; peak "
+        f"{[round(x['peak_gb'], 2) for x in z3]} GB a rank; {card}")
+    log(f"  16b the same model on (data 1, model 4): prefill of "
+        f"{LM_SERVE['batch']} x {LM_SERVE['prompt']} tokens and "
+        f"{LM_SERVE['steps']} decode steps, cache shard "
+        f"{sv[0]['cache_shard']} ({sv[0]['cache_placements']}); logits "
+        f"within {max(max(x['errs']) for x in sv):.3g} of one process's "
+        f"(relative to 1 + |theirs|, bound {TOL_TRAIN_GATE}); walls "
+        f"{[[round(w, 3) for w in x['walls_s']] for x in sv]} s; bytes "
+        f"sent {[x['sent_bytes'] for x in sv]}; peak "
+        f"{[round(x['peak_gb'], 2) for x in sv]} GB; {card}")
 
 
 def lm_phase(card: str) -> dict:
     """Phase 16: the LM stack on ranks sharing the one card over gloo
     (host-staged): (a) OLMoE-1B-7B with the expert ring on a (1, 4) mesh,
-    (b) Qwen2.5-3B's sharded train step on a (2, 2) mesh, both in one world
+    (b) Qwen2.5-3B's tensor-parallel train step and Mamba2-130m's ZeRO-3
+    step on a (2, 2) mesh and Qwen's serving on (1, 4), all in one world
     of 4 ranks, and (c) recovery from 9 ranks onto their survivors' 2x2.
     The single process's results come first (written for the ranks)."""
     import tempfile

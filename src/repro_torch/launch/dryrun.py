@@ -1,22 +1,31 @@
 """Multi-pod dry run of the port's program on an H100 mesh.
 
 Port of ``repro/launch/dryrun.py``.  For every (architecture x input shape
-x mesh) cell this runs one rank's body of the port's own program (the
-ZeRO-3 step of ``models/sharded.py``) under ``FakeTensorMode``, over a
-world of 256 or 512 ranks on the ``fake`` process-group backend, so that
-nothing is allocated and no byte is sent.  Rank 0's recorded ops and
-transfers (``launch/op_analysis.py``) give the record the JAX dry run
-writes: memory, flops, collective bytes, and the roofline terms against
-the H100's data-sheet constants (``core/roofline.py``), plus ``fits``,
-whether the rank's peak fits the card's 80 GB.  Every number is a
-prediction from those constants, not a measurement.
+x mesh) cell this runs one rank's body of the port's own program
+(``models/sharded.py``) under ``FakeTensorMode``, over a world of 256 or
+512 ranks on the ``fake`` process-group backend, so that nothing is
+allocated and no byte is sent.  Rank 0's recorded ops and transfers
+(``launch/op_analysis.py``) give the record the JAX dry run writes:
+memory, flops, collective bytes, and the roofline terms against the
+H100's data-sheet constants (``core/roofline.py``), plus ``fits``,
+whether the rank's peak fits the card's 80 GB, and ``program``, the
+program the cell ran (``sharded.program``).  Every number is a prediction
+from those constants, not a measurement.
+
+The dense attention LMs run ``"fsdp_tp"``, JAX's FSDP x tensor-parallel
+program: parameters gathered over the batch axes only, each product
+partitioned over ``model`` as GSPMD partitions the reference's
+(``models/tensor_parallel.py``), so a rank's product flops are JAX's.
+The MoE, recurrent and frontend families run ``"zero3"``: every
+parameter gathered whole, the batch shard computed by all of the
+``model`` axis's ranks alike.
 
 * **train**: a :class:`~repro_torch.models.sharded.ShardedModel` with
   AdamW's moments, one ``make_sharded_train_step`` on rank 0's batch
   shard (``remat`` as the config sets it);
-* **prefill**: ``sharded_prefill`` (``lm.prefill`` on the gathered model,
-  the rank keeping its cache shards), ``transformer.forward`` for an
-  encoder;
+* **prefill**: ``sharded_prefill`` (the rank's cache shards written in
+  place, or cut from a gathered ``lm.prefill``), ``transformer.forward``
+  for an encoder;
 * **decode**: ``make_sharded_decode_step`` on the rank's shard of
   ``init_cache`` under ``cache_specs``.
 
@@ -313,8 +322,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     shape = shape or SHAPES[shape_name]
     ok, reason = cell_supported(cfg, shape_name) if shape_name in SHAPES \
         else (True, None)
+    from ..models.sharded import program
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
-           "time": time.time()}
+           "time": time.time(), "program": program(cfg)}
     if not ok:
         rec.update(status="skipped", reason=reason)
         _dump(rec, out_path, verbose)
@@ -384,7 +394,8 @@ def _dump(rec: Dict, out_path: Optional[str], verbose: bool):
     if status == "ok":
         r = rec["roofline"]
         print(f"[ok] {rec['arch']:24s} {rec['shape']:12s} "
-              f"{rec['mesh']:6s} trace={rec['compile_seconds']}s "
+              f"{rec['mesh']:6s} {rec['program']:7s} "
+              f"trace={rec['compile_seconds']}s "
               f"compute={r['compute_s']:.3e}s mem={r['memory_s']:.3e}s "
               f"coll={r['collective_s']:.3e}s -> {r['bottleneck']}")
         print(f"     memory_analysis: {rec['memory_analysis']}")

@@ -24,9 +24,13 @@ package's ``set_mesh`` does.  The port runs the sharded LM stack as an
 explicit program on each rank (the counterpart of ``shard_map``), and
 :class:`MeshComm` holds the collectives such a body makes over one mesh
 axis: a ring shift (``batch_isend_irecv``, JAX's ``ppermute``), an
-all-gather and an all-reduce.  On the ``gloo`` transport a card tensor is
-staged through host memory (gloo moves host tensors), copies it counts
-and times; the computation stays on the card.
+all-gather, an all-reduce, a reduce-scatter and an all-to-all (each part
+sent straight to its owner), and, as ``torch.autograd.Function`` s for a
+differentiated program, copy-to (identity forward, gradient summed),
+reduce-from (summed forward, gradient passed), gather-along (gradient
+sliced or reduce-scattered) and exchange.  On the ``gloo``
+transport a card tensor is staged through host memory (gloo moves host
+tensors), copies it counts and times; the computation stays on the card.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ __all__ = ["P", "make_production_mesh", "make_mesh", "mesh_sizes",
            "filter_spec", "sanitize_spec", "batch_partition_spec",
            "placements_of", "placements_for", "sanitized_placements",
            "set_mesh", "current_mesh", "MeshComm", "mesh_comm", "use_comm",
-           "local_chunk", "shard_bytes"]
+           "local_chunk", "local_shape", "shard_bytes"]
 
 
 class P(tuple):
@@ -270,16 +274,22 @@ def local_chunk(full: torch.Tensor, placements, mesh,
     return out
 
 
-def shard_bytes(shape, dtype: torch.dtype, placements, mesh) -> int:
-    """Bytes of one rank's shard of a ``shape`` tensor under
-    ``placements`` (every rank's is the same size)."""
+def local_shape(shape, placements, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a ``shape`` tensor under
+    ``placements`` (every rank's is the same)."""
     sizes = list(mesh_sizes(mesh).values())
     shape = list(shape)
     for m, pl in enumerate(placements):
         if pl.is_shard():
             shape[pl.dim] //= sizes[m]
+    return tuple(shape)
+
+
+def shard_bytes(shape, dtype: torch.dtype, placements, mesh) -> int:
+    """Bytes of one rank's shard of a ``shape`` tensor under
+    ``placements`` (every rank's is the same size)."""
     n = 1
-    for s in shape:
+    for s in local_shape(shape, placements, mesh):
         n *= s
     return n * torch.empty((), dtype=dtype).element_size()
 
@@ -295,16 +305,20 @@ class MeshComm:
     (coordinate i receives from i + sign) as a ``batch_isend_irecv``;
     ``all_gather`` concatenates every coordinate's tensor along a
     dimension in coordinate order; ``all_reduce`` sums (or averages) over
-    one or more axes.  On ``gloo`` a card tensor is copied to the host
-    for the transfer and back after it (timed in ``stage_s``); ``sent``
-    counts the bytes this rank put on the wire, ``wait_s`` the host's
-    waits for transfers.
+    one or more axes; ``reduce_scatter`` and ``all_to_all`` send each
+    coordinate its part in one ``batch_isend_irecv``.  :meth:`copy_to`,
+    :meth:`reduce_from`, :meth:`gather_along` and :meth:`exchange` are
+    the same transfers with the adjoint backward.  On ``gloo`` a card
+    tensor is copied to the host for the transfer and back after it (timed
+    in ``stage_s``); ``sent`` counts the bytes this rank put on the wire,
+    ``wait_s`` the host's waits for transfers.
 
-    The transfers themselves go through three methods, :meth:`_send_recv`,
-    :meth:`_gather` and :meth:`_reduce`, each returning the works to wait
-    on: a subclass that overrides them sees every transfer this class
-    makes, with the shapes and byte counts its own code gave
-    (``launch/op_analysis.py``'s recording comm).
+    The transfers themselves go through three methods, :meth:`_send_recv`
+    (told which collective its sends make up), :meth:`_gather` and
+    :meth:`_reduce`, each returning the works to wait on: a subclass that
+    overrides them sees every transfer this class makes, with the shapes
+    and byte counts its own code gave (``launch/op_analysis.py``'s
+    recording comm).
     """
 
     def __init__(self, mesh, device):
@@ -368,8 +382,13 @@ class MeshComm:
         self.wait_s += time.perf_counter() - t0
 
     # the transport: each starts its transfer and returns the works
-    def _send_recv(self, ops: List) -> List:
-        """Start the sends and receives of ``ops`` (``P2POp`` s)."""
+    def _send_recv(self, ops: List, kind: str = "collective-permute",
+                   operand: Optional[int] = None) -> List:
+        """Start the sends and receives of ``ops`` (``P2POp`` s).  ``kind``
+        names the collective they make up (a reduce-scatter and an
+        all-to-all are point-to-point exchanges with every peer here),
+        ``operand`` its operand's bytes where that is more than the sends'
+        (a recording comm reads both)."""
         return dist.batch_isend_irecv(ops)
 
     def _gather(self, bufs: List[torch.Tensor], t: torch.Tensor,
@@ -447,6 +466,102 @@ class MeshComm:
         out = self._back(h)
         return out / count if op == "mean" else out
 
+    def _exchange(self, parts: Sequence[torch.Tensor], axis: str,
+                  kind: str) -> List[torch.Tensor]:
+        """Coordinate i sends ``parts[d]`` to coordinate d (d != i) and
+        receives, from every coordinate d, the part d holds for i: one
+        ``batch_isend_irecv``.  The list by coordinate (``parts[i]`` at
+        i, as it is)."""
+        n, i = self.sizes[axis], self.coord[axis]
+        tag = self._tag
+        self._tag = (self._tag + 1) % (1 << 24)
+        group = self._groups[axis]
+        ops, got, keep = [], {}, []
+        hs = [self._host(p) for p in parts]
+        operand = sum(h.numel() * h.element_size() for h in hs)
+        for d in range(n):
+            if d == i:
+                continue
+            raw = _raw(hs[d])
+            buf = torch.empty_like(_raw(hs[i]))
+            keep.append(raw)
+            got[d] = buf
+            self.sent += raw.numel()
+            peer = self._peer(axis, d)
+            ops.append(dist.P2POp(dist.isend, raw, peer, group, tag))
+            ops.append(dist.P2POp(dist.irecv, buf, peer, group, tag))
+        self._wait(self._send_recv(ops, kind, operand))
+        keep.clear()
+        return [hs[i] if d == i else _typed(got[d], hs[i])
+                for d in range(n)]
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int
+                       ) -> torch.Tensor:
+        """``t`` summed over the coordinates of ``axis``, this
+        coordinate's part of the sum: ``dim`` cut into equal parts in
+        coordinate order, each part sent straight to its owner, which
+        adds what it receives in coordinate order."""
+        n = self.sizes[axis]
+        if n == 1:
+            return t
+        parts = [p.contiguous() for p in t.chunk(n, dim)]
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                             f"split {n} ways")
+        got = self._exchange(parts, axis, "reduce-scatter")
+        out = got[0].clone()
+        for p in got[1:]:
+            out += p
+        return self._back(out)
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   cat_dim: int) -> torch.Tensor:
+        """``split_dim`` of ``t`` cut into equal parts, part d sent to
+        coordinate d; what every coordinate sent here concatenated along
+        ``cat_dim`` in coordinate order (a shard along ``cat_dim`` becomes
+        one along ``split_dim``)."""
+        n = self.sizes[axis]
+        if n == 1:
+            return t
+        if t.shape[split_dim] % n:
+            raise ValueError(f"dimension {split_dim} of {tuple(t.shape)} "
+                             f"does not split {n} ways")
+        parts = [p.contiguous() for p in t.chunk(n, split_dim)]
+        got = self._exchange(parts, axis, "all-to-all")
+        return self._back(torch.cat(got, dim=cat_dim))
+
+    # the same collectives as steps of a differentiated program: each a
+    # torch.autograd.Function whose backward is its adjoint
+    def copy_to(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Identity forward; the gradient summed over ``axis`` (the input
+        of a layer whose ranks each compute a part from it)."""
+        return _CopyTo.apply(x, self, axis) if self.sizes[axis] > 1 else x
+
+    def reduce_from(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Partial sums over ``axis`` summed forward; the gradient passed
+        through as it is (every rank's part needs all of it)."""
+        return _ReduceFrom.apply(x, self, axis) \
+            if self.sizes[axis] > 1 else x
+
+    def gather_along(self, x: torch.Tensor, axis: str, dim: int,
+                     grad: str = "slice") -> torch.Tensor:
+        """All-gather along ``dim`` forward.  Backward, this coordinate's
+        part of the gradient: sliced where every rank's gradient of the
+        whole is the same (``grad="slice"``, a replicated consumer), or
+        summed over ``axis`` first (``"sum"``, a reduce-scatter: each rank
+        used a part of the whole)."""
+        if self.sizes[axis] == 1:
+            return x
+        if grad not in ("slice", "sum"):
+            raise ValueError(f"grad={grad!r}: 'slice' or 'sum'")
+        return _GatherAlong.apply(x, self, axis, dim, grad)
+
+    def exchange(self, x: torch.Tensor, axis: str, split_dim: int,
+                 cat_dim: int) -> torch.Tensor:
+        """:meth:`all_to_all` forward, the reverse exchange backward."""
+        return _AllToAll.apply(x, self, axis, split_dim, cat_dim) \
+            if self.sizes[axis] > 1 else x
+
     def gather_full(self, local: torch.Tensor, placements) -> torch.Tensor:
         """The whole tensor from every rank's shard (``local``) under
         ``placements``: all-gathers over the sharding mesh dimensions, the
@@ -458,6 +573,56 @@ class MeshComm:
             if pl.is_shard():
                 out = self.all_gather(out, self.names[m], pl.dim)
         return out
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g, [ctx.axis]), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        return comm.all_reduce(x, [axis])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim, grad):
+        ctx.comm, ctx.axis, ctx.dim, ctx.grad = comm, axis, dim, grad
+        return comm.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, axis, dim = ctx.comm, ctx.axis, ctx.dim
+        if ctx.grad == "sum":
+            g = comm.reduce_scatter(g, axis, dim)
+        else:
+            g = g.chunk(comm.size(axis), dim)[comm.index(axis)]
+        return g, None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, split_dim, cat_dim):
+        ctx.comm, ctx.axis, ctx.dims = comm, axis, (split_dim, cat_dim)
+        return comm.all_to_all(x, axis, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return (ctx.comm.all_to_all(g, ctx.axis, cat_dim, split_dim), None,
+                None, None, None)
 
 
 def _raw(t: torch.Tensor) -> torch.Tensor:

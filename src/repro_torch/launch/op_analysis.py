@@ -268,10 +268,12 @@ class RecordingComm(MeshComm):
         i = self.recorder.collective(kind, operand, sent, received, blocking)
         return [_Pending(self.recorder, i, works)]
 
-    def _send_recv(self, ops):
+    def _send_recv(self, ops, kind="collective-permute", operand=None):
         out = sum(_nbytes(o.tensor) for o in ops if o.op is dist.isend)
-        return self._start("collective-permute", out, out, out,
-                           lambda: MeshComm._send_recv(self, ops),
+        return self._start(kind, out if operand is None else operand, out,
+                           out,
+                           lambda: MeshComm._send_recv(self, ops, kind,
+                                                       operand),
                            self._blocking)
 
     def _gather(self, bufs, t, group):

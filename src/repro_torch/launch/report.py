@@ -1,9 +1,10 @@
 """Render the dry run's tables from its JSON cache.
 
 Port of ``repro/launch/report.py``.  The records are the port's dry run's
-(``launch/dryrun.py``): predictions of the port's ZeRO-3 program for a pod
-of H100 ranks from the card's data-sheet constants (``core/roofline.py``),
-not measurements.
+(``launch/dryrun.py``): predictions of the port's programs for a pod of
+H100 ranks (``"fsdp_tp"`` for the dense attention LMs, ``"zero3"`` for the
+rest: each record says which) from the card's data-sheet constants
+(``core/roofline.py``), not measurements.
 
   PYTHONPATH=src python -m repro_torch.launch.report --dir results/torch_dryrun
 """
@@ -108,7 +109,8 @@ def fits_table(recs: List[Dict]) -> str:
     """Each cell's predicted peak a rank (arguments + temp, GB) on the
     single / multi-pod mesh, ``*`` where it exceeds the card's 80 GB,
     ``skip`` where the cell does not apply, ``-`` where there is no
-    record: an arch a row, a shape a column."""
+    record: an arch a row (with the program its records ran), a shape a
+    column."""
     shapes = list(dict.fromkeys(r["shape"] for r in recs))
     cells = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
 
@@ -120,10 +122,12 @@ def fits_table(recs: List[Dict]) -> str:
             return "skip"
         return f"{r['peak_bytes'] / 1e9:.1f}" + ("" if r["fits"] else "*")
 
-    lines = ["| arch | " + " | ".join(shapes) + " |",
-             "|---|" + "---|" * len(shapes)]
+    lines = ["| arch | program | " + " | ".join(shapes) + " |",
+             "|---|---|" + "---|" * len(shapes)]
     for arch in dict.fromkeys(r["arch"] for r in recs):
-        lines.append(f"| {arch} | " + " | ".join(
+        program = " / ".join(dict.fromkeys(
+            r.get("program", "-") for r in recs if r["arch"] == arch))
+        lines.append(f"| {arch} | {program} | " + " | ".join(
             f"{cell(arch, sh, 'single')} / {cell(arch, sh, 'multi')}"
             for sh in shapes) + " |")
     return "\n".join(lines)

@@ -7,6 +7,15 @@ tensors ``{"k": [B, S, K, hd], "v": [B, S, K, hd], "pos": int32 [B, S]}``
 Local (sliding-window) layers keep a cache of only ``window`` slots.  The
 cache writes happen in place and the updated dict is returned, as the
 reference returns its new cache.
+
+Head counts come from the weights, so a rank of the tensor-parallel
+program (``models/tensor_parallel.py``) runs the same bodies on its own
+heads: its weights come through ``tensor_parallel.attn_weights`` and its
+activations pass the reference's constrain sites there.  Its cache is
+its shard (``attn_cache_specs``): by head, or by sequence, where a decode
+step attends over the rank's slots and merges the partial softmaxes
+(:func:`attn_decode`).  Outside the program the weights view holds every
+head and the cache is whole, so both run the same bodies.
 """
 from __future__ import annotations
 
@@ -14,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import tensor_parallel
 from .common import (BATCH_AXES, MODEL_AXIS, P, Params, apply_rope,
                      dense_init, rope, softcap)
 from .config import ModelConfig
@@ -55,38 +65,47 @@ def attn_specs(cfg: ModelConfig) -> Dict:
 
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    hd = cfg.resolved_head_dim
-    q = x @ p.wq.to(x.dtype)
-    k = x @ p.wk.to(x.dtype)
-    v = x @ p.wv.to(x.dtype)
-    if cfg.qkv_bias:
-        q = q + p.bq.to(x.dtype)
-        k = k + p.bk.to(x.dtype)
-        v = v + p.bv.to(x.dtype)
-    b, t = x.shape[:2]
-    return (q.reshape(b, t, cfg.n_heads, hd),
-            k.reshape(b, t, cfg.n_kv_heads, hd),
-            v.reshape(b, t, cfg.n_kv_heads, hd))
+    """q, k, v ``[B, T, heads, hd]`` of every head of ``p``."""
+    w = tensor_parallel.WholeAttnWeights(cfg, p)
+    return (w.q(x), *w.kv(x))
+
+
+def _scores(q, k, mask, cfg: ModelConfig) -> torch.Tensor:
+    """The logits ``[B, K, G, T, S]`` of q ``[B, T, K G, hd]`` (grouped
+    over k's K heads) against k ``[B, S, K, hd]``: float32 whatever the
+    operands' type (the reference's ``preferred_element_type``), scaled,
+    softcapped, and ``NEG_INF`` where ``mask`` ``[B?, T, S]`` is False."""
+    b, t, h, hd = q.shape
+    kh = k.shape[2]
+    q = q.reshape(b, t, kh, h // kh, hd)
+    logits = torch.einsum("btkgd,bskd->bkgts", q.float(), k.float())
+    logits = softcap(logits * (hd ** -0.5), cfg.attn_softcap)
+    return torch.where(mask[:, None, None, :, :], logits,
+                       torch.tensor(NEG_INF, dtype=logits.dtype,
+                                    device=logits.device))
 
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     """q: [B,T,H,hd]; k,v: [B,S,K,hd]; mask: [B?,T,S] bool (True=attend).
 
-    The scores are float32 whatever the operands' type (the reference's
-    ``preferred_element_type``); the probabilities take v's type."""
+    The scores are float32 (:func:`_scores`); the probabilities take v's
+    type."""
     b, t, h, hd = q.shape
-    kh = k.shape[2]
-    g = h // kh
-    q = q.reshape(b, t, kh, g, hd)
-    logits = torch.einsum("btkgd,bskd->bkgts", q.float(), k.float())
-    logits = logits * (hd ** -0.5)
-    logits = softcap(logits, cfg.attn_softcap)
-    logits = torch.where(mask[:, None, None, :, :], logits,
-                         torch.tensor(NEG_INF, dtype=logits.dtype,
-                                      device=logits.device))
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    probs = torch.softmax(_scores(q, k, mask, cfg), dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v)
     return out.reshape(b, t, h, hd)
+
+
+def _sdpa_partial(q, k, v, mask, cfg: ModelConfig):
+    """:func:`_sdpa`'s softmax over some of the slots, unnormalised: (the
+    max ``[b, kh, g, t, 1]``, the sum of the exponentials, the output
+    ``[b, kh, g, t, hd]`` before the division), float32.  Parts over
+    disjoint slots merge by their log-sum-exp."""
+    logits = _scores(q, k, mask, cfg)
+    top = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - top)
+    return top, e.sum(-1, keepdim=True), torch.einsum(
+        "bkgts,bskd->bkgtd", e, v.float())
 
 
 def _pair_mask(cfg: ModelConfig, kind: str, pos_q: torch.Tensor,
@@ -112,13 +131,13 @@ KV_CHUNK = 1024
 
 def _sdpa_blocked(q, k, v, cfg: ModelConfig, kind: str, pos_q, pos_k,
                   kv_chunk: int = KV_CHUNK) -> torch.Tensor:
-    """Online-softmax attention, looped over KV chunks.
+    """Online-softmax attention, looped over KV chunks: each chunk's
+    :func:`_sdpa_partial`, merged into a running max and sum.
 
     q: [B,T,H,hd]; k,v: [B,S,K,hd].  Score working set is
     [B,heads,T,chunk]."""
     b, t, h, hd = q.shape
     s, kh = k.shape[1], k.shape[2]
-    g = h // kh
     pad = (-s) % kv_chunk
     if pad:  # ragged tail: pad with masked-out slots, never shrink the chunk
         k = torch.cat([k, k.new_zeros((b, pad, kh, hd))], 1)
@@ -126,28 +145,21 @@ def _sdpa_blocked(q, k, v, cfg: ModelConfig, kind: str, pos_q, pos_k,
         pos_k = torch.cat([pos_k, torch.full(
             (pad,), INT32_MAX, dtype=pos_k.dtype, device=pos_k.device)])
         s += pad
-    qr = q.reshape(b, t, kh, g, hd).float() * (hd ** -0.5)
-    m = torch.full((b, kh, g, t), NEG_INF, dtype=torch.float32,
+    m = torch.full((b, kh, h // kh, t, 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
-    l = torch.zeros((b, kh, g, t), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, kh, g, t, hd), dtype=torch.float32,
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kh, h // kh, t, hd), dtype=torch.float32,
                       device=q.device)
     for c0 in range(0, s, kv_chunk):
-        k_c = k[:, c0:c0 + kv_chunk].float()
-        v_c = v[:, c0:c0 + kv_chunk].float()
-        sc = torch.einsum("btkgd,bskd->bkgts", qr, k_c)
-        sc = softcap(sc, cfg.attn_softcap)
-        mask = _pair_mask(cfg, kind, pos_q, pos_k[c0:c0 + kv_chunk])
-        sc = torch.where(mask[None, None, None], sc,
-                         torch.tensor(NEG_INF, device=sc.device))
-        m_new = torch.maximum(m, sc.amax(-1))
-        p = torch.exp(sc - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bkgts,bskd->bkgtd", p,
-                                                    v_c)
+        mask = _pair_mask(cfg, kind, pos_q, pos_k[c0:c0 + kv_chunk])[None]
+        top, l_c, o_c = _sdpa_partial(q, k[:, c0:c0 + kv_chunk],
+                                      v[:, c0:c0 + kv_chunk], mask, cfg)
+        m_new = torch.maximum(m, top)
+        alpha, beta = torch.exp(m - m_new), torch.exp(top - m_new)
+        l = l * alpha + l_c * beta
+        acc = acc * alpha + o_c * beta
         m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
+    out = acc / l.clamp_min(1e-30)
     # [b,kh,g,t,hd] -> [b,t,h,hd]
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
 
@@ -160,8 +172,10 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     updated cache is returned alongside the output.
     """
     b, t, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    sin, cos = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    w = tensor_parallel.attn_weights(p, cfg)
+    x = tensor_parallel.site("attn.in", x)
+    q, (k, v) = w.q(x), w.kv(x)
+    sin, cos = rope(positions, w.hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     if t > BLOCKED_ATTN_THRESHOLD:
@@ -169,10 +183,12 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     else:
         mask = _pair_mask(cfg, kind, positions, positions)[None]
         out = _sdpa(q, k, v, mask, cfg)
-    out = out.reshape(b, t, -1) @ p.wo.to(x.dtype)
+    out = out.reshape(b, t, -1) @ w.wo.to(x.dtype)
+    out = tensor_parallel.site("attn.out", out)
     if cache is None:
         return out, None
-    return out, _write_prefill(cache, k, v, positions, cfg, kind)
+    return out, _write_cache(w, cache, x, k, v, positions, sin, cos, cfg,
+                             kind)
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +245,38 @@ def _write_prefill(cache: Dict, k, v, positions, cfg: ModelConfig,
     return cache
 
 
+def _write_cache(w, cache: Dict, x, k, v, positions, sin, cos,
+                 cfg: ModelConfig, kind: str) -> Dict:
+    """:func:`_write_prefill` into the cache this program holds (``w``'s
+    :meth:`cache_layout`; all of it outside the tensor-parallel program):
+    every slot's position (``pos`` is whole on every rank), and k and v of
+    the cache's kv heads at the tokens whose slots it holds.  k and v of
+    other kv heads than those attended with are read off ``w.kv`` (roped
+    by ``sin``, ``cos``).  The tail's slots are unique, so each slot of
+    the shard takes at most one token, found on the device."""
+    s0, s, h0 = w.cache_layout(cache)
+    s_loc, k_loc = cache["k"].shape[1:3]
+    if (h0, h0 + k_loc) != w.kv_heads:
+        k, v = w.kv(x, (h0, h0 + k_loc))      # collective: every rank asks
+        k = apply_rope(k, sin, cos)
+    if s_loc == s:
+        return _write_prefill(cache, k, v, positions, cfg, kind)
+    t = k.shape[1]
+    keep = min(t, s)
+    tail = positions[t - keep:]
+    slots = (tail % s).long()
+    cache["pos"][:, slots] = tail.to(torch.int32)[None, :]
+    src = torch.full((s,), -1, dtype=torch.long, device=k.device)
+    src[slots] = torch.arange(t - keep, t, device=k.device)
+    src = src[s0:s0 + s_loc]             # the token of each of its slots
+    got = (src >= 0)[None, :, None, None]
+    src = src.clamp_min(0)
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        c.copy_(torch.where(got, new[:, src].to(c.dtype), c))
+    return cache
+
+
 def attn_decode(p: Params, x: torch.Tensor, cache: Dict, pos,
                 cfg: ModelConfig, kind: str) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode step.  x: [B, 1, d].
@@ -236,28 +284,53 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Dict, pos,
     ``pos`` is an int (all rows at the same position) or an int ``[B]``
     tensor of per-request positions, which lets continuous batching mix
     requests at different depths in one decode batch.
+
+    On a rank of the tensor-parallel program ``cache`` is the rank's
+    shard: the new token's position goes to every rank's ``pos``, its k
+    and v (the shard's kv heads) to the rank whose slots hold ``pos % s``.
+    On a cache split by sequence every rank attends with every q head
+    (gathered: one token's) over its own slots and the partial softmaxes
+    are merged by their log-sum-exp; else with its own heads over every
+    slot.  ``wo`` then takes the rank's heads, as in the forward.
     """
+    w = tensor_parallel.attn_weights(p, cfg)
     b = x.shape[0]
-    q, k, v = _project_qkv(p, x, cfg)
+    x = tensor_parallel.site("attn.in", x)
+    s0, s, h0 = w.cache_layout(cache)
+    s_loc, k_loc = cache["k"].shape[1:3]
     pos_b = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     if pos_b.dim() == 0:
         pos_b = pos_b.expand(b)
-    sin, cos = rope(pos_b[:, None], cfg.resolved_head_dim, cfg.rope_theta)
-    q = apply_rope(q, sin, cos)
+    sin, cos = rope(pos_b[:, None], w.hd, cfg.rope_theta)
+    q = apply_rope(w.q(x), sin, cos)
+    k, v = w.kv(x, (h0, h0 + k_loc))
     k = apply_rope(k, sin, cos)
-    s = cache["k"].shape[1]
     slot = (pos_b % s).long()
     bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
     cache["pos"][bidx, slot] = pos_b
+    local = (slot - s0).clamp(0, s_loc - 1)
+    mine = ((slot >= s0) & (slot < s0 + s_loc))[:, None, None]
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        c[bidx, local] = torch.where(mine, new[:, 0].to(c.dtype),
+                                     c[bidx, local])
     # attend over valid slots: written, <= pos, and within window if local,
     # all per request, since each row carries its own position
-    new_pos = cache["pos"]
-    ok = (new_pos >= 0) & (new_pos <= pos_b[:, None])
+    slots = cache["pos"][:, s0:s0 + s_loc]
+    ok = (slots >= 0) & (slots <= pos_b[:, None])
     if kind == "l" and cfg.local_window:
-        ok = ok & (pos_b[:, None] - new_pos < cfg.local_window)
-    out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
-                ok[:, None, :], cfg)
-    out = out.reshape(b, 1, -1) @ p.wo.to(x.dtype)
-    return out, cache
+        ok = ok & (pos_b[:, None] - slots < cfg.local_window)
+    kc, vc = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    if s_loc < s:       # the cache split by sequence over the ranks
+        tp = w.tp
+        q = tp.all_heads(q)
+        merged = tp.merge_softmax(*_sdpa_partial(q, kc, vc, ok[:, None, :],
+                                                 cfg))
+        out = tp.own_heads(merged.permute(0, 3, 1, 2, 4).reshape(
+            b, 1, q.shape[2], w.hd).to(x.dtype))
+    else:
+        kv0, kv1 = (i - h0 for i in w.kv_heads)
+        out = _sdpa(q, kc[:, :, kv0:kv1], vc[:, :, kv0:kv1], ok[:, None, :],
+                    cfg)
+    out = out.reshape(b, 1, -1) @ w.wo.to(x.dtype)
+    return tensor_parallel.site("attn.out", out), cache

@@ -1,7 +1,11 @@
 """Gated MLPs (SwiGLU / GeGLU) and the plain GELU MLP.
 
 Port of ``repro/models/mlp.py``: the dense ``"g"``/``"l"`` layers' FFN and
-arctic's dense residual branch beside its experts.
+arctic's dense residual branch beside its experts.  On a rank of the
+tensor-parallel program (``models/tensor_parallel.py``) ``w_up`` and
+``w_gate`` are column-parallel and ``w_down`` row-parallel: the rank's
+hidden units, their output summed over ``model`` at the reference's
+constrain site.
 """
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from . import tensor_parallel
 from .common import MODEL_AXIS, P, Params, dense_init, gelu_tanh
 from .config import ModelConfig
 
@@ -36,10 +41,12 @@ def mlp_specs(cfg: ModelConfig) -> Dict:
 def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
     """x: ``[B, T, d]``; the weights are cast to x's type per use."""
-    u = x @ p.w_up.to(x.dtype)
+    w_up, w_gate, w_down = tensor_parallel.mlp_weights(p)
+    x = tensor_parallel.site("mlp.in", x)
+    u = x @ w_up.to(x.dtype)
     if cfg.mlp_kind == "gelu":          # plain 2-matrix MLP (hubert)
         h = gelu_tanh(u)
     else:                               # gated: swiglu / geglu
         act = F.silu if cfg.mlp_kind == "swiglu" else gelu_tanh
-        h = act(x @ p.w_gate.to(x.dtype)) * u
-    return h @ p.w_down.to(x.dtype)
+        h = act(x @ w_gate.to(x.dtype)) * u
+    return tensor_parallel.site("mlp.out", h @ w_down.to(x.dtype))

@@ -1,32 +1,50 @@
 """The LM stack placed on a mesh: parameters and AdamW moments as DTensor
-shards, and the train step that runs on them.
+shards, and the programs that run on them.
 
 The JAX package shards its parameters with ``NamedSharding`` and lets
 GSPMD partition the train step.  Here every parameter lives, at rest, as
 this rank's shard of it (a DTensor over the ``(data, model)`` or ``(pod,
 data, model)`` mesh, placed by the sanitized specs of
 ``transformer.param_specs``), and so do the optimizer's moments
-(``AdamW.state_specs``).  The step is an explicit program on each rank
-(ZeRO-3 over the whole mesh):
+(``AdamW.state_specs``).  The step is an explicit program on each rank,
+one of two (:func:`program`):
 
-1. each parameter is all-gathered whole from its shards;
-2. the rank runs forward and backward on its shard of the batch (the
-   batch dimension split over the batch axes by ``batch_partition_spec``,
-   whole on the model axis), its loss the sum of its tokens' negative
-   log-likelihoods over the global token count, plus the layers' aux
-   losses over the number of batch shards;
-3. each rank cuts every gradient to its shard along the other axes (the
-   model axis computed the same gradients), sums that over the batch axes
-   and keeps its shard of the sum; the global gradient norm comes from
-   the shards (one all-reduce of a scalar);
-4. AdamW updates the rank's shards of the parameters and moments in place.
+* ``"fsdp_tp"``, the dense attention LMs (``tensor_parallel.supported``):
+  JAX's "FSDP (over 'data') x TP (over 'model')".  Each parameter is
+  all-gathered over the batch axes only and keeps its shard along
+  ``model``; the rank runs forward and backward on its batch shard
+  through its own q heads, MLP hidden units and vocabulary entries, with
+  the collective each of the reference's constrain sites implies
+  (``models/tensor_parallel.py``), the loss a vocab-parallel
+  cross-entropy (:class:`_VocabNLL`: max and sum all-reduced over
+  ``model``, the gold logit from its owner, a backward that never forms
+  the whole logits).  Each gradient is then the rank's ``model`` slice
+  already: it is summed over the batch axes (a reduce-scatter where they
+  split it) into the rank's shard.
+* ``"zero3"``, the MoE, recurrent and frontend families: every parameter
+  is all-gathered whole, the rank runs its batch shard (whole on the
+  ``model`` axis: those ranks compute the same), cuts every gradient to
+  its slice along the other axes and sums that over the batch axes.
 
-So the loss and the update are the single-process step's on the whole
-batch, up to the order of the sums.  A MoE layer's aux loss and capacity
-are, as with the reference's ``moe_dispatch_groups`` set to the batch
-shards, those of each shard's tokens.  The gathered parameters are freed
-after the step: between steps no rank holds a whole copy of a sharded
-parameter.
+Either way the loss is the sum of the rank's tokens' negative
+log-likelihoods over the global token count, plus the layers' aux losses
+over the number of batch shards (the batch split over the batch axes by
+``batch_partition_spec``); the global gradient norm comes from the shards
+(one all-reduce of a scalar, each shard counted once), and AdamW updates
+the rank's shards of the parameters and moments in place.  So the loss
+and the update are the single-process step's on the whole batch, up to
+the order of the sums.  A MoE layer's aux loss and capacity are, as with
+the reference's ``moe_dispatch_groups`` set to the batch shards, those of
+each shard's tokens.  The gathered parameters are freed after the step.
+
+Serving (:func:`sharded_prefill`, :func:`make_sharded_decode_step`) runs
+the same program without gradients on the rank's shards of the caches
+(``transformer.cache_specs``): in place under ``"fsdp_tp"`` (a cache split
+by sequence is attended slot-shard by slot-shard and merged, see
+``attention.attn_decode``; a decode step's tied head all-reduces one
+token's partial logits rather than move the embedding), gathered whole
+along the other axes and cut back under ``"zero3"``.  The logits they
+return are whole.
 """
 from __future__ import annotations
 
@@ -37,16 +55,23 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
-from ..launch.mesh import (batch_partition_spec, local_chunk, mesh_comm,
-                           mesh_sizes, sanitized_placements)
+from ..launch.mesh import (batch_partition_spec, local_chunk, local_shape,
+                           mesh_comm, mesh_sizes, sanitized_placements)
 from . import lm
+from . import tensor_parallel
 from . import transformer as tf
-from .common import BATCH_AXES
+from .common import BATCH_AXES, MODEL_AXIS
 from .config import ModelConfig
 
-__all__ = ["ShardedModel", "place_batch", "sharded_loss",
+__all__ = ["ShardedModel", "program", "place_batch", "sharded_loss",
            "make_sharded_train_step", "model_slice", "cache_shards",
            "sharded_prefill", "make_sharded_decode_step"]
+
+
+def program(cfg: ModelConfig) -> str:
+    """The program ``cfg`` runs on a mesh: ``"fsdp_tp"`` for the dense
+    attention LMs, ``"zero3"`` for the rest (module docstring)."""
+    return "fsdp_tp" if tensor_parallel.supported(cfg) else "zero3"
 
 
 def _dtensor(local: torch.Tensor, mesh, placements, shape):
@@ -76,6 +101,7 @@ class ShardedModel:
         self.placements = placements
         self.shapes = shapes
         self.comm = mesh_comm(mesh, local.device)
+        self.program = program(self.cfg)
 
     @classmethod
     def init(cls, cfg: ModelConfig, mesh, *, seed: int = 0, device=None,
@@ -151,20 +177,41 @@ class ShardedModel:
         return {n: self.comm.gather_full(p.data, self.placements[n])
                 for n, p in self.local.named_parameters()}
 
+    def step_placements(self, name: str) -> tuple:
+        """What the step gathers of parameter ``name``: its placements
+        over the batch axes under ``"fsdp_tp"`` (the ``model`` shard is
+        kept), all of them under ``"zero3"``."""
+        pl = self.placements[name]
+        if self.program == "zero3":
+            return pl
+        other, batch = _split(pl, self.mesh, _batch_axes(self.mesh))
+        if {p.dim for p in other if p.is_shard()} \
+                & {p.dim for p in batch if p.is_shard()}:
+            raise ValueError(f"{name}: a dimension split over a batch axis "
+                             "and model at once has no model slice to keep")
+        return batch
+
     @contextlib.contextmanager
-    def gathered(self, requires_grad: bool = False):
-        """Inside the block ``self.local`` holds every parameter whole
-        (gathered, collective); the shards are put back after it, and the
-        whole ones dropped.  Yields the whole parameters by name."""
+    def gathered(self, requires_grad: bool = False, decode: bool = False):
+        """Inside the block ``self.local`` holds every parameter as the
+        step reads it (gathered, collective: :meth:`step_placements`), and
+        under ``"fsdp_tp"`` the program's collectives are the layers'
+        (``tensor_parallel.use``, a ``decode`` step's where it is one);
+        the shards are put back after it, and the gathered ones dropped.
+        Yields the gathered parameters by name."""
         shards = {}
-        full = self.gather()
-        for n, t in full.items():
+        for n, p in list(self.local.named_parameters()):
+            t = self.comm.gather_full(p.data, self.step_placements(n))
             owner, leaf = _owner(self.local, n)
             shards[n] = owner._parameters[leaf]
             owner.register_parameter(leaf, nn.Parameter(
                 t, requires_grad=requires_grad))
+        tp = (tensor_parallel.use(tensor_parallel.TensorParallel(
+            self.cfg, self.comm, decode)) if self.program == "fsdp_tp"
+            else contextlib.nullcontext())
         try:
-            yield dict(self.local.named_parameters())
+            with tp:
+                yield dict(self.local.named_parameters())
         finally:
             for n, p in shards.items():
                 owner, leaf = _owner(self.local, n)
@@ -220,12 +267,28 @@ def model_slice(g: torch.Tensor, placements, mesh, axes) -> torch.Tensor:
 
 
 def _reduced_shard(comm, g, placements, mesh, axes) -> torch.Tensor:
-    """This rank's shard of ``g`` summed over the batch ``axes``."""
+    """This rank's shard of ``g`` (a whole gradient) summed over the batch
+    ``axes``."""
     part = model_slice(g, placements, mesh, axes)
     summed = comm.all_reduce(part, axes)
     if part is g:
         return local_chunk(summed, placements, mesh)
     return local_chunk(summed, _split(placements, mesh, axes)[1], mesh)
+
+
+def _batch_summed(comm, g, placements, mesh, axes) -> torch.Tensor:
+    """This rank's shard of ``g`` (its ``model`` slice of a gradient)
+    summed over the batch ``axes``: reduce-scattered along the dimension
+    an axis splits, all-reduced over an axis that splits none, in mesh
+    order (so a dimension split over two axes is cut major first)."""
+    names = list(mesh_sizes(mesh))
+    for a in names:
+        if a not in axes:
+            continue
+        pl = placements[names.index(a)]
+        g = comm.reduce_scatter(g, a, pl.dim) if pl.is_shard() \
+            else comm.all_reduce(g, [a])
+    return g
 
 
 def _replicas(placements, mesh) -> int:
@@ -258,14 +321,57 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -1):
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
+class _VocabNLL(torch.autograd.Function):
+    """Per-token negative log-likelihood of vocab-parallel logits (this
+    rank's ``[..., V / m]``): the max gathered and the sum of
+    exponentials all-reduced over ``model``, the gold logit all-reduced
+    from the rank that holds it.  Backward gives the rank's slice of
+    ``softmax - onehot``: no rank forms the whole logits."""
+
+    @staticmethod
+    def forward(ctx, logits, gold, owned, comm):
+        last = logits.dim() - 1
+        top = comm.all_gather(logits.amax(-1, keepdim=True), MODEL_AXIS,
+                              last).amax(-1)
+        total = comm.all_reduce(torch.exp(logits - top[..., None]).sum(-1),
+                                [MODEL_AXIS])
+        logz = top + torch.log(total)
+        mine = torch.take_along_dim(logits, gold[..., None], -1)[..., 0]
+        gold_logit = comm.all_reduce(mine * owned, [MODEL_AXIS])
+        ctx.save_for_backward(logits, logz, gold, owned)
+        return logz - gold_logit
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, gold, owned = ctx.saved_tensors
+        grad = torch.exp(logits - logz[..., None])
+        grad.scatter_add_(-1, gold[..., None], -owned[..., None])
+        return grad * g[..., None], None, None, None
+
+
+def _vocab_nll(logits: torch.Tensor, labels: torch.Tensor, tp,
+               ignore: int = -1):
+    """:func:`_nll` of vocab-parallel logits (``tp``'s vocabulary
+    slice)."""
+    mask = labels != ignore
+    v0, v1 = tp.vocab_range()
+    owned = mask & (labels >= v0) & (labels < v1)
+    gold = torch.where(owned, labels - v0, 0).long()
+    nll = _VocabNLL.apply(logits, gold, owned.to(logits.dtype), tp.comm)
+    return (nll * mask).sum(), mask.sum()
+
+
 def _local_loss(model: tf.Transformer, batch: Dict, cfg: ModelConfig,
                 comm, axes) -> Tuple[torch.Tensor, Dict]:
     """The rank's share of the global loss (its tokens' NLL sum over the
     global count, plus its aux losses over the number of batch shards)
-    and the global metrics."""
+    and the global metrics; vocab-parallel inside the tensor-parallel
+    program."""
     inputs, labels = lm._shift_batch(batch, cfg)
     logits, _, aux = tf.forward(model, inputs, cfg)
-    nll, count = _nll(logits, labels)
+    tp = tensor_parallel.current()
+    nll, count = _vocab_nll(logits, labels, tp) \
+        if tp is not None and tp.vocab_split else _nll(logits, labels)
     n_tok = torch.clamp(comm.all_reduce(count.float(), axes), min=1)
     shards = math.prod(comm.size(a) for a in axes)
     total = nll / n_tok + aux["aux"] / shards
@@ -309,10 +415,11 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer) -> Callable:
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in full.items()}
         del full, total
+        reduce = _batch_summed if sm.program == "fsdp_tp" else _reduced_shard
         mine = {}
         for n in list(grads):
-            mine[n] = _reduced_shard(sm.comm, grads.pop(n), sm.placements[n],
-                                     sm.mesh, axes)
+            mine[n] = reduce(sm.comm, grads.pop(n), sm.placements[n],
+                             sm.mesh, axes)
         # each shard's square counted once over the ranks that hold it
         sq = sum(torch.sum(torch.square(g.float()))
                  / _replicas(sm.placements[n], sm.mesh)
@@ -327,7 +434,7 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# serving on a mesh: prefill and decode, ZeRO-3 as the train step
+# serving on a mesh: prefill and decode, in the train step's program
 # ---------------------------------------------------------------------------
 def cache_shards(cfg: ModelConfig, batch: int, max_len: int, mesh,
                  dtype: torch.dtype = torch.bfloat16, device=None
@@ -340,6 +447,29 @@ def cache_shards(cfg: ModelConfig, batch: int, max_len: int, mesh,
     shards = [{k: local_chunk(v, placements[i][k], mesh).clone()
                for k, v in c.items()} for i, c in enumerate(full)]
     return shards, placements
+
+
+def _empty_shards(cfg: ModelConfig, batch: int, max_len: int, placements,
+                  mesh, dtype: torch.dtype, device) -> list:
+    """This rank's shards of a fresh attention cache for its ``batch``
+    rows (zeros, positions -1) under ``placements``, allocated at the
+    shard's size only (``attention.init_attn_cache``'s shapes)."""
+    from .attention import cache_len
+    sizes = list(mesh_sizes(mesh).values())
+    rows = batch * math.prod(n for n, pl in zip(sizes, placements[0]["pos"])
+                             if pl.is_shard() and pl.dim == 0)
+    kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    out = []
+    for kind, pl in zip(cfg.pattern, placements):
+        s = cache_len(cfg, kind, max_len)
+        out.append({
+            "k": torch.zeros(local_shape((rows, s, *kv), pl["k"], mesh),
+                             dtype=dtype, device=device),
+            "v": torch.zeros(local_shape((rows, s, *kv), pl["v"], mesh),
+                             dtype=dtype, device=device),
+            "pos": torch.full(local_shape((rows, s), pl["pos"], mesh), -1,
+                              dtype=torch.int32, device=device)})
+    return out
 
 
 def _cache_whole(comm, shards, placements, mesh, axes) -> list:
@@ -360,11 +490,21 @@ def sharded_prefill(sm: ShardedModel, batch: Dict, cfg: ModelConfig,
                     max_len: int, cache_placements=None,
                     cache_dtype: torch.dtype = torch.bfloat16):
     """``lm.prefill`` of the placed model on ``batch``, this rank's shard
-    of the batch (:func:`place_batch`'s), every parameter gathered whole
-    as in the train step, without gradients.  Returns (last-token logits,
+    of the batch (:func:`place_batch`'s), the parameters gathered as in
+    the train step, without gradients.  Returns (last-token logits, whole,
     the rank's cache shards under ``cache_placements``
-    (:func:`cache_shards`'), the next position).  An encoder has no cache
+    (:func:`cache_shards`'), the next position).  Under ``"fsdp_tp"`` the
+    layers write the shards in place.  An encoder has no cache
     (``cache_placements`` unused): its ``transformer.forward`` logits."""
+    if sm.program == "fsdp_tp":
+        rows, t = batch["tokens"].shape
+        with torch.no_grad(), sm.gathered():
+            caches = _empty_shards(cfg, rows, max_len, cache_placements,
+                                   sm.mesh, cache_dtype, sm.local.device)
+            logits, caches, _ = tf.forward(sm.local, batch, cfg,
+                                           caches=caches)
+            last = tensor_parallel.current().whole_logits(logits[:, -1])
+        return last, caches, t
     with torch.no_grad(), sm.gathered():
         if cfg.is_encoder:
             return tf.forward(sm.local, batch, cfg)[0]
@@ -379,15 +519,22 @@ def make_sharded_decode_step(cfg: ModelConfig) -> Callable:
     """Returns ``decode_step(sm, token, caches, cache_placements, pos) ->
     (logits, caches)``: one token of this rank's batch shard (``token``
     [b, 1], the rank's rows) with the rank's cache shards
-    (:func:`cache_shards`).  Every parameter is gathered whole and each
-    cache along the axes outside the batch axes, the step runs as
-    ``lm.make_decode_step``'s, and the rank keeps its shard of the new
-    caches (ZeRO-3: no rank holds a whole cache between steps)."""
+    (:func:`cache_shards`); the logits whole.  Under ``"fsdp_tp"`` the
+    step runs on the shards in place.  Under ``"zero3"`` every parameter
+    is gathered whole and each cache along the axes outside the batch
+    axes, the step runs as ``lm.make_decode_step``'s, and the rank keeps
+    its shard of the new caches (no rank holds a whole cache between
+    steps)."""
     step = lm.make_decode_step(cfg)
 
     @torch.no_grad()
     def decode_step(sm: ShardedModel, token: torch.Tensor, caches: list,
                     cache_placements: list, pos):
+        if sm.program == "fsdp_tp":
+            with sm.gathered(decode=True):
+                logits, caches = step(sm.local, token, caches, pos)
+                return tensor_parallel.current().whole_logits(logits), \
+                    caches
         axes = _batch_axes(sm.mesh)
         whole = _cache_whole(sm.comm, caches, cache_placements, sm.mesh,
                              axes)

@@ -1,0 +1,400 @@
+"""The FSDP x tensor-parallel program of the dense attention LMs: the one
+place that decides, for each ``constrain`` site of the JAX package, which
+collective turns its producer's layout into the constrained one.
+
+The JAX package runs its dense LMs as "FSDP (over 'data') x TP (over
+'model')" (``repro/models/attention.py``): the specs shard heads, MLP
+hidden units and the vocabulary over ``model``, and GSPMD partitions
+every product at the ``constrain`` sites.  Here the rank body is explicit.
+Inside :func:`use` (``sharded.ShardedModel.gathered`` opens it for these
+families) each parameter is gathered over the batch axes only, so it keeps
+its shard along ``model``; the layers read their weights through
+:func:`attn_weights`, :func:`mlp_weights` and :func:`head_weight` and call
+:func:`site` where the reference constrains.  Outside it all of these are
+the identity and the layers run the single-process program.
+
+A rank computes the q heads, MLP hidden units and vocabulary entries of
+its ``model`` coordinate where the count divides the axis (the sanitize
+rule of the reference's ``constrain``), and all of them where it does not:
+
+=============  ==============================  ====================  =====================
+site           reference                       producer              collective
+=============  ==============================  ====================  =====================
+``attn.in``    (before ``attention.py:60``)    replicated x          copy-to-model
+q, k, v        ``attention.py:71-73``          the rank's heads      none
+``attn.out``   ``attention.py:182``            partial sums          reduce-from-model
+``mlp.in``     (before ``mlp.py:42``)          replicated x          copy-to-model
+hidden         ``mlp.py:48``                   the rank's units      none
+``mlp.out``    ``mlp.py:50``                   partial sums          reduce-from-model
+``embed``      ``transformer.py:281``          x's ``d`` shard       all-gather (slice back)
+``head.in``    (before ``transformer.py:335``) replicated x          copy-to-model
+logits         ``transformer.py:339``          the rank's vocabulary none (vocab-parallel)
+``head.in``    decode, tied embedding          replicated x          its ``d`` columns
+``head.out``   ``transformer.py:339``          partial sums          reduce-from-model
+=============  ==============================  ====================  =====================
+
+Copy-to-model is the identity forward and sums the gradient over
+``model``; reduce-from-model sums forward and passes the gradient.  A
+weight whose layout at rest is not the one its product reads is moved by
+:meth:`TensorParallel.relayout`: a tied embedding, at rest ``[V, d / m]``,
+is exchanged all-to-all into the head's ``[V / m, d]`` for a train step
+or a prefill; a decode step reads it as it lies and all-reduces one
+token's partial logits of every entry instead (the last two rows), as
+GSPMD partitions the reference's decode.  Where the kv
+heads do not divide the axis but their columns do, each rank projects its
+columns of k and v and the projections are all-gathered
+(:class:`AttnWeights`).  A KV cache is read where it lies
+(``attention.attn_cache_specs``): by head, or by sequence, where each rank
+attends over its own slots and a log-sum-exp merge
+(:meth:`TensorParallel.merge_softmax`) all-reduces the partial results.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, List, Optional, Tuple
+
+import torch
+
+from .common import MODEL_AXIS as AXIS
+from .config import ModelConfig
+
+__all__ = ["TensorParallel", "WholeAttnWeights", "AttnWeights", "supported",
+           "use", "current", "site", "attn_weights", "mlp_weights",
+           "head_weight"]
+
+
+def supported(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` runs the FSDP x TP program on a mesh: the dense
+    attention LMs (global and local attention layers with a dense MLP, no
+    MoE, no recurrent layer, no frontend).  The rest keep the ZeRO-3
+    program of ``models/sharded.py``."""
+    return (cfg.moe is None and not cfg.frontend and cfg.causal
+            and set(cfg.pattern) <= {"g", "l"} and cfg.mlp_kind != "none")
+
+
+class WholeAttnWeights:
+    """One attention layer's projections outside the program: every head
+    of ``p``, a cache whole.  :meth:`q` the q heads, :meth:`kv` k and v of
+    the kv heads ``kv_heads`` (or of a range of them), ``wo`` the output
+    projection, :meth:`cache_layout` where a cache's slots and heads
+    lie."""
+    tp = None
+
+    def __init__(self, cfg: ModelConfig, p):
+        self.cfg, self.p = cfg, p
+        self.hd = cfg.resolved_head_dim
+        self.kv_heads = (0, cfg.n_kv_heads)
+        self.wq, self.wo = p.wq, p.wo
+        self.bq = p.bq if cfg.qkv_bias else None
+
+    def _proj(self, x, w, b):
+        y = x @ w.to(x.dtype)
+        if b is not None:
+            y = y + b.to(x.dtype)
+        return y.reshape(*x.shape[:2], -1, self.hd)
+
+    def q(self, x: torch.Tensor) -> torch.Tensor:
+        """The q heads ``[B, T, heads, hd]``."""
+        return self._proj(x, self.wq, self.bq)
+
+    def kv(self, x: torch.Tensor, heads: Optional[Tuple[int, int]] = None):
+        """k, v ``[B, T, heads, hd]`` of kv heads ``heads`` (default
+        ``kv_heads``)."""
+        p, bias = self.p, self.cfg.qkv_bias
+        h0, h1 = heads or self.kv_heads
+        return tuple(self._proj(x, w, b)[:, :, h0:h1] for w, b in (
+            (p.wk, p.bk if bias else None), (p.wv, p.bv if bias else None)))
+
+    def cache_layout(self, cache) -> Tuple[int, int, int]:
+        """(first slot, whole slot count, first kv head) of the cache this
+        program holds: all of it."""
+        return 0, cache["pos"].shape[1], 0
+
+
+class AttnWeights(WholeAttnWeights):
+    """One attention layer's projections as a rank of the program
+    computes them: :meth:`q` its own q heads (``q_heads``), :meth:`kv` the
+    kv heads those read (``kv_heads``) or any range (a cache shard's),
+    ``wo`` the rows of its q heads, :meth:`cache_layout` its cache
+    shard's (``TensorParallel.cache_layout``).
+
+    Where the kv heads do not divide ``model`` but their columns do (the
+    at-rest shard is not head-aligned), each rank projects its column
+    shard and the projections are all-gathered over ``model`` (their
+    gradient reduce-scattered back, as GSPMD partitions the reference's
+    replicated k and v): no rank computes another's columns."""
+
+    def __init__(self, tp: "TensorParallel", p):
+        super().__init__(tp.cfg, p)
+        cfg, self.tp = tp.cfg, tp
+        self.q_heads, self.kv_heads = tp.q_heads, tp.kv_heads
+        nq = cfg.n_heads * self.hd
+        self.nkv = cfg.n_kv_heads * self.hd
+        s = tp.q_split
+        self.wq = tp.relayout(p.wq, 1, nq, s, s)
+        self.wo = tp.relayout(p.wo, 0, nq, s, s)
+        self.bq = tp.relayout(p.bq, 0, nq, s, s) if cfg.qkv_bias else None
+        self._every = None
+
+    def cache_layout(self, cache) -> Tuple[int, int, int]:
+        return self.tp.cache_layout(cache)
+
+    def kv(self, x: torch.Tensor, heads: Optional[Tuple[int, int]] = None):
+        """k, v ``[B, T, heads, hd]`` of kv heads ``heads`` (default the
+        ones the rank's q heads read).  A range other than the rank's own
+        (a cache shard's) is read off every head's projection, made once
+        a layer call (collective: every rank asks alike)."""
+        tp, p = self.tp, self.p
+        bias = tp.cfg.qkv_bias
+        heads = heads or self.kv_heads
+        if tp.kv_split and heads == self.kv_heads:
+            return tuple(self._proj(x, tp.relayout(w, 1, self.nkv, True,
+                                                   True),
+                                    tp.relayout(b, 0, self.nkv, True, True)
+                                    if bias else None)
+                         for w, b in ((p.wk, p.bk if bias else None),
+                                      (p.wv, p.bv if bias else None)))
+        if self._every is None or self._every[0] is not x:
+            self._every = (x, self._every_head(x))
+        h0, h1 = heads
+        return tuple(y[:, :, h0:h1] for y in self._every[1])
+
+    def _every_head(self, x):
+        tp, p, n, c = self.tp, self.p, self.nkv, self.tp.comm
+        bias = tp.cfg.qkv_bias
+        out = []
+        for w, b in ((p.wk, p.bk if bias else None),
+                     (p.wv, p.bv if bias else None)):
+            if tp.m > 1 and w.shape[1] * tp.m == n:
+                # the rank's columns, then every rank's: the gradient of a
+                # part each rank reads is summed back (reduce-scatter); the
+                # input's, a part of the whole, too (copy-to: where q is
+                # split, the attention's input came through one already)
+                xin = x if tp.q_split else c.copy_to(x, AXIS)
+                y = xin @ w.to(x.dtype)
+                if b is not None:
+                    y = y + b.to(x.dtype)
+                y = c.gather_along(y, AXIS, y.dim() - 1,
+                                   grad="sum" if tp.q_split else "slice")
+                out.append(y.reshape(*x.shape[:2], -1, self.hd))
+            else:
+                s = tp.q_split
+                out.append(self._proj(
+                    x, tp.relayout(w, 1, n, False, s),
+                    tp.relayout(b, 0, n, False, s) if b is not None
+                    else None))
+        return out
+
+
+class TensorParallel:
+    """The layouts of ``cfg``'s tensor-parallel program over the ``model``
+    axis of ``comm`` (a :class:`~repro_torch.launch.mesh.MeshComm`), and
+    the collectives at its sites.
+
+    ``q_split``: each rank computes the q heads of its coordinate (the
+    heads divide the axis and the rank's kv heads group uniformly);
+    ``kv_split``: and its own kv heads (those divide it too);
+    ``ff_split``, ``vocab_split``: MLP hidden units and vocabulary
+    entries likewise; ``head_rows``: a ``decode`` step's tied head reads
+    the embedding's ``d`` slice as it lies and sums the partial logits
+    over ``model`` (then the logits are whole, ``vocab_split`` is off).
+    With one rank on the axis nothing is split."""
+
+    def __init__(self, cfg: ModelConfig, comm, decode: bool = False):
+        self.cfg, self.comm = cfg, comm
+        m = comm.size(AXIS) if AXIS in comm.sizes else 1
+        j = comm.index(AXIS) if AXIS in comm.sizes else 0
+        self.m, self.j = m, j
+        h, k = cfg.n_heads, cfg.n_kv_heads
+        g = h // k
+        # a rank's q heads must group uniformly over the kv heads they
+        # read (one kv head, or whole groups), on every rank alike; else
+        # attention stays whole on every rank
+        self.q_split = m > 1 and h % m == 0 and all(
+            q0 // g == (q0 + h // m - 1) // g or not (q0 % g or h // m % g)
+            for q0 in range(0, h, max(h // m, 1)))
+        q0, q1 = (j * h // m, (j + 1) * h // m) if self.q_split else (0, h)
+        self.q_heads = (q0, q1)
+        self.kv_heads = (q0 // g, (q1 - 1) // g + 1)
+        self.kv_split = self.q_split and k % m == 0
+        self.ff_split = m > 1 and cfg.d_ff % m == 0
+        # one token's logits of every entry move, not the embedding
+        self.head_rows = (decode and cfg.tie_embeddings and m > 1
+                          and cfg.d_model % m == 0)
+        self.vocab_split = (m > 1 and cfg.vocab_size % m == 0
+                            and not self.head_rows)
+
+    # -- weights ----------------------------------------------------------
+    def relayout(self, w: torch.Tensor, dim: int, whole: int,
+                 want_split: bool, partial: bool,
+                 want_dim: Optional[int] = None) -> torch.Tensor:
+        """``w`` (gathered over the batch axes) in the layout its product
+        reads: split over ``model`` along ``want_dim`` (default ``dim``)
+        when ``want_split``, whole otherwise.  At rest its dimension
+        ``dim`` (``whole`` long) is split where the axis divides it (the
+        sanitized spec), whole otherwise.  ``partial``: each rank's
+        product reads a part of the result (its gradient of ``w`` is its
+        part, summed over ``model`` below); else every rank computes the
+        same thing."""
+        want_dim = dim if want_dim is None else want_dim
+        have_split = self.m > 1 and w.shape[dim] * self.m == whole
+        c = self.comm
+        if have_split and want_split:
+            if want_dim == dim:
+                return w
+            return c.exchange(w, AXIS, want_dim, dim)
+        if have_split:
+            return c.gather_along(w, AXIS, dim,
+                                  grad="sum" if partial else "slice")
+        if want_split:
+            return c.copy_to(w, AXIS).chunk(self.m, want_dim)[self.j]
+        return c.copy_to(w, AXIS) if partial and self.m > 1 else w
+
+    def head(self, embed: torch.Tensor, lm_head: Optional[torch.Tensor]
+             ) -> torch.Tensor:
+        """The ``[d, V]`` output projection's columns of this rank's
+        vocabulary (all of them where the vocabulary does not divide the
+        axis): ``lm_head`` as it lies, or the tied embedding exchanged
+        from its ``[V, d / m]`` shard into ``[V / m, d]``.  Under
+        ``head_rows`` the ``[d / m, V]`` rows of the rank's ``d`` slice,
+        as the embedding lies."""
+        v, s = self.cfg.vocab_size, self.vocab_split
+        if lm_head is not None:
+            return self.relayout(lm_head, 1, v, s, s)
+        if self.head_rows:
+            return embed.T
+        return self.relayout(embed, 1, self.cfg.d_model, s, s,
+                             want_dim=0).T
+
+    # -- activations ------------------------------------------------------
+    def site(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The collective at constrain site ``name`` (module docstring's
+        table) applied to its producer's ``x``."""
+        c = self.comm
+        if self.m == 1:
+            return x
+        if name in ("attn.in", "attn.out"):
+            split = self.q_split
+        elif name in ("mlp.in", "mlp.out"):
+            split = self.ff_split
+        elif name == "head.in":
+            if self.head_rows:
+                return c.copy_to(x, AXIS).chunk(self.m, -1)[self.j]
+            split = self.vocab_split
+        elif name == "head.out":
+            return c.reduce_from(x, AXIS) if self.head_rows else x
+        elif name == "embed":
+            if x.shape[-1] == self.cfg.d_model:
+                return x
+            return c.gather_along(x, AXIS, x.dim() - 1, grad="slice")
+        else:
+            raise KeyError(f"no constrain site {name!r}")
+        if not split:
+            return x
+        return c.copy_to(x, AXIS) if name.endswith(".in") \
+            else c.reduce_from(x, AXIS)
+
+    def vocab_range(self) -> Tuple[int, int]:
+        """[v0, v1): the vocabulary entries of this rank's logits."""
+        v = self.cfg.vocab_size
+        if not self.vocab_split:
+            return 0, v
+        return self.j * v // self.m, (self.j + 1) * v // self.m
+
+    def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The head's logits gathered whole where they are vocab-parallel
+        (no gradient: the serving steps' outputs)."""
+        if not self.vocab_split:
+            return logits
+        return self.comm.all_gather(logits, AXIS, logits.dim() - 1)
+
+    def all_heads(self, q: torch.Tensor) -> torch.Tensor:
+        """A decode step's q ``[b, 1, heads, hd]`` gathered over every
+        head (no gradient)."""
+        if not self.q_split:
+            return q
+        return self.comm.all_gather(q, AXIS, 2)
+
+    def own_heads(self, out: torch.Tensor) -> torch.Tensor:
+        """This rank's q heads of an output over every head."""
+        q0, q1 = self.q_heads
+        return out[:, :, q0:q1] if self.q_split else out
+
+    def cache_layout(self, cache) -> Tuple[int, int, int]:
+        """(first slot, whole slot count, first kv head) of this rank's
+        shard of an attention cache: ``pos`` holds every slot (its spec
+        splits the batch only), ``k``/``v`` the rank's slots or heads."""
+        s = cache["pos"].shape[1]
+        s_loc, k_loc = cache["k"].shape[1:3]
+        s0 = self.j * s_loc if s_loc < s else 0
+        h0 = self.j * k_loc if k_loc < self.cfg.n_kv_heads else 0
+        return s0, s, h0
+
+    def merge_softmax(self, m: torch.Tensor, l: torch.Tensor,
+                      o: torch.Tensor) -> torch.Tensor:
+        """Attention over slots split by rank: each rank's running max
+        ``m`` and sum ``l`` of its exponentials (``[..., t, 1]``) and its
+        unnormalised output ``o`` (``[..., t, hd]``), merged by their
+        log-sum-exp (no gradient)."""
+        c = self.comm
+        top = c.all_gather(m, AXIS, m.dim() - 1).amax(-1, keepdim=True)
+        scale = torch.exp(m - top)
+        num = c.all_reduce(o * scale, [AXIS])
+        den = c.all_reduce(l * scale, [AXIS])
+        return num / den
+
+
+_CURRENT: List[TensorParallel] = []
+
+
+@contextlib.contextmanager
+def use(tp: TensorParallel) -> Iterator[TensorParallel]:
+    """Make ``tp`` the layers' program inside the block."""
+    _CURRENT.append(tp)
+    try:
+        yield tp
+    finally:
+        _CURRENT.pop()
+
+
+def current() -> Optional[TensorParallel]:
+    """The program of the innermost :func:`use` block, or None."""
+    return _CURRENT[-1] if _CURRENT else None
+
+
+def site(name: str, x: torch.Tensor) -> torch.Tensor:
+    """:meth:`TensorParallel.site` of the current program; the identity
+    outside one."""
+    tp = current()
+    return x if tp is None else tp.site(name, x)
+
+
+def attn_weights(p, cfg: ModelConfig) -> WholeAttnWeights:
+    """An attention layer's weights as this rank reads them
+    (:class:`AttnWeights`); every head (:class:`WholeAttnWeights`)
+    outside the program."""
+    tp = current()
+    return WholeAttnWeights(cfg, p) if tp is None else AttnWeights(tp, p)
+
+
+def mlp_weights(p):
+    """An MLP's (w_up, w_gate, w_down) as this rank reads them: its hidden
+    units' columns and rows (every rank's at rest already)."""
+    tp = current()
+    gate = p.w_gate if "w_gate" in p else None
+    if tp is None:
+        return p.w_up, gate, p.w_down
+    f, s = tp.cfg.d_ff, tp.ff_split
+    return (tp.relayout(p.w_up, 1, f, s, s),
+            None if gate is None else tp.relayout(gate, 1, f, s, s),
+            tp.relayout(p.w_down, 0, f, s, s))
+
+
+def head_weight(model) -> torch.Tensor:
+    """The model's ``[d, V]`` output projection, this rank's vocabulary
+    columns inside the program."""
+    tp = current()
+    if tp is None:
+        return model.head()
+    top = model.top
+    return tp.head(top.embed, top.lm_head if "lm_head" in top else None)

@@ -17,6 +17,14 @@ unstacks a JAX parameter tree by it.  Caches are a list with one dict per
 layer, in ``cfg.pattern`` order: an attention layer's ``{"k", "v",
 "pos"}``, an RG-LRU layer's ``{"h", "conv"}``, a Mamba layer's ``{"ssm",
 "conv"}``.
+
+On a rank of the tensor-parallel program (``models/tensor_parallel.py``)
+the embedding lookup of the rank's ``d`` shard is gathered into a
+residual stream replicated over ``model`` (the reference's constrain of
+the embeddings) and the head gives the rank's vocabulary of the logits,
+for a tied ``embed.T`` as for ``lm_head`` (a decode step's tied head sums
+partial logits of every entry instead); the softcaps are elementwise and
+stay local.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
+from . import tensor_parallel
 from .common import (MODEL_AXIS, P, Params, dense_init, dtype_of, rms_norm,
                      softcap)
 from .config import ModelConfig
@@ -372,7 +381,7 @@ def _embed_inputs(params: Transformer, batch: Dict, cfg: ModelConfig,
         x = params.top.embed[batch["tokens"].long()].to(dtype)
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
-    return x
+    return tensor_parallel.site("embed", x)
 
 
 def _head_logits(params: Transformer, x: torch.Tensor,
@@ -380,10 +389,12 @@ def _head_logits(params: Transformer, x: torch.Tensor,
     """Final norm, LM head (float32 logits, as the reference's
     ``preferred_element_type``), softcap."""
     x = rms_norm(x, params.top.final_norm, cfg.norm_eps)
-    head = params.head().to(x.dtype)
+    head = tensor_parallel.head_weight(params).to(x.dtype)
+    x = tensor_parallel.site("head.in", x)
     logits = (x.float() @ head.float()) if x.dtype != torch.float32 \
         else x @ head
-    return softcap(logits, cfg.final_softcap)
+    return softcap(tensor_parallel.site("head.out", logits),
+                   cfg.final_softcap)
 
 
 def forward_unscanned(params: Transformer, batch: Dict, cfg: ModelConfig,

@@ -5,9 +5,11 @@ JAX's for every config of the registry (JAX's per-rank bytes from
 ``NamedSharding(AbstractMesh, spec).shard_shape``, no devices; the port's
 from its dry run's own state under ``FakeTensorMode`` on a fake world of
 256 / 512 ranks).  And the counterpart of ``test_dryrun_specs.py``'s
-debug-mesh cell, fast: smoke cells on ``REPRO_DRYRUN_MESH=2,2`` come out
-``ok`` with the flops, collective bytes and argument bytes that a real
-4-rank gloo run of the same step records.
+debug-mesh cell, fast: smoke cells on ``REPRO_DRYRUN_MESH=2,2`` (and one
+dense cell on ``1,2``, the tensor-parallel program with the whole batch
+on one data shard) come out ``ok`` with the flops, collective bytes and
+argument bytes that a real gloo run of the same step on as many ranks
+records.
 """
 import warnings
 
@@ -110,6 +112,8 @@ def test_rank_param_and_moment_bytes_equal_jax(arch, mesh_kind):
 MESH_2x2 = (2, 2)
 CELLS = (("mamba2-130m", "train", 32, 8), ("qwen2.5-3b", "decode", 32, 4),
          ("olmoe-1b-7b", "prefill", 16, 4))
+#: a dense cell on a (1, 2) mesh: model > 1, one batch shard
+CELLS_1x2 = (("llama3-8b", "train", 16, 4),)
 
 
 @pytest.fixture(scope="module")
@@ -158,24 +162,37 @@ def four(serve_ref):
 
 
 @pytest.fixture(scope="module")
-def gloo(four):
-    return four[0]["cells"]
+def two():
+    from repro_torch.launch.grid import run_ranks
+    import torch_dryrun_ranks
+    return run_ranks(2, torch_dryrun_ranks.cell_rank, CELLS_1x2, (1, 2),
+                     device="cpu", timeout_s=240)
 
 
-@pytest.mark.parametrize("cell", range(len(CELLS)))
+@pytest.fixture(scope="module")
+def gloo(four, two):
+    """Each cell's rank-0 record and its mesh, in ``CELLS + CELLS_1x2``
+    order."""
+    return [(r, MESH_2x2) for r in four[0]["cells"]] \
+        + [(r, (1, 2)) for r in two[0]]
+
+
+@pytest.mark.parametrize("cell", range(len(CELLS) + len(CELLS_1x2)))
 def test_debug_mesh_cell_equals_a_gloo_run(gloo, cell, monkeypatch,
                                            tmp_path):
     import json
-    monkeypatch.setenv("REPRO_DRYRUN_MESH", "2,2")
-    arch, kind, seq, batch = CELLS[cell]
+    want, mesh = gloo[cell]
+    monkeypatch.setenv("REPRO_DRYRUN_MESH", ",".join(map(str, mesh)))
+    arch, kind, seq, batch = (CELLS + CELLS_1x2)[cell]
     out = str(tmp_path / "cell.json")
     rec = dryrun.run_cell(arch, kind, "single", out, verbose=False,
                           cfg=get_config(arch, smoke=True),
                           shape=Shape(kind, kind, seq, batch))
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec == json.load(open(out)) | {"time": rec["time"]}
-    assert rec["n_chips"] == 4
-    want = gloo[cell]
+    assert rec["n_chips"] == mesh[0] * mesh[1]
+    assert rec["program"] == ("fsdp_tp" if arch in ("qwen2.5-3b",
+                                                    "llama3-8b") else "zero3")
     stats = rec["hlo_stats"]
     assert stats["dot_flops"] == want["dot_flops"] > 0
     assert stats["collective_bytes"] == want["collective_bytes"]

@@ -15,14 +15,14 @@ SERVE_ARCHS = ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-2b")
 SERVE = dict(batch=4, prompt=8, steps=3, max_len=16)
 
 
-def cell_rank(device, cells):
+def cell_rank(device, cells, dims=MESH):
     """Each ``(arch, kind, seq, batch)`` smoke cell recorded on this
-    rank's real step over a ``MESH`` of gloo ranks: flops, collective bytes
-    by kind, argument bytes and ``MeshComm.sent`` (numbers only)."""
+    rank's real step over a ``dims`` mesh of gloo ranks: flops, collective
+    bytes by kind, argument bytes and ``MeshComm.sent`` (numbers only)."""
     from repro_torch.configs import Shape, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
-    mesh = make_mesh(MESH, ("data", "model"), device_type="cpu")
+    mesh = make_mesh(tuple(dims), ("data", "model"), device_type="cpu")
     out = []
     for arch, kind, seq, batch in cells:
         cfg = dryrun.cell_config(get_config(arch, smoke=True), "single")

@@ -12,6 +12,17 @@ on a ``(1, R)`` mesh at the JAX selftest's ``selftest_ring`` size, and
 ``compressed_psum`` over a 2-device axis for two steps of error feedback.
 The inputs come from :func:`ring_inputs` and :func:`psum_inputs` (seeded
 numpy), which the port's ranks import too.
+
+For ``test_torch_tp.py`` it runs on one device::
+
+    python tests/torch_jax_sharded_child.py tp DIR
+
+and reads, for each case of :data:`TP_ARCHS`, the JAX package's weights,
+batch and tokens that the test wrote (:func:`tp_write_inputs`) to write
+``DIR/jax_tp.pt``: ``lm.loss_fn``'s loss, ``lm.prefill`` and
+:data:`TP_SERVE`'s decode steps (logits, and each layer's cache after the
+prefill and after each step) and JAX's ``cache_specs`` sanitized on each
+mesh of :data:`TP_MESHES`, one dict a layer.
 """
 from __future__ import annotations
 
@@ -55,6 +66,118 @@ def psum_inputs() -> np.ndarray:
     return {f"{k}/{s}/{r}": rng.standard_normal(shape).astype(np.float32)
             for s in range(PSUM_STEPS) for r in range(PSUM_RANKS)
             for k, shape in PSUM_SHAPES.items()}
+
+
+#: the tensor-parallel program's cases: the four dense families' smoke
+#: configs, llama3-8b's with 16 kv heads (a cache split by head) and
+#: gemma2-9b's on a model axis of 8, which its 4 q heads do not divide
+#: (attention whole on every rank, the rest split)
+TP_ARCHS = ("qwen2.5-3b", "llama3-8b", "gemma2-9b", "qwen1.5-110b", "kv16")
+TP_MESHES = ((1, 2), (2, 2), (1, 4), (1, 8))
+TP_CASES = tuple((a, m) for a in TP_ARCHS[:4] for m in TP_MESHES[:3]) \
+    + (("kv16", (1, 2)), ("gemma2-9b", (1, 8)))
+#: the loss's batch; the serving check: prompts of ``prompt`` tokens, past
+#: gemma2's smoke window of 16, then ``steps`` decode steps
+TP_BATCH = dict(batch=4, seq=16, seed=1)
+TP_SERVE = dict(batch=4, prompt=18, steps=3, max_len=24)
+
+
+def tp_config(get_config, name: str):
+    """A case's config from either package's ``get_config``."""
+    import dataclasses
+    if name == "kv16":
+        return dataclasses.replace(get_config("llama3-8b", smoke=True),
+                                   name="llama3-8b-smoke-kv16", n_heads=16,
+                                   n_kv_heads=16)
+    return get_config(name, smoke=True)
+
+
+def tp_write_inputs(tmp: str) -> None:
+    """Each case's JAX weights (``init_params`` from ``PRNGKey(i)``), loss
+    batch and serving tokens, as numpy, to ``tmp/<case>.pt``."""
+    import os
+
+    import jax
+    import torch
+
+    from repro.configs import get_config
+    from repro.data.pipeline import SyntheticLM
+    from repro.models import transformer as jtf
+    for i, name in enumerate(TP_ARCHS):
+        cfg = tp_config(get_config, name)
+        params = jtf.init_params(cfg, jax.random.PRNGKey(i))
+        batch = {k: np.asarray(v) for k, v in SyntheticLM(
+            cfg, TP_BATCH["batch"], TP_BATCH["seq"],
+            seed=TP_BATCH["seed"])(0).items()}
+        toks = np.random.default_rng(i).integers(
+            0, cfg.vocab_size, (TP_SERVE["batch"], TP_SERVE["prompt"]
+                                + TP_SERVE["steps"])).astype(np.int32)
+        torch.save({"params": jax.tree.map(np.asarray, params),
+                    "batch": batch, "tokens": toks},
+                   os.path.join(tmp, f"{name}.pt"))
+
+
+def _layer_specs(cfg, caches, dims) -> list:
+    """JAX's ``cache_specs`` sanitized on a ``(data, model)`` mesh of
+    ``dims`` against the grouped cache shapes, one dict a layer (the
+    stacking dimension dropped), in ``convert.unstack_layers``' order."""
+    from jax.sharding import AbstractMesh
+
+    from repro.launch.mesh import sanitize_spec
+    from repro.models import transformer as jtf
+    mesh = AbstractMesh(dims, ("data", "model"))
+    specs = jtf.cache_specs(cfg)
+    out = []
+    for gi, (unit, n_units) in enumerate(jtf.layer_plan(cfg)):
+        group = [{k: tuple(sanitize_spec(s, caches[gi][li][k].shape,
+                                         mesh))[1:]
+                  for k, s in specs[gi][li].items()}
+                 for li in range(len(unit))]
+        out += [group[li] for _ in range(n_units)
+                for li in range(len(unit))]
+    return out
+
+
+def _tp(tmp: str) -> None:
+    import os
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.configs import get_config
+    from repro.models import lm
+    from repro_torch.configs import get_config as tget
+    from repro_torch.models.convert import unstack_layers
+    out = {}
+    n, steps = TP_SERVE["prompt"], TP_SERVE["steps"]
+    for name in TP_ARCHS:
+        cfg = tp_config(get_config, name)
+        saved = torch.load(os.path.join(tmp, f"{name}.pt"),
+                           weights_only=False)
+        params = jax.tree.map(jnp.asarray, saved["params"])
+        batch = {k: jnp.asarray(v) for k, v in saved["batch"].items()}
+        loss, _ = lm.loss_fn(params, batch, cfg)
+        toks = saved["tokens"]
+        logits, caches, pos = lm.prefill(
+            params, {"tokens": jnp.asarray(toks[:, :n])}, cfg,
+            TP_SERVE["max_len"], jnp.float32)
+        seen = [(logits, caches)]
+        step = lm.make_decode_step(cfg)
+        for t in range(n, n + steps):
+            logits, caches = step(params, jnp.asarray(toks[:, t:t + 1]),
+                                  caches, pos)
+            pos = pos + 1
+            seen.append((logits, caches))
+        tcfg = tp_config(tget, name)
+        grouped = jax.tree.map(np.asarray, caches)
+        out[name] = {
+            "loss": float(loss),
+            "serve": [(np.asarray(lg), unstack_layers(
+                tcfg, jax.tree.map(np.asarray, c))) for lg, c in seen],
+            "specs": {dims: _layer_specs(cfg, grouped, dims)
+                      for dims in TP_MESHES}}
+    torch.save(out, os.path.join(tmp, "jax_tp.pt"))
 
 
 def _ring(n: int, res: dict) -> None:
@@ -124,6 +247,9 @@ def _psum(res: dict) -> None:
 
 def main(argv) -> int:
     import jax
+    if argv[1] == "tp":
+        _tp(argv[2])
+        return 0
     if len(jax.devices()) < max(RING_SIZES):
         raise SystemExit(f"needs {max(RING_SIZES)} devices, has "
                          f"{len(jax.devices())}")

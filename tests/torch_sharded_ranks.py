@@ -274,3 +274,188 @@ def recovery(ex) -> dict:
                    on_grid=rec.a.on_grid,
                    whole=c.to_global().numpy())
     return out
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel program (test_torch_tp.py): 2 or 4 ranks a mesh
+# ---------------------------------------------------------------------------
+TP_TRAIN = dict(steps=2, batch=4, seq=16, lr=1e-3, seed=0, log_every=0)
+
+
+def _placed(local: dict, placements: dict) -> dict:
+    """numpy shards and their placements as (mesh dim, tensor dim) pairs
+    of the split dimensions."""
+    return {n: (t.detach().numpy().copy(),
+                [(m, pl.dim) for m, pl in enumerate(placements[n])
+                 if pl.is_shard()])
+            for n, t in local.items()}
+
+
+def _watching_comm(mesh, dev):
+    """A recording comm that notes each transfer whose operand is a
+    parameter (at rest, or as the step gathered it): (kind, axis).  The
+    watched tensors are kept, so that no other tensor takes their storage
+    when the step frees them."""
+    from repro_torch.launch.op_analysis import OpRecorder, RecordingComm
+
+    class Watching(RecordingComm):
+        def __init__(self):
+            super().__init__(mesh, dev, OpRecorder())
+            self.watched, self.moved, self.kept = set(), [], []
+
+        def watch(self, tensors):
+            self.kept += tensors
+            self.watched |= {t.untyped_storage()._cdata for t in tensors}
+
+        def _note(self, t, axis, kind):
+            if t.untyped_storage()._cdata in self.watched:
+                self.moved.append((kind, axis))
+
+        def gather_full(self, local, placements):
+            out = super().gather_full(local, placements)
+            self.watch([out])
+            return out
+
+        def all_gather(self, t, axis, dim):
+            self._note(t, axis, "all-gather")
+            return super().all_gather(t, axis, dim)
+
+        def all_reduce(self, t, axes, op="sum"):
+            for a in axes:
+                self._note(t, a, "all-reduce")
+            return super().all_reduce(t, axes, op)
+
+        def reduce_scatter(self, t, axis, dim):
+            self._note(t, axis, "reduce-scatter")
+            return super().reduce_scatter(t, axis, dim)
+
+        def all_to_all(self, t, axis, split_dim, cat_dim):
+            self._note(t, axis, "all-to-all")
+            return super().all_to_all(t, axis, split_dim, cat_dim)
+
+    return Watching()
+
+
+def _tp_case(name: str, tmp: str, mesh, dims) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import shard_bytes, use_comm
+    from repro_torch.launch.train import train
+    from repro_torch.models import convert, sharded
+    from repro_torch.optim import AdamW
+    cfg = child.tp_config(get_config, name)
+    saved = torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=False)
+    out = {"coord": [int(c) for c in mesh.get_coordinate()]}
+    # the loss of JAX's weights
+    sm = sharded.ShardedModel.place(
+        convert.params_from_jax(saved["params"], cfg, "cpu"), mesh)
+    out["program"] = sm.program
+    batch = {k: torch.from_numpy(v) for k, v in saved["batch"].items()}
+    out["loss"] = float(sharded.sharded_loss(sm, batch, cfg)[0])
+    # prefill and decode of JAX's weights, float32 caches
+    n, steps = child.TP_SERVE["prompt"], child.TP_SERVE["steps"]
+    max_len = child.TP_SERVE["max_len"]
+    _, placements = sharded.cache_shards(cfg, child.TP_SERVE["batch"],
+                                         max_len, mesh, torch.float32,
+                                         device="cpu")
+    toks = sharded.place_batch(
+        {"tokens": torch.from_numpy(saved["tokens"])}, mesh)["tokens"]
+    logits, caches, pos = sharded.sharded_prefill(
+        sm, {"tokens": toks[:, :n]}, cfg, max_len, placements,
+        cache_dtype=torch.float32)
+    serve = [(logits.numpy(), [{k: v.numpy().copy() for k, v in c.items()}
+                               for c in caches])]
+    step = sharded.make_sharded_decode_step(cfg)
+    for t in range(n, n + steps):
+        logits, caches = step(sm, toks[:, t:t + 1], caches, placements, pos)
+        pos = pos + 1
+        serve.append((logits.numpy(), [{k: v.numpy().copy()
+                                        for k, v in c.items()}
+                                       for c in caches]))
+    out["serve"] = serve
+    # 2 train steps from the port's init
+    st = train(cfg, mesh=mesh, device="cpu", **TP_TRAIN)
+    sm = st["params"]
+    out["train"] = {
+        "losses": st["losses"], "grad_norms": st["grad_norms"],
+        "params": _placed(sm.local_named(), sm.placements),
+        "mu": _placed(st["opt"]["mu"], sm.placements),
+        "nu": _placed(st["opt"]["nu"], sm.placements),
+        "param_bytes": sm.local_bytes(),
+        "want_bytes": sum(shard_bytes(sm.shapes[k], p.dtype,
+                                      sm.placements[k], mesh)
+                          for k, p in sm.local_named().items()),
+        "moment_bytes": sum(t.numel() * t.element_size()
+                            for k in ("mu", "nu")
+                            for t in st["opt"][k].values())}
+    # one more step, every transfer of a parameter noted
+    comm = _watching_comm(mesh, CPU)
+    with use_comm(comm):
+        sm = sharded.ShardedModel.init(cfg, mesh, seed=0, device="cpu")
+        comm.watch([p.data for p in sm.local.parameters()])
+        opt = AdamW(lr=1e-3)
+        from repro_torch.data.pipeline import SyntheticLM
+        raw = SyntheticLM(cfg, 4, 16, seed=0)(0)
+        sharded.make_sharded_train_step(cfg, opt)(
+            sm, opt.init(sm.local), {k: torch.as_tensor(v)
+                                     for k, v in raw.items()})
+        out["moved"] = sorted(set(comm.moved))
+        # a prefill, then one decode step, its transfers noted apart
+        _, caches, pos = sharded.sharded_prefill(
+            sm, {"tokens": toks[:, :n]}, cfg, max_len, placements,
+            cache_dtype=torch.float32)
+        comm.moved.clear()
+        sharded.make_sharded_decode_step(cfg)(sm, toks[:, n:n + 1], caches,
+                                              placements, pos)
+    out["moved_decode"] = sorted(set(comm.moved))
+    return out
+
+
+COLLECTIVES = ("copy_to", "reduce_from", "gather_slice", "gather_sum",
+               "exchange")
+
+
+def collective_inputs(op: str, j: int):
+    """The input and upstream gradient (float64) that model coordinate
+    ``j`` feeds ``op`` (each rank its own)."""
+    gen = torch.Generator().manual_seed(1000 * COLLECTIVES.index(op) + j)
+    shape = (4, 8)
+    return (torch.randn(shape, generator=gen, dtype=torch.float64),
+            torch.randn((4, 8 * 4) if op.startswith("gather") else
+                        (1, 32) if op == "exchange" else shape,
+                        generator=gen, dtype=torch.float64))
+
+
+def _collectives(mesh) -> dict:
+    """Each autograd collective of ``MeshComm`` over ``model`` (4 ranks):
+    its output and the input's gradient for this rank's inputs."""
+    from repro_torch.launch.mesh import mesh_comm
+    comm = mesh_comm(mesh, CPU)
+    j = comm.index("model")
+    calls = {"copy_to": lambda x: comm.copy_to(x, "model"),
+             "reduce_from": lambda x: comm.reduce_from(x, "model"),
+             "gather_slice": lambda x: comm.gather_along(x, "model", 1),
+             "gather_sum": lambda x: comm.gather_along(x, "model", 1,
+                                                       grad="sum"),
+             "exchange": lambda x: comm.exchange(x, "model", 0, 1)}
+    out = {"j": j}
+    for op in COLLECTIVES:
+        x, g = collective_inputs(op, j)
+        x.requires_grad_(True)
+        y = calls[op](x)
+        y.backward(g)
+        out[op] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+def tp_ranks(dev, tmp: str, dims) -> dict:
+    """Every case of ``child.TP_CASES`` on this ``(data, model)`` mesh of
+    ``dims``, by name (and on ``(1, 4)`` the autograd collectives, under
+    ``"collectives"``)."""
+    from repro_torch.launch.mesh import make_mesh
+    dims = tuple(dims)
+    mesh = make_mesh(dims, ("data", "model"), device_type="cpu")
+    out = {name: _tp_case(name, tmp, mesh, dims)
+           for name, m in child.TP_CASES if m == dims}
+    if dims == (1, 4):
+        out["collectives"] = _collectives(mesh)
+    return out
