@@ -4178,6 +4178,20 @@ LM_TRAIN_ZERO3_PEAK_GB = 9.43
 # same (2, 2) mesh
 LM_ZERO3 = dict(arch="mamba2-130m", layers=None, mesh=(2, 2), steps=3,
                 batch=4, seq=512, lr=3e-4, seed=0)
+# ... and the tensor-parallel program of a MoE model: OLMoE-1B-7B at its
+# published width, its depth cut to 4 of 16 layers (~1.9e9 parameters,
+# 7.5 GB in float32).  Reckoned before the run: one process holds ~32 GB
+# (parameters, gradients, moments), freed before the ranks start; a rank
+# its 1.9 GB shard, 3.8 GB of moments, its 3.8 GB model slice gathered and
+# 3.8 GB of its gradients, ~13 GB, the four ~53 GB: under the ~60 GB past
+# which the cell would be cut to 2 layers.  3 float32 steps on (2, 2) with
+# one dispatch group over both batch shards (a token's slot counts the
+# other shard's tokens), the capacity factor lowered from the published
+# 1.25 until the first batch drops tokens (no compressed_psum: the other
+# two cells hold it); then served on (1, 4) as Qwen is, at a capacity
+# factor doubled from the published one until the prefill drops none
+LM_MOE = dict(arch="olmoe-1b-7b", layers=4, mesh=(2, 2), steps=3, batch=4,
+              seq=512, lr=3e-4, seed=0, groups=1, psum=False)
 # (c) steal3d at the SpMM cell on a 3x3 grid of 9 ranks, the seeded loss of
 # 5 and recovery onto the survivors' 2x2 (phase 13's loss)
 LM_RECOVERY = dict(g=3, devices=9, lost=5, seed=0)
@@ -4201,6 +4215,11 @@ LM_TIMEOUT_S = 420
 # it the other way (see the training gate above), so the worst tensor is
 # printed, not held
 TOL_SHARDED_PARAMS = 1e-4
+# the sharded MoE step's share of dropped token-expert assignments (summed
+# over the layers) against one process's: a routing near-tie may flip a
+# few of a step's assignments once the parameters part by rounding (a
+# step of the OLMoE cell makes 4 x 16,384 of them, 6.1e-5 each a layer)
+TOL_MOE_DROPPED = 1e-3
 
 
 def lm_ring_cfg(capacity_factor: float, dtype: str, impl: str):
@@ -4253,32 +4272,39 @@ def lm_ring_expected(tmp: Path) -> dict:
     return {"path": str(path), "cf": cf, "noise": noise}
 
 
-def lm_train_cfg(cell: dict = LM_TRAIN):
+def lm_train_cfg(cell: dict = LM_TRAIN, cf: float = None):
+    """A 16b cell's config, float32; a MoE cell's at capacity factor
+    ``cf`` with its dispatch groups."""
     from repro_torch.configs import get_config
     cfg = get_config(cell["arch"])
-    return dataclasses.replace(cfg, n_layers=cell["layers"] or cfg.n_layers,
-                               compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, n_layers=cell["layers"] or cfg.n_layers,
+                              compute_dtype="float32")
+    if cf is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, moe_dispatch_groups=cell["groups"],
+        moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
 
 
-def lm_train_cell():
+def lm_train_cell(cell: dict = LM_TRAIN):
     from repro_torch.configs import Shape
-    return Shape(f"train_{LM_TRAIN['batch']}x{LM_TRAIN['seq']}", "train",
-                 LM_TRAIN["seq"], LM_TRAIN["batch"])
+    return Shape(f"train_{cell['batch']}x{cell['seq']}", "train",
+                 cell["seq"], cell["batch"])
 
 
-def lm_serve_tokens():
+def lm_serve_tokens(cfg=None):
     return torch.from_numpy(np.random.default_rng(LM_SERVE["seed"]).integers(
-        0, lm_train_cfg().vocab_size,
+        0, (cfg or lm_train_cfg()).vocab_size,
         (LM_SERVE["batch"], LM_SERVE["prompt"] + LM_SERVE["steps"]),
         dtype=np.int64))
 
 
 def lm_serve_expected(cfg) -> dict:
-    """One process's ``lm.prefill`` and decode steps of the cut Qwen2.5-3B
+    """One process's ``lm.prefill`` and decode steps of a cut model
     (float32 caches): the logits of each."""
     from repro_torch.models import lm
     from repro_torch.models import transformer as tf
-    toks = lm_serve_tokens().to(DEVICE)
+    toks = lm_serve_tokens(cfg).to(DEVICE)
     n = LM_SERVE["prompt"]
     model = tf.init_params(cfg, seed=LM_TRAIN["seed"], device=DEVICE)
     logits, caches, pos = lm.prefill(model, {"tokens": toks[:, :n]}, cfg,
@@ -4294,20 +4320,24 @@ def lm_serve_expected(cfg) -> dict:
     return out
 
 
-def lm_one_process(cell: dict, path: Path, **extra) -> dict:
-    """One process's float32 steps of ``cell`` (losses, gradient norms, the
-    final parameters), saved with ``extra`` to ``path`` for the ranks."""
+def lm_one_process(cell: dict, path: Path, cfg=None, **extra) -> dict:
+    """One process's float32 steps of ``cell`` (losses, gradient norms,
+    dropped shares, the final parameters), saved with ``extra`` to
+    ``path`` for the ranks."""
     from repro_torch.launch.train import train
-    cfg = lm_train_cfg(cell)
+    cfg = cfg or lm_train_cfg(cell)
+    torch.cuda.reset_peak_memory_stats()
     st = train(cfg, steps=cell["steps"], batch=cell["batch"],
                seq=cell["seq"], lr=cell["lr"], seed=cell["seed"],
                device=DEVICE, log_every=0)
     torch.save({"losses": st["losses"], "grad_norms": st["grad_norms"],
+                "dropped": st["dropped"],
                 "params": {n: p.detach().cpu() for n, p in
                            st["params"].named_parameters()}, **extra}, path)
     n = sum(p.numel() for p in st["params"].parameters())
     out = {"path": str(path), "n_params": n, "losses": st["losses"],
-           "step_s": st["step_s"]}
+           "step_s": st["step_s"], "dropped": st["dropped"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     del st
     free()
     return out
@@ -4317,7 +4347,7 @@ def lm_train_expected(tmp: Path) -> dict:
     """One process's 3 float32 steps of the cut Qwen2.5-3B and of
     Mamba2-130m (the ZeRO-3 cell), Qwen's prefill and decode steps, and the
     dry run of one rank's step of Qwen on the (2, 2) mesh (written for the
-    ranks)."""
+    ranks): Qwen's spec and the ZeRO-3 cell's."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     cfg = lm_train_cfg()
@@ -4330,6 +4360,7 @@ def lm_train_expected(tmp: Path) -> dict:
     one = lm_one_process(LM_TRAIN, tmp / "lm_train.pt",
                          serve=lm_serve_expected(cfg))
     zero3 = lm_one_process(LM_ZERO3, tmp / "lm_zero3.pt")
+    spec_zero3 = {"path": zero3["path"]}
     for c, x in ((cfg, one), (lm_train_cfg(LM_ZERO3), zero3)):
         log(f"  16b: single process: {describe(c)}, {x['n_params']} "
             f"parameters, losses {[round(v, 5) for v in x['losses']]}, step "
@@ -4338,9 +4369,81 @@ def lm_train_expected(tmp: Path) -> dict:
         f"{pred['hlo_stats']['dot_flops']:.6e}, peak "
         f"{pred['peak_bytes'] / 1e9:.3f} GB; {time.perf_counter() - t0:.1f} s")
     return {"path": one["path"], "n_params": one["n_params"],
-            "zero3_path": zero3["path"],
             "dot_flops": pred["hlo_stats"]["dot_flops"],
-            "peak_bytes": pred["peak_bytes"]}
+            "peak_bytes": pred["peak_bytes"]}, spec_zero3
+
+
+def lm_moe_capacities() -> tuple:
+    """16b's MoE capacity factors, from the single process's forward at
+    the cell's width and depth: for training, the published one lowered by
+    0.25 until the first batch drops tokens; for serving, doubled until
+    the prefill drops none."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    cell = LM_MOE
+    cf = lm_train_cfg(cell).moe.capacity_factor            # the published
+    model = tf.init_params(lm_train_cfg(cell, cf), seed=cell["seed"],
+                           device=DEVICE)
+    raw = SyntheticLM(lm_train_cfg(cell, cf), cell["batch"], cell["seq"],
+                      seed=cell["seed"])(0)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in raw.items()}
+    with torch.no_grad():
+        train_cf = cf
+        while True:
+            dropped = float(lm.loss_fn(model, batch,
+                                       lm_train_cfg(cell, train_cf))[1]
+                            ["dropped"])
+            log(f"  16b: OLMoE capacity factor {train_cf}: the first batch "
+                f"drops {dropped:.4g} (summed over the layers)")
+            if dropped > 0 or train_cf <= 0.25:
+                break
+            train_cf -= 0.25
+        toks = lm_serve_tokens(model.cfg)[:, :LM_SERVE["prompt"]].to(DEVICE)
+        serve_cf = cf
+        while True:
+            cfg = dataclasses.replace(lm_train_cfg(cell, serve_cf),
+                                      moe_dispatch_groups=1)
+            dropped = float(tf.forward(model, {"tokens": toks}, cfg)[2]
+                            ["dropped"])
+            if dropped == 0.0:
+                break
+            serve_cf *= 2
+    del model
+    free()
+    return train_cf, serve_cf
+
+
+def lm_moe_expected(tmp: Path) -> dict:
+    """16b's MoE cell: its capacity factors, the dry run of one rank's step
+    on the (2, 2) mesh (the cell's own dispatch groups), one process's 3
+    float32 steps and its prefill and decode steps at the serving
+    capacity (written for the ranks)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    train_cf, serve_cf = lm_moe_capacities()
+    cfg = lm_train_cfg(LM_MOE, train_cf)
+    with dryrun.fake_world(LM_MOE["mesh"]) as mesh:
+        pred = dryrun.record_cell(cfg, lm_train_cell(LM_MOE), mesh, DEVICE)
+    flops = pred["stats"].dot_flops
+    peak = pred["memory"]["argument_size_in_bytes"] \
+        + pred["memory"]["temp_size_in_bytes"]
+    del pred
+    one = lm_one_process(LM_MOE, tmp / "lm_moe.pt", cfg=cfg,
+                         serve=lm_serve_expected(lm_train_cfg(LM_MOE,
+                                                              serve_cf)))
+    log(f"  16b: single process: {describe(cfg)}, {one['n_params']} "
+        f"parameters, capacity factor {train_cf}, losses "
+        f"{[round(v, 5) for v in one['losses']]}, dropped "
+        f"{[round(v, 5) for v in one['dropped']]} (summed over the layers), "
+        f"step walls {[round(v, 3) for v in one['step_s']]} s, peak "
+        f"{one['peak_gb']:.2f} GB; serving capacity factor {serve_cf}")
+    log(f"  16b: the dry run of a rank's OLMoE step on (2, 2): product flops "
+        f"{flops:.6e}, peak {peak / 1e9:.3f} GB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"path": one["path"], "n_params": one["n_params"], "cf": train_cf,
+            "serve_cf": serve_cf, "dot_flops": flops, "peak_bytes": peak,
+            "ref_dropped": one["dropped"], "ref_peak_gb": one["peak_gb"]}
 
 
 def lm_recovery_expected(tmp: Path) -> dict:
@@ -4436,33 +4539,33 @@ def lm_ring_rank(dev, spec: dict) -> dict:
 
 
 def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
-                  path_key: str = "path") -> dict:
+                  key: str = "train") -> dict:
     """Phase 16b on one rank of the (2, 2) mesh: ``train(mesh=)`` for 3
     float32 steps of ``cell`` from the single process's init cut to this
-    rank's shards; losses, gradient norms and shards against the single
-    process's (``spec["train"][path_key]``); the rank's parameter and
-    moment bytes against its sanitized shards'; ``compressed_psum`` over
-    the data axis on one step's gradients.  For the tensor-parallel cell
-    (``LM_TRAIN``) one more step recorded on the card."""
+    rank's shards; losses, gradient norms, dropped shares and shards
+    against the single process's (``spec[key]["path"]``); the rank's
+    parameter and moment bytes against its sanitized shards';
+    ``compressed_psum`` over the data axis on one step's gradients (where
+    the cell asks).  For the tensor-parallel cells (``LM_TRAIN``,
+    ``LM_MOE``) one more step recorded on the card."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import (local_chunk, make_mesh, set_mesh,
+    from repro_torch.launch.mesh import (local_chunk, make_mesh, mesh_comm,
                                          shard_bytes)
     from repro_torch.launch.train import train
-    from repro_torch.models import sharded
-    from repro_torch.optim import ErrorFeedbackState, compressed_psum
-    from repro_torch.optim.compression import compress_int8, decompress_int8
     mesh = make_mesh(cell["mesh"], ("data", "model"), device_type="cuda")
-    ref = torch.load(spec["train"][path_key], mmap=True, weights_only=False)
-    cfg = lm_train_cfg(cell)
+    ref = torch.load(spec[key]["path"], mmap=True, weights_only=False)
+    cfg = lm_train_cfg(cell, spec[key].get("cf"))
     torch.cuda.reset_peak_memory_stats()
+    sent0 = mesh_comm(mesh, dev).sent
     st = train(cfg, steps=cell["steps"], batch=cell["batch"],
                seq=cell["seq"], lr=cell["lr"], seed=cell["seed"],
                device=dev, log_every=0, mesh=mesh)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     sm = st["params"]
+    steps_sent = sm.comm.sent - sent0
     d2 = w2 = 0.0
     worst = (0.0, "")
     for n, p in sm.local_named().items():
@@ -4477,9 +4580,44 @@ def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
     moments = sum(t.numel() * t.element_size() for k in ("mu", "nu")
                   for t in st["opt"][k].values())
     whole = sum(int(np.prod(s)) * 4 for s in sm.shapes.values())
-    # compressed_psum on one step's gradients (this rank's shard of the
-    # batch and its model slice, before the data-axis sum)
+    out = {}
+    if cell.get("psum", True):
+        out.update(lm_psum_check(sm, cfg, cell, mesh, dev))
+    out.update({"program": sm.program, "losses": st["losses"],
+                "grad_norms": st["grad_norms"], "ref_losses": ref["losses"],
+                "ref_grad_norms": ref["grad_norms"], "step_s": st["step_s"],
+                "dropped": st["dropped"], "ref_dropped": ref["dropped"],
+                "param_bytes": sm.local_bytes(), "want_bytes": want_bytes,
+                "moment_bytes": moments, "whole_bytes": whole,
+                "param_rel": (d2 / w2) ** 0.5, "worst_tensor_rel": worst[0],
+                "worst_tensor": worst[1], "stage_s": sm.comm.stage_s,
+                "wait_s": sm.comm.wait_s, "sent_bytes": sm.comm.sent,
+                "steps_sent_bytes": steps_sent, "peak_gb": peak_gb})
+    del st, sm
+    free()
+    if cell is LM_TRAIN or cell is LM_MOE:
+        # one more step of the same cell, recorded on the card as the dry
+        # run records its fakes
+        rec = dryrun.record_cell(cfg, lm_train_cell(cell), mesh, dev,
+                                 fake=False, transport=True,
+                                 seed=cell["seed"])
+        out["dot_flops"] = rec["stats"].dot_flops
+        del rec
+        free()
+    dist.barrier()
+    return out
+
+
+def lm_psum_check(sm, cfg, cell: dict, mesh, dev) -> dict:
+    """``compressed_psum`` over the data axis on one step's gradients of
+    this rank (its shard of the batch and its model slice, before the
+    data-axis sum): within one int8 step of the exact float32 sum, the
+    residual exact."""
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import sharded
+    from repro_torch.optim import ErrorFeedbackState, compressed_psum
+    from repro_torch.optim.compression import compress_int8, decompress_int8
     raw = SyntheticLM(cfg, cell["batch"], cell["seq"], seed=cell["seed"])(0)
     batch = sharded.place_batch({k: torch.as_tensor(v, device=dev)
                                  for k, v in raw.items()}, mesh)
@@ -4508,42 +4646,25 @@ def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
         worst_share = max(worst_share, err / float(step))
         resid_ok &= bool(torch.equal(ef.residual[n],
                                      g.float() - decompress_int8(q, s)))
-    out = {"program": sm.program, "losses": st["losses"],
-           "grad_norms": st["grad_norms"], "ref_losses": ref["losses"],
-           "ref_grad_norms": ref["grad_norms"], "step_s": st["step_s"],
-           "param_bytes": sm.local_bytes(), "want_bytes": want_bytes,
-           "moment_bytes": moments, "whole_bytes": whole,
-           "param_rel": (d2 / w2) ** 0.5, "worst_tensor_rel": worst[0],
-           "worst_tensor": worst[1], "psum_int8_step_share": worst_share,
-           "psum_resid_ok": resid_ok, "psum_s": psum_s,
-           "stage_s": sm.comm.stage_s, "wait_s": sm.comm.wait_s,
-           "sent_bytes": sm.comm.sent, "peak_gb": peak_gb}
-    del st, sm, grads, summed, ef
-    free()
-    if cell is LM_TRAIN:
-        # one more step of the same cell, recorded on the card as the dry
-        # run records its fakes
-        rec = dryrun.record_cell(cfg, lm_train_cell(), mesh, dev, fake=False,
-                                 transport=True, seed=cell["seed"])
-        out["dot_flops"] = rec["stats"].dot_flops
-        del rec
-        free()
-    dist.barrier()
-    return out
+    del grads, summed, ef
+    return {"psum_int8_step_share": worst_share, "psum_resid_ok": resid_ok,
+            "psum_s": psum_s}
 
 
-def lm_serve_rank(dev, spec: dict) -> dict:
-    """Phase 16b's serving on one rank of the (1, 4) mesh: the cut
-    Qwen2.5-3B from the seeded init, ``sharded_prefill`` of 2 x 512 tokens
-    into the rank's cache shards (split by sequence) and 3 decode steps;
-    the logits' largest distance from the single process's, relative to
-    1 + |theirs|."""
+def lm_serve_rank(dev, spec: dict, key: str = "train") -> dict:
+    """Phase 16b's serving on one rank of the (1, 4) mesh: a cut model
+    (Qwen2.5-3B, or OLMoE-1B-7B at its serving capacity) from the seeded
+    init, ``sharded_prefill`` of 2 x 512 tokens into the rank's cache
+    shards (split by sequence) and 3 decode steps; the logits' largest
+    distance from the single process's (``spec[key]["path"]``), relative
+    to 1 + |theirs|."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import sharded
     mesh = make_mesh(LM_SERVE["mesh"], ("data", "model"), device_type="cuda")
-    want = torch.load(spec["train"]["path"], mmap=True,
+    want = torch.load(spec[key]["path"], mmap=True,
                       weights_only=False)["serve"]
-    cfg = lm_train_cfg()
+    cfg = lm_train_cfg() if key == "train" else lm_train_cfg(
+        LM_MOE, spec[key]["serve_cf"])
     sm = sharded.ShardedModel.init(cfg, mesh, seed=LM_TRAIN["seed"],
                                    device=dev)
     caches, placements = sharded.cache_shards(
@@ -4551,7 +4672,7 @@ def lm_serve_rank(dev, spec: dict) -> dict:
         device=dev)
     split = [tuple(pl["k"]) for pl in placements]
     del caches
-    toks = sharded.place_batch({"tokens": lm_serve_tokens().to(dev)},
+    toks = sharded.place_batch({"tokens": lm_serve_tokens(cfg).to(dev)},
                                mesh)["tokens"]
     n = LM_SERVE["prompt"]
     torch.cuda.reset_peak_memory_stats()
@@ -4583,7 +4704,7 @@ def lm_serve_rank(dev, spec: dict) -> dict:
 
 
 def lm_rank(dev, spec: dict) -> dict:
-    """Phases 16a and 16b on one of the 4 ranks (one world, four
+    """Phases 16a and 16b on one of the 4 ranks (one world, six
     meshes)."""
     t0 = time.perf_counter()
     ring = lm_ring_rank(dev, spec)
@@ -4592,12 +4713,19 @@ def lm_rank(dev, spec: dict) -> dict:
     train = lm_train_rank(dev, spec)
     train["rank_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    zero3 = lm_train_rank(dev, spec, LM_ZERO3, "zero3_path")
+    zero3 = lm_train_rank(dev, spec, LM_ZERO3, "zero3")
     zero3["rank_s"] = time.perf_counter() - t1
     t2 = time.perf_counter()
     serve = lm_serve_rank(dev, spec)
     serve["rank_s"] = time.perf_counter() - t2
-    return {"ring": ring, "train": train, "zero3": zero3, "serve": serve}
+    t3 = time.perf_counter()
+    moe = lm_train_rank(dev, spec, LM_MOE, "moe")
+    moe["rank_s"] = time.perf_counter() - t3
+    t4 = time.perf_counter()
+    moe_serve = lm_serve_rank(dev, spec, "moe")
+    moe_serve["rank_s"] = time.perf_counter() - t4
+    return {"ring": ring, "train": train, "zero3": zero3, "serve": serve,
+            "moe": moe, "moe_serve": moe_serve}
 
 
 def survivor_b1_case(plan, captured) -> dict:
@@ -4769,8 +4897,10 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
     # ZeRO-3 (Mamba2)
     tr = [r["train"] for r in lm]
     z3 = [r["zero3"] for r in lm]
+    mo = [r["moe"] for r in lm]
     for cell, ranks, program in ((LM_TRAIN, tr, "fsdp_tp"),
-                                 (LM_ZERO3, z3, "zero3")):
+                                 (LM_ZERO3, z3, "zero3"),
+                                 (LM_MOE, mo, "fsdp_tp")):
         for r, x in enumerate(ranks):
             what_cell = f"16b {cell['arch']} rank {r}"
             for got, want, what in ((x["losses"], x["ref_losses"], "loss"),
@@ -4788,29 +4918,44 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
                   f"{what_cell}: {x['param_bytes']} parameter and "
                   f"{x['moment_bytes']} moment bytes, its sanitized shards "
                   f"{x['want_bytes']}")
-            check(x["psum_int8_step_share"] <= 1.0 and x["psum_resid_ok"],
-                  f"{what_cell}: compressed_psum "
-                  f"{x['psum_int8_step_share']:.3g} int8 steps from the "
-                  f"float32 sum (residual exact {x['psum_resid_ok']})")
+            check(not cell.get("psum", True) or (
+                x["psum_int8_step_share"] <= 1.0 and x["psum_resid_ok"]),
+                f"{what_cell}: compressed_psum "
+                f"{x.get('psum_int8_step_share', 0):.3g} int8 steps from "
+                f"the float32 sum (residual exact {x.get('psum_resid_ok')})")
             check(x["program"] == program, f"{what_cell}: the step ran "
                   f"{x['program']}, not {program}")
-    for r, x in enumerate(tr):
-        check(x["dot_flops"] == spec["train"]["dot_flops"], f"16b rank {r}: "
-              f"{x['dot_flops']} product flops on the card, the dry run's "
-              f"(2, 2) cell {spec['train']['dot_flops']}")
+    for key, ranks in (("train", tr), ("moe", mo)):
+        for r, x in enumerate(ranks):
+            check(x["dot_flops"] == spec[key]["dot_flops"], f"16b {key} rank "
+                  f"{r}: {x['dot_flops']} product flops on the card, the dry "
+                  f"run's (2, 2) cell {spec[key]['dot_flops']}")
+    for r, x in enumerate(mo):
+        check(min(x["dropped"]) > 0 and min(x["ref_dropped"]) > 0
+              and max(abs(a - b) for a, b in zip(x["dropped"],
+                                                 x["ref_dropped"]))
+              <= TOL_MOE_DROPPED,
+              f"16b OLMoE rank {r}: dropped shares {x['dropped']} against "
+              f"one process's {x['ref_dropped']} (each must be > 0)")
     sv = [r["serve"] for r in lm]
-    for r, x in enumerate(sv):
-        check(x["program"] == "fsdp_tp" and x["finite"]
-              and max(x["errs"]) <= TOL_TRAIN_GATE,
-              f"16b rank {r}: the (1, 4) prefill and decode logits "
-              f"{x['errs']} (relative to 1 + |one process's|) over "
-              f"{TOL_TRAIN_GATE}; program {x['program']}")
+    ms = [r["moe_serve"] for r in lm]
+    for what, ranks in (("Qwen", sv), ("OLMoE", ms)):
+        for r, x in enumerate(ranks):
+            check(x["program"] == "fsdp_tp" and x["finite"]
+                  and max(x["errs"]) <= TOL_TRAIN_GATE,
+                  f"16b {what} rank {r}: the (1, 4) prefill and decode "
+                  f"logits {x['errs']} (relative to 1 + |one process's|) "
+                  f"over {TOL_TRAIN_GATE}; program {x['program']}")
     res["train"] = {"ranks": tr, "cut": f"{LM_TRAIN['layers']} of 36 layers",
                     "dry_run_dot_flops": spec["train"]["dot_flops"],
                     "dry_run_peak_bytes": spec["train"]["peak_bytes"],
                     "zero3_peak_gb": LM_TRAIN_ZERO3_PEAK_GB}
     res["serve"] = {"ranks": sv, **LM_SERVE}
     res["zero3"] = {"ranks": z3, **LM_ZERO3}
+    res["moe"] = {"ranks": mo, "serve_ranks": ms, **LM_MOE,
+                  **{k: spec["moe"][k] for k in (
+                      "cf", "serve_cf", "dot_flops", "peak_bytes",
+                      "n_params", "ref_peak_gb")}}
     log(f"  16b Qwen2.5-3B at full width, depth cut to {LM_TRAIN['layers']} of"
         f" 36 layers, float32 on (2, 2): losses {tr[0]['losses']} (one "
         f"process {tr[0]['ref_losses']}); parameter shards within "
@@ -4853,14 +4998,45 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
         f"{[[round(w, 3) for w in x['walls_s']] for x in sv]} s; bytes "
         f"sent {[x['sent_bytes'] for x in sv]}; peak "
         f"{[round(x['peak_gb'], 2) for x in sv]} GB; {card}")
+    m = spec["moe"]
+    log(f"  16b OLMoE-1B-7B at full width, depth cut to {LM_MOE['layers']} "
+        f"of 16 layers ({m['n_params']} parameters), float32 on (2, 2), the "
+        f"tensor-parallel program (experts over model, one dispatch group "
+        f"over both batch shards), capacity factor {m['cf']}: losses "
+        f"{mo[0]['losses']} (one process {mo[0]['ref_losses']}), gradient "
+        f"norms {mo[0]['grad_norms']} (one process "
+        f"{mo[0]['ref_grad_norms']}), dropped {mo[0]['dropped']} (one "
+        f"process {mo[0]['ref_dropped']}); parameter shards within "
+        f"{max(x['param_rel'] for x in mo):.3g} of one process's (worst "
+        f"tensor {max((x['worst_tensor_rel'], x['worst_tensor']) for x in mo)}"
+        f"); bytes per rank: parameters {[x['param_bytes'] for x in mo]} of "
+        f"{mo[0]['whole_bytes']}, moments {[x['moment_bytes'] for x in mo]}; "
+        f"step walls {[[round(s, 2) for s in x['step_s']] for x in mo]} s; "
+        f"bytes sent over the 3 steps {[x['steps_sent_bytes'] for x in mo]};"
+        f" staging {[round(x['stage_s'], 1) for x in mo]} s, waits "
+        f"{[round(x['wait_s'], 1) for x in mo]} s; peak "
+        f"{[round(x['peak_gb'], 2) for x in mo]} GB a rank (the dry run's "
+        f"{m['peak_bytes'] / 1e9:.2f}; one process {m['ref_peak_gb']:.2f}); "
+        f"product flops a rank {[x['dot_flops'] for x in mo]} (dry run "
+        f"{m['dot_flops']:.6e}); {card}")
+    log(f"  16b the same OLMoE on (data 1, model 4) at capacity factor "
+        f"{m['serve_cf']}: prefill of {LM_SERVE['batch']} x "
+        f"{LM_SERVE['prompt']} tokens and {LM_SERVE['steps']} decode steps, "
+        f"cache shard {ms[0]['cache_shard']}; logits within "
+        f"{max(max(x['errs']) for x in ms):.3g} of one process's (relative "
+        f"to 1 + |theirs|, bound {TOL_TRAIN_GATE}); walls "
+        f"{[[round(w, 3) for w in x['walls_s']] for x in ms]} s; bytes sent "
+        f"{[x['sent_bytes'] for x in ms]}; peak "
+        f"{[round(x['peak_gb'], 2) for x in ms]} GB; {card}")
 
 
 def lm_phase(card: str) -> dict:
     """Phase 16: the LM stack on ranks sharing the one card over gloo
     (host-staged): (a) OLMoE-1B-7B with the expert ring on a (1, 4) mesh,
-    (b) Qwen2.5-3B's tensor-parallel train step and Mamba2-130m's ZeRO-3
-    step on a (2, 2) mesh and Qwen's serving on (1, 4), all in one world
-    of 4 ranks, and (c) recovery from 9 ranks onto their survivors' 2x2.
+    (b) the tensor-parallel train steps of Qwen2.5-3B and OLMoE-1B-7B and
+    Mamba2-130m's ZeRO-3 step on a (2, 2) mesh and Qwen's and OLMoE's
+    serving on (1, 4), all in one world of 4 ranks, and (c) recovery from
+    9 ranks onto their survivors' 2x2.
     The single process's results come first (written for the ranks)."""
     import tempfile
 
@@ -4872,9 +5048,10 @@ def lm_phase(card: str) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        spec = {"ring": lm_ring_expected(tmp),
-                "train": lm_train_expected(tmp),
-                "recovery": lm_recovery_expected(tmp)}
+        spec = {"ring": lm_ring_expected(tmp)}
+        spec["train"], spec["zero3"] = lm_train_expected(tmp)
+        spec["moe"] = lm_moe_expected(tmp)
+        spec["recovery"] = lm_recovery_expected(tmp)
         free()
         ref_s = time.perf_counter() - t0
         t1 = time.perf_counter()

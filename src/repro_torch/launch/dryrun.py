@@ -12,11 +12,12 @@ whether the rank's peak fits the card's 80 GB, and ``program``, the
 program the cell ran (``sharded.program``).  Every number is a prediction
 from those constants, not a measurement.
 
-The dense attention LMs run ``"fsdp_tp"``, JAX's FSDP x tensor-parallel
-program: parameters gathered over the batch axes only, each product
-partitioned over ``model`` as GSPMD partitions the reference's
-(``models/tensor_parallel.py``), so a rank's product flops are JAX's.
-The MoE, recurrent and frontend families run ``"zero3"``: every
+The attention LMs, dense and MoE, run ``"fsdp_tp"``, JAX's FSDP x
+tensor-parallel program: parameters gathered over the batch axes only,
+each product partitioned over ``model`` as GSPMD partitions the
+reference's (``models/tensor_parallel.py``; a MoE layer's experts over
+``model``, its routing the global batch's), so a rank's product flops are
+JAX's.  The recurrent and frontend families run ``"zero3"``: every
 parameter gathered whole, the batch shard computed by all of the
 ``model`` axis's ranks alike.
 

@@ -28,7 +28,8 @@ all-gather, an all-reduce, a reduce-scatter and an all-to-all (each part
 sent straight to its owner), and, as ``torch.autograd.Function`` s for a
 differentiated program, copy-to (identity forward, gradient summed),
 reduce-from (summed forward, gradient passed), gather-along (gradient
-sliced or reduce-scattered) and exchange.  On the ``gloo``
+sliced or reduce-scattered), exchange and a mean over several axes (the
+gradient averaged too).  On the ``gloo``
 transport a card tensor is staged through host memory (gloo moves host
 tensors), copies it counts and times; the computation stays on the card.
 """
@@ -305,10 +306,11 @@ class MeshComm:
     (coordinate i receives from i + sign) as a ``batch_isend_irecv``;
     ``all_gather`` concatenates every coordinate's tensor along a
     dimension in coordinate order; ``all_reduce`` sums (or averages) over
-    one or more axes; ``reduce_scatter`` and ``all_to_all`` send each
-    coordinate its part in one ``batch_isend_irecv``.  :meth:`copy_to`,
-    :meth:`reduce_from`, :meth:`gather_along` and :meth:`exchange` are
-    the same transfers with the adjoint backward.  On ``gloo`` a card
+    one or more axes, and :meth:`all_gather_over` gathers over several;
+    ``reduce_scatter`` and ``all_to_all`` send each coordinate its part in
+    one ``batch_isend_irecv``.  :meth:`copy_to`, :meth:`reduce_from`,
+    :meth:`gather_along`, :meth:`exchange` and :meth:`mean_over` are the
+    same transfers with the adjoint backward.  On ``gloo`` a card
     tensor is copied to the host for the transfer and back after it (timed
     in ``stage_s``); ``sent`` counts the bytes this rank put on the wire,
     ``wait_s`` the host's waits for transfers.
@@ -449,6 +451,16 @@ class MeshComm:
         self._wait(self._gather(bufs, raw, self._groups[axis]))
         return self._back(torch.cat([_typed(b, h) for b in bufs], dim=dim))
 
+    def all_gather_over(self, t: torch.Tensor, axes: Sequence[str],
+                        dim: int) -> torch.Tensor:
+        """Every coordinate's ``t`` over ``axes`` (in mesh order, the first
+        the major one), concatenated along ``dim``: the part of coordinate
+        ``(i, j)`` of axes of sizes ``(n, m)`` at position ``i * m + j``
+        (no gradient)."""
+        for a in reversed([a for a in self.names if a in axes]):
+            t = self.all_gather(t, a, dim)
+        return t
+
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str],
                    op: str = "sum") -> torch.Tensor:
         """``t`` summed (``op="sum"``) or averaged (``"mean"``, JAX's
@@ -562,6 +574,14 @@ class MeshComm:
         return _AllToAll.apply(x, self, axis, split_dim, cat_dim) \
             if self.sizes[axis] > 1 else x
 
+    def mean_over(self, x: torch.Tensor, axes: Sequence[str]
+                  ) -> torch.Tensor:
+        """The mean over the coordinates of ``axes`` forward; backward, the
+        mean of the coordinates' gradients (its adjoint: each coordinate's
+        input counts once in every coordinate's output)."""
+        axes = tuple(a for a in axes if self.sizes[a] > 1)
+        return _MeanOver.apply(x, self, axes) if axes else x
+
     def gather_full(self, local: torch.Tensor, placements) -> torch.Tensor:
         """The whole tensor from every rank's shard (``local``) under
         ``placements``: all-gathers over the sharding mesh dimensions, the
@@ -594,6 +614,17 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return comm.all_reduce(x, axes, "mean")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g, ctx.axes, "mean"), None, None
 
 
 class _GatherAlong(torch.autograd.Function):

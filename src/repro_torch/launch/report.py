@@ -2,8 +2,9 @@
 
 Port of ``repro/launch/report.py``.  The records are the port's dry run's
 (``launch/dryrun.py``): predictions of the port's programs for a pod of
-H100 ranks (``"fsdp_tp"`` for the dense attention LMs, ``"zero3"`` for the
-rest: each record says which) from the card's data-sheet constants
+H100 ranks (``"fsdp_tp"`` for the attention LMs, dense and MoE,
+``"zero3"`` for the recurrent and frontend families: each record says
+which) from the card's data-sheet constants
 (``core/roofline.py``), not measurements.
 
   PYTHONPATH=src python -m repro_torch.launch.report --dir results/torch_dryrun

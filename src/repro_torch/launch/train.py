@@ -11,7 +11,9 @@ handling.  Without a mesh it trains on one device.  With ``mesh=`` (a
 calls :func:`train`) the parameters and moments live as each rank's
 shards, placed by their sanitized specs, each rank takes its shard of
 the batch, and the step is ``models/sharded.py``'s (the reference's GSPMD
-step, as an explicit program on each rank).
+step, as an explicit program on each rank: FSDP x tensor parallelism for
+the attention LMs, dense and MoE, ZeRO-3 for the recurrent and frontend
+families, ``sharded.program``).
 :func:`selftest_parallel_equivalence` holds the sharded loss against the
 single-process one.
 

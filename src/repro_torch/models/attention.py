@@ -171,9 +171,9 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     If ``cache`` is given (prefill), k/v are written into it and the
     updated cache is returned alongside the output.
     """
-    b, t, _ = x.shape
+    t = x.shape[1]
     w = tensor_parallel.attn_weights(p, cfg)
-    x = tensor_parallel.site("attn.in", x)
+    x = w.site("attn.in", x)
     q, (k, v) = w.q(x), w.kv(x)
     sin, cos = rope(positions, w.hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
@@ -183,8 +183,7 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     else:
         mask = _pair_mask(cfg, kind, positions, positions)[None]
         out = _sdpa(q, k, v, mask, cfg)
-    out = out.reshape(b, t, -1) @ w.wo.to(x.dtype)
-    out = tensor_parallel.site("attn.out", out)
+    out = w.site("attn.out", w.out(out))
     if cache is None:
         return out, None
     return out, _write_cache(w, cache, x, k, v, positions, sin, cos, cfg,
@@ -295,7 +294,7 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Dict, pos,
     """
     w = tensor_parallel.attn_weights(p, cfg)
     b = x.shape[0]
-    x = tensor_parallel.site("attn.in", x)
+    x = w.site("attn.in", x)
     s0, s, h0 = w.cache_layout(cache)
     s_loc, k_loc = cache["k"].shape[1:3]
     pos_b = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -332,5 +331,4 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Dict, pos,
         kv0, kv1 = (i - h0 for i in w.kv_heads)
         out = _sdpa(q, kc[:, :, kv0:kv1], vc[:, :, kv0:kv1], ok[:, None, :],
                     cfg)
-    out = out.reshape(b, 1, -1) @ w.wo.to(x.dtype)
-    return tensor_parallel.site("attn.out", out), cache
+    return w.site("attn.out", w.out(out)), cache

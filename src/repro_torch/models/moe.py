@@ -9,21 +9,30 @@ scatter and gather (the dense reference); the serving engine's
 ``repro_torch.serving.sparse`` runs the same two products through the plan
 API's ``ring_a`` schedule, on the same routing (:func:`route_tokens`).
 
-On a mesh (``launch.mesh.set_mesh``) with a ``"model"`` axis the layer
-runs as an explicit program on each rank, the counterpart of the
-reference's ``shard_map`` and GSPMD partitioning.  A rank whose
-parameters hold its shard of the experts (``moe_specs``: experts over
-``"model"``) runs :func:`moe_forward` expert-parallel: every rank routes
-and dispatches all of its tokens, applies its own experts to their slice
-of the capacity buffer, and the outputs are all-gathered over the expert
-axis.  ``cfg.moe_impl == "ring"`` selects :func:`ring_moe_forward`, the
-paper's stationary-A ring on the expert axis: experts stay on their rank,
-token shards and their partial outputs ride R hops of a
-``batch_isend_irecv`` ring.  Both rank bodies compute forward values (the
-serving and evaluation paths); a train step on a mesh gathers the
-experts whole (``launch/train.py``), so no gradient crosses a ring hop.
-:func:`selftest_distributed` and :func:`selftest_ring` hold them against
-the single-process layer on ``n`` ranks.
+On a mesh the layer runs as an explicit program on each rank, the
+counterpart of the reference's GSPMD partitioning (``moe_specs``: experts
+over ``"model"``).  Inside the FSDP x tensor-parallel program
+(``models/tensor_parallel.py``, the program a MoE model trains and serves
+on a mesh, ``models/sharded.py``), or under ``launch.mesh.set_mesh`` with
+this rank's shard of the experts, :func:`moe_forward` is expert-parallel:
+every rank of ``model`` routes the same tokens (its batch shard), fills
+the slots of its own experts only, ``[G_rank, e / m + 1, cap, d]`` with
+the last row the overflow, and combines their outputs, the other experts'
+slots read as zeros; the partial outputs are summed over ``model`` (the
+``moe.out`` site), with gradients.  The routing is the reference's on the
+whole batch, whatever the batch axes split: a token's slot is its rank
+within its group over every shard (the shards before it counted through
+one all-gather of a ``[G, e]`` count matrix), the capacity that of the
+global token count, and the aux and z losses and ``moe_dropped`` those of
+the global batch (``me`` and the z loss averaged over the batch axes
+before the product, with gradients).  ``cfg.moe_impl == "ring"`` selects
+:func:`ring_moe_forward` under ``set_mesh``, the paper's stationary-A ring
+on the expert axis: experts stay on their rank, token shards and their
+partial outputs ride R hops of a ``batch_isend_irecv`` ring.  Its rank
+body computes forward values only (a train step with ``moe_impl="ring"``
+and no ambient mesh runs :func:`moe_forward`).
+:func:`selftest_distributed` and :func:`selftest_ring` hold both rank
+bodies against the single-process layer on ``n`` ranks.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..launch.mesh import current_mesh, mesh_comm, mesh_sizes
+from . import tensor_parallel
 from .common import BATCH_AXES, MODEL_AXIS, P, Params, dense_init, gelu_tanh
 from .config import ModelConfig
 
@@ -95,18 +105,26 @@ def _top_k(probs: torch.Tensor, k: int):
 
 
 def route_tokens(router: torch.Tensor, xf: torch.Tensor,
-                 cfg: ModelConfig) -> Dict:
+                 cfg: ModelConfig, tp=None) -> Dict:
     """Shared router math: softmax -> top-k -> per-group capacity slots.
 
     ``xf``: [n, d] flat tokens.  Returns a dict of routing tensors (and the
-    static ints ``cap``, ``G``, ``ng``); both :func:`moe_forward` and the
-    serving engine's sparse dispatch call this, so the two paths route
-    identically.
+    static ints ``cap``, ``G``, ``ng``, and ``groups``, the groups the
+    tokens fall in, with ``group`` each token's among them); both
+    :func:`moe_forward` and the serving engine's sparse dispatch call
+    this, so the two paths route identically.
+
+    Inside a program (``tp``, a ``TensorParallel``) ``xf`` is part
+    ``tp.shard`` of ``tp.shards`` of the batch: the groups, the capacity
+    and each token's slot are the whole batch's, the shards before this
+    one counted through one all-gather of the ``[G, e]`` counts over the
+    batch axes (collective).
     """
     m = cfg.moe
     n = xf.shape[0]
     e, k = m.n_experts, m.top_k
-    cap, G, ng = route_meta(n, cfg)
+    shards, shard = (tp.shards, tp.shard) if tp is not None else (1, 0)
+    cap, G, ng = route_meta(n * shards, cfg)
 
     logits = xf.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
@@ -115,35 +133,64 @@ def route_tokens(router: torch.Tensor, xf: torch.Tensor,
 
     # per-group capacity assignment (slot = rank within group+expert)
     onehot = F.one_hot(top_e, e).to(torch.int32)               # [n, k, e]
-    flat = onehot.reshape(G, ng * k, e)
-    ranks = torch.cumsum(flat, dim=1) - flat                   # excl, per group
+    first = shard * n                  # the first token's global index
+    g0 = first // ng
+    groups = (first + n - 1) // ng - g0 + 1
+    group = (torch.arange(n, device=xf.device) + first) // ng - g0
+    flat = onehot.reshape(n * k, e)
+    gk = group.repeat_interleave(k)
+    counts = flat.new_zeros((groups, e)).index_add_(0, gk, flat)
+    # excl, per group: those of the earlier groups here taken off
+    ranks = torch.cumsum(flat, dim=0) - flat \
+        - (torch.cumsum(counts, dim=0) - counts)[gk]
+    if shards > 1:                 # and those of the earlier shards added
+        mine = counts.new_zeros((G, e))
+        mine[g0:g0 + groups] = counts
+        every = tp.comm.all_gather_over(mine[None], tp.batch_axes, 0)
+        ranks = ranks + every[:shard, g0:g0 + groups].sum(0)[gk]
     slot = (ranks * flat).sum(-1).reshape(n, k)
     keep = slot < cap
     return {"logits": logits, "probs": probs, "top_p": top_p,
             "top_e": top_e, "slot": slot, "keep": keep, "onehot": onehot,
-            "cap": cap, "G": G, "ng": ng,
+            "cap": cap, "G": G, "ng": ng, "groups": groups, "group": group,
             "dropped": 1.0 - keep.float().mean()}
 
 
 def expert_ffn(p: Params, xe: torch.Tensor, cfg: ModelConfig
                ) -> torch.Tensor:
     """Expert MLPs on dispatched slots.  xe: [..., e, cap, d] -> same."""
+    return _ffn(p.w_gate, p.w_up, p.w_down, xe, cfg)
+
+
+def _ffn(w_gate, w_up, w_down, xe, cfg: ModelConfig) -> torch.Tensor:
     act = F.silu if cfg.mlp_kind != "geglu" else gelu_tanh
-    g = xe @ p.w_gate.to(xe.dtype)
-    u = xe @ p.w_up.to(xe.dtype)
-    return (act(g) * u) @ p.w_down.to(xe.dtype)
+    g = xe @ w_gate.to(xe.dtype)
+    u = xe @ w_up.to(xe.dtype)
+    return (act(g) * u) @ w_down.to(xe.dtype)
 
 
-def router_aux(route: Dict, cfg: ModelConfig) -> Dict:
-    """Switch-style aux losses + drop stats from :func:`route_tokens`."""
+def router_aux(route: Dict, cfg: ModelConfig, tp=None) -> Dict:
+    """Switch-style aux losses + drop stats from :func:`route_tokens`.
+    Inside a program whose tokens are a part of the batch (``tp.shards >
+    1``) they are the whole batch's: ``me`` and the z loss averaged over
+    the batch axes before the product (with gradients), ``ce`` and the
+    drops too (collective)."""
     m = cfg.moe
     me = route["probs"].mean(0)                                # [e]
     ce = route["onehot"].float().sum(1).mean(0)                # fraction routed
+    z = torch.mean(torch.square(torch.logsumexp(route["logits"], dim=-1)))
+    dropped = route["dropped"]
+    if tp is not None and tp.shards > 1:
+        c, axes = tp.comm, tp.batch_axes
+        both = c.mean_over(torch.cat([me, z[None]]), axes)
+        me, z = both[:-1], both[-1]
+        rest = c.all_reduce(torch.cat([ce, dropped[None]]).detach(), axes,
+                            "mean")
+        ce, dropped = rest[:-1], rest[-1]
     return {
         "moe_aux": m.aux_loss * m.n_experts * torch.sum(me * ce),
-        "moe_z": m.router_z_loss * torch.mean(
-            torch.square(torch.logsumexp(route["logits"], dim=-1))),
-        "moe_dropped": route["dropped"],
+        "moe_z": m.router_z_loss * z,
+        "moe_dropped": dropped,
     }
 
 
@@ -153,42 +200,46 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
 
     Dispatch uses per-group capacity: tokens split into G groups, each
     ranks its own tokens and scatters into its own capacity slice (G = 1
-    on one card unless the config asks for more).
+    on one card unless the config asks for more).  On a mesh (module
+    docstring) the rank fills, runs and combines its own experts' slots,
+    and the partial outputs are summed over ``model``.
     """
     m = cfg.moe
     b, t, d = x.shape
     n = b * t
-    e, k = m.n_experts, m.top_k
+    k = m.top_k
     xf = x.reshape(n, d)
+    tp = _program(p, cfg)
 
-    r = route_tokens(p.router, xf, cfg)
+    r = route_tokens(p.router, xf, cfg, tp)
     top_p, top_e = r["top_p"], r["top_e"]
-    slot, keep, cap, G, ng = r["slot"], r["keep"], r["cap"], r["G"], r["ng"]
+    slot, keep, cap = r["slot"], r["keep"], r["cap"]
+    wg, wu, wd, e0 = tensor_parallel.moe_weights(p, tp)
+    el = wg.shape[0]
 
     # --- dispatch: per-group scatter, the sparse D applied ----------------
-    idx_e = torch.where(keep, top_e, e).reshape(G, ng * k)
-    idx_c = torch.where(keep, slot, 0).reshape(G, ng * k)
-    idx_g = torch.arange(G, device=x.device)[:, None].expand(G, ng * k)
-    x_rep = xf[:, None, :].expand(n, k, d).reshape(G, ng * k, d)
-    buf = x.new_zeros((G, e + 1, cap, d))
-    buf.index_put_((idx_g, idx_e, idx_c), x_rep, accumulate=True)
-    xe = buf[:, :e]                                     # [G, e, cap, d]
+    # this rank's experts' slots only; the rest go to the overflow row el
+    mine = keep & (top_e >= e0) & (top_e < e0 + el)
+    ie = torch.where(mine, top_e - e0, el)
+    ic = torch.where(mine, slot, 0)
+    ig = r["group"]
+    site = tp.site if tp is not None else (lambda name, v: v)
+    xin = site("moe.in", xf)
+    buf = x.new_zeros((r["groups"], el + 1, cap, d))
+    for j in range(k):
+        buf.index_put_((ig, ie[:, j], ic[:, j]), xin, accumulate=True)
 
     # --- expert FFN (stationary A: weights never move) ---------------------
-    comm = _expert_shard(p, cfg)
-    if comm is None:
-        ye = expert_ffn(p, xe, cfg)
-    else:                       # this rank's experts, then all of them
-        el, ri = p.w_gate.shape[0], comm.index(MODEL_AXIS)
-        ye = comm.all_gather(expert_ffn(p, xe[:, ri * el:(ri + 1) * el],
-                                        cfg), MODEL_AXIS, dim=1)
+    ye = _ffn(wg, wu, wd, buf[:, :el], cfg)
 
     # --- combine: (D * probs)^T @ Y, a gather ------------------------------
-    ye_pad = torch.cat([ye, ye.new_zeros((G, 1, cap, d))], dim=1)
-    gathered = ye_pad[idx_g, idx_e, idx_c]              # [G, ng*k, d]
-    w = torch.where(keep, top_p, 0.0).to(x.dtype)
-    y = torch.einsum("nkd,nk->nd", gathered.reshape(n, k, d), w)
-    return y.reshape(b, t, d), router_aux(r, cfg)
+    ye_pad = torch.cat([ye, ye.new_zeros((r["groups"], 1, cap, d))], dim=1)
+    w = site("moe.in", torch.where(keep, top_p, 0.0).to(x.dtype))
+    y = ye_pad[ig, ie[:, 0], ic[:, 0]] * w[:, :1]
+    for j in range(1, k):
+        y = y + ye_pad[ig, ie[:, j], ic[:, j]] * w[:, j:j + 1]
+    y = site("moe.out", y)
+    return y.reshape(b, t, d), router_aux(r, cfg, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -197,15 +248,20 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
 def _no_grad_through(*ts) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
-            "the MoE rank bodies compute forward values only (no gradient "
-            "crosses their collectives); a train step on a mesh gathers the "
-            "experts whole (repro_torch.launch.train)")
+            "the expert ring's rank bodies compute forward values only (no "
+            "gradient crosses their hops); train with moe_impl="
+            "'dense_onehot' on a mesh")
 
 
-def _expert_shard(p: Params, cfg: ModelConfig):
-    """The mesh's collectives when ``p`` holds this rank's shard of the
-    experts (its leading dimension ``n_experts / R`` on a model axis of
-    ``R >= 2``), else None (all the experts here)."""
+def _program(p: Params, cfg: ModelConfig):
+    """The tensor-parallel program the layer runs in: the current one
+    (``tensor_parallel.use``), else, under ``set_mesh`` with ``p`` holding
+    this rank's shard of the experts (its leading dimension ``n_experts /
+    R`` on a model axis of ``R >= 2``), one over the ambient mesh; None
+    (all the experts here) outside both."""
+    tp = tensor_parallel.current()
+    if tp is not None:
+        return tp
     mesh = current_mesh()
     e, el = cfg.moe.n_experts, p.w_gate.shape[0]
     if mesh is None or el == e:
@@ -214,8 +270,8 @@ def _expert_shard(p: Params, cfg: ModelConfig):
     if r_size < 2 or el * r_size != e:
         raise ValueError(f"{el} local experts of {e} do not shard over a "
                          f"model axis of {r_size}")
-    _no_grad_through(p.w_gate)
-    return mesh_comm(mesh, p.w_gate.device)
+    return tensor_parallel.TensorParallel(cfg, mesh_comm(mesh,
+                                                         p.w_gate.device))
 
 
 def _local_experts(w: torch.Tensor, r: int, el: int) -> torch.Tensor:

@@ -9,20 +9,20 @@ data, model)`` mesh, placed by the sanitized specs of
 (``AdamW.state_specs``).  The step is an explicit program on each rank,
 one of two (:func:`program`):
 
-* ``"fsdp_tp"``, the dense attention LMs (``tensor_parallel.supported``):
-  JAX's "FSDP (over 'data') x TP (over 'model')".  Each parameter is
-  all-gathered over the batch axes only and keeps its shard along
-  ``model``; the rank runs forward and backward on its batch shard
-  through its own q heads, MLP hidden units and vocabulary entries, with
-  the collective each of the reference's constrain sites implies
-  (``models/tensor_parallel.py``), the loss a vocab-parallel
-  cross-entropy (:class:`_VocabNLL`: max and sum all-reduced over
-  ``model``, the gold logit from its owner, a backward that never forms
-  the whole logits).  Each gradient is then the rank's ``model`` slice
-  already: it is summed over the batch axes (a reduce-scatter where they
-  split it) into the rank's shard.
-* ``"zero3"``, the MoE, recurrent and frontend families: every parameter
-  is all-gathered whole, the rank runs its batch shard (whole on the
+* ``"fsdp_tp"``, the attention LMs, dense and MoE
+  (``tensor_parallel.supported``): JAX's "FSDP (over 'data') x TP (over
+  'model')".  Each parameter is all-gathered over the batch axes only and
+  keeps its shard along ``model``; the rank runs forward and backward on
+  its batch shard through its own q heads, MLP hidden units, experts and
+  vocabulary entries, with the collective each of the reference's
+  constrain sites implies (``models/tensor_parallel.py``), the loss a
+  vocab-parallel cross-entropy (:class:`_VocabNLL`: max and sum
+  all-reduced over ``model``, the gold logit from its owner, a backward
+  that never forms the whole logits).  Each gradient is then the rank's
+  ``model`` slice already: it is summed over the batch axes (a
+  reduce-scatter where they split it) into the rank's shard.
+* ``"zero3"``, the recurrent and frontend families: every parameter is
+  all-gathered whole, the rank runs its batch shard (whole on the
   ``model`` axis: those ranks compute the same), cuts every gradient to
   its slice along the other axes and sums that over the batch axes.
 
@@ -33,9 +33,12 @@ over the number of batch shards (the batch split over the batch axes by
 (one all-reduce of a scalar, each shard counted once), and AdamW updates
 the rank's shards of the parameters and moments in place.  So the loss
 and the update are the single-process step's on the whole batch, up to
-the order of the sums.  A MoE layer's aux loss and capacity are, as with
-the reference's ``moe_dispatch_groups`` set to the batch shards, those of
-each shard's tokens.  The gathered parameters are freed after the step.
+the order of the sums.  A MoE layer routes the whole batch as the
+reference does, whatever ``moe_dispatch_groups`` is (``models/moe.py``):
+its slots, capacity, drops and aux losses are the global batch's, the
+same on every rank, so the aux losses over the batch shards, with their
+gradients summed over the batch axes, are the aux losses once.  The
+gathered parameters are freed after the step.
 
 Serving (:func:`sharded_prefill`, :func:`make_sharded_decode_step`) runs
 the same program without gradients on the rank's shards of the caches
@@ -69,8 +72,9 @@ __all__ = ["ShardedModel", "program", "place_batch", "sharded_loss",
 
 
 def program(cfg: ModelConfig) -> str:
-    """The program ``cfg`` runs on a mesh: ``"fsdp_tp"`` for the dense
-    attention LMs, ``"zero3"`` for the rest (module docstring)."""
+    """The program ``cfg`` runs on a mesh: ``"fsdp_tp"`` for the attention
+    LMs, dense and MoE, ``"zero3"`` for the recurrent and frontend
+    families (module docstring)."""
     return "fsdp_tp" if tensor_parallel.supported(cfg) else "zero3"
 
 
@@ -192,13 +196,16 @@ class ShardedModel:
         return batch
 
     @contextlib.contextmanager
-    def gathered(self, requires_grad: bool = False, decode: bool = False):
+    def gathered(self, requires_grad: bool = False, decode: bool = False,
+                 batch_split: bool = True):
         """Inside the block ``self.local`` holds every parameter as the
         step reads it (gathered, collective: :meth:`step_placements`), and
         under ``"fsdp_tp"`` the program's collectives are the layers'
-        (``tensor_parallel.use``, a ``decode`` step's where it is one);
-        the shards are put back after it, and the gathered ones dropped.
-        Yields the gathered parameters by name."""
+        (``tensor_parallel.use``, a ``decode`` step's where it is one;
+        ``batch_split``: the layers' tokens are the rank's part of a batch
+        split over the batch axes, not the whole batch); the shards are
+        put back after it, and the gathered ones dropped.  Yields the
+        gathered parameters by name."""
         shards = {}
         for n, p in list(self.local.named_parameters()):
             t = self.comm.gather_full(p.data, self.step_placements(n))
@@ -207,8 +214,8 @@ class ShardedModel:
             owner.register_parameter(leaf, nn.Parameter(
                 t, requires_grad=requires_grad))
         tp = (tensor_parallel.use(tensor_parallel.TensorParallel(
-            self.cfg, self.comm, decode)) if self.program == "fsdp_tp"
-            else contextlib.nullcontext())
+            self.cfg, self.comm, decode, batch_split))
+            if self.program == "fsdp_tp" else contextlib.nullcontext())
         try:
             with tp:
                 yield dict(self.local.named_parameters())
@@ -299,6 +306,19 @@ def _replicas(placements, mesh) -> int:
                      if not pl.is_shard())
 
 
+def _splits(rows: int, mesh) -> bool:
+    """Whether a whole batch of ``rows`` is split over the batch axes."""
+    return batch_partition_spec(rows, mesh)[0] is not None
+
+
+def _rows_split(cache_placements, mesh) -> bool:
+    """Whether caches under ``cache_placements`` hold the rank's part of a
+    batch split over the batch axes (their rows are)."""
+    names = list(mesh_sizes(mesh))
+    return any(pl.is_shard() and pl.dim == 0 and a in BATCH_AXES
+               for a, pl in zip(names, cache_placements[0]["pos"]))
+
+
 def place_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict:
     """This rank's shard of a whole batch (every rank holds the same one),
     cut along the batch dimension by ``batch_partition_spec``."""
@@ -364,9 +384,11 @@ def _vocab_nll(logits: torch.Tensor, labels: torch.Tensor, tp,
 def _local_loss(model: tf.Transformer, batch: Dict, cfg: ModelConfig,
                 comm, axes) -> Tuple[torch.Tensor, Dict]:
     """The rank's share of the global loss (its tokens' NLL sum over the
-    global count, plus its aux losses over the number of batch shards)
-    and the global metrics; vocab-parallel inside the tensor-parallel
-    program."""
+    global count, plus the aux losses over the number of batch shards:
+    a MoE layer's are the global batch's on every rank, so the shards'
+    shares sum to them once, and so do their gradients, summed over the
+    batch axes) and the global metrics; vocab-parallel inside the
+    tensor-parallel program."""
     inputs, labels = lm._shift_batch(batch, cfg)
     logits, _, aux = tf.forward(model, inputs, cfg)
     tp = tensor_parallel.current()
@@ -389,7 +411,8 @@ def sharded_loss(sm: ShardedModel, batch: Dict, cfg: ModelConfig
     gradients: (loss with the aux losses, metrics), equal on every
     rank."""
     axes = _batch_axes(sm.mesh)
-    with torch.no_grad(), sm.gathered():
+    split = _splits(batch["tokens"].shape[0], sm.mesh)
+    with torch.no_grad(), sm.gathered(batch_split=split):
         total, metrics = _local_loss(sm.local, place_batch(batch, sm.mesh),
                                      cfg, sm.comm, axes)
     return metrics["loss"] + metrics["aux"], metrics
@@ -400,7 +423,8 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer) -> Callable:
     opt_state, metrics)`` for a :class:`ShardedModel`: ``opt_state``
     holds this rank's shards of the moments (``optimizer.init(sm.local)``)
     and ``batch`` the whole batch (every rank the same), or with
-    ``placed`` this rank's shard of it (:func:`place_batch`'s).  Updates
+    ``placed`` this rank's part of it split over the batch axes
+    (:func:`place_batch`'s of a batch they divide).  Updates
     the shards in place; the metrics (``loss``, ``aux``, ``dropped``,
     ``grad_norm``) are global."""
 
@@ -408,7 +432,9 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer) -> Callable:
                    placed: bool = False):
         axes = _batch_axes(sm.mesh)
         local_batch = batch if placed else place_batch(batch, sm.mesh)
-        with sm.gathered(requires_grad=True) as full:
+        split = placed or _splits(next(iter(batch.values())).shape[0],
+                                  sm.mesh)
+        with sm.gathered(requires_grad=True, batch_split=split) as full:
             total, metrics = _local_loss(sm.local, local_batch, cfg,
                                          sm.comm, axes)
             total.backward()
@@ -498,7 +524,8 @@ def sharded_prefill(sm: ShardedModel, batch: Dict, cfg: ModelConfig,
     (``cache_placements`` unused): its ``transformer.forward`` logits."""
     if sm.program == "fsdp_tp":
         rows, t = batch["tokens"].shape
-        with torch.no_grad(), sm.gathered():
+        split = _rows_split(cache_placements, sm.mesh)
+        with torch.no_grad(), sm.gathered(batch_split=split):
             caches = _empty_shards(cfg, rows, max_len, cache_placements,
                                    sm.mesh, cache_dtype, sm.local.device)
             logits, caches, _ = tf.forward(sm.local, batch, cfg,
@@ -531,7 +558,8 @@ def make_sharded_decode_step(cfg: ModelConfig) -> Callable:
     def decode_step(sm: ShardedModel, token: torch.Tensor, caches: list,
                     cache_placements: list, pos):
         if sm.program == "fsdp_tp":
-            with sm.gathered(decode=True):
+            with sm.gathered(decode=True, batch_split=_rows_split(
+                    cache_placements, sm.mesh)):
                 logits, caches = step(sm.local, token, caches, pos)
                 return tensor_parallel.current().whole_logits(logits), \
                     caches

@@ -1,21 +1,25 @@
-"""The FSDP x tensor-parallel program of the dense attention LMs: the one
-place that decides, for each ``constrain`` site of the JAX package, which
-collective turns its producer's layout into the constrained one.
+"""The FSDP x tensor-parallel program of the attention LMs, dense and MoE:
+the one place that decides, for each ``constrain`` site of the JAX
+package, which collective turns its producer's layout into the
+constrained one.
 
-The JAX package runs its dense LMs as "FSDP (over 'data') x TP (over
-'model')" (``repro/models/attention.py``): the specs shard heads, MLP
-hidden units and the vocabulary over ``model``, and GSPMD partitions
-every product at the ``constrain`` sites.  Here the rank body is explicit.
-Inside :func:`use` (``sharded.ShardedModel.gathered`` opens it for these
-families) each parameter is gathered over the batch axes only, so it keeps
-its shard along ``model``; the layers read their weights through
-:func:`attn_weights`, :func:`mlp_weights` and :func:`head_weight` and call
-:func:`site` where the reference constrains.  Outside it all of these are
-the identity and the layers run the single-process program.
+The JAX package runs these LMs as "FSDP (over 'data') x TP (over
+'model')" (``repro/models/attention.py``, ``repro/models/moe.py``): the
+specs shard heads, MLP hidden units, experts and the vocabulary over
+``model``, and GSPMD partitions every product at the ``constrain`` sites.
+Here the rank body is explicit.  Inside :func:`use`
+(``sharded.ShardedModel.gathered`` opens it for these families) each
+parameter is gathered over the batch axes only, so it keeps its shard
+along ``model``; the layers read their weights through
+:func:`attn_weights`, :func:`mlp_weights`, :func:`moe_weights` and
+:func:`head_weight` and call :func:`site` where the reference constrains.
+Outside it all of these are the identity and the layers run the
+single-process program.
 
-A rank computes the q heads, MLP hidden units and vocabulary entries of
-its ``model`` coordinate where the count divides the axis (the sanitize
-rule of the reference's ``constrain``), and all of them where it does not:
+A rank computes the q heads, MLP hidden units, experts and vocabulary
+entries of its ``model`` coordinate where the count divides the axis (the
+sanitize rule of the reference's ``constrain``), and all of them where it
+does not:
 
 =============  ==============================  ====================  =====================
 site           reference                       producer              collective
@@ -26,6 +30,10 @@ q, k, v        ``attention.py:71-73``          the rank's heads      none
 ``mlp.in``     (before ``mlp.py:42``)          replicated x          copy-to-model
 hidden         ``mlp.py:48``                   the rank's units      none
 ``mlp.out``    ``mlp.py:50``                   partial sums          reduce-from-model
+``moe.in``     ``moe.py:168-169``              replicated tokens,    copy-to-model
+                                               combine weights
+xe, ye         ``moe.py:176``, ``:180``        the rank's experts    none
+``moe.out``    ``moe.py:190``, ``:193``        partial sums          reduce-from-model
 ``embed``      ``transformer.py:281``          x's ``d`` shard       all-gather (slice back)
 ``head.in``    (before ``transformer.py:335``) replicated x          copy-to-model
 logits         ``transformer.py:339``          the rank's vocabulary none (vocab-parallel)
@@ -34,16 +42,23 @@ logits         ``transformer.py:339``          the rank's vocabulary none (vocab
 =============  ==============================  ====================  =====================
 
 Copy-to-model is the identity forward and sums the gradient over
-``model``; reduce-from-model sums forward and passes the gradient.  A
-weight whose layout at rest is not the one its product reads is moved by
-:meth:`TensorParallel.relayout`: a tied embedding, at rest ``[V, d / m]``,
-is exchanged all-to-all into the head's ``[V / m, d]`` for a train step
-or a prefill; a decode step reads it as it lies and all-reduces one
-token's partial logits of every entry instead (the last two rows), as
-GSPMD partitions the reference's decode.  Where the kv
-heads do not divide the axis but their columns do, each rank projects its
-columns of k and v and the projections are all-gathered
-(:class:`AttnWeights`).  A KV cache is read where it lies
+``model``; reduce-from-model sums forward and passes the gradient.  A MoE
+layer routes its tokens alike on every rank of ``model`` (the router is
+replicated), then copies to ``model`` the tokens it dispatches and the
+weights it combines with: each rank fills and runs its own experts' slots
+only and its combine reads the others' as zeros, so the layer's output is
+a partial sum (``models/moe.py``).  The routing is the global batch's
+(:attr:`TensorParallel.shards`: the slots' offsets and the aux losses
+over the batch axes).  A weight whose layout at rest is not the one its
+product reads is moved by :meth:`TensorParallel.relayout`: a tied
+embedding, at rest ``[V, d / m]``, is exchanged all-to-all into the
+head's ``[V / m, d]`` for a train step or a prefill; a decode step reads
+it as it lies and all-reduces one token's partial logits of every entry
+instead (the last two rows), as GSPMD partitions the reference's decode.
+Where the kv heads do not divide the axis but their columns do, each
+rank projects its columns of k and v and the projections are
+all-gathered; where the q heads do not, its columns of q and rows of
+``wo`` (:class:`AttnWeights`).  A KV cache is read where it lies
 (``attention.attn_cache_specs``): by head, or by sequence, where each rank
 attends over its own slots and a log-sum-exp merge
 (:meth:`TensorParallel.merge_softmax`) all-reduces the partial results.
@@ -51,33 +66,36 @@ attends over its own slots and a log-sum-exp merge
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, List, Optional, Tuple
 
 import torch
 
+from .common import BATCH_AXES
 from .common import MODEL_AXIS as AXIS
 from .config import ModelConfig
 
 __all__ = ["TensorParallel", "WholeAttnWeights", "AttnWeights", "supported",
            "use", "current", "site", "attn_weights", "mlp_weights",
-           "head_weight"]
+           "moe_weights", "head_weight"]
 
 
 def supported(cfg: ModelConfig) -> bool:
-    """Whether ``cfg`` runs the FSDP x TP program on a mesh: the dense
-    attention LMs (global and local attention layers with a dense MLP, no
-    MoE, no recurrent layer, no frontend).  The rest keep the ZeRO-3
-    program of ``models/sharded.py``."""
-    return (cfg.moe is None and not cfg.frontend and cfg.causal
+    """Whether ``cfg`` runs the FSDP x TP program on a mesh: the attention
+    LMs (global and local attention layers with a dense MLP or experts, no
+    recurrent layer, no frontend).  The rest keep the ZeRO-3 program of
+    ``models/sharded.py``."""
+    return (not cfg.frontend and cfg.causal
             and set(cfg.pattern) <= {"g", "l"} and cfg.mlp_kind != "none")
 
 
 class WholeAttnWeights:
     """One attention layer's projections outside the program: every head
     of ``p``, a cache whole.  :meth:`q` the q heads, :meth:`kv` k and v of
-    the kv heads ``kv_heads`` (or of a range of them), ``wo`` the output
-    projection, :meth:`cache_layout` where a cache's slots and heads
-    lie."""
+    the kv heads ``kv_heads`` (or of a range of them), :meth:`out` the
+    output projection, :meth:`cache_layout` where a cache's slots and
+    heads lie, and :meth:`site` its collectives at the attention's
+    constrain sites (none)."""
     tp = None
 
     def __init__(self, cfg: ModelConfig, p):
@@ -86,6 +104,14 @@ class WholeAttnWeights:
         self.kv_heads = (0, cfg.n_kv_heads)
         self.wq, self.wo = p.wq, p.wo
         self.bq = p.bq if cfg.qkv_bias else None
+
+    def site(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """The output projection of the attention's output ``o`` ``[B, T,
+        heads, hd]``."""
+        return o.reshape(*o.shape[:2], -1) @ self.wo.to(o.dtype)
 
     def _proj(self, x, w, b):
         y = x @ w.to(x.dtype)
@@ -115,8 +141,18 @@ class AttnWeights(WholeAttnWeights):
     """One attention layer's projections as a rank of the program
     computes them: :meth:`q` its own q heads (``q_heads``), :meth:`kv` the
     kv heads those read (``kv_heads``) or any range (a cache shard's),
-    ``wo`` the rows of its q heads, :meth:`cache_layout` its cache
+    :meth:`out` through its rows of ``wo``, :meth:`cache_layout` its cache
     shard's (``TensorParallel.cache_layout``).
+
+    Where the q heads do not divide ``model`` but q's columns do (``by_
+    cols``; arctic's 56 heads on 16), the rank still projects only its
+    column shard of q, all-gathered over ``model``, and only its rows of
+    ``wo`` (partial sums, reduced at ``attn.out``), as GSPMD partitions
+    the reference's: no parameter moves.  In between it attends with the
+    heads of its group, the ``gcd(heads, m)`` groups each computed alike
+    by ``m / gcd`` ranks (GSPMD's choice: 7 heads a device for arctic),
+    or, in a decode step, with every head over its slots.  Where m
+    divides neither, attention is whole on every rank.
 
     Where the kv heads do not divide ``model`` but their columns do (the
     at-rest shard is not head-aligned), each rank projects its column
@@ -130,11 +166,54 @@ class AttnWeights(WholeAttnWeights):
         self.q_heads, self.kv_heads = tp.q_heads, tp.kv_heads
         nq = cfg.n_heads * self.hd
         self.nkv = cfg.n_kv_heads * self.hd
-        s = tp.q_split
-        self.wq = tp.relayout(p.wq, 1, nq, s, s)
-        self.wo = tp.relayout(p.wo, 0, nq, s, s)
-        self.bq = tp.relayout(p.bq, 0, nq, s, s) if cfg.qkv_bias else None
+        m = tp.m
+        self.by_cols = (m > 1 and not tp.q_split
+                        and p.wq.shape[1] * m == nq
+                        and (not cfg.qkv_bias or p.bq.shape[0] * m == nq))
+        # each rank computes a part of the layer from its input
+        self.split = tp.q_split or self.by_cols
+        if self.by_cols:
+            self.wq, self.wo = p.wq, p.wo
+            self.bq = p.bq if cfg.qkv_bias else None
+            if not tp.decode:
+                self.q_heads, self.kv_heads = tp.head_group()
+        else:
+            s = tp.q_split
+            self.wq = tp.relayout(p.wq, 1, nq, s, s)
+            self.wo = tp.relayout(p.wo, 0, nq, s, s)
+            self.bq = tp.relayout(p.bq, 0, nq, s, s) \
+                if cfg.qkv_bias else None
         self._every = None
+
+    def q(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.by_cols:
+            return super().q(x)
+        y = x @ self.wq.to(x.dtype)
+        if self.bq is not None:
+            y = y + self.bq.to(x.dtype)
+        y = self.tp.comm.gather_along(y, AXIS, y.dim() - 1, grad="sum")
+        q0, q1 = self.q_heads
+        return y[..., q0 * self.hd:q1 * self.hd].reshape(
+            *x.shape[:2], -1, self.hd)
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        if not self.by_cols:
+            return super().out(o)
+        # the rank's columns of the output are its rows of wo
+        n = self.wo.shape[0]
+        c0 = self.tp.j * n - self.q_heads[0] * self.hd
+        o = o.reshape(*o.shape[:2], -1)[..., c0:c0 + n]
+        return o @ self.wo.to(o.dtype)
+
+    def site(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The collective at the attention's constrain site ``name``:
+        ``tp.site``'s, or, over q's columns, copy-to-model at ``attn.in``
+        and reduce-from-model at ``attn.out``."""
+        if self.by_cols:
+            c = self.tp.comm
+            return c.copy_to(x, AXIS) if name == "attn.in" else \
+                c.reduce_from(x, AXIS)
+        return self.tp.site(name, x)
 
     def cache_layout(self, cache) -> Tuple[int, int, int]:
         return self.tp.cache_layout(cache)
@@ -168,17 +247,18 @@ class AttnWeights(WholeAttnWeights):
             if tp.m > 1 and w.shape[1] * tp.m == n:
                 # the rank's columns, then every rank's: the gradient of a
                 # part each rank reads is summed back (reduce-scatter); the
-                # input's, a part of the whole, too (copy-to: where q is
-                # split, the attention's input came through one already)
-                xin = x if tp.q_split else c.copy_to(x, AXIS)
+                # input's, a part of the whole, too (copy-to: where the
+                # rank computes a part of the layer, the attention's input
+                # came through one already)
+                xin = x if self.split else c.copy_to(x, AXIS)
                 y = xin @ w.to(x.dtype)
                 if b is not None:
                     y = y + b.to(x.dtype)
                 y = c.gather_along(y, AXIS, y.dim() - 1,
-                                   grad="sum" if tp.q_split else "slice")
+                                   grad="sum" if self.split else "slice")
                 out.append(y.reshape(*x.shape[:2], -1, self.hd))
             else:
-                s = tp.q_split
+                s = self.split
                 out.append(self._proj(
                     x, tp.relayout(w, 1, n, False, s),
                     tp.relayout(b, 0, n, False, s) if b is not None
@@ -195,13 +275,21 @@ class TensorParallel:
     heads divide the axis and the rank's kv heads group uniformly);
     ``kv_split``: and its own kv heads (those divide it too);
     ``ff_split``, ``vocab_split``: MLP hidden units and vocabulary
-    entries likewise; ``head_rows``: a ``decode`` step's tied head reads
-    the embedding's ``d`` slice as it lies and sums the partial logits
-    over ``model`` (then the logits are whole, ``vocab_split`` is off).
-    With one rank on the axis nothing is split."""
+    entries likewise; ``moe_split``: the experts; ``head_rows``: a
+    ``decode`` step's tied head reads the embedding's ``d`` slice as it
+    lies and sums the partial logits over ``model`` (then the logits are
+    whole, ``vocab_split`` is off).  With one rank on the axis nothing is
+    split.
 
-    def __init__(self, cfg: ModelConfig, comm, decode: bool = False):
-        self.cfg, self.comm = cfg, comm
+    ``batch_axes``, ``shards`` and ``shard``: the batch axes of the mesh,
+    how many parts of the batch the layers' tokens are one of, and which
+    (row-major over the batch axes, as ``sharded.place_batch`` cuts it):
+    the parts of a batch split over the batch axes (``batch_split``), or
+    one, the whole batch on every rank."""
+
+    def __init__(self, cfg: ModelConfig, comm, decode: bool = False,
+                 batch_split: bool = True):
+        self.cfg, self.comm, self.decode = cfg, comm, decode
         m = comm.size(AXIS) if AXIS in comm.sizes else 1
         j = comm.index(AXIS) if AXIS in comm.sizes else 0
         self.m, self.j = m, j
@@ -223,6 +311,14 @@ class TensorParallel:
                           and cfg.d_model % m == 0)
         self.vocab_split = (m > 1 and cfg.vocab_size % m == 0
                             and not self.head_rows)
+        self.moe_split = (m > 1 and cfg.moe is not None
+                          and cfg.moe.n_experts % m == 0)
+        self.batch_axes = [a for a in BATCH_AXES if a in comm.sizes]
+        self.shards, self.shard = 1, 0
+        if batch_split:
+            for a in self.batch_axes:
+                self.shards *= comm.size(a)
+                self.shard = self.shard * comm.size(a) + comm.index(a)
 
     # -- weights ----------------------------------------------------------
     def relayout(self, w: torch.Tensor, dim: int, whole: int,
@@ -249,6 +345,19 @@ class TensorParallel:
         if want_split:
             return c.copy_to(w, AXIS).chunk(self.m, want_dim)[self.j]
         return c.copy_to(w, AXIS) if partial and self.m > 1 else w
+
+    def head_group(self) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        """(q heads, kv heads) of this rank's group where the q heads do
+        not divide the axis: ``gcd(heads, m)`` groups of consecutive
+        heads, group ``j // (m / gcd)`` this rank's; every head where a
+        group's heads would not read whole kv-head groups."""
+        h, g = self.cfg.n_heads, self.cfg.n_heads // self.cfg.n_kv_heads
+        n = math.gcd(h, self.m)
+        q0 = self.j // (self.m // n) * (h // n)
+        q1 = q0 + h // n
+        if q0 // g != (q1 - 1) // g and (q0 % g or (q1 - q0) % g):
+            q0, q1 = 0, h
+        return (q0, q1), (q0 // g, (q1 - 1) // g + 1)
 
     def head(self, embed: torch.Tensor, lm_head: Optional[torch.Tensor]
              ) -> torch.Tensor:
@@ -277,6 +386,8 @@ class TensorParallel:
             split = self.q_split
         elif name in ("mlp.in", "mlp.out"):
             split = self.ff_split
+        elif name in ("moe.in", "moe.out"):
+            split = self.moe_split
         elif name == "head.in":
             if self.head_rows:
                 return c.copy_to(x, AXIS).chunk(self.m, -1)[self.j]
@@ -388,6 +499,21 @@ def mlp_weights(p):
     return (tp.relayout(p.w_up, 1, f, s, s),
             None if gate is None else tp.relayout(gate, 1, f, s, s),
             tp.relayout(p.w_down, 0, f, s, s))
+
+
+def moe_weights(p, tp: Optional[TensorParallel] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """A MoE layer's ``(w_gate, w_up, w_down, first expert)`` as a rank of
+    ``tp`` (the current program by default) computes them: its ``e / m``
+    experts, which lie here already (``moe_specs`` puts the experts over
+    ``model``), or all of them where ``m`` does not divide ``e``; all of
+    them, from expert 0, outside a program."""
+    tp = tp or current()
+    if tp is None:
+        return p.w_gate, p.w_up, p.w_down, 0
+    e, s = tp.cfg.moe.n_experts, tp.moe_split
+    ws = [tp.relayout(w, 0, e, s, s) for w in (p.w_gate, p.w_up, p.w_down)]
+    return (*ws, tp.j * ws[0].shape[0] if s else 0)
 
 
 def head_weight(model) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The FSDP x tensor-parallel program of the dense attention LMs
+"""The FSDP x tensor-parallel program of the attention LMs, dense and MoE
 (``models/tensor_parallel.py`` through ``models/sharded.py``) against the
 JAX package and against one process.
 
@@ -9,16 +9,23 @@ qwen1.5-110b with one kv head, replicated over ``model``; gemma2-9b with
 two, split on a model axis of 2 and not of 4), llama3-8b's with 16 kv
 heads on ``(1, 2)``, whose cache is split by head (the others' by
 sequence), and gemma2-9b's on ``(1, 8)``, where its 4 q heads stay whole
-on every rank (the MLP and the vocabulary split).  On ``(1, 4)`` the
-ranks also run each autograd collective of ``MeshComm``.  The JAX
-package's weights, batches and tokens are written here; its loss,
+on every rank (the MLP and the vocabulary split); and the smoke configs
+of the two MoE families (olmoe-1b-7b and arctic-480b: 8 experts, top-2,
+arctic's dense residual beside them) with ``moe_dispatch_groups`` the
+mesh's batch shards, plus OLMoE's at capacity factor 1 with one dispatch
+group over both batch shards of ``(2, 2)``, where tokens drop.  On ``(1,
+4)`` the ranks also run each autograd collective of ``MeshComm``.  The
+JAX package's weights, batches and tokens are written here; its loss,
 prefill, decode steps and cache specs come from one child process
 (``torch_jax_sharded_child.py tp``), started first so that it runs while
 the ranks do.  Tolerances: the loss 1e-4 relative to JAX's (the
 distributed checks'), the train steps 1e-4 to one process's, prefill and
-decode 1e-5 to JAX's (float32).  The last test holds the port's dry run to
-JAX's own (``repro.launch.dryrun.run_cell``, XLA's compile-time counts on
-a CPU for one device of a 16 x 16 mesh) on two production cells.
+decode 1e-5 to JAX's (float32).  A MoE model's aux loss is the global
+batch's, as JAX's is, not the mean of the batch shards' (an OLMoE case
+with a large aux loss on ``(2, 2)``).  The last test holds the port's dry
+run to JAX's own (``repro.launch.dryrun.run_cell``, XLA's compile-time
+counts on a CPU for one device of a 16 x 16 mesh) on three production
+cells, one of them a MoE model's.
 """
 import os
 import pathlib
@@ -41,6 +48,8 @@ TRAIN_TOL = 1e-4
 SERVE_TOL = 1e-5
 CASES = [(a, m) for a, m in child.TP_CASES]
 IDS = [f"{a}-{m[0]}x{m[1]}" for a, m in CASES]
+MOE_CASES = list(child.TP_MOE_CASES)
+MOE_IDS = [f"{a}-{m[0]}x{m[1]}" for a, m in MOE_CASES]
 
 
 @pytest.fixture(scope="module")
@@ -87,11 +96,12 @@ def one_process():
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     out = {}
-    for name in child.TP_ARCHS:
+    for name in dict(CASES):
         st = train(child.tp_config(get_config, name), device="cpu",
                    **ranks.TP_TRAIN)
         out[name] = {"losses": st["losses"],
                      "grad_norms": st["grad_norms"],
+                     "dropped": st["dropped"],
                      "params": {n: p.detach().numpy() for n, p in
                                 st["params"].named_parameters()},
                      "mu": {n: t.numpy() for n, t in st["opt"]["mu"].items()},
@@ -128,6 +138,7 @@ def _shard_of(x: np.ndarray, spec, coord: dict, sizes: dict) -> np.ndarray:
 
 @pytest.mark.parametrize("name,dims", CASES, ids=IDS)
 def test_dense_families_run_the_tp_program(name, dims, worlds):
+    """Every family of the cases, dense and MoE, runs ``"fsdp_tp"``."""
     for r in _results(worlds, name, dims):
         assert r["program"] == "fsdp_tp"
 
@@ -228,13 +239,11 @@ def test_step_moves_no_parameter_over_the_model_axis(name, dims, worlds):
     one parameter that crosses ``model`` is a tied embedding, exchanged
     all-to-all from its ``[V, d / m]`` shard into the head's ``[V / m,
     d]`` (a rank receives 1/m of what it holds); kv projections move as
-    activations.  Where the q heads do not divide the axis, attention is
-    whole on every rank and its ``wq``/``bq``/``wo`` shards are
-    all-gathered over ``model`` too."""
+    activations, and so does q where the q heads do not divide the axis
+    (each rank projects its column shard of q and its rows of ``wo``)."""
     from repro_torch.configs import get_config
     cfg = child.tp_config(get_config, name)
-    want = [("all-gather", "model")] if cfg.n_heads % dims[1] else []
-    want += [("all-to-all", "model")] if cfg.tie_embeddings else []
+    want = [("all-to-all", "model")] if cfg.tie_embeddings else []
     for r in _results(worlds, name, dims):
         assert [m for m in r["moved"] if m[1] == "model"] == want
         assert all(m[1] == "data" for m in r["moved"]
@@ -246,15 +255,70 @@ def test_decode_step_moves_no_parameter_over_the_model_axis(name, dims,
                                                             worlds):
     """A decode step reads a tied embedding as it lies, ``[V, d / m]``,
     and all-reduces one token's partial logits instead of exchanging it:
-    no parameter crosses ``model`` but the ``wq``/``bq``/``wo`` shards
-    where the q heads do not divide the axis."""
-    from repro_torch.configs import get_config
-    cfg = child.tp_config(get_config, name)
-    want = [("all-gather", "model")] if cfg.n_heads % dims[1] else []
+    no parameter crosses ``model``."""
     for r in _results(worlds, name, dims):
-        assert [m for m in r["moved_decode"] if m[1] == "model"] == want
-        assert all(m[1] == "data" for m in r["moved_decode"]
-                   if m not in want), r["moved_decode"]
+        assert all(m[1] == "data" for m in r["moved_decode"]), \
+            r["moved_decode"]
+
+
+@pytest.mark.parametrize("name,dims", MOE_CASES, ids=MOE_IDS)
+def test_moe_drops_are_the_global_batchs(name, dims, worlds, jax_ref,
+                                         one_process):
+    """The share of dropped token-expert assignments is JAX's on the whole
+    batch, on every rank, and the train steps' are one process's; the
+    capacity-bound case, one dispatch group over both batch shards (a
+    token's slot counts the other shard's tokens before it), drops."""
+    want = jax_ref[name]["dropped"]
+    for r in _results(worlds, name, dims):
+        assert abs(r["dropped"] - want) <= 1e-6
+        np.testing.assert_allclose(r["train"]["dropped"],
+                                   one_process[name]["dropped"], atol=1e-6)
+    assert (want > 0) == name.endswith("/cap1")
+
+
+@pytest.mark.parametrize("name,dims", MOE_CASES, ids=MOE_IDS)
+def test_dispatch_buffer_holds_the_ranks_experts_only(name, dims, worlds):
+    """A rank's dispatch buffer is ``[groups, e / m + 1, cap, d]``: the
+    slots of its own experts and the overflow row, for the groups its
+    tokens fall in (one where a group spans several batch shards), one a
+    layer, filled once for each of a token's top-k choices; no rank
+    allocates another rank's experts' slots."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import route_meta
+    cfg = child.tp_config(get_config, name)
+    e, m = cfg.moe.n_experts, dims[1]
+    n = child.TP_BATCH["batch"] * child.TP_BATCH["seq"]
+    cap, groups, _ = route_meta(n, cfg)
+    want = (max(groups // dims[0], 1), e // m + 1, cap, cfg.d_model)
+    for r in _results(worlds, name, dims):
+        assert r["scatters"] == [want] * (cfg.n_layers * cfg.moe.top_k)
+
+
+AUX_CASE = child.TP_LOSS_CASES[0]
+
+
+def test_moe_aux_loss_is_the_global_batchs(worlds, jax_ref, inputs):
+    """OLMoE with an aux loss weight of 1 on ``(2, 2)``, two dispatch
+    groups, whose batch shards route differently: the loss is JAX's (its
+    ``router_aux`` takes ``me`` and ``ce`` over every token), and the mean
+    of the batch shards' own aux losses (each shard's product of means)
+    is not, by more than the tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert, lm
+    name, dims = AUX_CASE
+    want = jax_ref[name]["loss"]
+    for r in _results(worlds, name, dims):
+        assert abs(r["loss"] - want) <= LOSS_TOL * abs(want)
+    cfg = child.tp_config(get_config, name)
+    saved = torch.load(os.path.join(inputs, f"{child._file(name)}.pt"),
+                       weights_only=False)
+    model = convert.params_from_jax(saved["params"], cfg, "cpu")
+    halves = [{k: torch.from_numpy(v).chunk(dims[0])[s]
+               for k, v in saved["batch"].items()} for s in range(dims[0])]
+    with torch.no_grad():
+        per_shard = np.mean([float(lm.loss_fn(model, h, cfg)[0])
+                             for h in halves])
+    assert abs(per_shard - want) > LOSS_TOL * abs(want), (per_shard, want)
 
 
 @pytest.mark.parametrize("op", ranks.COLLECTIVES)
@@ -287,7 +351,8 @@ def test_autograd_collective_and_its_adjoint(op, worlds):
 # ---------------------------------------------------------------------------
 # the dry run's product flops against JAX's, on production cells
 # ---------------------------------------------------------------------------
-FLOP_CELLS = (("qwen2.5-3b", "train_4k"), ("qwen2.5-3b", "decode_32k"))
+FLOP_CELLS = (("qwen2.5-3b", "train_4k"), ("qwen2.5-3b", "decode_32k"),
+              ("olmoe-1b-7b", "prefill_32k"))
 FLOP_TOL = 0.05
 
 
@@ -307,7 +372,7 @@ def jax_flops(tmp_path_factory):
             "out = {}\n"
             f"for arch, shape in {FLOP_CELLS!r}:\n"
             "    r = run_cell(arch, shape, 'single', verbose=False)\n"
-            "    out[shape] = (r['status'], r.get('hlo_stats', {})"
+            "    out[arch + shape] = (r['status'], r.get('hlo_stats', {})"
             ".get('dot_flops'))\n"
             "json.dump(out, open(sys.argv[1], 'w'))\n")
     path = tmp / "flops.json"
@@ -322,8 +387,9 @@ def jax_flops(tmp_path_factory):
 
 def test_dry_run_product_flops_are_jaxs(jax_flops):
     """A rank's product flops in the port's dry run are within 5 % of
-    JAX's per device (ZeRO-3 gave 16.0 times them: every rank of the
-    model axis computed the whole of each product)."""
+    JAX's per device, a MoE model's too (ZeRO-3 gave 16.0 times them for
+    the dense cells, 15.8 for this MoE one: every rank of the model axis
+    computed the whole of each product, every expert of it)."""
     import json
 
     from repro_torch.launch import dryrun
@@ -331,14 +397,13 @@ def test_dry_run_product_flops_are_jaxs(jax_flops):
     for arch, shape in FLOP_CELLS:
         rec = dryrun.run_cell(arch, shape, "single", verbose=False)
         assert rec["status"] == "ok" and rec["program"] == "fsdp_tp", rec
-        got[shape] = rec["hlo_stats"]["dot_flops"]
+        got[arch + shape] = rec["hlo_stats"]["dot_flops"]
     proc, path = jax_flops
     stdout, stderr = proc.communicate(timeout=300)
     assert proc.returncode == 0, stdout[-2000:] + stderr[-4000:]
     want = json.load(open(path))
-    for _, shape in FLOP_CELLS:
-        status, flops = want[shape]
+    for cell in (arch + shape for arch, shape in FLOP_CELLS):
+        status, flops = want[cell]
         assert status == "ok"
-        assert abs(got[shape] - flops) <= FLOP_TOL * flops, (shape,
-                                                              got[shape],
-                                                              flops)
+        assert abs(got[cell] - flops) <= FLOP_TOL * flops, (cell, got[cell],
+                                                            flops)

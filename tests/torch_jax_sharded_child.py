@@ -19,7 +19,8 @@ For ``test_torch_tp.py`` it runs on one device::
 
 and reads, for each case of :data:`TP_ARCHS`, the JAX package's weights,
 batch and tokens that the test wrote (:func:`tp_write_inputs`) to write
-``DIR/jax_tp.pt``: ``lm.loss_fn``'s loss, ``lm.prefill`` and
+``DIR/jax_tp.pt``: ``lm.loss_fn``'s loss and share of dropped tokens,
+and, but for the cases of :data:`TP_LOSS_CASES`, ``lm.prefill`` and
 :data:`TP_SERVE`'s decode steps (logits, and each layer's cache after the
 prefill and after each step) and JAX's ``cache_specs`` sanitized on each
 mesh of :data:`TP_MESHES`, one dict a layer.
@@ -71,15 +72,33 @@ def psum_inputs() -> np.ndarray:
 #: the tensor-parallel program's cases: the four dense families' smoke
 #: configs, llama3-8b's with 16 kv heads (a cache split by head) and
 #: gemma2-9b's on a model axis of 8, which its 4 q heads do not divide
-#: (attention whole on every rank, the rest split)
-TP_ARCHS = ("qwen2.5-3b", "llama3-8b", "gemma2-9b", "qwen1.5-110b", "kv16")
+#: (attention whole on every rank, the rest split); the two MoE families'
+#: smoke configs (8 experts, top-2) with ``moe_dispatch_groups`` the mesh's
+#: batch shards (``/g2`` on ``(2, 2)``), arctic's on ``(1, 8)`` too (its 4
+#: q heads do not divide the axis, as its 56 do not divide 16), and OLMoE's
+#: at capacity factor 1 with one dispatch group over both batch shards of
+#: ``(2, 2)``, where tokens drop (``/cap1``)
+TP_ARCHS = ("qwen2.5-3b", "llama3-8b", "gemma2-9b", "qwen1.5-110b", "kv16",
+            "olmoe-1b-7b", "arctic-480b", "olmoe-1b-7b/g2", "arctic-480b/g2",
+            "olmoe-1b-7b/cap1", "olmoe-1b-7b/aux")
 TP_MESHES = ((1, 2), (2, 2), (1, 4), (1, 8))
+TP_MOE_CASES = tuple((f"{a}{'/g2' if m[0] == 2 else ''}", m)
+                     for a in ("olmoe-1b-7b", "arctic-480b")
+                     for m in TP_MESHES[:3]) + (("olmoe-1b-7b/cap1", (2, 2)),
+                                                ("arctic-480b", (1, 8)))
 TP_CASES = tuple((a, m) for a in TP_ARCHS[:4] for m in TP_MESHES[:3]) \
-    + (("kv16", (1, 2)), ("gemma2-9b", (1, 8)))
+    + (("kv16", (1, 2)), ("gemma2-9b", (1, 8))) + TP_MOE_CASES
+#: the loss alone: OLMoE's with an aux loss weight of 1 and two dispatch
+#: groups on ``(2, 2)``, whose batch shards route differently
+TP_LOSS_CASES = (("olmoe-1b-7b/aux", (2, 2)),)
 #: the loss's batch; the serving check: prompts of ``prompt`` tokens, past
 #: gemma2's smoke window of 16, then ``steps`` decode steps
 TP_BATCH = dict(batch=4, seq=16, seed=1)
 TP_SERVE = dict(batch=4, prompt=18, steps=3, max_len=24)
+#: what a MoE case changes in its family's smoke config
+TP_MOE = {"g2": dict(moe_dispatch_groups=2),
+          "cap1": dict(moe=dict(capacity_factor=1.0)),
+          "aux": dict(moe_dispatch_groups=2, moe=dict(aux_loss=1.0))}
 
 
 def tp_config(get_config, name: str):
@@ -89,7 +108,14 @@ def tp_config(get_config, name: str):
         return dataclasses.replace(get_config("llama3-8b", smoke=True),
                                    name="llama3-8b-smoke-kv16", n_heads=16,
                                    n_kv_heads=16)
-    return get_config(name, smoke=True)
+    arch, _, variant = name.partition("/")
+    cfg = get_config(arch, smoke=True)
+    if not variant:
+        return cfg
+    change = dict(TP_MOE[variant])
+    if "moe" in change:
+        change["moe"] = dataclasses.replace(cfg.moe, **change["moe"])
+    return dataclasses.replace(cfg, name=f"{cfg.name}-{variant}", **change)
 
 
 def tp_write_inputs(tmp: str) -> None:
@@ -114,7 +140,12 @@ def tp_write_inputs(tmp: str) -> None:
                                 + TP_SERVE["steps"])).astype(np.int32)
         torch.save({"params": jax.tree.map(np.asarray, params),
                     "batch": batch, "tokens": toks},
-                   os.path.join(tmp, f"{name}.pt"))
+                   os.path.join(tmp, f"{_file(name)}.pt"))
+
+
+def _file(name: str) -> str:
+    """A case's file name in the test's directory."""
+    return name.replace("/", "_")
 
 
 def _layer_specs(cfg, caches, dims) -> list:
@@ -151,13 +182,18 @@ def _tp(tmp: str) -> None:
     from repro_torch.models.convert import unstack_layers
     out = {}
     n, steps = TP_SERVE["prompt"], TP_SERVE["steps"]
+    loss_only = {a for a, _ in TP_LOSS_CASES}
     for name in TP_ARCHS:
         cfg = tp_config(get_config, name)
-        saved = torch.load(os.path.join(tmp, f"{name}.pt"),
+        saved = torch.load(os.path.join(tmp, f"{_file(name)}.pt"),
                            weights_only=False)
         params = jax.tree.map(jnp.asarray, saved["params"])
         batch = {k: jnp.asarray(v) for k, v in saved["batch"].items()}
-        loss, _ = lm.loss_fn(params, batch, cfg)
+        loss, metrics = lm.loss_fn(params, batch, cfg)
+        out[name] = {"loss": float(loss),
+                     "dropped": float(metrics["dropped"])}
+        if name in loss_only:
+            continue
         toks = saved["tokens"]
         logits, caches, pos = lm.prefill(
             params, {"tokens": jnp.asarray(toks[:, :n])}, cfg,
@@ -171,12 +207,11 @@ def _tp(tmp: str) -> None:
             seen.append((logits, caches))
         tcfg = tp_config(tget, name)
         grouped = jax.tree.map(np.asarray, caches)
-        out[name] = {
-            "loss": float(loss),
-            "serve": [(np.asarray(lg), unstack_layers(
+        out[name].update(
+            serve=[(np.asarray(lg), unstack_layers(
                 tcfg, jax.tree.map(np.asarray, c))) for lg, c in seen],
-            "specs": {dims: _layer_specs(cfg, grouped, dims)
-                      for dims in TP_MESHES}}
+            specs={dims: _layer_specs(cfg, grouped, dims)
+                   for dims in TP_MESHES})
     torch.save(out, os.path.join(tmp, "jax_tp.pt"))
 
 

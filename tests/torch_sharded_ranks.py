@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 import torch
+import torch.utils._python_dispatch
 
 import torch_jax_child as grid_child
 import torch_jax_sharded_child as child
@@ -336,6 +337,23 @@ def _watching_comm(mesh, dev):
     return Watching()
 
 
+class _Scatters(torch.utils._python_dispatch.TorchDispatchMode):
+    """Notes the shape of every 4-d tensor an ``index_put`` fills (a MoE
+    layer's dispatch buffer)."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in (torch.ops.aten.index_put_,
+                                   torch.ops.aten.index_put) \
+                and out.dim() == 4:
+            self.shapes.append(tuple(out.shape))
+        return out
+
+
 def _tp_case(name: str, tmp: str, mesh, dims) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import shard_bytes, use_comm
@@ -343,14 +361,20 @@ def _tp_case(name: str, tmp: str, mesh, dims) -> dict:
     from repro_torch.models import convert, sharded
     from repro_torch.optim import AdamW
     cfg = child.tp_config(get_config, name)
-    saved = torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=False)
+    saved = torch.load(os.path.join(tmp, f"{child._file(name)}.pt"),
+                       weights_only=False)
     out = {"coord": [int(c) for c in mesh.get_coordinate()]}
-    # the loss of JAX's weights
+    # the loss of JAX's weights, the dispatch buffers' shapes noted
     sm = sharded.ShardedModel.place(
         convert.params_from_jax(saved["params"], cfg, "cpu"), mesh)
     out["program"] = sm.program
     batch = {k: torch.from_numpy(v) for k, v in saved["batch"].items()}
-    out["loss"] = float(sharded.sharded_loss(sm, batch, cfg)[0])
+    with _Scatters() as scatters:
+        loss, metrics = sharded.sharded_loss(sm, batch, cfg)
+    out.update(loss=float(loss), dropped=float(metrics["dropped"]),
+               scatters=scatters.shapes)
+    if (name, tuple(dims)) in child.TP_LOSS_CASES:
+        return out
     # prefill and decode of JAX's weights, float32 caches
     n, steps = child.TP_SERVE["prompt"], child.TP_SERVE["steps"]
     max_len = child.TP_SERVE["max_len"]
@@ -377,6 +401,7 @@ def _tp_case(name: str, tmp: str, mesh, dims) -> dict:
     sm = st["params"]
     out["train"] = {
         "losses": st["losses"], "grad_norms": st["grad_norms"],
+        "dropped": st["dropped"],
         "params": _placed(sm.local_named(), sm.placements),
         "mu": _placed(st["opt"]["mu"], sm.placements),
         "nu": _placed(st["opt"]["nu"], sm.placements),
@@ -448,14 +473,15 @@ def _collectives(mesh) -> dict:
 
 
 def tp_ranks(dev, tmp: str, dims) -> dict:
-    """Every case of ``child.TP_CASES`` on this ``(data, model)`` mesh of
+    """Every case of ``child.TP_CASES`` (and the loss of those of
+    ``child.TP_LOSS_CASES``) on this ``(data, model)`` mesh of
     ``dims``, by name (and on ``(1, 4)`` the autograd collectives, under
     ``"collectives"``)."""
     from repro_torch.launch.mesh import make_mesh
     dims = tuple(dims)
     mesh = make_mesh(dims, ("data", "model"), device_type="cpu")
     out = {name: _tp_case(name, tmp, mesh, dims)
-           for name, m in child.TP_CASES if m == dims}
+           for name, m in child.TP_CASES + child.TP_LOSS_CASES if m == dims}
     if dims == (1, 4):
         out["collectives"] = _collectives(mesh)
     return out
