@@ -206,12 +206,16 @@ non-zero and prints no result line):
    x 512 tokens into a cache of 520 slots, split by sequence over the
    4 ranks (2 kv heads do not cover the model axis), and 3 steps of
    ``make_sharded_decode_step``, the logits of each within 1e-4 of the
-   single process's ``lm.prefill`` and decode steps.  And the ZeRO-3
-   program, which the MoE, recurrent and frontend families run:
-   Mamba2-130m at its published width and depth, ``train(mesh=)`` on the
-   (2, 2) mesh for 3 float32 steps of 4 x 512 tokens, held as Qwen's
-   (losses, gradient norms, shards, bytes, ``compressed_psum`` on the
-   rank's model slice).  (c) steal3d at the SpMM cell on a 3x3 grid of 9
+   single process's ``lm.prefill`` and decode steps.  Then, in a world of
+   their own, the recurrent, SSM and frontend families' cells
+   (``LM_FAMILIES``), each on the (2, 2) mesh, held as Qwen's (losses,
+   gradient norms, shards, bytes, product flops the dry run's (2, 2)
+   cell's): Mamba2-130m at its published width and depth, 3 steps of 4 x
+   512 tokens; RecurrentGemma-2B at its published width cut to one "rrl"
+   group of 3 layers, 3 steps; both then served on (1, 4) as Qwen is;
+   llava-next-mistral-7b cut to 2 of 32 layers, 1 step of 1152 patches
+   and 512 tokens a row (hubert-xlarge's cell is cut for time: see
+   ``LM_FAMILIES``).  (c) steal3d at the SpMM cell on a 3x3 grid of 9
    ranks: the seeded loss of 5 and ``recover_from_loss`` on the ranks
    (blocks re-placed by exchange, a new 2x2 grid over the survivors), every
    survivor's C tile bit-equal to the stacked recovery's, B1 launched on
@@ -3484,7 +3488,7 @@ def ssd_exponents(cfg, model, step: int) -> list:
     orig = ssm._ssd_chunked
     seen = torch.zeros(2, device=DEVICE)
 
-    def observed(xh, bmat, cmat, dt, a_log, chunk):
+    def observed(xh, bmat, cmat, dt, a_log, chunk, **kw):
         adt = torch.exp(a_log.float()) * dt.float()             # [B,T,H]
         t = adt.shape[1]
         L = min(chunk, t)
@@ -3493,7 +3497,7 @@ def ssd_exponents(cfg, model, step: int) -> list:
             adt.shape[0], -1, L, adt.shape[2])
         seen.copy_(torch.maximum(seen, torch.stack([
             adt.amax() * (L - 1), per[:, :, 1:].sum(2).amax()])))
-        return orig(xh, bmat, cmat, dt, a_log, chunk)
+        return orig(xh, bmat, cmat, dt, a_log, chunk, **kw)
 
     batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in SyntheticLM(
         cfg, m["batch"], m["seq"], seed=m["seed"])(step).items()}
@@ -4173,11 +4177,28 @@ LM_SERVE = dict(mesh=(1, 4), batch=2, prompt=512, steps=3, max_len=520,
 # each rank's peak over the same 3 steps when this cell ran the ZeRO-3
 # program (every parameter gathered whole), on an H100 80GB HBM3, 700 W
 LM_TRAIN_ZERO3_PEAK_GB = 9.43
-# ... and the ZeRO-3 program, which the MoE, recurrent and frontend families
-# run: Mamba2-130m at its published width and depth, 3 float32 steps on the
-# same (2, 2) mesh
-LM_ZERO3 = dict(arch="mamba2-130m", layers=None, mesh=(2, 2), steps=3,
-                batch=4, seq=512, lr=3e-4, seed=0)
+# ... and the tensor-parallel program of the recurrent, SSM and frontend
+# families, which ran ZeRO-3 before it (every parameter gathered whole), in
+# a world of 4 ranks of their own, float32 on the same (2, 2) mesh:
+# Mamba2-130m at its published width and depth, 3 steps; RecurrentGemma-2B
+# at its published width, its depth cut to one "rrl" group of 3 of 26
+# layers (~0.23e9 layer parameters and the tied 256000 x 2560 embedding,
+# ~3.6 GB; one process ~15 GB of parameters, gradients and moments and ~2
+# GB a float32 logits tensor, a rank ~7-8 GB), 3 steps; both then served on
+# (1, 4) as Qwen is; llava-next-mistral-7b at its published width, 2 of 32
+# layers (~0.72e9 parameters), 1 step of the published 1152 patches and 512
+# tokens a row.  hubert-xlarge's cell (4 of 48 layers, 2 steps: 0.9 and
+# 0.7 s) is cut, and llava's second step, to keep the phase's growth near
+# 150 s: Mamba's step makes ~550 host-staged collectives (13.7-17.8 s a step
+# over gloo), so the four cells took 158 s on an H100 80GB HBM3, 700 W; the
+# CPU tests and the dry run hold hubert
+LM_FAMILIES = (
+    dict(arch="mamba2-130m", layers=None, mesh=(2, 2), steps=3, batch=4,
+         seq=512, lr=3e-4, seed=0, serve=True, psum=False),
+    dict(arch="recurrentgemma-2b", layers=3, mesh=(2, 2), steps=3, batch=4,
+         seq=512, lr=3e-4, seed=0, serve=True, psum=False),
+    dict(arch="llava-next-mistral-7b", layers=2, mesh=(2, 2), steps=1,
+         batch=4, seq=1152 + 512, lr=3e-4, seed=0, psum=False))
 # ... and the tensor-parallel program of a MoE model: OLMoE-1B-7B at its
 # published width, its depth cut to 4 of 16 layers (~1.9e9 parameters,
 # 7.5 GB in float32).  Reckoned before the run: one process holds ~32 GB
@@ -4344,10 +4365,9 @@ def lm_one_process(cell: dict, path: Path, cfg=None, **extra) -> dict:
 
 
 def lm_train_expected(tmp: Path) -> dict:
-    """One process's 3 float32 steps of the cut Qwen2.5-3B and of
-    Mamba2-130m (the ZeRO-3 cell), Qwen's prefill and decode steps, and the
-    dry run of one rank's step of Qwen on the (2, 2) mesh (written for the
-    ranks): Qwen's spec and the ZeRO-3 cell's."""
+    """One process's 3 float32 steps of the cut Qwen2.5-3B, its prefill and
+    decode steps, and the dry run of one rank's step on the (2, 2) mesh
+    (written for the ranks)."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     cfg = lm_train_cfg()
@@ -4359,18 +4379,42 @@ def lm_train_expected(tmp: Path) -> dict:
           f"{pred.get('program')} {pred.get('error')}")
     one = lm_one_process(LM_TRAIN, tmp / "lm_train.pt",
                          serve=lm_serve_expected(cfg))
-    zero3 = lm_one_process(LM_ZERO3, tmp / "lm_zero3.pt")
-    spec_zero3 = {"path": zero3["path"]}
-    for c, x in ((cfg, one), (lm_train_cfg(LM_ZERO3), zero3)):
-        log(f"  16b: single process: {describe(c)}, {x['n_params']} "
-            f"parameters, losses {[round(v, 5) for v in x['losses']]}, step "
-            f"walls {[round(v, 3) for v in x['step_s']]} s")
+    log(f"  16b: single process: {describe(cfg)}, {one['n_params']} "
+        f"parameters, losses {[round(v, 5) for v in one['losses']]}, step "
+        f"walls {[round(v, 3) for v in one['step_s']]} s")
     log(f"  16b: the dry run of a rank's Qwen step on (2, 2): product flops "
         f"{pred['hlo_stats']['dot_flops']:.6e}, peak "
         f"{pred['peak_bytes'] / 1e9:.3f} GB; {time.perf_counter() - t0:.1f} s")
     return {"path": one["path"], "n_params": one["n_params"],
             "dot_flops": pred["hlo_stats"]["dot_flops"],
-            "peak_bytes": pred["peak_bytes"]}, spec_zero3
+            "peak_bytes": pred["peak_bytes"]}
+
+
+def lm_family_expected(tmp: Path, cell: dict) -> dict:
+    """A family cell of 16b: the dry run of one rank's step on the (2, 2)
+    mesh, one process's float32 steps and (where the cell is served) its
+    prefill and decode steps (written for the ranks)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    cfg = lm_train_cfg(cell)
+    with dryrun.fake_world(cell["mesh"]) as mesh:
+        pred = dryrun.record_cell(cfg, lm_train_cell(cell), mesh, DEVICE)
+    flops = pred["stats"].dot_flops
+    peak = pred["memory"]["argument_size_in_bytes"] \
+        + pred["memory"]["temp_size_in_bytes"]
+    del pred
+    extra = {"serve": lm_serve_expected(cfg)} if cell.get("serve") else {}
+    one = lm_one_process(cell, tmp / f"lm_{cell['arch']}.pt", cfg=cfg,
+                         **extra)
+    log(f"  16b: single process: {describe(cfg)}, {one['n_params']} "
+        f"parameters, losses {[round(v, 5) for v in one['losses']]}, step "
+        f"walls {[round(v, 3) for v in one['step_s']]} s, peak "
+        f"{one['peak_gb']:.2f} GB; the dry run of a rank's step on (2, 2): "
+        f"product flops {flops:.6e}, peak {peak / 1e9:.3f} GB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"path": one["path"], "n_params": one["n_params"],
+            "dot_flops": flops, "peak_bytes": peak,
+            "ref_peak_gb": one["peak_gb"]}
 
 
 def lm_moe_capacities() -> tuple:
@@ -4546,8 +4590,7 @@ def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
     against the single process's (``spec[key]["path"]``); the rank's
     parameter and moment bytes against its sanitized shards';
     ``compressed_psum`` over the data axis on one step's gradients (where
-    the cell asks).  For the tensor-parallel cells (``LM_TRAIN``,
-    ``LM_MOE``) one more step recorded on the card."""
+    the cell asks); one more step recorded on the card."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun
@@ -4595,15 +4638,13 @@ def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
                 "steps_sent_bytes": steps_sent, "peak_gb": peak_gb})
     del st, sm
     free()
-    if cell is LM_TRAIN or cell is LM_MOE:
-        # one more step of the same cell, recorded on the card as the dry
-        # run records its fakes
-        rec = dryrun.record_cell(cfg, lm_train_cell(cell), mesh, dev,
-                                 fake=False, transport=True,
-                                 seed=cell["seed"])
-        out["dot_flops"] = rec["stats"].dot_flops
-        del rec
-        free()
+    # one more step of the same cell, recorded on the card as the dry run
+    # records its fakes
+    rec = dryrun.record_cell(cfg, lm_train_cell(cell), mesh, dev,
+                             fake=False, transport=True, seed=cell["seed"])
+    out["dot_flops"] = rec["stats"].dot_flops
+    del rec
+    free()
     dist.barrier()
     return out
 
@@ -4625,12 +4666,9 @@ def lm_psum_check(sm, cfg, cell: dict, mesh, dev) -> dict:
         total, _ = sharded._local_loss(sm.local, batch, cfg, sm.comm,
                                        ["data"])
         total.backward()
-        # what the step sums over the data axis: the rank's model slice
-        # (the gradient itself under the tensor-parallel program)
-        grads = {n: p.grad if sm.program == "fsdp_tp"
-                 else sharded.model_slice(p.grad, sm.placements[n], mesh,
-                                          ["data"])
-                 for n, p in full.items() if p.grad is not None}
+        # what the step sums over the data axis: the rank's model slice,
+        # the gradient itself
+        grads = {n: p.grad for n, p in full.items() if p.grad is not None}
     del full, total
     t0 = time.perf_counter()
     with set_mesh(mesh):
@@ -4651,26 +4689,26 @@ def lm_psum_check(sm, cfg, cell: dict, mesh, dev) -> dict:
             "psum_s": psum_s}
 
 
-def lm_serve_rank(dev, spec: dict, key: str = "train") -> dict:
+def lm_serve_rank(dev, spec: dict, key: str = "train",
+                  cell: dict = LM_TRAIN) -> dict:
     """Phase 16b's serving on one rank of the (1, 4) mesh: a cut model
-    (Qwen2.5-3B, or OLMoE-1B-7B at its serving capacity) from the seeded
-    init, ``sharded_prefill`` of 2 x 512 tokens into the rank's cache
-    shards (split by sequence) and 3 decode steps; the logits' largest
-    distance from the single process's (``spec[key]["path"]``), relative
-    to 1 + |theirs|."""
+    (``cell``'s: Qwen2.5-3B, OLMoE-1B-7B at its serving capacity,
+    Mamba2-130m, RecurrentGemma-2B) from the seeded init,
+    ``sharded_prefill`` of 2 x 512 tokens into the rank's cache shards
+    (an attention cache split by sequence, a recurrent state by channel
+    or head) and 3 decode steps; the logits' largest distance from the
+    single process's (``spec[key]["path"]``), relative to 1 + |theirs|."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import sharded
     mesh = make_mesh(LM_SERVE["mesh"], ("data", "model"), device_type="cuda")
     want = torch.load(spec[key]["path"], mmap=True,
                       weights_only=False)["serve"]
-    cfg = lm_train_cfg() if key == "train" else lm_train_cfg(
-        LM_MOE, spec[key]["serve_cf"])
+    cfg = lm_train_cfg(cell, spec[key].get("serve_cf"))
     sm = sharded.ShardedModel.init(cfg, mesh, seed=LM_TRAIN["seed"],
                                    device=dev)
     caches, placements = sharded.cache_shards(
         cfg, LM_SERVE["batch"], LM_SERVE["max_len"], mesh, torch.float32,
         device=dev)
-    split = [tuple(pl["k"]) for pl in placements]
     del caches
     toks = sharded.place_batch({"tokens": lm_serve_tokens(cfg).to(dev)},
                                mesh)["tokens"]
@@ -4695,8 +4733,8 @@ def lm_serve_rank(dev, spec: dict, key: str = "train") -> dict:
     errs = [float(((g - w.to(dev)).abs() / (1 + w.to(dev).abs())).max())
             for g, w in zip(got, want)]
     return {"program": sm.program, "errs": errs, "walls_s": walls,
-            "cache_shard": list(caches[0]["k"].shape),
-            "cache_placements": str(split[0]),
+            "cache_shard": {k: list(v.shape) for k, v in caches[0].items()},
+            "cache_placements": str(placements[0]),
             "finite": all(bool(torch.isfinite(g).all()) for g in got),
             "sent_bytes": sm.comm.sent, "stage_s": sm.comm.stage_s,
             "wait_s": sm.comm.wait_s,
@@ -4712,9 +4750,6 @@ def lm_rank(dev, spec: dict) -> dict:
     t1 = time.perf_counter()
     train = lm_train_rank(dev, spec)
     train["rank_s"] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    zero3 = lm_train_rank(dev, spec, LM_ZERO3, "zero3")
-    zero3["rank_s"] = time.perf_counter() - t1
     t2 = time.perf_counter()
     serve = lm_serve_rank(dev, spec)
     serve["rank_s"] = time.perf_counter() - t2
@@ -4722,10 +4757,26 @@ def lm_rank(dev, spec: dict) -> dict:
     moe = lm_train_rank(dev, spec, LM_MOE, "moe")
     moe["rank_s"] = time.perf_counter() - t3
     t4 = time.perf_counter()
-    moe_serve = lm_serve_rank(dev, spec, "moe")
+    moe_serve = lm_serve_rank(dev, spec, "moe", LM_MOE)
     moe_serve["rank_s"] = time.perf_counter() - t4
-    return {"ring": ring, "train": train, "zero3": zero3, "serve": serve,
-            "moe": moe, "moe_serve": moe_serve}
+    return {"ring": ring, "train": train, "serve": serve, "moe": moe,
+            "moe_serve": moe_serve}
+
+
+def lm_family_rank(dev, spec: dict) -> dict:
+    """Phase 16b's family cells on one of their 4 ranks: each cell's train
+    steps on (2, 2) and, where it is served, its serving on (1, 4)."""
+    out = {}
+    for cell in LM_FAMILIES:
+        t0 = time.perf_counter()
+        out[cell["arch"]] = lm_train_rank(dev, spec, cell, cell["arch"])
+        out[cell["arch"]]["rank_s"] = time.perf_counter() - t0
+        if cell.get("serve"):
+            t0 = time.perf_counter()
+            sv = lm_serve_rank(dev, spec, cell["arch"], cell)
+            sv["rank_s"] = time.perf_counter() - t0
+            out[cell["arch"] + "/serve"] = sv
+    return out
 
 
 def survivor_b1_case(plan, captured) -> dict:
@@ -4893,43 +4944,11 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
         f"{[x['sent_bytes'] for x in ring]}; init "
         f"{[round(x['init_s'], 1) for x in ring]} s; peak memory "
         f"{[round(x['peak_gb'], 2) for x in ring]} GB; {card}")
-    # (b) the sharded train steps: the tensor-parallel program (Qwen) and
-    # ZeRO-3 (Mamba2)
+    # (b) the sharded train steps of the tensor-parallel program
     tr = [r["train"] for r in lm]
-    z3 = [r["zero3"] for r in lm]
     mo = [r["moe"] for r in lm]
-    for cell, ranks, program in ((LM_TRAIN, tr, "fsdp_tp"),
-                                 (LM_ZERO3, z3, "zero3"),
-                                 (LM_MOE, mo, "fsdp_tp")):
-        for r, x in enumerate(ranks):
-            what_cell = f"16b {cell['arch']} rank {r}"
-            for got, want, what in ((x["losses"], x["ref_losses"], "loss"),
-                                    (x["grad_norms"], x["ref_grad_norms"],
-                                     "gradient norm")):
-                rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-                check(len(got) == cell["steps"] and rel <= TOL_TRAIN_GATE,
-                      f"{what_cell}: {what}es {got} against one process's "
-                      f"{want}")
-            check(x["param_rel"] <= TOL_SHARDED_PARAMS, f"{what_cell}: its "
-                  f"parameter shards are {x['param_rel']:.3g} (norm) from "
-                  "one process's")
-            check(x["param_bytes"] == x["want_bytes"] < x["whole_bytes"]
-                  and x["moment_bytes"] == 2 * x["param_bytes"],
-                  f"{what_cell}: {x['param_bytes']} parameter and "
-                  f"{x['moment_bytes']} moment bytes, its sanitized shards "
-                  f"{x['want_bytes']}")
-            check(not cell.get("psum", True) or (
-                x["psum_int8_step_share"] <= 1.0 and x["psum_resid_ok"]),
-                f"{what_cell}: compressed_psum "
-                f"{x.get('psum_int8_step_share', 0):.3g} int8 steps from "
-                f"the float32 sum (residual exact {x.get('psum_resid_ok')})")
-            check(x["program"] == program, f"{what_cell}: the step ran "
-                  f"{x['program']}, not {program}")
-    for key, ranks in (("train", tr), ("moe", mo)):
-        for r, x in enumerate(ranks):
-            check(x["dot_flops"] == spec[key]["dot_flops"], f"16b {key} rank "
-                  f"{r}: {x['dot_flops']} product flops on the card, the dry "
-                  f"run's (2, 2) cell {spec[key]['dot_flops']}")
+    for cell, key, ranks in ((LM_TRAIN, "train", tr), (LM_MOE, "moe", mo)):
+        lm_train_checks(cell, ranks, spec[key])
     for r, x in enumerate(mo):
         check(min(x["dropped"]) > 0 and min(x["ref_dropped"]) > 0
               and max(abs(a - b) for a, b in zip(x["dropped"],
@@ -4940,18 +4959,12 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
     sv = [r["serve"] for r in lm]
     ms = [r["moe_serve"] for r in lm]
     for what, ranks in (("Qwen", sv), ("OLMoE", ms)):
-        for r, x in enumerate(ranks):
-            check(x["program"] == "fsdp_tp" and x["finite"]
-                  and max(x["errs"]) <= TOL_TRAIN_GATE,
-                  f"16b {what} rank {r}: the (1, 4) prefill and decode "
-                  f"logits {x['errs']} (relative to 1 + |one process's|) "
-                  f"over {TOL_TRAIN_GATE}; program {x['program']}")
+        lm_serve_checks(what, ranks)
     res["train"] = {"ranks": tr, "cut": f"{LM_TRAIN['layers']} of 36 layers",
                     "dry_run_dot_flops": spec["train"]["dot_flops"],
                     "dry_run_peak_bytes": spec["train"]["peak_bytes"],
                     "zero3_peak_gb": LM_TRAIN_ZERO3_PEAK_GB}
     res["serve"] = {"ranks": sv, **LM_SERVE}
-    res["zero3"] = {"ranks": z3, **LM_ZERO3}
     res["moe"] = {"ranks": mo, "serve_ranks": ms, **LM_MOE,
                   **{k: spec["moe"][k] for k in (
                       "cf", "serve_cf", "dot_flops", "peak_bytes",
@@ -4976,19 +4989,6 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
         f"{spec['train']['peak_bytes'] / 1e9:.2f}); product flops a rank "
         f"{[x['dot_flops'] for x in tr]} (dry run "
         f"{spec['train']['dot_flops']:.6e}); {card}")
-    log(f"  16b {LM_ZERO3['arch']} at its published width and depth, float32 "
-        f"on (2, 2), the ZeRO-3 program (every parameter gathered whole): "
-        f"losses {z3[0]['losses']} (one process {z3[0]['ref_losses']}), "
-        f"gradient norms {z3[0]['grad_norms']} (one process "
-        f"{z3[0]['ref_grad_norms']}); parameter shards within "
-        f"{max(x['param_rel'] for x in z3):.3g} of one process's (worst "
-        f"tensor {max((x['worst_tensor_rel'], x['worst_tensor']) for x in z3)}"
-        f"); bytes per rank: parameters {[x['param_bytes'] for x in z3]} of "
-        f"{z3[0]['whole_bytes']}; compressed_psum within "
-        f"{max(x['psum_int8_step_share'] for x in z3):.3g} of one int8 step; "
-        f"step walls {[[round(s, 2) for s in x['step_s']] for x in z3]} s; "
-        f"bytes sent {[x['sent_bytes'] for x in z3]}; peak "
-        f"{[round(x['peak_gb'], 2) for x in z3]} GB a rank; {card}")
     log(f"  16b the same model on (data 1, model 4): prefill of "
         f"{LM_SERVE['batch']} x {LM_SERVE['prompt']} tokens and "
         f"{LM_SERVE['steps']} decode steps, cache shard "
@@ -5030,13 +5030,114 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
         f"{[round(x['peak_gb'], 2) for x in ms]} GB; {card}")
 
 
+def lm_train_checks(cell: dict, ranks: list, spec: dict) -> None:
+    """A 16b train cell's checks over its ranks: losses and gradient norms
+    within ``TOL_TRAIN_GATE`` of one process's, the shards within
+    ``TOL_SHARDED_PARAMS``, the bytes the sanitized shards', the
+    ``compressed_psum`` check where the cell runs it, the program
+    ``"fsdp_tp"`` and the product flops the dry run's (2, 2) cell's."""
+    for r, x in enumerate(ranks):
+        what_cell = f"16b {cell['arch']} rank {r}"
+        for got, want, what in ((x["losses"], x["ref_losses"], "loss"),
+                                (x["grad_norms"], x["ref_grad_norms"],
+                                 "gradient norm")):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            check(len(got) == cell["steps"] and rel <= TOL_TRAIN_GATE,
+                  f"{what_cell}: {what}es {got} against one process's "
+                  f"{want}")
+        check(x["param_rel"] <= TOL_SHARDED_PARAMS, f"{what_cell}: its "
+              f"parameter shards are {x['param_rel']:.3g} (norm) from one "
+              "process's")
+        check(x["param_bytes"] == x["want_bytes"] < x["whole_bytes"]
+              and x["moment_bytes"] == 2 * x["param_bytes"],
+              f"{what_cell}: {x['param_bytes']} parameter and "
+              f"{x['moment_bytes']} moment bytes, its sanitized shards "
+              f"{x['want_bytes']}")
+        check(not cell.get("psum", True) or (
+            x["psum_int8_step_share"] <= 1.0 and x["psum_resid_ok"]),
+            f"{what_cell}: compressed_psum "
+            f"{x.get('psum_int8_step_share', 0):.3g} int8 steps from the "
+            f"float32 sum (residual exact {x.get('psum_resid_ok')})")
+        check(x["program"] == "fsdp_tp", f"{what_cell}: the step ran "
+              f"{x['program']}, not fsdp_tp")
+        check(x["dot_flops"] == spec["dot_flops"], f"{what_cell}: "
+              f"{x['dot_flops']} product flops on the card, the dry run's "
+              f"(2, 2) cell {spec['dot_flops']}")
+
+
+def lm_serve_checks(what: str, ranks: list) -> None:
+    """A 16b serving cell's checks: the program, finite logits within
+    ``TOL_TRAIN_GATE`` of one process's."""
+    for r, x in enumerate(ranks):
+        check(x["program"] == "fsdp_tp" and x["finite"]
+              and max(x["errs"]) <= TOL_TRAIN_GATE,
+              f"16b {what} rank {r}: the (1, 4) prefill and decode logits "
+              f"{x['errs']} (relative to 1 + |one process's|) over "
+              f"{TOL_TRAIN_GATE}; program {x['program']}")
+
+
+def lm_family_checks(fam: list, spec: dict, res: dict, card: str) -> None:
+    """Phase 16b's family cells: each checked as Qwen's, its readings
+    printed and kept (into ``res["families"]``)."""
+    res["families"] = {}
+    for cell in LM_FAMILIES:
+        arch = cell["arch"]
+        ranks = [r[arch] for r in fam]
+        lm_train_checks(cell, ranks, spec[arch])
+        m = spec[arch]
+        kept = {"ranks": ranks, **cell, **{k: m[k] for k in (
+            "dot_flops", "peak_bytes", "n_params", "ref_peak_gb")}}
+        log(f"  16b {arch} at its published width, "
+            f"{cell['layers'] or 'all its'} layers ({m['n_params']} "
+            f"parameters), float32 on (2, 2), the tensor-parallel program: "
+            f"losses {ranks[0]['losses']} (one process "
+            f"{ranks[0]['ref_losses']}), gradient norms "
+            f"{ranks[0]['grad_norms']} (one process "
+            f"{ranks[0]['ref_grad_norms']}); parameter shards within "
+            f"{max(x['param_rel'] for x in ranks):.3g} of one process's "
+            f"(worst tensor "
+            f"{max((x['worst_tensor_rel'], x['worst_tensor']) for x in ranks)}"
+            f"); bytes per rank: parameters "
+            f"{[x['param_bytes'] for x in ranks]} of "
+            f"{ranks[0]['whole_bytes']}; step walls "
+            f"{[[round(t, 2) for t in x['step_s']] for x in ranks]} s; bytes "
+            f"sent over the steps {[x['steps_sent_bytes'] for x in ranks]}; "
+            f"staging {[round(x['stage_s'], 1) for x in ranks]} s, waits "
+            f"{[round(x['wait_s'], 1) for x in ranks]} s; peak "
+            f"{[round(x['peak_gb'], 2) for x in ranks]} GB a rank (the dry "
+            f"run's {m['peak_bytes'] / 1e9:.2f}; one process "
+            f"{m['ref_peak_gb']:.2f}); product flops a rank "
+            f"{[x['dot_flops'] for x in ranks]} (dry run "
+            f"{m['dot_flops']:.6e})"
+            + (f"; compressed_psum within "
+               f"{max(x['psum_int8_step_share'] for x in ranks):.3g} of one "
+               f"int8 step" if cell.get("psum", True) else "")
+            + f"; {card}")
+        if cell.get("serve"):
+            sv = [r[arch + "/serve"] for r in fam]
+            lm_serve_checks(arch, sv)
+            kept["serve_ranks"] = sv
+            log(f"  16b the same {arch} on (data 1, model 4): prefill of "
+                f"{LM_SERVE['batch']} x {LM_SERVE['prompt']} tokens and "
+                f"{LM_SERVE['steps']} decode steps, layer 0's cache shard "
+                f"{sv[0]['cache_shard']} ({sv[0]['cache_placements']}); "
+                f"logits within {max(max(x['errs']) for x in sv):.3g} of one "
+                f"process's (relative to 1 + |theirs|, bound "
+                f"{TOL_TRAIN_GATE}); walls "
+                f"{[[round(w, 3) for w in x['walls_s']] for x in sv]} s; "
+                f"bytes sent {[x['sent_bytes'] for x in sv]}; peak "
+                f"{[round(x['peak_gb'], 2) for x in sv]} GB; {card}")
+        res["families"][arch] = kept
+
+
 def lm_phase(card: str) -> dict:
     """Phase 16: the LM stack on ranks sharing the one card over gloo
     (host-staged): (a) OLMoE-1B-7B with the expert ring on a (1, 4) mesh,
-    (b) the tensor-parallel train steps of Qwen2.5-3B and OLMoE-1B-7B and
-    Mamba2-130m's ZeRO-3 step on a (2, 2) mesh and Qwen's and OLMoE's
-    serving on (1, 4), all in one world of 4 ranks, and (c) recovery from
-    9 ranks onto their survivors' 2x2.
+    (b) the tensor-parallel train steps of Qwen2.5-3B and OLMoE-1B-7B on a
+    (2, 2) mesh and their serving on (1, 4), all in one world of 4 ranks,
+    then in a second world the family cells (``LM_FAMILIES``: Mamba2-130m,
+    RecurrentGemma-2B, llava-next-mistral-7b) likewise, and
+    (c) recovery from 9 ranks onto their survivors' 2x2.
     The single process's results come first (written for the ranks)."""
     import tempfile
 
@@ -5049,9 +5150,11 @@ def lm_phase(card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         spec = {"ring": lm_ring_expected(tmp)}
-        spec["train"], spec["zero3"] = lm_train_expected(tmp)
+        spec["train"] = lm_train_expected(tmp)
         spec["moe"] = lm_moe_expected(tmp)
         spec["recovery"] = lm_recovery_expected(tmp)
+        for cell in LM_FAMILIES:
+            spec[cell["arch"]] = lm_family_expected(tmp, cell)
         free()
         ref_s = time.perf_counter() - t0
         t1 = time.perf_counter()
@@ -5060,6 +5163,11 @@ def lm_phase(card: str) -> dict:
         lm_s = time.perf_counter() - t1
         res = {"single_process_s": ref_s, "lm_ranks_s": lm_s}
         lm_checks(lm, spec, res, card)
+        t1 = time.perf_counter()
+        fam = run_ranks(4, chip_smoke.lm_family_rank, spec, device=DEVICE,
+                        timeout_s=LM_TIMEOUT_S)
+        res["family_ranks_s"] = fam_s = time.perf_counter() - t1
+        lm_family_checks(fam, spec, res, card)
         t2 = time.perf_counter()
         rec = run_grid(LM_RECOVERY["g"], chip_smoke.lm_recovery_rank, spec,
                        backend="gloo", device=DEVICE,
@@ -5092,7 +5200,8 @@ def lm_phase(card: str) -> dict:
         f" bound {kern['bound_ms']:.3f} by {kern['bound_by']}); {card}")
     res["s"] = time.perf_counter() - t0
     log(f"  phase 16 wall {res['s']:.1f} s (single process {ref_s:.1f} s, "
-        f"4 ranks {lm_s:.1f} s, 9 ranks {rec_s:.1f} s)")
+        f"4 ranks {lm_s:.1f} s, the families' 4 ranks {fam_s:.1f} s, 9 "
+        f"ranks {rec_s:.1f} s)")
     return res
 
 

@@ -12,14 +12,14 @@ whether the rank's peak fits the card's 80 GB, and ``program``, the
 program the cell ran (``sharded.program``).  Every number is a prediction
 from those constants, not a measurement.
 
-The attention LMs, dense and MoE, run ``"fsdp_tp"``, JAX's FSDP x
-tensor-parallel program: parameters gathered over the batch axes only,
-each product partitioned over ``model`` as GSPMD partitions the
-reference's (``models/tensor_parallel.py``; a MoE layer's experts over
-``model``, its routing the global batch's), so a rank's product flops are
-JAX's.  The recurrent and frontend families run ``"zero3"``: every
-parameter gathered whole, the batch shard computed by all of the
-``model`` axis's ranks alike.
+Every config runs ``"fsdp_tp"``, JAX's FSDP x tensor-parallel program:
+parameters gathered over the batch axes only, each product partitioned
+over ``model`` as GSPMD partitions the reference's
+(``models/tensor_parallel.py``; a MoE layer's experts over ``model``, its
+routing the global batch's; an SSM's or RG-LRU's heads and channels; a
+frontend's projections), so a rank's product flops are JAX's.  A decode
+step whose batch does not split over the batch axes (long_500k's one row)
+gathers nothing and partitions its products over 'data' too.
 
 * **train**: a :class:`~repro_torch.models.sharded.ShardedModel` with
   AdamW's moments, one ``make_sharded_train_step`` on rank 0's batch

@@ -1,11 +1,9 @@
 """Render the dry run's tables from its JSON cache.
 
 Port of ``repro/launch/report.py``.  The records are the port's dry run's
-(``launch/dryrun.py``): predictions of the port's programs for a pod of
-H100 ranks (``"fsdp_tp"`` for the attention LMs, dense and MoE,
-``"zero3"`` for the recurrent and frontend families: each record says
-which) from the card's data-sheet constants
-(``core/roofline.py``), not measurements.
+(``launch/dryrun.py``): predictions of the port's program for a pod of
+H100 ranks (``"fsdp_tp"``, every record says so) from the card's
+data-sheet constants (``core/roofline.py``), not measurements.
 
   PYTHONPATH=src python -m repro_torch.launch.report --dir results/torch_dryrun
 """

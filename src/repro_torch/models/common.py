@@ -7,7 +7,7 @@ over ``MODEL_AXIS`` = ``"model"``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -61,15 +61,20 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], in_axis: int = 0,
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
-             zero_centered: bool = True) -> torch.Tensor:
+             zero_centered: bool = True,
+             cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """RMSNorm; ``zero_centered`` follows gemma's (1 + scale) convention.
 
     The reduction runs in float32; for bf16 inputs the normalize and scale
     multiplies stay in bf16 (normalizer rounded), as the reference does.
+    ``cols`` ``(lo, hi)``: only channels ``[lo, hi)`` of the result (the
+    mean still over all of ``x``'s), ``scale`` being theirs.
     """
     w = (1.0 + scale) if zero_centered else scale
     var = x.float().square().mean(dim=-1, keepdim=True)
     r = torch.rsqrt(var + eps)
+    if cols is not None:
+        x = x[..., cols[0]:cols[1]]
     if x.dtype == torch.bfloat16:
         return x * r.to(x.dtype) * w.to(x.dtype)
     return (x.float() * r * w.float()).to(x.dtype)

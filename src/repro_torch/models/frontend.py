@@ -10,6 +10,13 @@ vision tower are out of scope there too: the batches hold their outputs
 * vlm (LLaVA-NeXT-style): anyres patch embeddings [B, num_patches,
   frontend_dim] through the 2-layer MLP projector, then prepended to the
   token embeddings (``transformer._embed_inputs``).
+
+On a rank of the tensor-parallel program (``models/tensor_parallel.py``)
+each projection reads its ``d`` columns as they lie (``proj``, ``proj1``)
+or its rows (``proj2``), as GSPMD partitions the reference's: the audio
+frames' columns are all-gathered before the layer norm, which needs all
+of ``d`` (the ``"embed"`` site); the projector's partial sums are summed
+over ``model`` (``"front.out"``).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import tensor_parallel
 from .common import MODEL_AXIS, P, Params, dense_init, gelu_tanh, layer_norm
 from .config import ModelConfig
 
@@ -51,12 +59,14 @@ def frontend_specs(cfg: ModelConfig) -> Dict:
 def audio_embed(p: Params, frames: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """frames [B, T, frontend_dim] -> [B, T, d]."""
-    x = frames @ p.proj.to(frames.dtype)
+    x = tensor_parallel.site("embed", frames @ p.proj.to(frames.dtype))
     return layer_norm(x, p.ln_scale, p.ln_bias)
 
 
 def vlm_embed(p: Params, patches: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """patches [B, P, frontend_dim] -> [B, P, d]."""
-    h = gelu_tanh(patches @ p.proj1.to(patches.dtype))
-    return h @ p.proj2.to(patches.dtype)
+    proj1, proj2 = tensor_parallel.frontend_weights(p)
+    patches = tensor_parallel.site("front.in", patches)
+    h = gelu_tanh(patches @ proj1.to(patches.dtype))
+    return tensor_parallel.site("front.out", h @ proj2.to(patches.dtype))

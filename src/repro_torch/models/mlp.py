@@ -43,10 +43,11 @@ def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     """x: ``[B, T, d]``; the weights are cast to x's type per use."""
     w_up, w_gate, w_down = tensor_parallel.mlp_weights(p)
     x = tensor_parallel.site("mlp.in", x)
-    u = x @ w_up.to(x.dtype)
+    u = tensor_parallel.dot(x, w_up)
     if cfg.mlp_kind == "gelu":          # plain 2-matrix MLP (hubert)
         h = gelu_tanh(u)
     else:                               # gated: swiglu / geglu
         act = F.silu if cfg.mlp_kind == "swiglu" else gelu_tanh
-        h = act(x @ w_gate.to(x.dtype)) * u
-    return tensor_parallel.site("mlp.out", h @ w_down.to(x.dtype))
+        h = act(tensor_parallel.dot(x, w_gate)) * u
+    return tensor_parallel.site("mlp.out", tensor_parallel.dot(
+        h, w_down, cfg.d_model))

@@ -7,28 +7,23 @@ this rank's shard of it (a DTensor over the ``(data, model)`` or ``(pod,
 data, model)`` mesh, placed by the sanitized specs of
 ``transformer.param_specs``), and so do the optimizer's moments
 (``AdamW.state_specs``).  The step is an explicit program on each rank,
-one of two (:func:`program`):
+JAX's "FSDP (over 'data') x TP (over 'model')" (:func:`program`,
+``"fsdp_tp"``, for every config of the registry).  Each parameter is
+all-gathered over the batch axes only and keeps its shard along
+``model``; the rank runs forward and backward on its batch shard through
+its own q heads, MLP hidden units, experts, recurrent channels, SSM heads
+and vocabulary entries, with the collective each of the reference's
+constrain sites implies (``models/tensor_parallel.py``), the loss a
+vocab-parallel cross-entropy where the vocabulary divides the axis
+(:class:`_VocabNLL`: max and sum all-reduced over ``model``, the gold
+logit from its owner, a backward that never forms the whole logits).
+Each gradient is then the rank's ``model`` slice already: it is summed
+over the batch axes (a reduce-scatter where they split it) into the
+rank's shard.
 
-* ``"fsdp_tp"``, the attention LMs, dense and MoE
-  (``tensor_parallel.supported``): JAX's "FSDP (over 'data') x TP (over
-  'model')".  Each parameter is all-gathered over the batch axes only and
-  keeps its shard along ``model``; the rank runs forward and backward on
-  its batch shard through its own q heads, MLP hidden units, experts and
-  vocabulary entries, with the collective each of the reference's
-  constrain sites implies (``models/tensor_parallel.py``), the loss a
-  vocab-parallel cross-entropy (:class:`_VocabNLL`: max and sum
-  all-reduced over ``model``, the gold logit from its owner, a backward
-  that never forms the whole logits).  Each gradient is then the rank's
-  ``model`` slice already: it is summed over the batch axes (a
-  reduce-scatter where they split it) into the rank's shard.
-* ``"zero3"``, the recurrent and frontend families: every parameter is
-  all-gathered whole, the rank runs its batch shard (whole on the
-  ``model`` axis: those ranks compute the same), cuts every gradient to
-  its slice along the other axes and sums that over the batch axes.
-
-Either way the loss is the sum of the rank's tokens' negative
-log-likelihoods over the global token count, plus the layers' aux losses
-over the number of batch shards (the batch split over the batch axes by
+The loss is the sum of the rank's tokens' negative log-likelihoods over
+the global token count, plus the layers' aux losses over the number of
+batch shards (the batch split over the batch axes by
 ``batch_partition_spec``); the global gradient norm comes from the shards
 (one all-reduce of a scalar, each shard counted once), and AdamW updates
 the rank's shards of the parameters and moments in place.  So the loss
@@ -42,11 +37,11 @@ gathered parameters are freed after the step.
 
 Serving (:func:`sharded_prefill`, :func:`make_sharded_decode_step`) runs
 the same program without gradients on the rank's shards of the caches
-(``transformer.cache_specs``): in place under ``"fsdp_tp"`` (a cache split
-by sequence is attended slot-shard by slot-shard and merged, see
-``attention.attn_decode``; a decode step's tied head all-reduces one
-token's partial logits rather than move the embedding), gathered whole
-along the other axes and cut back under ``"zero3"``.  The logits they
+(``transformer.cache_specs``), in place: a cache split by sequence is
+attended slot-shard by slot-shard and merged (``attention.attn_decode``),
+a recurrent or SSM state is the rank's channels or heads, or whole where
+they do not divide the axis; a decode step's tied head all-reduces one
+token's partial logits rather than move the embedding.  The logits they
 return are whole.
 """
 from __future__ import annotations
@@ -67,15 +62,19 @@ from .common import BATCH_AXES, MODEL_AXIS
 from .config import ModelConfig
 
 __all__ = ["ShardedModel", "program", "place_batch", "sharded_loss",
-           "make_sharded_train_step", "model_slice", "cache_shards",
+           "make_sharded_train_step", "cache_shards",
            "sharded_prefill", "make_sharded_decode_step"]
 
 
 def program(cfg: ModelConfig) -> str:
-    """The program ``cfg`` runs on a mesh: ``"fsdp_tp"`` for the attention
-    LMs, dense and MoE, ``"zero3"`` for the recurrent and frontend
-    families (module docstring)."""
-    return "fsdp_tp" if tensor_parallel.supported(cfg) else "zero3"
+    """The program ``cfg`` runs on a mesh: ``"fsdp_tp"`` (module
+    docstring), for every config ``tensor_parallel.supported`` takes; any
+    other raises (no other program runs on a mesh)."""
+    if not tensor_parallel.supported(cfg):
+        raise ValueError(f"{cfg.name}: no tensor-parallel program for "
+                         f"layers {cfg.pattern!r}, frontend "
+                         f"{cfg.frontend!r}")
+    return "fsdp_tp"
 
 
 def _dtensor(local: torch.Tensor, mesh, placements, shape):
@@ -144,12 +143,12 @@ class ShardedModel:
     def place(cls, model: tf.Transformer, mesh,
               specs: Optional[Dict] = None) -> "ShardedModel":
         """``model`` (whole on every rank) cut to this rank's shards, by
-        ``specs`` filtered to the mesh's axes (the reference's
-        ``shardings_for``: every sharded dimension must divide)."""
-        from ..launch.mesh import placements_for
+        ``specs`` sanitized on the mesh, as :meth:`init` places them (the
+        reference's ``sanitized_shardings``: an axis that does not divide
+        a dimension leaves it whole)."""
         specs = specs or tf.param_specs(model.cfg)
         named = dict(model.named_parameters())
-        placements = placements_for(specs, mesh)
+        placements = sanitized_placements(specs, named, mesh)
         shapes = {n: tuple(p.shape) for n, p in named.items()}
         keep = {n: local_chunk(p.data, placements[n], mesh).clone()
                 for n, p in named.items()}
@@ -183,11 +182,8 @@ class ShardedModel:
 
     def step_placements(self, name: str) -> tuple:
         """What the step gathers of parameter ``name``: its placements
-        over the batch axes under ``"fsdp_tp"`` (the ``model`` shard is
-        kept), all of them under ``"zero3"``."""
+        over the batch axes (the ``model`` shard is kept)."""
         pl = self.placements[name]
-        if self.program == "zero3":
-            return pl
         other, batch = _split(pl, self.mesh, _batch_axes(self.mesh))
         if {p.dim for p in other if p.is_shard()} \
                 & {p.dim for p in batch if p.is_shard()}:
@@ -200,24 +196,27 @@ class ShardedModel:
                  batch_split: bool = True):
         """Inside the block ``self.local`` holds every parameter as the
         step reads it (gathered, collective: :meth:`step_placements`), and
-        under ``"fsdp_tp"`` the program's collectives are the layers'
+        the program's collectives are the layers'
         (``tensor_parallel.use``, a ``decode`` step's where it is one;
         ``batch_split``: the layers' tokens are the rank's part of a batch
         split over the batch axes, not the whole batch); the shards are
-        put back after it, and the gathered ones dropped.  Yields the
-        gathered parameters by name."""
+        put back after it, and the gathered ones dropped.  A decode step
+        whose rows the batch axes do not split gathers nothing: its
+        products are partitioned over 'data' instead
+        (``TensorParallel.fsdp_split``).  Yields the gathered parameters
+        by name."""
+        tp = tensor_parallel.TensorParallel(self.cfg, self.comm, decode,
+                                            batch_split)
         shards = {}
         for n, p in list(self.local.named_parameters()):
-            t = self.comm.gather_full(p.data, self.step_placements(n))
+            t = p.data if tp.fsdp_split else self.comm.gather_full(
+                p.data, self.step_placements(n))
             owner, leaf = _owner(self.local, n)
             shards[n] = owner._parameters[leaf]
             owner.register_parameter(leaf, nn.Parameter(
                 t, requires_grad=requires_grad))
-        tp = (tensor_parallel.use(tensor_parallel.TensorParallel(
-            self.cfg, self.comm, decode, batch_split))
-            if self.program == "fsdp_tp" else contextlib.nullcontext())
         try:
-            with tp:
+            with tensor_parallel.use(tp):
                 yield dict(self.local.named_parameters())
         finally:
             for n, p in shards.items():
@@ -261,28 +260,6 @@ def _split(placements, mesh, axes):
     return other, batch
 
 
-def model_slice(g: torch.Tensor, placements, mesh, axes) -> torch.Tensor:
-    """The piece of ``g`` (a whole gradient) this rank keeps along the
-    mesh axes outside ``axes`` (the batch axes): what it sums over the
-    batch axes.  A tensor dimension split by a batch axis and another one
-    at once is kept whole (it cannot be cut before the sum)."""
-    other, batch = _split(placements, mesh, axes)
-    if {p.dim for p in other if p.is_shard()} \
-            & {p.dim for p in batch if p.is_shard()}:
-        return g
-    return local_chunk(g, other, mesh)
-
-
-def _reduced_shard(comm, g, placements, mesh, axes) -> torch.Tensor:
-    """This rank's shard of ``g`` (a whole gradient) summed over the batch
-    ``axes``."""
-    part = model_slice(g, placements, mesh, axes)
-    summed = comm.all_reduce(part, axes)
-    if part is g:
-        return local_chunk(summed, placements, mesh)
-    return local_chunk(summed, _split(placements, mesh, axes)[1], mesh)
-
-
 def _batch_summed(comm, g, placements, mesh, axes) -> torch.Tensor:
     """This rank's shard of ``g`` (its ``model`` slice of a gradient)
     summed over the batch ``axes``: reduce-scattered along the dimension
@@ -313,10 +290,12 @@ def _splits(rows: int, mesh) -> bool:
 
 def _rows_split(cache_placements, mesh) -> bool:
     """Whether caches under ``cache_placements`` hold the rank's part of a
-    batch split over the batch axes (their rows are)."""
+    batch split over the batch axes (their rows are: every cache tensor's
+    spec splits its rows alike)."""
     names = list(mesh_sizes(mesh))
+    first = next(iter(cache_placements[0].values()))
     return any(pl.is_shard() and pl.dim == 0 and a in BATCH_AXES
-               for a, pl in zip(names, cache_placements[0]["pos"]))
+               for a, pl in zip(names, first))
 
 
 def place_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict:
@@ -411,7 +390,7 @@ def sharded_loss(sm: ShardedModel, batch: Dict, cfg: ModelConfig
     gradients: (loss with the aux losses, metrics), equal on every
     rank."""
     axes = _batch_axes(sm.mesh)
-    split = _splits(batch["tokens"].shape[0], sm.mesh)
+    split = _splits(next(iter(batch.values())).shape[0], sm.mesh)
     with torch.no_grad(), sm.gathered(batch_split=split):
         total, metrics = _local_loss(sm.local, place_batch(batch, sm.mesh),
                                      cfg, sm.comm, axes)
@@ -441,11 +420,10 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer) -> Callable:
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in full.items()}
         del full, total
-        reduce = _batch_summed if sm.program == "fsdp_tp" else _reduced_shard
         mine = {}
         for n in list(grads):
-            mine[n] = reduce(sm.comm, grads.pop(n), sm.placements[n],
-                             sm.mesh, axes)
+            mine[n] = _batch_summed(sm.comm, grads.pop(n), sm.placements[n],
+                                    sm.mesh, axes)
         # each shard's square counted once over the ranks that hold it
         sq = sum(torch.sum(torch.square(g.float()))
                  / _replicas(sm.placements[n], sm.mesh)
@@ -477,39 +455,47 @@ def cache_shards(cfg: ModelConfig, batch: int, max_len: int, mesh,
 
 def _empty_shards(cfg: ModelConfig, batch: int, max_len: int, placements,
                   mesh, dtype: torch.dtype, device) -> list:
-    """This rank's shards of a fresh attention cache for its ``batch``
-    rows (zeros, positions -1) under ``placements``, allocated at the
-    shard's size only (``attention.init_attn_cache``'s shapes)."""
-    from .attention import cache_len
+    """This rank's shards of a fresh cache for its ``batch`` rows under
+    ``placements`` (attention layers' zeros, positions -1, in ``dtype``;
+    recurrent states float32 zeros), allocated at the shard's size only
+    (``transformer.init_cache``'s shapes)."""
     sizes = list(mesh_sizes(mesh).values())
-    rows = batch * math.prod(n for n, pl in zip(sizes, placements[0]["pos"])
+    first = next(iter(placements[0].values()))
+    rows = batch * math.prod(n for n, pl in zip(sizes, first)
                              if pl.is_shard() and pl.dim == 0)
-    kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
     out = []
     for kind, pl in zip(cfg.pattern, placements):
-        s = cache_len(cfg, kind, max_len)
-        out.append({
-            "k": torch.zeros(local_shape((rows, s, *kv), pl["k"], mesh),
-                             dtype=dtype, device=device),
-            "v": torch.zeros(local_shape((rows, s, *kv), pl["v"], mesh),
-                             dtype=dtype, device=device),
-            "pos": torch.full(local_shape((rows, s), pl["pos"], mesh), -1,
-                              dtype=torch.int32, device=device)})
+        shards = {}
+        for k, (shape, dt) in _cache_shapes(cfg, kind, rows, max_len,
+                                            dtype).items():
+            shape = local_shape(shape, pl[k], mesh)
+            shards[k] = (torch.full(shape, -1, dtype=dt, device=device)
+                         if k == "pos" else
+                         torch.zeros(shape, dtype=dt, device=device))
+        out.append(shards)
     return out
 
 
-def _cache_whole(comm, shards, placements, mesh, axes) -> list:
-    """The caches of this rank's batch shard, whole along the other axes."""
-    return [{k: comm.gather_full(v, _split(placements[i][k], mesh, axes)[0])
-             for k, v in c.items()} for i, c in enumerate(shards)]
-
-
-def _cache_cut(caches, placements, mesh, axes) -> list:
-    """This rank's shards (new storage) of caches whole along the axes
-    outside the batch axes."""
-    return [{k: local_chunk(v, _split(placements[i][k], mesh, axes)[0],
-                            mesh).clone()
-             for k, v in c.items()} for i, c in enumerate(caches)]
+def _cache_shapes(cfg: ModelConfig, kind: str, rows: int, max_len: int,
+                  dtype: torch.dtype) -> Dict:
+    """(whole shape, type) of each tensor of one layer's cache, as
+    ``transformer.init_cache`` makes it, without making it (a dry run
+    would count the whole cache)."""
+    from . import rglru, ssm
+    from .attention import cache_len
+    f32 = torch.float32
+    if kind in ("g", "l"):
+        s = cache_len(cfg, kind, max_len)
+        kv = (rows, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": (kv, dtype), "v": (kv, dtype),
+                "pos": ((rows, s), torch.int32)}
+    if kind == "r":
+        w = rglru._w(cfg)
+        return {"h": ((rows, w), f32),
+                "conv": ((rows, rglru._CONV_W - 1, w), f32)}
+    s, di, nh = ssm._dims(cfg)
+    return {"ssm": ((rows, nh, s.d_state, s.head_dim), f32),
+            "conv": ((rows, s.d_conv - 1, di + 2 * s.d_state), f32)}
 
 
 def sharded_prefill(sm: ShardedModel, batch: Dict, cfg: ModelConfig,
@@ -519,56 +505,39 @@ def sharded_prefill(sm: ShardedModel, batch: Dict, cfg: ModelConfig,
     of the batch (:func:`place_batch`'s), the parameters gathered as in
     the train step, without gradients.  Returns (last-token logits, whole,
     the rank's cache shards under ``cache_placements``
-    (:func:`cache_shards`'), the next position).  Under ``"fsdp_tp"`` the
-    layers write the shards in place.  An encoder has no cache
-    (``cache_placements`` unused): its ``transformer.forward`` logits."""
-    if sm.program == "fsdp_tp":
-        rows, t = batch["tokens"].shape
-        split = _rows_split(cache_placements, sm.mesh)
-        with torch.no_grad(), sm.gathered(batch_split=split):
-            caches = _empty_shards(cfg, rows, max_len, cache_placements,
-                                   sm.mesh, cache_dtype, sm.local.device)
-            logits, caches, _ = tf.forward(sm.local, batch, cfg,
-                                           caches=caches)
-            last = tensor_parallel.current().whole_logits(logits[:, -1])
-        return last, caches, t
-    with torch.no_grad(), sm.gathered():
-        if cfg.is_encoder:
-            return tf.forward(sm.local, batch, cfg)[0]
-        logits, caches, pos = lm.prefill(sm.local, batch, cfg,
-                                         max_len=max_len,
-                                         cache_dtype=cache_dtype)
-    return logits, _cache_cut(caches, cache_placements, sm.mesh,
-                              _batch_axes(sm.mesh)), pos
+    (:func:`cache_shards`'), written in place by the layers, the next
+    position).  An encoder has no cache (``cache_placements`` unused):
+    its ``transformer.forward`` logits, whole."""
+    if cfg.is_encoder:
+        with torch.no_grad(), sm.gathered():
+            logits = tf.forward(sm.local, batch, cfg)[0]
+            return tensor_parallel.current().whole_logits(logits)
+    rows = next(iter(batch.values())).shape[0]
+    t = sum(v.shape[1] for k, v in batch.items()
+            if k in ("tokens", "patches"))
+    split = _rows_split(cache_placements, sm.mesh)
+    with torch.no_grad(), sm.gathered(batch_split=split):
+        caches = _empty_shards(cfg, rows, max_len, cache_placements,
+                               sm.mesh, cache_dtype, sm.local.device)
+        logits, caches, _ = tf.forward(sm.local, batch, cfg, caches=caches)
+        last = tensor_parallel.current().whole_logits(logits[:, -1])
+    return last, caches, t
 
 
 def make_sharded_decode_step(cfg: ModelConfig) -> Callable:
     """Returns ``decode_step(sm, token, caches, cache_placements, pos) ->
     (logits, caches)``: one token of this rank's batch shard (``token``
     [b, 1], the rank's rows) with the rank's cache shards
-    (:func:`cache_shards`); the logits whole.  Under ``"fsdp_tp"`` the
-    step runs on the shards in place.  Under ``"zero3"`` every parameter
-    is gathered whole and each cache along the axes outside the batch
-    axes, the step runs as ``lm.make_decode_step``'s, and the rank keeps
-    its shard of the new caches (no rank holds a whole cache between
-    steps)."""
+    (:func:`cache_shards`), which the step updates in place; the logits
+    whole."""
     step = lm.make_decode_step(cfg)
 
     @torch.no_grad()
     def decode_step(sm: ShardedModel, token: torch.Tensor, caches: list,
                     cache_placements: list, pos):
-        if sm.program == "fsdp_tp":
-            with sm.gathered(decode=True, batch_split=_rows_split(
-                    cache_placements, sm.mesh)):
-                logits, caches = step(sm.local, token, caches, pos)
-                return tensor_parallel.current().whole_logits(logits), \
-                    caches
-        axes = _batch_axes(sm.mesh)
-        whole = _cache_whole(sm.comm, caches, cache_placements, sm.mesh,
-                             axes)
-        with sm.gathered():
-            logits, new = step(sm.local, token, whole, pos)
-        del whole
-        return logits, _cache_cut(new, cache_placements, sm.mesh, axes)
+        with sm.gathered(decode=True, batch_split=_rows_split(
+                cache_placements, sm.mesh)):
+            logits, caches = step(sm.local, token, caches, pos)
+            return tensor_parallel.current().whole_logits(logits), caches
 
     return decode_step

@@ -16,6 +16,27 @@ picks 0) the backward multiplies 0 by inf, so the gradients w.r.t. ``dt``
 and ``a_log`` turn non-finite.  Here the segment sum is masked with -inf
 before the ``exp``, as Mamba-2's own reference does: the forward values
 are the reference's and the gradients stay finite.
+
+On a rank of the tensor-parallel program (``models/tensor_parallel.py``)
+the mixer is partitioned as GSPMD partitions the reference's (read off
+its HLO for mamba2-130m on a model axis of 16, where neither the 3352
+columns of ``in_proj`` nor the 24 heads divide the axis): each product
+dimension is cut into ``ceil(n / m)`` a rank (``TensorParallel.chunk``)
+and a rank computes its part (:class:`_Weights`):
+
+* ``in_proj``: its columns of ``[z | x | B | C | dt]``, the products
+  all-gathered (the whole concatenation on every rank);
+* the conv: its channels of ``[x | B | C]`` (the ``conv`` cache's shard
+  under ``mamba_cache_specs``), the outputs all-gathered;
+* the SSD: its heads (the ``ssm`` cache's shard, at the reference's
+  constrain of the heads) with all of B and C, ``C . B`` over its part
+  of the state dimension summed over ``model``;
+* the gated norm over every channel (the heads' outputs all-gathered),
+  then ``out_proj`` by its rows: partial sums, summed over ``model``
+  (``"ssm.out"``).
+
+A cache that lies whole (heads or channels that do not divide the axis)
+takes every rank's part, all-gathered.
 """
 from __future__ import annotations
 
@@ -25,6 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import tensor_parallel
 from .common import BATCH_AXES, MODEL_AXIS, P, Params, dense_init, rms_norm
 from .config import ModelConfig, SSMConfig
 
@@ -79,16 +101,104 @@ def mamba_specs(cfg: ModelConfig) -> Dict:
     }
 
 
-def _split_proj(p: Params, x: torch.Tensor, cfg: ModelConfig):
+class _Weights:
+    """A Mamba-2 mixer's weights as this rank reads them, its parts
+    ``[lo, hi)`` of the products' dimensions (``cols`` of ``in_proj``,
+    ``conv`` channels, ``heads``, ``state`` dimensions of ``C . B``,
+    ``rows`` of ``out_proj``: all of each outside the tensor-parallel
+    program), and the collectives that join them."""
+
+    def __init__(self, p: Params, cfg: ModelConfig):
+        s, di, nh = _dims(cfg)
+        tp = self.tp = tensor_parallel.current()
+        self.p = p
+        self.n = {"cols": 2 * di + 2 * s.d_state + nh,
+                  "conv": di + 2 * s.d_state, "heads": nh,
+                  "state": s.d_state, "rows": di}
+        if tp is None or tp.m == 1:
+            self.tp = None
+            for k, n in self.n.items():
+                setattr(self, k, (0, n))
+            for k in ("in_proj", "conv_w", "conv_b", "a_log", "d_skip",
+                      "dt_bias", "norm", "out_proj"):
+                setattr(self, k, getattr(p, k))
+            return
+        for k, n in self.n.items():
+            setattr(self, k, tp.chunk(n))
+        self.in_proj = tp.part(p.in_proj, 1, self.n["cols"])
+        self.conv_w = tp.part(p.conv_w, 1, self.n["conv"])
+        self.conv_b = tp.part(p.conv_b, 0, self.n["conv"])
+        self.a_log, self.d_skip, self.dt_bias = (
+            tp.part(t, 0, nh) for t in (p.a_log, p.d_skip, p.dt_bias))
+        self.norm = tp.part(p.norm, 0, di)
+        self.out_proj = tp.part(p.out_proj, 0, di)
+
+    def site(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Copy-to-model at ``"ssm.in"``, reduce-from-model at
+        ``"ssm.out"``."""
+        if self.tp is None:
+            return x
+        c = self.tp.comm
+        return c.copy_to(x, MODEL_AXIS) if name == "ssm.in" \
+            else c.reduce_from(x, MODEL_AXIS)
+
+    def whole(self, y: torch.Tensor, kind: str, dim: int) -> torch.Tensor:
+        """Every rank's part of dimension ``kind`` (``y`` this rank's)
+        along ``dim``, all-gathered."""
+        return y if self.tp is None else self.tp.gather_chunks(
+            y, self.n[kind], dim)
+
+    def mine(self, t: torch.Tensor, kind: str, dim: int) -> torch.Tensor:
+        """This rank's part along ``dim`` of a cache tensor that lies
+        split by ``kind`` (its shard) or whole."""
+        if self.tp is None or t.shape[dim] != self.n[kind]:
+            return t
+        lo, hi = getattr(self, kind)
+        return t.narrow(dim, lo, hi - lo)
+
+    def cached(self, t: torch.Tensor, kind: str, dim: int,
+               like: torch.Tensor) -> torch.Tensor:
+        """A new cache tensor, this rank's part ``t``, laid out as
+        ``like`` lies: its shard, or whole (every rank's part
+        all-gathered, no gradient)."""
+        if self.tp is None or like.shape[dim] != self.n[kind]:
+            return t.to(like.dtype)
+        return self.tp.gather_chunks(t, self.n[kind], dim,
+                                     grad="slice").to(like.dtype)
+
+    def scores(self, c_c: torch.Tensor, b_c: torch.Tensor) -> torch.Tensor:
+        """``C . B`` ``[B, nc, L, L]`` (float32) over every state
+        dimension: this rank's part of them, summed over ``model``."""
+        n0, n1 = self.state
+        cb = torch.einsum("bcin,bcjn->bcij", c_c[..., n0:n1].float(),
+                          b_c[..., n0:n1].float())
+        return cb if self.tp is None else self.tp.psum(cb)
+
+
+def _split_proj(w, x: torch.Tensor, cfg: ModelConfig):
+    """(z, x B C, dt) of every channel, from the mixer's weights ``w`` (or
+    a rank's :class:`_Weights`: its columns of ``in_proj``,
+    all-gathered)."""
     s, di, _ = _dims(cfg)
-    zxbcdt = x @ p.in_proj.to(x.dtype)
+    if not isinstance(w, _Weights):
+        w = _Weights(w, cfg)
+    zxbcdt = w.whole(tensor_parallel.dot(x, w.in_proj), "cols", -1)
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * s.d_state,
                                       zxbcdt.shape[-1] - 2 * di
                                       - 2 * s.d_state], dim=-1)
     return z, xbc, dt
 
 
-def _causal_conv(xbc: torch.Tensor, p: Params, cfg: ModelConfig,
+def _own_conv(w: _Weights, xbc: torch.Tensor, cfg: ModelConfig,
+              state: Optional[torch.Tensor] = None):
+    """The causal conv of the rank's channels of ``xbc`` (every
+    channel's), the outputs all-gathered; (out, the rank's new state)."""
+    k0, k1 = w.conv
+    out, new_state = _causal_conv(xbc[..., k0:k1], w, cfg, state)
+    return w.whole(out, "conv", -1), new_state
+
+
+def _causal_conv(xbc: torch.Tensor, p, cfg: ModelConfig,
                  state: Optional[torch.Tensor] = None):
     """Depthwise causal conv over time, then SiLU; returns (out,
     new_state), the state being the last ``d_conv - 1`` inputs."""
@@ -108,12 +218,14 @@ def _causal_conv(xbc: torch.Tensor, p: Params, cfg: ModelConfig,
 
 def _ssd_chunked(xh: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
                  dt: torch.Tensor, a_log: torch.Tensor,
-                 chunk: int) -> torch.Tensor:
+                 chunk: int, scores=None) -> torch.Tensor:
     """Chunked SSD.
 
     xh:   [B, T, H, P]   (dt-weighted inputs are formed here)
     bmat: [B, T, N], cmat: [B, T, N]   (n_groups = 1, shared across heads)
     dt:   [B, T, H]      (positive step sizes)
+    scores: ``C . B`` of the chunks (``_Weights.scores``), by default
+    every state dimension's here.
     Returns y [B, T, H, P].
     """
     bsz, t, h, pdim = xh.shape
@@ -140,7 +252,8 @@ def _ssd_chunked(xh: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
 
     # intra-chunk: scores[i,j] = (C_i . B_j) * exp(cs_i - cs_j) * (i >= j),
     # the segment sum masked to -inf above the diagonal before the exp
-    cb = torch.einsum("bcin,bcjn->bcij", c_c.float(), b_c.float())
+    cb = scores(c_c, b_c) if scores is not None else torch.einsum(
+        "bcin,bcjn->bcij", c_c.float(), b_c.float())
     seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]       # [B,nc,i,j,H]
     tri = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()
     decay = torch.exp(seg.masked_fill(~tri[None, None, :, :, None],
@@ -174,22 +287,28 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence SSD forward.  x: [B, T, d]."""
     s, di, nh = _dims(cfg)
-    z, xbc, dt = _split_proj(p, x, cfg)
-    xbc, conv_state = _causal_conv(xbc, p, cfg)
+    w = _Weights(p, cfg)
+    x = w.site("ssm.in", x)
+    z, xbc, dt = _split_proj(w, x, cfg)
+    xbc, conv_state = _own_conv(w, xbc, cfg)
     xin, bmat, cmat = torch.split(xbc, [di, s.d_state, s.d_state], dim=-1)
-    xh = xin.reshape(*xin.shape[:2], nh, s.head_dim)
-    dt_pos = F.softplus(dt.float() + p.dt_bias.float())
-    y = _ssd_chunked(xh, bmat, cmat, dt_pos, p.a_log, s.chunk)
-    y = y + p.d_skip.to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(*x.shape[:2], di)
-    y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
-    out = y @ p.out_proj.to(x.dtype)
+    h0, h1 = w.heads
+    xh = xin[..., h0 * s.head_dim:h1 * s.head_dim].reshape(
+        *xin.shape[:2], h1 - h0, s.head_dim)
+    dt_pos = F.softplus(dt[..., h0:h1].float() + w.dt_bias.float())
+    y = _ssd_chunked(xh, bmat, cmat, dt_pos, w.a_log, s.chunk,
+                     scores=w.scores)
+    y = y + w.d_skip.to(y.dtype)[None, None, :, None] * xh
+    y = w.whole(y, "heads", 2).reshape(*x.shape[:2], di)
+    y = rms_norm(y * F.silu(z), w.norm, cfg.norm_eps, cols=w.rows)
+    out = w.site("ssm.out", tensor_parallel.dot(y, w.out_proj.to(x.dtype),
+                                                cfg.d_model))
     if cache is None:
         return out, None
     # prefill: recompute the final SSM state for decode
-    final = _final_state(xh, bmat, cmat, dt_pos, p.a_log)
-    return out, {"ssm": final.to(cache["ssm"].dtype),
-                 "conv": conv_state.to(cache["conv"].dtype)}
+    final = _final_state(xh, bmat, cmat, dt_pos, w.a_log)
+    return out, {"ssm": w.cached(final, "heads", 1, cache["ssm"]),
+                 "conv": w.cached(conv_state, "conv", -1, cache["conv"])}
 
 
 def _final_state(xh, bmat, cmat, dt, a_log) -> torch.Tensor:
@@ -222,21 +341,28 @@ def mamba_decode(p: Params, x: torch.Tensor, cache: Dict, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, Dict]:
     """Single-step recurrence.  x: [B, 1, d]."""
     s, di, nh = _dims(cfg)
-    z, xbc, dt = _split_proj(p, x, cfg)
-    xbc, conv_state = _causal_conv(xbc, p, cfg, state=cache["conv"])
+    w = _Weights(p, cfg)
+    x = w.site("ssm.in", x)
+    z, xbc, dt = _split_proj(w, x, cfg)
+    xbc, conv_state = _own_conv(w, xbc, cfg,
+                                state=w.mine(cache["conv"], "conv", -1))
     xin, bmat, cmat = torch.split(xbc, [di, s.d_state, s.d_state], dim=-1)
-    xh = xin.reshape(x.shape[0], 1, nh, s.head_dim)[:, 0]   # [B,H,P]
-    dt_pos = F.softplus(dt.float() + p.dt_bias.float())[:, 0]  # [B,H]
-    a = torch.exp(-torch.exp(p.a_log.float())[None] * dt_pos)
+    h0, h1 = w.heads
+    xh = xin[:, 0, h0 * s.head_dim:h1 * s.head_dim].reshape(
+        x.shape[0], h1 - h0, s.head_dim)                     # [B,H,P]
+    dt_pos = F.softplus(dt[..., h0:h1].float()
+                        + w.dt_bias.float())[:, 0]           # [B,H]
+    a = torch.exp(-torch.exp(w.a_log.float())[None] * dt_pos)
     xdt = xh * dt_pos[..., None].to(xh.dtype)
-    st = cache["ssm"]
+    st = w.mine(cache["ssm"], "heads", 1)
     h_new = st * a[..., None, None].to(st.dtype) \
         + _ein("bn,bhp->bhnp", bmat[:, 0], xdt)
     y = _ein("bn,bhnp->bhp", cmat[:, 0], h_new)
-    y = y + p.d_skip.to(y.dtype)[None, :, None] * xh
-    y = y.reshape(x.shape[0], 1, di)
-    y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
-    out = _ein("bte,ed->btd", y, p.out_proj.to(x.dtype))
+    y = y + w.d_skip.to(y.dtype)[None, :, None] * xh
+    y = w.whole(y, "heads", 1).reshape(x.shape[0], 1, di)
+    y = rms_norm(y * F.silu(z), w.norm, cfg.norm_eps, cols=w.rows)
+    out = w.site("ssm.out", tensor_parallel.dot(    # y: the state's type
+        y, w.out_proj.to(x.dtype), cfg.d_model))
     out = out.to(x.dtype)   # f32 state must not promote the residual
-    return out, {"ssm": h_new.to(st.dtype),
-                 "conv": conv_state.to(cache["conv"].dtype)}
+    return out, {"ssm": w.cached(h_new, "heads", 1, cache["ssm"]),
+                 "conv": w.cached(conv_state, "conv", -1, cache["conv"])}

@@ -1,25 +1,28 @@
-"""The FSDP x tensor-parallel program of the attention LMs, dense and MoE:
+"""The FSDP x tensor-parallel program of every config of the registry:
 the one place that decides, for each ``constrain`` site of the JAX
 package, which collective turns its producer's layout into the
 constrained one.
 
-The JAX package runs these LMs as "FSDP (over 'data') x TP (over
-'model')" (``repro/models/attention.py``, ``repro/models/moe.py``): the
-specs shard heads, MLP hidden units, experts and the vocabulary over
-``model``, and GSPMD partitions every product at the ``constrain`` sites.
-Here the rank body is explicit.  Inside :func:`use`
-(``sharded.ShardedModel.gathered`` opens it for these families) each
-parameter is gathered over the batch axes only, so it keeps its shard
-along ``model``; the layers read their weights through
-:func:`attn_weights`, :func:`mlp_weights`, :func:`moe_weights` and
-:func:`head_weight` and call :func:`site` where the reference constrains.
+The JAX package runs its LMs as "FSDP (over 'data') x TP (over 'model')"
+(``repro/models/attention.py``, ``moe.py``, ``rglru.py``, ``ssm.py``,
+``frontend.py``): the specs shard heads, MLP hidden units, experts,
+recurrent channels, SSM projections and the vocabulary over ``model``,
+and GSPMD partitions every product at the ``constrain`` sites.  Here the
+rank body is explicit.  Inside :func:`use`
+(``sharded.ShardedModel.gathered`` opens it) each parameter is gathered
+over the batch axes only, so it keeps its shard along ``model``; the
+layers read their weights through :func:`attn_weights`,
+:func:`mlp_weights`, :func:`moe_weights`, :func:`frontend_weights` and
+:func:`head_weight` (the RG-LRU's and the SSM's through their modules'
+``_Weights``) and call :func:`site` where the reference constrains.
 Outside it all of these are the identity and the layers run the
 single-process program.
 
-A rank computes the q heads, MLP hidden units, experts and vocabulary
-entries of its ``model`` coordinate where the count divides the axis (the
-sanitize rule of the reference's ``constrain``), and all of them where it
-does not:
+A rank computes the q heads, MLP hidden units, experts, recurrent
+channels, frontend columns and vocabulary entries of its ``model``
+coordinate where the count divides the axis (the sanitize rule of the
+reference's ``constrain``), and all of them where it does not; the SSM's
+products take ``ceil(n / m)`` a rank (:meth:`TensorParallel.chunk`):
 
 =============  ==============================  ====================  =====================
 site           reference                       producer              collective
@@ -34,10 +37,18 @@ hidden         ``mlp.py:48``                   the rank's units      none
                                                combine weights
 xe, ye         ``moe.py:176``, ``:180``        the rank's experts    none
 ``moe.out``    ``moe.py:190``, ``:193``        partial sums          reduce-from-model
+``rec.in``     (before ``rglru.py:98``)        replicated x          copy-to-model
+xc             ``rglru.py:105``                the rank's channels   none (gates: blocks)
+``rec.out``    ``rglru.py:117``                partial sums          reduce-from-model
+``ssm.in``     (before ``ssm.py:150``)         replicated x          copy-to-model
+xh             ``ssm.py:154``                  the rank's heads      all-gathers (ssm.py)
+``ssm.out``    ``ssm.py:162``                  partial sums          reduce-from-model
+``front.in``   (before ``frontend.py:55``)     replicated patches    copy-to-model
+``front.out``  (``frontend.py:57``)            partial sums          reduce-from-model
 ``embed``      ``transformer.py:281``          x's ``d`` shard       all-gather (slice back)
 ``head.in``    (before ``transformer.py:335``) replicated x          copy-to-model
 logits         ``transformer.py:339``          the rank's vocabulary none (vocab-parallel)
-``head.in``    decode, tied embedding          replicated x          its ``d`` columns
+``head.in``    tied, head rows                 replicated x          its ``d`` columns
 ``head.out``   ``transformer.py:339``          partial sums          reduce-from-model
 =============  ==============================  ====================  =====================
 
@@ -52,16 +63,21 @@ a partial sum (``models/moe.py``).  The routing is the global batch's
 over the batch axes).  A weight whose layout at rest is not the one its
 product reads is moved by :meth:`TensorParallel.relayout`: a tied
 embedding, at rest ``[V, d / m]``, is exchanged all-to-all into the
-head's ``[V / m, d]`` for a train step or a prefill; a decode step reads
-it as it lies and all-reduces one token's partial logits of every entry
-instead (the last two rows), as GSPMD partitions the reference's decode.
-Where the kv heads do not divide the axis but their columns do, each
-rank projects its columns of k and v and the projections are
-all-gathered; where the q heads do not, its columns of q and rows of
-``wo`` (:class:`AttnWeights`).  A KV cache is read where it lies
-(``attention.attn_cache_specs``): by head, or by sequence, where each rank
-attends over its own slots and a log-sum-exp merge
-(:meth:`TensorParallel.merge_softmax`) all-reduces the partial results.
+head's ``[V / m, d]`` for a train step or a prefill; a decode step, and
+any step where the vocabulary does not divide the axis, reads it as it
+lies and all-reduces partial logits of every entry instead (the head
+rows), as GSPMD partitions the reference's.  The audio frontend's
+projection gives the rank's ``d`` columns, all-gathered at the
+``"embed"`` site before its layer norm.  Where the kv heads do not divide
+the axis but their columns do, each rank projects its columns of k and v
+and the projections are all-gathered; where the q heads do not, its
+columns of q and rows of ``wo`` (:class:`AttnWeights`).  A KV cache is
+read where it lies (``attention.attn_cache_specs``): by head, or by
+sequence, where each rank attends over its own slots and a log-sum-exp
+merge (:meth:`TensorParallel.merge_softmax`) all-reduces the partial
+results.  A decode step whose rows the batch axes do not split leaves
+'data' idle: nothing is gathered, and each product is partitioned over
+'data' as its weight lies (:func:`dot`, :func:`embed_rows`).
 """
 from __future__ import annotations
 
@@ -73,20 +89,22 @@ import torch
 
 from .common import BATCH_AXES
 from .common import MODEL_AXIS as AXIS
+
+FSDP_AXIS = "data"      # the axis the parameter specs split besides model
 from .config import ModelConfig
 
 __all__ = ["TensorParallel", "WholeAttnWeights", "AttnWeights", "supported",
-           "use", "current", "site", "attn_weights", "mlp_weights",
-           "moe_weights", "head_weight"]
+           "use", "current", "site", "dot", "embed_rows", "attn_weights",
+           "mlp_weights", "frontend_weights", "moe_weights", "head_weight"]
 
 
 def supported(cfg: ModelConfig) -> bool:
-    """Whether ``cfg`` runs the FSDP x TP program on a mesh: the attention
-    LMs (global and local attention layers with a dense MLP or experts, no
-    recurrent layer, no frontend).  The rest keep the ZeRO-3 program of
-    ``models/sharded.py``."""
-    return (not cfg.frontend and cfg.causal
-            and set(cfg.pattern) <= {"g", "l"} and cfg.mlp_kind != "none")
+    """Whether ``cfg`` runs the FSDP x TP program on a mesh: every layer
+    kind of the registry (global and local attention, causal or not, with
+    a dense MLP or experts; the RG-LRU block; the Mamba-2 mixer) and both
+    frontends.  Nothing else has a program on a mesh."""
+    return (set(cfg.pattern) <= {"g", "l", "r", "m"}
+            and cfg.frontend in (None, "audio", "vlm"))
 
 
 class WholeAttnWeights:
@@ -111,10 +129,10 @@ class WholeAttnWeights:
     def out(self, o: torch.Tensor) -> torch.Tensor:
         """The output projection of the attention's output ``o`` ``[B, T,
         heads, hd]``."""
-        return o.reshape(*o.shape[:2], -1) @ self.wo.to(o.dtype)
+        return dot(o.reshape(*o.shape[:2], -1), self.wo, self.cfg.d_model)
 
     def _proj(self, x, w, b):
-        y = x @ w.to(x.dtype)
+        y = dot(x, w)
         if b is not None:
             y = y + b.to(x.dtype)
         return y.reshape(*x.shape[:2], -1, self.hd)
@@ -188,7 +206,7 @@ class AttnWeights(WholeAttnWeights):
     def q(self, x: torch.Tensor) -> torch.Tensor:
         if not self.by_cols:
             return super().q(x)
-        y = x @ self.wq.to(x.dtype)
+        y = dot(x, self.wq)
         if self.bq is not None:
             y = y + self.bq.to(x.dtype)
         y = self.tp.comm.gather_along(y, AXIS, y.dim() - 1, grad="sum")
@@ -203,7 +221,7 @@ class AttnWeights(WholeAttnWeights):
         n = self.wo.shape[0]
         c0 = self.tp.j * n - self.q_heads[0] * self.hd
         o = o.reshape(*o.shape[:2], -1)[..., c0:c0 + n]
-        return o @ self.wo.to(o.dtype)
+        return dot(o, self.wo, self.cfg.d_model)
 
     def site(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """The collective at the attention's constrain site ``name``:
@@ -251,7 +269,7 @@ class AttnWeights(WholeAttnWeights):
                 # rank computes a part of the layer, the attention's input
                 # came through one already)
                 xin = x if self.split else c.copy_to(x, AXIS)
-                y = xin @ w.to(x.dtype)
+                y = dot(xin, w)
                 if b is not None:
                     y = y + b.to(x.dtype)
                 y = c.gather_along(y, AXIS, y.dim() - 1,
@@ -275,11 +293,16 @@ class TensorParallel:
     heads divide the axis and the rank's kv heads group uniformly);
     ``kv_split``: and its own kv heads (those divide it too);
     ``ff_split``, ``vocab_split``: MLP hidden units and vocabulary
-    entries likewise; ``moe_split``: the experts; ``head_rows``: a
-    ``decode`` step's tied head reads the embedding's ``d`` slice as it
-    lies and sums the partial logits over ``model`` (then the logits are
-    whole, ``vocab_split`` is off).  With one rank on the axis nothing is
-    split.
+    entries likewise; ``moe_split``: the experts; ``front_split``: a
+    frontend's projections (their ``d`` columns); ``head_rows``: a tied
+    head reads the embedding's ``d`` slice as it lies and sums the
+    partial logits over ``model`` (then the logits are whole,
+    ``vocab_split`` is off), in a ``decode`` step and wherever the
+    vocabulary does not divide the axis (GSPMD's partition of mamba2's
+    50280 entries on 16).  With one rank on the axis nothing is split.
+    :meth:`chunk`, :meth:`part` and :meth:`gather_chunks` cut and join a
+    dimension the way GSPMD partitions a product over one the axis does
+    not divide (the recurrent and SSM layers').
 
     ``batch_axes``, ``shards`` and ``shard``: the batch axes of the mesh,
     how many parts of the batch the layers' tokens are one of, and which
@@ -306,13 +329,21 @@ class TensorParallel:
         self.kv_heads = (q0 // g, (q1 - 1) // g + 1)
         self.kv_split = self.q_split and k % m == 0
         self.ff_split = m > 1 and cfg.d_ff % m == 0
-        # one token's logits of every entry move, not the embedding
-        self.head_rows = (decode and cfg.tie_embeddings and m > 1
-                          and cfg.d_model % m == 0)
+        # one token's logits of every entry move, not the embedding (and
+        # a batch's, where the vocabulary does not divide the axis)
+        self.head_rows = (cfg.tie_embeddings and m > 1
+                          and cfg.d_model % m == 0
+                          and (decode or cfg.vocab_size % m != 0))
         self.vocab_split = (m > 1 and cfg.vocab_size % m == 0
                             and not self.head_rows)
         self.moe_split = (m > 1 and cfg.moe is not None
                           and cfg.moe.n_experts % m == 0)
+        self.front_split = m > 1 and cfg.d_model % m == 0
+        # a decode step whose rows the batch axes do not split (one row:
+        # long_500k) leaves 'data' idle: the parameters stay split over it
+        # as they lie and the products are partitioned over it (:func:`dot`)
+        self.fsdp_split = (decode and not batch_split and cfg.moe is None
+                           and comm.sizes.get(FSDP_AXIS, 1) > 1)
         self.batch_axes = [a for a in BATCH_AXES if a in comm.sizes]
         self.shards, self.shard = 1, 0
         if batch_split:
@@ -345,6 +376,50 @@ class TensorParallel:
         if want_split:
             return c.copy_to(w, AXIS).chunk(self.m, want_dim)[self.j]
         return c.copy_to(w, AXIS) if partial and self.m > 1 else w
+
+    def chunk(self, n: int) -> Tuple[int, int]:
+        """[lo, hi): this rank's part of a dimension of ``n`` as GSPMD cuts
+        a product's dimension over ``model``: ``ceil(n / m)`` a rank in
+        coordinate order, so the last ranks' parts are shorter or empty
+        where ``m`` does not divide ``n`` (then the dimension lies whole
+        at rest, by the sanitize rule), its shard where it does."""
+        c = -(-n // self.m)
+        lo = min(self.j * c, n)
+        return lo, min(lo + c, n)
+
+    def part(self, w: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """``w`` (gathered over the batch axes) cut to this rank's
+        :meth:`chunk` of its dimension ``dim`` (``n`` long), which the
+        rank's product reads: its shard where it lies split, else a
+        slice of the whole (the gradient summed over ``model``)."""
+        if self.m == 1 or w.shape[dim] * self.m == n:
+            return w
+        lo, hi = self.chunk(n)
+        return self.comm.copy_to(w, AXIS).narrow(dim, lo, hi - lo)
+
+    def gather_chunks(self, y: torch.Tensor, n: int, dim: int,
+                      grad: str = "sum") -> torch.Tensor:
+        """Every rank's :meth:`chunk` of a dimension of ``n``, ``y`` this
+        rank's, all-gathered along ``dim`` (each padded to ``ceil(n /
+        m)`` for the transfer): the whole dimension.  ``grad`` as
+        ``MeshComm.gather_along``'s."""
+        if self.m == 1:
+            return y
+        dim %= y.dim()
+        pad = -(-n // self.m) - y.shape[dim]
+        if pad:
+            shape = list(y.shape)
+            shape[dim] = pad
+            y = torch.cat([y, y.new_zeros(shape)], dim)
+        return self.comm.gather_along(y, AXIS, dim, grad=grad).narrow(
+            dim, 0, n)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over ``model``, and its gradient too (JAX's
+        ``psum``): partial sums whose total each rank reads for a part
+        of its own."""
+        c = self.comm
+        return c.copy_to(c.reduce_from(x, AXIS), AXIS) if self.m > 1 else x
 
     def head_group(self) -> Tuple[Tuple[int, int], Tuple[int, int]]:
         """(q heads, kv heads) of this rank's group where the q heads do
@@ -388,6 +463,8 @@ class TensorParallel:
             split = self.ff_split
         elif name in ("moe.in", "moe.out"):
             split = self.moe_split
+        elif name in ("front.in", "front.out"):
+            split = self.front_split
         elif name == "head.in":
             if self.head_rows:
                 return c.copy_to(x, AXIS).chunk(self.m, -1)[self.j]
@@ -480,6 +557,44 @@ def site(name: str, x: torch.Tensor) -> torch.Tensor:
     return x if tp is None else tp.site(name, x)
 
 
+def dot(x: torch.Tensor, w: torch.Tensor,
+        n_out: Optional[int] = None) -> torch.Tensor:
+    """``x @ w`` (``w`` cast to ``x``'s type) as this rank computes it.
+    Where the current program's ``fsdp_split`` holds, ``w`` lies split
+    over 'data' as at rest (its rows where they are fewer than ``x``'s
+    columns, else its columns where fewer than ``n_out``), and so does the
+    product, as GSPMD partitions the reference's when the batch leaves
+    'data' idle: the rank's slice of the contraction, the partial sums
+    all-reduced over 'data', or its columns of the output, all-gathered
+    (no gradient: decode steps only)."""
+    w = w.to(x.dtype)
+    tp = current()
+    if tp is None or not tp.fsdp_split:
+        return x @ w
+    c, k = tp.comm, w.shape[0]
+    if k < x.shape[-1]:
+        i = c.index(FSDP_AXIS)
+        return c.all_reduce(x[..., i * k:(i + 1) * k] @ w, [FSDP_AXIS])
+    y = x @ w
+    if n_out is not None and y.shape[-1] < n_out:
+        y = c.all_gather(y, FSDP_AXIS, y.dim() - 1)
+    return y
+
+
+def embed_rows(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (of the rank's ``d`` shard): under
+    ``fsdp_split`` an embedding whose vocabulary lies split over 'data'
+    gives its own tokens' rows, summed over 'data'."""
+    tp = current()
+    v = embed.shape[0]
+    if tp is None or not tp.fsdp_split or v == tp.cfg.vocab_size:
+        return embed[tokens]
+    local = tokens - tp.comm.index(FSDP_AXIS) * v
+    mine = ((local >= 0) & (local < v))[..., None]
+    rows = torch.where(mine, embed[local.clamp(0, v - 1)], 0)
+    return tp.comm.all_reduce(rows, [FSDP_AXIS])
+
+
 def attn_weights(p, cfg: ModelConfig) -> WholeAttnWeights:
     """An attention layer's weights as this rank reads them
     (:class:`AttnWeights`); every head (:class:`WholeAttnWeights`)
@@ -499,6 +614,18 @@ def mlp_weights(p):
     return (tp.relayout(p.w_up, 1, f, s, s),
             None if gate is None else tp.relayout(gate, 1, f, s, s),
             tp.relayout(p.w_down, 0, f, s, s))
+
+
+def frontend_weights(p):
+    """A vlm projector's (proj1, proj2) as this rank reads them: its
+    columns of ``proj1`` and rows of ``proj2`` (every rank's at rest
+    already), like an MLP's hidden units."""
+    tp = current()
+    if tp is None:
+        return p.proj1, p.proj2
+    d, s = tp.cfg.d_model, tp.front_split
+    return (tp.relayout(p.proj1, 1, d, s, s),
+            tp.relayout(p.proj2, 0, d, s, s))
 
 
 def moe_weights(p, tp: Optional[TensorParallel] = None

@@ -373,12 +373,14 @@ def _embed_inputs(params: Transformer, batch: Dict, cfg: ModelConfig,
         x = front_mod.audio_embed(params.frontend,
                                   batch["frames"].to(dtype), cfg)
     elif front == "vlm":
-        tok = params.top.embed[batch["tokens"].long()].to(dtype)
+        tok = tensor_parallel.site("embed", tensor_parallel.embed_rows(
+            params.top.embed, batch["tokens"].long()).to(dtype))
         patches = front_mod.vlm_embed(params.frontend,
                                       batch["patches"].to(dtype), cfg)
         x = torch.cat([patches.to(dtype), tok], dim=1)
     else:
-        x = params.top.embed[batch["tokens"].long()].to(dtype)
+        x = tensor_parallel.embed_rows(params.top.embed,
+                                       batch["tokens"].long()).to(dtype)
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     return tensor_parallel.site("embed", x)
@@ -391,8 +393,7 @@ def _head_logits(params: Transformer, x: torch.Tensor,
     x = rms_norm(x, params.top.final_norm, cfg.norm_eps)
     head = tensor_parallel.head_weight(params).to(x.dtype)
     x = tensor_parallel.site("head.in", x)
-    logits = (x.float() @ head.float()) if x.dtype != torch.float32 \
-        else x @ head
+    logits = tensor_parallel.dot(x.float(), head, cfg.vocab_size)
     return softcap(tensor_parallel.site("head.out", logits),
                    cfg.final_softcap)
 

@@ -191,8 +191,7 @@ def test_debug_mesh_cell_equals_a_gloo_run(gloo, cell, monkeypatch,
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec == json.load(open(out)) | {"time": rec["time"]}
     assert rec["n_chips"] == mesh[0] * mesh[1]
-    assert rec["program"] == ("fsdp_tp" if arch in (
-        "qwen2.5-3b", "llama3-8b", "olmoe-1b-7b") else "zero3")
+    assert rec["program"] == "fsdp_tp"
     stats = rec["hlo_stats"]
     assert stats["dot_flops"] == want["dot_flops"] > 0
     assert stats["collective_bytes"] == want["collective_bytes"]

@@ -24,8 +24,10 @@ decode 1e-5 to JAX's (float32).  A MoE model's aux loss is the global
 batch's, as JAX's is, not the mean of the batch shards' (an OLMoE case
 with a large aux loss on ``(2, 2)``).  The last test holds the port's dry
 run to JAX's own (``repro.launch.dryrun.run_cell``, XLA's compile-time
-counts on a CPU for one device of a 16 x 16 mesh) on three production
-cells, one of them a MoE model's.
+counts on a CPU for one device of a 16 x 16 mesh) on five production
+cells: dense, MoE, SSM (mamba2-130m) and recurrent (recurrentgemma-2b).
+The recurrent, SSM and frontend families' cases against JAX are
+``test_torch_tp_families.py``'s.
 """
 import os
 import pathlib
@@ -113,29 +115,6 @@ def _results(worlds, name, dims):
     return [r[name] for r in worlds[dims]]
 
 
-def _chunk(x: np.ndarray, splits, coord, sizes) -> np.ndarray:
-    """The block of ``x`` at mesh ``coord`` under (mesh dim, tensor dim)
-    splits in mesh order (``launch.mesh.local_chunk``)."""
-    for m, d in splits:
-        n = x.shape[d] // sizes[m]
-        x = np.take(x, range(coord[m] * n, (coord[m] + 1) * n), axis=d)
-    return x
-
-
-def _shard_of(x: np.ndarray, spec, coord: dict, sizes: dict) -> np.ndarray:
-    """The block of ``x`` a mesh position holds under a JAX spec."""
-    index = []
-    for d, entry in enumerate(spec):
-        names = () if entry is None else (
-            (entry,) if isinstance(entry, str) else tuple(entry))
-        pos, parts = 0, 1
-        for a in names:
-            pos, parts = pos * sizes[a] + coord[a], parts * sizes[a]
-        size = x.shape[d] // parts
-        index.append(slice(pos * size, (pos + 1) * size))
-    return x[tuple(index)]
-
-
 @pytest.mark.parametrize("name,dims", CASES, ids=IDS)
 def test_dense_families_run_the_tp_program(name, dims, worlds):
     """Every family of the cases, dense and MoE, runs ``"fsdp_tp"``."""
@@ -172,7 +151,7 @@ def test_train_shards_equal_one_process(name, dims, what, worlds,
         got = r["train"][what]
         assert sorted(got) == sorted(whole)
         for n, (shard, splits) in got.items():
-            want = _chunk(whole[n], splits, r["coord"], dims)
+            want = ranks.block_of(whole[n], splits, r["coord"], dims)
             assert shard.shape == want.shape, n
             np.testing.assert_allclose(shard, want, rtol=TRAIN_TOL,
                                        atol=TRAIN_TOL, err_msg=n)
@@ -226,7 +205,8 @@ def test_cache_shards_are_jax_caches_under_cache_specs(name, dims, worlds,
             assert len(got) == len(layers) == len(specs)
             for i, (g, w, sp) in enumerate(zip(got, layers, specs)):
                 for k in w:
-                    block = _shard_of(np.asarray(w[k]), sp[k], coord, sizes)
+                    block = ranks.shard_of(np.asarray(w[k]), sp[k], coord,
+                                           sizes)
                     assert g[k].shape == block.shape, (name, s, i, k)
                     np.testing.assert_allclose(
                         g[k], block, rtol=SERVE_TOL, atol=SERVE_TOL,
@@ -352,7 +332,8 @@ def test_autograd_collective_and_its_adjoint(op, worlds):
 # the dry run's product flops against JAX's, on production cells
 # ---------------------------------------------------------------------------
 FLOP_CELLS = (("qwen2.5-3b", "train_4k"), ("qwen2.5-3b", "decode_32k"),
-              ("olmoe-1b-7b", "prefill_32k"))
+              ("olmoe-1b-7b", "prefill_32k"), ("mamba2-130m", "train_4k"),
+              ("recurrentgemma-2b", "prefill_32k"))
 FLOP_TOL = 0.05
 
 
@@ -387,9 +368,12 @@ def jax_flops(tmp_path_factory):
 
 def test_dry_run_product_flops_are_jaxs(jax_flops):
     """A rank's product flops in the port's dry run are within 5 % of
-    JAX's per device, a MoE model's too (ZeRO-3 gave 16.0 times them for
-    the dense cells, 15.8 for this MoE one: every rank of the model axis
-    computed the whole of each product, every expert of it)."""
+    JAX's per device, a MoE model's, an SSM's and a recurrent hybrid's
+    too (ZeRO-3 gave 16.0 times them for the dense cells, 15.8 for this
+    MoE one: every rank of the model axis computed the whole of each
+    product, every expert of it).  Mamba's ``in_proj`` columns and heads
+    do not divide the axis: the ranks take ``ceil(n / 16)`` each, as
+    GSPMD does."""
     import json
 
     from repro_torch.launch import dryrun

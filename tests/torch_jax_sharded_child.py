@@ -23,7 +23,11 @@ batch and tokens that the test wrote (:func:`tp_write_inputs`) to write
 and, but for the cases of :data:`TP_LOSS_CASES`, ``lm.prefill`` and
 :data:`TP_SERVE`'s decode steps (logits, and each layer's cache after the
 prefill and after each step) and JAX's ``cache_specs`` sanitized on each
-mesh of :data:`TP_MESHES`, one dict a layer.
+mesh of :data:`TP_MESHES`, one dict a layer.  ``fam DIR`` does the same
+for ``test_torch_tp_families.py``'s cases (:data:`FAM_ARCHS`, meshes
+:data:`FAM_MESHES`) into ``DIR/jax_fam.pt``: an encoder's "prefill" is
+its ``transformer.forward`` logits on the loss batch's frames (it has no
+cache and no decode), a vlm's prompt carries its patches.
 """
 from __future__ import annotations
 
@@ -100,6 +104,26 @@ TP_MOE = {"g2": dict(moe_dispatch_groups=2),
           "cap1": dict(moe=dict(capacity_factor=1.0)),
           "aux": dict(moe_dispatch_groups=2, moe=dict(aux_loss=1.0))}
 
+#: the recurrent, SSM and frontend families' cases: their smoke configs
+#: on (1, 2), (2, 2) and (1, 4); recurrentgemma-2b's on (1, 8), where its
+#: 4 q heads do not divide the axis (attention whole, the RG-LRU's
+#: channels one gate block a rank); Mamba shaped like mamba2-130m on 16
+#: (``/d48``: d_model 48, so 6 heads and 230 columns of ``in_proj`` that 4
+#: does not divide while the conv's 128 channels, the norm and
+#: ``out_proj``'s 96 rows do, and a vocabulary of 502 that does not divide
+#: the axis either) on (1, 4); and an RG-LRU 48 wide on (1, 3)
+#: (``/w48``: 16 channels a rank, gate blocks of 6, so a rank's channels
+#: end inside a block; nothing else divides 3: every other layer whole)
+FAM_ARCHS = ("mamba2-130m", "recurrentgemma-2b", "hubert-xlarge",
+             "llava-next-mistral-7b", "mamba2-130m/d48",
+             "recurrentgemma-2b/w48")
+FAM_MESHES = ((1, 2), (2, 2), (1, 4), (1, 8), (1, 3))
+FAM_CASES = tuple((a, m) for a in FAM_ARCHS[:4] for m in FAM_MESHES[:3]) \
+    + (("recurrentgemma-2b", (1, 8)), ("mamba2-130m/d48", (1, 4)),
+       ("recurrentgemma-2b/w48", (1, 3)))
+FAM_VARIANTS = {"d48": dict(d_model=48, vocab_size=502),
+                "w48": dict(lru_width=48)}
+
 
 def tp_config(get_config, name: str):
     """A case's config from either package's ``get_config``."""
@@ -112,15 +136,16 @@ def tp_config(get_config, name: str):
     cfg = get_config(arch, smoke=True)
     if not variant:
         return cfg
-    change = dict(TP_MOE[variant])
+    change = dict(TP_MOE.get(variant) or FAM_VARIANTS[variant])
     if "moe" in change:
         change["moe"] = dataclasses.replace(cfg.moe, **change["moe"])
     return dataclasses.replace(cfg, name=f"{cfg.name}-{variant}", **change)
 
 
-def tp_write_inputs(tmp: str) -> None:
+def tp_write_inputs(tmp: str, archs=TP_ARCHS) -> None:
     """Each case's JAX weights (``init_params`` from ``PRNGKey(i)``), loss
-    batch and serving tokens, as numpy, to ``tmp/<case>.pt``."""
+    batch and serving tokens (and a vlm's prompt patches), as numpy, to
+    ``tmp/<case>.pt``."""
     import os
 
     import jax
@@ -129,18 +154,30 @@ def tp_write_inputs(tmp: str) -> None:
     from repro.configs import get_config
     from repro.data.pipeline import SyntheticLM
     from repro.models import transformer as jtf
-    for i, name in enumerate(TP_ARCHS):
+    for i, name in enumerate(archs):
         cfg = tp_config(get_config, name)
         params = jtf.init_params(cfg, jax.random.PRNGKey(i))
         batch = {k: np.asarray(v) for k, v in SyntheticLM(
             cfg, TP_BATCH["batch"], TP_BATCH["seq"],
             seed=TP_BATCH["seed"])(0).items()}
-        toks = np.random.default_rng(i).integers(
+        rng = np.random.default_rng(i)
+        toks = rng.integers(
             0, cfg.vocab_size, (TP_SERVE["batch"], TP_SERVE["prompt"]
                                 + TP_SERVE["steps"])).astype(np.int32)
-        torch.save({"params": jax.tree.map(np.asarray, params),
-                    "batch": batch, "tokens": toks},
-                   os.path.join(tmp, f"{_file(name)}.pt"))
+        saved = {"params": jax.tree.map(np.asarray, params),
+                 "batch": batch, "tokens": toks}
+        if cfg.frontend == "vlm":
+            saved["patches"] = rng.standard_normal(
+                (TP_SERVE["batch"], cfg.num_patches,
+                 cfg.frontend_dim)).astype(np.float32)
+        torch.save(saved, os.path.join(tmp, f"{_file(name)}.pt"))
+
+
+def serve_max_len(cfg) -> int:
+    """The cache length of a case's serving check: the prompt's patches
+    too, for a vlm."""
+    return TP_SERVE["max_len"] + (cfg.num_patches
+                                  if cfg.frontend == "vlm" else 0)
 
 
 def _file(name: str) -> str:
@@ -169,7 +206,7 @@ def _layer_specs(cfg, caches, dims) -> list:
     return out
 
 
-def _tp(tmp: str) -> None:
+def _tp(tmp: str, archs, meshes, out_name: str) -> None:
     import os
 
     import jax
@@ -178,12 +215,13 @@ def _tp(tmp: str) -> None:
 
     from repro.configs import get_config
     from repro.models import lm
+    from repro.models import transformer as jtf
     from repro_torch.configs import get_config as tget
     from repro_torch.models.convert import unstack_layers
     out = {}
     n, steps = TP_SERVE["prompt"], TP_SERVE["steps"]
     loss_only = {a for a, _ in TP_LOSS_CASES}
-    for name in TP_ARCHS:
+    for name in archs:
         cfg = tp_config(get_config, name)
         saved = torch.load(os.path.join(tmp, f"{_file(name)}.pt"),
                            weights_only=False)
@@ -194,10 +232,16 @@ def _tp(tmp: str) -> None:
                      "dropped": float(metrics["dropped"])}
         if name in loss_only:
             continue
+        if cfg.is_encoder:
+            logits = jtf.forward(params, {"frames": batch["frames"]}, cfg)[0]
+            out[name].update(serve=[(np.asarray(logits), [])], specs={})
+            continue
         toks = saved["tokens"]
+        prompt = {"tokens": jnp.asarray(toks[:, :n])}
+        if "patches" in saved:
+            prompt["patches"] = jnp.asarray(saved["patches"])
         logits, caches, pos = lm.prefill(
-            params, {"tokens": jnp.asarray(toks[:, :n])}, cfg,
-            TP_SERVE["max_len"], jnp.float32)
+            params, prompt, cfg, serve_max_len(cfg), jnp.float32)
         seen = [(logits, caches)]
         step = lm.make_decode_step(cfg)
         for t in range(n, n + steps):
@@ -211,8 +255,8 @@ def _tp(tmp: str) -> None:
             serve=[(np.asarray(lg), unstack_layers(
                 tcfg, jax.tree.map(np.asarray, c))) for lg, c in seen],
             specs={dims: _layer_specs(cfg, grouped, dims)
-                   for dims in TP_MESHES})
-    torch.save(out, os.path.join(tmp, "jax_tp.pt"))
+                   for dims in meshes})
+    torch.save(out, os.path.join(tmp, out_name))
 
 
 def _ring(n: int, res: dict) -> None:
@@ -283,7 +327,10 @@ def _psum(res: dict) -> None:
 def main(argv) -> int:
     import jax
     if argv[1] == "tp":
-        _tp(argv[2])
+        _tp(argv[2], TP_ARCHS, TP_MESHES, "jax_tp.pt")
+        return 0
+    if argv[1] == "fam":
+        _tp(argv[2], FAM_ARCHS, FAM_MESHES, "jax_fam.pt")
         return 0
     if len(jax.devices()) < max(RING_SIZES):
         raise SystemExit(f"needs {max(RING_SIZES)} devices, has "

@@ -283,6 +283,29 @@ def recovery(ex) -> dict:
 TP_TRAIN = dict(steps=2, batch=4, seq=16, lr=1e-3, seed=0, log_every=0)
 
 
+def block_of(x: np.ndarray, splits, coord, sizes) -> np.ndarray:
+    """The block of ``x`` at mesh ``coord`` under (mesh dim, tensor dim)
+    splits in mesh order (``launch.mesh.local_chunk``)."""
+    for m, d in splits:
+        n = x.shape[d] // sizes[m]
+        x = np.take(x, range(coord[m] * n, (coord[m] + 1) * n), axis=d)
+    return x
+
+
+def shard_of(x: np.ndarray, spec, coord: dict, sizes: dict) -> np.ndarray:
+    """The block of ``x`` a mesh position holds under a JAX spec."""
+    index = []
+    for d, entry in enumerate(spec):
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        pos, parts = 0, 1
+        for a in names:
+            pos, parts = pos * sizes[a] + coord[a], parts * sizes[a]
+        size = x.shape[d] // parts
+        index.append(slice(pos * size, (pos + 1) * size))
+    return x[tuple(index)]
+
+
 def _placed(local: dict, placements: dict) -> dict:
     """numpy shards and their placements as (mesh dim, tensor dim) pairs
     of the split dimensions."""
@@ -356,10 +379,7 @@ class _Scatters(torch.utils._python_dispatch.TorchDispatchMode):
 
 def _tp_case(name: str, tmp: str, mesh, dims) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import shard_bytes, use_comm
-    from repro_torch.launch.train import train
     from repro_torch.models import convert, sharded
-    from repro_torch.optim import AdamW
     cfg = child.tp_config(get_config, name)
     saved = torch.load(os.path.join(tmp, f"{child._file(name)}.pt"),
                        weights_only=False)
@@ -375,17 +395,54 @@ def _tp_case(name: str, tmp: str, mesh, dims) -> dict:
                scatters=scatters.shapes)
     if (name, tuple(dims)) in child.TP_LOSS_CASES:
         return out
-    # prefill and decode of JAX's weights, float32 caches
-    n, steps = child.TP_SERVE["prompt"], child.TP_SERVE["steps"]
-    max_len = child.TP_SERVE["max_len"]
-    _, placements = sharded.cache_shards(cfg, child.TP_SERVE["batch"],
-                                         max_len, mesh, torch.float32,
-                                         device="cpu")
+    # prefill and decode of JAX's weights, float32 caches (an encoder's
+    # forward logits on the loss batch's frames)
+    row = (dims[0] > 1 and name in dict(child.FAM_CASES)
+           and not cfg.is_encoder)
+    if cfg.is_encoder:
+        frames = sharded.place_batch({"frames": batch["frames"]}, mesh)
+        out["serve"] = [(sharded.sharded_prefill(sm, frames, cfg, 0)
+                         .numpy(), [])]
+    else:
+        out["serve"] = _serve(sm, cfg, saved, mesh)
+    if row:
+        # one row, which the batch axes do not split
+        out["serve_row"] = _serve(sm, cfg, _first_row(saved), mesh)
+    out.update(_train_and_moves(cfg, mesh, saved, row))
+    return out
+
+
+def _first_row(saved: dict) -> dict:
+    """The serving inputs of ``saved``'s first row only."""
+    return {**saved, **{k: saved[k][:1] for k in ("tokens", "patches")
+                        if k in saved}}
+
+
+def _prompt(saved, mesh):
+    """This rank's rows of the serving tokens, and its prompt: the first
+    ``TP_SERVE["prompt"]`` of them (and a vlm's patches)."""
+    from repro_torch.models import sharded
     toks = sharded.place_batch(
         {"tokens": torch.from_numpy(saved["tokens"])}, mesh)["tokens"]
+    prompt = {"tokens": toks[:, :child.TP_SERVE["prompt"]]}
+    if "patches" in saved:
+        prompt["patches"] = sharded.place_batch(
+            {"patches": torch.from_numpy(saved["patches"])},
+            mesh)["patches"]
+    return toks, prompt
+
+
+def _serve(sm, cfg, saved, mesh) -> list:
+    """The prefill's and each decode step's logits and cache shards."""
+    from repro_torch.models import sharded
+    n, steps = child.TP_SERVE["prompt"], child.TP_SERVE["steps"]
+    max_len = child.serve_max_len(cfg)
+    _, placements = sharded.cache_shards(cfg, saved["tokens"].shape[0],
+                                         max_len, mesh, torch.float32,
+                                         device="cpu")
+    toks, prompt = _prompt(saved, mesh)
     logits, caches, pos = sharded.sharded_prefill(
-        sm, {"tokens": toks[:, :n]}, cfg, max_len, placements,
-        cache_dtype=torch.float32)
+        sm, prompt, cfg, max_len, placements, cache_dtype=torch.float32)
     serve = [(logits.numpy(), [{k: v.numpy().copy() for k, v in c.items()}
                                for c in caches])]
     step = sharded.make_sharded_decode_step(cfg)
@@ -395,7 +452,19 @@ def _tp_case(name: str, tmp: str, mesh, dims) -> dict:
         serve.append((logits.numpy(), [{k: v.numpy().copy()
                                         for k, v in c.items()}
                                        for c in caches]))
-    out["serve"] = serve
+    return serve
+
+
+def _train_and_moves(cfg, mesh, saved, row: bool = False) -> dict:
+    """2 train steps from the port's init (losses, norms, shards and
+    moments); a third step, a prefill and a decode step with every
+    transfer of a parameter noted (with ``row``, a decode step of one row
+    too)."""
+    from repro_torch.launch.mesh import shard_bytes, use_comm
+    from repro_torch.launch.train import train
+    from repro_torch.models import sharded
+    from repro_torch.optim import AdamW
+    out = {}
     # 2 train steps from the port's init
     st = train(cfg, mesh=mesh, device="cpu", **TP_TRAIN)
     sm = st["params"]
@@ -424,15 +493,46 @@ def _tp_case(name: str, tmp: str, mesh, dims) -> dict:
             sm, opt.init(sm.local), {k: torch.as_tensor(v)
                                      for k, v in raw.items()})
         out["moved"] = sorted(set(comm.moved))
-        # a prefill, then one decode step, its transfers noted apart
-        _, caches, pos = sharded.sharded_prefill(
-            sm, {"tokens": toks[:, :n]}, cfg, max_len, placements,
-            cache_dtype=torch.float32)
         comm.moved.clear()
-        sharded.make_sharded_decode_step(cfg)(sm, toks[:, n:n + 1], caches,
-                                              placements, pos)
-    out["moved_decode"] = sorted(set(comm.moved))
+        if not cfg.is_encoder:
+            # a prefill, then one decode step, its transfers noted apart
+            n, max_len = child.TP_SERVE["prompt"], child.serve_max_len(cfg)
+            _, placements = sharded.cache_shards(
+                cfg, child.TP_SERVE["batch"], max_len, mesh, torch.float32,
+                device="cpu")
+            toks, prompt = _prompt(saved, mesh)
+            _, caches, pos = sharded.sharded_prefill(
+                sm, prompt, cfg, max_len, placements,
+                cache_dtype=torch.float32)
+            comm.moved.clear()
+            sharded.make_sharded_decode_step(cfg)(
+                sm, toks[:, n:n + 1], caches, placements, pos)
+            out["moved_decode"] = sorted(set(comm.moved))
+            if row:
+                # one row: the decode step's transfers noted apart
+                row = _first_row(saved)
+                _, placements = sharded.cache_shards(
+                    cfg, 1, max_len, mesh, torch.float32, device="cpu")
+                toks, prompt = _prompt(row, mesh)
+                _, caches, pos = sharded.sharded_prefill(
+                    sm, prompt, cfg, max_len, placements,
+                    cache_dtype=torch.float32)
+                comm.moved.clear()
+                sharded.make_sharded_decode_step(cfg)(
+                    sm, toks[:, n:n + 1], caches, placements, pos)
+                out["moved_row_decode"] = sorted(set(comm.moved))
+    out.setdefault("moved_decode", sorted(set(comm.moved)))
     return out
+
+
+def fam_ranks(dev, tmp: str, dims) -> dict:
+    """Every case of ``child.FAM_CASES`` on this ``(data, model)`` mesh
+    of ``dims``, by name (``test_torch_tp_families.py``)."""
+    from repro_torch.launch.mesh import make_mesh
+    dims = tuple(dims)
+    mesh = make_mesh(dims, ("data", "model"), device_type="cpu")
+    return {name: _tp_case(name, tmp, mesh, dims)
+            for name, m in child.FAM_CASES if m == dims}
 
 
 COLLECTIVES = ("copy_to", "reduce_from", "gather_slice", "gather_sum",
