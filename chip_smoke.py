@@ -4164,6 +4164,13 @@ def grid_phase(card: str) -> dict:
 # on a (data 1, model 4) mesh: one batch of 2 x 512 tokens; the capacity
 # factor doubles from the published 1.25 until the dense path drops none
 LM_RING = dict(arch="olmoe-1b-7b", mesh=(1, 4), batch=2, seq=512, seed=0)
+# ... and one float32 train step through the ring on the same mesh (its
+# backward rides the hops back): OLMoE-1B-7B at its published width, its
+# depth cut to 4 of 16 layers (~1.9e9 parameters; a rank ~8 GB), remat as
+# published, against one process's dense_onehot step, at a capacity factor
+# doubled from the published one until the dense path drops none
+LM_RING_TRAIN = dict(arch="olmoe-1b-7b", layers=4, mesh=(1, 4), steps=1,
+                     batch=2, seq=512, lr=3e-4, seed=0)
 # (b) Qwen2.5-3B at its published width, its depth cut to 4 of 36 layers
 # (full depth is ~49 GB of float32 parameters, gradients and moments summed
 # over the ranks, before activations and 4 CUDA contexts), 3 float32 steps
@@ -4177,6 +4184,13 @@ LM_SERVE = dict(mesh=(1, 4), batch=2, prompt=512, steps=3, max_len=520,
 # each rank's peak over the same 3 steps when this cell ran the ZeRO-3
 # program (every parameter gathered whole), on an H100 80GB HBM3, 700 W
 LM_TRAIN_ZERO3_PEAK_GB = 9.43
+# each 16b cell's peak a rank when the step gathered the rank's whole model
+# slice before it ran (the tensor-parallel program before FSDP went layer
+# by layer), on an H100 80GB HBM3, 700 W: Qwen's and OLMoE's must now be
+# lower; the others are printed beside theirs
+LM_SLICE_PEAK_GB = {"qwen2.5-3b": 5.11, "olmoe-1b-7b": 13.55,
+                    "mamba2-130m": 1.19, "recurrentgemma-2b": 8.51,
+                    "llava-next-mistral-7b": 6.86}
 # ... and the tensor-parallel program of the recurrent, SSM and frontend
 # families, which ran ZeRO-3 before it (every parameter gathered whole), in
 # a world of 4 ranks of their own, float32 on the same (2, 2) mesh:
@@ -4201,11 +4215,10 @@ LM_FAMILIES = (
          batch=4, seq=1152 + 512, lr=3e-4, seed=0, psum=False))
 # ... and the tensor-parallel program of a MoE model: OLMoE-1B-7B at its
 # published width, its depth cut to 4 of 16 layers (~1.9e9 parameters,
-# 7.5 GB in float32).  Reckoned before the run: one process holds ~32 GB
-# (parameters, gradients, moments), freed before the ranks start; a rank
-# its 1.9 GB shard, 3.8 GB of moments, its 3.8 GB model slice gathered and
-# 3.8 GB of its gradients, ~13 GB, the four ~53 GB: under the ~60 GB past
-# which the cell would be cut to 2 layers.  3 float32 steps on (2, 2) with
+# 7.5 GB in float32).  One process holds ~32 GB (parameters, gradients,
+# moments), freed before the ranks start; a rank its 1.9 GB shard, 3.8 GB
+# of moments, 1.9 GB of shard gradients and one layer's ~0.9 GB model
+# slice gathered at a time.  3 float32 steps on (2, 2) with
 # one dispatch group over both batch shards (a token's slot counts the
 # other shard's tokens), the capacity factor lowered from the published
 # 1.25 until the first batch drops tokens (no compressed_psum: the other
@@ -4291,6 +4304,50 @@ def lm_ring_expected(tmp: Path) -> dict:
         f"of float32 (bf16 drops {float(aux16['dropped']):.4g}); capacity "
         f"factor {cf}; {time.perf_counter() - t0:.1f} s")
     return {"path": str(path), "cf": cf, "noise": noise}
+
+
+def lm_ring_train_cfg(cf: float, impl: str):
+    """16a's train cell's config: float32, its depth cut, capacity factor
+    ``cf``, MoE layer ``impl``."""
+    cfg = lm_train_cfg(LM_RING_TRAIN)
+    return dataclasses.replace(cfg, moe_impl=impl, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def lm_ring_train_expected(tmp: Path) -> dict:
+    """16a's train cell in one process: the capacity factor at which the
+    dense path drops no token of the cell's first batch (doubled from the
+    published one), and the float32 dense_onehot step there (written for
+    the ranks)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    cell = LM_RING_TRAIN
+    cf = lm_train_cfg(cell).moe.capacity_factor            # the published
+    model = tf.init_params(lm_ring_train_cfg(cf, "dense_onehot"),
+                           seed=cell["seed"], device=DEVICE)
+    raw = SyntheticLM(model.cfg, cell["batch"], cell["seq"],
+                      seed=cell["seed"])(0)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in raw.items()}
+    with torch.no_grad():
+        while True:
+            dropped = float(lm.loss_fn(model, batch, lm_ring_train_cfg(
+                cf, "dense_onehot"))[1]["dropped"])
+            if dropped == 0.0:
+                break
+            cf *= 2
+    del model, batch
+    free()
+    cfg = lm_ring_train_cfg(cf, "dense_onehot")
+    one = lm_one_process(cell, tmp / "lm_ring_train.pt", cfg=cfg)
+    log(f"  16a: single process: {describe(cfg)}, {one['n_params']} "
+        f"parameters, capacity factor {cf} (no drop), loss "
+        f"{[round(v, 6) for v in one['losses']]}, step wall "
+        f"{[round(v, 3) for v in one['step_s']]} s, peak "
+        f"{one['peak_gb']:.2f} GB; {time.perf_counter() - t0:.1f} s")
+    return {"path": one["path"], "cf": cf, "n_params": one["n_params"],
+            "ref_peak_gb": one["peak_gb"]}
 
 
 def lm_train_cfg(cell: dict = LM_TRAIN, cf: float = None):
@@ -4566,7 +4623,7 @@ def lm_ring_rank(dev, spec: dict) -> dict:
         logits, _, aux = tf.forward(model, {"tokens": toks}, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    hops = dict(moe.ring_stats)
+    hops = {k: int(v) for k, v in moe.ring_stats.items()}
     err16 = float((logits - ref["logits16"].to(dev)).abs().max())
     err32 = float((logits - ref["logits32"].to(dev)).abs().max())
     finite = bool(torch.isfinite(logits).all())
@@ -4580,6 +4637,47 @@ def lm_ring_rank(dev, spec: dict) -> dict:
             "stage_s": comm.stage_s, "wait_s": comm.wait_s,
             "sent_bytes": comm.sent,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def lm_ring_train_rank(dev, spec: dict) -> dict:
+    """Phase 16a's train step on one rank of the (1, 4) mesh:
+    ``train(mesh=)`` of the cut OLMoE-1B-7B with ``moe_impl="ring"`` from
+    the single process's init cut to this rank's shards; its loss and
+    gradient norm against the single process's dense_onehot step
+    (``spec["ring_train"]``), the ring's hops forward (the recomputation
+    included) and backward, and the assignments its capacity dropped."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import moe
+    cell = LM_RING_TRAIN
+    mesh = make_mesh(cell["mesh"], ("data", "model"), device_type="cuda")
+    ref = torch.load(spec["ring_train"]["path"], mmap=True,
+                     weights_only=False)
+    cfg = lm_ring_train_cfg(spec["ring_train"]["cf"], "ring")
+    torch.cuda.reset_peak_memory_stats()
+    moe.reset_ring_stats()
+    st = train(cfg, steps=cell["steps"], batch=cell["batch"],
+               seq=cell["seq"], lr=cell["lr"], seed=cell["seed"],
+               device=dev, log_every=0, mesh=mesh)
+    torch.cuda.synchronize()
+    comm = st["params"].comm
+    out = {"program": st["params"].program, "losses": st["losses"],
+           "grad_norms": st["grad_norms"], "ref_losses": ref["losses"],
+           "ref_grad_norms": ref["grad_norms"], "dropped": st["dropped"],
+           "ref_dropped": ref["dropped"], "step_s": st["step_s"],
+           "hops": moe.ring_stats["hops"],
+           "backward_hops": moe.ring_stats["backward_hops"],
+           "ring_dropped": int(moe.ring_stats["dropped"]),
+           "param_bytes": st["params"].local_bytes(),
+           "sent_bytes": comm.sent, "collectives": comm.collectives,
+           "stage_s": comm.stage_s, "wait_s": comm.wait_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del st, ref
+    free()
+    dist.barrier()
+    return out
 
 
 def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
@@ -4602,6 +4700,7 @@ def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
     cfg = lm_train_cfg(cell, spec[key].get("cf"))
     torch.cuda.reset_peak_memory_stats()
     sent0 = mesh_comm(mesh, dev).sent
+    calls0 = mesh_comm(mesh, dev).collectives
     st = train(cfg, steps=cell["steps"], batch=cell["batch"],
                seq=cell["seq"], lr=cell["lr"], seed=cell["seed"],
                device=dev, log_every=0, mesh=mesh)
@@ -4609,6 +4708,7 @@ def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     sm = st["params"]
     steps_sent = sm.comm.sent - sent0
+    step_collectives = (sm.comm.collectives - calls0) / cell["steps"]
     d2 = w2 = 0.0
     worst = (0.0, "")
     for n, p in sm.local_named().items():
@@ -4635,7 +4735,8 @@ def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
                 "param_rel": (d2 / w2) ** 0.5, "worst_tensor_rel": worst[0],
                 "worst_tensor": worst[1], "stage_s": sm.comm.stage_s,
                 "wait_s": sm.comm.wait_s, "sent_bytes": sm.comm.sent,
-                "steps_sent_bytes": steps_sent, "peak_gb": peak_gb})
+                "steps_sent_bytes": steps_sent, "peak_gb": peak_gb,
+                "step_collectives": step_collectives})
     del st, sm
     free()
     # one more step of the same cell, recorded on the card as the dry run
@@ -4652,8 +4753,9 @@ def lm_train_rank(dev, spec: dict, cell: dict = LM_TRAIN,
 def lm_psum_check(sm, cfg, cell: dict, mesh, dev) -> dict:
     """``compressed_psum`` over the data axis on one step's gradients of
     this rank (its shard of the batch and its model slice, before the
-    data-axis sum): within one int8 step of the exact float32 sum, the
-    residual exact."""
+    data-axis sum: what each unit's gather hands ``MeshComm.sum_group`` in
+    the backward, captured for this check): within one int8 step of the
+    exact float32 sum, the residual exact."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.mesh import set_mesh
     from repro_torch.models import sharded
@@ -4662,14 +4764,24 @@ def lm_psum_check(sm, cfg, cell: dict, mesh, dev) -> dict:
     raw = SyntheticLM(cfg, cell["batch"], cell["seq"], seed=cell["seed"])(0)
     batch = sharded.place_batch({k: torch.as_tensor(v, device=dev)
                                  for k, v in raw.items()}, mesh)
-    with sm.gathered(requires_grad=True) as full:
-        total, _ = sharded._local_loss(sm.local, batch, cfg, sm.comm,
-                                       ["data"])
-        total.backward()
-        # what the step sums over the data axis: the rank's model slice,
-        # the gradient itself
-        grads = {n: p.grad for n, p in full.items() if p.grad is not None}
-    del full, total
+    captured, sum_group = [], sm.comm.sum_group
+
+    def capture(grads, placements, axes):
+        captured.extend(g.detach().clone() for g in grads)
+        return sum_group(grads, placements, axes)
+
+    sm.comm.sum_group = capture
+    try:
+        with sm.running(train=True):
+            total, _ = sharded._local_loss(sm.local, batch, cfg, sm.comm,
+                                           ["data"])
+            total.backward()
+    finally:
+        del sm.comm.sum_group
+    del total
+    sm.take_grads()
+    grads = {str(i): g for i, g in enumerate(captured)}
+    del captured
     t0 = time.perf_counter()
     with set_mesh(mesh):
         summed, ef = compressed_psum(grads, "data",
@@ -4742,11 +4854,14 @@ def lm_serve_rank(dev, spec: dict, key: str = "train",
 
 
 def lm_rank(dev, spec: dict) -> dict:
-    """Phases 16a and 16b on one of the 4 ranks (one world, six
+    """Phases 16a and 16b on one of the 4 ranks (one world, seven
     meshes)."""
     t0 = time.perf_counter()
     ring = lm_ring_rank(dev, spec)
     ring["rank_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ring_train = lm_ring_train_rank(dev, spec)
+    ring_train["rank_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     train = lm_train_rank(dev, spec)
     train["rank_s"] = time.perf_counter() - t1
@@ -4759,8 +4874,8 @@ def lm_rank(dev, spec: dict) -> dict:
     t4 = time.perf_counter()
     moe_serve = lm_serve_rank(dev, spec, "moe", LM_MOE)
     moe_serve["rank_s"] = time.perf_counter() - t4
-    return {"ring": ring, "train": train, "serve": serve, "moe": moe,
-            "moe_serve": moe_serve}
+    return {"ring": ring, "ring_train": ring_train, "train": train,
+            "serve": serve, "moe": moe, "moe_serve": moe_serve}
 
 
 def lm_family_rank(dev, spec: dict) -> dict:
@@ -4930,6 +5045,46 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
               f"{x['local_experts']} experts a layer")
     res["ring"] = {"capacity_factor": cf, "noise": noise, "ranks": ring,
                    "hops_per_rank": hops_want}
+    # (a) a train step through the ring against one process's dense step
+    rt = [r["ring_train"] for r in lm]
+    cell, rs = LM_RING_TRAIN, spec["ring_train"]
+    units = cell["steps"] * cell["layers"] * cell["mesh"][1]
+    remat = lm_ring_train_cfg(rs["cf"], "ring").remat
+    for r, x in enumerate(rt):
+        for got, want, what in ((x["losses"], x["ref_losses"], "loss"),
+                                (x["grad_norms"], x["ref_grad_norms"],
+                                 "gradient norm")):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            check(len(got) == cell["steps"] and rel <= TOL_TRAIN_GATE,
+                  f"16a ring train rank {r}: {what} {got} against one "
+                  f"process's dense_onehot {want}")
+        check(x["program"] == "fsdp_tp" and x["ring_dropped"] == 0
+              and max(x["ref_dropped"]) == 0,
+              f"16a ring train rank {r}: program {x['program']}, the ring "
+              f"dropped {x['ring_dropped']} assignments, the dense path "
+              f"{x['ref_dropped']}")
+        check(x["hops"] == units * (2 if remat else 1)
+              and x["backward_hops"] == units,
+              f"16a ring train rank {r}: {x['hops']} forward hops (R a "
+              f"layer, again in the recomputation: {units * (1 + remat)}) "
+              f"and {x['backward_hops']} backward ({units})")
+    res["ring_train"] = {"ranks": rt, **cell, **rs}
+    log(f"  16a OLMoE-1B-7B at full width, depth cut to {cell['layers']} of "
+        f"16 layers ({rs['n_params']} parameters), float32, one train step "
+        f"through the expert ring on (data 1, model 4), capacity factor "
+        f"{rs['cf']}: loss {rt[0]['losses']} (one process's dense_onehot "
+        f"{rt[0]['ref_losses']}), gradient norm {rt[0]['grad_norms']} (one "
+        f"process {rt[0]['ref_grad_norms']}); hops a rank forward "
+        f"{[x['hops'] for x in rt]} (the recomputation's included), "
+        f"backward {[x['backward_hops'] for x in rt]}, dropped "
+        f"{[x['ring_dropped'] for x in rt]}; step wall "
+        f"{[[round(t, 2) for t in x['step_s']] for x in rt]} s; bytes sent "
+        f"{[x['sent_bytes'] for x in rt]} in "
+        f"{[x['collectives'] for x in rt]} collectives; staging "
+        f"{[round(x['stage_s'], 1) for x in rt]} s, waits "
+        f"{[round(x['wait_s'], 1) for x in rt]} s; peak "
+        f"{[round(x['peak_gb'], 2) for x in rt]} GB a rank (one process "
+        f"{rs['ref_peak_gb']:.2f}); {card}")
     log(f"  16a OLMoE-1B-7B bf16, expert ring on (data 1, model 4): capacity "
         f"factor {cf}; each rank {ring[0]['local_experts']} experts a layer, "
         f"parameter bytes {[x['param_bytes'] for x in ring]}; hops per rank "
@@ -4981,11 +5136,13 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
         f" step walls {[[round(s, 2) for s in x['step_s']] for x in tr]} s; "
         f"staging {[round(x['stage_s'], 1) for x in tr]} s, waits "
         f"{[round(x['wait_s'], 1) for x in tr]} s, bytes sent "
-        f"{[x['sent_bytes'] for x in tr]}; compressed_psum within "
+        f"{[x['sent_bytes'] for x in tr]}, collectives a step "
+        f"{[x['step_collectives'] for x in tr]}; compressed_psum within "
         f"{max(x['psum_int8_step_share'] for x in tr):.3g} of one int8 step "
         f"in {[round(x['psum_s'], 2) for x in tr]} s; peak over the 3 "
-        f"steps {[round(x['peak_gb'], 2) for x in tr]} GB a rank (the ZeRO-3"
-        f" step's {LM_TRAIN_ZERO3_PEAK_GB} GB; the dry run's "
+        f"steps {[round(x['peak_gb'], 2) for x in tr]} GB a rank (the "
+        f"whole-slice gather's {LM_SLICE_PEAK_GB['qwen2.5-3b']} GB, the "
+        f"ZeRO-3 step's {LM_TRAIN_ZERO3_PEAK_GB} GB; the dry run's "
         f"{spec['train']['peak_bytes'] / 1e9:.2f}); product flops a rank "
         f"{[x['dot_flops'] for x in tr]} (dry run "
         f"{spec['train']['dot_flops']:.6e}); {card}")
@@ -5015,8 +5172,10 @@ def lm_checks(lm: list, spec: dict, res: dict, card: str) -> None:
         f"bytes sent over the 3 steps {[x['steps_sent_bytes'] for x in mo]};"
         f" staging {[round(x['stage_s'], 1) for x in mo]} s, waits "
         f"{[round(x['wait_s'], 1) for x in mo]} s; peak "
-        f"{[round(x['peak_gb'], 2) for x in mo]} GB a rank (the dry run's "
+        f"{[round(x['peak_gb'], 2) for x in mo]} GB a rank (the whole-slice "
+        f"gather's {LM_SLICE_PEAK_GB['olmoe-1b-7b']}; the dry run's "
         f"{m['peak_bytes'] / 1e9:.2f}; one process {m['ref_peak_gb']:.2f}); "
+        f"collectives a step {[x['step_collectives'] for x in mo]}; "
         f"product flops a rank {[x['dot_flops'] for x in mo]} (dry run "
         f"{m['dot_flops']:.6e}); {card}")
     log(f"  16b the same OLMoE on (data 1, model 4) at capacity factor "
@@ -5063,6 +5222,10 @@ def lm_train_checks(cell: dict, ranks: list, spec: dict) -> None:
         check(x["dot_flops"] == spec["dot_flops"], f"{what_cell}: "
               f"{x['dot_flops']} product flops on the card, the dry run's "
               f"(2, 2) cell {spec['dot_flops']}")
+        was = LM_SLICE_PEAK_GB[cell["arch"]]
+        check(cell["arch"] not in ("qwen2.5-3b", "olmoe-1b-7b")
+              or x["peak_gb"] < was, f"{what_cell}: peak {x['peak_gb']:.2f} "
+              f"GB, not under the whole-slice gather's {was} GB")
 
 
 def lm_serve_checks(what: str, ranks: list) -> None:
@@ -5104,9 +5267,11 @@ def lm_family_checks(fam: list, spec: dict, res: dict, card: str) -> None:
             f"sent over the steps {[x['steps_sent_bytes'] for x in ranks]}; "
             f"staging {[round(x['stage_s'], 1) for x in ranks]} s, waits "
             f"{[round(x['wait_s'], 1) for x in ranks]} s; peak "
-            f"{[round(x['peak_gb'], 2) for x in ranks]} GB a rank (the dry "
+            f"{[round(x['peak_gb'], 2) for x in ranks]} GB a rank (the "
+            f"whole-slice gather's {LM_SLICE_PEAK_GB[arch]}; the dry "
             f"run's {m['peak_bytes'] / 1e9:.2f}; one process "
-            f"{m['ref_peak_gb']:.2f}); product flops a rank "
+            f"{m['ref_peak_gb']:.2f}); collectives a step "
+            f"{[x['step_collectives'] for x in ranks]}; product flops a rank "
             f"{[x['dot_flops'] for x in ranks]} (dry run "
             f"{m['dot_flops']:.6e})"
             + (f"; compressed_psum within "
@@ -5150,6 +5315,7 @@ def lm_phase(card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         spec = {"ring": lm_ring_expected(tmp)}
+        spec["ring_train"] = lm_ring_train_expected(tmp)
         spec["train"] = lm_train_expected(tmp)
         spec["moe"] = lm_moe_expected(tmp)
         spec["recovery"] = lm_recovery_expected(tmp)

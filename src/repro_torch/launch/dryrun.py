@@ -13,7 +13,8 @@ program the cell ran (``sharded.program``).  Every number is a prediction
 from those constants, not a measurement.
 
 Every config runs ``"fsdp_tp"``, JAX's FSDP x tensor-parallel program:
-parameters gathered over the batch axes only, each product partitioned
+parameters gathered over the batch axes only, a layer at a time (again
+in a train step's recomputation), each product partitioned
 over ``model`` as GSPMD partitions the reference's
 (``models/tensor_parallel.py``; a MoE layer's experts over ``model``, its
 routing the global batch's; an SSM's or RG-LRU's heads and channels; a

@@ -36,6 +36,7 @@ tensors), copies it counts and times; the computation stays on the card.
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
@@ -342,6 +343,7 @@ class MeshComm:
 
     def reset_counters(self) -> None:
         self.sent = 0
+        self.collectives = 0
         self.stage_s = 0.0
         self.wait_s = 0.0
 
@@ -429,6 +431,7 @@ class MeshComm:
             ops.append(dist.P2POp(dist.isend, raw, dst, group, tags + k))
             ops.append(dist.P2POp(dist.irecv, buf, src, group, tags + k))
         works = self._send_recv(ops)
+        self.collectives += 1
 
         def result():
             self._wait(works)
@@ -448,6 +451,7 @@ class MeshComm:
         raw = _raw(h)
         bufs = [torch.empty_like(raw) for _ in range(n)]
         self.sent += raw.numel() * (n - 1)
+        self.collectives += 1
         self._wait(self._gather(bufs, raw, self._groups[axis]))
         return self._back(torch.cat([_typed(b, h) for b in bufs], dim=dim))
 
@@ -473,6 +477,7 @@ class MeshComm:
         count = 1
         for a in axes:
             self.sent += h.numel() * h.element_size()
+            self.collectives += 1
             self._wait(self._reduce(h, self._groups[a]))
             count *= self.sizes[a]
         out = self._back(h)
@@ -502,6 +507,7 @@ class MeshComm:
             peer = self._peer(axis, d)
             ops.append(dist.P2POp(dist.isend, raw, peer, group, tag))
             ops.append(dist.P2POp(dist.irecv, buf, peer, group, tag))
+        self.collectives += 1
         self._wait(self._send_recv(ops, kind, operand))
         keep.clear()
         return [hs[i] if d == i else _typed(got[d], hs[i])
@@ -594,6 +600,111 @@ class MeshComm:
                 out = self.all_gather(out, self.names[m], pl.dim)
         return out
 
+    # a group of parameters (FSDP's unit: one layer's, of one type and
+    # one split over the batch axes) as one flat buffer
+    def split_axes(self, placements, axes) -> List[str]:
+        """The axes of ``axes`` (in mesh order, size > 1) that split every
+        tensor of a group under ``placements``: the same for each."""
+        split = [a for a in self.names if a in axes and self.sizes[a] > 1
+                 and placements[0][self.names.index(a)].is_shard()]
+        for pl in placements:
+            mine = [a for a in self.names if a in axes and self.sizes[a] > 1
+                    and pl[self.names.index(a)].is_shard()]
+            if mine != split:
+                raise ValueError(f"a group's tensors are split over {split} "
+                                 f"and {mine}: one flat buffer needs one")
+        return split
+
+    def _cuts(self, placements, split) -> List[Tuple[int, int]]:
+        return [(self.sizes[a], placements[self.names.index(a)].dim)
+                for a in split]
+
+    def gather_group(self, shards: Sequence[torch.Tensor], placements,
+                     axes: Sequence[str]) -> List[torch.Tensor]:
+        """Each tensor whole over the ``axes`` that split it, from every
+        rank's shards (``shards``, of one type, each under its
+        ``placements``, which split them over the same axes): one flat
+        buffer all-gathered over those axes (the last first, as
+        :meth:`gather_full`), cut back into the tensors.  The other mesh
+        axes' shards are kept."""
+        split = self.split_axes(placements, axes)
+        if not split:
+            return list(shards)
+        flat = torch.cat([s.reshape(-1) for s in shards])
+        parts = self.all_gather_over(flat[None], split, 0)
+        del flat
+        out, off = [], 0
+        for s, pl in zip(shards, placements):
+            n = s.numel()
+            pieces = parts[:, off:off + n].reshape(-1, *s.shape)
+            out.append(_joined(pieces, self._cuts(pl, split)))
+            off += n
+        return out
+
+    def sum_group(self, grads: Sequence[torch.Tensor], placements,
+                  axes: Sequence[str]) -> List[torch.Tensor]:
+        """This rank's shard of each of ``grads`` (whole over the ``axes``
+        that split it, as :meth:`gather_group` gave it) summed over
+        ``axes``: one flat buffer reduce-scattered over the axes that
+        split the group (each rank's part sent to it, mesh order) and
+        all-reduced over the rest."""
+        split = self.split_axes(placements, axes)
+        rest = [a for a in axes if a not in split]
+        if split:
+            cuts = [self._cuts(pl, split) for pl in placements]
+            n = math.prod(size for size, _ in cuts[0])
+            shapes = [_cut_shape(g.shape, c) for g, c in zip(grads, cuts)]
+            t = grads[0].new_empty((n, sum(math.prod(s) for s in shapes)))
+            off = 0
+            for g, c, shape in zip(grads, cuts, shapes):
+                k = math.prod(shape)
+                t[:, off:off + k] = _pieces(g, c).reshape(n, k)
+                off += k
+            t = t.reshape(*[self.sizes[a] for a in split], -1)
+            for i, a in enumerate(split):
+                t = self.reduce_scatter(t, a, i)
+            flat = t.reshape(-1)
+        else:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            shapes = [g.shape for g in grads]
+        flat = self.all_reduce(flat, rest) if rest else flat
+        out, off = [], 0
+        for shape in shapes:
+            n = math.prod(shape)
+            out.append(flat[off:off + n].view(shape))
+            off += n
+        return out
+
+    def gather_params(self, shards: Sequence[torch.Tensor], placements,
+                      axes: Sequence[str]) -> List[torch.Tensor]:
+        """:meth:`gather_group` as a step of a differentiated program
+        (FSDP's gather): backward, each gradient summed over ``axes``
+        onto this rank's shard (:meth:`sum_group`, one flat buffer).
+        With no axis of ``axes`` larger than 1 the shards are the
+        tensors."""
+        if all(self.sizes[a] == 1 for a in axes):
+            return list(shards)
+        return list(_GatherParams.apply(self, placements, tuple(axes),
+                                        *shards))
+
+    def shift_along(self, tensors: Sequence[torch.Tensor], axis: str,
+                    sign: int = 1, *, wait: bool = True):
+        """:meth:`shift` as a step of a differentiated program (JAX's
+        ``ppermute`` under ``jax.grad``): backward, the gradients of the
+        floating-point tensors ride the reverse hop (a shift by
+        ``-sign``) back to the coordinates they came from; an integer
+        tensor carries none.  ``wait=False`` as :meth:`shift`'s: the
+        transfer runs until the returned function is called."""
+        pending = self.shift(tensors, axis, sign, wait=False)
+        n = self.sizes[axis]
+
+        def result():
+            if n == 1 or sign % n == 0:
+                return pending()
+            return list(_Shift.apply(pending, self, axis, sign, *tensors))
+
+        return result() if wait else result
+
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
@@ -654,6 +765,77 @@ class _AllToAll(torch.autograd.Function):
         split_dim, cat_dim = ctx.dims
         return (ctx.comm.all_to_all(g, ctx.axis, cat_dim, split_dim), None,
                 None, None, None)
+
+
+class _GatherParams(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, placements, axes, *shards):
+        ctx.comm, ctx.placements, ctx.axes = comm, placements, axes
+        out = comm.gather_group(shards, placements, axes)
+        ctx.whole = [(o.shape, o.dtype, o.device) for o in out]
+        # a shard that is its whole tensor is returned as a view of it
+        return tuple(o.view_as(o) if o is s else o
+                     for o, s in zip(out, shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros(shape, dtype=dt, device=dev) if g is None
+                 else g for g, (shape, dt, dev) in zip(grads, ctx.whole)]
+        return (None, None, None,
+                *ctx.comm.sum_group(grads, ctx.placements, ctx.axes))
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pending, comm, axis, sign, *tensors):
+        ctx.comm, ctx.axis, ctx.sign = comm, axis, sign
+        ctx.like = [(t.shape, t.dtype, t.device) if t.is_floating_point()
+                    else None for t in tensors]
+        out = pending()
+        ctx.mark_non_differentiable(*[o for o, f in zip(out, ctx.like)
+                                      if f is None])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = iter(ctx.comm.shift(
+            [torch.zeros(*f[:1], dtype=f[1], device=f[2]) if g is None
+             else g for g, f in zip(grads, ctx.like) if f is not None],
+            ctx.axis, -ctx.sign))
+        return (None, None, None, None,
+                *[None if f is None else next(back) for f in ctx.like])
+
+
+def _joined(pieces: torch.Tensor, cuts) -> torch.Tensor:
+    """The tensor whose shards, in row-major order over mesh axes cutting
+    it as ``cuts`` says ((axis size, tensor dimension) in mesh order), are
+    ``pieces`` (stacked along a leading dimension)."""
+    for size, d in reversed(cuts):
+        t = pieces.reshape(-1, size, *pieces.shape[1:])
+        pieces = t.movedim(1, d + 1).flatten(d + 1, d + 2)
+    return pieces[0]
+
+
+def _cut_shape(shape, cuts) -> Tuple[int, ...]:
+    """The shape of one shard of a ``shape`` tensor under ``cuts``."""
+    shape = list(shape)
+    for size, d in cuts:
+        shape[d] //= size
+    return tuple(shape)
+
+
+def _pieces(whole: torch.Tensor, cuts) -> torch.Tensor:
+    """Every shard of ``whole`` under ``cuts`` (as :func:`_joined`'s),
+    stacked along a leading dimension in row-major order (the inverse of
+    :func:`_joined`; ``local_chunk``'s cut at each coordinate)."""
+    t = whole[None]
+    for size, d in cuts:
+        shape = t.shape
+        t = t.reshape(*shape[:d + 1], size, shape[d + 1] // size,
+                      *shape[d + 2:])
+        t = t.movedim(d + 1, 1).reshape(shape[0] * size, *shape[1:d + 1],
+                                        shape[d + 1] // size, *shape[d + 2:])
+    return t
 
 
 def _raw(t: torch.Tensor) -> torch.Tensor:

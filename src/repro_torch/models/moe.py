@@ -26,11 +26,12 @@ one all-gather of a ``[G, e]`` count matrix), the capacity that of the
 global token count, and the aux and z losses and ``moe_dropped`` those of
 the global batch (``me`` and the z loss averaged over the batch axes
 before the product, with gradients).  ``cfg.moe_impl == "ring"`` selects
-:func:`ring_moe_forward` under ``set_mesh``, the paper's stationary-A ring
-on the expert axis: experts stay on their rank, token shards and their
-partial outputs ride R hops of a ``batch_isend_irecv`` ring.  Its rank
-body computes forward values only (a train step with ``moe_impl="ring"``
-and no ambient mesh runs :func:`moe_forward`).
+:func:`ring_moe_forward` inside the program or under ``set_mesh``, the
+paper's stationary-A ring on the expert axis: experts stay on their rank,
+token shards and their partial outputs ride R hops of a
+``batch_isend_irecv`` ring, whose gradients ride the hops back (a train
+step on a mesh with ``moe_impl="ring"`` runs it; with no mesh the layer
+runs :func:`moe_forward`).
 :func:`selftest_distributed` and :func:`selftest_ring` hold both rank
 bodies against the single-process layer on ``n`` ranks.
 """
@@ -51,12 +52,14 @@ __all__ = ["init_moe", "moe_specs", "moe_forward", "route_tokens",
            "ring_stats", "reset_ring_stats", "selftest_distributed",
            "selftest_ring"]
 
-# the hops ring_moe_forward's rank bodies made (this process)
-ring_stats = {"hops": 0}
+# the hops ring_moe_forward's rank bodies made (this process): forward
+# (a recomputation's too) and backward, and the token-expert assignments
+# its capacity dropped (a tensor once counted: no host sync a hop)
+ring_stats = {"hops": 0, "backward_hops": 0, "dropped": 0}
 
 
 def reset_ring_stats() -> None:
-    ring_stats.update(hops=0)
+    ring_stats.update(hops=0, backward_hops=0, dropped=0)
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -245,14 +248,6 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 # On a mesh: expert parallelism and the expert ring
 # ---------------------------------------------------------------------------
-def _no_grad_through(*ts) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(
-            "the expert ring's rank bodies compute forward values only (no "
-            "gradient crosses their hops); train with moe_impl="
-            "'dense_onehot' on a mesh")
-
-
 def _program(p: Params, cfg: ModelConfig):
     """The tensor-parallel program the layer runs in: the current one
     (``tensor_parallel.use``), else, under ``set_mesh`` with ``p`` holding
@@ -280,10 +275,26 @@ def _local_experts(w: torch.Tensor, r: int, el: int) -> torch.Tensor:
     return w if w.shape[0] == el else w[r * el:(r + 1) * el]
 
 
+class _Hop(torch.autograd.Function):
+    """The identity; its backward counts one hop of the ring's backward
+    (``ring_stats["backward_hops"]``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ring_stats["backward_hops"] += 1
+        return g
+
+
 def ring_moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
                      ) -> Tuple[torch.Tensor, Dict]:
     """MoE with the paper's stationary-A schedule (``moe_impl="ring"``), as
-    an explicit body on each rank of the ambient mesh.
+    an explicit body on each rank: of the current tensor-parallel program
+    (a train step, prefill or decode on a mesh, ``models/sharded.py``),
+    else of the ambient mesh (``set_mesh``).
 
     Experts stay on their ``"model"``-axis rank (stationary A).  The rank
     takes its shard of the sequence (``x``: the rank's batch shard, whole
@@ -297,44 +308,63 @@ def ring_moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     losses are averaged over every axis of the mesh (``pmean``);
     ``moe_dropped`` is 0, as there.  The shards are then all-gathered, so
     the layer returns the whole sequence as the rest of the rank's stack
-    holds it.  ``ring_stats["hops"]`` counts the hops.
+    holds it.
+
+    Differentiable, as ``jax.grad`` differentiates the reference's
+    ``ppermute`` hops: a hop's gradient rides the reverse hop
+    (``MeshComm.shift_along``), the input and the router, which each rank
+    reads a part of, sum their gradients over ``model`` (copy-to), the
+    output's gather and the aux losses' mean over ``model`` slice theirs
+    (every rank's consumer holds the same), the aux losses' mean over the
+    batch axes averages them (``MeshComm.mean_over``); the routing
+    (``top_e``, slots, ``keep``) carries none.  ``ring_stats["hops"]``
+    counts the hops of every forward (a recomputation's too),
+    ``["backward_hops"]`` those of the backward.
 
     Falls back to :func:`moe_forward` (the reference's semantics, not a
     device fallback) with no mesh or model axis, ``R < 2``, or
     ``n_experts`` or ``t`` not divisible by ``R``.  ``p``'s experts may be
-    the rank's shard or all of them; forward values only.
+    the rank's shard or all of them.
     """
-    mesh = current_mesh()
     m = cfg.moe
     b, t, d = x.shape
-    sizes = mesh_sizes(mesh) if mesh is not None else {}
-    if MODEL_AXIS not in sizes:
+    tp = tensor_parallel.current()
+    mesh = current_mesh()
+    comm = tp.comm if tp is not None else (
+        mesh_comm(mesh, x.device) if mesh is not None else None)
+    if comm is None or MODEL_AXIS not in comm.sizes:
         return moe_forward(p, x, cfg)
-    R = sizes[MODEL_AXIS]
+    R = comm.size(MODEL_AXIS)
     if R < 2 or m.n_experts % R or t % R:
         return moe_forward(p, x, cfg)
-    _no_grad_through(x, p.w_gate, p.router)
-    comm = mesh_comm(mesh, x.device)
     el, k, tl = m.n_experts // R, m.top_k, t // R
     r = comm.index(MODEL_AXIS)
-    all_axes = [a for a in BATCH_AXES if a in sizes] + [MODEL_AXIS]
+    batch_axes = [a for a in BATCH_AXES if a in comm.sizes]
     n_loc = b * tl                  # tokens per rank (for the capacity)
     cap = max(int(m.capacity_factor * n_loc * k * el / m.n_experts), k)
     wg, wu, wd = (_local_experts(w, r, el).to(x.dtype)
                   for w in (p.w_gate, p.w_up, p.w_down))
     act = F.silu if cfg.mlp_kind != "geglu" else gelu_tanh
 
-    xf = x[:, r * tl:(r + 1) * tl].reshape(n_loc, d)
-    logits = xf.float() @ p.router.float()
+    def mean_all(v):
+        # the mean over model (a replicated consumer: slice back), then
+        # over the batch axes (each rank's loss a share: average back)
+        v = comm.gather_along(v[None], MODEL_AXIS, 0, grad="slice").mean(0)
+        return comm.mean_over(v, batch_axes)
+
+    xf = comm.copy_to(x, MODEL_AXIS)[:, r * tl:(r + 1) * tl].reshape(
+        n_loc, d)
+    router = comm.copy_to(p.router, MODEL_AXIS)
+    logits = xf.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _top_k(probs, k)
     top_p = (top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
              ).to(x.dtype)
-    xc, te, tp = xf, top_e, top_p
+    xc, te, tp_ = xf, top_e, top_p
     acc = x.new_zeros((n_loc, d))
     for _ in range(R):
         # prefetch the next shard (paper SS3.3: overlap with compute)
-        nxt = comm.shift([xc, te, tp], MODEL_AXIS, 1, wait=False)
+        nxt = comm.shift_along([xc, te, tp_], MODEL_AXIS, 1, wait=False)
         mine = (te // el) == r              # tokens routed to MY experts
         le = torch.where(mine, te - r * el, el)     # el = overflow slot
         flat = F.one_hot(le, el + 1).to(torch.int32).reshape(n_loc * k,
@@ -342,6 +372,9 @@ def ring_moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
         slot = ((torch.cumsum(flat, dim=0) - flat) * flat).sum(-1).reshape(
             n_loc, k)
         keep = mine & (slot < cap)
+        if type(mine) is torch.Tensor:      # a dry run's fakes count none
+            ring_stats["dropped"] = ring_stats["dropped"] \
+                + (mine & ~keep).sum()
         ie = torch.where(keep, le, el)
         ic = torch.where(keep, slot, 0)
         buf = x.new_zeros((el + 1, cap, d))
@@ -351,20 +384,20 @@ def ring_moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
         ye = (act(buf[:el] @ wg) * (buf[:el] @ wu)) @ wd
         ye = torch.cat([ye, ye.new_zeros((1, cap, d))])
         part = torch.einsum("nkd,nk->nd", ye[ie, ic],
-                            torch.where(keep, tp, 0.0).to(x.dtype))
+                            torch.where(keep, tp_, 0.0).to(x.dtype))
         # the updated partials ride the same hop as the shard
-        (acc,) = comm.shift([acc + part], MODEL_AXIS, 1)
-        xc, te, tp = nxt()
+        (acc,) = comm.shift_along([_Hop.apply(acc + part)], MODEL_AXIS, 1)
+        xc, te, tp_ = nxt()
         ring_stats["hops"] += 1
-    me = comm.all_reduce(probs.mean(0), all_axes, "mean")
+    me = mean_all(probs.mean(0))
     ce = comm.all_reduce(F.one_hot(top_e, m.n_experts).float().sum(1)
-                         .mean(0), all_axes, "mean")
-    z = comm.all_reduce(torch.square(torch.logsumexp(logits, -1)).mean(),
-                        all_axes, "mean")
+                         .mean(0), batch_axes + [MODEL_AXIS], "mean")
+    z = mean_all(torch.square(torch.logsumexp(logits, -1)).mean())
     aux = {"moe_aux": m.aux_loss * m.n_experts * torch.sum(me * ce),
            "moe_z": m.router_z_loss * z,
            "moe_dropped": torch.zeros((), device=x.device)}
-    y = comm.all_gather(acc.reshape(b, tl, d), MODEL_AXIS, dim=1)
+    y = comm.gather_along(acc.reshape(b, tl, d), MODEL_AXIS, 1,
+                          grad="slice")
     return y, aux
 
 

@@ -10,16 +10,22 @@ data, model)`` mesh, placed by the sanitized specs of
 JAX's "FSDP (over 'data') x TP (over 'model')" (:func:`program`,
 ``"fsdp_tp"``, for every config of the registry).  Each parameter is
 all-gathered over the batch axes only and keeps its shard along
-``model``; the rank runs forward and backward on its batch shard through
+``model``, one FSDP unit at a time as GSPMD gathers JAX's scanned layer
+units (:meth:`ShardedModel.running`): the top-level parameters for the
+step, each layer's just before the layer runs, dropped after it, and with
+remat gathered again by the recomputation in the backward; a unit's
+parameters of one type and split travel as one flat buffer.  The rank
+runs forward and backward on its batch shard through
 its own q heads, MLP hidden units, experts, recurrent channels, SSM heads
 and vocabulary entries, with the collective each of the reference's
 constrain sites implies (``models/tensor_parallel.py``), the loss a
 vocab-parallel cross-entropy where the vocabulary divides the axis
 (:class:`_VocabNLL`: max and sum all-reduced over ``model``, the gold
 logit from its owner, a backward that never forms the whole logits).
-Each gradient is then the rank's ``model`` slice already: it is summed
-over the batch axes (a reduce-scatter where they split it) into the
-rank's shard.
+Each gradient is then the rank's ``model`` slice already: the gather's
+backward sums a unit's gradients over the batch axes (a reduce-scatter
+where they split them, one flat buffer) onto the rank's shards while the
+backward runs, so no rank holds its whole slice's gradients.
 
 The loss is the sum of the rank's tokens' negative log-likelihoods over
 the global token count, plus the layers' aux losses over the number of
@@ -32,8 +38,7 @@ the order of the sums.  A MoE layer routes the whole batch as the
 reference does, whatever ``moe_dispatch_groups`` is (``models/moe.py``):
 its slots, capacity, drops and aux losses are the global batch's, the
 same on every rank, so the aux losses over the batch shards, with their
-gradients summed over the batch axes, are the aux losses once.  The
-gathered parameters are freed after the step.
+gradients summed over the batch axes, are the aux losses once.
 
 Serving (:func:`sharded_prefill`, :func:`make_sharded_decode_step`) runs
 the same program without gradients on the rank's shards of the caches
@@ -105,6 +110,8 @@ class ShardedModel:
         self.shapes = shapes
         self.comm = mesh_comm(mesh, local.device)
         self.program = program(self.cfg)
+        self._index = {id(b): i for i, b in enumerate(local.layers)}
+        self._units: Dict[str, list] = {}
 
     @classmethod
     def init(cls, cfg: ModelConfig, mesh, *, seed: int = 0, device=None,
@@ -191,37 +198,96 @@ class ShardedModel:
                              "and model at once has no model slice to keep")
         return batch
 
+    def _unit(self, prefix: str) -> list:
+        """The parameters of one FSDP unit (``prefix`` a layer's
+        ``"layers.i."``, or ``""`` the top level: every other one) by
+        group, one flat buffer each (type, and the batch axes that split
+        them): ``[[(owner module, leaf, step placements), ...], ...]``."""
+        if prefix not in self._units:
+            groups: Dict = {}
+            axes = _batch_axes(self.mesh)
+            for n, p in self.local.named_parameters():
+                if (n.startswith(prefix) if prefix
+                        else not n.startswith("layers.")):
+                    pl = self.step_placements(n)
+                    key = (p.dtype, tuple(self.comm.split_axes([pl], axes)))
+                    groups.setdefault(key, []).append(
+                        (*_owner(self.local, n), pl))
+            self._units[prefix] = list(groups.values())
+        return self._units[prefix]
+
     @contextlib.contextmanager
-    def gathered(self, requires_grad: bool = False, decode: bool = False,
-                 batch_split: bool = True):
-        """Inside the block ``self.local`` holds every parameter as the
-        step reads it (gathered, collective: :meth:`step_placements`), and
-        the program's collectives are the layers'
-        (``tensor_parallel.use``, a ``decode`` step's where it is one;
-        ``batch_split``: the layers' tokens are the rank's part of a batch
-        split over the batch axes, not the whole batch); the shards are
-        put back after it, and the gathered ones dropped.  A decode step
-        whose rows the batch axes do not split gathers nothing: its
-        products are partitioned over 'data' instead
-        (``TensorParallel.fsdp_split``).  Yields the gathered parameters
-        by name."""
+    def _gathered(self, prefix: str):
+        """Inside the block the parameters of the unit ``prefix``
+        (:meth:`_unit`) are whole over the batch axes in place of their
+        shards (one all-gather a group, ``MeshComm.gather_params``: where
+        the shards require gradients, its backward sums each gradient
+        over the batch axes onto its shard); the shards are put back after
+        it, and the gathered ones dropped."""
+        axes = _batch_axes(self.mesh)
+        kept = []
+        try:
+            for group in self._unit(prefix):
+                shards = [owner._parameters[leaf] for owner, leaf, _ in group]
+                whole = self.comm.gather_params(
+                    shards, [pl for _, _, pl in group], axes)
+                for (owner, leaf, _), shard, t in zip(group, shards, whole):
+                    kept.append((owner, leaf, shard))
+                    owner._parameters[leaf] = t
+            yield
+        finally:
+            for owner, leaf, shard in kept:
+                owner._parameters[leaf] = shard
+
+    def _layer_gather(self, block):
+        return self._gathered(f"layers.{self._index[id(block)]}.")
+
+    @contextlib.contextmanager
+    def running(self, train: bool = False, decode: bool = False,
+                batch_split: bool = True):
+        """Inside the block ``self.local`` runs the program on this rank:
+        the layers' collectives are those of ``tensor_parallel.use``'s
+        program (a ``decode`` step's where it is one; ``batch_split``:
+        the layers' tokens are the rank's part of a batch split over the
+        batch axes, not the whole batch), and the parameters are gathered
+        over the batch axes only (:meth:`step_placements`), FSDP's way,
+        one unit at a time: the top-level ones (embedding, final norm,
+        head, frontend) for the whole block, each layer's at its turn
+        (``tensor_parallel.layer``: just before the layer runs, dropped
+        after it; inside a train step's ``checkpoint``, so that the
+        recomputation in the backward gathers it again).  With ``train``
+        the shards require gradients and each gather's backward sums a
+        unit's gradients over the batch axes onto them while the backward
+        runs (:meth:`take_grads`).  A decode step whose rows the batch
+        axes do not split gathers nothing: its products are partitioned
+        over 'data' instead (``TensorParallel.fsdp_split``).  Yields the
+        program."""
         tp = tensor_parallel.TensorParallel(self.cfg, self.comm, decode,
                                             batch_split)
-        shards = {}
-        for n, p in list(self.local.named_parameters()):
-            t = p.data if tp.fsdp_split else self.comm.gather_full(
-                p.data, self.step_placements(n))
-            owner, leaf = _owner(self.local, n)
-            shards[n] = owner._parameters[leaf]
-            owner.register_parameter(leaf, nn.Parameter(
-                t, requires_grad=requires_grad))
+        if not tp.fsdp_split:
+            tp.gather_layer = self._layer_gather
+        shards = list(self.local.parameters())
+        for p in shards:
+            p.grad = None
+            p.requires_grad_(train)
         try:
-            with tensor_parallel.use(tp):
-                yield dict(self.local.named_parameters())
+            with tensor_parallel.use(tp), (
+                    contextlib.nullcontext() if tp.fsdp_split
+                    else self._gathered("")):
+                yield tp
         finally:
-            for n, p in shards.items():
-                owner, leaf = _owner(self.local, n)
-                owner.register_parameter(leaf, p)
+            for p in shards:
+                p.requires_grad_(False)
+
+    def take_grads(self) -> Dict[str, torch.Tensor]:
+        """Each shard's gradient from the last :meth:`running` block with
+        ``train`` (zeros where none arrived), by name; the shards'
+        ``.grad`` cleared."""
+        out = {}
+        for n, p in self.local.named_parameters():
+            out[n] = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+        return out
 
 
 def _owner(module: nn.Module, name: str):
@@ -258,21 +324,6 @@ def _split(placements, mesh, axes):
     batch = tuple(pl if a in axes else Replicate()
                   for a, pl in zip(names, placements))
     return other, batch
-
-
-def _batch_summed(comm, g, placements, mesh, axes) -> torch.Tensor:
-    """This rank's shard of ``g`` (its ``model`` slice of a gradient)
-    summed over the batch ``axes``: reduce-scattered along the dimension
-    an axis splits, all-reduced over an axis that splits none, in mesh
-    order (so a dimension split over two axes is cut major first)."""
-    names = list(mesh_sizes(mesh))
-    for a in names:
-        if a not in axes:
-            continue
-        pl = placements[names.index(a)]
-        g = comm.reduce_scatter(g, a, pl.dim) if pl.is_shard() \
-            else comm.all_reduce(g, [a])
-    return g
 
 
 def _replicas(placements, mesh) -> int:
@@ -391,7 +442,7 @@ def sharded_loss(sm: ShardedModel, batch: Dict, cfg: ModelConfig
     rank."""
     axes = _batch_axes(sm.mesh)
     split = _splits(next(iter(batch.values())).shape[0], sm.mesh)
-    with torch.no_grad(), sm.gathered(batch_split=split):
+    with torch.no_grad(), sm.running(batch_split=split):
         total, metrics = _local_loss(sm.local, place_batch(batch, sm.mesh),
                                      cfg, sm.comm, axes)
     return metrics["loss"] + metrics["aux"], metrics
@@ -413,17 +464,12 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer) -> Callable:
         local_batch = batch if placed else place_batch(batch, sm.mesh)
         split = placed or _splits(next(iter(batch.values())).shape[0],
                                   sm.mesh)
-        with sm.gathered(requires_grad=True, batch_split=split) as full:
+        with sm.running(train=True, batch_split=split):
             total, metrics = _local_loss(sm.local, local_batch, cfg,
                                          sm.comm, axes)
             total.backward()
-            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for n, p in full.items()}
-        del full, total
-        mine = {}
-        for n in list(grads):
-            mine[n] = _batch_summed(sm.comm, grads.pop(n), sm.placements[n],
-                                    sm.mesh, axes)
+        del total
+        mine = sm.take_grads()
         # each shard's square counted once over the ranks that hold it
         sq = sum(torch.sum(torch.square(g.float()))
                  / _replicas(sm.placements[n], sm.mesh)
@@ -509,18 +555,17 @@ def sharded_prefill(sm: ShardedModel, batch: Dict, cfg: ModelConfig,
     position).  An encoder has no cache (``cache_placements`` unused):
     its ``transformer.forward`` logits, whole."""
     if cfg.is_encoder:
-        with torch.no_grad(), sm.gathered():
-            logits = tf.forward(sm.local, batch, cfg)[0]
-            return tensor_parallel.current().whole_logits(logits)
+        with torch.no_grad(), sm.running() as tp:
+            return tp.whole_logits(tf.forward(sm.local, batch, cfg)[0])
     rows = next(iter(batch.values())).shape[0]
     t = sum(v.shape[1] for k, v in batch.items()
             if k in ("tokens", "patches"))
     split = _rows_split(cache_placements, sm.mesh)
-    with torch.no_grad(), sm.gathered(batch_split=split):
+    with torch.no_grad(), sm.running(batch_split=split) as tp:
         caches = _empty_shards(cfg, rows, max_len, cache_placements,
                                sm.mesh, cache_dtype, sm.local.device)
         logits, caches, _ = tf.forward(sm.local, batch, cfg, caches=caches)
-        last = tensor_parallel.current().whole_logits(logits[:, -1])
+        last = tp.whole_logits(logits[:, -1])
     return last, caches, t
 
 
@@ -535,9 +580,9 @@ def make_sharded_decode_step(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def decode_step(sm: ShardedModel, token: torch.Tensor, caches: list,
                     cache_placements: list, pos):
-        with sm.gathered(decode=True, batch_split=_rows_split(
-                cache_placements, sm.mesh)):
+        with sm.running(decode=True, batch_split=_rows_split(
+                cache_placements, sm.mesh)) as tp:
             logits, caches = step(sm.local, token, caches, pos)
-            return tensor_parallel.current().whole_logits(logits), caches
+            return tp.whole_logits(logits), caches
 
     return decode_step

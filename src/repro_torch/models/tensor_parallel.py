@@ -9,8 +9,10 @@ The JAX package runs its LMs as "FSDP (over 'data') x TP (over 'model')"
 recurrent channels, SSM projections and the vocabulary over ``model``,
 and GSPMD partitions every product at the ``constrain`` sites.  Here the
 rank body is explicit.  Inside :func:`use`
-(``sharded.ShardedModel.gathered`` opens it) each parameter is gathered
-over the batch axes only, so it keeps its shard along ``model``; the
+(``sharded.ShardedModel.running`` opens it) each parameter is gathered
+over the batch axes only, so it keeps its shard along ``model``: the
+top-level ones for the whole step, a layer's at its turn (:func:`layer`),
+as FSDP gathers JAX's scanned layers; the
 layers read their weights through :func:`attn_weights`,
 :func:`mlp_weights`, :func:`moe_weights`, :func:`frontend_weights` and
 :func:`head_weight` (the RG-LRU's and the SSM's through their modules'
@@ -94,8 +96,9 @@ FSDP_AXIS = "data"      # the axis the parameter specs split besides model
 from .config import ModelConfig
 
 __all__ = ["TensorParallel", "WholeAttnWeights", "AttnWeights", "supported",
-           "use", "current", "site", "dot", "embed_rows", "attn_weights",
-           "mlp_weights", "frontend_weights", "moe_weights", "head_weight"]
+           "use", "current", "layer", "site", "dot", "embed_rows",
+           "attn_weights", "mlp_weights", "frontend_weights", "moe_weights",
+           "head_weight"]
 
 
 def supported(cfg: ModelConfig) -> bool:
@@ -345,6 +348,10 @@ class TensorParallel:
         self.fsdp_split = (decode and not batch_split and cfg.moe is None
                            and comm.sizes.get(FSDP_AXIS, 1) > 1)
         self.batch_axes = [a for a in BATCH_AXES if a in comm.sizes]
+        # gather_layer(block): a context inside which the block holds its
+        # parameters as the program reads them (:func:`layer`); None: as
+        # they lie
+        self.gather_layer = None
         self.shards, self.shard = 1, 0
         if batch_split:
             for a in self.batch_axes:
@@ -548,6 +555,21 @@ def use(tp: TensorParallel) -> Iterator[TensorParallel]:
 def current() -> Optional[TensorParallel]:
     """The program of the innermost :func:`use` block, or None."""
     return _CURRENT[-1] if _CURRENT else None
+
+
+@contextlib.contextmanager
+def layer(block) -> Iterator:
+    """Inside the block ``block`` (one layer) holds its parameters as the
+    current program reads them: gathered over the batch axes at the
+    layer's turn and dropped after it (``TensorParallel.gather_layer``,
+    which ``sharded.ShardedModel.running`` sets); as they lie outside a
+    program."""
+    tp = current()
+    if tp is None or tp.gather_layer is None:
+        yield
+    else:
+        with tp.gather_layer(block):
+            yield
 
 
 def site(name: str, x: torch.Tensor) -> torch.Tensor:

@@ -19,9 +19,12 @@ layer, in ``cfg.pattern`` order: an attention layer's ``{"k", "v",
 "conv"}``.
 
 On a rank of the tensor-parallel program (``models/tensor_parallel.py``)
-the embedding lookup of the rank's ``d`` shard is gathered into a
-residual stream replicated over ``model`` (the reference's constrain of
-the embeddings) and the head gives the rank's vocabulary of the logits,
+each layer's parameters are gathered over the batch axes when the layer
+runs and dropped after it, as FSDP gathers the reference's scanned layer
+units (:func:`_layer`); the embedding lookup of the rank's ``d`` shard
+is gathered into a residual stream replicated over ``model`` (the
+reference's constrain of the embeddings) and the head gives the rank's
+vocabulary of the logits,
 for a tied ``embed.T`` as for ``lm_head`` (a decode step's tied head sums
 partial logits of every entry instead); the softcaps are elementwise and
 stay local.
@@ -356,6 +359,17 @@ def _apply_layer(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
     return x, new_cache, aux
 
 
+def _layer(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
+           positions, cache: Optional[Dict], **kw):
+    """:func:`_apply_layer` with ``p``'s parameters as the current program
+    reads them: on a rank of the tensor-parallel program gathered over the
+    batch axes at the layer's turn and dropped after it
+    (``tensor_parallel.layer``); inside a ``checkpoint`` the recomputation
+    in the backward gathers them again."""
+    with tensor_parallel.layer(p):
+        return _apply_layer(p, x, kind, cfg, positions, cache, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill) and decode
 # ---------------------------------------------------------------------------
@@ -416,7 +430,9 @@ def forward_unscanned(params: Transformer, batch: Dict, cfg: ModelConfig,
     reference's ``jax.checkpoint(..., nothing_saveable)`` around each
     layer unit): the recomputation's outputs are dropped, so ``dropped``
     and the aux losses count once, and a layer with a cache is never
-    recomputed (its cache write happens once)."""
+    recomputed (its cache write happens once).  On a rank of the
+    tensor-parallel program each layer's parameters are gathered at its
+    turn (:func:`_layer`), inside the checkpoint."""
     x = _embed_inputs(params, batch, cfg)
     t = x.shape[1]
     if positions is None:
@@ -428,12 +444,12 @@ def forward_unscanned(params: Transformer, batch: Dict, cfg: ModelConfig,
     for blk, c_l, kind in zip(params.layers, layers_c, cfg.pattern):
         if remat and c_l is None:
             x, nc, aux = checkpoint(
-                _apply_layer, blk, x, kind, cfg, positions, c_l,
+                _layer, blk, x, kind, cfg, positions, c_l,
                 moe_fn=moe_fn, attn_fn=attn_fn, use_reentrant=False,
                 preserve_rng_state=False)      # the layers draw nothing
         else:
-            x, nc, aux = _apply_layer(blk, x, kind, cfg, positions, c_l,
-                                      moe_fn=moe_fn, attn_fn=attn_fn)
+            x, nc, aux = _layer(blk, x, kind, cfg, positions, c_l,
+                                moe_fn=moe_fn, attn_fn=attn_fn)
         new_caches.append(nc)
         aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
     return (_head_logits(params, x, cfg),
@@ -458,8 +474,8 @@ def decode_step_unscanned(params: Transformer, token: torch.Tensor,
         aux_sum = _zero_aux(x.device)
         new_caches = []
         for blk, c_l, kind in zip(params.layers, caches, cfg.pattern):
-            x, nc, aux = _apply_layer(blk, x, kind, cfg, None, c_l, pos=pos,
-                                      decode=True, moe_fn=moe_fn)
+            x, nc, aux = _layer(blk, x, kind, cfg, None, c_l, pos=pos,
+                                decode=True, moe_fn=moe_fn)
             new_caches.append(nc)
             aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
         return _head_logits(params, x, cfg), new_caches, aux_sum

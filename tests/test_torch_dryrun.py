@@ -230,15 +230,41 @@ def test_record_has_every_key_of_jax_and_fits():
 
 
 def test_a_failing_cell_is_reported(monkeypatch):
-    monkeypatch.setenv("REPRO_MOE_IMPL", "ring")   # ring bodies: no grad
+    """A cell whose step raises inside the fake world is its record (the
+    error and its traceback), and the world is torn down."""
+    from repro_torch.models import sharded
+
+    def refused(cfg, optimizer):
+        raise RuntimeError(f"{cfg.name}: this step is refused")
+
+    monkeypatch.setattr(sharded, "make_sharded_train_step", refused)
     rec = dryrun.run_cell("olmoe-1b-7b", "train_small", "single",
                           verbose=False,
                           cfg=get_config("olmoe-1b-7b", smoke=True),
                           shape=Shape("train_small", "train", 16, 8),
                           mesh_shape=(1, 2))
     assert rec["status"] == "error"
-    assert "forward values only" in rec["error"] and rec["traceback"]
+    assert "this step is refused" in rec["error"] and rec["traceback"]
     assert not torch.distributed.is_initialized()
+
+
+def test_the_ring_train_cell_runs(monkeypatch):
+    """Under ``REPRO_MOE_IMPL=ring`` a MoE train cell runs the expert ring
+    forward and backward (R hops a MoE layer each way) in the
+    tensor-parallel program."""
+    from repro_torch.models import moe
+    monkeypatch.setenv("REPRO_MOE_IMPL", "ring")
+    moe.reset_ring_stats()
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    rec = dryrun.run_cell("olmoe-1b-7b", "train_small", "single",
+                          verbose=False, cfg=cfg,
+                          shape=Shape("train_small", "train", 16, 8),
+                          mesh_shape=(1, 2))
+    assert rec["status"] == "ok" and rec["program"] == "fsdp_tp", rec
+    assert rec["hlo_stats"]["dot_flops"] > 0
+    n_moe = cfg.n_layers
+    assert moe.ring_stats["hops"] == 2 * n_moe * (2 if cfg.remat else 1)
+    assert moe.ring_stats["backward_hops"] == 2 * n_moe
 
 
 # ---------------------------------------------------------------------------

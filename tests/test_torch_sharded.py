@@ -132,6 +132,41 @@ def test_ring_equals_the_ports_dense_layer(n, two, four, jax_ref):
 @pytest.mark.parametrize("n", child.RING_SIZES)
 def test_ring_makes_one_hop_per_rank(n, two, four):
     assert [r["ring_hops"] for r in _moe(two, four, n)] == [n] * n
+    assert [r["ring_backward_hops"] for r in _moe(two, four, n)] == [n] * n
+
+
+def _rank_part(k: str, g: np.ndarray, rank: int, n: int) -> np.ndarray:
+    """What rank ``rank`` of ``n`` holds of the gradient of ``k`` taken
+    whole: its experts' rows of an expert weight, all of the rest."""
+    return np.split(g, n)[rank] if k.startswith("w_") else g
+
+
+@pytest.mark.parametrize("n", child.RING_SIZES)
+def test_ring_gradients_equal_the_dense_layers(n, two, four, jax_ref):
+    """The gradients of ``sum(y**2) + moe_aux + moe_z`` through the ring's
+    hops, with respect to the router, the rank's experts and ``x``, are the
+    single-process dense layer's (no token drops at capacity 16), which
+    are JAX's dense layer's."""
+    for rank, r in enumerate(_moe(two, four, n)):
+        assert sorted(r["ring_grad"]) == sorted(r["one_grad"])
+        for k, g in r["ring_grad"].items():
+            np.testing.assert_allclose(
+                g, _rank_part(k, r["one_grad"][k], rank, n), rtol=TOL,
+                atol=TOL, err_msg=k)
+            np.testing.assert_allclose(
+                r["one_grad"][k], jax_ref[f"ring{n}/dense_grad/{k}"],
+                rtol=TOL, atol=TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("n", child.RING_SIZES)
+def test_ring_gradients_equal_jaxs(n, two, four, jax_ref):
+    """The same gradients equal ``jax.grad`` through the JAX package's
+    ring (its ``ppermute`` hops) on the same mesh (float32, 1e-5)."""
+    for rank, r in enumerate(_moe(two, four, n)):
+        for k, g in r["ring_grad"].items():
+            np.testing.assert_allclose(
+                g, _rank_part(k, jax_ref[f"ring{n}/grad/{k}"], rank, n),
+                rtol=TOL, atol=TOL, err_msg=k)
 
 
 @pytest.mark.parametrize("n", child.RING_SIZES)

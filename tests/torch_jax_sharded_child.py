@@ -8,7 +8,9 @@ host devices::
     python tests/torch_jax_sharded_child.py OUT.npz
 
 It writes, for R = 2 and 4, ``ring_moe_forward``'s output and aux losses
-on a ``(1, R)`` mesh at the JAX selftest's ``selftest_ring`` size, and
+on a ``(1, R)`` mesh at the JAX selftest's ``selftest_ring`` size, the
+gradients of :func:`ring_loss` through it (``jax.grad``) and through
+``moe_forward``, and
 ``compressed_psum`` over a 2-device axis for two steps of error feedback.
 The inputs come from :func:`ring_inputs` and :func:`psum_inputs` (seeded
 numpy), which the port's ranks import too.
@@ -62,6 +64,16 @@ def ring_inputs(n: int) -> dict:
         "w_down": (rng.standard_normal((e, f, d)) / 6).astype(np.float32),
         "x": rng.standard_normal((2, n * 4, d)).astype(np.float32),
     }
+
+
+def ring_loss(layer, cfg):
+    """``sum(y**2) + moe_aux + moe_z`` of ``layer(p, x, cfg)``: the
+    scalar whose gradients the ring's backward is held to (JAX's arrays
+    or the port's tensors)."""
+    def loss(p, x):
+        y, aux = layer(p, x, cfg)
+        return (y * y).sum() + aux["moe_aux"] + aux["moe_z"]
+    return loss
 
 
 def psum_inputs() -> np.ndarray:
@@ -283,6 +295,16 @@ def _ring(n: int, res: dict) -> None:
             for k, v in p.items()}
         y, aux = jax.jit(lambda pp, xx: moe_mod.ring_moe_forward(
             pp, xx, cfg))(p_sh, x)
+        # jax.grad through the ring's hops: the gradients of RING_LOSS
+        gp, gx = jax.jit(jax.grad(ring_loss(moe_mod.ring_moe_forward, cfg),
+                                  argnums=(0, 1)))(p_sh, x)
+    dp, dx = jax.grad(ring_loss(moe_mod.moe_forward, cfg),
+                      argnums=(0, 1))(p, x)
+    for k in p:
+        res[f"ring{n}/grad/{k}"] = np.asarray(gp[k])
+        res[f"ring{n}/dense_grad/{k}"] = np.asarray(dp[k])
+    res[f"ring{n}/grad/x"] = np.asarray(gx)
+    res[f"ring{n}/dense_grad/x"] = np.asarray(dx)
     res[f"ring{n}/y"] = np.asarray(y)
     res[f"ring{n}/y_dense"] = np.asarray(y_dense)
     for k in ("moe_aux", "moe_z", "moe_dropped"):

@@ -53,11 +53,34 @@ def _moe_cases(n: int) -> dict:
         y_ep, aux_ep = moe.moe_forward(local, ins["x"], cfg)
     y_one, aux_one = moe.moe_forward(whole, ins["x"], cfg)
     out.update(ring=y.numpy(), ep=y_ep.numpy(), one=y_one.numpy())
+    # the gradients of child.ring_loss through the ring (this rank's
+    # experts) and through the single-process dense layer
+    moe.reset_ring_stats()
+    with set_mesh(mesh):
+        out["ring_grad"] = _grads(moe.ring_moe_forward, cfg, local,
+                                  ins["x"])
+    out["ring_backward_hops"] = moe.ring_stats["backward_hops"]
+    out["one_grad"] = _grads(moe.moe_forward, cfg, whole, ins["x"])
     for k in ("moe_aux", "moe_z", "moe_dropped"):
         out[f"ring_{k}"] = float(aux[k])
         out[f"ep_{k}"] = float(aux_ep[k])
         out[f"one_{k}"] = float(aux_one[k])
     return out
+
+
+def _grads(layer, cfg, p, x) -> dict:
+    """The gradients of ``child.ring_loss(layer)`` with respect to ``p``'s
+    tensors (leaves made of them) and ``x``, by name."""
+    from repro_torch.models.common import Params
+    leaves = {k: t.detach().clone().requires_grad_(True)
+              for k, t in p.named_parameters()}
+    leaves["x"] = x.detach().clone().requires_grad_(True)
+    q = Params()
+    for k, t in leaves.items():
+        if k != "x":
+            q._parameters[k] = t
+    child.ring_loss(layer, cfg)(q, leaves["x"]).backward()
+    return {k: t.grad.numpy() for k, t in leaves.items()}
 
 
 def _psum_cases() -> dict:
@@ -338,6 +361,16 @@ def _watching_comm(mesh, dev):
         def gather_full(self, local, placements):
             out = super().gather_full(local, placements)
             self.watch([out])
+            return out
+
+        def gather_group(self, shards, placements, axes):
+            # the shards travel in one flat buffer (a copy): noted here
+            if any(t.untyped_storage()._cdata in self.watched
+                   for t in shards):
+                self.moved += [("all-gather", a)
+                               for a in self.split_axes(placements, axes)]
+            out = super().gather_group(shards, placements, axes)
+            self.watch(out)
             return out
 
         def all_gather(self, t, axis, dim):
