@@ -2219,16 +2219,22 @@ def match_tokens(got: np.ndarray, want: np.ndarray, logits, rid: int) -> dict:
     return {"equal_steps": len(want), "near_tie_step": None}
 
 
+# a multiply's host phases: spans inside its ``multiply.<algorithm>`` span
+MULTIPLY_PHASES = ("multiply.place", "multiply.body", "multiply.epilogue")
+
+
 def span_totals(events, names) -> dict:
     """Total milliseconds of the obs spans named each of ``names`` (a name
-    ending in "." takes every span it prefixes), and the plan-cache misses
-    (``plan_build`` spans not served from the cache)."""
+    ending in "." takes every span it prefixes, a multiply's phases
+    apart), and the plan-cache misses (``plan_build`` spans not served
+    from the cache)."""
     tot = {n: 0.0 for n in names}
     misses = 0
     for e in events:
         for n in names:
             if e["name"] == n or (n.endswith(".")
-                                  and e["name"].startswith(n)):
+                                  and e["name"].startswith(n)
+                                  and e["name"] not in MULTIPLY_PHASES):
                 tot[n] += e["dur"] / 1e3
         if e["name"] == "plan_build" and not e["args"].get("cached", True):
             misses += 1
@@ -2450,7 +2456,7 @@ def serve_windows(model, cfg, toks, label: str) -> dict:
             f"{' (which lost some)' if lost else ''}; "
             f"{r['host_syncs']} host synchronisations, by source line: "
             f"{r['syncs_by_line']}")
-        log(f"  {label} {name}, traced (each multiply synchronised): wall "
+        log(f"  {label} {name}, traced: wall "
             f"{r['wall_ms']:.1f} ms; operator construction "
             f"{host['serve.operator']:.1f} ms, tiling {host['serve.tile']:.1f}"
             f" ms, plan lookups {host['plan_build']:.1f} ms, multiplies "

@@ -1666,7 +1666,8 @@ def cache_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
 _obs.registry().register_callback("plan_caches", cache_stats)
 
 # Machine scoring the predicted side of obs drift records (the measured
-# side is the synchronised wall clock); None means H100_SXM.
+# side is the multiply span's event pair on the card, the synchronised
+# wall clock elsewhere); None means H100_SXM.
 _DRIFT_MACHINE: Optional["_roofline.Machine"] = None
 
 
@@ -3095,7 +3096,15 @@ class MatmulPlan:
     ``plan.traces`` counts the plan's builds (1) and each build fires the
     :func:`add_trace_hook` hooks, where the JAX package traces its
     executable.  With tracing on (``repro_torch.obs.enable()``) a call
-    records a ``multiply.<algorithm>`` span and a drift record.
+    records a ``multiply.<algorithm>`` span, under it one span a host
+    phase on the stacked executor (``multiply.place``, ``multiply.body``,
+    ``multiply.epilogue``) and one a B1 launch (``kernel.bsr_spmm``), all
+    carrying the call's id (``args.call``), and a drift record.  On the
+    card the multiply span, the epilogue and each launch are timed by
+    CUDA event pairs (``args.device_ms``), read when the trace or the
+    drift is read: a traced stacked multiply does not wait for the card.
+    A rank plan waits, for the slowest rank's seconds.  The cost model of
+    the drift records is computed once per plan.
     """
 
     def __init__(self, algorithm: Algorithm, geom: _Geom,
@@ -3169,6 +3178,9 @@ class MatmulPlan:
         self._tables = _LRUCache(SPMM_TABLE_CACHE_MAX)
         self._maps: Dict[bytes, torch.Tensor] = {}
         self._validated: set = set()     # static-verifier modes passed
+        # traced calls' drift inputs: (machine, cost model, predicted s),
+        # the cost model computed once
+        self._drift = None
         self.traces = 1
         for hook in list(_TRACE_HOOKS) if notify else ():
             hook(self)
@@ -3364,31 +3376,49 @@ class MatmulPlan:
         # and no synchronisation
         if not _obs.enabled():
             return self._execute(a, b)
+        with _obs.call():
+            return self._traced(a, b)
+
+    def _traced(self, a, b):
+        """A call with tracing on: the ``multiply.<algorithm>`` span and a
+        drift record.  A stacked plan on the card times itself with the
+        span's CUDA event pair, which the drift record keeps pending: no
+        wait.  A rank plan waits for its card and takes the slowest
+        rank's time; on the CPU the wait is nothing."""
         ex = self.executor
         attrs = dict(kind=self.kind, wire=self.wire, output=self.output,
                      overlap=self.overlap)
+        on_card = not self.on_ranks and ex.device.type == "cuda"
         if self.on_ranks:
             attrs["rank"] = ex.rank
             ex.barrier()                 # every rank starts the clock here
         t0 = time.perf_counter()
-        sp = _obs.span(f"multiply.{self.algorithm.name}", **attrs)
+        sp = _obs.span(f"multiply.{self.algorithm.name}",
+                       device=ex.device if on_card else None, **attrs)
         with sp:
             out = self._execute(a, b)
-            measured = _obs.sync_elapsed(t0, _result_tensor(out))
-            if self.on_ranks:            # the slowest rank's time
-                sp.note(rank_s=measured)
-                measured = ex.max_over_ranks(measured)
-            sp.note(measured_s=measured)
+            if not on_card:
+                measured = _obs.sync_elapsed(t0, _result_tensor(out))
+                if self.on_ranks:        # the slowest rank's time
+                    sp.note(rank_s=measured)
+                    measured = ex.max_over_ranks(measured)
+                sp.note(measured_s=measured)
+        if on_card:
+            measured = sp.pair           # read when the drift is read
+            if measured is None:         # tracing went off inside the call
+                return out
         if self.on_ranks and ex.position != 0:
             return out                   # position 0 records the drift
         machine = _DRIFT_MACHINE or _roofline.H100_SXM
-        cm = self.cost_model()
+        if self._drift is None or self._drift[0] is not machine:
+            cm = self._drift[1] if self._drift else self.cost_model()
+            self._drift = (machine, cm, _predicted_time(
+                cm, self.algorithm, machine, self.overlap))
+        _, cm, predicted = self._drift
         _obs.record_drift(
             self.algorithm.name, self.wire, self.overlap,
-            predicted_s=_predicted_time(cm, self.algorithm, machine,
-                                        self.overlap),
-            measured_s=measured, cm=cm, kind=self.kind,
-            machine=machine.name)
+            predicted_s=predicted, measured_s=measured, cm=cm,
+            kind=self.kind, machine=machine.name)
         return out
 
     def _execute(self, a, b):
@@ -3405,11 +3435,14 @@ class MatmulPlan:
                 "plan with plan_matmul")
         if self.on_ranks:
             return self._execute_on_ranks(a_h, b_h)
-        body, operands = self._operands(a_h, b_h)
-        c = body(*operands, self.geom, self.executor)
-        if self.symbolic is not None:
-            return self._epilogue_sparse(c, a_h, b_h)
-        return self._epilogue(untileize(c), a_h, b_h)
+        with _obs.span("multiply.place"):
+            body, operands = self._operands(a_h, b_h)
+        with _obs.span("multiply.body"):
+            c = body(*operands, self.geom, self.executor)
+        with _obs.span("multiply.epilogue", device=c):
+            if self.symbolic is not None:
+                return self._epilogue_sparse(c, a_h, b_h)
+            return self._epilogue(untileize(c), a_h, b_h)
 
     def _operand_device(self):
         """Where array operands are wrapped: the stacked executor's device,
@@ -3854,11 +3887,14 @@ def matmul(a, b, *, algorithm: str = "ring_c", mesh=None,
     """
     _check_request(algorithm, output, wire, overlap, impl)
     on_ranks = mesh is not None
-    a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad,
-                            device=torch.device("cpu") if on_ranks
-                            else device, on_ranks=on_ranks)
-    plan = plan_matmul(a_h, b_h, algorithm=algorithm, mesh=mesh, impl=impl,
-                       allow_pad=allow_pad, machine=machine, output=output,
-                       sparse_threshold=sparse_threshold, wire=wire,
-                       overlap=overlap, device=device if on_ranks else None)
-    return plan(a_h, b_h)
+    with _obs.call():
+        with _obs.span("matmul.coerce"):
+            a_h, b_h = _coerce_pair(a, b, g=g, allow_pad=allow_pad,
+                                    device=torch.device("cpu") if on_ranks
+                                    else device, on_ranks=on_ranks)
+        plan = plan_matmul(a_h, b_h, algorithm=algorithm, mesh=mesh,
+                           impl=impl, allow_pad=allow_pad, machine=machine,
+                           output=output, sparse_threshold=sparse_threshold,
+                           wire=wire, overlap=overlap,
+                           device=device if on_ranks else None)
+        return plan(a_h, b_h)

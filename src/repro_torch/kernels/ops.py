@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from . import ref as _ref
 from .bsr_pair import (PairTable, _host, bsr_pair_accumulate_cuda,
                        bsr_pair_matmul_cuda, pair_table)
@@ -121,6 +122,10 @@ def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
     ``rows[e]`` of C holds a NaN in that column (``0 * inf``).  The plain
     version multiplies every listed block; the kernel multiplies the real
     ones and writes those NaNs from the entries its table left out.
+
+    With tracing on, each call is a ``kernel.bsr_spmm`` span
+    (:func:`repro_torch.obs.launch`), on the card with the device time of
+    the kernel and its NaN pass.
     """
     refuse_autograd("bsr_spmm", blocks, dense, out)
     impl = _resolve(impl, dense)
@@ -138,8 +143,9 @@ def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
             (n_out, n_block_rows * bs, 0),
             dtype=torch.promote_types(blocks.dtype, dense.dtype))
     elif impl == "ref":
-        res = _spmm_ref(blocks, rows, cols, dense, n_block_rows, a_map,
-                        b_map, gidx, out)
+        with _obs.launch("kernel.bsr_spmm"):
+            res = _spmm_ref(blocks, rows, cols, dense, n_block_rows, a_map,
+                            b_map, gidx, out)
     else:
         if table is None:
             a_idx = np.arange(n_out) if a_map is None \
@@ -153,8 +159,9 @@ def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
             table = spmm_table(a_idx[:, None] * s + slots, rows, cols,
                                n_block_rows, b_map=b_map,
                                device=blocks.device)
-        res = bsr_spmm_cuda(blocks.contiguous(), dense.contiguous(), table,
-                            out=out)
+        with _obs.launch("kernel.bsr_spmm", device=dense):
+            res = bsr_spmm_cuda(blocks.contiguous(), dense.contiguous(),
+                                table, out=out)
     return res[0] if single else res
 
 
@@ -389,17 +396,20 @@ def steal_pair_accumulate(a_pool, b_rows, pair_a, pair_b, pair_slot, *,
         pair_a, pair_b, pair_slot = pair_a[None], pair_b[None], pair_slot[None]
         out = None if out is None else out[None]
     if impl == "ref":
-        res = _ref.steal_pair_accumulate_raw_ref(a_pool, b_rows, pair_a,
-                                                 pair_b, pair_slot, n_slots)
-        res = res if out is None else out.add_(res)
+        with _obs.launch("kernel.bsr_spmm"):
+            res = _ref.steal_pair_accumulate_raw_ref(
+                a_pool, b_rows, pair_a, pair_b, pair_slot, n_slots)
+            res = res if out is None else out.add_(res)
     else:
         if table is None:
             table = spmm_table(pair_a, pair_slot, pair_b, n_slots,
                                b_map=np.zeros(pair_a.shape[0], np.int64),
                                device=b_rows.device)
-        res = bsr_spmm_cuda(a_pool.reshape(1, *a_pool.shape).contiguous(),
-                            b_rows.reshape(1, *b_rows.shape).contiguous(),
-                            table, out=out)
+        with _obs.launch("kernel.bsr_spmm", device=b_rows):
+            res = bsr_spmm_cuda(
+                a_pool.reshape(1, *a_pool.shape).contiguous(),
+                b_rows.reshape(1, *b_rows.shape).contiguous(), table,
+                out=out)
     return res[0] if single else res
 
 

@@ -8,6 +8,9 @@ Quick tour::
     obs.enable()                         # tracing on (off by default)
     with obs.span("plan_build", algorithm="ring_c"):
         ...                              # spans nest, thread-safe
+    with obs.call():                     # one multiply: spans get args.call
+        with obs.launch("kernel.x", device=out):
+            ...                          # args.launch, args.device_ms
     obs.export_trace("trace.json")       # Chrome-trace JSON for Perfetto
 
     obs.registry().counter("steal3d.plans_built").inc()
@@ -35,6 +38,7 @@ from .registry import (
 )
 from .trace import (
     REQUIRED_EVENT_KEYS,
+    call,
     clear_trace,
     disable,
     enable,
@@ -42,6 +46,7 @@ from .trace import (
     events,
     export_trace,
     instant,
+    launch,
     span,
     sync_elapsed,
     timed,
@@ -54,6 +59,7 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "REQUIRED_EVENT_KEYS",
+    "call",
     "clear_trace",
     "disable",
     "drift_records",
@@ -64,6 +70,7 @@ __all__ = [
     "export_drift",
     "export_trace",
     "instant",
+    "launch",
     "percentile",
     "record_drift",
     "registry",

@@ -1,8 +1,13 @@
 """Predicted-vs-measured drift series for the plan cost model.
 
 Port of ``repro/obs/drift.py``.  Every traced ``MatmulPlan.__call__``
-records the measured (synchronised) per-multiply seconds next to the
-plan's predicted seconds, keyed by ``(algorithm, wire, overlap)``.
+records the measured per-multiply seconds next to the plan's predicted
+seconds, keyed by ``(algorithm, wire, overlap)``.  The measured side is
+the synchronised wall clock on the CPU and on a process grid; a stacked
+plan on the card gives a pending timing instead (its span's CUDA event
+pair, :class:`~repro_torch.obs.trace.DevicePair`: any object with a
+``seconds()`` method), which ``drift_records()`` and ``drift_report()``
+read when they are called, so the traced multiply never waits.
 ``drift_report()`` condenses each series to a ratio (geometric mean of
 measured/predicted — the cost model's systematic bias) and an RMSE
 (absolute spread).  Records keep the plan's cost-model dict, so a fit of
@@ -32,14 +37,17 @@ def record_drift(
     **extra,
 ) -> None:
     """Append one predicted/measured pair to its (algorithm, wire, overlap)
-    series.  ``cm`` is the plan's cost-model dict, kept for re-fitting."""
+    series.  ``cm`` is the plan's cost-model dict, kept for re-fitting.
+    ``measured_s`` is seconds, or a pending timing (an object with a
+    ``seconds()`` method), kept unread until the records are read."""
     key = (str(algorithm), str(wire), str(overlap))
     rec = {
         "algorithm": key[0],
         "wire": key[1],
         "overlap": key[2],
         "predicted_s": float(predicted_s),
-        "measured_s": float(measured_s),
+        "measured_s": measured_s if hasattr(measured_s, "seconds")
+        else float(measured_s),
     }
     if cm is not None:
         rec["cm"] = cm
@@ -51,10 +59,20 @@ def record_drift(
             del series[: len(series) // 2]
 
 
+def _resolved(series: List[Dict]) -> List[Dict]:
+    """``series`` with every pending ``measured_s`` read into seconds, in
+    the stored records too (each is read once)."""
+    for r in series:
+        if not isinstance(r["measured_s"], float):
+            r["measured_s"] = float(r["measured_s"].seconds())
+    return series
+
+
 def drift_records() -> List[Dict]:
     """Flat copy of every record across all series (a machine fit's input)."""
     with _LOCK:
-        return [dict(r) for series in _SERIES.values() for r in series]
+        flat = [r for series in _SERIES.values() for r in series]
+    return [dict(r) for r in _resolved(flat)]
 
 
 def reset_drift() -> None:
@@ -92,7 +110,8 @@ def drift_report() -> Dict[str, Dict]:
     """
     with _LOCK:
         items = [(k, list(v)) for k, v in _SERIES.items()]
-    return {"/".join(key): _summarize(series) for key, series in items}
+    return {"/".join(key): _summarize(_resolved(series))
+            for key, series in items}
 
 
 def export_drift(path: str) -> Dict:

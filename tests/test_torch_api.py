@@ -1087,3 +1087,88 @@ def test_entry_points_default_to_the_card():
             build()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DistDense.from_global(x, 2, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# a multiply under tracing (repro_torch.obs)
+# ---------------------------------------------------------------------------
+def _traced_case():
+    a = random_sparse(32, 32, 0.25, seed=41)
+    b = np.random.default_rng(41).standard_normal((32, 8)).astype(np.float32)
+    return a, torch.as_tensor(b), DistBSR.from_dense(a, g=2, block_size=4,
+                                                     device=CPU)
+
+
+def test_traced_matmul_records_each_phase_under_one_call_id():
+    """One traced ``matmul``: the coercion, the plan lookup, the multiply
+    span and its three phases, and B1's two ``ring_c`` launches (the
+    plain version here) all carry one call id, the launches numbered in
+    it; the next call takes the next id.  No device time off the card."""
+    from repro_torch import obs
+    a, b, a_h = _traced_case()
+    obs.enable(clear=True)
+    try:
+        out = matmul(a_h, b, algorithm="ring_c", device=CPU)
+        matmul(a_h, b, algorithm="ring_c", device=CPU)
+        evs = obs.events()
+    finally:
+        obs.disable()
+        obs.clear_trace()
+        obs.reset_drift()
+    np.testing.assert_allclose(out.numpy(), a @ b.numpy(), rtol=0, atol=TOL)
+    calls = sorted({e["args"]["call"] for e in evs})
+    assert len(calls) == 2 and calls[1] == calls[0] + 1
+    for call in calls:
+        mine = [e for e in evs if e["args"]["call"] == call]
+        names = [e["name"] for e in mine]
+        assert {"matmul.coerce", "plan_build", "multiply.ring_c",
+                "multiply.place", "multiply.body",
+                "multiply.epilogue"} <= set(names)
+        assert [e["args"]["launch"] for e in mine
+                if e["name"] == "kernel.bsr_spmm"] == [0, 1]
+        (body,) = [e for e in mine if e["name"] == "multiply.body"]
+        for k in (e for e in mine if e["name"] == "kernel.bsr_spmm"):
+            assert body["ts"] <= k["ts"] <= body["ts"] + body["dur"]
+    assert not any("device_ms" in e["args"] for e in evs)
+
+
+def test_untraced_matmul_records_nothing_and_makes_no_cuda_event(
+        monkeypatch):
+    from repro_torch import obs
+
+    def forbidden(*args, **kw):
+        raise AssertionError("an untraced multiply made a CUDA event")
+
+    monkeypatch.setattr(torch.cuda, "Event", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    a, b, a_h = _traced_case()
+    assert not obs.enabled()
+    out = matmul(a_h, b, algorithm="ring_c", device=CPU)
+    np.testing.assert_allclose(out.numpy(), a @ b.numpy(), rtol=0, atol=TOL)
+    assert obs.events() == [] and obs.drift_records() == []
+
+
+def test_traced_plan_computes_its_cost_model_once(monkeypatch):
+    """Five traced calls of one plan: five drift records, one cost model."""
+    from repro_torch import obs
+    _, b, a_h = _traced_case()
+    b_h = DistDense.for_rhs(b, a_h)
+    plan = plan_matmul(a_h, b_h, algorithm="ring_c", cache=False)
+    models = []
+    cost_model = plan.cost_model
+    monkeypatch.setattr(plan, "cost_model",
+                        lambda *a, **kw: models.append(1) or cost_model(
+                            *a, **kw))
+    obs.enable(clear=True)
+    obs.reset_drift()
+    try:
+        for _ in range(5):
+            plan(a_h, b_h)
+        recs = obs.drift_records()
+    finally:
+        obs.disable()
+        obs.clear_trace()
+        obs.reset_drift()
+    assert len(models) == 1 and len(recs) == 5
+    assert all(r["measured_s"] > 0 and r["cm"] == recs[0]["cm"]
+               for r in recs)

@@ -1008,3 +1008,55 @@ def test_ranks_on_the_card_match_the_stacked_executor(card):
         assert rank["staged_bytes"] > 0
         for case, err in rank["err"].items():
             assert err <= TOL, (case, err)
+
+
+@pytest.mark.cuda
+def test_traced_stacked_multiply_waits_for_nothing(card, monkeypatch):
+    """Three traced ``ring_c`` multiplies on the stacked executor with
+    ``torch.cuda.synchronize`` and ``obs.sync_elapsed`` raising: no host
+    wait inside ``matmul``.  Read afterwards, the multiply span, each B1
+    launch and the epilogue carry device milliseconds from their event
+    pairs, and the drift report holds one record a call."""
+    from repro_torch import obs
+    a = random_sparse(256, 256, 0.05, seed=5)
+    b = np.random.default_rng(5).standard_normal((256, 64)).astype(
+        np.float32)
+    a_h = DistBSR.from_dense(a, g=2, block_size=16, device=card)
+    b_t = torch.as_tensor(b, device=card)
+    matmul(a_h, b_t, algorithm="ring_c")         # plan and B1's tables
+    torch.cuda.synchronize()
+
+    def forbidden(*args, **kw):
+        raise AssertionError("a traced stacked multiply waited for the card")
+
+    obs.enable(clear=True)
+    obs.reset_drift()
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "synchronize", forbidden)
+            m.setattr(obs, "sync_elapsed", forbidden)
+            outs = [matmul(a_h, b_t, algorithm="ring_c") for _ in range(3)]
+        evs = obs.events()
+        report = obs.drift_report()
+        recs = obs.drift_records()
+    finally:
+        obs.disable()
+        obs.reset_all()
+    want = torch.as_tensor(a @ b)
+    for out in outs:
+        assert_close(out.cpu(), want, torch.as_tensor(np.abs(a) @ np.abs(b)))
+    (series,) = report.values()
+    assert series["n"] == 3 and len(recs) == 3
+    assert all(r["measured_s"] > 0 for r in recs)
+    mults = [e for e in evs if e["name"] == "multiply.ring_c"]
+    launches = [e for e in evs if e["name"] == "kernel.bsr_spmm"]
+    epilogues = [e for e in evs if e["name"] == "multiply.epilogue"]
+    assert len(mults) == len(epilogues) == 3 and len(launches) == 6
+    assert all(e["args"]["device_ms"] > 0 for e in mults + launches)
+    assert all(e["args"]["device_ms"] >= 0 for e in epilogues)
+    for mult in mults:
+        mine = [e["args"]["device_ms"] for e in launches + epilogues
+                if e["args"]["call"] == mult["args"]["call"]]
+        # nested pairs on one stream (1 us for the events' resolution)
+        assert len(mine) == 3
+        assert sum(mine) <= mult["args"]["device_ms"] + 1e-3
