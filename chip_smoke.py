@@ -477,29 +477,61 @@ def peaks():
 
 
 def b1_bound(table, bs: int, dense, out) -> dict:
-    """Least time for one B1 call: the real blocks and the B block-rows
-    they multiply read once, the output written once (and the table's
-    int32s read once), the real blocks' flops."""
+    """Least time for one B1 call, from the work of the path its table
+    takes.  The block path: the real blocks and the B block-rows they
+    multiply read once, the output written once (and the table's int32s
+    read once), the real blocks' flops.  The element path
+    (``table.elements``): A's nonzeros read once (value, B row, pool
+    offset), the B rows they gather read once, the output written once
+    (and the units, segments, chunks and the visited rows' pointers read
+    once), two flops a nonzero and output column.  ``real_flops`` is the
+    real blocks' flops on both paths."""
     elem = dense.element_size()
     n = dense.shape[-1]
-    ch = table.chunks.long()
-    first, order = torch.sort(ch[1])
-    lengths = (ch[2] - ch[1])[order]
-    b_tile = torch.repeat_interleave(ch[5][order], lengths)
-    k_blocks = dense.shape[1] // bs
-    b_rows = torch.unique(b_tile * k_blocks + table.ent[1].long()).numel()
     real = table.real_blocks
-    table_bytes = 4 * sum(x.numel() for x in (table.ent, table.chunks,
-                                              table.reduce, table.fill))
-    nbytes = real * bs * bs * elem + b_rows * bs * n * elem \
-        + out.numel() * out.element_size() + table_bytes
-    flops = 2 * real * bs * bs * n
+    real_flops = 2 * real * bs * bs * n
+    out_bytes = out.numel() * out.element_size()
+    el = table.elements
+    if el is None:
+        ch = table.chunks.long()
+        first, order = torch.sort(ch[1])
+        lengths = (ch[2] - ch[1])[order]
+        b_tile = torch.repeat_interleave(ch[5][order], lengths)
+        k_blocks = dense.shape[1] // bs
+        b_rows = torch.unique(b_tile * k_blocks
+                              + table.ent[1].long()).numel() * bs
+        table_bytes = 4 * sum(x.numel() for x in (
+            table.ent, table.chunks, table.reduce, table.fill))
+        nbytes = real * bs * bs * elem + b_rows * n * elem + out_bytes \
+            + table_bytes
+        flops = real_flops
+    else:
+        lists = el.lists
+        units = el.units.long()
+        row0 = units[1] * (lists.n_block_rows * bs) + units[3]
+        lo, hi = lists.rowptr[row0], lists.rowptr[row0 + units[4]]
+        lengths = hi - lo
+        at = torch.repeat_interleave(lo - torch.cumsum(lengths, 0) + lengths,
+                                     lengths) \
+            + torch.arange(int(lengths.sum()), device=lo.device)
+        b_rows = torch.unique(
+            torch.repeat_interleave(units[2], lengths) * dense.shape[1]
+            + lists.brow[at].long()).numel()
+        table_bytes = sum(x.numel() * x.element_size() for x in (
+            el.units, el.segs, el.seg_chunks, el.flag_chunks, table.fill)) \
+            + (int(units[4].sum()) + units.shape[1]) \
+            * lists.rowptr.element_size()
+        nbytes = el.n_elements * (elem + lists.brow.element_size()
+                                  + lists.aoff.element_size()) \
+            + b_rows * n * elem + out_bytes + table_bytes
+        flops = 2 * el.n_elements * n
     peak_bytes, peak_ops = peaks()
     t_bytes = nbytes / peak_bytes * 1e3
     t_ops = flops / peak_ops[dense.dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "real_blocks": real, "real_flops": flops}
+            "bytes": nbytes, "flops": flops, "real_blocks": real,
+            "real_flops": real_flops}
 
 
 def counted_blocks(fn):
@@ -543,7 +575,8 @@ def kernel_case(blocks, rows, cols, dense, nbr: int, tol: float, label: str,
     err, share, ok = compare(got, want, abs_product(blocks, rows, cols, dense,
                                                     nbr), tol, step)
     del want
-    path = kernel_path(bs, torch.promote_types(blocks.dtype, dense.dtype))
+    path = kernel_path(bs, torch.promote_types(blocks.dtype, dense.dtype)) \
+        if table.elements is None else "element gather, float32 FMA"
     n = dense.shape[-1]
     log(f"  B1 {label} [{path}]: {table.chunks.shape[1]} chunks, "
         f"{table.reduce.shape[1]} segments in partials, workspace "
@@ -570,9 +603,10 @@ def kernel_case(blocks, rows, cols, dense, nbr: int, tol: float, label: str,
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
         log(f"  B1 {label}: {res['ms']:.3f} ms, plain "
             f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
-            f"({res['bound_by']}), {100 * res['share_of_bound']:.1f} % of "
-            f"it; {res['real_flops'] / res['ms'] / 1e9:.1f} TFLOP/s on the "
-            f"real blocks")
+            f"({res['bound_by']}, the {table.path} path's work), "
+            f"{100 * res['share_of_bound']:.1f} % of it; "
+            f"{res['flops'] / res['ms'] / 1e9:.1f} TFLOP/s on the "
+            f"{'nonzeros' if table.elements is not None else 'real blocks'}")
     return res
 
 
@@ -691,8 +725,11 @@ def main_path_kernel_cases(cases) -> dict:
             f"{int(seg.max().item())}), {table.fill.shape[1]} block-rows "
             f"zero-filled, {table.n_parts} partials")
         label = f"main-path {shape} {str(dtype)[6:]}"
+        # an element launch is shorter than the host's call: device time
         r = kernel_case(blocks, rows, cols, dense, nbr, TOL_F32_DEEP, label,
-                        table=table, reps=10 if shape == "SpMM" else 4)
+                        table=table, reps=10 if shape == "SpMM" else 4,
+                        timer=device_ms if table.elements is not None
+                        else None)
         check(r["workspace_bytes"] == 0,
               f"B1 {label} needs a partial workspace")
         r["nonfinite"] = nonfinite_case(blocks, rows, cols, dense, nbr, table,
@@ -703,6 +740,17 @@ def main_path_kernel_cases(cases) -> dict:
         r["shape"] = {"T": g * g, "S": blocks.shape[1], "bs": bs,
                       "n": dense.shape[-1]}
         res[(shape, dtype)] = r
+        if shape == "SpMM" and table.elements is not None:
+            # the block path on the same real blocks, which raw calls,
+            # steal3d and high-fill handles take
+            blocks_table = a_h.pool_lists(api.SKEW_ROWS, packed=False).table(
+                ident, ident, nbr, device=blocks.device)
+            b = kernel_case(blocks, rows, cols, dense, nbr, TOL_F32_DEEP,
+                            label + ", block path", table=blocks_table,
+                            reps=4)
+            b["shape"] = r["shape"]
+            res[(shape + " block path", dtype)] = b
+            del blocks_table
         del blocks, rows, cols, dense, table
         free()
     return res
@@ -715,7 +763,10 @@ def nonfinite_case(blocks, rows, cols, dense, nbr: int, table, label: str,
     its NaN mask must equal the plain version's, which multiplies every
     listed block, zero blocks included (``0 * inf``); its finite values
     agree as on finite B.  Then the NaN pass's device time on finite B
-    (:func:`device_ms`), where it must write nothing."""
+    (:func:`device_ms`), where it must write nothing, beside one read of
+    the B chunks it flags at the HBM peak (``flag_read_ms``): the element
+    path's pass flags every chunk a real block reads, the block path's
+    those of the skipped entries."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, nan_pass
     k, n = dense.shape[1], dense.shape[2]
@@ -737,6 +788,10 @@ def nonfinite_case(blocks, rows, cols, dense, nbr: int, table, label: str,
     del got, want, nan, keep, scale, bad
     out = bsr_spmm_cuda(blocks, dense, table)
     flag_ms = device_ms(lambda: nan_pass(dense, table, out), 20)
+    flagged = (table.skip_chunks if table.elements is None
+               else table.elements.flag_chunks).shape[1]
+    flag_read_ms = flagged * blocks.shape[-1] * n * dense.element_size() \
+        / peaks()[0] * 1e3
     finite = bool(torch.isfinite(out).all())
     del out
     log(f"  B1 {label} on non-finite B: {n_nan} NaN elements, NaN mask "
@@ -745,13 +800,15 @@ def nonfinite_case(blocks, rows, cols, dense, nbr: int, table, label: str,
         f"{table.skip_chunks.shape[1]} B chunks); finite values max_abs_err "
         f"{err:.3e}, {share:.3g} of their allowance; the NaN pass on finite "
         f"B: {flag_ms * 1e3:.1f} us of device time a launch, "
-        f"{100 * flag_ms / launch_ms:.3f} % of the launch, writes "
+        f"{100 * flag_ms / launch_ms:.3f} % of the launch, "
+        f"{flag_ms / flag_read_ms:.2f} x a read of its {flagged} B chunks "
+        f"at the HBM peak, writes "
         f"{'nothing' if finite else 'NON-FINITE VALUES'}")
     check(same and n_nan > 0 and ok and finite,
           f"B1 {label}: non-finite B gives another NaN mask than the plain "
           "version, or the NaN pass writes on finite B")
     return {"nan_elements": n_nan, "skipped_entries": table.skip.shape[1],
-            "flag_ms": flag_ms}
+            "flag_ms": flag_ms, "flag_read_ms": flag_read_ms}
 
 
 def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
@@ -846,10 +903,12 @@ def check_workspace(plan, bs: int, label: str) -> dict:
     return {"workspace_bytes": ws, "workspace_limit_bytes": limit}
 
 
-# B1's and B2's main kernels as the profiler names them, and the wrappers
-# whose launches each of them runs once (a launch with no chunk of work
-# runs none: no profiled window here has such a launch)
-TRACED_KERNELS = {"spmm_kernel": ("bsr_spmm",),
+# B1's and B2's main kernels as the profiler names them, and the launch
+# counts (:func:`traced_counts`) of which each runs once a launch: B1's by
+# path (a launch with no chunk of work runs none: no profiled window here
+# has such a launch)
+TRACED_KERNELS = {"spmm_kernel": ("bsr_spmm.blocks",),
+                  "spmm_elem_kernel": ("bsr_spmm.elements",),
                   "pair_kernel": ("bsr_pair_accumulate", "bsr_pair_matmul")}
 # host time between the profiler's start and the window's first launch
 PROFILE_PREROLL_S = 0.02
@@ -873,13 +932,13 @@ def profiled(fn, label: str, attempts: int = 3):
     rolls = [(PROFILE_PREROLL_S, 0.0), (PROFILE_PREROLL_S, 0.2), (0.2, 0.2)]
     for attempt in range(1, attempts + 1):
         pre, post = rolls[min(attempt, len(rolls)) - 1]
-        before = read_counts()
+        before = traced_counts()
         with profile(activities=PROFILED) as prof:
             time.sleep(pre)
             wall_ms = fn()
             torch.cuda.synchronize()
             time.sleep(post)
-        after = read_counts()
+        after = traced_counts()
         launched = {k: after[k] - before[k] for k in after}
         events = device_events(prof)
         lost = {}
@@ -1077,10 +1136,23 @@ def kernel_wrappers() -> dict:
 def reset_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "paths"):
+            fn.paths = dict.fromkeys(fn.paths, 0)
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def traced_counts() -> dict:
+    """The launch counts :data:`TRACED_KERNELS` names: B1's by path
+    (``bsr_spmm_cuda.paths``), B2's and B3's by wrapper."""
+    counts = read_counts()
+    paths = kernel_wrappers()["bsr_spmm"].paths
+    return {"bsr_spmm.blocks": paths["blocks"],
+            "bsr_spmm.elements": paths["elements"],
+            "bsr_pair_accumulate": counts["bsr_pair_accumulate"],
+            "bsr_pair_matmul": counts["bsr_pair_matmul"]}
 
 
 def phase_peak(label: str) -> float:
@@ -2445,13 +2517,14 @@ def serve_windows(model, cfg, toks, label: str) -> dict:
                             if lo <= e["ts"] and e["ts"] + e["dur"] <= hi],
                            ("serve.operator", "serve.tile", "plan_build",
                             "multiply."))
-        r.update({"launches": {"bsr_spmm": kern["spmm_kernel"],
+        b1 = kern["spmm_kernel"] + kern["spmm_elem_kernel"]
+        r.update({"launches": {"bsr_spmm": b1,
                                "bsr_pair_accumulate": kern["pair_kernel"]},
                   "host_syncs": sum(where.values()),
                   "syncs_by_line": dict(sorted(
                       where.items(), key=lambda kv: -kv[1])[:8]),
                   "host_ms": {k: round(v, 3) for k, v in host.items()}})
-        log(f"  {label} {name}: B1 {kern['spmm_kernel']} and B2 "
+        log(f"  {label} {name}: B1 {b1} and B2 "
             f"{kern['pair_kernel']} kernels in the trace"
             f"{' (which lost some)' if lost else ''}; "
             f"{r['host_syncs']} host synchronisations, by source line: "
@@ -5723,6 +5796,11 @@ def main() -> int:
     check(dense_counts["bsr_spmm"] == sum(launches.values())
           and min(launches.values()) > 0,
           "the dense-output path did not launch bsr_spmm at both shapes")
+    b1_paths = dict(kernel_wrappers()["bsr_spmm"].paths)
+    log(f"  B1 launches by path on the dense-output path: {b1_paths}")
+    check(b1_paths == {"elements": dense_counts["bsr_spmm"], "blocks": 0},
+          f"a dense-output launch at the cells' fill took the block path "
+          f"({b1_paths})")
     breakdown = {
         "SpMM float32": device_breakdown(
             a32, b32, "SpMM float32", operands=(
@@ -5740,18 +5818,24 @@ def main() -> int:
               f"{name}: the multiply rolls or gathers an operand "
               f"({bd['operand_copies']})")
     # B1's NaN pass on finite B, against the multiply of each main-path
-    # cell (g launches a multiply, each followed by its pass)
+    # cell (g launches a multiply, each followed by its pass).  The element
+    # path's pass reads every B chunk a real block reads, once: it is held
+    # to that read (within 3 x its time at the HBM peak, two small
+    # launches included), and its share of the multiply is recorded.
     flag_share = {}
     for shape, key in (("SpMM", "SpMM float32 g=2 overlap=auto wire=auto"),
                        ("SpGEMM",
                         "SpGEMM float32 g=2 overlap=auto wire=auto")):
-        flag_ms = kres[(shape, torch.float32)]["nonfinite"]["flag_ms"]
+        nf = kres[(shape, torch.float32)]["nonfinite"]
+        flag_ms, read_ms = nf["flag_ms"], nf["flag_read_ms"]
         flag_share[shape] = SPMM["g"] * flag_ms / e2e[key]["ms"]
         log(f"  B1's NaN pass on finite B at the {shape} cell: "
             f"{SPMM['g']} x {flag_ms * 1e3:.1f} us a multiply of "
-            f"{e2e[key]['ms']:.2f} ms, {100 * flag_share[shape]:.3f} %")
-        check(flag_share[shape] < 0.01, f"B1's NaN pass takes "
-              f"{100 * flag_share[shape]:.2f} % of the {shape} multiply")
+            f"{e2e[key]['ms']:.2f} ms, {100 * flag_share[shape]:.3f} %; "
+            f"{flag_ms / read_ms:.2f} x one read of its B chunks")
+        check(flag_ms <= 3 * read_ms, f"B1's NaN pass takes "
+              f"{flag_ms * 1e3:.1f} us a launch at the {shape} shape, "
+              f"{flag_ms / read_ms:.2f} x one read of its B chunks")
     dense_peak = phase_peak("dense-output path")
 
     ops = {"a32": a32, "b32": b32, "a16": a16, "b16": b16, "a3": a3,
@@ -5772,19 +5856,32 @@ def main() -> int:
     b1 = [record(f"bsr_spmm ({shape} shape)",
                  "src/repro_torch/kernels/csrc/bsr_spmm.cu",
                  "src/repro/kernels/bsr_spmm.py:55",
-                 launches[shape] + other["launches"][shape]
-                 + steal["launches"][shape],
+                 launches[shape] + other["launches"][shape],
                  {dt: kres[(shape, dt)] for dt in (torch.float32,
                                                    torch.bfloat16)},
                  {"shape": kres[(shape, torch.float32)]["shape"],
                   **{k: kres[(shape, torch.float32)][k] for k in (
-                      "real_flops", "stored_flops", "bytes", "real_blocks",
-                      "stored_blocks", "blocks_multiplied",
+                      "flops", "real_flops", "stored_flops", "bytes",
+                      "real_blocks", "stored_blocks", "blocks_multiplied",
                       "workspace_bytes", "share_of_bound",
                       "library_bsr_ms", "path")},
                   "nonfinite": kres[(shape, torch.float32)]["nonfinite"],
                   "nan_pass_share_of_multiply": flag_share[shape]})
           for shape in ("SpMM", "SpGEMM")]
+    # steal3d's pair lists launch the block path (at both cells' shapes)
+    blocks_key = "SpMM block path"
+    b1.append(record(
+        "bsr_spmm (SpMM shape, block path)",
+        "src/repro_torch/kernels/csrc/bsr_spmm.cu",
+        "src/repro/kernels/bsr_spmm.py:55",
+        steal["launches"]["SpMM"] + steal["launches"]["SpGEMM"],
+        {dt: kres[(blocks_key, dt)] for dt in (torch.float32,
+                                               torch.bfloat16)},
+        {"shape": kres[(blocks_key, torch.float32)]["shape"],
+         **{k: kres[(blocks_key, torch.float32)][k] for k in (
+             "flops", "real_flops", "stored_flops", "bytes", "real_blocks",
+             "stored_blocks", "blocks_multiplied", "workspace_bytes",
+             "share_of_bound", "path")}}))
     del kres, a32, a16, b32, b16, a3, b3, a14, a_h, b_h, ops
     del oracle, scale
     del oracle32, scale32, oracle16, scale16, oracle_gemm, scale_gemm

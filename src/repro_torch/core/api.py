@@ -65,6 +65,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import itertools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -73,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 from .. import obs as _obs
+from ..kernels import bsr_spmm as _bsr_spmm
 from ..kernels import ops as kops
 from ..kernels.bsr_pair import pair_table
 from ..kernels.bsr_spmm import PoolLists, SpmmTable
@@ -1617,7 +1619,10 @@ SYMBOLIC_CACHE_MAX = 32
 DENSITY_CACHE_MAX = 256
 STEAL_CACHE_MAX = 32
 # B1 tables a dense-output plan keeps: one per ring step and A structure
+# (and, on the element path, A handle)
 SPMM_TABLE_CACHE_MAX = 16
+# names each handle's element lists, for the plans' table caches
+_ELEMENT_LISTS = itertools.count()
 _PLAN_CACHE = _LRUCache(PLAN_CACHE_MAX)
 # Symbolic-phase results keyed on the operands' structure fingerprints:
 # repeated sparse-output plans for the same structures skip the host-side
@@ -2081,6 +2086,29 @@ class DistBSR(DistMatrix):
                     rows=rows[ti, tj], cols=cols[ti, tj], real=real[ti, tj],
                     slots_per_tile=s)
             cache[(placement, packed)] = lists
+        return lists
+
+    def element_lists(self, placement: str,
+                      packed: bool) -> "_bsr_spmm.ElementLists":
+        """The nonzero elements of the placed pool's real blocks, row by row
+        (:func:`~repro_torch.kernels.bsr_spmm.element_lists`), built on the
+        device once per placement and wire and cached beside
+        :meth:`pool_lists`: B1's element path reads A's values through
+        them, so they hold while the blocks' nonzero positions do, as the
+        real mask does."""
+        cache = getattr(self, "_element_lists", None)
+        if cache is None:
+            cache = self._element_lists = {}
+        lists = cache.get((placement, packed))
+        if lists is None:
+            pool = (self.packed_wire(placement) if packed
+                    else self.placed(placement))["blocks"]
+            bs = self.tiled.block_size
+            lists = cache[(placement, packed)] = _bsr_spmm.element_lists(
+                pool.reshape(-1, *pool.shape[-3:]),
+                self.pool_lists(placement, packed),
+                self.tiled.tile_shape[0] // bs,
+                key=(placement, packed, next(_ELEMENT_LISTS)))
         return lists
 
     def footprint_bytes(self) -> int:
@@ -3349,15 +3377,22 @@ class MatmulPlan:
         """B1's work table of one dense-output ring step, in which grid
         position p multiplies the real blocks of placed A tile ``a_map[p]``
         by B tile ``b_map[p]`` (built on the host once, then cached with the
-        plan)."""
-        lists = a_h.pool_lists(self.algorithm.a_placement,
-                               packed="a" in self._packs)
+        plan).  Where A's fill picks the element path
+        (:func:`~repro_torch.kernels.bsr_spmm.pick_path`) the table carries
+        its split over the handle's element lists, and the cache key names
+        the lists (positions of nonzeros are the handle's own)."""
+        placement, packed = self.algorithm.a_placement, "a" in self._packs
+        lists = a_h.pool_lists(placement, packed=packed)
+        elements = a_h.element_lists(placement, packed) \
+            if _bsr_spmm.pick_path(a_h.tiled.fill()) == "elements" else None
         key = (lists.key, np.asarray(a_map).tobytes(),
-               np.asarray(b_map).tobytes())
+               np.asarray(b_map).tobytes(),
+               None if elements is None else elements.key)
         table = self._tables.get(key)
         if table is None:
             table = self._tables[key] = lists.table(
-                a_map, b_map, self.geom.a_nbr, device=self.executor.device)
+                a_map, b_map, self.geom.a_nbr, device=self.executor.device,
+                elements=elements)
         return table
 
     def _device_map(self, tile_map: np.ndarray) -> torch.Tensor:

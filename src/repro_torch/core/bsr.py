@@ -265,8 +265,10 @@ class TiledBSR:
             padded = dense.new_zeros((mp, np_))
             padded[:m, :n] = dense
         view = padded.reshape(mp // bs, bs, np_ // bs, bs).transpose(1, 2)
-        # a block holds data when any element is nonzero (NaN included)
-        mask = (view != 0).any(dim=3).any(dim=2).cpu().numpy()
+        # a block holds data when any element is nonzero (NaN included);
+        # the same pass counts the nonzero elements (the fill)
+        per_block = _nonzeros_per_block(view)
+        mask = per_block > 0
         src_row = np.arange(mp // bs)
         src_col = np.arange(np_ // bs)
         perm = col_perm = None
@@ -314,9 +316,10 @@ class TiledBSR:
         if blocks.dtype == view.dtype:
             real = np.zeros((grid.rows, grid.cols, store), bool)
             real[gi, gj, slot] = True
+            nnz = int(per_block.sum())
         else:
             # a cast may round a block to zero: test the stored blocks
-            real = _real_mask(blocks)
+            real, nnz = _real_mask(blocks)
         out = cls(blocks=blocks, rows=as_tensor(rows, device),
                   cols=as_tensor(cols, device),
                   counts=as_tensor(counts, device), shape=(mp, np_),
@@ -324,7 +327,7 @@ class TiledBSR:
                   capacity=cap, logical_shape=(m, n), row_block_perm=perm,
                   col_block_perm=col_perm)
         out.host_layout = {"rows": rows, "cols": cols, "counts": counts,
-                           "real": real}
+                           "real": real, "nnz": nnz}
         return out
 
     def to_dense(self) -> torch.Tensor:
@@ -359,15 +362,30 @@ class TiledBSR:
         """Host numpy ``rows``, ``cols``, ``counts`` and ``real`` (the
         slots whose block holds data: any element nonzero, NaN included,
         the JAX package's ``|block|.sum() != 0``), kept from
-        :meth:`from_dense`, else read from the device once."""
+        :meth:`from_dense`, else read from the device once; ``nnz``, the
+        nonzero elements, counted in the pass that finds ``real`` (absent
+        where a layout was given without one, as a sparse product's)."""
         h = getattr(self, "host_layout", None)
         if h is None:
+            real, nnz = _real_mask(self.blocks)
             h = self.host_layout = {
                 "rows": self.rows.cpu().numpy(),
                 "cols": self.cols.cpu().numpy(),
                 "counts": self.counts.cpu().numpy(),
-                "real": _real_mask(self.blocks)}
+                "real": real, "nnz": nnz}
         return h
+
+    def fill(self) -> Optional[float]:
+        """The nonzero elements over the real blocks' slots (real blocks x
+        bs^2), from :meth:`host`, counted once and kept there; None where
+        the layout came without a count (no device pass is made for it)."""
+        h = self.host()
+        if "fill" not in h:
+            nnz = h.get("nnz")
+            slots = int(np.count_nonzero(h["real"])) * self.block_size ** 2
+            h["fill"] = None if nnz is None else (nnz / slots if slots
+                                                  else 0.0)
+        return h["fill"]
 
     def load_imbalance(self) -> float:
         """max/avg real-block count over tiles — the paper's Table 1 metric."""
@@ -382,9 +400,32 @@ class TiledBSR:
         return float(1.0 - c.sum() / total) if total else 0.0
 
 
-def _real_mask(blocks: torch.Tensor) -> np.ndarray:
-    """Host bool ``[..., store]`` mask of the stored blocks holding data."""
-    return torch.ne(blocks, 0).flatten(-2).any(dim=-1).cpu().numpy()
+# elements of a block view tested for nonzeros at once: the pass holds a
+# bool mask and an int32 copy of this many, never of the whole matrix
+COUNT_SLAB = 1 << 26
+
+
+def _nonzeros_per_block(view: torch.Tensor) -> np.ndarray:
+    """Host int32 ``[R, C]``: the nonzero elements (NaN included) of each
+    ``bs x bs`` block of ``view [R, C, bs, bs]`` (any strides), counted on
+    its device a slab of ``R`` at a time and copied to the host once."""
+    per = int(np.prod(view.shape[1:]))
+    step = max(1, COUNT_SLAB // max(per, 1))
+    counts = [torch.ne(view[i:i + step], 0).sum(dim=(2, 3),
+                                                 dtype=torch.int32)
+              for i in range(0, view.shape[0], step)]
+    if not counts:
+        return np.zeros(view.shape[:2], np.int32)
+    return torch.cat(counts).cpu().numpy()
+
+
+def _real_mask(blocks: torch.Tensor) -> Tuple[np.ndarray, int]:
+    """Host bool ``[..., store]`` mask of the stored blocks holding data,
+    and their nonzero elements in all."""
+    bs = blocks.shape[-1]
+    per_block = _nonzeros_per_block(blocks.reshape(-1, 1, bs, bs)) \
+        .reshape(blocks.shape[:-2])
+    return per_block > 0, int(per_block.sum())
 
 
 def _balance(mask: np.ndarray, grid: ProcessGrid, balance: str):

@@ -17,6 +17,17 @@ block-row wherever its B chunk holds an inf or a NaN, as the reference's
 ``0 * inf`` does.  The table keeps those entries (``skip``), and each
 launch ends with a pass that flags the non-finite columns of their chunks
 on the card and writes the NaNs (nothing but the flags on finite B).
+
+Two paths multiply a table's real blocks, one algorithm: the block path
+multiplies every slot of each real block; the element path
+(:class:`ElementTable`) only the nonzero elements, a row gather over
+each row's nonzeros with the same sums.  A plan picks the element path
+for a handle whose real blocks are nearly empty (:func:`pick_path`, from
+the fill counted with the real mask) and builds the handle's element
+lists once (:func:`element_lists`).  The element path's NaN pass also
+writes the NaNs of the zero slots it skipped inside real blocks.  Raw
+calls (``ops.bsr_spmm_raw`` without a plan's table, steal3d's pair lists)
+have no handle to cache the lists on and take the block path.
 """
 from __future__ import annotations
 
@@ -29,8 +40,9 @@ import torch
 
 from . import loader
 
-__all__ = ["SpmmTable", "PoolLists", "spmm_table", "bsr_spmm_cuda",
-           "nan_pass", "kernel_path", "CHUNK"]
+__all__ = ["SpmmTable", "PoolLists", "ElementLists", "ElementTable",
+           "spmm_table", "element_lists", "pick_path", "bsr_spmm_cuda",
+           "nan_pass", "kernel_path", "CHUNK", "ELEMENT_FILL"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,6 +51,95 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # row holds at most nbc real blocks, 128 at both main-path shapes, so
 # their segments stay whole: no partials, no reduce pass.
 CHUNK = 128
+
+# A handle whose nonzero elements fill less than this share of its real
+# blocks' slots runs the element path, the rest the block path.  A
+# conservative choice below every crossover measured on the H100, not a
+# crossover itself: one launch of the element path was the faster up to
+# ~15 % fill at bs 128 in float32, ~3.5 % in bf16, and at every fill
+# measured at bs 8 (PERF.md, section 6).  But a handle pays its element
+# lists' build once, and serving tiles its bs 8 operators afresh every
+# step: there the build (~2 ms a handle) made a whole step 2.3-2.8 times
+# slower on the element path.  A real bs 8 block is at least 1/64 full, so
+# such handles keep the block path.
+ELEMENT_FILL = 0.01
+
+# The element path's units: rows of one block-row segment whose entries (one
+# more a row, for its store) add up to about UNIT_WORK, at most UNIT_ROWS
+# rows; a row of more than SPLIT_ROW entries is a unit alone, split over
+# the thread block.  Tuned on the H100 at the cells' shapes (PERF.md,
+# section 6).
+UNIT_WORK = 256
+UNIT_ROWS = 128
+SPLIT_ROW = 64
+
+# Pool elements the element lists' build tests for nonzeros at once.
+BUILD_SLICE = 1 << 27
+
+
+def pick_path(fill: Optional[float]) -> str:
+    """``"elements"`` for a handle whose fill (nonzero elements over its
+    real blocks' slots) is under :data:`ELEMENT_FILL`, else ``"blocks"``;
+    an unknown fill (None: a layout given without a count) takes the block
+    path."""
+    return "elements" if fill is not None and fill < ELEMENT_FILL \
+        else "blocks"
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementLists:
+    """The nonzero elements of an A pool's real blocks, row by row, on the
+    device (built once per handle, placement and wire by
+    :func:`element_lists`).
+
+    Row ``x`` of pool tile ``q`` (of ``R = nbr * bs`` rows a tile) holds
+    entries ``rowptr[q * R + x] : rowptr[q * R + x + 1]``, in the block
+    path's order (the list's real blocks in list order, then the column in
+    the block): ``brow`` int32, the B row inside the B tile (block column *
+    bs + c), and ``aoff`` int64, the pool element that holds A's value
+    (pool slot * bs^2 + r * bs + c).  A launch reads the values there, as
+    the block path reads its blocks: only the positions of the nonzeros are
+    fixed per handle, as its real mask is.  ``row_nnz`` (host int64 ``[P,
+    R]``) is each row's entry count; ``pool_shape`` the pool's.
+    """
+    key: tuple
+    rowptr: torch.Tensor
+    brow: torch.Tensor
+    aoff: torch.Tensor
+    row_nnz: np.ndarray
+    pool_shape: tuple
+    n_block_rows: int
+    max_brow: int
+
+    @property
+    def n_elements(self) -> int:
+        return int(self.brow.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementTable:
+    """The element path's work split of one launch, beside the block
+    table's lists (:attr:`SpmmTable.elements`).
+
+    ``units`` int32 ``[6, U]``: output tile, pool tile, B tile, first row
+    (of the tile's ``nbr * bs``), rows and blocks credited to the block
+    counter, of each unit: a run of rows of one visited block-row, about
+    :data:`UNIT_WORK` entries, by tile and then most entries first; the
+    units cover every row of every block-row a real block visits, once.
+    ``segs`` int32 ``[6, NS]``: tile, block-row, pool tile, B tile and the
+    first and end index into ``seg_chunks`` of each visited block-row;
+    ``seg_chunks`` int32 the B chunk (into ``flag_chunks``) of each of its
+    real blocks.  ``flag_chunks`` int32 ``[2, F]``: B tile and block column
+    of every chunk a real block reads or a skipped entry names, the
+    table's ``skip_chunks`` first.  ``n_elements``: the nonzeros the launch
+    multiplies.
+    """
+    lists: ElementLists
+    units: torch.Tensor
+    segs: torch.Tensor
+    seg_chunks: torch.Tensor
+    flag_chunks: torch.Tensor
+    n_elements: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,11 +176,18 @@ class SpmmTable:
     max_slot: int
     max_col: int
     max_b_tile: int
+    elements: Optional[ElementTable] = None
 
     @property
     def real_blocks(self) -> int:
         """Blocks the kernel multiplies (the real ones)."""
         return int(self.ent.shape[1])
+
+    @property
+    def path(self) -> str:
+        """``"elements"`` where the launch multiplies the real blocks'
+        nonzeros (:attr:`elements`), else ``"blocks"``."""
+        return "blocks" if self.elements is None else "elements"
 
     def workspace_bytes(self, block_size: int, n: int) -> int:
         return self.n_parts * block_size * n * 4
@@ -90,7 +198,9 @@ def _host(x) -> np.ndarray:
 
 
 def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
-               b_map=None, chunk: int = CHUNK, device=None) -> SpmmTable:
+               b_map=None, chunk: int = CHUNK, device=None,
+               elements: Optional[ElementLists] = None,
+               a_map=None) -> SpmmTable:
     """Cut block lists into chunks of real blocks (host numpy).
 
     slots, rows, cols : int ``[T, L]`` (numpy or tensor): entry ``e`` of
@@ -102,7 +212,10 @@ def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
     multiply and kept for the NaN pass.  b_map : int ``[T]`` or None
     (the identity): the B tile of each output tile.  A block-row segment of
     ``L`` real blocks becomes ``ceil(L / chunk)`` chunks; the block-rows no
-    real block visits are listed for the zero fill.
+    real block visits are listed for the zero fill.  With ``elements``, the
+    element lists of the pool that ``slots`` index, and ``a_map`` (``[T]``,
+    the pool tile of each output tile), the table also carries the element
+    path's split (:class:`ElementTable`).
     """
     if not 1 <= chunk <= CHUNK:
         raise ValueError(f"chunk must be in [1, {CHUNK}] (the kernel's "
@@ -181,6 +294,11 @@ def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
         raise ValueError("block lists too long for the kernel's int32 table")
     as_i32 = lambda x: torch.from_numpy(
         np.ascontiguousarray(x, dtype=np.int32)).to(device or "cpu")
+    el = None
+    if elements is not None:
+        el = _element_table(elements, _host(a_map).astype(np.int64), b_map,
+                            key, starts, ends, ent[1],
+                            skip_chunks.reshape(2, -1), nbr, as_i32)
     return SpmmTable(ent=as_i32(ent), chunks=as_i32(chunks),
                      reduce=as_i32(reduce), fill=as_i32(fill),
                      skip=as_i32(skip.reshape(3, -1)),
@@ -189,7 +307,113 @@ def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
                      max_slot=int(ent[0].max(initial=-1)),
                      max_col=max(int(ent[1].max(initial=-1)),
                                  int(x_col.max(initial=-1))),
-                     max_b_tile=int(b_map.max(initial=-1)))
+                     max_b_tile=int(b_map.max(initial=-1)), elements=el)
+
+
+def _element_table(lists: ElementLists, a_map: np.ndarray, b_map: np.ndarray,
+                   key: np.ndarray, starts: np.ndarray, ends: np.ndarray,
+                   ent_col: np.ndarray, skip_chunks: np.ndarray, nbr: int,
+                   as_i32) -> ElementTable:
+    """The element path's split of a launch whose real blocks, sorted by
+    (tile, block-row), are ``key`` (tile * nbr + block-row), their
+    segments ``[starts, ends)`` and their block columns ``ent_col``; pool
+    tile ``a_map[t]`` and B tile ``b_map[t]`` of output tile t."""
+    p, _, bs, _ = lists.pool_shape
+    if lists.n_block_rows != nbr:
+        raise ValueError(f"element lists of {lists.n_block_rows} block-rows "
+                         f"a tile, the launch has {nbr}")
+    if a_map.shape != b_map.shape or (a_map.size and (
+            a_map.min() < 0 or a_map.max() >= p)):
+        raise ValueError(f"a_map must name one of the {p} pool tiles for "
+                         f"each of the {b_map.size} output tiles")
+    seg_key = key[starts]
+    seg_tile, seg_row = seg_key // nbr, seg_key % nbr
+    seg_q, seg_bt = a_map[seg_tile], b_map[seg_tile]
+    # every B chunk a real block reads, after the skipped entries' own
+    span = int(max(ent_col.max(initial=0), skip_chunks[1].max(initial=0))) + 1
+    code = b_map[key // nbr] * span + ent_col
+    skip_code = skip_chunks[0] * span + skip_chunks[1]    # sorted, unique
+    at = np.searchsorted(skip_code, code)
+    found = at < skip_code.size
+    found[found] = skip_code[at[found]] == code[found]
+    new = np.unique(code[~found])
+    chunk_of = np.where(found, at, skip_code.size + np.searchsorted(new, code))
+    flag_chunks = np.concatenate([skip_chunks,
+                                  np.stack([new // span, new % span])], axis=1)
+    segs = np.stack([seg_tile, seg_row, seg_q, seg_bt, starts, ends])
+    # units: runs of rows of a segment, cut by entries
+    rows = seg_row[:, None] * bs + np.arange(bs)
+    nnz = lists.row_nnz[seg_q[:, None], rows]                 # [NS, bs]
+    work = nnz + 1
+    level = (np.cumsum(work, axis=1) - work) // UNIT_WORK
+    heavy = nnz > SPLIT_ROW
+    cut = np.ones_like(heavy)
+    cut[:, 1:] = (level[:, 1:] != level[:, :-1]) | heavy[:, 1:] \
+        | heavy[:, :-1] | (np.arange(1, bs) % UNIT_ROWS == 0)
+    seg_of, first = np.nonzero(cut)
+    flat = np.flatnonzero(cut.reshape(-1))
+    n_rows = np.diff(np.r_[flat, cut.size])
+    entries = np.add.reduceat(nnz.reshape(-1), flat) if flat.size \
+        else np.zeros(0, np.int64)
+    credit = np.where(first == 0, (ends - starts)[seg_of], 0)
+    units = np.stack([seg_tile[seg_of], seg_q[seg_of], seg_bt[seg_of],
+                      rows[seg_of, first], n_rows, credit])
+    units = units[:, np.lexsort((-entries, units[0]))]
+    return ElementTable(lists=lists, units=as_i32(units), segs=as_i32(segs),
+                        seg_chunks=as_i32(chunk_of),
+                        flag_chunks=as_i32(flag_chunks),
+                        n_elements=int(entries.sum()))
+
+
+def element_lists(pool: torch.Tensor, lists: "PoolLists", n_block_rows: int,
+                  *, key: tuple = ()) -> ElementLists:
+    """The nonzero elements of the real blocks of ``pool`` (``[P, S, bs,
+    bs]``, on its device) that ``lists`` (its :class:`PoolLists`) name,
+    row by row (:class:`ElementLists`).  Built on the pool's device over
+    :data:`BUILD_SLICE` elements at a time, so it never holds a mask of the
+    whole pool; nonzero means ``x != 0``, so a NaN counts."""
+    p, s, bs, bs2 = pool.shape
+    if bs != bs2 or lists.slots.shape[0] != p or lists.slots_per_tile != s:
+        raise ValueError(f"a pool [{p}, {lists.slots_per_tile}, bs, bs] for "
+                         f"these lists, got {tuple(pool.shape)}")
+    nbr, length = int(n_block_rows), lists.slots.shape[1]
+    r_tile = nbr * bs
+    # the list position of each pool slot its list names real
+    pos = np.full((p, s), -1, np.int64)
+    tq, te = np.nonzero(lists.real)
+    pos[tq, lists.slots[tq, te]] = te
+    dev = pool.device
+    pos, rows, cols = (torch.as_tensor(np.asarray(x, np.int64), device=dev)
+                       for x in (pos, lists.rows, lists.cols))
+    step = max(1, BUILD_SLICE // (bs * bs))
+    brow, aoff, row_nnz = [], [], []
+    for q in range(p):
+        keys, br, ao = [], [], []
+        for s0 in range(0, s, step):
+            nz = torch.nonzero(pool[q, s0:s0 + step] != 0)
+            slot, r, c = nz[:, 0] + s0, nz[:, 1], nz[:, 2]
+            e = pos[q, slot]
+            listed = e >= 0
+            slot, r, c, e = slot[listed], r[listed], c[listed], e[listed]
+            keys.append(((rows[q, e] * bs + r) * length + e) * bs + c)
+            br.append(cols[q, e] * bs + c)
+            ao.append((q * s + slot) * (bs * bs) + r * bs + c)
+        k_q = torch.cat(keys)
+        k_q, order = torch.sort(k_q, stable=True)
+        row_nnz.append(torch.bincount(k_q // (length * bs),
+                                      minlength=r_tile))
+        brow.append(torch.cat(br)[order].to(torch.int32))
+        aoff.append(torch.cat(ao)[order])
+    counts = torch.stack(row_nnz)
+    rowptr = torch.zeros(p * r_tile + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts.reshape(-1), 0, out=rowptr[1:])
+    brow = torch.cat(brow)
+    counts = counts.cpu().numpy()
+    max_brow = int(brow.max()) if brow.numel() else -1
+    return ElementLists(key=("elements",) + tuple(key), rowptr=rowptr,
+                        brow=brow, aoff=torch.cat(aoff), row_nnz=counts,
+                        pool_shape=(p, s, bs, bs), n_block_rows=nbr,
+                        max_brow=max_brow)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,15 +443,16 @@ class PoolLists:
                          cols=self.cols[tiles], real=self.real[tiles],
                          slots_per_tile=self.slots_per_tile)
 
-    def table(self, a_map, b_map, n_block_rows: int, *,
-              device=None) -> SpmmTable:
+    def table(self, a_map, b_map, n_block_rows: int, *, device=None,
+              elements: Optional[ElementLists] = None) -> SpmmTable:
         """The table of one launch in which output tile ``t`` multiplies
-        pool tile ``a_map[t]`` by B tile ``b_map[t]``."""
+        pool tile ``a_map[t]`` by B tile ``b_map[t]``; with ``elements``
+        (this pool's), the element path's split too."""
         a_map = np.asarray(a_map, dtype=np.int64)
         slots = a_map[:, None] * self.slots_per_tile + self.slots[a_map]
         return spmm_table(slots, self.rows[a_map], self.cols[a_map],
                           n_block_rows, real=self.real[a_map], b_map=b_map,
-                          device=device)
+                          device=device, elements=elements, a_map=a_map)
 
 
 def kernel_path(block_size: int, dtype: torch.dtype) -> str:
@@ -258,19 +483,31 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
     sum`` with the sum rounded to the output type first, the others stay
     bit-identical.  Then :func:`nan_pass` writes NaN where a skipped zero
     block meets a non-finite B chunk (the plain version's ``0 * inf``).
-    Raises on anything the kernel does not take.
-    ``.launches`` counts the calls that launched the kernel; while
+    A table with :attr:`SpmmTable.elements` runs the element path over the
+    real blocks' nonzeros, with the same sums (its ``blocks`` the pool the
+    element lists were built from); its NaN pass also covers the zero
+    slots inside real blocks.  Raises on anything the kernel does not take.
+    ``.launches`` counts the calls that launched the kernel, ``.paths``
+    those of each path (``{"elements": k, "blocks": m}``); while
     ``.block_counter`` is an int64 CUDA tensor of one element, each launch
-    adds to it the blocks its kernel multiplied, and to the host int
+    adds to it the blocks its kernel multiplied (the element path: the real
+    blocks whose nonzeros it multiplied), and to the host int
     ``.table_blocks`` its table's real blocks (what it should multiply).
+    While ``.element_counter`` is one, each element-path launch adds to it
+    the nonzeros it multiplied, and to ``.table_elements`` its table's.
     While ``.by_shape`` is a dict, each launch adds one at the key ``(m,
     k, n)`` of its product: an ``m x k`` A tile times a ``k x n`` B tile.
     """
     loader.refuse_autograd("bsr_spmm_cuda", blocks, dense, out)
     counter = bsr_spmm_cuda.block_counter
+    el = table.elements
+    el_counter = bsr_spmm_cuda.element_counter if el is not None else None
     tensors = (blocks, dense, table.ent, table.chunks, table.reduce,
                table.fill, table.skip, table.skip_chunks) + tuple(
-                   x for x in (out, counter) if x is not None)
+                   x for x in (out, counter, el_counter) if x is not None)
+    if el is not None:
+        tensors += (el.units, el.segs, el.seg_chunks, el.flag_chunks,
+                    el.lists.rowptr, el.lists.brow, el.lists.aoff)
     if not all(x.is_cuda for x in tensors):
         raise ValueError("bsr_spmm_cuda needs CUDA tensors (the table too); "
                          "CPU tensors go through kernels.ref")
@@ -295,12 +532,20 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
             f"{blocks.shape[0] * blocks.shape[1]}, block column "
             f"{table.max_col} of {k // bs}, B tile {table.max_b_tile} of "
             f"{dense.shape[0]})")
+    if el is not None and (tuple(blocks.shape) != el.lists.pool_shape
+                           or el.lists.n_block_rows != table.n_block_rows
+                           or el.lists.max_brow >= k):
+        raise ValueError(
+            f"the element lists were built for a pool "
+            f"{el.lists.pool_shape} of {el.lists.n_block_rows} block-rows "
+            f"a tile, reaching B row {el.lists.max_brow}; the launch has "
+            f"{tuple(blocks.shape)}, {table.n_block_rows} and K {k}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("bsr_spmm_cuda needs contiguous tensors")
-    if counter is not None and (counter.dtype != torch.int64
-                                or counter.numel() != 1):
-        raise ValueError(f"bsr_spmm_cuda's block counter must be one int64, "
-                         f"got {counter.dtype} {tuple(counter.shape)}")
+    for name, x in (("block", counter), ("element", el_counter)):
+        if x is not None and (x.dtype != torch.int64 or x.numel() != 1):
+            raise ValueError(f"bsr_spmm_cuda's {name} counter must be one "
+                             f"int64, got {x.dtype} {tuple(x.shape)}")
     out_dtype = torch.promote_types(blocks.dtype, dense.dtype)
     # mixed types: widen the narrower operand so the kernel sees one type
     blocks, dense = blocks.to(out_dtype), dense.to(out_dtype)
@@ -314,27 +559,38 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
                          f"{out.dtype} {tuple(out.shape)}")
     if out.numel() == 0:
         return out
-    partial = torch.empty((table.n_parts, bs, n), dtype=torch.float32,
-                          device=dense.device)
     lib = loader.load("bsr_spmm")
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     with torch.cuda.device(dense.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bsr_spmm_launch(
-            ptr(blocks), ptr(dense), ptr(table.ent), table.ent.shape[1],
-            ptr(table.chunks), table.chunks.shape[1], ptr(table.reduce),
-            table.reduce.shape[1], ptr(table.fill), table.fill.shape[1],
-            ptr(partial), ptr(out), ptr(counter), bs, nbr, k, n,
-            int(accumulate), _DTYPE_CODES[out_dtype],
-            ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if el is None:
+            partial = torch.empty((table.n_parts, bs, n), dtype=torch.float32,
+                                  device=dense.device)
+            err = lib.bsr_spmm_launch(
+                ptr(blocks), ptr(dense), ptr(table.ent), table.ent.shape[1],
+                ptr(table.chunks), table.chunks.shape[1], ptr(table.reduce),
+                table.reduce.shape[1], ptr(table.fill), table.fill.shape[1],
+                ptr(partial), ptr(out), ptr(counter), bs, nbr, k, n,
+                int(accumulate), _DTYPE_CODES[out_dtype], stream)
+        else:
+            err = lib.bsr_spmm_elem_launch(
+                ptr(blocks), ptr(dense), ptr(el.lists.rowptr),
+                ptr(el.lists.brow), ptr(el.lists.aoff), ptr(el.units),
+                el.units.shape[1], ptr(table.fill), table.fill.shape[1],
+                ptr(out), ptr(counter), ptr(el_counter), bs, nbr, k, n,
+                int(accumulate), _DTYPE_CODES[out_dtype], stream)
     if err != 0:
         raise RuntimeError(f"bsr_spmm kernel launch failed with CUDA error "
-                           f"{err} (T={t}, bs={bs}, nbr={nbr}, K={k}, n={n}, "
-                           f"chunks={table.chunks.shape[1]})")
+                           f"{err} ({table.path} path, T={t}, bs={bs}, "
+                           f"nbr={nbr}, K={k}, n={n}, chunks="
+                           f"{table.chunks.shape[1]})")
     nan_pass(dense, table, out)
     bsr_spmm_cuda.launches += 1
+    bsr_spmm_cuda.paths[table.path] += 1
     if counter is not None:
         bsr_spmm_cuda.table_blocks += table.real_blocks
+    if el_counter is not None:
+        bsr_spmm_cuda.table_elements += el.n_elements
     tally = bsr_spmm_cuda.by_shape
     if tally is not None:
         tally[nbr * bs, k, n] = tally.get((nbr * bs, k, n), 0) + 1
@@ -348,22 +604,42 @@ def nan_pass(dense: torch.Tensor, table: SpmmTable,
     its multiply; callable alone to time it): flag the columns of the
     skipped entries' B chunks that hold an inf or a NaN, then write NaN
     into the block-rows that skip them.  Two small kernels, no host
-    synchronisation; nothing when the table skips no entry."""
-    n_skip, n_chunks = table.skip.shape[1], table.skip_chunks.shape[1]
-    if not (n_skip and n_chunks and out.numel()):
+    synchronisation; nothing when the table skips no entry.
+
+    The element path's pass counts, per column, the non-finite rows of
+    every B chunk a real block reads too (one read of those chunks on
+    finite B), and where some are raised also writes NaN at ``C[r, j]``
+    wherever a zero slot ``(r, c)`` of a real block meets a non-finite
+    ``B[c, j]``: where the segment's real blocks meet more non-finite rows
+    at column j than row r's nonzeros do.  A row whose nonzeros meet every
+    such ``c`` keeps the multiply's own inf or NaN."""
+    el = table.elements
+    n_skip = table.skip.shape[1]
+    n_chunks = (table.skip_chunks if el is None
+                else el.flag_chunks).shape[1]
+    if not (n_chunks and out.numel()) or (el is None and not n_skip):
         return out
     bs = out.shape[1] // table.n_block_rows
     k, n = dense.shape[1], dense.shape[2]
-    flags = torch.empty((n_chunks, n), dtype=torch.uint8, device=out.device)
+    flags = torch.empty((n_chunks, n), dtype=torch.uint8 if el is None
+                        else torch.int32, device=out.device)
     anyf = torch.empty(1, dtype=torch.int32, device=out.device)
     lib = loader.load("bsr_spmm")
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bsr_spmm_nan_launch(
-            ptr(dense), ptr(table.skip_chunks), n_chunks, ptr(table.skip),
-            n_skip, ptr(flags), ptr(anyf), ptr(out), bs, table.n_block_rows,
-            k, n, _DTYPE_CODES[out.dtype], ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if el is None:
+            err = lib.bsr_spmm_nan_launch(
+                ptr(dense), ptr(table.skip_chunks), n_chunks, ptr(table.skip),
+                n_skip, ptr(flags), ptr(anyf), ptr(out), bs,
+                table.n_block_rows, k, n, _DTYPE_CODES[out.dtype], stream)
+        else:
+            err = lib.bsr_spmm_elem_nan_launch(
+                ptr(dense), ptr(el.flag_chunks), n_chunks, ptr(table.skip),
+                n_skip, ptr(el.segs), el.segs.shape[1], ptr(el.seg_chunks),
+                ptr(el.lists.rowptr), ptr(el.lists.brow), ptr(flags),
+                ptr(anyf), ptr(out), bs, table.n_block_rows, k, n,
+                _DTYPE_CODES[out.dtype], stream)
     if err != 0:
         raise RuntimeError(f"bsr_spmm non-finite pass failed with CUDA error "
                            f"{err} ({n_skip} skipped entries, {n_chunks} "
@@ -372,6 +648,9 @@ def nan_pass(dense: torch.Tensor, table: SpmmTable,
 
 
 bsr_spmm_cuda.launches = 0
+bsr_spmm_cuda.paths = {"elements": 0, "blocks": 0}
 bsr_spmm_cuda.block_counter = None
 bsr_spmm_cuda.table_blocks = 0
+bsr_spmm_cuda.element_counter = None
+bsr_spmm_cuda.table_elements = 0
 bsr_spmm_cuda.by_shape = None

@@ -80,6 +80,36 @@
 //   the reference's two roundings (c + the step's product in C's type).
 // * An optional device counter adds the real blocks each launch multiplied.
 //
+// The element path (spmm_elem_kernel), for handles whose real blocks are
+// nearly empty (R-MAT at bs 128: ~6 of 16,384 slots): the same sums over a
+// plan-time table of each row's nonzeros (kernels/bsr_spmm.py::ElementLists,
+// built once per handle; A's values read in the pool at call time), a
+// row-gather SpMM as cuSPARSE's CSR @ dense:
+//
+// * What bounds it is bytes: each nonzero reads one row of B (n values) and
+//   does 2n flops, so the rows of B gathered (nnz * n * 4 B at float32, 0.5
+//   GB a launch at R-MAT scale 16, n 256) plus C written once set its time.
+//   A tile's B (33.5 MB at that shape) fits the 50 MB L2, and units run by
+//   tile, so most gathers hit L2.
+// * A unit is a run of rows of one block-row segment, cut by entries (about
+//   UNIT_WORK, kernels/bsr_spmm.py) so R-MAT's skewed rows balance by their
+//   nonzeros, by an n-panel of G lanes x 16 bytes.  A lane group of G lanes
+//   owns a whole row: it loads G entries' B rows and A values at once
+//   (coalesced), walks them by shuffle with E_UNROLL 16-byte B loads in
+//   flight, and sums in float32 FMA (IEEE, never TF32; bf16 widened) in the
+//   block path's order.  A row longer than SPLIT_ROW is a unit alone, its
+//   entries split over the thread block's groups, whose shares group 0 adds
+//   in order: no atomics, a fixed order.
+// * Each row of a visited block-row is written once: the sum, or C + the sum
+//   rounded to the output type; block-rows no real block visits are left to
+//   the zero fill (or left as they are under accumulate).
+// * The NaN pass covers the zero slots it skips: the flag kernel counts, per
+//   column, the non-finite rows of every B chunk a real block reads, and
+//   spmm_zero_nan_kernel writes NaN at C[r, j] where a segment's real blocks
+//   meet more non-finite rows at column j than row r's nonzeros do (a zero
+//   slot then meets one: the block path's 0 * inf).  On finite B the cost is
+//   the counting pass, one read of those chunks.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared, loaded with
 // ctypes (repro_torch/kernels/loader.py).  Plain C interface; returns the
 // cudaError_t of the launches.
@@ -451,24 +481,25 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// flags[u * n + col] = 1 where the bs rows of B chunk u (B tile, block
-// column: chunks [2, n_chunks]) hold an inf or a NaN in column col, else 0;
-// any = 1 if some flag is set (the caller zeroes it first).  blockIdx.x
-// walks the columns, blockIdx.y the chunks.
-template <typename T>
+// flags[u * n + col]: how many of the bs rows of B chunk u (B tile, block
+// column: chunks [2, n_chunks]) hold an inf or a NaN in column col (F int),
+// or whether any does (F unsigned char); any = 1 if some row does (the
+// caller zeroes it first).  blockIdx.x walks the columns, blockIdx.y the
+// chunks.
+template <typename T, typename F>
 __global__ void __launch_bounds__(256)
     spmm_flag_kernel(const T* __restrict__ b, const int* __restrict__ chunks,
-                     long long n_chunks, unsigned char* __restrict__ flags,
+                     long long n_chunks, F* __restrict__ flags,
                      int* __restrict__ any, int bs, int K, int n) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= n) return;
   for (long long u = blockIdx.y; u < n_chunks; u += gridDim.y) {
     const long long bt = chunks[u], c = chunks[n_chunks + u];
     const T* src = b + (bt * K + c * bs) * n + col;
-    bool bad = false;
+    int bad = 0;
     for (int r = 0; r < bs; ++r)
-      bad |= !isfinite(to_f32(src[static_cast<long long>(r) * n]));
-    flags[u * n + col] = bad ? 1 : 0;
+      bad += !isfinite(to_f32(src[static_cast<long long>(r) * n]));
+    flags[u * n + col] = static_cast<F>(sizeof(F) == 1 ? bad > 0 : bad);
     if (bad) *any = 1;
   }
 }
@@ -476,10 +507,10 @@ __global__ void __launch_bounds__(256)
 // NaN into every row of each skipped entry's block-row (skip [3, n_skip]:
 // tile, block-row, chunk) at the columns its chunk flags; nothing at all
 // unless the any flag is set.
-template <typename T>
+template <typename T, typename F>
 __global__ void __launch_bounds__(256)
     spmm_nan_kernel(const int* __restrict__ skip, long long n_skip,
-                    const unsigned char* __restrict__ flags,
+                    const F* __restrict__ flags,
                     const int* __restrict__ any, T* __restrict__ out, int bs,
                     int nbr, int n) {
   if (*any == 0) return;
@@ -487,8 +518,7 @@ __global__ void __launch_bounds__(256)
   const T nan = from_f32<T>(__int_as_float(0x7fc00000));
   for (long long x = blockIdx.x; x < n_skip; x += gridDim.x) {
     const int t = skip[x], brow = skip[n_skip + x];
-    const unsigned char* f =
-        flags + static_cast<long long>(skip[2 * n_skip + x]) * n;
+    const F* f = flags + static_cast<long long>(skip[2 * n_skip + x]) * n;
     T* o = out + (static_cast<long long>(t) * nbr + brow) * elems;
     for (long long e = threadIdx.x; e < elems; e += blockDim.x)
       if (f[e % n]) o[e] = nan;
@@ -514,6 +544,261 @@ __global__ void __launch_bounds__(256)
   } else {
     for (long long e = threadIdx.x; e < elems; e += blockDim.x)
       o[e] = from_f32<T>(0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the element path: a row-gather multiply over the real blocks' nonzeros
+// ---------------------------------------------------------------------------
+constexpr int E_THREADS = 256;   // threads of a unit's thread block
+constexpr int E_UNROLL = 4;      // B rows in flight a lane group
+
+struct EParams {
+  const void* a;                 // A pool, read element by element
+  const void* b;                 // B pool [*, K, n]
+  const long long* rowptr;       // [P * R + 1]: each pool tile row's entries
+  const int* brow;               // [E]: B row inside the B tile (col*bs + c)
+  const long long* aoff;         // [E]: A's value, an element of the pool
+  const int* units;              // [6, n_units]: tile, pool tile, B tile,
+                                 // first row, rows, blocks credited
+  long long n_units;
+  void* out;                     // [T, R, n] in the output type
+  unsigned long long* count_blocks;
+  unsigned long long* count_elems;
+  int R, K, n, accumulate, vec;  // R = nbr * bs rows a tile
+};
+
+// `VEC` B values of row `br` from column `col` on, widened to float32: one
+// 16-byte load with `vec`, else one element a load, zero past n.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_b(const T* B, int br, int col, int n,
+                                       bool vec, float* v) {
+  const T* src = B + static_cast<long long>(br) * n + col;
+  if (vec) {
+    load_n<VEC>(src, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = col + i < n ? to_f32(src[i]) : 0.f;
+  }
+}
+
+// Row `o` (the output row's first element) from column `col` on: the sums,
+// or C + the sums rounded to T with `add`.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_c(T* o, int col, int n, bool vec,
+                                        bool add, const float* v) {
+  if (col >= n) return;
+  if (vec) {
+    Run<T, VEC>* d = reinterpret_cast<Run<T, VEC>*>(o + col);
+    Run<T, VEC> r;
+    if (add) r = *d;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) r.x[i] = combine<T>(r.x[i], v[i], add);
+    *d = r;
+  } else {
+    for (int i = 0; i < VEC && col + i < n; ++i)
+      o[col + i] = combine<T>(o[col + i], v[i], add);
+  }
+}
+
+// acc += the entries [lo, hi) of one row, in order: a lane group of G lanes
+// loads G entries' B rows and A values at once (coalesced), then each lane
+// walks them by shuffle, with E_UNROLL B rows in flight, and adds A x B into
+// its VEC columns by float32 FMA.  Every lane of the warp calls this (its
+// groups step together; a group past its end multiplies nothing).
+template <typename T, int G>
+__device__ __forceinline__ void gather_row(const EParams& p, const T* A,
+                                           const T* B, long long lo,
+                                           long long hi, int lane, int col,
+                                           float* acc) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  constexpr int U = E_UNROLL < G ? E_UNROLL : G;
+  constexpr unsigned FULL = 0xffffffffu;
+  const bool in = col < p.n, vec = p.vec != 0;
+  const int batches = __reduce_max_sync(
+      FULL, static_cast<int>((hi - lo + G - 1) / G));
+  for (int bi = 0; bi < batches; ++bi) {
+    const long long first = lo + static_cast<long long>(bi) * G;
+    const long long e = first + lane;
+    int br = 0;
+    float av = 0.f;
+    if (e < hi) {
+      br = p.brow[e];
+      av = to_f32(A[p.aoff[e]]);
+    }
+    const int cnt = static_cast<int>(hi - first < G ? hi - first : G);
+    const int most = __reduce_max_sync(FULL, cnt > 0 ? cnt : 0);
+#pragma unroll
+    for (int j0 = 0; j0 < G; j0 += U) {
+      if (j0 >= most) break;
+      int bj[U];
+      float aj[U], v[U][VEC];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        bj[k] = __shfl_sync(FULL, br, j0 + k, G);
+        aj[k] = __shfl_sync(FULL, av, j0 + k, G);
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        if (in && j0 + k < cnt) {
+          load_b<T, VEC>(B, bj[k], col, p.n, vec, v[k]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) v[k][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+        if (j0 + k < cnt)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[i] = fmaf(aj[k], v[k][i], acc[i]);
+    }
+  }
+}
+
+// One unit (a run of rows of one block-row segment) by one n-panel of G*VEC
+// columns.  The block's E_THREADS / G lane groups take the unit's rows in
+// turn, a row each; a unit of one row (a long one) is split: each group sums
+// a contiguous share of its entries, and group 0 adds the shares in order.
+// The gather is latency-bound: four thread blocks an SM (at most 64
+// registers a thread) with 4 B rows in flight a group beat two with 8
+// (PERF.md, section 6).
+template <typename T, int G>
+__global__ void __launch_bounds__(E_THREADS, 4)
+    spmm_elem_kernel(const EParams p) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  constexpr int NG = E_THREADS / G;
+  constexpr int PW = G * VEC;
+  __shared__ float s_part[NG][PW];
+  const long long nu = p.n_units, u = blockIdx.x;
+  const int tile = p.units[u], q = p.units[nu + u], bt = p.units[2 * nu + u];
+  const int row0 = p.units[3 * nu + u], nrows = p.units[4 * nu + u];
+  const int group = threadIdx.x / G, lane = threadIdx.x % G;
+  const int col = blockIdx.y * PW + lane * VEC;
+  const T* A = static_cast<const T*>(p.a);
+  const T* B = static_cast<const T*>(p.b) +
+               static_cast<long long>(bt) * p.K * p.n;
+  const long long* rp = p.rowptr + static_cast<long long>(q) * p.R + row0;
+  T* C = static_cast<T*>(p.out) +
+         (static_cast<long long>(tile) * p.R + row0) * p.n;
+  const bool vec = p.vec != 0, add = p.accumulate != 0;
+  if (threadIdx.x == 0 && blockIdx.y == 0) {
+    if (p.count_blocks != nullptr && p.units[5 * nu + u] > 0)
+      atomicAdd(p.count_blocks,
+                static_cast<unsigned long long>(p.units[5 * nu + u]));
+    if (p.count_elems != nullptr)
+      atomicAdd(p.count_elems,
+                static_cast<unsigned long long>(rp[nrows] - rp[0]));
+  }
+  float acc[VEC];
+  if (nrows == 1) {
+    const long long lo = rp[0], len = rp[1] - lo;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+    gather_row<T, G>(p, A, B, lo + len * group / NG,
+                     lo + len * (group + 1) / NG, lane, col, acc);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) s_part[group][lane * VEC + i] = acc[i];
+    __syncthreads();
+    if (group == 0) {
+      for (int g = 1; g < NG; ++g)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] += s_part[g][lane * VEC + i];
+      store_c<T, VEC>(C, col, p.n, vec, add, acc);
+    }
+    return;
+  }
+  // the warp's groups move together, so its shuffles see every lane
+  const int warp_group = (threadIdx.x / 32) * (32 / G);
+  for (int base = 0; base + warp_group < nrows; base += NG) {
+    const int i = base + group;
+    const bool live = i < nrows;
+    const long long lo = live ? rp[i] : 0, hi = live ? rp[i + 1] : 0;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+    gather_row<T, G>(p, A, B, lo, hi, lane, col, acc);
+    if (live)
+      store_c<T, VEC>(C + static_cast<long long>(i) * p.n, col, p.n, vec,
+                      add, acc);
+  }
+}
+
+template <typename T, int G>
+cudaError_t launch_elem(const EParams& p, cudaStream_t st) {
+  constexpr int PW = G * (16 / static_cast<int>(sizeof(T)));
+  const int panels = (p.n + PW - 1) / PW;
+  if (p.n_units > INT_MAX || panels > 65535)
+    return cudaErrorInvalidConfiguration;
+  spmm_elem_kernel<T, G>
+      <<<dim3(static_cast<unsigned>(p.n_units), panels), E_THREADS, 0, st>>>(
+          p);
+  return cudaGetLastError();
+}
+
+// Lanes a row: the fewest (at least 4) whose 16-byte loads span n, at most
+// a warp.
+template <typename T>
+cudaError_t elem_dispatch(const EParams& p, cudaStream_t st) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  if (p.n > 16 * VEC) return launch_elem<T, 32>(p, st);
+  if (p.n > 8 * VEC) return launch_elem<T, 16>(p, st);
+  if (p.n > 4 * VEC) return launch_elem<T, 8>(p, st);
+  return launch_elem<T, 4>(p, st);
+}
+
+template <typename T>
+cudaError_t run_elem(const EParams& p, const int* fill, long long n_fill,
+                     int bs, int nbr, cudaStream_t st) {
+  cudaError_t err;
+  if (!p.accumulate && n_fill > 0) {
+    spmm_fill_kernel<T><<<static_cast<unsigned>(n_fill), 256, 0, st>>>(
+        fill, n_fill, static_cast<T*>(p.out), bs, nbr, p.n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (p.n_units == 0) return cudaSuccess;
+  return elem_dispatch<T>(p, st);
+}
+
+// The element path's zero slots on non-finite B.  segs [6, n_segs]: tile,
+// block-row, pool tile, B tile, first and end into seg_chunks, which holds
+// the chunk (row of counts) of each real block of the segment; counts
+// [*, n]: the non-finite rows of each B chunk at each column.  Summed over
+// a segment's real blocks they are the slots that meet a non-finite B at
+// column j; those that row r's nonzeros meet are among them.  Where the
+// segment has more, a zero slot (r, c) of a real block meets a non-finite
+// B[c, j], and C[r, j] becomes NaN (the block path's 0 * inf).  Nothing
+// unless the any flag is set.  blockIdx.x walks the segments, blockIdx.y
+// the columns.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    spmm_zero_nan_kernel(const T* __restrict__ b, const int* __restrict__ segs,
+                         long long n_segs, const int* __restrict__ seg_chunks,
+                         const int* __restrict__ counts,
+                         const int* __restrict__ any,
+                         const long long* __restrict__ rowptr,
+                         const int* __restrict__ brow, T* __restrict__ out,
+                         int bs, int R, int K, int n) {
+  if (*any == 0) return;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const T nan = from_f32<T>(__int_as_float(0x7fc00000));
+  for (long long s = blockIdx.x; s < n_segs; s += gridDim.x) {
+    const int tile = segs[s], br = segs[n_segs + s], q = segs[2 * n_segs + s];
+    const int bt = segs[3 * n_segs + s];
+    long long bad = 0;
+    for (int e = segs[4 * n_segs + s]; e < segs[5 * n_segs + s]; ++e)
+      bad += counts[static_cast<long long>(seg_chunks[e]) * n + j];
+    if (bad == 0) continue;
+    const T* B = b + static_cast<long long>(bt) * K * n + j;
+    const long long row0 = static_cast<long long>(br) * bs;
+    const long long* rp = rowptr + static_cast<long long>(q) * R + row0;
+    T* o = out + (static_cast<long long>(tile) * R + row0) * n + j;
+    for (int r = 0; r < bs; ++r) {
+      long long met = 0;
+      for (long long e = rp[r]; e < rp[r + 1]; ++e)
+        met += !isfinite(to_f32(B[static_cast<long long>(brow[e]) * n]));
+      if (bad > met) o[static_cast<long long>(r) * n] = nan;
+    }
   }
 }
 
@@ -579,21 +864,38 @@ cudaError_t run(Params& p, const int* reduce, long long n_reduce,
   return err;
 }
 
-template <typename T>
+template <typename T, typename F>
 cudaError_t nan_pass(const T* b, const int* chunks, long long n_chunks,
-                     const int* skip, long long n_skip, unsigned char* flags,
-                     int* any, T* out, int bs, int nbr, int K, int n,
-                     cudaStream_t st) {
+                     const int* skip, long long n_skip, F* flags, int* any,
+                     T* out, int bs, int nbr, int K, int n, cudaStream_t st) {
   cudaError_t err = cudaMemsetAsync(any, 0, sizeof(int), st);
   if (err != cudaSuccess) return err;
   const unsigned gy =
       static_cast<unsigned>(n_chunks < 65535 ? n_chunks : 65535);
-  spmm_flag_kernel<T><<<dim3((n + 255) / 256, gy), 256, 0, st>>>(
+  spmm_flag_kernel<T, F><<<dim3((n + 255) / 256, gy), 256, 0, st>>>(
       b, chunks, n_chunks, flags, any, bs, K, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (n_skip == 0) return cudaSuccess;
   const unsigned gx = static_cast<unsigned>(n_skip < 4096 ? n_skip : 4096);
-  spmm_nan_kernel<T><<<gx, 256, 0, st>>>(skip, n_skip, flags, any, out, bs,
-                                         nbr, n);
+  spmm_nan_kernel<T, F><<<gx, 256, 0, st>>>(skip, n_skip, flags, any, out,
+                                            bs, nbr, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t elem_nan_pass(const T* b, const int* flag_chunks, long long n_flag,
+                          const int* skip, long long n_skip, const int* segs,
+                          long long n_segs, const int* seg_chunks,
+                          const long long* rowptr, const int* brow,
+                          int* counts, int* any, T* out, int bs, int nbr,
+                          int K, int n, cudaStream_t st) {
+  cudaError_t err = nan_pass<T, int>(b, flag_chunks, n_flag, skip, n_skip,
+                                     counts, any, out, bs, nbr, K, n, st);
+  if (err != cudaSuccess || n_segs == 0) return err;
+  const unsigned gx = static_cast<unsigned>(n_segs < 4096 ? n_segs : 4096);
+  spmm_zero_nan_kernel<T><<<dim3(gx, (n + 255) / 256), 256, 0, st>>>(
+      b, segs, n_segs, seg_chunks, counts, any, rowptr, brow, out, bs,
+      nbr * bs, K, n);
   return cudaGetLastError();
 }
 
@@ -682,5 +984,90 @@ extern "C" int bsr_spmm_nan_launch(const void* b, const void* chunks,
           : nan_pass<bf16>(static_cast<const bf16*>(b), ch, n_chunks, sk,
                            n_skip, fl, an, static_cast<bf16*>(out), bs, nbr,
                            K, n, st);
+  return static_cast<int>(err);
+}
+
+// The element path (a handle's nonzeros, kernels/bsr_spmm.py::ElementLists):
+// a the A pool, read at element offsets; b the B pool [*, K, n]; rowptr
+// int64 [P * nbr * bs + 1] and brow int32 / aoff int64 [E]: each pool tile
+// row's nonzeros, in the block path's order (real block, then column);
+// units int32 [6, n_units] (tile, pool tile, B tile, first row, rows,
+// blocks credited to count_blocks); fill int32 [2, n_fill] as
+// bsr_spmm_launch's; out [T, nbr * bs, n]; count_blocks and count_elems
+// uint64 [1] or null.  The units cover every row of every block-row that a
+// real block visits, each once.
+extern "C" int bsr_spmm_elem_launch(const void* a, const void* b,
+                                    const void* rowptr, const void* brow,
+                                    const void* aoff, const void* units,
+                                    long long n_units, const void* fill,
+                                    long long n_fill, void* out,
+                                    void* count_blocks, void* count_elems,
+                                    int bs, int nbr, int K, int n,
+                                    int accumulate, int dtype, void* stream) {
+  if (bs <= 0 || nbr <= 0 || K <= 0 || n <= 0 || K % bs != 0 ||
+      n_units < 0 || n_fill < 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_fill > INT_MAX || static_cast<long long>(nbr) * bs > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  EParams p;
+  p.a = a;
+  p.b = b;
+  p.rowptr = static_cast<const long long*>(rowptr);
+  p.brow = static_cast<const int*>(brow);
+  p.aoff = static_cast<const long long*>(aoff);
+  p.units = static_cast<const int*>(units);
+  p.n_units = n_units;
+  p.out = out;
+  p.count_blocks = static_cast<unsigned long long*>(count_blocks);
+  p.count_elems = static_cast<unsigned long long*>(count_elems);
+  p.R = nbr * bs;
+  p.K = K;
+  p.n = n;
+  p.accumulate = accumulate;
+  const int elem = dtype == 0 ? 4 : 2;
+  p.vec = (n * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* fil = static_cast<const int*>(fill);
+  const cudaError_t err =
+      dtype == 0 ? run_elem<float>(p, fil, n_fill, bs, nbr, st)
+                 : run_elem<bf16>(p, fil, n_fill, bs, nbr, st);
+  return static_cast<int>(err);
+}
+
+// The element path's non-finite pass, after bsr_spmm_elem_launch on the same
+// stream: flag_chunks int32 [2, n_flag] (B tile, block column of every B
+// chunk that a real block reads or a skipped entry names, the skipped ones
+// first, as skip indexes them); skip int32 [3, n_skip] as
+// bsr_spmm_nan_launch's; segs int32 [6, n_segs] and seg_chunks int32 (see
+// spmm_zero_nan_kernel); rowptr and brow as bsr_spmm_elem_launch's; counts
+// int32 [n_flag, n] and any int32 [1] (workspace).
+extern "C" int bsr_spmm_elem_nan_launch(
+    const void* b, const void* flag_chunks, long long n_flag, const void* skip,
+    long long n_skip, const void* segs, long long n_segs,
+    const void* seg_chunks, const void* rowptr, const void* brow, void* counts,
+    void* any, void* out, int bs, int nbr, int K, int n, int dtype,
+    void* stream) {
+  if (bs <= 0 || nbr <= 0 || K <= 0 || n <= 0 || K % bs != 0 ||
+      n_flag < 0 || n_skip < 0 || n_segs < 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_flag == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* fc = static_cast<const int*>(flag_chunks);
+  const int* sk = static_cast<const int*>(skip);
+  const int* sg = static_cast<const int*>(segs);
+  const int* sc = static_cast<const int*>(seg_chunks);
+  const long long* rp = static_cast<const long long*>(rowptr);
+  const int* br = static_cast<const int*>(brow);
+  int* cn = static_cast<int*>(counts);
+  int* an = static_cast<int*>(any);
+  const cudaError_t err =
+      dtype == 0
+          ? elem_nan_pass<float>(static_cast<const float*>(b), fc, n_flag, sk,
+                                 n_skip, sg, n_segs, sc, rp, br, cn, an,
+                                 static_cast<float*>(out), bs, nbr, K, n, st)
+          : elem_nan_pass<bf16>(static_cast<const bf16*>(b), fc, n_flag, sk,
+                                n_skip, sg, n_segs, sc, rp, br, cn, an,
+                                static_cast<bf16*>(out), bs, nbr, K, n, st);
   return static_cast<int>(err);
 }

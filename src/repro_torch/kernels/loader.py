@@ -42,6 +42,14 @@ _SIGNATURES = {
         # K, n, dtype, stream
         "bsr_spmm_nan_launch": ([_P, _P, _L, _P, _L, _P, _P, _P] + [_I] * 5
                                 + [_P], _I),
+        # a, b, rowptr, brow, aoff, units, n_units, fill, n_fill, out,
+        # count_blocks, count_elems, bs, nbr, K, n, accumulate, dtype, stream
+        "bsr_spmm_elem_launch": ([_P] * 6 + [_L, _P, _L, _P, _P, _P]
+                                 + [_I] * 6 + [_P], _I),
+        # b, flag_chunks, n_flag, skip, n_skip, segs, n_segs, seg_chunks,
+        # rowptr, brow, counts, any, out, bs, nbr, K, n, dtype, stream
+        "bsr_spmm_elem_nan_launch": ([_P, _P, _L, _P, _L, _P, _L] + [_P] * 6
+                                     + [_I] * 5 + [_P], _I),
     },
     "bsr_pair": {
         # a, b, pa, pb, pidx, chunks, n_chunks, reduce, n_reduce, fill,

@@ -113,8 +113,10 @@ def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
     into it in place and ``out`` is returned (the JAX bodies' ``c + step``,
     the step rounded to C's type first).  ``table`` (kernel only) is the
     :func:`~repro_torch.kernels.bsr_spmm.spmm_table` of these lists at
-    these maps; plans pass theirs, over real blocks only.  Built here when
-    not given, every listed block counts as real.
+    these maps; plans pass theirs, over real blocks only, with the element
+    path's split where A's real blocks are nearly empty.  Built here when
+    not given, every listed block counts as real, and the launch takes the
+    block path: a raw call has no handle to keep element lists on.
 
     Non-finite B: both paths give the JAX package's result.  Every listed
     block takes part, the zero ones (capacity padding, coverage) too, so
@@ -125,7 +127,8 @@ def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
 
     With tracing on, each call is a ``kernel.bsr_spmm`` span
     (:func:`repro_torch.obs.launch`), on the card with the device time of
-    the kernel and its NaN pass.
+    the kernel and its NaN pass and the table's path (``args.path``,
+    ``"elements"`` or ``"blocks"``).
     """
     refuse_autograd("bsr_spmm", blocks, dense, out)
     impl = _resolve(impl, dense)
@@ -159,7 +162,8 @@ def bsr_spmm_raw(blocks, rows, cols, dense, *, n_block_rows: int,
             table = spmm_table(a_idx[:, None] * s + slots, rows, cols,
                                n_block_rows, b_map=b_map,
                                device=blocks.device)
-        with _obs.launch("kernel.bsr_spmm", device=dense):
+        with _obs.launch("kernel.bsr_spmm", device=dense) as span:
+            span.note(path=table.path)
             res = bsr_spmm_cuda(blocks.contiguous(), dense.contiguous(),
                                 table, out=out)
     return res[0] if single else res
@@ -387,7 +391,8 @@ def steal_pair_accumulate(a_pool, b_rows, pair_a, pair_b, pair_slot, *,
     :func:`~repro_torch.kernels.bsr_spmm.spmm_table` of these lists with
     the dummy and coverage pairs left out (their non-finite rule is
     :func:`bsr_spmm_raw`'s); built here without a mask, every pair counts
-    as real.
+    as real.  Pair lists take B1's block path (no handle keeps element
+    lists for them).
     """
     refuse_autograd("bsr_spmm (steal3d pair lists)", a_pool, b_rows, out)
     impl = _resolve(impl, b_rows)
@@ -405,7 +410,8 @@ def steal_pair_accumulate(a_pool, b_rows, pair_a, pair_b, pair_slot, *,
             table = spmm_table(pair_a, pair_slot, pair_b, n_slots,
                                b_map=np.zeros(pair_a.shape[0], np.int64),
                                device=b_rows.device)
-        with _obs.launch("kernel.bsr_spmm", device=b_rows):
+        with _obs.launch("kernel.bsr_spmm", device=b_rows) as span:
+            span.note(path=table.path)
             res = bsr_spmm_cuda(
                 a_pool.reshape(1, *a_pool.shape).contiguous(),
                 b_rows.reshape(1, *b_rows.shape).contiguous(), table,

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.api import DistBSR, DistDense, matmul, plan_matmul
+from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR, DistDense,
+                                  matmul, plan_matmul)
 from repro_torch.core.bsr import BSR, TiledBSR, random_sparse
 from repro_torch.core.grid import ProcessGrid
 from repro_torch.core.symbolic import symbolic_spgemm
@@ -24,7 +25,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsr_pair import (bsr_pair_accumulate_cuda,
                                           bsr_pair_matmul_cuda, kernel_path,
                                           pair_table)
-from repro_torch.kernels.bsr_spmm import CHUNK, bsr_spmm_cuda, spmm_table
+from repro_torch.kernels.bsr_spmm import (CHUNK, SPLIT_ROW, bsr_spmm_cuda,
+                                          pick_path, spmm_table)
 from repro_torch.kernels.bsr_spmm import kernel_path as kernel_path_b1
 
 TOL = 1e-5
@@ -263,6 +265,194 @@ def test_bf16_main_path_on_the_card(card):
     b16 = torch.from_numpy(b).bfloat16().float().numpy()
     scale = torch.from_numpy(np.abs(a_d) @ np.abs(b16))
     assert_close(got, want, scale, tol=TOL + (2 * a_h.g - 1) * BF16_STEP)
+
+
+# ---------------------------------------------------------------------------
+# B1's element path: handles whose real blocks are nearly empty
+# ---------------------------------------------------------------------------
+def _low_fill(bs: int, g: int, seed: int) -> np.ndarray:
+    """A matrix whose real blocks hold a few nonzeros each (the R-MAT
+    cells' kind of fill), with a hub row longer than SPLIT_ROW in each tile
+    it crosses and an empty block-row."""
+    m = g * bs * 6
+    a = random_sparse(m, m, 0.0004, seed=seed)
+    rng = np.random.default_rng(seed)
+    hub = rng.choice(m, size=(SPLIT_ROW + 8) * g, replace=False)
+    a[3, hub] = rng.standard_normal(hub.size)
+    a[bs:2 * bs] = 0
+    return a
+
+
+def _element_case(bs: int, n: int, dtype, device, seed: int = 0):
+    """A 2 x 2 handle of :func:`_low_fill` and B, and the element table of
+    its plan's second ring step, with the placed pools and lists that step
+    reads."""
+    a = _low_fill(bs, 2, seed)
+    a_h = DistBSR.from_dense(a, g=2, block_size=bs, dtype=dtype,
+                             device=device)
+    assert pick_path(a_h.tiled.fill()) == "elements"
+    b = np.random.default_rng(seed).standard_normal(
+        (a.shape[1], n)).astype(np.float32)
+    b_h = DistDense.for_rhs(torch.from_numpy(b).to(dtype), a_h)
+    plan = plan_matmul(a_h, b_h)
+    ex = plan.executor
+    a_map = ex.shift_map(ex.identity_map(), "col")
+    b_map = ex.shift_map(ex.identity_map(), "row")
+    table = plan.spmm_table(a_h, a_map, b_map)
+    placed = a_h.placed(SKEW_ROWS)
+    args = (ex.batch(placed["blocks"]), ex.batch(placed["rows"]),
+            ex.batch(placed["cols"]), ex.batch(b_h.placed(SKEW_COLS)["dense"]))
+    return table, args, a_map, b_map, a_h.tile_shape[0] // bs
+
+
+def _gathered(args, a_map, b_map):
+    ai = torch.as_tensor(a_map, device=args[0].device)
+    bi = torch.as_tensor(b_map, device=args[0].device)
+    return args[0][ai], args[1][ai], args[2][ai], args[3][bi]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [64, 128])
+def test_element_path_matches_plain_version(card, bs, dtype, n):
+    """The element path multiplies the real blocks' nonzeros (counted on
+    the card: the real blocks and the table's nonzeros), writes a fresh C
+    equal to the plain version with zeros on block-rows no block visits,
+    and adds into C in place, those block-rows bit-identical; n 70 takes
+    the one-element loads."""
+    table, args, a_map, b_map, nbr = _element_case(bs, n, dtype, card)
+    assert table.path == "elements"
+    launches = dict(bsr_spmm_cuda.paths)
+    counter = torch.zeros(1, dtype=torch.int64, device=card)
+    bsr_spmm_cuda.element_counter = counter
+    try:
+        got, multiplied = _counted(lambda: ops.bsr_spmm_raw(
+            *args, n_block_rows=nbr, a_map=a_map, b_map=b_map, table=table))
+    finally:
+        bsr_spmm_cuda.element_counter = None
+    assert bsr_spmm_cuda.paths["elements"] == launches["elements"] + 1
+    assert bsr_spmm_cuda.paths["blocks"] == launches["blocks"]
+    assert multiplied == table.real_blocks
+    assert int(counter.item()) == table.elements.n_elements > 0
+    plain = _gathered(args, a_map, b_map)
+    want = ref.bsr_spmm_raw_ref(*plain, nbr)
+    scale = abs_product(*plain, nbr)
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    assert_close(got, want, scale, step)
+    assert table.fill.shape[1] > 0
+    for tile, row in table.fill.T.tolist():
+        assert not got[tile, row * bs:(row + 1) * bs].any()
+    carry = torch.randn(got.shape, device=card).to(dtype)
+    out = carry.clone()
+    again = ops.bsr_spmm_raw(*args, n_block_rows=nbr, a_map=a_map,
+                             b_map=b_map, table=table, out=out)
+    assert again is out
+    torch.cuda.synchronize()
+    assert_close(out, (carry.float() + want.float()).to(dtype), 2 * scale,
+                 2 * step)
+    for tile, row in table.fill.T.tolist():
+        assert torch.equal(out[tile, row * bs:(row + 1) * bs],
+                           carry[tile, row * bs:(row + 1) * bs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_element_path_nan_mask_on_nonfinite_b(card, dtype):
+    """On B with an inf, a -inf and a NaN, the element path gives the plain
+    version's NaN mask exactly, fresh and into C: NaN where a zero slot of
+    a real block (or a zero block) meets a non-finite B row, and +-inf
+    where a row's nonzero meets the only non-finite row at a column."""
+    bs, n = 64, 64
+    table, args, a_map, b_map, nbr = _element_case(bs, n, dtype, card, 1)
+    blocks, rows, cols, dense = args
+    dense[0, 5, 0] = float("nan")
+    dense[-1, 9, 4] = float("-inf")
+    lists = table.elements.lists
+    b0 = int(b_map[0])
+    found = False
+    for e in range(lists.n_elements):
+        row = int(lists.brow[e])
+        if row < bs:         # chunk 0 meets every coverage zero block
+            continue
+        dense[b0, row, 2] = float("inf")
+        want = ref.bsr_spmm_raw_ref(*_gathered(args, a_map, b_map), nbr)
+        if bool(torch.isinf(want).any()):
+            found = True
+            break
+        dense[b0, row, 2] = 1.0
+    assert found
+    got = ops.bsr_spmm_raw(*args, n_block_rows=nbr, a_map=a_map,
+                           b_map=b_map, table=table)
+    torch.cuda.synchronize()
+    nan, inf = torch.isnan(want), torch.isinf(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[inf], want[inf])
+    assert bool(nan.any()) and not bool(nan.all())
+    keep = ~nan & ~inf
+    scale = abs_product(*[x.nan_to_num(0, 0, 0) if x.is_floating_point()
+                          else x for x in _gathered(args, a_map, b_map)],
+                        nbr)
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    assert_close(got[keep], want[keep], scale[keep], step)
+    out = torch.ones_like(got)
+    ops.bsr_spmm_raw(*args, n_block_rows=nbr, a_map=a_map, b_map=b_map,
+                     table=table, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(out), nan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,g,wire", [
+    ("ring_c", 1, "auto"), ("ring_c", 2, "auto"), ("ring_c", 3, "auto"),
+    ("ring_c", 2, "packed"), ("ring_c_bidir", 3, "auto"),
+    ("ring_a", 2, "auto"), ("summa_bcast", 2, "auto"),
+    ("summa_ag", 2, "auto")])
+def test_element_path_matmul_on_the_card_matches_the_cpu(card, algorithm, g,
+                                                         wire):
+    """``matmul`` of a low-fill handle runs every B1 launch of every dense
+    schedule on the element path (the wrapper's tally, the launch spans'
+    ``args.path``), on the padded and the packed wire, and matches the
+    CPU."""
+    from repro_torch import obs
+    bs = 64
+    a_d = _low_fill(bs, g, 20 + g)
+    b = np.random.default_rng(g).standard_normal(
+        (a_d.shape[1], 40)).astype(np.float32)
+    kw = dict(algorithm=algorithm, wire=wire)
+    want = matmul(DistBSR.from_dense(a_d, g=g, block_size=bs, device="cpu"),
+                  b, **kw)
+    a_h = DistBSR.from_dense(a_d, g=g, block_size=bs, device=card)
+    launches = dict(bsr_spmm_cuda.paths)
+    obs.enable(clear=True)
+    try:
+        got = matmul(a_h, b, **kw)
+        spans = [e for e in obs.events() if e["name"] == "kernel.bsr_spmm"]
+    finally:
+        obs.disable()
+        obs.reset_all()
+    ran = bsr_spmm_cuda.paths["elements"] - launches["elements"]
+    assert ran >= g and bsr_spmm_cuda.paths["blocks"] == launches["blocks"]
+    assert [e["args"]["path"] for e in spans] == ["elements"] * ran
+    assert_close(got, want, torch.from_numpy(np.abs(a_d) @ np.abs(b)))
+
+
+@pytest.mark.cuda
+def test_full_blocks_keep_the_block_path(card):
+    """A handle of full bs 8 blocks (fill 1, as the serving operators')
+    keeps the block path, and its result is the plain version's."""
+    a = np.kron(np.eye(8, dtype=np.float32)[:, np.r_[1:8, 0]],
+                np.random.default_rng(2).standard_normal((8, 8)).astype(
+                    np.float32))
+    b = np.random.default_rng(3).standard_normal((64, 24)).astype(np.float32)
+    a_h = DistBSR.from_dense(a, g=2, block_size=8, device=card)
+    assert a_h.tiled.fill() == 1.0
+    launches = dict(bsr_spmm_cuda.paths)
+    got = matmul(a_h, b, algorithm="ring_c")
+    assert bsr_spmm_cuda.paths["blocks"] == launches["blocks"] + 2
+    assert bsr_spmm_cuda.paths["elements"] == launches["elements"]
+    assert_close(got, torch.from_numpy(a @ b),
+                 torch.from_numpy(np.abs(a) @ np.abs(b)))
 
 
 # ---------------------------------------------------------------------------
