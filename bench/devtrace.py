@@ -2,9 +2,11 @@
 intervals, the harness's own host ranges, the card's busy time and idle
 gaps, and what the host was doing in each gap.
 
-Times are microseconds on the profiler's clock.  Obs spans (the
-program's, on ``time.perf_counter``) are moved onto it through an anchor
-that the harness records on both clocks at once.
+Times are microseconds on the profiler's clock.  The program's obs spans
+count microseconds from a Unix time read once (advanced by
+``perf_counter_ns``), the base the profiler's Chrome export writes too;
+the harness moves them onto the profiler's in-memory events through an
+anchor that it records in both at once.
 """
 from __future__ import annotations
 
@@ -66,6 +68,19 @@ def busy_and_gaps(device: list, lo: float, hi: float):
     if hi > last:
         gaps.append((last, hi))
     return busy, gaps
+
+
+def lost(device: list, launched: dict, lo: float, hi: float) -> dict:
+    """``{kernel: (in the trace, launched)}`` for each kernel name in
+    ``launched`` whose device intervals inside [lo, hi] do not number its
+    launches (a kernel the profiler dropped, or one counted under another
+    name); {} where every launch is in the trace."""
+    out = {}
+    for kern, count in launched.items():
+        seen = sum(1 for d in device if d[0] == kern and lo <= d[1] <= hi)
+        if seen != count:
+            out[kern] = (seen, count)
+    return out
 
 
 def host_time_per_call(calls: list, waits: list) -> list:

@@ -80,9 +80,13 @@ def _free(device) -> None:
 
 
 def _launches() -> dict:
-    """Launches so far of B1 (its wrapper's counter)."""
+    """Launches so far of B1, by the kernel each ran (its wrapper's
+    counters by path): the block path's ``spmm_kernel``, the element
+    path's ``spmm_elem_kernel``."""
     from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
-    return {"spmm_kernel": bsr_spmm_cuda.launches}
+    paths = bsr_spmm_cuda.paths
+    return {"spmm_kernel": paths["blocks"],
+            "spmm_elem_kernel": paths["elements"]}
 
 
 class _Reservoir:
@@ -315,11 +319,7 @@ def _read_trace(run: Run, tracer: _Tracer, log) -> None:
     busy_us, gaps = devtrace.busy_and_gaps(got["device"], lo, hi)
     run.busy_s = busy_us / 1e6
     run.traced_s = (hi - lo) / 1e6
-    for kern, count in tracer.launched.items():
-        seen = sum(1 for d in got["device"] if d[0] == kern
-                   and lo <= d[1] <= hi)
-        if seen != count:
-            run.trace_lost[kern] = (seen, count)
+    run.trace_lost = devtrace.lost(got["device"], tracer.launched, lo, hi)
     if run.trace_lost:
         log(f"the profiler's trace lost kernels (in the trace, launched): "
             f"{run.trace_lost}")

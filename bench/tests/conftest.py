@@ -17,6 +17,8 @@ SMALL = {
                               "traffic": {"width": 16}},
     "spmm-rmat16-f32-w128": {"config": {"scale": 8, "block_size": 8},
                              "traffic": {"width": 8}},
+    "spmm-rmat16-f32-w512-bs16": {"config": {"scale": 8},
+                                  "traffic": {"width": 16}},
 }
 
 

@@ -30,7 +30,8 @@ def test_sound_run_is_correct(cell):
 
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
 @pytest.mark.parametrize("cell", ["spmm-rmat16-f32-w512",
-                                  "spmm-rmat17-bf16-w512"])
+                                  "spmm-rmat17-bf16-w512",
+                                  "spmm-rmat16-f32-w512-bs16"])
 def test_fault_makes_the_run_incorrect(cell, fault):
     with faults.FAULTS[fault]():
         result, compared = _run(cell)

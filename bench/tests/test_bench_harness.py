@@ -1,6 +1,7 @@
 """The traced run's plumbing on the CPU (spans, host ranges, the metric
 readers), and the trace arithmetic on made-up intervals."""
 import time
+from types import SimpleNamespace
 
 import pytest
 
@@ -49,6 +50,85 @@ def test_breakdown():
     assert got["device_ops"] == [["k1", 5.0], ["k2", 1.0]]
     assert got["idle_gaps"] == [["bench.between_calls", 3.0],
                                 ["plan_build", 1.0]]
+
+
+def test_lost_kernels_by_name():
+    dev = [("spmm_elem_kernel", 10, 20), ("copy", 21, 22),
+           ("spmm_elem_kernel", 30, 40), ("spmm_kernel", 50, 60),
+           ("spmm_elem_kernel", 150, 160)]
+    launched = {"spmm_kernel": 1, "spmm_elem_kernel": 2}
+    assert devtrace.lost(dev, launched, 0, 100) == {}
+    assert devtrace.lost(dev[1:], launched, 0, 100) == {
+        "spmm_elem_kernel": (1, 2)}
+    # the element launches counted under the block kernel's name
+    assert devtrace.lost(dev, {"spmm_kernel": 3}, 0, 100) == {
+        "spmm_kernel": (1, 3)}
+
+
+def _event(name, start, end, cuda=False):
+    from torch.autograd import DeviceType
+    return SimpleNamespace(
+        name=name, device_type=DeviceType.CUDA if cuda else DeviceType.CPU,
+        time_range=SimpleNamespace(start=start, end=end))
+
+
+@pytest.mark.parametrize("dropped, lost", [
+    (0, {}), (1, {"spmm_elem_kernel": (1, 2)})])
+def test_read_trace_counts_b1_launches_by_path(monkeypatch, dropped, lost):
+    """Two multiplies of one element-path launch each: a trace holding one
+    ``spmm_elem_kernel`` event a launch is whole and the device metrics
+    read; one that dropped a launch's event is lost and they stay silent."""
+    from repro_torch import obs
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
+    monkeypatch.setattr(bsr_spmm_cuda, "paths", {"elements": 5, "blocks": 7})
+    before = harness._launches()
+    bsr_spmm_cuda.paths["elements"] += 2
+    after = harness._launches()
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched == {"spmm_kernel": 0, "spmm_elem_kernel": 2}
+    obs.enable(clear=True)
+    for mark in (devtrace.ANCHOR, "bench.window_start", "bench.window_end"):
+        obs.instant(mark)
+    obs.disable()
+    events = [_event(devtrace.ANCHOR, 0, 1),
+              _event(devtrace.WINDOW, 10, 1010),
+              _event(devtrace.MULTIPLY, 20, 90),
+              _event(devtrace.MULTIPLY, 520, 590),
+              _event("cudaStreamSynchronize", 95, 400),
+              _event("spmm_elem_kernel", 100, 300, cuda=True),
+              _event("index_elementwise_kernel", 600, 700, cuda=True)]
+    if not dropped:
+        events.append(_event("spmm_elem_kernel", 700, 900, cuda=True))
+    tracer = SimpleNamespace(prof=SimpleNamespace(events=lambda: events),
+                             completed=2, launched=launched)
+    run = harness.Run(setup_s=1.0, window_s=1.0, times_ms=[1.0, 1.0],
+                      host_ms=[], attempted=2, failed=0, peak_bytes=1,
+                      raw_peak=1, work={"flops": 2e6, "bytes": 1e6,
+                                        "dtype": "float32"})
+    harness._read_trace(run, tracer, lambda *a: None)
+    assert run.trace_lost == lost
+    got = {m: manifest.reader(m).read(run)
+           for m in ("idle_share", "kernel_roofline")}
+    if lost:
+        assert got == {"idle_share": None, "kernel_roofline": None}
+    else:
+        assert got["idle_share"] == pytest.approx(100 * (1 - 500 / 1000))
+        assert 0 < got["kernel_roofline"] < 100
+
+
+@pytest.mark.parametrize("traced, want", [(0, 9.0), (6, 1.9), (8, None)])
+def test_call_p95_reads_the_untraced_rest(traced, want):
+    """``call_p95_ms``: the tail of the multiplies after the traced part,
+    as ``multiply_p95_ms`` reads the whole window; nothing to read
+    without two of them."""
+    times = [9.0] * 6 + [1.0, 2.0, 1.0]
+    run = harness.Run(setup_s=1.0, window_s=1.0, times_ms=times,
+                      host_ms=[], attempted=9, failed=0, peak_bytes=1,
+                      raw_peak=1, work={}, traced_completed=traced)
+    got = manifest.reader("call_p95_ms").read(run)
+    assert got == (want if want is None else pytest.approx(want))
+    if not traced:
+        assert got == manifest.reader("multiply_p95_ms").read(run)
 
 
 def test_kernel_name():

@@ -73,16 +73,41 @@ def test_config_files_hold_reduced_keys():
             assert key in cfg and key in cfg["reduced_because"]
 
 
-def test_cell_metrics():
+@pytest.mark.parametrize("cell", [w["name"] for w in
+                                  manifest.load()["workloads"]])
+def test_cell_metrics(cell):
+    """Every cell reports the end-to-end metrics and, traced, the nine
+    per-layer ones that each SpMM cell reads alike; the host-bound w128
+    cell reports its tail per layer (``call_p95_ms``), not end to end."""
     man = manifest.load()
-    e2e = manifest.cell_metrics(man, "spmm-rmat16-f32-w128", trace=False)
-    assert [m["name"] for m in e2e] == ["setup_s", "multiply_ms",
-                                        "multiply_p95_ms", "peak_gb"]
-    per = manifest.cell_metrics(man, "spmm-rmat16-f32-w128", trace=True)
+    host_bound = cell == "spmm-rmat16-f32-w128"
+    e2e = manifest.cell_metrics(man, cell, trace=False)
+    assert [m["name"] for m in e2e] == (
+        ["setup_s", "multiply_ms", "peak_gb"] if host_bound else
+        ["setup_s", "multiply_ms", "multiply_p95_ms", "peak_gb"])
+    per = manifest.cell_metrics(man, cell, trace=True)
     assert {m["name"] for m in per} == {
         "plan_cold_s", "plan_lookup_us", "host_ms", "kernel_roofline",
-        "idle_share", "multiply_mfu"}
+        "idle_share", "multiply_mfu", "launch_lead_us", "b1_device_ms",
+        "epilogue_device_ms"} | ({"call_p95_ms"} if host_bound else set())
+    names = {m["name"] for m in e2e}
+    assert all(m["moves"] in names for m in per)
     assert manifest.cell_metrics(man, "no-such-cell", trace=True) == []
+
+
+def test_bs16_cell_is_the_w512_cell_at_block_size_16():
+    """The bs 16 cell resolves to its own configuration: rmat16-spmm's
+    graph and grid at block size 16, under the w512 cell's traffic."""
+    man = manifest.load()
+    cell = manifest.workload(man, "spmm-rmat16-f32-w512-bs16")
+    w512 = manifest.workload(man, "spmm-rmat16-f32-w512")
+    cfg, base = manifest.config(man, cell), manifest.config(man, w512)
+    assert cfg["block_size"] == 16 and base["block_size"] == 128
+    assert {k for k in cfg.keys() | base.keys()
+            if cfg.get(k) != base.get(k)} == {"name", "source",
+                                               "block_size", "assumed"}
+    assert manifest.traffic(cell) == manifest.traffic(w512)
+    assert cell["chips"] == 1
 
 
 def test_unknown_workload():
