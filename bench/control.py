@@ -38,7 +38,7 @@ def reading(workload: str, seed: int, multiplies: int, control: bool,
     for _ in range(max(multiplies, harness.SAMPLES)):
         out, key = op.call()
         if op.valid(out):
-            keep.offer((key, out))
+            failed += not keep.offer((key, out), harness._held(op))
         else:
             failed += 1
         del out

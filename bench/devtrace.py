@@ -22,6 +22,9 @@ RANGES = (MULTIPLY, SYNC, ANCHOR, WINDOW)
 # the CUDA runtime's waits for the card
 WAITS = ("cudaDeviceSynchronize", "cudaStreamSynchronize")
 TOP = 10
+# the share of the busy time that launches missing from the trace may
+# take before the device metrics go unread (``too_lost``)
+DROP_SHARE = 1e-3
 
 
 def kernel_name(raw: str) -> str:
@@ -81,6 +84,24 @@ def lost(device: list, launched: dict, lo: float, hi: float) -> dict:
         if seen != count:
             out[kern] = (seen, count)
     return out
+
+
+def too_lost(device: list, lost: dict, lo: float, hi: float,
+             busy: float) -> bool:
+    """Whether the kernels of ``lost`` (``lost``'s result) leave the
+    device's busy time ``busy`` (us) unread: a kernel with more events
+    than launches, or none in the trace, or launches missing from the
+    trace that, each as long as that kernel's longest traced event, come
+    to more than ``DROP_SHARE`` of ``busy``.  A profiler that drops a
+    record now and then moves the busy time by less than that."""
+    missing = 0.0
+    for kern, (seen, count) in lost.items():
+        longest = max((end - start for name, start, end in device
+                       if name == kern and lo <= start <= hi), default=None)
+        if seen > count or longest is None:
+            return True
+        missing += (count - seen) * longest
+    return missing > DROP_SHARE * busy
 
 
 def host_time_per_call(calls: list, waits: list) -> list:

@@ -4,11 +4,12 @@ The window is a closed loop with one caller.  Each multiply is timed on
 the host clock from the call into the program until the card has
 finished it (``torch.cuda.synchronize``); its answer's kind and shape are
 then checked on the host, a check for a NaN or an inf in it is queued on
-the card (read once the window has closed), and a sample of the answers,
-drawn from the seed, is kept (its bytes are taken out of the peak
-memory).  Once the window has closed and the peak memory is read, the
-program's state is freed and the sample is held against the plain
-reference (``bench/reference.py``).
+the card (read once the window has closed), and a sample of the answers
+is drawn from the seed.  Of each answer drawn the harness holds what the
+operation keeps (``keep``: the answer itself, or a lossless record of
+it), and takes those bytes out of the peak memory.  Once the window has
+closed and the peak memory is read, the program's state is freed and
+the sample is held against the plain reference (``bench/reference.py``).
 
 With ``trace`` the program's obs spans are on from the start and a
 ``torch.profiler`` records the first ``TRACE_SECONDS`` of the window; the
@@ -96,21 +97,51 @@ class _Reservoir:
     def __init__(self, k: int, seed: int):
         self.k, self.rng, self.seen, self.kept = k, random.Random(seed), 0, []
 
-    def offer(self, item) -> None:
+    def offer(self, item, hold=None) -> bool:
+        """Draw, then, for an item drawn only, keep ``hold(item)`` (the
+        item itself without ``hold``); False where ``hold`` refused it
+        (gave None), which leaves the sample as it was."""
         self.seen += 1
         if len(self.kept) < self.k:
-            self.kept.append(item)
+            j = len(self.kept)
         else:
             j = self.rng.randrange(self.seen)
-            if j < self.k:
-                self.kept[j] = item
+            if j >= self.k:
+                return True
+        held = hold(item) if hold else item
+        if held is None:
+            return False
+        if j == len(self.kept):
+            self.kept.append(held)
+        else:
+            self.kept[j] = held
+        return True
+
+
+def _held(op):
+    """What the harness holds of a drawn ``(key, answer)``: the key and
+    what ``op`` keeps of the answer, or None where ``op`` refuses it."""
+    def hold(item):
+        key, out = item
+        got = op.keep(out, key)
+        return None if got is None else (key, got)
+    return hold
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from _tensors(y)
 
 
 def _held_bytes(kept: list) -> int:
-    """Device bytes the kept answers hold, each storage once."""
+    """Device bytes the kept records hold: every storage of every tensor
+    in them, each storage once."""
     storages = {}
-    for _, out in kept:
-        s = out.untyped_storage()
+    for t in _tensors(kept):
+        s = t.untyped_storage()
         storages[s.data_ptr()] = s.nbytes()
     return sum(storages.values())
 
@@ -237,7 +268,7 @@ def _window(op, seed, seconds, trace, t_start, device, log):
     if _cuda(device):
         torch.cuda.reset_peak_memory_stats(device)
     launches0 = _launches()
-    keep = _Reservoir(SAMPLES, seed)
+    keep, hold = _Reservoir(SAMPLES, seed), _held(op)
     times, host, attempted, failed, shown = [], [], 0, 0, False
     if trace:
         tracer.start()
@@ -266,14 +297,15 @@ def _window(op, seed, seconds, trace, t_start, device, log):
         host.append((t_ret - t0) * 1e3)
         if op.valid(out):
             op.watch(out)
-            keep.offer((key, out))
+            # an answer the operation refuses to keep has failed
+            failed += not keep.offer((key, out), hold)
         else:
             failed += 1
         del out
     t_w1 = time.perf_counter()
     if trace and tracer.open:
         tracer.close(len(times))
-    # the kept answers are the harness's: from the sample's k-th answer on
+    # the kept records are the harness's: from the sample's k-th answer on
     # the card holds them all through every multiply
     raw = torch.cuda.max_memory_allocated(device) if _cuda(device) else 0
     held = _held_bytes(keep.kept)
@@ -319,10 +351,14 @@ def _read_trace(run: Run, tracer: _Tracer, log) -> None:
     busy_us, gaps = devtrace.busy_and_gaps(got["device"], lo, hi)
     run.busy_s = busy_us / 1e6
     run.traced_s = (hi - lo) / 1e6
-    run.trace_lost = devtrace.lost(got["device"], tracer.launched, lo, hi)
-    if run.trace_lost:
+    lost = devtrace.lost(got["device"], tracer.launched, lo, hi)
+    if lost:
+        whole = not devtrace.too_lost(got["device"], lost, lo, hi, busy_us)
         log(f"the profiler's trace lost kernels (in the trace, launched): "
-            f"{run.trace_lost}")
+            f"{lost}; " + ("under a share of the busy time of "
+                           f"{devtrace.DROP_SHARE}: read" if whole
+                           else "the device metrics go unread"))
+        run.trace_lost = {} if whole else lost
     # the host time of each multiply: until it began to wait for the card
     run.host_ms = [us / 1e3 for us in devtrace.host_time_per_call(
         got["host"].get(devtrace.MULTIPLY, []), got["waits"])]

@@ -15,7 +15,7 @@ import torch
 from bench import inputs, reference, work
 
 
-class SpMM:
+class SpMM(reference.Watched):
     def __init__(self, cfg: dict, mix: dict, seed: int, device, log):
         from repro_torch.core.api import matmul
         self._matmul = matmul
@@ -46,17 +46,9 @@ class SpMM:
         return isinstance(out, torch.Tensor) and out.dtype == self.dtype \
             and tuple(out.shape) == (self.mat.n, self.mix["width"])
 
-    def watch(self, out) -> None:
-        """Count ``out`` if it holds a NaN or an inf: queued on the card,
-        with no wait (``nonfinite`` reads the count)."""
-        self._nonfinite += ~torch.isfinite(out).all()
-
-    def nonfinite(self) -> int:
-        """The answers watched since the last call that held a NaN or an
-        inf (a wait for the card)."""
-        count = int(self._nonfinite.item())
-        self._nonfinite.zero_()
-        return count
+    def keep(self, out, key):
+        """What the harness holds of a drawn answer: the answer itself."""
+        return out
 
     def diagnose(self, log) -> None:
         """One multiply with B1's block counter on: the blocks it multiplied

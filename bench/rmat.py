@@ -31,7 +31,15 @@ def rmat_edges(scale: int, edgefactor: int = 8,
 
 def graph(cfg: dict) -> np.ndarray:
     """The configuration's graph: its R-MAT edges, each distinct edge once,
-    sorted by row, then column (the order of a CSR matrix)."""
+    sorted by row, then column (the order of a CSR matrix).
+
+    With ``"relabel": true`` the vertices are first renamed by a random
+    permutation drawn from ``graph_seed + 1`` (the Graph500-style
+    relabelling of the repo's ``benchmarks/fig1_load_imbalance.py``), which
+    spreads R-MAT's hubs over the whole index range."""
     e = rmat_edges(cfg["scale"], cfg["edgefactor"], a=cfg["a"], b=cfg["b"],
                    c=cfg["c"], d=cfg["d"], seed=cfg["graph_seed"])
+    if cfg.get("relabel"):
+        e = np.random.default_rng(cfg["graph_seed"] + 1).permutation(
+            1 << cfg["scale"])[e]
     return np.unique(e, axis=0)

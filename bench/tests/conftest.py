@@ -19,6 +19,7 @@ SMALL = {
                              "traffic": {"width": 8}},
     "spmm-rmat16-f32-w512-bs16": {"config": {"scale": 8},
                                   "traffic": {"width": 16}},
+    "spgemm-rmat16-dense": {"config": {"scale": 9, "block_size": 8}},
 }
 
 

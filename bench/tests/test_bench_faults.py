@@ -31,12 +31,20 @@ def test_sound_run_is_correct(cell):
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
 @pytest.mark.parametrize("cell", ["spmm-rmat16-f32-w512",
                                   "spmm-rmat17-bf16-w512",
-                                  "spmm-rmat16-f32-w512-bs16"])
+                                  "spmm-rmat16-f32-w512-bs16",
+                                  "spgemm-rmat16-dense"])
 def test_fault_makes_the_run_incorrect(cell, fault):
+    """The error share reads over its limit; or, where the fault gives the
+    answer more nonzeros than the product has positions (the square's
+    altered element lies off its structure), every answer is refused as
+    failed."""
     with faults.FAULTS[fault]():
         result, compared = _run(cell)
     assert not result["correct"], compared
-    assert compared["err_share"][0] > compared["err_share"][1]
+    if cell == "spgemm-rmat16-dense" and fault == "altered_answer":
+        assert compared["failed"][0] == result["attempted"] > 0
+    else:
+        assert compared["err_share"][0] > compared["err_share"][1]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -80,3 +88,12 @@ def test_the_samples_bytes_are_counted_once():
     a, b = torch.zeros(10), torch.zeros(4, dtype=torch.float64)
     kept = [(0, a), (1, b), (2, a), (3, a[2:])]
     assert harness._held_bytes(kept) == 40 + 32
+
+
+def test_held_records_bytes_are_counted_once():
+    """Every storage of every tensor in a held record, each once."""
+    import torch
+    a, b, c = torch.zeros(10), torch.zeros(4, dtype=torch.float64), \
+        torch.zeros(3, dtype=torch.int32)
+    kept = [(0, (a, b, a[1:])), (0, (c, (b, a)))]
+    assert harness._held_bytes(kept) == 40 + 32 + 12

@@ -65,6 +65,20 @@ def test_lost_kernels_by_name():
         "spmm_kernel": (1, 3)}
 
 
+@pytest.mark.parametrize("lost, busy, want", [
+    # one of 2,000 launches of 1 us dropped, 20 ms busy: read
+    ({"spmm_elem_kernel": (1999, 2000)}, 20_000, False),
+    # the same launch against 0.5 ms of busy time: more than its share
+    ({"spmm_elem_kernel": (1999, 2000)}, 500, True),
+    # more events than launches, or a kernel with no event at all
+    ({"spmm_elem_kernel": (2001, 2000)}, 20_000, True),
+    ({"spmm_elem_kernel": (1999, 2000), "spmm_kernel": (0, 3)}, 20_000,
+     True)])
+def test_too_lost(lost, busy, want):
+    dev = [("spmm_elem_kernel", 10 * i, 10 * i + 1) for i in range(1999)]
+    assert devtrace.too_lost(dev, lost, 0, 20_000, busy) is want
+
+
 def _event(name, start, end, cuda=False):
     from torch.autograd import DeviceType
     return SimpleNamespace(
@@ -72,12 +86,15 @@ def _event(name, start, end, cuda=False):
         time_range=SimpleNamespace(start=start, end=end))
 
 
-@pytest.mark.parametrize("dropped, lost", [
-    (0, {}), (1, {"spmm_elem_kernel": (1, 2)})])
-def test_read_trace_counts_b1_launches_by_path(monkeypatch, dropped, lost):
+@pytest.mark.parametrize("dropped, other_us, lost", [
+    (0, 100, {}), (1, 100, {"spmm_elem_kernel": (1, 2)}), (1, 400_000, {})])
+def test_read_trace_counts_b1_launches_by_path(monkeypatch, dropped,
+                                               other_us, lost):
     """Two multiplies of one element-path launch each: a trace holding one
     ``spmm_elem_kernel`` event a launch is whole and the device metrics
-    read; one that dropped a launch's event is lost and they stay silent."""
+    read; one that dropped a launch's event is lost and they stay silent,
+    unless the dropped launch could move the busy time by no more than
+    ``devtrace.DROP_SHARE`` (a long other kernel)."""
     from repro_torch import obs
     from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
     monkeypatch.setattr(bsr_spmm_cuda, "paths", {"elements": 5, "blocks": 7})
@@ -90,15 +107,18 @@ def test_read_trace_counts_b1_launches_by_path(monkeypatch, dropped, lost):
     for mark in (devtrace.ANCHOR, "bench.window_start", "bench.window_end"):
         obs.instant(mark)
     obs.disable()
+    hi = 1010 + other_us
     events = [_event(devtrace.ANCHOR, 0, 1),
-              _event(devtrace.WINDOW, 10, 1010),
+              _event(devtrace.WINDOW, 10, hi),
               _event(devtrace.MULTIPLY, 20, 90),
               _event(devtrace.MULTIPLY, 520, 590),
               _event("cudaStreamSynchronize", 95, 400),
               _event("spmm_elem_kernel", 100, 300, cuda=True),
-              _event("index_elementwise_kernel", 600, 700, cuda=True)]
+              _event("index_elementwise_kernel", 600, 600 + other_us,
+                     cuda=True)]
     if not dropped:
-        events.append(_event("spmm_elem_kernel", 700, 900, cuda=True))
+        events.append(_event("spmm_elem_kernel", 700 + other_us,
+                             900 + other_us, cuda=True))
     tracer = SimpleNamespace(prof=SimpleNamespace(events=lambda: events),
                              completed=2, launched=launched)
     run = harness.Run(setup_s=1.0, window_s=1.0, times_ms=[1.0, 1.0],
@@ -112,7 +132,9 @@ def test_read_trace_counts_b1_launches_by_path(monkeypatch, dropped, lost):
     if lost:
         assert got == {"idle_share": None, "kernel_roofline": None}
     else:
-        assert got["idle_share"] == pytest.approx(100 * (1 - 500 / 1000))
+        busy = 200 + other_us + 200 * (not dropped)
+        assert got["idle_share"] == pytest.approx(
+            100 * (1 - busy / (hi - 10)))
         assert 0 < got["kernel_roofline"] < 100
 
 
@@ -146,3 +168,35 @@ def test_reservoir_is_drawn_from_the_seed(k):
         return r.kept
     assert draw(7) == draw(7) and len(draw(7)) == k
     assert len({tuple(draw(s)) for s in range(20)}) > 1
+
+
+@pytest.mark.parametrize("seed", [7, 2 ** 31 + 11])
+def test_keep_leaves_the_spmm_sample_as_drawn(seed):
+    """A SpMM cell holds the answers themselves: the reservoir that calls
+    the operation's ``keep`` for a drawn answer only keeps the same keys
+    and tensors, and the same bytes, as one that holds every answer
+    offered."""
+    cell = "spmm-rmat16-f32-w512"
+    _, cfg, mix = harness.cell_files(cell, SMALL[cell])
+    op = manifest.operation(mix["op"]).setup(cfg, mix, 3, "cpu",
+                                             lambda *a: None)
+    calls = []
+    keep = op.keep
+    op.keep = lambda out, key: calls.append(key) or keep(out, key)
+    plain, held = harness._Reservoir(3, seed), harness._Reservoir(3, seed)
+    for _ in range(40):
+        out, key = op.call()
+        plain.offer((key, out))
+        assert held.offer((key, out), harness._held(op))
+    assert [k for k, _ in held.kept] == [k for k, _ in plain.kept]
+    assert all(a is b for (_, a), (_, b) in zip(held.kept, plain.kept))
+    assert harness._held_bytes(held.kept) == harness._held_bytes(plain.kept)
+    # drawn only: the first three, and those that replaced one
+    assert 3 <= len(calls) < 40
+
+
+def test_refused_answer_leaves_the_sample():
+    r = harness._Reservoir(2, 1)
+    assert not r.offer((0, "x"), lambda item: None)
+    assert r.kept == [] and r.offer((1, "y"), lambda item: item)
+    assert r.kept == [(1, "y")]

@@ -47,6 +47,9 @@ def test_a_run_loads_no_jax():
         "c = 'spmm-rmat17-bf16-w512'\n"
         "harness.run_cell(c, 1, 0.2, False, t_start=time.perf_counter(), "
         "device='cpu', overrides=SMALL[c], log=lambda *a: None)\n"
+        "c = 'spgemm-rmat16-dense'\n"
+        "harness.run_cell(c, 1, 0.2, False, t_start=time.perf_counter(), "
+        "device='cpu', overrides=SMALL[c], log=lambda *a: None)\n"
         "print(run.forbidden_modules())\n") % (str(manifest.ROOT),
                                                str(manifest.ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -110,6 +110,27 @@ def test_bs16_cell_is_the_w512_cell_at_block_size_16():
     assert cell["chips"] == 1
 
 
+def test_square_cell_is_rmat16_relabelled_at_block_size_32():
+    """The square's configuration is rmat16-spmm's graph and grid,
+    relabelled, at block size 32; its mix multiplies A by itself into a
+    dense C in float32 on one card."""
+    man = manifest.load()
+    cell = manifest.workload(man, "spgemm-rmat16-dense")
+    cfg = manifest.config(man, cell)
+    base = manifest.config(man, manifest.workload(man, "spmm-rmat16-f32-w512"))
+    assert cfg["block_size"] == 32 and cfg["relabel"] is True
+    assert {k for k in cfg.keys() | base.keys()
+            if cfg.get(k) != base.get(k)} == {
+        "name", "what", "source", "relabel", "block_size", "assumed",
+        "reduced_because"}
+    assert cfg["reduced_because"]["chips"] == base["reduced_because"]["chips"]
+    mix = manifest.traffic(cell)
+    assert mix["op"] == "spgemm" and mix["dtype"] == "float32"
+    assert mix["matmul"]["output"] == "dense" and mix["control"] == "tf32"
+    assert cell["chips"] == 1
+    assert all(w["chips"] == 1 for w in man["workloads"])
+
+
 def test_unknown_workload():
     with pytest.raises(KeyError):
         manifest.workload(manifest.load(), "no-such-cell")

@@ -1,5 +1,7 @@
 """The needed-work counts: from the inputs' nonzeros, by hand, and the same
 whatever block size tiles the matrix."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -47,3 +49,16 @@ def test_count_is_the_same_at_every_block_size(width):
     want = work.spmm_work(mat.host_rows, (mat.n, mat.n), width, "float32")
     assert counts[0] == counts[1] == want
     assert formats[0] != formats[1]
+
+
+def test_spgemm_work_by_brute_force():
+    """Flops: 2 a pair of nonzeros (i, k), (k, j) that meet; bytes: A's CSR
+    twice and the dense C once."""
+    rng = np.random.default_rng(5)
+    n = 12
+    e = np.unique(rng.integers(0, n, size=(40, 2)), axis=0)
+    pairs = sum(1 for (i, k), (k2, j) in itertools.product(e, e) if k == k2)
+    got = work.spgemm_work(e[:, 0], e[:, 1], (n, n), "float32")
+    assert got["flops"] == 2 * pairs
+    assert got["bytes"] == 2 * (len(e) * 8 + (n + 1) * 4) + n * n * 4
+    assert got["dtype"] == "float32"

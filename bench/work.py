@@ -8,6 +8,10 @@ format shows as time saved against a fixed yardstick.
 
 * SpMM ``A @ B`` (A sparse, B dense ``k x n``) needs ``2 nnz(A) n`` flops
   and reads A's nonzeros once, B once, and writes C once.
+* The square ``A @ A`` into a dense C needs ``2 sum_k nnz(A[:, k])
+  nnz(A[k, :])`` flops (one multiply and one add a pair of nonzeros that
+  meet), and reads A's nonzeros twice (as A and as B) and writes the
+  dense C once.
 
 A sparse matrix's bytes are those of CSR: each nonzero's value and int32
 column index, and an int32 row pointer per row and one more.
@@ -39,6 +43,19 @@ def spmm_work(rows: np.ndarray, shape, width: int, dtype: str) -> dict:
     return {"flops": 2 * nnz * width,
             "bytes": csr_bytes(nnz, m, item) + k * width * item
             + m * width * item,
+            "dtype": dtype}
+
+
+def spgemm_work(rows: np.ndarray, cols: np.ndarray, shape,
+                dtype: str) -> dict:
+    """Flops and bytes of ``A @ A`` into a dense C for the square A with
+    nonzeros at (``rows``, ``cols``) (one entry a nonzero) of ``shape``,
+    A and C of ``dtype``."""
+    n = shape[0]
+    item = ITEMSIZE[dtype]
+    meet = np.bincount(cols, minlength=n) * np.bincount(rows, minlength=n)
+    return {"flops": 2 * int(meet.sum()),
+            "bytes": 2 * csr_bytes(len(rows), n, item) + n * n * item,
             "dtype": dtype}
 
 
