@@ -26,9 +26,14 @@ non-zero and prints no result line):
    ``auto``, which resolves to the bulk body of ``off``: checked on the
    plans), with the packed wire, and at g 3 in float32 with overlap ``on``
    and ``off``, and dense-output SpGEMM ``A @ A`` on R-MAT scale 14 (bs
-   64), each against a dense ``torch.matmul`` oracle in float32 (TF32
-   off), with the blocks B1 multiplied counted on the card and held
-   against the real blocks of the plan's tables; then a ``torch.profiler``
+   64, B1's sparse-B path: B left sparse), each against a dense
+   ``torch.matmul`` oracle in float32 (TF32 off), with the blocks B1
+   multiplied counted on the card and held against the real blocks of the
+   plan's tables; then B1's sparse-B path at the benchmark's square cell
+   shape (R-MAT scale 16 relabelled, bs 32, T 4, n 32,768): each ring
+   step's launch against its plain version, timed fresh and into C beside
+   its bound, its plain version and cuSPARSE's ``CSR @ CSR``; then a
+   ``torch.profiler``
    breakdown of one float32 multiply of each kind (device time by kernel,
    idle share), which must show no roll and no gather of the SpMM's
    operands;
@@ -255,6 +260,7 @@ import sys
 import time
 from importlib import metadata, util
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -321,6 +327,10 @@ SPMM_G3 = 3          # the overlap bodies differ from g = 3 on
 OTHER = ("summa_bcast", "summa_ag", "ring_a", "ring_c_bidir")
 OTHER_G3 = ("ring_a", "ring_c_bidir")
 SPGEMM = dict(scale=14, seed=2, block_size=64, g=2)
+# the benchmark's square cell (bench/configs/rmat16-square.json): R-MAT
+# scale 16, edge factor 8, vertices relabelled by default_rng(seed + 1)'s
+# permutation, bs 32 on a 2 x 2 grid, values standard normal
+SQUARE = dict(scale=16, edgefactor=8, seed=1, block_size=32, g=2)
 # sparse-output SpGEMM A @ A: predicted C block density 0.236, under
 # output="auto"'s 0.25, so it resolves to a sparse output
 SPARSE = dict(scale=16, edgefactor=1, seed=2, block_size=32, g=2)
@@ -909,6 +919,7 @@ def check_workspace(plan, bs: int, label: str) -> dict:
 # has such a launch)
 TRACED_KERNELS = {"spmm_kernel": ("bsr_spmm.blocks",),
                   "spmm_elem_kernel": ("bsr_spmm.elements",),
+                  "spmm_sparse_b_kernel": ("bsr_spmm.sparse_b",),
                   "pair_kernel": ("bsr_pair_accumulate", "bsr_pair_matmul")}
 # host time between the profiler's start and the window's first launch
 PROFILE_PREROLL_S = 0.02
@@ -1151,6 +1162,7 @@ def traced_counts() -> dict:
     paths = kernel_wrappers()["bsr_spmm"].paths
     return {"bsr_spmm.blocks": paths["blocks"],
             "bsr_spmm.elements": paths["elements"],
+            "bsr_spmm.sparse_b": paths["sparse_b"],
             "bsr_pair_accumulate": counts["bsr_pair_accumulate"],
             "bsr_pair_matmul": counts["bsr_pair_matmul"]}
 
@@ -1481,10 +1493,13 @@ def blockdiag_csr(t, tiles):
     return coo.coalesce().to_sparse_csr()
 
 
-def csr_yardstick(a_csr, b_csr, want_sum: float, label: str):
+def csr_yardstick(a_csr, b_csr, want_sum: float, label: str,
+                  rel: Optional[float] = None):
     """Time cuSPARSE ``CSR @ CSR`` (timed only; the port never calls it),
-    after checking that it sums to the kernel's total.  None, with the
-    reason printed, where PyTorch has no such call for these operands."""
+    after checking that it sums to the kernel's total (within ``rel`` of
+    it: by default 1e-6 for float32, whose exact values here sum exactly,
+    one bf16 step for bf16).  None, with the reason printed, where PyTorch
+    has no such call for these operands."""
     try:
         c = a_csr @ b_csr
         torch.cuda.synchronize()
@@ -1494,7 +1509,8 @@ def csr_yardstick(a_csr, b_csr, want_sum: float, label: str):
         return None
     total = c.values().double().sum().item()
     # a bf16 product rounds each output element to 8 bits
-    rel = 1e-6 if c.dtype == torch.float32 else 2.0 ** -7
+    if rel is None:
+        rel = 1e-6 if c.dtype == torch.float32 else 2.0 ** -7
     check(abs(total - want_sum) <= rel * max(1.0, abs(want_sum)),
           f"yardstick {label} computes another function ({total} vs "
           f"{want_sum})")
@@ -1503,6 +1519,164 @@ def csr_yardstick(a_csr, b_csr, want_sum: float, label: str):
     log(f"  yardstick {label}: torch CSR @ CSR (cuSPARSE) {ms:.3f} ms, "
         f"{a_csr._nnz()} x {b_csr._nnz()} nonzeros")
     return ms
+
+
+def square_handle(device):
+    """The square cell's A (:data:`SQUARE`) as a handle on ``device``, its
+    values standard normal (seeded), tiled from a dense matrix made on the
+    card and freed."""
+    from repro_torch.core.api import DistBSR
+    from repro_torch.core.bsr import rmat_edges
+    cfg = SQUARE
+    n = 1 << cfg["scale"]
+    e = rmat_edges(cfg["scale"], cfg["edgefactor"], seed=cfg["seed"])
+    e = np.unique(np.random.default_rng(cfg["seed"] + 1).permutation(n)[e],
+                  axis=0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg["seed"])
+    dense = torch.zeros((n, n), device=device)
+    dense[torch.as_tensor(e[:, 0], device=device),
+          torch.as_tensor(e[:, 1], device=device)] = torch.randn(
+              len(e), generator=gen, device=device)
+    a_h = DistBSR.from_dense(dense, g=cfg["g"],
+                             block_size=cfg["block_size"], device=device)
+    del dense
+    free()
+    return a_h, len(e)
+
+
+def sparse_b_square(device) -> dict:
+    """B1's sparse-B path at the square cell's shape (R-MAT scale 16
+    relabelled, bs 32, T 4, K = n = 32,768 a tile): each ring step's launch
+    against its plain version (fresh, tile by tile; NaN-free), the blocks
+    it credits against its table's; the launch timed fresh and into C, its
+    bound (a fresh C written once, or the 32-byte sectors that hold the
+    positions its sums reach read and written once; both lists, B's window
+    offsets, the units and zero rows read once; two flops a product), the
+    plain version's time and
+    cuSPARSE's ``CSR @ CSR`` of the step's tiles as a yardstick; then one
+    ``matmul`` counted by path.  Returns the kernels-line entry."""
+    from repro_torch.core import wire as _wire
+    from repro_torch.core.api import SKEW_COLS, SKEW_ROWS, matmul, \
+        plan_matmul
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
+    a_h, nnz = square_handle(device)
+    g, bs = SQUARE["g"], SQUARE["block_size"]
+    plan = plan_matmul(a_h, a_h, algorithm="ring_c", output="dense")
+    ex = plan.executor
+    placed = [ex.batch(a_h.placed(pl)[k]) for pl in (SKEW_ROWS, SKEW_COLS)
+              for k in ("blocks", "rows", "cols")]
+    nbr = a_h.tile_shape[0] // bs
+    log(f"  square: {nnz} nonzeros, fill {100 * a_h.tiled.fill():.4f} %, "
+        f"real blocks {a_h.counts.cpu().numpy().ravel().tolist()}")
+    reset_counts()
+    res, a_map, b_map = {}, ex.identity_map(), ex.identity_map()
+    for step in range(g):
+        if step:
+            a_map = ex.shift_map(a_map, "col")
+            b_map = ex.shift_map(b_map, "row")
+        table = plan.sparse_b_table(a_h, a_h, a_map, b_map)
+        check(table is not None and table.path == "sparse_b",
+              "the square's step takes no sparse-B table")
+        sb = table.sparse_b
+        pools = (placed[0], placed[3])
+        got, multiplied = counted_blocks(
+            lambda: bsr_spmm_cuda(*pools, table))
+        check(multiplied == table.real_blocks,
+              f"square step {step}: credited {multiplied} blocks, the "
+              f"table's real ones {table.real_blocks}")
+        check(bool(torch.isfinite(got).all()),
+              f"square step {step}: non-finite output")
+        err = share = 0.0
+        ok = True
+        for t in range(got.shape[0]):
+            ai = torch.as_tensor(a_map[t:t + 1], device=device)
+            bi = torch.as_tensor(b_map[t:t + 1], device=device)
+            a = [x[ai] for x in placed[:3]]
+            b = [x[bi] for x in placed[3:]]
+            want = ref.bsr_spmm_sparse_b_raw_ref(*a, *b, nbr, nbr)
+            scale = ref.bsr_spmm_sparse_b_raw_ref(a[0].abs(), *a[1:],
+                                                  b[0].abs(), *b[1:], nbr,
+                                                  nbr)
+            e, sh, o = compare(got[t:t + 1], want, scale, TOL_F32_SMALL)
+            err, share, ok = max(err, e), max(share, sh), ok and o
+            del want, scale
+        check(ok, f"square step {step}: the sparse-B path disagrees with "
+              f"its plain version ({share:.3g} of the allowance)")
+        reached = int(torch.count_nonzero(got))
+        # the 32-byte sectors (8 float32) that a later step reads and writes
+        sectors = int(got.view(-1, 8).ne(0).any(-1).sum())
+        total = got.double().sum().item()
+        ms = time_ms(lambda: bsr_spmm_cuda(*pools, table), 5)
+        acc_ms = time_ms(lambda: bsr_spmm_cuda(*pools, table, out=got), 5)
+        del got
+        free()
+        plain_ms = time_ms(lambda: ref.bsr_spmm_sparse_b_raw_ref(
+            placed[0][a_map], *[x[a_map] for x in placed[1:3]],
+            placed[3][b_map], *[x[b_map] for x in placed[4:]], nbr, nbr),
+            1, warmup=0)
+        free()
+        al, bl = sb.a_lists, sb.b_lists
+        lists = sum(x.n_elements * (4 + 8 + 4) for x in (al, bl)) \
+            + sum(x.rowptr.numel() * 8 for x in (al, bl))
+        tables = sum(x.numel() * 4 for x in (sb.windows, sb.units,
+                                             sb.zero_rows))
+        c_bytes = table.tiles * nbr * bs * sb.n * 4
+        peak_bytes, peak_ops = peaks()
+        flops = 2 * sb.n_products
+        t_ops = flops / peak_ops[torch.float32] * 1e3
+        bound = max((c_bytes + lists + tables) / peak_bytes * 1e3, t_ops)
+        acc_bound = max((2 * sectors * 32 + lists + tables) / peak_bytes
+                        * 1e3, t_ops)
+        tiles = _wire.placement_tiles(SKEW_ROWS, g).reshape(-1, 2)
+        b_tiles = _wire.placement_tiles(SKEW_COLS, g).reshape(-1, 2)
+        lib = csr_yardstick(
+            blockdiag_csr(a_h.tiled, [tuple(x) for x in tiles[a_map]]),
+            blockdiag_csr(a_h.tiled, [tuple(x) for x in b_tiles[b_map]]),
+            total, f"square step {step}", rel=1e-4)
+        free()
+        res[step] = {"ms": ms, "accumulate_ms": acc_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "accumulate_bound_ms": acc_bound,
+                     "share_of_bound": bound / ms,
+                     "accumulate_share_of_bound": acc_bound / acc_ms,
+                     "library_ms": lib, "max_abs_err": err,
+                     "share_of_tolerance": share, "products": sb.n_products,
+                     "reached": reached, "sectors": sectors,
+                     "units": int(sb.units.shape[1]),
+                     "zero_rows": int(sb.zero_rows.numel())}
+        log(f"  B1 sparse-B square step {step}: fresh {ms:.3f} ms (bound "
+            f"{bound:.3f} ms, {100 * bound / ms:.1f} %), into C "
+            f"{acc_ms:.3f} ms (bound {acc_bound:.3f} ms, "
+            f"{100 * acc_bound / acc_ms:.1f} %), plain {plain_ms:.1f} ms, "
+            f"cuSPARSE CSR @ CSR {lib} ms; {sb.n_products} products, "
+            f"{reached} positions reached in {sectors} sectors, "
+            f"{sb.units.shape[1]} units; "
+            f"max_abs_err {err:.3e}, {share:.3g} of its allowance")
+    before = dict(bsr_spmm_cuda.paths)
+    out = matmul(a_h, a_h, algorithm="ring_c", output="dense")
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in bsr_spmm_cuda.paths.items()}
+    check(ran == {"elements": 0, "blocks": 0, "sparse_b": g},
+          f"the square's multiply launched B1 by path {ran}")
+    del out
+    launches = bsr_spmm_cuda.launches
+    del a_h, placed, plan
+    free()
+    first = res[0]
+    return {"name": "bsr_spmm (square cell shape, sparse-B path)",
+            "route": "cuda", "source":
+            "src/repro_torch/kernels/csrc/bsr_spmm.cu",
+            "replaces": "none: B1 gains a path (bsr_spmm_pallas densifies "
+            "B)", "launches": launches, "dtype": "float32",
+            "shape": {"T": 4, "K": nbr * bs, "n": nbr * bs, "bs": bs},
+            **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "library_ms",
+                                     "share_of_bound", "accumulate_ms",
+                                     "accumulate_bound_ms",
+                                     "accumulate_share_of_bound",
+                                     "products", "reached", "sectors")},
+            "bound_by": "bytes", "steps": res}
 
 
 def sparse_path(device) -> dict:
@@ -2517,7 +2691,8 @@ def serve_windows(model, cfg, toks, label: str) -> dict:
                             if lo <= e["ts"] and e["ts"] + e["dur"] <= hi],
                            ("serve.operator", "serve.tile", "plan_build",
                             "multiply."))
-        b1 = kern["spmm_kernel"] + kern["spmm_elem_kernel"]
+        b1 = kern["spmm_kernel"] + kern["spmm_elem_kernel"] \
+            + kern["spmm_sparse_b_kernel"]
         r.update({"launches": {"bsr_spmm": b1,
                                "bsr_pair_accumulate": kern["pair_kernel"]},
                   "host_syncs": sum(where.values()),
@@ -5798,8 +5973,10 @@ def main() -> int:
           "the dense-output path did not launch bsr_spmm at both shapes")
     b1_paths = dict(kernel_wrappers()["bsr_spmm"].paths)
     log(f"  B1 launches by path on the dense-output path: {b1_paths}")
-    check(b1_paths == {"elements": dense_counts["bsr_spmm"], "blocks": 0},
-          f"a dense-output launch at the cells' fill took the block path "
+    # SpMM on the element path, the SpGEMM's B left sparse (sparse-B path)
+    check(b1_paths == {"elements": launches["SpMM"], "blocks": 0,
+                       "sparse_b": launches["SpGEMM"]},
+          f"a dense-output launch at the cells' fill took another path "
           f"({b1_paths})")
     breakdown = {
         "SpMM float32": device_breakdown(
@@ -5885,6 +6062,11 @@ def main() -> int:
     del kres, a32, a16, b32, b16, a3, b3, a14, a_h, b_h, ops
     del oracle, scale
     del oracle32, scale32, oracle16, scale16, oracle_gemm, scale_gemm
+    free()
+
+    log("== B1's sparse-B path at the square cell's shape")
+    b1.append(sparse_b_square(device))
+    phase_peak("sparse-B square")
     free()
 
     log("== sparse-output path (ring_c, output='auto', B2)")

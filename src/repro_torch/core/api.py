@@ -153,10 +153,14 @@ def _densify_b(b: Dict, geom: _Geom, ex: StackedExecutor) -> Dict:
 @dataclasses.dataclass(frozen=True)
 class _Steps:
     """What a dense-output body asks its plan for at a ring step: B1's work
-    table for a step's tile maps (None where the plain version runs) and a
-    host tile map as an index tensor on the executor's device (cached)."""
+    table for a step's tile maps (None where the plain version runs), a
+    host tile map as an index tensor on the executor's device (cached),
+    and, where B1's sparse-B path may take a block-sparse B as it lies,
+    that path's table (:meth:`MatmulPlan.sparse_b_table`; else None)."""
     table: Optional[Callable[[np.ndarray, np.ndarray], SpmmTable]]
     device_map: Callable[[np.ndarray], torch.Tensor]
+    sparse_b: Optional[Callable[[np.ndarray, np.ndarray],
+                                Optional[SpmmTable]]] = None
 
 
 def _local_mm(a: Dict, b: Dict, a_map: np.ndarray, b_map: np.ndarray,
@@ -291,7 +295,23 @@ def _stationary_c(a: Dict, b: Dict, maps: list, steps: _Steps, geom: _Geom,
     """C stays put; step t's single launch reads the tiles ``maps[t]``
     names.  Step 0 writes C fresh and later steps add into it in place (the
     JAX body's ``c + ...`` in the same dtype and order, without a zero fill
-    or a new buffer per step)."""
+    or a new buffer per step).  A sparse B is densified once, before the
+    steps, unless the plan hands B1's sparse-B path (``steps.sparse_b``),
+    which reads its blocks as they lie (its tables all built before the
+    first launch)."""
+    tables = [steps.sparse_b(a_map, b_map) for (a_map, b_map), in maps] \
+        if steps.sparse_b is not None and "dense" not in b else []
+    if tables and all(t is not None for t in tables):
+        c = None
+        for ((a_map, b_map),), table in zip(maps, tables):
+            c = kops.bsr_spmm_sparse_b_raw(
+                ex.batch(a["blocks"]), ex.batch(a["rows"]),
+                ex.batch(a["cols"]), ex.batch(b["blocks"]),
+                ex.batch(b["rows"]), ex.batch(b["cols"]),
+                n_block_rows=geom.a_nbr, n_block_cols=geom.b_nbc,
+                impl=geom.impl, a_map=a_map, b_map=b_map, table=table,
+                out=c)
+        return ex.unbatch(c)
     b = _densify_b(b, geom, ex)
     c = None
     for (a_map, b_map), in maps:
@@ -3204,6 +3224,8 @@ class MatmulPlan:
         elif wire == "packed" and steal is None:
             self._aux = _steps_on_device(wire_aux, geom.g, dev, mine)
         self._tables = _LRUCache(SPMM_TABLE_CACHE_MAX)
+        # B's window offsets for the sparse-B path, by B's element lists
+        self._windows: Dict[tuple, torch.Tensor] = {}
         self._maps: Dict[bytes, torch.Tensor] = {}
         self._validated: set = set()     # static-verifier modes passed
         # traced calls' drift inputs: (machine, cost model, predicted s),
@@ -3395,6 +3417,52 @@ class MatmulPlan:
                 elements=elements)
         return table
 
+    def takes_sparse_b(self, a_h: DistMatrix, b_h: DistMatrix) -> bool:
+        """Whether this plan's stacked dense-output body hands B1 the
+        sparse-B path for ``a_h @ b_h`` (:meth:`sparse_b_table`), as the
+        operands show it: the kernel runs, both are block-sparse handles
+        whose fill picks the element path, and B travels on the padded
+        wire (the table then also needs B's rows sorted by column).  Only
+        the stationary-C body (``ring_c``, ``summa_bcast``, ``summa_ag``)
+        reads it; the others densify B as before."""
+        if self.on_ranks or self.wire == "packed" or self.steal is not None \
+                or self.symbolic is not None \
+                or not isinstance(a_h, DistBSR) \
+                or not isinstance(b_h, DistBSR) \
+                or not _runs_kernel(self.geom.impl, self.executor.device):
+            return False
+        return all(_bsr_spmm.pick_path(h.tiled.fill()) == "elements"
+                   for h in (a_h, b_h))
+
+    def sparse_b_table(self, a_h: "DistBSR", b_h: "DistBSR",
+                       a_map: np.ndarray, b_map: np.ndarray
+                       ) -> Optional[SpmmTable]:
+        """B1's table of one dense-output step on the sparse-B path: grid
+        position p multiplies the nonzeros of placed A tile ``a_map[p]`` by
+        those of placed B tile ``b_map[p]`` (both handles' element lists,
+        B's window offsets), built on the host once and cached with the
+        plan; None where B's lists do not hold each row sorted by column
+        (the body then densifies B)."""
+        pl_a, pl_b = self.algorithm.a_placement, self.algorithm.b_placement
+        b_el = b_h.element_lists(pl_b, False)
+        if not b_el.cols_sorted:
+            return None
+        lists = a_h.pool_lists(pl_a, packed=False)
+        a_el = a_h.element_lists(pl_a, False)
+        key = ("sparse_b", lists.key, np.asarray(a_map).tobytes(),
+               np.asarray(b_map).tobytes(), a_el.key, b_el.key)
+        table = self._tables.get(key)
+        if table is None:
+            windows = self._windows.get(b_el.key)
+            if windows is None:
+                windows = self._windows[b_el.key] = \
+                    _bsr_spmm.sparse_b_windows(b_el, self.geom.tn)
+            table = self._tables[key] = lists.table(
+                a_map, b_map, self.geom.a_nbr, device=self.executor.device,
+                elements=a_el, b_elements=b_el, n=self.geom.tn,
+                windows=windows)
+        return table
+
     def _device_map(self, tile_map: np.ndarray) -> torch.Tensor:
         """A host tile map as an int64 tensor on the executor's device,
         copied once per plan (a copy per step would wait on the card)."""
@@ -3568,9 +3636,9 @@ class MatmulPlan:
                 tree(b_h, pl_b, "b" in self._packs), self._aux,
                 self._steps(a_h))
         return bodies.body, (tree(a_h, pl_a, False), tree(b_h, pl_b, False),
-                             self._steps(a_h))
+                             self._steps(a_h, b_h))
 
-    def _steps(self, a_h: DistMatrix):
+    def _steps(self, a_h: DistMatrix, b_h: Optional[DistMatrix] = None):
         kernel = isinstance(a_h, DistBSR) \
             and _runs_kernel(self.geom.impl, self.executor.device)
         if self.on_ranks:
@@ -3579,7 +3647,11 @@ class MatmulPlan:
             return _RankSteps(maps=self.step_maps(), table=table)
         table = (lambda a_map, b_map: self.spmm_table(a_h, a_map, b_map)) \
             if kernel else None
-        return _Steps(table=table, device_map=self._device_map)
+        sparse_b = (lambda a_map, b_map: self.sparse_b_table(
+            a_h, b_h, a_map, b_map)) \
+            if b_h is not None and self.takes_sparse_b(a_h, b_h) else None
+        return _Steps(table=table, device_map=self._device_map,
+                      sparse_b=sparse_b)
 
     def _rank_table(self, a_h: "DistBSR", held: Tuple[int, ...],
                     k: int) -> SpmmTable:

@@ -28,6 +28,13 @@ lists once (:func:`element_lists`).  The element path's NaN pass also
 writes the NaNs of the zero slots it skipped inside real blocks.  Raw
 calls (``ops.bsr_spmm_raw`` without a plan's table, steal3d's pair lists)
 have no handle to cache the lists on and take the block path.
+
+A third path, the sparse-B path (:class:`SparseBTable`), takes a B that is
+itself a nearly empty block-sparse handle: a dense-output SpGEMM whose B
+would otherwise be densified every multiply.  It multiplies A's nonzeros
+by B's (both handles' element lists, B's rows sorted by column) and adds
+each product into C, with the result of A's real blocks times the
+densified B on any input, finite or not.
 """
 from __future__ import annotations
 
@@ -41,8 +48,9 @@ import torch
 from . import loader
 
 __all__ = ["SpmmTable", "PoolLists", "ElementLists", "ElementTable",
-           "spmm_table", "element_lists", "pick_path", "bsr_spmm_cuda",
-           "nan_pass", "kernel_path", "CHUNK", "ELEMENT_FILL"]
+           "SparseBTable", "spmm_table", "element_lists", "sparse_b_windows",
+           "pick_path", "bsr_spmm_cuda", "nan_pass", "kernel_path", "CHUNK",
+           "ELEMENT_FILL", "SB_WINDOW"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,6 +84,15 @@ SPLIT_ROW = 64
 # Pool elements the element lists' build tests for nonzeros at once.
 BUILD_SLICE = 1 << 27
 
+# The sparse-B path's units: a warp sums SB_WINDOW columns of a C row at a
+# time (the kernel's SB_WINDOW, which the launch checks), the SB_WARPS warps
+# of a thread block the windows of one unit; a row of more than SB_SPLIT
+# products is cut into units of SB_WARPS windows, so a hub row spreads
+# over several thread blocks.
+SB_WINDOW = 1024
+SB_WARPS = 8
+SB_SPLIT = 4096
+
 
 def pick_path(fill: Optional[float]) -> str:
     """``"elements"`` for a handle whose fill (nonzero elements over its
@@ -101,6 +118,8 @@ class ElementLists:
     the block path reads its blocks: only the positions of the nonzeros are
     fixed per handle, as its real mask is.  ``row_nnz`` (host int64 ``[P,
     R]``) is each row's entry count; ``pool_shape`` the pool's.
+    ``cols_sorted``: whether every row's ``brow`` rises strictly (a B
+    handle's lists, read by the sparse-B path, must).
     """
     key: tuple
     rowptr: torch.Tensor
@@ -110,6 +129,7 @@ class ElementLists:
     pool_shape: tuple
     n_block_rows: int
     max_brow: int
+    cols_sorted: bool
 
     @property
     def n_elements(self) -> int:
@@ -140,6 +160,42 @@ class ElementTable:
     seg_chunks: torch.Tensor
     flag_chunks: torch.Tensor
     n_elements: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseBTable:
+    """The sparse-B path's work of one launch, beside the block table's
+    lists (:attr:`SpmmTable.sparse_b`): output tile ``t`` multiplies the
+    nonzeros of A pool tile ``maps[0, t]`` (``a_lists``) by those of B pool
+    tile ``maps[1, t]`` (``b_lists``, whose ``brow`` are C's columns, each
+    row sorted) into ``[T, R, n]``.
+
+    ``units`` int32 ``[5, U]``: output tile, row, first and end window (of
+    :data:`SB_WINDOW` columns) and the real blocks credited to the block
+    counter, of each unit; the units cover the windows of every row that
+    holds a nonzero of A, once, heaviest first.  ``zero_rows`` int32: ``t *
+    R + r`` of every other row, which a fresh output zero-fills.
+    ``windows`` int32 ``[Pb * K, nwin + 1]``: where each B row's entries of
+    each window start, from the row's start (:func:`sparse_b_windows`).
+    ``colptr`` int32 ``[T * span + 1]`` and ``col_ent`` int32 ``[2, X]``:
+    the launch's listed A blocks by (tile, block column), as block-row and
+    A pool slot (-1 for an entry the block table leaves out: a zero block),
+    which the NaN pass of non-finite B values reads.  ``n_products``: the
+    products the launch adds; ``extra_credit``: real blocks of block-rows
+    with no nonzero, credited at the launch.
+    """
+    a_lists: ElementLists
+    b_lists: ElementLists
+    units: torch.Tensor
+    zero_rows: torch.Tensor
+    maps: torch.Tensor
+    windows: torch.Tensor
+    colptr: torch.Tensor
+    col_ent: torch.Tensor
+    span: int
+    n: int
+    n_products: int
+    extra_credit: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +233,7 @@ class SpmmTable:
     max_col: int
     max_b_tile: int
     elements: Optional[ElementTable] = None
+    sparse_b: Optional[SparseBTable] = None
 
     @property
     def real_blocks(self) -> int:
@@ -185,8 +242,11 @@ class SpmmTable:
 
     @property
     def path(self) -> str:
-        """``"elements"`` where the launch multiplies the real blocks'
-        nonzeros (:attr:`elements`), else ``"blocks"``."""
+        """``"sparse_b"`` where the launch multiplies the real blocks'
+        nonzeros by a sparse B's (:attr:`sparse_b`), ``"elements"`` where
+        by a dense B's rows (:attr:`elements`), else ``"blocks"``."""
+        if self.sparse_b is not None:
+            return "sparse_b"
         return "blocks" if self.elements is None else "elements"
 
     def workspace_bytes(self, block_size: int, n: int) -> int:
@@ -200,7 +260,9 @@ def _host(x) -> np.ndarray:
 def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
                b_map=None, chunk: int = CHUNK, device=None,
                elements: Optional[ElementLists] = None,
-               a_map=None) -> SpmmTable:
+               a_map=None, b_elements: Optional[ElementLists] = None,
+               n: Optional[int] = None,
+               windows: Optional[torch.Tensor] = None) -> SpmmTable:
     """Cut block lists into chunks of real blocks (host numpy).
 
     slots, rows, cols : int ``[T, L]`` (numpy or tensor): entry ``e`` of
@@ -215,7 +277,11 @@ def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
     real block visits are listed for the zero fill.  With ``elements``, the
     element lists of the pool that ``slots`` index, and ``a_map`` (``[T]``,
     the pool tile of each output tile), the table also carries the element
-    path's split (:class:`ElementTable`).
+    path's split (:class:`ElementTable`); with ``b_elements`` too, the
+    element lists of a sparse B pool whose tile ``b_map[t]`` is output tile
+    ``t``'s B (``n`` columns), and their ``windows``
+    (:func:`sparse_b_windows`), the sparse-B path's work
+    (:class:`SparseBTable`) in its place.
     """
     if not 1 <= chunk <= CHUNK:
         raise ValueError(f"chunk must be in [1, {CHUNK}] (the kernel's "
@@ -294,8 +360,13 @@ def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
         raise ValueError("block lists too long for the kernel's int32 table")
     as_i32 = lambda x: torch.from_numpy(
         np.ascontiguousarray(x, dtype=np.int32)).to(device or "cpu")
-    el = None
-    if elements is not None:
+    el = sb = None
+    if elements is not None and b_elements is not None:
+        sb = _sparse_b_table(elements, b_elements, windows, n,
+                             _host(a_map).astype(np.int64), b_map, key,
+                             ent, skip.reshape(3, -1),
+                             skip_chunks.reshape(2, -1), nbr, as_i32)
+    elif elements is not None:
         el = _element_table(elements, _host(a_map).astype(np.int64), b_map,
                             key, starts, ends, ent[1],
                             skip_chunks.reshape(2, -1), nbr, as_i32)
@@ -307,7 +378,8 @@ def spmm_table(slots, rows, cols, n_block_rows: int, *, real=None,
                      max_slot=int(ent[0].max(initial=-1)),
                      max_col=max(int(ent[1].max(initial=-1)),
                                  int(x_col.max(initial=-1))),
-                     max_b_tile=int(b_map.max(initial=-1)), elements=el)
+                     max_b_tile=int(b_map.max(initial=-1)), elements=el,
+                     sparse_b=sb)
 
 
 def _element_table(lists: ElementLists, a_map: np.ndarray, b_map: np.ndarray,
@@ -365,6 +437,121 @@ def _element_table(lists: ElementLists, a_map: np.ndarray, b_map: np.ndarray,
                         n_elements=int(entries.sum()))
 
 
+def _sparse_b_table(a_lists: ElementLists, b_lists: ElementLists,
+                    windows: Optional[torch.Tensor], n: Optional[int],
+                    a_map: np.ndarray, b_map: np.ndarray, key: np.ndarray,
+                    ent: np.ndarray, skip: np.ndarray,
+                    skip_chunks: np.ndarray, nbr: int,
+                    as_i32) -> SparseBTable:
+    """The sparse-B path's work of a launch whose real blocks, sorted by
+    (tile, block-row), are ``key`` (tile * nbr + block-row) with ``ent``
+    (A pool slot, block column), and whose left-out entries are ``skip``
+    (tile, block-row, chunk of ``skip_chunks``); pool tiles ``a_map[t]``
+    of A and ``b_map[t]`` of B for output tile t."""
+    p, _, bs, _ = a_lists.pool_shape
+    pb, _, bs_b, _ = b_lists.pool_shape
+    r_tile, k_tile = nbr * bs, b_lists.n_block_rows * bs_b
+    t = int(b_map.size)
+    if a_lists.n_block_rows != nbr:
+        raise ValueError(f"A's element lists of {a_lists.n_block_rows} "
+                         f"block-rows a tile, the launch has {nbr}")
+    if a_map.shape != b_map.shape or (t and (
+            a_map.min() < 0 or a_map.max() >= p or b_map.max() >= pb)):
+        raise ValueError(f"a_map and b_map must name one of the {p} A and "
+                         f"{pb} B pool tiles for each of the {t} output "
+                         "tiles")
+    if n is None or windows is None:
+        raise ValueError("the sparse-B path needs B's columns n and its "
+                         "window offsets (sparse_b_windows)")
+    nwin = -(-int(n) // SB_WINDOW)
+    if not b_lists.cols_sorted:
+        raise ValueError("the sparse-B path needs B's element lists sorted "
+                         "by column in every row")
+    if b_lists.max_brow >= n or a_lists.max_brow >= k_tile:
+        raise ValueError(
+            f"the element lists reach column {b_lists.max_brow} of B (n "
+            f"{n}) and row {a_lists.max_brow} of B (K {k_tile})")
+    if tuple(windows.shape) != (pb * k_tile, nwin + 1):
+        raise ValueError(f"window offsets {tuple(windows.shape)} for B's "
+                         f"lists of {pb * k_tile} rows and {nwin} windows")
+    if t * r_tile > np.iinfo(np.int32).max:
+        raise ValueError("output too tall for the kernel's int32 rows")
+    row_nnz = a_lists.row_nnz
+    a_rp = np.concatenate([[0], np.cumsum(row_nnz.reshape(-1))])
+    a_brow = a_lists.brow.cpu().numpy().astype(np.int64)
+    u_tile, u_row, u_prod, zeros = [], [], [], []
+    for x in range(t):
+        q, bt = int(a_map[x]), int(b_map[x])
+        rows = np.flatnonzero(row_nnz[q])
+        zeros.append(x * r_tile + np.flatnonzero(row_nnz[q] == 0))
+        lo, hi = a_rp[q * r_tile], a_rp[(q + 1) * r_tile]
+        # the products of each row: its entries' B row lengths, summed
+        per = np.concatenate([[0], np.cumsum(
+            b_lists.row_nnz[bt][a_brow[lo:hi]])])
+        u_prod.append(per[a_rp[q * r_tile + rows + 1] - lo]
+                      - per[a_rp[q * r_tile + rows] - lo])
+        u_tile.append(np.full(rows.size, x))
+        u_row.append(rows)
+    u_tile, u_row, u_prod = (np.concatenate(v).astype(np.int64)
+                             for v in (u_tile, u_row, u_prod))
+    # each visited block-row's real blocks, credited on its first row that
+    # holds a nonzero (the rest at the launch)
+    blocks = np.bincount(key, minlength=t * nbr)
+    seg = u_tile * nbr + u_row // bs
+    first = np.r_[True, seg[1:] != seg[:-1]] if seg.size else seg > 0
+    credit = np.where(first, blocks[seg], 0)
+    # a heavy row: one unit of SB_WARPS windows a group
+    groups = np.where(u_prod > SB_SPLIT, -(-nwin // SB_WARPS), 1)
+    idx = np.repeat(np.arange(u_row.size), groups)
+    part = np.arange(idx.size) - np.repeat(np.cumsum(groups) - groups, groups)
+    split = groups[idx] > 1
+    w0 = np.where(split, part * SB_WARPS, 0)
+    w1 = np.where(split, np.minimum(w0 + SB_WARPS, nwin), nwin)
+    units = np.stack([u_tile[idx], u_row[idx], w0, w1,
+                      np.where(part == 0, credit[idx], 0)])
+    units = units[:, np.argsort(-(u_prod[idx] / groups[idx]), kind="stable")]
+    # the listed A blocks by (tile, block column): the real ones by pool
+    # slot, the left-out ones as -1
+    x_col = skip_chunks[1][skip[2]]
+    cols = np.concatenate([ent[1], x_col])
+    span = int(cols.max(initial=0)) + 1
+    ikey = np.concatenate([key // nbr, skip[0]]) * span + cols
+    order = np.argsort(ikey, kind="stable")
+    col_ent = np.stack([np.concatenate([key % nbr, skip[1]]),
+                        np.concatenate([ent[0],
+                                        np.full(skip.shape[1], -1)])])
+    colptr = np.searchsorted(ikey[order], np.arange(t * span + 1))
+    return SparseBTable(
+        a_lists=a_lists, b_lists=b_lists, units=as_i32(units),
+        zero_rows=as_i32(np.concatenate(zeros)),
+        maps=as_i32(np.stack([a_map, b_map])), windows=windows,
+        colptr=as_i32(colptr), col_ent=as_i32(col_ent[:, order]), span=span,
+        n=int(n), n_products=int(u_prod.sum()),
+        extra_credit=int(blocks.sum() - credit.sum()))
+
+
+def sparse_b_windows(lists: ElementLists, n: int) -> torch.Tensor:
+    """int32 ``[P * K, ceil(n / SB_WINDOW) + 1]`` on the lists' device: for
+    each row of a B pool's element lists (``K`` rows a tile), where its
+    entries in each window of :data:`SB_WINDOW` of its ``n`` columns start,
+    counted from the row's first entry (the last: the row's length).
+    The rows' columns must be sorted (``lists.cols_sorted``)."""
+    nwin = -(-int(n) // SB_WINDOW)
+    if lists.max_brow >= n:
+        raise ValueError(f"the lists reach column {lists.max_brow}, past "
+                         f"n = {n}")
+    lengths = lists.row_nnz.reshape(-1)
+    row = np.repeat(np.arange(lengths.size), lengths)
+    col = lists.brow.cpu().numpy().astype(np.int64)
+    counts = np.bincount(row * nwin + col // SB_WINDOW,
+                         minlength=lengths.size * nwin)
+    out = np.zeros((lengths.size, nwin + 1), np.int64)
+    np.cumsum(counts.reshape(lengths.size, nwin), axis=1, out=out[:, 1:])
+    if out[:, -1].max(initial=0) > np.iinfo(np.int32).max:
+        raise ValueError("a B row too long for the kernel's int32 offsets")
+    return torch.from_numpy(out.astype(np.int32)).to(lists.brow.device)
+
+
 def element_lists(pool: torch.Tensor, lists: "PoolLists", n_block_rows: int,
                   *, key: tuple = ()) -> ElementLists:
     """The nonzero elements of the real blocks of ``pool`` (``[P, S, bs,
@@ -386,7 +573,7 @@ def element_lists(pool: torch.Tensor, lists: "PoolLists", n_block_rows: int,
     pos, rows, cols = (torch.as_tensor(np.asarray(x, np.int64), device=dev)
                        for x in (pos, lists.rows, lists.cols))
     step = max(1, BUILD_SLICE // (bs * bs))
-    brow, aoff, row_nnz = [], [], []
+    brow, aoff, row_nnz, unsorted = [], [], [], False
     for q in range(p):
         keys, br, ao = [], [], []
         for s0 in range(0, s, step):
@@ -400,10 +587,12 @@ def element_lists(pool: torch.Tensor, lists: "PoolLists", n_block_rows: int,
             ao.append((q * s + slot) * (bs * bs) + r * bs + c)
         k_q = torch.cat(keys)
         k_q, order = torch.sort(k_q, stable=True)
-        row_nnz.append(torch.bincount(k_q // (length * bs),
-                                      minlength=r_tile))
+        row_q = k_q // (length * bs)
+        row_nnz.append(torch.bincount(row_q, minlength=r_tile))
         brow.append(torch.cat(br)[order].to(torch.int32))
         aoff.append(torch.cat(ao)[order])
+        unsorted |= bool(((row_q[1:] == row_q[:-1])
+                          & (brow[-1][1:] <= brow[-1][:-1])).any())
     counts = torch.stack(row_nnz)
     rowptr = torch.zeros(p * r_tile + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts.reshape(-1), 0, out=rowptr[1:])
@@ -413,7 +602,7 @@ def element_lists(pool: torch.Tensor, lists: "PoolLists", n_block_rows: int,
     return ElementLists(key=("elements",) + tuple(key), rowptr=rowptr,
                         brow=brow, aoff=torch.cat(aoff), row_nnz=counts,
                         pool_shape=(p, s, bs, bs), n_block_rows=nbr,
-                        max_brow=max_brow)
+                        max_brow=max_brow, cols_sorted=not unsorted)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,15 +633,21 @@ class PoolLists:
                          slots_per_tile=self.slots_per_tile)
 
     def table(self, a_map, b_map, n_block_rows: int, *, device=None,
-              elements: Optional[ElementLists] = None) -> SpmmTable:
+              elements: Optional[ElementLists] = None,
+              b_elements: Optional[ElementLists] = None,
+              n: Optional[int] = None,
+              windows: Optional[torch.Tensor] = None) -> SpmmTable:
         """The table of one launch in which output tile ``t`` multiplies
         pool tile ``a_map[t]`` by B tile ``b_map[t]``; with ``elements``
-        (this pool's), the element path's split too."""
+        (this pool's), the element path's split too, or with B's
+        ``b_elements``, ``n`` and ``windows`` as well, the sparse-B path's
+        work (:func:`spmm_table`)."""
         a_map = np.asarray(a_map, dtype=np.int64)
         slots = a_map[:, None] * self.slots_per_tile + self.slots[a_map]
         return spmm_table(slots, self.rows[a_map], self.cols[a_map],
                           n_block_rows, real=self.real[a_map], b_map=b_map,
-                          device=device, elements=elements, a_map=a_map)
+                          device=device, elements=elements, a_map=a_map,
+                          b_elements=b_elements, n=n, windows=windows)
 
 
 def kernel_path(block_size: int, dtype: torch.dtype) -> str:
@@ -486,9 +681,15 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
     A table with :attr:`SpmmTable.elements` runs the element path over the
     real blocks' nonzeros, with the same sums (its ``blocks`` the pool the
     element lists were built from); its NaN pass also covers the zero
-    slots inside real blocks.  Raises on anything the kernel does not take.
-    ``.launches`` counts the calls that launched the kernel, ``.paths``
-    those of each path (``{"elements": k, "blocks": m}``); while
+    slots inside real blocks.  A table with :attr:`SpmmTable.sparse_b`
+    runs the sparse-B path: ``dense`` is then B's block pool ``[PB, SB,
+    bs', bs']`` (the pool B's element lists were built from, its tiles
+    ``K`` rows by ``n`` columns), and C is ``[T, nbr*bs, n]`` with the
+    result of the real blocks times the densified B (its own NaN passes,
+    from the two lists' values).  Raises on anything the kernel does not
+    take.  ``.launches`` counts the calls that launched the kernel,
+    ``.paths`` those of each path (``{"elements": k, "blocks": m,
+    "sparse_b": s}``); while
     ``.block_counter`` is an int64 CUDA tensor of one element, each launch
     adds to it the blocks its kernel multiplied (the element path: the real
     blocks whose nonzeros it multiplied), and to the host int
@@ -500,6 +701,11 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
     """
     loader.refuse_autograd("bsr_spmm_cuda", blocks, dense, out)
     counter = bsr_spmm_cuda.block_counter
+    if table.sparse_b is not None:
+        out, shape = _launch_sparse_b(blocks, dense, table, out, counter)
+        if shape is not None:
+            _tally(table, counter, shape)
+        return out
     el = table.elements
     el_counter = bsr_spmm_cuda.element_counter if el is not None else None
     tensors = (blocks, dense, table.ent, table.chunks, table.reduce,
@@ -585,16 +791,95 @@ def bsr_spmm_cuda(blocks: torch.Tensor, dense: torch.Tensor,
                            f"nbr={nbr}, K={k}, n={n}, chunks="
                            f"{table.chunks.shape[1]})")
     nan_pass(dense, table, out)
+    _tally(table, counter, (nbr * bs, k, n))
+    if el_counter is not None:
+        bsr_spmm_cuda.table_elements += el.n_elements
+    return out
+
+
+def _tally(table: SpmmTable, counter, shape: tuple) -> None:
+    """Count a launch of ``table`` (``shape``: its product's ``(m, k, n)``)
+    on :func:`bsr_spmm_cuda`'s attributes."""
     bsr_spmm_cuda.launches += 1
     bsr_spmm_cuda.paths[table.path] += 1
     if counter is not None:
         bsr_spmm_cuda.table_blocks += table.real_blocks
-    if el_counter is not None:
-        bsr_spmm_cuda.table_elements += el.n_elements
     tally = bsr_spmm_cuda.by_shape
     if tally is not None:
-        tally[nbr * bs, k, n] = tally.get((nbr * bs, k, n), 0) + 1
-    return out
+        tally[shape] = tally.get(shape, 0) + 1
+
+
+def _launch_sparse_b(blocks: torch.Tensor, b_blocks: torch.Tensor,
+                     table: SpmmTable, out: Optional[torch.Tensor],
+                     counter: Optional[torch.Tensor]):
+    """One launch of the sparse-B path (:func:`bsr_spmm_cuda` with a
+    :attr:`SpmmTable.sparse_b` table): the checks, the workspace and the
+    kernel's launch.  Returns C and the product's ``(m, k, n)`` (None
+    where C is empty and nothing launched)."""
+    sb = table.sparse_b
+    al, bl = sb.a_lists, sb.b_lists
+    tensors = (blocks, b_blocks, al.rowptr, al.brow, al.aoff, bl.rowptr,
+               bl.brow, bl.aoff, sb.units, sb.zero_rows, sb.maps,
+               sb.windows, sb.colptr, sb.col_ent) + tuple(
+                   x for x in (out, counter) if x is not None)
+    if not all(x.is_cuda for x in tensors):
+        raise ValueError("bsr_spmm_cuda needs CUDA tensors (the table too); "
+                         "CPU tensors go through kernels.ref")
+    if len({x.device for x in tensors}) != 1:
+        raise ValueError("bsr_spmm_cuda operands lie on different devices")
+    for x in (blocks, b_blocks):
+        if x.dtype not in _DTYPE_CODES:
+            raise ValueError(f"bsr_spmm_cuda takes float32 or bfloat16, got "
+                             f"{x.dtype}")
+    if tuple(blocks.shape) != al.pool_shape \
+            or tuple(b_blocks.shape) != bl.pool_shape:
+        raise ValueError(
+            f"the element lists were built for pools {al.pool_shape} and "
+            f"{bl.pool_shape}; the launch has {tuple(blocks.shape)} and "
+            f"{tuple(b_blocks.shape)}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("bsr_spmm_cuda needs contiguous tensors")
+    if counter is not None and (counter.dtype != torch.int64
+                                or counter.numel() != 1):
+        raise ValueError(f"bsr_spmm_cuda's block counter must be one int64, "
+                         f"got {counter.dtype} {tuple(counter.shape)}")
+    out_dtype = torch.promote_types(blocks.dtype, b_blocks.dtype)
+    blocks, b_blocks = blocks.to(out_dtype), b_blocks.to(out_dtype)
+    bs = blocks.shape[-1]
+    t, r_tile, n = table.tiles, table.n_block_rows * bs, sb.n
+    k = bl.n_block_rows * b_blocks.shape[-1]
+    shape = (t, r_tile, n)
+    accumulate = out is not None
+    if out is None:
+        out = torch.empty(shape, dtype=out_dtype, device=b_blocks.device)
+    elif out.dtype != out_dtype or tuple(out.shape) != shape:
+        raise ValueError(f"bsr_spmm_cuda adds into {out_dtype} {shape}, got "
+                         f"{out.dtype} {tuple(out.shape)}")
+    if out.numel() == 0:
+        return out, None
+    ea, eb = al.n_elements, bl.n_elements
+    vals = torch.empty(ea + eb, dtype=torch.float32, device=out.device)
+    flags = torch.empty(2, dtype=torch.int32, device=out.device)
+    lib = loader.load("bsr_spmm")
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
+    with torch.cuda.device(out.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        err = lib.bsr_spmm_sparse_b_launch(
+            ptr(blocks), ptr(b_blocks), ptr(al.rowptr), ptr(al.brow),
+            ptr(al.aoff), ea, al.rowptr.numel() - 1, ptr(bl.rowptr),
+            ptr(bl.brow), ptr(bl.aoff), eb, bl.rowptr.numel() - 1,
+            ptr(sb.windows), ptr(sb.units), sb.units.shape[1],
+            ptr(sb.zero_rows), sb.zero_rows.numel(), ptr(sb.maps),
+            ptr(sb.colptr), ptr(sb.col_ent), sb.col_ent.shape[1],
+            ptr(vals), ptr(flags), ptr(out), ptr(counter), sb.extra_credit,
+            t, sb.span, bs, r_tile, k, n, SB_WINDOW, int(accumulate),
+            _DTYPE_CODES[out_dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"bsr_spmm kernel launch failed with CUDA error "
+                           f"{err} (sparse_b path, T={t}, bs={bs}, R="
+                           f"{r_tile}, K={k}, n={n}, units="
+                           f"{sb.units.shape[1]})")
+    return out, (r_tile, k, n)
 
 
 def nan_pass(dense: torch.Tensor, table: SpmmTable,
@@ -648,7 +933,7 @@ def nan_pass(dense: torch.Tensor, table: SpmmTable,
 
 
 bsr_spmm_cuda.launches = 0
-bsr_spmm_cuda.paths = {"elements": 0, "blocks": 0}
+bsr_spmm_cuda.paths = {"elements": 0, "blocks": 0, "sparse_b": 0}
 bsr_spmm_cuda.block_counter = None
 bsr_spmm_cuda.table_blocks = 0
 bsr_spmm_cuda.element_counter = None

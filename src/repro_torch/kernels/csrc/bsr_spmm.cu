@@ -110,6 +110,44 @@
 //   slot then meets one: the block path's 0 * inf).  On finite B the cost is
 //   the counting pass, one read of those chunks.
 //
+// The sparse-B path (spmm_sparse_b_kernel) replaces no TPU kernel: B1 gains
+// it for a B that is itself a nearly empty block-sparse handle (the dense-
+// output SpGEMM), where the other two paths need B densified every multiply
+// (a 17.2 GB scatter and copy at the R-MAT scale-16 square) and then gather
+// whole dense B rows, 99.8 % zeros.  It multiplies A's nonzeros by B's
+// (kernels/bsr_spmm.py::SparseBTable: both handles' element lists, built
+// once, their values gathered at launch into float32 beside them):
+//
+//   C[t][r, j] (+)= sum over A's nonzeros (k, a) of row r, in list order, of
+//                   a * B[k, j] over B's nonzeros (j, b) of row k
+//
+// * What bounds it is C itself, written once: the products (56.9 M at the
+//   square, 114 MFLOP) and both lists (4 MB, held in L2) are small beside a
+//   dense 65,536^2 float32 C (17.2 GB, 5.13 ms at 3.35 TB/s).  So a fresh C
+//   is written once, coalesced, zeros included (spmm_zero_rows_kernel for
+//   the rows with no nonzero of A, the unit's windows for the others), and a
+//   later step reads and writes only the positions its sums reach (about
+//   480 a row at the square), not the whole row.
+// * A warp sums one window of SB_WINDOW columns of one row in shared memory
+//   (4 KB): for each of the row's A entries in list order it adds a * b of
+//   the B row's entries inside the window, the lanes over those entries (a
+//   B row holds each column once, so no two lanes meet), a __syncwarp
+//   between entries.  B rows are sorted by column, and a per-row table of
+//   window offsets (SparseBTable.windows) gives each entry's range in one
+//   read; four entries' loads go out together.  No atomics: one order.
+// * A unit is one row's windows, or a group of SB_WARPS windows of a heavy
+//   row (R-MAT's hubs: up to 45 k products a row at the square), so a hub
+//   spreads over the warps of several thread blocks; units go heaviest
+//   first.
+// * Non-finite values give the reference's (A's real blocks times the
+//   densified B) exactly, from the two lists' values, with no host
+//   synchronisation: the gather raises one flag for A and one for B, and
+//   two passes that return at once while their flag is clear write the
+//   NaNs of the zeros the multiply skipped: a non-finite B[k, j] meets every
+//   zero slot of A's listed blocks in column k (a column index of the
+//   launch's blocks, SparseBTable.colptr), a non-finite A[r, k] every zero
+//   of the densified B row k (the columns the sorted B row does not hold).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared, loaded with
 // ctypes (repro_torch/kernels/loader.py).  Plain C interface; returns the
 // cudaError_t of the launches.
@@ -899,6 +937,381 @@ cudaError_t elem_nan_pass(const T* b, const int* flag_chunks, long long n_flag,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the sparse-B path: A's nonzeros times B's nonzeros, a window at a time
+// ---------------------------------------------------------------------------
+constexpr int SB_WARPS = 8;                   // warps of a unit's block
+constexpr int SB_THREADS = 32 * SB_WARPS;
+constexpr int SB_WINDOW = 1024;               // C columns a warp sums at once
+constexpr int SB_AHEAD = 4;                   // A entries' loads in flight
+constexpr int SB_NAN_BLOCKS = 264;            // the NaN passes' grid
+
+struct SBParams {
+  const float* aval;             // [Ea] A's listed values, float32
+  const long long* a_rowptr;     // [Pa * R + 1]
+  const int* a_brow;             // [Ea] the B row of each
+  const float* bval;             // [Eb] B's listed values, float32
+  const long long* b_rowptr;     // [Pb * K + 1]
+  const int* b_col;              // [Eb] the C column of each, sorted a row
+  const int* windows;            // [Pb * K, nwin + 1]: each row's first
+                                 // entry of each window, from its start
+  const int* units;              // [5, n_units]: tile, row, first and end
+                                 // window, blocks credited
+  long long n_units;
+  const int* maps;               // [2, T]: A pool tile, B pool tile
+  void* out;                     // [T, R, n] in the output type
+  unsigned long long* count_blocks;
+  int tiles, R, K, n, nwin, accumulate, vec;
+};
+
+// One unit: windows [first, end) of one row of one output tile, warp w
+// taking windows first + w, first + w + SB_WARPS, ...  Each window's sums
+// go to C as the fresh row (every column: a rows's window is written once)
+// or, with `accumulate`, as C + the sum rounded to T at the columns the
+// sums reach, the others left as they are.
+template <typename T>
+__global__ void __launch_bounds__(SB_THREADS)
+    spmm_sparse_b_kernel(const SBParams p) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  constexpr unsigned FULL = 0xffffffffu;
+  __shared__ __align__(16) float s_acc[SB_WARPS][SB_WINDOW];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long nu = p.n_units, u = blockIdx.x;
+  const int tile = p.units[u], row = p.units[nu + u];
+  const int w_end = p.units[3 * nu + u];
+  if (threadIdx.x == 0 && p.count_blocks != nullptr && p.units[4 * nu + u] > 0)
+    atomicAdd(p.count_blocks,
+              static_cast<unsigned long long>(p.units[4 * nu + u]));
+  const long long a_row = static_cast<long long>(p.maps[tile]) * p.R + row;
+  const long long lo = p.a_rowptr[a_row], hi = p.a_rowptr[a_row + 1];
+  const long long b_row0 =
+      static_cast<long long>(p.maps[p.tiles + tile]) * p.K;
+  T* C = static_cast<T*>(p.out) +
+         (static_cast<long long>(tile) * p.R + row) * p.n;
+  float* acc = s_acc[warp];
+  const bool add = p.accumulate != 0, vec = p.vec != 0;
+  for (int w = p.units[2 * nu + u] + warp; w < w_end; w += SB_WARPS) {
+    const int c0 = w * SB_WINDOW;
+    const int width = min(SB_WINDOW, p.n - c0);
+#pragma unroll
+    for (int i = lane * 4; i < SB_WINDOW; i += 128)
+      *reinterpret_cast<float4*>(acc + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncwarp();
+    bool hit = false;
+    for (long long e0 = lo; e0 < hi; e0 += 32) {
+      // lane i: entry e0 + i's value and its B row's range in the window
+      const long long e = e0 + lane;
+      float a = 0.f;
+      long long s = 0;
+      int cnt = 0;
+      if (e < hi) {
+        const long long br = b_row0 + p.a_brow[e];
+        const int* wo = p.windows + br * (p.nwin + 1) + w;
+        a = p.aval[e];
+        s = p.b_rowptr[br] + wo[0];
+        cnt = wo[1] - wo[0];
+      }
+      unsigned live = __ballot_sync(FULL, cnt > 0);
+      hit |= live != 0;
+      while (live) {
+        // up to SB_AHEAD live entries, in list order: their first 32 B
+        // entries loaded together, then added one entry after another
+        int src[SB_AHEAD], m = 0;
+#pragma unroll
+        for (int x = 0; x < SB_AHEAD; ++x) {
+          src[x] = live ? __ffs(static_cast<int>(live)) - 1 : 0;
+          if (live) {
+            live &= live - 1;
+            ++m;
+          }
+        }
+        float ax[SB_AHEAD], v[SB_AHEAD];
+        long long sx[SB_AHEAD];
+        int cx[SB_AHEAD], j[SB_AHEAD];
+#pragma unroll
+        for (int x = 0; x < SB_AHEAD; ++x) {
+          ax[x] = __shfl_sync(FULL, a, src[x]);
+          sx[x] = __shfl_sync(FULL, s, src[x]);
+          cx[x] = x < m ? __shfl_sync(FULL, cnt, src[x]) : 0;
+          j[x] = 0;
+          v[x] = 0.f;
+          if (lane < cx[x]) {
+            j[x] = p.b_col[sx[x] + lane] - c0;
+            v[x] = p.bval[sx[x] + lane];
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < SB_AHEAD; ++x) {
+          if (x >= m) break;
+          if (lane < cx[x]) acc[j[x]] = fmaf(ax[x], v[x], acc[j[x]]);
+          for (long long f = sx[x] + 32 + lane; f < sx[x] + cx[x]; f += 32) {
+            const int jj = p.b_col[f] - c0;
+            acc[jj] = fmaf(ax[x], p.bval[f], acc[jj]);
+          }
+          __syncwarp();
+        }
+      }
+    }
+    if (add && !hit) continue;      // nothing reaches this window
+    if (vec) {
+      for (int i = lane * VEC; i < width; i += 32 * VEC) {
+        float sum[VEC];
+#pragma unroll
+        for (int x = 0; x < VEC; x += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(acc + i + x);
+          sum[x] = q.x;
+          sum[x + 1] = q.y;
+          sum[x + 2] = q.z;
+          sum[x + 3] = q.w;
+        }
+        Run<T, VEC>* d = reinterpret_cast<Run<T, VEC>*>(C + c0 + i);
+        if (!add) {
+          Run<T, VEC> r;
+#pragma unroll
+          for (int x = 0; x < VEC; ++x) r.x[x] = from_f32<T>(sum[x]);
+          *d = r;
+          continue;
+        }
+        bool reach = false;
+#pragma unroll
+        for (int x = 0; x < VEC; ++x) reach |= __float_as_uint(sum[x]) != 0u;
+        if (!reach) continue;
+        Run<T, VEC> r = *d;
+#pragma unroll
+        for (int x = 0; x < VEC; ++x)
+          if (__float_as_uint(sum[x]) != 0u)
+            r.x[x] = combine<T>(r.x[x], sum[x], true);
+        *d = r;
+      }
+    } else {
+      for (int i = lane; i < width; i += 32) {
+        const float sum = acc[i];
+        if (!add)
+          C[c0 + i] = from_f32<T>(sum);
+        else if (__float_as_uint(sum) != 0u)
+          C[c0 + i] = combine<T>(C[c0 + i], sum, true);
+      }
+    }
+    __syncwarp();                   // the window is read before it is zeroed
+  }
+}
+
+// Zero whole rows of a fresh output (rows: tile * R + row of each row that
+// no nonzero of A reaches), one thread block a row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    spmm_zero_rows_kernel(const int* __restrict__ rows, long long n_rows,
+                          T* __restrict__ out, int n, int vec) {
+  for (long long x = blockIdx.x; x < n_rows; x += gridDim.x) {
+    T* o = out + static_cast<long long>(rows[x]) * n;
+    if (vec) {
+      uint4* o4 = reinterpret_cast<uint4*>(o);
+      const int n4 = n * static_cast<int>(sizeof(T)) / 16;
+      for (int e = threadIdx.x; e < n4; e += blockDim.x)
+        o4[e] = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      for (int e = threadIdx.x; e < n; e += blockDim.x) o[e] = from_f32<T>(0.f);
+    }
+  }
+}
+
+// The two lists' values at launch, into float32 beside them: A's at a_off
+// in the A pool, B's at b_off in the B pool; flags[0] (flags[1]) is raised
+// where one of A's (B's) is an inf or a NaN (the caller zeroes them first).
+// Block 0 also credits the real blocks that hold no nonzero to the counter.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    spmm_gather_kernel(const T* __restrict__ a,
+                       const long long* __restrict__ a_off, long long ea,
+                       const T* __restrict__ b,
+                       const long long* __restrict__ b_off, long long eb,
+                       float* __restrict__ aval, float* __restrict__ bval,
+                       int* __restrict__ flags,
+                       unsigned long long* count_blocks, long long credit) {
+  if (count_blocks != nullptr && credit > 0 && blockIdx.x == 0 &&
+      threadIdx.x == 0)
+    atomicAdd(count_blocks, static_cast<unsigned long long>(credit));
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  bool bad_a = false, bad_b = false;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < ea + eb; i += step) {
+    if (i < ea) {
+      const float x = to_f32(a[a_off[i]]);
+      aval[i] = x;
+      bad_a |= !isfinite(x);
+    } else {
+      const float x = to_f32(b[b_off[i - ea]]);
+      bval[i - ea] = x;
+      bad_b |= !isfinite(x);
+    }
+  }
+  if (bad_a) flags[0] = 1;
+  if (bad_b) flags[1] = 1;
+}
+
+// The row of a list that holds entry e: the last r in [0, rows) with
+// rowptr[r] <= e.
+__device__ __forceinline__ long long row_of(const long long* rowptr,
+                                            long long rows, long long e) {
+  long long lo = 0, hi = rows;
+  while (hi - lo > 1) {
+    const long long mid = (lo + hi) / 2;
+    if (rowptr[mid] <= e)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+struct SBNan {
+  const void* a;                 // the A pool, blocks of bs x bs
+  const long long* a_rowptr;
+  const int* a_brow;
+  const float* aval;
+  long long ea, a_rows;          // entries, rows (Pa * R) of A's lists
+  const long long* b_rowptr;
+  const int* b_col;
+  const float* bval;
+  long long eb, b_rows;
+  const int* maps;
+  const int* colptr;             // [T * span + 1]
+  const int* col_ent;            // [2, n_col]: block-row, A pool slot (-1:
+                                 // a listed zero block)
+  long long n_col;
+  const int* flags;
+  void* out;
+  int tiles, span, bs, R, K, n;
+};
+
+// A non-finite B[k, j] (a B entry of pool tile bt): in each output tile t
+// that reads bt, NaN at C[t][r, j] for every row r of a block-row that
+// lists a block in A's block column k / bs whose slot (r, k) is zero (a
+// listed zero block: every row).  Nothing while B's flag is clear.
+template <typename T>
+__global__ void __launch_bounds__(256) spmm_sb_nan_b_kernel(const SBNan p) {
+  if (p.flags[1] == 0) return;
+  const T* A = static_cast<const T*>(p.a);
+  T* out = static_cast<T*>(p.out);
+  const T nan = from_f32<T>(__int_as_float(0x7fc00000));
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long f = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       f < p.eb; f += step) {
+    if (isfinite(p.bval[f])) continue;
+    const long long row = row_of(p.b_rowptr, p.b_rows, f);
+    const int bt = static_cast<int>(row / p.K);
+    const int k = static_cast<int>(row % p.K);
+    const int c = k / p.bs, kk = k % p.bs, j = p.b_col[f];
+    if (c >= p.span) continue;
+    for (int t = 0; t < p.tiles; ++t) {
+      if (p.maps[p.tiles + t] != bt) continue;
+      const long long key = static_cast<long long>(t) * p.span + c;
+      for (int x = p.colptr[key]; x < p.colptr[key + 1]; ++x) {
+        const int br = p.col_ent[x];
+        const long long slot = p.col_ent[p.n_col + x];
+        for (int rr = 0; rr < p.bs; ++rr) {
+          if (slot >= 0 &&
+              to_f32(A[(slot * p.bs + rr) * p.bs + kk]) != 0.f)
+            continue;
+          out[(static_cast<long long>(t) * p.R + br * p.bs + rr) * p.n + j] =
+              nan;
+        }
+      }
+    }
+  }
+}
+
+// A non-finite A[r, k] (an A entry of pool tile q): in each output tile t
+// that reads q, NaN at C[t][r, j] for every column j that B row k of its B
+// tile does not hold.  Each block gathers its stride's non-finite entries,
+// then writes each one's row with all its threads.  Nothing while A's flag
+// is clear.
+template <typename T>
+__global__ void __launch_bounds__(256) spmm_sb_nan_a_kernel(const SBNan p) {
+  if (p.flags[0] == 0) return;
+  __shared__ long long s_bad[256];
+  __shared__ int s_n;
+  T* out = static_cast<T*>(p.out);
+  const T nan = from_f32<T>(__int_as_float(0x7fc00000));
+  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x;
+       base < p.ea; base += static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (threadIdx.x == 0) s_n = 0;
+    __syncthreads();
+    const long long e = base + threadIdx.x;
+    if (e < p.ea && !isfinite(p.aval[e])) s_bad[atomicAdd(&s_n, 1)] = e;
+    __syncthreads();
+    for (int i = 0; i < s_n; ++i) {
+      const long long bad = s_bad[i];
+      const long long row = row_of(p.a_rowptr, p.a_rows, bad);
+      const int q = static_cast<int>(row / p.R);
+      const int r = static_cast<int>(row % p.R);
+      const int k = p.a_brow[bad];
+      for (int t = 0; t < p.tiles; ++t) {
+        if (p.maps[t] != q) continue;
+        const long long br =
+            static_cast<long long>(p.maps[p.tiles + t]) * p.K + k;
+        const long long b_lo = p.b_rowptr[br], b_hi = p.b_rowptr[br + 1];
+        T* o = out + (static_cast<long long>(t) * p.R + r) * p.n;
+        for (int j = threadIdx.x; j < p.n; j += blockDim.x) {
+          long long lo = b_lo, hi = b_hi;       // first entry >= j
+          while (lo < hi) {
+            const long long mid = (lo + hi) / 2;
+            if (p.b_col[mid] < j)
+              lo = mid + 1;
+            else
+              hi = mid;
+          }
+          if (lo == b_hi || p.b_col[lo] != j) o[j] = nan;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+cudaError_t run_sparse_b(const SBParams& p, const SBNan& nan, const void* b,
+                         const long long* a_off, const long long* b_off,
+                         float* vals, int* flags, const int* zero_rows,
+                         long long n_zero, long long credit,
+                         cudaStream_t st) {
+  cudaError_t err = cudaMemsetAsync(flags, 0, 2 * sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  const long long elems = nan.ea + nan.eb;
+  if (elems > 0 || credit > 0) {
+    const long long blocks = (elems + 255) / 256;
+    spmm_gather_kernel<T><<<static_cast<unsigned>(
+                                blocks < 4096 ? (blocks > 0 ? blocks : 1)
+                                              : 4096),
+                            256, 0, st>>>(
+        static_cast<const T*>(nan.a), a_off, nan.ea,
+        static_cast<const T*>(b), b_off, nan.eb, vals,
+        vals + nan.ea, flags, p.count_blocks, credit);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (!p.accumulate && n_zero > 0) {
+    spmm_zero_rows_kernel<T><<<static_cast<unsigned>(n_zero), 256, 0, st>>>(
+        zero_rows, n_zero, static_cast<T*>(p.out), p.n, p.vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (p.n_units > 0) {
+    spmm_sparse_b_kernel<T>
+        <<<static_cast<unsigned>(p.n_units), SB_THREADS, 0, st>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (nan.eb > 0) {
+    spmm_sb_nan_b_kernel<T><<<SB_NAN_BLOCKS, 256, 0, st>>>(nan);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (nan.ea > 0) {
+    spmm_sb_nan_a_kernel<T><<<SB_NAN_BLOCKS, 256, 0, st>>>(nan);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
 }  // namespace
 
 // Which multiply a launch of this block size and type runs: 1 = tensor
@@ -1069,5 +1482,92 @@ extern "C" int bsr_spmm_elem_nan_launch(
           : elem_nan_pass<bf16>(static_cast<const bf16*>(b), fc, n_flag, sk,
                                 n_skip, sg, n_segs, sc, rp, br, cn, an,
                                 static_cast<bf16*>(out), bs, nbr, K, n, st);
+  return static_cast<int>(err);
+}
+
+// The sparse-B path (kernels/bsr_spmm.py::SparseBTable), one launch: a the
+// A pool (bs x bs blocks), b the B pool, both in `dtype`; A's lists
+// a_rowptr int64 [a_rows + 1], a_brow int32 and a_off int64 [ea]; B's
+// b_rowptr [b_rows + 1], b_col int32 and b_off int64 [eb], each row sorted
+// by column; windows int32 [b_rows, ceil(n / window) + 1]; units int32 [5,
+// n_units]; zero_rows int32 [n_zero] (tile * R + row), zeroed unless
+// accumulate; maps int32 [2, T]; colptr int32 [T * span + 1] and col_ent
+// int32 [2, n_col]; vals float32 [ea + eb] and flags int32 [2] (workspace);
+// out [T, R, n]; count_blocks uint64 [1] or null, to which the units'
+// credits and `credit` are added.  `window` must be the kernel's
+// SB_WINDOW.  All contiguous on one device.
+extern "C" int bsr_spmm_sparse_b_launch(
+    const void* a, const void* b, const void* a_rowptr, const void* a_brow,
+    const void* a_off, long long ea, long long a_rows, const void* b_rowptr,
+    const void* b_col, const void* b_off, long long eb, long long b_rows,
+    const void* windows, const void* units, long long n_units,
+    const void* zero_rows, long long n_zero, const void* maps,
+    const void* colptr, const void* col_ent, long long n_col, void* vals,
+    void* flags, void* out, void* count_blocks, long long credit, int T,
+    int span, int bs, int R, int K, int n, int window, int accumulate,
+    int dtype, void* stream) {
+  if (bs <= 0 || R <= 0 || K <= 0 || n <= 0 || T <= 0 || span <= 0 ||
+      ea < 0 || eb < 0 || n_units < 0 || n_zero < 0 || n_col < 0 ||
+      a_rows <= 0 || b_rows <= 0 || window != SB_WINDOW ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_units > INT_MAX || n_zero > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int elem = dtype == 0 ? 4 : 2;
+  SBParams p;
+  p.aval = static_cast<const float*>(vals);
+  p.a_rowptr = static_cast<const long long*>(a_rowptr);
+  p.a_brow = static_cast<const int*>(a_brow);
+  p.bval = static_cast<const float*>(vals) + ea;
+  p.b_rowptr = static_cast<const long long*>(b_rowptr);
+  p.b_col = static_cast<const int*>(b_col);
+  p.windows = static_cast<const int*>(windows);
+  p.units = static_cast<const int*>(units);
+  p.n_units = n_units;
+  p.maps = static_cast<const int*>(maps);
+  p.out = out;
+  p.count_blocks = static_cast<unsigned long long*>(count_blocks);
+  p.tiles = T;
+  p.R = R;
+  p.K = K;
+  p.n = n;
+  p.nwin = (n + SB_WINDOW - 1) / SB_WINDOW;
+  p.accumulate = accumulate;
+  p.vec = (n * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  SBNan nan;
+  nan.a = a;
+  nan.a_rowptr = p.a_rowptr;
+  nan.a_brow = p.a_brow;
+  nan.aval = p.aval;
+  nan.ea = ea;
+  nan.a_rows = a_rows;
+  nan.b_rowptr = p.b_rowptr;
+  nan.b_col = p.b_col;
+  nan.bval = p.bval;
+  nan.eb = eb;
+  nan.b_rows = b_rows;
+  nan.maps = p.maps;
+  nan.colptr = static_cast<const int*>(colptr);
+  nan.col_ent = static_cast<const int*>(col_ent);
+  nan.n_col = n_col;
+  nan.flags = static_cast<const int*>(flags);
+  nan.out = out;
+  nan.tiles = T;
+  nan.span = span;
+  nan.bs = bs;
+  nan.R = R;
+  nan.K = K;
+  nan.n = n;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* ao = static_cast<const long long*>(a_off);
+  const long long* bo = static_cast<const long long*>(b_off);
+  float* v = static_cast<float*>(vals);
+  int* fl = static_cast<int*>(flags);
+  const int* zr = static_cast<const int*>(zero_rows);
+  const cudaError_t err =
+      dtype == 0 ? run_sparse_b<float>(p, nan, b, ao, bo, v, fl, zr, n_zero,
+                                       credit, st)
+                 : run_sparse_b<bf16>(p, nan, b, ao, bo, v, fl, zr, n_zero,
+                                      credit, st);
   return static_cast<int>(err);
 }

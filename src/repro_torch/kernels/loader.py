@@ -50,6 +50,14 @@ _SIGNATURES = {
         # rowptr, brow, counts, any, out, bs, nbr, K, n, dtype, stream
         "bsr_spmm_elem_nan_launch": ([_P, _P, _L, _P, _L, _P, _L] + [_P] * 6
                                      + [_I] * 5 + [_P], _I),
+        # a, b, a_rowptr, a_brow, a_off, ea, a_rows, b_rowptr, b_col, b_off,
+        # eb, b_rows, windows, units, n_units, zero_rows, n_zero, maps,
+        # colptr, col_ent, n_col, vals, flags, out, count_blocks, credit, T,
+        # span, bs, R, K, n, window, accumulate, dtype, stream
+        "bsr_spmm_sparse_b_launch": ([_P] * 5 + [_L, _L] + [_P] * 3
+                                     + [_L, _L, _P, _P, _L, _P, _L, _P, _P,
+                                        _P, _L] + [_P] * 4 + [_L]
+                                     + [_I] * 9 + [_P], _I),
     },
     "bsr_pair": {
         # a, b, pa, pb, pidx, chunks, n_chunks, reduce, n_reduce, fill,

@@ -28,6 +28,7 @@ from .bsr_spmm import SpmmTable, bsr_spmm_cuda, spmm_table
 from .loader import refuse_autograd
 
 __all__ = ["IMPLS", "default_impl", "bsr_spmm", "bsr_spmm_raw",
+           "bsr_spmm_sparse_b_raw",
            "match_block_pairs", "build_pair_lists",
            "bsr_pair_matmul", "bsr_pair_accumulate", "steal_pair_accumulate",
            "densify", "densify_packed", "add_call_hook", "remove_call_hook"]
@@ -188,6 +189,64 @@ def _spmm_ref(blocks, rows, cols, dense, n_block_rows: int, a_map, b_map,
             0, torch.as_tensor(_host(b_map), device=dev).long())
     res = _ref.bsr_spmm_raw_ref(blocks, rows, cols, dense, n_block_rows)
     return res if out is None else out.add_(res)
+
+
+@_announced("bsr_spmm")
+def bsr_spmm_sparse_b_raw(a_blocks, a_rows, a_cols, b_blocks, b_rows, b_cols,
+                          *, n_block_rows: int, n_block_cols: int,
+                          impl: Optional[str] = None, a_map=None, b_map=None,
+                          table: Optional[SpmmTable] = None,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """C = BSR(a) @ densify(BSR(b)) into a dense C, for one tile or a batch,
+    with B left sparse: B1's sparse-B path.
+
+    Batched, ``a_blocks [P, S, bs, bs]`` and ``b_blocks [PB, SB, bs',
+    bs']`` are pools (with their ``[P, S]`` / ``[PB, SB]`` lists) that
+    output tile ``t`` reads in place: A tile ``a_map[t]`` and B tile
+    ``b_map[t]`` (both the identity by default).  B's tiles have
+    ``n_block_cols * bs'`` columns.  ``out`` is a carry, as in
+    :func:`bsr_spmm_raw`.  The plain path
+    (:func:`~repro_torch.kernels.ref.bsr_spmm_sparse_b_raw_ref`) multiplies
+    the nonzeros of every listed block; the kernel needs ``table``, a
+    plan's :func:`~repro_torch.kernels.bsr_spmm.spmm_table` with the
+    sparse-B work (both handles' element lists), and multiplies the real
+    blocks' nonzeros, with the same result on any input: that of A's listed
+    blocks times the densified B.  With tracing on, each call is a
+    ``kernel.bsr_spmm`` span, ``args.path`` ``"sparse_b"`` on the card.
+    """
+    refuse_autograd("bsr_spmm", a_blocks, b_blocks, out)
+    impl = _resolve(impl, b_blocks)
+    single = a_blocks.dim() == 3
+    if single:
+        a_blocks, a_rows, a_cols, b_blocks, b_rows, b_cols = (
+            x[None] for x in (a_blocks, a_rows, a_cols, b_blocks, b_rows,
+                              b_cols))
+        out = None if out is None else out[None]
+    if impl == "ref":
+        dev = a_blocks.device
+        with _obs.launch("kernel.bsr_spmm"):
+            if a_map is not None:
+                a_idx = torch.as_tensor(_host(a_map), device=dev).long()
+                a_blocks, a_rows, a_cols = (x.index_select(0, a_idx) for x
+                                            in (a_blocks, a_rows, a_cols))
+            if b_map is not None:
+                b_idx = torch.as_tensor(_host(b_map), device=dev).long()
+                b_blocks, b_rows, b_cols = (x.index_select(0, b_idx) for x
+                                            in (b_blocks, b_rows, b_cols))
+            res = _ref.bsr_spmm_sparse_b_raw_ref(
+                a_blocks, a_rows, a_cols, b_blocks, b_rows, b_cols,
+                n_block_rows, n_block_cols)
+            res = res if out is None else out.add_(res)
+    else:
+        if table is None or table.sparse_b is None:
+            raise ValueError("the sparse-B kernel runs a plan's table, which "
+                             "holds both handles' element lists; without "
+                             "one, densify B and call bsr_spmm_raw")
+        with _obs.launch("kernel.bsr_spmm", device=b_blocks) as span:
+            span.note(path=table.path)
+            res = bsr_spmm_cuda(a_blocks.contiguous(), b_blocks.contiguous(),
+                                table, out=out)
+    return res[0] if single else res
 
 
 def bsr_spmm(a_bsr, dense, *, impl: Optional[str] = None) -> torch.Tensor:

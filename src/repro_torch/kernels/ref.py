@@ -13,7 +13,7 @@ import torch
 
 __all__ = ["bsr_spmm_raw_ref", "bsr_spmm_ref", "steal_pair_accumulate_raw_ref",
            "bsr_pair_accumulate_raw_ref", "bsr_pair_matmul_raw_ref",
-           "densify_raw"]
+           "bsr_spmm_sparse_b_raw_ref", "densify_raw"]
 
 # Elements of the [tiles, chunk, bs, n] (or [tiles, chunk, bs, bs])
 # partial-product buffer per chunk: bounds the reference's memory at the
@@ -52,6 +52,94 @@ def bsr_spmm_raw_ref(blocks, rows, cols, dense, n_block_rows: int,
         dst = (tile * n_block_rows + rows[:, sl].long()).reshape(-1)
         out.index_add_(0, dst, part.reshape(-1, bs, n))
     out = out.reshape(t, n_block_rows * bs, n).to(out_dtype)
+    return out[0] if single else out
+
+
+def bsr_spmm_sparse_b_raw_ref(a_blocks, a_rows, a_cols, b_blocks, b_rows,
+                              b_cols, n_block_rows: int, n_block_cols: int,
+                              out_dtype: Optional[torch.dtype] = None
+                              ) -> torch.Tensor:
+    """C = BSR(a) @ densify(BSR(b)), from the two operands' nonzeros.
+
+    a_blocks [S, bs, bs] / [T, S, bs, bs] with ``a_rows``/``a_cols`` as
+    :func:`bsr_spmm_raw_ref`'s; b_blocks [Sb, bs', bs'] / [T, Sb, bs', bs']
+    with ``b_rows``/``b_cols``, the B tile of each output tile, whose
+    ``n_block_cols * bs'`` columns C takes; returns ``[nbr*bs, n]`` /
+    ``[T, nbr*bs, n]`` in ``promote(a, b)``, summed in float32, equal to
+    ``bsr_spmm_raw_ref(a, ..., densify_raw(b, ...))``: every product of a
+    nonzero of A's row r and column k with a nonzero of B's row k is added
+    into C[r, j], and the zeros either side skips give that product's
+    non-finite values: NaN at C[r, j] where a zero slot (r, k) of a listed
+    A block (or a listed zero block) meets a non-finite B[k, j], and where
+    a non-finite A[r, k] meets a zero B[k, j].
+    """
+    single = a_blocks.dim() == 3
+    if single:
+        a_blocks, a_rows, a_cols, b_blocks, b_rows, b_cols = (
+            x[None] for x in (a_blocks, a_rows, a_cols, b_blocks, b_rows,
+                              b_cols))
+    t, _, bs, _ = a_blocks.shape
+    bs_b = b_blocks.shape[-1]
+    r_tile, n = n_block_rows * bs, n_block_cols * bs_b
+    out_dtype = out_dtype or torch.promote_types(a_blocks.dtype,
+                                                 b_blocks.dtype)
+    dev = a_blocks.device
+    a_rows, a_cols, b_rows, b_cols = (x.long() for x in (a_rows, a_cols,
+                                                          b_rows, b_cols))
+    # A's and B's nonzeros (a NaN counts) as (tile, row, column, value)
+    at, asl, ar, ac = torch.nonzero(a_blocks != 0, as_tuple=True)
+    a_r, a_k = a_rows[at, asl] * bs + ar, a_cols[at, asl] * bs + ac
+    a_v = a_blocks[at, asl, ar, ac].float()
+    bt, bsl, br, bc = torch.nonzero(b_blocks != 0, as_tuple=True)
+    b_k, b_j = b_rows[bt, bsl] * bs_b + br, b_cols[bt, bsl] * bs_b + bc
+    b_v = b_blocks[bt, bsl, br, bc].float()
+    k_span = int(max(a_k.max().item() if a_k.numel() else 0,
+                     b_k.max().item() if b_k.numel() else 0)) + 1
+    # B's nonzeros by (tile, row) as CSR
+    b_key = bt * k_span + b_k
+    b_key, order = torch.sort(b_key, stable=True)
+    b_j, b_v = b_j[order], b_v[order]
+    b_ptr = torch.zeros(t * k_span + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(b_key, minlength=t * k_span), 0,
+                 out=b_ptr[1:])
+    out = torch.zeros(t * r_tile * n, dtype=torch.float32, device=dev)
+    a_key = at * k_span + a_k
+    start, length = b_ptr[a_key], b_ptr[a_key + 1] - b_ptr[a_key]
+    ends = torch.cumsum(length, 0)
+    step = max(1, _CHUNK_ELEMS // 4)
+    e0 = 0
+    while e0 < a_key.numel():
+        # A's nonzeros [e0, e1) with at most ``step`` products between them
+        base = int(ends[e0 - 1]) if e0 else 0
+        e1 = max(e0 + 1, int(torch.searchsorted(ends, base + step,
+                                                right=True)))
+        e = torch.repeat_interleave(torch.arange(e0, e1, device=dev),
+                                    length[e0:e1])
+        f = start[e] + torch.arange(e.numel(), device=dev) \
+            - (ends[e] - length[e] - base)
+        dst = (at[e] * r_tile + a_r[e]) * n + b_j[f]
+        out.index_add_(0, dst, a_v[e] * b_v[f])
+        e0 = e1
+    out = out.view(t, r_tile, n)
+    nan = float("nan")
+    # a non-finite B[k, j]: NaN in the rows of the listed A blocks of block
+    # column k // bs whose slot (r, k) is zero
+    for x in torch.nonzero(~torch.isfinite(b_v)).flatten().tolist():
+        tile = int(bt[order[x]])
+        k, j = int(b_k[order[x]]), int(b_j[x])
+        on = torch.nonzero(a_cols[tile] == k // bs).flatten()
+        zero = a_blocks[tile, on, :, k % bs] == 0            # [blocks, bs]
+        blk, rr = torch.nonzero(zero, as_tuple=True)
+        out[tile, a_rows[tile, on[blk]] * bs + rr, j] = nan
+    # a non-finite A[r, k]: NaN at the columns that B row k does not hold
+    for x in torch.nonzero(~torch.isfinite(a_v)).flatten().tolist():
+        tile, r, k = int(at[x]), int(a_r[x]), int(a_k[x])
+        held = torch.zeros(n, dtype=torch.bool, device=dev)
+        lo, hi = int(b_ptr[tile * k_span + k]), int(b_ptr[tile * k_span + k
+                                                          + 1])
+        held[b_j[lo:hi]] = True
+        out[tile, r, ~held] = nan
+    out = out.to(out_dtype)
     return out[0] if single else out
 
 

@@ -456,6 +456,189 @@ def test_full_blocks_keep_the_block_path(card):
 
 
 # ---------------------------------------------------------------------------
+# B1's sparse-B path (a dense-output SpGEMM whose B stays block-sparse)
+# ---------------------------------------------------------------------------
+def _square_low_fill(m: int, seed: int) -> np.ndarray:
+    """A square matrix of nearly empty real blocks at bs 16 and 32, with a
+    hub row and column (a heavy row of products) and an empty block-row."""
+    a = random_sparse(m, m, 0.0012, seed=seed)
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(m, size=m // 6, replace=False)
+    a[7, idx] = rng.standard_normal(idx.size)
+    a[idx, 7] = rng.standard_normal(idx.size)
+    a[32:64] = 0
+    return a
+
+
+def _sparse_b_case(bs: int, dtype, device, seed: int = 0, m: int = 2400):
+    """A @ B on a 2 x 2 grid of low-fill handles: the sparse-B table of the
+    plan's second ring step, the placed pools it reads (A's and B's blocks,
+    rows, cols) and its maps."""
+    a_h, b_h = (DistBSR.from_dense(_square_low_fill(m, seed + x), g=2,
+                                   block_size=bs, dtype=dtype, device=device)
+                for x in (0, 50))
+    assert pick_path(a_h.tiled.fill()) == pick_path(b_h.tiled.fill()) \
+        == "elements"
+    plan = plan_matmul(a_h, b_h)
+    ex = plan.executor
+    a_map = ex.shift_map(ex.identity_map(), "col")
+    b_map = ex.shift_map(ex.identity_map(), "row")
+    table = plan.sparse_b_table(a_h, b_h, a_map, b_map)
+    pools = [ex.batch(h.placed(pl)[k]) for h, pl in ((a_h, SKEW_ROWS),
+                                                     (b_h, SKEW_COLS))
+             for k in ("blocks", "rows", "cols")]
+    return table, pools, a_map, b_map, a_h.tile_shape[0] // bs, \
+        b_h.tile_shape[1] // bs
+
+
+def _sparse_b_plain(pools, a_map, b_map, nbr: int, nbc: int):
+    """The plain version of the step and the scale |A| @ |B| (from the
+    densified B)."""
+    ai = torch.as_tensor(a_map, device=pools[0].device)
+    bi = torch.as_tensor(b_map, device=pools[0].device)
+    a = [x[ai] for x in pools[:3]]
+    b = [x[bi] for x in pools[3:]]
+    want = ref.bsr_spmm_sparse_b_raw_ref(*a, *b, nbr, nbc)
+    dense = ref.densify_raw(*b, int(b[1].max()) + 1, nbc)
+    scale = ref.bsr_spmm_raw_ref(
+        a[0].abs().nan_to_num(0, 0, 0), a[1], a[2],
+        dense.abs().nan_to_num(0, 0, 0), nbr, out_dtype=torch.float32)
+    return want, scale
+
+
+def _same_nonfinite(got: torch.Tensor, want: torch.Tensor) -> None:
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], want[inf])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [16, 32])
+def test_sparse_b_path_matches_plain_version(card, bs, dtype):
+    """The sparse-B kernel writes a fresh C equal to its plain version
+    (B1's block counter: the table's real blocks; the wrapper's tally:
+    one ``sparse_b`` launch) and adds into C in place, the rows no nonzero
+    of A reaches bit-identical."""
+    table, pools, a_map, b_map, nbr, nbc = _sparse_b_case(bs, dtype, card)
+    assert table.path == "sparse_b"
+    launches = dict(bsr_spmm_cuda.paths)
+    args = dict(n_block_rows=nbr, n_block_cols=nbc, a_map=a_map,
+                b_map=b_map, table=table)
+    got, multiplied = _counted(lambda: ops.bsr_spmm_sparse_b_raw(*pools,
+                                                                 **args))
+    assert bsr_spmm_cuda.paths == {**launches,
+                                   "sparse_b": launches["sparse_b"] + 1}
+    assert multiplied == table.real_blocks
+    want, scale = _sparse_b_plain(pools, a_map, b_map, nbr, nbc)
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    assert_close(got, want, scale, step)
+    carry = torch.randn(got.shape, device=card).to(dtype)
+    out = carry.clone()
+    again = ops.bsr_spmm_sparse_b_raw(*pools, **args, out=out)
+    assert again is out
+    torch.cuda.synchronize()
+    assert_close(out, (carry.float() + want.float()).to(dtype), 2 * scale,
+                 2 * step)
+    rows = table.sparse_b.zero_rows.long()
+    assert rows.numel() > 0
+    assert torch.equal(out.view(-1, out.shape[-1])[rows],
+                       carry.view(-1, out.shape[-1])[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poke", ["a_inf", "a_nan", "b_inf", "b_nan"])
+def test_sparse_b_nan_mask_on_nonfinite_values(card, poke):
+    """An inf or a NaN in A's or B's stored values gives the plain
+    version's NaN and inf positions exactly, fresh and into C: NaN where a
+    non-finite B value meets A's zero slots (and zero blocks), where a
+    non-finite A value meets B's zeros."""
+    bs = 16
+    table, pools, a_map, b_map, nbr, nbc = _sparse_b_case(bs, torch.float32,
+                                                          card, seed=3)
+    blocks = pools[0 if poke.startswith("a") else 3]
+    where = torch.nonzero(blocks)[5].tolist()
+    blocks[tuple(where)] = float("inf") if poke.endswith("inf") \
+        else float("nan")
+    want, scale = _sparse_b_plain(pools, a_map, b_map, nbr, nbc)
+    assert bool(torch.isnan(want).any()) and not bool(torch.isnan(want).all())
+    args = dict(n_block_rows=nbr, n_block_cols=nbc, a_map=a_map,
+                b_map=b_map, table=table)
+    got = ops.bsr_spmm_sparse_b_raw(*pools, **args)
+    torch.cuda.synchronize()
+    _same_nonfinite(got, want)
+    keep = torch.isfinite(want)
+    assert_close(got[keep], want[keep], scale[keep])
+    out = torch.ones_like(got)
+    ops.bsr_spmm_sparse_b_raw(*pools, **args, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,g", [
+    ("ring_c", 1), ("ring_c", 2), ("ring_c", 3), ("summa_bcast", 1),
+    ("summa_bcast", 2), ("summa_bcast", 3), ("summa_ag", 1), ("summa_ag", 2),
+    ("summa_ag", 3)])
+def test_sparse_b_matmul_on_the_card_matches_the_cpu(card, algorithm, g):
+    """``matmul(A_h, A_h)`` with a dense output through the stationary-C
+    schedules launches B1's sparse-B path once a step and no other path
+    (the wrapper's tally, the launch spans' ``args.path``), credits every
+    real block, and matches the CPU."""
+    from repro_torch import obs
+    a_d = _square_low_fill(2200, 10 + g)
+    kw = dict(algorithm=algorithm, output="dense")
+    want = matmul(DistBSR.from_dense(a_d, g=g, block_size=16, device="cpu"),
+                  DistBSR.from_dense(a_d, g=g, block_size=16, device="cpu"),
+                  **kw)
+    a_h = DistBSR.from_dense(a_d, g=g, block_size=16, device=card)
+    matmul(a_h, a_h, **kw)                         # tables built
+    launches = dict(bsr_spmm_cuda.paths)
+    obs.enable(clear=True)
+    try:
+        got, multiplied = _counted(lambda: matmul(a_h, a_h, **kw))
+        spans = [e for e in obs.events() if e["name"] == "kernel.bsr_spmm"]
+    finally:
+        obs.disable()
+        obs.reset_all()
+    assert bsr_spmm_cuda.paths == {**launches,
+                                   "sparse_b": launches["sparse_b"] + g}
+    assert [e["args"]["path"] for e in spans] == ["sparse_b"] * g
+    assert multiplied == g * int(a_h.counts.sum())
+    assert_close(got.cpu(), want, torch.from_numpy(np.abs(a_d) @ np.abs(a_d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full_b", "dense_b"])
+def test_full_or_dense_b_keeps_todays_paths(card, case):
+    """A B at fill >= ELEMENT_FILL is densified and a dense B read as it is,
+    as before: B1 launches on the element path only, once a step, and the
+    result matches the CPU."""
+    bs = 16
+    a_d = _square_low_fill(1600, 4)
+    if case == "full_b":
+        b_d = np.kron(np.eye(a_d.shape[0] // bs, dtype=np.float32),
+                      np.random.default_rng(1).standard_normal(
+                          (bs, bs)).astype(np.float32))
+    else:
+        b_d = np.random.default_rng(1).standard_normal(
+            (a_d.shape[0], 48)).astype(np.float32)
+    rhs = (lambda dev: DistBSR.from_dense(b_d, g=2, block_size=bs,
+                                          device=dev)) \
+        if case == "full_b" else (lambda dev: b_d)
+    want = matmul(DistBSR.from_dense(a_d, g=2, block_size=bs, device="cpu"),
+                  rhs("cpu"), algorithm="ring_c")
+    a_h = DistBSR.from_dense(a_d, g=2, block_size=bs, device=card)
+    launches = dict(bsr_spmm_cuda.paths)
+    got = matmul(a_h, rhs(card), algorithm="ring_c")
+    assert bsr_spmm_cuda.paths == {**launches,
+                                   "elements": launches["elements"] + 2}
+    assert_close(got.cpu(), want,
+                 torch.from_numpy(np.abs(a_d) @ np.abs(b_d)))
+
+
+# ---------------------------------------------------------------------------
 # the pair kernels (bsr_pair_accumulate, bsr_pair_matmul) and sparse outputs
 # ---------------------------------------------------------------------------
 def _pair_case(bs: int, dtype, device, seed: int = 0):
