@@ -51,7 +51,7 @@ non-zero and prints no result line):
    from g 3 on; the packed wire where the schedule packs A) and in
    dense-output SpGEMM on the scale-14 operand, each against the oracle
    with B1's blocks counted against the real blocks of its plan's tables
-   (``plan.step_maps()``); ``algorithm="auto"``'s choice and scores on the
+   (``plan.launch_maps()``); ``algorithm="auto"``'s choice and scores on the
    ``H100_SXM`` preset over all six schedules, planned and run, and each
    schedule's predicted
    seconds beside its measured median (a record, not a check); a
@@ -708,21 +708,22 @@ def main_path_operands(device):
 
 
 def main_path_kernel_cases(cases) -> dict:
-    """B1 at the shapes of its main paths' first ring step, with the plan's
-    own table (the real blocks alone), each input read where the plan reads
-    it: the placed A stack and the placed (for SpGEMM densified) B stack.
-    Then its two library yardsticks on the same real blocks.  ``cases`` are
-    (shape name, dtype, A handle, B handle)."""
+    """B1 at the shapes of its main paths' ring step, with the plan's own
+    table (the real blocks alone), each input read where the plan reads
+    it: the natural A stack and the natural (for SpGEMM densified) B stack,
+    output tile p reading tile p of each.  Then its two library yardsticks
+    on the same real blocks.  ``cases`` are (shape name, dtype, A handle,
+    B handle)."""
     from repro_torch.core import api
     res = {}
     for shape, dtype, a_h, b_h in cases:
         plan = api.plan_matmul(a_h, b_h)
         ex, g, bs = plan.executor, a_h.g, a_h.block_size
         nbr = a_h.tile_shape[0] // bs
-        placed = a_h.placed(api.SKEW_ROWS)
-        blocks, rows, cols = (ex.batch(placed[k])
+        nat = a_h.placed(api.NATURAL)
+        blocks, rows, cols = (ex.batch(nat[k])
                               for k in ("blocks", "rows", "cols"))
-        dense = ex.batch(api._densify_b(b_h.placed(api.SKEW_COLS),
+        dense = ex.batch(api._densify_b(b_h.placed(api.NATURAL),
                                         plan.geom, ex)["dense"])
         ident = ex.identity_map()
         table = plan.spmm_table(a_h, ident, ident)
@@ -744,7 +745,7 @@ def main_path_kernel_cases(cases) -> dict:
               f"B1 {label} needs a partial workspace")
         r["nonfinite"] = nonfinite_case(blocks, rows, cols, dense, nbr, table,
                                         label, r["ms"])
-        real = a_h.pool_lists(api.SKEW_ROWS, packed=False).real
+        real = a_h.pool_lists(False).real
         r.update(b1_yardsticks(blocks, rows, cols, dense, nbr, real,
                                TOL_F32_DEEP, label))
         r["shape"] = {"T": g * g, "S": blocks.shape[1], "bs": bs,
@@ -753,7 +754,7 @@ def main_path_kernel_cases(cases) -> dict:
         if shape == "SpMM" and table.elements is not None:
             # the block path on the same real blocks, which raw calls,
             # steal3d and high-fill handles take
-            blocks_table = a_h.pool_lists(api.SKEW_ROWS, packed=False).table(
+            blocks_table = a_h.pool_lists(False).table(
                 ident, ident, nbr, device=blocks.device)
             b = kernel_case(blocks, rows, cols, dense, nbr, TOL_F32_DEEP,
                             label + ", block path", table=blocks_table,
@@ -826,7 +827,7 @@ def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
     """Time ``matmul`` (median after one warm-up) and hold its result
     against the oracle within ``tol * scale`` elementwise; the warm-up's
     blocks multiplied by B1 (counted on the card) against the real blocks
-    of the tables of its plan's launches (``plan.step_maps()``): each
+    of the tables of its plan's launches (``plan.launch_maps()``): each
     launch multiplies every tile's real blocks once."""
     from repro_torch.core import api
     from repro_torch.core.roofline import H100_SXM
@@ -843,7 +844,7 @@ def e2e_case(label, a_h, b_h, oracle, scale, tol, overlap, reps=3,
         real = plan._steal.real_pairs
         want = a_h.g * int(a_h.counts.sum())
     else:
-        launches = [m for step in plan.step_maps() for m in step]
+        launches = [m for step in plan.launch_maps() for m in step]
         real = sum(plan.spmm_table(a_h, a_map, b_map).real_blocks
                    for a_map, b_map in launches)
         want = len(launches) * int(a_h.counts.sum())
@@ -1004,7 +1005,8 @@ def device_breakdown(a_h, b_h, label: str, operands=(), **kw) -> dict:
     the multiply's wall time: where the time goes, and the share of the
     wall time in which no kernel or copy ran on the card.  ``kw`` goes to
     ``matmul``; one more multiply lists its rolls and, for the tensors in
-    ``operands`` (the placed stacks), the copy ops that read them
+    ``operands`` (the handles' storage and the natural stacks the bodies
+    read), the copy ops that read them
     (``repro_torch.analysis.op_lint.copy_ops``)."""
     from repro_torch.analysis.op_lint import copy_ops
     from repro_torch.core.api import matmul
@@ -1556,26 +1558,22 @@ def sparse_b_square(device) -> dict:
     plain version's time and
     cuSPARSE's ``CSR @ CSR`` of the step's tiles as a yardstick; then one
     ``matmul`` counted by path.  Returns the kernels-line entry."""
-    from repro_torch.core import wire as _wire
-    from repro_torch.core.api import SKEW_COLS, SKEW_ROWS, matmul, \
-        plan_matmul
+    from repro_torch.core.api import NATURAL, matmul, plan_matmul
     from repro_torch.kernels import ref
     from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
     a_h, nnz = square_handle(device)
     g, bs = SQUARE["g"], SQUARE["block_size"]
     plan = plan_matmul(a_h, a_h, algorithm="ring_c", output="dense")
     ex = plan.executor
-    placed = [ex.batch(a_h.placed(pl)[k]) for pl in (SKEW_ROWS, SKEW_COLS)
-              for k in ("blocks", "rows", "cols")]
+    # A's natural stacks, read as A and as B through the launch maps
+    placed = [ex.batch(a_h.placed(NATURAL)[k])
+              for k in ("blocks", "rows", "cols")] * 2
     nbr = a_h.tile_shape[0] // bs
     log(f"  square: {nnz} nonzeros, fill {100 * a_h.tiled.fill():.4f} %, "
         f"real blocks {a_h.counts.cpu().numpy().ravel().tolist()}")
     reset_counts()
-    res, a_map, b_map = {}, ex.identity_map(), ex.identity_map()
-    for step in range(g):
-        if step:
-            a_map = ex.shift_map(a_map, "col")
-            b_map = ex.shift_map(b_map, "row")
+    res = {}
+    for step, ((a_map, b_map),) in enumerate(plan.launch_maps()):
         table = plan.sparse_b_table(a_h, a_h, a_map, b_map)
         check(table is not None and table.path == "sparse_b",
               "the square's step takes no sparse-B table")
@@ -1629,11 +1627,9 @@ def sparse_b_square(device) -> dict:
         bound = max((c_bytes + lists + tables) / peak_bytes * 1e3, t_ops)
         acc_bound = max((2 * sectors * 32 + lists + tables) / peak_bytes
                         * 1e3, t_ops)
-        tiles = _wire.placement_tiles(SKEW_ROWS, g).reshape(-1, 2)
-        b_tiles = _wire.placement_tiles(SKEW_COLS, g).reshape(-1, 2)
         lib = csr_yardstick(
-            blockdiag_csr(a_h.tiled, [tuple(x) for x in tiles[a_map]]),
-            blockdiag_csr(a_h.tiled, [tuple(x) for x in b_tiles[b_map]]),
+            blockdiag_csr(a_h.tiled, [divmod(int(p), g) for p in a_map]),
+            blockdiag_csr(a_h.tiled, [divmod(int(p), g) for p in b_map]),
             total, f"square step {step}", rel=1e-4)
         free()
         res[step] = {"ms": ms, "accumulate_ms": acc_ms, "plain_ms": plain_ms,
@@ -1684,8 +1680,7 @@ def sparse_path(device) -> dict:
     output="auto" (a sparse C over the packed wire), B2 at its step-0
     shapes, the multiply's time and breakdown, and C against scipy."""
     from repro_torch.core import api
-    from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR, matmul,
-                                      plan_matmul)
+    from repro_torch.core.api import NATURAL, DistBSR, matmul, plan_matmul
     from repro_torch.core.bsr import rmat_matrix
     from repro_torch.obs import sync_elapsed
     cfg = SPARSE
@@ -1726,10 +1721,16 @@ def sparse_path(device) -> dict:
     g, bs = a_h.g, a_h.block_size
     real = sym.scheduled_pairs(plan.algorithm.k_order)["real"]
     real = [real[:, :, t].reshape(g * g, -1) for t in range(g)]
-    wire_a = a_h.packed_wire(SKEW_ROWS)
-    wire_b = a_h.packed_wire(SKEW_COLS)
-    a0 = wire_a["blocks"].reshape(g * g, -1, bs, bs)
-    b0 = wire_b["blocks"].reshape(g * g, -1, bs, bs)
+    # each step's A and B tiles, gathered from the natural packed stack
+    # through the step's launch maps, as the sparse-output body reads them
+    nat = a_h.packed_wire(NATURAL)["blocks"].reshape(g * g, -1, bs, bs)
+    maps = plan.launch_maps()
+
+    def tiles(t):
+        return [nat.index_select(0, torch.as_tensor(m, device=nat.device))
+                for m in maps[t][0]]
+
+    a0, b0 = tiles(0)
     st = plan._pairs[0]
     kres = {torch.float32: pair_acc_case(
         a0, b0, st["pa"], st["pb"], st["ps"], sym.store_capacity,
@@ -1740,9 +1741,7 @@ def sparse_path(device) -> dict:
         "main-path step 0 bf16", real[0], table=st["table"], reps=5)
     del a16, b16
     free()
-    ex = plan.executor
-    a1 = ex.shift(wire_a, "col")["blocks"].reshape(g * g, -1, bs, bs)
-    b1 = ex.shift(wire_b, "row")["blocks"].reshape(g * g, -1, bs, bs)
+    a1, b1 = tiles(1)
     st1 = plan._pairs[1]
     carry_res = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1876,12 +1875,13 @@ def sparse_schedule_case(a_h, sym, oracle, algorithm: str) -> dict:
 
 def sparse_step_times(plan, a_h) -> dict:
     """CUDA-event times of one sparse-output multiply run launch by launch
-    as ``_sparse_body_ring_c`` runs it: each step's ring shifts and its B2
-    launch, then the cast to the output dtype (the profiler's trace of
-    this path has missed launches)."""
+    as ``_sparse_body`` runs it: each step's gathers of its A and B tiles
+    through the launch maps and its B2 launch, then the cast to the output
+    dtype (the profiler's trace of this path has missed launches)."""
     from repro_torch.core import api
     _, (a_tree, b_tree, pairs) = plan._operands(a_h, a_h)
     geom, ex = plan.geom, plan.executor
+    a_pool, b_pool = ex.batch(a_tree["blocks"]), ex.batch(b_tree["blocks"])
 
     def mark():
         e = torch.cuda.Event(enable_timing=True)
@@ -1891,14 +1891,14 @@ def sparse_step_times(plan, a_h) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     spans, c = [], None
-    steps = api._ring_steps(a_tree, b_tree, geom, ex.shift)
-    for t in range(geom.g):
+    for t, step in enumerate(pairs):
         e0 = mark()
-        a_t, b_t = next(steps)
+        a_t = {"blocks": ex.unbatch(a_pool.index_select(0, step["a_map"]))}
+        b_t = {"blocks": ex.unbatch(b_pool.index_select(0, step["b_map"]))}
         e1 = mark()
-        c = api._sparse_step(a_t, b_t, pairs[t], c, geom, ex)
+        c = api._sparse_step(a_t, b_t, step, c, geom, ex)
         e2 = mark()
-        spans += [(f"shifts launched at step {t}", e0, e1),
+        spans += [(f"gathers launched at step {t}", e0, e1),
                   (f"step {t} B2", e1, e2)]
     e0 = mark()
     out = c.to(geom.out_dtype)
@@ -2063,16 +2063,15 @@ def other_schedules(ops: dict) -> dict:
             f"{scores[alg] * 1e3:.4f} ms")
     breakdown = {}
     for alg in OTHER:
-        spec = api.REGISTRY.get(alg)
         bd = breakdown[alg] = device_breakdown(
             a32, b32, f"{alg} SpMM float32", algorithm=alg, operands=(
-                a32.placed(spec.a_placement)["blocks"],
-                b32.placed(spec.b_placement)["dense"]))
+                a32.placed(api.NATURAL)["blocks"], b32.data,
+                b32.placed(api.NATURAL)["dense"]))
         check(not bd["operand_copies"]
               and not bd["rolls"],
               f"{alg}: the multiply rolls or gathers an operand "
               f"({bd['operand_copies']})")
-    b_pool = b32.placed(api.SKEW_COLS)["dense"].reshape(
+    b_pool = b32.placed(api.NATURAL)["dense"].reshape(
         a32.g ** 2, *b32.tile_shape)
     split_ms = time_ms(lambda: api._split_cols(b_pool, b32.tile_shape[1]
                                                // 2), 5)
@@ -2820,19 +2819,18 @@ def serve_b1_case(ops, label: str, a_dense, x, capacity="bucket") -> dict:
     b_h = api.DistDense.for_rhs(x, a_h, allow_pad=True)
     plan = api.plan_matmul(a_h, b_h, algorithm="ring_a")
     ex, bs = plan.executor, a_h.block_size
-    pl_a, pl_b = plan.algorithm.a_placement, plan.algorithm.b_placement
-    blocks, rows, cols = (ex.batch(a_h.placed(pl_a)[k])
+    blocks, rows, cols = (ex.batch(a_h.placed(api.NATURAL)[k])
                           for k in ("blocks", "rows", "cols"))
-    dense = ex.batch(b_h.placed(pl_b)["dense"])
-    (a_map, b_map), = plan.step_maps()[0]
-    table = plan.spmm_table(a_h, a_map, b_map)
+    dense = ex.batch(b_h.placed(api.NATURAL)["dense"])
+    ident = ex.identity_map()
+    table = plan.spmm_table(a_h, ident, ident)
     nbr = a_h.tile_shape[0] // bs
     log(f"  B1 {label}: A {tuple(a_h.logical_shape)} {str(a_h.dtype)[6:]}, "
         f"{table.real_blocks} real blocks of {blocks.shape[1]} stored, B "
         f"{tuple(dense.shape[1:])}")
     r = kernel_case(blocks, rows, cols, dense, nbr, TOL_F32_SMALL, label,
                     table=table, reps=20, timer=device_ms)
-    real = a_h.pool_lists(pl_a, packed=False).real
+    real = a_h.pool_lists(False).real
     r.update(b1_yardsticks(blocks, rows, cols, dense, nbr, real,
                            TOL_F32_SMALL, label, timer=device_ms))
     r["shape"] = {"A": list(a_h.logical_shape), "B": list(dense.shape[1:]),
@@ -4121,6 +4119,7 @@ def grid_rank_b1(ex, plan32, a32, b32) -> dict:
     its plain version, bound and library yardsticks, while the other
     ranks wait."""
     from repro_torch.core import api
+    from repro_torch.core.dist import placement_index
     g = ex.g
     placed = api._rank_tree(a32, api.SKEW_ROWS, False, ex)
     blocks, rows, cols = (placed[k][None] for k in ("blocks", "rows",
@@ -4133,7 +4132,8 @@ def grid_rank_b1(ex, plan32, a32, b32) -> dict:
     label = f"one-tile SpMM (a rank of the {g}x{g} grid) float32"
     b1 = kernel_case(blocks, rows, cols, dense, nbr, TOL_F32_DEEP, label,
                      table=table, reps=10)
-    real = a32.pool_lists(api.SKEW_ROWS, packed=False).take([held]).real
+    real = a32.pool_lists(False).take(
+        placement_index(api.SKEW_ROWS, g)[[held]]).real
     b1.update(b1_yardsticks(blocks, rows, cols, dense, nbr, real,
                             TOL_F32_DEEP, label))
     b1["shape"] = {"T": 1, "S": blocks.shape[1], "bs": blocks.shape[-1],
@@ -4145,6 +4145,7 @@ def grid_rank_b2(ex, plan_s, s_h) -> dict:
     """B2 at a rank's one-tile sparse-output shape (its first ring step)
     against its plain version, bound and cuSPARSE ``CSR @ CSR``."""
     from repro_torch.core import api
+    from repro_torch.core.dist import placement_tiles
     g = ex.g
     a0 = api._rank_tree(s_h, api.SKEW_ROWS, True, ex, True)["blocks"][None]
     b0 = api._rank_tree(s_h, api.SKEW_COLS, True, ex, True)["blocks"][None]
@@ -4155,8 +4156,8 @@ def grid_rank_b2(ex, plan_s, s_h) -> dict:
                        plan_s.geom.c_store, "one-tile sparse output (a rank "
                        f"of the {g}x{g} grid) float32", real_p,
                        table=st["table"], reps=5)
-    tiles = [tuple(int(x) for x in api._wire.placement_tiles(pl, g)[
-        ex.i, ex.j]) for pl in (api.SKEW_ROWS, api.SKEW_COLS)]
+    tiles = [tuple(int(x) for x in placement_tiles(pl, g)[ex.i, ex.j])
+             for pl in (api.SKEW_ROWS, api.SKEW_COLS)]
     csr_a = blockdiag_csr(s_h.tiled, tiles[:1]).to(a0.device)
     csr_b = blockdiag_csr(s_h.tiled, tiles[1:]).to(a0.device)
     b2["library_ms"] = csr_yardstick(csr_a, csr_b, ops_sum(a0, b0, st),
@@ -5879,8 +5880,7 @@ def main() -> int:
     # Hopper), set before the first product creates the handle's
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR,
-                                      DistDense, plan_matmul)
+    from repro_torch.core.api import NATURAL, DistBSR, DistDense, plan_matmul
     from repro_torch.core.bsr import rmat_matrix
     from repro_torch.runtime.device import strict_fp32
 
@@ -5981,12 +5981,12 @@ def main() -> int:
     breakdown = {
         "SpMM float32": device_breakdown(
             a32, b32, "SpMM float32", operands=(
-                a32.placed(SKEW_ROWS)["blocks"],
-                b32.placed(SKEW_COLS)["dense"])),
+                a32.placed(NATURAL)["blocks"], b32.data,
+                b32.placed(NATURAL)["dense"])),
         "SpMM float32 packed": device_breakdown(
             a32, b32, "SpMM float32 wire=packed", wire="packed", operands=(
-                a32.packed_wire(SKEW_ROWS)["blocks"],
-                b32.placed(SKEW_COLS)["dense"])),
+                a32.packed_wire(NATURAL)["blocks"], a32.tiled.blocks,
+                b32.data, b32.placed(NATURAL)["dense"])),
         "SpGEMM float32": device_breakdown(a14, a14, "SpGEMM float32")}
     for name in ("SpMM float32", "SpMM float32 packed"):
         bd = breakdown[name]

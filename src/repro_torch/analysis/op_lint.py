@@ -5,8 +5,9 @@ PyTorch has no jaxpr to walk, so this pass runs one multiply of a plan's
 body under the dry run's ``TorchDispatchMode``
 (``launch/op_analysis.py``'s ``OpRecorder``) and records, in order:
 
-* every aten op (its name, and whether it reads the storage of a placed
-  operand);
+* every aten op (its name, and whether it reads the storage of an
+  operand: the handles' own tensors, or the tile grid the multiply made
+  of a dense B);
 * every call of the ops that carry a kernel (``kernels.ops``: the local
   multiplies ``bsr_spmm`` and ``bsr_pair_accumulate``, and the wire's
   ``densify``), through ``ops.add_call_hook``: the CUDA kernels run behind
@@ -14,8 +15,8 @@ body under the dry run's ``TorchDispatchMode``
   local multiply's call are the kernel's own reads, not the body's; the
   ops of a ``densify`` call are the body's own data movement and count
   as such;
-* every shift of the stacked executor (``StackedExecutor.shift`` and
-  ``shift_map``): this executor's ppermutes.
+* every shift of the stacked executor (``StackedExecutor.shift_map``):
+  this executor's ppermutes, compositions of tile maps.
 
 Rules (stable ids):
 
@@ -25,12 +26,13 @@ Rules (stable ids):
   plan time.  Bound to kernel paths only (``impl`` resolving to
   ``"cuda"``), as ``jaxpr.scan-hot-loop`` binds to the Pallas paths: the
   plain versions accumulate with ``index_add_``.
-* ``optrace.no-operand-copy`` — a dense-output body with a block-sparse A
-  copies no placed operand (``roll``, ``index``, ``index_select``,
-  ``gather``, ``take_along_dim`` on its storage) and rolls nothing: the
-  kernels read the placed stacks in place.  The sparse-output bodies
-  still copy their blocks (B2 does not read through tile maps yet) and a
-  dense x dense multiply runs no kernel, so neither is held to it.
+* ``optrace.no-operand-copy`` — a dense-output multiply with a
+  block-sparse A copies no operand (``roll``, ``index``, ``index_select``,
+  ``gather``, ``take_along_dim`` on its storage) and rolls nothing, its
+  placement included: the kernels read the natural stacks in place
+  through the launch maps.  The sparse-output bodies still copy their
+  blocks (B2 does not read through tile maps yet) and a dense x dense
+  multiply runs no kernel, so neither is held to it.
 * ``optrace.shift-count`` — the executor's shifts in one multiply equal
   the cost model's message count, less the last step's messages: the
   JAX bodies also shift after the last step, whose tiles nothing
@@ -60,7 +62,7 @@ __all__ = ["RULES", "COPY_OPS", "HOT_LOOP_BANNED", "OpEvent", "OpRecord",
            "check_operand_copies", "check_shift_count",
            "check_overlap_carry", "lint_plan"]
 
-#: ops that copy or move a tensor: none may read a placed operand of a
+#: ops that copy or move a tensor: none may read an operand of a
 #: dense-output multiply with a block-sparse A
 COPY_OPS = ("roll", "index", "index_select", "gather", "take_along_dim")
 
@@ -122,8 +124,8 @@ class OpRecord:
 
 class _Recorder:
     """Collects :class:`OpEvent` s from one ``launch.op_analysis.OpRecorder``
-    stream: the aten ops it records (each annotated with whether it reads a
-    placed operand, its first operand's shape and whether it copies to the
+    stream: the aten ops it records (each annotated with whether it reads
+    an operand, its first operand's shape and whether it copies to the
     host), and, marked in order, the ops calls (a hook) and an executor's
     shifts (wrappers)."""
 
@@ -131,8 +133,8 @@ class _Recorder:
         import torch
 
         from repro_torch.launch.op_analysis import OpRecorder
-        self.ptrs = {x.untyped_storage().data_ptr() for x in operands
-                     if isinstance(x, torch.Tensor) and x.numel()}
+        self.ptrs = _storages(x for x in operands
+                              if isinstance(x, torch.Tensor))
         self.ops = OpRecorder(annotate=self._annotate)
 
     def _annotate(self, name: str, tensors, out) -> dict:
@@ -155,24 +157,20 @@ class _Recorder:
         rec = self
         kops.add_call_hook(self.on_call)
         if executor is not None:
-            shift, shift_map = executor.shift, executor.shift_map
-
-            def shift_w(tree, axis, sign=1):
-                rec.on_shift("shift", axis)
-                return shift(tree, axis, sign)
+            shift_map = executor.shift_map
 
             def shift_map_w(tile_map, axis, sign=1):
                 rec.on_shift("shift_map", axis)
                 return shift_map(tile_map, axis, sign)
 
-            executor.shift, executor.shift_map = shift_w, shift_map_w
+            executor.shift_map = shift_map_w
         try:
             with self.ops:
                 yield self
         finally:
             kops.remove_call_hook(self.on_call)
             if executor is not None:
-                del executor.shift, executor.shift_map
+                del executor.shift_map
 
     def record(self) -> OpRecord:
         """The stream as :class:`OpEvent` s.  Only a local multiply's ops
@@ -216,27 +214,41 @@ def _to_host(name: str, tensors, out) -> bool:
 
 
 def _payload(tree) -> list:
-    """The placed operand tensors of a body's operand tree: its blocks
-    and dense stacks (the data, not the index lists)."""
+    """The operand tensors of an operand tree: its blocks and dense stacks
+    (the data, not the index lists)."""
     if not isinstance(tree, dict):
         return []
     return [v for k, v in tree.items() if k in ("blocks", "dense")]
 
 
-def record_multiply(plan, a, b) -> OpRecord:
-    """Run the body of ``plan(a, b)`` once and record its events.
+def _storages(tensors) -> set:
+    return {x.untyped_storage().data_ptr() for x in tensors if x.numel()}
 
-    The operands are placed first (a placement is cached on its handle,
-    not part of a multiply), then the body runs as ``plan(a, b)`` runs it,
-    on the plan's executor; the epilogue (unskew and crop) is left out.
+
+def record_multiply(plan, a, b) -> OpRecord:
+    """Run the body of ``plan(a, b)`` once, with the operands' placement
+    (``plan._operands``, part of every multiply), and record its events.
+
+    The operands are the handles' own tensors (A's blocks, B's data), and,
+    once the multiply has made them, the trees its body reads (a dense B's
+    tile grid; a packed operand's wire, which its handle makes once, is
+    made first).  The body runs as ``plan(a, b)`` runs it, on the plan's
+    executor; the epilogue (unskew and crop) is left out.
     """
     from repro_torch.core import api as _api
     a_h, b_h = _api._coerce_pair(a, b, g=plan.geom.g,
                                  allow_pad=plan._allow_pad,
                                  device=plan.executor.device)
-    body, operands = plan._operands(a_h, b_h)
-    rec = _Recorder(_payload(operands[0]) + _payload(operands[1]))
+    for who in plan._packs:
+        # a handle's packed wire is its own layout, made once per handle
+        (a_h if who == "a" else b_h).packed_wire(_api.NATURAL)
+    own = [h.data if isinstance(h, _api.DistDense) else h.tiled.blocks
+           for h in (a_h, b_h)]
+    rec = _Recorder(own)
     with rec.watching(plan.executor):
+        body, operands = plan._operands(a_h, b_h)
+        rec.ptrs |= _storages(_payload(operands[0])
+                              + _payload(operands[1]))
         body(*operands, plan.geom, plan.executor)
     return rec.record()
 
@@ -328,8 +340,8 @@ def check_operand_copies(plan, record: OpRecord) -> List[Finding]:
     if copies:
         findings.append(Finding(
             "optrace.no-operand-copy",
-            f"the body copies a placed operand: {copies} — the kernels read "
-            "the placed stacks in place through tile maps; a gather or "
+            f"the multiply copies an operand: {copies} — the kernels read "
+            "the natural stacks in place through tile maps; a gather or "
             "roll of an operand costs a pass over its memory every "
             "multiply", subject=subject))
     if rolls:
@@ -405,7 +417,7 @@ RULES = (
      "no sort/scatter/index_put/nonzero/unique between a kernel plan's "
      "local multiplies"),
     ("optrace.no-operand-copy",
-     "dense-output bodies with a sparse A copy no placed operand and roll "
+     "dense-output multiplies with a sparse A copy no operand and roll "
      "nothing"),
     ("optrace.shift-count",
      "executor shifts in one multiply == cost model messages less the last "

@@ -470,7 +470,7 @@ def _launch_tiles(plan) -> list:
 
 def check_wire(plan, a_h, b_h) -> List[Finding]:
     """schedule.wire-contract for packed dense-output plans."""
-    from repro_torch.core import wire as _wire
+    from repro_torch.core.dist import placement_tiles
     if plan.wire != "packed" or plan.steal is not None \
             or plan.symbolic is not None:
         return []
@@ -522,7 +522,7 @@ def check_wire(plan, a_h, b_h) -> List[Finding]:
                 subject=name))
     # each launch must read the placed tile its consume maps describe
     alg = plan.algorithm
-    nat = {who: _wire.placement_tiles(pl, g).reshape(-1, 2)
+    nat = {who: placement_tiles(pl, g).reshape(-1, 2)
            for who, pl in (("a", alg.a_placement), ("b", alg.b_placement))}
     for t, launches in enumerate(_launch_tiles(plan)):
         for h, (a_map, b_map) in enumerate(launches):

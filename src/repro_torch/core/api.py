@@ -4,9 +4,10 @@ Port of ``repro/core/api.py``:
 
 * :class:`DistBSR` / :class:`DistDense` — distributed-matrix handles
   wrapping a :class:`~repro_torch.core.bsr.TiledBSR` / a grid-padded dense
-  tensor, with a cache of placements (the paper's ``k_offset`` skew is
-  materialised at most once per operand and placement), and for sparse
-  handles their structure, fingerprint and packed wire layout.
+  tensor, and for sparse handles their structure, fingerprint and packed
+  wire layout.  The paper's ``k_offset`` skew is a placement, an index map
+  of the tile grid (:func:`~repro_torch.core.dist.placement_tiles`) that
+  the plans compose into their launch maps: no skewed copy is made.
 * :func:`plan_matmul` -> :class:`MatmulPlan` — geometry, placement needs,
   the schedule body and its plan-time constants (pair lists, consume
   maps), cached in an LRU plan cache.  ``plan.cost_model()`` gives the
@@ -38,8 +39,9 @@ no tile.
 Where the JAX package runs the body under ``shard_map`` on a device mesh,
 the port runs it on a :class:`~repro_torch.core.executor.StackedExecutor`:
 the g x g tiles live stacked on one card, and each step's local multiply
-is one batched kernel launch.  A ring shift, a broadcast or an all-gather
-becomes a tile map: the kernel reads each step's tiles where they lie.
+is one batched kernel launch.  A placement, a ring shift, a broadcast or
+an all-gather becomes a tile map: the kernel reads each step's tiles in
+the operands' own natural stacks.
 With ``mesh=`` the same schedules run on a process grid, one tile per
 rank (:class:`~repro_torch.core.executor.GroupExecutor`): the JAX bodies
 step by step, their exchanges point-to-point and collective calls of
@@ -86,8 +88,8 @@ from . import steal3d as _steal3d
 from . import symbolic as _symbolic
 from . import wire as _wire
 from .bsr import TiledBSR
-from .dist import (place_b_for_stationary_a, skew_bsr, skew_dense, tileize,
-                   unskew_c_rows, untileize)
+from .dist import (place, placement_index, placement_tiles, tileize,
+                   unplace, untileize)
 from .executor import GroupExecutor, StackedExecutor, _Ready
 from .grid import ProcessGrid, bucket_capacity, ceil_div, pad_to_multiple
 from .symbolic import (SymbolicProduct, predicted_density,  # re-export
@@ -152,15 +154,17 @@ def _densify_b(b: Dict, geom: _Geom, ex: StackedExecutor) -> Dict:
 
 @dataclasses.dataclass(frozen=True)
 class _Steps:
-    """What a dense-output body asks its plan for at a ring step: B1's work
-    table for a step's tile maps (None where the plain version runs), a
-    host tile map as an index tensor on the executor's device (cached),
-    and, where B1's sparse-B path may take a block-sparse B as it lies,
-    that path's table (:meth:`MatmulPlan.sparse_b_table`; else None)."""
+    """What a dense-output body asks its plan for: its steps' launch maps
+    (:meth:`MatmulPlan.launch_maps`: per step, one ``(a_map, b_map)`` per
+    kernel launch over the operands' natural stacks), B1's work table for
+    a launch's maps (None where the plain version runs), a host tile map
+    as an index tensor on the executor's device (cached), and, where the
+    plan hands B1's sparse-B path a block-sparse B as it lies
+    (:meth:`MatmulPlan.takes_sparse_b`), that path's table (else None)."""
+    maps: Callable[[], list]
     table: Optional[Callable[[np.ndarray, np.ndarray], SpmmTable]]
     device_map: Callable[[np.ndarray], torch.Tensor]
-    sparse_b: Optional[Callable[[np.ndarray, np.ndarray],
-                                Optional[SpmmTable]]] = None
+    sparse_b: Optional[Callable[[np.ndarray, np.ndarray], SpmmTable]] = None
 
 
 def _local_mm(a: Dict, b: Dict, a_map: np.ndarray, b_map: np.ndarray,
@@ -169,9 +173,9 @@ def _local_mm(a: Dict, b: Dict, a_map: np.ndarray, b_map: np.ndarray,
     """Every output tile's local product of one step, in one batched call.
 
     Output tile p multiplies A tile ``a_map[p]`` by B tile ``b_map[p]`` of
-    the placed stacks, read where they lie.  Step 0 (``c`` None) returns a
-    fresh ``[g*g, tm, tn]`` C; later steps add into ``c`` in place, the
-    step's product rounded to C's type first (the JAX body's ``c + ...``).
+    the stacks, read where they lie.  Step 0 (``c`` None) returns a fresh
+    ``[g*g, tm, tn]`` C; later steps add into ``c`` in place, the step's
+    product rounded to C's type first (the JAX body's ``c + ...``).
     """
     b_pool = ex.batch(b["dense"])    # the body pre-densifies sparse B
     if "dense" in a:
@@ -199,41 +203,25 @@ def _local_mm(a: Dict, b: Dict, a_map: np.ndarray, b_map: np.ndarray,
 # A schedule's steps, as the stacked executor runs them: per step, one
 # ``(a_map, b_map)`` pair per kernel launch (two for ring_c_bidir), where
 # output tile p reads A tile ``a_map[p]`` and B tile ``b_map[p]`` of the
-# placed stacks (host numpy, ``[g*g]``).  A ring ``ppermute`` composes a
+# placed grids (host numpy, ``[g*g]``).  A ring ``ppermute`` composes a
 # map (:meth:`StackedExecutor.shift_map`), a SUMMA broadcast or all-gather
-# picks row k or column k: no tile moves.
-def _ring_steps(a, b, geom: _Geom, shift: Callable, sign: int = 1):
-    """The (A, B) of each stationary-C ring step, in order: tile grids
-    shifted by ``shift = ex.shift`` (the sparse-output body), or tile maps
-    composed by ``shift = ex.shift_map`` (the dense-output bodies, whose
-    kernel reads the placed stacks in place).
-
-    A rides the ``col`` ring and B the ``row`` ring, each position
-    receiving from its ``+sign`` neighbour.  The bulk body issues step
-    t+1's shift before step t's multiply (paper SS3.3 prefetch); the
-    split-step body (``geom.overlap``) keeps one more step in flight,
-    issuing step t+2's shift before step t's multiply.  On one stream that
-    only reorders the launches and keeps one more copy of each operand
-    alive, and at g = 2 the two bodies issue the same launches.  The JAX
-    bodies also shift after the last step, whose tiles nothing consumes;
-    here that shift would copy the whole operand on the card, so the port
-    makes g - 1 shifts per operand.
-    """
-    ahead = 2 if geom.overlap else 1
-    queue = [(a, b)]            # the tiles of steps t, t+1, ... in order
-    for t in range(geom.g):
-        while len(queue) <= ahead and t + len(queue) < geom.g:
-            a_q, b_q = queue[-1]
-            queue.append((shift(a_q, "col", sign), shift(b_q, "row", sign)))
-        yield queue.pop(0)
-
-
-def _ring_maps(geom: _Geom, ex: StackedExecutor, sign: int = 1):
-    """The (A, B) tile maps of each stationary-C ring step: g - 1
-    compositions per operand (:meth:`StackedExecutor.shift_map`), no tile
-    moved."""
-    ident = ex.identity_map()
-    return _ring_steps(ident, ident, geom, ex.shift_map, sign)
+# picks row k or column k: no tile moves.  The plan composes each map with
+# its operand's placement (:meth:`MatmulPlan.launch_maps`), so the bodies
+# read the operands' natural stacks.
+def _ring_maps(geom: _Geom, ex: StackedExecutor, sign: int = 1) -> list:
+    """The (A, B) tile maps of each stationary-C ring step: A rides the
+    ``col`` ring and B the ``row`` ring, each position receiving from its
+    ``+sign`` neighbour; g - 1 compositions per operand, no tile moved.
+    The JAX bodies also shift after the last step, whose tiles nothing
+    consumes; the port does not.  On one card the split-step body
+    (``geom.overlap``) reads the bulk body's maps."""
+    a_map = b_map = ex.identity_map()
+    maps = [(a_map, b_map)]
+    for _ in range(geom.g - 1):
+        a_map = ex.shift_map(a_map, "col", sign)
+        b_map = ex.shift_map(b_map, "row", sign)
+        maps.append((a_map, b_map))
+    return maps
 
 
 def _steps_ring_c(geom: _Geom, ex: StackedExecutor) -> list:
@@ -290,80 +278,60 @@ def _split_cols(b_pool: torch.Tensor, half: int) -> Tuple[torch.Tensor, ...]:
 # ---------------------------------------------------------------------------
 # Dense-output bodies
 # ---------------------------------------------------------------------------
-def _stationary_c(a: Dict, b: Dict, maps: list, steps: _Steps, geom: _Geom,
+def _stationary_c(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
                   ex: StackedExecutor) -> torch.Tensor:
-    """C stays put; step t's single launch reads the tiles ``maps[t]``
-    names.  Step 0 writes C fresh and later steps add into it in place (the
-    JAX body's ``c + ...`` in the same dtype and order, without a zero fill
-    or a new buffer per step).  A sparse B is densified once, before the
+    """The stationary-C body of ``ring_c``, ``summa_bcast`` and
+    ``summa_ag``: C stays put and step t's single launch reads the tiles
+    its launch maps name.
+
+    ``ring_c`` is paper Alg 2: the skewed placement and neighbour ring
+    shifts, composed as tile maps (no ``torch.roll``).  The SUMMAs (paper
+    SS2.2) broadcast A[:, k] along rows and B[k, :] along columns at inner
+    step k, or all-gather both up front; on one card both are the same tile
+    maps (:func:`_steps_summa`: the all-gather's slot k is the broadcast's
+    step k), every position sums k = 0 .. g-1 in order as the JAX scan
+    does, and nothing is copied to imitate a collective.  They differ in
+    the cost model (``wire_amortized``) and in the g x footprint of the
+    real all-gather on a grid of cards.
+
+    Step 0 writes C fresh and later steps add into it in place (the JAX
+    body's ``c + ...`` in the same dtype and order, without a zero fill or
+    a new buffer per step).  A sparse B is densified once, before the
     steps, unless the plan hands B1's sparse-B path (``steps.sparse_b``),
     which reads its blocks as they lie (its tables all built before the
     first launch)."""
-    tables = [steps.sparse_b(a_map, b_map) for (a_map, b_map), in maps] \
-        if steps.sparse_b is not None and "dense" not in b else []
-    if tables and all(t is not None for t in tables):
-        c = None
-        for ((a_map, b_map),), table in zip(maps, tables):
-            c = kops.bsr_spmm_sparse_b_raw(
-                ex.batch(a["blocks"]), ex.batch(a["rows"]),
-                ex.batch(a["cols"]), ex.batch(b["blocks"]),
-                ex.batch(b["rows"]), ex.batch(b["cols"]),
-                n_block_rows=geom.a_nbr, n_block_cols=geom.b_nbc,
-                impl=geom.impl, a_map=a_map, b_map=b_map, table=table,
-                out=c)
-        return ex.unbatch(c)
-    b = _densify_b(b, geom, ex)
+    if steps.sparse_b is None:
+        return _step_launches(a, b, steps, geom, ex)
+    maps = steps.maps()
+    tables = [steps.sparse_b(a_map, b_map) for (a_map, b_map), in maps]
     c = None
-    for (a_map, b_map), in maps:
-        c = _local_mm(a, b, a_map, b_map, steps, c, geom, ex)
+    for ((a_map, b_map),), table in zip(maps, tables):
+        c = kops.bsr_spmm_sparse_b_raw(
+            ex.batch(a["blocks"]), ex.batch(a["rows"]), ex.batch(a["cols"]),
+            ex.batch(b["blocks"]), ex.batch(b["rows"]), ex.batch(b["cols"]),
+            n_block_rows=geom.a_nbr, n_block_cols=geom.b_nbc,
+            impl=geom.impl, a_map=a_map, b_map=b_map, table=table, out=c)
     return ex.unbatch(c)
 
 
-def _body_summa_bcast(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
-                      ex: StackedExecutor) -> torch.Tensor:
-    """Bulk-synchronous SUMMA (paper SS2.2): a broadcast per inner step.
-
-    On the stacked executor the broadcast of A[:, k] along rows and B[k, :]
-    along columns is a tile map (:func:`_steps_summa`): no operand moves.
-    Every position sums k = 0 .. g-1 in order, as the JAX scan does.
-    """
-    return _stationary_c(a, b, _steps_summa(geom, ex), steps, geom, ex)
-
-
-def _body_summa_ag(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
+def _step_launches(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
                    ex: StackedExecutor) -> torch.Tensor:
-    """All-gather SUMMA: one up-front collective, g x the tile footprint.
+    """One launch a step over a dense (or once densified) B, as the launch
+    maps list them, into one C: fresh at step 0, added into in place
+    after that.  The stationary-C body's where B stays dense, and
+    ``ring_a``'s.
 
-    On one card the all-gather's slot k is the broadcast's step k, so this
-    is ``summa_bcast``'s body (the same tile maps and launches); the stack
-    is not copied to imitate the gather.  The two schedules differ in the
-    cost model (``wire_amortized``) and in the g x footprint of the real
-    collective on a grid of cards.
-    """
-    return _body_summa_bcast(a, b, steps, geom, ex)
-
-
-def _body_ring_c(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
-                 ex: StackedExecutor) -> torch.Tensor:
-    """Paper Alg 2 (stationary-C): skewed placement + neighbour ring shifts,
-    composed as tile maps (no ``torch.roll``)."""
-    return _stationary_c(a, b, _steps_ring_c(geom, ex), steps, geom, ex)
-
-
-def _body_ring_a(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
-                 ex: StackedExecutor) -> torch.Tensor:
-    """Paper Alg 1 (stationary-A): B rides the row ring, partial C rides
-    the col ring back to its owner.
-
-    Nothing moves on the card: A is read in place, B through its composed
-    maps, and each accumulator stays where it was made, taking at every
-    step the product of the position that holds it then
-    (:func:`_ring_a_walk`), in the JAX order.  After the last hop every
-    accumulator is home, and the epilogue unskews C's rows.
+    ``ring_a`` is paper Alg 1 (stationary-A): B rides the row ring and the
+    partial C rides the col ring back to its owner.  Nothing moves on the
+    card: A is read in place, B through its maps, and each accumulator
+    stays where it was made, taking at every step the product of the
+    position that holds it then (:func:`_ring_a_walk`), in the JAX order.
+    After the last hop every accumulator is home, and the epilogue unskews
+    C's rows.
     """
     b = _densify_b(b, geom, ex)
     c = None
-    for (a_map, b_map), in _steps_ring_a(geom, ex):
+    for (a_map, b_map), in steps.maps():
         c = _local_mm(a, b, a_map, b_map, steps, c, geom, ex)
     return ex.unbatch(c)
 
@@ -382,7 +350,7 @@ def _body_ring_c_bidir(a: Dict, b: Dict, steps: _Steps, geom: _Geom,
     b = _densify_b(b, geom, ex)
     halves = _split_cols(ex.batch(b["dense"]), geom.tn // 2)
     c = [None, None]
-    for launches in _steps_ring_c_bidir(geom, ex):
+    for launches in steps.maps():
         for h, (a_map, b_map) in enumerate(launches):
             c[h] = _local_mm(a, {"dense": ex.unbatch(halves[h])}, a_map,
                              b_map, steps, c[h], geom, ex)
@@ -411,43 +379,29 @@ def _sparse_step(a_t: Dict, b_t: Dict, pairs: Dict,
         acc=c)
 
 
-def _sparse_body_ring_c(a: Dict, b: Dict, pairs, geom: _Geom,
-                        ex: StackedExecutor) -> torch.Tensor:
-    """Stationary-C ring with packed sparse output.
+def _sparse_body(a: Dict, b: Dict, pairs, geom: _Geom,
+                 ex: StackedExecutor) -> torch.Tensor:
+    """Packed sparse output on the stacked executor (``ring_c``,
+    ``summa_bcast``, ``summa_ag``).
 
-    Same placement and shifts as ``ring_c``; B rides the ring in block form
-    (its densified tile never exists).  ``pairs[t]`` holds step t's
-    ``[g*g, P]`` pair lists: on grid position (i, j) they index the tiles
-    that position holds after t shifts, A[i, k] and B[k, j] with
-    ``k = (i + j + t) % g``.  The carry is float32, written fresh by step 0
-    (every slot once: its real sums, zeros where no real pair lands, so no
-    zero fill of the whole store first), added into from step 1 on, and
-    cast to the output dtype once at the end.
-    """
-    c = None
-    for t, (a_t, b_t) in enumerate(_ring_steps(a, b, geom, ex.shift)):
-        c = _sparse_step(a_t, b_t, pairs[t], c, geom, ex)
-    return ex.unbatch(c.to(geom.out_dtype))
-
-
-def _sparse_body_summa(a: Dict, b: Dict, pairs, geom: _Geom,
-                       ex: StackedExecutor) -> torch.Tensor:
-    """SUMMA (broadcast or all-gather) with packed sparse output.
-
-    ``pairs[t]`` holds inner step t's ``[g*g, P]`` pair lists, which on
-    position (i, j) index A[i, t] and B[t, j]; B2 reads each output tile's
-    own A and B tile, so each step hands it those tile grids, gathered with
-    ``index_select`` from the natural stacks (as the ``ring_c`` body hands
-    it rolled grids).  The float32 carry is written fresh at step 0, added
-    into after that, and cast once.
+    ``pairs[t]`` holds step t's ``[g*g, P]`` pair lists, which on grid
+    position (i, j) index the tiles it reads at step t, A[i, k] and B[k, j]
+    (``k = (i + j + t) % g`` on the ring, ``k = t`` in a SUMMA), and the
+    step's launch maps as index tensors (``a_map``, ``b_map``).  B2 reads
+    each output tile's own A and B tile, so each step hands it those tile
+    grids, gathered with ``index_select`` from the natural stacks; B rides
+    in block form (its densified tile never exists).  The float32 carry is
+    written fresh by step 0 (every slot once: its real sums, zeros where
+    no real pair lands, so no zero fill of the whole store first), added
+    into from step 1 on, and cast to the output dtype once at the end.
     """
     a_pool, b_pool = ex.batch(a["blocks"]), ex.batch(b["blocks"])
-    take = lambda pool, tile_map: {"blocks": ex.unbatch(pool.index_select(
-        0, torch.as_tensor(tile_map, device=ex.device)))}
     c = None
-    for t, ((a_map, b_map),) in enumerate(_steps_summa(geom, ex)):
-        c = _sparse_step(take(a_pool, a_map), take(b_pool, b_map), pairs[t],
-                         c, geom, ex)
+    for step in pairs:
+        c = _sparse_step(
+            {"blocks": ex.unbatch(a_pool.index_select(0, step["a_map"]))},
+            {"blocks": ex.unbatch(b_pool.index_select(0, step["b_map"]))},
+            step, c, geom, ex)
     return ex.unbatch(c.to(geom.out_dtype))
 
 
@@ -458,8 +412,8 @@ def _sparse_body_summa(a: Dict, b: Dict, pairs, geom: _Geom,
 # blocks only, no rows/cols) and a sparse B tile likewise, densified per
 # step by a gather; all structure lives in plan-time consume maps
 # (core/wire.py), step t's maps in ``aux[t]`` as [g*g, ...] tensors.  As
-# on the padded wire each step's tiles are read through tile maps over the
-# placed packed stacks.
+# on the padded wire each step's tiles are read through the launch maps
+# over the natural packed stacks.
 def _packed_a_mm(a_blocks: torch.Tensor, aux_t: Dict, a_map: np.ndarray,
                  b_map: np.ndarray, b_pool: torch.Tensor, steps: _Steps,
                  c: Optional[torch.Tensor], geom: _Geom, ex: StackedExecutor,
@@ -480,22 +434,22 @@ def _packed_b_dense(b_buf: torch.Tensor, dmap: torch.Tensor,
                     b_map: np.ndarray, steps: _Steps, geom: _Geom,
                     ex: StackedExecutor) -> torch.Tensor:
     """Each position's dense B tile of one step, gathered from packed B
-    tile ``b_map[p]`` of the placed stack."""
+    tile ``b_map[p]`` of the natural stack."""
     return kops.densify_packed(ex.batch(b_buf), dmap,
                                n_block_rows=geom.b_nbr,
                                n_block_cols=geom.b_nbc,
                                tile_map=steps.device_map(b_map))
 
 
-def _packed_stationary_c(a: Dict, b: Dict, aux, maps: list, steps: _Steps,
-                         geom: _Geom, ex: StackedExecutor) -> torch.Tensor:
+def _packed_stationary_c(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
+                         ex: StackedExecutor) -> torch.Tensor:
     """:func:`_stationary_c` over packed wire buffers: A packed, B packed
     (densified per step by a gather) or densified once."""
     b_packed = "b_dmap" in aux[0]
     b0 = b if b_packed else _densify_b(b, geom, ex)
     ident = ex.identity_map()
     c = None
-    for t, ((a_map, b_map),) in enumerate(maps):
+    for t, ((a_map, b_map),) in enumerate(steps.maps()):
         if b_packed:
             b_pool = _packed_b_dense(b0["blocks"], aux[t]["b_dmap"], b_map,
                                      steps, geom, ex)
@@ -507,27 +461,15 @@ def _packed_stationary_c(a: Dict, b: Dict, aux, maps: list, steps: _Steps,
     return ex.unbatch(c)
 
 
-def _packed_body_summa(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
-                       ex: StackedExecutor) -> torch.Tensor:
-    """SUMMA (broadcast or all-gather) over packed wire buffers."""
-    return _packed_stationary_c(a, b, aux, _steps_summa(geom, ex), steps,
-                                geom, ex)
-
-
-def _packed_body_ring_c(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
-                        ex: StackedExecutor) -> torch.Tensor:
-    """Stationary-C ring over packed wire buffers (paper Alg 2)."""
-    return _packed_stationary_c(a, b, aux, _steps_ring_c(geom, ex), steps,
-                                geom, ex)
-
-
 def _packed_body_ring_a(a: Dict, b: Dict, aux, steps: _Steps, geom: _Geom,
                         ex: StackedExecutor) -> torch.Tensor:
     """Stationary-A ring with the sparse B packed: each step gathers every
-    position's dense B tile from the packed stack it holds then, and each
-    accumulator reads the one of its position (:func:`_body_ring_a`)."""
+    position's dense B tile from the packed tile it holds then, and each
+    accumulator reads the one of its position (:func:`_step_launches`)."""
     c = None
-    for t, (at, b_pos) in enumerate(_ring_a_walk(geom, ex)):
+    for t, ((at, b_at),) in enumerate(steps.maps()):
+        b_pos = np.empty_like(b_at)        # the B tile each position holds
+        b_pos[at] = b_at
         b_pool = _packed_b_dense(b["blocks"], aux[t]["b_dmap"], b_pos, steps,
                                  geom, ex)
         c = _local_mm(a, {"dense": ex.unbatch(b_pool)}, at, at, steps, c,
@@ -546,7 +488,7 @@ def _packed_body_ring_c_bidir(a: Dict, b: Dict, aux, steps: _Steps,
     b = _densify_b(b, geom, ex)
     halves = _split_cols(ex.batch(b["dense"]), geom.tn // 2)
     c = [None, None]
-    for t, launches in enumerate(_steps_ring_c_bidir(geom, ex)):
+    for t, launches in enumerate(steps.maps()):
         for h, (a_map, b_map) in enumerate(launches):
             c[h] = _packed_a_mm(a["blocks"], aux[t], a_map, b_map, halves[h],
                                 steps, c[h], geom, ex,
@@ -925,7 +867,7 @@ def _local_view(tree: Dict) -> Dict:
 def _ring_stream(ex: GroupExecutor, tree: Dict, axis: str, geom: _Geom,
                  sign: int = 1):
     """The tree a rank holds at each of a ring's g steps: g - 1 shifts (the
-    port's count, see :func:`_ring_steps`), each issued before the local
+    port's count, see :func:`_ring_maps`), each issued before the local
     multiply of the step before its use (the bulk body, paper SS3.3
     prefetch), or two steps before it (``geom.overlap``, the split-step
     body), and waited for only where it is used."""
@@ -1368,9 +1310,9 @@ class Algorithm:
     """A registered schedule: its bodies + declarative placement needs.
 
     ``a_placement`` / ``b_placement`` name the :data:`PLACEMENTS` state each
-    operand must be in before the body runs (the handle caches the
-    transform); ``unskew_out`` names the inverse placement applied to the
-    output; ``wire`` lists which tiles ride the network each inner step
+    operand's tiles start the schedule in (an index map the plan composes
+    into the launch maps: nothing is copied); ``unskew_out`` names the
+    inverse placement applied to the output; ``wire`` lists which tiles ride the network each inner step
     (repeats allowed — ``ring_c_bidir`` ships A in both directions; feeds
     :meth:`MatmulPlan.cost_model`); ``wire_amortized`` marks schedules whose
     communication happens once up front (all-gather) rather than per step;
@@ -1506,40 +1448,40 @@ def _evict_plans_for_algorithm(name: str) -> None:
 
 # Registration order is the JAX package's (auto_select breaks ties by it).
 register_algorithm("summa_bcast", style="bsp",
-                   sparse_body=_sparse_body_summa,
-                   packed_body=_packed_body_summa, packable=("a", "b"),
+                   sparse_body=_sparse_body,
+                   packed_body=_packed_stationary_c, packable=("a", "b"),
                    wire_planner=_wire_planner_summa_bcast,
                    k_order=lambda i, j, t, g: t + 0 * (i + j),
                    step_maps=_steps_summa,
                    on_ranks=_RankBodies(
                        _rank_body_summa_bcast, _rank_packed_summa_bcast,
-                       _rank_sparse_summa_bcast))(_body_summa_bcast)
+                       _rank_sparse_summa_bcast))(_stationary_c)
 register_algorithm("summa_ag", style="bsp", wire_amortized=True,
-                   sparse_body=_sparse_body_summa,
-                   packed_body=_packed_body_summa, packable=("a", "b"),
+                   sparse_body=_sparse_body,
+                   packed_body=_packed_stationary_c, packable=("a", "b"),
                    wire_planner=_wire_planner_summa_bcast,
                    k_order=lambda i, j, t, g: t + 0 * (i + j),
                    step_maps=_steps_summa,
                    on_ranks=_RankBodies(
                        _rank_body_summa_ag, _rank_packed_summa_ag,
                        _rank_sparse_summa_ag,
-                       wire_planner=_wire_planner_summa_ag))(_body_summa_ag)
+                       wire_planner=_wire_planner_summa_ag))(_stationary_c)
 register_algorithm("ring_c", a_placement=SKEW_ROWS, b_placement=SKEW_COLS,
-                   sparse_body=_sparse_body_ring_c,
-                   packed_body=_packed_body_ring_c, packable=("a", "b"),
+                   sparse_body=_sparse_body,
+                   packed_body=_packed_stationary_c, packable=("a", "b"),
                    wire_planner=_wire_planner_ring_c,
                    k_order=lambda i, j, t, g: (i + j + t) % g,
                    step_maps=_steps_ring_c,
                    on_ranks=_RankBodies(
                        _rank_body_ring_c, _rank_packed_ring_c,
-                       _rank_sparse_ring_c))(_body_ring_c)
+                       _rank_sparse_ring_c))(_stationary_c)
 register_algorithm("ring_a", b_placement=STATIONARY_A, unskew_out="rows",
                    wire=("b", "c"), balance_axis="cols",
                    packed_body=_packed_body_ring_a, packable=("b",),
                    wire_planner=_wire_planner_ring_a,
                    step_maps=_steps_ring_a,
                    on_ranks=_RankBodies(
-                       _rank_body_ring_a, _rank_packed_ring_a))(_body_ring_a)
+                       _rank_body_ring_a, _rank_packed_ring_a))(_step_launches)
 register_algorithm("ring_c_bidir", a_placement=SKEW_ROWS,
                    b_placement=SKEW_COLS, wire=("a", "a", "b"), duplex=2,
                    packed_body=_packed_body_ring_c_bidir, packable=("a",),
@@ -1770,39 +1712,12 @@ def invalidate_plans(*, algorithm: Optional[str] = None,
 # ---------------------------------------------------------------------------
 # Distributed-matrix handles
 # ---------------------------------------------------------------------------
-def _place_bsr(t: TiledBSR, placement: str) -> TiledBSR:
-    if placement == NATURAL:
-        return t
-    if placement in (SKEW_ROWS, SKEW_COLS):
-        return skew_bsr(t, placement[len("skew_"):])
-    if placement == STATIONARY_A:
-        g = t.grid_shape[0]
-        i = torch.arange(g, device=t.device)[:, None]
-        j = torch.arange(g, device=t.device)[None, :]
-        si, sj = j + 0 * i, (i + j) % g   # position (i,j) <- tile (j,(i+j)%g)
-        return dataclasses.replace(
-            t, blocks=t.blocks[si, sj], rows=t.rows[si, sj],
-            cols=t.cols[si, sj], counts=t.counts[si, sj])
-    raise ValueError(f"unknown placement {placement!r}; one of {PLACEMENTS}")
-
-
-def _place_dense(x: torch.Tensor, g: int, placement: str) -> torch.Tensor:
-    if placement == NATURAL:
-        return x
-    if placement == SKEW_ROWS:
-        return skew_dense(x, g, "rows")
-    if placement == SKEW_COLS:
-        return skew_dense(x, g, "cols")
-    if placement == STATIONARY_A:
-        return place_b_for_stationary_a(x, g)
-    raise ValueError(f"unknown placement {placement!r}; one of {PLACEMENTS}")
-
-
 class DistMatrix:
     """A matrix distributed over a square ``g x g`` process grid.
 
-    ``placed(p)`` materialises the operand tree for placement ``p`` at most
-    once per handle, as stacked ``[g, g, ...]`` tile tensors.
+    ``_tiles()`` is the operand tree of its natural tiles, stacked ``[g, g,
+    ...]`` tensors, which the stacked plans read in place; ``placed(p)``
+    gathers the tree placement ``p`` holds at most once per handle.
     """
 
     kind = "abstract"
@@ -1828,8 +1743,22 @@ class DistMatrix:
         s = self.shape
         return s[0] // self.g, s[1] // self.g
 
-    def placed(self, placement: str) -> Dict[str, torch.Tensor]:
+    def _tiles(self) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
+
+    def placed(self, placement: str) -> Dict[str, torch.Tensor]:
+        """The operand tree with the tile ``placement`` puts at each grid
+        position (:func:`~repro_torch.core.dist.placement_tiles`): one
+        gather of the natural tiles, cached per placement; the natural
+        placement is :meth:`_tiles` itself.  No plan reads it: the stacked
+        plans compose the placement into their launch maps."""
+        if placement == NATURAL:
+            return self._tiles()
+        tree = self._placed.get(placement)
+        if tree is None:
+            tree = self._placed[placement] = {
+                k: place(v, placement) for k, v in self._tiles().items()}
+        return tree
 
     def abstract_key(self) -> tuple:
         """Hashable signature (shapes, dtype, device; no data) for caching."""
@@ -2038,21 +1967,21 @@ class DistBSR(DistMatrix):
     def packed_wire(self, placement: str) -> Dict[str, torch.Tensor]:
         """Packed blocks for a placement: ``{"blocks": [g, g, wc, bs,
         bs]}``, each tile's real blocks gathered into the packed prefix and
-        the trailing slots guaranteed zero.  Cached per placement, like
+        the trailing slots guaranteed zero.  The natural tiles are packed
+        once; another placement is one gather of them, cached like
         :meth:`placed`."""
-        cache = getattr(self, "_packed_placed", None)
-        if cache is None:
-            cache = self._packed_placed = {}
+        cache = self.__dict__.setdefault("_packed_placed", {})
         tree = cache.get(placement)
-        if tree is None:
-            po = self.packed_operand()
-            placed = self.placed(placement)["blocks"]
-            tiles = _wire.placement_tiles(placement, self.g)
-            pidx = torch.as_tensor(po.pack_idx[tiles[..., 0], tiles[..., 1]],
+        if tree is None and placement == NATURAL:
+            pidx = torch.as_tensor(self.packed_operand().pack_idx,
                                    device=self.device).long()
             ii = torch.arange(self.g, device=self.device)[:, None, None]
             jj = torch.arange(self.g, device=self.device)[None, :, None]
-            tree = cache[placement] = {"blocks": placed[ii, jj, pidx]}
+            tree = cache[placement] = {
+                "blocks": self.tiled.blocks[ii, jj, pidx]}
+        elif tree is None:
+            tree = cache[placement] = {"blocks": place(
+                self.packed_wire(NATURAL)["blocks"], placement)}
         return tree
 
     def _layout(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, str]:
@@ -2072,63 +2001,56 @@ class DistBSR(DistMatrix):
             lay = self._layout_cache = (rows, cols, real, h.hexdigest())
         return lay
 
-    def pool_lists(self, placement: str, packed: bool) -> PoolLists:
-        """Each placed tile's block list and real mask (host numpy, cached
-        per placement and wire), from which plans cut B1's tables.
+    def pool_lists(self, packed: bool) -> PoolLists:
+        """Each natural tile's block list and real mask (host numpy, cached
+        per wire), from which plans cut B1's tables.
 
         Padded wire: the stored slots, real by the storage layout (capacity
         padding and coverage zeros left out).  Packed wire: the consume
         lists of the packed buffers, real where they name a packed block
-        rather than the zero tail.  Pool tile ``q`` is grid position ``q``
-        of the placed stack.
+        rather than the zero tail.  Pool tile ``q`` is tile ``q`` of the
+        natural stack, as the launch maps name it.
         """
-        cache = getattr(self, "_pool_lists", None)
-        if cache is None:
-            cache = self._pool_lists = {}
-        lists = cache.get((placement, packed))
+        cache = self.__dict__.setdefault("_pool_lists", {})
+        lists = cache.get(packed)
         if lists is None:
-            tiles = _wire.placement_tiles(placement, self.g).reshape(-1, 2)
-            ti, tj = tiles[:, 0], tiles[:, 1]
+            n = self.g * self.g
             if packed:
                 po = self.packed_operand()
-                gidx = po.gidx[ti, tj].astype(np.int64)
+                gidx = po.gidx.reshape(n, -1).astype(np.int64)
                 lists = PoolLists(
-                    key=("packed", po.fingerprint, placement), slots=gidx,
-                    rows=po.rows[ti, tj], cols=po.cols[ti, tj],
+                    key=("packed", po.fingerprint), slots=gidx,
+                    rows=po.rows.reshape(n, -1), cols=po.cols.reshape(n, -1),
                     real=gidx != po.zero_slot,
                     slots_per_tile=po.wire_capacity)
             else:
                 rows, cols, real, fp = self._layout()
                 s = self.tiled.store_capacity
                 lists = PoolLists(
-                    key=("padded", fp, placement),
-                    slots=np.broadcast_to(np.arange(s), (len(ti), s)),
-                    rows=rows[ti, tj], cols=cols[ti, tj], real=real[ti, tj],
-                    slots_per_tile=s)
-            cache[(placement, packed)] = lists
+                    key=("padded", fp),
+                    slots=np.broadcast_to(np.arange(s), (n, s)),
+                    rows=rows.reshape(n, -1), cols=cols.reshape(n, -1),
+                    real=real.reshape(n, -1), slots_per_tile=s)
+            cache[packed] = lists
         return lists
 
-    def element_lists(self, placement: str,
-                      packed: bool) -> "_bsr_spmm.ElementLists":
-        """The nonzero elements of the placed pool's real blocks, row by row
-        (:func:`~repro_torch.kernels.bsr_spmm.element_lists`), built on the
-        device once per placement and wire and cached beside
-        :meth:`pool_lists`: B1's element path reads A's values through
-        them, so they hold while the blocks' nonzero positions do, as the
+    def element_lists(self, packed: bool) -> "_bsr_spmm.ElementLists":
+        """The nonzero elements of the natural pool's real blocks, row by
+        row (:func:`~repro_torch.kernels.bsr_spmm.element_lists`), built on
+        the device once per wire and cached beside :meth:`pool_lists`: B1's
+        element path reads A's values through them (and its sparse-B path
+        B's), so they hold while the blocks' nonzero positions do, as the
         real mask does."""
-        cache = getattr(self, "_element_lists", None)
-        if cache is None:
-            cache = self._element_lists = {}
-        lists = cache.get((placement, packed))
+        cache = self.__dict__.setdefault("_element_lists", {})
+        lists = cache.get(packed)
         if lists is None:
-            pool = (self.packed_wire(placement) if packed
-                    else self.placed(placement))["blocks"]
+            pool = (self.packed_wire(NATURAL) if packed
+                    else self._tiles())["blocks"]
             bs = self.tiled.block_size
-            lists = cache[(placement, packed)] = _bsr_spmm.element_lists(
-                pool.reshape(-1, *pool.shape[-3:]),
-                self.pool_lists(placement, packed),
+            lists = cache[packed] = _bsr_spmm.element_lists(
+                pool.reshape(-1, *pool.shape[-3:]), self.pool_lists(packed),
                 self.tiled.tile_shape[0] // bs,
-                key=(placement, packed, next(_ELEMENT_LISTS)))
+                key=(packed, next(_ELEMENT_LISTS)))
         return lists
 
     def footprint_bytes(self) -> int:
@@ -2137,17 +2059,13 @@ class DistBSR(DistMatrix):
         return sum(x.numel() * x.element_size()
                    for x in (t.blocks, t.rows, t.cols, t.counts))
 
-    def placed(self, placement: str) -> Dict[str, torch.Tensor]:
+    def _tiles(self) -> Dict[str, torch.Tensor]:
         if self._ex is not None:
             raise ValueError(
                 "a DistBSR on a process grid holds one tile per rank; plans "
                 "on the grid place it (or call to_global() first)")
-        tree = self._placed.get(placement)
-        if tree is None:
-            t = _place_bsr(self.tiled, placement)
-            tree = {"blocks": t.blocks, "rows": t.rows, "cols": t.cols}
-            self._placed[placement] = tree
-        return tree
+        t = self.tiled
+        return {"blocks": t.blocks, "rows": t.rows, "cols": t.cols}
 
     def abstract_key(self) -> tuple:
         t = self.tiled
@@ -2239,12 +2157,12 @@ class DistDense(DistMatrix):
     def dtype(self) -> torch.dtype:
         return self.data.dtype
 
-    def placed(self, placement: str) -> Dict[str, torch.Tensor]:
-        tree = self._placed.get(placement)
+    def _tiles(self) -> Dict[str, torch.Tensor]:
+        """The tile grid, tileized once per handle (a fresh handle, as
+        ``matmul`` wraps a tensor, once per multiply)."""
+        tree = getattr(self, "_natural", None)
         if tree is None:
-            tree = {"dense": tileize(
-                _place_dense(self.data, self._g, placement), self._g)}
-            self._placed[placement] = tree
+            tree = self._natural = {"dense": tileize(self.data, self._g)}
         return tree
 
     def abstract_key(self) -> tuple:
@@ -2275,7 +2193,7 @@ def _rank_tree(h: DistMatrix, placement: str, packed: bool,
     tree = cache.get(key)
     if tree is not None:
         return tree
-    ti, tj = (int(x) for x in _wire.placement_tiles(placement, ex.g)[ex.i,
+    ti, tj = (int(x) for x in placement_tiles(placement, ex.g)[ex.i,
                                                                       ex.j])
     if isinstance(h, DistDense):
         tm, tn = h.tile_shape
@@ -2288,7 +2206,7 @@ def _rank_tree(h: DistMatrix, placement: str, packed: bool,
             raw = (placement, "blocks", id(ex))
             if raw not in cache:
                 # who needs this rank's natural tile under the placement
-                need = _wire.placement_tiles(placement, ex.g).reshape(-1, 2)
+                need = placement_tiles(placement, ex.g).reshape(-1, 2)
                 dst = int(np.nonzero((need[:, 0] == ex.i)
                                      & (need[:, 1] == ex.j))[0][0])
                 phase, ex.phase = ex.phase, "place"
@@ -3223,6 +3141,10 @@ class MatmulPlan:
             self._c_counts = torch.as_tensor(symbolic.c_counts, device=dev)
         elif wire == "packed" and steal is None:
             self._aux = _steps_on_device(wire_aux, geom.g, dev, mine)
+        # which natural tile each placed grid position holds, per operand:
+        # composed into the step maps (launch_maps) and a rank's pool
+        self._places = tuple(placement_index(pl, geom.g) for pl in (
+            algorithm.a_placement, algorithm.b_placement))
         self._tables = _LRUCache(SPMM_TABLE_CACHE_MAX)
         # B's window offsets for the sparse-B path, by B's element lists
         self._windows: Dict[tuple, torch.Tensor] = {}
@@ -3262,15 +3184,24 @@ class MatmulPlan:
                     if "table" in s), default=0)
 
     def step_maps(self) -> list:
-        """The schedule's steps as this plan's dense-output body runs them:
-        per step, one ``(a_map, b_map)`` per B1 launch (two for
-        ``ring_c_bidir``), output tile p reading A tile ``a_map[p]`` and B
-        tile ``b_map[p]`` of the placed stacks (a packed B is densified per
-        position first, and the launch then reads position p's)."""
+        """The schedule's steps: per step, one ``(a_map, b_map)`` per B1
+        launch (two for ``ring_c_bidir``), output tile p reading A tile
+        ``a_map[p]`` and B tile ``b_map[p]`` of the placed grids (a packed
+        B is densified per position first, and the launch then reads
+        position p's).  The rank path and the verifier read these."""
         if self.algorithm.step_maps is None:
             raise ValueError(f"algorithm {self.algorithm.name!r} declares no "
                              "step_maps")
         return self.algorithm.step_maps(self.geom, self.executor)
+
+    def launch_maps(self) -> list:
+        """:meth:`step_maps` composed with the operands' placements: the
+        maps the stacked bodies launch with, output tile p reading natural
+        tile ``a_map[p]`` of A's own stack and ``b_map[p]`` of B's, so no
+        placed copy of either operand is made."""
+        pa, pb = self._places
+        return [tuple((pa[a_map], pb[b_map]) for a_map, b_map in step)
+                for step in self.step_maps()]
 
     def validate(self, mode: str = "fast", a=None, b=None) -> None:
         """Statically verify this plan (``repro_torch.analysis``).
@@ -3397,15 +3328,16 @@ class MatmulPlan:
     def spmm_table(self, a_h: "DistBSR", a_map: np.ndarray,
                    b_map: np.ndarray) -> SpmmTable:
         """B1's work table of one dense-output ring step, in which grid
-        position p multiplies the real blocks of placed A tile ``a_map[p]``
-        by B tile ``b_map[p]`` (built on the host once, then cached with the
-        plan).  Where A's fill picks the element path
-        (:func:`~repro_torch.kernels.bsr_spmm.pick_path`) the table carries
-        its split over the handle's element lists, and the cache key names
-        the lists (positions of nonzeros are the handle's own)."""
-        placement, packed = self.algorithm.a_placement, "a" in self._packs
-        lists = a_h.pool_lists(placement, packed=packed)
-        elements = a_h.element_lists(placement, packed) \
+        position p multiplies the real blocks of natural A tile
+        ``a_map[p]`` by B tile ``b_map[p]`` (:meth:`launch_maps`; built on
+        the host once, then cached with the plan).  Where A's fill picks
+        the element path (:func:`~repro_torch.kernels.bsr_spmm.pick_path`)
+        the table carries its split over the handle's element lists, and
+        the cache key names the lists (positions of nonzeros are the
+        handle's own)."""
+        packed = "a" in self._packs
+        lists = a_h.pool_lists(packed)
+        elements = a_h.element_lists(packed) \
             if _bsr_spmm.pick_path(a_h.tiled.fill()) == "elements" else None
         key = (lists.key, np.asarray(a_map).tobytes(),
                np.asarray(b_map).tobytes(),
@@ -3420,35 +3352,32 @@ class MatmulPlan:
     def takes_sparse_b(self, a_h: DistMatrix, b_h: DistMatrix) -> bool:
         """Whether this plan's stacked dense-output body hands B1 the
         sparse-B path for ``a_h @ b_h`` (:meth:`sparse_b_table`), as the
-        operands show it: the kernel runs, both are block-sparse handles
-        whose fill picks the element path, and B travels on the padded
-        wire (the table then also needs B's rows sorted by column).  Only
-        the stationary-C body (``ring_c``, ``summa_bcast``, ``summa_ag``)
-        reads it; the others densify B as before."""
+        operands show it: the body is the stationary-C one (``ring_c``,
+        ``summa_bcast``, ``summa_ag``; the others densify B), the kernel
+        runs, both are block-sparse handles whose fill picks the element
+        path, B travels on the padded wire and B's element lists hold each
+        row sorted by column.  The one place the path is chosen."""
         if self.on_ranks or self.wire == "packed" or self.steal is not None \
                 or self.symbolic is not None \
+                or self.algorithm.body is not _stationary_c \
                 or not isinstance(a_h, DistBSR) \
                 or not isinstance(b_h, DistBSR) \
-                or not _runs_kernel(self.geom.impl, self.executor.device):
+                or not _runs_kernel(self.geom.impl, self.executor.device) \
+                or not all(_bsr_spmm.pick_path(h.tiled.fill()) == "elements"
+                           for h in (a_h, b_h)):
             return False
-        return all(_bsr_spmm.pick_path(h.tiled.fill()) == "elements"
-                   for h in (a_h, b_h))
+        return b_h.element_lists(False).cols_sorted
 
     def sparse_b_table(self, a_h: "DistBSR", b_h: "DistBSR",
-                       a_map: np.ndarray, b_map: np.ndarray
-                       ) -> Optional[SpmmTable]:
-        """B1's table of one dense-output step on the sparse-B path: grid
-        position p multiplies the nonzeros of placed A tile ``a_map[p]`` by
-        those of placed B tile ``b_map[p]`` (both handles' element lists,
-        B's window offsets), built on the host once and cached with the
-        plan; None where B's lists do not hold each row sorted by column
-        (the body then densifies B)."""
-        pl_a, pl_b = self.algorithm.a_placement, self.algorithm.b_placement
-        b_el = b_h.element_lists(pl_b, False)
-        if not b_el.cols_sorted:
-            return None
-        lists = a_h.pool_lists(pl_a, packed=False)
-        a_el = a_h.element_lists(pl_a, False)
+                       a_map: np.ndarray, b_map: np.ndarray) -> SpmmTable:
+        """B1's table of one dense-output step on the sparse-B path
+        (:meth:`takes_sparse_b`): grid position p multiplies the nonzeros
+        of natural A tile ``a_map[p]`` by those of natural B tile
+        ``b_map[p]`` (both handles' element lists, B's window offsets),
+        built on the host once and cached with the plan."""
+        b_el = b_h.element_lists(False)
+        lists = a_h.pool_lists(False)
+        a_el = a_h.element_lists(False)
         key = ("sparse_b", lists.key, np.asarray(a_map).tobytes(),
                np.asarray(b_map).tobytes(), a_el.key, b_el.key)
         table = self._tables.get(key)
@@ -3545,7 +3474,9 @@ class MatmulPlan:
         with _obs.span("multiply.epilogue", device=c):
             if self.symbolic is not None:
                 return self._epilogue_sparse(c, a_h, b_h)
-            return self._epilogue(untileize(c), a_h, b_h)
+            unskew = self.algorithm.unskew_out
+            return self._epilogue(untileize(c) if unskew is None
+                                  else unplace(c, "skew_" + unskew), a_h, b_h)
 
     def _operand_device(self):
         """Where array operands are wrapped: the stacked executor's device,
@@ -3573,15 +3504,17 @@ class MatmulPlan:
             elif self.algorithm.unskew_out is not None:
                 raise ValueError(
                     f"unknown unskew_out {self.algorithm.unskew_out!r}")
-            return RankTile(c, ex, lambda full: self._epilogue(
-                full, a_h, b_h, unskew=False))
+            return RankTile(c, ex, lambda full: self._epilogue(full, a_h,
+                                                               b_h))
         finally:
             ex.phase = "body"
 
     def _operands(self, a_h: DistMatrix, b_h: DistMatrix):
         """The body to run and its operand trees (plus plan constants),
-        after the structure guards of structure-specialized plans; on a
-        process grid the rank's bodies and tiles (:func:`_rank_tree`)."""
+        after the structure guards of structure-specialized plans: on the
+        stacked executor each operand's natural tiles (B tileized here, A
+        read in place), which the bodies read through :meth:`launch_maps`;
+        on a process grid the rank's bodies and tiles (:func:`_rank_tree`)."""
         alg = self.algorithm
         pl_a, pl_b = alg.a_placement, alg.b_placement
         packed = self.wire == "packed"
@@ -3595,9 +3528,7 @@ class MatmulPlan:
             bodies = alg
 
             def tree(h, pl, pk, blocks_only=False):
-                if pk:
-                    return h.packed_wire(pl)
-                t = h.placed(pl)
+                t = h.packed_wire(NATURAL) if pk else h._tiles()
                 return {"blocks": t["blocks"]} if blocks_only else t
         if self.steal is not None:
             if isinstance(a_h, DistBSR):
@@ -3619,9 +3550,14 @@ class MatmulPlan:
                     "operands' sparsity structure does not match this "
                     "sparse-output plan (pair lists are specialized to the "
                     "structure); build a new plan with plan_matmul")
+            pairs = self._pairs if self.on_ranks else [
+                dict(step, a_map=self._device_map(a_map),
+                     b_map=self._device_map(b_map))
+                for step, ((a_map, b_map),) in zip(self._pairs,
+                                                   self.launch_maps())]
             return bodies.sparse_body, (
                 tree(a_h, pl_a, packed, blocks_only=True),
-                tree(b_h, pl_b, packed, blocks_only=True), self._pairs)
+                tree(b_h, pl_b, packed, blocks_only=True), pairs)
         if packed:
             for who, h in (("a", a_h), ("b", b_h)):
                 if who in self._packs \
@@ -3634,11 +3570,11 @@ class MatmulPlan:
             return bodies.packed_body, (
                 tree(a_h, pl_a, "a" in self._packs),
                 tree(b_h, pl_b, "b" in self._packs), self._aux,
-                self._steps(a_h))
+                self._steps(a_h, b_h))
         return bodies.body, (tree(a_h, pl_a, False), tree(b_h, pl_b, False),
                              self._steps(a_h, b_h))
 
-    def _steps(self, a_h: DistMatrix, b_h: Optional[DistMatrix] = None):
+    def _steps(self, a_h: DistMatrix, b_h: DistMatrix):
         kernel = isinstance(a_h, DistBSR) \
             and _runs_kernel(self.geom.impl, self.executor.device)
         if self.on_ranks:
@@ -3648,22 +3584,23 @@ class MatmulPlan:
         table = (lambda a_map, b_map: self.spmm_table(a_h, a_map, b_map)) \
             if kernel else None
         sparse_b = (lambda a_map, b_map: self.sparse_b_table(
-            a_h, b_h, a_map, b_map)) \
-            if b_h is not None and self.takes_sparse_b(a_h, b_h) else None
-        return _Steps(table=table, device_map=self._device_map,
-                      sparse_b=sparse_b)
+            a_h, b_h, a_map, b_map)) if self.takes_sparse_b(a_h, b_h) \
+            else None
+        return _Steps(maps=self.launch_maps, table=table,
+                      device_map=self._device_map, sparse_b=sparse_b)
 
     def _rank_table(self, a_h: "DistBSR", held: Tuple[int, ...],
                     k: int) -> SpmmTable:
         """B1's table of a rank's launch over its local pool of the placed
-        A tiles ``held``, reading pool tile ``k`` (cached with the plan)."""
-        lists = a_h.pool_lists(self.algorithm.a_placement,
-                               packed="a" in self._packs)
+        A tiles ``held`` (grid positions, mapped through A's placement to
+        natural tiles), reading pool tile ``k`` (cached with the plan)."""
+        lists = a_h.pool_lists("a" in self._packs)
         key = (lists.key, tuple(held), k)
         table = self._tables.get(key)
         if table is None:
-            table = self._tables[key] = lists.take(held).table(
-                [k], [0], self.geom.a_nbr, device=self.executor.device)
+            table = self._tables[key] = lists.take(
+                self._places[0][list(held)]).table(
+                    [k], [0], self.geom.a_nbr, device=self.executor.device)
         return table
 
     def _epilogue_sparse(self, c_blocks: torch.Tensor, a_h: DistBSR,
@@ -3713,21 +3650,15 @@ class MatmulPlan:
         return DistBSR._on_grid(tiled, ex, {"blocks": c_blocks})
 
     def _epilogue(self, c: torch.Tensor, a_h: DistMatrix,
-                  b_h: DistMatrix, unskew: bool = True) -> torch.Tensor:
-        """Shared output fix-up: unskew, un-balance, crop padding.
+                  b_h: DistMatrix) -> torch.Tensor:
+        """Shared output fix-up of the whole, unskewed C: un-balance, crop
+        padding.
 
         A rows-balanced left operand permuted its global row blocks before
-        tiling and C inherits that order, so it is inverted here (after
-        the unskew, before the crop); a cols-balanced right operand
-        permuted C's column blocks likewise.
+        tiling and C inherits that order, so it is inverted here (before
+        the crop); a cols-balanced right operand permuted C's column blocks
+        likewise.
         """
-        if not unskew:
-            pass                     # the ranks unskewed their tiles
-        elif self.algorithm.unskew_out == "rows":
-            c = unskew_c_rows(c, self.geom.g)
-        elif self.algorithm.unskew_out is not None:
-            raise ValueError(
-                f"unknown unskew_out {self.algorithm.unskew_out!r}")
         perm = getattr(a_h, "row_block_perm", None)
         if perm:
             bs = a_h.block_size

@@ -1,11 +1,13 @@
 """Tile placement (skew layouts) on stacked tile grids.
 
 Port of ``repro/core/dist.py``.  The paper's iteration offset
-``k_offset = i + j`` is realised at placement time: the distributed-matrix
-handle places tile ``A[i, (i+j) % g]`` at grid position (i, j), so the ring
-bodies only ever exchange tiles with neighbours.  Here a placement is a
-gather on the ``[g, g, ...]`` tile grid that the executor keeps on one
-card.
+``k_offset = i + j`` is realised at placement time: grid position (i, j)
+starts with tile ``A[i, (i+j) % g]``, so the ring bodies only ever
+exchange tiles with neighbours.  Here a placement is an index map of the
+``[g, g]`` tile grid (:func:`placement_tiles`): the stacked executor
+composes it into its launch maps and reads every operand's natural tiles
+where they lie; :func:`place` gathers a placed copy for the handles'
+``placed``.
 
 On a process grid (one rank per tile, ``launch/grid.py``) the ranks are
 joined in a :func:`make_grid_mesh`, the counterpart of the JAX package's
@@ -14,20 +16,16 @@ dimensions give the subgroups the executor exchanges tiles on.
 """
 from __future__ import annotations
 
-import dataclasses
-
+import numpy as np
 import torch
 import torch.distributed as dist
-
-from .bsr import TiledBSR
 
 # transport -> the device type of the tensors it moves
 BACKENDS = {"gloo": "cpu", "nccl": "cuda"}
 
 __all__ = [
     "BACKENDS", "check_layout", "make_grid_mesh", "tileize", "untileize",
-    "skew_dense", "skew_bsr",
-    "place_b_for_stationary_a", "unskew_c_rows",
+    "placement_tiles", "placement_index", "place", "unplace",
 ]
 
 
@@ -96,62 +94,55 @@ def untileize(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 1, 3).reshape(g1 * tm, g2 * tn)
 
 
-def _grid_index(g: int, device):
-    i = torch.arange(g, device=device)[:, None]
-    j = torch.arange(g, device=device)[None, :]
-    return i, j
+def placement_tiles(placement: str, g: int) -> np.ndarray:
+    """Natural tile coordinates held at grid position (i, j): i64[g, g, 2].
 
-
-def _roll_rows(tiles: torch.Tensor, sign: int) -> torch.Tensor:
-    """tiles[i, j] <- tiles[i, (j + sign*i) % g]  (row-dependent column roll)."""
-    i, j = _grid_index(tiles.shape[0], tiles.device)
-    return tiles[i, (j + sign * i) % tiles.shape[0]]
-
-
-def _roll_cols(tiles: torch.Tensor, sign: int) -> torch.Tensor:
-    """tiles[i, j] <- tiles[(i + sign*j) % g, j]  (col-dependent row roll)."""
-    i, j = _grid_index(tiles.shape[0], tiles.device)
-    return tiles[(i + sign * j) % tiles.shape[0], j]
-
-
-def skew_dense(x: torch.Tensor, g: int, kind: str) -> torch.Tensor:
-    """Skew a global dense matrix's tile grid.
-
-    kind='rows': position (i,j) holds tile (i, (i+j)%g)   [A operand]
-    kind='cols': position (i,j) holds tile ((i+j)%g, j)   [B operand]
+    The one statement of where a tile lies: ``natural`` keeps tile (i, j)
+    at (i, j), ``skew_rows`` (``ring_c``'s A) puts tile (i, (i+j)%g)
+    there, ``skew_cols`` (its B) tile ((i+j)%g, j) and ``stationary_a``
+    (``ring_a``'s B) tile (j, (i+j)%g).  The handles' ``placed``, the
+    stacked executor's launch maps, the rank path, the packed wire and
+    the verifier all place by it.
     """
-    tiles = tileize(x, g)
-    if kind == "rows":
-        tiles = _roll_rows(tiles, +1)
-    elif kind == "cols":
-        tiles = _roll_cols(tiles, +1)
+    i = np.arange(g)[:, None]
+    j = np.arange(g)[None, :]
+    if placement == "natural":
+        ti, tj = np.broadcast_to(i, (g, g)), np.broadcast_to(j, (g, g))
+    elif placement == "skew_rows":
+        ti, tj = np.broadcast_to(i, (g, g)), (i + j) % g
+    elif placement == "skew_cols":
+        ti, tj = (i + j) % g, np.broadcast_to(j, (g, g))
+    elif placement == "stationary_a":
+        ti, tj = np.broadcast_to(j, (g, g)), (i + j) % g
     else:
-        raise ValueError(kind)
-    return untileize(tiles)
+        raise ValueError(f"unknown placement {placement!r}")
+    return np.stack([ti, tj], axis=-1).astype(np.int64)
 
 
-def skew_bsr(a: TiledBSR, kind: str) -> TiledBSR:
-    """Skew a TiledBSR's tile grid (same placement semantics as skew_dense)."""
-    if a.grid_shape[0] != a.grid_shape[1]:
-        raise ValueError("skew needs a square grid")
-    if kind not in ("rows", "cols"):
-        raise ValueError(kind)
-    roll = _roll_rows if kind == "rows" else _roll_cols
-    return dataclasses.replace(
-        a, blocks=roll(a.blocks, +1), rows=roll(a.rows, +1),
-        cols=roll(a.cols, +1), counts=roll(a.counts, +1))
+def placement_index(placement: str, g: int) -> np.ndarray:
+    """:func:`placement_tiles` as a ``[g*g]`` tile map: the natural tile
+    ``ti * g + tj`` that grid position ``i * g + j`` holds."""
+    tiles = placement_tiles(placement, g).reshape(-1, 2)
+    return tiles[:, 0] * g + tiles[:, 1]
 
 
-def place_b_for_stationary_a(b: torch.Tensor, g: int) -> torch.Tensor:
-    """Initial B placement for the stationary-A ring.
+def place(tiles: torch.Tensor, placement: str) -> torch.Tensor:
+    """A natural ``[g, g, ...]`` tile grid as ``placement`` holds it: one
+    gather."""
+    g = tiles.shape[0]
+    idx = torch.as_tensor(placement_index(placement, g), device=tiles.device)
+    return tiles.reshape(g * g, *tiles.shape[2:]).index_select(
+        0, idx).reshape(tiles.shape)
 
-    Position (i, k) holds B tile (k, (i+k) % g).
-    """
-    tiles = tileize(b, g)
-    i, k = _grid_index(g, b.device)
-    return untileize(tiles[k + 0 * i, (i + k) % g])
 
-
-def unskew_c_rows(c: torch.Tensor, g: int) -> torch.Tensor:
-    """Invert 'rows' skew on the output: position (i,j) held tile (i,(i+j)%g)."""
-    return untileize(_roll_rows(tileize(c, g), -1))
+def unplace(tiles: torch.Tensor, placement: str) -> torch.Tensor:
+    """``[g, g, tm, tn]`` tiles held as ``placement`` puts them -> the
+    natural ``[g*tm, g*tn]`` matrix: the inverse placement is gathered
+    inside the one copy that untileizes."""
+    g, _, tm, tn = tiles.shape
+    at = np.argsort(placement_index(placement, g)).reshape(g, 1, g)
+    rows = np.arange(tm).reshape(1, tm, 1)
+    out = tiles.reshape(g * g, tm, tn)[
+        torch.as_tensor(at, device=tiles.device),
+        torch.as_tensor(rows, device=tiles.device)]
+    return out.reshape(g * tm, g * tn)

@@ -6,12 +6,11 @@ device, and moves tiles with ``lax.ppermute``.  Here all g² tiles of an
 operand live stacked as ``[g, g, ...]`` tensors on one device:
 
 * a ring ``ppermute`` along a mesh axis with perm ``[((d + sign) % g, d)]``
-  — device d *receives* from device d + sign — is a ``torch.roll`` of the
-  stack by ``-sign`` along grid dim 0 (``"row"`` axis) or 1 (``"col"``)
-  (:meth:`StackedExecutor.shift`, the sparse-output body's); or, where a
-  kernel reads its operands in place, the same roll of a ``[g*g]`` tile
-  map, a host composition that moves no data
-  (:meth:`StackedExecutor.shift_map`, the dense-output bodies');
+  — device d *receives* from device d + sign — is a roll of a ``[g*g]``
+  tile map by ``-sign`` along grid dim 0 (``"row"`` axis) or 1 (``"col"``),
+  a host composition that moves no data
+  (:meth:`StackedExecutor.shift_map`): every body reads its step's tiles
+  where they lie;
 * a body's per-step local multiply runs on all g² tiles at once, with the
   tile index as a batch dimension (:meth:`StackedExecutor.batch`), so one
   kernel launch serves the whole grid.
@@ -69,8 +68,11 @@ class StackedExecutor(_TileMaps):
 
     def shift(self, tree: Dict[str, torch.Tensor], axis: str,
               sign: int = 1) -> Dict[str, torch.Tensor]:
-        """Ring shift: position d along ``axis`` receives the tile at
-        ``(d + sign) % g`` (the JAX bodies' ``_tree_ppermute``)."""
+        """Ring shift of the tiles themselves: position d along ``axis``
+        receives the tile at ``(d + sign) % g`` (the JAX bodies'
+        ``_tree_ppermute``).  No body calls it (they compose
+        :meth:`shift_map`); ``bench/faults.py``'s ``no_exchange`` patches
+        it by name."""
         dim = AXES[axis]
         return {k: torch.roll(v, shifts=-sign, dims=dim)
                 for k, v in tree.items()}

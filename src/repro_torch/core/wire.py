@@ -26,8 +26,8 @@ numpy, bit-identical to the JAX package.  Per sparse operand:
     into the symbolic phase's pair lists (:func:`remap_pairs_packed`) so the
     pair kernels index packed buffers with no unpack copy.
 
-On the stacked executor the packed buffer is what the ring shift rolls; the
-public surface is ``plan_matmul(wire="packed")``.
+On the stacked executor each step's launch reads the natural packed stack
+through its tile maps; the public surface is ``plan_matmul(wire="packed")``.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .dist import placement_tiles
 from .grid import bucket_capacity
 from .symbolic import GridStructure
 
@@ -150,28 +151,8 @@ def pack_operand(struct: GridStructure) -> PackedOperand:
 
 
 # ---------------------------------------------------------------------------
-# Placement / step-schedule composition
+# Step-schedule composition
 # ---------------------------------------------------------------------------
-def placement_tiles(placement: str, g: int) -> np.ndarray:
-    """Natural tile coordinates held at grid position (i, j): i64[g, g, 2].
-
-    Mirrors ``api._place_bsr`` / ``core.dist`` exactly.
-    """
-    i = np.arange(g)[:, None]
-    j = np.arange(g)[None, :]
-    if placement == "natural":
-        ti, tj = np.broadcast_to(i, (g, g)), np.broadcast_to(j, (g, g))
-    elif placement == "skew_rows":
-        ti, tj = np.broadcast_to(i, (g, g)), (i + j) % g
-    elif placement == "skew_cols":
-        ti, tj = (i + j) % g, np.broadcast_to(j, (g, g))
-    elif placement == "stationary_a":
-        ti, tj = np.broadcast_to(j, (g, g)), (i + j) % g
-    else:
-        raise ValueError(f"unknown placement {placement!r}")
-    return np.stack([ti, tj], axis=-1).astype(np.int64)
-
-
 def _steps(g: int):
     i = np.arange(g)[:, None, None]
     j = np.arange(g)[None, :, None]

@@ -11,7 +11,7 @@ package's (``repro.analysis``).
   ring permutation, a dropped or duplicated steal3d accumulation, a
   broken consume map, a corrupt sparse pair list) is named by the JAX
   package's rule id on both sides; a reordered overlap body, a
-  miscounted schedule, a sort between the launches and a copy of a placed
+  miscounted schedule, a sort between the launches and a copy of an
   operand are named by the op-trace rules (the JAX package's jaxpr lint
   does not run under jax 0.9.0: ``jax.core.ClosedJaxpr`` is gone);
 * ``check_survivor_coverage`` and ``validate_assignment`` equal to the JAX
@@ -411,18 +411,18 @@ def _sorting_body(a, b, steps, geom, ex):
     """Re-sorts structure between the launches."""
     b = api._densify_b(b, geom, ex)
     c = None
-    for (a_map, b_map), in api._steps_ring_c(geom, ex):
+    for (a_map, b_map), in steps.maps():
         c = api._local_mm(a, b, a_map, b_map, steps, c, geom, ex)
         torch.argsort(a["rows"].reshape(-1))
     return ex.unbatch(c)
 
 
 def _gathering_body(a, b, steps, geom, ex):
-    """Gathers a copy of the placed A stack before the ring."""
+    """Gathers a copy of the A stack before the ring."""
     idx = torch.arange(geom.g * geom.g, device=ex.device)
     a = dict(a, blocks=ex.unbatch(ex.batch(a["blocks"]).index_select(0,
                                                                       idx)))
-    return api._body_ring_c(a, b, steps, geom, ex)
+    return api._stationary_c(a, b, steps, geom, ex)
 
 
 def _densifying_body(a, b, steps, geom, ex):
@@ -430,7 +430,7 @@ def _densifying_body(a, b, steps, geom, ex):
     loop, through the wire's ``densify``)."""
     b = api._densify_b(b, geom, ex)
     c = None
-    for (a_map, b_map), in api._steps_ring_c(geom, ex):
+    for (a_map, b_map), in steps.maps():
         kops.densify(ex.batch(a["blocks"]), ex.batch(a["rows"]),
                      ex.batch(a["cols"]), n_block_rows=geom.a_nbr,
                      n_block_cols=geom.a_nbr)
@@ -439,18 +439,18 @@ def _densifying_body(a, b, steps, geom, ex):
 
 
 def _wire_gathering_body(a, b, steps, geom, ex):
-    """Gathers the placed A stack through the wire's ``densify_packed``."""
+    """Gathers the A stack through the wire's ``densify_packed``."""
     dmap = torch.zeros((geom.g * geom.g, geom.a_nbr * geom.a_nbr),
                        dtype=torch.int32, device=ex.device)
     kops.densify_packed(ex.batch(a["blocks"]), dmap,
                         n_block_rows=geom.a_nbr, n_block_cols=geom.a_nbr)
-    return api._body_ring_c(a, b, steps, geom, ex)
+    return api._stationary_c(a, b, steps, geom, ex)
 
 
 def _rolling_body(a, b, steps, geom, ex):
     """Rolls the dense B stack (a copy where a tile map would do)."""
     b = {"dense": torch.roll(b["dense"], -1, dims=0)}
-    return api._body_ring_c(a, b, steps, geom, ex)
+    return api._stationary_c(a, b, steps, geom, ex)
 
 
 @pytest.fixture

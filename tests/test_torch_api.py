@@ -37,6 +37,7 @@ from repro.core import wire as jwire  # analysis: allow(source.import.repro.core
 from repro.kernels import ops as jops
 from repro.runtime.platform import subprocess_env
 from repro_torch.core import api as tapi
+from repro_torch.core import dist as tdist
 from repro_torch.core.api import DistBSR, DistDense, matmul, plan_matmul
 from repro_torch.core.bsr import TiledBSR, random_sparse
 from repro_torch.core.grid import ProcessGrid
@@ -578,12 +579,12 @@ def test_scheduled_pair_lists_match_jax(algorithm, wire, g, ops):
                                        "ring_c_bidir"])
 def test_other_schedules_read_the_placed_stacks_in_place(algorithm, wire, g,
                                                          monkeypatch):
-    """Every launch of the dense-output SpMM hands B1 the placed A stack
+    """Every launch of the dense-output SpMM hands B1 the natural A stack
     (padded) or packed A buffers (packed) themselves, with the tile maps
-    that ``plan.step_maps()`` lists, in order, and B's placed stack (its
-    two contiguous column halves for ring_c_bidir): nothing rolls.  Each
-    accumulator is written fresh by its first launch and added into after
-    that."""
+    that ``plan.launch_maps()`` lists (``plan.step_maps()`` composed with
+    the placements), in order, and B's natural stack (its two contiguous
+    column halves for ring_c_bidir): nothing rolls.  Each accumulator is
+    written fresh by its first launch and added into after that."""
     calls = _count_shifts(monkeypatch)
     seen = []
     raw = tapi.kops.bsr_spmm_raw
@@ -607,11 +608,16 @@ def test_other_schedules_read_the_placed_stacks_in_place(algorithm, wire, g,
     packed = "a" in plan._packs
     assert packed == (wire == "packed" and algorithm != "ring_a")
     a_pool = (a_h.packed_wire if packed else a_h.placed)(
-        alg.a_placement)["blocks"]
-    b_pool = b_h.placed(alg.b_placement)["dense"]
+        tapi.NATURAL)["blocks"]
+    b_pool = b_h.placed(tapi.NATURAL)["dense"]
     per_step = 2 if algorithm == "ring_c_bidir" else 1
     tn = plan.geom.tn
-    launches = [m for step in plan.step_maps() for m in step]
+    launches = [m for step in plan.launch_maps() for m in step]
+    pa, pb = (tdist.placement_index(pl, g)
+              for pl in (alg.a_placement, alg.b_placement))
+    np.testing.assert_array_equal(
+        [(pa[a], pb[b]) for step in plan.step_maps() for a, b in step],
+        launches)
     assert len(seen) == len(launches) == g * per_step
     distinct = g if algorithm.startswith("summa") else g * g
     for n, ((blocks, dense, kw, _), (a_map, b_map)) in enumerate(
@@ -674,7 +680,8 @@ def test_registry_extension_dispatches(handles):
     tapi.REGISTRY.register(tapi.Algorithm(
         name="ring_c_clone", body=ring_c.body,
         a_placement=ring_c.a_placement, b_placement=ring_c.b_placement,
-        unskew_out=ring_c.unskew_out, wire=ring_c.wire))
+        unskew_out=ring_c.unskew_out, wire=ring_c.wire,
+        step_maps=ring_c.step_maps))
     try:
         got = matmul(a_h, b_h, algorithm="ring_c_clone").numpy()
         np.testing.assert_allclose(got, a_d @ b, rtol=TOL, atol=TOL)
@@ -692,12 +699,13 @@ def test_reregistering_algorithm_evicts_stale_plans(handles):
     tapi.REGISTRY.register(tapi.Algorithm(
         name=name, body=ring_c.body, a_placement=ring_c.a_placement,
         b_placement=ring_c.b_placement, unskew_out=ring_c.unskew_out,
-        wire=ring_c.wire))
+        wire=ring_c.wire, step_maps=ring_c.step_maps))
     try:
         p1 = plan_matmul(a_h, b_h, algorithm=name)
         other = plan_matmul(a_h, b_h, algorithm="ring_c")
-        tapi.REGISTRY.register(tapi.Algorithm(name=name, body=bcast.body),
-                               overwrite=True)
+        tapi.REGISTRY.register(tapi.Algorithm(
+            name=name, body=bcast.body, step_maps=bcast.step_maps),
+            overwrite=True)
         p2 = plan_matmul(a_h, b_h, algorithm=name)
         assert p2 is not p1                      # stale plan evicted
         assert plan_matmul(a_h, b_h, algorithm="ring_c") is other
@@ -762,11 +770,12 @@ def test_plan_cache_is_bounded(handles, monkeypatch):
 
 
 def test_placements_are_materialised_once(handles):
+    """A multiply places neither operand (its launch maps read the natural
+    tiles); ``placed`` gathers a placement once and keeps it."""
     _, _, a_h, b_h = handles
     assert a_h.placements() == ()
     matmul(a_h, b_h)
-    assert a_h.placements() == (tapi.SKEW_ROWS,)
-    assert b_h.placements() == (tapi.SKEW_COLS,)
+    assert a_h.placements() == () and b_h.placements() == ()
     tree = a_h.placed(tapi.SKEW_ROWS)
     matmul(a_h, b_h, overlap="off")
     assert a_h.placed(tapi.SKEW_ROWS) is tree
@@ -815,9 +824,9 @@ def _count_shifts(monkeypatch):
 @pytest.mark.parametrize("overlap", ["on", "off"])
 def test_ring_shifts_each_operand_g_minus_1_times(g, overlap, monkeypatch):
     """No shift is made whose tiles no step consumes: g - 1 per operand and
-    one local multiply per step, in either body.  The dense-output body's
-    shifts are compositions of tile maps and roll nothing; the
-    sparse-output body's roll its tiles."""
+    one local multiply per step, in either body.  The shifts are
+    compositions of tile maps and roll nothing, in the dense-output body
+    and in the sparse-output one, which gathers each step's tiles."""
     calls = _count_shifts(monkeypatch)
     local_mm = tapi._local_mm
     steps = []
@@ -834,8 +843,8 @@ def test_ring_shifts_each_operand_g_minus_1_times(g, overlap, monkeypatch):
     np.testing.assert_allclose(got, a_d @ b, rtol=TOL, atol=TOL)
     calls["maps"].clear()
     c_h = matmul(a_h, a_h, output="sparse", overlap=overlap)
-    assert sorted(calls["shifts"]) == once and calls["maps"] == []
-    assert len(calls["torch.roll"]) == 2 * (g - 1)    # one "blocks" each
+    assert sorted(calls["maps"]) == once
+    assert calls["shifts"] == [] and calls["torch.roll"] == []
     np.testing.assert_allclose(c_h.densify().numpy(), a_d @ a_d, rtol=TOL,
                                atol=TOL)
 
@@ -844,9 +853,10 @@ def test_ring_shifts_each_operand_g_minus_1_times(g, overlap, monkeypatch):
 @pytest.mark.parametrize("wire", ["padded", "packed"])
 def test_dense_bodies_read_the_placed_stacks_in_place(g, wire, monkeypatch):
     """Every step of the dense-output SpMM hands the local multiply the
-    placed A stack (padded) or packed A buffers (packed) and the placed B
-    stack themselves, with that step's tile maps: no roll and no gather
-    copy of A or of B precede the multiply."""
+    natural A stack (padded) or packed A buffers (packed) and the natural B
+    stack themselves, with that step's tile maps composed with the skewed
+    placements: no roll and no gather copy of A or of B precede the
+    multiply."""
     calls = _count_shifts(monkeypatch)
     seen = []
     raw = tapi.kops.bsr_spmm_raw
@@ -863,8 +873,10 @@ def test_dense_bodies_read_the_placed_stacks_in_place(g, wire, monkeypatch):
     np.testing.assert_allclose(got, a_d @ b, rtol=TOL, atol=TOL)
     assert calls["torch.roll"] == [] and calls["shifts"] == []
     a_pool = (a_h.packed_wire if wire == "packed" else a_h.placed)(
-        tapi.SKEW_ROWS)["blocks"]
-    b_pool = b_h.placed(tapi.SKEW_COLS)["dense"]
+        tapi.NATURAL)["blocks"]
+    b_pool = b_h.placed(tapi.NATURAL)["dense"]
+    pa, pb = (tdist.placement_index(pl, g)
+              for pl in (tapi.SKEW_ROWS, tapi.SKEW_COLS))
     ex = tapi.StackedExecutor(g, CPU)
     a_map = b_map = ex.identity_map()
     assert len(seen) == g
@@ -875,10 +887,41 @@ def test_dense_bodies_read_the_placed_stacks_in_place(g, wire, monkeypatch):
         assert blocks.data_ptr() == a_pool.data_ptr()
         assert tuple(blocks.shape) == (g * g, *a_pool.shape[2:])
         assert dense.data_ptr() == b_pool.data_ptr()
-        np.testing.assert_array_equal(kw["a_map"], a_map)
-        np.testing.assert_array_equal(kw["b_map"], b_map)
+        np.testing.assert_array_equal(kw["a_map"], pa[a_map])
+        np.testing.assert_array_equal(kw["b_map"], pb[b_map])
         assert (kw["out"] is None) == (t == 0)
         assert kw["out"] is None or kw["out"] is seen[1][2]["out"]
+
+
+def test_a_multiply_copies_neither_operand(monkeypatch):
+    """A stacked ``ring_c`` ``matmul(A_h, B)`` on a fresh tensor B, recorded
+    whole (coercion, placement, body, epilogue), copies or rolls neither
+    operand's storage: B is tileized once (a ``clone``, no gather) and A is
+    read where it lies, through the launch maps, so A_h keeps no placed
+    copy.  The local multiply is a stand-in that reads no operand, so the
+    plain version's own gathers do not count."""
+    from repro_torch.analysis.op_lint import copy_ops
+    g = 2
+    a_h = DistBSR.from_dense(random_sparse(24, 24, 0.3, seed=1), g=g,
+                             block_size=4, device=CPU)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (24, 5)).astype(np.float32))
+    seen = []
+
+    def stand_in(blocks, rows, cols, dense, *, n_block_rows, a_map, out=None,
+                 **kw):
+        seen.append((blocks, dense))
+        return out if out is not None else torch.zeros(
+            (len(a_map), n_block_rows * blocks.shape[-1], dense.shape[-1]))
+
+    monkeypatch.setattr(tapi.kops, "bsr_spmm_raw", stand_in)
+    hits, rolls = copy_ops(lambda: matmul(a_h, b), [a_h.tiled.blocks, b])
+    assert hits == [] and rolls == []
+    assert a_h.placements() == ()
+    assert len(seen) == g
+    for blocks, dense in seen:
+        assert blocks.data_ptr() == a_h.tiled.blocks.data_ptr()
+        assert dense.data_ptr() == seen[0][1].data_ptr() != b.data_ptr()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

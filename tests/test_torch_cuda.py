@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR, DistDense,
-                                  matmul, plan_matmul)
+from repro_torch.core.api import (NATURAL, DistBSR, DistDense, matmul,
+                                  plan_matmul)
 from repro_torch.core.bsr import BSR, TiledBSR, random_sparse
 from repro_torch.core.grid import ProcessGrid
 from repro_torch.core.symbolic import symbolic_spgemm
@@ -285,8 +285,8 @@ def _low_fill(bs: int, g: int, seed: int) -> np.ndarray:
 
 def _element_case(bs: int, n: int, dtype, device, seed: int = 0):
     """A 2 x 2 handle of :func:`_low_fill` and B, and the element table of
-    its plan's second ring step, with the placed pools and lists that step
-    reads."""
+    its plan's second ring step, with the natural pools that step reads
+    through its launch maps."""
     a = _low_fill(bs, 2, seed)
     a_h = DistBSR.from_dense(a, g=2, block_size=bs, dtype=dtype,
                              device=device)
@@ -296,12 +296,11 @@ def _element_case(bs: int, n: int, dtype, device, seed: int = 0):
     b_h = DistDense.for_rhs(torch.from_numpy(b).to(dtype), a_h)
     plan = plan_matmul(a_h, b_h)
     ex = plan.executor
-    a_map = ex.shift_map(ex.identity_map(), "col")
-    b_map = ex.shift_map(ex.identity_map(), "row")
+    (a_map, b_map), = plan.launch_maps()[1]
     table = plan.spmm_table(a_h, a_map, b_map)
-    placed = a_h.placed(SKEW_ROWS)
-    args = (ex.batch(placed["blocks"]), ex.batch(placed["rows"]),
-            ex.batch(placed["cols"]), ex.batch(b_h.placed(SKEW_COLS)["dense"]))
+    nat = a_h.placed(NATURAL)
+    args = (ex.batch(nat["blocks"]), ex.batch(nat["rows"]),
+            ex.batch(nat["cols"]), ex.batch(b_h.placed(NATURAL)["dense"]))
     return table, args, a_map, b_map, a_h.tile_shape[0] // bs
 
 
@@ -472,8 +471,8 @@ def _square_low_fill(m: int, seed: int) -> np.ndarray:
 
 def _sparse_b_case(bs: int, dtype, device, seed: int = 0, m: int = 2400):
     """A @ B on a 2 x 2 grid of low-fill handles: the sparse-B table of the
-    plan's second ring step, the placed pools it reads (A's and B's blocks,
-    rows, cols) and its maps."""
+    plan's second ring step, the natural pools it reads (A's and B's
+    blocks, rows, cols) and its launch maps."""
     a_h, b_h = (DistBSR.from_dense(_square_low_fill(m, seed + x), g=2,
                                    block_size=bs, dtype=dtype, device=device)
                 for x in (0, 50))
@@ -481,11 +480,9 @@ def _sparse_b_case(bs: int, dtype, device, seed: int = 0, m: int = 2400):
         == "elements"
     plan = plan_matmul(a_h, b_h)
     ex = plan.executor
-    a_map = ex.shift_map(ex.identity_map(), "col")
-    b_map = ex.shift_map(ex.identity_map(), "row")
+    (a_map, b_map), = plan.launch_maps()[1]
     table = plan.sparse_b_table(a_h, b_h, a_map, b_map)
-    pools = [ex.batch(h.placed(pl)[k]) for h, pl in ((a_h, SKEW_ROWS),
-                                                     (b_h, SKEW_COLS))
+    pools = [ex.batch(h.placed(NATURAL)[k]) for h in (a_h, b_h)
              for k in ("blocks", "rows", "cols")]
     return table, pools, a_map, b_map, a_h.tile_shape[0] // bs, \
         b_h.tile_shape[1] // bs
@@ -606,6 +603,32 @@ def test_sparse_b_matmul_on_the_card_matches_the_cpu(card, algorithm, g):
                                    "sparse_b": launches["sparse_b"] + g}
     assert [e["args"]["path"] for e in spans] == ["sparse_b"] * g
     assert multiplied == g * int(a_h.counts.sum())
+    assert_close(got.cpu(), want, torch.from_numpy(np.abs(a_d) @ np.abs(a_d)))
+
+
+@pytest.mark.cuda
+def test_square_builds_the_element_lists_once(card, monkeypatch):
+    """``matmul(A_h, A_h)`` on the sparse-B path reads one handle as A and
+    as B through their launch maps: the handle's element lists are built
+    once, serve both operands, and no placed copy of it is made."""
+    from repro_torch.kernels import bsr_spmm
+    built = []
+    real = bsr_spmm.element_lists
+    monkeypatch.setattr(bsr_spmm, "element_lists",
+                        lambda *args, **kw: built.append(1)
+                        or real(*args, **kw))
+    a_d = _square_low_fill(2200, 7)
+    a_h = DistBSR.from_dense(a_d, g=2, block_size=16, device=card)
+    launches = dict(bsr_spmm_cuda.paths)
+    got = matmul(a_h, a_h, algorithm="ring_c", output="dense")
+    matmul(a_h, a_h, algorithm="ring_c", output="dense")
+    torch.cuda.synchronize()
+    assert bsr_spmm_cuda.paths == {**launches,
+                                   "sparse_b": launches["sparse_b"] + 4}
+    assert len(built) == 1 and a_h.placements() == ()
+    want = matmul(DistBSR.from_dense(a_d, g=2, block_size=16, device="cpu"),
+                  DistBSR.from_dense(a_d, g=2, block_size=16, device="cpu"),
+                  algorithm="ring_c", output="dense")
     assert_close(got.cpu(), want, torch.from_numpy(np.abs(a_d) @ np.abs(a_d)))
 
 

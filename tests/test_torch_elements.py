@@ -10,8 +10,7 @@ import pytest
 import torch
 
 from repro_torch.core import bsr as tbsr
-from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR, DistDense,
-                                  plan_matmul)
+from repro_torch.core.api import NATURAL, DistBSR, DistDense, plan_matmul
 from repro_torch.core.grid import ProcessGrid
 from repro_torch.kernels import bsr_spmm
 from repro_torch.kernels import ops as tops
@@ -45,7 +44,7 @@ def _handle(g: int, dtype: str, seed: int = 0) -> DistBSR:
 
 def _pool(a_h: DistBSR, wire: str) -> torch.Tensor:
     pool = (a_h.packed_wire if wire == "packed" else a_h.placed)(
-        SKEW_ROWS)["blocks"]
+        NATURAL)["blocks"]
     return pool.reshape(-1, *pool.shape[-3:])
 
 
@@ -106,22 +105,20 @@ def _replay(blocks, dense, table, out=None):
 
 
 def _plain(a_h, wire, dense, a_map, b_map):
-    """The plain version of one step over the placed pool: every listed
+    """The plain version of one step over the natural pool: every listed
     block, zero slots and zero blocks included."""
     ex_pool = _pool(a_h, wire)
-    g = a_h.g
+    n = a_h.g * a_h.g
     if wire == "packed":
         po = a_h.packed_operand()
-        from repro_torch.core import wire as _wire
-        tiles = _wire.placement_tiles(SKEW_ROWS, g).reshape(-1, 2)
-        gidx = torch.as_tensor(po.gidx[tiles[:, 0], tiles[:, 1]][a_map])
-        rows = torch.as_tensor(po.rows[tiles[:, 0], tiles[:, 1]][a_map])
-        cols = torch.as_tensor(po.cols[tiles[:, 0], tiles[:, 1]][a_map])
+        gidx = torch.as_tensor(po.gidx.reshape(n, -1)[a_map])
+        rows = torch.as_tensor(po.rows.reshape(n, -1)[a_map])
+        cols = torch.as_tensor(po.cols.reshape(n, -1)[a_map])
         return tops.bsr_spmm_raw(ex_pool, rows, cols, dense,
                                  n_block_rows=a_h.tile_shape[0] // BS,
                                  impl="ref", a_map=a_map, b_map=b_map,
                                  gidx=gidx)
-    placed = a_h.placed(SKEW_ROWS)
+    placed = a_h.placed(NATURAL)
     s = ex_pool.shape[1]
     return tops.bsr_spmm_raw(ex_pool, placed["rows"].reshape(-1, s),
                              placed["cols"].reshape(-1, s), dense,
@@ -130,12 +127,8 @@ def _plain(a_h, wire, dense, a_map, b_map):
 
 
 def _steps(plan, a_h):
-    ex = plan.executor
-    a_map = b_map = ex.identity_map()
-    for step in range(a_h.g):
-        if step:
-            a_map = ex.shift_map(a_map, "col")
-            b_map = ex.shift_map(b_map, "row")
+    """Each ring step's launch maps over the natural stacks."""
+    for step, ((a_map, b_map),) in enumerate(plan.launch_maps()):
         yield step, a_map, b_map
 
 
@@ -150,7 +143,7 @@ def test_element_lists_match_a_numpy_reference(g, wire, dtype):
     tail and the zero slots of real blocks give none."""
     a_h = _handle(g, dtype)
     pool = _pool(a_h, wire)
-    lists = a_h.pool_lists(SKEW_ROWS, wire == "packed")
+    lists = a_h.pool_lists(wire == "packed")
     nbr = a_h.tile_shape[0] // BS
     el = element_lists(pool, lists, nbr)
     p, s = pool.shape[:2]
@@ -179,8 +172,8 @@ def test_element_lists_match_a_numpy_reference(g, wire, dtype):
     assert el.n_elements == int(torch.count_nonzero(a_h.tiled.blocks))
     assert np.isnan(host.reshape(-1)[el.aoff.numpy()]).sum() == 1
     # the pool slots and elements the lists name hold A's values
-    assert a_h.element_lists(SKEW_ROWS, wire == "packed") \
-        is a_h.element_lists(SKEW_ROWS, wire == "packed")
+    assert a_h.element_lists(wire == "packed") \
+        is a_h.element_lists(wire == "packed")
 
 
 @pytest.mark.parametrize("source", ["float32", "bfloat16", "cast", "host",
@@ -273,7 +266,7 @@ def test_element_tables_replay_the_ring_steps(g, wire):
     plan = plan_matmul(a_h, b_h, wire=wire)
     assert plan.wire == wire
     pool = _pool(a_h, wire)
-    b_pool = plan.executor.batch(b_h.placed(SKEW_COLS)["dense"])
+    b_pool = plan.executor.batch(b_h.placed(NATURAL)["dense"])
     nbr = a_h.tile_shape[0] // BS
     split = 0
     for step, a_map, b_map in _steps(plan, a_h):
@@ -281,7 +274,7 @@ def test_element_tables_replay_the_ring_steps(g, wire):
         assert plan.spmm_table(a_h, a_map, b_map) is table
         el = table.elements
         assert table.path == "elements"
-        assert el.lists is a_h.element_lists(SKEW_ROWS, wire == "packed")
+        assert el.lists is a_h.element_lists(wire == "packed")
         tile, q, b_tile, row0, rows, credit = el.units.numpy()
         np.testing.assert_array_equal(q, np.asarray(a_map)[tile])
         np.testing.assert_array_equal(b_tile, np.asarray(b_map)[tile])
@@ -413,7 +406,7 @@ def test_element_lists_build_in_slices(monkeypatch):
     whole pool."""
     a_h = _handle(2, "float32", seed=7)
     pool = _pool(a_h, "padded")
-    lists = a_h.pool_lists(SKEW_ROWS, False)
+    lists = a_h.pool_lists(False)
     nbr = a_h.tile_shape[0] // BS
     whole = element_lists(pool, lists, nbr)
     monkeypatch.setattr(bsr_spmm, "BUILD_SLICE", BS * BS)

@@ -266,11 +266,12 @@ def test_kernel_work_split_covers_every_block_once(chunk):
 def test_plan_spmm_tables_list_the_blocks_that_hold_data(g, wire):
     """The table a dense-output plan cuts for each ring step lists exactly
     the blocks that hold data of the pool tile each position reads (the
-    placed stack, or the packed buffers), zero-fills exactly the block-rows
-    none of them visits, is built once, and replays to the step's product
-    A[i, k] @ B[k, j], k = (i + j + step) % g."""
-    from repro_torch.core.api import (SKEW_COLS, SKEW_ROWS, DistBSR,
-                                      DistDense, plan_matmul)
+    natural stack, or the packed buffers, through the step's launch maps),
+    zero-fills exactly the block-rows none of them visits, is built once,
+    and replays to the step's product A[i, k] @ B[k, j], k = (i + j +
+    step) % g."""
+    from repro_torch.core.api import (NATURAL, DistBSR, DistDense,
+                                      plan_matmul)
     a_d = tbsr.random_sparse(12 * 4, 12 * 4, 0.04, seed=g)
     a_d[:4] += tbsr.random_sparse(4, 12 * 4, 0.5, seed=g + 1)
     a_d[20:28] = 0
@@ -281,18 +282,14 @@ def test_plan_spmm_tables_list_the_blocks_that_hold_data(g, wire):
     assert plan.wire == wire
     ex = plan.executor
     pool = ex.batch((a_h.packed_wire if wire == "packed" else a_h.placed)(
-        SKEW_ROWS)["blocks"])
-    b_pool = ex.batch(b_h.placed(SKEW_COLS)["dense"])
+        NATURAL)["blocks"])
+    b_pool = ex.batch(b_h.placed(NATURAL)["dense"])
     s = pool.shape[1]
     nz = (pool != 0).flatten(2).any(dim=2).reshape(-1).numpy()
     nat_a, nat_b = a_h.tiled.to_dense().numpy(), b_h.data.numpy()
     tm, tn = a_h.tile_shape[0], b_h.tile_shape[1]
     nbr = tm // 4
-    a_map = b_map = ex.identity_map()
-    for step in range(g):
-        if step:
-            a_map = ex.shift_map(a_map, "col")
-            b_map = ex.shift_map(b_map, "row")
+    for step, ((a_map, b_map),) in enumerate(plan.launch_maps()):
         table = plan.spmm_table(a_h, a_map, b_map)
         assert plan.spmm_table(a_h, a_map, b_map) is table
         want = [q * s + x for q in a_map for x in range(s) if nz[q * s + x]]

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core import api
 from repro_torch.core import bsr as tbsr
-from repro_torch.core.api import (SKEW_COLS, DistBSR, DistDense, matmul,
+from repro_torch.core.api import (NATURAL, DistBSR, DistDense, matmul,
                                   plan_matmul)
 from repro_torch.kernels import bsr_spmm, ref
 from repro_torch.kernels import ops as tops
@@ -25,9 +25,9 @@ BF16_STEP = 2.0 ** -7
 NAN = float("nan")
 
 
-def _tiles(h: DistBSR, placement: str):
-    """A placed handle's blocks, rows and cols as ``[g*g, ...]`` pools."""
-    tree = h.placed(placement)
+def _tiles(h: DistBSR):
+    """A handle's natural blocks, rows and cols as ``[g*g, ...]`` pools."""
+    tree = h.placed(NATURAL)
     return [tree[k].reshape(-1, *tree[k].shape[2:])
             for k in ("blocks", "rows", "cols")]
 
@@ -267,12 +267,8 @@ def _low_fill(m: int, seed: int, bs: int, hub: bool = True) -> np.ndarray:
 
 
 def _steps(plan, g):
-    ex = plan.executor
-    a_map = b_map = ex.identity_map()
-    for step in range(g):
-        if step:
-            a_map = ex.shift_map(a_map, "col")
-            b_map = ex.shift_map(b_map, "row")
+    """Each of the g ring steps' launch maps over the natural stacks."""
+    for step, ((a_map, b_map),) in enumerate(plan.launch_maps()):
         yield step, a_map, b_map
 
 
@@ -301,8 +297,7 @@ def test_table_replays_the_ring_steps(monkeypatch, g, bs, poke):
         blocks[tuple(where)] = NAN if poke == "b_nan" else float("inf")
     plan = plan_matmul(a_h, b_h, algorithm="ring_c")
     nbr = a_h.tile_shape[0] // bs
-    a_pool = _tiles(a_h, plan.algorithm.a_placement)
-    b_pool = _tiles(b_h, plan.algorithm.b_placement)
+    a_pool, b_pool = _tiles(a_h), _tiles(b_h)
     c = want = None
     heavy = 0
     for step, a_map, b_map in _steps(plan, g):
@@ -341,7 +336,7 @@ def test_windows_are_each_rows_offsets():
     length; the rows' columns are sorted."""
     a_h = DistBSR.from_dense(_low_fill(3 * SB_WINDOW, 3, 16), g=2,
                              block_size=16, device=CPU)
-    lists = a_h.element_lists(SKEW_COLS, False)
+    lists = a_h.element_lists(False)
     assert lists.cols_sorted
     n = a_h.tile_shape[1]
     win = sparse_b_windows(lists, n).numpy()
@@ -434,12 +429,12 @@ def test_other_operands_keep_todays_paths(monkeypatch, case):
         b = DistBSR.from_dense(a, g=2, block_size=bs, device=CPU)
         kw["wire"] = "packed" if case == "packed" else "padded"
     if case == "unsorted":
-        lists = b.element_lists(SKEW_COLS, False)
-        b._element_lists[(SKEW_COLS, False)] = dataclasses.replace(
-            lists, cols_sorted=False)
+        lists = b.element_lists(False)
+        b._element_lists[False] = dataclasses.replace(lists,
+                                                      cols_sorted=False)
     plan = plan_matmul(a_h, b, **kw)
     if case != "dense_b":
-        assert plan.takes_sparse_b(a_h, b) is (case == "unsorted")
+        assert plan.takes_sparse_b(a_h, b) is False
     matmul(a_h, b, **kw)
     api.clear_plan_cache()
     assert calls["sparse_b"] == 0 and calls["dense"] == 2
